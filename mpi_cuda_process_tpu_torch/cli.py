@@ -1,20 +1,25 @@
-"""Command-line entry point of the port (single device)::
+"""Command-line entry point of the port::
 
     python -m mpi_cuda_process_tpu_torch --stencil heat3d --grid 512,512,512 \
         --iters 100 --fuse 4
     python -m mpi_cuda_process_tpu_torch --stencil wave3d --grid 256,256,256 \
         --iters 100 --compute pallas
+    python -m mpi_cuda_process_tpu_torch --stencil heat3d \
+        --grid 1024,1024,1024 --iters 100 --mesh 2,2 --compute pallas --overlap
     python -m mpi_cuda_process_tpu_torch --stencil heat2d --grid 64,64 \
         --iters 50 --device cpu --render
 
 The flags keep the TPU package's names and values, so one command line runs
 on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
-(K1/K2), ``--fuse K`` the temporal-blocking kernel (K3), and ``--compute
-auto``/``jnp`` the plain tensor path.  ``--device`` (default ``cuda``) picks
-where the state lives; asking for ``cuda`` without a card raises, it never
-carries on on the CPU.  Only the flags the port runs are registered; a
-combination that needs a kernel or module not ported yet raises, naming its
-ROADMAP item.
+(K1/K2), or under ``--mesh``/``--periodic`` the compute_fn kernel (K4/K5);
+``--fuse K`` the temporal-blocking kernel (K3, its sharded mode under
+``--mesh``, K6 with ``--fuse-kind padfree`` on a z-only mesh); ``--compute
+auto``/``jnp`` the plain tensor path.  ``--mesh`` decomposes the grid over
+the visible devices (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N
+shards on one card).  ``--device`` (default ``cuda``) picks where the state
+lives; asking for ``cuda`` without a card raises, it never carries on on
+the CPU.  Only the flags the port runs are registered; a combination that
+needs a kernel or module not ported yet raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,19 +37,20 @@ import torch
 
 from . import driver
 from .config import RunConfig, parse_int_tuple, parse_params
-from .interop import fields_from_numpy
+from .interop import fields_from_numpy, shard_from_numpy
 from .ops import stencil as stencil_lib
 from .ops import heat, wave  # noqa: F401  (populate the registry)
 from .ops.cuda import fused as fused_lib
+from .ops.cuda import kernels as kernels_lib
 from .ops.cuda import rawstep
+from .parallel import mesh as mesh_lib
+from .parallel import stepper as stepper_lib
 from .utils import checkpointing, diagnostics, render
-from .utils.init import init_state
+from .utils.init import init_state, init_state_sharded
 
 log = logging.getLogger("mpi_cuda_process_tpu_torch")
 
 _BF16_ITEM = "ROADMAP B1/B3 (bfloat16 raw-step and fused kernels)"
-_COMPUTE_FN_ITEM = ("ROADMAP B2 (the compute_fn kernels: z-chunk 3D for "
-                    "--periodic and --mesh, whole-grid 2D)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,6 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--grid", type=parse_int_tuple, default=(512, 512),
                    help="grid shape, e.g. 512,512 or 256x256x256")
     p.add_argument("--iters", type=int, default=1000)
+    p.add_argument("--mesh", type=parse_int_tuple, default=(),
+                   help="per-grid-axis shard counts, e.g. 2,2 (default: "
+                        "unsharded); needs that many devices, or "
+                        f"{mesh_lib.VIRTUAL_DEVICES_ENV}=N for N shards on "
+                        "one device")
     p.add_argument("--dtype", default=None,
                    help="float32|bfloat16|... (default: stencil's own)")
     p.add_argument("--seed", type=int, default=0)
@@ -80,13 +91,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="auto/jnp: the plain tensor path (the dispatch "
                         "tables are empty until H100 measurements fill "
                         "them); pallas: the hand-written CUDA raw-step "
-                        "kernel")
+                        "kernel, or the compute_fn kernel under --mesh or "
+                        "--periodic")
+    p.add_argument("--overlap", action="store_true",
+                   help="under --mesh: compute the bulk of each block while "
+                        "the halo exchange runs (side CUDA stream), then "
+                        "the boundary rings; same values")
     p.add_argument("--fuse", type=int, default=0,
                    help="temporal blocking: advance K steps per memory pass "
                         "with the hand-written CUDA fused kernel (3D)")
     p.add_argument("--fuse-kind", default="auto",
                    choices=["auto", "tiled", "padfree", "stream"],
-                   help="auto/tiled/padfree all run the one fused kernel; "
+                   help="unsharded: auto/tiled/padfree all run the one "
+                        "fused kernel; under --mesh: auto = the padded "
+                        "kind, padfree = the z-slab kernel (z-only mesh); "
                         "stream is not ported")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the state lives (default cuda; raises "
@@ -98,11 +116,11 @@ def config_from_args(argv=None) -> RunConfig:
     a = build_parser().parse_args(argv)
     return RunConfig(
         stencil=a.stencil, grid=a.grid, iters=a.iters, dtype=a.dtype,
-        seed=a.seed, init=a.init, periodic=a.periodic,
+        mesh=a.mesh, seed=a.seed, init=a.init, periodic=a.periodic,
         log_every=a.log_every, checkpoint_every=a.checkpoint_every,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
-        render=a.render, compute=a.compute, fuse=a.fuse,
+        render=a.render, compute=a.compute, overlap=a.overlap, fuse=a.fuse,
         fuse_kind=a.fuse_kind, device=a.device,
         params=parse_params(a.param),
     )
@@ -119,10 +137,8 @@ _AUTO_FUSE_KIND: dict = {}
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
 _UNPORTED = (
-    ("mesh", "--mesh", "A4/A5 (decomposition, halo exchange over NCCL)"),
     ("groups", "--groups", "A7 (device groups)"),
     ("group_transport", "--group-transport", "A7 (device groups)"),
-    ("overlap", "--overlap", "A5 (overlapped sharded stepping)"),
     ("pipeline", "--pipeline", "A5 (pipelined halo exchange)"),
     ("exchange", "--exchange", "A5/B7 (remote-DMA exchange)"),
     ("ensemble", "--ensemble", "A7 (ensembles)"),
@@ -185,7 +201,8 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
     until H100 measurements fill it), only when every cadence is a multiple
     of k and the kernel accepts the run's stencil and grid.
     """
-    if cfg.compute != "auto" or cfg.fuse or cfg.fuse_kind != "auto":
+    if cfg.compute != "auto" or cfg.fuse or cfg.fuse_kind != "auto" \
+            or _uses_mesh(cfg):
         return cfg
     if torch.device(cfg.device).type != "cuda" or len(cfg.grid) != 3:
         return cfg
@@ -205,9 +222,14 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
                                                              "auto"))
 
 
+def _uses_mesh(cfg: RunConfig) -> bool:
+    """Whether this run decomposes over a device mesh (sharded step_fn)."""
+    return bool(cfg.mesh) and math.prod(cfg.mesh) > 1
+
+
 def _raw_eligible(cfg: RunConfig, name: str) -> bool:
     """Structural eligibility of the whole-step raw kernel."""
-    if cfg.periodic or cfg.fuse or cfg.compute == "jnp":
+    if cfg.periodic or cfg.fuse or cfg.compute == "jnp" or _uses_mesh(cfg):
         return False
     if cfg.compute == "pallas":
         return True
@@ -224,25 +246,38 @@ def resolve_raw_step(cfg: RunConfig, st):
 
 
 def resolve_compute_fn(cfg: RunConfig, st):
-    """The ``compute_fn`` kernel that ``--compute pallas`` falls to when the
-    raw kernel does not apply (2D grids, periodic 3D) — not ported yet."""
-    if cfg.compute == "pallas":
-        raise NotImplementedError(
-            f"--compute pallas for {st.name} on grid {tuple(cfg.grid)}"
-            + (" --periodic" if cfg.periodic else "")
-            + f" needs a kernel the port does not have yet: "
-              f"{_COMPUTE_FN_ITEM}")
-    return None
+    """The ``compute_fn`` kernel (K4/K5) that ``--compute pallas`` plugs
+    into the step when the raw kernel does not apply (``--mesh``,
+    ``--periodic``); None otherwise.  2D names raise (ROADMAP B2)."""
+    if cfg.compute != "pallas":
+        return None
+    if not kernels_lib.has_pallas_kernel(st.name):
+        raise ValueError(f"no pallas kernel for {st.name!r}")
+    log.info("compute: compute_fn CUDA kernel (%s)", st.name)
+    return kernels_lib.make_pallas_compute(st, device=cfg.device)
 
 
-def _resume(cfg: RunConfig, st, device):
+def _resume(cfg: RunConfig, st, device, mesh=None):
+    """Load the checkpoint; scatter it onto ``mesh`` when the run is
+    sharded (an ``npy`` checkpoint holds the global fields either way)."""
     loaded, start_step, _ = checkpointing.load_any(cfg.checkpoint_dir)
     for a in loaded:
         if tuple(a.shape) != tuple(cfg.grid):
             raise ValueError(f"checkpoint in {cfg.checkpoint_dir} holds a "
                              f"{tuple(a.shape)} grid, not {tuple(cfg.grid)}")
     log.info("resumed from %s at step %d", cfg.checkpoint_dir, start_step)
+    if mesh is not None:
+        return shard_from_numpy(loaded, mesh), start_step
     return fields_from_numpy(loaded, device=device), start_step
+
+
+def _make_run_mesh(cfg: RunConfig, device):
+    """The run's mesh over the visible devices of ``--device``."""
+    mesh_lib.bootstrap_distributed()
+    m = mesh_lib.make_mesh(cfg.mesh, mesh_lib.local_devices(device.type))
+    log.info("mesh %s: %d shards on %d device(s)",
+             "x".join(map(str, cfg.mesh)), m.size, len(m.unique_devices()))
+    return m
 
 
 def build(cfg: RunConfig):
@@ -252,6 +287,13 @@ def build(cfg: RunConfig):
     st = _make_cfg_stencil(cfg)
     if cfg.fuse_kind != "auto" and not cfg.fuse:
         raise ValueError("--fuse-kind requires an explicit --fuse K")
+    use_mesh = _uses_mesh(cfg)
+    if cfg.overlap and not use_mesh:
+        raise ValueError(
+            "--overlap needs --mesh: the split overlaps the halo exchange "
+            "with the interior update, and an unsharded run has no "
+            "exchange to overlap")
+    m = _make_run_mesh(cfg, device) if use_mesh else None
     if (cfg.fuse or cfg.compute == "pallas") and st.dtype != torch.float32:
         raise NotImplementedError(
             f"{stencil_lib.dtype_name(st.dtype)} on a kernel path is not "
@@ -268,8 +310,27 @@ def build(cfg: RunConfig):
             raise NotImplementedError(
                 "--fuse-kind stream needs the streaming kernel, which is "
                 "not ported: ROADMAP B5")
-        step_fn = fused_lib.make_fused_step(
-            st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)
+        if use_mesh:
+            if cfg.fuse_kind not in ("auto", "padfree"):
+                raise ValueError(
+                    "--fuse-kind selects the 3D kernel variant; sharded "
+                    "runs support 'padfree' (z-only meshes here) and the "
+                    "exchange-padded kernel is 'auto'")
+            kind = "padfree" if cfg.fuse_kind == "padfree" else None
+            step_fn = stepper_lib.make_sharded_temporal_step(
+                st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,
+                overlap=cfg.overlap, device=device)
+            if step_fn is None:
+                raise ValueError(
+                    f"--fuse {cfg.fuse} + --mesh {cfg.mesh}"
+                    + (f" --fuse-kind {kind}" if kind else "")
+                    + f" unsupported for {st.name} on {cfg.grid}: needs a "
+                    f"fused kernel, an unsharded lane axis, 2*k*halo a "
+                    f"multiple of 8 (f32), per-shard extents dividing the "
+                    f"grid, and blocks >= the k-step margin")
+        else:
+            step_fn = fused_lib.make_fused_step(
+                st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)
         if step_fn is None:
             raise ValueError(
                 f"--fuse {cfg.fuse} unsupported for {st.name} on grid "
@@ -280,6 +341,10 @@ def build(cfg: RunConfig):
         step_fn = resolve_raw_step(cfg, st)
         if step_fn is not None:
             log.info("compute: whole-step raw CUDA kernel (%s)", st.name)
+        elif use_mesh:
+            step_fn = stepper_lib.make_sharded_step(
+                st, m, cfg.grid, periodic=cfg.periodic,
+                compute_fn=resolve_compute_fn(cfg, st), overlap=cfg.overlap)
         else:
             step_fn = driver.make_step(
                 st, cfg.grid, periodic=cfg.periodic,
@@ -287,7 +352,12 @@ def build(cfg: RunConfig):
     resuming = (cfg.resume and cfg.checkpoint_dir
                 and checkpointing.checkpoint_format(cfg.checkpoint_dir))
     if resuming:
-        fields, start_step = _resume(cfg, st, device)
+        fields, start_step = _resume(cfg, st, device, m)
+    elif m is not None:
+        # each block computed on its own device; no device holds the grid
+        fields = init_state_sharded(st, cfg.grid, m, cfg.seed,
+                                    kind=cfg.init, periodic=cfg.periodic)
+        start_step = 0
     else:
         fields = init_state(st, cfg.grid, cfg.seed, kind=cfg.init,
                             periodic=cfg.periodic, device=device)
@@ -306,7 +376,10 @@ def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool):
     if save_ckpt and cfg.checkpoint_dir:
         _save_ckpt(cfg, fields, final_step)
     if cfg.render:
-        f = fields[0].detach().cpu()
+        f = fields[0]
+        if stepper_lib.is_sharded(fields):
+            f = stepper_lib.gather_fields((f,), device="cpu")[0]
+        f = f.detach().cpu()
         print(render.ascii_render(
             np.asarray(f.float() if f.is_floating_point() else f)))
 

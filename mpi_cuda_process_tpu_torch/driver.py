@@ -24,9 +24,10 @@ def frame_mask(
     global_shape: Sequence[int],
     offsets: Sequence[int],
     width: int,
-    device="cpu",
+    device,
 ) -> torch.Tensor:
-    """Boolean mask of guard-frame cells for a block of a grid.
+    """Boolean mask of guard-frame cells for a block of a grid, on
+    ``device`` (the block's own: a sharded step builds one per shard).
 
     ``offsets[d]`` is the global index of the block's first cell along
     axis d (0 when unsharded).  A cell is frame iff its global coordinate
@@ -126,11 +127,15 @@ def make_runner(step_fn, n_steps: int):
 
 
 def synchronize(fields: Fields) -> Fields:
-    """Wait for the device work producing ``fields`` (no-op on the CPU)."""
+    """Wait for the device work producing ``fields`` (no-op on the CPU);
+    for sharded fields, on every device that holds a block."""
+    devices = []
     for f in fields:
-        if f.is_cuda:
-            torch.cuda.synchronize(f.device)
-            break
+        for t in (f if isinstance(f, list) else (f,)):
+            if t.is_cuda and t.device not in devices:
+                devices.append(t.device)
+    for d in devices:
+        torch.cuda.synchronize(d)
     return fields
 
 
@@ -174,6 +179,9 @@ def run_simulation(
     observer=None,
 ) -> Fields:
     """Run ``n_steps``, optionally surfacing state every ``log_every`` steps.
+
+    ``fields`` are whole tensors or, with a sharded ``step_fn``, sharded
+    fields (``parallel.stepper.ShardedField``).
 
     With ``log_every == 0`` (or nothing to call at boundaries) the whole run
     is one chunk.  With logging, the run is chunked so

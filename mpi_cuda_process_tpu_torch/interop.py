@@ -6,6 +6,11 @@ package's fields (handed over as numpy arrays) and its ``npy`` checkpoints
 the port's tensors unchanged, and back.  bfloat16 has no numpy dtype of its
 own; it crosses as ``ml_dtypes.bfloat16`` (the type the TPU package's
 checkpoints hold) where that package is installed.
+
+A decomposed run's fields (``parallel.stepper.ShardedField``) cross as
+their gathered global arrays: :func:`gather_to_numpy` assembles them on the
+host block by block (no device holds the global grid), and
+:func:`shard_from_numpy` cuts global arrays into a mesh's blocks.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from .ops.stencil import Fields, as_torch_dtype
+from .parallel.stepper import ShardedField, block_slices
 
 
 def _ml_bfloat16():
@@ -46,14 +52,50 @@ def fields_from_numpy(fields: Sequence, device="cuda", dtype=None) -> Fields:
     return tuple(_to_tensor(a, device, dtype) for a in fields)
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16).view(
+            _ml_bfloat16())
+    return t.numpy()
+
+
 def fields_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
-    """Tensors (any device) -> host numpy arrays, dtype preserved."""
+    """Tensors (any device) or sharded fields -> host numpy arrays (the
+    global grid), dtype preserved."""
+    if fields and isinstance(fields[0], ShardedField):
+        return gather_to_numpy(fields)
+    return tuple(_to_numpy(f) for f in fields)
+
+
+def gather_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
+    """Sharded fields -> their global numpy arrays, assembled on the host
+    one block at a time."""
     out = []
     for f in fields:
-        f = f.detach().cpu().contiguous()
-        if f.dtype == torch.bfloat16:
-            bits = f.view(torch.int16).numpy().view(np.uint16)
-            out.append(bits.view(_ml_bfloat16()))
-        else:
-            out.append(f.numpy())
+        local = tuple(f[0].shape)
+        g = None
+        for c, b in zip(f.mesh.coords(), f):
+            a = _to_numpy(b)
+            if g is None:
+                g = np.empty(f.global_shape, dtype=a.dtype)
+            g[block_slices(c, local)] = a
+        out.append(g)
+    return tuple(out)
+
+
+def shard_from_numpy(fields: Sequence, mesh, dtype=None) -> Fields:
+    """Global numpy arrays -> sharded fields over ``mesh``: each block cut
+    on the host and copied to its device."""
+    out = []
+    for a in fields:
+        a = np.asarray(a)
+        counts = mesh.counts(a.ndim)
+        if any(g % c for g, c in zip(a.shape, counts)):
+            raise ValueError(f"grid {a.shape} not divisible by mesh "
+                             f"{mesh.shape}")
+        local = tuple(g // c for g, c in zip(a.shape, counts))
+        blocks = [_to_tensor(a[block_slices(c, local)], mesh.device(c), dtype)
+                  for c in mesh.coords()]
+        out.append(ShardedField(blocks, mesh, a.shape))
     return tuple(out)

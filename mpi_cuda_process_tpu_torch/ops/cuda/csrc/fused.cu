@@ -1,36 +1,53 @@
-// K3 fused_step<KIND>: k guard-frame (or periodic) steps per device-memory
-// pass, by overlapped tiling in shared memory.
+// K3 fused_step<KIND, SRC> and K6 (the same template, SRC = ZSLAB): k
+// guard-frame (or periodic) steps per device-memory pass, by overlapped
+// tiling in shared memory.
 //
 // Replaces: the TPU package's ops/pallas/fused.py — build_fused_call's
-// _fused_kernel (padded 4-block windows) and _fused_raw_kernel (pad-free
-// 9-block windows), their _run_micros / _window_frame, and the micro-steps
-// _micro_heat, _micro_heat3d27, _micro_heat3d4th and _micro_wave.  On the
-// TPU the two kernels differ only in how a VMEM window is assembled from
-// aligned BlockSpecs; here one kernel computes its own window from global
-// coordinates, so one kernel serves --fuse-kind auto, tiled and padfree.
+// _fused_kernel (padded 4-block windows, unsharded and sharded_global mode)
+// and _fused_raw_kernel (pad-free 9-block windows), build_zslab_padfree_call's
+// _fused_zslab_kernel (K6), their _run_micros / _window_frame, and the
+// micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th and
+// _micro_wave.  On the TPU the kernels differ in how a VMEM window is
+// assembled from aligned BlockSpecs; here one kernel computes its own
+// window from local coordinates, and a window-source policy says where
+// each window cell is read from:
+//
+//   RAW     the whole (Z, Y, X) grid; out-of-domain cells wrap (periodic)
+//           or clamp.  --fuse on one device (auto, tiled and padfree).
+//   PADDED  a shard's z/y-padded block (Z+2m, Y+2m, X) from the width-m
+//           halo exchange; z and y come from the pad, x wraps or clamps.
+//           --fuse under --mesh (the sharded_global mode).
+//   ZSLAB   a z-only shard's core (Z, Y, X) plus the exchanged (m, Y, X)
+//           slabs below and above it as separate operands, so no padded
+//           copy of the block exists; y and x are whole and wrap or clamp
+//           as in RAW.  --fuse --fuse-kind padfree under a z-only --mesh.
+//
+// The frame is pinned on GLOBAL coordinates, (oz, oy) + local, against the
+// global extent (GZ, GY, GX): a window cell past a global wall is frame
+// (pinned every micro-step; its value only ever feeds other pinned cells),
+// while a cell past an interior shard face holds real neighbour data and is
+// updated like any other.  RAW passes origin 0 and the grid's own extent.
 //
 // Bound on an H100: device-memory bytes.  One pass reads each field once
 // and writes it once for k steps, so the bytes per step fall k-fold against
-// the raw step (K1/K2).  What the design pays for that: each block of
-// (TZ, TY, TX) core cells loads a (TZ+2m, TY+2m, TX+2m) window (m = k*halo)
-// — neighbouring windows overlap, and the overlap is served mostly from L2 —
-// and recomputes the shrinking margin in every micro-step (about 2x the
-// useful flops at core (8, 8, 32), k = 4), which the float32 units have the
-// headroom for at 7 to 27 points.
+// the one-step kernels (K1/K2, K4/K5).  What the design pays for that: each
+// block of (TZ, TY, TX) core cells loads a (TZ+2m, TY+2m, TX+2m) window
+// (m = k*halo) — neighbouring windows overlap, and the overlap is served
+// mostly from L2 — and recomputes the shrinking margin in every micro-step
+// (about 2x the useful flops at core (8, 8, 32), k = 4), which the float32
+// units have the headroom for at 7 to 27 points.
 //
 // Per block:
-//   1. load the window of every field into dynamic shared memory.  Cells
-//      outside the domain wrap when `periodic`; otherwise they are clamped
-//      in (any value would do: they are frame cells, pinned every step, and
-//      only ever feed other pinned cells);
+//   1. load the window of every field into dynamic shared memory from its
+//      source;
 //   2. apply k micro-steps in shared memory, micro-step s updating the
-//      cells at least s*halo from the window edge, re-pinning the GLOBAL
+//      cells at least s*halo from the window edge, re-pinning the global
 //      guard frame (ghost cells included), __syncthreads() between steps.
 //      Heat ping-pongs between two buffers.  Wave writes the new u into
 //      u_prev's buffer in place (each cell reads u_prev only at itself) and
 //      then swaps roles, so the old u becomes the new u_prev for free;
 //   3. write the (TZ, TY, TX) core (the cells at least m from the window
-//      edge, all valid after k micro-steps), masked to the domain.
+//      edge, all valid after k micro-steps), masked to the block.
 //
 // Shared memory is 2 buffers x window x 4 B: 80 KB for core (8, 8, 32) at
 // m = 4, so the launch raises the kernel's dynamic shared-memory limit
@@ -42,16 +59,60 @@ namespace {
 
 constexpr int THREADS = 256;
 
+enum Source { RAW = 0, PADDED = 1, ZSLAB = 2 };
+
+// Where a launch's operands live and where its core block sits.
+struct Window {
+  const float* in[2];  // RAW, ZSLAB: the (Z, Y, X) core; PADDED: the padded block
+  const float* lo[2];  // ZSLAB: the (m, Y, X) slab just below the core
+  const float* hi[2];  // ZSLAB: the (m, Y, X) slab just above the core
+  float* out[2];       // (Z, Y, X)
+  int Z, Y, X;         // core (output) extent
+  int GZ, GY, GX;      // global extent: the frame
+  int oz, oy;          // global index of the core's first z plane / y row
+  int m;               // PADDED: pad width; ZSLAB: slab depth
+};
+
 __device__ __forceinline__ int wrap_or_clamp(int g, int n, int periodic) {
   if (periodic) return ((g % n) + n) % n;
   return g < 0 ? 0 : (g >= n ? n - 1 : g);
 }
 
-template <int KIND>
+__device__ __forceinline__ int clampi(int g, int lo, int hi) {
+  return g < lo ? lo : (g > hi ? hi : g);
+}
+
+// Field f at local coordinate (z, y, x) of the core (any value where the
+// source has none: such cells are pinned or never reach the core).
+template <int SRC>
+__device__ __forceinline__ float load(const Window& w, int f, int z, int y,
+                                      int x, int periodic) {
+  if constexpr (SRC == RAW) {
+    z = wrap_or_clamp(z, w.Z, periodic);
+    y = wrap_or_clamp(y, w.Y, periodic);
+    x = wrap_or_clamp(x, w.X, periodic);
+    return w.in[f][(static_cast<long>(z) * w.Y + y) * w.X + x];
+  } else if constexpr (SRC == PADDED) {
+    const int PY = w.Y + 2 * w.m;
+    z = clampi(z + w.m, 0, w.Z + 2 * w.m - 1);
+    y = clampi(y + w.m, 0, PY - 1);
+    x = wrap_or_clamp(x, w.X, periodic);
+    return w.in[f][(static_cast<long>(z) * PY + y) * w.X + x];
+  } else {
+    y = wrap_or_clamp(y, w.Y, periodic);
+    x = wrap_or_clamp(x, w.X, periodic);
+    const long plane = static_cast<long>(w.Y) * w.X;
+    const long row = static_cast<long>(y) * w.X + x;
+    if (z < 0) return w.lo[f][clampi(z + w.m, 0, w.m - 1) * plane + row];
+    if (z >= w.Z) return w.hi[f][clampi(z - w.Z, 0, w.m - 1) * plane + row];
+    return w.in[f][z * plane + row];
+  }
+}
+
+template <int KIND, int SRC>
 __global__ void __launch_bounds__(THREADS)
-fused_step(const float* __restrict__ in0, const float* __restrict__ in1,
-           float* __restrict__ out0, float* __restrict__ out1, int Z, int Y,
-           int X, int k, int periodic, Coef c, int TZ, int TY, int TX) {
+fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
+           int TX) {
   extern __shared__ float smem[];
   constexpr int h = kind_halo(KIND);
   constexpr bool two = KIND == WAVE7;
@@ -59,21 +120,18 @@ fused_step(const float* __restrict__ in0, const float* __restrict__ in1,
   const int WZ = TZ + 2 * m, WY = TY + 2 * m, WX = TX + 2 * m;
   const int W = WZ * WY * WX;
   const long sy = WX, sz = static_cast<long>(WX) * WY;
-  // global coordinate of window cell (0, 0, 0)
+  // local coordinate of window cell (0, 0, 0)
   const int oz = blockIdx.z * TZ - m, oy = blockIdx.y * TY - m,
             ox = blockIdx.x * TX - m;
-  const long gsy = X, gsz = static_cast<long>(X) * Y;
 
   float* cur = smem;       // heat: current level; wave: u
   float* nxt = smem + W;   // heat: next level;    wave: u_prev
 
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
     const int wx = i % WX, t = i / WX, wy = t % WY, wz = t / WY;
-    const long g = wrap_or_clamp(oz + wz, Z, periodic) * gsz +
-                   wrap_or_clamp(oy + wy, Y, periodic) * gsy +
-                   wrap_or_clamp(ox + wx, X, periodic);
-    cur[i] = in0[g];
-    if constexpr (two) nxt[i] = in1[g];
+    cur[i] = load<SRC>(w, 0, oz + wz, oy + wy, ox + wx, periodic);
+    if constexpr (two) nxt[i] = load<SRC>(w, 1, oz + wz, oy + wy, ox + wx,
+                                          periodic);
   }
   __syncthreads();
 
@@ -84,13 +142,14 @@ fused_step(const float* __restrict__ in0, const float* __restrict__ in1,
     for (int i = threadIdx.x; i < R; i += blockDim.x) {
       const int rx = i % RX, t = i / RX, ry = t % RY, rz = t / RY;
       const int wz = rz + lo, wy = ry + lo, wx = rx + lo;
-      const long w = wz * sz + wy * sy + wx;
+      const long q = wz * sz + wy * sy + wx;
       const bool frame =
-          !periodic && in_frame(oz + wz, oy + wy, ox + wx, Z, Y, X, h);
+          !periodic && in_frame(w.oz + oz + wz, w.oy + oy + wy, ox + wx,
+                                w.GZ, w.GY, w.GX, h);
       if constexpr (two) {
-        nxt[w] = frame ? cur[w] : wave_update(cur + w, nxt[w], sy, sz, c);
+        nxt[q] = frame ? cur[q] : wave_update(cur + q, nxt[q], sy, sz, c);
       } else {
-        nxt[w] = frame ? cur[w] : heat_update<KIND>(cur + w, sy, sz, c);
+        nxt[q] = frame ? cur[q] : heat_update<KIND>(cur + q, sy, sz, c);
       }
     }
     __syncthreads();
@@ -100,58 +159,96 @@ fused_step(const float* __restrict__ in0, const float* __restrict__ in1,
   }
 
   const int C = TZ * TY * TX;
+  const long gsy = w.X, gsz = static_cast<long>(w.X) * w.Y;
   for (int i = threadIdx.x; i < C; i += blockDim.x) {
     const int cx = i % TX, t = i / TX, cy = t % TY, cz = t / TY;
     const int gz = oz + m + cz, gy = oy + m + cy, gx = ox + m + cx;
-    if (gz >= Z || gy >= Y || gx >= X) continue;
+    if (gz >= w.Z || gy >= w.Y || gx >= w.X) continue;
     const long g = gz * gsz + gy * gsy + gx;
-    const long w = (cz + m) * sz + (cy + m) * sy + (cx + m);
-    out0[g] = cur[w];
-    if constexpr (two) out1[g] = nxt[w];  // wave: the new u_prev is the previous u
+    const long q = (cz + m) * sz + (cy + m) * sy + (cx + m);
+    w.out[0][g] = cur[q];
+    if constexpr (two) w.out[1][g] = nxt[q];  // wave: the new u_prev is the previous u
   }
 }
 
-template <int KIND>
-int launch(const float* in0, const float* in1, float* out0, float* out1,
-           int Z, int Y, int X, int k, int periodic, const Coef& c, int tz,
+template <int KIND, int SRC>
+int launch(const Window& w, int k, int periodic, const Coef& c, int tz,
            int ty, int tx, cudaStream_t s) {
   const int m = k * kind_halo(KIND);
   const size_t smem = 2 * sizeof(float) * static_cast<size_t>(tz + 2 * m) *
                       (ty + 2 * m) * (tx + 2 * m);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_step<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((X + tx - 1) / tx, (Y + ty - 1) / ty, (Z + tz - 1) / tz);
-  fused_step<KIND><<<grid, THREADS, smem, s>>>(in0, in1, out0, out1, Z, Y, X,
-                                               k, periodic, c, tz, ty, tx);
+  const dim3 grid((w.X + tx - 1) / tx, (w.Y + ty - 1) / ty,
+                  (w.Z + tz - 1) / tz);
+  fused_step<KIND, SRC><<<grid, THREADS, smem, s>>>(w, k, periodic, c, tz, ty,
+                                                    tx);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int SRC>
+int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
+             int tz, int ty, int tx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case HEAT7:
+      return launch<HEAT7, SRC>(w, k, periodic, c, tz, ty, tx, s);
+    case HEAT27:
+      return launch<HEAT27, SRC>(w, k, periodic, c, tz, ty, tx, s);
+    case HEAT13:
+      return launch<HEAT13, SRC>(w, k, periodic, c, tz, ty, tx, s);
+    case WAVE7:
+      return launch<WAVE7, SRC>(w, k, periodic, c, tz, ty, tx, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// One K3 launch on `stream`: (out0[, out1]) = k steps of (in0[, in1]).
-// in1/out1 are used by the wave kind only.  Returns a cudaError_t code.
+// One K3 launch on `stream`, one device: (out0[, out1]) = k steps of
+// (in0[, in1]) on the whole (Z, Y, X) grid.  in1/out1 are used by the wave
+// kind only.  Returns a cudaError_t code.
 EXPORT int fused_step_f32(int kind, const float* in0, const float* in1,
                           float* out0, float* out1, int Z, int Y, int X, int k,
                           int periodic, float a, float c0, float c1, float c2,
                           float c3, int tz, int ty, int tx, void* stream) {
-  const Coef c{a, c0, c1, c2, c3};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case HEAT7:
-      return launch<HEAT7>(in0, in1, out0, out1, Z, Y, X, k, periodic, c, tz,
-                           ty, tx, s);
-    case HEAT27:
-      return launch<HEAT27>(in0, in1, out0, out1, Z, Y, X, k, periodic, c, tz,
-                            ty, tx, s);
-    case HEAT13:
-      return launch<HEAT13>(in0, in1, out0, out1, Z, Y, X, k, periodic, c, tz,
-                            ty, tx, s);
-    case WAVE7:
-      return launch<WAVE7>(in0, in1, out0, out1, Z, Y, X, k, periodic, c, tz,
-                           ty, tx, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const Window w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+                 {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  return dispatch<RAW>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz, ty,
+                       tx, stream);
+}
+
+// One K3 launch in its sharded mode: the inputs are a shard's z/y-padded
+// (Z+2m, Y+2m, X) blocks, the outputs its (Z, Y, X) core k steps on; the
+// core's global origin is (oz, oy, 0) in a (GZ, GY, GX) grid.
+EXPORT int fused_step_padded_f32(int kind, const float* in0, const float* in1,
+                                 float* out0, float* out1, int Z, int Y, int X,
+                                 int GZ, int GY, int GX, int oz, int oy, int k,
+                                 int periodic, float a, float c0, float c1,
+                                 float c2, float c3, int tz, int ty, int tx,
+                                 void* stream) {
+  const Window w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+                 {out0, out1}, Z, Y, X, GZ, GY, GX, oz, oy,
+                 k * kind_halo(kind)};
+  return dispatch<PADDED>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
+                          ty, tx, stream);
+}
+
+// One K6 launch: a z-only shard's (Z, Y, X) core plus the (m, Y, X) slabs
+// below (lo) and above (hi) it, k steps on; the core's global origin is
+// (oz, 0, 0) in a (GZ, Y, X) grid.
+EXPORT int fused_zslab_f32(int kind, const float* in0, const float* in1,
+                           const float* lo0, const float* lo1,
+                           const float* hi0, const float* hi1, float* out0,
+                           float* out1, int Z, int Y, int X, int GZ, int oz,
+                           int k, int periodic, float a, float c0, float c1,
+                           float c2, float c3, int tz, int ty, int tx,
+                           void* stream) {
+  const Window w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1}, Z, Y, X,
+                 GZ, Y, X, oz, 0, k * kind_halo(kind)};
+  return dispatch<ZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
+                         ty, tx, stream);
 }

@@ -1,16 +1,26 @@
-"""Temporal blocking, k steps per device-memory pass: K3.
+"""Temporal blocking, k steps per device-memory pass: K3 and K6.
 
-``fused_step`` (``csrc/fused.cu::fused_step<KIND>``) advances heat3d,
+``fused_step`` (``csrc/fused.cu::fused_step<KIND, RAW>``) advances heat3d,
 heat3d27, heat3d4th or wave3d by k guard-frame (or periodic) steps in one
-kernel launch, by overlapped tiling in shared memory.  Replaces the TPU
-package's ``ops/pallas/fused.py::build_fused_call`` (``_fused_kernel`` and
-``_fused_raw_kernel`` with the ``_micro_heat``/``_micro_heat3d27``/
-``_micro_heat3d4th``/``_micro_wave`` micro-steps).  Bound on an H100:
+kernel launch, by overlapped tiling in shared memory.  Its sharded mode,
+``fused_step_padded`` (``fused_step<KIND, PADDED>``), does the same for one
+shard from its z/y-padded block and the shard's global origin: the
+``sharded_global`` mode of the TPU builder.  ``fused_zslab`` (K6,
+``fused_step<KIND, ZSLAB>``) takes a z-only shard's core and its two
+exchanged z slabs as separate operands instead, so no padded block exists.
+
+Replaces the TPU package's ``ops/pallas/fused.py::build_fused_call``
+(``_fused_kernel``, ``_fused_raw_kernel`` with the ``_micro_heat``/
+``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave`` micro-steps) and
+``build_zslab_padfree_call`` (``_fused_zslab_kernel``).  Bound on an H100:
 device-memory bytes, one read and one write of each field per k steps; the
 kernel source says what its design pays for that.
 
-Its plain PyTorch version is k applications of the port's
-``driver.make_step``; the wrapper takes it only for tensors on the CPU.
+Plain PyTorch versions: k applications of the port's ``driver.make_step``
+for ``fused_step``; for the sharded wrappers, k plain steps of the window
+they are given (``_plain_window_steps``), which equals k plain sharded
+steps on the shard's core.  A wrapper takes its plain version only for
+tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -21,12 +31,13 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from ...driver import make_step
+from ...driver import frame_mask, make_step
 from ..stencil import Fields, Stencil
 from . import _build
 from .rawstep import coefficients
 
-# Launches per stencil, keyed "fused_step[heat3d]": one added where the
+# Launches per wrapper and stencil, keyed "fused_step[heat3d]",
+# "fused_step_padded[heat3d]" or "fused_zslab[heat3d]": one added where the
 # kernel launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
@@ -68,13 +79,37 @@ def _sublane(itemsize: int) -> int:
     return 8 * max(1, 4 // itemsize)
 
 
+def margin_of(stencil: Stencil, k: int) -> Optional[int]:
+    """The k-step margin ``k * halo``, or None for a (stencil, k) the kernel
+    does not take: no fused kernel, ``2 * k * halo`` off the alignment unit,
+    or a window too large for shared memory."""
+    if not fused_supported(stencil) or k < 1:
+        return None
+    halo = _FUSED[stencil.name][1]
+    if (2 * k * halo) % _sublane(stencil.dtype.itemsize):
+        return None
+    if not fits(stencil, k):
+        return None
+    return k * halo
+
+
 def _lib():
     lib = _build.load("fused")
     if lib.fused_step_f32.argtypes is None:
         lib.fused_step_f32.argtypes = (
             [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + [_c_float] * 5
             + [_c_int] * 3 + [_c_ptr])
+        lib.fused_step_padded_f32.argtypes = (
+            [_c_int] + [_c_ptr] * 4 + [_c_int] * 10 + [_c_float] * 5
+            + [_c_int] * 3 + [_c_ptr])
+        lib.fused_zslab_f32.argtypes = (
+            [_c_int] + [_c_ptr] * 8 + [_c_int] * 7 + [_c_float] * 5
+            + [_c_int] * 3 + [_c_ptr])
     return lib
+
+
+def _pointers(tensors, two):
+    return (tensors[0].data_ptr(), tensors[1].data_ptr() if two else None)
 
 
 def fused_step(fields: Fields, stencil: Stencil, k: int,
@@ -95,13 +130,220 @@ def fused_step(fields: Fields, stencil: Stencil, k: int,
     lib = _lib()
     Z, Y, X = fields[0].shape
     rc = lib.fused_step_f32(
-        kind, fields[0].data_ptr(), fields[1].data_ptr() if two else None,
-        outs[0].data_ptr(), outs[1].data_ptr() if two else None,
+        kind, *_pointers(fields, two), *_pointers(outs, two),
         Z, Y, X, k, int(periodic), *coefficients(stencil), *CORE,
         _build.stream_of(fields[0]))
     _build.check(lib, rc, "fused_step")
     launches[f"fused_step[{stencil.name}]"] += 1
     return outs
+
+
+def _pad_window_axis(f: torch.Tensor, d: int, h: int, wrap: bool):
+    """``f`` extended by ``h`` cells at both ends of axis ``d``: wrapped, or
+    the edge cell repeated (a value that only feeds pinned or cropped
+    cells)."""
+    n = f.shape[d]
+    if wrap:
+        lo, hi = f.narrow(d, n - h, h), f.narrow(d, 0, h)
+    else:
+        shape = list(f.shape)
+        shape[d] = h
+        lo = f.narrow(d, 0, 1).expand(shape)
+        hi = f.narrow(d, n - 1, 1).expand(shape)
+    return torch.cat([lo, f, hi], dim=d)
+
+
+def _plain_window_steps(window: Fields, stencil: Stencil, k: int,
+                        origin: Sequence[int], global_shape: Sequence[int],
+                        periodic: bool, wrap_axes: Sequence[int]) -> Fields:
+    """k plain steps of ``stencil`` on a window whose first cell sits at
+    global index ``origin``: the plain version of the sharded kernels.
+
+    Axes in ``wrap_axes`` span the whole grid and wrap when ``periodic``;
+    the others are cut from a larger domain, and their outer ``k * halo``
+    cells come out stale — the caller crops them.  The frame is pinned on
+    global coordinates, as in the kernels.
+    """
+    h = stencil.halo
+    mask = None
+    if not periodic:
+        mask = frame_mask(window[0].shape, global_shape, origin, h,
+                          device=window[0].device)
+    fields = window
+    for _ in range(k):
+        padded = []
+        for f, fh in zip(fields, stencil.field_halos):
+            for d in range(f.dim()):
+                if fh:
+                    f = _pad_window_axis(f, d, fh,
+                                         periodic and d in wrap_axes)
+            padded.append(f)
+        new = stencil.update(tuple(padded))
+        out = []
+        for i, nf in enumerate(new):
+            j = stencil.carry_map[i]
+            if j is not None:
+                out.append(fields[j])
+            elif mask is None or not stencil.mask_fields[i]:
+                out.append(nf)
+            else:
+                out.append(torch.where(mask, fields[i], nf))
+        fields = tuple(out)
+    return fields
+
+
+def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
+                      global_shape: Sequence[int], origins: Sequence[int],
+                      periodic: bool = False) -> Fields:
+    """K3's sharded mode: ``k`` steps of one shard.
+
+    ``padded`` are the shard's fields padded by ``m = k * halo`` on z and y
+    (the width-m halo exchange); ``origins`` the global (z, y) index of the
+    shard's first core cell in a ``global_shape`` grid.  Returns the
+    (Z, Y, X) core of every field, k steps on.
+    """
+    m = k * stencil.halo
+    Zp, Yp, X = (int(s) for s in padded[0].shape)
+    Z, Y = Zp - 2 * m, Yp - 2 * m
+    oz, oy = (int(o) for o in origins)
+    if not padded[0].is_cuda:
+        out = _plain_window_steps(padded, stencil, k, (oz - m, oy - m, 0),
+                                  global_shape, periodic, wrap_axes=(2,))
+        return tuple(f[m:m + Z, m:m + Y].contiguous() for f in out)
+    kind, _halo = _FUSED[stencil.name]
+    if not fits(stencil, k) or min(Z, Y) < 1:
+        raise ValueError(f"fused_step_padded: {stencil.name} k={k} on "
+                         f"{(Zp, Yp, X)} not supported")
+    _build.check_operands("fused_step_padded", *padded, shape=(Zp, Yp, X))
+    outs = tuple(torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
+                 for p in padded)
+    two = len(padded) == 2
+    lib = _lib()
+    GZ, GY, GX = (int(g) for g in global_shape)
+    rc = lib.fused_step_padded_f32(
+        kind, *_pointers(padded, two), *_pointers(outs, two), Z, Y, X,
+        GZ, GY, GX, oz, oy, k, int(periodic), *coefficients(stencil), *CORE,
+        _build.stream_of(padded[0]))
+    _build.check(lib, rc, "fused_step_padded")
+    launches[f"fused_step_padded[{stencil.name}]"] += 1
+    return outs
+
+
+def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
+                k: int, global_z: int, origin_z: int,
+                periodic: bool = False) -> Fields:
+    """K6: ``k`` steps of one z-only shard from its (Lz, Y, X) core and the
+    exchanged (m, Y, X) z slabs below (``zlo``) and above (``zhi``) it, per
+    field; ``origin_z`` is the core's first global z plane of ``global_z``.
+    Returns the (Lz, Y, X) core of every field, k steps on."""
+    m = k * stencil.halo
+    Lz, Y, X = (int(s) for s in core[0].shape)
+    if not core[0].is_cuda:
+        window = tuple(torch.cat([lo, c, hi], dim=0)
+                       for c, lo, hi in zip(core, zlo, zhi))
+        out = _plain_window_steps(window, stencil, k, (origin_z - m, 0, 0),
+                                  (global_z, Y, X), periodic,
+                                  wrap_axes=(1, 2))
+        return tuple(f[m:m + Lz].contiguous() for f in out)
+    kind, _halo = _FUSED[stencil.name]
+    if not fits(stencil, k):
+        raise ValueError(f"fused_zslab: {stencil.name} k={k} window exceeds "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    _build.check_operands("fused_zslab", *core, shape=(Lz, Y, X))
+    _build.check_operands("fused_zslab", core[0], *zlo, *zhi, shape=None)
+    for s in (*zlo, *zhi):
+        if tuple(s.shape) != (m, Y, X):
+            raise ValueError(f"fused_zslab: slabs must be {(m, Y, X)}, got "
+                             f"{tuple(s.shape)}")
+    outs = tuple(torch.empty_like(c) for c in core)
+    two = len(core) == 2
+    lib = _lib()
+    rc = lib.fused_zslab_f32(
+        kind, *_pointers(core, two), *_pointers(zlo, two),
+        *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
+        int(global_z), int(origin_z), k, int(periodic),
+        *coefficients(stencil), *CORE, _build.stream_of(core[0]))
+    _build.check(lib, rc, "fused_zslab")
+    launches[f"fused_zslab[{stencil.name}]"] += 1
+    return outs
+
+
+def build_fused_call(
+    stencil: Stencil,
+    core_shape: Tuple[int, int, int],
+    k: int,
+    sharded_global: Optional[Tuple[int, int, int]] = None,
+    periodic: bool = False,
+    device=None,
+):
+    """K3's sharded mode over one shard's (core) block of ``core_shape``.
+
+    Returns ``(call, margin, nfields)`` or None.  The call takes the fields
+    padded by ``margin`` on z and y — with ``sharded_global`` (the global
+    grid shape, guard-frame runs) first an ``(oz, oy)`` pair, the shard's
+    global origin, from which the kernel derives the frame — and returns
+    the ``core_shape`` fields advanced k steps.  None where the TPU builder
+    declines for a structural reason: no fused kernel, ``2 * k * halo`` off
+    the alignment unit, or a local z/y extent below the margin (a width-m
+    slab must come from one neighbour); also for a window too large for
+    shared memory.  The TPU VMEM tiling rule (``_pick_tiles``) does not
+    apply: the kernel masks ragged blocks.
+    """
+    margin = margin_of(stencil, k)
+    if margin is None:
+        return None
+    Z, Y, X = (int(s) for s in core_shape)
+    if min(Z, Y) < margin:
+        return None
+    gshape = (Z, Y, X) if sharded_global is None else tuple(sharded_global)
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+
+    if sharded_global is None:
+        def call(*padded):
+            return fused_step_padded(padded, stencil, k, gshape, (0, 0),
+                                     periodic=periodic)
+    else:
+        def call(origins, *padded):
+            return fused_step_padded(padded, stencil, k, gshape, origins,
+                                     periodic=periodic)
+
+    return call, margin, stencil.num_fields
+
+
+def build_zslab_padfree_call(
+    stencil: Stencil,
+    local_shape: Tuple[int, int, int],
+    global_shape: Tuple[int, int, int],
+    k: int,
+    periodic: bool = False,
+    device=None,
+):
+    """K6 over a z-only shard: ``(call, margin, nfields)`` or None.
+
+    The call takes the shard's global z origin, then per field the
+    (Lz, Y, X) core, the lower and the upper (m, Y, X) slab, and returns
+    the core fields advanced k steps.  None as for :func:`build_fused_call`
+    (a local z extent below the margin included).
+    """
+    margin = margin_of(stencil, k)
+    if margin is None:
+        return None
+    Lz = int(local_shape[0])
+    if Lz < margin:
+        return None
+    gz = int(global_shape[0])
+    nf = stencil.num_fields
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+
+    def call(origin_z, *args):
+        core, zlo, zhi = args[0::3], args[1::3], args[2::3]
+        assert len(core) == nf
+        return fused_zslab(core, zlo, zhi, stencil, k, gz, origin_z,
+                           periodic=periodic)
+
+    return call, margin, nf
 
 
 def make_fused_step(
@@ -122,12 +364,7 @@ def make_fused_step(
     masks the ragged edge.  With a CUDA ``device`` the kernels are built
     here, before the time loop.
     """
-    if len(global_shape) != 3 or not fused_supported(stencil) or k < 1:
-        return None
-    halo = _FUSED[stencil.name][1]
-    if (2 * k * halo) % _sublane(stencil.dtype.itemsize):
-        return None
-    if not fits(stencil, k):
+    if len(global_shape) != 3 or margin_of(stencil, k) is None:
         return None
     if device is not None and torch.device(device).type == "cuda":
         _lib()

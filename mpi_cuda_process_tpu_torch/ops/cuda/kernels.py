@@ -1,0 +1,134 @@
+"""The ``compute_fn`` kernels: K4 and K5.
+
+``zchunk_heat`` (K4, ``csrc/zchunk.cu::zchunk_heat<KIND>``) maps a
+halo-padded heat3d, heat3d27 or heat3d4th block to its updated interior;
+``zchunk_wave`` (K5, ``csrc/zchunk.cu::zchunk_wave``) does the same for
+wave3d from the padded ``u`` and the unpadded ``u_prev``.  Neither knows
+about the guard frame: the step that calls them re-pins it.  They are what
+``--compute pallas`` plugs into ``driver.make_step`` (``--periodic``) and
+``parallel.stepper.make_sharded_step`` (``--mesh``).
+
+Replaces the TPU package's ``ops/pallas/kernels.py::make_pallas_compute``
+(``_heat3d_compute`` → ``_zchunk_kernel``, ``_wave3d_compute`` →
+``_zchunk_wave_kernel``).  Bound on an H100: device-memory bytes; the kernel
+source says what its design does about that.
+
+Beside each kernel sits its plain PyTorch version, the stencil's own
+``update``; a wrapper takes it only for a tensor on the CPU.  The 2D names
+(heat2d, life) have no kernel here yet and raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Callable
+
+import torch
+
+from ..stencil import Fields, Stencil
+from . import _build
+from .rawstep import coefficients
+
+# Launches per wrapper and stencil, keyed "zchunk_heat[heat3d]": one added
+# where a kernel launches, nowhere else.  ``launches.clear()`` resets.
+launches: Counter = Counter()
+
+_HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2}
+# The names the TPU package has a compute_fn kernel for (kernels.py:301).
+_TPU_NAMES = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "heat2d", "life")
+WHOLE_2D_ITEM = "ROADMAP B2 (whole-grid 2D compute_fn kernels, row 14)"
+
+_c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+
+
+def _lib():
+    lib = _build.load("zchunk")
+    if lib.zchunk_heat_f32.argtypes is None:
+        lib.zchunk_heat_f32.argtypes = (
+            [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
+            + [_c_ptr])
+        lib.zchunk_wave_f32.argtypes = (
+            [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
+    return lib
+
+
+def _interior_shape(p: torch.Tensor, halo: int, what: str):
+    shape = tuple(int(s) - 2 * halo for s in p.shape)
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"{what}: expected a 3D block padded by {halo}, "
+                         f"got {tuple(p.shape)}")
+    return shape
+
+
+def zchunk_heat(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
+    """Updated interior (Z, Y, X) of the padded heat block ``p``."""
+    if not p.is_cuda:
+        return stencil.update((p,))[0]
+    kind = _HEAT_KIND[stencil.name]
+    _build.check_operands("zchunk_heat", p)
+    Z, Y, X = _interior_shape(p, stencil.halo, "zchunk_heat")
+    out = torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
+    lib = _lib()
+    rc = lib.zchunk_heat_f32(kind, p.data_ptr(), out.data_ptr(), Z, Y, X,
+                             *coefficients(stencil), _build.stream_of(p))
+    _build.check(lib, rc, "zchunk_heat")
+    launches[f"zchunk_heat[{stencil.name}]"] += 1
+    return out
+
+
+def zchunk_wave(p: torch.Tensor, uprev: torch.Tensor,
+                stencil: Stencil) -> torch.Tensor:
+    """New ``u`` (Z, Y, X) from the padded ``u`` and unpadded ``u_prev``."""
+    if not p.is_cuda:
+        return stencil.update((p, uprev))[0]
+    shape = _interior_shape(p, 1, "zchunk_wave")
+    _build.check_operands("zchunk_wave", p)
+    _build.check_operands("zchunk_wave", uprev, shape=shape)
+    if uprev.device != p.device:
+        raise ValueError("zchunk_wave: u and u_prev on different devices")
+    out = torch.empty(shape, dtype=p.dtype, device=p.device)
+    lib = _lib()
+    rc = lib.zchunk_wave_f32(p.data_ptr(), uprev.data_ptr(), out.data_ptr(),
+                             *shape, coefficients(stencil)[0],
+                             _build.stream_of(p))
+    _build.check(lib, rc, "zchunk_wave")
+    launches[f"zchunk_wave[{stencil.name}]"] += 1
+    return out
+
+
+def has_pallas_kernel(name: str) -> bool:
+    """Whether the TPU package has a compute_fn kernel for ``name`` (the
+    2D ones among them raise from :func:`make_pallas_compute` here)."""
+    return name in _TPU_NAMES
+
+
+def make_pallas_compute(stencil: Stencil,
+                        device=None) -> Callable[[Fields], Fields]:
+    """Drop-in kernel replacement for ``stencil.update`` (padded fields ->
+    interior fields), the ``compute_fn`` of ``driver.make_step`` and
+    ``make_sharded_step``.  With a CUDA ``device`` the kernels are built
+    here, before the time loop."""
+    name = stencil.name
+    if name in ("heat2d", "life"):
+        raise NotImplementedError(
+            f"--compute pallas for {name} needs the whole-grid 2D kernel, "
+            f"which is not ported: {WHOLE_2D_ITEM}")
+    if name not in _HEAT_KIND and name != "wave3d":
+        raise KeyError(f"no pallas kernel for {name!r}; available: "
+                       f"{sorted(_TPU_NAMES)}")
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+
+    if name == "wave3d":
+        def compute(padded: Fields) -> Fields:
+            p, uprev = padded
+            # slot 1 is dead (carry_map=(None, 0)): u_prev has its shape
+            return (zchunk_wave(p, uprev, stencil), uprev)
+
+        return compute
+
+    def compute(padded: Fields) -> Fields:
+        return (zchunk_heat(padded[0], stencil),)
+
+    return compute

@@ -1,0 +1,25 @@
+"""Domain decomposition: mesh, halo exchange, sharded steppers."""
+
+from .halo import InProcessTransport, exchange_and_pad, exchange_slabs_axis
+from .mesh import (Mesh, bootstrap_distributed, factor_mesh, local_devices,
+                   make_mesh)
+from .stepper import (ShardedField, gather_fields, make_sharded_fused_step,
+                      make_sharded_step, make_sharded_temporal_step,
+                      shard_fields)
+
+__all__ = [
+    "InProcessTransport",
+    "Mesh",
+    "ShardedField",
+    "bootstrap_distributed",
+    "exchange_and_pad",
+    "exchange_slabs_axis",
+    "factor_mesh",
+    "gather_fields",
+    "local_devices",
+    "make_mesh",
+    "make_sharded_fused_step",
+    "make_sharded_step",
+    "make_sharded_temporal_step",
+    "shard_fields",
+]

@@ -1,0 +1,489 @@
+"""Sharded time step: domain decomposition over a mesh + halo exchange.
+
+The counterpart of the TPU package's ``parallel/stepper.py``.  A decomposed
+field is a :class:`ShardedField`: the list of its local blocks in mesh
+row-major order, each on its mesh device, with the mesh and the global shape
+attached.  One process drives every shard (the in-process transport of
+``halo.py``): a step is the halo exchange, a collective over the block
+lists, then the same per-shard code for every shard, written once for "the
+shard at mesh coordinate ``c``" (``c`` takes the place of
+``lax.axis_index``).
+
+``make_sharded_step`` is one step: two-pass halo exchange, local update
+(``stencil.update`` or a ``compute_fn`` kernel, K4/K5), re-pin of the global
+guard frame from each shard's global offset.  ``overlap=True`` splits the
+update into a bulk part from locally padded blocks and the width-halo rings
+at each sharded face from the exchanged blocks; on CUDA the exchange copies
+run on a side stream while the bulk update runs on the current one.
+
+``make_sharded_fused_step`` is k steps per exchange with the temporal-
+blocking kernels: the padded kind (width-m exchange on z and y, then K3 in
+its sharded mode) and, on z-only meshes, the pad-free z-slab kind (K6).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ..driver import frame_mask
+from ..ops.stencil import Fields, Stencil
+from .halo import exchange_and_pad, exchange_slabs_axis, pad_local
+from .mesh import ENSEMBLE_ITEM, Mesh
+
+_OVERLAP_FUSED_ITEM = ("ROADMAP B4 (the overlap shell kernels, "
+                       "fused.build_overlap_shell_calls, row 7)")
+_YZ_PADFREE_ITEM = ("ROADMAP B4 (the 2-axis pad-free kernel, "
+                    "fused.build_yzslab_padfree_call, row 9)")
+_STREAM_ITEM = "ROADMAP B5 (the streaming kernels)"
+_PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
+_RDMA_ITEM = "ROADMAP B7 (the remote-DMA exchange, >= 2 GPUs)"
+_FULLGRID_ITEM = "ROADMAP B6 (the whole-block 2D fused kernel)"
+
+
+class ShardedField(list):
+    """One field decomposed over ``mesh``: its local blocks in mesh
+    row-major order, each on its mesh device, with the global shape."""
+
+    def __init__(self, blocks, mesh: Mesh, global_shape: Sequence[int]):
+        super().__init__(blocks)
+        self.mesh = mesh
+        self.global_shape = tuple(int(g) for g in global_shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self[0].dtype
+
+    def with_blocks(self, blocks) -> "ShardedField":
+        return ShardedField(blocks, self.mesh, self.global_shape)
+
+
+def is_sharded(fields) -> bool:
+    return bool(fields) and isinstance(fields[0], ShardedField)
+
+
+def _resolve_mesh_axes(ndim: int, mesh: Mesh):
+    """(axis_names, counts) for grid axes 0..ndim-1 over ``mesh``:
+    ``axis_names[d]`` is the mesh axis decomposing grid axis d (or None),
+    ``counts[d]`` its shard count."""
+    counts = mesh.counts(ndim)
+    axis_names = mesh.axis_names + (None,) * (ndim - len(mesh.axis_names))
+    return axis_names, counts
+
+
+def _local_shape(global_shape, counts) -> Tuple[int, ...]:
+    return tuple(int(g) // c for g, c in zip(global_shape, counts))
+
+
+def block_slices(c, local_shape):
+    return tuple(slice(ci * ls, (ci + 1) * ls)
+                 for ci, ls in zip(tuple(c) + (0,) * len(local_shape),
+                                   local_shape))
+
+
+def shard_offsets(c, local_shape) -> Tuple[int, ...]:
+    """Global index of shard ``c``'s first cell along each grid axis."""
+    c = tuple(c) + (0,) * (len(local_shape) - len(c))
+    return tuple(ci * ls for ci, ls in zip(c, local_shape))
+
+
+def shard_fields(fields: Fields, mesh: Mesh, ndim: int) -> Fields:
+    """Cut each global field into its blocks, each copied to its device."""
+    out = []
+    for f in fields:
+        counts = mesh.counts(ndim)
+        for d, c in enumerate(counts):
+            if f.shape[d] % c:
+                raise ValueError(f"grid axis {d} ({f.shape[d]}) not "
+                                 f"divisible by mesh axis ({c})")
+        local = _local_shape(f.shape, counts)
+        blocks = []
+        for c in mesh.coords():
+            b = torch.empty(local, dtype=f.dtype, device=mesh.device(c))
+            b.copy_(f[block_slices(c, local)])
+            blocks.append(b)
+        out.append(ShardedField(blocks, mesh, f.shape))
+    return tuple(out)
+
+
+def gather_fields(fields: Fields, device=None) -> Fields:
+    """Sharded fields back to whole tensors (on the first block's device
+    unless ``device`` is given)."""
+    out = []
+    for f in fields:
+        dev = f[0].device if device is None else torch.device(device)
+        g = torch.empty(f.global_shape, dtype=f.dtype, device=dev)
+        local = tuple(f[0].shape)
+        for c, b in zip(f.mesh.coords(), f):
+            g[block_slices(c, local)].copy_(b)
+        out.append(g)
+    return tuple(out)
+
+
+def _on_device(dev: torch.device):
+    """Make ``dev`` current for the launches of one shard (CUDA only)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+class _SideStreams:
+    """One side stream per CUDA device of a mesh, for the exchange copies
+    of an overlapped step; on the CPU every method does nothing and the
+    work runs in order.
+
+    Ordering runs both ways, and that is what keeps memory safe without
+    ``record_stream``: the side stream waits for the current one before its
+    copies (so it reads finished blocks, and reuses its own freed padded
+    blocks only after the current stream's last read of them), and the
+    current stream waits for the side copies before the ring updates (so
+    blocks the current stream frees were last touched before that wait).
+    ``record_stream`` would be redundant here and costly: the host runs
+    steps ahead of the card, so the events it records are still pending
+    when the next step allocates, and the caching allocator then takes
+    fresh memory instead of reusing the freed blocks.
+    """
+
+    def __init__(self, mesh: Mesh):
+        self.devices = [d for d in mesh.unique_devices() if d.type == "cuda"]
+        self.streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self.events: Dict[torch.device, torch.cuda.Event] = {}
+
+    def begin(self) -> contextlib.ExitStack:
+        """Order the side streams after the current ones and make them
+        current: the copies issued inside run there."""
+        stack = contextlib.ExitStack()
+        for d in self.devices:
+            if d not in self.streams:
+                self.streams[d] = torch.cuda.Stream(device=d)
+            s = self.streams[d]
+            s.wait_stream(torch.cuda.current_stream(d))
+            stack.enter_context(torch.cuda.stream(s))
+        return stack
+
+    def record(self) -> None:
+        for d in self.devices:
+            self.events[d] = self.streams[d].record_event()
+
+    def join(self) -> None:
+        """The current streams wait for the side copies."""
+        for d in self.devices:
+            torch.cuda.current_stream(d).wait_event(self.events[d])
+
+
+def _axis_slice(x, d, sl):
+    idx = [slice(None)] * x.dim()
+    idx[d] = sl
+    return x[tuple(idx)]
+
+
+def make_sharded_step(
+    stencil: Stencil,
+    mesh: Mesh,
+    global_shape: Sequence[int],
+    periodic: bool = False,
+    compute_fn: Optional[Callable[[Fields], Fields]] = None,
+    overlap: bool = False,
+    ensemble: int = 0,
+):
+    """The step function for ``stencil`` decomposed over ``mesh``:
+    sharded fields -> sharded fields.
+
+    ``compute_fn`` overrides the local block update (padded fields ->
+    interior fields); defaults to ``stencil.update``.  This is how the
+    compute_fn kernels (K4/K5) replace the tensor ops without touching the
+    decomposition.
+
+    ``overlap=True`` selects the explicit interior/boundary split — the
+    reference's two-stream trick (middle kernel on one stream, concurrent
+    with the halo exchange): the bulk update reads a LOCALLY padded block
+    with no dependence on the exchange, and only the width-``halo`` ring at
+    each sharded face is computed from exchanged data and spliced over it.
+    On CUDA the exchange copies run on a side stream while the bulk update
+    runs on the current stream; an event orders the ring updates after the
+    copies (``_SideStreams`` says why no ``record_stream`` is needed).  The
+    values equal ``overlap=False`` bit for bit.
+    """
+    ndim = stencil.ndim
+    halo = stencil.halo
+    if ensemble:
+        raise NotImplementedError(
+            f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    axis_names, counts = _resolve_mesh_axes(ndim, mesh)
+    global_shape = tuple(int(g) for g in global_shape)
+    for d, c in enumerate(counts):
+        if global_shape[d] % c:
+            raise ValueError(
+                f"grid axis {d} ({global_shape[d]}) not divisible by "
+                f"mesh axis {axis_names[d]} ({c})")
+    local_shape = _local_shape(global_shape, counts)
+    if any(ls < halo for ls in local_shape):
+        raise ValueError(
+            f"local block {local_shape} smaller than halo {halo}")
+    if stencil.phases:
+        if compute_fn is not None:
+            raise ValueError(
+                f"{stencil.name} is multi-phase; compute_fn unsupported")
+        if overlap:
+            raise ValueError(
+                f"{stencil.name} is multi-phase; overlap split unsupported")
+    if stencil.parity_sensitive:
+        bad = [d for d, c in enumerate(counts)
+               if c > 1 and local_shape[d] % 2]
+        if bad:
+            raise ValueError(
+                f"{stencil.name} is parity-sensitive (red-black coloring): "
+                f"sharded axes {bad} have odd per-shard extents "
+                f"{[local_shape[d] for d in bad]}, which would flip colors "
+                f"across shards — use even per-axis block sizes")
+        if periodic and any(g % 2 for g in global_shape):
+            raise ValueError(
+                f"{stencil.name} is parity-sensitive: periodic wrap over "
+                f"odd extents {global_shape} makes the coloring "
+                f"inconsistent")
+    update_fns = stencil.phases or (compute_fn or stencil.update,)
+    sharded_axes = [d for d, c in enumerate(counts) if c > 1]
+    coords = list(mesh.coords())
+    masks: Dict[int, torch.Tensor] = {}  # shard index -> frame mask
+    side = _SideStreams(mesh)
+
+    def exchange(fields: Fields) -> List[List[torch.Tensor]]:
+        return [exchange_and_pad(f, mesh, fh, bc, periodic)
+                for f, bc, fh in zip(fields, stencil.bc_value,
+                                     stencil.field_halos)]
+
+    def ring_update(update, padded_c, fields_c, d, lo):
+        """Update of the width-halo boundary ring at face (d, lo/hi) of
+        one shard, from its exchanged padded blocks."""
+        slabs = []
+        for pf, f, fh in zip(padded_c, fields_c, stencil.field_halos):
+            if fh == 0:
+                n = f.shape[d]
+                sl = slice(0, halo) if lo else slice(n - halo, None)
+                slabs.append(_axis_slice(f, d, sl).contiguous())
+            else:
+                n = pf.shape[d]
+                sl = slice(0, 3 * fh) if lo else slice(n - 3 * fh, None)
+                slabs.append(_axis_slice(pf, d, sl).contiguous())
+        return update(tuple(slabs))
+
+    def repin(i: int, c, new_c, fields_c):
+        """The shard's new fields with the global guard frame restored."""
+        out = []
+        for j, nf in enumerate(new_c):
+            src = stencil.carry_map[j]
+            if src is not None:
+                out.append(fields_c[src])  # verbatim carry: no copy
+            elif periodic or not stencil.mask_fields[j]:
+                out.append(nf)
+            else:
+                if i not in masks:
+                    masks[i] = frame_mask(
+                        local_shape, global_shape,
+                        shard_offsets(c, local_shape), halo,
+                        device=fields_c[0].device)
+                out.append(torch.where(masks[i], fields_c[j], nf))
+        return out
+
+    def one_pass(fields: Fields, update) -> Fields:
+        shards = [tuple(f[i] for f in fields) for i in range(len(coords))]
+        if overlap and sharded_axes:
+            with side.begin():
+                padded = exchange(fields)
+                side.record()
+            new = []
+            for i, c in enumerate(coords):
+                with _on_device(mesh.device(c)):
+                    local = tuple(
+                        pad_local(b, fh, bc, periodic) if fh else b
+                        for b, bc, fh in zip(shards[i], stencil.bc_value,
+                                             stencil.field_halos))
+                    new.append(list(update(local)))
+            side.join()
+            for i, c in enumerate(coords):
+                padded_c = tuple(pf[i] for pf in padded)
+                with _on_device(mesh.device(c)):
+                    for d in sharded_axes:
+                        for lo in (True, False):
+                            ring = ring_update(update, padded_c, shards[i],
+                                               d, lo)
+                            for j, nb in enumerate(new[i]):
+                                if stencil.carry_map[j] is not None:
+                                    continue
+                                n = nb.shape[d]
+                                sl = slice(0, halo) if lo else \
+                                    slice(n - halo, None)
+                                _axis_slice(nb, d, sl).copy_(ring[j])
+        else:
+            padded = exchange(fields)
+            new = []
+            for i, c in enumerate(coords):
+                with _on_device(mesh.device(c)):
+                    new.append(update(tuple(pf[i] for pf in padded)))
+        out = [[] for _ in fields]
+        for i, c in enumerate(coords):
+            with _on_device(mesh.device(c)):
+                for j, b in enumerate(repin(i, c, new[i], shards[i])):
+                    out[j].append(b)
+        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+
+    def step(fields: Fields) -> Fields:
+        # one time step = every phase in order, each with its own exchange
+        for upd in update_fns:
+            fields = one_pass(fields, upd)
+        return fields
+
+    return step
+
+
+def make_sharded_fused_step(
+    stencil: Stencil,
+    mesh: Mesh,
+    global_shape: Sequence[int],
+    k: int,
+    periodic: bool = False,
+    kind: Optional[str] = None,
+    overlap: bool = False,
+    pipeline: bool = False,
+    exchange: Optional[str] = None,
+    ensemble: int = 0,
+    device=None,
+):
+    """Temporal blocking under decomposition: k steps per exchange.
+
+    One call is a width ``m = k * halo`` halo exchange, then one kernel
+    launch per shard.  Two kinds:
+
+    * padded (``kind=None``, the TPU package's ``auto`` below its HBM
+      threshold): the exchange pads z and y of every shard's block by m
+      (x is whole: the kernel wraps or clamps it), and K3 in its sharded
+      mode advances the core, pinning the frame on global coordinates from
+      the shard's origin;
+    * ``kind="padfree"`` on a z-only mesh: the two width-m z slabs are
+      exchanged unconcatenated and handed to K6 with the core, so no padded
+      copy of the block exists.
+
+    Every field is exchanged at width m (temporal blocking consumes margin
+    for all fields, wave's ``u_prev`` included).  Returns None where the
+    TPU builder declines for a structural reason: no fused kernel, the lane
+    axis x sharded, a grid not divisible by the mesh, ``2 * k * halo`` off
+    the alignment unit, or a local z/y extent below m.  The TPU package's
+    ``auto`` switch to pad-free above a v5e HBM threshold does not carry
+    over: ``kind=None`` always takes the padded kind.
+
+    Not ported yet, and raising by name: the 2-axis pad-free kind (a
+    y-sharded mesh with ``kind="padfree"``), ``kind="stream"``,
+    ``overlap=True``, ``pipeline=True`` and ``exchange="rdma"``.
+    """
+    from ..ops.cuda.fused import (build_fused_call, build_zslab_padfree_call,
+                                  fused_supported)
+
+    if kind not in (None, "stream", "padfree"):
+        raise ValueError(f"unknown sharded fused kind {kind!r} "
+                         "(None=auto, 'stream', 'padfree')")
+    if kind == "stream":
+        raise NotImplementedError(
+            f"--fuse-kind stream needs the streaming kernels: {_STREAM_ITEM}")
+    if exchange not in (None, "ppermute"):
+        raise NotImplementedError(
+            f"exchange={exchange!r} is not ported: {_RDMA_ITEM}")
+    if pipeline:
+        raise NotImplementedError(f"pipeline=True: {_PIPELINE_ITEM}")
+    if overlap:
+        raise NotImplementedError(
+            f"overlap=True with temporal blocking needs the boundary shell "
+            f"kernels: {_OVERLAP_FUSED_ITEM}")
+    if ensemble:
+        raise NotImplementedError(
+            f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    ndim = stencil.ndim
+    if ndim != 3 or not fused_supported(stencil):
+        return None
+    _, counts = _resolve_mesh_axes(ndim, mesh)
+    if counts[2] > 1:
+        return None  # the lane axis stays whole
+    global_shape = tuple(int(g) for g in global_shape)
+    if any(g % c for g, c in zip(global_shape, counts)):
+        return None
+    local_shape = _local_shape(global_shape, counts)
+    coords = list(mesh.coords())
+    offsets = [shard_offsets(c, local_shape) for c in coords]
+
+    if kind == "padfree":
+        if counts[1] > 1:
+            raise NotImplementedError(
+                f"--fuse-kind padfree on a y-sharded mesh needs the 2-axis "
+                f"pad-free kernel: {_YZ_PADFREE_ITEM}")
+        built = build_zslab_padfree_call(stencil, local_shape, global_shape,
+                                         k, periodic=periodic, device=device)
+        if built is None:
+            return None
+        call, m, _ = built
+
+        def step_zslab(fields: Fields) -> Fields:
+            slabs = [exchange_slabs_axis(f, mesh, 0, m, bc, periodic)
+                     for f, bc in zip(fields, stencil.bc_value)]
+            out = [[] for _ in fields]
+            for i, c in enumerate(coords):
+                args = []
+                for f, (lo, hi) in zip(fields, slabs):
+                    args += [f[i], lo[i], hi[i]]
+                with _on_device(mesh.device(c)):
+                    res = call(offsets[i][0], *args)
+                for j, b in enumerate(res):
+                    out[j].append(b)
+            return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+
+        return step_zslab
+
+    built = build_fused_call(
+        stencil, local_shape, k,
+        sharded_global=None if periodic else global_shape,
+        periodic=periodic, device=device)
+    if built is None:
+        return None
+    call, m, _ = built
+
+    def step_padded(fields: Fields) -> Fields:
+        padded = [exchange_and_pad(f, mesh, m, bc, periodic, axes=(0, 1))
+                  for f, bc in zip(fields, stencil.bc_value)]
+        out = [[] for _ in fields]
+        for i, c in enumerate(coords):
+            args = [p[i] for p in padded]
+            if not periodic:
+                args = [offsets[i][:2]] + args
+            with _on_device(mesh.device(c)):
+                res = call(*args)
+            for j, b in enumerate(res):
+                out[j].append(b)
+        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+
+    return step_padded
+
+
+def make_sharded_temporal_step(
+    stencil: Stencil,
+    mesh: Mesh,
+    global_shape: Sequence[int],
+    k: int,
+    periodic: bool = False,
+    kind: Optional[str] = None,
+    overlap: bool = False,
+    pipeline: bool = False,
+    exchange: Optional[str] = None,
+    ensemble: int = 0,
+    device=None,
+):
+    """Temporal blocking under decomposition, any dimensionality: the one
+    entry point for ``--fuse K --mesh``.  3D goes to
+    :func:`make_sharded_fused_step`; 2D needs the whole-block kernel, not
+    ported yet."""
+    if stencil.ndim == 2:
+        raise NotImplementedError(
+            f"--fuse on a 2D grid under --mesh: {_FULLGRID_ITEM}")
+    return make_sharded_fused_step(
+        stencil, mesh, global_shape, k, periodic=periodic, kind=kind,
+        overlap=overlap, pipeline=pipeline, exchange=exchange,
+        ensemble=ensemble, device=device)

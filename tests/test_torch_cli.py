@@ -24,7 +24,9 @@ from mpi_cuda_process_tpu.utils import checkpointing as jckpt
 from mpi_cuda_process_tpu_torch import cli as tcli
 from mpi_cuda_process_tpu_torch.config import RunConfig
 from mpi_cuda_process_tpu_torch.ops.cuda import fused as tfused
+from mpi_cuda_process_tpu_torch.ops.cuda import kernels as tkernels
 from mpi_cuda_process_tpu_torch.ops.cuda import rawstep as trawstep
+from mpi_cuda_process_tpu_torch.parallel import mesh as tmesh
 from mpi_cuda_process_tpu_torch.utils import checkpointing as tckpt
 
 torch.set_num_threads(1)
@@ -70,10 +72,11 @@ CASES = [
 ]
 
 
-# --compute pallas --periodic raises in the port (the z-chunk compute_fn
-# kernel is not ported): test_unported_combinations_raise_naming_roadmap.
+# --compute pallas --periodic runs the compute_fn kernels (K4/K5) on 3D
+# grids; on 2D grids it raises (test_unported_combinations_raise_naming_
+# roadmap).
 RUNS = [c + (p,) for c in CASES for p in (False, True)
-        if not (p and c[3] == "pallas")]
+        if not (p and c[3] == "pallas" and c[1] == 2)]
 
 
 @pytest.mark.parametrize("name,ndim,halo,mode,periodic", RUNS,
@@ -196,7 +199,8 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra,exc,match", [
     (["--grid", "16,20", "--compute", "pallas"], NotImplementedError, "B2"),
-    (["--compute", "pallas", "--periodic"], NotImplementedError, "B2"),
+    (["--grid", "16,20", "--compute", "pallas", "--periodic"],
+     NotImplementedError, "B2"),
     (["--grid", "16,20", "--fuse", "4"], NotImplementedError, "B6"),
     (["--fuse", "4", "--fuse-kind", "stream"], NotImplementedError, "B5"),
     (["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError, "B1/B3"),
@@ -219,8 +223,8 @@ def test_unported_combinations_raise_naming_roadmap(extra, exc, match):
 
 def test_unported_flags_are_not_registered_and_config_fields_refused():
     with pytest.raises(SystemExit):
-        tcli.config_from_args(["--mesh", "2,1,1"])
-    for field, value in (("mesh", (2, 1, 1)), ("ensemble", 2),
+        tcli.config_from_args(["--ensemble", "2"])
+    for field, value in (("groups", "heat3d@0-1"), ("ensemble", 2),
                          ("tol", 1e-3), ("supervise", True)):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})
@@ -256,3 +260,80 @@ def test_config_is_a_copy_of_the_jax_runconfig():
     assert t["device"] == "cuda"
     cfg = RunConfig(stencil="wave3d", grid=(8, 8, 8), params={"c2dt2": 0.1})
     assert RunConfig.from_dict(dataclasses.asdict(cfg)) == cfg
+
+
+MESH_RUNS = [
+    ("heat3d", ["--mesh", "2,2"]),
+    ("heat3d", ["--mesh", "2,2", "--compute", "pallas"]),
+    ("heat3d", ["--mesh", "2,2", "--compute", "pallas", "--overlap",
+                "--periodic"]),
+    ("heat3d", ["--mesh", "2,2", "--fuse", "4"]),
+    ("heat3d", ["--mesh", "2", "--fuse", "4", "--fuse-kind", "padfree"]),
+    ("heat3d27", ["--mesh", "2,2", "--compute", "pallas"]),
+    ("wave3d", ["--mesh", "2,2", "--compute", "pallas", "--overlap"]),
+    ("heat2d", ["--mesh", "2,2", "--overlap"]),
+]
+
+
+@pytest.mark.parametrize("name,flags", MESH_RUNS,
+                         ids=[f"{n}-{'_'.join(f.strip('-') for f in fl)}"
+                              for n, fl in MESH_RUNS])
+def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
+    """The same --mesh command line through both CLIs: the port's shards
+    run on the CPU (4 virtual shards), the JAX package's on its virtual
+    devices; the final fields match at the path's tolerance, frame cells
+    exactly."""
+    monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
+    ndim = 2 if name.endswith("2d") else 3
+    args = ["--stencil", name, "--grid", GRIDS[ndim], "--iters",
+            str(ITERS), "--checkpoint-every", str(ITERS), "--init", "pulse",
+            *flags]
+    tkernels.launches.clear()
+    tfused.launches.clear()
+    jf, jstep, tf, tstep, tcfg = _run_both(tmp_path, args, "mesh")
+    assert jstep == tstep == ITERS
+    assert tuple(tcfg["mesh"]) == tuple(int(x) for x in flags[1].split(","))
+    atol = 1e-4 if "--fuse" in flags else 1e-5 * ITERS
+    _assert_match(tf, jf, None if "--periodic" in flags else
+                  jmake_stencil(name).halo, atol)
+    assert not tkernels.launches and not tfused.launches
+
+
+@pytest.mark.parametrize("extra,exc,match", [
+    (["--overlap"], ValueError, "needs --mesh"),
+    (["--mesh", "2,2", "--fuse", "4", "--overlap"], NotImplementedError,
+     "B4"),
+    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree"],
+     NotImplementedError, "row 9"),
+    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "tiled"], ValueError,
+     "--fuse-kind"),
+    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream"],
+     NotImplementedError, "B5"),
+    (["--mesh", "2,2", "--fuse", "3"], ValueError, "unsupported"),
+    (["--mesh", "1,1,2", "--fuse", "4"], ValueError, "unsupported"),
+    (["--mesh", "3"], ValueError, "not divisible"),
+    (["--mesh", "4,2"], ValueError, "needs 8 devices"),
+    (["--grid", "16,20", "--mesh", "2,2", "--fuse", "4"],
+     NotImplementedError, "B6"),
+    (["--grid", "16,20", "--mesh", "2,2", "--compute", "pallas"],
+     NotImplementedError, "B2"),
+])
+def test_mesh_refusals_name_their_reason(monkeypatch, extra, exc, match):
+    monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
+    args = ["--stencil", "heat3d", "--grid", "16,16,128", "--iters", "4",
+            "--device", "cpu"]
+    if extra[:2] == ["--grid", "16,20"]:
+        args = ["--stencil", "heat2d", "--iters", "4", "--device", "cpu"]
+    with pytest.raises(exc, match=match):
+        tcli.main(args + extra)
+
+
+def test_mesh_run_logs_shards_per_device(monkeypatch, caplog):
+    monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
+    with caplog.at_level(logging.INFO):
+        tcli.main(["--stencil", "heat3d", "--grid", "8,8,16", "--iters", "2",
+                   "--mesh", "2,2", "--device", "cpu", "--log-every", "1"])
+    lines = [r.getMessage() for r in caplog.records
+             if r.name == "mpi_cuda_process_tpu_torch"]
+    assert "mesh 2x2: 4 shards on 1 device(s)" in lines
+    assert sum(ln.startswith("step ") for ln in lines) == 2

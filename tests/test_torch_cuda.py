@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K3) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K6) against their plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -8,7 +8,9 @@ package, so it runs where only PyTorch is installed::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances as in tests/test_torch_kernels.py: ``32 * eps * max(|ref|, 1)``
-for one raw step, ``atol = 1e-4`` for k fused steps; frame cells exact.
+for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
+``atol = 1e-4`` for k fused steps; frame cells exact.  The sharded kernels
+(K3's sharded mode, K6) run on meshes of virtual shards on one card.
 """
 
 import numpy as np
@@ -17,7 +19,11 @@ import torch
 
 import mpi_cuda_process_tpu_torch as port
 from mpi_cuda_process_tpu_torch import driver
-from mpi_cuda_process_tpu_torch.ops.cuda import fused, rawstep
+from mpi_cuda_process_tpu_torch.ops.cuda import fused, kernels, rawstep
+from mpi_cuda_process_tpu_torch.parallel import (gather_fields, make_mesh,
+                                                 make_sharded_fused_step,
+                                                 make_sharded_step,
+                                                 shard_fields)
 
 pytestmark = pytest.mark.cuda
 
@@ -95,3 +101,84 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shape"):
         rawstep.raw_step_wave(u, u[:8].contiguous(),
                               port.make_stencil("wave3d"))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", ["heat3d", "heat3d27", "heat3d4th",
+                                  "wave3d"])
+def test_compute_fn_kernel_matches_plain(dev, name, shape):
+    """K4/K5 on a padded random block == the stencil's plain update."""
+    st = port.make_stencil(name)
+    h = st.halo
+    padded = tuple(s + 2 * h for s in shape)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    p = torch.rand(padded, generator=g, device=dev)
+    ins = (p,) if st.num_fields == 1 else (
+        p, torch.rand(shape, generator=g, device=dev))
+    ref = st.update(ins)[0]
+    kernels.launches.clear()
+    got = kernels.make_pallas_compute(st, device=dev)(ins)
+    torch.cuda.synchronize()
+    wrapper = "zchunk_wave" if name == "wave3d" else "zchunk_heat"
+    assert kernels.launches[f"{wrapper}[{name}]"] == 1
+    torch.testing.assert_close(got[0], ref, rtol=1e-6, atol=1e-6)
+    if name == "wave3d":
+        assert got[1] is ins[1]
+
+
+SHARDED = [("heat3d", 4, (2, 2), None), ("heat3d27", 4, (2, 1), None),
+           ("heat3d4th", 2, (2, 2), None), ("wave3d", 4, (2, 2), None),
+           ("heat3d", 4, (4,), "padfree"), ("wave3d", 4, (2,), "padfree"),
+           ("heat3d4th", 2, (4,), "padfree")]
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("name,k,mesh_shape,kind", SHARDED)
+def test_sharded_fused_kernels_match_plain_sharded_steps(
+        dev, name, k, mesh_shape, kind, periodic):
+    """K3's sharded mode and K6 == k plain sharded steps, on a mesh of
+    virtual shards on one card."""
+    st = port.make_stencil(name)
+    shape = (32, 24, 40)
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 4), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fused.launches.clear()
+    got = make_sharded_fused_step(st, mesh, shape, k, periodic=periodic,
+                                  kind=kind, device=dev)(fields)
+    torch.cuda.synchronize()
+    wrapper = "fused_zslab" if kind else "fused_step_padded"
+    assert fused.launches[f"{wrapper}[{name}]"] == mesh.size
+    _check(gather_fields(got), gather_fields(ref),
+           None if periodic else st.halo, 1e-4)
+
+
+@pytest.mark.parametrize("name", ["heat3d", "heat3d27", "wave3d"])
+def test_sharded_step_with_kernels_overlap_is_bit_equal(dev, name):
+    """--mesh 2,2 --compute pallas: K4/K5 under the sharded step, with and
+    without the overlap split (side stream), against the unsharded plain
+    step; overlap equals non-overlap bit for bit."""
+    st = port.make_stencil(name)
+    shape = (32, 24, 40)
+    mesh = make_mesh((2, 2), [dev] * 4)
+    init = _fields(st, shape, dev, 5)
+    ref = init
+    for _ in range(3):
+        ref = driver.make_step(st, shape)(ref)
+    outs = []
+    for overlap in (False, True):
+        step = make_sharded_step(
+            st, mesh, shape, overlap=overlap,
+            compute_fn=kernels.make_pallas_compute(st, device=dev))
+        got = shard_fields(init, mesh, 3)
+        for _ in range(3):
+            got = step(got)
+        outs.append(gather_fields(got))
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    _check(outs[1], ref, st.halo, 1e-5)

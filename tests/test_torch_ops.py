@@ -139,7 +139,7 @@ def test_shifted_interior_laplacian_match_jax():
 def test_frame_mask_matches_jax(grid, offsets, width):
     gshape = tuple(g + 4 for g in grid)
     j = np.asarray(jdriver.frame_mask(grid, gshape, offsets, width))
-    t = tdriver.frame_mask(grid, gshape, offsets, width).numpy()
+    t = tdriver.frame_mask(grid, gshape, offsets, width, "cpu").numpy()
     np.testing.assert_array_equal(t, j)
 
 

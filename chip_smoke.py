@@ -16,14 +16,26 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      (128, 128, 256), a ragged (66, 70, 130) and the main path's 512^3 grid;
      K3's sharded mode and K6 fused_zslab against k plain sharded steps on
      2x2 and 4x1 meshes of virtual shards at (128, 128, 256) and
-     (68, 70, 130), guard-frame and periodic.  Tolerances: raw step
-     atol = 32 eps max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6;
-     fused k-step atol = 1e-4, rtol = 0; guard-frame cells exactly equal;
+     (68, 70, 130), guard-frame and periodic.  2D: K7 whole2d (life,
+     heat2d) and K8 fullgrid (life, heat2d, wave2d; the whole grid, RAW,
+     and row shards of virtual meshes, PADDED, with and without the
+     overlap shells; k = 1, 2, 4, 8; guard-frame and periodic) at an
+     aligned (128, 256), ragged (130, 258) and (1000, 777) and the main
+     path's 16384^2 grid.  Tolerances: raw step atol = 32 eps
+     max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
+     atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
+     exactly equal;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
      --compute jnp, --compute pallas and --fuse K (K = 4; 2 for heat3d4th),
      each kernel path held against its jnp run; a checkpoint round trip
-     (--checkpoint-every 50, --resume to 100) bit for bit;
+     (--checkpoint-every 50, --resume to 100) bit for bit.  2D: BASELINE
+     config 1, heat2d and mdf at 512^2 for 1000 iterations and Life at
+     512^2, --init random --density 0.15 (the reference's universe), each
+     with --compute jnp, --compute pallas (K7; heat2d and life) and
+     --fuse 8 (K8); at 16384^2 life and heat2d with
+     jnp / pallas / fuse 8, and wave2d --fuse 8 against jnp (96
+     iterations: the multiple of k = 8 nearest 100);
   5. main path, sharded (MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=4: four
      shards on the one card — decomposition overhead, not scaling):
      ``cli.run()`` at 1024^3 float32, --init pulse, 100 iterations, heat3d
@@ -35,12 +47,18 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      same mode and the unsharded plain run; overlap must equal non-overlap
      bit for bit.  Then a sharded checkpoint round trip at 512^3 --mesh 2,2
      through ``cli.main()`` (--checkpoint-every 50, --resume to 100), bit
-     for bit;
+     for bit.  2D: life and heat2d at 16384^2, 96 iterations, --mesh 4
+     (a row split) with --compute jnp, pallas (K7), pallas --overlap,
+     --fuse 8 (K8 sharded) and --fuse 8 --overlap, and life --mesh 2
+     --compute pallas --overlap (the reference's two-rank program), each
+     against the unsharded run of the same mode and the unsharded plain
+     run, overlap bit-equal to non-overlap; a Life --mesh 4 --fuse 8
+     checkpoint round trip at 4096^2, bit for bit;
   6. timing: each kernel, its plain version and, where one PyTorch call
-     computes the same function, that call (F.conv3d with TF32 off), by
-     CUDA events at the main path's shapes, beside the bound from bytes and
-     flops; and the split of one sharded step at 1024^3 on 2x2 into
-     exchange/pad, kernel and re-pin.
+     computes the same function, that call (F.conv3d / F.conv2d with TF32
+     off), by CUDA events at the main path's shapes, beside the bound from
+     bytes and flops; and the split of one sharded step at 1024^3 on 2x2
+     into exchange/pad, kernel and re-pin.
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -76,7 +94,16 @@ MESH_RUNS = (("heat3d", BIG, ITERS, 4, True), ("wave3d", BIG, ITERS, 4, False),
              ("heat3d4th", MAIN, 20, 2, False))
 EPS32 = 2.0 ** -23
 FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
-                  "wave3d": 12}
+                  "wave3d": 12, "heat2d": 7, "wave2d": 9,
+                  "life": 10}  # life: integer adds and compares
+# 2D: BASELINE config 1 (heat2d 512^2, 1000 iterations) and the size that
+# fills the card with real work (16384^2: 1.07 GB per field).
+BASE2D = (512, 512)
+ITERS2D = 1000
+GRID2D = (16384, 16384)
+ITERS16K = 96  # the multiple of FUSE2D nearest 100
+FUSE2D = 8
+LIFE_CKPT_GRID = (4096, 4096)  # the 2D sharded checkpoint round trip
 TPU = "mpi_cuda_process_tpu/ops/pallas/"
 
 
@@ -120,13 +147,22 @@ def main() -> int:
 
     from mpi_cuda_process_tpu_torch import cli, driver, make_stencil
     from mpi_cuda_process_tpu_torch.interop import fields_from_numpy
-    from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fused, kernels,
-                                                     rawstep)
+    from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fullgrid, fused,
+                                                     kernels, rawstep)
     from mpi_cuda_process_tpu_torch.parallel import halo, mesh as mesh_lib
     from mpi_cuda_process_tpu_torch.parallel import stepper
     from mpi_cuda_process_tpu_torch.utils import checkpointing
 
-    counters = (rawstep.launches, fused.launches, kernels.launches)
+    counters = (rawstep.launches, fused.launches, kernels.launches,
+                fullgrid.launches)
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def took():
+        """Seconds since the previous phase ended."""
+        now = time.perf_counter()
+        secs, t_phase[0] = round(now - t_phase[0], 3), now
+        return secs
     dev = torch.device("cuda", torch.cuda.current_device())
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -143,6 +179,7 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in log.splitlines()
                  if "Used" in ln or "spill" in ln]
              for n, log in _build.build_log.items()}
+    took()
     emit({"phase": "build", "ok": True,
           "seconds": round(time.perf_counter() - t0, 3),
           "nvcc_seconds": round(_build.build_seconds, 3), "ptxas": ptxas})
@@ -257,10 +294,79 @@ def main() -> int:
                         "periodic": periodic, "mesh": mshape,
                         "max_abs_err": err, "atol": atol, "rtol": rtol})
         del ref, got
+    # 2D: K7 whole2d and K8 fullgrid (RAW; PADDED through the row-split
+    # stepper, with the overlap shells for even k)
+    def rand2d(name, shape):
+        if name == "life":
+            return ((rand(shape) < 0.35).to(torch.int32),)
+        return tuple(rand(shape) for _ in range(make_stencil(name).num_fields))
+
+    cases2d = []
+    for shape in ((128, 256), (130, 258), (1000, 777), GRID2D):
+        big = shape == GRID2D
+        for name in ("life", "heat2d"):
+            cases2d.append(("whole2d", name, shape, 1, False))
+        for name in ("life", "heat2d", "wave2d"):
+            for k in ((FUSE2D,) if big else (1, 2, 4, 8)):
+                for periodic in ((False,) if big else (False, True)):
+                    cases2d.append(("fullgrid_step", name, shape, k,
+                                    periodic))
+                    if not (big and name == "wave2d"):
+                        cases2d.append(("fullgrid_padded", name, shape, k,
+                                        periodic))
+    for path, name, shape, k, periodic in cases2d:
+        st = make_stencil(name)
+        exact = name == "life"
+        frame = None if periodic else driver.frame_mask(shape, shape, (0, 0),
+                                                        1, dev)
+        mshape = None
+        rtol = 0.0
+        if path == "whole2d":
+            ins = rand2d(name, tuple(s + 2 for s in shape))
+            ref = st.update(ins)
+            got = kernels.make_pallas_compute(st, device=dev)(ins)
+            atol = rtol = 0.0 if exact else 1e-6
+            frame = None
+        elif path == "fullgrid_step":
+            fields = rand2d(name, shape)
+            plain = driver.make_step(st, shape, periodic=periodic)
+            ref = fields
+            for _ in range(k):
+                ref = plain(ref)
+            got = fullgrid.make_fullgrid_step(st, shape, k, periodic=periodic,
+                                              device=dev)(fields)
+            atol = 0.0 if exact else 1e-4
+            del fields
+        else:
+            n = 2 if shape[0] % 4 else 4
+            mshape = (n,)
+            mesh = virtual_mesh(mshape)
+            fields = stepper.shard_fields(rand2d(name, shape), mesh, 2)
+            plain = stepper.make_sharded_step(st, mesh, shape,
+                                              periodic=periodic)
+            ref = fields
+            for _ in range(k):
+                ref = plain(ref)
+            step = stepper.make_sharded_temporal_step(
+                st, mesh, shape, k, periodic=periodic, overlap=k % 2 == 0,
+                device=dev)
+            if step._overlap_active != (k % 2 == 0):
+                fail(f"fullgrid_padded {name} k={k}: overlap split not taken")
+            got = stepper.gather_fields(step(fields))
+            ref = stepper.gather_fields(ref)
+            atol = 0.0 if exact else 1e-4
+            del fields
+        entry = f"{path}<{name}>"
+        torch.cuda.synchronize()
+        err = compare(entry, got, ref, atol, frame, rtol)
+        checked.append({"kernel": entry, "shape": list(shape), "k": k,
+                        "periodic": periodic, "mesh": mshape,
+                        "max_abs_err": err, "atol": atol, "rtol": rtol})
+        del ref, got
     for c in counters:
         c.clear()
-    emit({"phase": "kernels", "ok": True, "checked": len(checked),
-          "max_abs_err": errs, "cases": checked})
+    emit({"phase": "kernels", "ok": True, "seconds": took(),
+          "checked": len(checked), "max_abs_err": errs, "cases": checked})
     torch.cuda.empty_cache()
 
     # ---- 4. unsharded main path through cli.main() -------------------------
@@ -365,8 +471,43 @@ def main() -> int:
             not all(torch.equal(x, y) for x, y in zip(a, b)):
         fail("checkpoint round trip does not match the uninterrupted run")
     runs.clear()
-    emit({"phase": "main_path", "ok": True, "grid": list(MAIN),
-          "iters": ITERS, "runs": results, "launches": dict(main_launches),
+
+    # 2D, BASELINE config 1: 512^2, 1000 iterations; Life from the
+    # reference's random universe (density 0.15)
+    frame512 = driver.frame_mask(BASE2D, BASE2D, (0, 0), 1, dev)
+    for stencil, modes in (("heat2d", ("jnp", "pallas", str(FUSE2D))),
+                           ("mdf", ("jnp", str(FUSE2D))),
+                           ("life", ("jnp", "pallas", str(FUSE2D)))):
+        name = make_stencil(stencil).name
+        init = (("--init", "random", "--density", "0.15")
+                if stencil == "life" else ())
+        for mode in modes:
+            flags = ("--fuse", mode) if mode.isdigit() else ("--compute", mode)
+            res = drive(f"{stencil}_{mode}", stencil, *flags, *init,
+                        iters=ITERS2D, ckpt_every=ITERS2D, grid=BASE2D)
+            want = {"jnp": {}, "pallas": {f"whole2d[{name}]": ITERS2D}}.get(
+                mode, {f"fullgrid_step[{name}]": ITERS2D // FUSE2D})
+            if res["launches"] != want:
+                fail(f"{res['label']}: launches {res['launches']} != {want}")
+            if mode != "jnp":
+                ref = runs[f"{stencil}_jnp"]["fields"]
+                got = runs[f"{stencil}_{mode}"]["fields"]
+                scale = max(float(ref[0].abs().max()), 1.0)
+                atol = (0.0 if name == "life" else
+                        1e-4 if mode.isdigit() else 32 * EPS32 * scale)
+                err = max(float((g - r).abs().max()) for g, r in
+                          zip(got, ref))
+                if err > atol or not all(torch.equal(g[frame512], r[frame512])
+                                         for g, r in zip(got, ref)):
+                    fail(f"{stencil} {mode}: max|d| vs jnp {err:.3e} > "
+                         f"{atol:.3e}, or frame cells differ")
+                res["max_abs_err_vs_jnp"], res["atol"] = err, atol
+            results.append(res)
+        runs.clear()
+    emit({"phase": "main_path", "ok": True, "seconds": took(),
+          "grid": list(MAIN), "iters": ITERS, "grid_2d": list(BASE2D),
+          "iters_2d": ITERS2D, "runs": results,
+          "launches": dict(main_launches),
           "checkpoint_roundtrip": "bit-exact"})
     torch.cuda.empty_cache()
 
@@ -374,9 +515,9 @@ def main() -> int:
     os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
     mesh_results = []
 
-    def run_cli(stencil, grid, iters, *flags):
+    def run_cli(stencil, grid, iters, *flags, init="pulse"):
         argv = ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
-                "--iters", str(iters), "--init", "pulse", *flags]
+                "--iters", str(iters), "--init", init, *flags]
         s0 = torch.cuda.memory_stats()
         (fields, mcells), got = counted(
             lambda: cli.run(cli.config_from_args(argv)))
@@ -501,9 +642,105 @@ def main() -> int:
             not all(torch.equal(x, y) for x, y in zip(a, b)):
         fail("sharded checkpoint round trip does not match the "
              "uninterrupted run")
+    runs.clear()
+
+    # 2D at 16384^2, 96 iterations: unsharded references, then --mesh 4 (a
+    # row split; life also --mesh 2, the reference's two-rank program)
+    def err_whole(got, ref):
+        return max(float((g - r).abs().max()) for g, r in zip(got, ref))
+
+    for stencil, init in (("life", "random"), ("heat2d", "pulse")):
+        k = FUSE2D
+        whole, padded = f"whole2d[{stencil}]", f"fullgrid_padded[{stencil}]"
+        refs = {}
+        for label, flags, want in (
+                ("jnp", ("--compute", "jnp"), {}),
+                ("pallas", ("--compute", "pallas"), {whole: ITERS16K}),
+                ("fuse", ("--fuse", str(k)),
+                 {f"fullgrid_step[{stencil}]": ITERS16K // k})):
+            got, r = run_cli(stencil, GRID2D, ITERS16K, *flags, init=init)
+            if r["launches"] != want:
+                fail(f"{stencil} 2D unsharded {label}: launches "
+                     f"{r['launches']} != {want}")
+            if label != "jnp":
+                scale = max(float(refs["jnp"][0].abs().max()), 1.0)
+                atol = (0.0 if stencil == "life" else 1e-4 if label == "fuse"
+                        else 32 * EPS32 * scale)
+                check(r, err_whole(got, refs["jnp"]), atol, "unsharded plain")
+            refs[label] = got
+            mesh_results.append(r)
+        scale = max(float(refs["jnp"][0].abs().max()), 1.0)
+        modes = [("jnp", ("--mesh", "4", "--compute", "jnp"), {}, "jnp"),
+                 ("pallas", ("--mesh", "4", "--compute", "pallas"),
+                  {whole: 4 * ITERS16K}, "pallas"),
+                 ("overlap", ("--mesh", "4", "--compute", "pallas",
+                              "--overlap"), {whole: 12 * ITERS16K}, "pallas"),
+                 ("fuse", ("--mesh", "4", "--fuse", str(k)),
+                  {padded: 4 * ITERS16K // k}, "fuse"),
+                 ("fuse_overlap", ("--mesh", "4", "--fuse", str(k),
+                                   "--overlap"),
+                  {padded: 12 * ITERS16K // k}, "fuse")]
+        if stencil == "life":
+            modes.append(("mesh2_overlap", ("--mesh", "2", "--compute",
+                                            "pallas", "--overlap"),
+                          {whole: 6 * ITERS16K}, "pallas"))
+        kept = {}
+        for label, flags, want, same in modes:
+            got, r = run_cli(stencil, GRID2D, ITERS16K, *flags, init=init)
+            if r["launches"] != want:
+                fail(f"{stencil} 2D {label}: launches {r['launches']} != "
+                     f"{want}")
+            atol = {"jnp": 32 * EPS32 * scale, "fuse": 1e-4,
+                    "pallas": 1e-6 + 1e-6 * scale}[same]
+            if stencil == "life":
+                atol = 0.0
+            check(r, block_err(got, refs[same], 1, f"{stencil} {label}"),
+                  atol, "unsharded same mode")
+            check(r, block_err(got, refs["jnp"], 1, f"{stencil} {label}"),
+                  max(atol, 0.0 if stencil == "life" else 32 * EPS32 * scale),
+                  "unsharded plain")
+            if label in ("pallas", "fuse"):
+                kept[label] = got
+            elif label in ("overlap", "fuse_overlap"):
+                base = kept.pop("pallas" if label == "overlap" else "fuse")
+                if not all(torch.equal(x, y) for a, b in zip(got, base)
+                           for x, y in zip(a, b)):
+                    fail(f"{stencil} 2D {label}: differs from non-overlap")
+                r["bit_equal_to_non_overlap"] = True
+            mesh_results.append(r)
+            del got
+        del refs, kept
+        torch.cuda.empty_cache()
+    got, r = run_cli("wave2d", GRID2D, ITERS16K, "--compute", "jnp")
+    mesh_results.append(r)
+    fgot, r = run_cli("wave2d", GRID2D, ITERS16K, "--fuse", str(FUSE2D))
+    if r["launches"] != {"fullgrid_step[wave2d]": ITERS16K // FUSE2D}:
+        fail(f"wave2d fuse: launches {r['launches']}")
+    check(r, err_whole(fgot, got), 1e-4, "unsharded plain")
+    mesh_results.append(r)
+    del got, fgot
+    torch.cuda.empty_cache()
+
+    # 2D sharded checkpoint round trip: Life --mesh 4 --fuse 8 at 4096^2,
+    # 48 steps + checkpoint, then resume to 96 (multiples of k = 8)
+    life_grid = LIFE_CKPT_GRID
+    life2 = ("--mesh", "4", "--fuse", str(FUSE2D))
+    drive("life_full", "life", *life2, iters=96, ckpt_every=96,
+          grid=life_grid)
+    drive("life_half", "life", *life2, iters=48, ckpt_every=48,
+          grid=life_grid)
+    os.replace(os.path.join(scratch, "life_half"),
+               os.path.join(scratch, "life_resumed"))
+    resumed = drive("life_resumed", "life", *life2, "--resume",
+                    iters=96, ckpt_every=48, grid=life_grid)
+    a, b = runs["life_resumed"]["fields"], runs["life_full"]["fields"]
+    if resumed["steps"] != 48 or runs["life_resumed"]["step"] != 96 or \
+            not all(torch.equal(x, y) for x, y in zip(a, b)):
+        fail("2D sharded checkpoint round trip does not match the "
+             "uninterrupted run")
     shutil.rmtree(scratch, ignore_errors=True)
     runs.clear()
-    emit({"phase": "sharded_main_path", "ok": True,
+    emit({"phase": "sharded_main_path", "ok": True, "seconds": took(),
           "note": "4 shards on 1 card: decomposition overhead, not scaling",
           "runs": mesh_results, "checkpoint_roundtrip": "bit-exact",
           "launches": dict(main_launches)})
@@ -612,7 +849,8 @@ def main() -> int:
     rows = {"raw_step_heat": ("K1", 1), "raw_step_wave": ("K2", 2),
             "fused_step": ("K3", 5), "fused_step_padded": ("K3", 5),
             "zchunk_heat": ("K4", 12), "zchunk_wave": ("K5", 13),
-            "fused_zslab": ("K6", 8)}
+            "fused_zslab": ("K6", 8), "whole2d": ("K7", 14),
+            "fullgrid_step": ("K8", 15), "fullgrid_padded": ("K8", 15)}
 
     def record(entry, wrapper, name, src, replaces, ms, plain_ms, moved,
                flops, library_ms, k, shape, per_step):
@@ -768,10 +1006,82 @@ def main() -> int:
             del fields, pads, new, masks
         torch.cuda.empty_cache()
 
+    # 2D kernels at 16384^2 (K8 sharded: one shard of --mesh 4)
+    H, W = GRID2D
+    cells2d = H * W
+    for name in ("heat2d", "life"):
+        st = make_stencil(name)
+        ins = rand2d(name, (H + 2, W + 2))
+        comp = kernels.make_pallas_compute(st, device=dev)
+        ms = time_ms(lambda: comp(ins), 20)
+        plain_ms = time_ms(lambda: st.update(ins), 3)
+        library_ms = None
+        if name == "heat2d":
+            a = st.params["alpha"]
+            w = torch.tensor([[0, a, 0], [a, 1 - 4 * a, a], [0, a, 0]],
+                             dtype=torch.float32, device=dev)[None, None]
+            x = ins[0][None, None]
+
+            def conv(x=x, w=w):
+                return F.conv2d(x, w, padding=0)
+
+            err = float((conv()[0, 0] - st.update(ins)[0]).abs().max())
+            if not err <= 1e-4:
+                fail(f"F.conv2d yardstick for heat2d disagrees with the "
+                     f"plain update: max|d| {err:.3e}")
+            library_ms = time_ms(conv, 10)
+        record(f"whole2d<{name}>", "whole2d", name, "whole2d.cu",
+               TPU + ("kernels.py:260" if name == "life"
+                      else "kernels.py:254"),
+               ms, plain_ms, 4 * ((H + 2) * (W + 2) + cells2d),
+               FLOPS_PER_CELL[name] * cells2d, library_ms, 1, GRID2D, 1.0)
+        del ins
+    k = FUSE2D
+    for name in ("life", "heat2d", "wave2d"):
+        st = make_stencil(name)
+        nf = st.num_fields
+        fields = rand2d(name, GRID2D)
+        kern = fullgrid.make_fullgrid_step(st, GRID2D, k, device=dev)
+        plain = driver.make_step(st, GRID2D)
+
+        def run_plain(fields=fields, plain=plain):
+            fs = fields
+            for _ in range(k):
+                fs = plain(fs)
+            return fs
+
+        ms = time_ms(lambda: kern(fields), 10)
+        plain_ms = time_ms(run_plain, 2)
+        record(f"fullgrid_step<{name}>", "fullgrid_step", name, "fullgrid.cu",
+               TPU + ("fullgrid.py:56" if name == "life"
+                      else "fullgrid.py:120"),
+               ms, plain_ms, 2 * nf * 4 * cells2d,
+               FLOPS_PER_CELL[name] * k * cells2d, None, k, GRID2D, 1.0 / k)
+        del fields
+        if name == "wave2d":
+            continue  # the sharded main path runs life and heat2d
+        local = (H // 4, W)
+        pshape = (H // 4 + 2 * k, W)
+        ins = rand2d(name, pshape)
+        kern = lambda: fullgrid.fullgrid_padded(ins, st, k, H, 0)
+        plain = lambda: fused._plain_window_steps(ins, st, k, (-k, 0),
+                                                  GRID2D, False, (1,))
+        ms = time_ms(kern, 10)
+        plain_ms = time_ms(plain, 2)
+        record(f"fullgrid_padded<{name}>", "fullgrid_padded", name,
+               "fullgrid.cu", TPU + "fullgrid.py:120", ms, plain_ms,
+               4 * nf * (math.prod(pshape) + math.prod(local)),
+               FLOPS_PER_CELL[name] * k * math.prod(local), None, k, local,
+               4.0 / k)
+        del ins
+        torch.cuda.empty_cache()
+
     for kk in kernels_out:
         if kk["launches"] < 1:
             fail(f"{kk['name']} was not launched on the main path")
-    emit({"phase": "timing", "ok": True, "card": smi,
+    emit({"phase": "timing", "ok": True, "seconds": took(),
+          "total_seconds": round(time.perf_counter() - t_start, 3),
+          "card": smi,
           "bytes_per_s": bw, "flops32_per_s": flops32,
           "sharded_step_split": split,
           "note": "sharded figures: 4 shards on 1 card, decomposition "

@@ -8,13 +8,17 @@
         --grid 1024,1024,1024 --iters 100 --mesh 2,2 --compute pallas --overlap
     python -m mpi_cuda_process_tpu_torch --stencil heat2d --grid 64,64 \
         --iters 50 --device cpu --render
+    python -m mpi_cuda_process_tpu_torch --stencil life --grid 512,512 \
+        --iters 1000 --mesh 2 --compute pallas --overlap
 
 The flags keep the TPU package's names and values, so one command line runs
 on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
-(K1/K2), or under ``--mesh``/``--periodic`` the compute_fn kernel (K4/K5);
-``--fuse K`` the temporal-blocking kernel (K3, its sharded mode under
-``--mesh``, K6 with ``--fuse-kind padfree`` on a z-only mesh); ``--compute
-auto``/``jnp`` the plain tensor path.  ``--mesh`` decomposes the grid over
+(K1/K2), or under ``--mesh``/``--periodic`` the compute_fn kernel (K4/K5),
+and on 2D grids the 2D compute_fn kernel (K7); ``--fuse K`` the
+temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, K6
+with ``--fuse-kind padfree`` on a z-only mesh; 2D: K8, its sharded mode
+under a row-split ``--mesh``); ``--compute auto``/``jnp`` the plain tensor
+path.  ``--mesh`` decomposes the grid over
 the visible devices (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N
 shards on one card).  ``--device`` (default ``cuda``) picks where the state
 lives; asking for ``cuda`` without a card raises, it never carries on on
@@ -39,7 +43,8 @@ from . import driver
 from .config import RunConfig, parse_int_tuple, parse_params
 from .interop import fields_from_numpy, shard_from_numpy
 from .ops import stencil as stencil_lib
-from .ops import heat, wave  # noqa: F401  (populate the registry)
+from .ops import heat, life, wave  # noqa: F401  (populate the registry)
+from .ops.cuda import fullgrid as fullgrid_lib
 from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
 from .ops.cuda import rawstep
@@ -51,6 +56,9 @@ from .utils.init import init_state, init_state_sharded
 log = logging.getLogger("mpi_cuda_process_tpu_torch")
 
 _BF16_ITEM = "ROADMAP B1/B3 (bfloat16 raw-step and fused kernels)"
+_BF16_ITEM_2D = {
+    "pallas": "ROADMAP B2 (bfloat16 whole-grid 2D compute_fn kernel, row 14)",
+    "fuse": "ROADMAP B6 (bfloat16 2D k-step kernel, row 15)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +79,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None,
                    help="float32|bfloat16|... (default: stencil's own)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--density", type=float, default=0.15,
+                   help="initial alive fraction of --init random (Life)")
     p.add_argument("--init", default="auto",
                    choices=["auto", "random", "zero", "pulse", "patch"])
     p.add_argument("--periodic", action="store_true",
@@ -92,14 +102,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "tables are empty until H100 measurements fill "
                         "them); pallas: the hand-written CUDA raw-step "
                         "kernel, or the compute_fn kernel under --mesh or "
-                        "--periodic")
+                        "--periodic and on 2D grids")
     p.add_argument("--overlap", action="store_true",
                    help="under --mesh: compute the bulk of each block while "
                         "the halo exchange runs (side CUDA stream), then "
                         "the boundary rings; same values")
     p.add_argument("--fuse", type=int, default=0,
                    help="temporal blocking: advance K steps per memory pass "
-                        "with the hand-written CUDA fused kernel (3D)")
+                        "with the hand-written CUDA fused kernel (3D "
+                        "windows, or the 2D whole-grid kernel)")
     p.add_argument("--fuse-kind", default="auto",
                    choices=["auto", "tiled", "padfree", "stream"],
                    help="unsharded: auto/tiled/padfree all run the one "
@@ -116,7 +127,8 @@ def config_from_args(argv=None) -> RunConfig:
     a = build_parser().parse_args(argv)
     return RunConfig(
         stencil=a.stencil, grid=a.grid, iters=a.iters, dtype=a.dtype,
-        mesh=a.mesh, seed=a.seed, init=a.init, periodic=a.periodic,
+        mesh=a.mesh, seed=a.seed, density=a.density, init=a.init,
+        periodic=a.periodic,
         log_every=a.log_every, checkpoint_every=a.checkpoint_every,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
@@ -133,6 +145,7 @@ def config_from_args(argv=None) -> RunConfig:
 _RAW_WINS: frozenset = frozenset()
 _AUTO_FUSE_K: dict = {}
 _AUTO_FUSE_KIND: dict = {}
+_AUTO_FULL_K: dict = {}  # 2D: stencil -> k of the whole-grid kernel
 
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
@@ -197,29 +210,40 @@ def _make_cfg_stencil(cfg: RunConfig):
 def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
     """Upgrade an eligible ``--compute auto`` run to ``--fuse k``.
 
-    Applies to the measured fused-kernel winners in ``_AUTO_FUSE_K`` (empty
-    until H100 measurements fill it), only when every cadence is a multiple
-    of k and the kernel accepts the run's stencil and grid.
+    Applies to the measured fused-kernel winners in ``_AUTO_FUSE_K`` (3D)
+    and ``_AUTO_FULL_K`` (2D), both empty until H100 measurements fill
+    them, only when every cadence is a multiple of k and the kernel accepts
+    the run's stencil, dtype and grid.
     """
     if cfg.compute != "auto" or cfg.fuse or cfg.fuse_kind != "auto" \
             or _uses_mesh(cfg):
         return cfg
-    if torch.device(cfg.device).type != "cuda" or len(cfg.grid) != 3:
+    if torch.device(cfg.device).type != "cuda":
         return cfg
-    if (cfg.dtype or "float32") != "float32":
-        return cfg
-    k = _AUTO_FUSE_K.get(cfg.stencil)
+    table = {2: _AUTO_FULL_K, 3: _AUTO_FUSE_K}.get(len(cfg.grid), {})
+    k = table.get(cfg.stencil)
     if k is None or cfg.periodic or cfg.resume:
         return cfg
     cadences = [cfg.iters, cfg.log_every, cfg.checkpoint_every]
     if any(v % k for v in cadences if v):
         return cfg
-    if fused_lib.make_fused_step(_make_cfg_stencil(cfg), cfg.grid, k) is None:
+    st = _make_cfg_stencil(cfg)
+    if st.dtype != _kernel_dtype(st):
+        return cfg
+    make = (fullgrid_lib.make_fullgrid_step if st.ndim == 2
+            else fused_lib.make_fused_step)
+    if make(st, cfg.grid, k) is None:
         return cfg
     log.info("auto: temporal blocking k=%d (fused CUDA kernel)", k)
     return dataclasses.replace(cfg, fuse=k,
                                fuse_kind=_AUTO_FUSE_KIND.get(cfg.stencil,
                                                              "auto"))
+
+
+def _kernel_dtype(st) -> torch.dtype:
+    """The field type the stencil's kernels take: int32 occupancy for
+    Life, float32 for the rest."""
+    return torch.int32 if st.name == "life" else torch.float32
 
 
 def _uses_mesh(cfg: RunConfig) -> bool:
@@ -246,9 +270,9 @@ def resolve_raw_step(cfg: RunConfig, st):
 
 
 def resolve_compute_fn(cfg: RunConfig, st):
-    """The ``compute_fn`` kernel (K4/K5) that ``--compute pallas`` plugs
-    into the step when the raw kernel does not apply (``--mesh``,
-    ``--periodic``); None otherwise.  2D names raise (ROADMAP B2)."""
+    """The ``compute_fn`` kernel (K4/K5, 2D: K7) that ``--compute pallas``
+    plugs into the step when the raw kernel does not apply (``--mesh``,
+    ``--periodic``, 2D grids); None otherwise."""
     if cfg.compute != "pallas":
         return None
     if not kernels_lib.has_pallas_kernel(st.name):
@@ -294,18 +318,21 @@ def build(cfg: RunConfig):
             "with the interior update, and an unsharded run has no "
             "exchange to overlap")
     m = _make_run_mesh(cfg, device) if use_mesh else None
-    if (cfg.fuse or cfg.compute == "pallas") and st.dtype != torch.float32:
+    if (cfg.fuse or cfg.compute == "pallas") and \
+            st.dtype != _kernel_dtype(st):
+        item = _BF16_ITEM if st.ndim == 3 else \
+            _BF16_ITEM_2D["fuse" if cfg.fuse else "pallas"]
         raise NotImplementedError(
             f"{stencil_lib.dtype_name(st.dtype)} on a kernel path is not "
-            f"ported: {_BF16_ITEM}")
+            f"ported: {item}")
     if cfg.fuse:
         if cfg.compute == "pallas":
             raise ValueError("--fuse replaces the whole step; it excludes "
                              "--compute pallas")
-        if st.ndim == 2:
-            raise NotImplementedError(
-                "--fuse on a 2D grid needs the whole-grid fused kernel, "
-                "which is not ported: ROADMAP B6")
+        if st.ndim == 2 and cfg.fuse_kind != "auto":
+            raise ValueError(
+                "--fuse-kind selects the 3D kernel variant; 2D grids use "
+                "the whole-grid kernel")
         if cfg.fuse_kind == "stream":
             raise NotImplementedError(
                 "--fuse-kind stream needs the streaming kernel, which is "
@@ -320,14 +347,24 @@ def build(cfg: RunConfig):
             step_fn = stepper_lib.make_sharded_temporal_step(
                 st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,
                 overlap=cfg.overlap, device=device)
+            if cfg.overlap and step_fn is not None and \
+                    not getattr(step_fn, "_overlap_active", False):
+                log.warning(
+                    "--overlap: block geometry cannot host the interior/"
+                    "boundary split (local extent < 3*k*halo on the "
+                    "sharded axis); running the plain exchange-then-"
+                    "compute fused step")
             if step_fn is None:
                 raise ValueError(
                     f"--fuse {cfg.fuse} + --mesh {cfg.mesh}"
                     + (f" --fuse-kind {kind}" if kind else "")
                     + f" unsupported for {st.name} on {cfg.grid}: needs a "
                     f"fused kernel, an unsharded lane axis, 2*k*halo a "
-                    f"multiple of 8 (f32), per-shard extents dividing the "
-                    f"grid, and blocks >= the k-step margin")
+                    f"multiple of 8 (f32, 3D), per-shard extents dividing "
+                    f"the grid, and blocks >= the k-step margin")
+        elif st.ndim == 2:
+            step_fn = fullgrid_lib.make_fullgrid_step(
+                st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)
         else:
             step_fn = fused_lib.make_fused_step(
                 st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)
@@ -355,12 +392,13 @@ def build(cfg: RunConfig):
         fields, start_step = _resume(cfg, st, device, m)
     elif m is not None:
         # each block computed on its own device; no device holds the grid
-        fields = init_state_sharded(st, cfg.grid, m, cfg.seed,
+        fields = init_state_sharded(st, cfg.grid, m, cfg.seed, cfg.density,
                                     kind=cfg.init, periodic=cfg.periodic)
         start_step = 0
     else:
-        fields = init_state(st, cfg.grid, cfg.seed, kind=cfg.init,
-                            periodic=cfg.periodic, device=device)
+        fields = init_state(st, cfg.grid, cfg.seed, cfg.density,
+                            kind=cfg.init, periodic=cfg.periodic,
+                            device=device)
         start_step = 0
     # a fused step_fn advances cfg.fuse steps per call; run() accounts.
     return st, step_fn, fields, start_step

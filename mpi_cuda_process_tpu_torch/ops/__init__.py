@@ -1,4 +1,4 @@
-from . import heat, wave  # noqa: F401  (populate the stencil registry)
+from . import heat, life, wave  # noqa: F401  (populate the stencil registry)
 from .stencil import Stencil, available_stencils, make_stencil
 
 __all__ = ["Stencil", "available_stencils", "make_stencil"]

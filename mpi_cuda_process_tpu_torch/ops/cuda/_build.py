@@ -26,7 +26,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("rawstep", "fused", "zchunk")
+SOURCES = ("rawstep", "fused", "zchunk", "whole2d", "fullgrid")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,20 +115,23 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def check_operands(what: str, *tensors, shape=None) -> None:
-    """Device, dtype, shape and contiguity gate for the float32 kernels."""
+def check_operands(what: str, *tensors, shape=None, dtype=None,
+                   ndim: int = 3) -> None:
+    """Device, dtype, shape and contiguity gate for the kernels (float32
+    unless ``dtype`` says otherwise; ``ndim``-dimensional)."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{what}: operands must share one CUDA device "
                              f"(got {t.device} and {dev})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{what}: float32 only (got {t.dtype}); the "
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {dtype} only (got {t.dtype}); the "
                             "bfloat16 kernels are ROADMAP B1/B3")
-        if t.dim() != 3 or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(f"{what}: expected a 3D tensor of shape "
+        if t.dim() != ndim or (shape is not None and tuple(t.shape) != shape):
+            raise ValueError(f"{what}: expected a {ndim}D tensor of shape "
                              f"{shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")

@@ -1,0 +1,197 @@
+// K8 fullgrid_step<KIND, SRC>: k 2D steps (heat2d / mdf, wave2d, life) per
+// device-memory pass, by overlapped tiling in shared memory.
+//
+// Replaces: the TPU package's ops/pallas/fullgrid.py — _build_call's
+// kernel with the _micro_life micro-step and the _MICRO2D entries for
+// heat2d, mdf (fused._micro_heat) and wave2d (fused._micro_wave).  There
+// the whole grid (or a shard's whole padded block) sits in VMEM and one
+// program runs the k micro-steps on it.  That does not carry over: 512^2
+// float32 is 1 MiB against 227 KB of shared memory per block.  So this is
+// the 2D counterpart of K3 (fused.cu): each block loads an overlapped
+// window, steps it k times and writes its core.  A window-source policy
+// says where each window cell is read from:
+//
+//   RAW     the whole (H, W) grid; out-of-domain cells wrap (periodic) or
+//           clamp.  --fuse on one device.
+//   PADDED  a row-split shard's padded block (Ly+2m, W) from the width-m
+//           row exchange; rows come from the pad, x wraps or clamps.
+//           --fuse under --mesh.
+//
+// The frame is pinned on GLOBAL coordinates, oy + local row, against the
+// global extent (GH, W), every micro-step: a window cell past a global wall
+// is frame (its value only ever feeds other pinned cells), a cell past an
+// interior shard face holds the neighbour's rows and updates like any
+// other.  Periodic runs pin nothing.
+//
+// Bound on an H100: device-memory bytes.  One pass reads each field once
+// and writes it once for k steps.  What the design pays for that: each
+// block of (TY, TX) core cells loads a (TY+2m, TX+2m) window (m = k), the
+// overlap served mostly from L2, and recomputes the shrinking margin every
+// micro-step (1.9x the useful cells in the first micro-step at k = 8).
+//
+// Per block:
+//   1. load the window of every field into dynamic shared memory;
+//   2. k micro-steps, micro-step s updating the cells at least s from the
+//      window edge, frame re-pinned, __syncthreads() between steps.  Heat
+//      and Life ping-pong between two buffers; wave writes its new u over
+//      u_prev in place (each cell reads u_prev only at itself) and swaps
+//      roles, so the old u becomes the new u_prev for free;
+//   3. write the (TY, TX) core, masked to the block.
+// Threads are laid out (32, 8) over (x, y) and stride over the window by
+// rows and columns, so no index division is needed.
+//
+// Exactness: the updates are stencil2d.cuh's, in the plain version's order,
+// so k micro-steps equal k plain steps bit for bit (Life exactly, being
+// integer).
+
+#include "stencil2d.cuh"
+
+namespace {
+
+constexpr int BX = 32, BY = 8;
+
+enum Source { RAW = 0, PADDED = 1 };
+
+// Where a launch's operands live and where its core block sits.
+struct Grid2 {
+  const void* in[2];  // RAW: the (H, W) grid; PADDED: the (H+2m, W) block
+  void* out[2];       // (H, W)
+  int H, W;           // core (output) extent; x is never split, so W is global
+  int GH;             // global row count: the frame
+  int oy;             // global row of the core's first row
+  int m;              // PADDED: pad rows on each side
+};
+
+// Field f at local core coordinate (y, x), which may lie outside the core
+// (any value where the source has none: such cells are pinned or never
+// reach the core).
+template <int SRC, typename T>
+__device__ __forceinline__ T load(const Grid2& g, int f, int y, int x,
+                                  int periodic) {
+  const T* in = static_cast<const T*>(g.in[f]);
+  x = wrap_or_clamp2(x, g.W, periodic);
+  if constexpr (SRC == RAW) {
+    y = wrap_or_clamp2(y, g.H, periodic);
+  } else {
+    y = y + g.m;
+    y = y < 0 ? 0 : (y >= g.H + 2 * g.m ? g.H + 2 * g.m - 1 : y);
+  }
+  return in[static_cast<long>(y) * g.W + x];
+}
+
+template <int KIND, int SRC>
+__global__ void __launch_bounds__(BX * BY)
+fullgrid_step(const Grid2 g, int k, int periodic, float a, int TY, int TX) {
+  using T = typename Elem<KIND>::T;
+  constexpr bool two = KIND == WAVE5;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m = k;  // every 2D family here has halo 1
+  const int WY = TY + 2 * m, WX = TX + 2 * m;
+  T* cur = reinterpret_cast<T*>(smem_raw);  // heat/life: level; wave: u
+  T* nxt = cur + WY * WX;                   // heat/life: next;  wave: u_prev
+  // local coordinate of window cell (0, 0)
+  const int oy = blockIdx.y * TY - m, ox = blockIdx.x * TX - m;
+
+  for (int wy = threadIdx.y; wy < WY; wy += BY) {
+    for (int wx = threadIdx.x; wx < WX; wx += BX) {
+      cur[wy * WX + wx] = load<SRC, T>(g, 0, oy + wy, ox + wx, periodic);
+      if constexpr (two)
+        nxt[wy * WX + wx] = load<SRC, T>(g, 1, oy + wy, ox + wx, periodic);
+    }
+  }
+  __syncthreads();
+
+  for (int s = 1; s <= k; ++s) {
+    for (int wy = s + threadIdx.y; wy < WY - s; wy += BY) {
+      const int gy = g.oy + oy + wy;
+      const bool frame_row = gy < 1 || gy >= g.GH - 1;
+      for (int wx = s + threadIdx.x; wx < WX - s; wx += BX) {
+        const int q = wy * WX + wx;
+        const int gx = ox + wx;
+        const bool frame = !periodic && (frame_row || gx < 1 || gx >= g.W - 1);
+        if constexpr (KIND == WAVE5) {
+          nxt[q] = frame ? cur[q] : wave5(cur + q, nxt[q], WX, a);
+        } else if constexpr (KIND == LIFE) {
+          nxt[q] = frame ? cur[q] : life8(cur + q, WX);
+        } else {
+          nxt[q] = frame ? cur[q] : heat5(cur + q, WX, a);
+        }
+      }
+    }
+    __syncthreads();
+    T* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+
+  T* out0 = static_cast<T*>(g.out[0]);
+  T* out1 = static_cast<T*>(g.out[1]);
+  for (int cy = threadIdx.y; cy < TY; cy += BY) {
+    const int y = oy + m + cy;
+    if (y >= g.H) break;
+    for (int cx = threadIdx.x; cx < TX; cx += BX) {
+      const int x = ox + m + cx;
+      if (x >= g.W) break;
+      const long o = static_cast<long>(y) * g.W + x;
+      const int q = (cy + m) * WX + cx + m;
+      out0[o] = cur[q];
+      if constexpr (two) out1[o] = nxt[q];  // the new u_prev: the previous u
+    }
+  }
+}
+
+template <int KIND, int SRC>
+int launch(const Grid2& g, int k, int periodic, float a, int ty, int tx,
+           cudaStream_t s) {
+  using T = typename Elem<KIND>::T;
+  const size_t smem =
+      2 * sizeof(T) * static_cast<size_t>(ty + 2 * k) * (tx + 2 * k);
+  cudaError_t e = cudaFuncSetAttribute(
+      fullgrid_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((g.W + tx - 1) / tx, (g.H + ty - 1) / ty, 1);
+  fullgrid_step<KIND, SRC><<<grid, dim3(BX, BY, 1), smem, s>>>(g, k, periodic,
+                                                                a, ty, tx);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SRC>
+int dispatch(int kind, const Grid2& g, int k, int periodic, float a, int ty,
+             int tx, cudaStream_t s) {
+  switch (kind) {
+    case HEAT5:
+      return launch<HEAT5, SRC>(g, k, periodic, a, ty, tx, s);
+    case WAVE5:
+      return launch<WAVE5, SRC>(g, k, periodic, a, ty, tx, s);
+    case LIFE:
+      return launch<LIFE, SRC>(g, k, periodic, a, ty, tx, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// One K8 launch on `stream`, one device: (out0[, out1]) = k steps of
+// (in0[, in1]) on the whole (H, W) grid; in1/out1 are used by WAVE5 only.
+// `a` is alpha (HEAT5) or c2dt2 (WAVE5).  Returns a cudaError_t code.
+EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
+                        void* out0, void* out1, int H, int W, int k,
+                        int periodic, float a, int ty, int tx, void* stream) {
+  const Grid2 g{{in0, in1}, {out0, out1}, H, W, H, 0, 0};
+  return dispatch<RAW>(kind, g, k, periodic, a, ty, tx,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// One K8 launch in its sharded mode: the inputs are a row shard's padded
+// (Ly+2m, W) blocks with m = k, the outputs its (Ly, W) core k steps on;
+// the core's first row is global row oy of a GH-row grid.
+EXPORT int fullgrid_padded(int kind, const void* in0, const void* in1,
+                           void* out0, void* out1, int Ly, int W, int GH,
+                           int oy, int k, int periodic, float a, int ty,
+                           int tx, void* stream) {
+  const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy, k};
+  return dispatch<PADDED>(kind, g, k, periodic, a, ty, tx,
+                          static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,233 @@
+"""2D temporal blocking, k steps per device-memory pass: K8.
+
+``fullgrid_step`` (``csrc/fullgrid.cu::fullgrid_step<KIND, RAW>``) advances
+heat2d / mdf, wave2d or life by k guard-frame (or periodic) steps on the
+whole grid; ``fullgrid_padded`` (``fullgrid_step<KIND, PADDED>``) does the
+same for one row shard from its padded block (the width-m row exchange)
+and the shard's global first row.  Both are bit-exact with k plain steps.
+
+Replaces the TPU package's ``ops/pallas/fullgrid.py`` — ``_build_call``
+with ``_micro_life`` and the ``_MICRO2D`` micro-steps of heat2d, mdf and
+wave2d — behind the same two builders, :func:`make_fullgrid_step` and
+:func:`build_fullgrid_masked_call`.  The TPU kernel keeps the whole grid in
+VMEM; an SM's shared memory holds a small fraction of it, so K8 tiles the
+grid into overlapped windows (the kernel source says how).  The TPU rules
+that follow from VMEM and the (8, 128) tiling — ``W % 128``, ``m`` and the
+local rows a multiple of the sublane, the live-copy VMEM budget — do not
+apply; added is the shared-memory fit of one window.  Bound on an H100:
+device-memory bytes, one read and one write of each field per k steps.
+
+Plain PyTorch versions: k applications of ``driver.make_step`` for the
+whole grid; for a shard, k plain steps of its padded block
+(``fused._plain_window_steps``), which equal k plain sharded steps on the
+shard's rows.  A wrapper takes its plain version only for tensors on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from ...driver import make_step
+from ..stencil import Fields, Stencil
+from . import _build
+from .fused import SMEM_LIMIT, _plain_window_steps
+
+# Launches per wrapper and stencil, keyed "fullgrid_step[life]" or
+# "fullgrid_padded[heat2d]": one added where a kernel launches, nowhere
+# else.  ``launches.clear()`` resets.
+launches: Counter = Counter()
+
+# name -> (kernel kind of csrc/stencil2d.cuh, field dtype).  mdf is heat2d
+# under another registry name (its stencil's name is "heat2d").
+_FULLGRID = {"heat2d": (4, torch.float32), "wave2d": (5, torch.float32),
+             "life": (6, torch.int32)}
+# 2D families of the TPU kernel whose stencils the port does not have yet.
+_UNPORTED_2D = ("advect2d", "grayscott2d", "sor2d")
+STENCILS_ITEM = ("ROADMAP A1 (the advect2d, grayscott2d and sor2d "
+                 "stencils and their micro-steps)")
+
+# Core tile (TY, TX) each block writes; threads stride over it as (8, 32).
+CORE = (32, 64)
+# Micro-steps per launch of the whole-grid kernel: a larger k runs as
+# several launches (the window margin, and so the redundant work, grows
+# with the micro-steps of one launch).
+K_PER_LAUNCH = 16
+
+_c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+
+
+def fullgrid_supported(stencil: Stencil) -> bool:
+    """Whether K8 has the stencil's micro-step; the TPU families whose
+    stencils are not ported yet raise naming their ROADMAP item."""
+    if stencil.name in _UNPORTED_2D:
+        raise NotImplementedError(
+            f"--fuse for {stencil.name} needs its stencil and micro-step: "
+            f"{STENCILS_ITEM}")
+    return stencil.ndim == 2 and stencil.name in _FULLGRID
+
+
+def smem_bytes(k: int, itemsize: int = 4) -> int:
+    """Two window buffers of ``CORE + 2k`` cells."""
+    ty, tx = CORE
+    return 2 * itemsize * (ty + 2 * k) * (tx + 2 * k)
+
+
+def fits(k: int) -> bool:
+    """Whether one launch of k micro-steps fits a block's shared memory."""
+    return smem_bytes(k) <= SMEM_LIMIT
+
+
+def _coefficient(stencil: Stencil) -> float:
+    p = stencil.params
+    return float(p.get("alpha", p.get("c2dt2", 0.0)))
+
+
+def _lib():
+    lib = _build.load("fullgrid")
+    if lib.fullgrid_raw.argtypes is None:
+        lib.fullgrid_raw.argtypes = (
+            [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_float]
+            + [_c_int] * 2 + [_c_ptr])
+        lib.fullgrid_padded.argtypes = (
+            [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float]
+            + [_c_int] * 2 + [_c_ptr])
+    return lib
+
+
+def _pointers(tensors):
+    return (tensors[0].data_ptr(),
+            tensors[1].data_ptr() if len(tensors) == 2 else None)
+
+
+def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
+                  periodic: bool = False) -> Fields:
+    """``k`` steps of ``stencil`` on the whole 2D grid: one launch per
+    ``K_PER_LAUNCH`` micro-steps."""
+    if not fields[0].is_cuda:
+        step = make_step(stencil, fields[0].shape, periodic=periodic)
+        for _ in range(k):
+            fields = step(fields)
+        return fields
+    kind, dtype = _FULLGRID[stencil.name]
+    H, W = (int(s) for s in fields[0].shape)
+    _build.check_operands("fullgrid_step", *fields, shape=(H, W),
+                          dtype=dtype, ndim=2)
+    lib = _lib()
+    a = _coefficient(stencil)
+    left = k
+    while left > 0:
+        kk = min(left, K_PER_LAUNCH)
+        outs = tuple(torch.empty_like(f) for f in fields)
+        rc = lib.fullgrid_raw(kind, *_pointers(fields), *_pointers(outs),
+                              H, W, kk, int(periodic), a, *CORE,
+                              _build.stream_of(fields[0]))
+        _build.check(lib, rc, "fullgrid_step")
+        launches[f"fullgrid_step[{stencil.name}]"] += 1
+        fields, left = outs, left - kk
+    return fields
+
+
+def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
+                    global_rows: int, origin_y: int,
+                    periodic: bool = False) -> Fields:
+    """K8's sharded mode: ``k`` steps of one row shard.
+
+    ``padded`` are the shard's fields with ``m = k`` rows from the row
+    exchange on each side, ``(Ly + 2m, W)``; ``origin_y`` is the global row
+    of the shard's first core row in a ``global_rows``-row grid.  Returns
+    the ``(Ly, W)`` core of every field, k steps on.
+    """
+    m = k
+    Hp, W = (int(s) for s in padded[0].shape)
+    Ly = Hp - 2 * m
+    if not padded[0].is_cuda:
+        out = _plain_window_steps(padded, stencil, k, (origin_y - m, 0),
+                                  (global_rows, W), periodic, wrap_axes=(1,))
+        return tuple(f[m:m + Ly].contiguous() for f in out)
+    kind, dtype = _FULLGRID[stencil.name]
+    if not fits(k) or Ly < 1:
+        raise ValueError(f"fullgrid_padded: {stencil.name} k={k} on "
+                         f"{(Hp, W)} not supported")
+    _build.check_operands("fullgrid_padded", *padded, shape=(Hp, W),
+                          dtype=dtype, ndim=2)
+    outs = tuple(torch.empty((Ly, W), dtype=p.dtype, device=p.device)
+                 for p in padded)
+    lib = _lib()
+    rc = lib.fullgrid_padded(kind, *_pointers(padded), *_pointers(outs), Ly,
+                             W, int(global_rows), int(origin_y), k,
+                             int(periodic), _coefficient(stencil), *CORE,
+                             _build.stream_of(padded[0]))
+    _build.check(lib, rc, "fullgrid_padded")
+    launches[f"fullgrid_padded[{stencil.name}]"] += 1
+    return outs
+
+
+def make_fullgrid_step(
+    stencil: Stencil,
+    global_shape: Sequence[int],
+    k: int,
+    periodic: bool = False,
+    device=None,
+) -> Optional[Callable[[Fields], Fields]]:
+    """``fields -> fields`` advancing ``k`` steps of a 2D stencil, or None
+    (not a 2D family of the kernel, or k < 1).  Any extent and any k run:
+    the kernel masks the ragged edge, and k above ``K_PER_LAUNCH`` takes
+    several launches.  With a CUDA ``device`` the kernel is built here,
+    before the time loop."""
+    if len(global_shape) != 2 or k < 1 or not fullgrid_supported(stencil):
+        return None
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+
+    def step_k(fields: Fields) -> Fields:
+        return fullgrid_step(fields, stencil, k, periodic=periodic)
+
+    return step_k
+
+
+def build_fullgrid_masked_call(
+    stencil: Stencil,
+    padded_shape: Tuple[int, int],
+    m: int,
+    k: int,
+    periodic: bool = False,
+    global_shape=None,
+    device=None,
+):
+    """K8 over one row shard's padded block: ``(call, nfields)`` or None.
+
+    The caller exchanges width-``m`` rows (``m = k * halo``), so the blocks
+    are ``(Ly + 2m, W)``.  In guard-frame mode the call takes the shard's
+    global first row first, then the padded fields; periodic calls take the
+    fields alone.  It returns the ``(Ly, W)`` cores advanced k steps.  None
+    for a family without a kernel, ``m`` other than ``k * halo``, local
+    rows below ``m`` (a width-m slab must come from one neighbour), a
+    guard-frame call without ``global_shape``, or a window too large for
+    shared memory.
+    """
+    if m < 1 or k < 1 or not fullgrid_supported(stencil):
+        return None
+    if not periodic and global_shape is None:
+        return None
+    Hp, _W = (int(s) for s in padded_shape)
+    if m != k * stencil.halo or Hp - 2 * m < m or not fits(k):
+        return None
+    rows = None if global_shape is None else int(global_shape[0])
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+    nf = stencil.num_fields
+
+    if periodic:
+        def call(*padded):
+            return fullgrid_padded(padded, stencil, k, Hp - 2 * m, 0,
+                                   periodic=True)
+    else:
+        def call(origin_y, *padded):
+            return fullgrid_padded(padded, stencil, k, rows, origin_y)
+
+    return call, nf

@@ -1,21 +1,24 @@
-"""The ``compute_fn`` kernels: K4 and K5.
+"""The ``compute_fn`` kernels: K4, K5 and K7.
 
 ``zchunk_heat`` (K4, ``csrc/zchunk.cu::zchunk_heat<KIND>``) maps a
 halo-padded heat3d, heat3d27 or heat3d4th block to its updated interior;
 ``zchunk_wave`` (K5, ``csrc/zchunk.cu::zchunk_wave``) does the same for
-wave3d from the padded ``u`` and the unpadded ``u_prev``.  Neither knows
-about the guard frame: the step that calls them re-pins it.  They are what
-``--compute pallas`` plugs into ``driver.make_step`` (``--periodic``) and
+wave3d from the padded ``u`` and the unpadded ``u_prev``; ``whole2d`` (K7,
+``csrc/whole2d.cu::whole2d<HEAT5|LIFE>``) for a padded 2D heat2d/mdf
+(float32) or life (int32) block.  None knows about the guard frame: the
+step that calls them re-pins it.  They are what ``--compute pallas`` plugs
+into ``driver.make_step`` (2D grids, and ``--periodic``) and
 ``parallel.stepper.make_sharded_step`` (``--mesh``).
 
 Replaces the TPU package's ``ops/pallas/kernels.py::make_pallas_compute``
 (``_heat3d_compute`` → ``_zchunk_kernel``, ``_wave3d_compute`` →
-``_zchunk_wave_kernel``).  Bound on an H100: device-memory bytes; the kernel
-source says what its design does about that.
+``_zchunk_wave_kernel``, ``_whole2d_compute`` → ``_heat2d_kernel`` and
+``_life_kernel``).  The TPU 2D kernel takes the plain update above a VMEM
+cap; K7 is tiled and runs at any size.  Bound on an H100: device-memory
+bytes; the kernel sources say what their designs do about that.
 
 Beside each kernel sits its plain PyTorch version, the stencil's own
-``update``; a wrapper takes it only for a tensor on the CPU.  The 2D names
-(heat2d, life) have no kernel here yet and raise.
+``update``; a wrapper takes it only for a tensor on the CPU.
 """
 
 from __future__ import annotations
@@ -35,9 +38,10 @@ from .rawstep import coefficients
 launches: Counter = Counter()
 
 _HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2}
+# 2D kinds of csrc/stencil2d.cuh with the field type each kernel takes.
+_WHOLE2D_KIND = {"heat2d": (4, torch.float32), "life": (6, torch.int32)}
 # The names the TPU package has a compute_fn kernel for (kernels.py:301).
 _TPU_NAMES = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "heat2d", "life")
-WHOLE_2D_ITEM = "ROADMAP B2 (whole-grid 2D compute_fn kernels, row 14)"
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
@@ -50,6 +54,14 @@ def _lib():
             + [_c_ptr])
         lib.zchunk_wave_f32.argtypes = (
             [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
+    return lib
+
+
+def _lib2d():
+    lib = _build.load("whole2d")
+    if lib.whole2d_step.argtypes is None:
+        lib.whole2d_step.argtypes = (
+            [_c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_float, _c_ptr])
     return lib
 
 
@@ -97,9 +109,29 @@ def zchunk_wave(p: torch.Tensor, uprev: torch.Tensor,
     return out
 
 
+def whole2d(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
+    """Updated interior (H, W) of the padded 2D block ``p`` (H+2, W+2):
+    heat2d/mdf (float32) or life (int32)."""
+    if not p.is_cuda:
+        return stencil.update((p,))[0]
+    kind, dtype = _WHOLE2D_KIND[stencil.name]
+    _build.check_operands("whole2d", p, dtype=dtype, ndim=2)
+    H, W = (int(s) - 2 for s in p.shape)
+    if min(H, W) < 1:
+        raise ValueError(f"whole2d: expected a 2D block padded by 1, got "
+                         f"{tuple(p.shape)}")
+    out = torch.empty((H, W), dtype=p.dtype, device=p.device)
+    alpha = float(stencil.params.get("alpha", 0.0))
+    lib = _lib2d()
+    rc = lib.whole2d_step(kind, p.data_ptr(), out.data_ptr(), H, W, alpha,
+                          _build.stream_of(p))
+    _build.check(lib, rc, "whole2d")
+    launches[f"whole2d[{stencil.name}]"] += 1
+    return out
+
+
 def has_pallas_kernel(name: str) -> bool:
-    """Whether the TPU package has a compute_fn kernel for ``name`` (the
-    2D ones among them raise from :func:`make_pallas_compute` here)."""
+    """Whether the TPU package has a compute_fn kernel for ``name``."""
     return name in _TPU_NAMES
 
 
@@ -110,15 +142,17 @@ def make_pallas_compute(stencil: Stencil,
     ``make_sharded_step``.  With a CUDA ``device`` the kernels are built
     here, before the time loop."""
     name = stencil.name
-    if name in ("heat2d", "life"):
-        raise NotImplementedError(
-            f"--compute pallas for {name} needs the whole-grid 2D kernel, "
-            f"which is not ported: {WHOLE_2D_ITEM}")
-    if name not in _HEAT_KIND and name != "wave3d":
+    if name not in _TPU_NAMES:
         raise KeyError(f"no pallas kernel for {name!r}; available: "
                        f"{sorted(_TPU_NAMES)}")
     if device is not None and torch.device(device).type == "cuda":
-        _lib()
+        _lib2d() if name in _WHOLE2D_KIND else _lib()
+
+    if name in _WHOLE2D_KIND:
+        def compute(padded: Fields) -> Fields:
+            return (whole2d(padded[0], stencil),)
+
+        return compute
 
     if name == "wave3d":
         def compute(padded: Fields) -> Fields:

@@ -3,9 +3,9 @@
 from .halo import InProcessTransport, exchange_and_pad, exchange_slabs_axis
 from .mesh import (Mesh, bootstrap_distributed, factor_mesh, local_devices,
                    make_mesh)
-from .stepper import (ShardedField, gather_fields, make_sharded_fused_step,
-                      make_sharded_step, make_sharded_temporal_step,
-                      shard_fields)
+from .stepper import (ShardedField, gather_fields, make_sharded_fullgrid_step,
+                      make_sharded_fused_step, make_sharded_step,
+                      make_sharded_temporal_step, shard_fields)
 
 __all__ = [
     "InProcessTransport",
@@ -18,6 +18,7 @@ __all__ = [
     "gather_fields",
     "local_devices",
     "make_mesh",
+    "make_sharded_fullgrid_step",
     "make_sharded_fused_step",
     "make_sharded_step",
     "make_sharded_temporal_step",

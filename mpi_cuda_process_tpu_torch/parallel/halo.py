@@ -181,8 +181,10 @@ def exchange_and_pad(
 
 
 def pad_local(block: torch.Tensor, halo: int, bc_value,
-              periodic: bool = False) -> torch.Tensor:
-    """One block padded as if it were the whole grid (local wrap or
-    guard-cell fill, no exchange): what a one-shard mesh would give."""
+              periodic: bool = False,
+              axes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """One block padded along ``axes`` (default: all) as if it were the
+    whole grid (local wrap or guard-cell fill, no exchange): what a
+    one-shard mesh would give."""
     return exchange_and_pad([block], Mesh((), [block.device]), halo,
-                            bc_value, periodic)[0]
+                            bc_value, periodic, axes=axes)[0]

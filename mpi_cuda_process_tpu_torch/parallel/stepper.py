@@ -19,6 +19,9 @@ run on a side stream while the bulk update runs on the current one.
 ``make_sharded_fused_step`` is k steps per exchange with the temporal-
 blocking kernels: the padded kind (width-m exchange on z and y, then K3 in
 its sharded mode) and, on z-only meshes, the pad-free z-slab kind (K6).
+``make_sharded_fullgrid_step`` is its 2D counterpart: a row split, a
+width-m row exchange, then K8 in its sharded mode, with an overlapped
+variant; ``make_sharded_temporal_step`` picks between the two.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ _YZ_PADFREE_ITEM = ("ROADMAP B4 (the 2-axis pad-free kernel, "
 _STREAM_ITEM = "ROADMAP B5 (the streaming kernels)"
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
 _RDMA_ITEM = "ROADMAP B7 (the remote-DMA exchange, >= 2 GPUs)"
-_FULLGRID_ITEM = "ROADMAP B6 (the whole-block 2D fused kernel)"
 
 
 class ShardedField(list):
@@ -463,6 +465,125 @@ def make_sharded_fused_step(
     return step_padded
 
 
+def make_sharded_fullgrid_step(
+    stencil: Stencil,
+    mesh: Mesh,
+    global_shape: Sequence[int],
+    k: int,
+    periodic: bool = False,
+    overlap: bool = False,
+    ensemble: int = 0,
+    device=None,
+):
+    """2D temporal blocking under a row split: k steps per exchange.
+
+    The reference's own decomposition (a 1-D row split) with k generations
+    per exchange: the y axis is sharded, width ``m = k * halo`` row slabs
+    are exchanged (``halo.exchange_and_pad`` along axis 0), and K8 in its
+    sharded mode advances each shard's padded block, pinning the frame
+    from the shard's global first row.  Returns None where the TPU builder
+    declines for a structural reason: not a 2D family of the kernel, the
+    x axis sharded, a grid not divisible by the mesh, local rows below m;
+    also for a window too large for shared memory.  The TPU alignment and
+    VMEM rules (``W % 128``, ``m`` and the local rows a multiple of the
+    sublane, the live-copy budget) do not apply.
+
+    ``overlap=True`` (with more than one row shard and local rows >= 3m):
+    the width-m slabs are exchanged on a side CUDA stream while the
+    interior instance of K8 runs on a locally padded block; then two
+    width-2m shell instances, fed by the exchanged slabs, overwrite the
+    first and last 2m rows.  Bit-equal to ``overlap=False``.  With fewer
+    local rows the step is the plain exchange-then-compute one, as in the
+    TPU package (``step._overlap_active`` says which).
+    """
+    from ..ops.cuda.fullgrid import build_fullgrid_masked_call
+
+    if stencil.ndim != 2:
+        return None
+    if ensemble:
+        raise NotImplementedError(
+            f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    _, counts = _resolve_mesh_axes(2, mesh)
+    if counts[1] > 1:
+        return None  # x stays whole: the kernel wraps or clamps it
+    global_shape = tuple(int(g) for g in global_shape)
+    if any(g % c for g, c in zip(global_shape, counts)):
+        return None
+    local_shape = _local_shape(global_shape, counts)
+    Ly, W = local_shape
+    m = k * stencil.halo
+    built = build_fullgrid_masked_call(
+        stencil, (Ly + 2 * m, W), m, k, periodic=periodic,
+        global_shape=global_shape, device=device)
+    if built is None:
+        return None
+    call, nf = built
+    shell = None
+    if overlap and counts[0] > 1 and Ly >= 3 * m:
+        # width-2m shell instances of the same kernel: padded extent 4m =
+        # the exchanged slab (m) + a 3m-deep local strip
+        shell_built = build_fullgrid_masked_call(
+            stencil, (4 * m, W), m, k, periodic=periodic,
+            global_shape=global_shape, device=device)
+        if shell_built is not None:
+            shell = shell_built[0]
+    coords = list(mesh.coords())
+    row0 = [shard_offsets(c, local_shape)[0] for c in coords]
+    bcs = stencil.bc_value
+
+    def run(fn, padded_c, y0):
+        return fn(*padded_c) if periodic else fn(y0, *padded_c)
+
+    def step(fields: Fields) -> Fields:
+        padded = [exchange_and_pad(f, mesh, m, bc, periodic, axes=(0,))
+                  for f, bc in zip(fields, bcs)]
+        out = [[] for _ in fields]
+        for i, c in enumerate(coords):
+            with _on_device(mesh.device(c)):
+                res = run(call, tuple(p[i] for p in padded), row0[i])
+            for j, b in enumerate(res):
+                out[j].append(b)
+        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+
+    if shell is None:
+        step._overlap_active = False
+        return step
+
+    w = 2 * m
+    side = _SideStreams(mesh)
+
+    def step_overlap(fields: Fields) -> Fields:
+        with side.begin():
+            slabs = [exchange_slabs_axis(f, mesh, 0, m, bc, periodic)
+                     for f, bc in zip(fields, bcs)]
+            side.record()
+        new = []
+        for i, c in enumerate(coords):
+            with _on_device(mesh.device(c)):
+                # local pad only: nothing here waits for the exchange
+                local = tuple(pad_local(f[i], m, bc, periodic, axes=(0,))
+                              for f, bc in zip(fields, bcs))
+                new.append(run(call, local, row0[i]))
+        side.join()
+        out = [[] for _ in fields]
+        for i, c in enumerate(coords):
+            with _on_device(mesh.device(c)):
+                lo_in = tuple(torch.cat([lo[i], f[i][:3 * m]])
+                              for f, (lo, _) in zip(fields, slabs))
+                hi_in = tuple(torch.cat([f[i][Ly - 3 * m:], hi[i]])
+                              for f, (_, hi) in zip(fields, slabs))
+                lo_out = run(shell, lo_in, row0[i])
+                hi_out = run(shell, hi_in, row0[i] + Ly - w)
+                for j in range(nf):
+                    new[i][j][:w].copy_(lo_out[j])
+                    new[i][j][Ly - w:].copy_(hi_out[j])
+                    out[j].append(new[i][j])
+        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+
+    step_overlap._overlap_active = True
+    return step_overlap
+
+
 def make_sharded_temporal_step(
     stencil: Stencil,
     mesh: Mesh,
@@ -474,15 +595,39 @@ def make_sharded_temporal_step(
     pipeline: bool = False,
     exchange: Optional[str] = None,
     ensemble: int = 0,
+    variant=None,
     device=None,
 ):
     """Temporal blocking under decomposition, any dimensionality: the one
-    entry point for ``--fuse K --mesh``.  3D goes to
-    :func:`make_sharded_fused_step`; 2D needs the whole-block kernel, not
-    ported yet."""
+    entry point for ``--fuse K --mesh``.  2D goes to
+    :func:`make_sharded_fullgrid_step` (a forced ``kind`` gives None there:
+    the kinds are 3D kernel variants), 3D to
+    :func:`make_sharded_fused_step`.  Kernel variants, ``pipeline`` and
+    ``exchange="rdma"`` are 3D-only and raise for 2D grids, as in the TPU
+    package."""
     if stencil.ndim == 2:
+        if variant is not None:
+            raise ValueError(
+                "kernel variants are 3D-only: the 2D whole-local-block "
+                "stepper has no streaming kind whose constants a variant "
+                "could sweep — drop --kernel-variant for 2D grids")
+        if pipeline:
+            raise ValueError(
+                "pipeline=True is 3D-only: the 2D whole-local-block stepper "
+                "has no slab-operand kind to carry the scan — drop "
+                "--pipeline for 2D grids")
+        if exchange and exchange != "ppermute":
+            raise ValueError(
+                "exchange='rdma' is 3D-only: the 2D whole-local-block "
+                "stepper has no slab-operand streaming kind for the "
+                "remote-DMA ring to feed — drop --exchange rdma for 2D "
+                "grids")
+        return None if kind else make_sharded_fullgrid_step(
+            stencil, mesh, global_shape, k, periodic=periodic,
+            overlap=overlap, ensemble=ensemble, device=device)
+    if variant is not None:
         raise NotImplementedError(
-            f"--fuse on a 2D grid under --mesh: {_FULLGRID_ITEM}")
+            "kernel variants are not ported: ROADMAP A8 (policy)")
     return make_sharded_fused_step(
         stencil, mesh, global_shape, k, periodic=periodic, kind=kind,
         overlap=overlap, pipeline=pipeline, exchange=exchange,

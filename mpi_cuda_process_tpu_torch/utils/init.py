@@ -1,19 +1,28 @@
-"""State initialization: the deterministic kinds.
+"""State initialization.
 
 ``zero`` (zero interior inside the guard-frame walls — the heat family's
 Dirichlet init), ``pulse`` (a centred Gaussian bump; the wave model's
-``u_prev = u`` is zero initial velocity) and ``auto`` (pick by stencil
-family) need no random numbers, so they reproduce the TPU package's fields
-up to float32 rounding of ``exp``.  The random kinds (``random``, ``patch``)
-draw from the TPU package's threefry stream, which is not ported yet.
+``u_prev = u`` is zero initial velocity), ``random`` (Bernoulli(density)
+occupancy — Life's universe) and ``auto`` (pick by stencil family).
+
+``random`` reproduces the TPU package's bits exactly: there it is
+``bernoulli(PRNGKey(seed), density, shape)`` with the partitionable threefry
+stream, i.e. cell ``i`` (its row-major flat index) draws
+``threefry2x32(key, (i >> 32, i & 0xffffffff))``, xors the two output
+words, keeps 23 mantissa bits as a float in [0, 1) and compares it with
+the float32 ``density``.  :func:`threefry2x32` computes that hash with
+int64 tensor arithmetic on the block's own device.  ``patch`` (Gray-Scott's
+seed) is not ported yet and raises.
 
 :func:`init_state_sharded` computes each block of a decomposed run on its
-own device from global coordinates, so no device ever holds the global
-grid; gathered, its blocks equal :func:`init_state` bit for bit.
+own device from global coordinates (the random kind from global flat
+indices), so no device ever holds the global grid; gathered, its blocks
+equal :func:`init_state` bit for bit.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -21,9 +30,71 @@ import torch
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil
 
-# ROADMAP item that ports the random init kinds.
-_RANDOM_INIT_ITEM = ("ROADMAP A2 (random/patch init: threefry2x32 in "
-                     "partitionable mode, or fields fed in from numpy)")
+# ROADMAP item that ports the Gray-Scott patch init.
+_PATCH_INIT_ITEM = ("ROADMAP A2 (the patch init: uniform noise from the "
+                    "same threefry stream, with the Gray-Scott stencils)")
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+# Cells hashed per pass of _random_block (bounds the int64 temporaries).
+_RANDOM_CHUNK = 1 << 24
+
+
+def threefry2x32(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+    """Threefry-2x32 (20 rounds) of the counter pairs ``(x1, x2)`` under
+    the key ``(k1, k2)``: two int64 tensors holding uint32 words."""
+    ks = (k1 & _M32, k2 & _M32, (k1 ^ k2 ^ 0x1BD11BDA) & _M32)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = (((x2 << r) | (x2 >> (32 - r))) & _M32) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def _prng_key(seed: int):
+    """The TPU package's ``PRNGKey(seed)`` words for a 32-bit seed."""
+    seed = int(seed)
+    if not -2**31 <= seed < 2**31:
+        raise ValueError(f"seed {seed} is outside the 32-bit range")
+    return 0, seed & _M32
+
+
+def _random_block(grid_shape, seed: int, density: float, offsets,
+                      local_shape, dtype, device) -> torch.Tensor:
+    """The block at ``offsets`` (extent ``local_shape``) of the
+    Bernoulli(``density``) occupancy of ``grid_shape``, as ``dtype``."""
+    k1, k2 = _prng_key(seed)
+    p = torch.tensor(float(density), dtype=torch.float32)
+    ndim = len(grid_shape)
+    strides = [1] * ndim
+    for d in range(ndim - 2, -1, -1):
+        strides[d] = strides[d + 1] * int(grid_shape[d + 1])
+    # flat index of the block's cells past axis 0 (one row of axis 0)
+    tail = torch.zeros((), dtype=torch.int64, device=device)
+    for d in range(1, ndim):
+        shape = [1] * (ndim - 1)
+        shape[d - 1] = int(local_shape[d])
+        idx = torch.arange(int(offsets[d]), int(offsets[d]) + int(
+            local_shape[d]), dtype=torch.int64, device=device)
+        tail = tail + (idx * strides[d]).reshape(shape)
+    row_cells = max(1, math.prod(int(s) for s in local_shape[1:]))
+    rows = max(1, _RANDOM_CHUNK // row_cells)
+    out = torch.empty(tuple(int(s) for s in local_shape), dtype=dtype,
+                      device=device)
+    for r0 in range(0, int(local_shape[0]), rows):
+        r1 = min(r0 + rows, int(local_shape[0]))
+        z = torch.arange(int(offsets[0]) + r0, int(offsets[0]) + r1,
+                         dtype=torch.int64, device=device)
+        flat = (z * strides[0]).reshape((-1,) + (1,) * (ndim - 1)) + tail
+        b1, b2 = threefry2x32(k1, k2, flat >> 32, flat & _M32)
+        bits = ((b1 ^ b2) >> 9) | 0x3F800000
+        u = bits.to(torch.int32).view(torch.float32) - 1.0
+        out[r0:r1] = (u < p.to(device)).to(dtype)
+    return out
 
 
 def _gaussian_bump(grid_shape, sigma: float = 0.05, device="cpu",
@@ -75,22 +146,21 @@ def init_state(
     """Build the initial fields for ``stencil`` on ``grid_shape``.
 
     kinds:
+      - ``"random"``: Bernoulli(density) occupancy, the TPU package's bits.
       - ``"zero"``: zero interior with guard-frame walls.
       - ``"pulse"``: centred Gaussian bump.
       - ``"auto"``: pick by stencil family.
-      - ``"random"`` / ``"patch"``: not ported yet (raise).
+      - ``"patch"``: not ported yet (raises).
 
-    ``seed`` and ``density`` only feed the random kinds; they are accepted
-    so one call signature serves every kind.
+    ``seed`` and ``density`` only feed the random kind.
     """
-    del seed, density  # the deterministic kinds ignore them
     grid_shape = tuple(int(g) for g in grid_shape)
     return _init_block(stencil, grid_shape, kind, periodic, device,
-                       (0,) * len(grid_shape), grid_shape)
+                       (0,) * len(grid_shape), grid_shape, seed, density)
 
 
 def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
-                local_shape) -> Fields:
+                local_shape, seed=0, density=0.15) -> Fields:
     """The block of the initial fields at ``offsets`` (``local_shape``)."""
     if len(grid_shape) != stencil.ndim:
         raise ValueError(
@@ -98,10 +168,16 @@ def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
         )
     kind = resolve_kind(stencil, kind)
     dtype = stencil.dtype
-    if kind in ("random", "patch"):
+    if kind == "patch":
         raise NotImplementedError(
-            f"init kind {kind!r} is not ported yet: {_RANDOM_INIT_ITEM}")
-    if kind == "zero":
+            f"init kind {kind!r} is not ported yet: {_PATCH_INIT_ITEM}")
+    if kind == "random":
+        x = _random_block(grid_shape, seed, density, offsets,
+                              local_shape, dtype, device)
+        fields = (x,) + tuple(
+            torch.zeros(local_shape, dtype=dtype, device=device)
+            for _ in range(stencil.num_fields - 1))
+    elif kind == "zero":
         fields = tuple(
             torch.zeros(local_shape, dtype=dtype, device=device)
             for _ in range(stencil.num_fields)
@@ -136,7 +212,6 @@ def init_state_sharded(
     each block computed on its own device from global coordinates."""
     from ..parallel.stepper import ShardedField, shard_offsets
 
-    del seed, density  # the deterministic kinds ignore them
     grid_shape = tuple(int(g) for g in grid_shape)
     counts = mesh.counts(len(grid_shape))
     if any(g % c for g, c in zip(grid_shape, counts)):
@@ -146,7 +221,8 @@ def init_state_sharded(
     per_field = [[] for _ in range(stencil.num_fields)]
     for c in mesh.coords():
         block = _init_block(stencil, grid_shape, kind, periodic,
-                            mesh.device(c), shard_offsets(c, local), local)
+                            mesh.device(c), shard_offsets(c, local), local,
+                            seed, density)
         for f, b in zip(per_field, block):
             f.append(b)
     return tuple(ShardedField(b, mesh, grid_shape) for b in per_field)

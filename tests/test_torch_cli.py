@@ -69,14 +69,15 @@ CASES = [
     ("heat3d4th", 3, 2, "pallas"), ("wave3d", 3, 1, "pallas"),
     ("heat3d", 3, 1, "4"), ("heat3d27", 3, 1, "4"),
     ("heat3d4th", 3, 2, "2"), ("wave3d", 3, 1, "4"),
+    ("heat2d", 2, 1, "pallas"), ("life", 2, 1, "jnp"),
+    ("life", 2, 1, "pallas"),
 ]
 
 
-# --compute pallas --periodic runs the compute_fn kernels (K4/K5) on 3D
-# grids; on 2D grids it raises (test_unported_combinations_raise_naming_
-# roadmap).
-RUNS = [c + (p,) for c in CASES for p in (False, True)
-        if not (p and c[3] == "pallas" and c[1] == 2)]
+# --compute pallas runs the compute_fn kernels with or without --periodic:
+# K4/K5 on 3D grids, K7 on 2D grids (the 2D --fuse cases, which need grids
+# the TPU kernel accepts, are in tests/test_torch_2d_cli.py).
+RUNS = [c + (p,) for c in CASES for p in (False, True)]
 
 
 @pytest.mark.parametrize("name,ndim,halo,mode,periodic", RUNS,
@@ -198,16 +199,18 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--grid", "16,20", "--compute", "pallas"], NotImplementedError, "B2"),
-    (["--grid", "16,20", "--compute", "pallas", "--periodic"],
+    (["--grid", "16,20", "--compute", "pallas", "--dtype", "bfloat16"],
      NotImplementedError, "B2"),
-    (["--grid", "16,20", "--fuse", "4"], NotImplementedError, "B6"),
+    (["--grid", "16,20", "--compute", "pallas", "--periodic", "--dtype",
+      "bfloat16"], NotImplementedError, "B2"),
+    (["--grid", "16,20", "--fuse", "4", "--dtype", "bfloat16"],
+     NotImplementedError, "B6"),
     (["--fuse", "4", "--fuse-kind", "stream"], NotImplementedError, "B5"),
     (["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError, "B1/B3"),
     (["--compute", "pallas", "--dtype", "bfloat16"], NotImplementedError,
      "B1/B3"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "ROADMAP"),
-    (["--init", "random"], NotImplementedError, "ROADMAP A2"),
+    (["--init", "patch"], NotImplementedError, "ROADMAP A2"),
     (["--fuse", "3"], ValueError, "--fuse 3 unsupported"),
     (["--fuse-kind", "tiled"], ValueError, "requires an explicit --fuse"),
     (["--fuse", "4", "--compute", "pallas"], ValueError, "excludes"),
@@ -313,10 +316,10 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
     (["--mesh", "1,1,2", "--fuse", "4"], ValueError, "unsupported"),
     (["--mesh", "3"], ValueError, "not divisible"),
     (["--mesh", "4,2"], ValueError, "needs 8 devices"),
-    (["--grid", "16,20", "--mesh", "2,2", "--fuse", "4"],
-     NotImplementedError, "B6"),
-    (["--grid", "16,20", "--mesh", "2,2", "--compute", "pallas"],
-     NotImplementedError, "B2"),
+    (["--grid", "16,20", "--mesh", "2,2", "--fuse", "4", "--dtype",
+      "bfloat16"], NotImplementedError, "B6"),
+    (["--grid", "16,20", "--mesh", "2,2", "--compute", "pallas", "--dtype",
+      "bfloat16"], NotImplementedError, "B2"),
 ])
 def test_mesh_refusals_name_their_reason(monkeypatch, extra, exc, match):
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K6) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K8) against their plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -9,8 +9,9 @@ package, so it runs where only PyTorch is installed::
 
 Tolerances as in tests/test_torch_kernels.py: ``32 * eps * max(|ref|, 1)``
 for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
-``atol = 1e-4`` for k fused steps; frame cells exact.  The sharded kernels
-(K3's sharded mode, K6) run on meshes of virtual shards on one card.
+``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
+K8) bit-equal.  The sharded kernels (K3's sharded mode, K6, K8's sharded
+mode) run on meshes of virtual shards on one card.
 """
 
 import numpy as np
@@ -19,10 +20,12 @@ import torch
 
 import mpi_cuda_process_tpu_torch as port
 from mpi_cuda_process_tpu_torch import driver
-from mpi_cuda_process_tpu_torch.ops.cuda import fused, kernels, rawstep
+from mpi_cuda_process_tpu_torch.ops.cuda import (fullgrid, fused, kernels,
+                                                 rawstep)
 from mpi_cuda_process_tpu_torch.parallel import (gather_fields, make_mesh,
                                                  make_sharded_fused_step,
                                                  make_sharded_step,
+                                                 make_sharded_temporal_step,
                                                  shard_fields)
 
 pytestmark = pytest.mark.cuda
@@ -47,8 +50,9 @@ def _fields(st, shape, dev, seed):
 
 def _check(got, ref, halo, atol):
     frame = None if halo is None else driver.frame_mask(
-        ref[0].shape, ref[0].shape, (0, 0, 0), halo, ref[0].device)
+        ref[0].shape, ref[0].shape, (0,) * ref[0].dim(), halo, ref[0].device)
     for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
         assert float((g - r).abs().max()) <= atol
         if frame is not None:
             assert torch.equal(g[frame], r[frame])
@@ -182,3 +186,85 @@ def test_sharded_step_with_kernels_overlap_is_bit_equal(dev, name):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     _check(outs[1], ref, st.halo, 1e-5)
+
+
+SHAPES_2D = [(128, 256), (130, 258), (1000, 777)]
+
+
+def _fields_2d(st, shape, dev, seed):
+    """Random occupancy (Life) or uniform floats on the card."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if st.name == "life":
+        return ((torch.rand(shape, generator=g, device=dev) < 0.35)
+                .to(torch.int32),)
+    return tuple(torch.rand(shape, generator=g, device=dev)
+                 for _ in range(st.num_fields))
+
+
+@pytest.mark.parametrize("shape", SHAPES_2D)
+@pytest.mark.parametrize("name", ["life", "heat2d"])
+def test_whole2d_kernel_matches_plain(dev, name, shape):
+    """K7 on a padded random block == the stencil's plain update (Life
+    exactly, heat2d within 1e-6)."""
+    st = port.make_stencil(name)
+    p = _fields_2d(st, tuple(s + 2 for s in shape), dev, 6)
+    ref = st.update(p)[0]
+    kernels.launches.clear()
+    got = kernels.make_pallas_compute(st, device=dev)(p)[0]
+    torch.cuda.synchronize()
+    assert kernels.launches[f"whole2d[{name}]"] == 1
+    if name == "life":
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("shape", SHAPES_2D)
+@pytest.mark.parametrize("name,k", [("life", 1), ("life", 8), ("life", 20),
+                                    ("heat2d", 4), ("wave2d", 8)])
+def test_fullgrid_kernel_matches_plain(dev, name, k, shape, periodic):
+    """K8 on the whole grid == k plain steps; k = 20 takes two launches."""
+    st = port.make_stencil(name)
+    fields = _fields_2d(st, shape, dev, 7)
+    plain = driver.make_step(st, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    got = fullgrid.make_fullgrid_step(st, shape, k, periodic=periodic,
+                                      device=dev)(fields)
+    torch.cuda.synchronize()
+    assert fullgrid.launches[f"fullgrid_step[{name}]"] == \
+        -(-k // fullgrid.K_PER_LAUNCH)
+    _check(got, ref, None if periodic else st.halo,
+           0 if name == "life" else 1e-4)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("name,n", [("life", 2), ("life", 4),
+                                    ("heat2d", 4), ("wave2d", 2)])
+def test_sharded_fullgrid_kernel_matches_plain_sharded_steps(
+        dev, name, n, periodic, overlap):
+    """K8's sharded mode (and its overlap shells) == k plain sharded steps
+    on a row split of virtual shards on one card."""
+    st = port.make_stencil(name)
+    shape, k = (192, 200), 8
+    mesh = make_mesh((n,), [dev] * 4)
+    fields = shard_fields(_fields_2d(st, shape, dev, 8), mesh, 2)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    step = make_sharded_temporal_step(st, mesh, shape, k, periodic=periodic,
+                                      overlap=overlap, device=dev)
+    got = step(fields)
+    torch.cuda.synchronize()
+    assert step._overlap_active == overlap
+    assert fullgrid.launches[f"fullgrid_padded[{name}]"] == \
+        mesh.size * (3 if overlap else 1)
+    _check(gather_fields(got), gather_fields(ref),
+           None if periodic else st.halo, 0 if name == "life" else 1e-4)

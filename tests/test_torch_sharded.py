@@ -140,8 +140,11 @@ def test_compute_fn_plain_matches_jax_pallas_kernel(name, grid):
 
 
 def test_compute_fn_2d_and_unknown_names_raise():
-    with pytest.raises(NotImplementedError, match="B2"):
-        tkernels.make_pallas_compute(port.make_stencil("heat2d"))
+    """heat2d and life build their compute_fn (K7, held against the JAX
+    kernel in tests/test_torch_2d.py); names without one raise."""
+    for name in ("heat2d", "life"):
+        assert callable(tkernels.make_pallas_compute(
+            port.make_stencil(name)))
     with pytest.raises(KeyError, match="no pallas kernel"):
         tkernels.make_pallas_compute(port.make_stencil("wave2d"))
     assert tkernels.has_pallas_kernel("heat2d")
@@ -275,9 +278,14 @@ def test_sharded_fused_unsupported_configs():
     with pytest.raises(NotImplementedError, match="row 9"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
                                          4, kind="padfree")
-    with pytest.raises(NotImplementedError, match="B6"):
-        tstepper.make_sharded_temporal_step(
-            port.make_stencil("heat2d"), _mesh((2,)), (16, 16), 4)
+    # 2D grids go to the row-split whole-block stepper (K8), where the
+    # 3D-only options raise by name, as in the TPU package
+    for kw, what in (({"pipeline": True}, "pipeline=True is 3D-only"),
+                     ({"variant": object()}, "kernel variants are 3D-only"),
+                     ({"exchange": "rdma"}, "exchange='rdma' is 3D-only")):
+        with pytest.raises(ValueError, match=what):
+            tstepper.make_sharded_temporal_step(
+                port.make_stencil("heat2d"), _mesh((2,)), (16, 16), 4, **kw)
 
 
 @pytest.mark.parametrize("name,kind,periodic", [

@@ -16,7 +16,11 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      (128, 128, 256), a ragged (66, 70, 130) and the main path's 512^3 grid;
      K3's sharded mode and K6 fused_zslab against k plain sharded steps on
      2x2 and 4x1 meshes of virtual shards at (128, 128, 256) and
-     (68, 70, 130), guard-frame and periodic.  2D: K7 whole2d (life,
+     (68, 70, 130), guard-frame and periodic; K9 fused_yzslab on 2x2 and
+     1x4 meshes at (128, 128, 256) and (68, 76, 130) (ragged shards); the
+     overlap shells (K3's sharded mode over a 2m-deep core) against their
+     plain version on random strips, and the overlapped padded, z-slab and
+     2-axis steps against k plain sharded steps.  2D: K7 whole2d (life,
      heat2d) and K8 fullgrid (life, heat2d, wave2d; the whole grid, RAW,
      and row shards of virtual meshes, PADDED, with and without the
      overlap shells; k = 1, 2, 4, 8; guard-frame and periodic) at an
@@ -41,11 +45,15 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      ``cli.run()`` at 1024^3 float32, --init pulse, 100 iterations, heat3d
      and wave3d, each --mesh 2,2 with --compute jnp, --compute pallas (K4 /
      K5), --fuse 4 (K3 sharded) and --mesh 4 --fuse 4 --fuse-kind padfree
-     (K6), heat3d also --compute pallas --overlap; heat3d27 and heat3d4th
-     at 512^3 --mesh 2,2 for 20 iterations with --compute pallas and --fuse
-     (4 / 2).  Every sharded field is held against the unsharded run of the
-     same mode and the unsharded plain run; overlap must equal non-overlap
-     bit for bit.  Then a sharded checkpoint round trip at 512^3 --mesh 2,2
+     (K6) and --mesh 2,2 --fuse 4 --fuse-kind padfree (K9), heat3d also
+     --compute pallas --overlap, --mesh 2,2 --fuse 4 --overlap and --mesh 4
+     --fuse 4 --fuse-kind padfree --overlap, heat3d and wave3d also --mesh
+     2,2 --fuse 4 --fuse-kind padfree --overlap (the overlap shells);
+     heat3d27 and heat3d4th at 512^3 --mesh 2,2 for 20 iterations with
+     --compute pallas, --fuse (4 / 2) and --fuse --fuse-kind padfree.  Every
+     sharded field is held against the unsharded run of the same mode and
+     the unsharded plain run; overlap must equal non-overlap bit for bit.
+     Then a sharded checkpoint round trip at 512^3 --mesh 2,2
      through ``cli.main()`` (--checkpoint-every 50, --resume to 100), bit
      for bit.  2D: life and heat2d at 16384^2, 96 iterations, --mesh 4
      (a row split) with --compute jnp, pallas (K7), pallas --overlap,
@@ -58,7 +66,8 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off), by CUDA events at the main path's shapes, beside the bound from
      bytes and flops; and the split of one sharded step at 1024^3 on 2x2
-     into exchange/pad, kernel and re-pin.
+     into exchange/pad, kernel and re-pin, beside whole fused steps of each
+     kind with and without --overlap.
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -88,10 +97,17 @@ ITERS = 100
 # and wave3d at full depth, the other two tap sets cut to 40 iterations.
 MAIN_RUNS = (("heat3d", ITERS, 4), ("wave3d", ITERS, 4),
              ("heat3d27", 40, 4), ("heat3d4th", 40, 2))
-# (stencil, grid, iterations, fuse k, overlap) of the sharded main path.
-MESH_RUNS = (("heat3d", BIG, ITERS, 4, True), ("wave3d", BIG, ITERS, 4, False),
-             ("heat3d27", MAIN, 20, 4, False),
-             ("heat3d4th", MAIN, 20, 2, False))
+# (stencil, grid, iterations, fuse k, overlapped modes) of the sharded main
+# path; every run has --mesh 2,2 with jnp, pallas, --fuse k and --fuse k
+# --fuse-kind padfree, and at BIG also --mesh 4 --fuse k --fuse-kind
+# padfree.  An overlapped mode runs right after its non-overlap base.
+MESH_RUNS = (("heat3d", BIG, ITERS, 4, ("overlap", "fuse_overlap",
+                                        "padfree_overlap", "yzslab_overlap")),
+             ("wave3d", BIG, ITERS, 4, ("yzslab_overlap",)),
+             ("heat3d27", MAIN, 20, 4, ()), ("heat3d4th", MAIN, 20, 2, ()))
+# overlapped mode -> the non-overlap mode it must equal bit for bit
+OVERLAP_BASE = {"overlap": "pallas", "fuse_overlap": "fuse",
+                "padfree_overlap": "padfree", "yzslab_overlap": "yzslab"}
 EPS32 = 2.0 ** -23
 FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
                   "wave3d": 12, "heat2d": 7, "wave2d": 9,
@@ -232,6 +248,15 @@ def main() -> int:
                 cases += [("sharded", name, shape, k, periodic, (2, 2)),
                           ("sharded", name, shape, k, periodic, (4, 1)),
                           ("zslab", name, shape, k, periodic, (4,))]
+        for periodic in (False, True):
+            for shape in ((128, 128, 256), (68, 76, 130)):
+                cases += [("yzslab", name, shape, k, periodic, (2, 2)),
+                          ("yzslab", name, shape, k, periodic, (1, 4))]
+            shape = (128, 128, 256)
+            cases += [("shell", name, shape, k, periodic, (2, 2)),
+                      ("overlap_padded", name, shape, k, periodic, (2, 2)),
+                      ("overlap_zslab", name, shape, k, periodic, (4,)),
+                      ("overlap_yzslab", name, shape, k, periodic, (2, 2))]
     checked = []
     for path, name, shape, k, periodic, mshape in cases:
         st = make_stencil(name)
@@ -250,7 +275,29 @@ def main() -> int:
             if name == "wave3d" and kernels.make_pallas_compute(st)(
                     ins)[1] is not ins[1]:
                 fail("zchunk_wave: the second output is not u_prev")
-        elif path in ("sharded", "zslab"):
+        elif path == "shell":
+            # the hi shells of shard (1, 1) of a 2x2 mesh, on random strips
+            m = k * st.halo
+            local = (shape[0] // 2, shape[1] // 2, shape[2])
+            shells = fused.build_overlap_shell_calls(
+                st, local, shape, k, (0, 1), periodic=periodic, device=dev)
+            got, ref = [], []
+            for d in (0, 1):
+                pshape = [local[0] + 2 * m, local[1] + 2 * m, local[2]]
+                pshape[d] = 4 * m
+                strips = tuple(rand(tuple(pshape))
+                               for _ in range(st.num_fields))
+                org = [local[0], local[1]]
+                org[d] += local[d] - 2 * m
+                got += shells[d](*strips) if periodic else \
+                    shells[d](tuple(org), *strips)
+                ref += fused.plain_step_padded(strips, st, k, shape, org,
+                                               periodic)
+            entry = f"fused_shell<{name}>"
+            atol = 1e-4
+            frame = None
+        elif path in ("sharded", "zslab", "yzslab") or \
+                path.startswith("overlap"):
             mesh = virtual_mesh(mshape)
             fields = stepper.shard_fields(
                 tuple(rand(shape) for _ in range(st.num_fields)), mesh, 3)
@@ -259,13 +306,19 @@ def main() -> int:
             ref = fields
             for _ in range(k):
                 ref = plain(ref)
+            overlap = path.startswith("overlap")
             step = stepper.make_sharded_fused_step(
                 st, mesh, shape, k, periodic=periodic,
-                kind="padfree" if path == "zslab" else None, device=dev)
+                kind=None if path in ("sharded", "overlap_padded")
+                else "padfree", overlap=overlap, device=dev)
+            if step._overlap_active != overlap:
+                fail(f"{path} {name}: overlap split not taken")
             got = stepper.gather_fields(step(fields))
             ref = stepper.gather_fields(ref)
-            entry = (f"fused_zslab<{name}>" if path == "zslab"
-                     else f"fused_step_padded<{name}>")
+            entry = {"sharded": f"fused_step_padded<{name}>",
+                     "zslab": f"fused_zslab<{name}>",
+                     "yzslab": f"fused_yzslab<{name}>"}.get(
+                         path, f"{path}<{name}>")
             atol = 1e-4
             del fields
         else:
@@ -561,7 +614,7 @@ def main() -> int:
             fail(f"{res['stencil']} {res['flags']}: max|d| vs {what} "
                  f"{err:.3e} > {atol:.3e}")
 
-    for stencil, grid, iters, k, with_overlap in MESH_RUNS:
+    for stencil, grid, iters, k, overlapped in MESH_RUNS:
         st = make_stencil(stencil)
         h = st.halo
         raw_key = ("raw_step_wave" if stencil == "wave3d"
@@ -586,25 +639,36 @@ def main() -> int:
                      for x, y in zip(ref_fused, ref_plain)),
               1e-4, "unsharded plain")
         mesh_results.append(r)
+        passes = iters // k
+        padded, zslab, yzslab, shell = (
+            f"{w}[{stencil}]" for w in ("fused_step_padded", "fused_zslab",
+                                        "fused_yzslab", "fused_shell"))
+        fuse22 = ("--mesh", "2,2", "--fuse", str(k))
+        fuse4 = ("--mesh", "4", "--fuse", str(k), "--fuse-kind", "padfree")
+        yz22 = fuse22 + ("--fuse-kind", "padfree")
+        # (label, flags, launches): 4 shards, one shell per sharded face
         modes = [("jnp", ("--mesh", "2,2", "--compute", "jnp"), {}),
                  ("pallas", ("--mesh", "2,2", "--compute", "pallas"),
-                  {zkey: 4 * iters})]
-        if with_overlap:
-            modes.append(("overlap", ("--mesh", "2,2", "--compute", "pallas",
-                                      "--overlap"),
-                          {zkey: 4 * iters + 16 * iters}))
-        modes.append(("fuse", ("--mesh", "2,2", "--fuse", str(k)),
-                      {f"fused_step_padded[{stencil}]": 4 * iters // k}))
-        if big:
-            modes.append(("padfree", ("--mesh", "4", "--fuse", str(k),
-                                      "--fuse-kind", "padfree"),
-                          {f"fused_zslab[{stencil}]": 4 * iters // k}))
-        kept = None
+                  {zkey: 4 * iters}),
+                 ("overlap", ("--mesh", "2,2", "--compute", "pallas",
+                              "--overlap"), {zkey: 4 * iters + 16 * iters}),
+                 ("fuse", fuse22, {padded: 4 * passes}),
+                 ("fuse_overlap", fuse22 + ("--overlap",),
+                  {padded: 4 * passes, shell: 16 * passes}),
+                 ("padfree", fuse4, {zslab: 4 * passes}),
+                 ("padfree_overlap", fuse4 + ("--overlap",),
+                  {zslab: 4 * passes, shell: 8 * passes}),
+                 ("yzslab", yz22, {yzslab: 4 * passes}),
+                 ("yzslab_overlap", yz22 + ("--overlap",),
+                  {yzslab: 4 * passes, shell: 16 * passes})]
+        modes = [md for md in modes if md[0] in overlapped or (
+            md[0] not in OVERLAP_BASE and (big or md[0] != "padfree"))]
+        kept = {}
         for label, flags, want in modes:
             got, r = run_cli(stencil, grid, iters, *flags)
             if r["launches"] != want:
                 fail(f"{stencil} {label}: launches {r['launches']} != {want}")
-            if label in ("fuse", "padfree"):
+            if "--fuse" in flags:
                 atol, same = 1e-4, ref_fused
             elif label == "jnp":
                 atol, same = 32 * EPS32 * scale, ref_plain
@@ -614,14 +678,15 @@ def main() -> int:
                   "unsharded same mode")
             check(r, block_err(got, ref_plain, h, f"{stencil} {label}"),
                   max(atol, 32 * EPS32 * scale), "unsharded plain")
-            if label == "pallas" and with_overlap:
-                kept = got
-            elif label == "overlap":
-                if not all(torch.equal(x, y) for a, b in zip(got, kept)
+            if any(OVERLAP_BASE[o] == label for o in overlapped):
+                kept[label] = got
+            elif label in OVERLAP_BASE:
+                base = kept.pop(OVERLAP_BASE[label])
+                if not all(torch.equal(x, y) for a, b in zip(got, base)
                            for x, y in zip(a, b)):
-                    fail(f"{stencil}: --overlap differs from non-overlap")
+                    fail(f"{stencil} {label}: differs from non-overlap")
                 r["bit_equal_to_non_overlap"] = True
-                kept = None
+                del base
             mesh_results.append(r)
             del got
             torch.cuda.empty_cache()
@@ -850,6 +915,7 @@ def main() -> int:
             "fused_step": ("K3", 5), "fused_step_padded": ("K3", 5),
             "zchunk_heat": ("K4", 12), "zchunk_wave": ("K5", 13),
             "fused_zslab": ("K6", 8), "whole2d": ("K7", 14),
+            "fused_yzslab": ("K9", 9), "fused_shell": ("K3", 7),
             "fullgrid_step": ("K8", 15), "fullgrid_padded": ("K8", 15)}
 
     def record(entry, wrapper, name, src, replaces, ms, plain_ms, moved,
@@ -913,7 +979,7 @@ def main() -> int:
 
     # the sharded kernels, one shard of the sharded main path's run
     split = []
-    for name, grid, _iters, k, _ov in MESH_RUNS:
+    for name, grid, _iters, k, overlapped in MESH_RUNS:
         st = make_stencil(name)
         h = st.halo
         nf = st.num_fields
@@ -950,6 +1016,41 @@ def main() -> int:
                4 * nf * (math.prod(pshape) + lcells),
                FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
         del ins
+        # K9 on one shard of --mesh 2,2 --fuse-kind padfree: the core, its
+        # z and y slabs and its corners
+        Lz, Ly, X = local
+
+        def pieces(shape):
+            return tuple(rand(shape) for _ in range(nf))
+
+        core = pieces(local)
+        zlo, zhi = pieces((m, Ly, X)), pieces((m, Ly, X))
+        ylo, yhi = pieces((Lz, m, X)), pieces((Lz, m, X))
+        corners = [pieces((m, m, X)) for _ in range(4)]
+        yz_args = (core, zlo, zhi, ylo, yhi, corners, st, k, grid, (0, 0))
+        ms = time_ms(lambda: fused.fused_yzslab(*yz_args), 10)
+        plain_ms = time_ms(lambda: fused.plain_yzslab(*yz_args), 2)
+        record(f"fused_yzslab<{name}>", "fused_yzslab", name, "fused.cu",
+               TPU + "fused.py:562", ms, plain_ms,
+               4 * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m)),
+               FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
+        del core, zlo, zhi, ylo, yhi, corners, yz_args
+        if "yzslab_overlap" in overlapped:
+            # one hi z shell of a 2x2 shard: a 4m-deep strip in, 2m out
+            shells = fused.build_overlap_shell_calls(st, local, grid, k,
+                                                     (0, 1), device=dev)
+            strips = pieces((4 * m, Ly + 2 * m, X))
+            org = (Lz - 2 * m, 0)
+            ms = time_ms(lambda: shells[0](org, *strips), 20)
+            plain_ms = time_ms(
+                lambda: fused.plain_step_padded(strips, st, k, grid, org), 3)
+            scells = 2 * m * Ly * X
+            record(f"fused_shell<{name}>", "fused_shell", name, "fused.cu",
+                   TPU + "fused.py:1284", ms, plain_ms,
+                   4 * nf * (math.prod(strips[0].shape) + scells),
+                   FLOPS_PER_CELL[name] * k * scells, None, k,
+                   (2 * m, Ly, X), 16.0 / k)
+            del strips
         if grid == BIG:
             # K6 on one z-only shard of --mesh 4
             zl = (grid[0] // 4, grid[1], grid[2])
@@ -1002,6 +1103,16 @@ def main() -> int:
                                                axes=(0, 1))
                          for f, bc in zip(fields, st.bc_value)], 3)
             row["fused_step_ms"] = time_ms(lambda: fstep(fields), 3)
+            row["exchange_slabs_2axis_ms"] = time_ms(
+                lambda: [halo.exchange_slabs_2axis(f, mesh, k * h, bc)
+                         for f, bc in zip(fields, st.bc_value)], 3)
+            for label, kw in (("fused_overlap", {"overlap": True}),
+                              ("yzslab", {"kind": "padfree"}),
+                              ("yzslab_overlap", {"kind": "padfree",
+                                                  "overlap": True})):
+                fstep = stepper.make_sharded_fused_step(st, mesh, grid, k,
+                                                        device=dev, **kw)
+                row[f"{label}_step_ms"] = time_ms(lambda: fstep(fields), 3)
             split.append(row)
             del fields, pads, new, masks
         torch.cuda.empty_cache()

@@ -15,10 +15,11 @@ The flags keep the TPU package's names and values, so one command line runs
 on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
 (K1/K2), or under ``--mesh``/``--periodic`` the compute_fn kernel (K4/K5),
 and on 2D grids the 2D compute_fn kernel (K7); ``--fuse K`` the
-temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, K6
-with ``--fuse-kind padfree`` on a z-only mesh; 2D: K8, its sharded mode
-under a row-split ``--mesh``); ``--compute auto``/``jnp`` the plain tensor
-path.  ``--mesh`` decomposes the grid over
+temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, with
+``--fuse-kind padfree`` K6 on a z-only mesh and K9 on a mesh that shards y,
+and with ``--overlap`` the boundary shells beside the exchange; 2D: K8, its
+sharded mode under a row-split ``--mesh``); ``--compute auto``/``jnp`` the
+plain tensor path.  ``--mesh`` decomposes the grid over
 the visible devices (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N
 shards on one card).  ``--device`` (default ``cuda``) picks where the state
 lives; asking for ``cuda`` without a card raises, it never carries on on
@@ -106,7 +107,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", action="store_true",
                    help="under --mesh: compute the bulk of each block while "
                         "the halo exchange runs (side CUDA stream), then "
-                        "the boundary rings; same values")
+                        "the boundary rings (with --fuse K: the 2*K*halo "
+                        "deep boundary shells); same values")
     p.add_argument("--fuse", type=int, default=0,
                    help="temporal blocking: advance K steps per memory pass "
                         "with the hand-written CUDA fused kernel (3D "
@@ -115,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "tiled", "padfree", "stream"],
                    help="unsharded: auto/tiled/padfree all run the one "
                         "fused kernel; under --mesh: auto = the padded "
-                        "kind, padfree = the z-slab kernel (z-only mesh); "
-                        "stream is not ported")
+                        "kind, padfree = the slab-operand kernels (z slabs "
+                        "on a z-only mesh; z and y slabs and corners on a "
+                        "mesh that shards y); stream is not ported")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the state lives (default cuda; raises "
                         "without a card)")
@@ -341,8 +344,9 @@ def build(cfg: RunConfig):
             if cfg.fuse_kind not in ("auto", "padfree"):
                 raise ValueError(
                     "--fuse-kind selects the 3D kernel variant; sharded "
-                    "runs support 'padfree' (z-only meshes here) and the "
-                    "exchange-padded kernel is 'auto'")
+                    "runs support 'padfree' (the slab-operand kernels, on "
+                    "any mesh of z and y) and the exchange-padded kernel "
+                    "is 'auto'")
             kind = "padfree" if cfg.fuse_kind == "padfree" else None
             step_fn = stepper_lib.make_sharded_temporal_step(
                 st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,

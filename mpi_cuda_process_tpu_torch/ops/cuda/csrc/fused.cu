@@ -1,11 +1,13 @@
-// K3 fused_step<KIND, SRC> and K6 (the same template, SRC = ZSLAB): k
-// guard-frame (or periodic) steps per device-memory pass, by overlapped
-// tiling in shared memory.
+// K3 fused_step<KIND, SRC>, K6 (the same template, SRC = ZSLAB) and K9
+// (SRC = YZSLAB): k guard-frame (or periodic) steps per device-memory pass,
+// by overlapped tiling in shared memory.
 //
 // Replaces: the TPU package's ops/pallas/fused.py — build_fused_call's
 // _fused_kernel (padded 4-block windows, unsharded and sharded_global mode)
 // and _fused_raw_kernel (pad-free 9-block windows), build_zslab_padfree_call's
-// _fused_zslab_kernel (K6), their _run_micros / _window_frame, and the
+// _fused_zslab_kernel (K6), build_yzslab_padfree_call's _fused_yzslab_kernel
+// with _assemble_yz_window and _yzslab_specs (K9), their _run_micros /
+// _window_frame, and the
 // micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th and
 // _micro_wave.  On the TPU the kernels differ in how a VMEM window is
 // assembled from aligned BlockSpecs; here one kernel computes its own
@@ -21,6 +23,17 @@
 //           slabs below and above it as separate operands, so no padded
 //           copy of the block exists; y and x are whole and wrap or clamp
 //           as in RAW.  --fuse --fuse-kind padfree under a z-only --mesh.
+//   YZSLAB  a (z, y) shard's core (Z, Y, X) plus eight exchanged operands:
+//           the two (m, Y, X) z slabs, the two (Z, m, X) y slabs and the four
+//           (m, m, X) corner pieces (two-pass composed: the y exchange of
+//           the z slabs), so no padded copy of the block exists; x wraps or
+//           clamps.  --fuse --fuse-kind padfree under a --mesh that shards
+//           y.  An unsharded z or y axis gets bc-fill or wrap slabs from the
+//           exchange, so one source serves (z, y), y-only and z-only meshes.
+//
+// Where a window cell is read from is decided once per window cell, in the
+// load; the micro-steps are the same code for every source, so K9 stays
+// bit-equal to its plain version as K3 and K6 are.
 //
 // The frame is pinned on GLOBAL coordinates, (oz, oy) + local, against the
 // global extent (GZ, GY, GX): a window cell past a global wall is frame
@@ -59,18 +72,23 @@ namespace {
 
 constexpr int THREADS = 256;
 
-enum Source { RAW = 0, PADDED = 1, ZSLAB = 2 };
+enum Source { RAW = 0, PADDED = 1, ZSLAB = 2, YZSLAB = 3 };
 
 // Where a launch's operands live and where its core block sits.
 struct Window {
-  const float* in[2];  // RAW, ZSLAB: the (Z, Y, X) core; PADDED: the padded block
-  const float* lo[2];  // ZSLAB: the (m, Y, X) slab just below the core
-  const float* hi[2];  // ZSLAB: the (m, Y, X) slab just above the core
+  const float* in[2];  // RAW, (YZ)ZSLAB: the (Z, Y, X) core; PADDED: the padded block
+  const float* lo[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just below the core
+  const float* hi[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just above the core
   float* out[2];       // (Z, Y, X)
   int Z, Y, X;         // core (output) extent
   int GZ, GY, GX;      // global extent: the frame
   int oz, oy;          // global index of the core's first z plane / y row
-  int m;               // PADDED: pad width; ZSLAB: slab depth
+  int m;               // PADDED: pad width; (YZ)ZSLAB: slab depth
+  const float* ylo[2];  // YZSLAB: the (Z, m, X) y slab just before the core
+  const float* yhi[2];  // YZSLAB: the (Z, m, X) y slab just after the core
+  // YZSLAB: the (m, m, X) corner pieces in (z side, y side) order: ll, lh,
+  // hl, hh
+  const float* corner[4][2];
 };
 
 __device__ __forceinline__ int wrap_or_clamp(int g, int n, int periodic) {
@@ -98,7 +116,7 @@ __device__ __forceinline__ float load(const Window& w, int f, int z, int y,
     y = clampi(y + w.m, 0, PY - 1);
     x = wrap_or_clamp(x, w.X, periodic);
     return w.in[f][(static_cast<long>(z) * PY + y) * w.X + x];
-  } else {
+  } else if constexpr (SRC == ZSLAB) {
     y = wrap_or_clamp(y, w.Y, periodic);
     x = wrap_or_clamp(x, w.X, periodic);
     const long plane = static_cast<long>(w.Y) * w.X;
@@ -106,6 +124,29 @@ __device__ __forceinline__ float load(const Window& w, int f, int z, int y,
     if (z < 0) return w.lo[f][clampi(z + w.m, 0, w.m - 1) * plane + row];
     if (z >= w.Z) return w.hi[f][clampi(z - w.Z, 0, w.m - 1) * plane + row];
     return w.in[f][z * plane + row];
+  } else {
+    // region along z and along y: 0 below / before the core, 1 in it, 2
+    // above / after it; the piece is the (rz, ry) cell of a 3 x 3 tiling
+    x = wrap_or_clamp(x, w.X, periodic);
+    const int rz = z < 0 ? 0 : (z < w.Z ? 1 : 2);
+    const int ry = y < 0 ? 0 : (y < w.Y ? 1 : 2);
+    if (rz != 1) z = clampi(rz == 0 ? z + w.m : z - w.Z, 0, w.m - 1);
+    if (ry != 1) y = clampi(ry == 0 ? y + w.m : y - w.Y, 0, w.m - 1);
+    const float* p;
+    if (rz == 1) {
+      p = ry == 1 ? w.in[f] : (ry == 0 ? w.ylo[f] : w.yhi[f]);
+    } else if (ry == 1) {
+      p = rz == 0 ? w.lo[f] : w.hi[f];
+    } else {
+      // constant indices only: a runtime index into the kernel's parameter
+      // struct would copy it to local memory
+      const int q = (rz == 2) * 2 + (ry == 2);
+      p = q == 0 ? w.corner[0][f]
+                 : (q == 1 ? w.corner[1][f]
+                           : (q == 2 ? w.corner[2][f] : w.corner[3][f]));
+    }
+    const int rows = ry == 1 ? w.Y : w.m;  // the piece's y extent
+    return p[(static_cast<long>(z) * rows + y) * w.X + x];
   }
 }
 
@@ -251,4 +292,26 @@ EXPORT int fused_zslab_f32(int kind, const float* in0, const float* in1,
                  GZ, Y, X, oz, 0, k * kind_halo(kind)};
   return dispatch<ZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
                          ty, tx, stream);
+}
+
+// One K9 launch: a (z, y) shard's (Z, Y, X) core plus, per field, the
+// (m, Y, X) z slabs below (zlo) and above (zhi) it, the (Z, m, X) y slabs
+// before (ylo) and after (yhi) it and the four (m, m, X) corner pieces
+// (ll, lh, hl, hh in (z side, y side) order), k steps on; the core's global
+// origin is (oz, oy, 0) in a (GZ, GY, GX) grid.
+EXPORT int fused_yzslab_f32(
+    int kind, const float* in0, const float* in1, const float* zlo0,
+    const float* zlo1, const float* zhi0, const float* zhi1, const float* ylo0,
+    const float* ylo1, const float* yhi0, const float* yhi1, const float* cll0,
+    const float* cll1, const float* clh0, const float* clh1, const float* chl0,
+    const float* chl1, const float* chh0, const float* chh1, float* out0,
+    float* out1, int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
+    int k, int periodic, float a, float c0, float c1, float c2, float c3,
+    int tz, int ty, int tx, void* stream) {
+  const Window w{{in0, in1}, {zlo0, zlo1}, {zhi0, zhi1}, {out0, out1},
+                 Z, Y, X, GZ, GY, GX, oz, oy, k * kind_halo(kind),
+                 {ylo0, ylo1}, {yhi0, yhi1},
+                 {{cll0, cll1}, {clh0, clh1}, {chl0, chl1}, {chh0, chh1}}};
+  return dispatch<YZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
+                          ty, tx, stream);
 }

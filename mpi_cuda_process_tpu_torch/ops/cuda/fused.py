@@ -1,4 +1,4 @@
-"""Temporal blocking, k steps per device-memory pass: K3 and K6.
+"""Temporal blocking, k steps per device-memory pass: K3, K6 and K9.
 
 ``fused_step`` (``csrc/fused.cu::fused_step<KIND, RAW>``) advances heat3d,
 heat3d27, heat3d4th or wave3d by k guard-frame (or periodic) steps in one
@@ -7,20 +7,27 @@ kernel launch, by overlapped tiling in shared memory.  Its sharded mode,
 shard from its z/y-padded block and the shard's global origin: the
 ``sharded_global`` mode of the TPU builder.  ``fused_zslab`` (K6,
 ``fused_step<KIND, ZSLAB>``) takes a z-only shard's core and its two
-exchanged z slabs as separate operands instead, so no padded block exists.
+exchanged z slabs as separate operands instead, so no padded block exists;
+``fused_yzslab`` (K9, ``fused_step<KIND, YZSLAB>``) does the same for a
+shard of a mesh that shards y: the core, two z slabs, two y slabs and the
+four corner pieces.  ``build_overlap_shell_calls`` builds the overlapped
+step's boundary shells: K3's sharded mode over a ``2m``-deep core, counted
+apart as ``fused_shell``.
 
 Replaces the TPU package's ``ops/pallas/fused.py::build_fused_call``
 (``_fused_kernel``, ``_fused_raw_kernel`` with the ``_micro_heat``/
-``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave`` micro-steps) and
-``build_zslab_padfree_call`` (``_fused_zslab_kernel``).  Bound on an H100:
-device-memory bytes, one read and one write of each field per k steps; the
-kernel source says what its design pays for that.
+``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave`` micro-steps),
+``build_zslab_padfree_call`` (``_fused_zslab_kernel``),
+``build_yzslab_padfree_call`` (``_fused_yzslab_kernel``) and
+``build_overlap_shell_calls``.  Bound on an H100: device-memory bytes, one
+read and one write of each field per k steps; the kernel source says what
+its design pays for that.
 
 Plain PyTorch versions: k applications of the port's ``driver.make_step``
 for ``fused_step``; for the sharded wrappers, k plain steps of the window
-they are given (``_plain_window_steps``), which equals k plain sharded
-steps on the shard's core.  A wrapper takes its plain version only for
-tensors on the CPU.
+they are given or assemble (``plain_step_padded``, ``plain_yzslab``), which
+equals k plain sharded steps on the shard's core.  A wrapper takes its
+plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ from . import _build
 from .rawstep import coefficients
 
 # Launches per wrapper and stencil, keyed "fused_step[heat3d]",
-# "fused_step_padded[heat3d]" or "fused_zslab[heat3d]": one added where the
-# kernel launches, nowhere else.  ``launches.clear()`` resets.
+# "fused_step_padded[heat3d]", "fused_shell[heat3d]" (K3's sharded mode as
+# an overlap shell), "fused_zslab[heat3d]" or "fused_yzslab[heat3d]": one
+# added where the kernel launches, nowhere else.  ``launches.clear()``
+# resets.
 launches: Counter = Counter()
 
 # name -> (kernel kind in stencil_taps.cuh, halo)
@@ -104,6 +113,9 @@ def _lib():
             + [_c_int] * 3 + [_c_ptr])
         lib.fused_zslab_f32.argtypes = (
             [_c_int] + [_c_ptr] * 8 + [_c_int] * 7 + [_c_float] * 5
+            + [_c_int] * 3 + [_c_ptr])
+        lib.fused_yzslab_f32.argtypes = (
+            [_c_int] + [_c_ptr] * 20 + [_c_int] * 10 + [_c_float] * 5
             + [_c_int] * 3 + [_c_ptr])
     return lib
 
@@ -192,29 +204,43 @@ def _plain_window_steps(window: Fields, stencil: Stencil, k: int,
     return fields
 
 
-def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
+def plain_step_padded(padded: Fields, stencil: Stencil, k: int,
                       global_shape: Sequence[int], origins: Sequence[int],
                       periodic: bool = False) -> Fields:
+    """The plain version of K3's sharded mode: k plain steps of the padded
+    window, cropped to its core (arguments as :func:`fused_step_padded`)."""
+    m = k * stencil.halo
+    Zp, Yp, _ = (int(s) for s in padded[0].shape)
+    oz, oy = (int(o) for o in origins)
+    out = _plain_window_steps(padded, stencil, k, (oz - m, oy - m, 0),
+                              global_shape, periodic, wrap_axes=(2,))
+    return tuple(f[m:Zp - m, m:Yp - m].contiguous() for f in out)
+
+
+def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
+                      global_shape: Sequence[int], origins: Sequence[int],
+                      periodic: bool = False,
+                      label: str = "fused_step_padded") -> Fields:
     """K3's sharded mode: ``k`` steps of one shard.
 
     ``padded`` are the shard's fields padded by ``m = k * halo`` on z and y
     (the width-m halo exchange); ``origins`` the global (z, y) index of the
     shard's first core cell in a ``global_shape`` grid.  Returns the
-    (Z, Y, X) core of every field, k steps on.
+    (Z, Y, X) core of every field, k steps on.  ``label`` names the launch
+    counter (``fused_shell`` for the overlap shells).
     """
     m = k * stencil.halo
     Zp, Yp, X = (int(s) for s in padded[0].shape)
     Z, Y = Zp - 2 * m, Yp - 2 * m
     oz, oy = (int(o) for o in origins)
     if not padded[0].is_cuda:
-        out = _plain_window_steps(padded, stencil, k, (oz - m, oy - m, 0),
-                                  global_shape, periodic, wrap_axes=(2,))
-        return tuple(f[m:m + Z, m:m + Y].contiguous() for f in out)
+        return plain_step_padded(padded, stencil, k, global_shape, origins,
+                                 periodic)
     kind, _halo = _FUSED[stencil.name]
     if not fits(stencil, k) or min(Z, Y) < 1:
-        raise ValueError(f"fused_step_padded: {stencil.name} k={k} on "
+        raise ValueError(f"{label}: {stencil.name} k={k} on "
                          f"{(Zp, Yp, X)} not supported")
-    _build.check_operands("fused_step_padded", *padded, shape=(Zp, Yp, X))
+    _build.check_operands(label, *padded, shape=(Zp, Yp, X))
     outs = tuple(torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
                  for p in padded)
     two = len(padded) == 2
@@ -224,8 +250,8 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
         kind, *_pointers(padded, two), *_pointers(outs, two), Z, Y, X,
         GZ, GY, GX, oz, oy, k, int(periodic), *coefficients(stencil), *CORE,
         _build.stream_of(padded[0]))
-    _build.check(lib, rc, "fused_step_padded")
-    launches[f"fused_step_padded[{stencil.name}]"] += 1
+    _build.check(lib, rc, label)
+    launches[f"{label}[{stencil.name}]"] += 1
     return outs
 
 
@@ -268,6 +294,69 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     return outs
 
 
+def plain_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
+                 yhi: Fields, corners: Sequence[Fields], stencil: Stencil,
+                 k: int, global_shape: Sequence[int],
+                 origins: Sequence[int], periodic: bool = False) -> Fields:
+    """The plain version of K9: each field's (Lz+2m, Ly+2m, X) window
+    assembled from the core and its eight pieces, through
+    :func:`plain_step_padded` (arguments as :func:`fused_yzslab`)."""
+    window = []
+    for j, (c, zl, zh, yl, yh) in enumerate(zip(core, zlo, zhi, ylo, yhi)):
+        c_ll, c_lh, c_hl, c_hh = (cs[j] for cs in corners)
+        window.append(torch.cat([torch.cat([c_ll, zl, c_lh], dim=1),
+                                 torch.cat([yl, c, yh], dim=1),
+                                 torch.cat([c_hl, zh, c_hh], dim=1)], dim=0))
+    return plain_step_padded(tuple(window), stencil, k, global_shape,
+                             origins, periodic)
+
+
+def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
+                 yhi: Fields, corners: Sequence[Fields], stencil: Stencil,
+                 k: int, global_shape: Sequence[int],
+                 origins: Sequence[int], periodic: bool = False) -> Fields:
+    """K9: ``k`` steps of one shard of a mesh that shards y.
+
+    Per field: the (Lz, Ly, X) ``core``, the exchanged (m, Ly, X) z slabs
+    below (``zlo``) and above (``zhi``) it, the (Lz, m, X) y slabs before
+    (``ylo``) and after (``yhi``) it, and ``corners``, four tuples of
+    (m, m, X) pieces in (z side, y side) order ll, lh, hl, hh
+    (``halo.exchange_slabs_2axis``).  ``origins`` is the global (z, y)
+    index of the core's first cell in a ``global_shape`` grid.  Returns
+    the (Lz, Ly, X) core of every field, k steps on.
+    """
+    m = k * stencil.halo
+    Lz, Ly, X = (int(s) for s in core[0].shape)
+    if not core[0].is_cuda:
+        return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
+                            global_shape, origins, periodic)
+    kind, _halo = _FUSED[stencil.name]
+    if not fits(stencil, k):
+        raise ValueError(f"fused_yzslab: {stencil.name} k={k} window exceeds "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    _build.check_operands("fused_yzslab", *core, shape=(Lz, Ly, X))
+    for pieces, shape in ((zlo, (m, Ly, X)), (zhi, (m, Ly, X)),
+                          (ylo, (Lz, m, X)), (yhi, (Lz, m, X)),
+                          *((c, (m, m, X)) for c in corners)):
+        _build.check_operands("fused_yzslab", *pieces, shape=shape)
+        _build.check_operands("fused_yzslab", core[0], pieces[0])
+    outs = tuple(torch.empty_like(c) for c in core)
+    two = len(core) == 2
+    lib = _lib()
+    GZ, GY, GX = (int(g) for g in global_shape)
+    oz, oy = (int(o) for o in origins)
+    rc = lib.fused_yzslab_f32(
+        kind, *_pointers(core, two), *_pointers(zlo, two),
+        *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
+        *(p for c in corners for p in _pointers(c, two)),
+        *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
+        int(periodic), *coefficients(stencil), *CORE,
+        _build.stream_of(core[0]))
+    _build.check(lib, rc, "fused_yzslab")
+    launches[f"fused_yzslab[{stencil.name}]"] += 1
+    return outs
+
+
 def build_fused_call(
     stencil: Stencil,
     core_shape: Tuple[int, int, int],
@@ -275,6 +364,7 @@ def build_fused_call(
     sharded_global: Optional[Tuple[int, int, int]] = None,
     periodic: bool = False,
     device=None,
+    label: str = "fused_step_padded",
 ):
     """K3's sharded mode over one shard's (core) block of ``core_shape``.
 
@@ -287,7 +377,8 @@ def build_fused_call(
     the alignment unit, or a local z/y extent below the margin (a width-m
     slab must come from one neighbour); also for a window too large for
     shared memory.  The TPU VMEM tiling rule (``_pick_tiles``) does not
-    apply: the kernel masks ragged blocks.
+    apply: the kernel masks ragged blocks.  ``label`` names the launch
+    counter.
     """
     margin = margin_of(stencil, k)
     if margin is None:
@@ -302,11 +393,11 @@ def build_fused_call(
     if sharded_global is None:
         def call(*padded):
             return fused_step_padded(padded, stencil, k, gshape, (0, 0),
-                                     periodic=periodic)
+                                     periodic=periodic, label=label)
     else:
         def call(origins, *padded):
             return fused_step_padded(padded, stencil, k, gshape, origins,
-                                     periodic=periodic)
+                                     periodic=periodic, label=label)
 
     return call, margin, stencil.num_fields
 
@@ -344,6 +435,93 @@ def build_zslab_padfree_call(
                            periodic=periodic)
 
     return call, margin, nf
+
+
+def build_yzslab_padfree_call(
+    stencil: Stencil,
+    local_shape: Tuple[int, int, int],
+    global_shape: Tuple[int, int, int],
+    k: int,
+    periodic: bool = False,
+    device=None,
+):
+    """K9 over a shard of a mesh that shards y: ``(call, margin, nfields)``
+    or None.
+
+    The call takes the shard's global ``(oz, oy)`` origin, then per field
+    the (Lz, Ly, X) core, the two (m, Ly, X) z slabs, the two (Lz, m, X) y
+    slabs and the four (m, m, X) corner pieces (ll, lh, hl, hh), and
+    returns the core fields advanced k steps.  None where the TPU builder
+    declines for a structural reason: no fused kernel, ``2 * k * halo``
+    off the alignment unit, or a local z or y extent below the margin;
+    also for a window too large for shared memory.  The TPU tiling rule
+    and its 2m duplication of the y operands (sublane alignment) do not
+    apply: the kernel masks ragged blocks and reads m-wide pieces.
+    """
+    margin = margin_of(stencil, k)
+    if margin is None:
+        return None
+    Lz, Ly = int(local_shape[0]), int(local_shape[1])
+    if min(Lz, Ly) < margin:
+        return None
+    gshape = tuple(int(g) for g in global_shape)
+    nf = stencil.num_fields
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+
+    def call(origins, *args):
+        if len(args) != 9 * nf:
+            raise ValueError(f"fused_yzslab call: {9 * nf} operands (9 per "
+                             f"field), got {len(args)}")
+        per = [args[i::9] for i in range(9)]
+        core, zlo, zhi, ylo, yhi = per[:5]
+        return fused_yzslab(core, zlo, zhi, ylo, yhi, per[5:], stencil, k,
+                            gshape, origins, periodic=periodic)
+
+    return call, margin, nf
+
+
+def build_overlap_shell_calls(
+    stencil: Stencil,
+    local_shape: Tuple[int, int, int],
+    global_shape: Tuple[int, int, int],
+    k: int,
+    axes: Sequence[int],
+    periodic: bool = False,
+    device=None,
+):
+    """The overlapped fused step's boundary shells: ``{axis: call}`` or
+    None.
+
+    For each sharded grid axis ``d`` in ``axes`` (0 or 1: x is never
+    sharded), K3's sharded mode over a reduced core whose axis-``d``
+    extent is ``2m`` (m = k * halo): the shell at one face of the local
+    block.  A call takes what :func:`build_fused_call`'s takes — with a
+    guard frame first the shell core's global ``(oz, oy)`` origin, which
+    the caller offsets by the shell's position — and fields padded by m
+    whose axis-``d`` extent is 4m: the exchanged slab plus a 3m-deep local
+    strip.  Its launches count as ``fused_shell[<stencil>]``.  None when
+    the geometry cannot host the split (a local extent below 3m on an
+    axis in ``axes``) or the kernel does not take (stencil, k): callers
+    run the non-split step.
+    """
+    margin = margin_of(stencil, k)
+    if margin is None:
+        return None
+    shells = {}
+    for d in axes:
+        if d not in (0, 1) or int(local_shape[d]) < 3 * margin:
+            return None
+        core = [int(s) for s in local_shape]
+        core[d] = 2 * margin
+        built = build_fused_call(
+            stencil, tuple(core), k,
+            sharded_global=None if periodic else tuple(global_shape),
+            periodic=periodic, device=device, label="fused_shell")
+        if built is None:
+            return None
+        shells[d] = built[0]
+    return shells
 
 
 def make_fused_step(

@@ -1,6 +1,7 @@
 """Domain decomposition: mesh, halo exchange, sharded steppers."""
 
-from .halo import InProcessTransport, exchange_and_pad, exchange_slabs_axis
+from .halo import (InProcessTransport, exchange_and_pad, exchange_slabs_2axis,
+                   exchange_slabs_axis)
 from .mesh import (Mesh, bootstrap_distributed, factor_mesh, local_devices,
                    make_mesh)
 from .stepper import (ShardedField, gather_fields, make_sharded_fullgrid_step,
@@ -13,6 +14,7 @@ __all__ = [
     "ShardedField",
     "bootstrap_distributed",
     "exchange_and_pad",
+    "exchange_slabs_2axis",
     "exchange_slabs_axis",
     "factor_mesh",
     "gather_fields",

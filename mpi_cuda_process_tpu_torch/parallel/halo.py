@@ -23,9 +23,15 @@ The TPU package's ``exchange_pad_axis`` (one axis at a time, one
 concatenation each) is ``exchange_and_pad(..., axes=(d,))`` here; the
 sharded fused step pads z and y in one call, one allocation.
 
-Not ported yet: the 2-axis slab set with corner pieces
-(``exchange_slabs_2axis``, ROADMAP B4 row 9), the ``*_from_borders``
-variants of the pipelined stepper (A5) and the remote-DMA transport (B7).
+The pad-free kinds take slabs instead of padded blocks:
+``exchange_slabs_axis`` (one axis) and ``exchange_slabs_2axis`` (z and y
+plus the four corner pieces, by the same two-pass composition).  Slabs are
+packed (contiguous) buffers, as the kernels take them.
+``pad_from_slabs`` rebuilds any band of the padded block from a slab set,
+which is how the overlapped steps make their boundary-shell strips.
+
+Not ported yet: the ``*_from_borders`` variants of the pipelined stepper
+(A5) and the remote-DMA transport (B7).
 """
 
 from __future__ import annotations
@@ -116,8 +122,10 @@ def exchange_slabs_axis(
     as operands, so no padded copy of the block is ever made.
     """
     L = blocks[0].shape[axis]
-    hi = [_take(x, axis, L - halo, halo) for x in blocks]
-    lo = [_take(x, axis, 0, halo) for x in blocks]
+    # packed: a slab across axis 0 is a view already, one across axis 1 is
+    # copied out of its strided rows
+    hi = [_take(x, axis, L - halo, halo).contiguous() for x in blocks]
+    lo = [_take(x, axis, 0, halo).contiguous() for x in blocks]
     lefts, rights = _TRANSPORT.shift_pair(hi, lo, mesh, axis, periodic)
     for i, x in enumerate(blocks):
         if lefts[i] is None or rights[i] is None:
@@ -127,6 +135,75 @@ def exchange_slabs_axis(
             lefts[i] = wall if lefts[i] is None else lefts[i]
             rights[i] = wall if rights[i] is None else rights[i]
     return lefts, rights
+
+
+def exchange_slabs_2axis(
+    blocks: Sequence[torch.Tensor],
+    mesh: Mesh,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+):
+    """The slab set of every shard of a 3D field for both wall axes:
+    per shard ``((zlo, zhi), (ylo, yhi), (c_ll, c_lh, c_hl, c_hh))``.
+
+    ``zlo``/``zhi`` are the (halo, Ly, X) z slabs, ``ylo``/``yhi`` the
+    (Lz, halo, X) y slabs, and the corners the (halo, halo, X) pieces in
+    (z side, y side) order: ll = (z lo, y lo), lh = (z lo, y hi), hl, hh.
+    Corners come by two-pass composition, the y exchange of the z slabs,
+    so shard (z, y)'s ``c_ll`` is shard (z-1, y-1)'s trailing corner,
+    carried by face exchanges alone.  An unsharded axis gets the local
+    bc-fill or wrap slabs, so one operand set serves (z, y), y-only and
+    z-only meshes.  Every piece is a packed buffer.
+    """
+    zlo, zhi = exchange_slabs_axis(blocks, mesh, 0, halo, bc_value, periodic)
+    ylo, yhi = exchange_slabs_axis(blocks, mesh, 1, halo, bc_value, periodic)
+    c_ll, c_lh = exchange_slabs_axis(zlo, mesh, 1, halo, bc_value, periodic)
+    c_hl, c_hh = exchange_slabs_axis(zhi, mesh, 1, halo, bc_value, periodic)
+    return [((zlo[i], zhi[i]), (ylo[i], yhi[i]),
+             (c_ll[i], c_lh[i], c_hl[i], c_hh[i]))
+            for i in range(len(blocks))]
+
+
+def local_mesh(block: torch.Tensor) -> Mesh:
+    """A mesh of one shard on ``block``'s device: an exchange over it is a
+    local wrap or guard-cell fill, what a one-shard mesh would give."""
+    return Mesh((), [block.device])
+
+
+def pad_from_slabs(core: torch.Tensor, slabs, halo: int, axis: int = 0,
+                   start: int = 0, stop: Optional[int] = None
+                   ) -> torch.Tensor:
+    """Cells ``[start, stop)`` along ``axis`` (0 or 1) of ``core``'s z/y
+    padded block — what ``exchange_and_pad(..., axes=(0, 1))`` gives —
+    rebuilt from the core and its slab set from
+    :func:`exchange_slabs_2axis`, in one allocation.
+
+    The padded block is a 3 x 3 tiling in (z, y) of the corners, slabs and
+    core; each piece that meets the band is copied in once.  The overlapped
+    steps cut their boundary-shell strips this way, so no padded copy of
+    the whole block is made.
+    """
+    (zlo, zhi), (ylo, yhi), (c_ll, c_lh, c_hl, c_hh) = slabs
+    pieces = ((c_ll, zlo, c_lh), (ylo, core, yhi), (c_hl, zhi, c_hh))
+    Lz, Ly, X = core.shape
+    edges = ((0, halo, halo + Lz, Lz + 2 * halo),
+             (0, halo, halo + Ly, Ly + 2 * halo))
+    stop = edges[axis][3] if stop is None else stop
+    shape = [Lz + 2 * halo, Ly + 2 * halo, X]
+    shape[axis] = stop - start
+    out = torch.empty(shape, dtype=core.dtype, device=core.device)
+    for a in range(3):
+        for b in range(3):
+            lo = [edges[0][a], edges[1][b]]
+            hi = [edges[0][a + 1], edges[1][b + 1]]
+            s, e = max(lo[axis], start), min(hi[axis], stop)
+            if s >= e:
+                continue
+            src = pieces[a][b].narrow(axis, s - lo[axis], e - s)
+            lo[axis], hi[axis] = s - start, e - start
+            out[lo[0]:hi[0], lo[1]:hi[1]].copy_(src)
+    return out
 
 
 def exchange_and_pad(
@@ -186,5 +263,5 @@ def pad_local(block: torch.Tensor, halo: int, bc_value,
     """One block padded along ``axes`` (default: all) as if it were the
     whole grid (local wrap or guard-cell fill, no exchange): what a
     one-shard mesh would give."""
-    return exchange_and_pad([block], Mesh((), [block.device]), halo,
-                            bc_value, periodic, axes=axes)[0]
+    return exchange_and_pad([block], local_mesh(block), halo, bc_value,
+                            periodic, axes=axes)[0]

@@ -18,7 +18,10 @@ run on a side stream while the bulk update runs on the current one.
 
 ``make_sharded_fused_step`` is k steps per exchange with the temporal-
 blocking kernels: the padded kind (width-m exchange on z and y, then K3 in
-its sharded mode) and, on z-only meshes, the pad-free z-slab kind (K6).
+its sharded mode) and the pad-free kinds, the z-slab kind on z-only meshes
+(K6) and the 2-axis kind on meshes that shard y (K9); with ``overlap=True``
+each kind runs its interior beside the exchange and then the boundary
+shells (K3's sharded mode over 2m-deep cores).
 ``make_sharded_fullgrid_step`` is its 2D counterpart: a row split, a
 width-m row exchange, then K8 in its sharded mode, with an overlapped
 variant; ``make_sharded_temporal_step`` picks between the two.
@@ -33,13 +36,11 @@ import torch
 
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil
-from .halo import exchange_and_pad, exchange_slabs_axis, pad_local
+from .halo import (exchange_and_pad, exchange_slabs_2axis,
+                   exchange_slabs_axis, local_mesh, pad_from_slabs,
+                   pad_local)
 from .mesh import ENSEMBLE_ITEM, Mesh
 
-_OVERLAP_FUSED_ITEM = ("ROADMAP B4 (the overlap shell kernels, "
-                       "fused.build_overlap_shell_calls, row 7)")
-_YZ_PADFREE_ITEM = ("ROADMAP B4 (the 2-axis pad-free kernel, "
-                    "fused.build_yzslab_padfree_call, row 9)")
 _STREAM_ITEM = "ROADMAP B5 (the streaming kernels)"
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
 _RDMA_ITEM = "ROADMAP B7 (the remote-DMA exchange, >= 2 GPUs)"
@@ -356,7 +357,7 @@ def make_sharded_fused_step(
     """Temporal blocking under decomposition: k steps per exchange.
 
     One call is a width ``m = k * halo`` halo exchange, then one kernel
-    launch per shard.  Two kinds:
+    launch per shard.  Three kinds:
 
     * padded (``kind=None``, the TPU package's ``auto`` below its HBM
       threshold): the exchange pads z and y of every shard's block by m
@@ -365,22 +366,30 @@ def make_sharded_fused_step(
       the shard's origin;
     * ``kind="padfree"`` on a z-only mesh: the two width-m z slabs are
       exchanged unconcatenated and handed to K6 with the core, so no padded
-      copy of the block exists.
+      copy of the block exists;
+    * ``kind="padfree"`` on a mesh that shards y: the z and y slabs and the
+      four corner pieces (``halo.exchange_slabs_2axis``) go to K9 with the
+      core (:func:`_make_yzslab_padfree_step`).
 
     Every field is exchanged at width m (temporal blocking consumes margin
     for all fields, wave's ``u_prev`` included).  Returns None where the
     TPU builder declines for a structural reason: no fused kernel, the lane
     axis x sharded, a grid not divisible by the mesh, ``2 * k * halo`` off
-    the alignment unit, or a local z/y extent below m.  The TPU package's
-    ``auto`` switch to pad-free above a v5e HBM threshold does not carry
-    over: ``kind=None`` always takes the padded kind.
+    the alignment unit, or a local z/y extent below m.  A forced
+    ``kind="padfree"`` that its kernel declines gives None, never the
+    padded kind.  The TPU package's ``auto`` switch to pad-free above a v5e
+    HBM threshold does not carry over: ``kind=None`` always takes the
+    padded kind.
 
-    Not ported yet, and raising by name: the 2-axis pad-free kind (a
-    y-sharded mesh with ``kind="padfree"``), ``kind="stream"``,
-    ``overlap=True``, ``pipeline=True`` and ``exchange="rdma"``.
+    ``overlap=True`` splits every kind as the TPU package does
+    (:func:`_fused_step_driver`); with a local extent below 3m on a sharded
+    axis the step is the non-split one (``step._overlap_active`` says
+    which).
+
+    Not ported yet, and raising by name: ``kind="stream"``,
+    ``pipeline=True``, ``exchange="rdma"`` and the ensemble axis.
     """
-    from ..ops.cuda.fused import (build_fused_call, build_zslab_padfree_call,
-                                  fused_supported)
+    from ..ops.cuda.fused import fused_supported
 
     if kind not in (None, "stream", "padfree"):
         raise ValueError(f"unknown sharded fused kind {kind!r} "
@@ -393,10 +402,6 @@ def make_sharded_fused_step(
             f"exchange={exchange!r} is not ported: {_RDMA_ITEM}")
     if pipeline:
         raise NotImplementedError(f"pipeline=True: {_PIPELINE_ITEM}")
-    if overlap:
-        raise NotImplementedError(
-            f"overlap=True with temporal blocking needs the boundary shell "
-            f"kernels: {_OVERLAP_FUSED_ITEM}")
     if ensemble:
         raise NotImplementedError(
             f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
@@ -410,35 +415,18 @@ def make_sharded_fused_step(
     if any(g % c for g, c in zip(global_shape, counts)):
         return None
     local_shape = _local_shape(global_shape, counts)
-    coords = list(mesh.coords())
-    offsets = [shard_offsets(c, local_shape) for c in coords]
-
+    make = _make_padded_step
     if kind == "padfree":
-        if counts[1] > 1:
-            raise NotImplementedError(
-                f"--fuse-kind padfree on a y-sharded mesh needs the 2-axis "
-                f"pad-free kernel: {_YZ_PADFREE_ITEM}")
-        built = build_zslab_padfree_call(stencil, local_shape, global_shape,
-                                         k, periodic=periodic, device=device)
-        if built is None:
-            return None
-        call, m, _ = built
+        make = (_make_yzslab_padfree_step if counts[1] > 1
+                else _make_zslab_padfree_step)
+    return make(stencil, mesh, global_shape, local_shape, counts, k,
+                periodic, overlap, device)
 
-        def step_zslab(fields: Fields) -> Fields:
-            slabs = [exchange_slabs_axis(f, mesh, 0, m, bc, periodic)
-                     for f, bc in zip(fields, stencil.bc_value)]
-            out = [[] for _ in fields]
-            for i, c in enumerate(coords):
-                args = []
-                for f, (lo, hi) in zip(fields, slabs):
-                    args += [f[i], lo[i], hi[i]]
-                with _on_device(mesh.device(c)):
-                    res = call(offsets[i][0], *args)
-                for j, b in enumerate(res):
-                    out[j].append(b)
-            return tuple(f.with_blocks(o) for f, o in zip(fields, out))
 
-        return step_zslab
+def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
+                      periodic, overlap, device):
+    """The padded kind: exchange-padded blocks into K3's sharded mode."""
+    from ..ops.cuda.fused import build_fused_call
 
     built = build_fused_call(
         stencil, local_shape, k,
@@ -448,21 +436,179 @@ def make_sharded_fused_step(
         return None
     call, m, _ = built
 
-    def step_padded(fields: Fields) -> Fields:
-        padded = [exchange_and_pad(f, mesh, m, bc, periodic, axes=(0, 1))
-                  for f, bc in zip(fields, stencil.bc_value)]
+    def exchange(fields, on):
+        return [exchange_and_pad(f, on, m, bc, periodic, axes=(0, 1))
+                for f, bc in zip(fields, stencil.bc_value)]
+
+    def launch(origins, blocks, ops):
+        return call(*ops) if periodic else call(origins, *ops)
+
+    return _fused_step_driver(stencil, mesh, global_shape, local_shape,
+                              counts, k, m, periodic, overlap, device,
+                              exchange, launch)
+
+
+def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
+                             counts, k, periodic, overlap, device):
+    """The z-slab kind (z-only meshes): core and z slabs into K6."""
+    from ..ops.cuda.fused import build_zslab_padfree_call
+
+    built = build_zslab_padfree_call(stencil, local_shape, global_shape, k,
+                                     periodic=periodic, device=device)
+    if built is None:
+        return None
+    call, m, _ = built
+
+    def exchange(fields, on):
+        return [list(zip(*exchange_slabs_axis(f, on, 0, m, bc, periodic)))
+                for f, bc in zip(fields, stencil.bc_value)]
+
+    def launch(origins, blocks, ops):
+        args = []
+        for b, (lo, hi) in zip(blocks, ops):
+            args += [b, lo, hi]
+        return call(origins[0], *args)
+
+    step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
+                              counts, k, m, periodic, overlap, device,
+                              exchange, launch)
+    step._padfree_kind = "zslab"
+    return step
+
+
+def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
+                              counts, k, periodic, overlap, device):
+    """The 2-axis pad-free kind (meshes that shard y): the core, z and y
+    slabs and the four two-pass corner pieces into K9, so no padded copy of
+    a block exists on a (z, y) mesh either.  An unsharded z gets the local
+    bc-fill or wrap slabs from the same exchange.  The TPU package's 2m
+    duplication of the y operands (``_dup_y``, sublane alignment) does not
+    apply: K9 reads m-wide pieces."""
+    from ..ops.cuda.fused import build_yzslab_padfree_call
+
+    built = build_yzslab_padfree_call(stencil, local_shape, global_shape, k,
+                                      periodic=periodic, device=device)
+    if built is None:
+        return None
+    call, m, _ = built
+
+    def exchange(fields, on):
+        return [exchange_slabs_2axis(f, on, m, bc, periodic)
+                for f, bc in zip(fields, stencil.bc_value)]
+
+    def launch(origins, blocks, ops):
+        args = []
+        for b, ((zlo, zhi), (ylo, yhi), corners) in zip(blocks, ops):
+            args += [b, zlo, zhi, ylo, yhi, *corners]
+        return call(origins, *args)
+
+    step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
+                              counts, k, m, periodic, overlap, device,
+                              exchange, launch)
+    step._padfree_kind = "yzslab"
+    return step
+
+
+def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
+                       m, periodic, overlap, device, exchange, launch):
+    """The sharded fused step around one kind's kernel.
+
+    ``exchange(fields, on)`` gives, per field and per shard of mesh ``on``,
+    the kind's operand (a padded block, a z-slab pair or a 2-axis slab
+    set); ``launch(origins, blocks, ops)`` runs the kind's kernel on one
+    shard's core blocks and operands, given the shard's global (z, y)
+    origin.
+
+    ``overlap=True``, on a mesh that shards z or y with every sharded local
+    extent at least 3m, is the TPU package's split (``stepper.py:681-782``,
+    ``:853-1040``, ``:1141-1340``), the temporal-blocked form of the
+    reference's two-stream pattern:
+
+    1. the 2-axis slab set (``exchange_slabs_2axis``) is exchanged first,
+       on a side CUDA stream (``_SideStreams``);
+    2. meanwhile the interior runs: the same kernel on each shard's own
+       operands (a local pad or local bc-fill/wrap slabs, no exchanged
+       data), valid at least m from every sharded face;
+    3. the current stream joins the side one;
+    4. the boundary shells run: per sharded axis, a lo and a hi instance
+       of K3's sharded mode over a 2m-deep core, fed by a strip rebuilt
+       from the slab set (the exchanged slab plus a 3m-deep local strip,
+       the other axis's slabs and corners as its padding,
+       ``halo.pad_from_slabs``);
+    5. each shell is spliced over the interior output with ``copy_``.
+
+    The values equal the non-split step's bit for bit (every cell is the
+    same arithmetic on the same inputs).  On one card nothing is hidden:
+    the split costs the shells' extra cells and the strip copies.
+    """
+    from ..ops.cuda.fused import build_overlap_shell_calls
+
+    coords = list(mesh.coords())
+    origins = [shard_offsets(c, local_shape)[:2] for c in coords]
+    sharded_axes = [d for d in (0, 1) if counts[d] > 1]
+    bcs = stencil.bc_value
+
+    def run(fields, i, ops_i):
+        return launch(origins[i], [f[i] for f in fields], ops_i)
+
+    def step(fields: Fields) -> Fields:
+        ops = exchange(fields, mesh)
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
-            args = [p[i] for p in padded]
-            if not periodic:
-                args = [offsets[i][:2]] + args
             with _on_device(mesh.device(c)):
-                res = call(*args)
+                res = run(fields, i, [o[i] for o in ops])
             for j, b in enumerate(res):
                 out[j].append(b)
         return tuple(f.with_blocks(o) for f, o in zip(fields, out))
 
-    return step_padded
+    shells = None
+    if overlap and sharded_axes:
+        shells = build_overlap_shell_calls(
+            stencil, local_shape, global_shape, k, sharded_axes,
+            periodic=periodic, device=device)
+    if shells is None:
+        step._overlap_active = False
+        return step
+
+    w = 2 * m
+    side = _SideStreams(mesh)
+
+    def step_overlap(fields: Fields) -> Fields:
+        with side.begin():
+            slabs = [exchange_slabs_2axis(f, mesh, m, bc, periodic)
+                     for f, bc in zip(fields, bcs)]
+            side.record()
+        new = []
+        for i, c in enumerate(coords):
+            with _on_device(mesh.device(c)):
+                # the shard's own operands only: nothing here waits for the
+                # exchange
+                own = exchange([[f[i]] for f in fields],
+                               local_mesh(fields[0][i]))
+                new.append(run(fields, i, [o[0] for o in own]))
+        side.join()
+        out = [[] for _ in fields]
+        for i, c in enumerate(coords):
+            with _on_device(mesh.device(c)):
+                for d in sharded_axes:
+                    for o in (0, local_shape[d] - w):
+                        # padded rows [o, o + 4m) = global rows from m
+                        # before the shell core to 3m after its start
+                        strips = [pad_from_slabs(f[i], s[i], m, d, o,
+                                                 o + 2 * w)
+                                  for f, s in zip(fields, slabs)]
+                        org = list(origins[i])
+                        org[d] += o
+                        res = (shells[d](*strips) if periodic
+                               else shells[d](tuple(org), *strips))
+                        for nb, rb in zip(new[i], res):
+                            _axis_slice(nb, d, slice(o, o + w)).copy_(rb)
+                for j, nb in enumerate(new[i]):
+                    out[j].append(nb)
+        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+
+    step_overlap._overlap_active = True
+    return step_overlap
 
 
 def make_sharded_fullgrid_step(

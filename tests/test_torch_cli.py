@@ -304,10 +304,16 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
 
 @pytest.mark.parametrize("extra,exc,match", [
     (["--overlap"], ValueError, "needs --mesh"),
-    (["--mesh", "2,2", "--fuse", "4", "--overlap"], NotImplementedError,
-     "B4"),
-    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree"],
-     NotImplementedError, "row 9"),
+    # The next two ids keep their names from the refusals they pinned
+    # before --fuse --overlap (B4 row 7) and --fuse-kind padfree on a
+    # y-sharded mesh (row 9) ran; they run in tests/test_torch_twoaxis.py
+    # now, and these cases pin refusals beside them that still hold.
+    pytest.param(["--mesh", "2,2", "--fuse", "4", "--overlap",
+                  "--fuse-kind", "stream"], NotImplementedError, "B5",
+                 id="extra1-NotImplementedError-B4"),
+    pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
+                  "--dtype", "bfloat16"], NotImplementedError, "B1/B3",
+                 id="extra2-NotImplementedError-row 9"),
     (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "tiled"], ValueError,
      "--fuse-kind"),
     (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream"],

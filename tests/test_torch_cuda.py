@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K8) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K9) against their plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -10,8 +10,9 @@ package, so it runs where only PyTorch is installed::
 Tolerances as in tests/test_torch_kernels.py: ``32 * eps * max(|ref|, 1)``
 for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
 ``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
-K8) bit-equal.  The sharded kernels (K3's sharded mode, K6, K8's sharded
-mode) run on meshes of virtual shards on one card.
+K8) bit-equal.  The sharded kernels (K3's sharded mode and its overlap
+shells, K6, K9, K8's sharded mode) run on meshes of virtual shards on one
+card.
 """
 
 import numpy as np
@@ -186,6 +187,110 @@ def test_sharded_step_with_kernels_overlap_is_bit_equal(dev, name):
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     _check(outs[1], ref, st.halo, 1e-5)
+
+
+def _pieces(shape, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.rand(shape, generator=g, device=dev)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("local,origins", [((24, 32, 40), (0, 0)),
+                                           ((19, 21, 45), (19, 21))])
+@pytest.mark.parametrize("name,k", [("heat3d", 4), ("heat3d27", 4),
+                                    ("heat3d4th", 2), ("wave3d", 4)])
+def test_yzslab_kernel_matches_plain(dev, name, k, local, origins, periodic):
+    """K9 on a core and eight random pieces == plain_yzslab (the assembled
+    window, k plain steps), at an aligned and a ragged shard of a
+    (38, 42, X)-class grid."""
+    st = port.make_stencil(name)
+    m = k * st.halo
+    Lz, Ly, X = local
+    gshape = (2 * Lz, 2 * Ly, X)
+    nf = st.num_fields
+    seed = iter(range(100, 200))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed)) for _ in range(nf))
+
+    core = per_field(local)
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    ref = fused.plain_yzslab(core, zlo, zhi, ylo, yhi, corners, st, k,
+                             gshape, origins, periodic)
+    fused.launches.clear()
+    got = fused.fused_yzslab(core, zlo, zhi, ylo, yhi, corners, st, k,
+                             gshape, origins, periodic)
+    torch.cuda.synchronize()
+    assert fused.launches[f"fused_yzslab[{name}]"] == 1
+    _check(got, ref, None, 1e-4)
+
+
+@pytest.mark.parametrize("name,k", [("heat3d", 4), ("heat3d27", 4),
+                                    ("heat3d4th", 2), ("wave3d", 4)])
+@pytest.mark.parametrize("mesh_shape,kind", [
+    ((2, 2), "padfree"), ((1, 4), "padfree"), ((2, 2), None),
+    ((4,), "padfree")])
+@pytest.mark.parametrize("periodic", [False, True])
+def test_slab_kernels_and_overlap_shells_match_plain_sharded_steps(
+        dev, mesh_shape, kind, name, k, periodic):
+    """K9 (padfree on a mesh that shards y), K3's sharded mode and K6,
+    each with and without the overlap shells, == k plain sharded steps on
+    virtual shards; the overlapped step equals the non-split one bit for
+    bit and launches one shell per sharded face of every shard."""
+    st = port.make_stencil(name)
+    shape = (48, 48, 40)  # local extents >= 3m on every sharded axis
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 9), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    counts = mesh.counts(3)
+    wrapper = ("fused_step_padded" if kind is None else
+               "fused_yzslab" if counts[1] > 1 else "fused_zslab")
+    faces = 2 * sum(c > 1 for c in counts[:2])
+    outs = []
+    for overlap in (False, True):
+        fused.launches.clear()
+        step = make_sharded_fused_step(st, mesh, shape, k, periodic=periodic,
+                                       kind=kind, overlap=overlap,
+                                       device=dev)
+        assert step._overlap_active == overlap
+        outs.append(gather_fields(step(fields)))
+        torch.cuda.synchronize()
+        want = {f"{wrapper}[{name}]": mesh.size}
+        if overlap:
+            want[f"fused_shell[{name}]"] = mesh.size * faces
+        assert dict(fused.launches) == want
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    _check(outs[0], gather_fields(ref), None if periodic else st.halo, 1e-4)
+
+
+@pytest.mark.parametrize("name,k", [("heat3d", 4), ("heat3d4th", 2),
+                                    ("wave3d", 4)])
+def test_overlap_shell_kernel_matches_plain(dev, name, k):
+    """A row-7 shell call (K3's sharded mode over a 2m-deep core, counted
+    as fused_shell) == plain_step_padded on the same random strip."""
+    st = port.make_stencil(name)
+    m = k * st.halo
+    local, gshape = (24, 30, 40), (48, 60, 40)
+    shells = fused.build_overlap_shell_calls(st, local, gshape, k, (0, 1),
+                                             device=dev)
+    for d, org in ((0, (24 - 2 * m, 30)), (1, (24, 0))):
+        pshape = [local[0] + 2 * m, local[1] + 2 * m, local[2]]
+        pshape[d] = 4 * m
+        strips = tuple(_pieces(tuple(pshape), dev, 7 + j)
+                       for j in range(st.num_fields))
+        ref = fused.plain_step_padded(strips, st, k, gshape, org)
+        fused.launches.clear()
+        got = shells[d](org, *strips)
+        torch.cuda.synchronize()
+        assert fused.launches[f"fused_shell[{name}]"] == 1
+        _check(got, ref, None, 1e-4)
 
 
 SHAPES_2D = [(128, 256), (130, 258), (1000, 777)]

@@ -269,15 +269,19 @@ def test_sharded_fused_unsupported_configs():
         st, _mesh((2, 2)), (16, 16, 128), 3) is None  # 2*k*halo % 8
     assert tstepper.make_sharded_fused_step(
         st, _mesh((3,)), (16, 16, 128), 4) is None  # not divisible
-    for kw, item in (({"kind": "stream"}, "B5"), ({"overlap": True}, "B4"),
+    # --overlap and the 2-axis padfree kind run now
+    # (tests/test_torch_twoaxis.py); beside them the unported modes still
+    # raise by name
+    for kw, item in (({"kind": "stream"}, "B5"),
+                     ({"kind": "stream", "overlap": True}, "B5"),
                      ({"pipeline": True}, "A5"), ({"exchange": "rdma"}, "B7"),
                      ({"ensemble": 2}, "A7")):
         with pytest.raises(NotImplementedError, match=item):
             tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
                                              (16, 16, 128), 4, **kw)
-    with pytest.raises(NotImplementedError, match="row 9"):
+    with pytest.raises(NotImplementedError, match="A5"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
-                                         4, kind="padfree")
+                                         4, kind="padfree", pipeline=True)
     # 2D grids go to the row-split whole-block stepper (K8), where the
     # 3D-only options raise by name, as in the TPU package
     for kw, what in (({"pipeline": True}, "pipeline=True is 3D-only"),

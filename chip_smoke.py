@@ -20,7 +20,14 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      1x4 meshes at (128, 128, 256) and (68, 76, 130) (ragged shards); the
      overlap shells (K3's sharded mode over a 2m-deep core) against their
      plain version on random strips, and the overlapped padded, z-slab and
-     2-axis steps against k plain sharded steps.  2D: K7 whole2d (life,
+     2-axis steps against k plain sharded steps.  K10, the streaming
+     kernel: stream_step (RAW) for k = 1, 2, 4 at (128, 128, 256),
+     (68, 76, 130) and the main path's 512^3 grid, stream_zslab and
+     stream_yzslab on random cores, slabs and corners (one shard of a
+     z-only mesh of 4, of a 2x2 and of a 1x4 mesh), all held to their
+     plain versions with max |d| = 0 (bit for bit), and the stream kind's
+     sharded steps (--mesh 4, 2x2, 1x4, with and without the overlap
+     shells) against k plain sharded steps.  2D: K7 whole2d (life,
      heat2d) and K8 fullgrid (life, heat2d, wave2d; the whole grid, RAW,
      and row shards of virtual meshes, PADDED, with and without the
      overlap shells; k = 1, 2, 4, 8; guard-frame and periodic) at an
@@ -31,8 +38,9 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      exactly equal;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
-     --compute jnp, --compute pallas and --fuse K (K = 4; 2 for heat3d4th),
-     each kernel path held against its jnp run; a checkpoint round trip
+     --compute jnp, --compute pallas, --fuse K (K = 4; 2 for heat3d4th)
+     and --fuse K --fuse-kind stream (K10), each kernel path held against
+     its jnp run; a checkpoint round trip
      (--checkpoint-every 50, --resume to 100) bit for bit.  2D: BASELINE
      config 1, heat2d and mdf at 512^2 for 1000 iterations and Life at
      512^2, --init random --density 0.15 (the reference's universe), each
@@ -48,9 +56,12 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      (K6) and --mesh 2,2 --fuse 4 --fuse-kind padfree (K9), heat3d also
      --compute pallas --overlap, --mesh 2,2 --fuse 4 --overlap and --mesh 4
      --fuse 4 --fuse-kind padfree --overlap, heat3d and wave3d also --mesh
-     2,2 --fuse 4 --fuse-kind padfree --overlap (the overlap shells);
-     heat3d27 and heat3d4th at 512^3 --mesh 2,2 for 20 iterations with
-     --compute pallas, --fuse (4 / 2) and --fuse --fuse-kind padfree.  Every
+     2,2 --fuse 4 --fuse-kind padfree --overlap (the overlap shells), and
+     the stream kind (K10): unsharded --fuse 4 --fuse-kind stream, --mesh
+     2,2 --fuse 4 --fuse-kind stream with and without --overlap and
+     --mesh 4 --fuse 4 --fuse-kind stream; heat3d27 and heat3d4th at 512^3
+     --mesh 2,2 for 20 iterations with --compute pallas, --fuse (4 / 2),
+     --fuse --fuse-kind padfree and --fuse --fuse-kind stream.  Every
      sharded field is held against the unsharded run of the same mode and
      the unsharded plain run; overlap must equal non-overlap bit for bit.
      Then a sharded checkpoint round trip at 512^3 --mesh 2,2
@@ -65,9 +76,10 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off), by CUDA events at the main path's shapes, beside the bound from
-     bytes and flops; and the split of one sharded step at 1024^3 on 2x2
-     into exchange/pad, kernel and re-pin, beside whole fused steps of each
-     kind with and without --overlap.
+     bytes and flops (K10 at the shapes of K3, K6 and K9); and the split of
+     one sharded step at 1024^3 on 2x2 into exchange/pad, kernel and
+     re-pin, beside whole fused steps of each kind with and without
+     --overlap.
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -98,16 +110,20 @@ ITERS = 100
 MAIN_RUNS = (("heat3d", ITERS, 4), ("wave3d", ITERS, 4),
              ("heat3d27", 40, 4), ("heat3d4th", 40, 2))
 # (stencil, grid, iterations, fuse k, overlapped modes) of the sharded main
-# path; every run has --mesh 2,2 with jnp, pallas, --fuse k and --fuse k
-# --fuse-kind padfree, and at BIG also --mesh 4 --fuse k --fuse-kind
-# padfree.  An overlapped mode runs right after its non-overlap base.
+# path; every run has --mesh 2,2 with jnp, pallas, --fuse k, --fuse k
+# --fuse-kind padfree and --fuse k --fuse-kind stream, and at BIG also
+# --mesh 4 --fuse k with --fuse-kind padfree and stream.  An overlapped
+# mode runs right after its non-overlap base.
 MESH_RUNS = (("heat3d", BIG, ITERS, 4, ("overlap", "fuse_overlap",
-                                        "padfree_overlap", "yzslab_overlap")),
-             ("wave3d", BIG, ITERS, 4, ("yzslab_overlap",)),
+                                        "padfree_overlap", "yzslab_overlap",
+                                        "stream_yz_overlap")),
+             ("wave3d", BIG, ITERS, 4, ("yzslab_overlap",
+                                        "stream_yz_overlap")),
              ("heat3d27", MAIN, 20, 4, ()), ("heat3d4th", MAIN, 20, 2, ()))
 # overlapped mode -> the non-overlap mode it must equal bit for bit
 OVERLAP_BASE = {"overlap": "pallas", "fuse_overlap": "fuse",
-                "padfree_overlap": "padfree", "yzslab_overlap": "yzslab"}
+                "padfree_overlap": "padfree", "yzslab_overlap": "yzslab",
+                "stream_yz_overlap": "stream_yz"}
 EPS32 = 2.0 ** -23
 FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
                   "wave3d": 12, "heat2d": 7, "wave2d": 9,
@@ -164,13 +180,14 @@ def main() -> int:
     from mpi_cuda_process_tpu_torch import cli, driver, make_stencil
     from mpi_cuda_process_tpu_torch.interop import fields_from_numpy
     from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fullgrid, fused,
-                                                     kernels, rawstep)
+                                                     kernels, rawstep,
+                                                     streamfused)
     from mpi_cuda_process_tpu_torch.parallel import halo, mesh as mesh_lib
     from mpi_cuda_process_tpu_torch.parallel import stepper
     from mpi_cuda_process_tpu_torch.utils import checkpointing
 
     counters = (rawstep.launches, fused.launches, kernels.launches,
-                fullgrid.launches)
+                fullgrid.launches, streamfused.launches)
     t_start = time.perf_counter()
     t_phase = [t_start]
 
@@ -180,10 +197,10 @@ def main() -> int:
         secs, t_phase[0] = round(now - t_phase[0], 3), now
         return secs
     dev = torch.device("cuda", torch.cuda.current_device())
-    kind = torch.cuda.get_device_name(0)
+    card_kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     bw, flops32 = card_rates(smi)
-    emit({"phase": "device", "ok": True, "kind": kind,
+    emit({"phase": "device", "ok": True, "kind": card_kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
@@ -257,6 +274,23 @@ def main() -> int:
                       ("overlap_padded", name, shape, k, periodic, (2, 2)),
                       ("overlap_zslab", name, shape, k, periodic, (4,)),
                       ("overlap_yzslab", name, shape, k, periodic, (2, 2))]
+        # K10 (guard-frame only): the whole grid at k = 1, 2, 4 and at the
+        # main path's k at 512^3; the slab kernels on one shard's random
+        # pieces; the stream kind's sharded steps, with the overlap shells
+        for shape in ((128, 128, 256), (68, 76, 130)):
+            cases += [("stream", name, shape, kk, False, None)
+                      for kk in (1, 2, 4)]
+            cases += [("stream_zslab", name, shape, k, False, (4,)),
+                      ("stream_yzslab", name, shape, k, False, (2, 2)),
+                      ("stream_yzslab", name, shape, k, False, (1, 4)),
+                      ("stream_z", name, shape, k, False, (4,)),
+                      ("stream_yz", name, shape, k, False, (2, 2)),
+                      ("stream_yz", name, shape, k, False, (1, 4))]
+        cases += [("stream", name, MAIN, k, False, None),
+                  ("overlap_stream_z", name, (128, 128, 256), k, False,
+                   (4,)),
+                  ("overlap_stream_yz", name, (128, 128, 256), k, False,
+                   (2, 2))]
     checked = []
     for path, name, shape, k, periodic, mshape in cases:
         st = make_stencil(name)
@@ -296,8 +330,39 @@ def main() -> int:
             entry = f"fused_shell<{name}>"
             atol = 1e-4
             frame = None
+        elif path in ("stream_zslab", "stream_yzslab"):
+            # one shard's core and random slabs (and corners): the second
+            # shard of a z-only mesh of 4, shard (1, 0) of a 2x2 mesh, the
+            # second of a 1x4 mesh; bit for bit against the plain version
+            m = k * st.halo
+            Z, Y, X = shape
+
+            def per_field(s):
+                return tuple(rand(s) for _ in range(st.num_fields))
+
+            if path == "stream_zslab":
+                Lz = Z // 4
+                core, lo, hi = (per_field((Lz, Y, X)), per_field((m, Y, X)),
+                                per_field((m, Y, X)))
+                got = streamfused.stream_zslab(core, lo, hi, st, k, Z, Lz)
+                ref = fused.plain_zslab(core, lo, hi, st, k, Z, Lz)
+            else:
+                Lz, Ly = Z // mshape[0], Y // mshape[1]
+                org = (Lz, 0) if mshape[0] > 1 else (0, Ly)
+                core = per_field((Lz, Ly, X))
+                zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+                ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+                corners = [per_field((m, m, X)) for _ in range(4)]
+                args = (core, zlo, zhi, ylo, yhi, corners, st, k, shape, org)
+                got = streamfused.stream_yzslab(*args)
+                ref = fused.plain_yzslab(*args)
+                del zlo, zhi, ylo, yhi, corners, args
+            del core
+            entry = f"{path}<{name}>"
+            atol = 0.0
+            frame = None
         elif path in ("sharded", "zslab", "yzslab") or \
-                path.startswith("overlap"):
+                path.startswith(("overlap", "stream_")):
             mesh = virtual_mesh(mshape)
             fields = stepper.shard_fields(
                 tuple(rand(shape) for _ in range(st.num_fields)), mesh, 3)
@@ -307,10 +372,11 @@ def main() -> int:
             for _ in range(k):
                 ref = plain(ref)
             overlap = path.startswith("overlap")
+            fuse_kind = (None if path in ("sharded", "overlap_padded") else
+                         "stream" if "stream" in path else "padfree")
             step = stepper.make_sharded_fused_step(
-                st, mesh, shape, k, periodic=periodic,
-                kind=None if path in ("sharded", "overlap_padded")
-                else "padfree", overlap=overlap, device=dev)
+                st, mesh, shape, k, periodic=periodic, kind=fuse_kind,
+                overlap=overlap, device=dev)
             if step._overlap_active != overlap:
                 fail(f"{path} {name}: overlap split not taken")
             got = stepper.gather_fields(step(fields))
@@ -335,6 +401,11 @@ def main() -> int:
                 atol = 32 * EPS32 * scale
                 if name == "wave3d" and got[1] is not fields[0]:
                     fail("raw_step_wave: the new u_prev is not the old u")
+            elif path == "stream":
+                got = streamfused.make_stream_fused_step(st, shape, k,
+                                                         device=dev)(fields)
+                entry = f"stream_step<{name}>"
+                atol = 0.0
             else:
                 got = fused.make_fused_step(st, shape, k, periodic=periodic,
                                             device=dev)(fields)
@@ -478,14 +549,17 @@ def main() -> int:
 
     results = []
     for stencil, iters, k in MAIN_RUNS:
-        for mode in (("--compute", "jnp"), ("--compute", "pallas"),
-                     ("--fuse", str(k))):
-            res = drive(f"{stencil}_{mode[1]}", stencil, *mode, iters=iters,
+        raw_key = ("raw_step_wave" if stencil == "wave3d"
+                   else "raw_step_heat") + f"[{stencil}]"
+        for label, mode, want in (
+                ("jnp", ("--compute", "jnp"), {}),
+                ("pallas", ("--compute", "pallas"), {raw_key: iters}),
+                (str(k), ("--fuse", str(k)),
+                 {f"fused_step[{stencil}]": iters // k}),
+                ("stream", ("--fuse", str(k), "--fuse-kind", "stream"),
+                 {f"stream_step[{stencil}]": iters // k})):
+            res = drive(f"{stencil}_{label}", stencil, *mode, iters=iters,
                         ckpt_every=iters)
-            raw_key = ("raw_step_wave" if stencil == "wave3d"
-                       else "raw_step_heat") + f"[{stencil}]"
-            want = {"jnp": {}, "pallas": {raw_key: iters}}.get(
-                mode[1], {f"fused_step[{stencil}]": iters // k})
             if res["launches"] != want:
                 fail(f"{res['label']}: launches {res['launches']} != {want}")
             results.append(res)
@@ -495,7 +569,8 @@ def main() -> int:
         ref = runs[f"{stencil}_jnp"]["fields"]
         frame = frame_of(MAIN, halo_w)
         scale = max(float(ref[0].abs().max()), 1.0)
-        for mode, atol in (("pallas", 32 * EPS32 * scale), (str(k), 1e-4)):
+        for mode, atol in (("pallas", 32 * EPS32 * scale), (str(k), 1e-4),
+                           ("stream", 1e-4)):
             got = runs[f"{stencil}_{mode}"]["fields"]
             err = 0.0
             for g, r in zip(got, ref):
@@ -508,7 +583,7 @@ def main() -> int:
                 if r["label"] == f"{stencil}_{mode}":
                     r["max_abs_err_vs_jnp"] = err
                     r["atol"] = atol
-        for mode in ("jnp", "pallas", str(k)):
+        for mode in ("jnp", "pallas", str(k), "stream"):
             if f"{stencil}_{mode}" != "heat3d_pallas":  # kept for the resume
                 del runs[f"{stencil}_{mode}"]["fields"]
 
@@ -622,30 +697,36 @@ def main() -> int:
         zkey = ("zchunk_wave" if stencil == "wave3d"
                 else "zchunk_heat") + f"[{stencil}]"
         big = grid == BIG
-        ref_plain, r = run_cli(stencil, grid, iters, "--compute", "jnp")
-        mesh_results.append(r)
-        scale = max(float(ref_plain[0].abs().max()), 1.0)
-        ref_pallas, r = run_cli(stencil, grid, iters, "--compute", "pallas")
-        if r["launches"] != {raw_key: iters}:
-            fail(f"{stencil} unsharded pallas: launches {r['launches']}")
-        check(r, max(float((x - y).abs().max())
-                     for x, y in zip(ref_pallas, ref_plain)),
-              32 * EPS32 * scale, "unsharded plain")
-        mesh_results.append(r)
-        ref_fused, r = run_cli(stencil, grid, iters, "--fuse", str(k))
-        if r["launches"] != {f"fused_step[{stencil}]": iters // k}:
-            fail(f"{stencil} unsharded fuse: launches {r['launches']}")
-        check(r, max(float((x - y).abs().max())
-                     for x, y in zip(ref_fused, ref_plain)),
-              1e-4, "unsharded plain")
-        mesh_results.append(r)
         passes = iters // k
-        padded, zslab, yzslab, shell = (
+        refs = {}  # unsharded runs of each mode: the same-mode yardsticks
+
+        def unsharded(label, flags, want):
+            refs[label], r = run_cli(stencil, grid, iters, *flags)
+            if r["launches"] != want:
+                fail(f"{stencil} unsharded {label}: launches "
+                     f"{r['launches']} != {want}")
+            if label != "plain":
+                atol = 32 * EPS32 * scale if label == "pallas" else 1e-4
+                check(r, max(float((x - y).abs().max())
+                             for x, y in zip(refs[label], refs["plain"])),
+                      atol, "unsharded plain")
+            mesh_results.append(r)
+
+        refs["plain"], r = run_cli(stencil, grid, iters, "--compute", "jnp")
+        mesh_results.append(r)
+        scale = max(float(refs["plain"][0].abs().max()), 1.0)
+        unsharded("pallas", ("--compute", "pallas"), {raw_key: iters})
+        unsharded("fuse", ("--fuse", str(k)),
+                  {f"fused_step[{stencil}]": passes})
+        padded, zslab, yzslab, shell, szslab, syzslab = (
             f"{w}[{stencil}]" for w in ("fused_step_padded", "fused_zslab",
-                                        "fused_yzslab", "fused_shell"))
+                                        "fused_yzslab", "fused_shell",
+                                        "stream_zslab", "stream_yzslab"))
         fuse22 = ("--mesh", "2,2", "--fuse", str(k))
         fuse4 = ("--mesh", "4", "--fuse", str(k), "--fuse-kind", "padfree")
         yz22 = fuse22 + ("--fuse-kind", "padfree")
+        s22 = fuse22 + ("--fuse-kind", "stream")
+        s4 = ("--mesh", "4", "--fuse", str(k), "--fuse-kind", "stream")
         # (label, flags, launches): 4 shards, one shell per sharded face
         modes = [("jnp", ("--mesh", "2,2", "--compute", "jnp"), {}),
                  ("pallas", ("--mesh", "2,2", "--compute", "pallas"),
@@ -660,23 +741,38 @@ def main() -> int:
                   {zslab: 4 * passes, shell: 8 * passes}),
                  ("yzslab", yz22, {yzslab: 4 * passes}),
                  ("yzslab_overlap", yz22 + ("--overlap",),
-                  {yzslab: 4 * passes, shell: 16 * passes})]
+                  {yzslab: 4 * passes, shell: 16 * passes}),
+                 ("stream_yz", s22, {syzslab: 4 * passes}),
+                 ("stream_yz_overlap", s22 + ("--overlap",),
+                  {syzslab: 4 * passes, shell: 16 * passes}),
+                 ("stream_z", s4, {szslab: 4 * passes})]
         modes = [md for md in modes if md[0] in overlapped or (
-            md[0] not in OVERLAP_BASE and (big or md[0] != "padfree"))]
+            md[0] not in OVERLAP_BASE
+            and (big or md[0] not in ("padfree", "stream_z")))]
         kept = {}
         for label, flags, want in modes:
+            if label.startswith("stream") and "stream" not in refs:
+                # the stream modes come last: their yardstick replaces the
+                # other kernels' on the card
+                del refs["pallas"], refs["fuse"]
+                torch.cuda.empty_cache()
+                unsharded("stream", ("--fuse", str(k), "--fuse-kind",
+                                     "stream"),
+                          {f"stream_step[{stencil}]": passes})
             got, r = run_cli(stencil, grid, iters, *flags)
             if r["launches"] != want:
                 fail(f"{stencil} {label}: launches {r['launches']} != {want}")
-            if "--fuse" in flags:
-                atol, same = 1e-4, ref_fused
+            if label.startswith("stream"):
+                atol, same = 1e-4, refs["stream"]
+            elif "--fuse" in flags:
+                atol, same = 1e-4, refs["fuse"]
             elif label == "jnp":
-                atol, same = 32 * EPS32 * scale, ref_plain
+                atol, same = 32 * EPS32 * scale, refs["plain"]
             else:
-                atol, same = 1e-6 + 1e-6 * scale, ref_pallas
+                atol, same = 1e-6 + 1e-6 * scale, refs["pallas"]
             check(r, block_err(got, same, h, f"{stencil} {label}"), atol,
                   "unsharded same mode")
-            check(r, block_err(got, ref_plain, h, f"{stencil} {label}"),
+            check(r, block_err(got, refs["plain"], h, f"{stencil} {label}"),
                   max(atol, 32 * EPS32 * scale), "unsharded plain")
             if any(OVERLAP_BASE[o] == label for o in overlapped):
                 kept[label] = got
@@ -690,7 +786,7 @@ def main() -> int:
             mesh_results.append(r)
             del got
             torch.cuda.empty_cache()
-        del ref_plain, ref_pallas, ref_fused
+        del refs, same
         torch.cuda.empty_cache()
 
     # sharded checkpoint round trip at 512^3 on 2x2 through cli.main()
@@ -916,7 +1012,9 @@ def main() -> int:
             "zchunk_heat": ("K4", 12), "zchunk_wave": ("K5", 13),
             "fused_zslab": ("K6", 8), "whole2d": ("K7", 14),
             "fused_yzslab": ("K9", 9), "fused_shell": ("K3", 7),
-            "fullgrid_step": ("K8", 15), "fullgrid_padded": ("K8", 15)}
+            "fullgrid_step": ("K8", 15), "fullgrid_padded": ("K8", 15),
+            "stream_step": ("K10", 16), "stream_zslab": ("K10", 17),
+            "stream_yzslab": ("K10", 18)}
 
     def record(entry, wrapper, name, src, replaces, ms, plain_ms, moved,
                flops, library_ms, k, shape, per_step):
@@ -948,12 +1046,24 @@ def main() -> int:
             ("fused_step<heat3d4th>", "fused_step", "heat3d4th", 2,
              "fused.py:280"),
             ("fused_step<wave3d>", "fused_step", "wave3d", 4,
-             "fused.py:280")):
+             "fused.py:280"),
+            ("stream_step<heat3d>", "stream_step", "heat3d", 4,
+             "streamfused.py:377"),
+            ("stream_step<heat3d27>", "stream_step", "heat3d27", 4,
+             "streamfused.py:377"),
+            ("stream_step<heat3d4th>", "stream_step", "heat3d4th", 2,
+             "streamfused.py:377"),
+            ("stream_step<wave3d>", "stream_step", "wave3d", 4,
+             "streamfused.py:377")):
         st = make_stencil(name)
         fields = tuple(rand(MAIN) for _ in range(st.num_fields))
         if wrapper == "fused_step":
             kern = fused.make_fused_step(st, MAIN, k, device=dev)
             src = "fused.cu"
+            moved = 2 * st.num_fields * nbytes
+        elif wrapper == "stream_step":
+            kern = streamfused.make_stream_fused_step(st, MAIN, k, device=dev)
+            src = "streamfused.cu"
             moved = 2 * st.num_fields * nbytes
         else:
             kern = rawstep.make_raw_step(st, MAIN, device=dev)
@@ -970,7 +1080,7 @@ def main() -> int:
         ms = time_ms(lambda: kern(fields), 20)
         plain_ms = time_ms(run_plain, 3)
         library_ms = None
-        if wrapper != "fused_step":
+        if wrapper not in ("fused_step", "stream_step"):
             library_ms = time_ms(library_call(name, st, fields, MAIN), 20)
         record(entry, wrapper, name, src, TPU + replaces, ms, plain_ms, moved,
                FLOPS_PER_CELL[name] * k * cells, library_ms, k, MAIN,
@@ -1030,10 +1140,16 @@ def main() -> int:
         yz_args = (core, zlo, zhi, ylo, yhi, corners, st, k, grid, (0, 0))
         ms = time_ms(lambda: fused.fused_yzslab(*yz_args), 10)
         plain_ms = time_ms(lambda: fused.plain_yzslab(*yz_args), 2)
+        yz_bytes = 4 * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m))
         record(f"fused_yzslab<{name}>", "fused_yzslab", name, "fused.cu",
-               TPU + "fused.py:562", ms, plain_ms,
-               4 * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m)),
+               TPU + "fused.py:562", ms, plain_ms, yz_bytes,
                FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
+        # K10 on the same operands (the plain version is the same function)
+        ms = time_ms(lambda: streamfused.stream_yzslab(*yz_args), 10)
+        record(f"stream_yzslab<{name}>", "stream_yzslab", name,
+               "streamfused.cu", TPU + "streamfused.py:399", ms, plain_ms,
+               yz_bytes, FLOPS_PER_CELL[name] * k * lcells, None, k, local,
+               4.0 / k)
         del core, zlo, zhi, ylo, yhi, corners, yz_args
         if "yzslab_overlap" in overlapped:
             # one hi z shell of a 2x2 shard: a 4m-deep strip in, 2m out
@@ -1067,10 +1183,16 @@ def main() -> int:
 
             ms = time_ms(kern, 10)
             plain_ms = time_ms(plain, 2)
+            z_bytes = 4 * nf * (2 * zcells + 2 * m * zl[1] * zl[2])
             record(f"fused_zslab<{name}>", "fused_zslab", name, "fused.cu",
-                   TPU + "fused.py:432", ms, plain_ms,
-                   4 * nf * (2 * zcells + 2 * m * zl[1] * zl[2]),
+                   TPU + "fused.py:432", ms, plain_ms, z_bytes,
                    FLOPS_PER_CELL[name] * k * zcells, None, k, zl, 4.0 / k)
+            ms = time_ms(lambda: streamfused.stream_zslab(
+                core, lo, hi, st, k, grid[0], 0), 10)
+            record(f"stream_zslab<{name}>", "stream_zslab", name,
+                   "streamfused.cu", TPU + "streamfused.py:386", ms,
+                   plain_ms, z_bytes, FLOPS_PER_CELL[name] * k * zcells,
+                   None, k, zl, 4.0 / k)
             del core, lo, hi
         if grid == BIG:
             # one sharded step on 2x2, split into exchange/pad, kernel and
@@ -1109,7 +1231,10 @@ def main() -> int:
             for label, kw in (("fused_overlap", {"overlap": True}),
                               ("yzslab", {"kind": "padfree"}),
                               ("yzslab_overlap", {"kind": "padfree",
-                                                  "overlap": True})):
+                                                  "overlap": True}),
+                              ("stream_yz", {"kind": "stream"}),
+                              ("stream_yz_overlap", {"kind": "stream",
+                                                     "overlap": True})):
                 fstep = stepper.make_sharded_fused_step(st, mesh, grid, k,
                                                         device=dev, **kw)
                 row[f"{label}_step_ms"] = time_ms(lambda: fstep(fields), 3)
@@ -1190,7 +1315,21 @@ def main() -> int:
     for kk in kernels_out:
         if kk["launches"] < 1:
             fail(f"{kk['name']} was not launched on the main path")
+    # K10 beside the overlapped-window kernel of the same shape and source
+    by_name = {kk["name"]: kk for kk in kernels_out}
+    stream_vs_window = []
+    for kk in kernels_out:
+        wrapper, _, rest = kk["name"].partition("<")
+        window = {"stream_step": "fused_step", "stream_zslab": "fused_zslab",
+                  "stream_yzslab": "fused_yzslab"}.get(wrapper)
+        if window and f"{window}<{rest}" in by_name:
+            stream_vs_window.append({
+                "stream": kk["name"], "ms": kk["ms"],
+                "window": f"{window}<{rest}",
+                "window_ms": by_name[f"{window}<{rest}"]["ms"],
+                "bound_ms": kk["bound_ms"], "shape": kk["shape"]})
     emit({"phase": "timing", "ok": True, "seconds": took(),
+          "stream_vs_window": stream_vs_window,
           "total_seconds": round(time.perf_counter() - t_start, 3),
           "card": smi,
           "bytes_per_s": bw, "flops32_per_s": flops32,
@@ -1199,7 +1338,7 @@ def main() -> int:
                   "overhead, not scaling"})
     print(smi, flush=True)
     emit({"kernels": kernels_out})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card_kind,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -17,9 +17,10 @@ on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
 and on 2D grids the 2D compute_fn kernel (K7); ``--fuse K`` the
 temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, with
 ``--fuse-kind padfree`` K6 on a z-only mesh and K9 on a mesh that shards y,
-and with ``--overlap`` the boundary shells beside the exchange; 2D: K8, its
-sharded mode under a row-split ``--mesh``); ``--compute auto``/``jnp`` the
-plain tensor path.  ``--mesh`` decomposes the grid over
+with ``--fuse-kind stream`` the streaming kernel K10, unsharded or on any
+z/y mesh, and with ``--overlap`` the boundary shells beside the exchange;
+2D: K8, its sharded mode under a row-split ``--mesh``); ``--compute
+auto``/``jnp`` the plain tensor path.  ``--mesh`` decomposes the grid over
 the visible devices (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N
 shards on one card).  ``--device`` (default ``cuda``) picks where the state
 lives; asking for ``cuda`` without a card raises, it never carries on on
@@ -48,7 +49,7 @@ from .ops import heat, life, wave  # noqa: F401  (populate the registry)
 from .ops.cuda import fullgrid as fullgrid_lib
 from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
-from .ops.cuda import rawstep
+from .ops.cuda import rawstep, streamfused
 from .parallel import mesh as mesh_lib
 from .parallel import stepper as stepper_lib
 from .utils import checkpointing, diagnostics, render
@@ -119,7 +120,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused kernel; under --mesh: auto = the padded "
                         "kind, padfree = the slab-operand kernels (z slabs "
                         "on a z-only mesh; z and y slabs and corners on a "
-                        "mesh that shards y); stream is not ported")
+                        "mesh that shards y); stream = the streaming "
+                        "kernel (each plane read once per pass; "
+                        "guard-frame only), unsharded or with the "
+                        "padfree operands under --mesh")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the state lives (default cuda; raises "
                         "without a card)")
@@ -287,15 +291,18 @@ def resolve_compute_fn(cfg: RunConfig, st):
 def _resume(cfg: RunConfig, st, device, mesh=None):
     """Load the checkpoint; scatter it onto ``mesh`` when the run is
     sharded (an ``npy`` checkpoint holds the global fields either way)."""
-    loaded, start_step, _ = checkpointing.load_any(cfg.checkpoint_dir)
+    loaded, start_step, saved = checkpointing.load_any(cfg.checkpoint_dir)
     for a in loaded:
         if tuple(a.shape) != tuple(cfg.grid):
             raise ValueError(f"checkpoint in {cfg.checkpoint_dir} holds a "
                              f"{tuple(a.shape)} grid, not {tuple(cfg.grid)}")
     log.info("resumed from %s at step %d", cfg.checkpoint_dir, start_step)
+    # the dtype the writer ran with: np.load gives a bfloat16 field back as
+    # raw 2-byte records, and only meta.json says what they hold
+    dtype = saved.get("dtype") or saved.get("params", {}).get("dtype")
     if mesh is not None:
-        return shard_from_numpy(loaded, mesh), start_step
-    return fields_from_numpy(loaded, device=device), start_step
+        return shard_from_numpy(loaded, mesh, dtype=dtype), start_step
+    return fields_from_numpy(loaded, device=device, dtype=dtype), start_step
 
 
 def _make_run_mesh(cfg: RunConfig, device):
@@ -336,18 +343,15 @@ def build(cfg: RunConfig):
             raise ValueError(
                 "--fuse-kind selects the 3D kernel variant; 2D grids use "
                 "the whole-grid kernel")
-        if cfg.fuse_kind == "stream":
-            raise NotImplementedError(
-                "--fuse-kind stream needs the streaming kernel, which is "
-                "not ported: ROADMAP B5")
         if use_mesh:
-            if cfg.fuse_kind not in ("auto", "padfree"):
+            if cfg.fuse_kind not in ("auto", "stream", "padfree"):
                 raise ValueError(
                     "--fuse-kind selects the 3D kernel variant; sharded "
-                    "runs support 'padfree' (the slab-operand kernels, on "
-                    "any mesh of z and y) and the exchange-padded kernel "
-                    "is 'auto'")
-            kind = "padfree" if cfg.fuse_kind == "padfree" else None
+                    "runs support 'stream' and 'padfree' (the slab-operand "
+                    "kernels, on any mesh of z and y) and the "
+                    "exchange-padded kernel is 'auto'")
+            kind = cfg.fuse_kind if cfg.fuse_kind in ("stream",
+                                                      "padfree") else None
             step_fn = stepper_lib.make_sharded_temporal_step(
                 st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,
                 overlap=cfg.overlap, device=device)
@@ -363,12 +367,27 @@ def build(cfg: RunConfig):
                     f"--fuse {cfg.fuse} + --mesh {cfg.mesh}"
                     + (f" --fuse-kind {kind}" if kind else "")
                     + f" unsupported for {st.name} on {cfg.grid}: needs a "
-                    f"fused kernel, an unsharded lane axis, 2*k*halo a "
-                    f"multiple of 8 (f32, 3D), per-shard extents dividing "
-                    f"the grid, and blocks >= the k-step margin")
+                    f"fused kernel, an unsharded lane axis"
+                    + (", guard-frame BCs, rings that fit shared memory"
+                       if kind == "stream" else
+                       ", 2*k*halo a multiple of 8 (f32, 3D)")
+                    + ", per-shard extents dividing the grid, and blocks "
+                    ">= the k-step margin")
         elif st.ndim == 2:
             step_fn = fullgrid_lib.make_fullgrid_step(
                 st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)
+        elif cfg.fuse_kind == "stream":
+            if cfg.periodic:
+                raise ValueError(
+                    "--fuse-kind stream is guard-frame only (the streaming "
+                    "kernel has no periodic wrap path)")
+            step_fn = streamfused.make_stream_fused_step(
+                st, cfg.grid, cfg.fuse, device=device)
+            if step_fn is None:
+                raise ValueError(
+                    f"--fuse {cfg.fuse} --fuse-kind stream unsupported for "
+                    f"{st.name} on {cfg.grid}: needs a 3D fused family and "
+                    f"k-step rings that fit shared memory")
         else:
             step_fn = fused_lib.make_fused_step(
                 st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)

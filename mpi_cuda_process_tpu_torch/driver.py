@@ -115,12 +115,29 @@ def make_step(
     return step
 
 
+def _carry(fields: Fields):
+    """(dtype, shape) of every field: the global shape of a sharded one."""
+    return [(f.dtype, tuple(getattr(f, "global_shape", None) or f.shape))
+            for f in fields]
+
+
 def make_runner(step_fn, n_steps: int):
-    """``fields -> fields`` after ``n_steps`` applications of ``step_fn``."""
+    """``fields -> fields`` after ``n_steps`` applications of ``step_fn``.
+
+    A step whose output fields differ from its input in number, dtype or
+    shape raises, as ``lax.scan`` refuses such a body in the TPU package (a
+    heat step promotes int32 fields to float32); the first step of each run
+    is checked."""
 
     def run(fields: Fields) -> Fields:
-        for _ in range(n_steps):
-            fields = step_fn(fields)
+        for i in range(n_steps):
+            new = step_fn(fields)
+            if i == 0 and _carry(new) != _carry(fields):
+                raise TypeError(
+                    "step function carry input and carry output must have "
+                    f"equal types: the step took {_carry(fields)} and "
+                    f"returned {_carry(new)}")
+            fields = new
         return fields
 
     return run

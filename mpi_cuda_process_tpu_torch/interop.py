@@ -34,11 +34,21 @@ def _ml_bfloat16():
     return ml_dtypes.bfloat16
 
 
+def _is_bfloat16(a: np.ndarray, dtype) -> bool:
+    """An ml_dtypes bfloat16 array, or the ``|V2`` array that ``np.load``
+    returns for one that ``np.save`` wrote, when ``dtype`` says bfloat16."""
+    if a.dtype.name == "bfloat16":
+        return True
+    return (a.dtype.kind == "V" and a.dtype.itemsize == 2
+            and dtype is not None
+            and as_torch_dtype(dtype) == torch.bfloat16)
+
+
 def _to_tensor(a, device, dtype) -> torch.Tensor:
     # a writable copy the tensor owns: never alias the caller's (often
     # read-only) array, even when the tensor stays on the CPU
     a = np.array(a, order="C")
-    if a.dtype.name == "bfloat16":
+    if _is_bfloat16(a, dtype):
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
@@ -48,7 +58,8 @@ def _to_tensor(a, device, dtype) -> torch.Tensor:
 
 
 def fields_from_numpy(fields: Sequence, device="cuda", dtype=None) -> Fields:
-    """numpy arrays -> tensors on ``device`` (cast to ``dtype`` if given)."""
+    """numpy arrays -> tensors on ``device`` (cast to ``dtype`` if given;
+    a ``|V2`` array from a bfloat16 ``npy`` file needs ``dtype`` bfloat16)."""
     return tuple(_to_tensor(a, device, dtype) for a in fields)
 
 
@@ -86,7 +97,8 @@ def gather_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
 
 def shard_from_numpy(fields: Sequence, mesh, dtype=None) -> Fields:
     """Global numpy arrays -> sharded fields over ``mesh``: each block cut
-    on the host and copied to its device."""
+    on the host and copied to its device (``dtype`` as for
+    :func:`fields_from_numpy`)."""
     out = []
     for a in fields:
         a = np.asarray(a)

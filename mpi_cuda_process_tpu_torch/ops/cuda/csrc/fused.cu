@@ -11,25 +11,13 @@
 // micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th and
 // _micro_wave.  On the TPU the kernels differ in how a VMEM window is
 // assembled from aligned BlockSpecs; here one kernel computes its own
-// window from local coordinates, and a window-source policy says where
-// each window cell is read from:
-//
-//   RAW     the whole (Z, Y, X) grid; out-of-domain cells wrap (periodic)
-//           or clamp.  --fuse on one device (auto, tiled and padfree).
-//   PADDED  a shard's z/y-padded block (Z+2m, Y+2m, X) from the width-m
-//           halo exchange; z and y come from the pad, x wraps or clamps.
-//           --fuse under --mesh (the sharded_global mode).
-//   ZSLAB   a z-only shard's core (Z, Y, X) plus the exchanged (m, Y, X)
-//           slabs below and above it as separate operands, so no padded
-//           copy of the block exists; y and x are whole and wrap or clamp
-//           as in RAW.  --fuse --fuse-kind padfree under a z-only --mesh.
-//   YZSLAB  a (z, y) shard's core (Z, Y, X) plus eight exchanged operands:
-//           the two (m, Y, X) z slabs, the two (Z, m, X) y slabs and the four
-//           (m, m, X) corner pieces (two-pass composed: the y exchange of
-//           the z slabs), so no padded copy of the block exists; x wraps or
-//           clamps.  --fuse --fuse-kind padfree under a --mesh that shards
-//           y.  An unsharded z or y axis gets bc-fill or wrap slabs from the
-//           exchange, so one source serves (z, y), y-only and z-only meshes.
+// window from local coordinates, and a window-source policy (window.cuh)
+// says where each window cell is read from: RAW for --fuse on one device
+// (auto, tiled and padfree), PADDED for --fuse under --mesh (the
+// sharded_global mode), ZSLAB for --fuse --fuse-kind padfree under a z-only
+// --mesh and YZSLAB under a --mesh that shards y (the exchanged slabs and,
+// for YZSLAB, the two-pass composed corner pieces as separate operands, so
+// no padded copy of the block exists).
 //
 // Where a window cell is read from is decided once per window cell, in the
 // load; the micro-steps are the same code for every source, so K9 stays
@@ -66,89 +54,11 @@
 // m = 4, so the launch raises the kernel's dynamic shared-memory limit
 // above the 48 KB default first (cudaFuncSetAttribute).
 
-#include "stencil_taps.cuh"
+#include "window.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-
-enum Source { RAW = 0, PADDED = 1, ZSLAB = 2, YZSLAB = 3 };
-
-// Where a launch's operands live and where its core block sits.
-struct Window {
-  const float* in[2];  // RAW, (YZ)ZSLAB: the (Z, Y, X) core; PADDED: the padded block
-  const float* lo[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just below the core
-  const float* hi[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just above the core
-  float* out[2];       // (Z, Y, X)
-  int Z, Y, X;         // core (output) extent
-  int GZ, GY, GX;      // global extent: the frame
-  int oz, oy;          // global index of the core's first z plane / y row
-  int m;               // PADDED: pad width; (YZ)ZSLAB: slab depth
-  const float* ylo[2];  // YZSLAB: the (Z, m, X) y slab just before the core
-  const float* yhi[2];  // YZSLAB: the (Z, m, X) y slab just after the core
-  // YZSLAB: the (m, m, X) corner pieces in (z side, y side) order: ll, lh,
-  // hl, hh
-  const float* corner[4][2];
-};
-
-__device__ __forceinline__ int wrap_or_clamp(int g, int n, int periodic) {
-  if (periodic) return ((g % n) + n) % n;
-  return g < 0 ? 0 : (g >= n ? n - 1 : g);
-}
-
-__device__ __forceinline__ int clampi(int g, int lo, int hi) {
-  return g < lo ? lo : (g > hi ? hi : g);
-}
-
-// Field f at local coordinate (z, y, x) of the core (any value where the
-// source has none: such cells are pinned or never reach the core).
-template <int SRC>
-__device__ __forceinline__ float load(const Window& w, int f, int z, int y,
-                                      int x, int periodic) {
-  if constexpr (SRC == RAW) {
-    z = wrap_or_clamp(z, w.Z, periodic);
-    y = wrap_or_clamp(y, w.Y, periodic);
-    x = wrap_or_clamp(x, w.X, periodic);
-    return w.in[f][(static_cast<long>(z) * w.Y + y) * w.X + x];
-  } else if constexpr (SRC == PADDED) {
-    const int PY = w.Y + 2 * w.m;
-    z = clampi(z + w.m, 0, w.Z + 2 * w.m - 1);
-    y = clampi(y + w.m, 0, PY - 1);
-    x = wrap_or_clamp(x, w.X, periodic);
-    return w.in[f][(static_cast<long>(z) * PY + y) * w.X + x];
-  } else if constexpr (SRC == ZSLAB) {
-    y = wrap_or_clamp(y, w.Y, periodic);
-    x = wrap_or_clamp(x, w.X, periodic);
-    const long plane = static_cast<long>(w.Y) * w.X;
-    const long row = static_cast<long>(y) * w.X + x;
-    if (z < 0) return w.lo[f][clampi(z + w.m, 0, w.m - 1) * plane + row];
-    if (z >= w.Z) return w.hi[f][clampi(z - w.Z, 0, w.m - 1) * plane + row];
-    return w.in[f][z * plane + row];
-  } else {
-    // region along z and along y: 0 below / before the core, 1 in it, 2
-    // above / after it; the piece is the (rz, ry) cell of a 3 x 3 tiling
-    x = wrap_or_clamp(x, w.X, periodic);
-    const int rz = z < 0 ? 0 : (z < w.Z ? 1 : 2);
-    const int ry = y < 0 ? 0 : (y < w.Y ? 1 : 2);
-    if (rz != 1) z = clampi(rz == 0 ? z + w.m : z - w.Z, 0, w.m - 1);
-    if (ry != 1) y = clampi(ry == 0 ? y + w.m : y - w.Y, 0, w.m - 1);
-    const float* p;
-    if (rz == 1) {
-      p = ry == 1 ? w.in[f] : (ry == 0 ? w.ylo[f] : w.yhi[f]);
-    } else if (ry == 1) {
-      p = rz == 0 ? w.lo[f] : w.hi[f];
-    } else {
-      // constant indices only: a runtime index into the kernel's parameter
-      // struct would copy it to local memory
-      const int q = (rz == 2) * 2 + (ry == 2);
-      p = q == 0 ? w.corner[0][f]
-                 : (q == 1 ? w.corner[1][f]
-                           : (q == 2 ? w.corner[2][f] : w.corner[3][f]));
-    }
-    const int rows = ry == 1 ? w.Y : w.m;  // the piece's y extent
-    return p[(static_cast<long>(z) * rows + y) * w.X + x];
-  }
-}
 
 template <int KIND, int SRC>
 __global__ void __launch_bounds__(THREADS)

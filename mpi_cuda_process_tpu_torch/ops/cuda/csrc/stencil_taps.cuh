@@ -1,10 +1,9 @@
-// Per-cell stencil updates shared by the raw-step (rawstep.cu) and the
-// temporal-blocking (fused.cu) kernels.
+// Per-cell stencil updates shared by the raw-step (rawstep.cu), compute_fn
+// (zchunk.cu) and temporal-blocking (fused.cu, streamfused.cu) kernels.
 //
-// Every update reads the cell at `p` and its neighbours at offsets of `sy`
-// (one row) and `sz` (one plane) elements, so the same code serves a global
-// memory grid (sy = X, sz = X*Y) and a shared-memory window (sy = WX,
-// sz = WX*WY).
+// Every update reads the cell and its neighbours through an accessor, so the
+// same code serves a global memory grid (sy = X, sz = X*Y), a shared-memory
+// window (sy = WX, sz = WX*WY) and the streaming kernel's ring of planes.
 //
 // Rounding: all arithmetic goes through __fadd_rn / __fsub_rn / __fmul_rn.
 // nvcc never contracts these intrinsics into fused multiply-adds, so each
@@ -37,25 +36,45 @@ __device__ __forceinline__ float fadd(float x, float y) { return __fadd_rn(x, y)
 __device__ __forceinline__ float fsub(float x, float y) { return __fsub_rn(x, y); }
 __device__ __forceinline__ float fmul(float x, float y) { return __fmul_rn(x, y); }
 
+// Neighbour access for the updates: a(dz, dy, dx) is the value dz planes,
+// dy rows and dx cells away from the updated cell.  Strided reads a block
+// laid out in memory (a global grid, a shared-memory window); the streaming
+// kernel (streamfused.cu) reads planes that sit in a ring.  The sums below
+// are written once over an accessor, so every kernel adds the same taps in
+// the same order.
+struct Strided {
+  const float* p;
+  long sy, sz;
+  __device__ __forceinline__ float operator()(int dz, int dy, int dx) const {
+    return p[dz * sz + dy * sy + dx];
+  }
+};
+
 // 7-point Laplacian: faces summed z-, z+, y-, y+, x-, x+ (left-associated),
 // then minus 6 u — ops/stencil.py::axis_laplacian.
-__device__ __forceinline__ float lap7(const float* p, long sy, long sz) {
-  float acc = p[-sz];
-  acc = fadd(acc, p[sz]);
-  acc = fadd(acc, p[-sy]);
-  acc = fadd(acc, p[sy]);
-  acc = fadd(acc, p[-1]);
-  acc = fadd(acc, p[1]);
-  return fsub(acc, fmul(6.0f, p[0]));
+template <class A>
+__device__ __forceinline__ float lap7(const A& a) {
+  float acc = a(-1, 0, 0);
+  acc = fadd(acc, a(1, 0, 0));
+  acc = fadd(acc, a(0, -1, 0));
+  acc = fadd(acc, a(0, 1, 0));
+  acc = fadd(acc, a(0, 0, -1));
+  acc = fadd(acc, a(0, 0, 1));
+  return fsub(acc, fmul(6.0f, a(0, 0, 0)));
+}
+
+// The neighbour s cells away along axis d (0 = z, 1 = y, 2 = x).
+template <class A>
+__device__ __forceinline__ float along(const A& a, int d, int s) {
+  return d == 0 ? a(s, 0, 0) : (d == 1 ? a(0, s, 0) : a(0, 0, s));
 }
 
 // New value of a single-field heat cell (not frame-pinned).
-template <int KIND>
-__device__ __forceinline__ float heat_update(const float* p, long sy, long sz,
-                                             const Coef& c) {
-  const float u = p[0];
+template <int KIND, class A>
+__device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
+  const float u = a(0, 0, 0);
   if (KIND == HEAT7) {
-    return fadd(u, fmul(c.a, lap7(p, sy, sz)));
+    return fadd(u, fmul(c.a, lap7(a)));
   } else if (KIND == HEAT27) {
     // centre first, then the 26 offsets in (dz, dy, dx) lexicographic
     // order — itertools.product((-1, 0, 1), repeat=3) in ops/heat.py.
@@ -69,21 +88,20 @@ __device__ __forceinline__ float heat_update(const float* p, long sy, long sz,
           const int nz = (dz != 0) + (dy != 0) + (dx != 0);
           if (nz == 0) continue;
           const float w = nz == 1 ? c.c1 : (nz == 2 ? c.c2 : c.c3);
-          acc = fadd(acc, fmul(w, p[dz * sz + dy * sy + dx]));
+          acc = fadd(acc, fmul(w, a(dz, dy, dx)));
         }
       }
     }
     return fadd(u, fmul(c.a, acc));
   } else {  // HEAT13: axes z, y, x; distances 1, 2; sign -, +.
     float acc = fmul(c.c0, u);
-    const long st[3] = {sz, sy, 1};
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
 #pragma unroll
       for (int dist = 1; dist <= 2; ++dist) {
         const float w = dist == 1 ? c.c1 : c.c2;
-        acc = fadd(acc, fmul(w, p[-dist * st[d]]));
-        acc = fadd(acc, fmul(w, p[dist * st[d]]));
+        acc = fadd(acc, fmul(w, along(a, d, -dist)));
+        acc = fadd(acc, fmul(w, along(a, d, dist)));
       }
     }
     return fadd(u, fmul(c.a, acc));
@@ -91,9 +109,23 @@ __device__ __forceinline__ float heat_update(const float* p, long sy, long sz,
 }
 
 // Leapfrog wave update: (2 u - u_prev) + c2dt2 * lap7(u).
+template <class A>
+__device__ __forceinline__ float wave_update(const A& a, float uprev,
+                                             const Coef& c) {
+  return fadd(fsub(fmul(2.0f, a(0, 0, 0)), uprev), fmul(c.a, lap7(a)));
+}
+
+// The same updates on a block in memory: the cell at `p`, rows `sy` and
+// planes `sz` elements apart.
+template <int KIND>
+__device__ __forceinline__ float heat_update(const float* p, long sy, long sz,
+                                             const Coef& c) {
+  return heat_update<KIND>(Strided{p, sy, sz}, c);
+}
+
 __device__ __forceinline__ float wave_update(const float* p, float uprev,
                                              long sy, long sz, const Coef& c) {
-  return fadd(fsub(fmul(2.0f, p[0]), uprev), fmul(c.a, lap7(p, sy, sz)));
+  return wave_update(Strided{p, sy, sz}, uprev, c);
 }
 
 // Guard-frame predicate on GLOBAL coordinates (out-of-domain ghost

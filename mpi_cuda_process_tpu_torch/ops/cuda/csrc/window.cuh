@@ -1,0 +1,110 @@
+// Where a temporal-blocking kernel reads one window cell from: the window
+// sources shared by the overlapped-window kernels (fused.cu: K3, K6, K9) and
+// the streaming kernel (streamfused.cu), so both read a cell the same way.
+//
+//   RAW     the whole (Z, Y, X) grid; out-of-domain cells wrap (periodic)
+//           or clamp.
+//   PADDED  a shard's z/y-padded block (Z+2m, Y+2m, X) from the width-m
+//           halo exchange; z and y come from the pad, x wraps or clamps.
+//   ZSLAB   a z-only shard's core (Z, Y, X) plus the exchanged (m, Y, X)
+//           slabs below and above it as separate operands; y and x are
+//           whole and wrap or clamp as in RAW.
+//   YZSLAB  a (z, y) shard's core (Z, Y, X) plus eight exchanged operands:
+//           the two (m, Y, X) z slabs, the two (Z, m, X) y slabs and the four
+//           (m, m, X) corner pieces; x wraps or clamps.  An unsharded z or y
+//           axis gets bc-fill or wrap slabs from the exchange, so one source
+//           serves (z, y), y-only and z-only meshes.
+//
+// Coordinates are LOCAL to the core: (0, 0, 0) is the core's first cell, and
+// a window reaches m cells past it on z and y (and wraps or clamps on x).
+
+#pragma once
+
+#include "stencil_taps.cuh"
+
+enum Source { RAW = 0, PADDED = 1, ZSLAB = 2, YZSLAB = 3 };
+
+// Where a launch's operands live and where its core block sits.
+struct Window {
+  const float* in[2];  // RAW, (YZ)ZSLAB: the (Z, Y, X) core; PADDED: the padded block
+  const float* lo[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just below the core
+  const float* hi[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just above the core
+  float* out[2];       // (Z, Y, X)
+  int Z, Y, X;         // core (output) extent
+  int GZ, GY, GX;      // global extent: the frame
+  int oz, oy;          // global index of the core's first z plane / y row
+  int m;               // PADDED: pad width; (YZ)ZSLAB: slab depth
+  const float* ylo[2];  // YZSLAB: the (Z, m, X) y slab just before the core
+  const float* yhi[2];  // YZSLAB: the (Z, m, X) y slab just after the core
+  // YZSLAB: the (m, m, X) corner pieces in (z side, y side) order: ll, lh,
+  // hl, hh
+  const float* corner[4][2];
+};
+
+__device__ __forceinline__ int wrap_or_clamp(int g, int n, int periodic) {
+  if (periodic) return ((g % n) + n) % n;
+  return g < 0 ? 0 : (g >= n ? n - 1 : g);
+}
+
+__device__ __forceinline__ int clampi(int g, int lo, int hi) {
+  return g < lo ? lo : (g > hi ? hi : g);
+}
+
+// Address of field f at local coordinate (z, y, x) of the core (a cell of
+// some operand where the source has none: such cells are pinned or never
+// reach the core).
+template <int SRC>
+__device__ __forceinline__ const float* cell_ptr(const Window& w, int f,
+                                                 int z, int y, int x,
+                                                 int periodic) {
+  if constexpr (SRC == RAW) {
+    z = wrap_or_clamp(z, w.Z, periodic);
+    y = wrap_or_clamp(y, w.Y, periodic);
+    x = wrap_or_clamp(x, w.X, periodic);
+    return w.in[f] + (static_cast<long>(z) * w.Y + y) * w.X + x;
+  } else if constexpr (SRC == PADDED) {
+    const int PY = w.Y + 2 * w.m;
+    z = clampi(z + w.m, 0, w.Z + 2 * w.m - 1);
+    y = clampi(y + w.m, 0, PY - 1);
+    x = wrap_or_clamp(x, w.X, periodic);
+    return w.in[f] + (static_cast<long>(z) * PY + y) * w.X + x;
+  } else if constexpr (SRC == ZSLAB) {
+    y = wrap_or_clamp(y, w.Y, periodic);
+    x = wrap_or_clamp(x, w.X, periodic);
+    const long plane = static_cast<long>(w.Y) * w.X;
+    const long row = static_cast<long>(y) * w.X + x;
+    if (z < 0) return w.lo[f] + clampi(z + w.m, 0, w.m - 1) * plane + row;
+    if (z >= w.Z) return w.hi[f] + clampi(z - w.Z, 0, w.m - 1) * plane + row;
+    return w.in[f] + z * plane + row;
+  } else {
+    // region along z and along y: 0 below / before the core, 1 in it, 2
+    // above / after it; the piece is the (rz, ry) cell of a 3 x 3 tiling
+    x = wrap_or_clamp(x, w.X, periodic);
+    const int rz = z < 0 ? 0 : (z < w.Z ? 1 : 2);
+    const int ry = y < 0 ? 0 : (y < w.Y ? 1 : 2);
+    if (rz != 1) z = clampi(rz == 0 ? z + w.m : z - w.Z, 0, w.m - 1);
+    if (ry != 1) y = clampi(ry == 0 ? y + w.m : y - w.Y, 0, w.m - 1);
+    const float* p;
+    if (rz == 1) {
+      p = ry == 1 ? w.in[f] : (ry == 0 ? w.ylo[f] : w.yhi[f]);
+    } else if (ry == 1) {
+      p = rz == 0 ? w.lo[f] : w.hi[f];
+    } else {
+      // constant indices only: a runtime index into the kernel's parameter
+      // struct would copy it to local memory
+      const int q = (rz == 2) * 2 + (ry == 2);
+      p = q == 0 ? w.corner[0][f]
+                 : (q == 1 ? w.corner[1][f]
+                           : (q == 2 ? w.corner[2][f] : w.corner[3][f]));
+    }
+    const int rows = ry == 1 ? w.Y : w.m;  // the piece's y extent
+    return p + (static_cast<long>(z) * rows + y) * w.X + x;
+  }
+}
+
+// Field f at local coordinate (z, y, x) of the core.
+template <int SRC>
+__device__ __forceinline__ float load(const Window& w, int f, int z, int y,
+                                      int x, int periodic) {
+  return *cell_ptr<SRC>(w, f, z, y, x, periodic);
+}

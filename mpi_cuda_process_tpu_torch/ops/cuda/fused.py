@@ -124,14 +124,20 @@ def _pointers(tensors, two):
     return (tensors[0].data_ptr(), tensors[1].data_ptr() if two else None)
 
 
+def plain_steps(fields: Fields, stencil: Stencil, k: int,
+                periodic: bool = False) -> Fields:
+    """The plain version of K3: k applications of ``driver.make_step``."""
+    step = make_step(stencil, fields[0].shape, periodic=periodic)
+    for _ in range(k):
+        fields = step(fields)
+    return fields
+
+
 def fused_step(fields: Fields, stencil: Stencil, k: int,
                periodic: bool = False) -> Fields:
     """``k`` steps of ``stencil`` on ``fields`` in one launch."""
     if not fields[0].is_cuda:
-        step = make_step(stencil, fields[0].shape, periodic=periodic)
-        for _ in range(k):
-            fields = step(fields)
-        return fields
+        return plain_steps(fields, stencil, k, periodic)
     kind, _halo = _FUSED[stencil.name]
     if not fits(stencil, k):
         raise ValueError(f"fused_step: {stencil.name} k={k} window exceeds "
@@ -255,6 +261,21 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
     return outs
 
 
+def plain_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
+                k: int, global_z: int, origin_z: int,
+                periodic: bool = False) -> Fields:
+    """The plain version of K6: k plain steps of each field's (Lz+2m, Y, X)
+    window, the core between its two slabs, cropped to the core
+    (arguments as :func:`fused_zslab`)."""
+    m = k * stencil.halo
+    Lz, Y, X = (int(s) for s in core[0].shape)
+    window = tuple(torch.cat([lo, c, hi], dim=0)
+                   for c, lo, hi in zip(core, zlo, zhi))
+    out = _plain_window_steps(window, stencil, k, (origin_z - m, 0, 0),
+                              (global_z, Y, X), periodic, wrap_axes=(1, 2))
+    return tuple(f[m:m + Lz].contiguous() for f in out)
+
+
 def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
                 k: int, global_z: int, origin_z: int,
                 periodic: bool = False) -> Fields:
@@ -265,12 +286,8 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     m = k * stencil.halo
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
-        window = tuple(torch.cat([lo, c, hi], dim=0)
-                       for c, lo, hi in zip(core, zlo, zhi))
-        out = _plain_window_steps(window, stencil, k, (origin_z - m, 0, 0),
-                                  (global_z, Y, X), periodic,
-                                  wrap_axes=(1, 2))
-        return tuple(f[m:m + Lz].contiguous() for f in out)
+        return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z,
+                           periodic)
     kind, _halo = _FUSED[stencil.name]
     if not fits(stencil, k):
         raise ValueError(f"fused_zslab: {stencil.name} k={k} window exceeds "

@@ -1,0 +1,314 @@
+"""The streaming k-step kernel, K10 (TPU table rows 16-18).
+
+``stream_step`` (``csrc/streamfused.cu::stream_step<KIND, RAW>``) advances
+heat3d, heat3d27, heat3d4th or wave3d by k guard-frame steps in one launch
+over the whole grid.  Each block marches a (TY, TX) column of the grid down
+z as a wavefront in time, so every plane of its window is read from device
+memory once per pass (K3 re-reads the z margin of every window).
+``stream_zslab`` (``<KIND, ZSLAB>``) does the same for a z-only shard from
+its core and its two exchanged z slabs; ``stream_yzslab``
+(``<KIND, YZSLAB>``) for a shard of a mesh that shards y, from the core,
+the z and y slabs and the four corner pieces of
+``halo.exchange_slabs_2axis`` at their natural widths.
+
+Replaces the TPU package's ``ops/pallas/streamfused.py``:
+``make_stream_fused_step`` (``_stream_kernel``),
+``build_stream_sharded_call`` (``_stream_sharded_kernel``) and
+``build_stream_2axis_call`` (``_stream_2axis_kernel``), all three
+``_stream_body``.  The builders keep the JAX names and the gates that are
+not TPU rules: guard-frame only (``periodic`` gives None), the 3D fused
+families, local z (and y) extents at least the margin m = k * halo.  The
+TPU's strip rules are dropped: the sublane-rounded margin ``wm_a`` and the
+y-operand padding (``_align``), ``_pick_strip``, ``_BZ_LADDER``,
+``_XSHELL``, ``_strip_live_bytes`` and ``Lz // bz >= 3``; the kernel masks
+ragged columns and runs any k whose rings fit shared memory.  The policy
+knobs ``tiles``, ``margin`` and ``order`` raise (ROADMAP A8), as does
+``batch`` (A7).  Bound on an H100: device-memory bytes, as for K3.
+
+Plain PyTorch versions: those of K3, K6 and K9 (``fused.py``), the same
+function — k plain steps of the window.  A wrapper takes its plain version
+only for tensors on the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections import Counter
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+from ..stencil import Fields, Stencil
+from . import _build
+from .fused import (_FUSED, SMEM_LIMIT, _pointers, plain_steps, plain_yzslab,
+                    plain_zslab)
+from .rawstep import coefficients
+
+# Launches per wrapper and stencil, keyed "stream_step[heat3d]",
+# "stream_zslab[heat3d]" or "stream_yzslab[heat3d]": one added where the
+# kernel launches, nowhere else.  ``launches.clear()`` resets.
+launches: Counter = Counter()
+
+# The (TY, TX) core column of one block.  64 x-cells are two warps' rows of
+# consecutive addresses; at k * halo = 4 the column re-reads
+# (1 + 8/16)(1 + 8/64) = 1.69x its cells and two blocks share an SM.
+TILE = (16, 64)
+
+_POLICY_ITEM = "ROADMAP A8 (policy)"
+_ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
+
+_c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+
+
+def stream_supported(stencil: Stencil) -> bool:
+    return stencil.name in _FUSED and stencil.ndim == 3
+
+
+def smem_bytes(stencil: Stencil, k: int) -> int:
+    """Shared memory of one block at column ``TILE`` (``Layout`` in
+    csrc/streamfused.cu): per level s = 0..k-1 a ring of its
+    (TY + 2(k-s)h, TX + 2(k-s)h) region, 2h + 1 planes (2h + 2 at level 0);
+    wave adds a level-0 ring of u_prev."""
+    ty, tx = TILE
+    h = _FUSED[stencil.name][1]
+    planes = [(ty + 2 * (k - s) * h) * (tx + 2 * (k - s) * h)
+              for s in range(k)]
+    floats = sum((2 * h + 2 if s == 0 else 2 * h + 1) * n
+                 for s, n in enumerate(planes))
+    if stencil.num_fields == 2:
+        floats += (2 * h + 2) * planes[0]
+    return 4 * floats
+
+
+def fits(stencil: Stencil, k: int) -> bool:
+    """Whether (stencil, k) has a kernel whose rings fit one block."""
+    return (stream_supported(stencil) and k >= 1
+            and smem_bytes(stencil, k) <= SMEM_LIMIT)
+
+
+def _lib():
+    lib = _build.load("streamfused")
+    if lib.stream_step_f32.argtypes is None:
+        tail = [_c_float] * 5 + [_c_int] * 2 + [_c_ptr]
+        lib.stream_step_f32.argtypes = (
+            [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + tail)
+        lib.stream_zslab_f32.argtypes = (
+            [_c_int] + [_c_ptr] * 8 + [_c_int] * 6 + tail)
+        lib.stream_yzslab_f32.argtypes = (
+            [_c_int] + [_c_ptr] * 20 + [_c_int] * 9 + tail)
+    return lib
+
+
+def _gate(what: str, stencil: Stencil, k: int) -> int:
+    """The kernel kind of ``stencil``; raises where no kernel fits."""
+    if not fits(stencil, k):
+        raise ValueError(f"{what}: {stencil.name} k={k} has no streaming "
+                         f"kernel within {SMEM_LIMIT} bytes of shared memory")
+    return _FUSED[stencil.name][0]
+
+
+def stream_step(fields: Fields, stencil: Stencil, k: int) -> Fields:
+    """``k`` guard-frame steps of ``stencil`` on the whole grid in one
+    launch."""
+    if not fields[0].is_cuda:
+        return plain_steps(fields, stencil, k)
+    kind = _gate("stream_step", stencil, k)
+    _build.check_operands("stream_step", *fields,
+                          shape=tuple(fields[0].shape))
+    outs = tuple(torch.empty_like(f) for f in fields)
+    two = len(fields) == 2
+    lib = _lib()
+    Z, Y, X = fields[0].shape
+    rc = lib.stream_step_f32(
+        kind, *_pointers(fields, two), *_pointers(outs, two), Z, Y, X, k,
+        *coefficients(stencil), *TILE, _build.stream_of(fields[0]))
+    _build.check(lib, rc, "stream_step")
+    launches[f"stream_step[{stencil.name}]"] += 1
+    return outs
+
+
+def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
+                 k: int, global_z: int, origin_z: int) -> Fields:
+    """``k`` guard-frame steps of one z-only shard from its (Lz, Y, X)
+    core and the exchanged (m, Y, X) z slabs below (``zlo``) and above
+    (``zhi``) it, per field; ``origin_z`` is the core's first global z
+    plane of ``global_z``.  Returns the core fields, k steps on."""
+    m = k * stencil.halo
+    Lz, Y, X = (int(s) for s in core[0].shape)
+    if not core[0].is_cuda:
+        return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z)
+    kind = _gate("stream_zslab", stencil, k)
+    _build.check_operands("stream_zslab", *core, shape=(Lz, Y, X))
+    _build.check_operands("stream_zslab", core[0], *zlo, *zhi)
+    _build.check_operands("stream_zslab", *zlo, *zhi, shape=(m, Y, X))
+    outs = tuple(torch.empty_like(c) for c in core)
+    two = len(core) == 2
+    lib = _lib()
+    rc = lib.stream_zslab_f32(
+        kind, *_pointers(core, two), *_pointers(zlo, two),
+        *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
+        int(global_z), int(origin_z), k, *coefficients(stencil), *TILE,
+        _build.stream_of(core[0]))
+    _build.check(lib, rc, "stream_zslab")
+    launches[f"stream_zslab[{stencil.name}]"] += 1
+    return outs
+
+
+def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
+                  yhi: Fields, corners: Sequence[Fields], stencil: Stencil,
+                  k: int, global_shape: Sequence[int],
+                  origins: Sequence[int]) -> Fields:
+    """``k`` guard-frame steps of one shard of a mesh that shards y, from
+    the operands of ``fused.fused_yzslab`` (the core, two z slabs, two y
+    slabs and the corners ll, lh, hl, hh, per field).  Returns the
+    (Lz, Ly, X) core of every field, k steps on."""
+    m = k * stencil.halo
+    Lz, Ly, X = (int(s) for s in core[0].shape)
+    if not core[0].is_cuda:
+        return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
+                            global_shape, origins)
+    kind = _gate("stream_yzslab", stencil, k)
+    _build.check_operands("stream_yzslab", *core, shape=(Lz, Ly, X))
+    for pieces, shape in ((zlo, (m, Ly, X)), (zhi, (m, Ly, X)),
+                          (ylo, (Lz, m, X)), (yhi, (Lz, m, X)),
+                          *((c, (m, m, X)) for c in corners)):
+        _build.check_operands("stream_yzslab", core[0], *pieces, shape=None)
+        _build.check_operands("stream_yzslab", *pieces, shape=shape)
+    outs = tuple(torch.empty_like(c) for c in core)
+    two = len(core) == 2
+    lib = _lib()
+    GZ, GY, GX = (int(g) for g in global_shape)
+    oz, oy = (int(o) for o in origins)
+    rc = lib.stream_yzslab_f32(
+        kind, *_pointers(core, two), *_pointers(zlo, two),
+        *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
+        *(p for c in corners for p in _pointers(c, two)),
+        *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
+        *coefficients(stencil), *TILE, _build.stream_of(core[0]))
+    _build.check(lib, rc, "stream_yzslab")
+    launches[f"stream_yzslab[{stencil.name}]"] += 1
+    return outs
+
+
+def _refuse_policy(tiles, margin, order, batch=0) -> None:
+    if tiles is not None or margin or order:
+        raise NotImplementedError(
+            "streaming-kernel tiles/margin/order are not ported: "
+            f"{_POLICY_ITEM}")
+    if batch:
+        raise NotImplementedError(
+            f"a batched (ensemble) streaming step is not ported: "
+            f"{_ENSEMBLE_ITEM}")
+
+
+def _prepare(device) -> None:
+    """Build the kernels before the time loop when the run is on a card."""
+    if device is not None and torch.device(device).type == "cuda":
+        _lib()
+
+
+def make_stream_fused_step(
+    stencil: Stencil,
+    global_shape: Sequence[int],
+    k: int,
+    tiles=None,
+    batch: int = 0,
+    margin: int = 0,
+    order: str = "",
+    device=None,
+) -> Optional[Callable[[Fields], Fields]]:
+    """``fields -> fields`` advancing ``k`` guard-frame steps in one
+    streaming pass (row 16), or None: not a 3D fused family, or rings too
+    large for shared memory (at the (16, 64) column: heat3d and heat3d27
+    k >= 10, wave3d k >= 9, heat3d4th k >= 6).  Semantically ``k``
+    applications of ``driver.make_step``; any k >= 1 and any grid extent."""
+    _refuse_policy(tiles, margin, order, batch)
+    if len(global_shape) != 3 or not fits(stencil, k):
+        return None
+    _prepare(device)
+
+    def step_k(fields: Fields) -> Fields:
+        return stream_step(fields, stencil, k)
+
+    return step_k
+
+
+def build_stream_sharded_call(
+    stencil: Stencil,
+    local_shape: Tuple[int, int, int],
+    global_shape: Tuple[int, int, int],
+    k: int,
+    tiles=None,
+    periodic: bool = False,
+    margin: int = 0,
+    order: str = "",
+    device=None,
+):
+    """The streaming kernel over a z-only shard (row 17):
+    ``(call, margin, nfields)`` or None.
+
+    The call takes the shard's global z origin, then per field the
+    (Lz, Y, X) core, the lower and the upper (m, Y, X) slab (K6's
+    operands), and returns the core fields advanced k steps.  None for
+    ``periodic`` (guard-frame only), a stencil or k without a kernel, or a
+    local z extent below m (a width-m slab must come from one neighbour).
+    """
+    _refuse_policy(tiles, margin, order)
+    if periodic or not fits(stencil, k):
+        return None
+    m = k * stencil.halo
+    if int(local_shape[0]) < m:
+        return None
+    gz = int(global_shape[0])
+    nf = stencil.num_fields
+    _prepare(device)
+
+    def call(origin_z, *args):
+        if len(args) != 3 * nf:
+            raise ValueError(f"stream_zslab call: {3 * nf} operands (3 per "
+                             f"field), got {len(args)}")
+        return stream_zslab(args[0::3], args[1::3], args[2::3], stencil, k,
+                            gz, origin_z)
+
+    return call, m, nf
+
+
+def build_stream_2axis_call(
+    stencil: Stencil,
+    local_shape: Tuple[int, int, int],
+    global_shape: Tuple[int, int, int],
+    k: int,
+    tiles=None,
+    periodic: bool = False,
+    margin: int = 0,
+    order: str = "",
+    device=None,
+):
+    """The streaming kernel over a shard of a mesh that shards y (row 18):
+    ``(call, margin, nfields)`` or None.
+
+    The call takes the shard's global ``(oz, oy)`` origin, then per field
+    the operand set of ``halo.exchange_slabs_2axis`` at its natural widths
+    (as ``fused.build_yzslab_padfree_call``'s): the (Lz, Ly, X) core, two
+    (m, Ly, X) z slabs, two (Lz, m, X) y slabs and the four (m, m, X)
+    corners ll, lh, hl, hh; no padding of the y operands.  None as for
+    :func:`build_stream_sharded_call`, with a local z or y extent below m.
+    """
+    _refuse_policy(tiles, margin, order)
+    if periodic or not fits(stencil, k):
+        return None
+    m = k * stencil.halo
+    if min(int(local_shape[0]), int(local_shape[1])) < m:
+        return None
+    gshape = tuple(int(g) for g in global_shape)
+    nf = stencil.num_fields
+    _prepare(device)
+
+    def call(origins, *args):
+        if len(args) != 9 * nf:
+            raise ValueError(f"stream_yzslab call: {9 * nf} operands (9 per "
+                             f"field), got {len(args)}")
+        per = [args[i::9] for i in range(9)]
+        return stream_yzslab(*per[:5], per[5:], stencil, k, gshape, origins)
+
+    return call, m, nf

@@ -18,10 +18,11 @@ run on a side stream while the bulk update runs on the current one.
 
 ``make_sharded_fused_step`` is k steps per exchange with the temporal-
 blocking kernels: the padded kind (width-m exchange on z and y, then K3 in
-its sharded mode) and the pad-free kinds, the z-slab kind on z-only meshes
-(K6) and the 2-axis kind on meshes that shard y (K9); with ``overlap=True``
-each kind runs its interior beside the exchange and then the boundary
-shells (K3's sharded mode over 2m-deep cores).
+its sharded mode) and the slab-operand kinds, on z-only meshes the z slabs
+into K6 (pad-free) or the streaming kernel K10, on meshes that shard y the
+2-axis slab set into K9 or K10; with ``overlap=True`` each kind runs its
+interior beside the exchange and then the boundary shells (K3's sharded
+mode over 2m-deep cores).
 ``make_sharded_fullgrid_step`` is its 2D counterpart: a row split, a
 width-m row exchange, then K8 in its sharded mode, with an overlapped
 variant; ``make_sharded_temporal_step`` picks between the two.
@@ -41,7 +42,6 @@ from .halo import (exchange_and_pad, exchange_slabs_2axis,
                    pad_local)
 from .mesh import ENSEMBLE_ITEM, Mesh
 
-_STREAM_ITEM = "ROADMAP B5 (the streaming kernels)"
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
 _RDMA_ITEM = "ROADMAP B7 (the remote-DMA exchange, >= 2 GPUs)"
 
@@ -357,7 +357,7 @@ def make_sharded_fused_step(
     """Temporal blocking under decomposition: k steps per exchange.
 
     One call is a width ``m = k * halo`` halo exchange, then one kernel
-    launch per shard.  Three kinds:
+    launch per shard.  The kinds:
 
     * padded (``kind=None``, the TPU package's ``auto`` below its HBM
       threshold): the exchange pads z and y of every shard's block by m
@@ -369,34 +369,35 @@ def make_sharded_fused_step(
       copy of the block exists;
     * ``kind="padfree"`` on a mesh that shards y: the z and y slabs and the
       four corner pieces (``halo.exchange_slabs_2axis``) go to K9 with the
-      core (:func:`_make_yzslab_padfree_step`).
+      core (:func:`_make_yzslab_padfree_step`);
+    * ``kind="stream"``: the same operands into the streaming kernel K10
+      instead (``streamfused.build_stream_sharded_call`` on a z-only mesh,
+      ``build_stream_2axis_call`` on a mesh that shards y), guard-frame
+      only, as the TPU package routes it (``stepper.py:585-605``).
 
     Every field is exchanged at width m (temporal blocking consumes margin
     for all fields, wave's ``u_prev`` included).  Returns None where the
     TPU builder declines for a structural reason: no fused kernel, the lane
     axis x sharded, a grid not divisible by the mesh, ``2 * k * halo`` off
-    the alignment unit, or a local z/y extent below m.  A forced
-    ``kind="padfree"`` that its kernel declines gives None, never the
-    padded kind.  The TPU package's ``auto`` switch to pad-free above a v5e
-    HBM threshold does not carry over: ``kind=None`` always takes the
-    padded kind.
+    the alignment unit (not for ``stream``), a local z/y extent below m,
+    or ``periodic`` with ``stream``.  A forced ``kind`` that its kernel
+    declines gives None, never the padded kind.  The TPU package's
+    ``auto`` switch to pad-free above a v5e HBM threshold does not carry
+    over: ``kind=None`` always takes the padded kind.
 
     ``overlap=True`` splits every kind as the TPU package does
     (:func:`_fused_step_driver`); with a local extent below 3m on a sharded
     axis the step is the non-split one (``step._overlap_active`` says
     which).
 
-    Not ported yet, and raising by name: ``kind="stream"``,
-    ``pipeline=True``, ``exchange="rdma"`` and the ensemble axis.
+    Not ported yet, and raising by name: ``pipeline=True``,
+    ``exchange="rdma"`` and the ensemble axis.
     """
-    from ..ops.cuda.fused import fused_supported
+    from ..ops.cuda import fused, streamfused
 
     if kind not in (None, "stream", "padfree"):
         raise ValueError(f"unknown sharded fused kind {kind!r} "
                          "(None=auto, 'stream', 'padfree')")
-    if kind == "stream":
-        raise NotImplementedError(
-            f"--fuse-kind stream needs the streaming kernels: {_STREAM_ITEM}")
     if exchange not in (None, "ppermute"):
         raise NotImplementedError(
             f"exchange={exchange!r} is not ported: {_RDMA_ITEM}")
@@ -406,7 +407,7 @@ def make_sharded_fused_step(
         raise NotImplementedError(
             f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
     ndim = stencil.ndim
-    if ndim != 3 or not fused_supported(stencil):
+    if ndim != 3 or not fused.fused_supported(stencil):
         return None
     _, counts = _resolve_mesh_axes(ndim, mesh)
     if counts[2] > 1:
@@ -415,12 +416,22 @@ def make_sharded_fused_step(
     if any(g % c for g, c in zip(global_shape, counts)):
         return None
     local_shape = _local_shape(global_shape, counts)
-    make = _make_padded_step
-    if kind == "padfree":
-        make = (_make_yzslab_padfree_step if counts[1] > 1
-                else _make_zslab_padfree_step)
-    return make(stencil, mesh, global_shape, local_shape, counts, k,
-                periodic, overlap, device)
+    args = (stencil, mesh, global_shape, local_shape, counts, k, periodic,
+            overlap, device)
+    if kind is None:
+        return _make_padded_step(*args)
+    stream = kind == "stream"
+    if counts[1] > 1:
+        if stream:
+            return _make_yzslab_padfree_step(
+                *args, streamfused.build_stream_2axis_call, "stream_yz")
+        return _make_yzslab_padfree_step(
+            *args, fused.build_yzslab_padfree_call, "yzslab")
+    if stream:
+        return _make_zslab_padfree_step(
+            *args, streamfused.build_stream_sharded_call, "stream_z")
+    return _make_zslab_padfree_step(*args, fused.build_zslab_padfree_call,
+                                    "zslab")
 
 
 def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
@@ -449,12 +460,12 @@ def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
 
 
 def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
-                             counts, k, periodic, overlap, device):
-    """The z-slab kind (z-only meshes): core and z slabs into K6."""
-    from ..ops.cuda.fused import build_zslab_padfree_call
-
-    built = build_zslab_padfree_call(stencil, local_shape, global_shape, k,
-                                     periodic=periodic, device=device)
+                             counts, k, periodic, overlap, device, build,
+                             kind_name):
+    """The z-slab kinds (z-only meshes): core and z slabs into the kernel
+    that ``build`` makes (K6 or K10), labelled ``kind_name``."""
+    built = build(stencil, local_shape, global_shape, k, periodic=periodic,
+                  device=device)
     if built is None:
         return None
     call, m, _ = built
@@ -472,22 +483,22 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
                               exchange, launch)
-    step._padfree_kind = "zslab"
+    step._padfree_kind = kind_name
     return step
 
 
 def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
-                              counts, k, periodic, overlap, device):
-    """The 2-axis pad-free kind (meshes that shard y): the core, z and y
-    slabs and the four two-pass corner pieces into K9, so no padded copy of
-    a block exists on a (z, y) mesh either.  An unsharded z gets the local
-    bc-fill or wrap slabs from the same exchange.  The TPU package's 2m
-    duplication of the y operands (``_dup_y``, sublane alignment) does not
-    apply: K9 reads m-wide pieces."""
-    from ..ops.cuda.fused import build_yzslab_padfree_call
-
-    built = build_yzslab_padfree_call(stencil, local_shape, global_shape, k,
-                                      periodic=periodic, device=device)
+                              counts, k, periodic, overlap, device, build,
+                              kind_name):
+    """The 2-axis slab-operand kinds (meshes that shard y): the core, z and
+    y slabs and the four two-pass corner pieces into the kernel that
+    ``build`` makes (K9 or K10), labelled ``kind_name``, so no padded copy
+    of a block exists on a (z, y) mesh either.  An unsharded z gets the
+    local bc-fill or wrap slabs from the same exchange.  The TPU package's
+    widening of the y operands (``_dup_y``, ``_align``: sublane alignment)
+    does not apply: the kernels read m-wide pieces."""
+    built = build(stencil, local_shape, global_shape, k, periodic=periodic,
+                  device=device)
     if built is None:
         return None
     call, m, _ = built
@@ -505,7 +516,7 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
                               exchange, launch)
-    step._padfree_kind = "yzslab"
+    step._padfree_kind = kind_name
     return step
 
 

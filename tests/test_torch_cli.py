@@ -205,7 +205,12 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
       "bfloat16"], NotImplementedError, "B2"),
     (["--grid", "16,20", "--fuse", "4", "--dtype", "bfloat16"],
      NotImplementedError, "B6"),
-    (["--fuse", "4", "--fuse-kind", "stream"], NotImplementedError, "B5"),
+    # This id keeps its name from the refusal it pinned before --fuse-kind
+    # stream ran (tests/test_torch_stream.py); it pins one beside it that
+    # still holds.
+    pytest.param(["--fuse", "4", "--fuse-kind", "stream", "--dtype",
+                  "bfloat16"], NotImplementedError, "B1/B3",
+                 id="extra3-NotImplementedError-B5"),
     (["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError, "B1/B3"),
     (["--compute", "pallas", "--dtype", "bfloat16"], NotImplementedError,
      "B1/B3"),
@@ -304,20 +309,23 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
 
 @pytest.mark.parametrize("extra,exc,match", [
     (["--overlap"], ValueError, "needs --mesh"),
-    # The next two ids keep their names from the refusals they pinned
-    # before --fuse --overlap (B4 row 7) and --fuse-kind padfree on a
-    # y-sharded mesh (row 9) ran; they run in tests/test_torch_twoaxis.py
+    # The ids extra1, extra2 and extra4 keep their names from the refusals
+    # they pinned before --fuse --overlap (B4 row 7), --fuse-kind padfree
+    # on a y-sharded mesh (row 9) and --fuse-kind stream (B5) ran; those
+    # run in tests/test_torch_twoaxis.py and tests/test_torch_stream.py
     # now, and these cases pin refusals beside them that still hold.
     pytest.param(["--mesh", "2,2", "--fuse", "4", "--overlap",
-                  "--fuse-kind", "stream"], NotImplementedError, "B5",
+                  "--fuse-kind", "stream", "--dtype", "bfloat16"],
+                 NotImplementedError, "B1/B3",
                  id="extra1-NotImplementedError-B4"),
     pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
                   "--dtype", "bfloat16"], NotImplementedError, "B1/B3",
                  id="extra2-NotImplementedError-row 9"),
     (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "tiled"], ValueError,
      "--fuse-kind"),
-    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream"],
-     NotImplementedError, "B5"),
+    pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+                  "--periodic"], ValueError, "unsupported",
+                 id="extra4-NotImplementedError-B5"),
     (["--mesh", "2,2", "--fuse", "3"], ValueError, "unsupported"),
     (["--mesh", "1,1,2", "--fuse", "4"], ValueError, "unsupported"),
     (["--mesh", "3"], ValueError, "not divisible"),

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K10) against their plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -10,9 +10,9 @@ package, so it runs where only PyTorch is installed::
 Tolerances as in tests/test_torch_kernels.py: ``32 * eps * max(|ref|, 1)``
 for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
 ``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
-K8) bit-equal.  The sharded kernels (K3's sharded mode and its overlap
-shells, K6, K9, K8's sharded mode) run on meshes of virtual shards on one
-card.
+K8) and the streaming kernel (K10, against its plain version) bit-equal.
+The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
+K10, K8's sharded mode) run on meshes of virtual shards on one card.
 """
 
 import numpy as np
@@ -22,7 +22,7 @@ import torch
 import mpi_cuda_process_tpu_torch as port
 from mpi_cuda_process_tpu_torch import driver
 from mpi_cuda_process_tpu_torch.ops.cuda import (fullgrid, fused, kernels,
-                                                 rawstep)
+                                                 rawstep, streamfused)
 from mpi_cuda_process_tpu_torch.parallel import (gather_fields, make_mesh,
                                                  make_sharded_fused_step,
                                                  make_sharded_step,
@@ -291,6 +291,111 @@ def test_overlap_shell_kernel_matches_plain(dev, name, k):
         torch.cuda.synchronize()
         assert fused.launches[f"fused_shell[{name}]"] == 1
         _check(got, ref, None, 1e-4)
+
+
+STREAM_FAMILIES = [("heat3d", 1), ("heat3d", 2), ("heat3d", 4),
+                   ("heat3d27", 4), ("heat3d4th", 1), ("heat3d4th", 2),
+                   ("wave3d", 1), ("wave3d", 4)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(68, 76, 130)])
+@pytest.mark.parametrize("name,k", STREAM_FAMILIES)
+def test_stream_kernel_matches_plain(dev, name, k, shape):
+    """K10 over the whole grid (row 16) == k plain steps, bit for bit."""
+    st = port.make_stencil(name)
+    fields = _fields(st, shape, dev, 3)
+    ref = fused.plain_steps(fields, st, k)
+    streamfused.launches.clear()
+    got = streamfused.make_stream_fused_step(st, shape, k, device=dev)(fields)
+    torch.cuda.synchronize()
+    assert dict(streamfused.launches) == {f"stream_step[{name}]": 1}
+    _check(got, ref, st.halo, 0.0)
+    with pytest.raises(TypeError, match="float32"):
+        streamfused.stream_step(tuple(f.to(torch.bfloat16) for f in fields),
+                                st, k)
+
+
+@pytest.mark.parametrize("local,origins", [((24, 32, 40), (0, 0)),
+                                           ((19, 21, 45), (19, 21)),
+                                           ((19, 21, 45), (38, 42))])
+@pytest.mark.parametrize("name,k", STREAM_FAMILIES)
+def test_stream_slab_kernels_match_plain(dev, name, k, local, origins):
+    """K10 over a z-only shard (row 17) and over a shard of a mesh that
+    shards y (row 18), on a core and random slabs and corners, at a low
+    wall, an interior and a high wall shard of a 3x3 grid of shards ==
+    their plain versions (plain_zslab, plain_yzslab), bit for bit."""
+    st = port.make_stencil(name)
+    m = k * st.halo
+    Lz, Ly, X = local
+    gshape = (3 * Lz, 3 * Ly, X)
+    nf = st.num_fields
+    seed = iter(range(300, 400))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed)) for _ in range(nf))
+
+    core = per_field(local)
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    streamfused.launches.clear()
+    zcall, zm, _ = streamfused.build_stream_sharded_call(
+        st, local, (gshape[0], Ly, X), k, device=dev)
+    args = [t for fs in zip(core, zlo, zhi) for t in fs]
+    got = zcall(origins[0], *args)
+    ref = fused.plain_zslab(core, zlo, zhi, st, k, gshape[0], origins[0])
+    torch.cuda.synchronize()
+    assert zm == m
+    _check(got, ref, None, 0.0)
+    yzcall, _, _ = streamfused.build_stream_2axis_call(st, local, gshape, k,
+                                                       device=dev)
+    args = [t for fs in zip(core, zlo, zhi, ylo, yhi, *corners) for t in fs]
+    got = yzcall(origins, *args)
+    ref = fused.plain_yzslab(core, zlo, zhi, ylo, yhi, corners, st, k,
+                             gshape, origins)
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    assert dict(streamfused.launches) == {f"stream_zslab[{name}]": 1,
+                                          f"stream_yzslab[{name}]": 1}
+
+
+@pytest.mark.parametrize("name,k", [("heat3d", 4), ("heat3d27", 4),
+                                    ("heat3d4th", 2), ("wave3d", 4)])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (4,)])
+def test_stream_sharded_steps_match_plain_sharded_steps(dev, mesh_shape,
+                                                        name, k):
+    """kind="stream" (K10 on z slabs or the 2-axis slab set), with and
+    without the overlap shells, == k plain sharded steps on virtual
+    shards; the overlapped step equals the non-split one bit for bit."""
+    st = port.make_stencil(name)
+    shape = (48, 48, 40)  # local extents >= 3m on every sharded axis
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 11), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    counts = mesh.counts(3)
+    wrapper = "stream_yzslab" if counts[1] > 1 else "stream_zslab"
+    faces = 2 * sum(c > 1 for c in counts[:2])
+    outs = []
+    for overlap in (False, True):
+        streamfused.launches.clear()
+        fused.launches.clear()
+        step = make_sharded_fused_step(st, mesh, shape, k, kind="stream",
+                                       overlap=overlap, device=dev)
+        assert step._overlap_active == overlap
+        assert step._padfree_kind == ("stream_yz" if counts[1] > 1
+                                      else "stream_z")
+        outs.append(gather_fields(step(fields)))
+        torch.cuda.synchronize()
+        assert dict(streamfused.launches) == {f"{wrapper}[{name}]":
+                                              mesh.size}
+        assert dict(fused.launches) == (
+            {f"fused_shell[{name}]": mesh.size * faces} if overlap else {})
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    _check(outs[0], gather_fields(ref), st.halo, 1e-4)
 
 
 SHAPES_2D = [(128, 256), (130, 258), (1000, 777)]

@@ -269,11 +269,12 @@ def test_sharded_fused_unsupported_configs():
         st, _mesh((2, 2)), (16, 16, 128), 3) is None  # 2*k*halo % 8
     assert tstepper.make_sharded_fused_step(
         st, _mesh((3,)), (16, 16, 128), 4) is None  # not divisible
-    # --overlap and the 2-axis padfree kind run now
-    # (tests/test_torch_twoaxis.py); beside them the unported modes still
-    # raise by name
-    for kw, item in (({"kind": "stream"}, "B5"),
-                     ({"kind": "stream", "overlap": True}, "B5"),
+    # --overlap, the 2-axis padfree kind and the stream kind run now
+    # (tests/test_torch_twoaxis.py, tests/test_torch_stream.py); beside
+    # them the unported modes still raise by name
+    for kw, item in (({"kind": "stream", "pipeline": True}, "A5"),
+                     ({"kind": "stream", "overlap": True,
+                       "pipeline": True}, "A5"),
                      ({"pipeline": True}, "A5"), ({"exchange": "rdma"}, "B7"),
                      ({"ensemble": 2}, "A7")):
         with pytest.raises(NotImplementedError, match=item):

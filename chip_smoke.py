@@ -32,7 +32,15 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      and row shards of virtual meshes, PADDED, with and without the
      overlap shells; k = 1, 2, 4, 8; guard-frame and periodic) at an
      aligned (128, 256), ragged (130, 258) and (1000, 777) and the main
-     path's 16384^2 grid.  Tolerances: raw step atol = 32 eps
+     path's 16384^2 grid.  Advection (Courant numbers of both signs) and
+     Gray-Scott: K1 raw_step_heat<advect3d> and raw_step_grayscott at
+     (128, 128, 256), (66, 70, 130) and 512^3; K3 fused_step for k = 1,
+     2, 4, guard-frame and periodic, at the same shapes (512^3: k = 4);
+     K3's sharded mode on 2x2 and 4x1 meshes, its overlap shells and the
+     overlapped padded step; K8 fullgrid_step and fullgrid_padded for
+     advect2d and grayscott2d at (128, 256) and (130, 258), k = 1, 2, 4,
+     8, guard-frame and periodic, and at 16384^2 (k = 8).  Tolerances:
+     raw step atol = 32 eps
      max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
      exactly equal;
@@ -47,7 +55,11 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      with --compute jnp, --compute pallas (K7; heat2d and life) and
      --fuse 8 (K8); at 16384^2 life and heat2d with
      jnp / pallas / fuse 8, and wave2d --fuse 8 against jnp (96
-     iterations: the multiple of k = 8 nearest 100);
+     iterations: the multiple of k = 8 nearest 100).  Advection (--param
+     cz=-0.25: both upwind directions) and Gray-Scott (its patch init) at
+     512^3 for 40 iterations with --compute jnp, --compute pallas (K1's
+     advection kind, raw_step_grayscott) and --fuse 4 (K3), each held
+     against its jnp run;
   5. main path, sharded (MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=4: four
      shards on the one card — decomposition overhead, not scaling):
      ``cli.run()`` at 1024^3 float32, --init pulse, 100 iterations, heat3d
@@ -72,11 +84,18 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      --compute pallas --overlap (the reference's two-rank program), each
      against the unsharded run of the same mode and the unsharded plain
      run, overlap bit-equal to non-overlap; a Life --mesh 4 --fuse 8
-     checkpoint round trip at 4096^2, bit for bit;
+     checkpoint round trip at 4096^2, bit for bit.  Advection and
+     Gray-Scott: at 512^3, 20 iterations, --mesh 2,2 with --compute jnp,
+     --fuse 4 (K3 sharded, both Gray-Scott fields exchanged) and --fuse 4
+     --overlap (the shells); at 16384^2, 96 iterations, advect2d
+     (--param cx=-0.4) and grayscott2d with --compute jnp and --fuse 8
+     (K8), and grayscott2d --mesh 4 --fuse 8 with and without --overlap,
+     each against the unsharded runs as above;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
-     off), by CUDA events at the main path's shapes, beside the bound from
-     bytes and flops (K10 at the shapes of K3, K6 and K9); and the split of
+     off; advection's upwind weights as one F.conv3d), by CUDA events at
+     the main path's shapes, beside the bound from bytes and flops (K10 at
+     the shapes of K3, K6 and K9); and the split of
      one sharded step at 1024^3 on 2x2 into exchange/pad, kernel and
      re-pin, beside whole fused steps of each kind with and without
      --overlap.
@@ -124,10 +143,39 @@ MESH_RUNS = (("heat3d", BIG, ITERS, 4, ("overlap", "fuse_overlap",
 OVERLAP_BASE = {"overlap": "pallas", "fuse_overlap": "fuse",
                 "padfree_overlap": "padfree", "yzslab_overlap": "yzslab",
                 "stream_yz_overlap": "stream_yz"}
+# Advection and Gray-Scott: (stencil, iterations, fuse k) of the unsharded
+# main path at MAIN (--compute jnp, pallas, --fuse k; their stream kind
+# raises) and (stencil, grid, iterations, fuse k, overlapped modes) of the
+# sharded one (--mesh 2,2 jnp and --fuse k; their pad-free and stream
+# kinds raise).
+NEW_MAIN_RUNS = (("advect3d", 40, 4), ("grayscott3d", 40, 4))
+NEW_MESH_RUNS = (("advect3d", MAIN, 20, 4, ("fuse_overlap",)),
+                 ("grayscott3d", MAIN, 20, 4, ("fuse_overlap",)))
+NEW_FAMILIES = ("advect3d", "grayscott3d", "advect2d", "grayscott2d")
+# Parameters every run of a stencil takes (its CLI runs as --param flags):
+# advection with a negative Courant number on one axis, so both upwind
+# directions run on the main path.
+STENCIL_PARAMS = {"advect3d": {"cz": -0.25}, "advect2d": {"cx": -0.4}}
+
+
+def stencil_flags(stencil):
+    return tuple(f for key, v in STENCIL_PARAMS.get(stencil, {}).items()
+                 for f in ("--param", f"{key}={v}"))
+
+
+def raw_key(stencil):
+    """The launch counter key of a 3D stencil's whole-step raw kernel."""
+    return {"wave3d": "raw_step_wave", "grayscott3d": "raw_step_grayscott"
+            }.get(stencil, "raw_step_heat") + f"[{stencil}]"
 EPS32 = 2.0 ** -23
 FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
                   "wave3d": 12, "heat2d": 7, "wave2d": 9,
-                  "life": 10}  # life: integer adds and compares
+                  "life": 10,  # life: integer adds and compares
+                  # the kernels' fadd/fsub/fmul per cell (stencil_taps.cuh,
+                  # stencil2d.cuh): 3 per upwind axis; Gray-Scott two
+                  # Laplacians, (u v) v and the two reaction updates
+                  "advect3d": 9, "grayscott3d": 27, "advect2d": 6,
+                  "grayscott2d": 23}
 # 2D: BASELINE config 1 (heat2d 512^2, 1000 iterations) and the size that
 # fills the card with real work (16384^2: 1.07 GB per field).
 BASE2D = (512, 512)
@@ -246,6 +294,15 @@ def main() -> int:
     def virtual_mesh(shape):
         return mesh_lib.make_mesh(shape, [dev] * 4)
 
+    def case_stencil(label):
+        """The stencil of a case label: a registry name, or advection with
+        Courant numbers of both signs ("advect3d-mixed", "advect2d-mixed")."""
+        if label == "advect3d-mixed":
+            return make_stencil("advect3d", cx=-0.3, cy=0.2, cz=-0.25)
+        if label == "advect2d-mixed":
+            return make_stencil("advect2d", cx=-0.4, cy=0.2)
+        return make_stencil(label)
+
     cases = []
     for shape in ((128, 128, 256), (66, 70, 130)):
         for name in ("heat3d", "heat3d27", "heat3d4th", "wave3d"):
@@ -291,9 +348,28 @@ def main() -> int:
                    (4,)),
                   ("overlap_stream_yz", name, (128, 128, 256), k, False,
                    (2, 2))]
+    # advection (both Courant signs) and Gray-Scott: K1's advection kind and
+    # the Gray-Scott raw step, K3 for k = 1, 2, 4 (the wrapper takes any k
+    # whose window fits), K3's sharded mode and its overlap shells
+    for label in ("advect3d", "advect3d-mixed", "grayscott3d"):
+        for shape in ((128, 128, 256), (66, 70, 130)):
+            cases.append(("raw", label, shape, 1, False, None))
+            cases += [("fused", label, shape, kk, periodic, None)
+                      for kk in (1, 2, 4) for periodic in (False, True)]
+        cases += [("raw", label, MAIN, 1, False, None),
+                  ("fused", label, MAIN, 4, False, None)]
+        for shape in ((128, 128, 256), (68, 70, 130)):
+            for periodic in (False, True):
+                cases += [("sharded", label, shape, 4, periodic, (2, 2)),
+                          ("sharded", label, shape, 4, periodic, (4, 1))]
+        for periodic in (False, True):
+            cases += [("shell", label, (128, 128, 256), 4, periodic, (2, 2)),
+                      ("overlap_padded", label, (128, 128, 256), 4, periodic,
+                       (2, 2))]
     checked = []
-    for path, name, shape, k, periodic, mshape in cases:
-        st = make_stencil(name)
+    for path, label, shape, k, periodic, mshape in cases:
+        st = case_stencil(label)
+        name = st.name
         rtol = 0.0
         frame = None if periodic else frame_of(shape, st.halo)
         if path == "zchunk":
@@ -395,8 +471,9 @@ def main() -> int:
                 ref = plain(ref)
             if path == "raw":
                 got = rawstep.make_raw_step(st, shape, device=dev)(fields)
-                entry = ("raw_step_wave" if name == "wave3d"
-                         else f"raw_step_heat<{name}>")
+                entry = {"wave3d": "raw_step_wave",
+                         "grayscott3d": "raw_step_grayscott"}.get(
+                             name, f"raw_step_heat<{name}>")
                 scale = max(float(ref[0].abs().max()), 1.0)
                 atol = 32 * EPS32 * scale
                 if name == "wave3d" and got[1] is not fields[0]:
@@ -407,14 +484,14 @@ def main() -> int:
                 entry = f"stream_step<{name}>"
                 atol = 0.0
             else:
-                got = fused.make_fused_step(st, shape, k, periodic=periodic,
-                                            device=dev)(fields)
+                got = fused.fused_step(fields, st, k, periodic=periodic)
                 entry = f"fused_step<{name}>"
                 atol = 1e-4
             del fields
         torch.cuda.synchronize()
         err = compare(entry, got, ref, atol, frame, rtol)
-        checked.append({"kernel": entry, "shape": list(shape), "k": k,
+        checked.append({"kernel": entry, "label": label,
+                        "shape": list(shape), "k": k,
                         "periodic": periodic, "mesh": mshape,
                         "max_abs_err": err, "atol": atol, "rtol": rtol})
         del ref, got
@@ -423,7 +500,7 @@ def main() -> int:
     def rand2d(name, shape):
         if name == "life":
             return ((rand(shape) < 0.35).to(torch.int32),)
-        return tuple(rand(shape) for _ in range(make_stencil(name).num_fields))
+        return tuple(rand(shape) for _ in range(case_stencil(name).num_fields))
 
     cases2d = []
     for shape in ((128, 256), (130, 258), (1000, 777), GRID2D):
@@ -438,8 +515,22 @@ def main() -> int:
                     if not (big and name == "wave2d"):
                         cases2d.append(("fullgrid_padded", name, shape, k,
                                         periodic))
-    for path, name, shape, k, periodic in cases2d:
-        st = make_stencil(name)
+    # K8 for advect2d (both Courant signs) and grayscott2d (four buffers)
+    for shape in ((128, 256), (130, 258), GRID2D):
+        big = shape == GRID2D
+        for label in ("advect2d", "advect2d-mixed", "grayscott2d"):
+            if big and label == "advect2d":
+                continue
+            for k in ((FUSE2D,) if big else (1, 2, 4, 8)):
+                for periodic in ((False,) if big else (False, True)):
+                    cases2d.append(("fullgrid_step", label, shape, k,
+                                    periodic))
+                    if not big or label == "grayscott2d":
+                        cases2d.append(("fullgrid_padded", label, shape, k,
+                                        periodic))
+    for path, label, shape, k, periodic in cases2d:
+        st = case_stencil(label)
+        name = st.name
         exact = name == "life"
         frame = None if periodic else driver.frame_mask(shape, shape, (0, 0),
                                                         1, dev)
@@ -527,7 +618,7 @@ def main() -> int:
         rc, got = counted(lambda: cli.main(
             ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
              "--iters", str(iters), "--checkpoint-every", str(ckpt_every),
-             "--checkpoint-dir", d, *flags]))
+             "--checkpoint-dir", d, *stencil_flags(stencil), *flags]))
         if rc != 0:
             fail(f"{label}: cli.main returned {rc}")
         m = [re.search(r"(\d+) steps on \S+ grid in ([\d.]+)s\s+\(([\d.]+) "
@@ -547,30 +638,38 @@ def main() -> int:
                 "mcells_per_s": mcells, "ms_per_step": 1e3 * secs / steps,
                 "launches": got}
 
+    def main_modes(stencil, k):
+        """The unsharded main path's modes of a stencil: the stream kind
+        only for the families the streaming kernel takes."""
+        modes = ["jnp", "pallas", str(k), "stream"]
+        return modes[:3] if stencil in NEW_FAMILIES else modes
+
     results = []
-    for stencil, iters, k in MAIN_RUNS:
-        raw_key = ("raw_step_wave" if stencil == "wave3d"
-                   else "raw_step_heat") + f"[{stencil}]"
+    for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS:
         for label, mode, want in (
                 ("jnp", ("--compute", "jnp"), {}),
-                ("pallas", ("--compute", "pallas"), {raw_key: iters}),
+                ("pallas", ("--compute", "pallas"), {raw_key(stencil): iters}),
                 (str(k), ("--fuse", str(k)),
                  {f"fused_step[{stencil}]": iters // k}),
                 ("stream", ("--fuse", str(k), "--fuse-kind", "stream"),
                  {f"stream_step[{stencil}]": iters // k})):
+            if label not in main_modes(stencil, k):
+                continue
             res = drive(f"{stencil}_{label}", stencil, *mode, iters=iters,
                         ckpt_every=iters)
             if res["launches"] != want:
                 fail(f"{res['label']}: launches {res['launches']} != {want}")
             results.append(res)
 
-    for stencil, iters, k in MAIN_RUNS:
+    for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS:
         halo_w = make_stencil(stencil).halo
         ref = runs[f"{stencil}_jnp"]["fields"]
         frame = frame_of(MAIN, halo_w)
         scale = max(float(ref[0].abs().max()), 1.0)
         for mode, atol in (("pallas", 32 * EPS32 * scale), (str(k), 1e-4),
                            ("stream", 1e-4)):
+            if mode not in main_modes(stencil, k):
+                continue
             got = runs[f"{stencil}_{mode}"]["fields"]
             err = 0.0
             for g, r in zip(got, ref):
@@ -583,7 +682,7 @@ def main() -> int:
                 if r["label"] == f"{stencil}_{mode}":
                     r["max_abs_err_vs_jnp"] = err
                     r["atol"] = atol
-        for mode in ("jnp", "pallas", str(k), "stream"):
+        for mode in main_modes(stencil, k):
             if f"{stencil}_{mode}" != "heat3d_pallas":  # kept for the resume
                 del runs[f"{stencil}_{mode}"]["fields"]
 
@@ -643,9 +742,14 @@ def main() -> int:
     os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
     mesh_results = []
 
-    def run_cli(stencil, grid, iters, *flags, init="pulse"):
+    def run_cli(stencil, grid, iters, *flags, init=None):
+        """One ``cli.run()``; ``init`` defaults to the family's own for
+        advection and Gray-Scott (its patch), ``pulse`` for the rest."""
+        if init is None:
+            init = "auto" if stencil in NEW_FAMILIES else "pulse"
         argv = ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
-                "--iters", str(iters), "--init", init, *flags]
+                "--iters", str(iters), "--init", init,
+                *stencil_flags(stencil), *flags]
         s0 = torch.cuda.memory_stats()
         (fields, mcells), got = counted(
             lambda: cli.run(cli.config_from_args(argv)))
@@ -689,11 +793,10 @@ def main() -> int:
             fail(f"{res['stencil']} {res['flags']}: max|d| vs {what} "
                  f"{err:.3e} > {atol:.3e}")
 
-    for stencil, grid, iters, k, overlapped in MESH_RUNS:
+    for stencil, grid, iters, k, overlapped in MESH_RUNS + NEW_MESH_RUNS:
         st = make_stencil(stencil)
         h = st.halo
-        raw_key = ("raw_step_wave" if stencil == "wave3d"
-                   else "raw_step_heat") + f"[{stencil}]"
+        new_family = stencil in NEW_FAMILIES
         zkey = ("zchunk_wave" if stencil == "wave3d"
                 else "zchunk_heat") + f"[{stencil}]"
         big = grid == BIG
@@ -715,7 +818,9 @@ def main() -> int:
         refs["plain"], r = run_cli(stencil, grid, iters, "--compute", "jnp")
         mesh_results.append(r)
         scale = max(float(refs["plain"][0].abs().max()), 1.0)
-        unsharded("pallas", ("--compute", "pallas"), {raw_key: iters})
+        if not new_family:  # (no compute_fn kernel for the mesh modes)
+            unsharded("pallas", ("--compute", "pallas"),
+                      {raw_key(stencil): iters})
         unsharded("fuse", ("--fuse", str(k)),
                   {f"fused_step[{stencil}]": passes})
         padded, zslab, yzslab, shell, szslab, syzslab = (
@@ -749,6 +854,9 @@ def main() -> int:
         modes = [md for md in modes if md[0] in overlapped or (
             md[0] not in OVERLAP_BASE
             and (big or md[0] not in ("padfree", "stream_z")))]
+        if new_family:  # the padded kind only (pad-free, stream: B4, B5)
+            modes = [md for md in modes
+                     if md[0] in ("jnp", "fuse", "fuse_overlap")]
         kept = {}
         for label, flags, want in modes:
             if label.startswith("stream") and "stream" not in refs:
@@ -882,6 +990,47 @@ def main() -> int:
     del got, fgot
     torch.cuda.empty_cache()
 
+    # advection and Gray-Scott at 16384^2: jnp and --fuse 8 unsharded, and
+    # grayscott2d (two 1.07 GB fields, both exchanged) on --mesh 4 with
+    # --fuse 8, with and without --overlap
+    for stencil in ("advect2d", "grayscott2d"):
+        k = FUSE2D
+        passes = ITERS16K // k
+        got, r = run_cli(stencil, GRID2D, ITERS16K, "--compute", "jnp")
+        mesh_results.append(r)
+        scale = max(float(got[0].abs().max()), 1.0)
+        fgot, r = run_cli(stencil, GRID2D, ITERS16K, "--fuse", str(k))
+        if r["launches"] != {f"fullgrid_step[{stencil}]": passes}:
+            fail(f"{stencil} fuse: launches {r['launches']}")
+        check(r, err_whole(fgot, got), 1e-4, "unsharded plain")
+        mesh_results.append(r)
+        base = None
+        padded = f"fullgrid_padded[{stencil}]"
+        mesh_modes = (("fuse", (), {padded: 4 * passes}),
+                      ("fuse_overlap", ("--overlap",), {padded: 12 * passes}))
+        for label, flags, want in (mesh_modes if stencil == "grayscott2d"
+                                   else ()):
+            mgot, r = run_cli(stencil, GRID2D, ITERS16K, "--mesh", "4",
+                              "--fuse", str(k), *flags)
+            if r["launches"] != want:
+                fail(f"{stencil} 2D {label}: launches {r['launches']} != "
+                     f"{want}")
+            check(r, block_err(mgot, fgot, 1, f"{stencil} {label}"), 1e-4,
+                  "unsharded same mode")
+            check(r, block_err(mgot, got, 1, f"{stencil} {label}"),
+                  max(1e-4, 32 * EPS32 * scale), "unsharded plain")
+            if base is None:
+                base = mgot
+            else:
+                if not all(torch.equal(x, y) for a, b in zip(mgot, base)
+                           for x, y in zip(a, b)):
+                    fail(f"{stencil} 2D {label}: differs from non-overlap")
+                r["bit_equal_to_non_overlap"] = True
+            mesh_results.append(r)
+            del mgot
+        del got, fgot, base
+        torch.cuda.empty_cache()
+
     # 2D sharded checkpoint round trip: Life --mesh 4 --fuse 8 at 4096^2,
     # 48 steps + checkpoint, then resume to 96 (multiples of k = 8)
     life_grid = LIFE_CKPT_GRID
@@ -924,9 +1073,27 @@ def main() -> int:
         b, f = n_bytes / bw * 1e3, n_flops / flops32 * 1e3
         return (b, "bytes") if b >= f else (f, "operations")
 
+    def main_stencil(name):
+        """The stencil with the parameters its main-path runs take."""
+        return make_stencil(name, **STENCIL_PARAMS.get(name, {}))
+
     def stencil_weight(name, st):
         """(weight, pad): the update as one convolution's weight."""
         from mpi_cuda_process_tpu_torch.ops import heat
+
+        if name == "advect3d":
+            # upwind: 1 - sum |c| at the centre, |c_d| at the upstream tap
+            w = torch.zeros(1, 1, 3, 3, 3)
+            centre = 1.0
+            for d, c in enumerate(st.params["courant"]):
+                if c == 0.0:
+                    continue
+                off = [1, 1, 1]
+                off[d] += -1 if c > 0 else 1
+                w[(0, 0) + tuple(off)] = abs(c)
+                centre -= abs(c)
+            w[0, 0, 1, 1, 1] = centre
+            return w.to(dev), 1
 
         if name == "heat3d4th":
             a = st.params["alpha"]
@@ -1014,14 +1181,23 @@ def main() -> int:
             "fused_yzslab": ("K9", 9), "fused_shell": ("K3", 7),
             "fullgrid_step": ("K8", 15), "fullgrid_padded": ("K8", 15),
             "stream_step": ("K10", 16), "stream_zslab": ("K10", 17),
-            "stream_yzslab": ("K10", 18)}
+            "stream_yzslab": ("K10", 18),
+            "raw_step_grayscott": ("raw_step_grayscott", 4)}
+    # the table row of a (wrapper, stencil) whose TPU body is its own row:
+    # advection's raw-step taps (row 3) and the two families' micro-steps
+    # (row 6)
+    row_of = {("raw_step_heat", "advect3d"): 3,
+              ("fused_step", "advect3d"): 6, ("fused_step", "grayscott3d"): 6,
+              ("fused_step_padded", "advect3d"): 6,
+              ("fused_step_padded", "grayscott3d"): 6}
 
     def record(entry, wrapper, name, src, replaces, ms, plain_ms, moved,
                flops, library_ms, k, shape, per_step):
         b_ms, b_by = bound(moved, flops)
         kernels_out.append({
             "name": entry, "kernel": rows[wrapper][0],
-            "table_row": rows[wrapper][1], "route": "cuda",
+            "table_row": row_of.get((wrapper, name), rows[wrapper][1]),
+            "route": "cuda",
             "source": f"{PKG}/ops/cuda/csrc/{src}", "replaces": replaces,
             "launches": main_launches.get(f"{wrapper}[{name}]", 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
@@ -1054,8 +1230,16 @@ def main() -> int:
             ("stream_step<heat3d4th>", "stream_step", "heat3d4th", 2,
              "streamfused.py:377"),
             ("stream_step<wave3d>", "stream_step", "wave3d", 4,
-             "streamfused.py:377")):
-        st = make_stencil(name)
+             "streamfused.py:377"),
+            ("raw_step_heat<advect3d>", "raw_step_heat", "advect3d", 1,
+             "rawstep.py:182"),
+            ("raw_step_grayscott", "raw_step_grayscott", "grayscott3d", 1,
+             "rawstep.py:200"),
+            ("fused_step<advect3d>", "fused_step", "advect3d", 4,
+             "fused.py:184"),
+            ("fused_step<grayscott3d>", "fused_step", "grayscott3d", 4,
+             "fused.py:203")):
+        st = main_stencil(name)
         fields = tuple(rand(MAIN) for _ in range(st.num_fields))
         if wrapper == "fused_step":
             kern = fused.make_fused_step(st, MAIN, k, device=dev)
@@ -1068,7 +1252,9 @@ def main() -> int:
         else:
             kern = rawstep.make_raw_step(st, MAIN, device=dev)
             src = "rawstep.cu"
-            moved = (st.num_fields + 1) * nbytes
+            # every field read once; wave writes u only, Gray-Scott both
+            moved = (st.num_fields + (2 if name == "grayscott3d" else 1)
+                     ) * nbytes
         plain = driver.make_step(st, MAIN)
 
         def run_plain(fields=fields, plain=plain, k=k):
@@ -1080,7 +1266,7 @@ def main() -> int:
         ms = time_ms(lambda: kern(fields), 20)
         plain_ms = time_ms(run_plain, 3)
         library_ms = None
-        if wrapper not in ("fused_step", "stream_step"):
+        if wrapper in ("raw_step_heat", "raw_step_wave"):
             library_ms = time_ms(library_call(name, st, fields, MAIN), 20)
         record(entry, wrapper, name, src, TPU + replaces, ms, plain_ms, moved,
                FLOPS_PER_CELL[name] * k * cells, library_ms, k, MAIN,
@@ -1242,6 +1428,43 @@ def main() -> int:
             del fields, pads, new, masks
         torch.cuda.empty_cache()
 
+    # advection and Gray-Scott: K3's sharded mode on one shard of the 512^3
+    # --mesh 2,2 run, and one hi z shell of it
+    for name, grid, _iters, k, _overlapped in NEW_MESH_RUNS:
+        st = main_stencil(name)
+        nf, m = st.num_fields, k * st.halo
+        local = (grid[0] // 2, grid[1] // 2, grid[2])
+        lcells = math.prod(local)
+        micro = TPU + ("fused.py:184" if name == "advect3d"
+                       else "fused.py:203")
+        pshape = (local[0] + 2 * m, local[1] + 2 * m, local[2])
+        ins = tuple(rand(pshape) for _ in range(nf))
+        ms = time_ms(lambda: fused.fused_step_padded(ins, st, k, grid,
+                                                     (0, 0)), 10)
+        plain_ms = time_ms(lambda: fused._plain_window_steps(
+            ins, st, k, (-m, -m, 0), grid, False, (2,)), 2)
+        record(f"fused_step_padded<{name}>", "fused_step_padded", name,
+               "fused.cu", micro, ms, plain_ms,
+               4 * nf * (math.prod(pshape) + lcells),
+               FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
+        del ins
+        shells = fused.build_overlap_shell_calls(st, local, grid, k, (0, 1),
+                                                 device=dev)
+        strips = tuple(rand((4 * m, local[1] + 2 * m, local[2]))
+                       for _ in range(nf))
+        org = (local[0] - 2 * m, 0)
+        ms = time_ms(lambda: shells[0](org, *strips), 20)
+        plain_ms = time_ms(
+            lambda: fused.plain_step_padded(strips, st, k, grid, org), 3)
+        scells = 2 * m * local[1] * local[2]
+        record(f"fused_shell<{name}>", "fused_shell", name, "fused.cu",
+               TPU + "fused.py:1284", ms, plain_ms,
+               4 * nf * (math.prod(strips[0].shape) + scells),
+               FLOPS_PER_CELL[name] * k * scells, None, k,
+               (2 * m, local[1], local[2]), 16.0 / k)
+        del strips
+        torch.cuda.empty_cache()
+
     # 2D kernels at 16384^2 (K8 sharded: one shard of --mesh 4)
     H, W = GRID2D
     cells2d = H * W
@@ -1273,8 +1496,8 @@ def main() -> int:
                FLOPS_PER_CELL[name] * cells2d, library_ms, 1, GRID2D, 1.0)
         del ins
     k = FUSE2D
-    for name in ("life", "heat2d", "wave2d"):
-        st = make_stencil(name)
+    for name in ("life", "heat2d", "wave2d", "advect2d", "grayscott2d"):
+        st = main_stencil(name)
         nf = st.num_fields
         fields = rand2d(name, GRID2D)
         kern = fullgrid.make_fullgrid_step(st, GRID2D, k, device=dev)
@@ -1294,8 +1517,8 @@ def main() -> int:
                ms, plain_ms, 2 * nf * 4 * cells2d,
                FLOPS_PER_CELL[name] * k * cells2d, None, k, GRID2D, 1.0 / k)
         del fields
-        if name == "wave2d":
-            continue  # the sharded main path runs life and heat2d
+        if name in ("wave2d", "advect2d"):
+            continue  # the sharded main path runs life, heat2d, grayscott2d
         local = (H // 4, W)
         pshape = (H // 4 + 2 * k, W)
         ins = rand2d(name, pshape)

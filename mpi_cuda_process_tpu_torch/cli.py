@@ -10,22 +10,28 @@
         --iters 50 --device cpu --render
     python -m mpi_cuda_process_tpu_torch --stencil life --grid 512,512 \
         --iters 1000 --mesh 2 --compute pallas --overlap
+    python -m mpi_cuda_process_tpu_torch --stencil grayscott3d \
+        --grid 512,512,512 --iters 40 --fuse 4
 
 The flags keep the TPU package's names and values, so one command line runs
 on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
-(K1/K2), or under ``--mesh``/``--periodic`` the compute_fn kernel (K4/K5),
-and on 2D grids the 2D compute_fn kernel (K7); ``--fuse K`` the
+(K1/K2, Gray-Scott's), or under ``--mesh``/``--periodic`` the compute_fn
+kernel (K4/K5), and on 2D grids the 2D compute_fn kernel (K7); where the TPU
+package has no such kernel (advection and Gray-Scott under ``--mesh`` or
+``--periodic``, or in 2D) it raises as that package does; ``--fuse K`` the
 temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, with
 ``--fuse-kind padfree`` K6 on a z-only mesh and K9 on a mesh that shards y,
 with ``--fuse-kind stream`` the streaming kernel K10, unsharded or on any
 z/y mesh, and with ``--overlap`` the boundary shells beside the exchange;
-2D: K8, its sharded mode under a row-split ``--mesh``); ``--compute
-auto``/``jnp`` the plain tensor path.  ``--mesh`` decomposes the grid over
-the visible devices (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N
-shards on one card).  ``--device`` (default ``cuda``) picks where the state
-lives; asking for ``cuda`` without a card raises, it never carries on on
-the CPU.  Only the flags the port runs are registered; a combination that
-needs a kernel or module not ported yet raises, naming its ROADMAP item.
+advect3d and grayscott3d take the padded kind only, and their pad-free and
+stream kinds raise naming ROADMAP B4/B5; 2D: K8, its sharded mode under a
+row-split ``--mesh``); ``--compute auto``/``jnp`` the plain tensor path.
+``--mesh`` decomposes the grid over the visible devices
+(``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N shards on one card).
+``--device`` (default ``cuda``) picks where the state lives; asking for
+``cuda`` without a card raises, it never carries on on the CPU.  Only the
+flags the port runs are registered; a combination that needs a kernel or
+module not ported yet raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ from . import driver
 from .config import RunConfig, parse_int_tuple, parse_params
 from .interop import fields_from_numpy, shard_from_numpy
 from .ops import stencil as stencil_lib
-from .ops import heat, life, wave  # noqa: F401  (populate the registry)
+# populate the registry
+from .ops import advection, heat, life, reaction, wave  # noqa: F401
 from .ops.cuda import fullgrid as fullgrid_lib
 from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
@@ -270,7 +277,8 @@ def _raw_eligible(cfg: RunConfig, name: str) -> bool:
 
 
 def resolve_raw_step(cfg: RunConfig, st):
-    """Whole-step raw kernel (K1/K2) for eligible runs, or None."""
+    """Whole-step raw kernel (K1/K2, Gray-Scott's) for eligible runs, or
+    None."""
     if not _raw_eligible(cfg, st.name) or not rawstep.raw_step_supported(st):
         return None
     return rawstep.make_raw_step(st, cfg.grid, device=cfg.device)
@@ -488,6 +496,9 @@ def run(cfg: RunConfig) -> Tuple:
                 f"--fuse {step_unit}")
         interval //= step_unit
 
+    # the clock times the steps: the init's (or the resume's) device work
+    # is set-up and must not run on inside the timed loop
+    driver.synchronize(fields)
     t0 = time.perf_counter()
     fields = driver.run_simulation(
         st, fields, remaining // step_unit, step_fn=step_fn,

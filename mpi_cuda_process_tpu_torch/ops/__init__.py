@@ -1,4 +1,5 @@
-from . import heat, life, wave  # noqa: F401  (populate the stencil registry)
+# imported to populate the stencil registry
+from . import advection, heat, life, reaction, wave  # noqa: F401
 from .stencil import Stencil, available_stencils, make_stencil
 
 __all__ = ["Stencil", "available_stencils", "make_stencil"]

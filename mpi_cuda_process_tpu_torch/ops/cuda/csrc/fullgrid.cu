@@ -1,9 +1,11 @@
-// K8 fullgrid_step<KIND, SRC>: k 2D steps (heat2d / mdf, wave2d, life) per
-// device-memory pass, by overlapped tiling in shared memory.
+// K8 fullgrid_step<KIND, SRC>: k 2D steps (heat2d / mdf, wave2d, life,
+// advect2d, grayscott2d) per device-memory pass, by overlapped tiling in
+// shared memory.
 //
 // Replaces: the TPU package's ops/pallas/fullgrid.py — _build_call's
 // kernel with the _micro_life micro-step and the _MICRO2D entries for
-// heat2d, mdf (fused._micro_heat) and wave2d (fused._micro_wave).  There
+// heat2d, mdf (fused._micro_heat), wave2d (fused._micro_wave), advect2d
+// (fused._micro_advect) and grayscott2d (fused._micro_grayscott).  There
 // the whole grid (or a shard's whole padded block) sits in VMEM and one
 // program runs the k micro-steps on it.  That does not carry over: 512^2
 // float32 is 1 MiB against 227 KB of shared memory per block.  So this is
@@ -32,10 +34,12 @@
 // Per block:
 //   1. load the window of every field into dynamic shared memory;
 //   2. k micro-steps, micro-step s updating the cells at least s from the
-//      window edge, frame re-pinned, __syncthreads() between steps.  Heat
-//      and Life ping-pong between two buffers; wave writes its new u over
-//      u_prev in place (each cell reads u_prev only at itself) and swaps
-//      roles, so the old u becomes the new u_prev for free;
+//      window edge, frame re-pinned, __syncthreads() between steps.  Heat,
+//      advection and Life ping-pong between two buffers; wave writes its
+//      new u over u_prev in place (each cell reads u_prev only at itself)
+//      and swaps roles, so the old u becomes the new u_prev for free;
+//      Gray-Scott reads both fields' neighbours and ping-pongs two pairs
+//      (four buffers: 96 KB at k = 16);
 //   3. write the (TY, TX) core, masked to the block.
 // Threads are laid out (32, 8) over (x, y) and stride over the window by
 // rows and columns, so no index division is needed.
@@ -79,24 +83,34 @@ __device__ __forceinline__ T load(const Grid2& g, int f, int y, int x,
   return in[static_cast<long>(y) * g.W + x];
 }
 
+// Window buffers a kind keeps in shared memory (fullgrid.py::smem_bytes).
+__host__ __device__ constexpr int kind_buffers2(int kind) {
+  return kind == GRAYSCOTT2D ? 4 : 2;
+}
+
 template <int KIND, int SRC>
 __global__ void __launch_bounds__(BX * BY)
-fullgrid_step(const Grid2 g, int k, int periodic, float a, int TY, int TX) {
+fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
   using T = typename Elem<KIND>::T;
-  constexpr bool two = KIND == WAVE5;
+  constexpr bool wave = KIND == WAVE5, gs = KIND == GRAYSCOTT2D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m = k;  // every 2D family here has halo 1
   const int WY = TY + 2 * m, WX = TX + 2 * m;
-  T* cur = reinterpret_cast<T*>(smem_raw);  // heat/life: level; wave: u
-  T* nxt = cur + WY * WX;                   // heat/life: next;  wave: u_prev
+  T* cur = reinterpret_cast<T*>(smem_raw);  // heat/life/advect/GS u: level;
+                                            // wave: u
+  T* nxt = cur + WY * WX;                   // next level; wave: u_prev
+  T* vcur = nxt + WY * WX;                  // Gray-Scott v: level
+  T* vnxt = vcur + WY * WX;                 // Gray-Scott v: next level
   // local coordinate of window cell (0, 0)
   const int oy = blockIdx.y * TY - m, ox = blockIdx.x * TX - m;
 
   for (int wy = threadIdx.y; wy < WY; wy += BY) {
     for (int wx = threadIdx.x; wx < WX; wx += BX) {
       cur[wy * WX + wx] = load<SRC, T>(g, 0, oy + wy, ox + wx, periodic);
-      if constexpr (two)
+      if constexpr (wave)
         nxt[wy * WX + wx] = load<SRC, T>(g, 1, oy + wy, ox + wx, periodic);
+      if constexpr (gs)
+        vcur[wy * WX + wx] = load<SRC, T>(g, 1, oy + wy, ox + wx, periodic);
     }
   }
   __syncthreads();
@@ -110,11 +124,20 @@ fullgrid_step(const Grid2 g, int k, int periodic, float a, int TY, int TX) {
         const int gx = ox + wx;
         const bool frame = !periodic && (frame_row || gx < 1 || gx >= g.W - 1);
         if constexpr (KIND == WAVE5) {
-          nxt[q] = frame ? cur[q] : wave5(cur + q, nxt[q], WX, a);
+          nxt[q] = frame ? cur[q] : wave5(cur + q, nxt[q], WX, c.a);
         } else if constexpr (KIND == LIFE) {
           nxt[q] = frame ? cur[q] : life8(cur + q, WX);
+        } else if constexpr (KIND == ADVECT2D) {
+          nxt[q] = frame ? cur[q] : advect5(cur + q, WX, c.a, c.c0);
+        } else if constexpr (gs) {
+          if (frame) {
+            nxt[q] = cur[q];
+            vnxt[q] = vcur[q];
+          } else {
+            grayscott5(cur + q, vcur + q, WX, c, nxt[q], vnxt[q]);
+          }
         } else {
-          nxt[q] = frame ? cur[q] : heat5(cur + q, WX, a);
+          nxt[q] = frame ? cur[q] : heat5(cur + q, WX, c.a);
         }
       }
     }
@@ -122,6 +145,11 @@ fullgrid_step(const Grid2 g, int k, int periodic, float a, int TY, int TX) {
     T* tmp = cur;
     cur = nxt;
     nxt = tmp;
+    if constexpr (gs) {
+      tmp = vcur;
+      vcur = vnxt;
+      vnxt = tmp;
+    }
   }
 
   T* out0 = static_cast<T*>(g.out[0]);
@@ -135,37 +163,42 @@ fullgrid_step(const Grid2 g, int k, int periodic, float a, int TY, int TX) {
       const long o = static_cast<long>(y) * g.W + x;
       const int q = (cy + m) * WX + cx + m;
       out0[o] = cur[q];
-      if constexpr (two) out1[o] = nxt[q];  // the new u_prev: the previous u
+      if constexpr (wave) out1[o] = nxt[q];  // the new u_prev: the previous u
+      if constexpr (gs) out1[o] = vcur[q];
     }
   }
 }
 
 template <int KIND, int SRC>
-int launch(const Grid2& g, int k, int periodic, float a, int ty, int tx,
+int launch(const Grid2& g, int k, int periodic, const Coef& c, int ty, int tx,
            cudaStream_t s) {
   using T = typename Elem<KIND>::T;
-  const size_t smem =
-      2 * sizeof(T) * static_cast<size_t>(ty + 2 * k) * (tx + 2 * k);
+  const size_t smem = kind_buffers2(KIND) * sizeof(T) *
+                      static_cast<size_t>(ty + 2 * k) * (tx + 2 * k);
   cudaError_t e = cudaFuncSetAttribute(
       fullgrid_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((g.W + tx - 1) / tx, (g.H + ty - 1) / ty, 1);
   fullgrid_step<KIND, SRC><<<grid, dim3(BX, BY, 1), smem, s>>>(g, k, periodic,
-                                                                a, ty, tx);
+                                                                c, ty, tx);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int SRC>
-int dispatch(int kind, const Grid2& g, int k, int periodic, float a, int ty,
-             int tx, cudaStream_t s) {
+int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
+             int ty, int tx, cudaStream_t s) {
   switch (kind) {
     case HEAT5:
-      return launch<HEAT5, SRC>(g, k, periodic, a, ty, tx, s);
+      return launch<HEAT5, SRC>(g, k, periodic, c, ty, tx, s);
     case WAVE5:
-      return launch<WAVE5, SRC>(g, k, periodic, a, ty, tx, s);
+      return launch<WAVE5, SRC>(g, k, periodic, c, ty, tx, s);
     case LIFE:
-      return launch<LIFE, SRC>(g, k, periodic, a, ty, tx, s);
+      return launch<LIFE, SRC>(g, k, periodic, c, ty, tx, s);
+    case ADVECT2D:
+      return launch<ADVECT2D, SRC>(g, k, periodic, c, ty, tx, s);
+    case GRAYSCOTT2D:
+      return launch<GRAYSCOTT2D, SRC>(g, k, periodic, c, ty, tx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -174,13 +207,17 @@ int dispatch(int kind, const Grid2& g, int k, int periodic, float a, int ty,
 }  // namespace
 
 // One K8 launch on `stream`, one device: (out0[, out1]) = k steps of
-// (in0[, in1]) on the whole (H, W) grid; in1/out1 are used by WAVE5 only.
-// `a` is alpha (HEAT5) or c2dt2 (WAVE5).  Returns a cudaError_t code.
+// (in0[, in1]) on the whole (H, W) grid; in1/out1 are used by the two-field
+// kinds only (WAVE5: u_prev; GRAYSCOTT2D: v).  (a, c0, c1, c2, c3) are the
+// kind's Coef: alpha (HEAT5), c2dt2 (WAVE5), the Courant numbers (cy, cx)
+// (ADVECT2D) or (Du, Dv, F, F + kappa) (GRAYSCOTT2D).  Returns a
+// cudaError_t code.
 EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
                         void* out0, void* out1, int H, int W, int k,
-                        int periodic, float a, int ty, int tx, void* stream) {
+                        int periodic, float a, float c0, float c1, float c2,
+                        float c3, int ty, int tx, void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, H, W, H, 0, 0};
-  return dispatch<RAW>(kind, g, k, periodic, a, ty, tx,
+  return dispatch<RAW>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3}, ty, tx,
                        static_cast<cudaStream_t>(stream));
 }
 
@@ -189,9 +226,10 @@ EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
 // the core's first row is global row oy of a GH-row grid.
 EXPORT int fullgrid_padded(int kind, const void* in0, const void* in1,
                            void* out0, void* out1, int Ly, int W, int GH,
-                           int oy, int k, int periodic, float a, int ty,
-                           int tx, void* stream) {
+                           int oy, int k, int periodic, float a, float c0,
+                           float c1, float c2, float c3, int ty, int tx,
+                           void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy, k};
-  return dispatch<PADDED>(kind, g, k, periodic, a, ty, tx,
-                          static_cast<cudaStream_t>(stream));
+  return dispatch<PADDED>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3}, ty,
+                          tx, static_cast<cudaStream_t>(stream));
 }

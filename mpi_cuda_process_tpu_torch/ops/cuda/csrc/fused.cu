@@ -8,9 +8,11 @@
 // _fused_zslab_kernel (K6), build_yzslab_padfree_call's _fused_yzslab_kernel
 // with _assemble_yz_window and _yzslab_specs (K9), their _run_micros /
 // _window_frame, and the
-// micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th and
-// _micro_wave.  On the TPU the kernels differ in how a VMEM window is
-// assembled from aligned BlockSpecs; here one kernel computes its own
+// micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th, _micro_wave,
+// _micro_advect and _micro_grayscott (the last two RAW and PADDED only: the
+// slab-operand kinds do not take them yet).  On the TPU the kernels differ
+// in how a VMEM window is assembled from aligned BlockSpecs; here one
+// kernel computes its own
 // window from local coordinates, and a window-source policy (window.cuh)
 // says where each window cell is read from: RAW for --fuse on one device
 // (auto, tiled and padfree), PADDED for --fuse under --mesh (the
@@ -44,15 +46,18 @@
 //   2. apply k micro-steps in shared memory, micro-step s updating the
 //      cells at least s*halo from the window edge, re-pinning the global
 //      guard frame (ghost cells included), __syncthreads() between steps.
-//      Heat ping-pongs between two buffers.  Wave writes the new u into
-//      u_prev's buffer in place (each cell reads u_prev only at itself) and
-//      then swaps roles, so the old u becomes the new u_prev for free;
+//      Heat and advection ping-pong between two buffers.  Wave writes the
+//      new u into u_prev's buffer in place (each cell reads u_prev only at
+//      itself) and then swaps roles, so the old u becomes the new u_prev
+//      for free.  Gray-Scott reads both fields' neighbours, so neither can
+//      be overwritten in place: it ping-pongs two pairs, four buffers;
 //   3. write the (TZ, TY, TX) core (the cells at least m from the window
 //      edge, all valid after k micro-steps), masked to the block.
 //
-// Shared memory is 2 buffers x window x 4 B: 80 KB for core (8, 8, 32) at
-// m = 4, so the launch raises the kernel's dynamic shared-memory limit
-// above the 48 KB default first (cudaFuncSetAttribute).
+// Shared memory is 2 buffers (Gray-Scott: 4) x window x 4 B: 80 KB (160
+// KB) for core (8, 8, 32) at m = 4, so the launch raises the kernel's
+// dynamic shared-memory limit above the 48 KB default first
+// (cudaFuncSetAttribute).
 
 #include "window.cuh"
 
@@ -60,13 +65,18 @@ namespace {
 
 constexpr int THREADS = 256;
 
+// Window buffers a kind keeps in shared memory (fused.py::buffers).
+__host__ __device__ constexpr int kind_buffers(int kind) {
+  return kind == GRAYSCOTT ? 4 : 2;
+}
+
 template <int KIND, int SRC>
 __global__ void __launch_bounds__(THREADS)
 fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
            int TX) {
   extern __shared__ float smem[];
   constexpr int h = kind_halo(KIND);
-  constexpr bool two = KIND == WAVE7;
+  constexpr bool wave = KIND == WAVE7, gs = KIND == GRAYSCOTT;
   const int m = k * h;
   const int WZ = TZ + 2 * m, WY = TY + 2 * m, WX = TX + 2 * m;
   const int W = WZ * WY * WX;
@@ -75,13 +85,19 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
   const int oz = blockIdx.z * TZ - m, oy = blockIdx.y * TY - m,
             ox = blockIdx.x * TX - m;
 
-  float* cur = smem;       // heat: current level; wave: u
-  float* nxt = smem + W;   // heat: next level;    wave: u_prev
+  float* cur = smem;       // heat, advection, Gray-Scott u: current level;
+                           // wave: u
+  float* nxt = smem + W;   // heat, advection, Gray-Scott u: next level;
+                           // wave: u_prev
+  float* vcur = smem + 2 * W;  // Gray-Scott v: current level
+  float* vnxt = smem + 3 * W;  // Gray-Scott v: next level
 
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
     const int wx = i % WX, t = i / WX, wy = t % WY, wz = t / WY;
     cur[i] = load<SRC>(w, 0, oz + wz, oy + wy, ox + wx, periodic);
-    if constexpr (two) nxt[i] = load<SRC>(w, 1, oz + wz, oy + wy, ox + wx,
+    if constexpr (wave) nxt[i] = load<SRC>(w, 1, oz + wz, oy + wy, ox + wx,
+                                           periodic);
+    if constexpr (gs) vcur[i] = load<SRC>(w, 1, oz + wz, oy + wy, ox + wx,
                                           periodic);
   }
   __syncthreads();
@@ -97,16 +113,28 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
       const bool frame =
           !periodic && in_frame(w.oz + oz + wz, w.oy + oy + wy, ox + wx,
                                 w.GZ, w.GY, w.GX, h);
-      if constexpr (two) {
+      if constexpr (wave) {
         nxt[q] = frame ? cur[q] : wave_update(cur + q, nxt[q], sy, sz, c);
+      } else if constexpr (gs) {
+        if (frame) {
+          nxt[q] = cur[q];
+          vnxt[q] = vcur[q];
+        } else {
+          grayscott_update(cur + q, vcur + q, sy, sz, c, nxt[q], vnxt[q]);
+        }
       } else {
-        nxt[q] = frame ? cur[q] : heat_update<KIND>(cur + q, sy, sz, c);
+        nxt[q] = frame ? cur[q] : field_update<KIND>(cur + q, sy, sz, c);
       }
     }
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
+    if constexpr (gs) {
+      tmp = vcur;
+      vcur = vnxt;
+      vnxt = tmp;
+    }
   }
 
   const int C = TZ * TY * TX;
@@ -118,7 +146,8 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
     const long g = gz * gsz + gy * gsy + gx;
     const long q = (cz + m) * sz + (cy + m) * sy + (cx + m);
     w.out[0][g] = cur[q];
-    if constexpr (two) w.out[1][g] = nxt[q];  // wave: the new u_prev is the previous u
+    if constexpr (wave) w.out[1][g] = nxt[q];  // the new u_prev: the previous u
+    if constexpr (gs) w.out[1][g] = vcur[q];
   }
 }
 
@@ -126,8 +155,9 @@ template <int KIND, int SRC>
 int launch(const Window& w, int k, int periodic, const Coef& c, int tz,
            int ty, int tx, cudaStream_t s) {
   const int m = k * kind_halo(KIND);
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(tz + 2 * m) *
-                      (ty + 2 * m) * (tx + 2 * m);
+  const size_t smem = kind_buffers(KIND) * sizeof(float) *
+                      static_cast<size_t>(tz + 2 * m) * (ty + 2 * m) *
+                      (tx + 2 * m);
   cudaError_t e = cudaFuncSetAttribute(
       fused_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -152,6 +182,14 @@ int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
       return launch<HEAT13, SRC>(w, k, periodic, c, tz, ty, tx, s);
     case WAVE7:
       return launch<WAVE7, SRC>(w, k, periodic, c, tz, ty, tx, s);
+    case ADVECT:
+      if constexpr (SRC == RAW || SRC == PADDED)
+        return launch<ADVECT, SRC>(w, k, periodic, c, tz, ty, tx, s);
+      return static_cast<int>(cudaErrorInvalidValue);
+    case GRAYSCOTT:
+      if constexpr (SRC == RAW || SRC == PADDED)
+        return launch<GRAYSCOTT, SRC>(w, k, periodic, c, tz, ty, tx, s);
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -160,8 +198,9 @@ int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
 }  // namespace
 
 // One K3 launch on `stream`, one device: (out0[, out1]) = k steps of
-// (in0[, in1]) on the whole (Z, Y, X) grid.  in1/out1 are used by the wave
-// kind only.  Returns a cudaError_t code.
+// (in0[, in1]) on the whole (Z, Y, X) grid.  in1/out1 are used by the
+// two-field kinds only (wave: u_prev; Gray-Scott: v).  Returns a cudaError_t
+// code.
 EXPORT int fused_step_f32(int kind, const float* in0, const float* in1,
                           float* out0, float* out1, int Z, int Y, int X, int k,
                           int periodic, float a, float c0, float c1, float c2,

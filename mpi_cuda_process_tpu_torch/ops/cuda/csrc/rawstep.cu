@@ -1,16 +1,20 @@
-// K1 raw_step_heat<KIND> and K2 raw_step_wave: one whole guard-frame step
-// on the raw (Z, Y, X) float32 grid.
+// K1 raw_step_heat<KIND>, K2 raw_step_wave and raw_step_grayscott: one
+// whole guard-frame step on the raw (Z, Y, X) float32 grid.
 //
 // Replaces: the TPU package's ops/pallas/rawstep.py — make_raw_step's
-// _heat_kernel with the _taps7 / _taps27 / _taps13 tap sets (K1) and
-// _wave_kernel (K2).  There the grid is cut into z-chunks held in VMEM with
-// halo planes fetched by clamped BlockSpecs and y/x taps done as rolls;
-// here every thread owns one (y, x) column and marches over a run of ZRUN
-// z planes, reading its neighbours straight from device memory.
+// _heat_kernel with the _taps7 / _taps27 / _taps13 / _taps_advect tap sets
+// (K1; KIND = ADVECT is the upwind advection step), _wave_kernel (K2) and
+// _grayscott_kernel (raw_step_grayscott: two fields in, both read with
+// their neighbours, two out, both frame-pinned).  There the grid is cut
+// into z-chunks held in VMEM with halo planes fetched by clamped BlockSpecs
+// and y/x taps done as rolls; here every thread owns one (y, x) column and
+// marches over a run of ZRUN z planes, reading its neighbours straight from
+// device memory.
 //
 // Bound on an H100: device-memory bytes.  The step must read the grid once
-// and write it once (K2 also reads u_prev): 2 (K2: 3) x 4 B per cell against
-// ~0.2 (7-point) to ~0.7 (27-point) flop/B — far below the card's ~20
+// and write it once (K2 also reads u_prev, Gray-Scott reads and writes two
+// fields): 2 (K2: 3, Gray-Scott: 4) x 4 B per cell against ~0.2 (7-point)
+// to ~0.7 (27-point) flop/B — far below the card's ~20
 // flop/B float32 ridge.  Design against that bound: a warp covers 32
 // consecutive x cells, so every load and store is a coalesced 128-byte
 // line; the z/y neighbours of a cell are the centre loads of the threads
@@ -41,8 +45,9 @@ raw_step_heat(const float* __restrict__ u, float* __restrict__ out, int Z,
   const int z1 = min(z0 + ZRUN, Z);
   for (int z = z0; z < z1; ++z) {
     const long i = z * sz + y * sy + x;
-    out[i] = in_frame(z, y, x, Z, Y, X, h) ? u[i]
-                                           : heat_update<KIND>(u + i, sy, sz, c);
+    out[i] = in_frame(z, y, x, Z, Y, X, h)
+                 ? u[i]
+                 : field_update<KIND>(u + i, sy, sz, c);
   }
 }
 
@@ -60,6 +65,30 @@ raw_step_wave(const float* __restrict__ u, const float* __restrict__ uprev,
     // frame keeps the old u: by induction it still holds the wall value
     out[i] = in_frame(z, y, x, Z, Y, X, 1) ? u[i]
                                            : wave_update(u + i, uprev[i], sy, sz, c);
+  }
+}
+
+__global__ void __launch_bounds__(BX * BY)
+raw_step_grayscott(const float* __restrict__ u, const float* __restrict__ v,
+                   float* __restrict__ ou, float* __restrict__ ov, int Z,
+                   int Y, int X, Coef c) {
+  const int x = blockIdx.x * BX + threadIdx.x;
+  const int y = blockIdx.y * BY + threadIdx.y;
+  if (x >= X || y >= Y) return;
+  const long sy = X, sz = static_cast<long>(X) * Y;
+  const int z0 = blockIdx.z * ZRUN;
+  const int z1 = min(z0 + ZRUN, Z);
+  for (int z = z0; z < z1; ++z) {
+    const long i = z * sz + y * sy + x;
+    if (in_frame(z, y, x, Z, Y, X, 1)) {
+      ou[i] = u[i];
+      ov[i] = v[i];
+    } else {
+      float nu, nv;
+      grayscott_update(u + i, v + i, sy, sz, c, nu, nv);
+      ou[i] = nu;
+      ov[i] = nv;
+    }
   }
 }
 
@@ -86,6 +115,9 @@ EXPORT int raw_step_heat_f32(int kind, const float* u, float* out, int Z,
     case HEAT13:
       raw_step_heat<HEAT13><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
       break;
+    case ADVECT:
+      raw_step_heat<ADVECT><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
+      break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -99,5 +131,17 @@ EXPORT int raw_step_wave_f32(const float* u, const float* uprev, float* out,
   raw_step_wave<<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
                   static_cast<cudaStream_t>(stream)>>>(u, uprev, out, Z, Y, X,
                                                        c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One Gray-Scott launch on `stream`: (ou, ov) = step(u, v); (du, dv, f, fk)
+// are (Du, Dv, F, F + kappa).  Returns cudaGetLastError().
+EXPORT int raw_step_grayscott_f32(const float* u, const float* v, float* ou,
+                                  float* ov, int Z, int Y, int X, float du,
+                                  float dv, float f, float fk, void* stream) {
+  const Coef c{du, dv, f, fk, 0.f};
+  raw_step_grayscott<<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
+                       static_cast<cudaStream_t>(stream)>>>(u, v, ou, ov, Z,
+                                                            Y, X, c);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,14 +7,17 @@
 // through __fadd_rn / __fsub_rn / __fmul_rn (stencil_taps.cuh) in the plain
 // version's association order (ops/stencil.py::axis_laplacian: faces
 // y-, y+, x-, x+ left-associated, centre term last), so the kernels equal
-// ops/heat.py, ops/wave.py and ops/life.py bit for bit.
+// ops/heat.py, ops/wave.py, ops/life.py, ops/advection.py and
+// ops/reaction.py bit for bit.
 
 #pragma once
 
 #include "stencil_taps.cuh"
 
 // 2D stencil kinds; the Python wrappers pass the same integers.
-enum Stencil2DKind { HEAT5 = 4, WAVE5 = 5, LIFE = 6 };
+enum Stencil2DKind {
+  HEAT5 = 4, WAVE5 = 5, LIFE = 6, ADVECT2D = 9, GRAYSCOTT2D = 10
+};
 
 // Element type of a kind's fields: int32 occupancy for Life, float32 else.
 template <int KIND>
@@ -44,6 +47,37 @@ __device__ __forceinline__ float heat5(const float* p, long sy, float alpha) {
 __device__ __forceinline__ float wave5(const float* p, float uprev, long sy,
                                        float c2dt2) {
   return fadd(fsub(fmul(2.0f, p[0]), uprev), fmul(c2dt2, lap5(p, sy)));
+}
+
+// advect2d: per axis y, x in turn, c > 0 subtracts c (u - the cell before),
+// c < 0 subtracts c (the cell after - u), c == 0 adds nothing.
+__device__ __forceinline__ float advect5(const float* p, long sy, float cy,
+                                         float cx) {
+  const float u = p[0];
+  float acc = u;
+  if (cy > 0.0f) {
+    acc = fsub(acc, fmul(cy, fsub(u, p[-sy])));
+  } else if (cy < 0.0f) {
+    acc = fsub(acc, fmul(cy, fsub(p[sy], u)));
+  }
+  if (cx > 0.0f) {
+    acc = fsub(acc, fmul(cx, fsub(u, p[-1])));
+  } else if (cx < 0.0f) {
+    acc = fsub(acc, fmul(cx, fsub(p[1], u)));
+  }
+  return acc;
+}
+
+// grayscott2d, both fields read with their neighbours; c = (Du, Dv, F,
+// F + kappa) in (a, c0, c1, c2), as stencil_taps.cuh::grayscott_update.
+__device__ __forceinline__ void grayscott5(const float* pu, const float* pv,
+                                           long sy, const Coef& c, float& nu,
+                                           float& nv) {
+  const float u = pu[0], v = pv[0];
+  const float uvv = fmul(fmul(u, v), v);
+  nu = fadd(fsub(fadd(u, fmul(c.a, lap5(pu, sy))), uvv),
+            fmul(c.c1, fsub(1.0f, u)));
+  nv = fsub(fadd(fadd(v, fmul(c.c0, lap5(pv, sy))), uvv), fmul(c.c2, v));
 }
 
 // B3/S23: alive next when 3 neighbours are, or 2 are and the cell is (== 1).

@@ -10,7 +10,9 @@
 // sum is rounded exactly as the plain PyTorch version (ops/heat.py,
 // ops/wave.py) rounds it, in the same association order: the kernels agree
 // with their plain versions bit for bit on the same inputs, and frame cells
-// are copied verbatim.
+// are copied verbatim.  The same holds for advection (ops/advection.py) and
+// Gray-Scott (ops/reaction.py), whose compound constants arrive as one float
+// each, rounded once from the plain version's own double (F + kappa).
 
 #pragma once
 
@@ -18,12 +20,18 @@
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
-// Stencil kinds; the Python wrappers pass the same integers.
-enum StencilKind { HEAT7 = 0, HEAT27 = 1, HEAT13 = 2, WAVE7 = 3 };
+// Stencil kinds; the Python wrappers pass the same integers (4-6, 9 and 10
+// are the 2D kinds of stencil2d.cuh).
+enum StencilKind {
+  HEAT7 = 0, HEAT27 = 1, HEAT13 = 2, WAVE7 = 3, ADVECT = 7, GRAYSCOTT = 8
+};
 
-// Coefficients from ops/heat.py / ops/wave.py (the only copy of the
-// weights): `a` is alpha (heat) or c2dt2 (wave); c0..c3 are the kind's
-// weights (27-point: centre, face, edge, corner; 13-point: centre, w1, w2).
+// Coefficients from the op modules (the only copy of the constants), as
+// rawstep.py::coefficients orders them: `a` is alpha (heat) or c2dt2
+// (wave); c0..c3 are the kind's weights (27-point: centre, face, edge,
+// corner; 13-point: centre, w1, w2).  Advection: (a, c0, c1) = the Courant
+// numbers (cz, cy, cx).  Gray-Scott: (a, c0, c1, c2) = (Du, Dv, F,
+// F + kappa).
 struct Coef {
   float a, c0, c1, c2, c3;
 };
@@ -108,6 +116,48 @@ __device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
   }
 }
 
+// First-order upwind advection: per axis z, y, x in turn, c > 0 subtracts
+// c (u - the cell before), c < 0 subtracts c (the cell after - u), and a
+// zero Courant number adds nothing (the plain version skips its term).
+template <class A>
+__device__ __forceinline__ float advect_update(const A& a, const Coef& c) {
+  const float u = a(0, 0, 0);
+  const float cs[3] = {c.a, c.c0, c.c1};
+  float acc = u;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    if (cs[d] > 0.0f) {
+      acc = fsub(acc, fmul(cs[d], fsub(u, along(a, d, -1))));
+    } else if (cs[d] < 0.0f) {
+      acc = fsub(acc, fmul(cs[d], fsub(along(a, d, 1), u)));
+    }
+  }
+  return acc;
+}
+
+// New value of a single-field cell: advection or a heat kind.
+template <int KIND, class A>
+__device__ __forceinline__ float field_update(const A& a, const Coef& c) {
+  if constexpr (KIND == ADVECT) {
+    return advect_update(a, c);
+  } else {
+    return heat_update<KIND>(a, c);
+  }
+}
+
+// Gray-Scott, both fields read with their neighbours:
+//   u' = ((u + Du lap7(u)) - (u v) v) + F (1 - u)
+//   v' = ((v + Dv lap7(v)) + (u v) v) - (F + kappa) v
+template <class A>
+__device__ __forceinline__ void grayscott_update(const A& au, const A& av,
+                                                 const Coef& c, float& nu,
+                                                 float& nv) {
+  const float u = au(0, 0, 0), v = av(0, 0, 0);
+  const float uvv = fmul(fmul(u, v), v);
+  nu = fadd(fsub(fadd(u, fmul(c.a, lap7(au))), uvv), fmul(c.c1, fsub(1.0f, u)));
+  nv = fsub(fadd(fadd(v, fmul(c.c0, lap7(av))), uvv), fmul(c.c2, v));
+}
+
 // Leapfrog wave update: (2 u - u_prev) + c2dt2 * lap7(u).
 template <class A>
 __device__ __forceinline__ float wave_update(const A& a, float uprev,
@@ -126,6 +176,19 @@ __device__ __forceinline__ float heat_update(const float* p, long sy, long sz,
 __device__ __forceinline__ float wave_update(const float* p, float uprev,
                                              long sy, long sz, const Coef& c) {
   return wave_update(Strided{p, sy, sz}, uprev, c);
+}
+
+template <int KIND>
+__device__ __forceinline__ float field_update(const float* p, long sy,
+                                              long sz, const Coef& c) {
+  return field_update<KIND>(Strided{p, sy, sz}, c);
+}
+
+__device__ __forceinline__ void grayscott_update(const float* pu,
+                                                 const float* pv, long sy,
+                                                 long sz, const Coef& c,
+                                                 float& nu, float& nv) {
+  grayscott_update(Strided{pu, sy, sz}, Strided{pv, sy, sz}, c, nu, nv);
 }
 
 // Guard-frame predicate on GLOBAL coordinates (out-of-domain ghost

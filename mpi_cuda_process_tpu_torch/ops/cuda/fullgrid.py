@@ -1,21 +1,23 @@
 """2D temporal blocking, k steps per device-memory pass: K8.
 
 ``fullgrid_step`` (``csrc/fullgrid.cu::fullgrid_step<KIND, RAW>``) advances
-heat2d / mdf, wave2d or life by k guard-frame (or periodic) steps on the
-whole grid; ``fullgrid_padded`` (``fullgrid_step<KIND, PADDED>``) does the
-same for one row shard from its padded block (the width-m row exchange)
-and the shard's global first row.  Both are bit-exact with k plain steps.
+heat2d / mdf, wave2d, life, advect2d or grayscott2d by k guard-frame (or
+periodic) steps on the whole grid; ``fullgrid_padded``
+(``fullgrid_step<KIND, PADDED>``) does the same for one row shard from its
+padded block (the width-m row exchange) and the shard's global first row.
+Both are bit-exact with k plain steps.
 
-Replaces the TPU package's ``ops/pallas/fullgrid.py`` — ``_build_call``
-with ``_micro_life`` and the ``_MICRO2D`` micro-steps of heat2d, mdf and
-wave2d — behind the same two builders, :func:`make_fullgrid_step` and
-:func:`build_fullgrid_masked_call`.  The TPU kernel keeps the whole grid in
-VMEM; an SM's shared memory holds a small fraction of it, so K8 tiles the
-grid into overlapped windows (the kernel source says how).  The TPU rules
-that follow from VMEM and the (8, 128) tiling — ``W % 128``, ``m`` and the
-local rows a multiple of the sublane, the live-copy VMEM budget — do not
-apply; added is the shared-memory fit of one window.  Bound on an H100:
-device-memory bytes, one read and one write of each field per k steps.
+Replaces the TPU package's ``ops/pallas/fullgrid.py`` — ``_build_call`` with
+``_micro_life`` and the ``_MICRO2D`` micro-steps of heat2d, mdf, wave2d,
+advect2d and grayscott2d — behind the same two builders,
+:func:`make_fullgrid_step` and :func:`build_fullgrid_masked_call`.  The TPU
+kernel keeps the whole grid in VMEM; an SM's shared memory holds a small
+fraction of it, so K8 tiles the grid into overlapped windows (the kernel
+source says how).  The TPU rules that follow from VMEM and the (8, 128)
+tiling — ``W % 128``, ``m`` and the local rows a multiple of the sublane,
+the live-copy VMEM budget — do not apply; added is the shared-memory fit of
+one window.  Bound on an H100: device-memory bytes, one read and one write
+of each field per k steps.
 
 Plain PyTorch versions: k applications of ``driver.make_step`` for the
 whole grid; for a shard, k plain steps of its padded block
@@ -33,9 +35,10 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ...driver import make_step
+from .. import reaction
 from ..stencil import Fields, Stencil
 from . import _build
-from .fused import SMEM_LIMIT, _plain_window_steps
+from .fused import SMEM_LIMIT, _plain_window_steps, buffers
 
 # Launches per wrapper and stencil, keyed "fullgrid_step[life]" or
 # "fullgrid_padded[heat2d]": one added where a kernel launches, nowhere
@@ -45,11 +48,11 @@ launches: Counter = Counter()
 # name -> (kernel kind of csrc/stencil2d.cuh, field dtype).  mdf is heat2d
 # under another registry name (its stencil's name is "heat2d").
 _FULLGRID = {"heat2d": (4, torch.float32), "wave2d": (5, torch.float32),
-             "life": (6, torch.int32)}
+             "life": (6, torch.int32), "advect2d": (9, torch.float32),
+             "grayscott2d": (10, torch.float32)}
 # 2D families of the TPU kernel whose stencils the port does not have yet.
-_UNPORTED_2D = ("advect2d", "grayscott2d", "sor2d")
-STENCILS_ITEM = ("ROADMAP A1 (the advect2d, grayscott2d and sor2d "
-                 "stencils and their micro-steps)")
+_UNPORTED_2D = ("sor2d",)
+STENCILS_ITEM = "ROADMAP A1 (the sor2d stencil and its micro-step)"
 
 # Core tile (TY, TX) each block writes; threads stride over it as (8, 32).
 CORE = (32, 64)
@@ -71,30 +74,40 @@ def fullgrid_supported(stencil: Stencil) -> bool:
     return stencil.ndim == 2 and stencil.name in _FULLGRID
 
 
-def smem_bytes(k: int, itemsize: int = 4) -> int:
-    """Two window buffers of ``CORE + 2k`` cells."""
+def smem_bytes(k: int, itemsize: int = 4, nbuf: int = 2) -> int:
+    """``nbuf`` window buffers of ``CORE + 2k`` cells (``fused.buffers``:
+    two, or four for Gray-Scott, whose two fields are both read with their
+    neighbours)."""
     ty, tx = CORE
-    return 2 * itemsize * (ty + 2 * k) * (tx + 2 * k)
+    return nbuf * itemsize * (ty + 2 * k) * (tx + 2 * k)
 
 
-def fits(k: int) -> bool:
-    """Whether one launch of k micro-steps fits a block's shared memory."""
-    return smem_bytes(k) <= SMEM_LIMIT
+def fits(stencil: Stencil, k: int) -> bool:
+    """Whether one launch of k micro-steps of ``stencil`` fits a block's
+    shared memory."""
+    return smem_bytes(k, nbuf=buffers(stencil)) <= SMEM_LIMIT
 
 
-def _coefficient(stencil: Stencil) -> float:
+def _coefficients(stencil: Stencil):
+    """``(a, c0, c1, c2, c3)`` of the kernel's ``Coef``: alpha (heat2d),
+    c2dt2 (wave2d), the Courant numbers (cy, cx) (advect2d) or (Du, Dv, F,
+    F + kappa) (grayscott2d)."""
     p = stencil.params
-    return float(p.get("alpha", p.get("c2dt2", 0.0)))
+    if stencil.name == "advect2d":
+        return tuple(p["courant"]) + (0.0, 0.0, 0.0)
+    if stencil.name == "grayscott2d":
+        return reaction.coefficients(stencil) + (0.0,)
+    return (float(p.get("alpha", p.get("c2dt2", 0.0))), 0.0, 0.0, 0.0, 0.0)
 
 
 def _lib():
     lib = _build.load("fullgrid")
     if lib.fullgrid_raw.argtypes is None:
         lib.fullgrid_raw.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_float]
+            [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_float] * 5
             + [_c_int] * 2 + [_c_ptr])
         lib.fullgrid_padded.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float]
+            [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float] * 5
             + [_c_int] * 2 + [_c_ptr])
     return lib
 
@@ -118,13 +131,13 @@ def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
     _build.check_operands("fullgrid_step", *fields, shape=(H, W),
                           dtype=dtype, ndim=2)
     lib = _lib()
-    a = _coefficient(stencil)
+    coef = _coefficients(stencil)
     left = k
     while left > 0:
         kk = min(left, K_PER_LAUNCH)
         outs = tuple(torch.empty_like(f) for f in fields)
         rc = lib.fullgrid_raw(kind, *_pointers(fields), *_pointers(outs),
-                              H, W, kk, int(periodic), a, *CORE,
+                              H, W, kk, int(periodic), *coef, *CORE,
                               _build.stream_of(fields[0]))
         _build.check(lib, rc, "fullgrid_step")
         launches[f"fullgrid_step[{stencil.name}]"] += 1
@@ -150,7 +163,7 @@ def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
                                   (global_rows, W), periodic, wrap_axes=(1,))
         return tuple(f[m:m + Ly].contiguous() for f in out)
     kind, dtype = _FULLGRID[stencil.name]
-    if not fits(k) or Ly < 1:
+    if not fits(stencil, k) or Ly < 1:
         raise ValueError(f"fullgrid_padded: {stencil.name} k={k} on "
                          f"{(Hp, W)} not supported")
     _build.check_operands("fullgrid_padded", *padded, shape=(Hp, W),
@@ -160,7 +173,7 @@ def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
     lib = _lib()
     rc = lib.fullgrid_padded(kind, *_pointers(padded), *_pointers(outs), Ly,
                              W, int(global_rows), int(origin_y), k,
-                             int(periodic), _coefficient(stencil), *CORE,
+                             int(periodic), *_coefficients(stencil), *CORE,
                              _build.stream_of(padded[0]))
     _build.check(lib, rc, "fullgrid_padded")
     launches[f"fullgrid_padded[{stencil.name}]"] += 1
@@ -215,7 +228,7 @@ def build_fullgrid_masked_call(
     if not periodic and global_shape is None:
         return None
     Hp, _W = (int(s) for s in padded_shape)
-    if m != k * stencil.halo or Hp - 2 * m < m or not fits(k):
+    if m != k * stencil.halo or Hp - 2 * m < m or not fits(stencil, k):
         return None
     rows = None if global_shape is None else int(global_shape[0])
     if device is not None and torch.device(device).type == "cuda":

@@ -1,27 +1,28 @@
 """Temporal blocking, k steps per device-memory pass: K3, K6 and K9.
 
 ``fused_step`` (``csrc/fused.cu::fused_step<KIND, RAW>``) advances heat3d,
-heat3d27, heat3d4th or wave3d by k guard-frame (or periodic) steps in one
-kernel launch, by overlapped tiling in shared memory.  Its sharded mode,
-``fused_step_padded`` (``fused_step<KIND, PADDED>``), does the same for one
-shard from its z/y-padded block and the shard's global origin: the
-``sharded_global`` mode of the TPU builder.  ``fused_zslab`` (K6,
-``fused_step<KIND, ZSLAB>``) takes a z-only shard's core and its two
+heat3d27, heat3d4th, wave3d, advect3d or grayscott3d by k guard-frame (or
+periodic) steps in one kernel launch, by overlapped tiling in shared memory.
+Its sharded mode, ``fused_step_padded`` (``fused_step<KIND, PADDED>``), does
+the same for one shard from its z/y-padded block and the shard's global
+origin: the ``sharded_global`` mode of the TPU builder.  ``fused_zslab``
+(K6, ``fused_step<KIND, ZSLAB>``) takes a z-only shard's core and its two
 exchanged z slabs as separate operands instead, so no padded block exists;
 ``fused_yzslab`` (K9, ``fused_step<KIND, YZSLAB>``) does the same for a
 shard of a mesh that shards y: the core, two z slabs, two y slabs and the
 four corner pieces.  ``build_overlap_shell_calls`` builds the overlapped
 step's boundary shells: K3's sharded mode over a ``2m``-deep core, counted
-apart as ``fused_shell``.
+apart as ``fused_shell``.  K6 and K9 do not take advect3d and grayscott3d
+yet: their builders raise naming ROADMAP B4.
 
 Replaces the TPU package's ``ops/pallas/fused.py::build_fused_call``
 (``_fused_kernel``, ``_fused_raw_kernel`` with the ``_micro_heat``/
-``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave`` micro-steps),
-``build_zslab_padfree_call`` (``_fused_zslab_kernel``),
-``build_yzslab_padfree_call`` (``_fused_yzslab_kernel``) and
-``build_overlap_shell_calls``.  Bound on an H100: device-memory bytes, one
-read and one write of each field per k steps; the kernel source says what
-its design pays for that.
+``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave``/``_micro_advect``/
+``_micro_grayscott`` micro-steps), ``build_zslab_padfree_call``
+(``_fused_zslab_kernel``), ``build_yzslab_padfree_call``
+(``_fused_yzslab_kernel``) and ``build_overlap_shell_calls``.  Bound on an
+H100: device-memory bytes, one read and one write of each field per k steps;
+the kernel source says what its design pays for that.
 
 Plain PyTorch versions: k applications of the port's ``driver.make_step``
 for ``fused_step``; for the sharded wrappers, k plain steps of the window
@@ -52,15 +53,19 @@ launches: Counter = Counter()
 
 # name -> (kernel kind in stencil_taps.cuh, halo)
 _FUSED = {"heat3d": (0, 1), "heat3d27": (1, 1), "heat3d4th": (2, 2),
-          "wave3d": (3, 1)}
+          "wave3d": (3, 1), "advect3d": (7, 1), "grayscott3d": (8, 1)}
+# K3 families the slab-operand kernels K6 and K9 do not take yet.
+_NOT_PADFREE = ("advect3d", "grayscott3d")
+PADFREE_ITEM = ("ROADMAP B4 (the pad-free slab-operand kernels for "
+                "advect3d and grayscott3d)")
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 227 * 1024
 # Core tile (TZ, TY, TX) each block writes.  32 x-cells keep a warp's loads
 # and stores on consecutive addresses.  Every (stencil, k) the alignment rule
 # accepts either fits at this core (halo-1 k <= 8, heat3d4th k <= 4: at most
-# 221 KB) or at no core at all (the margin alone overflows), so one core
-# serves.
+# 221 KB; Gray-Scott's four buffers k = 4 only, 160 KB) or at no core at all
+# (the margin alone overflows), so one core serves.
 CORE = (8, 8, 32)
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
@@ -70,16 +75,33 @@ def fused_supported(stencil: Stencil) -> bool:
     return stencil.name in _FUSED
 
 
-def smem_bytes(core: Tuple[int, int, int], margin: int) -> int:
-    """Two float32 window buffers of ``core + 2 * margin`` cells."""
+def buffers(stencil: Stencil) -> int:
+    """Window buffers the kernel keeps: a current and a next level per field
+    whose neighbours it reads (Gray-Scott: both fields, so 4); wave's
+    u_prev, read at its own cell only, shares the pair of u."""
+    return 2 * sum(1 for h in stencil.field_halos if h)
+
+
+def smem_bytes(core: Tuple[int, int, int], margin: int,
+               nbuf: int = 2) -> int:
+    """``nbuf`` float32 window buffers of ``core + 2 * margin`` cells."""
     tz, ty, tx = core
-    return 2 * 4 * (tz + 2 * margin) * (ty + 2 * margin) * (tx + 2 * margin)
+    return nbuf * 4 * (tz + 2 * margin) * (ty + 2 * margin) * (
+        tx + 2 * margin)
 
 
 def fits(stencil: Stencil, k: int) -> bool:
-    """Whether the two window buffers of ``CORE`` at margin ``k * halo``
-    fit one block's shared memory."""
-    return smem_bytes(CORE, k * _FUSED[stencil.name][1]) <= SMEM_LIMIT
+    """Whether the window buffers of ``CORE`` at margin ``k * halo`` fit one
+    block's shared memory."""
+    return smem_bytes(CORE, k * _FUSED[stencil.name][1],
+                      buffers(stencil)) <= SMEM_LIMIT
+
+
+def refuse_padfree(stencil: Stencil) -> None:
+    """Raise for the K3 families that K6 and K9 do not take yet."""
+    if stencil.name in _NOT_PADFREE:
+        raise NotImplementedError(
+            f"--fuse-kind padfree for {stencil.name}: {PADFREE_ITEM}")
 
 
 def _sublane(itemsize: int) -> int:
@@ -283,6 +305,7 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     exchanged (m, Y, X) z slabs below (``zlo``) and above (``zhi``) it, per
     field; ``origin_z`` is the core's first global z plane of ``global_z``.
     Returns the (Lz, Y, X) core of every field, k steps on."""
+    refuse_padfree(stencil)
     m = k * stencil.halo
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -342,6 +365,7 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     index of the core's first cell in a ``global_shape`` grid.  Returns
     the (Lz, Ly, X) core of every field, k steps on.
     """
+    refuse_padfree(stencil)
     m = k * stencil.halo
     Lz, Ly, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -432,8 +456,10 @@ def build_zslab_padfree_call(
     The call takes the shard's global z origin, then per field the
     (Lz, Y, X) core, the lower and the upper (m, Y, X) slab, and returns
     the core fields advanced k steps.  None as for :func:`build_fused_call`
-    (a local z extent below the margin included).
+    (a local z extent below the margin included); advect3d and grayscott3d
+    raise naming ROADMAP B4.
     """
+    refuse_padfree(stencil)
     margin = margin_of(stencil, k)
     if margin is None:
         return None
@@ -474,7 +500,9 @@ def build_yzslab_padfree_call(
     also for a window too large for shared memory.  The TPU tiling rule
     and its 2m duplication of the y operands (sublane alignment) do not
     apply: the kernel masks ragged blocks and reads m-wide pieces.
+    advect3d and grayscott3d raise naming ROADMAP B4.
     """
+    refuse_padfree(stencil)
     margin = margin_of(stencil, k)
     if margin is None:
         return None
@@ -555,9 +583,9 @@ def make_fused_step(
     by its alignment rule — ``2 * k * halo`` a multiple of 8 for float32
     (16 for bfloat16): halo-1 stencils need k in {4, 8, ...}, heat3d4th k in
     {2, 4, ...} — and for windows too large for shared memory (halo-1
-    k >= 12, heat3d4th k >= 6).  Any grid extent is accepted: the kernel
-    masks the ragged edge.  With a CUDA ``device`` the kernels are built
-    here, before the time loop.
+    k >= 12, heat3d4th k >= 6, grayscott3d k >= 8).  Any grid extent is
+    accepted: the kernel masks the ragged edge.  With a CUDA ``device`` the
+    kernels are built here, before the time loop.
     """
     if len(global_shape) != 3 or margin_of(stencil, k) is None:
         return None

@@ -1,15 +1,17 @@
-"""Whole-step kernels on the raw (unpadded) 3D grid: K1 and K2.
+"""Whole-step kernels on the raw (unpadded) 3D grid: K1, K2 and Gray-Scott's.
 
 ``raw_step_heat`` (K1, ``csrc/rawstep.cu::raw_step_heat<KIND>``) advances
-heat3d, heat3d27 or heat3d4th one guard-frame step; ``raw_step_wave`` (K2,
-``csrc/rawstep.cu::raw_step_wave``) advances wave3d.  The state is its own
-halo: frame cells are the guard cells, so no padded copy is ever made.
+heat3d, heat3d27, heat3d4th or advect3d one guard-frame step;
+``raw_step_wave`` (K2, ``csrc/rawstep.cu::raw_step_wave``) advances wave3d;
+``raw_step_grayscott`` (``csrc/rawstep.cu::raw_step_grayscott``) advances
+grayscott3d, both of its fields.  The state is its own halo: frame cells are
+the guard cells, so no padded copy is ever made.
 
 Replaces the TPU package's ``ops/pallas/rawstep.py::make_raw_step``
-(``_heat_kernel`` with ``_taps7``/``_taps27``/``_taps13``, and
-``_wave_kernel``).  Bound on an H100: device-memory bytes (one read of each
-input field and one write per step); the kernel source says what its design
-does about that.
+(``_heat_kernel`` with ``_taps7``/``_taps27``/``_taps13``/``_taps_advect``,
+``_wave_kernel`` and ``_grayscott_kernel``).  Bound on an H100:
+device-memory bytes (one read of each input field and one write per step);
+the kernel source says what its design does about that.
 
 Beside each kernel sits its plain PyTorch version, the port's
 ``driver.make_step``; a wrapper takes it only for a tensor on the CPU.  On a
@@ -25,6 +27,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ...driver import make_step
+from .. import reaction
 from ..heat import W27_CENTER, W27_CORNER, W27_EDGE, W27_FACE, W4TH, w4th_center
 from ..stencil import Fields, Stencil
 from . import _build
@@ -33,13 +36,15 @@ from . import _build
 # where a kernel launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
-_HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2}
+# one-field kinds of K1 (csrc/stencil_taps.cuh)
+_HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2, "advect3d": 7}
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 
 def coefficients(stencil: Stencil):
-    """``(a, c0, c1, c2, c3)`` for the C entry points (stencil_taps.cuh)."""
+    """``(a, c0, c1, c2, c3)`` for the C entry points of the 3D kernels
+    (``Coef`` in stencil_taps.cuh)."""
     p = stencil.params
     if stencil.name == "heat3d":
         return (p["alpha"], 0.0, 0.0, 0.0, 0.0)
@@ -49,6 +54,10 @@ def coefficients(stencil: Stencil):
         return (p["alpha"], w4th_center(3), W4TH[1], W4TH[2], 0.0)
     if stencil.name == "wave3d":
         return (p["c2dt2"], 0.0, 0.0, 0.0, 0.0)
+    if stencil.name == "advect3d":
+        return tuple(p["courant"]) + (0.0, 0.0)  # (cz, cy, cx)
+    if stencil.name == "grayscott3d":
+        return reaction.coefficients(stencil) + (0.0,)
     raise ValueError(f"no CUDA kernel for {stencil.name!r}")
 
 
@@ -60,11 +69,14 @@ def _lib():
             + [_c_ptr])
         lib.raw_step_wave_f32.argtypes = (
             [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
+        lib.raw_step_grayscott_f32.argtypes = (
+            [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 4 + [_c_ptr])
     return lib
 
 
 def raw_step_heat(u: torch.Tensor, stencil: Stencil) -> torch.Tensor:
-    """One guard-frame step of a heat-family stencil: new (Z, Y, X) grid."""
+    """One guard-frame step of a one-field stencil (heat3d, heat3d27,
+    heat3d4th, advect3d): the new (Z, Y, X) grid."""
     if not u.is_cuda:
         return make_step(stencil, u.shape)((u,))[0]
     kind = _HEAT_KIND[stencil.name]
@@ -97,8 +109,26 @@ def raw_step_wave(u: torch.Tensor, uprev: torch.Tensor,
     return out
 
 
+def raw_step_grayscott(u: torch.Tensor, v: torch.Tensor,
+                       stencil: Stencil) -> Fields:
+    """One guard-frame step of grayscott3d: the new ``(u, v)``."""
+    if not u.is_cuda:
+        return make_step(stencil, u.shape)((u, v))
+    _build.check_operands("raw_step_grayscott", u, v, shape=tuple(u.shape))
+    ou, ov = torch.empty_like(u), torch.empty_like(v)
+    lib = _lib()
+    Z, Y, X = u.shape
+    rc = lib.raw_step_grayscott_f32(
+        u.data_ptr(), v.data_ptr(), ou.data_ptr(), ov.data_ptr(), Z, Y, X,
+        *coefficients(stencil)[:4], _build.stream_of(u))
+    _build.check(lib, rc, "raw_step_grayscott")
+    launches[f"raw_step_grayscott[{stencil.name}]"] += 1
+    return ou, ov
+
+
 def raw_step_supported(stencil: Stencil) -> bool:
-    return stencil.name in _HEAT_KIND or stencil.name == "wave3d"
+    return stencil.name in _HEAT_KIND or stencil.name in ("wave3d",
+                                                          "grayscott3d")
 
 
 def make_raw_step(
@@ -124,6 +154,12 @@ def make_raw_step(
         def step(fields: Fields) -> Fields:
             u, uprev = fields
             return (raw_step_wave(u, uprev, stencil), u)  # new u_prev = old u
+
+        return step
+
+    if stencil.name == "grayscott3d":
+        def step(fields: Fields) -> Fields:
+            return raw_step_grayscott(*fields, stencil)
 
         return step
 

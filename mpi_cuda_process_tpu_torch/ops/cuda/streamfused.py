@@ -2,14 +2,15 @@
 
 ``stream_step`` (``csrc/streamfused.cu::stream_step<KIND, RAW>``) advances
 heat3d, heat3d27, heat3d4th or wave3d by k guard-frame steps in one launch
-over the whole grid.  Each block marches a (TY, TX) column of the grid down
-z as a wavefront in time, so every plane of its window is read from device
-memory once per pass (K3 re-reads the z margin of every window).
-``stream_zslab`` (``<KIND, ZSLAB>``) does the same for a z-only shard from
-its core and its two exchanged z slabs; ``stream_yzslab``
-(``<KIND, YZSLAB>``) for a shard of a mesh that shards y, from the core,
-the z and y slabs and the four corner pieces of
-``halo.exchange_slabs_2axis`` at their natural widths.
+over the whole grid (advect3d and grayscott3d, the other K3 families, raise
+naming ROADMAP B5: Gray-Scott's second field needs rings of its own).  Each
+block marches a (TY, TX) column of the grid down z as a wavefront in time,
+so every plane of its window is read from device memory once per pass (K3
+re-reads the z margin of every window).  ``stream_zslab``
+(``<KIND, ZSLAB>``) does the same for a z-only shard from its core and its
+two exchanged z slabs; ``stream_yzslab`` (``<KIND, YZSLAB>``) for a shard
+of a mesh that shards y, from the core, the z and y slabs and the four
+corner pieces of ``halo.exchange_slabs_2axis`` at their natural widths.
 
 Replaces the TPU package's ``ops/pallas/streamfused.py``:
 ``make_stream_fused_step`` (``_stream_kernel``),
@@ -54,6 +55,13 @@ launches: Counter = Counter()
 # (1 + 8/16)(1 + 8/64) = 1.69x its cells and two blocks share an SM.
 TILE = (16, 64)
 
+# The K3 families the streaming kernel has a kind for, and those it has not
+# yet (their stream runs raise by name).
+_STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d")
+_NOT_STREAM = ("advect3d", "grayscott3d")
+STREAM_ITEM = ("ROADMAP B5 (the streaming kernel for advect3d and "
+               "grayscott3d)")
+
 _POLICY_ITEM = "ROADMAP A8 (policy)"
 _ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
 
@@ -61,7 +69,12 @@ _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 
 def stream_supported(stencil: Stencil) -> bool:
-    return stencil.name in _FUSED and stencil.ndim == 3
+    """Whether the streaming kernel has a kind for ``stencil``; the K3
+    families it does not take yet raise naming ROADMAP B5."""
+    if stencil.name in _NOT_STREAM:
+        raise NotImplementedError(
+            f"--fuse-kind stream for {stencil.name}: {STREAM_ITEM}")
+    return stencil.name in _STREAM and stencil.ndim == 3
 
 
 def smem_bytes(stencil: Stencil, k: int) -> int:
@@ -110,6 +123,7 @@ def _gate(what: str, stencil: Stencil, k: int) -> int:
 def stream_step(fields: Fields, stencil: Stencil, k: int) -> Fields:
     """``k`` guard-frame steps of ``stencil`` on the whole grid in one
     launch."""
+    stream_supported(stencil)  # raises for the families without a kind
     if not fields[0].is_cuda:
         return plain_steps(fields, stencil, k)
     kind = _gate("stream_step", stencil, k)
@@ -133,6 +147,7 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     core and the exchanged (m, Y, X) z slabs below (``zlo``) and above
     (``zhi``) it, per field; ``origin_z`` is the core's first global z
     plane of ``global_z``.  Returns the core fields, k steps on."""
+    stream_supported(stencil)  # raises for the families without a kind
     m = k * stencil.halo
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -162,6 +177,7 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     the operands of ``fused.fused_yzslab`` (the core, two z slabs, two y
     slabs and the corners ll, lh, hl, hh, per field).  Returns the
     (Lz, Ly, X) core of every field, k steps on."""
+    stream_supported(stencil)  # raises for the families without a kind
     m = k * stencil.halo
     Lz, Ly, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -254,7 +270,7 @@ def build_stream_sharded_call(
     local z extent below m (a width-m slab must come from one neighbour).
     """
     _refuse_policy(tiles, margin, order)
-    if periodic or not fits(stencil, k):
+    if not stream_supported(stencil) or periodic or not fits(stencil, k):
         return None
     m = k * stencil.halo
     if int(local_shape[0]) < m:
@@ -295,7 +311,7 @@ def build_stream_2axis_call(
     :func:`build_stream_sharded_call`, with a local z or y extent below m.
     """
     _refuse_policy(tiles, margin, order)
-    if periodic or not fits(stencil, k):
+    if not stream_supported(stencil) or periodic or not fits(stencil, k):
         return None
     m = k * stencil.halo
     if min(int(local_shape[0]), int(local_shape[1])) < m:

@@ -390,8 +390,13 @@ def make_sharded_fused_step(
     axis the step is the non-split one (``step._overlap_active`` says
     which).
 
+    Every field is exchanged, so Gray-Scott's two fields both reach the
+    padded kind with their m-wide pads.
+
     Not ported yet, and raising by name: ``pipeline=True``,
-    ``exchange="rdma"`` and the ensemble axis.
+    ``exchange="rdma"``, the ensemble axis, and the pad-free and stream
+    kinds of advect3d and grayscott3d (ROADMAP B4, B5: their builders
+    raise).
     """
     from ..ops.cuda import fused, streamfused
 

@@ -12,7 +12,9 @@ stream, i.e. cell ``i`` (its row-major flat index) draws
 words, keeps 23 mantissa bits as a float in [0, 1) and compares it with
 the float32 ``density``.  :func:`threefry2x32` computes that hash with
 int64 tensor arithmetic on the block's own device.  ``patch`` (Gray-Scott's
-seed) is not ported yet and raises.
+seed) draws ``uniform(PRNGKey(seed), shape)`` from the same stream (the
+same 23 bits as a float in [0, 1), without the xor'd compare) and rounds
+each product and sum once, as the TPU package's eager ``init_state`` does.
 
 :func:`init_state_sharded` computes each block of a decomposed run on its
 own device from global coordinates (the random kind from global flat
@@ -29,10 +31,6 @@ import torch
 
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil
-
-# ROADMAP item that ports the Gray-Scott patch init.
-_PATCH_INIT_ITEM = ("ROADMAP A2 (the patch init: uniform noise from the "
-                    "same threefry stream, with the Gray-Scott stencils)")
 
 _M32 = 0xFFFFFFFF
 _THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -63,12 +61,11 @@ def _prng_key(seed: int):
     return 0, seed & _M32
 
 
-def _random_block(grid_shape, seed: int, density: float, offsets,
-                      local_shape, dtype, device) -> torch.Tensor:
-    """The block at ``offsets`` (extent ``local_shape``) of the
-    Bernoulli(``density``) occupancy of ``grid_shape``, as ``dtype``."""
+def _uniform_chunks(grid_shape, seed: int, offsets, local_shape, device):
+    """``uniform(PRNGKey(seed), grid_shape)`` over the block at ``offsets``
+    (extent ``local_shape``), in runs of axis-0 rows: yields ``(r0, r1,
+    u)``, the float32 draws of the block's rows ``r0:r1``."""
     k1, k2 = _prng_key(seed)
-    p = torch.tensor(float(density), dtype=torch.float32)
     ndim = len(grid_shape)
     strides = [1] * ndim
     for d in range(ndim - 2, -1, -1):
@@ -83,8 +80,6 @@ def _random_block(grid_shape, seed: int, density: float, offsets,
         tail = tail + (idx * strides[d]).reshape(shape)
     row_cells = max(1, math.prod(int(s) for s in local_shape[1:]))
     rows = max(1, _RANDOM_CHUNK // row_cells)
-    out = torch.empty(tuple(int(s) for s in local_shape), dtype=dtype,
-                      device=device)
     for r0 in range(0, int(local_shape[0]), rows):
         r1 = min(r0 + rows, int(local_shape[0]))
         z = torch.arange(int(offsets[0]) + r0, int(offsets[0]) + r1,
@@ -92,9 +87,37 @@ def _random_block(grid_shape, seed: int, density: float, offsets,
         flat = (z * strides[0]).reshape((-1,) + (1,) * (ndim - 1)) + tail
         b1, b2 = threefry2x32(k1, k2, flat >> 32, flat & _M32)
         bits = ((b1 ^ b2) >> 9) | 0x3F800000
-        u = bits.to(torch.int32).view(torch.float32) - 1.0
-        out[r0:r1] = (u < p.to(device)).to(dtype)
+        yield r0, r1, bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def _random_block(grid_shape, seed: int, density: float, offsets,
+                  local_shape, dtype, device) -> torch.Tensor:
+    """The block at ``offsets`` (extent ``local_shape``) of the
+    Bernoulli(``density``) occupancy of ``grid_shape``, as ``dtype``."""
+    p = torch.tensor(float(density), dtype=torch.float32, device=device)
+    out = torch.empty(tuple(int(s) for s in local_shape), dtype=dtype,
+                      device=device)
+    for r0, r1, u in _uniform_chunks(grid_shape, seed, offsets, local_shape,
+                                     device):
+        out[r0:r1] = (u < p).to(dtype)
     return out
+
+
+def _patch_block(grid_shape, seed: int, offsets, local_shape,
+                 dtype, device):
+    """The block of Gray-Scott's seed: ``u = 1 - 0.5 patch + 0.02 noise``
+    and ``v = 0.25 patch``, where ``patch`` is the centred bump above 0.5
+    and ``noise`` the uniform draw."""
+    bump = _gaussian_bump(grid_shape, device=device, offsets=offsets,
+                          local_shape=local_shape)
+    patch = (bump > 0.5).to(torch.float32)
+    noise = torch.empty(tuple(int(s) for s in local_shape),
+                        dtype=torch.float32, device=device)
+    for r0, r1, u in _uniform_chunks(grid_shape, seed, offsets, local_shape,
+                                     device):
+        noise[r0:r1] = u
+    u = (1.0 - 0.5 * patch + 0.02 * noise).to(dtype)
+    return u, (0.25 * patch).to(dtype)
 
 
 def _gaussian_bump(grid_shape, sigma: float = 0.05, device="cpu",
@@ -150,9 +173,9 @@ def init_state(
       - ``"zero"``: zero interior with guard-frame walls.
       - ``"pulse"``: centred Gaussian bump.
       - ``"auto"``: pick by stencil family.
-      - ``"patch"``: not ported yet (raises).
+      - ``"patch"``: Gray-Scott's seed, the TPU package's bits.
 
-    ``seed`` and ``density`` only feed the random kind.
+    ``seed`` feeds the random and patch kinds, ``density`` the random one.
     """
     grid_shape = tuple(int(g) for g in grid_shape)
     return _init_block(stencil, grid_shape, kind, periodic, device,
@@ -168,9 +191,6 @@ def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
         )
     kind = resolve_kind(stencil, kind)
     dtype = stencil.dtype
-    if kind == "patch":
-        raise NotImplementedError(
-            f"init kind {kind!r} is not ported yet: {_PATCH_INIT_ITEM}")
     if kind == "random":
         x = _random_block(grid_shape, seed, density, offsets,
                               local_shape, dtype, device)
@@ -182,6 +202,17 @@ def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
             torch.zeros(local_shape, dtype=dtype, device=device)
             for _ in range(stencil.num_fields)
         )
+    elif kind == "patch":
+        # reaction-diffusion seed: u ~ 1 with a perturbed central patch, v
+        # nonzero only inside it
+        if stencil.num_fields < 2:
+            raise ValueError(
+                f"init kind 'patch' seeds an activator/inhibitor pair; "
+                f"{stencil.name} has {stencil.num_fields} field(s)")
+        fields = _patch_block(grid_shape, seed, offsets, local_shape, dtype,
+                              device) + tuple(
+            torch.zeros(local_shape, dtype=dtype, device=device)
+            for _ in range(stencil.num_fields - 2))
     elif kind == "pulse":
         u = _gaussian_bump(grid_shape, device=device, offsets=offsets,
                            local_shape=local_shape).to(dtype)

@@ -161,9 +161,18 @@ def test_random_init_sharded_is_bit_identical_to_jax(grid, seed, density, n):
 
 
 def test_patch_init_still_raises_naming_a2():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+    """The patch init is ported (the name is kept from when it raised
+    naming ROADMAP A2): on the one-field heat2d it raises the JAX package's
+    ValueError, on grayscott2d it gives the JAX package's bits."""
+    with pytest.raises(ValueError, match="activator/inhibitor pair"):
         init_state(port.make_stencil("heat2d"), (8, 8), kind="patch",
                    device="cpu")
+    got = init_state(port.make_stencil("grayscott2d"), (16, 24), 5,
+                     kind="patch", device="cpu")
+    ref = jinit_state(jmake_stencil("grayscott2d"), (16, 24), 5, 0.15,
+                      "patch")
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (K1-K10) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K10, Gray-Scott's raw step) against their
+plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -478,3 +479,138 @@ def test_sharded_fullgrid_kernel_matches_plain_sharded_steps(
         mesh.size * (3 if overlap else 1)
     _check(gather_fields(got), gather_fields(ref),
            None if periodic else st.halo, 0 if name == "life" else 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# advection and Gray-Scott: K1 raw_step_heat[advect3d], raw_step_grayscott,
+# K3 fused_step / fused_step_padded / fused_shell, K8 fullgrid_step /
+# fullgrid_padded
+# ---------------------------------------------------------------------------
+
+NEW_3D = [("advect3d", {}), ("advect3d", {"cx": 0.3, "cy": -0.2, "cz": 0.25}),
+          ("advect3d", {"cx": -0.3, "cy": 0.0, "cz": -0.45}),
+          ("grayscott3d", {})]
+NEW_2D = [("advect2d", {}), ("advect2d", {"cx": -0.4, "cy": 0.2}),
+          ("advect2d", {"cx": 0.0, "cy": -0.5}), ("grayscott2d", {})]
+
+
+def _ids(cases):
+    return [n + "".join(f"-{k}{v}" for k, v in kw.items()) for n, kw in cases]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name,kw", NEW_3D, ids=_ids(NEW_3D))
+def test_new_raw_step_kernels_match_plain(dev, name, kw, shape):
+    """K1's advection kind and the Gray-Scott raw step == one plain step,
+    frame cells exact."""
+    st = port.make_stencil(name, **kw)
+    fields = _fields(st, shape, dev, 11)
+    ref = driver.make_step(st, shape)(fields)
+    rawstep.launches.clear()
+    got = rawstep.make_raw_step(st, shape, device=dev)(fields)
+    torch.cuda.synchronize()
+    wrapper = "raw_step_grayscott" if name == "grayscott3d" \
+        else "raw_step_heat"
+    assert dict(rawstep.launches) == {f"{wrapper}[{name}]": 1}
+    assert len(got) == st.num_fields
+    scale = max(float(ref[0].abs().max()), 1.0)
+    _check(got, ref, st.halo, 32 * EPS32 * scale)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name,kw", NEW_3D, ids=_ids(NEW_3D))
+def test_new_fused_kernels_match_plain(dev, name, kw, shape, k, periodic):
+    """K3 for advection and Gray-Scott (four window buffers) == k plain
+    steps; the wrapper takes any k whose window fits."""
+    st = port.make_stencil(name, **kw)
+    fields = _fields(st, shape, dev, 12)
+    plain = driver.make_step(st, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fused.launches.clear()
+    got = fused.fused_step(fields, st, k, periodic=periodic)
+    torch.cuda.synchronize()
+    assert dict(fused.launches) == {f"fused_step[{name}]": 1}
+    _check(got, ref, None if periodic else st.halo, 1e-4)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4,)])
+@pytest.mark.parametrize("name,kw", NEW_3D, ids=_ids(NEW_3D))
+def test_new_sharded_fused_kernels_match_plain_sharded_steps(
+        dev, name, kw, mesh_shape, periodic, overlap):
+    """K3's sharded mode for the two families (both Gray-Scott fields from
+    their padded blocks), with the overlap shells, == k plain sharded
+    steps; overlap equals non-overlap bit for bit."""
+    st = port.make_stencil(name, **kw)
+    shape, k = (48, 48, 40), 4
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 13), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fused.launches.clear()
+    step = make_sharded_fused_step(st, mesh, shape, k, periodic=periodic,
+                                   overlap=overlap, device=dev)
+    got = step(fields)
+    torch.cuda.synchronize()
+    assert step._overlap_active == overlap
+    faces = 2 * sum(c > 1 for c in mesh.counts(3)[:2])
+    want = {f"fused_step_padded[{name}]": mesh.size}
+    if overlap:
+        want[f"fused_shell[{name}]"] = mesh.size * faces
+    assert dict(fused.launches) == want
+    _check(gather_fields(got), gather_fields(ref),
+           None if periodic else st.halo, 1e-4)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 20])
+@pytest.mark.parametrize("shape", SHAPES_2D)
+@pytest.mark.parametrize("name,kw", NEW_2D, ids=_ids(NEW_2D))
+def test_new_fullgrid_kernels_match_plain(dev, name, kw, shape, k, periodic):
+    """K8 for advect2d and grayscott2d (four buffers) == k plain steps."""
+    st = port.make_stencil(name, **kw)
+    fields = _fields_2d(st, shape, dev, 14)
+    plain = driver.make_step(st, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    got = fullgrid.make_fullgrid_step(st, shape, k, periodic=periodic,
+                                      device=dev)(fields)
+    torch.cuda.synchronize()
+    assert dict(fullgrid.launches) == {
+        f"fullgrid_step[{name}]": -(-k // fullgrid.K_PER_LAUNCH)}
+    _check(got, ref, None if periodic else st.halo, 1e-4)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name,kw", NEW_2D, ids=_ids(NEW_2D))
+def test_new_sharded_fullgrid_kernels_match_plain_sharded_steps(
+        dev, name, kw, n, periodic, overlap):
+    st = port.make_stencil(name, **kw)
+    shape, k = (192, 200), 8
+    mesh = make_mesh((n,), [dev] * 4)
+    fields = shard_fields(_fields_2d(st, shape, dev, 15), mesh, 2)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    step = make_sharded_temporal_step(st, mesh, shape, k, periodic=periodic,
+                                      overlap=overlap, device=dev)
+    got = step(fields)
+    torch.cuda.synchronize()
+    assert step._overlap_active == overlap
+    assert dict(fullgrid.launches) == {
+        f"fullgrid_padded[{name}]": mesh.size * (3 if overlap else 1)}
+    _check(gather_fields(got), gather_fields(ref),
+           None if periodic else st.halo, 1e-4)

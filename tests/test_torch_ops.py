@@ -37,7 +37,7 @@ torch.set_num_threads(1)
 
 EPS32 = float(np.finfo(np.float32).eps)
 STENCILS = ["heat2d", "mdf", "heat3d", "heat3d4th", "heat3d27", "wave2d",
-            "wave3d"]
+            "wave3d", "advect2d", "advect3d", "grayscott2d", "grayscott3d"]
 GRIDS = {2: (16, 20), 3: (10, 12, 14)}
 
 
@@ -99,6 +99,10 @@ def test_registry_and_stencil_fields_match_jax():
                   "parity_sensitive"):
             assert getattr(t, f) == getattr(j, f), (name, f)
         assert t.dtype == torch.float32 and t.phases is None
+        # advection and Gray-Scott register no invariant on either side
+        assert (t.invariant is None) == (j.invariant is None), name
+        if j.invariant is None:
+            continue
         assert t.invariant.name == j.invariant.name
         assert (t.invariant.rtol, t.invariant.mode, t.invariant.scale) == (
             j.invariant.rtol, j.invariant.mode, j.invariant.scale)
@@ -161,12 +165,22 @@ def test_init_state_matches_jax(name, kind, periodic):
 
 @pytest.mark.parametrize("kind", ["random", "patch"])
 def test_random_init_kinds_raise_with_roadmap_item(kind):
-    """``patch`` still raises naming ROADMAP A2; ``random`` is ported and
-    must now give the JAX package's bits."""
+    """Both random kinds are ported (the name is kept from when they raised
+    naming ROADMAP A2) and give the JAX package's bits; ``patch`` on a
+    one-field stencil raises the JAX package's own ValueError."""
     st = port.make_stencil("heat2d")
     if kind == "patch":
-        with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        with pytest.raises(ValueError) as je:
+            jinit_state(jmake_stencil("heat2d"), (8, 8), 3, 0.15, kind)
+        with pytest.raises(ValueError) as te:
             tinit_state(st, (8, 8), kind=kind, device="cpu")
+        assert str(te.value) == str(je.value)
+        got = tinit_state(port.make_stencil("grayscott2d"), (8, 8), 3,
+                          kind=kind, device="cpu")
+        ref = jinit_state(jmake_stencil("grayscott2d"), (8, 8), 3, 0.15,
+                          kind)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
         return
     got = tinit_state(st, (8, 8), 3, kind=kind, device="cpu")
     ref = jinit_state(jmake_stencil("heat2d"), (8, 8), 3, 0.15, kind)

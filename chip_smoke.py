@@ -39,7 +39,16 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      K3's sharded mode on 2x2 and 4x1 meshes, its overlap shells and the
      overlapped padded step; K8 fullgrid_step and fullgrid_padded for
      advect2d and grayscott2d at (128, 256) and (130, 258), k = 1, 2, 4,
-     8, guard-frame and periodic, and at 16384^2 (k = 8).  Tolerances:
+     8, guard-frame and periodic, and at 16384^2 (k = 8).  Red-black SOR
+     (the kinds of every k-step kernel, 2k one-colour half-sweeps a pass):
+     K3 fused_step for k = 1..4 and at 512^3, K3's sharded mode on 2x2
+     and 4x1 meshes, K6, K9 on 2x2 and 1x4, the overlap shells and the
+     overlapped padded, z-slab and 2-axis steps, K10 stream_step for k =
+     1, 2, 4 and at 512^3, stream_zslab / stream_yzslab on random pieces
+     and the stream kind's sharded steps with and without the shells, K8
+     fullgrid_step for k = 1, 2, 3, 4, 8 and fullgrid_padded on --mesh 4
+     row splits (with the shells where the rows host them), guard-frame
+     and periodic, each bit-equal (max |d| = 0).  Tolerances:
      raw step atol = 32 eps
      max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
@@ -59,7 +68,11 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      cz=-0.25: both upwind directions) and Gray-Scott (its patch init) at
      512^3 for 40 iterations with --compute jnp, --compute pallas (K1's
      advection kind, raw_step_grayscott) and --fuse 4 (K3), each held
-     against its jnp run;
+     against its jnp run; sor3d at 512^3 for 40 iterations with --compute
+     jnp, --fuse 4 (K3) and --fuse 4 --fuse-kind stream (K10), held
+     against jnp; sor2d at 512^2 as a solver, --fuse 8 --tol 1e-3
+     --tol-check-every 8 against its --compute jnp twin (the same
+     converged step, the same fields);
   5. main path, sharded (MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=4: four
      shards on the one card — decomposition overhead, not scaling):
      ``cli.run()`` at 1024^3 float32, --init pulse, 100 iterations, heat3d
@@ -90,12 +103,18 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      --overlap (the shells); at 16384^2, 96 iterations, advect2d
      (--param cx=-0.4) and grayscott2d with --compute jnp and --fuse 8
      (K8), and grayscott2d --mesh 4 --fuse 8 with and without --overlap,
-     each against the unsharded runs as above;
+     each against the unsharded runs as above.  Red-black SOR: sor3d at
+     1024^3, 20 iterations, --mesh 2,2 with --compute jnp, --fuse 4 (K3
+     sharded) with and without --overlap, --fuse-kind padfree (K9) and
+     stream (K10), and --mesh 4 padfree (K6) and stream; sor2d at 16384^2,
+     96 iterations, jnp, --fuse 8 and --mesh 4 --fuse 8 with and without
+     --overlap, each against its unsharded same-mode and plain runs;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
      the main path's shapes, beside the bound from bytes and flops (K10 at
-     the shapes of K3, K6 and K9); and the split of
+     the shapes of K3, K6 and K9; the SOR kinds at the shapes of its main
+     path); and the split of
      one sharded step at 1024^3 on 2x2 into exchange/pad, kernel and
      re-pin, beside whole fused steps of each kind with and without
      --overlap.
@@ -152,6 +171,22 @@ NEW_MAIN_RUNS = (("advect3d", 40, 4), ("grayscott3d", 40, 4))
 NEW_MESH_RUNS = (("advect3d", MAIN, 20, 4, ("fuse_overlap",)),
                  ("grayscott3d", MAIN, 20, 4, ("fuse_overlap",)))
 NEW_FAMILIES = ("advect3d", "grayscott3d", "advect2d", "grayscott2d")
+# Red-black SOR: (stencil, iterations, fuse k) of the unsharded main path at
+# MAIN (--compute jnp, --fuse k and its stream kind: SOR has no raw-step or
+# compute_fn kernel) and (stencil, grid, iterations, fuse k, overlapped
+# modes) of the sharded one (--mesh 2,2 jnp, --fuse k padded, padfree and
+# stream; --mesh 4 padfree and stream).  Its 2D runs: sor2d at GRID2D
+# (jnp, --fuse 8, --mesh 4 --fuse 8 with and without --overlap) and a --tol
+# run at BASE2D against its jnp twin.
+SOR_MAIN_RUNS = (("sor3d", 40, 4),)
+SOR_MESH_RUNS = (("sor3d", BIG, 20, 4, ("fuse_overlap",)),)
+SOR = ("sor3d", "sor2d")
+# families without a compute_fn kernel (their --mesh runs take no pallas
+# mode)
+NO_COMPUTE_FN = NEW_FAMILIES + SOR
+# SOR --tol run at BASE2D: the tolerance, the check cadence (a multiple of
+# FUSE2D) and the iteration cap
+SOR_TOL = ("1e-3", 8, 40000)
 # Parameters every run of a stencil takes (its CLI runs as --param flags):
 # advection with a negative Courant number on one axis, so both upwind
 # directions run on the main path.
@@ -175,7 +210,10 @@ FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
                   # stencil2d.cuh): 3 per upwind axis; Gray-Scott two
                   # Laplacians, (u v) v and the two reaction updates
                   "advect3d": 9, "grayscott3d": 27, "advect2d": 6,
-                  "grayscott2d": 23}
+                  "grayscott2d": 23,
+                  # SOR: each cell is relaxed once a step (in the half-sweep
+                  # of its colour) with heat's taps
+                  "sor3d": 10, "sor2d": 7}
 # 2D: BASELINE config 1 (heat2d 512^2, 1000 iterations) and the size that
 # fills the card with real work (16384^2: 1.07 GB per field).
 BASE2D = (512, 512)
@@ -227,6 +265,7 @@ def main() -> int:
 
     from mpi_cuda_process_tpu_torch import cli, driver, make_stencil
     from mpi_cuda_process_tpu_torch.interop import fields_from_numpy
+    from mpi_cuda_process_tpu_torch.ops.stencil import k_step_margin
     from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fullgrid, fused,
                                                      kernels, rawstep,
                                                      streamfused)
@@ -366,6 +405,43 @@ def main() -> int:
             cases += [("shell", label, (128, 128, 256), 4, periodic, (2, 2)),
                       ("overlap_padded", label, (128, 128, 256), 4, periodic,
                        (2, 2))]
+    # red-black SOR: every entry point of its kind, bit-equal (atol 0): K3
+    # for k = 1..4 (both parities of k) and at 512^3, K3's sharded mode on
+    # 2x2 and 4x1 meshes, K6, K9 on 2x2 and 1x4, the overlap shells and the
+    # overlapped padded, z-slab and 2-axis steps, K10 for k = 1, 2, 4 and
+    # at 512^3, its slab kernels on random pieces and its sharded steps;
+    # guard frame and (even extents) periodic.  (72, 72, 130): even shard
+    # extents on every mesh here, ragged in x.
+    for shape in ((128, 128, 256), (66, 70, 130)):
+        cases += [("fused", "sor3d", shape, kk, periodic, None)
+                  for kk in (1, 2, 3, 4) for periodic in (False, True)]
+        cases += [("stream", "sor3d", shape, kk, False, None)
+                  for kk in (1, 2, 4)]
+    cases += [("fused", "sor3d", MAIN, 4, False, None),
+              ("stream", "sor3d", MAIN, 4, False, None)]
+    for shape in ((128, 128, 256), (72, 72, 130)):
+        for periodic in (False, True):
+            cases += [("sharded", "sor3d", shape, 4, periodic, (2, 2)),
+                      ("sharded", "sor3d", shape, 2, periodic, (4, 1)),
+                      ("zslab", "sor3d", shape, 4, periodic, (4,)),
+                      ("yzslab", "sor3d", shape, 4, periodic, (2, 2)),
+                      ("yzslab", "sor3d", shape, 2, periodic, (1, 4))]
+        cases += [("stream_zslab", "sor3d", shape, 4, False, (4,)),
+                  ("stream_yzslab", "sor3d", shape, 4, False, (2, 2)),
+                  ("stream_yzslab", "sor3d", shape, 2, False, (1, 4)),
+                  ("stream_z", "sor3d", shape, 4, False, (4,)),
+                  ("stream_yz", "sor3d", shape, 4, False, (2, 2)),
+                  ("stream_yz", "sor3d", shape, 2, False, (1, 4))]
+    for periodic in (False, True):
+        shape = (128, 128, 256)
+        cases += [("shell", "sor3d", shape, 4, periodic, (2, 2)),
+                  ("overlap_padded", "sor3d", shape, 4, periodic, (2, 2)),
+                  ("overlap_zslab", "sor3d", shape, 4, periodic, (4,)),
+                  ("overlap_yzslab", "sor3d", shape, 4, periodic, (2, 2))]
+    cases += [("overlap_stream_z", "sor3d", (128, 128, 256), 4, False,
+               (4,)),
+              ("overlap_stream_yz", "sor3d", (128, 128, 256), 4, False,
+               (2, 2))]
     checked = []
     for path, label, shape, k, periodic, mshape in cases:
         st = case_stencil(label)
@@ -387,7 +463,7 @@ def main() -> int:
                 fail("zchunk_wave: the second output is not u_prev")
         elif path == "shell":
             # the hi shells of shard (1, 1) of a 2x2 mesh, on random strips
-            m = k * st.halo
+            m = k_step_margin(st, k)
             local = (shape[0] // 2, shape[1] // 2, shape[2])
             shells = fused.build_overlap_shell_calls(
                 st, local, shape, k, (0, 1), periodic=periodic, device=dev)
@@ -410,7 +486,7 @@ def main() -> int:
             # one shard's core and random slabs (and corners): the second
             # shard of a z-only mesh of 4, shard (1, 0) of a 2x2 mesh, the
             # second of a 1x4 mesh; bit for bit against the plain version
-            m = k * st.halo
+            m = k_step_margin(st, k)
             Z, Y, X = shape
 
             def per_field(s):
@@ -465,10 +541,7 @@ def main() -> int:
             del fields
         else:
             fields = tuple(rand(shape) for _ in range(st.num_fields))
-            plain = driver.make_step(st, shape, periodic=periodic)
-            ref = fields
-            for _ in range(k):
-                ref = plain(ref)
+            ref = fused.plain_steps(fields, st, k, periodic)
             if path == "raw":
                 got = rawstep.make_raw_step(st, shape, device=dev)(fields)
                 entry = {"wave3d": "raw_step_wave",
@@ -488,6 +561,8 @@ def main() -> int:
                 entry = f"fused_step<{name}>"
                 atol = 1e-4
             del fields
+        if name in SOR:
+            atol = 0.0  # the SOR kinds are held bit for bit
         torch.cuda.synchronize()
         err = compare(entry, got, ref, atol, frame, rtol)
         checked.append({"kernel": entry, "label": label,
@@ -528,6 +603,16 @@ def main() -> int:
                     if not big or label == "grayscott2d":
                         cases2d.append(("fullgrid_padded", label, shape, k,
                                         periodic))
+    # K8 for sor2d (margin 2k), bit-equal: shapes whose --mesh 4 shards
+    # have even rows (200: 50 >= 3m at k = 8, so the shells run there too)
+    for shape in ((128, 256), (200, 258), (1000, 777), GRID2D):
+        big = shape == GRID2D
+        for k in ((FUSE2D,) if big else (1, 2, 3, 4, 8)):
+            for periodic in ((False, True) if shape[1] % 2 == 0 and not big
+                             else (False,)):
+                cases2d += [("fullgrid_step", "sor2d", shape, k, periodic),
+                            ("fullgrid_padded", "sor2d", shape, k,
+                             periodic)]
     for path, label, shape, k, periodic in cases2d:
         st = case_stencil(label)
         name = st.name
@@ -562,16 +647,20 @@ def main() -> int:
             ref = fields
             for _ in range(k):
                 ref = plain(ref)
+            # the shells run for even k where the rows host them (3m)
+            split = shape[0] // n >= 3 * k_step_margin(st, k)
             step = stepper.make_sharded_temporal_step(
                 st, mesh, shape, k, periodic=periodic, overlap=k % 2 == 0,
                 device=dev)
-            if step._overlap_active != (k % 2 == 0):
+            if step._overlap_active != (k % 2 == 0 and split):
                 fail(f"fullgrid_padded {name} k={k}: overlap split not taken")
             got = stepper.gather_fields(step(fields))
             ref = stepper.gather_fields(ref)
             atol = 0.0 if exact else 1e-4
             del fields
         entry = f"{path}<{name}>"
+        if name in SOR:
+            atol = 0.0  # the SOR kinds are held bit for bit
         torch.cuda.synchronize()
         err = compare(entry, got, ref, atol, frame, rtol)
         checked.append({"kernel": entry, "shape": list(shape), "k": k,
@@ -640,12 +729,15 @@ def main() -> int:
 
     def main_modes(stencil, k):
         """The unsharded main path's modes of a stencil: the stream kind
-        only for the families the streaming kernel takes."""
+        only for the families the streaming kernel takes, pallas only for
+        those with a raw-step kernel."""
         modes = ["jnp", "pallas", str(k), "stream"]
+        if stencil in SOR:
+            return ["jnp", str(k), "stream"]
         return modes[:3] if stencil in NEW_FAMILIES else modes
 
     results = []
-    for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS:
+    for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS + SOR_MAIN_RUNS:
         for label, mode, want in (
                 ("jnp", ("--compute", "jnp"), {}),
                 ("pallas", ("--compute", "pallas"), {raw_key(stencil): iters}),
@@ -661,7 +753,7 @@ def main() -> int:
                 fail(f"{res['label']}: launches {res['launches']} != {want}")
             results.append(res)
 
-    for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS:
+    for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS + SOR_MAIN_RUNS:
         halo_w = make_stencil(stencil).halo
         ref = runs[f"{stencil}_jnp"]["fields"]
         frame = frame_of(MAIN, halo_w)
@@ -731,6 +823,48 @@ def main() -> int:
                 res["max_abs_err_vs_jnp"], res["atol"] = err, atol
             results.append(res)
         runs.clear()
+
+    # sor2d at BASE2D as a solver: --fuse 8 --tol against its jnp twin, the
+    # same converged step (checkpointed) and the same fields
+    tol, every, cap = SOR_TOL
+    tol_flags = ("--tol", tol, "--tol-check-every", str(every))
+    sor_tol = {}
+    for mode, flags in (("jnp", ("--compute", "jnp")),
+                        (str(FUSE2D), ("--fuse", str(FUSE2D)))):
+        d = os.path.join(scratch, f"sor2d_tol_{mode}")
+        lines.clear()
+        rc, got = counted(lambda: cli.main(
+            ["--stencil", "sor2d", "--grid", ",".join(map(str, BASE2D)),
+             "--iters", str(cap), "--checkpoint-dir", d, *flags,
+             *tol_flags]))
+        m = [re.search(r"converged=(\w+) after (\d+) steps \(residual "
+                       r"(\S+), tol \S+\) in ([\d.]+)s", ln) for ln in lines]
+        m = [x for x in m if x]
+        if rc != 0 or not m:
+            fail(f"sor2d --tol {mode}: rc {rc}, no converged= line")
+        arrays, step, _ = checkpointing.load_any(d)
+        steps = int(m[-1][2])
+        if step != steps:
+            fail(f"sor2d --tol {mode}: checkpoint at {step}, run {steps}")
+        want = {} if mode == "jnp" else {
+            "fullgrid_step[sor2d]": steps // FUSE2D}
+        if got != want:
+            fail(f"sor2d --tol {mode}: launches {got} != {want}")
+        sor_tol[mode] = (fields_from_numpy(arrays, device=dev)[0], {
+            "label": f"sor2d_tol_{mode}", "converged": m[-1][1] == "True",
+            "steps": steps, "residual": float(m[-1][3]),
+            "seconds": float(m[-1][4]),
+            "ms_per_step": 1e3 * float(m[-1][4]) / max(steps, 1),
+            "launches": got, "tol": float(tol), "check_every": every})
+    (ref, rj), (got, rf) = sor_tol["jnp"], sor_tol[str(FUSE2D)]
+    err = float((got - ref).abs().max())
+    if rf["steps"] != rj["steps"] or err > 1e-4 or \
+            not torch.equal(got[frame512], ref[frame512]):
+        fail(f"sor2d --tol: fused {rf['steps']} steps vs jnp {rj['steps']},"
+             f" max|d| {err:.3e}")
+    rf["max_abs_err_vs_jnp"], rf["atol"] = err, 1e-4
+    results += [rj, rf]
+    del sor_tol, ref, got
     emit({"phase": "main_path", "ok": True, "seconds": took(),
           "grid": list(MAIN), "iters": ITERS, "grid_2d": list(BASE2D),
           "iters_2d": ITERS2D, "runs": results,
@@ -793,7 +927,8 @@ def main() -> int:
             fail(f"{res['stencil']} {res['flags']}: max|d| vs {what} "
                  f"{err:.3e} > {atol:.3e}")
 
-    for stencil, grid, iters, k, overlapped in MESH_RUNS + NEW_MESH_RUNS:
+    for stencil, grid, iters, k, overlapped in (MESH_RUNS + NEW_MESH_RUNS
+                                                + SOR_MESH_RUNS):
         st = make_stencil(stencil)
         h = st.halo
         new_family = stencil in NEW_FAMILIES
@@ -818,7 +953,7 @@ def main() -> int:
         refs["plain"], r = run_cli(stencil, grid, iters, "--compute", "jnp")
         mesh_results.append(r)
         scale = max(float(refs["plain"][0].abs().max()), 1.0)
-        if not new_family:  # (no compute_fn kernel for the mesh modes)
+        if stencil not in NO_COMPUTE_FN:  # pallas: the mesh modes' yardstick
             unsharded("pallas", ("--compute", "pallas"),
                       {raw_key(stencil): iters})
         unsharded("fuse", ("--fuse", str(k)),
@@ -857,12 +992,15 @@ def main() -> int:
         if new_family:  # the padded kind only (pad-free, stream: B4, B5)
             modes = [md for md in modes
                      if md[0] in ("jnp", "fuse", "fuse_overlap")]
+        if stencil in NO_COMPUTE_FN:  # no compute_fn kernel: no pallas
+            modes = [md for md in modes if md[0] != "pallas"]
         kept = {}
         for label, flags, want in modes:
             if label.startswith("stream") and "stream" not in refs:
                 # the stream modes come last: their yardstick replaces the
                 # other kernels' on the card
-                del refs["pallas"], refs["fuse"]
+                refs.pop("pallas", None)
+                del refs["fuse"]
                 torch.cuda.empty_cache()
                 unsharded("stream", ("--fuse", str(k), "--fuse-kind",
                                      "stream"),
@@ -990,10 +1128,11 @@ def main() -> int:
     del got, fgot
     torch.cuda.empty_cache()
 
-    # advection and Gray-Scott at 16384^2: jnp and --fuse 8 unsharded, and
-    # grayscott2d (two 1.07 GB fields, both exchanged) on --mesh 4 with
-    # --fuse 8, with and without --overlap
-    for stencil in ("advect2d", "grayscott2d"):
+    # advection, Gray-Scott and SOR at 16384^2: jnp and --fuse 8
+    # unsharded, and grayscott2d (two 1.07 GB fields, both exchanged) and
+    # sor2d (a red and a black half-sweep a step, margin 2k) on --mesh 4
+    # with --fuse 8, with and without --overlap
+    for stencil in ("advect2d", "grayscott2d", "sor2d"):
         k = FUSE2D
         passes = ITERS16K // k
         got, r = run_cli(stencil, GRID2D, ITERS16K, "--compute", "jnp")
@@ -1008,7 +1147,7 @@ def main() -> int:
         padded = f"fullgrid_padded[{stencil}]"
         mesh_modes = (("fuse", (), {padded: 4 * passes}),
                       ("fuse_overlap", ("--overlap",), {padded: 12 * passes}))
-        for label, flags, want in (mesh_modes if stencil == "grayscott2d"
+        for label, flags, want in (mesh_modes if stencil != "advect2d"
                                    else ()):
             mgot, r = run_cli(stencil, GRID2D, ITERS16K, "--mesh", "4",
                               "--fuse", str(k), *flags)
@@ -1184,12 +1323,14 @@ def main() -> int:
             "stream_yzslab": ("K10", 18),
             "raw_step_grayscott": ("raw_step_grayscott", 4)}
     # the table row of a (wrapper, stencil) whose TPU body is its own row:
-    # advection's raw-step taps (row 3) and the two families' micro-steps
-    # (row 6)
+    # advection's raw-step taps (row 3) and the three families' micro-steps
+    # (row 6: _micro_advect, _micro_grayscott, _micro_sor)
     row_of = {("raw_step_heat", "advect3d"): 3,
               ("fused_step", "advect3d"): 6, ("fused_step", "grayscott3d"): 6,
+              ("fused_step", "sor3d"): 6,
               ("fused_step_padded", "advect3d"): 6,
-              ("fused_step_padded", "grayscott3d"): 6}
+              ("fused_step_padded", "grayscott3d"): 6,
+              ("fused_step_padded", "sor3d"): 6}
 
     def record(entry, wrapper, name, src, replaces, ms, plain_ms, moved,
                flops, library_ms, k, shape, per_step):
@@ -1496,9 +1637,11 @@ def main() -> int:
                FLOPS_PER_CELL[name] * cells2d, library_ms, 1, GRID2D, 1.0)
         del ins
     k = FUSE2D
-    for name in ("life", "heat2d", "wave2d", "advect2d", "grayscott2d"):
+    for name in ("life", "heat2d", "wave2d", "advect2d", "grayscott2d",
+                 "sor2d"):
         st = main_stencil(name)
         nf = st.num_fields
+        m = k_step_margin(st, k)
         fields = rand2d(name, GRID2D)
         kern = fullgrid.make_fullgrid_step(st, GRID2D, k, device=dev)
         plain = driver.make_step(st, GRID2D)
@@ -1519,11 +1662,12 @@ def main() -> int:
         del fields
         if name in ("wave2d", "advect2d"):
             continue  # the sharded main path runs life, heat2d, grayscott2d
+            # and sor2d
         local = (H // 4, W)
-        pshape = (H // 4 + 2 * k, W)
+        pshape = (H // 4 + 2 * m, W)
         ins = rand2d(name, pshape)
         kern = lambda: fullgrid.fullgrid_padded(ins, st, k, H, 0)
-        plain = lambda: fused._plain_window_steps(ins, st, k, (-k, 0),
+        plain = lambda: fused._plain_window_steps(ins, st, k, (-m, 0),
                                                   GRID2D, False, (1,))
         ms = time_ms(kern, 10)
         plain_ms = time_ms(plain, 2)
@@ -1533,6 +1677,89 @@ def main() -> int:
                FLOPS_PER_CELL[name] * k * math.prod(local), None, k, local,
                4.0 / k)
         del ins
+        torch.cuda.empty_cache()
+
+    # red-black SOR: K3 and K10 at 512^3 (the unsharded main path's shape),
+    # and one shard of the 1024^3 runs: K3's sharded mode, K9 and K10 on a
+    # 2x2 shard, one hi z shell of it, K6 and K10 on a --mesh 4 shard
+    for name, grid, _iters, k, _overlapped in SOR_MESH_RUNS:
+        st = make_stencil(name)
+        m = k_step_margin(st, k)
+        micro = TPU + "fused.py:224"
+        flops = FLOPS_PER_CELL[name] * k
+        fields = (rand(MAIN),)
+        plain_ms = time_ms(lambda: fused.plain_steps(fields, st, k), 2)
+        for wrapper, kern, src, replaces in (
+                ("fused_step", fused.make_fused_step(st, MAIN, k, device=dev),
+                 "fused.cu", micro),
+                ("stream_step", streamfused.make_stream_fused_step(
+                    st, MAIN, k, device=dev), "streamfused.cu",
+                 TPU + "streamfused.py:377")):
+            ms = time_ms(lambda: kern(fields), 10)
+            record(f"{wrapper}<{name}>", wrapper, name, src, replaces, ms,
+                   plain_ms, 2 * nbytes, flops * cells, None, k, MAIN,
+                   1.0 / k)
+        del fields
+        local = (grid[0] // 2, grid[1] // 2, grid[2])
+        Lz, Ly, X = local
+        lcells = math.prod(local)
+        pshape = (Lz + 2 * m, Ly + 2 * m, X)
+        ins = (rand(pshape),)
+        ms = time_ms(lambda: fused.fused_step_padded(ins, st, k, grid,
+                                                     (0, 0)), 10)
+        plain_ms = time_ms(lambda: fused.plain_step_padded(ins, st, k, grid,
+                                                           (0, 0)), 2)
+        record(f"fused_step_padded<{name}>", "fused_step_padded", name,
+               "fused.cu", micro, ms, plain_ms,
+               4 * (math.prod(pshape) + lcells), flops * lcells, None, k,
+               local, 4.0 / k)
+        del ins
+        core = (rand(local),)
+        zlo, zhi = (rand((m, Ly, X)),), (rand((m, Ly, X)),)
+        ylo, yhi = (rand((Lz, m, X)),), (rand((Lz, m, X)),)
+        corners = [(rand((m, m, X)),) for _ in range(4)]
+        yz_args = (core, zlo, zhi, ylo, yhi, corners, st, k, grid, (0, 0))
+        plain_ms = time_ms(lambda: fused.plain_yzslab(*yz_args), 2)
+        yz_bytes = 4 * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m))
+        for wrapper, fn, src, replaces in (
+                ("fused_yzslab", fused.fused_yzslab, "fused.cu",
+                 TPU + "fused.py:562"),
+                ("stream_yzslab", streamfused.stream_yzslab,
+                 "streamfused.cu", TPU + "streamfused.py:399")):
+            ms = time_ms(lambda: fn(*yz_args), 10)
+            record(f"{wrapper}<{name}>", wrapper, name, src, replaces, ms,
+                   plain_ms, yz_bytes, flops * lcells, None, k, local,
+                   4.0 / k)
+        del core, zlo, zhi, ylo, yhi, corners, yz_args
+        shells = fused.build_overlap_shell_calls(st, local, grid, k, (0, 1),
+                                                 device=dev)
+        strips = (rand((4 * m, Ly + 2 * m, X)),)
+        org = (Lz - 2 * m, 0)
+        ms = time_ms(lambda: shells[0](org, *strips), 20)
+        plain_ms = time_ms(
+            lambda: fused.plain_step_padded(strips, st, k, grid, org), 3)
+        scells = 2 * m * Ly * X
+        record(f"fused_shell<{name}>", "fused_shell", name, "fused.cu",
+               TPU + "fused.py:1284", ms, plain_ms,
+               4 * (math.prod(strips[0].shape) + scells), flops * scells,
+               None, k, (2 * m, Ly, X), 16.0 / k)
+        del strips
+        zl = (grid[0] // 4, grid[1], grid[2])
+        zcells = math.prod(zl)
+        core = (rand(zl),)
+        lo, hi = (rand((m,) + zl[1:]),), (rand((m,) + zl[1:]),)
+        plain_ms = time_ms(lambda: fused.plain_zslab(core, lo, hi, st, k,
+                                                     grid[0], 0), 2)
+        z_bytes = 4 * (2 * zcells + 2 * m * zl[1] * zl[2])
+        for wrapper, fn, src, replaces in (
+                ("fused_zslab", fused.fused_zslab, "fused.cu",
+                 TPU + "fused.py:432"),
+                ("stream_zslab", streamfused.stream_zslab, "streamfused.cu",
+                 TPU + "streamfused.py:386")):
+            ms = time_ms(lambda: fn(core, lo, hi, st, k, grid[0], 0), 10)
+            record(f"{wrapper}<{name}>", wrapper, name, src, replaces, ms,
+                   plain_ms, z_bytes, flops * zcells, None, k, zl, 4.0 / k)
+        del core, lo, hi
         torch.cuda.empty_cache()
 
     for kk in kernels_out:

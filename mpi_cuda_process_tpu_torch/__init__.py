@@ -9,7 +9,7 @@ format, with the TPU kernels rewritten by hand in CUDA C++ for Hopper
 from .config import RunConfig
 from .driver import make_runner, make_step, run_simulation
 # register stencils
-from .ops import advection, heat, life, reaction, wave  # noqa: F401
+from .ops import advection, heat, life, reaction, sor, wave  # noqa: F401
 from .ops.stencil import Stencil, available_stencils, make_stencil
 from .utils.init import init_state
 

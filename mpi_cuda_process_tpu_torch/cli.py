@@ -12,6 +12,8 @@
         --iters 1000 --mesh 2 --compute pallas --overlap
     python -m mpi_cuda_process_tpu_torch --stencil grayscott3d \
         --grid 512,512,512 --iters 40 --fuse 4
+    python -m mpi_cuda_process_tpu_torch --stencil sor3d --grid 128,128,128 \
+        --iters 4000 --fuse 4 --tol 1e-3 --tol-check-every 100
 
 The flags keep the TPU package's names and values, so one command line runs
 on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
@@ -26,6 +28,10 @@ z/y mesh, and with ``--overlap`` the boundary shells beside the exchange;
 advect3d and grayscott3d take the padded kind only, and their pad-free and
 stream kinds raise naming ROADMAP B4/B5; 2D: K8, its sharded mode under a
 row-split ``--mesh``); ``--compute auto``/``jnp`` the plain tensor path.
+Red-black SOR (sor2d, sor3d) has no raw-step or compute_fn kernel, so
+``--compute pallas`` raises for it as in the TPU package; it runs plain or
+through every ``--fuse`` kind, and ``--tol`` stops a run once its residual
+falls below the tolerance.
 ``--mesh`` decomposes the grid over the visible devices
 (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N shards on one card).
 ``--device`` (default ``cuda``) picks where the state lives; asking for
@@ -52,7 +58,7 @@ from .config import RunConfig, parse_int_tuple, parse_params
 from .interop import fields_from_numpy, shard_from_numpy
 from .ops import stencil as stencil_lib
 # populate the registry
-from .ops import advection, heat, life, reaction, wave  # noqa: F401
+from .ops import advection, heat, life, reaction, sor, wave  # noqa: F401
 from .ops.cuda import fullgrid as fullgrid_lib
 from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
@@ -117,6 +123,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "the halo exchange runs (side CUDA stream), then "
                         "the boundary rings (with --fuse K: the 2*K*halo "
                         "deep boundary shells); same values")
+    p.add_argument("--tol", type=float, default=0.0,
+                   help="stop when the residual max|u - u_prev_check| over a "
+                        "--tol-check-every-step interval drops below TOL "
+                        "(solver-style convergence; --iters is the step cap)")
+    p.add_argument("--tol-check-every", type=int, default=10,
+                   help="steps between residual checks for --tol")
     p.add_argument("--fuse", type=int, default=0,
                    help="temporal blocking: advance K steps per memory pass "
                         "with the hand-written CUDA fused kernel (3D "
@@ -147,6 +159,7 @@ def config_from_args(argv=None) -> RunConfig:
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, compute=a.compute, overlap=a.overlap, fuse=a.fuse,
+        tol=a.tol, tol_check_every=a.tol_check_every,
         fuse_kind=a.fuse_kind, device=a.device,
         params=parse_params(a.param),
     )
@@ -171,7 +184,6 @@ _UNPORTED = (
     ("ensemble", "--ensemble", "A7 (ensembles)"),
     ("ensemble_mesh", "--ensemble-mesh", "A7 (ensembles)"),
     ("ensemble_perturb", "--ensemble-perturb", "A7 (ensembles)"),
-    ("tol", "--tol", "A3 (convergence runs through the CLI)"),
     ("check_finite", "--check-finite", "A3 (debug sanitizers)"),
     ("debug_checks", "--debug-checks", "A3 (debug sanitizers)"),
     ("dump_every", "--dump-every", "A9 (async dumps, native writer)"),
@@ -236,7 +248,7 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
         return cfg
     table = {2: _AUTO_FULL_K, 3: _AUTO_FUSE_K}.get(len(cfg.grid), {})
     k = table.get(cfg.stencil)
-    if k is None or cfg.periodic or cfg.resume:
+    if k is None or cfg.periodic or cfg.resume or cfg.tol > 0:
         return cfg
     cadences = [cfg.iters, cfg.log_every, cfg.checkpoint_every]
     if any(v % k for v in cadences if v):
@@ -367,7 +379,7 @@ def build(cfg: RunConfig):
                     not getattr(step_fn, "_overlap_active", False):
                 log.warning(
                     "--overlap: block geometry cannot host the interior/"
-                    "boundary split (local extent < 3*k*halo on the "
+                    "boundary split (local extent < 3*k*halo*phases on a "
                     "sharded axis); running the plain exchange-then-"
                     "compute fused step")
             if step_fn is None:
@@ -378,7 +390,7 @@ def build(cfg: RunConfig):
                     f"fused kernel, an unsharded lane axis"
                     + (", guard-frame BCs, rings that fit shared memory"
                        if kind == "stream" else
-                       ", 2*k*halo a multiple of 8 (f32, 3D)")
+                       ", 2*k*halo*phases a multiple of 8 (f32, 3D)")
                     + ", per-shard extents dividing the grid, and blocks "
                     ">= the k-step margin")
         elif st.ndim == 2:
@@ -402,9 +414,9 @@ def build(cfg: RunConfig):
         if step_fn is None:
             raise ValueError(
                 f"--fuse {cfg.fuse} unsupported for {st.name} on grid "
-                f"{cfg.grid} (need a fused kernel, 2*k*halo a multiple of "
-                f"the dtype's alignment unit — 8 for f32 — and a window "
-                f"that fits shared memory)")
+                f"{cfg.grid} (need a fused kernel, 2*k*halo*phases a "
+                f"multiple of the dtype's alignment unit — 8 for f32 — and "
+                f"a window that fits shared memory)")
     else:
         step_fn = resolve_raw_step(cfg, st)
         if step_fn is not None:
@@ -463,6 +475,9 @@ def run(cfg: RunConfig) -> Tuple:
         return fields, 0.0
     cells = math.prod(cfg.grid)
     step_unit = max(1, cfg.fuse)
+    if cfg.tol > 0:
+        return _run_until_converged(cfg, st, step_fn, fields, start_step,
+                                    remaining, cells)
 
     def callback(done_in_run, fs):
         step = start_step + done_in_run * step_unit
@@ -510,6 +525,48 @@ def run(cfg: RunConfig) -> Tuple:
     log.info("%d steps on %s grid in %.3fs  (%.1f Mcells/s)",
              remaining, "x".join(map(str, cfg.grid)), dt, mcells)
     _epilogue(cfg, fields, cfg.iters, save_ckpt=bool(cfg.checkpoint_every))
+    return fields, mcells
+
+
+def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
+                         start_step: int, remaining: int, cells: int):
+    """The ``--tol`` run: ``driver.run_until`` with the TPU package's
+    rules (``cli.py:1775-1822`` there): no log or checkpoint cadence, with
+    ``--fuse k`` the remaining iterations and ``--tol-check-every`` in
+    multiples of k; the final state is checkpointed."""
+    if cfg.log_every or cfg.checkpoint_every:
+        raise ValueError(
+            "--tol runs inside one while_loop; it excludes "
+            "--debug-checks and periodic log/checkpoint/dump/"
+            "check-finite (a non-finite state never converges: the "
+            "residual stays NaN>tol and the loop exits at the "
+            "--iters cap)")
+    # each step_fn call advances `unit` real steps, so the cap and the
+    # check cadence are counted in calls
+    unit = max(1, cfg.fuse)
+    if unit > 1 and remaining % unit:
+        raise ValueError(
+            f"--tol with --fuse {unit} needs remaining iters "
+            f"({remaining}) to be a multiple of {unit}")
+    if unit > 1 and cfg.tol_check_every % unit:
+        raise ValueError(
+            f"--tol with --fuse {unit} needs --tol-check-every "
+            f"({cfg.tol_check_every}) to be a multiple of {unit}")
+    driver.synchronize(fields)
+    t0 = time.perf_counter()
+    fields, n_calls, res = driver.run_until(
+        step_fn, fields, cfg.tol, remaining // unit,
+        check_every=cfg.tol_check_every // unit if unit > 1
+        else cfg.tol_check_every)
+    driver.synchronize(fields)
+    dt = time.perf_counter() - t0
+    n_done = n_calls * unit
+    mcells = cells * n_done / dt / 1e6 if n_done else 0.0
+    log.info(
+        "converged=%s after %d steps (residual %.3e, tol %.1e) in %.3fs"
+        "  (%.1f Mcells/s)",
+        res <= cfg.tol, n_done, res, cfg.tol, dt, mcells)
+    _epilogue(cfg, fields, start_step + n_done, save_ckpt=True)
     return fields, mcells
 
 

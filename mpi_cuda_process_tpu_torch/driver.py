@@ -166,8 +166,9 @@ def run_until(
     """Run until the residual drops below ``tol`` (or ``max_steps``).
 
     The residual is ``max_f max|f_new - f_old|`` measured across a
-    ``check_every``-step chunk; the last chunk is clamped so ``max_steps``
-    is a hard cap.  Returns ``(fields, steps_done, residual)``.
+    ``check_every``-step chunk, over every block of a sharded field; the
+    last chunk is clamped so ``max_steps`` is a hard cap.  Returns
+    ``(fields, steps_done, residual)``.
     """
     if check_every < 1:
         raise ValueError("check_every must be >= 1")
@@ -176,12 +177,20 @@ def run_until(
     while res > tol and n < max_steps:
         chunk = min(check_every, max_steps - n)
         new = make_runner(step_fn, chunk)(fields)
-        r = torch.zeros((), dtype=torch.float32, device=fields[0].device)
-        for a, b in zip(new, fields):
-            r = torch.maximum(r, torch.max(torch.abs(
-                a.to(torch.float32) - b.to(torch.float32))))
-        fields, n, res = new, n + chunk, float(r)
+        fields, n, res = new, n + chunk, _residual(new, fields)
     return fields, n, res
+
+
+def _residual(new: Fields, old: Fields) -> float:
+    """``max_f max|new_f - old_f|`` in float32; a sharded field (a list of
+    blocks) block by block."""
+    worst = []
+    for a, b in zip(new, old):
+        pairs = zip(a, b) if isinstance(a, list) else ((a, b),)
+        for x, y in pairs:
+            worst.append(torch.max(torch.abs(
+                x.to(torch.float32) - y.to(torch.float32))))
+    return max(float(w) for w in worst)
 
 
 def run_simulation(

@@ -1,5 +1,5 @@
 # imported to populate the stencil registry
-from . import advection, heat, life, reaction, wave  # noqa: F401
+from . import advection, heat, life, reaction, sor, wave  # noqa: F401
 from .stencil import Stencil, available_stencils, make_stencil
 
 __all__ = ["Stencil", "available_stencils", "make_stencil"]

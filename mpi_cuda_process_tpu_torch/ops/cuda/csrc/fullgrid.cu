@@ -1,11 +1,12 @@
 // K8 fullgrid_step<KIND, SRC>: k 2D steps (heat2d / mdf, wave2d, life,
-// advect2d, grayscott2d) per device-memory pass, by overlapped tiling in
-// shared memory.
+// advect2d, grayscott2d, sor2d) per device-memory pass, by overlapped tiling
+// in shared memory.
 //
 // Replaces: the TPU package's ops/pallas/fullgrid.py — _build_call's
 // kernel with the _micro_life micro-step and the _MICRO2D entries for
 // heat2d, mdf (fused._micro_heat), wave2d (fused._micro_wave), advect2d
-// (fused._micro_advect) and grayscott2d (fused._micro_grayscott).  There
+// (fused._micro_advect), grayscott2d (fused._micro_grayscott) and sor2d
+// (fused._micro_sor).  There
 // the whole grid (or a shard's whole padded block) sits in VMEM and one
 // program runs the k micro-steps on it.  That does not carry over: 512^2
 // float32 is 1 MiB against 227 KB of shared memory per block.  So this is
@@ -27,9 +28,10 @@
 //
 // Bound on an H100: device-memory bytes.  One pass reads each field once
 // and writes it once for k steps.  What the design pays for that: each
-// block of (TY, TX) core cells loads a (TY+2m, TX+2m) window (m = k), the
-// overlap served mostly from L2, and recomputes the shrinking margin every
-// micro-step (1.9x the useful cells in the first micro-step at k = 8).
+// block of (TY, TX) core cells loads a (TY+2m, TX+2m) window (m = k; 2k
+// for SOR), the overlap served mostly from L2, and recomputes the
+// shrinking margin every micro-step (1.9x the useful cells in the first
+// micro-step at k = 8).
 //
 // Per block:
 //   1. load the window of every field into dynamic shared memory;
@@ -39,7 +41,10 @@
 //      new u over u_prev in place (each cell reads u_prev only at itself)
 //      and swaps roles, so the old u becomes the new u_prev for free;
 //      Gray-Scott reads both fields' neighbours and ping-pongs two pairs
-//      (four buffers: 96 KB at k = 16);
+//      (four buffers: 96 KB at k = 16).  Red-black SOR runs 2k one-colour
+//      half-sweeps (m = 2k): sweep s relaxes colour (s-1) % 2 of the
+//      GLOBAL coordinate sum, oy + local row + column, with heat's 5-point
+//      taps and copies the other colour, frame re-pinned after each;
 //   3. write the (TY, TX) core, masked to the block.
 // Threads are laid out (32, 8) over (x, y) and stride over the window by
 // rows and columns, so no index division is needed.
@@ -94,7 +99,7 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
   using T = typename Elem<KIND>::T;
   constexpr bool wave = KIND == WAVE5, gs = KIND == GRAYSCOTT2D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m = k;  // every 2D family here has halo 1
+  const int m = k * kind_phases2(KIND);  // every 2D family has halo 1
   const int WY = TY + 2 * m, WX = TX + 2 * m;
   T* cur = reinterpret_cast<T*>(smem_raw);  // heat/life/advect/GS u: level;
                                             // wave: u
@@ -115,7 +120,7 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
   }
   __syncthreads();
 
-  for (int s = 1; s <= k; ++s) {
+  for (int s = 1; s <= m; ++s) {
     for (int wy = s + threadIdx.y; wy < WY - s; wy += BY) {
       const int gy = g.oy + oy + wy;
       const bool frame_row = gy < 1 || gy >= g.GH - 1;
@@ -123,7 +128,10 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
         const int q = wy * WX + wx;
         const int gx = ox + wx;
         const bool frame = !periodic && (frame_row || gx < 1 || gx >= g.W - 1);
-        if constexpr (KIND == WAVE5) {
+        if constexpr (KIND == SOR5) {
+          nxt[q] = frame || other_colour(gy + gx, s) ? cur[q]
+                                                     : heat5(cur + q, WX, c.a);
+        } else if constexpr (KIND == WAVE5) {
           nxt[q] = frame ? cur[q] : wave5(cur + q, nxt[q], WX, c.a);
         } else if constexpr (KIND == LIFE) {
           nxt[q] = frame ? cur[q] : life8(cur + q, WX);
@@ -173,8 +181,9 @@ template <int KIND, int SRC>
 int launch(const Grid2& g, int k, int periodic, const Coef& c, int ty, int tx,
            cudaStream_t s) {
   using T = typename Elem<KIND>::T;
+  const int m = k * kind_phases2(KIND);
   const size_t smem = kind_buffers2(KIND) * sizeof(T) *
-                      static_cast<size_t>(ty + 2 * k) * (tx + 2 * k);
+                      static_cast<size_t>(ty + 2 * m) * (tx + 2 * m);
   cudaError_t e = cudaFuncSetAttribute(
       fullgrid_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -199,6 +208,8 @@ int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
       return launch<ADVECT2D, SRC>(g, k, periodic, c, ty, tx, s);
     case GRAYSCOTT2D:
       return launch<GRAYSCOTT2D, SRC>(g, k, periodic, c, ty, tx, s);
+    case SOR5:
+      return launch<SOR5, SRC>(g, k, periodic, c, ty, tx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -209,9 +220,9 @@ int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
 // One K8 launch on `stream`, one device: (out0[, out1]) = k steps of
 // (in0[, in1]) on the whole (H, W) grid; in1/out1 are used by the two-field
 // kinds only (WAVE5: u_prev; GRAYSCOTT2D: v).  (a, c0, c1, c2, c3) are the
-// kind's Coef: alpha (HEAT5), c2dt2 (WAVE5), the Courant numbers (cy, cx)
-// (ADVECT2D) or (Du, Dv, F, F + kappa) (GRAYSCOTT2D).  Returns a
-// cudaError_t code.
+// kind's Coef: alpha (HEAT5), omega / 4 (SOR5), c2dt2 (WAVE5), the Courant
+// numbers (cy, cx) (ADVECT2D) or (Du, Dv, F, F + kappa) (GRAYSCOTT2D).
+// Returns a cudaError_t code.
 EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
                         void* out0, void* out1, int H, int W, int k,
                         int periodic, float a, float c0, float c1, float c2,
@@ -222,14 +233,16 @@ EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
 }
 
 // One K8 launch in its sharded mode: the inputs are a row shard's padded
-// (Ly+2m, W) blocks with m = k, the outputs its (Ly, W) core k steps on;
-// the core's first row is global row oy of a GH-row grid.
+// (Ly+2m, W) blocks with m = k * phases (2k for SOR5, else k), the outputs
+// its (Ly, W) core k steps on; the core's first row is global row oy of a
+// GH-row grid.
 EXPORT int fullgrid_padded(int kind, const void* in0, const void* in1,
                            void* out0, void* out1, int Ly, int W, int GH,
                            int oy, int k, int periodic, float a, float c0,
                            float c1, float c2, float c3, int ty, int tx,
                            void* stream) {
-  const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy, k};
+  const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy,
+                k * kind_phases2(kind)};
   return dispatch<PADDED>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3}, ty,
                           tx, static_cast<cudaStream_t>(stream));
 }

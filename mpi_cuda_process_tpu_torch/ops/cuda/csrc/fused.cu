@@ -9,10 +9,10 @@
 // with _assemble_yz_window and _yzslab_specs (K9), their _run_micros /
 // _window_frame, and the
 // micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th, _micro_wave,
-// _micro_advect and _micro_grayscott (the last two RAW and PADDED only: the
-// slab-operand kinds do not take them yet).  On the TPU the kernels differ
-// in how a VMEM window is assembled from aligned BlockSpecs; here one
-// kernel computes its own
+// _micro_sor, _micro_advect and _micro_grayscott (the last two RAW and PADDED
+// only: the slab-operand kinds do not take them yet).  On the TPU the
+// kernels differ in how a VMEM window is assembled from aligned BlockSpecs;
+// here one kernel computes its own
 // window from local coordinates, and a window-source policy (window.cuh)
 // says where each window cell is read from: RAW for --fuse on one device
 // (auto, tiled and padfree), PADDED for --fuse under --mesh (the
@@ -46,6 +46,13 @@
 //   2. apply k micro-steps in shared memory, micro-step s updating the
 //      cells at least s*halo from the window edge, re-pinning the global
 //      guard frame (ghost cells included), __syncthreads() between steps.
+//      Red-black SOR runs 2k one-colour half-sweeps of halo 1 instead
+//      (m = 2k): sweep j relaxes colour (j-1) % 2 of the GLOBAL coordinate
+//      sum with heat's 7-point taps and leaves the other colour, frame
+//      re-pinned after each, as _micro_sor does.  It relaxes in place in
+//      one buffer: a half-sweep writes only cells of its colour and reads
+//      only the cell itself and its face neighbours, all of the other
+//      colour, which it leaves — so the window may be twice as large;
 //      Heat and advection ping-pong between two buffers.  Wave writes the
 //      new u into u_prev's buffer in place (each cell reads u_prev only at
 //      itself) and then swaps roles, so the old u becomes the new u_prev
@@ -54,8 +61,10 @@
 //   3. write the (TZ, TY, TX) core (the cells at least m from the window
 //      edge, all valid after k micro-steps), masked to the block.
 //
-// Shared memory is 2 buffers (Gray-Scott: 4) x window x 4 B: 80 KB (160
-// KB) for core (8, 8, 32) at m = 4, so the launch raises the kernel's
+// Shared memory is 2 buffers (Gray-Scott: 4; SOR: 1) x window x 4 B: 80 KB
+// (160 KB) for core (8, 8, 32) at m = 4 (SOR at k = 4, m = 8, one buffer of
+// its core, fused.py::core_of: at most 216 KB, one block per SM), so the
+// launch raises the kernel's
 // dynamic shared-memory limit above the 48 KB default first
 // (cudaFuncSetAttribute).
 
@@ -67,7 +76,7 @@ constexpr int THREADS = 256;
 
 // Window buffers a kind keeps in shared memory (fused.py::buffers).
 __host__ __device__ constexpr int kind_buffers(int kind) {
-  return kind == GRAYSCOTT ? 4 : 2;
+  return kind == GRAYSCOTT ? 4 : (kind == SOR7 ? 1 : 2);
 }
 
 template <int KIND, int SRC>
@@ -76,8 +85,9 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
            int TX) {
   extern __shared__ float smem[];
   constexpr int h = kind_halo(KIND);
-  constexpr bool wave = KIND == WAVE7, gs = KIND == GRAYSCOTT;
-  const int m = k * h;
+  constexpr bool wave = KIND == WAVE7, gs = KIND == GRAYSCOTT,
+                 sor = KIND == SOR7;
+  const int m = kind_margin(KIND, k);
   const int WZ = TZ + 2 * m, WY = TY + 2 * m, WX = TX + 2 * m;
   const int W = WZ * WY * WX;
   const long sy = WX, sz = static_cast<long>(WX) * WY;
@@ -85,10 +95,10 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
   const int oz = blockIdx.z * TZ - m, oy = blockIdx.y * TY - m,
             ox = blockIdx.x * TX - m;
 
-  float* cur = smem;       // heat, advection, Gray-Scott u: current level;
-                           // wave: u
-  float* nxt = smem + W;   // heat, advection, Gray-Scott u: next level;
-                           // wave: u_prev
+  float* cur = smem;  // heat, advection, Gray-Scott u: current level;
+                      // wave: u; SOR: the one buffer it relaxes in place
+  float* nxt = sor ? smem : smem + W;  // heat, advection, Gray-Scott u:
+                                       // next level; wave: u_prev
   float* vcur = smem + 2 * W;  // Gray-Scott v: current level
   float* vnxt = smem + 3 * W;  // Gray-Scott v: next level
 
@@ -102,7 +112,7 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
   }
   __syncthreads();
 
-  for (int s = 1; s <= k; ++s) {
+  for (int s = 1; s <= k * kind_phases(KIND); ++s) {
     const int lo = s * h;
     const int RZ = WZ - 2 * lo, RY = WY - 2 * lo, RX = WX - 2 * lo;
     const int R = RZ * RY * RX;
@@ -110,20 +120,24 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
       const int rx = i % RX, t = i / RX, ry = t % RY, rz = t / RY;
       const int wz = rz + lo, wy = ry + lo, wx = rx + lo;
       const long q = wz * sz + wy * sy + wx;
-      const bool frame =
-          !periodic && in_frame(w.oz + oz + wz, w.oy + oy + wy, ox + wx,
-                                w.GZ, w.GY, w.GX, h);
+      const int gz = w.oz + oz + wz, gy = w.oy + oy + wy, gx = ox + wx;
+      // keep: the cell copies its previous level (a frame cell, or one of
+      // the colour SOR's sweep s leaves)
+      bool keep = !periodic && in_frame(gz, gy, gx, w.GZ, w.GY, w.GX, h);
+      if constexpr (sor) keep = keep || other_colour(gz + gy + gx, s);
       if constexpr (wave) {
-        nxt[q] = frame ? cur[q] : wave_update(cur + q, nxt[q], sy, sz, c);
+        nxt[q] = keep ? cur[q] : wave_update(cur + q, nxt[q], sy, sz, c);
       } else if constexpr (gs) {
-        if (frame) {
+        if (keep) {
           nxt[q] = cur[q];
           vnxt[q] = vcur[q];
         } else {
           grayscott_update(cur + q, vcur + q, sy, sz, c, nxt[q], vnxt[q]);
         }
+      } else if constexpr (sor) {
+        if (!keep) cur[q] = field_update<KIND>(cur + q, sy, sz, c);
       } else {
-        nxt[q] = frame ? cur[q] : field_update<KIND>(cur + q, sy, sz, c);
+        nxt[q] = keep ? cur[q] : field_update<KIND>(cur + q, sy, sz, c);
       }
     }
     __syncthreads();
@@ -154,7 +168,7 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
 template <int KIND, int SRC>
 int launch(const Window& w, int k, int periodic, const Coef& c, int tz,
            int ty, int tx, cudaStream_t s) {
-  const int m = k * kind_halo(KIND);
+  const int m = kind_margin(KIND, k);
   const size_t smem = kind_buffers(KIND) * sizeof(float) *
                       static_cast<size_t>(tz + 2 * m) * (ty + 2 * m) *
                       (tx + 2 * m);
@@ -182,6 +196,8 @@ int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
       return launch<HEAT13, SRC>(w, k, periodic, c, tz, ty, tx, s);
     case WAVE7:
       return launch<WAVE7, SRC>(w, k, periodic, c, tz, ty, tx, s);
+    case SOR7:
+      return launch<SOR7, SRC>(w, k, periodic, c, tz, ty, tx, s);
     case ADVECT:
       if constexpr (SRC == RAW || SRC == PADDED)
         return launch<ADVECT, SRC>(w, k, periodic, c, tz, ty, tx, s);
@@ -212,8 +228,9 @@ EXPORT int fused_step_f32(int kind, const float* in0, const float* in1,
 }
 
 // One K3 launch in its sharded mode: the inputs are a shard's z/y-padded
-// (Z+2m, Y+2m, X) blocks, the outputs its (Z, Y, X) core k steps on; the
-// core's global origin is (oz, oy, 0) in a (GZ, GY, GX) grid.
+// (Z+2m, Y+2m, X) blocks (m = kind_margin(kind, k)), the outputs its
+// (Z, Y, X) core k steps on; the core's global origin is (oz, oy, 0) in a
+// (GZ, GY, GX) grid.
 EXPORT int fused_step_padded_f32(int kind, const float* in0, const float* in1,
                                  float* out0, float* out1, int Z, int Y, int X,
                                  int GZ, int GY, int GX, int oz, int oy, int k,
@@ -222,7 +239,7 @@ EXPORT int fused_step_padded_f32(int kind, const float* in0, const float* in1,
                                  void* stream) {
   const Window w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
                  {out0, out1}, Z, Y, X, GZ, GY, GX, oz, oy,
-                 k * kind_halo(kind)};
+                 kind_margin(kind, k)};
   return dispatch<PADDED>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
                           ty, tx, stream);
 }
@@ -238,7 +255,7 @@ EXPORT int fused_zslab_f32(int kind, const float* in0, const float* in1,
                            float c2, float c3, int tz, int ty, int tx,
                            void* stream) {
   const Window w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1}, Z, Y, X,
-                 GZ, Y, X, oz, 0, k * kind_halo(kind)};
+                 GZ, Y, X, oz, 0, kind_margin(kind, k)};
   return dispatch<ZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
                          ty, tx, stream);
 }
@@ -258,7 +275,7 @@ EXPORT int fused_yzslab_f32(
     int k, int periodic, float a, float c0, float c1, float c2, float c3,
     int tz, int ty, int tx, void* stream) {
   const Window w{{in0, in1}, {zlo0, zlo1}, {zhi0, zhi1}, {out0, out1},
-                 Z, Y, X, GZ, GY, GX, oz, oy, k * kind_halo(kind),
+                 Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
                  {ylo0, ylo1}, {yhi0, yhi1},
                  {{cll0, cll1}, {clh0, clh1}, {chl0, chl1}, {chh0, chh1}}};
   return dispatch<YZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,

@@ -7,8 +7,9 @@
 // through __fadd_rn / __fsub_rn / __fmul_rn (stencil_taps.cuh) in the plain
 // version's association order (ops/stencil.py::axis_laplacian: faces
 // y-, y+, x-, x+ left-associated, centre term last), so the kernels equal
-// ops/heat.py, ops/wave.py, ops/life.py, ops/advection.py and
-// ops/reaction.py bit for bit.
+// ops/heat.py, ops/wave.py, ops/life.py, ops/advection.py,
+// ops/reaction.py and ops/sor.py (a half-sweep: heat5 with alpha = omega /
+// 4 on the cells of one colour) bit for bit.
 
 #pragma once
 
@@ -16,8 +17,15 @@
 
 // 2D stencil kinds; the Python wrappers pass the same integers.
 enum Stencil2DKind {
-  HEAT5 = 4, WAVE5 = 5, LIFE = 6, ADVECT2D = 9, GRAYSCOTT2D = 10
+  HEAT5 = 4, WAVE5 = 5, LIFE = 6, ADVECT2D = 9, GRAYSCOTT2D = 10, SOR5 = 12
 };
+
+// Sweeps one step of a 2D kind takes (red-black SOR: two half-sweeps of
+// halo 1), so k steps consume a margin of k * phases rows and columns
+// (ops/stencil.py::k_step_margin; every 2D kind has halo 1).
+__host__ __device__ constexpr int kind_phases2(int kind) {
+  return kind == SOR5 ? 2 : 1;
+}
 
 // Element type of a kind's fields: int32 occupancy for Life, float32 else.
 template <int KIND>

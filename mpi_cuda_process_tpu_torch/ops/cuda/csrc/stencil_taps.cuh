@@ -12,7 +12,9 @@
 // with their plain versions bit for bit on the same inputs, and frame cells
 // are copied verbatim.  The same holds for advection (ops/advection.py) and
 // Gray-Scott (ops/reaction.py), whose compound constants arrive as one float
-// each, rounded once from the plain version's own double (F + kappa).
+// each, rounded once from the plain version's own double (F + kappa), and for
+// red-black SOR (ops/sor.py), whose half-sweep is heat's update with alpha =
+// omega / 6 kept on the cells of one colour.
 
 #pragma once
 
@@ -20,15 +22,16 @@
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
-// Stencil kinds; the Python wrappers pass the same integers (4-6, 9 and 10
-// are the 2D kinds of stencil2d.cuh).
+// Stencil kinds; the Python wrappers pass the same integers (4-6, 9, 10 and
+// 12 are the 2D kinds of stencil2d.cuh).
 enum StencilKind {
-  HEAT7 = 0, HEAT27 = 1, HEAT13 = 2, WAVE7 = 3, ADVECT = 7, GRAYSCOTT = 8
+  HEAT7 = 0, HEAT27 = 1, HEAT13 = 2, WAVE7 = 3, ADVECT = 7, GRAYSCOTT = 8,
+  SOR7 = 11
 };
 
 // Coefficients from the op modules (the only copy of the constants), as
-// rawstep.py::coefficients orders them: `a` is alpha (heat) or c2dt2
-// (wave); c0..c3 are the kind's weights (27-point: centre, face, edge,
+// rawstep.py::coefficients orders them: `a` is alpha (heat), omega / 6 (SOR)
+// or c2dt2 (wave); c0..c3 are the kind's weights (27-point: centre, face, edge,
 // corner; 13-point: centre, w1, w2).  Advection: (a, c0, c1) = the Courant
 // numbers (cz, cy, cx).  Gray-Scott: (a, c0, c1, c2) = (Du, Dv, F,
 // F + kappa).
@@ -38,6 +41,26 @@ struct Coef {
 
 __host__ __device__ constexpr int kind_halo(int kind) {
   return kind == HEAT13 ? 2 : 1;
+}
+
+// Sweeps one step of a kind takes: red-black SOR relaxes the red cells, then
+// the black ones reading the fresh red values, so each step consumes two
+// halos of a k-step window (ops/stencil.py::k_step_margin).
+__host__ __device__ constexpr int kind_phases(int kind) {
+  return kind == SOR7 ? 2 : 1;
+}
+
+// Window margin of k steps: k * halo * phases (ops/stencil.py::k_step_margin).
+__host__ __device__ constexpr int kind_margin(int kind, int k) {
+  return k * kind_halo(kind) * kind_phases(kind);
+}
+
+// Whether sweep s (1-based) of a multi-phase kind leaves the cell at global
+// coordinate sum g alone: sweep s relaxes colour (s - 1) % 2, the cells whose
+// coordinate sum has that parity (g & 1 is the floor-mod parity of a negative
+// ghost coordinate too, which a periodic wrap over even extents keeps).
+__host__ __device__ constexpr bool other_colour(int g, int s) {
+  return ((g ^ (s - 1)) & 1) != 0;
 }
 
 __device__ __forceinline__ float fadd(float x, float y) { return __fadd_rn(x, y); }
@@ -135,11 +158,15 @@ __device__ __forceinline__ float advect_update(const A& a, const Coef& c) {
   return acc;
 }
 
-// New value of a single-field cell: advection or a heat kind.
+// New value of a single-field cell: advection, a heat kind, or SOR's
+// relaxation of a cell of the sweep's colour (7-point heat with alpha =
+// omega / 6).
 template <int KIND, class A>
 __device__ __forceinline__ float field_update(const A& a, const Coef& c) {
   if constexpr (KIND == ADVECT) {
     return advect_update(a, c);
+  } else if constexpr (KIND == SOR7) {
+    return heat_update<HEAT7>(a, c);
   } else {
     return heat_update<KIND>(a, c);
   }

@@ -30,7 +30,13 @@
 // levels read) while the levels compute on plane p.  TMA bulk copies with a
 // producer warp are the later form.
 //
-// Every cell is computed by heat_update<KIND> / wave_update of
+// Red-black SOR marches 2k levels of halo 1 (m = 2k): level s relaxes the
+// cells of colour (s-1) % 2 of the GLOBAL coordinate sum and copies the
+// others, so the levels are SOR's one-colour half-sweeps in order, each
+// re-pinning the frame, as _micro_sor does.  At the (16, 64) column and
+// k = 4 the eight level rings take 183 KB of shared memory.
+//
+// Every cell is computed by field_update<KIND> / wave_update of
 // stencil_taps.cuh through a ring accessor, in the same rounding order as
 // the plain PyTorch version, so the kernel is bit-equal to it.  The frame
 // is pinned on GLOBAL coordinates, (oz, oy) + local, as in fused.cu: a cell
@@ -69,7 +75,7 @@ struct Ring {
 // level's region, level 0's with one slot more for the plane in flight;
 // for wave, after them, a ring of loaded u_prev planes shaped as level 0's.
 struct Layout {
-  int k, h, TY, TX;
+  int k, h, TY, TX;  // k: the levels (the steps; SOR: its 2k half-sweeps)
   __host__ __device__ int ry(int s) const { return TY + 2 * (k - s) * h; }
   __host__ __device__ int rx(int s) const { return TX + 2 * (k - s) * h; }
   __host__ __device__ int slots(int s) const {
@@ -102,12 +108,14 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
   extern __shared__ float smem[];
   constexpr int h = kind_halo(KIND);
   constexpr bool two = KIND == WAVE7;
-  const Layout L{k, h, TY, TX};
-  const int m = k * h;
+  // levels: one per step, one per half-sweep for SOR
+  const int K = k * kind_phases(KIND);
+  const Layout L{K, h, TY, TX};
+  const int m = kind_margin(KIND, k);
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // the core column
   const int tx = threadIdx.x, ty = threadIdx.y;
   const long gsy = w.X, gsz = static_cast<long>(w.X) * w.Y;
-  const long prev_base = L.base(k);
+  const long prev_base = L.base(K);
 
   // Issue the copies of window plane p into level 0's ring (and wave's
   // u_prev ring): one cp.async group.
@@ -136,8 +144,8 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
     __pipeline_wait_prior(0);
     __syncthreads();
     if (p + 1 < w.Z + m) load_plane(p + 1);
-    for (int s = 1; s <= k; ++s) {
-      const int e = (k - s) * h;  // level s reaches e cells past the core
+    for (int s = 1; s <= K; ++s) {
+      const int e = (K - s) * h;  // level s reaches e cells past the core
       const int z = p - s * h;
       if (z < -e) break;  // no plane of this level (or a deeper one) yet
       const int RY = L.ry(s), RX = L.rx(s), PX = L.rx(s - 1);
@@ -161,7 +169,7 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
           uoff = 2 * h;
         }
       }
-      float* dst = s < k ? ring_plane(smem, L, s, L.base(s), z) : nullptr;
+      float* dst = s < K ? ring_plane(smem, L, s, L.base(s), z) : nullptr;
       for (int iy = ty; iy < RY; iy += TYT) {
         const int y = y0 - e + iy;
         for (int ix = tx; ix < RX; ix += TXT) {
@@ -172,17 +180,20 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
           for (int j = 0; j <= 2 * h; ++j) a.plane[j] = planes[j] + off;
           a.sy = PX;
           const float u = a(0, 0, 0);
-          const bool frame =
-              in_frame(w.oz + z, w.oy + y, x, w.GZ, w.GY, w.GX, h);
+          // keep: the cell copies its previous level (a frame cell, or one
+          // of the colour SOR's level s leaves)
+          bool keep = in_frame(w.oz + z, w.oy + y, x, w.GZ, w.GY, w.GX, h);
+          if constexpr (KIND == SOR7)
+            keep = keep || other_colour(w.oz + z + w.oy + y + x, s);
           float v;
           if constexpr (two) {
             const float uprev =
                 up[static_cast<long>(iy + uoff) * ux + (ix + uoff)];
-            v = frame ? u : wave_update(a, uprev, c);
+            v = keep ? u : wave_update(a, uprev, c);
           } else {
-            v = frame ? u : heat_update<KIND>(a, c);
+            v = keep ? u : field_update<KIND>(a, c);
           }
-          if (s < k) {
+          if (s < K) {
             dst[iy * RX + ix] = v;
           } else if (y < w.Y && x < w.X) {
             const long g = z * gsz + y * gsy + x;
@@ -191,7 +202,7 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
           }
         }
       }
-      if (s < k) __syncthreads();
+      if (s < K) __syncthreads();
     }
   }
 }
@@ -199,7 +210,7 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
 template <int KIND, int SRC>
 int launch(const Window& w, int k, const Coef& c, int ty, int tx,
            cudaStream_t s) {
-  const Layout L{k, kind_halo(KIND), ty, tx};
+  const Layout L{k * kind_phases(KIND), kind_halo(KIND), ty, tx};
   const size_t smem = sizeof(float) * L.floats(KIND == WAVE7);
   cudaError_t e = cudaFuncSetAttribute(
       stream_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -223,6 +234,8 @@ int dispatch(int kind, const Window& w, int k, const Coef& c, int ty, int tx,
       return launch<HEAT13, SRC>(w, k, c, ty, tx, s);
     case WAVE7:
       return launch<WAVE7, SRC>(w, k, c, ty, tx, s);
+    case SOR7:
+      return launch<SOR7, SRC>(w, k, c, ty, tx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -252,7 +265,7 @@ EXPORT int stream_zslab_f32(int kind, const float* in0, const float* in1,
                             int k, float a, float c0, float c1, float c2,
                             float c3, int ty, int tx, void* stream) {
   const Window w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1}, Z, Y, X,
-                 GZ, Y, X, oz, 0, k * kind_halo(kind)};
+                 GZ, Y, X, oz, 0, kind_margin(kind, k)};
   return dispatch<ZSLAB>(kind, w, k, Coef{a, c0, c1, c2, c3}, ty, tx,
                          stream);
 }
@@ -272,7 +285,7 @@ EXPORT int stream_yzslab_f32(
     int k, float a, float c0, float c1, float c2, float c3, int ty, int tx,
     void* stream) {
   const Window w{{in0, in1}, {zlo0, zlo1}, {zhi0, zhi1}, {out0, out1},
-                 Z, Y, X, GZ, GY, GX, oz, oy, k * kind_halo(kind),
+                 Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
                  {ylo0, ylo1}, {yhi0, yhi1},
                  {{cll0, cll1}, {clh0, clh1}, {chl0, chl1}, {chh0, chh1}}};
   return dispatch<YZSLAB>(kind, w, k, Coef{a, c0, c1, c2, c3}, ty, tx,

@@ -1,23 +1,26 @@
 """2D temporal blocking, k steps per device-memory pass: K8.
 
 ``fullgrid_step`` (``csrc/fullgrid.cu::fullgrid_step<KIND, RAW>``) advances
-heat2d / mdf, wave2d, life, advect2d or grayscott2d by k guard-frame (or
-periodic) steps on the whole grid; ``fullgrid_padded``
-(``fullgrid_step<KIND, PADDED>``) does the same for one row shard from its
-padded block (the width-m row exchange) and the shard's global first row.
+heat2d / mdf, wave2d, life, advect2d, grayscott2d or sor2d (2k one-colour
+half-sweeps) by k guard-frame (or periodic) steps on the whole grid;
+``fullgrid_padded`` (``fullgrid_step<KIND, PADDED>``) does the same for one
+row shard from its padded block (the width-m row exchange) and the shard's
+global first row.
 Both are bit-exact with k plain steps.
 
 Replaces the TPU package's ``ops/pallas/fullgrid.py`` — ``_build_call`` with
 ``_micro_life`` and the ``_MICRO2D`` micro-steps of heat2d, mdf, wave2d,
-advect2d and grayscott2d — behind the same two builders,
+advect2d, grayscott2d and sor2d — behind the same two builders,
 :func:`make_fullgrid_step` and :func:`build_fullgrid_masked_call`.  The TPU
 kernel keeps the whole grid in VMEM; an SM's shared memory holds a small
 fraction of it, so K8 tiles the grid into overlapped windows (the kernel
 source says how).  The TPU rules that follow from VMEM and the (8, 128)
 tiling — ``W % 128``, ``m`` and the local rows a multiple of the sublane,
 the live-copy VMEM budget — do not apply; added is the shared-memory fit of
-one window.  Bound on an H100: device-memory bytes, one read and one write
-of each field per k steps.
+one window, and for sor2d the parity rules those alignment rules implied
+(even extents under a periodic wrap, even local rows under a row split).
+Bound on an H100: device-memory bytes, one read and one write of each field
+per k steps.
 
 Plain PyTorch versions: k applications of ``driver.make_step`` for the
 whole grid; for a shard, k plain steps of its padded block
@@ -35,10 +38,11 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ...driver import make_step
-from .. import reaction
-from ..stencil import Fields, Stencil
+from .. import reaction, sor
+from ..stencil import Fields, Stencil, k_step_margin
 from . import _build
-from .fused import SMEM_LIMIT, _plain_window_steps, buffers
+from .fused import (SMEM_LIMIT, _plain_window_steps, buffers,
+                    parity_consistent)
 
 # Launches per wrapper and stencil, keyed "fullgrid_step[life]" or
 # "fullgrid_padded[heat2d]": one added where a kernel launches, nowhere
@@ -49,50 +53,52 @@ launches: Counter = Counter()
 # under another registry name (its stencil's name is "heat2d").
 _FULLGRID = {"heat2d": (4, torch.float32), "wave2d": (5, torch.float32),
              "life": (6, torch.int32), "advect2d": (9, torch.float32),
-             "grayscott2d": (10, torch.float32)}
-# 2D families of the TPU kernel whose stencils the port does not have yet.
-_UNPORTED_2D = ("sor2d",)
-STENCILS_ITEM = "ROADMAP A1 (the sor2d stencil and its micro-step)"
+             "grayscott2d": (10, torch.float32), "sor2d": (12, torch.float32)}
 
 # Core tile (TY, TX) each block writes; threads stride over it as (8, 32).
 CORE = (32, 64)
-# Micro-steps per launch of the whole-grid kernel: a larger k runs as
-# several launches (the window margin, and so the redundant work, grows
-# with the micro-steps of one launch).
+# Margin of one launch of the whole-grid kernel (its micro-steps: sor2d's
+# half-sweeps): a larger k runs as several launches (the window margin, and
+# so the redundant work, grows with the micro-steps of one launch).
 K_PER_LAUNCH = 16
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 
 def fullgrid_supported(stencil: Stencil) -> bool:
-    """Whether K8 has the stencil's micro-step; the TPU families whose
-    stencils are not ported yet raise naming their ROADMAP item."""
-    if stencil.name in _UNPORTED_2D:
-        raise NotImplementedError(
-            f"--fuse for {stencil.name} needs its stencil and micro-step: "
-            f"{STENCILS_ITEM}")
+    """Whether K8 has the stencil's micro-step (every 2D family of the TPU
+    kernel)."""
     return stencil.ndim == 2 and stencil.name in _FULLGRID
 
 
-def smem_bytes(k: int, itemsize: int = 4, nbuf: int = 2) -> int:
-    """``nbuf`` window buffers of ``CORE + 2k`` cells (``fused.buffers``:
-    two, or four for Gray-Scott, whose two fields are both read with their
-    neighbours)."""
+def smem_bytes(m: int, itemsize: int = 4, nbuf: int = 2) -> int:
+    """``nbuf`` window buffers of ``CORE + 2m`` cells at margin ``m``
+    (``fused.buffers``: two, or four for Gray-Scott, whose two fields are
+    both read with their neighbours)."""
     ty, tx = CORE
-    return nbuf * itemsize * (ty + 2 * k) * (tx + 2 * k)
+    return nbuf * itemsize * (ty + 2 * m) * (tx + 2 * m)
 
 
 def fits(stencil: Stencil, k: int) -> bool:
-    """Whether one launch of k micro-steps of ``stencil`` fits a block's
-    shared memory."""
-    return smem_bytes(k, nbuf=buffers(stencil)) <= SMEM_LIMIT
+    """Whether one launch of k steps of ``stencil`` (margin
+    ``k_step_margin``) fits a block's shared memory."""
+    return smem_bytes(k_step_margin(stencil, k),
+                      nbuf=buffers(stencil)) <= SMEM_LIMIT
+
+
+def _steps_per_launch(stencil: Stencil) -> int:
+    """Steps of one launch: ``K_PER_LAUNCH`` micro-steps (sor2d: half-
+    sweeps, two a step)."""
+    return K_PER_LAUNCH * stencil.halo // k_step_margin(stencil, 1)
 
 
 def _coefficients(stencil: Stencil):
     """``(a, c0, c1, c2, c3)`` of the kernel's ``Coef``: alpha (heat2d),
-    c2dt2 (wave2d), the Courant numbers (cy, cx) (advect2d) or (Du, Dv, F,
-    F + kappa) (grayscott2d)."""
+    c2dt2 (wave2d), omega / 4 (sor2d, its half-sweeps' alpha), the Courant
+    numbers (cy, cx) (advect2d) or (Du, Dv, F, F + kappa) (grayscott2d)."""
     p = stencil.params
+    if stencil.name == "sor2d":
+        return (sor.alpha(stencil), 0.0, 0.0, 0.0, 0.0)
     if stencil.name == "advect2d":
         return tuple(p["courant"]) + (0.0, 0.0, 0.0)
     if stencil.name == "grayscott2d":
@@ -120,7 +126,7 @@ def _pointers(tensors):
 def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
                   periodic: bool = False) -> Fields:
     """``k`` steps of ``stencil`` on the whole 2D grid: one launch per
-    ``K_PER_LAUNCH`` micro-steps."""
+    ``K_PER_LAUNCH`` micro-steps (sor2d: half of them)."""
     if not fields[0].is_cuda:
         step = make_step(stencil, fields[0].shape, periodic=periodic)
         for _ in range(k):
@@ -134,7 +140,7 @@ def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
     coef = _coefficients(stencil)
     left = k
     while left > 0:
-        kk = min(left, K_PER_LAUNCH)
+        kk = min(left, _steps_per_launch(stencil))
         outs = tuple(torch.empty_like(f) for f in fields)
         rc = lib.fullgrid_raw(kind, *_pointers(fields), *_pointers(outs),
                               H, W, kk, int(periodic), *coef, *CORE,
@@ -150,12 +156,13 @@ def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
                     periodic: bool = False) -> Fields:
     """K8's sharded mode: ``k`` steps of one row shard.
 
-    ``padded`` are the shard's fields with ``m = k`` rows from the row
-    exchange on each side, ``(Ly + 2m, W)``; ``origin_y`` is the global row
-    of the shard's first core row in a ``global_rows``-row grid.  Returns
+    ``padded`` are the shard's fields with ``m = k_step_margin`` rows (k;
+    2k for sor2d) from the row exchange on each side, ``(Ly + 2m, W)``;
+    ``origin_y`` is the global row of the shard's first core row in a
+    ``global_rows``-row grid.  Returns
     the ``(Ly, W)`` core of every field, k steps on.
     """
-    m = k
+    m = k_step_margin(stencil, k)
     Hp, W = (int(s) for s in padded[0].shape)
     Ly = Hp - 2 * m
     if not padded[0].is_cuda:
@@ -188,11 +195,13 @@ def make_fullgrid_step(
     device=None,
 ) -> Optional[Callable[[Fields], Fields]]:
     """``fields -> fields`` advancing ``k`` steps of a 2D stencil, or None
-    (not a 2D family of the kernel, or k < 1).  Any extent and any k run:
-    the kernel masks the ragged edge, and k above ``K_PER_LAUNCH`` takes
-    several launches.  With a CUDA ``device`` the kernel is built here,
-    before the time loop."""
-    if len(global_shape) != 2 or k < 1 or not fullgrid_supported(stencil):
+    (not a 2D family of the kernel, k < 1, or sor2d periodic over an odd
+    extent).  Any other extent and any k run: the kernel masks the ragged
+    edge, and k above ``K_PER_LAUNCH`` micro-steps takes several launches.
+    With a CUDA ``device`` the kernel is built here, before the time
+    loop."""
+    if len(global_shape) != 2 or k < 1 or not fullgrid_supported(stencil) \
+            or not parity_consistent(stencil, global_shape, periodic):
         return None
     if device is not None and torch.device(device).type == "cuda":
         _lib()
@@ -214,21 +223,22 @@ def build_fullgrid_masked_call(
 ):
     """K8 over one row shard's padded block: ``(call, nfields)`` or None.
 
-    The caller exchanges width-``m`` rows (``m = k * halo``), so the blocks
-    are ``(Ly + 2m, W)``.  In guard-frame mode the call takes the shard's
-    global first row first, then the padded fields; periodic calls take the
-    fields alone.  It returns the ``(Ly, W)`` cores advanced k steps.  None
-    for a family without a kernel, ``m`` other than ``k * halo``, local
-    rows below ``m`` (a width-m slab must come from one neighbour), a
-    guard-frame call without ``global_shape``, or a window too large for
-    shared memory.
+    The caller exchanges width-``m`` rows (``m = k_step_margin``: k, 2k
+    for sor2d), so the blocks are ``(Ly + 2m, W)``.  In guard-frame mode the
+    call takes the shard's global first row first, then the padded fields;
+    periodic calls take the fields alone.  It returns the ``(Ly, W)`` cores
+    advanced k steps.  None for a family without a kernel, ``m`` other than
+    the k-step margin, local rows below ``m`` (a width-m slab must come from
+    one neighbour), a guard-frame call without ``global_shape``, or a window
+    too large for shared memory.
     """
     if m < 1 or k < 1 or not fullgrid_supported(stencil):
         return None
     if not periodic and global_shape is None:
         return None
     Hp, _W = (int(s) for s in padded_shape)
-    if m != k * stencil.halo or Hp - 2 * m < m or not fits(stencil, k):
+    if m != k_step_margin(stencil, k) or Hp - 2 * m < m or \
+            not fits(stencil, k):
         return None
     rows = None if global_shape is None else int(global_shape[0])
     if device is not None and torch.device(device).type == "cuda":

@@ -1,8 +1,9 @@
 """Temporal blocking, k steps per device-memory pass: K3, K6 and K9.
 
 ``fused_step`` (``csrc/fused.cu::fused_step<KIND, RAW>``) advances heat3d,
-heat3d27, heat3d4th, wave3d, advect3d or grayscott3d by k guard-frame (or
-periodic) steps in one kernel launch, by overlapped tiling in shared memory.
+heat3d27, heat3d4th, wave3d, sor3d, advect3d or grayscott3d by k
+guard-frame (or periodic) steps in one kernel launch, by overlapped tiling
+in shared memory (sor3d: 2k one-colour half-sweeps, margin ``2k``).
 Its sharded mode, ``fused_step_padded`` (``fused_step<KIND, PADDED>``), does
 the same for one shard from its z/y-padded block and the shard's global
 origin: the ``sharded_global`` mode of the TPU builder.  ``fused_zslab``
@@ -17,10 +18,11 @@ yet: their builders raise naming ROADMAP B4.
 
 Replaces the TPU package's ``ops/pallas/fused.py::build_fused_call``
 (``_fused_kernel``, ``_fused_raw_kernel`` with the ``_micro_heat``/
-``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave``/``_micro_advect``/
-``_micro_grayscott`` micro-steps), ``build_zslab_padfree_call``
-(``_fused_zslab_kernel``), ``build_yzslab_padfree_call``
-(``_fused_yzslab_kernel``) and ``build_overlap_shell_calls``.  Bound on an
+``_micro_heat3d27``/``_micro_heat3d4th``/``_micro_wave``/``_micro_sor``/
+``_micro_advect``/``_micro_grayscott`` micro-steps),
+``build_zslab_padfree_call`` (``_fused_zslab_kernel``),
+``build_yzslab_padfree_call`` (``_fused_yzslab_kernel``) and
+``build_overlap_shell_calls``.  Bound on an
 H100: device-memory bytes, one read and one write of each field per k steps;
 the kernel source says what its design pays for that.
 
@@ -40,7 +42,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ...driver import frame_mask, make_step
-from ..stencil import Fields, Stencil
+from ..stencil import Fields, Stencil, k_step_margin
 from . import _build
 from .rawstep import coefficients
 
@@ -53,7 +55,8 @@ launches: Counter = Counter()
 
 # name -> (kernel kind in stencil_taps.cuh, halo)
 _FUSED = {"heat3d": (0, 1), "heat3d27": (1, 1), "heat3d4th": (2, 2),
-          "wave3d": (3, 1), "advect3d": (7, 1), "grayscott3d": (8, 1)}
+          "wave3d": (3, 1), "advect3d": (7, 1), "grayscott3d": (8, 1),
+          "sor3d": (11, 1)}
 # K3 families the slab-operand kernels K6 and K9 do not take yet.
 _NOT_PADFREE = ("advect3d", "grayscott3d")
 PADFREE_ITEM = ("ROADMAP B4 (the pad-free slab-operand kernels for "
@@ -67,6 +70,10 @@ SMEM_LIMIT = 227 * 1024
 # 221 KB; Gray-Scott's four buffers k = 4 only, 160 KB) or at no core at all
 # (the margin alone overflows), so one core serves.
 CORE = (8, 8, 32)
+# sor3d relaxes in place in one buffer (csrc/fused.cu), and its margin is 2k:
+# a larger core spends fewer of the window's cells on the margin (k = 4:
+# 6x the core's cells against 13.5x at CORE; 192 KB).
+SOR_CORE = (16, 16, 32)
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
@@ -78,8 +85,17 @@ def fused_supported(stencil: Stencil) -> bool:
 def buffers(stencil: Stencil) -> int:
     """Window buffers the kernel keeps: a current and a next level per field
     whose neighbours it reads (Gray-Scott: both fields, so 4); wave's
-    u_prev, read at its own cell only, shares the pair of u."""
+    u_prev, read at its own cell only, shares the pair of u; sor3d relaxes
+    in place in one (a half-sweep reads only the colour it leaves)."""
+    if stencil.name == "sor3d":
+        return 1
     return 2 * sum(1 for h in stencil.field_halos if h)
+
+
+def core_of(stencil: Stencil) -> Tuple[int, int, int]:
+    """The core tile of ``stencil``'s blocks: ``SOR_CORE`` for sor3d,
+    ``CORE`` for the rest."""
+    return SOR_CORE if stencil.name == "sor3d" else CORE
 
 
 def smem_bytes(core: Tuple[int, int, int], margin: int,
@@ -91,10 +107,19 @@ def smem_bytes(core: Tuple[int, int, int], margin: int,
 
 
 def fits(stencil: Stencil, k: int) -> bool:
-    """Whether the window buffers of ``CORE`` at margin ``k * halo`` fit one
-    block's shared memory."""
-    return smem_bytes(CORE, k * _FUSED[stencil.name][1],
+    """Whether the window buffers of the stencil's core at the k-step margin
+    fit one block's shared memory."""
+    return smem_bytes(core_of(stencil), k_step_margin(stencil, k),
                       buffers(stencil)) <= SMEM_LIMIT
+
+
+def parity_consistent(stencil: Stencil, shape: Sequence[int],
+                      periodic: bool) -> bool:
+    """False where a periodic wrap over an odd extent of ``shape`` would
+    give neighbouring cells one colour (red-black SOR), which the TPU
+    builders refuse; True for every other stencil and case."""
+    return not (stencil.parity_sensitive and periodic
+                and any(int(s) % 2 for s in shape))
 
 
 def refuse_padfree(stencil: Stencil) -> None:
@@ -111,17 +136,18 @@ def _sublane(itemsize: int) -> int:
 
 
 def margin_of(stencil: Stencil, k: int) -> Optional[int]:
-    """The k-step margin ``k * halo``, or None for a (stencil, k) the kernel
-    does not take: no fused kernel, ``2 * k * halo`` off the alignment unit,
-    or a window too large for shared memory."""
+    """The k-step margin ``m = k * halo * max(1, phases)``, or None for a
+    (stencil, k) the kernel does not take: no fused kernel, ``2 * m`` off
+    the alignment unit (so sor3d takes k = 2 and 4, not 1), or a window too
+    large for shared memory."""
     if not fused_supported(stencil) or k < 1:
         return None
-    halo = _FUSED[stencil.name][1]
-    if (2 * k * halo) % _sublane(stencil.dtype.itemsize):
+    m = k_step_margin(stencil, k)
+    if (2 * m) % _sublane(stencil.dtype.itemsize):
         return None
     if not fits(stencil, k):
         return None
-    return k * halo
+    return m
 
 
 def _lib():
@@ -171,7 +197,7 @@ def fused_step(fields: Fields, stencil: Stencil, k: int,
     Z, Y, X = fields[0].shape
     rc = lib.fused_step_f32(
         kind, *_pointers(fields, two), *_pointers(outs, two),
-        Z, Y, X, k, int(periodic), *coefficients(stencil), *CORE,
+        Z, Y, X, k, int(periodic), *coefficients(stencil), *core_of(stencil),
         _build.stream_of(fields[0]))
     _build.check(lib, rc, "fused_step")
     launches[f"fused_step[{stencil.name}]"] += 1
@@ -200,35 +226,43 @@ def _plain_window_steps(window: Fields, stencil: Stencil, k: int,
     global index ``origin``: the plain version of the sharded kernels.
 
     Axes in ``wrap_axes`` span the whole grid and wrap when ``periodic``;
-    the others are cut from a larger domain, and their outer ``k * halo``
-    cells come out stale — the caller crops them.  The frame is pinned on
-    global coordinates, as in the kernels.
+    the others are cut from a larger domain, and their outer k-step margin
+    (``k_step_margin``) comes out stale — the caller crops it.  The frame
+    is pinned on global coordinates, as in the kernels.  A multi-phase
+    stencil (red-black SOR) runs its phases in turn, each padded and
+    pinned; its half-sweeps colour cells by block-local parity, so on a
+    window whose origin has an odd coordinate sum they run in swapped
+    order, which relaxes the global red cells first, as the kernels do.
     """
     h = stencil.halo
     mask = None
     if not periodic:
         mask = frame_mask(window[0].shape, global_shape, origin, h,
                           device=window[0].device)
+    updates = stencil.phases or (stencil.update,)
+    if stencil.parity_sensitive and sum(int(o) for o in origin) % 2:
+        updates = updates[::-1]
     fields = window
     for _ in range(k):
-        padded = []
-        for f, fh in zip(fields, stencil.field_halos):
-            for d in range(f.dim()):
-                if fh:
-                    f = _pad_window_axis(f, d, fh,
-                                         periodic and d in wrap_axes)
-            padded.append(f)
-        new = stencil.update(tuple(padded))
-        out = []
-        for i, nf in enumerate(new):
-            j = stencil.carry_map[i]
-            if j is not None:
-                out.append(fields[j])
-            elif mask is None or not stencil.mask_fields[i]:
-                out.append(nf)
-            else:
-                out.append(torch.where(mask, fields[i], nf))
-        fields = tuple(out)
+        for update in updates:
+            padded = []
+            for f, fh in zip(fields, stencil.field_halos):
+                for d in range(f.dim()):
+                    if fh:
+                        f = _pad_window_axis(f, d, fh,
+                                             periodic and d in wrap_axes)
+                padded.append(f)
+            new = update(tuple(padded))
+            out = []
+            for i, nf in enumerate(new):
+                j = stencil.carry_map[i]
+                if j is not None:
+                    out.append(fields[j])
+                elif mask is None or not stencil.mask_fields[i]:
+                    out.append(nf)
+                else:
+                    out.append(torch.where(mask, fields[i], nf))
+            fields = tuple(out)
     return fields
 
 
@@ -237,7 +271,7 @@ def plain_step_padded(padded: Fields, stencil: Stencil, k: int,
                       periodic: bool = False) -> Fields:
     """The plain version of K3's sharded mode: k plain steps of the padded
     window, cropped to its core (arguments as :func:`fused_step_padded`)."""
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Zp, Yp, _ = (int(s) for s in padded[0].shape)
     oz, oy = (int(o) for o in origins)
     out = _plain_window_steps(padded, stencil, k, (oz - m, oy - m, 0),
@@ -251,13 +285,13 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
                       label: str = "fused_step_padded") -> Fields:
     """K3's sharded mode: ``k`` steps of one shard.
 
-    ``padded`` are the shard's fields padded by ``m = k * halo`` on z and y
-    (the width-m halo exchange); ``origins`` the global (z, y) index of the
-    shard's first core cell in a ``global_shape`` grid.  Returns the
+    ``padded`` are the shard's fields padded by the k-step margin ``m`` on
+    z and y (the width-m halo exchange); ``origins`` the global (z, y) index
+    of the shard's first core cell in a ``global_shape`` grid.  Returns the
     (Z, Y, X) core of every field, k steps on.  ``label`` names the launch
     counter (``fused_shell`` for the overlap shells).
     """
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Zp, Yp, X = (int(s) for s in padded[0].shape)
     Z, Y = Zp - 2 * m, Yp - 2 * m
     oz, oy = (int(o) for o in origins)
@@ -276,8 +310,8 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
     GZ, GY, GX = (int(g) for g in global_shape)
     rc = lib.fused_step_padded_f32(
         kind, *_pointers(padded, two), *_pointers(outs, two), Z, Y, X,
-        GZ, GY, GX, oz, oy, k, int(periodic), *coefficients(stencil), *CORE,
-        _build.stream_of(padded[0]))
+        GZ, GY, GX, oz, oy, k, int(periodic), *coefficients(stencil),
+        *core_of(stencil), _build.stream_of(padded[0]))
     _build.check(lib, rc, label)
     launches[f"{label}[{stencil.name}]"] += 1
     return outs
@@ -289,7 +323,7 @@ def plain_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     """The plain version of K6: k plain steps of each field's (Lz+2m, Y, X)
     window, the core between its two slabs, cropped to the core
     (arguments as :func:`fused_zslab`)."""
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Lz, Y, X = (int(s) for s in core[0].shape)
     window = tuple(torch.cat([lo, c, hi], dim=0)
                    for c, lo, hi in zip(core, zlo, zhi))
@@ -306,7 +340,7 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     field; ``origin_z`` is the core's first global z plane of ``global_z``.
     Returns the (Lz, Y, X) core of every field, k steps on."""
     refuse_padfree(stencil)
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
         return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z,
@@ -328,7 +362,7 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
         int(global_z), int(origin_z), k, int(periodic),
-        *coefficients(stencil), *CORE, _build.stream_of(core[0]))
+        *coefficients(stencil), *core_of(stencil), _build.stream_of(core[0]))
     _build.check(lib, rc, "fused_zslab")
     launches[f"fused_zslab[{stencil.name}]"] += 1
     return outs
@@ -366,7 +400,7 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     the (Lz, Ly, X) core of every field, k steps on.
     """
     refuse_padfree(stencil)
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Lz, Ly, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
         return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
@@ -391,7 +425,7 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
         *(p for c in corners for p in _pointers(c, two)),
         *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
-        int(periodic), *coefficients(stencil), *CORE,
+        int(periodic), *coefficients(stencil), *core_of(stencil),
         _build.stream_of(core[0]))
     _build.check(lib, rc, "fused_yzslab")
     launches[f"fused_yzslab[{stencil.name}]"] += 1
@@ -414,15 +448,17 @@ def build_fused_call(
     grid shape, guard-frame runs) first an ``(oz, oy)`` pair, the shard's
     global origin, from which the kernel derives the frame — and returns
     the ``core_shape`` fields advanced k steps.  None where the TPU builder
-    declines for a structural reason: no fused kernel, ``2 * k * halo`` off
-    the alignment unit, or a local z/y extent below the margin (a width-m
+    declines for a structural reason: no fused kernel, ``2 * m`` off
+    the alignment unit, a periodic wrap over an odd extent for a
+    parity-sensitive stencil, or a local z/y extent below the margin (a width-m
     slab must come from one neighbour); also for a window too large for
     shared memory.  The TPU VMEM tiling rule (``_pick_tiles``) does not
     apply: the kernel masks ragged blocks.  ``label`` names the launch
     counter.
     """
     margin = margin_of(stencil, k)
-    if margin is None:
+    if margin is None or not parity_consistent(stencil, core_shape,
+                                               periodic):
         return None
     Z, Y, X = (int(s) for s in core_shape)
     if min(Z, Y) < margin:
@@ -461,7 +497,8 @@ def build_zslab_padfree_call(
     """
     refuse_padfree(stencil)
     margin = margin_of(stencil, k)
-    if margin is None:
+    if margin is None or not parity_consistent(stencil, global_shape,
+                                               periodic):
         return None
     Lz = int(local_shape[0])
     if Lz < margin:
@@ -495,8 +532,9 @@ def build_yzslab_padfree_call(
     the (Lz, Ly, X) core, the two (m, Ly, X) z slabs, the two (Lz, m, X) y
     slabs and the four (m, m, X) corner pieces (ll, lh, hl, hh), and
     returns the core fields advanced k steps.  None where the TPU builder
-    declines for a structural reason: no fused kernel, ``2 * k * halo``
-    off the alignment unit, or a local z or y extent below the margin;
+    declines for a structural reason: no fused kernel, ``2 * m``
+    off the alignment unit, a periodic wrap over an odd global extent for a
+    parity-sensitive stencil, or a local z or y extent below the margin;
     also for a window too large for shared memory.  The TPU tiling rule
     and its 2m duplication of the y operands (sublane alignment) do not
     apply: the kernel masks ragged blocks and reads m-wide pieces.
@@ -504,7 +542,8 @@ def build_yzslab_padfree_call(
     """
     refuse_padfree(stencil)
     margin = margin_of(stencil, k)
-    if margin is None:
+    if margin is None or not parity_consistent(stencil, global_shape,
+                                               periodic):
         return None
     Lz, Ly = int(local_shape[0]), int(local_shape[1])
     if min(Lz, Ly) < margin:
@@ -540,7 +579,7 @@ def build_overlap_shell_calls(
 
     For each sharded grid axis ``d`` in ``axes`` (0 or 1: x is never
     sharded), K3's sharded mode over a reduced core whose axis-``d``
-    extent is ``2m`` (m = k * halo): the shell at one face of the local
+    extent is ``2m`` (m the k-step margin): the shell at one face of the local
     block.  A call takes what :func:`build_fused_call`'s takes — with a
     guard frame first the shell core's global ``(oz, oy)`` origin, which
     the caller offsets by the shell's position — and fields padded by m
@@ -580,14 +619,17 @@ def make_fused_step(
 
     Semantically ``k`` applications of ``driver.make_step``.  Returns None
     for the (stencil, k) pairs the TPU package's ``make_fused_step`` rejects
-    by its alignment rule — ``2 * k * halo`` a multiple of 8 for float32
-    (16 for bfloat16): halo-1 stencils need k in {4, 8, ...}, heat3d4th k in
-    {2, 4, ...} — and for windows too large for shared memory (halo-1
-    k >= 12, heat3d4th k >= 6, grayscott3d k >= 8).  Any grid extent is
-    accepted: the kernel masks the ragged edge.  With a CUDA ``device`` the
+    by its alignment rule — ``2 * m`` (m = ``k_step_margin``) a multiple of
+    8 for float32 (16 for bfloat16): halo-1 stencils need k in {4, 8, ...},
+    heat3d4th and sor3d k in {2, 4, ...} — or its parity rule (sor3d
+    periodic over an odd extent), and for windows too large for shared
+    memory (halo-1 k >= 12, heat3d4th k >= 6, grayscott3d k >= 8, sor3d
+    k >= 6).  Any other grid extent is accepted: the kernel masks the
+    ragged edge.  With a CUDA ``device`` the
     kernels are built here, before the time loop.
     """
-    if len(global_shape) != 3 or margin_of(stencil, k) is None:
+    if len(global_shape) != 3 or margin_of(stencil, k) is None or \
+            not parity_consistent(stencil, global_shape, periodic):
         return None
     if device is not None and torch.device(device).type == "cuda":
         _lib()

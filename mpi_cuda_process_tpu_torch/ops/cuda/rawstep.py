@@ -27,7 +27,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ...driver import make_step
-from .. import reaction
+from .. import reaction, sor
 from ..heat import W27_CENTER, W27_CORNER, W27_EDGE, W27_FACE, W4TH, w4th_center
 from ..stencil import Fields, Stencil
 from . import _build
@@ -44,7 +44,9 @@ _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 def coefficients(stencil: Stencil):
     """``(a, c0, c1, c2, c3)`` for the C entry points of the 3D kernels
-    (``Coef`` in stencil_taps.cuh)."""
+    (``Coef`` in stencil_taps.cuh); sor3d's ``a`` is omega / 6, heat3d's
+    alpha for its half-sweeps (the k-step kernels only: it has no raw
+    step)."""
     p = stencil.params
     if stencil.name == "heat3d":
         return (p["alpha"], 0.0, 0.0, 0.0, 0.0)
@@ -58,6 +60,8 @@ def coefficients(stencil: Stencil):
         return tuple(p["courant"]) + (0.0, 0.0)  # (cz, cy, cx)
     if stencil.name == "grayscott3d":
         return reaction.coefficients(stencil) + (0.0,)
+    if stencil.name == "sor3d":  # a half-sweep's heat coefficient
+        return (sor.alpha(stencil), 0.0, 0.0, 0.0, 0.0)
     raise ValueError(f"no CUDA kernel for {stencil.name!r}")
 
 

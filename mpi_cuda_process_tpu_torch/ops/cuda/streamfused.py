@@ -1,9 +1,10 @@
 """The streaming k-step kernel, K10 (TPU table rows 16-18).
 
 ``stream_step`` (``csrc/streamfused.cu::stream_step<KIND, RAW>``) advances
-heat3d, heat3d27, heat3d4th or wave3d by k guard-frame steps in one launch
-over the whole grid (advect3d and grayscott3d, the other K3 families, raise
-naming ROADMAP B5: Gray-Scott's second field needs rings of its own).  Each
+heat3d, heat3d27, heat3d4th, wave3d or sor3d (2k one-colour half-sweeps) by
+k guard-frame steps in one launch over the whole grid (advect3d and
+grayscott3d, the other K3 families, raise naming ROADMAP B5: Gray-Scott's
+second field needs rings of its own).  Each
 block marches a (TY, TX) column of the grid down z as a wavefront in time,
 so every plane of its window is read from device memory once per pass (K3
 re-reads the z margin of every window).  ``stream_zslab``
@@ -18,7 +19,8 @@ Replaces the TPU package's ``ops/pallas/streamfused.py``:
 ``build_stream_2axis_call`` (``_stream_2axis_kernel``), all three
 ``_stream_body``.  The builders keep the JAX names and the gates that are
 not TPU rules: guard-frame only (``periodic`` gives None), the 3D fused
-families, local z (and y) extents at least the margin m = k * halo.  The
+families, local z (and y) extents at least the margin m (``k_step_margin``:
+k * halo, 2k for sor3d).  The
 TPU's strip rules are dropped: the sublane-rounded margin ``wm_a`` and the
 y-operand padding (``_align``), ``_pick_strip``, ``_BZ_LADDER``,
 ``_XSHELL``, ``_strip_live_bytes`` and ``Lz // bz >= 3``; the kernel masks
@@ -39,7 +41,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from ..stencil import Fields, Stencil
+from ..stencil import Fields, Stencil, k_step_margin
 from . import _build
 from .fused import (_FUSED, SMEM_LIMIT, _pointers, plain_steps, plain_yzslab,
                     plain_zslab)
@@ -57,7 +59,7 @@ TILE = (16, 64)
 
 # The K3 families the streaming kernel has a kind for, and those it has not
 # yet (their stream runs raise by name).
-_STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d")
+_STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "sor3d")
 _NOT_STREAM = ("advect3d", "grayscott3d")
 STREAM_ITEM = ("ROADMAP B5 (the streaming kernel for advect3d and "
                "grayscott3d)")
@@ -79,13 +81,15 @@ def stream_supported(stencil: Stencil) -> bool:
 
 def smem_bytes(stencil: Stencil, k: int) -> int:
     """Shared memory of one block at column ``TILE`` (``Layout`` in
-    csrc/streamfused.cu): per level s = 0..k-1 a ring of its
-    (TY + 2(k-s)h, TX + 2(k-s)h) region, 2h + 1 planes (2h + 2 at level 0);
-    wave adds a level-0 ring of u_prev."""
+    csrc/streamfused.cu): per level s = 0..K-1 a ring of its
+    (TY + 2(K-s)h, TX + 2(K-s)h) region, 2h + 1 planes (2h + 2 at level 0),
+    with K = k levels (2k for sor3d, one per half-sweep); wave adds a
+    level-0 ring of u_prev."""
     ty, tx = TILE
     h = _FUSED[stencil.name][1]
-    planes = [(ty + 2 * (k - s) * h) * (tx + 2 * (k - s) * h)
-              for s in range(k)]
+    levels = k_step_margin(stencil, k) // h
+    planes = [(ty + 2 * (levels - s) * h) * (tx + 2 * (levels - s) * h)
+              for s in range(levels)]
     floats = sum((2 * h + 2 if s == 0 else 2 * h + 1) * n
                  for s, n in enumerate(planes))
     if stencil.num_fields == 2:
@@ -148,7 +152,7 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     (``zhi``) it, per field; ``origin_z`` is the core's first global z
     plane of ``global_z``.  Returns the core fields, k steps on."""
     stream_supported(stencil)  # raises for the families without a kind
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
         return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z)
@@ -178,7 +182,7 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     slabs and the corners ll, lh, hl, hh, per field).  Returns the
     (Lz, Ly, X) core of every field, k steps on."""
     stream_supported(stencil)  # raises for the families without a kind
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     Lz, Ly, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
         return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
@@ -236,8 +240,9 @@ def make_stream_fused_step(
     """``fields -> fields`` advancing ``k`` guard-frame steps in one
     streaming pass (row 16), or None: not a 3D fused family, or rings too
     large for shared memory (at the (16, 64) column: heat3d and heat3d27
-    k >= 10, wave3d k >= 9, heat3d4th k >= 6).  Semantically ``k``
-    applications of ``driver.make_step``; any k >= 1 and any grid extent."""
+    k >= 10, wave3d k >= 9, heat3d4th k >= 6, sor3d k >= 5).  Semantically
+    ``k`` applications of ``driver.make_step``; any k >= 1 and any grid
+    extent."""
     _refuse_policy(tiles, margin, order, batch)
     if len(global_shape) != 3 or not fits(stencil, k):
         return None
@@ -272,7 +277,7 @@ def build_stream_sharded_call(
     _refuse_policy(tiles, margin, order)
     if not stream_supported(stencil) or periodic or not fits(stencil, k):
         return None
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     if int(local_shape[0]) < m:
         return None
     gz = int(global_shape[0])
@@ -313,7 +318,7 @@ def build_stream_2axis_call(
     _refuse_policy(tiles, margin, order)
     if not stream_supported(stencil) or periodic or not fits(stencil, k):
         return None
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     if min(int(local_shape[0]), int(local_shape[1])) < m:
         return None
     gshape = tuple(int(g) for g in global_shape)

@@ -144,6 +144,14 @@ class Stencil:
             raise ValueError("mask_fields length != num_fields")
 
 
+def k_step_margin(stencil: Stencil, k: int) -> int:
+    """The margin ``m = k * halo * max(1, phases)`` of k steps: the window
+    pad and slab depth of every temporal-blocking kernel and exchange.  Each
+    phase consumes a halo (red-black SOR: 2 * halo a step, since its black
+    half-sweep reads the red values of the same step)."""
+    return k * stencil.halo * max(1, len(stencil.phases or ()))
+
+
 def axis_offsets(ndim: int):
     """Unit offsets along each axis: the 2*ndim face neighbours."""
     for d in range(ndim):

@@ -36,7 +36,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..driver import frame_mask
-from ..ops.stencil import Fields, Stencil
+from ..ops.stencil import Fields, Stencil, k_step_margin
 from .halo import (exchange_and_pad, exchange_slabs_2axis,
                    exchange_slabs_axis, local_mesh, pad_from_slabs,
                    pad_local)
@@ -356,8 +356,10 @@ def make_sharded_fused_step(
 ):
     """Temporal blocking under decomposition: k steps per exchange.
 
-    One call is a width ``m = k * halo`` halo exchange, then one kernel
-    launch per shard.  The kinds:
+    One call is a width ``m`` halo exchange (``m = k * halo * max(1,
+    phases)``, ``ops.stencil.k_step_margin``: 2k for red-black SOR, whose
+    black half-sweep reads the red values of the same step), then one
+    kernel launch per shard.  The kinds:
 
     * padded (``kind=None``, the TPU package's ``auto`` below its HBM
       threshold): the exchange pads z and y of every shard's block by m
@@ -378,9 +380,11 @@ def make_sharded_fused_step(
     Every field is exchanged at width m (temporal blocking consumes margin
     for all fields, wave's ``u_prev`` included).  Returns None where the
     TPU builder declines for a structural reason: no fused kernel, the lane
-    axis x sharded, a grid not divisible by the mesh, ``2 * k * halo`` off
+    axis x sharded, a grid not divisible by the mesh, ``2 * m`` off
     the alignment unit (not for ``stream``), a local z/y extent below m,
-    or ``periodic`` with ``stream``.  A forced ``kind`` that its kernel
+    ``periodic`` with ``stream``, or for a parity-sensitive stencil an odd
+    local extent on a sharded axis or a periodic wrap over an odd extent
+    (the TPU tiling rules imply both).  A forced ``kind`` that its kernel
     declines gives None, never the padded kind.  The TPU package's
     ``auto`` switch to pad-free above a v5e HBM threshold does not carry
     over: ``kind=None`` always takes the padded kind.
@@ -421,6 +425,9 @@ def make_sharded_fused_step(
     if any(g % c for g, c in zip(global_shape, counts)):
         return None
     local_shape = _local_shape(global_shape, counts)
+    if not _parity_consistent(stencil, global_shape, local_shape, counts,
+                              periodic):
+        return None
     args = (stencil, mesh, global_shape, local_shape, counts, k, periodic,
             overlap, device)
     if kind is None:
@@ -437,6 +444,19 @@ def make_sharded_fused_step(
             *args, streamfused.build_stream_sharded_call, "stream_z")
     return _make_zslab_padfree_step(*args, fused.build_zslab_padfree_call,
                                     "zslab")
+
+
+def _parity_consistent(stencil, global_shape, local_shape, counts,
+                       periodic) -> bool:
+    """False where red-black colours would disagree across shards (an odd
+    local extent on a sharded axis) or across a periodic wrap (an odd
+    extent); True for every stencil that is not parity-sensitive."""
+    from ..ops.cuda.fused import parity_consistent
+
+    if stencil.parity_sensitive and any(
+            c > 1 and ls % 2 for ls, c in zip(local_shape, counts)):
+        return False
+    return parity_consistent(stencil, global_shape, periodic)
 
 
 def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
@@ -640,15 +660,16 @@ def make_sharded_fullgrid_step(
     """2D temporal blocking under a row split: k steps per exchange.
 
     The reference's own decomposition (a 1-D row split) with k generations
-    per exchange: the y axis is sharded, width ``m = k * halo`` row slabs
-    are exchanged (``halo.exchange_and_pad`` along axis 0), and K8 in its
-    sharded mode advances each shard's padded block, pinning the frame
-    from the shard's global first row.  Returns None where the TPU builder
-    declines for a structural reason: not a 2D family of the kernel, the
-    x axis sharded, a grid not divisible by the mesh, local rows below m;
-    also for a window too large for shared memory.  The TPU alignment and
-    VMEM rules (``W % 128``, ``m`` and the local rows a multiple of the
-    sublane, the live-copy budget) do not apply.
+    per exchange: the y axis is sharded, width ``m`` row slabs (the k-step
+    margin: k, 2k for sor2d) are exchanged (``halo.exchange_and_pad`` along
+    axis 0), and K8 in its sharded mode advances each shard's padded block,
+    pinning the frame from the shard's global first row.  Returns None
+    where the TPU builder declines for a structural reason: not a 2D family
+    of the kernel, the x axis sharded, a grid not divisible by the mesh,
+    local rows below m, for sor2d odd local rows or a periodic wrap over an
+    odd extent; also for a window too large for shared memory.  The TPU
+    alignment and VMEM rules (``W % 128``, ``m`` and the local rows a
+    multiple of the sublane, the live-copy budget) do not apply.
 
     ``overlap=True`` (with more than one row shard and local rows >= 3m):
     the width-m slabs are exchanged on a side CUDA stream while the
@@ -672,8 +693,11 @@ def make_sharded_fullgrid_step(
     if any(g % c for g, c in zip(global_shape, counts)):
         return None
     local_shape = _local_shape(global_shape, counts)
+    if not _parity_consistent(stencil, global_shape, local_shape, counts,
+                              periodic):
+        return None
     Ly, W = local_shape
-    m = k * stencil.halo
+    m = k_step_margin(stencil, k)
     built = build_fullgrid_masked_call(
         stencil, (Ly + 2 * m, W), m, k, periodic=periodic,
         global_shape=global_shape, device=device)

@@ -308,10 +308,11 @@ def test_k8_builders_decline_and_refuse_as_jax():
     # a forced 3D kind gives None for 2D; 3D-only options raise
     assert tstepper.make_sharded_temporal_step(st, _mesh(2), (64, 128), 8,
                                                kind="padfree") is None
-    # the TPU families whose stencils are not ported name ROADMAP A1
-    fake = dataclasses.replace(port.make_stencil("heat2d"), name="sor2d")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tfullgrid.make_fullgrid_step(fake, (16, 128), 4)
+    # every 2D family of the TPU kernel builds: sor2d too (margin 2k)
+    sor2d = port.make_stencil("sor2d")
+    assert tfullgrid.make_fullgrid_step(sor2d, (16, 128), 4) is not None
+    assert tstepper.make_sharded_fullgrid_step(sor2d, _mesh(2), (64, 128),
+                                               8) is not None
 
 
 def test_interop_carries_int32_fields_unchanged():

@@ -238,7 +238,7 @@ def test_unported_flags_are_not_registered_and_config_fields_refused():
     with pytest.raises(SystemExit):
         tcli.config_from_args(["--ensemble", "2"])
     for field, value in (("groups", "heat3d@0-1"), ("ensemble", 2),
-                         ("tol", 1e-3), ("supervise", True)):
+                         ("check_finite", 10), ("supervise", True)):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):

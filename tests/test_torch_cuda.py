@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K10, Gray-Scott's raw step) against their
-plain versions, on the card.
+"""The port's CUDA kernels (K1-K10, Gray-Scott's raw step, the SOR kinds)
+against their plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -11,7 +11,8 @@ package, so it runs where only PyTorch is installed::
 Tolerances as in tests/test_torch_kernels.py: ``32 * eps * max(|ref|, 1)``
 for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
 ``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
-K8) and the streaming kernel (K10, against its plain version) bit-equal.
+K8), the streaming kernel (K10, against its plain version) and every SOR
+kind bit-equal.
 The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
 K10, K8's sharded mode) run on meshes of virtual shards on one card.
 """
@@ -614,3 +615,228 @@ def test_new_sharded_fullgrid_kernels_match_plain_sharded_steps(
         f"fullgrid_padded[{name}]": mesh.size * (3 if overlap else 1)}
     _check(gather_fields(got), gather_fields(ref),
            None if periodic else st.halo, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# red-black SOR: the SOR kinds of K3 (fused_step, fused_step_padded and the
+# fused_shell shells), K6, K9, K10 (stream_step, stream_zslab,
+# stream_yzslab) and K8 (fullgrid_step, fullgrid_padded), each bit-equal to
+# its plain version (red and black half-sweeps of the port's ops/sor.py)
+# ---------------------------------------------------------------------------
+
+SOR_SHAPES = [(32, 32, 128), (18, 20, 46), (17, 19, 45)]
+SOR_SHAPES_2D = [(128, 256), (130, 258), (101, 77)]
+
+
+def _even(shape):
+    return not any(s % 2 for s in shape)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", SOR_SHAPES)
+def test_sor_fused_kernel_matches_plain(dev, shape, k, periodic):
+    """K3's SOR kind (2k one-colour half-sweeps, margin 2k) == k plain
+    red-black steps, bit for bit; odd and even k, guard frame and (over
+    even extents) periodic."""
+    if periodic and not _even(shape):
+        pytest.skip("a periodic wrap over an odd extent is refused for SOR")
+    st = port.make_stencil("sor3d")
+    fields = _fields(st, shape, dev, 21)
+    ref = fused.plain_steps(fields, st, k, periodic)
+    fused.launches.clear()
+    got = fused.fused_step(fields, st, k, periodic=periodic)
+    torch.cuda.synchronize()
+    assert dict(fused.launches) == {"fused_step[sor3d]": 1}
+    _check(got, ref, None if periodic else 1, 0.0)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("mesh_shape,kind", [
+    ((2, 2), None), ((4, 1), None), ((4,), "padfree"), ((2, 2), "padfree"),
+    ((1, 4), "padfree")])
+def test_sor_sharded_fused_kernels_match_plain_sharded_steps(
+        dev, mesh_shape, kind, k, periodic, overlap):
+    """K3's sharded mode, K6 and K9 for SOR, with and without the overlap
+    shells, == k plain red-black sharded steps (each half-sweep with its own
+    exchange), bit for bit; overlap equals non-overlap."""
+    st = port.make_stencil("sor3d")
+    shape = (48, 48, 40)
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 22), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    counts = mesh.counts(3)
+    m = 2 * k
+    split = all(shape[d] // counts[d] >= 3 * m for d in (0, 1)
+                if counts[d] > 1)
+    wrapper = ("fused_step_padded" if kind is None else
+               "fused_yzslab" if counts[1] > 1 else "fused_zslab")
+    fused.launches.clear()
+    step = make_sharded_fused_step(st, mesh, shape, k, periodic=periodic,
+                                   kind=kind, overlap=overlap, device=dev)
+    got = gather_fields(step(fields))
+    torch.cuda.synchronize()
+    assert step._overlap_active == (overlap and split)
+    want = {f"{wrapper}[sor3d]": mesh.size}
+    if overlap and split:
+        faces = 2 * sum(c > 1 for c in counts[:2])
+        want["fused_shell[sor3d]"] = mesh.size * faces
+    assert dict(fused.launches) == want
+    _check(got, gather_fields(ref), None if periodic else 1, 0.0)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sor_overlap_shell_kernel_matches_plain(dev, k):
+    """A SOR shell (K3's sharded mode over a 2m-deep core, m = 2k) ==
+    plain_step_padded on the same random strip, at shell origins of both
+    coordinate-sum parities."""
+    st = port.make_stencil("sor3d")
+    m = 2 * k
+    local, gshape = (24, 30, 40), (48, 60, 40)
+    shells = fused.build_overlap_shell_calls(st, local, gshape, k, (0, 1),
+                                             device=dev)
+    for d, org in ((0, (24 - 2 * m, 30)), (1, (24, 0)), (1, (24, 31))):
+        pshape = [local[0] + 2 * m, local[1] + 2 * m, local[2]]
+        pshape[d] = 4 * m
+        strip = (_pieces(tuple(pshape), dev, 23 + d),)
+        ref = fused.plain_step_padded(strip, st, k, gshape, org)
+        fused.launches.clear()
+        got = shells[d](org, *strip)
+        torch.cuda.synchronize()
+        assert dict(fused.launches) == {"fused_shell[sor3d]": 1}
+        _check(got, ref, None, 0.0)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", SOR_SHAPES)
+def test_sor_stream_kernel_matches_plain(dev, shape, k):
+    """K10's SOR kind (2k levels of halo 1) over the whole grid == k plain
+    red-black steps, bit for bit."""
+    st = port.make_stencil("sor3d")
+    fields = _fields(st, shape, dev, 24)
+    ref = fused.plain_steps(fields, st, k)
+    streamfused.launches.clear()
+    got = streamfused.make_stream_fused_step(st, shape, k, device=dev)(fields)
+    torch.cuda.synchronize()
+    assert dict(streamfused.launches) == {"stream_step[sor3d]": 1}
+    _check(got, ref, 1, 0.0)
+
+
+@pytest.mark.parametrize("local,origins", [((24, 32, 40), (0, 0)),
+                                           ((20, 22, 45), (20, 22)),
+                                           ((19, 21, 45), (38, 21))])
+@pytest.mark.parametrize("k", [2, 4])
+def test_sor_stream_slab_kernels_match_plain(dev, k, local, origins):
+    """K10's SOR kind over a z-only shard and over a shard of a mesh that
+    shards y, on random slabs and corners, at origins of both parities ==
+    plain_zslab and plain_yzslab, bit for bit."""
+    st = port.make_stencil("sor3d")
+    m = 2 * k
+    Lz, Ly, X = local
+    gshape = (3 * Lz, 3 * Ly, X)
+    seed = iter(range(500, 600))
+
+    def one(shape):
+        return (_pieces(shape, dev, next(seed)),)
+
+    core = one(local)
+    zlo, zhi = one((m, Ly, X)), one((m, Ly, X))
+    ylo, yhi = one((Lz, m, X)), one((Lz, m, X))
+    corners = [one((m, m, X)) for _ in range(4)]
+    streamfused.launches.clear()
+    got = streamfused.stream_zslab(core, zlo, zhi, st, k, gshape[0],
+                                   origins[0])
+    ref = fused.plain_zslab(core, zlo, zhi, st, k, gshape[0], origins[0])
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    args = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, origins)
+    got = streamfused.stream_yzslab(*args)
+    ref = fused.plain_yzslab(*args)
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    assert dict(streamfused.launches) == {"stream_zslab[sor3d]": 1,
+                                          "stream_yzslab[sor3d]": 1}
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (4,)])
+def test_sor_stream_sharded_steps_match_plain_sharded_steps(dev, mesh_shape,
+                                                            k):
+    """kind="stream" for SOR, with and without the overlap shells, == k
+    plain red-black sharded steps, bit for bit."""
+    st = port.make_stencil("sor3d")
+    shape = (48, 48, 40)
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 25), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    counts = mesh.counts(3)
+    split = all(shape[d] // counts[d] >= 6 * k for d in (0, 1)
+                if counts[d] > 1)
+    wrapper = "stream_yzslab" if counts[1] > 1 else "stream_zslab"
+    outs = []
+    for overlap in (False, True):
+        streamfused.launches.clear()
+        step = make_sharded_fused_step(st, mesh, shape, k, kind="stream",
+                                       overlap=overlap, device=dev)
+        assert step._overlap_active == (overlap and split)
+        outs.append(gather_fields(step(fields)))
+        torch.cuda.synchronize()
+        assert dict(streamfused.launches) == {f"{wrapper}[sor3d]": mesh.size}
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    _check(outs[0], gather_fields(ref), 1, 0.0)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 20])
+@pytest.mark.parametrize("shape", SOR_SHAPES_2D)
+def test_sor_fullgrid_kernel_matches_plain(dev, shape, k, periodic):
+    """K8's SOR kind on the whole grid == k plain red-black steps, bit for
+    bit; a launch takes 8 steps (16 half-sweeps), so k = 20 takes three."""
+    if periodic and not _even(shape):
+        pytest.skip("a periodic wrap over an odd extent is refused for SOR")
+    st = port.make_stencil("sor2d")
+    fields = _fields_2d(st, shape, dev, 26)
+    ref = fused.plain_steps(fields, st, k, periodic)
+    fullgrid.launches.clear()
+    got = fullgrid.make_fullgrid_step(st, shape, k, periodic=periodic,
+                                      device=dev)(fields)
+    torch.cuda.synchronize()
+    assert dict(fullgrid.launches) == {"fullgrid_step[sor2d]": -(-k // 8)}
+    _check(got, ref, None if periodic else 1, 0.0)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [4, 8])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sor_sharded_fullgrid_kernel_matches_plain_sharded_steps(
+        dev, n, k, periodic, overlap):
+    """K8's sharded mode for sor2d (margin 2k) and its overlap shells == k
+    plain red-black sharded steps on a row split, bit for bit."""
+    st = port.make_stencil("sor2d")
+    shape = (192, 200)
+    mesh = make_mesh((n,), [dev] * 4)
+    fields = shard_fields(_fields_2d(st, shape, dev, 27), mesh, 2)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    step = make_sharded_temporal_step(st, mesh, shape, k, periodic=periodic,
+                                      overlap=overlap, device=dev)
+    got = step(fields)
+    torch.cuda.synchronize()
+    assert step._overlap_active == overlap
+    assert dict(fullgrid.launches) == {
+        "fullgrid_padded[sor2d]": mesh.size * (3 if overlap else 1)}
+    _check(gather_fields(got), gather_fields(ref),
+           None if periodic else 1, 0.0)

@@ -90,8 +90,11 @@ def test_wave_carry_is_the_old_tensor():
 
 def test_registry_and_stencil_fields_match_jax():
     # life (int32) is held field by field in tests/test_torch_2d.py
-    assert port.available_stencils() == sorted(STENCILS + ["life"]) and set(
-        STENCILS) <= set(__import__("mpi_cuda_process_tpu").available_stencils())
+    # sor2d and sor3d (multi-phase) are held field by field in
+    # tests/test_torch_sor.py
+    assert port.available_stencils() == sorted(
+        STENCILS + ["life", "sor2d", "sor3d"]) and set(STENCILS) <= set(
+        __import__("mpi_cuda_process_tpu").available_stencils())
     for name in STENCILS:
         j, t = jmake_stencil(name), port.make_stencil(name)
         for f in ("ndim", "halo", "num_fields", "bc_value", "params",

@@ -598,6 +598,6 @@ def test_slab_and_stream_builders_refuse_the_new_families():
     # the families the streaming kernel has stay admitted; 2D are not 3D
     assert tstream.stream_supported(port.make_stencil("wave3d"))
     assert not tstream.stream_supported(port.make_stencil("heat2d"))
-    # the TPU family still missing in 2D names its item
-    assert tfullgrid._UNPORTED_2D == ("sor2d",)
-    assert "ROADMAP A1" in tfullgrid.STENCILS_ITEM
+    # every 2D family of the TPU kernel has its K8 kind (sor2d's since the
+    # SOR slice)
+    assert tfullgrid.fullgrid_supported(port.make_stencil("sor2d"))

@@ -48,7 +48,18 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      and the stream kind's sharded steps with and without the shells, K8
      fullgrid_step for k = 1, 2, 3, 4, 8 and fullgrid_padded on --mesh 4
      row splits (with the shells where the rows host them), guard-frame
-     and periodic, each bit-equal (max |d| = 0).  Tolerances:
+     and periodic, each bit-equal (max |d| = 0).  K10's advection (both
+     Courant signs) and Gray-Scott kinds: stream_step, stream_zslab and
+     stream_yzslab for k = 1..4 (and stream_step at 512^3), bit for bit,
+     and their sharded steps.  --exchange rdma: the stream kind's sharded
+     step through the ring kernel against the in-process exchange, bit for
+     bit (heat3d, wave3d, advect3d, grayscott3d, sor3d on 4, 2x2 and 1x4
+     meshes, with and without the shells).  The ring exchange (row 19):
+     ring_exchange against plain_ring_exchange, bit for bit, on every ring
+     of z (4), y (1x4) and 2x2 meshes, at the main path's z slab, y slab
+     and corner sites and small slabs cut into (0, 4) and (0, 1) chunks,
+     ring depths 2, 3, 4 and a preferred chunk count 8, three launches back
+     to back with the drained counters read after each.  Tolerances:
      raw step atol = 32 eps
      max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
@@ -67,8 +78,8 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      iterations: the multiple of k = 8 nearest 100).  Advection (--param
      cz=-0.25: both upwind directions) and Gray-Scott (its patch init) at
      512^3 for 40 iterations with --compute jnp, --compute pallas (K1's
-     advection kind, raw_step_grayscott) and --fuse 4 (K3), each held
-     against its jnp run; sor3d at 512^3 for 40 iterations with --compute
+     advection kind, raw_step_grayscott), --fuse 4 (K3) and --fuse 4
+     --fuse-kind stream (K10), each held against its jnp run; sor3d at 512^3 for 40 iterations with --compute
      jnp, --fuse 4 (K3) and --fuse 4 --fuse-kind stream (K10), held
      against jnp; sor2d at 512^2 as a solver, --fuse 8 --tol 1e-3
      --tol-check-every 8 against its --compute jnp twin (the same
@@ -84,7 +95,9 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      2,2 --fuse 4 --fuse-kind padfree --overlap (the overlap shells), and
      the stream kind (K10): unsharded --fuse 4 --fuse-kind stream, --mesh
      2,2 --fuse 4 --fuse-kind stream with and without --overlap and
-     --mesh 4 --fuse 4 --fuse-kind stream; heat3d27 and heat3d4th at 512^3
+     --mesh 4 --fuse 4 --fuse-kind stream, each also with --exchange rdma
+     (the ring kernel; bit-equal to its in-process twin); heat3d27 and
+     heat3d4th at 512^3
      --mesh 2,2 for 20 iterations with --compute pallas, --fuse (4 / 2),
      --fuse --fuse-kind padfree and --fuse --fuse-kind stream.  Every
      sharded field is held against the unsharded run of the same mode and
@@ -98,9 +111,11 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      against the unsharded run of the same mode and the unsharded plain
      run, overlap bit-equal to non-overlap; a Life --mesh 4 --fuse 8
      checkpoint round trip at 4096^2, bit for bit.  Advection and
-     Gray-Scott: at 512^3, 20 iterations, --mesh 2,2 with --compute jnp,
-     --fuse 4 (K3 sharded, both Gray-Scott fields exchanged) and --fuse 4
-     --overlap (the shells); at 16384^2, 96 iterations, advect2d
+     Gray-Scott: at 512^3, 100 iterations, --mesh 2,2 with --compute jnp,
+     --fuse 4 (K3 sharded, both Gray-Scott fields exchanged), --fuse 4
+     --overlap (the shells) and --fuse 4 --fuse-kind stream with and
+     without --exchange rdma (against the unsharded stream and jnp runs,
+     bit-equal to each other); at 16384^2, 96 iterations, advect2d
      (--param cx=-0.4) and grayscott2d with --compute jnp and --fuse 8
      (K8), and grayscott2d --mesh 4 --fuse 8 with and without --overlap,
      each against the unsharded runs as above.  Red-black SOR: sor3d at
@@ -114,7 +129,14 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      off; advection's upwind weights as one F.conv3d), by CUDA events at
      the main path's shapes, beside the bound from bytes and flops (K10 at
      the shapes of K3, K6 and K9; the SOR kinds at the shapes of its main
-     path); and the split of
+     path; advection and Gray-Scott at 512^3 and on one 2x2 shard); the
+     ring exchange at the heat3d 1024^3 sites (2x2 z slab, y slab and
+     corner, --mesh 4 z slab) beside one copy_ per slab, its launches per
+     100 iterations, and once issued on a side stream beside K10's
+     interior (does it run beside it or wait); every --exchange rdma CLI
+     run's ms/step beside its ppermute twin, and the stream kind's sharded
+     step with each exchange in turns (heat3d 1024^3, Gray-Scott 512^3,
+     2x2, with and without the shells); and the split of
      one sharded step at 1024^3 on 2x2 into exchange/pad, kernel and
      re-pin, beside whole fused steps of each kind with and without
      --overlap.
@@ -152,24 +174,33 @@ MAIN_RUNS = (("heat3d", ITERS, 4), ("wave3d", ITERS, 4),
 # --fuse-kind padfree and --fuse k --fuse-kind stream, and at BIG also
 # --mesh 4 --fuse k with --fuse-kind padfree and stream.  An overlapped
 # mode runs right after its non-overlap base.
+# The stream kind's --exchange rdma modes (rdma_*) run with the overlapped
+# and ring modes a stencil lists, right after their twin.
 MESH_RUNS = (("heat3d", BIG, ITERS, 4, ("overlap", "fuse_overlap",
                                         "padfree_overlap", "yzslab_overlap",
-                                        "stream_yz_overlap")),
+                                        "stream_yz_overlap", "rdma_yz",
+                                        "rdma_yz_overlap", "rdma_z")),
              ("wave3d", BIG, ITERS, 4, ("yzslab_overlap",
-                                        "stream_yz_overlap")),
+                                        "stream_yz_overlap", "rdma_yz",
+                                        "rdma_yz_overlap", "rdma_z")),
              ("heat3d27", MAIN, 20, 4, ()), ("heat3d4th", MAIN, 20, 2, ()))
-# overlapped mode -> the non-overlap mode it must equal bit for bit
+# overlapped mode -> the non-overlap mode it must equal bit for bit, and
+# rdma mode -> the same run with in-process exchange copies (ppermute)
 OVERLAP_BASE = {"overlap": "pallas", "fuse_overlap": "fuse",
                 "padfree_overlap": "padfree", "yzslab_overlap": "yzslab",
                 "stream_yz_overlap": "stream_yz"}
+RDMA_BASE = {"rdma_yz": "stream_yz", "rdma_yz_overlap": "stream_yz_overlap",
+             "rdma_z": "stream_z"}
+TWIN = {**OVERLAP_BASE, **RDMA_BASE}
 # Advection and Gray-Scott: (stencil, iterations, fuse k) of the unsharded
-# main path at MAIN (--compute jnp, pallas, --fuse k; their stream kind
-# raises) and (stencil, grid, iterations, fuse k, overlapped modes) of the
-# sharded one (--mesh 2,2 jnp and --fuse k; their pad-free and stream
-# kinds raise).
+# main path at MAIN (--compute jnp, pallas, --fuse k, --fuse k --fuse-kind
+# stream) and (stencil, grid, iterations, fuse k, overlapped and ring
+# modes) of the sharded one (--mesh 2,2 jnp, --fuse k, the stream kind with
+# and without --exchange rdma; their pad-free kinds raise: ROADMAP B4).
 NEW_MAIN_RUNS = (("advect3d", 40, 4), ("grayscott3d", 40, 4))
-NEW_MESH_RUNS = (("advect3d", MAIN, 20, 4, ("fuse_overlap",)),
-                 ("grayscott3d", MAIN, 20, 4, ("fuse_overlap",)))
+NEW_MESH_RUNS = (("advect3d", MAIN, ITERS, 4, ("fuse_overlap", "rdma_yz")),
+                 ("grayscott3d", MAIN, ITERS, 4, ("fuse_overlap",
+                                                  "rdma_yz")))
 NEW_FAMILIES = ("advect3d", "grayscott3d", "advect2d", "grayscott2d")
 # Red-black SOR: (stencil, iterations, fuse k) of the unsharded main path at
 # MAIN (--compute jnp, --fuse k and its stream kind: SOR has no raw-step or
@@ -267,14 +298,14 @@ def main() -> int:
     from mpi_cuda_process_tpu_torch.interop import fields_from_numpy
     from mpi_cuda_process_tpu_torch.ops.stencil import k_step_margin
     from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fullgrid, fused,
-                                                     kernels, rawstep,
+                                                     kernels, rawstep, remote,
                                                      streamfused)
     from mpi_cuda_process_tpu_torch.parallel import halo, mesh as mesh_lib
     from mpi_cuda_process_tpu_torch.parallel import stepper
     from mpi_cuda_process_tpu_torch.utils import checkpointing
 
     counters = (rawstep.launches, fused.launches, kernels.launches,
-                fullgrid.launches, streamfused.launches)
+                fullgrid.launches, streamfused.launches, remote.launches)
     t_start = time.perf_counter()
     t_phase = [t_start]
 
@@ -332,6 +363,20 @@ def main() -> int:
 
     def virtual_mesh(shape):
         return mesh_lib.make_mesh(shape, [dev] * 4)
+
+    def ring_of(mesh, axis):
+        """(nxt, prv): each shard's next and previous neighbour along a
+        mesh axis, as positions in the shard list."""
+        n = mesh.shape[axis]
+
+        def shifted(c, step):
+            c = list(c)
+            c[axis] = (c[axis] + step) % n
+            return mesh.index(c)
+
+        coords = list(mesh.coords())
+        return ([shifted(c, 1) for c in coords],
+                [shifted(c, -1) for c in coords])
 
     def case_stencil(label):
         """The stencil of a case label: a registry name, or advection with
@@ -405,6 +450,30 @@ def main() -> int:
             cases += [("shell", label, (128, 128, 256), 4, periodic, (2, 2)),
                       ("overlap_padded", label, (128, 128, 256), 4, periodic,
                        (2, 2))]
+    # K10's advection and Gray-Scott kinds (every level keeps rings for u
+    # and v): the whole grid, one shard's random pieces (z-only mesh of 4,
+    # 2x2, 1x4) for k = 1..4 and at the main path's 512^3, bit for bit; the
+    # stream kind's sharded steps against k plain sharded steps
+    for label in ("advect3d", "advect3d-mixed", "grayscott3d"):
+        for shape in ((128, 128, 256), (68, 76, 130)):
+            for kk in (1, 2, 3, 4):
+                cases += [("stream", label, shape, kk, False, None),
+                          ("stream_zslab", label, shape, kk, False, (4,)),
+                          ("stream_yzslab", label, shape, kk, False, (2, 2)),
+                          ("stream_yzslab", label, shape, kk, False, (1, 4))]
+            cases += [("stream_z", label, shape, 4, False, (4,)),
+                      ("stream_yz", label, shape, 4, False, (2, 2))]
+        cases += [("stream", label, MAIN, 4, False, None),
+                  ("overlap_stream_yz", label, (128, 128, 256), 4, False,
+                   (2, 2))]
+    # --exchange rdma: the stream kind's sharded step through the ring
+    # kernel against the same step with in-process copies, bit for bit,
+    # two calls, on z-only, 2x2 and 1x4 meshes, with and without the shells
+    for name, k in (("heat3d", 4), ("wave3d", 4), ("advect3d", 4),
+                    ("grayscott3d", 4), ("sor3d", 2)):
+        for mshape in ((4,), (2, 2), (1, 4)):
+            cases += [(p, name, (128, 128, 256), k, False, mshape)
+                      for p in ("rdma", "overlap_rdma")]
     # red-black SOR: every entry point of its kind, bit-equal (atol 0): K3
     # for k = 1..4 (both parities of k) and at 512^3, K3's sharded mode on
     # 2x2 and 4x1 meshes, K6, K9 on 2x2 and 1x4, the overlap shells and the
@@ -513,6 +582,30 @@ def main() -> int:
             entry = f"{path}<{name}>"
             atol = 0.0
             frame = None
+        elif path in ("rdma", "overlap_rdma"):
+            mesh = virtual_mesh(mshape)
+            fields = stepper.shard_fields(
+                tuple(rand(shape) for _ in range(st.num_fields)), mesh, 3)
+            overlap = path == "overlap_rdma"
+            outs = []
+            for exchange in ("ppermute", "rdma"):
+                step = stepper.make_sharded_fused_step(
+                    st, mesh, shape, k, kind="stream", overlap=overlap,
+                    exchange=exchange, device=dev)
+                if step._overlap_active != overlap:
+                    fail(f"{path} {name}: overlap split not taken")
+                remote.launches.clear()
+                outs.append(stepper.gather_fields(step(step(fields))))
+                if (exchange == "rdma") != bool(remote.launches):
+                    fail(f"{path} {name} {exchange}: ring launches "
+                         f"{dict(remote.launches)}")
+            ref, got = outs
+            if step._rdma_backend != "cuda-ring":
+                fail(f"{path} {name}: backend {step._rdma_backend}")
+            entry = f"rdma_step<{name}>"
+            atol = 0.0
+            frame = None
+            del fields, outs
         elif path in ("sharded", "zslab", "yzslab") or \
                 path.startswith(("overlap", "stream_")):
             mesh = virtual_mesh(mshape)
@@ -667,6 +760,53 @@ def main() -> int:
                         "periodic": periodic, "mesh": mshape,
                         "max_abs_err": err, "atol": atol, "rtol": rtol})
         del ref, got
+    # the ring exchange (row 19): every ring of one mesh axis on the card in
+    # one cooperative launch, against plain_ring_exchange (the protocol
+    # walked in order on the same tensors) bit for bit, three launches back
+    # to back, every ready and credit counter read after each (drained:
+    # blocks x the uses of its slot).  Sites: the sharded main path's z
+    # slab, y slab and corner of a 2x2 shard of 1024^3 and the z slab of a
+    # --mesh 4 shard, a 1x4 mesh's y slab, and small slabs that pick_chunks
+    # cuts into (0, 4) and (0, 1) chunks, on every ring of z (4), y (1, 4)
+    # and (2, 2) meshes; ring depths 2, 3, 4 and a preferred chunk count 8
+    sites = [((2, 2), 0, (4, 512, 1024)), ((2, 2), 1, (512, 4, 1024)),
+             ((2, 2), 1, (4, 4, 1024)), ((4,), 0, (4, 1024, 1024)),
+             ((1, 4), 1, (512, 4, 1024))]
+    sites += [(mshape, axis, shape)
+              for mshape, axis in (((4,), 0), ((1, 4), 1), ((2, 2), 0),
+                                   ((2, 2), 1))
+              for shape in ((24, 4, 128), (3, 5, 130))]
+    for mshape, axis, shape in sites:
+        mesh = virtual_mesh(mshape)
+        nxt, prv = ring_of(mesh, axis)
+        hi = [rand(shape) for _ in range(4)]
+        lo = [rand(shape) for _ in range(4)]
+        entry = f"ring_exchange<{'x'.join(map(str, shape))}>"
+        for nslots, prefer_nc in ((2, 0), (3, 0), (4, 0), (2, 8)):
+            call, meta = remote.build_ring_exchange_call(
+                shape, torch.float32, nslots=nslots, prefer_nc=prefer_nc,
+                device=dev)
+            ref = remote.plain_ring_exchange(
+                hi, lo, nxt, prv, meta,
+                remote.RingState(meta, 4, dev, torch.float32))
+            for _ in range(3):
+                remote.launches.clear()
+                got = call(hi, lo, nxt, prv)
+                torch.cuda.synchronize()
+                if sum(remote.launches.values()) != 1:
+                    fail(f"{entry}: launches {dict(remote.launches)}")
+                call.state.check_drained(meta)
+                err = compare(entry, got[0] + got[1], ref[0] + ref[1], 0.0,
+                              None)
+            checked.append({"kernel": entry, "shape": list(shape),
+                            "mesh": mshape, "axis": axis, "nslots": nslots,
+                            "prefer_nc": prefer_nc,
+                            "chunks": [meta["chunk_axis"], meta["nchunks"]],
+                            "blocks": call.state.blocks, "launches": 3,
+                            "drained": True, "max_abs_err": err,
+                            "atol": 0.0})
+            del ref, got, call
+        del hi, lo
     for c in counters:
         c.clear()
     emit({"phase": "kernels", "ok": True, "seconds": took(),
@@ -728,13 +868,11 @@ def main() -> int:
                 "launches": got}
 
     def main_modes(stencil, k):
-        """The unsharded main path's modes of a stencil: the stream kind
-        only for the families the streaming kernel takes, pallas only for
-        those with a raw-step kernel."""
-        modes = ["jnp", "pallas", str(k), "stream"]
+        """The unsharded main path's modes of a stencil: pallas only for
+        those with a raw-step kernel (not SOR)."""
         if stencil in SOR:
             return ["jnp", str(k), "stream"]
-        return modes[:3] if stencil in NEW_FAMILIES else modes
+        return ["jnp", "pallas", str(k), "stream"]
 
     results = []
     for stencil, iters, k in MAIN_RUNS + NEW_MAIN_RUNS + SOR_MAIN_RUNS:
@@ -967,6 +1105,16 @@ def main() -> int:
         yz22 = fuse22 + ("--fuse-kind", "padfree")
         s22 = fuse22 + ("--fuse-kind", "stream")
         s4 = ("--mesh", "4", "--fuse", str(k), "--fuse-kind", "stream")
+        rdma = ("--exchange", "rdma")
+        # the ring sites of one field's exchange: on 2x2 the z and y slabs
+        # and the corners (two launches), on --mesh 4 the z slabs
+        m = k_step_margin(st, k)
+        Lz, Ly, X = grid[0] // 2, grid[1] // 2, grid[2]
+        nf = st.num_fields
+        ring22 = {f"ring_exchange[{m}x{Ly}x{X}]": nf * passes,
+                  f"ring_exchange[{Lz}x{m}x{X}]": nf * passes,
+                  f"ring_exchange[{m}x{m}x{X}]": 2 * nf * passes}
+        ring4 = {f"ring_exchange[{m}x{grid[1]}x{X}]": nf * passes}
         # (label, flags, launches): 4 shards, one shell per sharded face
         modes = [("jnp", ("--mesh", "2,2", "--compute", "jnp"), {}),
                  ("pallas", ("--mesh", "2,2", "--compute", "pallas"),
@@ -983,20 +1131,30 @@ def main() -> int:
                  ("yzslab_overlap", yz22 + ("--overlap",),
                   {yzslab: 4 * passes, shell: 16 * passes}),
                  ("stream_yz", s22, {syzslab: 4 * passes}),
+                 ("rdma_yz", s22 + rdma, {syzslab: 4 * passes, **ring22}),
                  ("stream_yz_overlap", s22 + ("--overlap",),
                   {syzslab: 4 * passes, shell: 16 * passes}),
-                 ("stream_z", s4, {szslab: 4 * passes})]
+                 ("rdma_yz_overlap", s22 + rdma + ("--overlap",),
+                  {syzslab: 4 * passes, shell: 16 * passes, **ring22}),
+                 ("stream_z", s4, {szslab: 4 * passes}),
+                 ("rdma_z", s4 + rdma, {szslab: 4 * passes, **ring4})]
         modes = [md for md in modes if md[0] in overlapped or (
-            md[0] not in OVERLAP_BASE
+            md[0] not in TWIN
             and (big or md[0] not in ("padfree", "stream_z")))]
-        if new_family:  # the padded kind only (pad-free, stream: B4, B5)
+        if new_family:  # no pad-free kind (B4)
             modes = [md for md in modes
-                     if md[0] in ("jnp", "fuse", "fuse_overlap")]
+                     if md[0] in ("jnp", "fuse", "fuse_overlap", "stream_yz",
+                                  "rdma_yz")]
         if stencil in NO_COMPUTE_FN:  # no compute_fn kernel: no pallas
             modes = [md for md in modes if md[0] != "pallas"]
         kept = {}
+        # runs still to come that must equal this one bit for bit
+        pending = {}
+        for md in modes:
+            if md[0] in TWIN:
+                pending[TWIN[md[0]]] = pending.get(TWIN[md[0]], 0) + 1
         for label, flags, want in modes:
-            if label.startswith("stream") and "stream" not in refs:
+            if label.startswith(("stream", "rdma")) and "stream" not in refs:
                 # the stream modes come last: their yardstick replaces the
                 # other kernels' on the card
                 refs.pop("pallas", None)
@@ -1008,7 +1166,7 @@ def main() -> int:
             got, r = run_cli(stencil, grid, iters, *flags)
             if r["launches"] != want:
                 fail(f"{stencil} {label}: launches {r['launches']} != {want}")
-            if label.startswith("stream"):
+            if label.startswith(("stream", "rdma")):
                 atol, same = 1e-4, refs["stream"]
             elif "--fuse" in flags:
                 atol, same = 1e-4, refs["fuse"]
@@ -1020,15 +1178,20 @@ def main() -> int:
                   "unsharded same mode")
             check(r, block_err(got, refs["plain"], h, f"{stencil} {label}"),
                   max(atol, 32 * EPS32 * scale), "unsharded plain")
-            if any(OVERLAP_BASE[o] == label for o in overlapped):
-                kept[label] = got
-            elif label in OVERLAP_BASE:
-                base = kept.pop(OVERLAP_BASE[label])
+            if label in TWIN:
+                twin = TWIN[label]
+                base = kept[twin]
                 if not all(torch.equal(x, y) for a, b in zip(got, base)
                            for x, y in zip(a, b)):
-                    fail(f"{stencil} {label}: differs from non-overlap")
-                r["bit_equal_to_non_overlap"] = True
+                    fail(f"{stencil} {label}: differs from {twin}")
+                r["bit_equal_to_" + ("ppermute" if label in RDMA_BASE
+                                     else "non_overlap")] = True
+                pending[twin] -= 1
+                if not pending[twin]:
+                    del kept[twin]
                 del base
+            if pending.get(label):
+                kept[label] = got
             mesh_results.append(r)
             del got
             torch.cuda.empty_cache()
@@ -1321,7 +1484,8 @@ def main() -> int:
             "fullgrid_step": ("K8", 15), "fullgrid_padded": ("K8", 15),
             "stream_step": ("K10", 16), "stream_zslab": ("K10", 17),
             "stream_yzslab": ("K10", 18),
-            "raw_step_grayscott": ("raw_step_grayscott", 4)}
+            "raw_step_grayscott": ("raw_step_grayscott", 4),
+            "ring_exchange": ("ring_exchange", 19)}
     # the table row of a (wrapper, stencil) whose TPU body is its own row:
     # advection's raw-step taps (row 3) and the three families' micro-steps
     # (row 6: _micro_advect, _micro_grayscott, _micro_sor)
@@ -1379,7 +1543,11 @@ def main() -> int:
             ("fused_step<advect3d>", "fused_step", "advect3d", 4,
              "fused.py:184"),
             ("fused_step<grayscott3d>", "fused_step", "grayscott3d", 4,
-             "fused.py:203")):
+             "fused.py:203"),
+            ("stream_step<advect3d>", "stream_step", "advect3d", 4,
+             "streamfused.py:377"),
+            ("stream_step<grayscott3d>", "stream_step", "grayscott3d", 4,
+             "streamfused.py:377")):
         st = main_stencil(name)
         fields = tuple(rand(MAIN) for _ in range(st.num_fields))
         if wrapper == "fused_step":
@@ -1569,8 +1737,8 @@ def main() -> int:
             del fields, pads, new, masks
         torch.cuda.empty_cache()
 
-    # advection and Gray-Scott: K3's sharded mode on one shard of the 512^3
-    # --mesh 2,2 run, and one hi z shell of it
+    # advection and Gray-Scott: K3's sharded mode and K10 on one shard of
+    # the 512^3 --mesh 2,2 run, and one hi z shell of it
     for name, grid, _iters, k, _overlapped in NEW_MESH_RUNS:
         st = main_stencil(name)
         nf, m = st.num_fields, k * st.halo
@@ -1589,6 +1757,22 @@ def main() -> int:
                4 * nf * (math.prod(pshape) + lcells),
                FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
         del ins
+        Lz, Ly, X = local
+        core = tuple(rand(local) for _ in range(nf))
+        zlo, zhi = (tuple(rand((m, Ly, X)) for _ in range(nf))
+                    for _ in range(2))
+        ylo, yhi = (tuple(rand((Lz, m, X)) for _ in range(nf))
+                    for _ in range(2))
+        corners = [tuple(rand((m, m, X)) for _ in range(nf))
+                   for _ in range(4)]
+        yz_args = (core, zlo, zhi, ylo, yhi, corners, st, k, grid, (0, 0))
+        ms = time_ms(lambda: streamfused.stream_yzslab(*yz_args), 10)
+        plain_ms = time_ms(lambda: fused.plain_yzslab(*yz_args), 2)
+        record(f"stream_yzslab<{name}>", "stream_yzslab", name,
+               "streamfused.cu", TPU + "streamfused.py:399", ms, plain_ms,
+               4 * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m)),
+               FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
+        del core, zlo, zhi, ylo, yhi, corners, yz_args
         shells = fused.build_overlap_shell_calls(st, local, grid, k, (0, 1),
                                                  device=dev)
         strips = tuple(rand((4 * m, local[1] + 2 * m, local[2]))
@@ -1762,6 +1946,141 @@ def main() -> int:
         del core, lo, hi
         torch.cuda.empty_cache()
 
+    # the ring exchange at the sharded main path's sites (heat3d 1024^3, 4
+    # shards on the card, one launch each): a 2x2 shard's z slab, y slab and
+    # corner, a --mesh 4 shard's z slab.  Library: one copy_ per slab, what
+    # the in-process exchange does for the same shift.  Bound: each slab
+    # read once, each received slab written once.
+    per100 = {}  # ring launches per 100 iterations of heat3d's runs
+    for r in mesh_results:
+        if r["stencil"] == "heat3d" and "rdma" in r["flags"] and \
+                "--overlap" not in r["flags"]:
+            for key, n in r["launches"].items():
+                if key.startswith("ring_exchange"):
+                    per100[key] = 100 * n / r["iters"]
+    ring_vs_k10 = []
+    for mshape, axis, shape in (((2, 2), 0, (4, 512, 1024)),
+                                ((2, 2), 1, (512, 4, 1024)),
+                                ((2, 2), 1, (4, 4, 1024)),
+                                ((4,), 0, (4, 1024, 1024))):
+        mesh = virtual_mesh(mshape)
+        nxt, prv = ring_of(mesh, axis)
+        hi = [rand(shape) for _ in range(4)]
+        lo = [rand(shape) for _ in range(4)]
+        call, meta = remote.build_ring_exchange_call(shape, torch.float32,
+                                                     device=dev)
+        ms = time_ms(lambda: call(hi, lo, nxt, prv), 50)
+        call.state.check_drained(meta)
+        plain_state = remote.RingState(meta, 4, dev, torch.float32)
+        plain_ms = time_ms(lambda: remote.plain_ring_exchange(
+            hi, lo, nxt, prv, meta, plain_state), 3)
+        outs = [torch.empty_like(t) for t in hi + lo]
+
+        def copies(hi=hi, lo=lo, outs=outs, nxt=nxt, prv=prv):
+            for i in range(4):
+                outs[i].copy_(hi[prv[i]])
+                outs[4 + i].copy_(lo[nxt[i]])
+
+        library_ms = time_ms(copies, 50)
+        name = "x".join(map(str, shape))
+        key = f"ring_exchange[{name}]"
+        record(f"ring_exchange<{name}>", "ring_exchange", name, "remote.cu",
+               TPU + "remote.py:136", ms, plain_ms,
+               2 * 4 * 2 * meta["slab_bytes"], 0, library_ms, 4, shape,
+               per100.get(key, 0.0) / 100)
+        kernels_out[-1].update(
+            mesh=list(mshape), chunks=[meta["chunk_axis"], meta["nchunks"]],
+            nslots=meta["nslots"], blocks=call.state.blocks,
+            launches_per_100_iterations=per100.get(key))
+        if shape == (4, 512, 1024):
+            # --overlap runs the ring on a side stream beside K10's interior
+            # (heat3d, one 2x2 shard's operands, once per shard): does the
+            # cooperative launch run beside it, or wait for it?
+            st = make_stencil("heat3d")
+            Lz, Ly, X = 512, 512, 1024
+            core = (rand((Lz, Ly, X)),)
+            pieces = [(rand(s_),) for s_ in ((4, Ly, X), (4, Ly, X),
+                                             (Lz, 4, X), (Lz, 4, X))]
+            corners = [(rand((4, 4, X)),) for _ in range(4)]
+            k10_args = (core, *pieces, corners, st, 4, BIG, (0, 0))
+
+            def interior():
+                for _ in range(4):
+                    streamfused.stream_yzslab(*k10_args)
+
+            side_stream = torch.cuda.Stream()
+            with torch.cuda.stream(side_stream):  # warm: first use there
+                call(hi, lo, nxt, prv)
+            torch.cuda.synchronize()
+            k10_ms = time_ms(interior, 3)
+            ring_alone = ms
+            main_s = torch.cuda.current_stream()
+            seen = []
+            for _ in range(3):
+                t0 = torch.cuda.Event(enable_timing=True)
+                ring_end = torch.cuda.Event(enable_timing=True)
+                k10_end = torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0.record(main_s)
+                side_stream.wait_stream(main_s)
+                interior()
+                k10_end.record(main_s)
+                with torch.cuda.stream(side_stream):
+                    call(hi, lo, nxt, prv)
+                    ring_end.record(side_stream)
+                main_s.wait_stream(side_stream)
+                torch.cuda.synchronize()
+                seen.append((t0.elapsed_time(ring_end),
+                              t0.elapsed_time(k10_end)))
+            call.state.check_drained(meta)
+            ring_vs_k10.append({
+                "ring_shape": list(shape), "ring_alone_ms": ring_alone,
+                "k10_interior_ms": k10_ms,
+                "ring_done_after_ms": [a for a, _ in seen],
+                "k10_done_after_ms": [b for _, b in seen],
+                "note": "ring issued on a side stream just after the four "
+                        "K10 interior launches; ring_done_after_ms near "
+                        "ring_alone_ms: it ran beside K10; near "
+                        "k10_done_after_ms: it waited for K10"})
+            del core, pieces, corners, k10_args
+        del hi, lo, outs, call
+        torch.cuda.empty_cache()
+    # the stream kind's sharded step with each exchange, by CUDA events over
+    # 10 passes each, in turns (ppermute, rdma, rdma, ppermute): heat3d at
+    # 1024^3 and Gray-Scott at 512^3 on 2x2, with and without the shells
+    exchange_ab = []
+    for name, grid in (("heat3d", BIG), ("grayscott3d", MAIN)):
+        st = make_stencil(name)
+        mesh = virtual_mesh((2, 2))
+        fields = stepper.shard_fields(
+            tuple(rand(grid) for _ in range(st.num_fields)), mesh, 3)
+        for overlap in (False, True):
+            steps = {ex: stepper.make_sharded_fused_step(
+                st, mesh, grid, 4, kind="stream", overlap=overlap,
+                exchange=ex, device=dev) for ex in ("ppermute", "rdma")}
+            turns = [(ex, time_ms(lambda: steps[ex](fields), 10) / 4)
+                     for ex in ("ppermute", "rdma", "rdma", "ppermute")]
+            exchange_ab.append({
+                "stencil": name, "grid": list(grid), "mesh": [2, 2],
+                "overlap": overlap, "unit": "ms per step (a pass / 4)",
+                "turns": [[ex, v] for ex, v in turns]})
+        del fields, steps
+        torch.cuda.empty_cache()
+    # CLI ms/step of every --exchange rdma run beside its ppermute twin
+    rdma_vs_ppermute = []
+    for r in mesh_results:
+        if "rdma" not in r["flags"]:
+            continue
+        twin_flags = [f for f in r["flags"] if f not in ("--exchange",
+                                                         "rdma")]
+        twin = [t for t in mesh_results if t["stencil"] == r["stencil"]
+                and t["flags"] == twin_flags and t["grid"] == r["grid"]]
+        rdma_vs_ppermute.append({
+            "stencil": r["stencil"], "grid": r["grid"], "flags": r["flags"],
+            "rdma_ms_per_step": r["ms_per_step"],
+            "ppermute_ms_per_step": twin[0]["ms_per_step"] if twin else None,
+            "ring_launches": {k_: v for k_, v in r["launches"].items()
+                              if k_.startswith("ring_exchange")}})
     for kk in kernels_out:
         if kk["launches"] < 1:
             fail(f"{kk['name']} was not launched on the main path")
@@ -1780,6 +2099,8 @@ def main() -> int:
                 "bound_ms": kk["bound_ms"], "shape": kk["shape"]})
     emit({"phase": "timing", "ok": True, "seconds": took(),
           "stream_vs_window": stream_vs_window,
+          "rdma_vs_ppermute": rdma_vs_ppermute, "exchange_ab": exchange_ab,
+          "ring_vs_k10": ring_vs_k10,
           "total_seconds": round(time.perf_counter() - t_start, 3),
           "card": smi,
           "bytes_per_s": bw, "flops32_per_s": flops32,

@@ -6,6 +6,9 @@
         --iters 100 --compute pallas
     python -m mpi_cuda_process_tpu_torch --stencil heat3d \
         --grid 1024,1024,1024 --iters 100 --mesh 2,2 --compute pallas --overlap
+    python -m mpi_cuda_process_tpu_torch --stencil heat3d \
+        --grid 1024,1024,1024 --iters 100 --mesh 2,2 --fuse 4 \
+        --fuse-kind stream --exchange rdma
     python -m mpi_cuda_process_tpu_torch --stencil heat2d --grid 64,64 \
         --iters 50 --device cpu --render
     python -m mpi_cuda_process_tpu_torch --stencil life --grid 512,512 \
@@ -24,10 +27,11 @@ package has no such kernel (advection and Gray-Scott under ``--mesh`` or
 temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, with
 ``--fuse-kind padfree`` K6 on a z-only mesh and K9 on a mesh that shards y,
 with ``--fuse-kind stream`` the streaming kernel K10, unsharded or on any
-z/y mesh, and with ``--overlap`` the boundary shells beside the exchange;
-advect3d and grayscott3d take the padded kind only, and their pad-free and
-stream kinds raise naming ROADMAP B4/B5; 2D: K8, its sharded mode under a
-row-split ``--mesh``); ``--compute auto``/``jnp`` the plain tensor path.
+z/y mesh, there with ``--exchange rdma`` its slab exchanges through the
+ring-exchange kernel, and with ``--overlap`` the boundary shells beside the
+exchange; the pad-free kinds of advect3d and grayscott3d raise naming
+ROADMAP B4; 2D: K8, its sharded mode under a row-split ``--mesh``);
+``--compute auto``/``jnp`` the plain tensor path.
 Red-black SOR (sor2d, sor3d) has no raw-step or compute_fn kernel, so
 ``--compute pallas`` raises for it as in the TPU package; it runs plain or
 through every ``--fuse`` kind, and ``--tol`` stops a run once its residual
@@ -139,10 +143,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused kernel; under --mesh: auto = the padded "
                         "kind, padfree = the slab-operand kernels (z slabs "
                         "on a z-only mesh; z and y slabs and corners on a "
-                        "mesh that shards y); stream = the streaming "
-                        "kernel (each plane read once per pass; "
-                        "guard-frame only), unsharded or with the "
-                        "padfree operands under --mesh")
+                        "mesh that shards y; not advect3d or grayscott3d "
+                        "yet); stream = the streaming kernel (each plane "
+                        "read once per pass; guard-frame only; every 3D "
+                        "fused family), unsharded or with the padfree "
+                        "operands under --mesh")
+    p.add_argument("--exchange", default="ppermute",
+                   choices=["ppermute", "rdma"],
+                   help="halo-exchange transport for sharded --fuse runs: "
+                        "ppermute = slab copies between the shards' "
+                        "blocks (the default every other mode uses); "
+                        "rdma = the ring-exchange kernel: each slab goes "
+                        "chunk by chunk into its neighbour's receive ring "
+                        "with ready and credit counters, one launch per "
+                        "exchange site for every ring on a card.  Needs "
+                        "--fuse, --mesh and --fuse-kind stream, "
+                        "guard-frame only; composes with --overlap; the "
+                        "same values as ppermute")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the state lives (default cuda; raises "
                         "without a card)")
@@ -160,7 +177,7 @@ def config_from_args(argv=None) -> RunConfig:
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, compute=a.compute, overlap=a.overlap, fuse=a.fuse,
         tol=a.tol, tol_check_every=a.tol_check_every,
-        fuse_kind=a.fuse_kind, device=a.device,
+        fuse_kind=a.fuse_kind, exchange=a.exchange, device=a.device,
         params=parse_params(a.param),
     )
 
@@ -180,7 +197,6 @@ _UNPORTED = (
     ("groups", "--groups", "A7 (device groups)"),
     ("group_transport", "--group-transport", "A7 (device groups)"),
     ("pipeline", "--pipeline", "A5 (pipelined halo exchange)"),
-    ("exchange", "--exchange", "A5/B7 (remote-DMA exchange)"),
     ("ensemble", "--ensemble", "A7 (ensembles)"),
     ("ensemble_mesh", "--ensemble-mesh", "A7 (ensembles)"),
     ("ensemble_perturb", "--ensemble-perturb", "A7 (ensembles)"),
@@ -342,6 +358,25 @@ def build(cfg: RunConfig):
     if cfg.fuse_kind != "auto" and not cfg.fuse:
         raise ValueError("--fuse-kind requires an explicit --fuse K")
     use_mesh = _uses_mesh(cfg)
+    if cfg.exchange == "rdma":
+        # a forced exchange mode is never ignored: every unsupported
+        # combination raises with the reason before any build work
+        if not cfg.fuse:
+            raise ValueError(
+                "--exchange rdma requires an explicit --fuse K (the ring "
+                "exchange feeds the streaming temporal-blocking kernels)")
+        if not use_mesh:
+            raise ValueError(
+                "--exchange rdma needs --mesh: an unsharded run has no "
+                "halo exchange for the ring to carry")
+        if cfg.fuse_kind != "stream":
+            raise ValueError(
+                "--exchange rdma rides the streaming kernel family: "
+                "force --fuse-kind stream or drop --exchange rdma")
+        if cfg.periodic:
+            raise ValueError(
+                "--exchange rdma is guard-frame only (the streaming "
+                "kernels have no periodic wrap path)")
     if cfg.overlap and not use_mesh:
         raise ValueError(
             "--overlap needs --mesh: the split overlaps the halo exchange "
@@ -374,7 +409,7 @@ def build(cfg: RunConfig):
                                                       "padfree") else None
             step_fn = stepper_lib.make_sharded_temporal_step(
                 st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,
-                overlap=cfg.overlap, device=device)
+                overlap=cfg.overlap, exchange=cfg.exchange, device=device)
             if cfg.overlap and step_fn is not None and \
                     not getattr(step_fn, "_overlap_active", False):
                 log.warning(
@@ -386,6 +421,7 @@ def build(cfg: RunConfig):
                 raise ValueError(
                     f"--fuse {cfg.fuse} + --mesh {cfg.mesh}"
                     + (f" --fuse-kind {kind}" if kind else "")
+                    + (" --exchange rdma" if cfg.exchange == "rdma" else "")
                     + f" unsupported for {st.name} on {cfg.grid}: needs a "
                     f"fused kernel, an unsharded lane axis"
                     + (", guard-frame BCs, rings that fit shared memory"
@@ -393,6 +429,11 @@ def build(cfg: RunConfig):
                        ", 2*k*halo*phases a multiple of 8 (f32, 3D)")
                     + ", per-shard extents dividing the grid, and blocks "
                     ">= the k-step margin")
+            if cfg.exchange == "rdma":
+                # which path carries the ring: the kernel on cards, its
+                # plain version on the CPU (never read as a measured ring)
+                log.info("exchange: mode=rdma backend=%s",
+                         getattr(step_fn, "_rdma_backend", "unknown"))
         elif st.ndim == 2:
             step_fn = fullgrid_lib.make_fullgrid_step(
                 st, cfg.grid, cfg.fuse, periodic=cfg.periodic, device=device)

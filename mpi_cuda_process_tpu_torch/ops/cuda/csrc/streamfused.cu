@@ -36,9 +36,17 @@
 // re-pinning the frame, as _micro_sor does.  At the (16, 64) column and
 // k = 4 the eight level rings take 183 KB of shared memory.
 //
-// Every cell is computed by field_update<KIND> / wave_update of
-// stencil_taps.cuh through a ring accessor, in the same rounding order as
-// the plain PyTorch version, so the kernel is bit-equal to it.  The frame
+// Advection (ADVECT) is heat-shaped: halo 1, one field, the upwind taps of
+// advect_update chosen by the signs of (cz, cy, cx).  Gray-Scott
+// (GRAYSCOTT) reads the neighbours of both fields, so every level keeps a
+// ring for u and one for v (a second set of rings after the first, 153 KB
+// at the (16, 64) column and k = 4: one block per SM); a cell's new (u, v)
+// is grayscott_update over the two rings.
+//
+// Every cell is computed by field_update<KIND> / wave_update /
+// grayscott_update of stencil_taps.cuh through a ring accessor, in the
+// same rounding order as the plain PyTorch version, so the kernel is
+// bit-equal to it.  The frame
 // is pinned on GLOBAL coordinates, (oz, oy) + local, as in fused.cu: a cell
 // past a global wall is frame and copies its previous level; a cell past an
 // interior shard face holds the neighbour's data and is updated.  Wave
@@ -73,7 +81,8 @@ struct Ring {
 
 // Shared memory of one block: per level s = 0..k-1 a ring of planes of the
 // level's region, level 0's with one slot more for the plane in flight;
-// for wave, after them, a ring of loaded u_prev planes shaped as level 0's.
+// after them, for wave a ring of loaded u_prev planes shaped as level 0's,
+// for Gray-Scott a second set of every level's rings (v).
 struct Layout {
   int k, h, TY, TX;  // k: the levels (the steps; SOR: its 2k half-sweeps)
   __host__ __device__ int ry(int s) const { return TY + 2 * (k - s) * h; }
@@ -84,14 +93,16 @@ struct Layout {
   __host__ __device__ long plane(int s) const {
     return static_cast<long>(ry(s)) * rx(s);
   }
-  // offset of level s's ring; base(k) is the u_prev ring's
+  // offset of level s's ring; base(k) is the u_prev ring's (wave) or the
+  // offset of the v rings (Gray-Scott: v's level s at base(k) + base(s))
   __host__ __device__ long base(int s) const {
     long b = 0;
     for (int t = 0; t < s; ++t) b += slots(t) * plane(t);
     return b;
   }
-  __host__ __device__ long floats(bool two) const {
-    return base(k) + (two ? slots(0) * plane(0) : 0);
+  __host__ __device__ long floats(int kind) const {
+    if (kind == WAVE7) return base(k) + slots(0) * plane(0);
+    return kind == GRAYSCOTT ? 2 * base(k) : base(k);
   }
 };
 
@@ -107,7 +118,7 @@ __global__ void __launch_bounds__(THREADS)
 stream_step(const Window w, int k, Coef c, int TY, int TX) {
   extern __shared__ float smem[];
   constexpr int h = kind_halo(KIND);
-  constexpr bool two = KIND == WAVE7;
+  constexpr bool two = KIND == WAVE7, gs = KIND == GRAYSCOTT;
   // levels: one per step, one per half-sweep for SOR
   const int K = k * kind_phases(KIND);
   const Layout L{K, h, TY, TX};
@@ -115,10 +126,11 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;  // the core column
   const int tx = threadIdx.x, ty = threadIdx.y;
   const long gsy = w.X, gsz = static_cast<long>(w.X) * w.Y;
+  // wave: the u_prev ring; Gray-Scott: the v rings (level s at + base(s))
   const long prev_base = L.base(K);
 
   // Issue the copies of window plane p into level 0's ring (and wave's
-  // u_prev ring): one cp.async group.
+  // u_prev ring, or Gray-Scott's level-0 v ring): one cp.async group.
   auto load_plane = [&](int p) {
     const int RY = L.ry(0), RX = L.rx(0);
     float* d0 = ring_plane(smem, L, 0, 0, p);
@@ -128,7 +140,7 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
         const int y = y0 - m + iy, x = x0 - m + ix;
         __pipeline_memcpy_async(d0 + iy * RX + ix,
                                 cell_ptr<SRC>(w, 0, p, y, x, 0), 4);
-        if constexpr (two) {
+        if constexpr (two || gs) {
           __pipeline_memcpy_async(d1 + iy * RX + ix,
                                   cell_ptr<SRC>(w, 1, p, y, x, 0), 4);
         }
@@ -151,9 +163,14 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
       const int RY = L.ry(s), RX = L.rx(s), PX = L.rx(s - 1);
       const long src_base = L.base(s - 1);
       const float* planes[2 * h + 1];
+      const float* vplanes[2 * h + 1];  // Gray-Scott's v
 #pragma unroll
-      for (int j = 0; j <= 2 * h; ++j)
+      for (int j = 0; j <= 2 * h; ++j) {
         planes[j] = ring_plane(smem, L, s - 1, src_base, z - h + j);
+        if constexpr (gs)
+          vplanes[j] =
+              ring_plane(smem, L, s - 1, prev_base + src_base, z - h + j);
+      }
       // wave: level s-1's u_prev at plane z, in the coordinates of the
       // ring it lives in (the loaded u_prev for s = 1, else level s-2)
       const float* up = nullptr;
@@ -170,6 +187,9 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
         }
       }
       float* dst = s < K ? ring_plane(smem, L, s, L.base(s), z) : nullptr;
+      float* vdst = gs && s < K
+                        ? ring_plane(smem, L, s, prev_base + L.base(s), z)
+                        : nullptr;
       for (int iy = ty; iy < RY; iy += TYT) {
         const int y = y0 - e + iy;
         for (int ix = tx; ix < RX; ix += TXT) {
@@ -185,20 +205,33 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
           bool keep = in_frame(w.oz + z, w.oy + y, x, w.GZ, w.GY, w.GX, h);
           if constexpr (KIND == SOR7)
             keep = keep || other_colour(w.oz + z + w.oy + y + x, s);
-          float v;
+          float v, v1 = 0.0f;  // the new u; Gray-Scott's new v
           if constexpr (two) {
             const float uprev =
                 up[static_cast<long>(iy + uoff) * ux + (ix + uoff)];
             v = keep ? u : wave_update(a, uprev, c);
+          } else if constexpr (gs) {
+            Ring<h> b;
+#pragma unroll
+            for (int j = 0; j <= 2 * h; ++j) b.plane[j] = vplanes[j] + off;
+            b.sy = PX;
+            if (keep) {
+              v = u;
+              v1 = b(0, 0, 0);
+            } else {
+              grayscott_update(a, b, c, v, v1);
+            }
           } else {
             v = keep ? u : field_update<KIND>(a, c);
           }
           if (s < K) {
             dst[iy * RX + ix] = v;
+            if constexpr (gs) vdst[iy * RX + ix] = v1;
           } else if (y < w.Y && x < w.X) {
             const long g = z * gsz + y * gsy + x;
             w.out[0][g] = v;
             if constexpr (two) w.out[1][g] = u;  // new u_prev: level k-1's u
+            if constexpr (gs) w.out[1][g] = v1;
           }
         }
       }
@@ -211,7 +244,7 @@ template <int KIND, int SRC>
 int launch(const Window& w, int k, const Coef& c, int ty, int tx,
            cudaStream_t s) {
   const Layout L{k * kind_phases(KIND), kind_halo(KIND), ty, tx};
-  const size_t smem = sizeof(float) * L.floats(KIND == WAVE7);
+  const size_t smem = sizeof(float) * L.floats(KIND);
   cudaError_t e = cudaFuncSetAttribute(
       stream_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -236,6 +269,10 @@ int dispatch(int kind, const Window& w, int k, const Coef& c, int ty, int tx,
       return launch<WAVE7, SRC>(w, k, c, ty, tx, s);
     case SOR7:
       return launch<SOR7, SRC>(w, k, c, ty, tx, s);
+    case ADVECT:
+      return launch<ADVECT, SRC>(w, k, c, ty, tx, s);
+    case GRAYSCOTT:
+      return launch<GRAYSCOTT, SRC>(w, k, c, ty, tx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -245,7 +282,8 @@ int dispatch(int kind, const Window& w, int k, const Coef& c, int ty, int tx,
 
 // One launch on `stream`, one device: (out0[, out1]) = k guard-frame steps
 // of (in0[, in1]) on the whole (Z, Y, X) grid.  in1/out1 are used by the
-// wave kind only.  Returns a cudaError_t code.
+// two-field kinds only (wave: u_prev; Gray-Scott: v).  Returns a
+// cudaError_t code.
 EXPORT int stream_step_f32(int kind, const float* in0, const float* in1,
                            float* out0, float* out1, int Z, int Y, int X,
                            int k, float a, float c0, float c1, float c2,

@@ -1,10 +1,9 @@
 """The streaming k-step kernel, K10 (TPU table rows 16-18).
 
 ``stream_step`` (``csrc/streamfused.cu::stream_step<KIND, RAW>``) advances
-heat3d, heat3d27, heat3d4th, wave3d or sor3d (2k one-colour half-sweeps) by
-k guard-frame steps in one launch over the whole grid (advect3d and
-grayscott3d, the other K3 families, raise naming ROADMAP B5: Gray-Scott's
-second field needs rings of its own).  Each
+heat3d, heat3d27, heat3d4th, wave3d, advect3d, grayscott3d (a ring for
+each field at every level) or sor3d (2k one-colour half-sweeps) by k
+guard-frame steps in one launch over the whole grid: every K3 family.  Each
 block marches a (TY, TX) column of the grid down z as a wavefront in time,
 so every plane of its window is read from device memory once per pass (K3
 re-reads the z margin of every window).  ``stream_zslab``
@@ -57,12 +56,9 @@ launches: Counter = Counter()
 # (1 + 8/16)(1 + 8/64) = 1.69x its cells and two blocks share an SM.
 TILE = (16, 64)
 
-# The K3 families the streaming kernel has a kind for, and those it has not
-# yet (their stream runs raise by name).
-_STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "sor3d")
-_NOT_STREAM = ("advect3d", "grayscott3d")
-STREAM_ITEM = ("ROADMAP B5 (the streaming kernel for advect3d and "
-               "grayscott3d)")
+# The K3 families the streaming kernel has a kind for: all of them.
+_STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
+           "grayscott3d", "sor3d")
 
 _POLICY_ITEM = "ROADMAP A8 (policy)"
 _ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
@@ -71,11 +67,8 @@ _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
 
 def stream_supported(stencil: Stencil) -> bool:
-    """Whether the streaming kernel has a kind for ``stencil``; the K3
-    families it does not take yet raise naming ROADMAP B5."""
-    if stencil.name in _NOT_STREAM:
-        raise NotImplementedError(
-            f"--fuse-kind stream for {stencil.name}: {STREAM_ITEM}")
+    """Whether the streaming kernel has a kind for ``stencil`` (every 3D
+    family of K3)."""
     return stencil.name in _STREAM and stencil.ndim == 3
 
 
@@ -83,8 +76,9 @@ def smem_bytes(stencil: Stencil, k: int) -> int:
     """Shared memory of one block at column ``TILE`` (``Layout`` in
     csrc/streamfused.cu): per level s = 0..K-1 a ring of its
     (TY + 2(K-s)h, TX + 2(K-s)h) region, 2h + 1 planes (2h + 2 at level 0),
-    with K = k levels (2k for sor3d, one per half-sweep); wave adds a
-    level-0 ring of u_prev."""
+    with K = k levels (2k for sor3d, one per half-sweep), once per field
+    whose neighbours the update reads (Gray-Scott: u and v); wave adds a
+    level-0 ring of u_prev, read at its own cell only."""
     ty, tx = TILE
     h = _FUSED[stencil.name][1]
     levels = k_step_margin(stencil, k) // h
@@ -92,7 +86,8 @@ def smem_bytes(stencil: Stencil, k: int) -> int:
               for s in range(levels)]
     floats = sum((2 * h + 2 if s == 0 else 2 * h + 1) * n
                  for s, n in enumerate(planes))
-    if stencil.num_fields == 2:
+    floats *= sum(1 for fh in stencil.field_halos if fh)
+    if 0 in stencil.field_halos:
         floats += (2 * h + 2) * planes[0]
     return 4 * floats
 
@@ -127,7 +122,6 @@ def _gate(what: str, stencil: Stencil, k: int) -> int:
 def stream_step(fields: Fields, stencil: Stencil, k: int) -> Fields:
     """``k`` guard-frame steps of ``stencil`` on the whole grid in one
     launch."""
-    stream_supported(stencil)  # raises for the families without a kind
     if not fields[0].is_cuda:
         return plain_steps(fields, stencil, k)
     kind = _gate("stream_step", stencil, k)
@@ -151,7 +145,6 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     core and the exchanged (m, Y, X) z slabs below (``zlo``) and above
     (``zhi``) it, per field; ``origin_z`` is the core's first global z
     plane of ``global_z``.  Returns the core fields, k steps on."""
-    stream_supported(stencil)  # raises for the families without a kind
     m = k_step_margin(stencil, k)
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -181,7 +174,6 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     the operands of ``fused.fused_yzslab`` (the core, two z slabs, two y
     slabs and the corners ll, lh, hl, hh, per field).  Returns the
     (Lz, Ly, X) core of every field, k steps on."""
-    stream_supported(stencil)  # raises for the families without a kind
     m = k_step_margin(stencil, k)
     Lz, Ly, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:

@@ -30,13 +30,22 @@ packed (contiguous) buffers, as the kernels take them.
 ``pad_from_slabs`` rebuilds any band of the padded block from a slab set,
 which is how the overlapped steps make their boundary-shell strips.
 
+The slab exchanges take a ``transport``: the in-process one by default, or
+:class:`RdmaTransport`, the ring-exchange kernel (``ops/cuda/remote.py``,
+the counterpart of the TPU package's in-kernel remote DMA) for every ring
+of shards that shares a device.  An axis of one shard keeps its local fill
+or wrap and runs no ring; the wall shards' received slabs are overwritten
+with the guard constant after a full-ring shift, so both transports give
+the same slabs bit for bit; corners keep the two-pass composition.
+
 Not ported yet: the ``*_from_borders`` variants of the pipelined stepper
-(A5) and the remote-DMA transport (B7).
+(A5), and a ring across cards (peer writes, B7).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import contextlib
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,6 +112,84 @@ class InProcessTransport:
 
 _TRANSPORT = InProcessTransport()
 
+RDMA_ITEM = "ROADMAP B7 (peer writes across cards)"
+
+
+class RdmaTransport:
+    """Ring shifts through the ring-exchange kernel (``exchange="rdma"``).
+
+    The counterpart of the TPU package's ``RdmaTransport``: every shift of
+    a slab pair along a mesh axis is one ``ops/cuda/remote.py`` launch per
+    device, covering every ring of that axis on the device.  Each exchange
+    site (axis, slab shape, dtype, device, shard count) keeps its receive
+    rings and counters; ``sites`` holds the meta of every site built, in
+    build order.  ``nslots`` (ring depth) and ``prefer_nc`` (a preferred
+    chunk count) are the kernel's variant knobs; 0 takes its defaults.
+
+    ``backend`` says what carries the exchange: ``"cuda-ring"`` when the
+    mesh lives on cards (the kernel runs), ``"plain-ring"`` on the CPU (its
+    plain version): a CPU run never reads as a measured ring.  A ring whose
+    shards span several devices raises (peer writes, ROADMAP B7).
+    """
+
+    def __init__(self, mesh: Mesh, nslots: int = 0, prefer_nc: int = 0):
+        cuda = all(d.type == "cuda" for d in mesh.devices)
+        self.backend = "cuda-ring" if cuda else "plain-ring"
+        self.nslots = int(nslots)
+        self.prefer_nc = int(prefer_nc)
+        self.sites: List[dict] = []
+        self._calls: Dict[tuple, object] = {}
+
+    def _call(self, axis: int, slab: torch.Tensor, n_shards: int):
+        from ..ops.cuda.remote import build_ring_exchange_call
+
+        key = (axis, tuple(slab.shape), slab.dtype, slab.device, n_shards)
+        if key not in self._calls:
+            call, meta = build_ring_exchange_call(
+                slab.shape, slab.dtype, nslots=self.nslots,
+                prefer_nc=self.prefer_nc, device=slab.device)
+            self.sites.append(dict(meta, axis=axis, shards=n_shards,
+                                   device=str(slab.device)))
+            self._calls[key] = call
+        return self._calls[key]
+
+    def shift_pair(self, hi_slabs: Sequence[torch.Tensor],
+                   lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
+                   periodic: bool):
+        """Full-ring shift of a slab pair along grid ``axis``: ``(from_left,
+        from_right)``, the previous shard's ``hi`` and the next shard's
+        ``lo`` slab for each shard, wrapping at the ring's ends whatever
+        ``periodic`` says (the caller substitutes the guard constant at
+        non-periodic walls)."""
+        n = _axis_count(mesh, axis)
+        coords = list(mesh.coords())
+        nxt = [mesh.index(_shifted(c, axis, 1, n)) for c in coords]
+        prv = [mesh.index(_shifted(c, axis, -1, n)) for c in coords]
+        groups: Dict[torch.device, List[int]] = {}
+        for i, c in enumerate(coords):
+            groups.setdefault(mesh.device(c), []).append(i)
+        for dev, idx in groups.items():
+            if any(mesh.devices[j] != dev for i in idx
+                   for j in (nxt[i], prv[i])):
+                raise NotImplementedError(
+                    f"exchange='rdma': a ring along mesh axis {axis} spans "
+                    f"several devices: {RDMA_ITEM}")
+        from_left: List[Optional[torch.Tensor]] = [None] * len(coords)
+        from_right: List[Optional[torch.Tensor]] = [None] * len(coords)
+        for dev, idx in groups.items():
+            pos = {g: j for j, g in enumerate(idx)}
+            call = self._call(axis, hi_slabs[idx[0]], len(idx))
+            ctx = torch.cuda.device(dev) if dev.type == "cuda" else \
+                contextlib.nullcontext()
+            with ctx:
+                fl, fr = call([hi_slabs[i] for i in idx],
+                              [lo_slabs[i] for i in idx],
+                              [pos[nxt[i]] for i in idx],
+                              [pos[prv[i]] for i in idx])
+            for j, i in enumerate(idx):
+                from_left[i], from_right[i] = fl[j], fr[j]
+        return from_left, from_right
+
 
 def exchange_slabs_axis(
     blocks: Sequence[torch.Tensor],
@@ -111,6 +198,7 @@ def exchange_slabs_axis(
     halo: int,
     bc_value,
     periodic: bool = False,
+    transport=None,
 ):
     """The two halo slabs of every shard along ``axis``, unconcatenated:
     ``(lefts, rights)``, one entry per shard in row-major order.
@@ -120,13 +208,28 @@ def exchange_slabs_axis(
     the neighbour's border slab; global walls receive ``bc_value`` (or the
     wrap when ``periodic``).  The pad-free sharded kernel takes these slabs
     as operands, so no padded copy of the block is ever made.
+
+    ``transport`` carries the ring shift (default: in process); an
+    :class:`RdmaTransport` runs the full ring, and the wall shards'
+    received slabs are then replaced by the guard constant, as the
+    in-process shift gives them.  An axis of one shard runs no ring.
     """
     L = blocks[0].shape[axis]
     # packed: a slab across axis 0 is a view already, one across axis 1 is
     # copied out of its strided rows
     hi = [_take(x, axis, L - halo, halo).contiguous() for x in blocks]
     lo = [_take(x, axis, 0, halo).contiguous() for x in blocks]
-    lefts, rights = _TRANSPORT.shift_pair(hi, lo, mesh, axis, periodic)
+    n = _axis_count(mesh, axis)
+    if transport is None or n == 1:
+        lefts, rights = _TRANSPORT.shift_pair(hi, lo, mesh, axis, periodic)
+    else:
+        lefts, rights = transport.shift_pair(hi, lo, mesh, axis, periodic)
+        if not periodic:
+            for i, c in enumerate(mesh.coords()):
+                if c[axis] == 0:
+                    lefts[i] = None
+                if c[axis] == n - 1:
+                    rights[i] = None
     for i, x in enumerate(blocks):
         if lefts[i] is None or rights[i] is None:
             shape = list(x.shape)
@@ -143,6 +246,7 @@ def exchange_slabs_2axis(
     halo: int,
     bc_value,
     periodic: bool = False,
+    transport=None,
 ):
     """The slab set of every shard of a 3D field for both wall axes:
     per shard ``((zlo, zhi), (ylo, yhi), (c_ll, c_lh, c_hl, c_hh))``.
@@ -154,12 +258,17 @@ def exchange_slabs_2axis(
     so shard (z, y)'s ``c_ll`` is shard (z-1, y-1)'s trailing corner,
     carried by face exchanges alone.  An unsharded axis gets the local
     bc-fill or wrap slabs, so one operand set serves (z, y), y-only and
-    z-only meshes.  Every piece is a packed buffer.
+    z-only meshes.  Every piece is a packed buffer.  ``transport`` carries
+    every ring shift (:func:`exchange_slabs_axis`).
     """
-    zlo, zhi = exchange_slabs_axis(blocks, mesh, 0, halo, bc_value, periodic)
-    ylo, yhi = exchange_slabs_axis(blocks, mesh, 1, halo, bc_value, periodic)
-    c_ll, c_lh = exchange_slabs_axis(zlo, mesh, 1, halo, bc_value, periodic)
-    c_hl, c_hh = exchange_slabs_axis(zhi, mesh, 1, halo, bc_value, periodic)
+    def shift(pieces, axis):
+        return exchange_slabs_axis(pieces, mesh, axis, halo, bc_value,
+                                   periodic, transport)
+
+    zlo, zhi = shift(blocks, 0)
+    ylo, yhi = shift(blocks, 1)
+    c_ll, c_lh = shift(zlo, 1)
+    c_hl, c_hh = shift(zhi, 1)
     return [((zlo[i], zhi[i]), (ylo[i], yhi[i]),
              (c_ll[i], c_lh[i], c_hl[i], c_hh[i]))
             for i in range(len(blocks))]

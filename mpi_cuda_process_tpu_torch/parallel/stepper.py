@@ -22,7 +22,8 @@ its sharded mode) and the slab-operand kinds, on z-only meshes the z slabs
 into K6 (pad-free) or the streaming kernel K10, on meshes that shard y the
 2-axis slab set into K9 or K10; with ``overlap=True`` each kind runs its
 interior beside the exchange and then the boundary shells (K3's sharded
-mode over 2m-deep cores).
+mode over 2m-deep cores).  ``exchange="rdma"`` carries the stream kind's
+slab exchanges through the ring-exchange kernel (``halo.RdmaTransport``).
 ``make_sharded_fullgrid_step`` is its 2D counterpart: a row split, a
 width-m row exchange, then K8 in its sharded mode, with an overlapped
 variant; ``make_sharded_temporal_step`` picks between the two.
@@ -37,13 +38,12 @@ import torch
 
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil, k_step_margin
-from .halo import (exchange_and_pad, exchange_slabs_2axis,
+from .halo import (RdmaTransport, exchange_and_pad, exchange_slabs_2axis,
                    exchange_slabs_axis, local_mesh, pad_from_slabs,
                    pad_local)
 from .mesh import ENSEMBLE_ITEM, Mesh
 
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
-_RDMA_ITEM = "ROADMAP B7 (the remote-DMA exchange, >= 2 GPUs)"
 
 
 class ShardedField(list):
@@ -397,19 +397,40 @@ def make_sharded_fused_step(
     Every field is exchanged, so Gray-Scott's two fields both reach the
     padded kind with their m-wide pads.
 
-    Not ported yet, and raising by name: ``pipeline=True``,
-    ``exchange="rdma"``, the ensemble axis, and the pad-free and stream
-    kinds of advect3d and grayscott3d (ROADMAP B4, B5: their builders
-    raise).
+    ``exchange="rdma"`` sends every slab exchange of the stream kind
+    through the ring-exchange kernel (``halo.RdmaTransport``, one launch
+    per exchange site and device) in place of the in-process copies, on
+    z-only and (z, y) meshes, composed with ``overlap``; the values equal
+    ``exchange="ppermute"`` bit for bit.  As in the TPU package a forced
+    mode never falls back: an unknown mode, ``periodic`` and a kind other
+    than ``"stream"`` raise with the reason.  The step carries
+    ``_exchange`` and, for rdma, ``_rdma_backend`` and ``_rdma_transport``.
+
+    Not ported yet, and raising by name: ``pipeline=True``, the ensemble
+    axis, and the pad-free kinds of advect3d and grayscott3d (ROADMAP B4:
+    K6 and K9 raise).
     """
     from ..ops.cuda import fused, streamfused
 
     if kind not in (None, "stream", "padfree"):
         raise ValueError(f"unknown sharded fused kind {kind!r} "
                          "(None=auto, 'stream', 'padfree')")
-    if exchange not in (None, "ppermute"):
-        raise NotImplementedError(
-            f"exchange={exchange!r} is not ported: {_RDMA_ITEM}")
+    exchange = exchange or "ppermute"
+    if exchange not in ("ppermute", "rdma"):
+        raise ValueError(f"unknown exchange mode {exchange!r} "
+                         "('ppermute' or 'rdma')")
+    if exchange == "rdma":
+        if periodic:
+            raise ValueError(
+                "exchange='rdma' is guard-frame only (the streaming "
+                "kernels that host it have no periodic wrap path) — "
+                "drop --periodic or use --exchange ppermute")
+        if kind != "stream":
+            raise ValueError(
+                "exchange='rdma' rides the streaming kernel family "
+                "(the ring-buffer kernels the ring exchange feeds): force "
+                "--fuse-kind stream, or use --exchange ppermute for "
+                f"kind={kind!r}")
     if pipeline:
         raise NotImplementedError(f"pipeline=True: {_PIPELINE_ITEM}")
     if ensemble:
@@ -428,22 +449,40 @@ def make_sharded_fused_step(
     if not _parity_consistent(stencil, global_shape, local_shape, counts,
                               periodic):
         return None
+    transport = RdmaTransport(mesh) if exchange == "rdma" else None
     args = (stencil, mesh, global_shape, local_shape, counts, k, periodic,
             overlap, device)
     if kind is None:
-        return _make_padded_step(*args)
-    stream = kind == "stream"
-    if counts[1] > 1:
-        if stream:
-            return _make_yzslab_padfree_step(
-                *args, streamfused.build_stream_2axis_call, "stream_yz")
-        return _make_yzslab_padfree_step(
+        step = _make_padded_step(*args)
+    elif kind == "stream":
+        if counts[1] > 1:
+            step = _make_yzslab_padfree_step(
+                *args, streamfused.build_stream_2axis_call, "stream_yz",
+                transport)
+        else:
+            step = _make_zslab_padfree_step(
+                *args, streamfused.build_stream_sharded_call, "stream_z",
+                transport)
+    elif counts[1] > 1:
+        step = _make_yzslab_padfree_step(
             *args, fused.build_yzslab_padfree_call, "yzslab")
-    if stream:
-        return _make_zslab_padfree_step(
-            *args, streamfused.build_stream_sharded_call, "stream_z")
-    return _make_zslab_padfree_step(*args, fused.build_zslab_padfree_call,
-                                    "zslab")
+    else:
+        step = _make_zslab_padfree_step(
+            *args, fused.build_zslab_padfree_call, "zslab")
+    return None if step is None else _attach_exchange(step, exchange,
+                                                      transport)
+
+
+def _attach_exchange(step, exchange: str, transport):
+    """Tag a sharded fused step with its transport, as the TPU package
+    does: ``_exchange`` ('ppermute' or 'rdma') and, for rdma,
+    ``_rdma_backend`` ('cuda-ring' or 'plain-ring') and ``_rdma_transport``
+    (its ``sites`` hold the chunk geometry of every exchange site)."""
+    step._exchange = exchange
+    if transport is not None:
+        step._rdma_backend = transport.backend
+        step._rdma_transport = transport
+    return step
 
 
 def _parity_consistent(stencil, global_shape, local_shape, counts,
@@ -486,9 +525,10 @@ def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
 
 def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
                              counts, k, periodic, overlap, device, build,
-                             kind_name):
+                             kind_name, transport=None):
     """The z-slab kinds (z-only meshes): core and z slabs into the kernel
-    that ``build`` makes (K6 or K10), labelled ``kind_name``."""
+    that ``build`` makes (K6 or K10), labelled ``kind_name``; ``transport``
+    carries the slab exchanges (``halo.exchange_slabs_axis``)."""
     built = build(stencil, local_shape, global_shape, k, periodic=periodic,
                   device=device)
     if built is None:
@@ -496,7 +536,8 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
     call, m, _ = built
 
     def exchange(fields, on):
-        return [list(zip(*exchange_slabs_axis(f, on, 0, m, bc, periodic)))
+        return [list(zip(*exchange_slabs_axis(f, on, 0, m, bc, periodic,
+                                              transport)))
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -507,21 +548,22 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
 
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              exchange, launch)
+                              exchange, launch, transport)
     step._padfree_kind = kind_name
     return step
 
 
 def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
                               counts, k, periodic, overlap, device, build,
-                              kind_name):
+                              kind_name, transport=None):
     """The 2-axis slab-operand kinds (meshes that shard y): the core, z and
     y slabs and the four two-pass corner pieces into the kernel that
     ``build`` makes (K9 or K10), labelled ``kind_name``, so no padded copy
     of a block exists on a (z, y) mesh either.  An unsharded z gets the
     local bc-fill or wrap slabs from the same exchange.  The TPU package's
     widening of the y operands (``_dup_y``, ``_align``: sublane alignment)
-    does not apply: the kernels read m-wide pieces."""
+    does not apply: the kernels read m-wide pieces.  ``transport`` carries
+    the slab exchanges."""
     built = build(stencil, local_shape, global_shape, k, periodic=periodic,
                   device=device)
     if built is None:
@@ -529,7 +571,7 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
     call, m, _ = built
 
     def exchange(fields, on):
-        return [exchange_slabs_2axis(f, on, m, bc, periodic)
+        return [exchange_slabs_2axis(f, on, m, bc, periodic, transport)
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -540,20 +582,22 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
 
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              exchange, launch)
+                              exchange, launch, transport)
     step._padfree_kind = kind_name
     return step
 
 
 def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
-                       m, periodic, overlap, device, exchange, launch):
+                       m, periodic, overlap, device, exchange, launch,
+                       transport=None):
     """The sharded fused step around one kind's kernel.
 
     ``exchange(fields, on)`` gives, per field and per shard of mesh ``on``,
     the kind's operand (a padded block, a z-slab pair or a 2-axis slab
     set); ``launch(origins, blocks, ops)`` runs the kind's kernel on one
     shard's core blocks and operands, given the shard's global (z, y)
-    origin.
+    origin.  ``transport`` (None: in process) carries the overlapped
+    step's slab exchange too.
 
     ``overlap=True``, on a mesh that shards z or y with every sharded local
     extent at least 3m, is the TPU package's split (``stepper.py:681-782``,
@@ -611,7 +655,8 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
 
     def step_overlap(fields: Fields) -> Fields:
         with side.begin():
-            slabs = [exchange_slabs_2axis(f, mesh, m, bc, periodic)
+            slabs = [exchange_slabs_2axis(f, mesh, m, bc, periodic,
+                                          transport)
                      for f, bc in zip(fields, bcs)]
             side.record()
         new = []

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K10, Gray-Scott's raw step, the SOR kinds)
-against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K10, Gray-Scott's raw step, the SOR kinds,
+the ring exchange) against their plain versions, on the card.
 
 Needs an NVIDIA GPU with the CUDA toolkit (``nvcc``): the kernels are built
 from ``mpi_cuda_process_tpu_torch/ops/cuda/csrc`` at first use.  Without a
@@ -11,8 +11,9 @@ package, so it runs where only PyTorch is installed::
 Tolerances as in tests/test_torch_kernels.py: ``32 * eps * max(|ref|, 1)``
 for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
 ``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
-K8), the streaming kernel (K10, against its plain version) and every SOR
-kind bit-equal.
+K8), the streaming kernel (K10, against its plain version), every SOR
+kind and the ring exchange (``ops/cuda/remote.py``, with its drained
+counters read after every launch) bit-equal.
 The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
 K10, K8's sharded mode) run on meshes of virtual shards on one card.
 """
@@ -24,7 +25,7 @@ import torch
 import mpi_cuda_process_tpu_torch as port
 from mpi_cuda_process_tpu_torch import driver
 from mpi_cuda_process_tpu_torch.ops.cuda import (fullgrid, fused, kernels,
-                                                 rawstep, streamfused)
+                                                 rawstep, remote, streamfused)
 from mpi_cuda_process_tpu_torch.parallel import (gather_fields, make_mesh,
                                                  make_sharded_fused_step,
                                                  make_sharded_step,
@@ -840,3 +841,178 @@ def test_sor_sharded_fullgrid_kernel_matches_plain_sharded_steps(
         "fullgrid_padded[sor2d]": mesh.size * (3 if overlap else 1)}
     _check(gather_fields(got), gather_fields(ref),
            None if periodic else 1, 0.0)
+
+
+# ---- K10's advection and Gray-Scott kinds -----------------------------------
+
+def _new_family(label):
+    """advect3d with Courant numbers of both signs, or a registry name."""
+    if label == "advect3d-mixed":
+        return port.make_stencil("advect3d", cx=-0.3, cy=0.2, cz=-0.25)
+    return port.make_stencil(label)
+
+
+NEW_STREAM = ["advect3d", "advect3d-mixed", "grayscott3d"]
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("shape", SHAPES + [(68, 76, 130)])
+@pytest.mark.parametrize("label", NEW_STREAM)
+def test_stream_new_kinds_match_plain(dev, label, shape, k):
+    """K10's ADVECT and GRAYSCOTT kinds over the whole grid (row 16) == k
+    plain steps, bit for bit (Gray-Scott: rings for u and v at every
+    level)."""
+    st = _new_family(label)
+    fields = _fields(st, shape, dev, 31)
+    ref = fused.plain_steps(fields, st, k)
+    streamfused.launches.clear()
+    got = streamfused.make_stream_fused_step(st, shape, k, device=dev)(fields)
+    torch.cuda.synchronize()
+    assert dict(streamfused.launches) == {f"stream_step[{st.name}]": 1}
+    _check(got, ref, st.halo, 0.0)
+
+
+@pytest.mark.parametrize("local,origins", [((24, 32, 40), (0, 0)),
+                                           ((19, 21, 45), (19, 21)),
+                                           ((19, 21, 45), (38, 42))])
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("label", NEW_STREAM)
+def test_stream_new_kinds_slab_kernels_match_plain(dev, label, k, local,
+                                                   origins):
+    """K10's new kinds over a z-only shard (row 17) and a shard of a mesh
+    that shards y (row 18), on random slabs and corners == plain_zslab and
+    plain_yzslab, bit for bit."""
+    st = _new_family(label)
+    m = k
+    Lz, Ly, X = local
+    gshape = (3 * Lz, 3 * Ly, X)
+    seed = iter(range(700, 800))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed))
+                     for _ in range(st.num_fields))
+
+    core = per_field(local)
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    streamfused.launches.clear()
+    got = streamfused.stream_zslab(core, zlo, zhi, st, k, gshape[0],
+                                   origins[0])
+    ref = fused.plain_zslab(core, zlo, zhi, st, k, gshape[0], origins[0])
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    args = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, origins)
+    got = streamfused.stream_yzslab(*args)
+    ref = fused.plain_yzslab(*args)
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    assert dict(streamfused.launches) == {f"stream_zslab[{st.name}]": 1,
+                                          f"stream_yzslab[{st.name}]": 1}
+
+
+# ---- the ring exchange (row 19) ---------------------------------------------
+
+def _ring(mesh, axis):
+    """(nxt, prv): each shard's next and previous neighbour along axis."""
+    n = mesh.counts(3)[axis]
+    coords = list(mesh.coords())
+
+    def shifted(c, s):
+        c = list(c)
+        c[axis] = (c[axis] + s) % n
+        return mesh.index(c)
+
+    return [shifted(c, 1) for c in coords], [shifted(c, -1) for c in coords]
+
+
+# (4, 64, 128): four y chunks of strided runs (float4 units); (24, 4, 128)
+# and (4, 4, 128): four z chunks; (3, 5, 130): one chunk, float units
+RING_SHAPES = [(4, 64, 128), (24, 4, 128), (4, 4, 128), (3, 5, 130)]
+
+
+@pytest.mark.parametrize("nslots,prefer_nc", [(2, 0), (3, 0), (4, 0), (2, 8)])
+@pytest.mark.parametrize("shape", RING_SHAPES)
+@pytest.mark.parametrize("mesh_shape", [(4,), (1, 4), (2, 2)])
+def test_ring_exchange_kernel_matches_plain(dev, mesh_shape, shape, nslots,
+                                            prefer_nc):
+    """ring_exchange on every sharded axis of a mesh of virtual shards ==
+    plain_ring_exchange and the ring shift itself, bit for bit, three
+    launches back to back, every counter drained after each."""
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    for axis in (0, 1):
+        if mesh.counts(3)[axis] == 1:
+            continue
+        nxt, prv = _ring(mesh, axis)
+        hi = [_pieces(shape, dev, 900 + i) for i in range(4)]
+        lo = [_pieces(shape, dev, 950 + i) for i in range(4)]
+        call, meta = remote.build_ring_exchange_call(
+            shape, torch.float32, nslots=nslots, prefer_nc=prefer_nc,
+            device=dev)
+        assert (meta["chunk_axis"], meta["nchunks"]) == remote.pick_chunks(
+            shape, 4, nslots, prefer_nc)
+        plain_state = remote.RingState(meta, 4, "cpu", torch.float32)
+        ref = remote.plain_ring_exchange([h.cpu() for h in hi],
+                                         [x.cpu() for x in lo], nxt, prv,
+                                         meta, plain_state)
+        key = f"ring_exchange[{'x'.join(map(str, shape))}]"
+        for _ in range(3):
+            remote.launches.clear()
+            got = call(hi, lo, nxt, prv)
+            torch.cuda.synchronize()
+            assert dict(remote.launches) == {key: 1}
+            call.state.check_drained(meta)
+            for i in range(4):
+                assert torch.equal(got[0][i].cpu(), ref[0][i])
+                assert torch.equal(got[1][i].cpu(), ref[1][i])
+                assert torch.equal(got[0][i], hi[prv[i]])
+                assert torch.equal(got[1][i], lo[nxt[i]])
+
+
+def test_ring_exchange_refuses_bf16_and_unknown_rings(dev):
+    shape = (4, 64, 128)
+    with pytest.raises(NotImplementedError, match="B1/B3"):
+        remote.build_ring_exchange_call(shape, torch.bfloat16, device=dev)
+    call, _ = remote.build_ring_exchange_call(shape, torch.float32,
+                                              device=dev)
+    slabs = [_pieces(shape, dev, i) for i in range(2)]
+    with pytest.raises(TypeError, match="B1/B3"):
+        call([s.to(torch.bfloat16) for s in slabs],
+             [s.to(torch.bfloat16) for s in slabs], [1, 0], [1, 0])
+    with pytest.raises(ValueError, match="inverse permutations"):
+        call(slabs, slabs, [0, 0], [1, 0])
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4), (4,)])
+@pytest.mark.parametrize("name,k", [("heat3d", 4), ("wave3d", 4),
+                                    ("advect3d", 4), ("grayscott3d", 4),
+                                    ("sor3d", 2)])
+def test_rdma_sharded_step_matches_ppermute(dev, name, k, mesh_shape,
+                                            overlap):
+    """make_sharded_fused_step(kind="stream", exchange="rdma") == the same
+    step with the in-process exchange, bit for bit, two calls; the ring
+    kernel carried every sharded axis's exchange."""
+    st = port.make_stencil(name)
+    shape = (48, 48, 40)
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(_fields(st, shape, dev, 41), mesh, 3)
+    outs = []
+    for exchange in ("ppermute", "rdma"):
+        step = make_sharded_fused_step(st, mesh, shape, k, kind="stream",
+                                       overlap=overlap, exchange=exchange,
+                                       device=dev)
+        assert step._overlap_active == overlap
+        remote.launches.clear()
+        f = fields
+        for _ in range(2):
+            f = step(f)
+        outs.append(gather_fields(f))
+        torch.cuda.synchronize()
+        if exchange == "rdma":
+            assert step._rdma_backend == "cuda-ring"
+            assert sum(remote.launches.values()) > 0
+        else:
+            assert not remote.launches
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)

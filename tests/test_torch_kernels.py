@@ -179,7 +179,7 @@ def test_build_paths_and_flags():
     """Sources are compiled for sm_90a into build/torch_kernels/, one
     library per source, named by a hash of its sources and flags."""
     assert _build.SOURCES == ("rawstep", "fused", "zchunk", "whole2d",
-                              "fullgrid", "streamfused")
+                              "fullgrid", "streamfused", "remote")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").is_file()
         p = _build._lib_path(name)

@@ -521,11 +521,17 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, monkeypatch, name, grid,
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--fuse", "4", "--fuse-kind", "stream"], NotImplementedError, "B5"),
-    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream"],
-     NotImplementedError, "B5"),
-    (["--mesh", "4", "--fuse", "4", "--fuse-kind", "stream", "--periodic"],
-     NotImplementedError, "B5"),
+    # The three B5 ids keep their names from the refusals they pinned
+    # before the streaming kernel took the two families (ROADMAP B5): the
+    # stream kind now runs, unsharded and on a (z, y) mesh, and with
+    # --periodic it declines as it does for every family.
+    pytest.param(["--fuse", "4", "--fuse-kind", "stream"], None, None,
+                 id="extra0-NotImplementedError-B5"),
+    pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream"],
+                 None, None, id="extra1-NotImplementedError-B5"),
+    pytest.param(["--mesh", "4", "--fuse", "4", "--fuse-kind", "stream",
+                  "--periodic"], ValueError, "unsupported",
+                 id="extra2-NotImplementedError-B5"),
     (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree"],
      NotImplementedError, "B4"),
     (["--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree", "--overlap"],
@@ -535,13 +541,25 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, monkeypatch, name, grid,
 @pytest.mark.parametrize("name", ["advect3d", "grayscott3d"])
 def test_unported_kinds_raise_naming_roadmap(monkeypatch, name, extra, exc,
                                              match):
-    """The pad-free and stream kinds of the two families raise by name;
-    they never run the padded kind or another family's kernel instead."""
+    """The pad-free kinds of the two families raise by name (B4), as does
+    bfloat16; they never run the padded kind or another family's kernel
+    instead.  Their stream kind runs (B5) and matches the plain run at
+    atol 1e-4, frame exact."""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     tfused.launches.clear()
-    with pytest.raises(exc, match=match):
-        tcli.main(["--stencil", name, "--grid", "32,32,128", "--iters", "4",
-                   "--device", "cpu", *extra])
+    args = ["--stencil", name, "--grid", "32,32,128", "--iters", "4",
+            "--device", "cpu"]
+    if exc is None:
+        got, _ = tcli.run(tcli.config_from_args(args + extra))
+        if tstepper.is_sharded(got):
+            got = tstepper.gather_fields(got)
+        ref, _ = tcli.run(tcli.config_from_args(args + ["--compute",
+                                                        "jnp"]))
+        _assert_fields([g.numpy() for g in got], [r.numpy() for r in ref],
+                       1, 1e-4)
+    else:
+        with pytest.raises(exc, match=match):
+            tcli.main(args + extra)
     assert not tfused.launches
 
 
@@ -577,6 +595,10 @@ def test_fuse_8_grayscott3d_exceeds_shared_memory():
 
 
 def test_slab_and_stream_builders_refuse_the_new_families():
+    """K6 and K9 still refuse the two families by name (B4); the
+    streaming kernel takes them (B5): build_stream_* build, decline
+    ``periodic`` as for every family, and its wrapper equals k plain
+    steps on the CPU."""
     gs, adv = port.make_stencil("grayscott3d"), port.make_stencil("advect3d")
     for st in (gs, adv):
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
@@ -585,16 +607,21 @@ def test_slab_and_stream_builders_refuse_the_new_families():
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
             tfused.build_yzslab_padfree_call(st, (16, 16, 128),
                                              (32, 32, 128), 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            tstream.make_stream_fused_step(st, (16, 16, 128), 4)
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            tstream.build_stream_sharded_call(st, (8, 16, 128),
-                                              (32, 16, 128), 4, periodic=True)
-        core = tuple(torch.zeros(8, 16, 128) for _ in range(st.num_fields))
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            tstream.stream_step(core, st, 4)
+        assert tstream.stream_supported(st) and tstream.fits(st, 4)
+        assert tstream.make_stream_fused_step(st, (16, 16, 128), 4)
+        assert tstream.build_stream_sharded_call(
+            st, (8, 16, 128), (32, 16, 128), 4, periodic=True) is None
+        assert tstream.build_stream_sharded_call(
+            st, (8, 16, 128), (32, 16, 128), 4) is not None
+        core = tuple(torch.rand(8, 16, 128) for _ in range(st.num_fields))
+        for a, b in zip(tstream.stream_step(core, st, 4),
+                        tfused.plain_steps(core, st, 4)):
+            assert torch.equal(a, b)
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
             tfused.fused_zslab(core, core, core, st, 4, 32, 8)
+    # Gray-Scott's rings for u and v at every level: 153,408 bytes at k = 4
+    assert tstream.smem_bytes(gs, 4) == 2 * tstream.smem_bytes(adv, 4) \
+        == 153408
     # the families the streaming kernel has stay admitted; 2D are not 3D
     assert tstream.stream_supported(port.make_stencil("wave3d"))
     assert not tstream.stream_supported(port.make_stencil("heat2d"))

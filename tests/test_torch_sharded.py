@@ -269,17 +269,20 @@ def test_sharded_fused_unsupported_configs():
         st, _mesh((2, 2)), (16, 16, 128), 3) is None  # 2*k*halo % 8
     assert tstepper.make_sharded_fused_step(
         st, _mesh((3,)), (16, 16, 128), 4) is None  # not divisible
-    # --overlap, the 2-axis padfree kind and the stream kind run now
-    # (tests/test_torch_twoaxis.py, tests/test_torch_stream.py); beside
-    # them the unported modes still raise by name
+    # --overlap, the 2-axis padfree kind, the stream kind and its rdma
+    # exchange run now (tests/test_torch_twoaxis.py, test_torch_stream.py,
+    # test_torch_rdma.py); beside them the unported modes still raise by
+    # name, and rdma off the stream kind raises the TPU package's error
     for kw, item in (({"kind": "stream", "pipeline": True}, "A5"),
                      ({"kind": "stream", "overlap": True,
                        "pipeline": True}, "A5"),
-                     ({"pipeline": True}, "A5"), ({"exchange": "rdma"}, "B7"),
-                     ({"ensemble": 2}, "A7")):
+                     ({"pipeline": True}, "A5"), ({"ensemble": 2}, "A7")):
         with pytest.raises(NotImplementedError, match=item):
             tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
                                              (16, 16, 128), 4, **kw)
+    with pytest.raises(ValueError, match="streaming kernel family"):
+        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128), 4,
+                                         exchange="rdma")
     with pytest.raises(NotImplementedError, match="A5"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
                                          4, kind="padfree", pipeline=True)

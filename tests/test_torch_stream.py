@@ -249,8 +249,9 @@ def test_sharded_stream_step_matches_jax_and_unsharded(name, k, mesh_shape):
 
 
 def test_sharded_stream_refusals():
-    """Guard-frame only (None for periodic, as in JAX); pipeline and the
-    remote-DMA exchange still raise by name beside stream."""
+    """Guard-frame only (None for periodic, as in JAX); pipeline still
+    raises by name beside stream; the rdma exchange rides the stream kind
+    (tests/test_torch_rdma.py) and raises the TPU package's error off it."""
     st = port.make_stencil("heat3d")
     for shape in ((2,), (2, 2)):
         assert tstepper.make_sharded_fused_step(
@@ -260,10 +261,15 @@ def test_sharded_stream_refusals():
         assert jstepper.make_sharded_fused_step(
             jmake_stencil("heat3d"), jm, MESH_GRID, 4, interpret=True,
             kind="stream", periodic=True) is None
-    for kw, item in (({"pipeline": True}, "A5"), ({"exchange": "rdma"}, "B7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
-                                             kind="stream", **kw)
+    with pytest.raises(NotImplementedError, match="A5"):
+        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
+                                         kind="stream", pipeline=True)
+    step = tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
+                                            kind="stream", exchange="rdma")
+    assert step._exchange == "rdma" and step._rdma_backend == "plain-ring"
+    with pytest.raises(ValueError, match="streaming kernel family"):
+        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
+                                         exchange="rdma")
 
 
 # ---- both CLIs ---------------------------------------------------------------

@@ -59,7 +59,14 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      of z (4), y (1x4) and 2x2 meshes, at the main path's z slab, y slab
      and corner sites and small slabs cut into (0, 4) and (0, 1) chunks,
      ring depths 2, 3, 4 and a preferred chunk count 8, three launches back
-     to back with the drained counters read after each.  Tolerances:
+     to back with the drained counters read after each.  bfloat16 kinds,
+     each bit-equal to its plain version on bfloat16 tensors: K1's four
+     tap sets (advection with both Courant signs), K2 and
+     raw_step_grayscott at (66, 70, 130) and 512^3, two steps; K10 RAW at
+     (68, 76, 130) and 512^3, ZSLAB on one shard of 1024^3 --mesh 4 and
+     YZSLAB on one of 1024^3 --mesh 2,2, every family; the ring exchange
+     at the f32 sites, config 5's (4, 4096, 4096) z-slab site and a ragged
+     one (2-byte units).  Tolerances:
      raw step atol = 32 eps
      max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
@@ -115,7 +122,8 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      --fuse 4 (K3 sharded, both Gray-Scott fields exchanged), --fuse 4
      --overlap (the shells) and --fuse 4 --fuse-kind stream with and
      without --exchange rdma (against the unsharded stream and jnp runs,
-     bit-equal to each other); at 16384^2, 96 iterations, advect2d
+     bit-equal to each other) and --mesh 4 --fuse 4 --fuse-kind stream
+     (K10's z-slab kind of the two families); at 16384^2, 96 iterations, advect2d
      (--param cx=-0.4) and grayscott2d with --compute jnp and --fuse 8
      (K8), and grayscott2d --mesh 4 --fuse 8 with and without --overlap,
      each against the unsharded runs as above.  Red-black SOR: sor3d at
@@ -124,6 +132,22 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      stream (K10), and --mesh 4 padfree (K6) and stream; sor2d at 16384^2,
      96 iterations, jnp, --fuse 8 and --mesh 4 --fuse 8 with and without
      --overlap, each against its unsharded same-mode and plain runs;
+  5b. the bfloat16 main path (``cli.run()``): every K10 family at 512^3
+     for 8 iterations with --compute pallas (the raw kinds), the stream
+     kind unsharded, on --mesh 4 and on --mesh 2,2 --exchange rdma;
+     heat3d and wave3d at 1024^3 for 100 iterations with --compute pallas,
+     the stream kind and --mesh 2,2 stream with and without --exchange
+     rdma, beside their f32 twins' ms/step; every kernel run bit-equal to
+     the plain bf16 run of the same grid, its bf16 launch counters exact;
+  5c. BASELINE config 5: the rehearsal line of tests/test_cli.py:422-424
+     (wave3d 192x64x128 --mesh 8,1,1 --fuse 4 --fuse-kind stream --dtype
+     bfloat16 --mem-check error) on 8 virtual shards against the plain bf16
+     run at atol 1e-3; then one card's share of the full-width run, four
+     of its 64 (64, 4096, 4096) shards (--grid 256,4096,4096 --mesh 4,1,1,
+     40 iterations, --mem-check error), with and without --exchange rdma,
+     each bit-equal to the unsharded stream run, printed with its ms/step,
+     Mcells/s, the budget's estimate and the measured peak; its float32
+     twin where the budget admits it, else the refusal;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -139,7 +163,10 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      2x2, with and without the shells); and the split of
      one sharded step at 1024^3 on 2x2 into exchange/pad, kernel and
      re-pin, beside whole fused steps of each kind with and without
-     --overlap.
+     --overlap.  The bfloat16 kinds at the same shapes (bytes at 2 B a cell;
+     F.conv3d in bfloat16 beside K1 and K2, one copy_ per slab beside the
+     ring, at the 1024^3 2x2 sites and config 5's z-slab site), and K10's
+     advect3d and grayscott3d z-slab kind on a --mesh 4 shard of 512^3.
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -222,6 +249,29 @@ SOR_TOL = ("1e-3", 8, 40000)
 # advection with a negative Courant number on one axis, so both upwind
 # directions run on the main path.
 STENCIL_PARAMS = {"advect3d": {"cz": -0.25}, "advect2d": {"cx": -0.4}}
+# bfloat16: the kernels that take it (K1's four tap sets, K2,
+# raw_step_grayscott, K10 in every mode, the ring exchange) and the k of
+# each K10 family on the bf16 main path (every family at 512^3 for
+# BF16_ITERS iterations: --compute pallas, the stream kind unsharded, on
+# --mesh 4 and on --mesh 2,2 --exchange rdma, each bit-equal to the plain
+# bf16 run); heat3d and wave3d also at 1024^3 for ITERS beside their f32
+# twins of phase 5.
+BF16 = "bfloat16"
+BF16_FAMILIES = (("heat3d", 4), ("heat3d27", 4), ("heat3d4th", 2),
+                 ("wave3d", 4), ("advect3d", 4), ("grayscott3d", 4),
+                 ("sor3d", 2))
+BF16_ITERS = 8
+# BASELINE config 5 (wave3d 4096^3 bf16 on 64 chips, z-sharded, --fuse 4
+# --fuse-kind stream): the rehearsal line of tests/test_cli.py:422-424 on 8
+# virtual shards, and one card's share of the full-width run, 4 of its 64
+# (64, 4096, 4096) shards on virtual devices, with and without --exchange
+# rdma, held to the unsharded stream run; its f32 twin runs where
+# --mem-check admits it.
+CONFIG5_REHEARSAL = ("--grid", "192,64,128", "--iters", "8", "--mesh",
+                     "8,1,1", "--fuse", "4", "--fuse-kind", "stream",
+                     "--dtype", "bfloat16", "--mem-check", "error")
+CONFIG5_GRID = (256, 4096, 4096)
+CONFIG5_ITERS = 40
 
 
 def stencil_flags(stencil):
@@ -229,10 +279,12 @@ def stencil_flags(stencil):
                  for f in ("--param", f"{key}={v}"))
 
 
-def raw_key(stencil):
-    """The launch counter key of a 3D stencil's whole-step raw kernel."""
+def raw_key(stencil, dtype=None):
+    """The launch counter key of a 3D stencil's whole-step raw kernel
+    (``dtype``: the bfloat16 kind's, "raw_step_heat[heat3d,bfloat16]")."""
     return {"wave3d": "raw_step_wave", "grayscott3d": "raw_step_grayscott"
-            }.get(stencil, "raw_step_heat") + f"[{stencil}]"
+            }.get(stencil, "raw_step_heat") + (
+                f"[{stencil},{dtype}]" if dtype else f"[{stencil}]")
 EPS32 = 2.0 ** -23
 FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
                   "wave3d": 12, "heat2d": 7, "wave2d": 9,
@@ -349,6 +401,7 @@ def main() -> int:
     def compare(entry, got, ref, atol, frame, rtol=0.0):
         worst = 0.0
         for g, r in zip(got, ref):
+            g, r = g.float(), r.float()  # bfloat16: the difference exact
             d = (g - r).abs()
             err = float(d.max())
             bad = float((d - atol - rtol * r.abs()).max())
@@ -378,14 +431,16 @@ def main() -> int:
         return ([shifted(c, 1) for c in coords],
                 [shifted(c, -1) for c in coords])
 
-    def case_stencil(label):
+    def case_stencil(label, dtype=None):
         """The stencil of a case label: a registry name, or advection with
-        Courant numbers of both signs ("advect3d-mixed", "advect2d-mixed")."""
+        Courant numbers of both signs ("advect3d-mixed", "advect2d-mixed");
+        in ``dtype`` where given."""
+        kw = {"dtype": dtype} if dtype else {}
         if label == "advect3d-mixed":
-            return make_stencil("advect3d", cx=-0.3, cy=0.2, cz=-0.25)
+            return make_stencil("advect3d", cx=-0.3, cy=0.2, cz=-0.25, **kw)
         if label == "advect2d-mixed":
-            return make_stencil("advect2d", cx=-0.4, cy=0.2)
-        return make_stencil(label)
+            return make_stencil("advect2d", cx=-0.4, cy=0.2, **kw)
+        return make_stencil(label, **kw)
 
     cases = []
     for shape in ((128, 128, 256), (66, 70, 130)):
@@ -807,6 +862,106 @@ def main() -> int:
                             "atol": 0.0})
             del ref, got, call
         del hi, lo
+    # bfloat16 kinds, bit for bit against their plain versions on bfloat16
+    # tensors: K1 (four tap sets, advection with both Courant signs), K2 and
+    # raw_step_grayscott at a ragged shape and 512^3 (two steps); K10 RAW at
+    # a ragged shape and 512^3, ZSLAB on one shard of 1024^3 --mesh 4 and
+    # YZSLAB on one of 1024^3 --mesh 2,2 (random cores, slabs and corners),
+    # every family; the ring exchange at the f32 sites, config 5's z-slab
+    # site and a ragged (2-byte unit) one, its counters drained after every
+    # launch
+    bf16 = torch.bfloat16
+
+    def rand16(shape):
+        return rand(shape).to(bf16)
+
+    bcases = []
+    for label in ("heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
+                  "advect3d-mixed", "grayscott3d"):
+        bcases += [("raw", label, shape, 1)
+                   for shape in ((66, 70, 130), MAIN)]
+    for name, k in BF16_FAMILIES:
+        bcases += [("stream", name, shape, k)
+                   for shape in ((68, 76, 130), MAIN)]
+        bcases += [("stream_zslab", name, BIG, k),
+                   ("stream_yzslab", name, BIG, k)]
+    bcases.append(("stream", "advect3d-mixed", MAIN, 4))
+    for path, label, shape, k in bcases:
+        st = case_stencil(label, BF16)
+        name = st.name
+        m = k_step_margin(st, k)
+        nf = st.num_fields
+        frame = None
+        if path == "stream_zslab":
+            Lz, Y, X = shape[0] // 4, shape[1], shape[2]
+            core = tuple(rand16((Lz, Y, X)) for _ in range(nf))
+            lo = tuple(rand16((m, Y, X)) for _ in range(nf))
+            hi = tuple(rand16((m, Y, X)) for _ in range(nf))
+            got = streamfused.stream_zslab(core, lo, hi, st, k, shape[0], Lz)
+            ref = fused.plain_zslab(core, lo, hi, st, k, shape[0], Lz)
+            del core, lo, hi
+        elif path == "stream_yzslab":
+            Lz, Ly, X = shape[0] // 2, shape[1] // 2, shape[2]
+            yz_args = (tuple(rand16((Lz, Ly, X)) for _ in range(nf)),
+                       *(tuple(rand16(s_) for _ in range(nf))
+                         for s_ in ((m, Ly, X), (m, Ly, X), (Lz, m, X),
+                                    (Lz, m, X))),
+                       [tuple(rand16((m, m, X)) for _ in range(nf))
+                        for _ in range(4)], st, k, shape, (Lz, 0))
+            got = streamfused.stream_yzslab(*yz_args)
+            ref = fused.plain_yzslab(*yz_args)
+            del yz_args
+        else:
+            frame = frame_of(shape, st.halo)
+            fields = tuple(rand16(shape) for _ in range(nf))
+            if path == "raw":
+                step = rawstep.make_raw_step(st, shape, device=dev)
+                got = step(step(fields))
+                ref = fused.plain_steps(fields, st, 2)
+            else:
+                got = streamfused.make_stream_fused_step(
+                    st, shape, k, device=dev)(fields)
+                ref = fused.plain_steps(fields, st, k)
+            del fields
+        torch.cuda.synchronize()
+        wrapper = {"raw": raw_key(name).partition("[")[0]}.get(
+            path, "stream_step" if path == "stream" else path)
+        entry = f"{wrapper}<{name},{BF16}>"
+        err = compare(entry, got, ref, 0.0, frame)
+        checked.append({"kernel": entry, "label": label,
+                        "shape": list(shape), "k": k, "dtype": BF16,
+                        "max_abs_err": err, "atol": 0.0})
+        del got, ref
+    for mshape, axis, shape in sites + [((4,), 0, (4, 4096, 4096)),
+                                        ((4,), 0, (4, 7, 129))]:
+        mesh = virtual_mesh(mshape)
+        nxt, prv = ring_of(mesh, axis)
+        hi = [rand16(shape) for _ in range(4)]
+        lo = [rand16(shape) for _ in range(4)]
+        entry = f"ring_exchange<{'x'.join(map(str, shape))},{BF16}>"
+        for nslots, prefer_nc in ((2, 0), (3, 0), (2, 8)):
+            call, meta = remote.build_ring_exchange_call(
+                shape, bf16, nslots=nslots, prefer_nc=prefer_nc, device=dev)
+            ref = remote.plain_ring_exchange(
+                hi, lo, nxt, prv, meta, remote.RingState(meta, 4, dev, bf16))
+            for _ in range(3):
+                remote.launches.clear()
+                got = call(hi, lo, nxt, prv)
+                torch.cuda.synchronize()
+                if sum(remote.launches.values()) != 1:
+                    fail(f"{entry}: launches {dict(remote.launches)}")
+                call.state.check_drained(meta)
+                err = compare(entry, got[0] + got[1], ref[0] + ref[1], 0.0,
+                              None)
+            checked.append({"kernel": entry, "shape": list(shape),
+                            "mesh": mshape, "axis": axis, "nslots": nslots,
+                            "prefer_nc": prefer_nc, "dtype": BF16,
+                            "chunks": [meta["chunk_axis"], meta["nchunks"]],
+                            "blocks": call.state.blocks, "launches": 3,
+                            "drained": True, "max_abs_err": err,
+                            "atol": 0.0})
+            del ref, got, call
+        del hi, lo
     for c in counters:
         c.clear()
     emit({"phase": "kernels", "ok": True, "seconds": took(),
@@ -1050,7 +1205,7 @@ def main() -> int:
                 rb = r[sl]
                 if not bool(torch.isfinite(blk).all()):
                     fail(f"{what}: non-finite values")
-                err = max(err, float((blk - rb).abs().max()))
+                err = max(err, float((blk.float() - rb.float()).abs().max()))
                 if frame_w:
                     fm = driver.frame_mask(
                         local, sf.global_shape,
@@ -1140,11 +1295,11 @@ def main() -> int:
                  ("rdma_z", s4 + rdma, {szslab: 4 * passes, **ring4})]
         modes = [md for md in modes if md[0] in overlapped or (
             md[0] not in TWIN
-            and (big or md[0] not in ("padfree", "stream_z")))]
+            and (big or new_family or md[0] not in ("padfree", "stream_z")))]
         if new_family:  # no pad-free kind (B4)
             modes = [md for md in modes
                      if md[0] in ("jnp", "fuse", "fuse_overlap", "stream_yz",
-                                  "rdma_yz")]
+                                  "rdma_yz", "stream_z")]
         if stencil in NO_COMPUTE_FN:  # no compute_fn kernel: no pallas
             modes = [md for md in modes if md[0] != "pallas"]
         kept = {}
@@ -1217,7 +1372,8 @@ def main() -> int:
     # 2D at 16384^2, 96 iterations: unsharded references, then --mesh 4 (a
     # row split; life also --mesh 2, the reference's two-rank program)
     def err_whole(got, ref):
-        return max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        return max(float((g.float() - r.float()).abs().max())
+                   for g, r in zip(got, ref))
 
     for stencil, init in (("life", "random"), ("heat2d", "pulse")):
         k = FUSE2D
@@ -1358,6 +1514,177 @@ def main() -> int:
           "launches": dict(main_launches)})
     torch.cuda.empty_cache()
 
+    # ---- 5b. the bfloat16 main path -----------------------------------------
+    # Every kernel that takes bfloat16, through cli.run(): at 512^3 for
+    # BF16_ITERS iterations every K10 family with --compute pallas (the raw
+    # kinds), the stream kind unsharded, on --mesh 4 and on --mesh 2,2
+    # --exchange rdma; heat3d and wave3d at 1024^3 for ITERS with --compute
+    # pallas, the stream kind and --mesh 2,2 stream with and without
+    # --exchange rdma, beside their f32 twins of phase 5.  Every kernel run
+    # is held bit for bit (max |d| = 0) to the plain bf16 run.
+    bf16_results = []
+    dt16 = ("--dtype", BF16)
+
+    def ring_sites(grid, mshape, m, nf, passes):
+        """The ring launches of one bf16 run: per field and pass, on 2x2
+        the z and y slab and two corner launches, on --mesh 4 the z slab."""
+        X = grid[2]
+        if mshape == "4":
+            return {f"ring_exchange[{m}x{grid[1]}x{X},{BF16}]": nf * passes}
+        Lz, Ly = grid[0] // 2, grid[1] // 2
+        return {f"ring_exchange[{m}x{Ly}x{X},{BF16}]": nf * passes,
+                f"ring_exchange[{Lz}x{m}x{X},{BF16}]": nf * passes,
+                f"ring_exchange[{m}x{m}x{X},{BF16}]": 2 * nf * passes}
+
+    def bf16_modes(name, k, grid, iters, big):
+        st = make_stencil(name, dtype=BF16)
+        m, nf, passes = k_step_margin(st, k), st.num_fields, iters // k
+
+        def key(w):
+            return f"{w}[{name},{BF16}]"
+
+        stream = ("--fuse", str(k), "--fuse-kind", "stream")
+        rdma = ("--exchange", "rdma")
+        modes = [] if name == "sor3d" else [
+            ("pallas", ("--compute", "pallas"), {raw_key(name, BF16): iters})]
+        modes.append(("stream", stream, {key("stream_step"): passes}))
+        if big:
+            s22 = ("--mesh", "2,2") + stream
+            modes += [("stream_yz", s22, {key("stream_yzslab"): 4 * passes}),
+                      ("rdma_yz", s22 + rdma,
+                       {key("stream_yzslab"): 4 * passes,
+                        **ring_sites(grid, "2,2", m, nf, passes)})]
+        else:
+            modes += [("stream_z", ("--mesh", "4") + stream,
+                       {key("stream_zslab"): 4 * passes}),
+                      ("rdma_yz", ("--mesh", "2,2") + stream + rdma,
+                       {key("stream_yzslab"): 4 * passes,
+                        **ring_sites(grid, "2,2", m, nf, passes)})]
+        return st, modes
+
+    for name, k, grid, iters in (
+            [(n, k, MAIN, BF16_ITERS) for n, k in BF16_FAMILIES]
+            + [("heat3d", 4, BIG, ITERS), ("wave3d", 4, BIG, ITERS)]):
+        big = grid == BIG
+        st, modes = bf16_modes(name, k, grid, iters, big)
+        ref, r = run_cli(name, grid, iters, "--compute", "jnp", *dt16)
+        bf16_results.append(r)
+        for label, flags, want in modes:
+            got, r = run_cli(name, grid, iters, *flags, *dt16)
+            if r["launches"] != want:
+                fail(f"{name} bf16 {label}: launches {r['launches']} != "
+                     f"{want}")
+            err = (block_err(got, ref, st.halo, f"{name} bf16 {label}")
+                   if stepper.is_sharded(got) else err_whole(got, ref))
+            check(r, err, 0.0, "plain bf16 run")
+            if big:  # the f32 twin of phase 5: same grid, flags, iters
+                twin = [t for t in mesh_results if t["stencil"] == name
+                        and t["grid"] == list(grid)
+                        and t["flags"] == list(flags)]
+                r["f32_twin_ms_per_step"] = (twin[0]["ms_per_step"]
+                                             if twin else None)
+            bf16_results.append(r)
+            del got
+        del ref
+        torch.cuda.empty_cache()
+    emit({"phase": "bf16_main_path", "ok": True, "seconds": took(),
+          "note": "every kernel run bit-equal to the plain bf16 run",
+          "runs": bf16_results})
+
+    # ---- 5c. BASELINE config 5 ---------------------------------------------
+    from mpi_cuda_process_tpu_torch.utils import budget
+
+    c5 = {}
+    # the rehearsal line on 8 virtual shards against the plain bf16 run
+    os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "8"
+    rgrid = (192, 64, 128)
+    flags = CONFIG5_REHEARSAL[4:]
+    got, r = run_cli("wave3d", rgrid, 8, *flags, init="auto")
+    if r["launches"] != {f"stream_zslab[wave3d,{BF16}]": 16}:
+        fail(f"config 5 rehearsal: launches {r['launches']}")
+    ref, _ = run_cli("wave3d", rgrid, 8, *dt16, init="auto")
+    check(r, block_err(got, ref, 1, "config 5 rehearsal"), 1e-3,
+          "plain bf16 run")
+    c5["rehearsal"] = r
+    del got, ref
+    # one card's share of the full-width run: 4 of 64 shards, 1.07e9
+    # cells each, against the unsharded stream run of the same grid
+    os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
+    grid5 = CONFIG5_GRID
+    stream5 = ("--fuse", "4", "--fuse-kind", "stream")
+    st16 = make_stencil("wave3d", dtype=BF16)
+
+    def measured(fn):
+        """(result, this run's peak bytes above what was held before)."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - held
+
+    torch.cuda.empty_cache()
+    (whole, r), peak = measured(lambda: run_cli(
+        "wave3d", grid5, CONFIG5_ITERS, *stream5, *dt16, init="auto"))
+    r.update(peak_bytes=peak, estimate_bytes=budget.estimate_run_bytes(
+        st16, grid5, fuse=4, fuse_kind="stream")[0])
+    c5["unsharded"] = r
+    for exchange in ("ppermute", "rdma"):
+        lines.clear()
+        (got, r), peak = measured(lambda: run_cli(
+            "wave3d", grid5, CONFIG5_ITERS, "--mesh", "4,1,1", *stream5,
+            *dt16, "--mem-check", "error", "--exchange", exchange,
+            init="auto"))
+        est, parts = budget.estimate_run_bytes(
+            st16, grid5, mesh=(4, 1, 1), fuse=4, fuse_kind="stream",
+            exchange=exchange, shards_per_device=4)
+        logged = [ln for ln in lines if ln.startswith("memory budget")]
+        if not logged:
+            fail(f"config 5 {exchange}: no memory budget line logged")
+        passes = CONFIG5_ITERS // 4
+        want = {f"stream_zslab[wave3d,{BF16}]": 4 * passes}
+        if exchange == "rdma":
+            want[f"ring_exchange[4x{grid5[1]}x{grid5[2]},{BF16}]"] = \
+                2 * passes
+        if r["launches"] != want:
+            fail(f"config 5 {exchange}: launches {r['launches']} != {want}")
+        check(r, block_err(got, whole, 1, f"config 5 {exchange}"), 0.0,
+              "unsharded stream run")
+        r.update(peak_bytes=peak, estimate_bytes=est, budget_log=logged[-1],
+                 budget_parts=[[lb, b] for lb, b in parts])
+        c5[exchange] = r
+        del got
+    c5["rdma_bit_equal_to_ppermute"] = True  # both equal the unsharded run
+    del whole
+    torch.cuda.empty_cache()
+    # its float32 twin, where the budget admits it on this card
+    st32 = make_stencil("wave3d")
+    try:
+        budget.check_budget(st32, grid5, mesh=(4, 1, 1), fuse=4,
+                            fuse_kind="stream", shards_per_device=4)
+    except ValueError as refusal:
+        c5["float32"] = {"refused_by_mem_check": str(refusal)}
+    else:
+        (got, r), peak = measured(lambda: run_cli(
+            "wave3d", grid5, CONFIG5_ITERS, "--mesh", "4,1,1", *stream5,
+            "--mem-check", "error", init="auto"))
+        r.update(peak_bytes=peak, estimate_bytes=budget.estimate_run_bytes(
+            st32, grid5, mesh=(4, 1, 1), fuse=4, fuse_kind="stream",
+            shards_per_device=4)[0])
+        for f in got:
+            for blk in f:
+                if not bool(torch.isfinite(blk).all()):
+                    fail("config 5 float32: non-finite values")
+        c5["float32"] = r
+        del got
+    torch.cuda.empty_cache()
+    emit({"phase": "config5", "ok": True, "seconds": took(),
+          "card": smi, "hbm_bytes": budget.device_hbm_bytes(dev),
+          "note": "4 of config 5's 64 shards on one card (virtual "
+                  "devices); peak_bytes: torch.cuda.max_memory_allocated "
+                  "of the run above what was held before it",
+          **c5})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -1375,9 +1702,10 @@ def main() -> int:
         b, f = n_bytes / bw * 1e3, n_flops / flops32 * 1e3
         return (b, "bytes") if b >= f else (f, "operations")
 
-    def main_stencil(name):
+    def main_stencil(name, dtype=None):
         """The stencil with the parameters its main-path runs take."""
-        return make_stencil(name, **STENCIL_PARAMS.get(name, {}))
+        kw = {"dtype": dtype} if dtype else {}
+        return make_stencil(name, **STENCIL_PARAMS.get(name, {}), **kw)
 
     def stencil_weight(name, st):
         """(weight, pad): the update as one convolution's weight."""
@@ -1435,11 +1763,13 @@ def main() -> int:
         w[0, 0, 1, 1, 1] += 1
         return w.to(dev), 1
 
-    def library_call(name, st, fields, shape):
+    def library_call(name, st, fields, shape, atol=1e-4):
         """One F.conv3d computing the one-step update on the interior
-        (zero padding in place of the frame pin), checked against the plain
-        step's interior, as a zero-argument callable."""
+        (zero padding in place of the frame pin), in the fields' dtype,
+        checked against the plain step's interior within ``atol``, as a
+        zero-argument callable."""
         w, pad = stencil_weight(name, st)
+        w = w.to(fields[0].dtype)
         x = torch.stack(fields).reshape(1, len(fields), *shape)
 
         def call():
@@ -1448,8 +1778,8 @@ def main() -> int:
         inner = (slice(st.halo, -st.halo),) * 3
         got = call()[0, 0][inner]
         ref = driver.make_step(st, shape)(fields)[0][inner]
-        err = float((got - ref).abs().max())
-        if not err <= 1e-4:
+        err = float((got.float() - ref.float()).abs().max())
+        if not err <= atol:
             fail(f"F.conv3d yardstick for {name} disagrees with the plain "
                  f"step: max|d| {err:.3e}")
         return call
@@ -1497,14 +1827,17 @@ def main() -> int:
               ("fused_step_padded", "sor3d"): 6}
 
     def record(entry, wrapper, name, src, replaces, ms, plain_ms, moved,
-               flops, library_ms, k, shape, per_step):
+               flops, library_ms, k, shape, per_step, dtype=None):
+        """One kernel's line; ``dtype`` (bfloat16) names its kind, whose
+        launches are counted apart ("wrapper[name,bfloat16]")."""
         b_ms, b_by = bound(moved, flops)
+        key = f"{wrapper}[{name},{dtype}]" if dtype else f"{wrapper}[{name}]"
         kernels_out.append({
             "name": entry, "kernel": rows[wrapper][0],
             "table_row": row_of.get((wrapper, name), rows[wrapper][1]),
-            "route": "cuda",
+            "route": "cuda", "dtype": dtype or "float32",
             "source": f"{PKG}/ops/cuda/csrc/{src}", "replaces": replaces,
-            "launches": main_launches.get(f"{wrapper}[{name}]", 0),
+            "launches": main_launches.get(key, 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "steps_per_launch": k, "shape": list(shape),
@@ -1773,6 +2106,21 @@ def main() -> int:
                4 * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m)),
                FLOPS_PER_CELL[name] * k * lcells, None, k, local, 4.0 / k)
         del core, zlo, zhi, ylo, yhi, corners, yz_args
+        # K10 on one z-only shard of the 512^3 --mesh 4 run (row 17)
+        zl = (grid[0] // 4, grid[1], grid[2])
+        zcells = math.prod(zl)
+        core = tuple(rand(zl) for _ in range(nf))
+        lo = tuple(rand((m,) + zl[1:]) for _ in range(nf))
+        hi = tuple(rand((m,) + zl[1:]) for _ in range(nf))
+        ms = time_ms(lambda: streamfused.stream_zslab(core, lo, hi, st, k,
+                                                      grid[0], 0), 10)
+        plain_ms = time_ms(lambda: fused.plain_zslab(core, lo, hi, st, k,
+                                                     grid[0], 0), 2)
+        record(f"stream_zslab<{name}>", "stream_zslab", name,
+               "streamfused.cu", TPU + "streamfused.py:386", ms, plain_ms,
+               4 * nf * (2 * zcells + 2 * m * zl[1] * zl[2]),
+               FLOPS_PER_CELL[name] * k * zcells, None, k, zl, 4.0 / k)
+        del core, lo, hi
         shells = fused.build_overlap_shell_calls(st, local, grid, k, (0, 1),
                                                  device=dev)
         strips = tuple(rand((4 * m, local[1] + 2 * m, local[2]))
@@ -2065,6 +2413,119 @@ def main() -> int:
                 "overlap": overlap, "unit": "ms per step (a pass / 4)",
                 "turns": [[ex, v] for ex, v in turns]})
         del fields, steps
+        torch.cuda.empty_cache()
+    # bfloat16 kinds at their f32 twins' shapes: K1's four tap sets, K2
+    # and raw_step_grayscott at 512^3 (one F.conv3d in bfloat16 beside K1
+    # and K2, checked against the plain step at the bf16 tolerance); K10
+    # RAW at 512^3, ZSLAB on a --mesh 4 shard and YZSLAB on a 2x2 shard of
+    # 1024^3, every family; the ring at the 1024^3 2x2 sites and config
+    # 5's z-slab site beside one copy_ per slab.  Bytes at 2 B a cell; the
+    # arithmetic is float32 (the flop bound is the float32 rate).
+    bf16 = torch.bfloat16
+
+    def rand16(shape):
+        return rand(shape).to(bf16)
+
+    raw_row = {"raw_step_heat": "rawstep.py:164",
+               "raw_step_wave": "rawstep.py:172",
+               "raw_step_grayscott": "rawstep.py:200"}
+    for name in ("heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
+                 "grayscott3d"):
+        st = main_stencil(name, BF16)
+        fields = tuple(rand16(MAIN) for _ in range(st.num_fields))
+        kern = rawstep.make_raw_step(st, MAIN, device=dev)
+        plain = driver.make_step(st, MAIN)
+        wrapper = raw_key(name).partition("[")[0]
+        ms = time_ms(lambda: kern(fields), 20)
+        plain_ms = time_ms(lambda: plain(fields), 3)
+        library_ms = None
+        if wrapper != "raw_step_grayscott":
+            library_ms = time_ms(library_call(
+                name, st, fields, MAIN, atol=32 * 2.0 ** -7 * max(
+                    float(fields[0].float().abs().max()), 1.0)), 20)
+        replaces = ("rawstep.py:182" if name == "advect3d"
+                    else raw_row[wrapper])
+        moved = (st.num_fields + (2 if name == "grayscott3d" else 1)
+                 ) * 2 * cells
+        record(f"{wrapper}<{name},{BF16}>", wrapper, name, "rawstep.cu",
+               TPU + replaces, ms, plain_ms, moved,
+               FLOPS_PER_CELL[name] * cells, library_ms, 1, MAIN, 1.0,
+               dtype=BF16)
+        del fields
+    for name, k in BF16_FAMILIES:
+        st = main_stencil(name, BF16)
+        nf, m = st.num_fields, k_step_margin(st, k)
+        flops = FLOPS_PER_CELL[name] * k
+        fields = tuple(rand16(MAIN) for _ in range(nf))
+        kern = streamfused.make_stream_fused_step(st, MAIN, k, device=dev)
+        ms = time_ms(lambda: kern(fields), 10)
+        plain_ms = time_ms(lambda: fused.plain_steps(fields, st, k), 1)
+        record(f"stream_step<{name},{BF16}>", "stream_step", name,
+               "streamfused.cu", TPU + "streamfused.py:377", ms, plain_ms,
+               2 * nf * 2 * cells, flops * cells, None, k, MAIN, 1.0 / k,
+               dtype=BF16)
+        del fields
+        zl = (BIG[0] // 4, BIG[1], BIG[2])
+        zcells = math.prod(zl)
+        core = tuple(rand16(zl) for _ in range(nf))
+        lo = tuple(rand16((m,) + zl[1:]) for _ in range(nf))
+        hi = tuple(rand16((m,) + zl[1:]) for _ in range(nf))
+        ms = time_ms(lambda: streamfused.stream_zslab(core, lo, hi, st, k,
+                                                      BIG[0], 0), 10)
+        plain_ms = time_ms(lambda: fused.plain_zslab(core, lo, hi, st, k,
+                                                     BIG[0], 0), 1)
+        record(f"stream_zslab<{name},{BF16}>", "stream_zslab", name,
+               "streamfused.cu", TPU + "streamfused.py:386", ms, plain_ms,
+               2 * nf * (2 * zcells + 2 * m * zl[1] * zl[2]),
+               flops * zcells, None, k, zl, 4.0 / k, dtype=BF16)
+        del core, lo, hi
+        Lz, Ly, X = local = (BIG[0] // 2, BIG[1] // 2, BIG[2])
+        lcells = math.prod(local)
+        yz_args = (tuple(rand16(local) for _ in range(nf)),
+                   *(tuple(rand16(s_) for _ in range(nf))
+                     for s_ in ((m, Ly, X), (m, Ly, X), (Lz, m, X),
+                                (Lz, m, X))),
+                   [tuple(rand16((m, m, X)) for _ in range(nf))
+                    for _ in range(4)], st, k, BIG, (0, 0))
+        ms = time_ms(lambda: streamfused.stream_yzslab(*yz_args), 10)
+        plain_ms = time_ms(lambda: fused.plain_yzslab(*yz_args), 1)
+        record(f"stream_yzslab<{name},{BF16}>", "stream_yzslab", name,
+               "streamfused.cu", TPU + "streamfused.py:399", ms, plain_ms,
+               2 * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m)),
+               flops * lcells, None, k, local, 4.0 / k, dtype=BF16)
+        del yz_args
+        torch.cuda.empty_cache()
+    for mshape, axis, shape in (((2, 2), 0, (4, 512, 1024)),
+                                ((2, 2), 1, (512, 4, 1024)),
+                                ((2, 2), 1, (4, 4, 1024)),
+                                ((4,), 0, (4,) + CONFIG5_GRID[1:])):
+        mesh = virtual_mesh(mshape)
+        nxt, prv = ring_of(mesh, axis)
+        hi = [rand16(shape) for _ in range(4)]
+        lo = [rand16(shape) for _ in range(4)]
+        call, meta = remote.build_ring_exchange_call(shape, bf16, device=dev)
+        ms = time_ms(lambda: call(hi, lo, nxt, prv), 50)
+        call.state.check_drained(meta)
+        plain_state = remote.RingState(meta, 4, dev, bf16)
+        plain_ms = time_ms(lambda: remote.plain_ring_exchange(
+            hi, lo, nxt, prv, meta, plain_state), 3)
+        outs = [torch.empty_like(t) for t in hi + lo]
+
+        def copies(hi=hi, lo=lo, outs=outs, nxt=nxt, prv=prv):
+            for i in range(4):
+                outs[i].copy_(hi[prv[i]])
+                outs[4 + i].copy_(lo[nxt[i]])
+
+        library_ms = time_ms(copies, 50)
+        name = "x".join(map(str, shape))
+        record(f"ring_exchange<{name},{BF16}>", "ring_exchange", name,
+               "remote.cu", TPU + "remote.py:136", ms, plain_ms,
+               2 * 4 * 2 * meta["slab_bytes"], 0, library_ms, 4, shape,
+               None, dtype=BF16)
+        kernels_out[-1].update(
+            mesh=list(mshape), chunks=[meta["chunk_axis"], meta["nchunks"]],
+            nslots=meta["nslots"], blocks=call.state.blocks)
+        del hi, lo, outs, call
         torch.cuda.empty_cache()
     # CLI ms/step of every --exchange rdma run beside its ppermute twin
     rdma_vs_ppermute = []

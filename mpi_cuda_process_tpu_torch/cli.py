@@ -17,6 +17,9 @@
         --grid 512,512,512 --iters 40 --fuse 4
     python -m mpi_cuda_process_tpu_torch --stencil sor3d --grid 128,128,128 \
         --iters 4000 --fuse 4 --tol 1e-3 --tol-check-every 100
+    python -m mpi_cuda_process_tpu_torch --stencil wave3d \
+        --grid 256,4096,4096 --iters 40 --mesh 4,1,1 --fuse 4 \
+        --fuse-kind stream --dtype bfloat16 --mem-check error
 
 The flags keep the TPU package's names and values, so one command line runs
 on both.  ``--compute pallas`` selects the hand-written CUDA raw-step kernel
@@ -36,6 +39,14 @@ Red-black SOR (sor2d, sor3d) has no raw-step or compute_fn kernel, so
 ``--compute pallas`` raises for it as in the TPU package; it runs plain or
 through every ``--fuse`` kind, and ``--tol`` stops a run once its residual
 falls below the tolerance.
+``--dtype bfloat16`` runs on the raw-step kernels (unsharded ``--compute
+pallas``), on the streaming kernel (``--fuse-kind stream``, unsharded or
+on a z/y mesh, with ``--exchange rdma``) and on the plain path; every other
+kernel path raises naming the ROADMAP item of its missing bfloat16 kind.
+``--mem-check`` (default ``error``) prices the run's device memory before
+any field is allocated and refuses with the arithmetic when it cannot fit
+the card (``utils/budget.py``; ``warn`` logs and goes on; skipped on the
+CPU).
 ``--mesh`` decomposes the grid over the visible devices
 (``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N shards on one card).
 ``--device`` (default ``cuda``) picks where the state lives; asking for
@@ -74,10 +85,21 @@ from .utils.init import init_state, init_state_sharded
 
 log = logging.getLogger("mpi_cuda_process_tpu_torch")
 
-_BF16_ITEM = "ROADMAP B1/B3 (bfloat16 raw-step and fused kernels)"
-_BF16_ITEM_2D = {
-    "pallas": "ROADMAP B2 (bfloat16 whole-grid 2D compute_fn kernel, row 14)",
-    "fuse": "ROADMAP B6 (bfloat16 2D k-step kernel, row 15)"}
+# The ROADMAP item of each kernel path whose bfloat16 kind is not ported.
+_BF16_ITEMS = {
+    "compute_fn": "ROADMAP B2 (bfloat16 compute_fn kernels K4/K5, rows "
+                  "12-13)",
+    "compute_fn_2d": "ROADMAP B2 (bfloat16 whole-grid 2D compute_fn "
+                     "kernel, row 14)",
+    "fused": "ROADMAP B3 (bfloat16 fused kernel K3, rows 5-6)",
+    "fullgrid": "ROADMAP B6 (bfloat16 2D k-step kernel, row 15)",
+}
+# The kernels that take bfloat16 refuse the other types by their own item.
+_OTHER_DTYPE_ITEMS = {
+    "raw": "ROADMAP B1 (the raw-step kernels take float32 and bfloat16)",
+    "stream": "ROADMAP B5 (the streaming kernel takes float32 and "
+              "bfloat16)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -160,6 +182,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "--fuse, --mesh and --fuse-kind stream, "
                         "guard-frame only; composes with --overlap; the "
                         "same values as ppermute")
+    p.add_argument("--mem-check", default="error",
+                   choices=["off", "warn", "error"],
+                   help="device-memory budget guard: estimate the run's "
+                        "peak bytes per card before allocating any field "
+                        "and refuse with the arithmetic (error), log and "
+                        "go on (warn) or skip (off); skipped on the CPU")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the state lives (default cuda; raises "
                         "without a card)")
@@ -177,7 +205,8 @@ def config_from_args(argv=None) -> RunConfig:
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, compute=a.compute, overlap=a.overlap, fuse=a.fuse,
         tol=a.tol, tol_check_every=a.tol_check_every,
-        fuse_kind=a.fuse_kind, exchange=a.exchange, device=a.device,
+        fuse_kind=a.fuse_kind, exchange=a.exchange, mem_check=a.mem_check,
+        device=a.device,
         params=parse_params(a.param),
     )
 
@@ -270,7 +299,7 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
     if any(v % k for v in cadences if v):
         return cfg
     st = _make_cfg_stencil(cfg)
-    if st.dtype != _kernel_dtype(st):
+    if _dtype_refusal(dataclasses.replace(cfg, fuse=k), st, False):
         return cfg
     make = (fullgrid_lib.make_fullgrid_step if st.ndim == 2
             else fused_lib.make_fused_step)
@@ -283,9 +312,68 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
 
 
 def _kernel_dtype(st) -> torch.dtype:
-    """The field type the stencil's kernels take: int32 occupancy for
-    Life, float32 for the rest."""
+    """The field type every kernel of the stencil takes: int32 occupancy
+    for Life, float32 for the rest."""
     return torch.int32 if st.name == "life" else torch.float32
+
+
+def _dtype_refusal(cfg: RunConfig, st, use_mesh: bool):
+    """None where the run's kernel path takes the stencil's dtype, else
+    what is missing: the ROADMAP item of the path's bfloat16 kind.  The
+    raw-step kernels (unsharded ``--compute pallas``) and the streaming
+    kernel (``--fuse-kind stream``, unsharded or on a z/y mesh, with the
+    ring exchange) take bfloat16; the plain path takes any dtype."""
+    if not (cfg.fuse or cfg.compute == "pallas") or \
+            st.dtype == _kernel_dtype(st):
+        return None
+    if st.ndim == 2:
+        return _BF16_ITEMS["fullgrid" if cfg.fuse else "compute_fn_2d"]
+    bf16 = st.dtype == torch.bfloat16
+    if not cfg.fuse:
+        if use_mesh or cfg.periodic:
+            return _BF16_ITEMS["compute_fn"]
+        return None if bf16 else _OTHER_DTYPE_ITEMS["raw"]
+    if use_mesh:  # the sharded kinds (stepper.bf16_item)
+        item = stepper_lib.bf16_item(
+            cfg.fuse_kind if cfg.fuse_kind in ("stream", "padfree")
+            else None, cfg.overlap)
+    else:
+        item = None if cfg.fuse_kind == "stream" else _BF16_ITEMS["fused"]
+    return item or (None if bf16 else _OTHER_DTYPE_ITEMS["stream"])
+
+
+def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
+    """The device-memory guard (``utils/budget.py``), as the TPU package's
+    ``_check_mem_budget``: on a card only, before any field is allocated,
+    priced for the path the run takes (``compute="raw"`` where the raw
+    kernel runs) and for every shard the card holds."""
+    if cfg.mem_check == "off" or torch.device(cfg.device).type != "cuda":
+        return
+    from .utils import budget
+
+    compute = cfg.compute
+    if not cfg.fuse and _raw_eligible(cfg, st.name) and \
+            rawstep.make_raw_step(st, cfg.grid) is not None:
+        compute = "raw"
+    shards = 1
+    if mesh is not None:
+        shards = max(sum(1 for d in mesh.devices if d == u)
+                     for u in mesh.unique_devices())
+    try:
+        total, _ = budget.check_budget(
+            st, cfg.grid, mesh=cfg.mesh, fuse=cfg.fuse,
+            periodic=cfg.periodic, compute=compute,
+            fuse_kind=cfg.fuse_kind, overlap=cfg.overlap,
+            exchange=cfg.exchange, shards_per_device=shards)
+    except ValueError:
+        if cfg.mem_check == "error":
+            raise
+        log.warning("device memory budget exceeded (--mem-check warn): "
+                    "proceeding anyway; expect an out-of-memory error",
+                    exc_info=True)
+    else:
+        log.info("memory budget: ~%.2f GiB per device estimated",
+                 total / 2**30)
 
 
 def _uses_mesh(cfg: RunConfig) -> bool:
@@ -383,13 +471,12 @@ def build(cfg: RunConfig):
             "with the interior update, and an unsharded run has no "
             "exchange to overlap")
     m = _make_run_mesh(cfg, device) if use_mesh else None
-    if (cfg.fuse or cfg.compute == "pallas") and \
-            st.dtype != _kernel_dtype(st):
-        item = _BF16_ITEM if st.ndim == 3 else \
-            _BF16_ITEM_2D["fuse" if cfg.fuse else "pallas"]
+    item = _dtype_refusal(cfg, st, use_mesh)
+    if item:
         raise NotImplementedError(
-            f"{stencil_lib.dtype_name(st.dtype)} on a kernel path is not "
+            f"{stencil_lib.dtype_name(st.dtype)} on this kernel path is not "
             f"ported: {item}")
+    _check_mem_budget(cfg, st, m)
     if cfg.fuse:
         if cfg.compute == "pallas":
             raise ValueError("--fuse replaces the whole step; it excludes "
@@ -556,8 +643,12 @@ def run(cfg: RunConfig) -> Tuple:
     # is set-up and must not run on inside the timed loop
     driver.synchronize(fields)
     t0 = time.perf_counter()
+    # the loop takes the fields, so the initial state is freed after the
+    # first step instead of living through the run beside input and output
+    donated = driver.Donated(fields)
+    del fields
     fields = driver.run_simulation(
-        st, fields, remaining // step_unit, step_fn=step_fn,
+        st, donated, remaining // step_unit, step_fn=step_fn,
         log_every=interval, callback=callback,
         start_step=start_step // step_unit)
     driver.synchronize(fields)

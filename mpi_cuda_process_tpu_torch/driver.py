@@ -115,6 +115,25 @@ def make_step(
     return step
 
 
+class Donated:
+    """Fields handed over to the time loop (``run_simulation``, a runner of
+    ``make_runner``), the counterpart of the TPU package's donated scan
+    carry: the loop takes them, so once the first step has made new fields
+    nothing holds the initial state and the allocator frees it.  A caller
+    that keeps its own reference to the fields instead keeps the initial
+    state alive for the whole run: a third copy of the state beside the
+    step's input and output."""
+
+    def __init__(self, fields: Fields):
+        self._fields = fields
+
+    def take(self) -> Fields:
+        fields, self._fields = self._fields, None
+        if fields is None:
+            raise RuntimeError("donated fields were already taken")
+        return fields
+
+
 def _carry(fields: Fields):
     """(dtype, shape) of every field: the global shape of a sharded one."""
     return [(f.dtype, tuple(getattr(f, "global_shape", None) or f.shape))
@@ -127,9 +146,11 @@ def make_runner(step_fn, n_steps: int):
     A step whose output fields differ from its input in number, dtype or
     shape raises, as ``lax.scan`` refuses such a body in the TPU package (a
     heat step promotes int32 fields to float32); the first step of each run
-    is checked."""
+    is checked.  Given :class:`Donated` fields, the runner takes them."""
 
     def run(fields: Fields) -> Fields:
+        if isinstance(fields, Donated):
+            fields = fields.take()
         for i in range(n_steps):
             new = step_fn(fields)
             if i == 0 and _carry(new) != _carry(fields):
@@ -207,7 +228,9 @@ def run_simulation(
     """Run ``n_steps``, optionally surfacing state every ``log_every`` steps.
 
     ``fields`` are whole tensors or, with a sharded ``step_fn``, sharded
-    fields (``parallel.stepper.ShardedField``).
+    fields (``parallel.stepper.ShardedField``), or :class:`Donated` ones:
+    then no frame of the loop keeps the state a chunk started from, and a
+    runner of ``runner_factory`` is given a :class:`Donated` to take.
 
     With ``log_every == 0`` (or nothing to call at boundaries) the whole run
     is one chunk.  With logging, the run is chunked so
@@ -226,8 +249,16 @@ def run_simulation(
     synchronize.  An observer alone (no callback) still gets chunked
     execution when ``log_every`` is set.
     """
+    donate = isinstance(fields, Donated)
+    if donate:
+        fields = fields.take()
     if step_fn is None:
         step_fn = make_step(stencil, fields[0].shape)
+
+    def handed(fs):
+        """What a chunk's runner is given for ``fs``."""
+        return Donated(fs) if donate else fs
+
     if runner_factory is None:
         def runner_factory(fn, n):
             r = make_runner(fn, n)
@@ -243,8 +274,9 @@ def run_simulation(
         return out
 
     if not log_every or (callback is None and observer is None):
-        return _run_chunk(runner_factory(step_fn, n_steps), fields,
-                          n_steps, start_step)
+        arg, fields = handed(fields), None
+        return _run_chunk(runner_factory(step_fn, n_steps), arg, n_steps,
+                          start_step)
 
     done = 0
     runners = {}
@@ -254,7 +286,8 @@ def run_simulation(
         chunk = min(boundary - abs_step, n_steps - done)
         if chunk not in runners:
             runners[chunk] = runner_factory(step_fn, chunk)
-        fields = _run_chunk(runners[chunk], fields, chunk, abs_step)
+        arg, fields = handed(fields), None
+        fields = _run_chunk(runners[chunk], arg, chunk, abs_step)
         done += chunk
         if callback is not None:
             replacement = callback(done, fields)

@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("rawstep", "fused", "zchunk", "whole2d", "fullgrid",
@@ -111,26 +113,48 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def stream_of(t) -> ctypes.c_void_p:
     """PyTorch's current stream on ``t``'s device, as a C pointer."""
-    import torch
-
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+# The storage types of the kernels that take bfloat16 (K1, K2,
+# raw_step_grayscott, K10, the ring exchange), and the suffix of each
+# type's C entry point: one source, an "_f32" and a "_bf16" export.
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def entry(lib: ctypes.CDLL, name: str, t):
+    """The C entry point of kernel ``name`` for ``t``'s dtype
+    (``name_f32`` or ``name_bf16``)."""
+    return getattr(lib, f"{name}_{SUFFIXES[t.dtype]}")
+
+
+def launch_key(wrapper: str, name: str, t) -> str:
+    """A launch counter's key: ``"wrapper[name]"`` for float32 operands,
+    ``"wrapper[name,bfloat16]"`` for another type, so a run's counts say
+    which kind of the kernel ran."""
+    if t.dtype == torch.float32:
+        return f"{wrapper}[{name}]"
+    return f"{wrapper}[{name},{str(t.dtype).replace('torch.', '')}]"
 
 
 def check_operands(what: str, *tensors, shape=None, dtype=None,
                    ndim: int = 3) -> None:
-    """Device, dtype, shape and contiguity gate for the kernels (float32
-    unless ``dtype`` says otherwise; ``ndim``-dimensional)."""
-    import torch
-
-    dtype = torch.float32 if dtype is None else dtype
+    """Device, dtype, shape and contiguity gate for the kernels: ``dtype``
+    is the type every operand must have, or a tuple of the types a kernel
+    takes (all operands of one type); float32 when None.  ``ndim``-
+    dimensional operands."""
+    allowed = (torch.float32,) if dtype is None else \
+        tuple(dtype) if isinstance(dtype, tuple) else (dtype,)
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise ValueError(f"{what}: operands must share one CUDA device "
                              f"(got {t.device} and {dev})")
-        if t.dtype != dtype:
-            raise TypeError(f"{what}: {dtype} only (got {t.dtype}); the "
-                            "bfloat16 kernels are ROADMAP B1/B3")
+        if t.dtype not in allowed or t.dtype != tensors[0].dtype:
+            names = "/".join(str(a).replace("torch.", "") for a in allowed)
+            raise TypeError(f"{what}: {names} operands of one type only "
+                            f"(got {t.dtype} beside {tensors[0].dtype})")
         if t.dim() != ndim or (shape is not None and tuple(t.shape) != shape):
             raise ValueError(f"{what}: expected a {ndim}D tensor of shape "
                              f"{shape}, got {tuple(t.shape)}")

@@ -1,5 +1,7 @@
 // K1 raw_step_heat<KIND>, K2 raw_step_wave and raw_step_grayscott: one
-// whole guard-frame step on the raw (Z, Y, X) float32 grid.
+// whole guard-frame step on the raw (Z, Y, X) grid, float32 or bfloat16
+// (the storage type T; the arithmetic and its rounding are
+// stencil_taps.cuh's).
 //
 // Replaces: the TPU package's ops/pallas/rawstep.py — make_raw_step's
 // _heat_kernel with the _taps7 / _taps27 / _taps13 / _taps_advect tap sets
@@ -13,9 +15,10 @@
 //
 // Bound on an H100: device-memory bytes.  The step must read the grid once
 // and write it once (K2 also reads u_prev, Gray-Scott reads and writes two
-// fields): 2 (K2: 3, Gray-Scott: 4) x 4 B per cell against ~0.2 (7-point)
-// to ~0.7 (27-point) flop/B — far below the card's ~20
-// flop/B float32 ridge.  Design against that bound: a warp covers 32
+// fields): 2 (K2: 3, Gray-Scott: 4) x 4 B per cell (2 B in bfloat16)
+// against ~0.2 (7-point) to ~0.7 (27-point) flop/B — far below the card's
+// ~20 flop/B float32 ridge; bfloat16 halves the bytes and doubles the
+// flop/B, still far below it.  Design against that bound: a warp covers 32
 // consecutive x cells, so every load and store is a coalesced 128-byte
 // line; the z/y neighbours of a cell are the centre loads of the threads
 // marching beside and behind it, so they are served from L1/L2 and device
@@ -32,10 +35,10 @@ namespace {
 
 constexpr int BX = 32, BY = 8, ZRUN = 8;
 
-template <int KIND>
+template <int KIND, class T>
 __global__ void __launch_bounds__(BX * BY)
-raw_step_heat(const float* __restrict__ u, float* __restrict__ out, int Z,
-              int Y, int X, Coef c) {
+raw_step_heat(const T* __restrict__ u, T* __restrict__ out, int Z, int Y,
+              int X, Coef c) {
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   if (x >= X || y >= Y) return;
@@ -47,13 +50,14 @@ raw_step_heat(const float* __restrict__ u, float* __restrict__ out, int Z,
     const long i = z * sz + y * sy + x;
     out[i] = in_frame(z, y, x, Z, Y, X, h)
                  ? u[i]
-                 : field_update<KIND>(u + i, sy, sz, c);
+                 : narrow<T>(field_update<KIND>(u + i, sy, sz, c));
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(BX * BY)
-raw_step_wave(const float* __restrict__ u, const float* __restrict__ uprev,
-              float* __restrict__ out, int Z, int Y, int X, Coef c) {
+raw_step_wave(const T* __restrict__ u, const T* __restrict__ uprev,
+              T* __restrict__ out, int Z, int Y, int X, Coef c) {
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   if (x >= X || y >= Y) return;
@@ -63,15 +67,17 @@ raw_step_wave(const float* __restrict__ u, const float* __restrict__ uprev,
   for (int z = z0; z < z1; ++z) {
     const long i = z * sz + y * sy + x;
     // frame keeps the old u: by induction it still holds the wall value
-    out[i] = in_frame(z, y, x, Z, Y, X, 1) ? u[i]
-                                           : wave_update(u + i, uprev[i], sy, sz, c);
+    out[i] = in_frame(z, y, x, Z, Y, X, 1)
+                 ? u[i]
+                 : narrow<T>(wave_update(u + i, widen(uprev[i]), sy, sz, c));
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(BX * BY)
-raw_step_grayscott(const float* __restrict__ u, const float* __restrict__ v,
-                   float* __restrict__ ou, float* __restrict__ ov, int Z,
-                   int Y, int X, Coef c) {
+raw_step_grayscott(const T* __restrict__ u, const T* __restrict__ v,
+                   T* __restrict__ ou, T* __restrict__ ov, int Z, int Y,
+                   int X, Coef c) {
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   if (x >= X || y >= Y) return;
@@ -86,8 +92,8 @@ raw_step_grayscott(const float* __restrict__ u, const float* __restrict__ v,
     } else {
       float nu, nv;
       grayscott_update(u + i, v + i, sy, sz, c, nu, nv);
-      ou[i] = nu;
-      ov[i] = nv;
+      ou[i] = narrow<T>(nu);
+      ov[i] = narrow<T>(nv);
     }
   }
 }
@@ -96,27 +102,23 @@ dim3 grid_for(int Z, int Y, int X) {
   return dim3((X + BX - 1) / BX, (Y + BY - 1) / BY, (Z + ZRUN - 1) / ZRUN);
 }
 
-}  // namespace
-
-// One K1 launch on `stream`: out = step(u).  Returns cudaGetLastError().
-EXPORT int raw_step_heat_f32(int kind, const float* u, float* out, int Z,
-                             int Y, int X, float a, float c0, float c1,
-                             float c2, float c3, void* stream) {
-  const Coef c{a, c0, c1, c2, c3};
+template <class T>
+int heat_launch(int kind, const T* u, T* out, int Z, int Y, int X,
+                const Coef& c, void* stream) {
   const dim3 block(BX, BY, 1), grid = grid_for(Z, Y, X);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT7:
-      raw_step_heat<HEAT7><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
+      raw_step_heat<HEAT7, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
       break;
     case HEAT27:
-      raw_step_heat<HEAT27><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
+      raw_step_heat<HEAT27, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
       break;
     case HEAT13:
-      raw_step_heat<HEAT13><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
+      raw_step_heat<HEAT13, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
       break;
     case ADVECT:
-      raw_step_heat<ADVECT><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
+      raw_step_heat<ADVECT, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -124,14 +126,53 @@ EXPORT int raw_step_heat_f32(int kind, const float* u, float* out, int Z,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
+int wave_launch(const T* u, const T* uprev, T* out, int Z, int Y, int X,
+                float c2dt2, void* stream) {
+  const Coef c{c2dt2, 0.f, 0.f, 0.f, 0.f};
+  raw_step_wave<T><<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
+                     static_cast<cudaStream_t>(stream)>>>(u, uprev, out, Z, Y,
+                                                          X, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int grayscott_launch(const T* u, const T* v, T* ou, T* ov, int Z, int Y,
+                     int X, const Coef& c, void* stream) {
+  raw_step_grayscott<T><<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
+                          static_cast<cudaStream_t>(stream)>>>(u, v, ou, ov,
+                                                               Z, Y, X, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One K1 launch on `stream`: out = step(u).  Returns cudaGetLastError().
+// The _bf16 twin takes bfloat16 grids.
+EXPORT int raw_step_heat_f32(int kind, const float* u, float* out, int Z,
+                             int Y, int X, float a, float c0, float c1,
+                             float c2, float c3, void* stream) {
+  return heat_launch(kind, u, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
+}
+
+EXPORT int raw_step_heat_bf16(int kind, const __nv_bfloat16* u,
+                              __nv_bfloat16* out, int Z, int Y, int X,
+                              float a, float c0, float c1, float c2,
+                              float c3, void* stream) {
+  return heat_launch(kind, u, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
+}
+
 // One K2 launch on `stream`: out = new u.  Returns cudaGetLastError().
 EXPORT int raw_step_wave_f32(const float* u, const float* uprev, float* out,
                              int Z, int Y, int X, float c2dt2, void* stream) {
-  const Coef c{c2dt2, 0.f, 0.f, 0.f, 0.f};
-  raw_step_wave<<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
-                  static_cast<cudaStream_t>(stream)>>>(u, uprev, out, Z, Y, X,
-                                                       c);
-  return static_cast<int>(cudaGetLastError());
+  return wave_launch(u, uprev, out, Z, Y, X, c2dt2, stream);
+}
+
+EXPORT int raw_step_wave_bf16(const __nv_bfloat16* u,
+                              const __nv_bfloat16* uprev, __nv_bfloat16* out,
+                              int Z, int Y, int X, float c2dt2,
+                              void* stream) {
+  return wave_launch(u, uprev, out, Z, Y, X, c2dt2, stream);
 }
 
 // One Gray-Scott launch on `stream`: (ou, ov) = step(u, v); (du, dv, f, fk)
@@ -139,9 +180,15 @@ EXPORT int raw_step_wave_f32(const float* u, const float* uprev, float* out,
 EXPORT int raw_step_grayscott_f32(const float* u, const float* v, float* ou,
                                   float* ov, int Z, int Y, int X, float du,
                                   float dv, float f, float fk, void* stream) {
-  const Coef c{du, dv, f, fk, 0.f};
-  raw_step_grayscott<<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
-                       static_cast<cudaStream_t>(stream)>>>(u, v, ou, ov, Z,
-                                                            Y, X, c);
-  return static_cast<int>(cudaGetLastError());
+  return grayscott_launch(u, v, ou, ov, Z, Y, X, Coef{du, dv, f, fk, 0.f},
+                          stream);
+}
+
+EXPORT int raw_step_grayscott_bf16(const __nv_bfloat16* u,
+                                   const __nv_bfloat16* v,
+                                   __nv_bfloat16* ou, __nv_bfloat16* ov,
+                                   int Z, int Y, int X, float du, float dv,
+                                   float f, float fk, void* stream) {
+  return grayscott_launch(u, v, ou, ov, Z, Y, X, Coef{du, dv, f, fk, 0.f},
+                          stream);
 }

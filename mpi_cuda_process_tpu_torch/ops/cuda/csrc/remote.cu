@@ -63,9 +63,12 @@ constexpr int THREADS = 256;
 constexpr int MAX_SHARDS = 32;  // shards of one launch (kernel parameters)
 constexpr unsigned long long TIMEOUT_NS = 2000000000ull;
 
-// Chunk geometry in units (a float, or four): chunk c of a slab is `runs`
-// runs of `run_len` units, `run_stride` apart, starting at c * chunk_stride;
-// in a receive slot the chunk is packed (runs * run_len units).
+// Chunk geometry in units of 16 bytes (a float4) where every run, stride
+// and pointer aligns to them, else of one element (a float, or the 2 bytes
+// of a bfloat16, copied as an unsigned short): chunk c of a slab is `runs`
+// runs of `run_len` units, `run_stride` apart, starting at c *
+// chunk_stride; in a receive slot the chunk is packed (runs * run_len
+// units).  The kernel copies units and never reads them as numbers.
 struct Args {
   const void* src[MAX_SHARDS][2];  // d = 0: the hi slab; d = 1: the lo slab
   void* out[MAX_SHARDS][2];        // d = 0: from_left; d = 1: from_right
@@ -153,18 +156,36 @@ int blocks_per_sm(int* out) {
       out, ring_exchange<T>, THREADS, 0));
 }
 
+// The kernel's instance for a unit of `unit` bytes (16, 4 or 2), or null.
+const void* kernel_for(int unit) {
+  switch (unit) {
+    case 16:
+      return reinterpret_cast<const void*>(ring_exchange<float4>);
+    case 4:
+      return reinterpret_cast<const void*>(ring_exchange<float>);
+    case 2:
+      return reinterpret_cast<const void*>(
+          ring_exchange<unsigned short>);
+    default:
+      return nullptr;
+  }
+}
+
 }  // namespace
 
 // The largest G at which a (G, 2, S) grid is co-resident on the current
 // device, at most one block per SM (capped by the chunk's units: no block
-// idles).  Returns a cudaError_t code.
-EXPORT int ring_exchange_blocks(int S, long units, int vec, int* G) {
+// idles), for units of `unit` bytes.  Returns a cudaError_t code.
+EXPORT int ring_exchange_blocks(int S, long units, int unit, int* G) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  int rc = vec ? blocks_per_sm<float4>(&per_sm) : blocks_per_sm<float>(&per_sm);
+  int rc = unit == 16  ? blocks_per_sm<float4>(&per_sm)
+           : unit == 4 ? blocks_per_sm<float>(&per_sm)
+           : unit == 2 ? blocks_per_sm<unsigned short>(&per_sm)
+                       : static_cast<int>(cudaErrorInvalidValue);
   if (rc != 0) return rc;
   const int resident = sms * (per_sm < 1 ? 1 : per_sm);
   const int cap = sms < resident ? sms : resident;
@@ -179,17 +200,19 @@ EXPORT int ring_exchange_blocks(int S, long units, int vec, int* G) {
 // 0..S-1 of this launch), hi[s] goes to next[s]'s from_left and lo[s] to
 // prev[s]'s from_right, through the receive rings recv[s] (2, nslots, chunk)
 // with the counters ready[s] and credit[s] (2, nslots each), which must be
-// zero.  `vec` = 1: the geometry is in float4 units (every run, stride and
-// pointer 16-byte aligned).  Returns a cudaError_t code.
-EXPORT int ring_exchange_f32(int S, const void* const* hi,
-                             const void* const* lo, void* const* from_left,
-                             void* const* from_right, void* const* recv,
-                             int* const* ready, int* const* credit,
-                             const int* next, const int* prev, int nc,
-                             int nslots, long runs, long run_len,
-                             long run_stride, long chunk_stride, int vec,
-                             int G, void* stream) {
-  if (S < 1 || S > MAX_SHARDS || G < 1 || nc < 1 || nslots < 1)
+// zero.  The geometry is in units of `unit` bytes: 16 (every run, stride
+// and pointer 16-byte aligned), or the element's 4 (float32) or 2
+// (bfloat16).  Returns a cudaError_t code.
+EXPORT int ring_exchange_launch(int S, const void* const* hi,
+                                const void* const* lo, void* const* from_left,
+                                void* const* from_right, void* const* recv,
+                                int* const* ready, int* const* credit,
+                                const int* next, const int* prev, int nc,
+                                int nslots, long runs, long run_len,
+                                long run_stride, long chunk_stride, int unit,
+                                int G, void* stream) {
+  const void* kernel = kernel_for(unit);
+  if (S < 1 || S > MAX_SHARDS || G < 1 || nc < 1 || nslots < 1 || !kernel)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{};
   for (int s = 0; s < S; ++s) {
@@ -214,16 +237,9 @@ EXPORT int ring_exchange_f32(int S, const void* const* hi,
   a.chunk_stride = chunk_stride;
   void* params[] = {&a};
   const dim3 grid(G, 2, S);
-  cudaError_t e;
-  if (vec) {
-    e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(ring_exchange<float4>), grid, dim3(THREADS),
-        params, 0, static_cast<cudaStream_t>(stream));
-  } else {
-    e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(ring_exchange<float>), grid, dim3(THREADS),
-        params, 0, static_cast<cudaStream_t>(stream));
-  }
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      kernel, grid, dim3(THREADS), params, 0,
+      static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

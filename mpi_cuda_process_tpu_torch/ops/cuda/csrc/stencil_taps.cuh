@@ -15,9 +15,19 @@
 // each, rounded once from the plain version's own double (F + kappa), and for
 // red-black SOR (ops/sor.py), whose half-sweep is heat's update with alpha =
 // omega / 6 kept on the cells of one colour.
+//
+// Storage types: every update is written once over T, float or
+// __nv_bfloat16.  Accessors load T and widen it to float, the arithmetic is
+// float, and for bfloat16 each helper rounds its result to bfloat16 (round
+// to nearest even) and widens it back: PyTorch's bfloat16 eager ops compute
+// each elementwise op in float and round it before the next, and a Python
+// scalar enters in float, as the float coefficients of Coef do.  So the
+// bfloat16 kernels agree bit for bit with the plain version run on bfloat16
+// tensors, as the float32 ones do on float32 tensors.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
@@ -63,9 +73,43 @@ __host__ __device__ constexpr bool other_colour(int g, int s) {
   return ((g ^ (s - 1)) & 1) != 0;
 }
 
-__device__ __forceinline__ float fadd(float x, float y) { return __fadd_rn(x, y); }
-__device__ __forceinline__ float fsub(float x, float y) { return __fsub_rn(x, y); }
-__device__ __forceinline__ float fmul(float x, float y) { return __fmul_rn(x, y); }
+// A float result rounded to storage type T and widened back (float: as is).
+template <class T>
+__device__ __forceinline__ float round_to(float r) {
+  if constexpr (sizeof(T) == 2) {
+    return __bfloat162float(__float2bfloat16_rn(r));
+  } else {
+    return r;
+  }
+}
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// A value (already representable in T) stored as T.
+template <class T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (sizeof(T) == 2) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
+
+template <class T = float>
+__device__ __forceinline__ float fadd(float x, float y) {
+  return round_to<T>(__fadd_rn(x, y));
+}
+template <class T = float>
+__device__ __forceinline__ float fsub(float x, float y) {
+  return round_to<T>(__fsub_rn(x, y));
+}
+template <class T = float>
+__device__ __forceinline__ float fmul(float x, float y) {
+  return round_to<T>(__fmul_rn(x, y));
+}
 
 // Neighbour access for the updates: a(dz, dy, dx) is the value dz planes,
 // dy rows and dx cells away from the updated cell.  Strided reads a block
@@ -73,11 +117,13 @@ __device__ __forceinline__ float fmul(float x, float y) { return __fmul_rn(x, y)
 // kernel (streamfused.cu) reads planes that sit in a ring.  The sums below
 // are written once over an accessor, so every kernel adds the same taps in
 // the same order.
+template <class T>
 struct Strided {
-  const float* p;
+  using value_type = T;
+  const T* p;
   long sy, sz;
   __device__ __forceinline__ float operator()(int dz, int dy, int dx) const {
-    return p[dz * sz + dy * sy + dx];
+    return widen(p[dz * sz + dy * sy + dx]);
   }
 };
 
@@ -85,13 +131,14 @@ struct Strided {
 // then minus 6 u — ops/stencil.py::axis_laplacian.
 template <class A>
 __device__ __forceinline__ float lap7(const A& a) {
+  using T = typename A::value_type;
   float acc = a(-1, 0, 0);
-  acc = fadd(acc, a(1, 0, 0));
-  acc = fadd(acc, a(0, -1, 0));
-  acc = fadd(acc, a(0, 1, 0));
-  acc = fadd(acc, a(0, 0, -1));
-  acc = fadd(acc, a(0, 0, 1));
-  return fsub(acc, fmul(6.0f, a(0, 0, 0)));
+  acc = fadd<T>(acc, a(1, 0, 0));
+  acc = fadd<T>(acc, a(0, -1, 0));
+  acc = fadd<T>(acc, a(0, 1, 0));
+  acc = fadd<T>(acc, a(0, 0, -1));
+  acc = fadd<T>(acc, a(0, 0, 1));
+  return fsub<T>(acc, fmul<T>(6.0f, a(0, 0, 0)));
 }
 
 // The neighbour s cells away along axis d (0 = z, 1 = y, 2 = x).
@@ -103,13 +150,14 @@ __device__ __forceinline__ float along(const A& a, int d, int s) {
 // New value of a single-field heat cell (not frame-pinned).
 template <int KIND, class A>
 __device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
+  using T = typename A::value_type;
   const float u = a(0, 0, 0);
   if (KIND == HEAT7) {
-    return fadd(u, fmul(c.a, lap7(a)));
+    return fadd<T>(u, fmul<T>(c.a, lap7(a)));
   } else if (KIND == HEAT27) {
     // centre first, then the 26 offsets in (dz, dy, dx) lexicographic
     // order — itertools.product((-1, 0, 1), repeat=3) in ops/heat.py.
-    float acc = fmul(c.c0, u);
+    float acc = fmul<T>(c.c0, u);
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
 #pragma unroll
@@ -119,23 +167,23 @@ __device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
           const int nz = (dz != 0) + (dy != 0) + (dx != 0);
           if (nz == 0) continue;
           const float w = nz == 1 ? c.c1 : (nz == 2 ? c.c2 : c.c3);
-          acc = fadd(acc, fmul(w, a(dz, dy, dx)));
+          acc = fadd<T>(acc, fmul<T>(w, a(dz, dy, dx)));
         }
       }
     }
-    return fadd(u, fmul(c.a, acc));
+    return fadd<T>(u, fmul<T>(c.a, acc));
   } else {  // HEAT13: axes z, y, x; distances 1, 2; sign -, +.
-    float acc = fmul(c.c0, u);
+    float acc = fmul<T>(c.c0, u);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
 #pragma unroll
       for (int dist = 1; dist <= 2; ++dist) {
         const float w = dist == 1 ? c.c1 : c.c2;
-        acc = fadd(acc, fmul(w, along(a, d, -dist)));
-        acc = fadd(acc, fmul(w, along(a, d, dist)));
+        acc = fadd<T>(acc, fmul<T>(w, along(a, d, -dist)));
+        acc = fadd<T>(acc, fmul<T>(w, along(a, d, dist)));
       }
     }
-    return fadd(u, fmul(c.a, acc));
+    return fadd<T>(u, fmul<T>(c.a, acc));
   }
 }
 
@@ -144,15 +192,16 @@ __device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
 // zero Courant number adds nothing (the plain version skips its term).
 template <class A>
 __device__ __forceinline__ float advect_update(const A& a, const Coef& c) {
+  using T = typename A::value_type;
   const float u = a(0, 0, 0);
   const float cs[3] = {c.a, c.c0, c.c1};
   float acc = u;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     if (cs[d] > 0.0f) {
-      acc = fsub(acc, fmul(cs[d], fsub(u, along(a, d, -1))));
+      acc = fsub<T>(acc, fmul<T>(cs[d], fsub<T>(u, along(a, d, -1))));
     } else if (cs[d] < 0.0f) {
-      acc = fsub(acc, fmul(cs[d], fsub(along(a, d, 1), u)));
+      acc = fsub<T>(acc, fmul<T>(cs[d], fsub<T>(along(a, d, 1), u)));
     }
   }
   return acc;
@@ -179,43 +228,51 @@ template <class A>
 __device__ __forceinline__ void grayscott_update(const A& au, const A& av,
                                                  const Coef& c, float& nu,
                                                  float& nv) {
+  using T = typename A::value_type;
   const float u = au(0, 0, 0), v = av(0, 0, 0);
-  const float uvv = fmul(fmul(u, v), v);
-  nu = fadd(fsub(fadd(u, fmul(c.a, lap7(au))), uvv), fmul(c.c1, fsub(1.0f, u)));
-  nv = fsub(fadd(fadd(v, fmul(c.c0, lap7(av))), uvv), fmul(c.c2, v));
+  const float uvv = fmul<T>(fmul<T>(u, v), v);
+  nu = fadd<T>(fsub<T>(fadd<T>(u, fmul<T>(c.a, lap7(au))), uvv),
+               fmul<T>(c.c1, fsub<T>(1.0f, u)));
+  nv = fsub<T>(fadd<T>(fadd<T>(v, fmul<T>(c.c0, lap7(av))), uvv),
+               fmul<T>(c.c2, v));
 }
 
 // Leapfrog wave update: (2 u - u_prev) + c2dt2 * lap7(u).
 template <class A>
 __device__ __forceinline__ float wave_update(const A& a, float uprev,
                                              const Coef& c) {
-  return fadd(fsub(fmul(2.0f, a(0, 0, 0)), uprev), fmul(c.a, lap7(a)));
+  using T = typename A::value_type;
+  return fadd<T>(fsub<T>(fmul<T>(2.0f, a(0, 0, 0)), uprev),
+                 fmul<T>(c.a, lap7(a)));
 }
 
 // The same updates on a block in memory: the cell at `p`, rows `sy` and
 // planes `sz` elements apart.
-template <int KIND>
-__device__ __forceinline__ float heat_update(const float* p, long sy, long sz,
+template <int KIND, class T>
+__device__ __forceinline__ float heat_update(const T* p, long sy, long sz,
                                              const Coef& c) {
-  return heat_update<KIND>(Strided{p, sy, sz}, c);
+  return heat_update<KIND>(Strided<T>{p, sy, sz}, c);
 }
 
-__device__ __forceinline__ float wave_update(const float* p, float uprev,
+template <class T>
+__device__ __forceinline__ float wave_update(const T* p, float uprev,
                                              long sy, long sz, const Coef& c) {
-  return wave_update(Strided{p, sy, sz}, uprev, c);
+  return wave_update(Strided<T>{p, sy, sz}, uprev, c);
 }
 
-template <int KIND>
-__device__ __forceinline__ float field_update(const float* p, long sy,
+template <int KIND, class T>
+__device__ __forceinline__ float field_update(const T* p, long sy,
                                               long sz, const Coef& c) {
-  return field_update<KIND>(Strided{p, sy, sz}, c);
+  return field_update<KIND>(Strided<T>{p, sy, sz}, c);
 }
 
-__device__ __forceinline__ void grayscott_update(const float* pu,
-                                                 const float* pv, long sy,
-                                                 long sz, const Coef& c,
-                                                 float& nu, float& nv) {
-  grayscott_update(Strided{pu, sy, sz}, Strided{pv, sy, sz}, c, nu, nv);
+template <class T>
+__device__ __forceinline__ void grayscott_update(const T* pu, const T* pv,
+                                                 long sy, long sz,
+                                                 const Coef& c, float& nu,
+                                                 float& nv) {
+  grayscott_update(Strided<T>{pu, sy, sz}, Strided<T>{pv, sy, sz}, c, nu,
+                   nv);
 }
 
 // Guard-frame predicate on GLOBAL coordinates (out-of-domain ghost

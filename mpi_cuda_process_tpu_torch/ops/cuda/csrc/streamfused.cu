@@ -30,6 +30,15 @@
 // levels read) while the levels compute on plane p.  TMA bulk copies with a
 // producer warp are the later form.
 //
+// Storage type T: float32, or bfloat16 (the rings, the operands and the
+// outputs; the arithmetic is stencil_taps.cuh's, rounded to bfloat16 after
+// every op as the plain version rounds it, so a level's values are exact in
+// T and its ring holds them in half the shared memory).  cp.async copies 4,
+// 8 or 16 bytes, and the 2-byte cells of a bfloat16 window row are not
+// 4-byte aligned where it clamps at a wall, so the bfloat16 kind copies
+// plane p+1 with plain loads and stores before it computes plane p (the
+// same slot, the same barrier; no overlap of the load with the compute).
+//
 // Red-black SOR marches 2k levels of halo 1 (m = 2k): level s relaxes the
 // cells of colour (s-1) % 2 of the GLOBAL coordinate sum and copies the
 // others, so the levels are SOR's one-colour half-sweeps in order, each
@@ -40,8 +49,8 @@
 // advect_update chosen by the signs of (cz, cy, cx).  Gray-Scott
 // (GRAYSCOTT) reads the neighbours of both fields, so every level keeps a
 // ring for u and one for v (a second set of rings after the first, 153 KB
-// at the (16, 64) column and k = 4: one block per SM); a cell's new (u, v)
-// is grayscott_update over the two rings.
+// at the (16, 64) column and k = 4: one block per SM; 77 KB in bfloat16);
+// a cell's new (u, v) is grayscott_update over the two rings.
 //
 // Every cell is computed by field_update<KIND> / wave_update /
 // grayscott_update of stencil_taps.cuh through a ring accessor, in the
@@ -70,12 +79,13 @@ constexpr int THREADS = TXT * TYT;
 
 // Neighbour access into a ring of planes: the cell's address in each of
 // the planes z - H .. z + H, and the row length.
-template <int H>
+template <class T, int H>
 struct Ring {
-  const float* plane[2 * H + 1];
+  using value_type = T;
+  const T* plane[2 * H + 1];
   long sy;
   __device__ __forceinline__ float operator()(int dz, int dy, int dx) const {
-    return plane[dz + H][dy * sy + dx];
+    return widen(plane[dz + H][dy * sy + dx]);
   }
 };
 
@@ -100,23 +110,37 @@ struct Layout {
     for (int t = 0; t < s; ++t) b += slots(t) * plane(t);
     return b;
   }
-  __host__ __device__ long floats(int kind) const {
+  // cells of T the block's rings hold
+  __host__ __device__ long cells(int kind) const {
     if (kind == WAVE7) return base(k) + slots(0) * plane(0);
     return kind == GRAYSCOTT ? 2 * base(k) : base(k);
   }
 };
 
 // Plane z (local; z >= -m) of the ring at `base` with `slots` planes.
-__device__ __forceinline__ float* ring_plane(float* smem, const Layout& L,
-                                             int s, long base, int z) {
+template <class T>
+__device__ __forceinline__ T* ring_plane(T* smem, const Layout& L, int s,
+                                         long base, int z) {
   const int m = L.k * L.h;
   return smem + base + ((z + m) % L.slots(s)) * L.plane(s);
 }
 
-template <int KIND, int SRC>
+// One cell of window plane p into level 0's ring: cp.async for float, a
+// plain load and store for bfloat16 (see the note above).
+template <class T>
+__device__ __forceinline__ void copy_cell(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4) {
+    __pipeline_memcpy_async(dst, src, 4);
+  } else {
+    *dst = *src;
+  }
+}
+
+template <int KIND, int SRC, class T>
 __global__ void __launch_bounds__(THREADS)
-stream_step(const Window w, int k, Coef c, int TY, int TX) {
-  extern __shared__ float smem[];
+stream_step(const WindowT<T> w, int k, Coef c, int TY, int TX) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* smem = reinterpret_cast<T*>(smem_bytes);
   constexpr int h = kind_halo(KIND);
   constexpr bool two = KIND == WAVE7, gs = KIND == GRAYSCOTT;
   // levels: one per step, one per half-sweep for SOR
@@ -133,16 +157,14 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
   // u_prev ring, or Gray-Scott's level-0 v ring): one cp.async group.
   auto load_plane = [&](int p) {
     const int RY = L.ry(0), RX = L.rx(0);
-    float* d0 = ring_plane(smem, L, 0, 0, p);
-    float* d1 = ring_plane(smem, L, 0, prev_base, p);
+    T* d0 = ring_plane(smem, L, 0, 0, p);
+    T* d1 = ring_plane(smem, L, 0, prev_base, p);
     for (int iy = ty; iy < RY; iy += TYT) {
       for (int ix = tx; ix < RX; ix += TXT) {
         const int y = y0 - m + iy, x = x0 - m + ix;
-        __pipeline_memcpy_async(d0 + iy * RX + ix,
-                                cell_ptr<SRC>(w, 0, p, y, x, 0), 4);
+        copy_cell(d0 + iy * RX + ix, cell_ptr<SRC>(w, 0, p, y, x, 0));
         if constexpr (two || gs) {
-          __pipeline_memcpy_async(d1 + iy * RX + ix,
-                                  cell_ptr<SRC>(w, 1, p, y, x, 0), 4);
+          copy_cell(d1 + iy * RX + ix, cell_ptr<SRC>(w, 1, p, y, x, 0));
         }
       }
     }
@@ -162,8 +184,8 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
       if (z < -e) break;  // no plane of this level (or a deeper one) yet
       const int RY = L.ry(s), RX = L.rx(s), PX = L.rx(s - 1);
       const long src_base = L.base(s - 1);
-      const float* planes[2 * h + 1];
-      const float* vplanes[2 * h + 1];  // Gray-Scott's v
+      const T* planes[2 * h + 1];
+      const T* vplanes[2 * h + 1];  // Gray-Scott's v
 #pragma unroll
       for (int j = 0; j <= 2 * h; ++j) {
         planes[j] = ring_plane(smem, L, s - 1, src_base, z - h + j);
@@ -173,7 +195,7 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
       }
       // wave: level s-1's u_prev at plane z, in the coordinates of the
       // ring it lives in (the loaded u_prev for s = 1, else level s-2)
-      const float* up = nullptr;
+      const T* up = nullptr;
       int ux = 0, uoff = 0;
       if constexpr (two) {
         if (s == 1) {
@@ -186,16 +208,16 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
           uoff = 2 * h;
         }
       }
-      float* dst = s < K ? ring_plane(smem, L, s, L.base(s), z) : nullptr;
-      float* vdst = gs && s < K
-                        ? ring_plane(smem, L, s, prev_base + L.base(s), z)
-                        : nullptr;
+      T* dst = s < K ? ring_plane(smem, L, s, L.base(s), z) : nullptr;
+      T* vdst = gs && s < K
+                    ? ring_plane(smem, L, s, prev_base + L.base(s), z)
+                    : nullptr;
       for (int iy = ty; iy < RY; iy += TYT) {
         const int y = y0 - e + iy;
         for (int ix = tx; ix < RX; ix += TXT) {
           const int x = x0 - e + ix;
           const long off = static_cast<long>(iy + h) * PX + (ix + h);
-          Ring<h> a;
+          Ring<T, h> a;
 #pragma unroll
           for (int j = 0; j <= 2 * h; ++j) a.plane[j] = planes[j] + off;
           a.sy = PX;
@@ -208,10 +230,10 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
           float v, v1 = 0.0f;  // the new u; Gray-Scott's new v
           if constexpr (two) {
             const float uprev =
-                up[static_cast<long>(iy + uoff) * ux + (ix + uoff)];
+                widen(up[static_cast<long>(iy + uoff) * ux + (ix + uoff)]);
             v = keep ? u : wave_update(a, uprev, c);
           } else if constexpr (gs) {
-            Ring<h> b;
+            Ring<T, h> b;
 #pragma unroll
             for (int j = 0; j <= 2 * h; ++j) b.plane[j] = vplanes[j] + off;
             b.sy = PX;
@@ -225,13 +247,14 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
             v = keep ? u : field_update<KIND>(a, c);
           }
           if (s < K) {
-            dst[iy * RX + ix] = v;
-            if constexpr (gs) vdst[iy * RX + ix] = v1;
+            dst[iy * RX + ix] = narrow<T>(v);
+            if constexpr (gs) vdst[iy * RX + ix] = narrow<T>(v1);
           } else if (y < w.Y && x < w.X) {
             const long g = z * gsz + y * gsy + x;
-            w.out[0][g] = v;
-            if constexpr (two) w.out[1][g] = u;  // new u_prev: level k-1's u
-            if constexpr (gs) w.out[1][g] = v1;
+            w.out[0][g] = narrow<T>(v);
+            // new u_prev: level k-1's u
+            if constexpr (two) w.out[1][g] = narrow<T>(u);
+            if constexpr (gs) w.out[1][g] = narrow<T>(v1);
           }
         }
       }
@@ -240,42 +263,77 @@ stream_step(const Window w, int k, Coef c, int TY, int TX) {
   }
 }
 
-template <int KIND, int SRC>
-int launch(const Window& w, int k, const Coef& c, int ty, int tx,
+template <int KIND, int SRC, class T>
+int launch(const WindowT<T>& w, int k, const Coef& c, int ty, int tx,
            cudaStream_t s) {
   const Layout L{k * kind_phases(KIND), kind_halo(KIND), ty, tx};
-  const size_t smem = sizeof(float) * L.floats(KIND);
+  const size_t smem = sizeof(T) * L.cells(KIND);
   cudaError_t e = cudaFuncSetAttribute(
-      stream_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stream_step<KIND, SRC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((w.X + tx - 1) / tx, (w.Y + ty - 1) / ty);
-  stream_step<KIND, SRC><<<grid, dim3(TXT, TYT), smem, s>>>(w, k, c, ty, tx);
+  stream_step<KIND, SRC, T><<<grid, dim3(TXT, TYT), smem, s>>>(w, k, c, ty,
+                                                                tx);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SRC>
-int dispatch(int kind, const Window& w, int k, const Coef& c, int ty, int tx,
-             void* stream) {
+template <int SRC, class T>
+int dispatch(int kind, const WindowT<T>& w, int k, const Coef& c, int ty,
+             int tx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT7:
-      return launch<HEAT7, SRC>(w, k, c, ty, tx, s);
+      return launch<HEAT7, SRC, T>(w, k, c, ty, tx, s);
     case HEAT27:
-      return launch<HEAT27, SRC>(w, k, c, ty, tx, s);
+      return launch<HEAT27, SRC, T>(w, k, c, ty, tx, s);
     case HEAT13:
-      return launch<HEAT13, SRC>(w, k, c, ty, tx, s);
+      return launch<HEAT13, SRC, T>(w, k, c, ty, tx, s);
     case WAVE7:
-      return launch<WAVE7, SRC>(w, k, c, ty, tx, s);
+      return launch<WAVE7, SRC, T>(w, k, c, ty, tx, s);
     case SOR7:
-      return launch<SOR7, SRC>(w, k, c, ty, tx, s);
+      return launch<SOR7, SRC, T>(w, k, c, ty, tx, s);
     case ADVECT:
-      return launch<ADVECT, SRC>(w, k, c, ty, tx, s);
+      return launch<ADVECT, SRC, T>(w, k, c, ty, tx, s);
     case GRAYSCOTT:
-      return launch<GRAYSCOTT, SRC>(w, k, c, ty, tx, s);
+      return launch<GRAYSCOTT, SRC, T>(w, k, c, ty, tx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The three launches below, on storage type T.
+template <class T>
+int stream_raw(int kind, const T* in0, const T* in1, T* out0, T* out1, int Z,
+               int Y, int X, int k, const Coef& c, int ty, int tx,
+               void* stream) {
+  const WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+                     {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  return dispatch<RAW>(kind, w, k, c, ty, tx, stream);
+}
+
+template <class T>
+int stream_z(int kind, const T* in0, const T* in1, const T* lo0,
+             const T* lo1, const T* hi0, const T* hi1, T* out0, T* out1,
+             int Z, int Y, int X, int GZ, int oz, int k, const Coef& c,
+             int ty, int tx, void* stream) {
+  const WindowT<T> w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1},
+                     Z, Y, X, GZ, Y, X, oz, 0, kind_margin(kind, k)};
+  return dispatch<ZSLAB>(kind, w, k, c, ty, tx, stream);
+}
+
+template <class T>
+int stream_yz(int kind, const T* const* p, T* out0, T* out1, int Z, int Y,
+              int X, int GZ, int GY, int GX, int oz, int oy, int k,
+              const Coef& c, int ty, int tx, void* stream) {
+  // p: per field, (in, zlo, zhi, ylo, yhi, ll, lh, hl, hh) in field-major
+  // pairs, as the exports take them
+  const WindowT<T> w{{p[0], p[1]}, {p[2], p[3]}, {p[4], p[5]}, {out0, out1},
+                     Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
+                     {p[6], p[7]}, {p[8], p[9]},
+                     {{p[10], p[11]}, {p[12], p[13]}, {p[14], p[15]},
+                      {p[16], p[17]}}};
+  return dispatch<YZSLAB>(kind, w, k, c, ty, tx, stream);
 }
 
 }  // namespace
@@ -283,14 +341,22 @@ int dispatch(int kind, const Window& w, int k, const Coef& c, int ty, int tx,
 // One launch on `stream`, one device: (out0[, out1]) = k guard-frame steps
 // of (in0[, in1]) on the whole (Z, Y, X) grid.  in1/out1 are used by the
 // two-field kinds only (wave: u_prev; Gray-Scott: v).  Returns a
-// cudaError_t code.
+// cudaError_t code.  Each export has a _bf16 twin on bfloat16 operands.
 EXPORT int stream_step_f32(int kind, const float* in0, const float* in1,
                            float* out0, float* out1, int Z, int Y, int X,
                            int k, float a, float c0, float c1, float c2,
                            float c3, int ty, int tx, void* stream) {
-  const Window w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
-                 {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
-  return dispatch<RAW>(kind, w, k, Coef{a, c0, c1, c2, c3}, ty, tx, stream);
+  return stream_raw(kind, in0, in1, out0, out1, Z, Y, X, k,
+                    Coef{a, c0, c1, c2, c3}, ty, tx, stream);
+}
+
+EXPORT int stream_step_bf16(int kind, const __nv_bfloat16* in0,
+                            const __nv_bfloat16* in1, __nv_bfloat16* out0,
+                            __nv_bfloat16* out1, int Z, int Y, int X, int k,
+                            float a, float c0, float c1, float c2, float c3,
+                            int ty, int tx, void* stream) {
+  return stream_raw(kind, in0, in1, out0, out1, Z, Y, X, k,
+                    Coef{a, c0, c1, c2, c3}, ty, tx, stream);
 }
 
 // One launch over a z-only shard: its (Z, Y, X) core plus the (m, Y, X)
@@ -302,10 +368,18 @@ EXPORT int stream_zslab_f32(int kind, const float* in0, const float* in1,
                             float* out1, int Z, int Y, int X, int GZ, int oz,
                             int k, float a, float c0, float c1, float c2,
                             float c3, int ty, int tx, void* stream) {
-  const Window w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1}, Z, Y, X,
-                 GZ, Y, X, oz, 0, kind_margin(kind, k)};
-  return dispatch<ZSLAB>(kind, w, k, Coef{a, c0, c1, c2, c3}, ty, tx,
-                         stream);
+  return stream_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X,
+                  GZ, oz, k, Coef{a, c0, c1, c2, c3}, ty, tx, stream);
+}
+
+EXPORT int stream_zslab_bf16(
+    int kind, const __nv_bfloat16* in0, const __nv_bfloat16* in1,
+    const __nv_bfloat16* lo0, const __nv_bfloat16* lo1,
+    const __nv_bfloat16* hi0, const __nv_bfloat16* hi1, __nv_bfloat16* out0,
+    __nv_bfloat16* out1, int Z, int Y, int X, int GZ, int oz, int k, float a,
+    float c0, float c1, float c2, float c3, int ty, int tx, void* stream) {
+  return stream_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X,
+                  GZ, oz, k, Coef{a, c0, c1, c2, c3}, ty, tx, stream);
 }
 
 // One launch over a shard of a mesh that shards y: its (Z, Y, X) core plus,
@@ -322,10 +396,28 @@ EXPORT int stream_yzslab_f32(
     float* out1, int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
     int k, float a, float c0, float c1, float c2, float c3, int ty, int tx,
     void* stream) {
-  const Window w{{in0, in1}, {zlo0, zlo1}, {zhi0, zhi1}, {out0, out1},
-                 Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
-                 {ylo0, ylo1}, {yhi0, yhi1},
-                 {{cll0, cll1}, {clh0, clh1}, {chl0, chl1}, {chh0, chh1}}};
-  return dispatch<YZSLAB>(kind, w, k, Coef{a, c0, c1, c2, c3}, ty, tx,
-                          stream);
+  const float* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1, ylo0, ylo1, yhi0,
+                        yhi1, cll0, cll1, clh0, clh1, chl0, chl1, chh0, chh1};
+  return stream_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
+                   Coef{a, c0, c1, c2, c3}, ty, tx, stream);
+}
+
+EXPORT int stream_yzslab_bf16(
+    int kind, const __nv_bfloat16* in0, const __nv_bfloat16* in1,
+    const __nv_bfloat16* zlo0, const __nv_bfloat16* zlo1,
+    const __nv_bfloat16* zhi0, const __nv_bfloat16* zhi1,
+    const __nv_bfloat16* ylo0, const __nv_bfloat16* ylo1,
+    const __nv_bfloat16* yhi0, const __nv_bfloat16* yhi1,
+    const __nv_bfloat16* cll0, const __nv_bfloat16* cll1,
+    const __nv_bfloat16* clh0, const __nv_bfloat16* clh1,
+    const __nv_bfloat16* chl0, const __nv_bfloat16* chl1,
+    const __nv_bfloat16* chh0, const __nv_bfloat16* chh1,
+    __nv_bfloat16* out0, __nv_bfloat16* out1, int Z, int Y, int X, int GZ,
+    int GY, int GX, int oz, int oy, int k, float a, float c0, float c1,
+    float c2, float c3, int ty, int tx, void* stream) {
+  const __nv_bfloat16* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1,
+                                ylo0, ylo1, yhi0, yhi1, cll0, cll1,
+                                clh0, clh1, chl0, chl1, chh0, chh1};
+  return stream_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
+                   Coef{a, c0, c1, c2, c3}, ty, tx, stream);
 }

@@ -24,22 +24,27 @@
 
 enum Source { RAW = 0, PADDED = 1, ZSLAB = 2, YZSLAB = 3 };
 
-// Where a launch's operands live and where its core block sits.
-struct Window {
-  const float* in[2];  // RAW, (YZ)ZSLAB: the (Z, Y, X) core; PADDED: the padded block
-  const float* lo[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just below the core
-  const float* hi[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just above the core
-  float* out[2];       // (Z, Y, X)
+// Where a launch's operands live and where its core block sits; T is the
+// storage type (float; the streaming kernel also takes __nv_bfloat16).
+template <class T>
+struct WindowT {
+  // RAW, (YZ)ZSLAB: the (Z, Y, X) core; PADDED: the padded block
+  const T* in[2];
+  const T* lo[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just below the core
+  const T* hi[2];  // (YZ)ZSLAB: the (m, Y, X) z slab just above the core
+  T* out[2];       // (Z, Y, X)
   int Z, Y, X;         // core (output) extent
   int GZ, GY, GX;      // global extent: the frame
   int oz, oy;          // global index of the core's first z plane / y row
   int m;               // PADDED: pad width; (YZ)ZSLAB: slab depth
-  const float* ylo[2];  // YZSLAB: the (Z, m, X) y slab just before the core
-  const float* yhi[2];  // YZSLAB: the (Z, m, X) y slab just after the core
+  const T* ylo[2];  // YZSLAB: the (Z, m, X) y slab just before the core
+  const T* yhi[2];  // YZSLAB: the (Z, m, X) y slab just after the core
   // YZSLAB: the (m, m, X) corner pieces in (z side, y side) order: ll, lh,
   // hl, hh
-  const float* corner[4][2];
+  const T* corner[4][2];
 };
+
+using Window = WindowT<float>;
 
 __device__ __forceinline__ int wrap_or_clamp(int g, int n, int periodic) {
   if (periodic) return ((g % n) + n) % n;
@@ -53,10 +58,10 @@ __device__ __forceinline__ int clampi(int g, int lo, int hi) {
 // Address of field f at local coordinate (z, y, x) of the core (a cell of
 // some operand where the source has none: such cells are pinned or never
 // reach the core).
-template <int SRC>
-__device__ __forceinline__ const float* cell_ptr(const Window& w, int f,
-                                                 int z, int y, int x,
-                                                 int periodic) {
+template <int SRC, class T>
+__device__ __forceinline__ const T* cell_ptr(const WindowT<T>& w, int f,
+                                             int z, int y, int x,
+                                             int periodic) {
   if constexpr (SRC == RAW) {
     z = wrap_or_clamp(z, w.Z, periodic);
     y = wrap_or_clamp(y, w.Y, periodic);
@@ -84,7 +89,7 @@ __device__ __forceinline__ const float* cell_ptr(const Window& w, int f,
     const int ry = y < 0 ? 0 : (y < w.Y ? 1 : 2);
     if (rz != 1) z = clampi(rz == 0 ? z + w.m : z - w.Z, 0, w.m - 1);
     if (ry != 1) y = clampi(ry == 0 ? y + w.m : y - w.Y, 0, w.m - 1);
-    const float* p;
+    const T* p;
     if (rz == 1) {
       p = ry == 1 ? w.in[f] : (ry == 0 ? w.ylo[f] : w.yhi[f]);
     } else if (ry == 1) {
@@ -103,8 +108,8 @@ __device__ __forceinline__ const float* cell_ptr(const Window& w, int f,
 }
 
 // Field f at local coordinate (z, y, x) of the core.
-template <int SRC>
-__device__ __forceinline__ float load(const Window& w, int f, int z, int y,
-                                      int x, int periodic) {
-  return *cell_ptr<SRC>(w, f, z, y, x, periodic);
+template <int SRC, class T>
+__device__ __forceinline__ float load(const WindowT<T>& w, int f, int z,
+                                      int y, int x, int periodic) {
+  return widen(*cell_ptr<SRC>(w, f, z, y, x, periodic));
 }

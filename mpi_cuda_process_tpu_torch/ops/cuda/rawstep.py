@@ -5,7 +5,10 @@ heat3d, heat3d27, heat3d4th or advect3d one guard-frame step;
 ``raw_step_wave`` (K2, ``csrc/rawstep.cu::raw_step_wave``) advances wave3d;
 ``raw_step_grayscott`` (``csrc/rawstep.cu::raw_step_grayscott``) advances
 grayscott3d, both of its fields.  The state is its own halo: frame cells are
-the guard cells, so no padded copy is ever made.
+the guard cells, so no padded copy is ever made.  Each takes float32 or
+bfloat16 grids (``_build.FLOAT_DTYPES``: an ``_f32`` and a ``_bf16``
+entry point of one source); in bfloat16 every op rounds as the plain
+version's does, so the kernels stay bit-equal to it.
 
 Replaces the TPU package's ``ops/pallas/rawstep.py::make_raw_step``
 (``_heat_kernel`` with ``_taps7``/``_taps27``/``_taps13``/``_taps_advect``,
@@ -32,8 +35,9 @@ from ..heat import W27_CENTER, W27_CORNER, W27_EDGE, W27_FACE, W4TH, w4th_center
 from ..stencil import Fields, Stencil
 from . import _build
 
-# Launches per wrapper and stencil, keyed "raw_step_heat[heat3d]": one added
-# where a kernel launches, nowhere else.  ``launches.clear()`` resets.
+# Launches per wrapper and stencil, keyed "raw_step_heat[heat3d]" (bfloat16:
+# "raw_step_heat[heat3d,bfloat16]", ``_build.launch_key``): one added where
+# a kernel launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
 # one-field kinds of K1 (csrc/stencil_taps.cuh)
@@ -68,13 +72,14 @@ def coefficients(stencil: Stencil):
 def _lib():
     lib = _build.load("rawstep")
     if lib.raw_step_heat_f32.argtypes is None:
-        lib.raw_step_heat_f32.argtypes = (
-            [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
-            + [_c_ptr])
-        lib.raw_step_wave_f32.argtypes = (
-            [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
-        lib.raw_step_grayscott_f32.argtypes = (
-            [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 4 + [_c_ptr])
+        for sfx in _build.SUFFIXES.values():
+            getattr(lib, f"raw_step_heat_{sfx}").argtypes = (
+                [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
+                + [_c_ptr])
+            getattr(lib, f"raw_step_wave_{sfx}").argtypes = (
+                [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
+            getattr(lib, f"raw_step_grayscott_{sfx}").argtypes = (
+                [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 4 + [_c_ptr])
     return lib
 
 
@@ -84,14 +89,15 @@ def raw_step_heat(u: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     if not u.is_cuda:
         return make_step(stencil, u.shape)((u,))[0]
     kind = _HEAT_KIND[stencil.name]
-    _build.check_operands("raw_step_heat", u)
+    _build.check_operands("raw_step_heat", u, dtype=_build.FLOAT_DTYPES)
     out = torch.empty_like(u)
     lib = _lib()
     Z, Y, X = u.shape
-    rc = lib.raw_step_heat_f32(kind, u.data_ptr(), out.data_ptr(), Z, Y, X,
-                               *coefficients(stencil), _build.stream_of(u))
+    rc = _build.entry(lib, "raw_step_heat", u)(
+        kind, u.data_ptr(), out.data_ptr(), Z, Y, X, *coefficients(stencil),
+        _build.stream_of(u))
     _build.check(lib, rc, "raw_step_heat")
-    launches[f"raw_step_heat[{stencil.name}]"] += 1
+    launches[_build.launch_key("raw_step_heat", stencil.name, u)] += 1
     return out
 
 
@@ -101,15 +107,16 @@ def raw_step_wave(u: torch.Tensor, uprev: torch.Tensor,
     the old ``u`` itself — the caller keeps it, ``carry_map`` rule)."""
     if not u.is_cuda:
         return make_step(stencil, u.shape)((u, uprev))[0]
-    _build.check_operands("raw_step_wave", u, uprev, shape=tuple(u.shape))
+    _build.check_operands("raw_step_wave", u, uprev, shape=tuple(u.shape),
+                          dtype=_build.FLOAT_DTYPES)
     out = torch.empty_like(u)
     lib = _lib()
     Z, Y, X = u.shape
-    rc = lib.raw_step_wave_f32(u.data_ptr(), uprev.data_ptr(), out.data_ptr(),
-                               Z, Y, X, coefficients(stencil)[0],
-                               _build.stream_of(u))
+    rc = _build.entry(lib, "raw_step_wave", u)(
+        u.data_ptr(), uprev.data_ptr(), out.data_ptr(), Z, Y, X,
+        coefficients(stencil)[0], _build.stream_of(u))
     _build.check(lib, rc, "raw_step_wave")
-    launches[f"raw_step_wave[{stencil.name}]"] += 1
+    launches[_build.launch_key("raw_step_wave", stencil.name, u)] += 1
     return out
 
 
@@ -118,15 +125,17 @@ def raw_step_grayscott(u: torch.Tensor, v: torch.Tensor,
     """One guard-frame step of grayscott3d: the new ``(u, v)``."""
     if not u.is_cuda:
         return make_step(stencil, u.shape)((u, v))
-    _build.check_operands("raw_step_grayscott", u, v, shape=tuple(u.shape))
+    _build.check_operands("raw_step_grayscott", u, v, shape=tuple(u.shape),
+                          dtype=_build.FLOAT_DTYPES)
     ou, ov = torch.empty_like(u), torch.empty_like(v)
     lib = _lib()
     Z, Y, X = u.shape
-    rc = lib.raw_step_grayscott_f32(
+    rc = _build.entry(lib, "raw_step_grayscott", u)(
         u.data_ptr(), v.data_ptr(), ou.data_ptr(), ov.data_ptr(), Z, Y, X,
         *coefficients(stencil)[:4], _build.stream_of(u))
     _build.check(lib, rc, "raw_step_grayscott")
-    launches[f"raw_step_grayscott[{stencil.name}]"] += 1
+    launches[_build.launch_key("raw_step_grayscott", stencil.name,
+                                u)] += 1
     return ou, ov
 
 

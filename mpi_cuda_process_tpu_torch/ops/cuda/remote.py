@@ -16,9 +16,11 @@ Replaces the TPU package's ``ops/pallas/remote.py``:
 names and with their results: the chunk geometry is the kernel's public
 meta.  The TPU's loopback mode has no counterpart: the ring runs for real
 between the shards that share a card.  A ring across cards (peer writes
-over NVLink) is ROADMAP B7; the transport refuses it by name.  bfloat16
-slabs raise (ROADMAP B1/B3).  Bound on an H100: device-memory bytes, each
-slab read once and each received slab written once.
+over NVLink) is ROADMAP B7; the transport refuses it by name.  The kernel
+copies units and never reads them as numbers: 16 bytes where every run,
+stride and pointer aligns to them, else one element (4 bytes in float32, 2
+in bfloat16).  Bound on an H100: device-memory bytes, each slab read once
+and each received slab written once.
 
 Plain PyTorch version: :func:`plain_ring_exchange`, the same protocol (chunk
 loop, slots, counters) walked in order, its drained invariant asserted.  A
@@ -36,8 +38,9 @@ import torch
 from . import _build
 from .fused import _sublane
 
-# Launches, keyed "ring_exchange[4x512x1024]" by slab shape: one added where
-# the kernel launches, nowhere else.  ``launches.clear()`` resets.
+# Launches, keyed "ring_exchange[4x512x1024]" by slab shape (bfloat16:
+# "ring_exchange[4x512x1024,bfloat16]"): one added where the kernel
+# launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
 # Ring slots per direction: 2 lets chunk i+1's send overlap chunk i's drain
@@ -45,7 +48,6 @@ launches: Counter = Counter()
 _NSLOTS = 2
 # Shards one launch takes (the kernel's parameter block).
 MAX_SHARDS = 32
-BF16_ITEM = "ROADMAP B1/B3 (the bfloat16 kernels)"
 
 _c_int, _c_long, _c_ptr = ctypes.c_int, ctypes.c_long, ctypes.c_void_p
 
@@ -147,7 +149,7 @@ class RingState:
         self.counters = torch.zeros((n_shards, 2, 2, meta["nslots"]),
                                     dtype=torch.int32, device=device)
         self.blocks = 1
-        self._grid = {}  # vec -> blocks of a launch
+        self._grid = {}  # unit bytes -> blocks of a launch
 
     def check_drained(self, meta) -> None:
         """Raise unless every counter equals ``blocks`` times its slot's
@@ -208,9 +210,9 @@ def plain_ring_exchange(hi: Sequence[torch.Tensor],
 
 def _lib():
     lib = _build.load("remote")
-    if lib.ring_exchange_f32.argtypes is None:
+    if lib.ring_exchange_launch.argtypes is None:
         pp = ctypes.POINTER(_c_ptr)
-        lib.ring_exchange_f32.argtypes = (
+        lib.ring_exchange_launch.argtypes = (
             [_c_int] + [pp] * 7 + [ctypes.POINTER(_c_int)] * 2
             + [_c_int] * 2 + [_c_long] * 4 + [_c_int] * 2 + [_c_ptr])
         lib.ring_exchange_blocks.argtypes = [
@@ -236,7 +238,8 @@ def ring_exchange(hi: Sequence[torch.Tensor], lo: Sequence[torch.Tensor],
     if not hi[0].is_cuda:
         return plain_ring_exchange(hi, lo, nxt, prv, meta, state)
     shape = tuple(meta["shape"])
-    _build.check_operands("ring_exchange", *hi, *lo, shape=shape)
+    _build.check_operands("ring_exchange", *hi, *lo, shape=shape,
+                          dtype=_build.FLOAT_DTYPES)
     if not 1 <= S <= MAX_SHARDS or len(lo) != S:
         raise ValueError(f"ring_exchange: 1 to {MAX_SHARDS} shards a launch, "
                          f"got {S} hi and {len(lo)} lo slabs")
@@ -248,23 +251,28 @@ def ring_exchange(hi: Sequence[torch.Tensor], lo: Sequence[torch.Tensor],
     runs, run_len, run_stride, chunk_stride = _geometry(meta)
     slabs = [t.data_ptr() for t in (*hi, *lo)] + [out.data_ptr(),
                                                   state.recv.data_ptr()]
-    vec = int(all(v % 4 == 0 for v in (run_len, run_stride, chunk_stride))
-              and all(p % 16 == 0 for p in slabs))
-    unit = 4 if vec else 1
+    esize = out.element_size()
+    # 16-byte units where every run, stride and pointer aligns to them,
+    # else one element each
+    per16 = 16 // esize
+    aligned = (all(v % per16 == 0 for v in (run_len, run_stride,
+                                            chunk_stride))
+               and all(p % 16 == 0 for p in slabs))
+    unit_bytes = 16 if aligned else esize
+    unit = unit_bytes // esize  # elements per unit
     lib = _lib()
-    if vec not in state._grid:
+    if unit_bytes not in state._grid:
         g = _c_int(0)
         _build.check(lib, lib.ring_exchange_blocks(
-            S, runs * run_len // unit, vec, ctypes.byref(g)),
+            S, runs * run_len // unit, unit_bytes, ctypes.byref(g)),
             "ring_exchange_blocks")
-        state._grid[vec] = g.value
-    state.blocks = G = state._grid[vec]
-    esize = out.element_size()
+        state._grid[unit_bytes] = g.value
+    state.blocks = G = state._grid[unit_bytes]
     ring = meta["nslots"] * runs * run_len * 2 * esize  # one shard's rings
     slab = out[0, 0].numel() * esize
     cbase, cstep = state.counters.data_ptr(), 4 * meta["nslots"] * 4
     state.counters.zero_()
-    rc = lib.ring_exchange_f32(
+    rc = lib.ring_exchange_launch(
         S, _ptrs([t.data_ptr() for t in hi]),
         _ptrs([t.data_ptr() for t in lo]),
         _ptrs([out.data_ptr() + i * slab for i in range(S)]),
@@ -275,9 +283,10 @@ def ring_exchange(hi: Sequence[torch.Tensor], lo: Sequence[torch.Tensor],
                for i in range(S)]),
         (_c_int * S)(*nxt), (_c_int * S)(*prv), meta["nchunks"],
         meta["nslots"], runs, run_len // unit, run_stride // unit,
-        chunk_stride // unit, vec, G, _build.stream_of(hi[0]))
+        chunk_stride // unit, unit_bytes, G, _build.stream_of(hi[0]))
     _build.check(lib, rc, "ring_exchange")
-    launches[f"ring_exchange[{'x'.join(map(str, shape))}]"] += 1
+    launches[_build.launch_key("ring_exchange", "x".join(map(str, shape)),
+                               hi[0])] += 1
     return list(out[0]), list(out[1])
 
 
@@ -316,11 +325,7 @@ def build_ring_exchange_call(
         raise ValueError(f"ring_exchange: chunks {chunks} do not cut "
                          f"{shape} along z or y")
     meta = _meta(shape, dtype, nslots, axis, nc)
-    cuda = device is not None and torch.device(device).type == "cuda"
-    if cuda and dtype != torch.float32:
-        raise NotImplementedError(
-            f"ring_exchange: {dtype} slabs are not ported: {BF16_ITEM}")
-    if cuda:
+    if device is not None and torch.device(device).type == "cuda":
         _lib()
     states = {}
 

@@ -27,6 +27,13 @@ ragged columns and runs any k whose rings fit shared memory.  The policy
 knobs ``tiles``, ``margin`` and ``order`` raise (ROADMAP A8), as does
 ``batch`` (A7).  Bound on an H100: device-memory bytes, as for K3.
 
+Each wrapper takes float32 or bfloat16 fields (``_build.FLOAT_DTYPES``:
+an ``_f32`` and a ``_bf16`` entry point of one source).  A bfloat16 launch
+keeps its rings in bfloat16 too: the plain step rounds every level to
+bfloat16, so the rings hold the same values in half the shared memory
+(``smem_bytes`` counts the stencil's itemsize), and the kernel stays
+bit-equal to the plain version.
+
 Plain PyTorch versions: those of K3, K6 and K9 (``fused.py``), the same
 function — k plain steps of the window.  A wrapper takes its plain version
 only for tensors on the CPU.
@@ -47,8 +54,9 @@ from .fused import (_FUSED, SMEM_LIMIT, _pointers, plain_steps, plain_yzslab,
 from .rawstep import coefficients
 
 # Launches per wrapper and stencil, keyed "stream_step[heat3d]",
-# "stream_zslab[heat3d]" or "stream_yzslab[heat3d]": one added where the
-# kernel launches, nowhere else.  ``launches.clear()`` resets.
+# "stream_zslab[heat3d]" or "stream_yzslab[heat3d]" (bfloat16:
+# "stream_step[heat3d,bfloat16]", ``_build.launch_key``): one added where
+# the kernel launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
 # The (TY, TX) core column of one block.  64 x-cells are two warps' rows of
@@ -78,7 +86,8 @@ def smem_bytes(stencil: Stencil, k: int) -> int:
     (TY + 2(K-s)h, TX + 2(K-s)h) region, 2h + 1 planes (2h + 2 at level 0),
     with K = k levels (2k for sor3d, one per half-sweep), once per field
     whose neighbours the update reads (Gray-Scott: u and v); wave adds a
-    level-0 ring of u_prev, read at its own cell only."""
+    level-0 ring of u_prev, read at its own cell only.  Cells of the
+    stencil's dtype: 4 bytes, 2 in bfloat16."""
     ty, tx = TILE
     h = _FUSED[stencil.name][1]
     levels = k_step_margin(stencil, k) // h
@@ -89,7 +98,7 @@ def smem_bytes(stencil: Stencil, k: int) -> int:
     floats *= sum(1 for fh in stencil.field_halos if fh)
     if 0 in stencil.field_halos:
         floats += (2 * h + 2) * planes[0]
-    return 4 * floats
+    return stencil.dtype.itemsize * floats
 
 
 def fits(stencil: Stencil, k: int) -> bool:
@@ -102,12 +111,13 @@ def _lib():
     lib = _build.load("streamfused")
     if lib.stream_step_f32.argtypes is None:
         tail = [_c_float] * 5 + [_c_int] * 2 + [_c_ptr]
-        lib.stream_step_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + tail)
-        lib.stream_zslab_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 8 + [_c_int] * 6 + tail)
-        lib.stream_yzslab_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 20 + [_c_int] * 9 + tail)
+        for sfx in _build.SUFFIXES.values():
+            getattr(lib, f"stream_step_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + tail)
+            getattr(lib, f"stream_zslab_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 8 + [_c_int] * 6 + tail)
+            getattr(lib, f"stream_yzslab_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 20 + [_c_int] * 9 + tail)
     return lib
 
 
@@ -126,16 +136,17 @@ def stream_step(fields: Fields, stencil: Stencil, k: int) -> Fields:
         return plain_steps(fields, stencil, k)
     kind = _gate("stream_step", stencil, k)
     _build.check_operands("stream_step", *fields,
-                          shape=tuple(fields[0].shape))
+                          shape=tuple(fields[0].shape),
+                          dtype=_build.FLOAT_DTYPES)
     outs = tuple(torch.empty_like(f) for f in fields)
     two = len(fields) == 2
     lib = _lib()
     Z, Y, X = fields[0].shape
-    rc = lib.stream_step_f32(
+    rc = _build.entry(lib, "stream_step", fields[0])(
         kind, *_pointers(fields, two), *_pointers(outs, two), Z, Y, X, k,
         *coefficients(stencil), *TILE, _build.stream_of(fields[0]))
     _build.check(lib, rc, "stream_step")
-    launches[f"stream_step[{stencil.name}]"] += 1
+    launches[_build.launch_key("stream_step", stencil.name, fields[0])] += 1
     return outs
 
 
@@ -150,19 +161,22 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     if not core[0].is_cuda:
         return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z)
     kind = _gate("stream_zslab", stencil, k)
-    _build.check_operands("stream_zslab", *core, shape=(Lz, Y, X))
-    _build.check_operands("stream_zslab", core[0], *zlo, *zhi)
-    _build.check_operands("stream_zslab", *zlo, *zhi, shape=(m, Y, X))
+    _build.check_operands("stream_zslab", *core, shape=(Lz, Y, X),
+                          dtype=_build.FLOAT_DTYPES)
+    _build.check_operands("stream_zslab", core[0], *zlo, *zhi,
+                          dtype=_build.FLOAT_DTYPES)
+    _build.check_operands("stream_zslab", *zlo, *zhi, shape=(m, Y, X),
+                          dtype=_build.FLOAT_DTYPES)
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
-    rc = lib.stream_zslab_f32(
+    rc = _build.entry(lib, "stream_zslab", core[0])(
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
         int(global_z), int(origin_z), k, *coefficients(stencil), *TILE,
         _build.stream_of(core[0]))
     _build.check(lib, rc, "stream_zslab")
-    launches[f"stream_zslab[{stencil.name}]"] += 1
+    launches[_build.launch_key("stream_zslab", stencil.name, core[0])] += 1
     return outs
 
 
@@ -180,25 +194,28 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
                             global_shape, origins)
     kind = _gate("stream_yzslab", stencil, k)
-    _build.check_operands("stream_yzslab", *core, shape=(Lz, Ly, X))
+    _build.check_operands("stream_yzslab", *core, shape=(Lz, Ly, X),
+                          dtype=_build.FLOAT_DTYPES)
     for pieces, shape in ((zlo, (m, Ly, X)), (zhi, (m, Ly, X)),
                           (ylo, (Lz, m, X)), (yhi, (Lz, m, X)),
                           *((c, (m, m, X)) for c in corners)):
-        _build.check_operands("stream_yzslab", core[0], *pieces, shape=None)
-        _build.check_operands("stream_yzslab", *pieces, shape=shape)
+        _build.check_operands("stream_yzslab", core[0], *pieces, shape=None,
+                              dtype=_build.FLOAT_DTYPES)
+        _build.check_operands("stream_yzslab", *pieces, shape=shape,
+                              dtype=_build.FLOAT_DTYPES)
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
     GZ, GY, GX = (int(g) for g in global_shape)
     oz, oy = (int(o) for o in origins)
-    rc = lib.stream_yzslab_f32(
+    rc = _build.entry(lib, "stream_yzslab", core[0])(
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
         *(p for c in corners for p in _pointers(c, two)),
         *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
         *coefficients(stencil), *TILE, _build.stream_of(core[0]))
     _build.check(lib, rc, "stream_yzslab")
-    launches[f"stream_yzslab[{stencil.name}]"] += 1
+    launches[_build.launch_key("stream_yzslab", stencil.name, core[0])] += 1
     return outs
 
 
@@ -231,8 +248,11 @@ def make_stream_fused_step(
 ) -> Optional[Callable[[Fields], Fields]]:
     """``fields -> fields`` advancing ``k`` guard-frame steps in one
     streaming pass (row 16), or None: not a 3D fused family, or rings too
-    large for shared memory (at the (16, 64) column: heat3d and heat3d27
-    k >= 10, wave3d k >= 9, heat3d4th k >= 6, sor3d k >= 5).  Semantically
+    large for shared memory (at the (16, 64) column in float32: heat3d,
+    heat3d27 and advect3d k >= 10, wave3d k >= 9, heat3d4th and
+    grayscott3d k >= 6, sor3d k >= 5; in bfloat16 heat3d, heat3d27 and
+    advect3d k >= 15, wave3d k >= 14, grayscott3d k >= 10, heat3d4th and
+    sor3d k >= 8).  Semantically
     ``k`` applications of ``driver.make_step``; any k >= 1 and any grid
     extent."""
     _refuse_policy(tiles, margin, order, batch)

@@ -44,6 +44,10 @@ from .halo import (RdmaTransport, exchange_and_pad, exchange_slabs_2axis,
 from .mesh import ENSEMBLE_ITEM, Mesh
 
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
+# The sharded fused kinds whose bfloat16 kernels are not ported.
+_BF16_PADDED_ITEM = ("ROADMAP B3 (bfloat16 K3 sharded mode and its overlap "
+                     "shells)")
+_BF16_PADFREE_ITEM = "ROADMAP B4 (bfloat16 K6 and K9)"
 
 
 class ShardedField(list):
@@ -406,6 +410,10 @@ def make_sharded_fused_step(
     than ``"stream"`` raise with the reason.  The step carries
     ``_exchange`` and, for rdma, ``_rdma_backend`` and ``_rdma_transport``.
 
+    bfloat16 fields run on ``kind="stream"`` without ``overlap`` (K10 and
+    the ring exchange take them); the padded kind and the overlap shells
+    (K3, ROADMAP B3) and the pad-free kinds (K6/K9, B4) raise for them.
+
     Not ported yet, and raising by name: ``pipeline=True``, the ensemble
     axis, and the pad-free kinds of advect3d and grayscott3d (ROADMAP B4:
     K6 and K9 raise).
@@ -436,6 +444,12 @@ def make_sharded_fused_step(
     if ensemble:
         raise NotImplementedError(
             f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    item = bf16_item(kind, overlap)
+    if stencil.dtype == torch.bfloat16 and item:
+        raise NotImplementedError(
+            "bfloat16 on the sharded fused kind "
+            f"{kind or 'padded'}{' with overlap' if overlap else ''} is not "
+            f"ported: {item}")
     ndim = stencil.ndim
     if ndim != 3 or not fused.fused_supported(stencil):
         return None
@@ -471,6 +485,15 @@ def make_sharded_fused_step(
             *args, fused.build_zslab_padfree_call, "zslab")
     return None if step is None else _attach_exchange(step, exchange,
                                                       transport)
+
+
+def bf16_item(kind: Optional[str], overlap: bool) -> Optional[str]:
+    """The ROADMAP item of a sharded fused kind whose bfloat16 kernels are
+    not ported, or None for the one that takes bfloat16: the stream kind
+    without the overlap shells (K3)."""
+    if kind == "stream" and not overlap:
+        return None
+    return _BF16_PADFREE_ITEM if kind == "padfree" else _BF16_PADDED_ITEM
 
 
 def _attach_exchange(step, exchange: str, transport):

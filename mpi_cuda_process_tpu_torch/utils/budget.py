@@ -1,0 +1,294 @@
+"""Per-device memory budget: refuse with the arithmetic, before allocating.
+
+The port's copy of the TPU package's ``utils/budget.py``: the same model of
+the dominant device buffers of a run (state, the step's output, pad and
+exchange transients, slab operands) plus a fractional overhead, for the
+paths the port runs, priced in the stencil's dtype.  ``--mem-check``
+(``cli.build``) calls :func:`check_budget` before any field is allocated, so
+a config that cannot fit fails at once with the numbers in hand, not with an
+out-of-memory error in the middle of a step.
+
+Where the port's buffers differ from the TPU package's, the estimate follows
+the port and says so in its labels:
+
+* dropped, TPU-only terms: the sublane-aligned (``wm_a``) copies of the
+  y-facing operands of the 2-axis streaming call and the 2m-duplicated y
+  slabs and corners of the 2-axis pad-free call (the port's kernels read
+  m-wide pieces); the padded transient of the unsharded fused kind and of
+  the unsharded 2D k-step kernel (the port's K3 and K8 read the raw grid);
+  the VMEM strip probes that label a shape ``UNBUILDABLE`` (replaced by the
+  port's own gates: ``streamfused.fits``, ``fused.margin_of`` and the
+  builders' shape rules); and ``ring_vmem_bytes`` (the port's receive rings
+  live in device memory and are counted here);
+* added, port-only terms: the k-step kernels write every field anew (wave's
+  new ``u_prev`` is level k-1's u; the TPU model counts one output field),
+  Gray-Scott's steps write both fields, the ring exchange keeps its
+  received slabs and receive rings in device memory (the TPU kernel stages
+  them in VMEM), and several shards that share one card (virtual devices)
+  are counted together.
+
+Not ported: ``estimate_coupled_bytes`` and ``check_coupled_budget`` (device
+groups, ROADMAP A7); ``ensemble`` (A7) and ``pipeline`` (A5) raise by name.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops.stencil import Stencil, k_step_margin
+
+# Fractional slack for the caching allocator's rounding, plain-path
+# temporaries and kernel scratch.
+_OVERHEAD_FRAC = 0.10
+
+_ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
+_PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
+
+Parts = List[Tuple[str, int]]
+
+
+def device_hbm_bytes(device=None) -> int:
+    """Device memory of a CUDA card (``total_memory``; the current card
+    when ``device`` is None)."""
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def _local_shape(grid: Sequence[int], mesh: Sequence[int]) -> Tuple[int, ...]:
+    counts = tuple(mesh) + (1,) * (len(grid) - len(mesh)) if mesh else \
+        (1,) * len(grid)
+    return tuple(int(g) // int(c) for g, c in zip(grid, counts))
+
+
+def _written_fields(stencil: Stencil, kstep: bool) -> int:
+    """Fields a step writes anew: every field for a k-step kernel, the
+    fields not carried verbatim (``carry_map``) for one step."""
+    if kstep:
+        return stencil.num_fields
+    return sum(1 for j in stencil.carry_map if j is None)
+
+
+def _stream_ok(stencil, local, grid, fuse, periodic, sharded, z_only):
+    from ..ops.cuda import streamfused
+
+    if sharded:
+        build = (streamfused.build_stream_sharded_call if z_only
+                 else streamfused.build_stream_2axis_call)
+        return build(stencil, local, grid, fuse, periodic=periodic) \
+            is not None
+    return not periodic and streamfused.make_stream_fused_step(
+        stencil, grid, fuse) is not None
+
+
+def _padfree_ok(stencil, local, grid, fuse, periodic, z_only) -> bool:
+    from ..ops.cuda import fused
+
+    build = (fused.build_zslab_padfree_call if z_only
+             else fused.build_yzslab_padfree_call)
+    try:
+        return build(stencil, local, grid, fuse, periodic=periodic) \
+            is not None
+    except NotImplementedError:  # advect3d, grayscott3d: ROADMAP B4
+        return False
+
+
+def estimate_run_bytes(
+    stencil: Stencil,
+    grid: Sequence[int],
+    mesh: Sequence[int] = (),
+    fuse: int = 0,
+    ensemble: int = 0,
+    periodic: bool = False,
+    compute: str = "auto",
+    fuse_kind: str = "auto",
+    overlap: bool = False,
+    pipeline: bool = False,
+    exchange: str = "ppermute",
+    ensemble_mesh: int = 0,
+    shards_per_device: int = 1,
+) -> Tuple[int, Parts]:
+    """Peak live device bytes of one card for a run, with a labelled
+    breakdown: ``(total, [(label, bytes), ...])``.
+
+    The TPU package's arguments and strategy selection, for the port's
+    paths: the plain pad -> update path (``compute="auto"``/``"jnp"``), the
+    raw whole-step kernels (``compute="raw"``: the state is its own halo),
+    and ``fuse`` on the unsharded kernels (no pad transient), the padded,
+    pad-free and streaming sharded kinds (exchange-padded blocks or slab
+    operands), ``overlap`` (twice the exchanged operands), ``exchange=
+    "rdma"`` (the ring's received slabs and receive rings).  Every term is
+    one shard's; ``shards_per_device`` shards on one card (virtual devices)
+    multiply them.  A shape the run would refuse is labelled
+    ``UNBUILDABLE`` at 0 bytes, as in the TPU package.
+    """
+    if ensemble or ensemble_mesh:
+        raise NotImplementedError(
+            f"an ensemble budget is not ported: {_ENSEMBLE_ITEM}")
+    if pipeline:
+        raise NotImplementedError(f"pipeline=True: {_PIPELINE_ITEM}")
+    itemsize = stencil.dtype.itemsize
+    nfields = stencil.num_fields
+    local = _local_shape(grid, mesh)
+    field_b = math.prod(local) * itemsize
+    halo = stencil.halo
+    sharded = bool(mesh) and math.prod(mesh) > 1
+    kstep = bool(fuse)
+    dtype = str(stencil.dtype).replace("torch.", "")
+
+    parts: Parts = [
+        (f"state: {nfields} field(s) x {field_b / 2**30:.2f} GiB "
+         f"({'x'.join(str(s) for s in local)} local, {dtype})",
+         nfields * field_b),
+        ("step output transient (double buffer)", field_b),
+    ]
+    extra_out = _written_fields(stencil, kstep) - 1
+    if extra_out > 0:
+        parts.append((f"step output: {extra_out} more field(s) written anew "
+                      "(port: the kernel writes every field)",
+                      extra_out * field_b))
+
+    if exchange == "rdma" and not (sharded and fuse and len(local) == 3
+                                   and fuse_kind == "stream"):
+        parts.append(("rdma exchange: UNSUPPORTED off the sharded "
+                      "streaming kind (the run refuses before "
+                      "allocating)", 0))
+    if fuse and len(local) == 3:
+        m = k_step_margin(stencil, fuse)
+        lz, ly, lx = local
+        mesh3 = tuple(mesh) + (1,) * (3 - len(mesh))
+        z_only = sharded and all(int(c) == 1 for c in mesh3[1:])
+        lane_whole = int(mesh3[2]) == 1
+        grid_t = tuple(int(g) for g in grid)
+        if sharded and fuse_kind in ("stream", "padfree"):
+            stream = fuse_kind == "stream"
+            ok = lane_whole and (
+                _stream_ok(stencil, local, grid_t, fuse, periodic, True,
+                           z_only) if stream else
+                _padfree_ok(stencil, local, grid_t, fuse, periodic, z_only))
+            name = "sharded streaming" if stream else "sharded pad-free"
+            if z_only:
+                slab_cells = 2 * m * ly * lx
+                what = f"slab operands only (2x{m} rows"
+            else:
+                # z slabs, y slabs and corners at their natural width m
+                slab_cells = 2 * m * ly * lx + 2 * m * lz * lx \
+                    + 4 * m * m * lx
+                what = f"slab+corner operands only (2-axis, width {m}"
+            base_b = slab_cells * itemsize * nfields
+            slab_b = 2 * base_b if overlap else base_b
+            if not ok:
+                parts.append((f"{name}: UNBUILDABLE for this mesh/shape "
+                              "(the run refuses before allocating)", 0))
+            else:
+                parts.append((f"{name}: {what}"
+                              f"{', x2 overlap split' if overlap else ''})",
+                              slab_b))
+                if stream and exchange == "rdma":
+                    # received slabs are the slab term above; the receive
+                    # rings: nslots chunks a direction at every site
+                    from ..ops.cuda.remote import _NSLOTS, pick_chunks
+
+                    sites = ([(m, ly, lx)] if z_only else
+                             [(m, ly, lx), (lz, m, lx), (m, m, lx),
+                              (m, m, lx)])
+                    ring_b = 0
+                    for s in sites:
+                        _, nc = pick_chunks(s, itemsize)
+                        ring_b += 2 * _NSLOTS * (math.prod(s) // nc) \
+                            * itemsize
+                    parts.append(("rdma receive rings (port: in device "
+                                  "memory, the TPU kernel's are in VMEM)",
+                                  ring_b))
+        elif sharded:
+            n_padded = 2 * nfields if overlap else nfields
+            padded_b = (lz + 2 * m) * (ly + 2 * m) * lx * itemsize
+            parts.append(
+                (f"sharded fused: {n_padded} "
+                 f"{'exchange+local' if overlap else 'exchange'}-padded "
+                 f"block(s) (+{2 * m} z/y)", n_padded * padded_b))
+        elif fuse_kind == "stream":
+            ok = _stream_ok(stencil, local, grid_t, fuse, periodic, False,
+                            False)
+            parts.append(("streaming fused: no pad transient" if ok else
+                          "streaming fused: UNBUILDABLE"
+                          + (" — stream is guard-frame only" if periodic
+                             else " for this shape")
+                          + " (the run refuses before allocating)", 0))
+        else:
+            parts.append(("fused: no pad transient (the kernel reads the "
+                          "raw grid)", 0))
+    elif fuse and len(local) == 2:
+        if sharded:
+            m = k_step_margin(stencil, fuse)
+            ly, lx = local
+            parts.append((f"2D fullgrid pad transient (+{2 * m} rows)",
+                          nfields * (ly + 2 * m) * lx * itemsize))
+        else:
+            parts.append(("2D fullgrid: no pad transient (the kernel reads "
+                          "the raw grid)", 0))
+    elif compute == "raw":
+        parts.append(("raw whole-step kernel: no pad transient", 0))
+    else:
+        pad = 2 * halo
+        parts.append(
+            (f"pad transient (+{pad} per axis) x {nfields}",
+             nfields * math.prod(s + pad for s in local) * itemsize))
+
+    if shards_per_device > 1:
+        per_shard = sum(b for _, b in parts)
+        parts.append((f"{shards_per_device - 1} more shard(s) on this "
+                      "device (virtual devices)",
+                      (shards_per_device - 1) * per_shard))
+    subtotal = sum(b for _, b in parts)
+    overhead = int(subtotal * _OVERHEAD_FRAC)
+    parts.append((f"workspace overhead ({int(_OVERHEAD_FRAC * 100)}%)",
+                  overhead))
+    return subtotal + overhead, parts
+
+
+def format_budget(total: int, parts: Parts, hbm: int) -> str:
+    lines = [f"  {b / 2**30:7.2f} GiB  {label}" for label, b in parts]
+    lines.append(f"  {total / 2**30:7.2f} GiB  TOTAL per device "
+                 f"(device memory {hbm / 2**30:.2f} GiB)")
+    return "\n".join(lines)
+
+
+def check_budget(
+    stencil: Stencil,
+    grid: Sequence[int],
+    mesh: Sequence[int] = (),
+    fuse: int = 0,
+    ensemble: int = 0,
+    periodic: bool = False,
+    compute: str = "auto",
+    fuse_kind: str = "auto",
+    hbm_bytes: Optional[int] = None,
+    overlap: bool = False,
+    pipeline: bool = False,
+    exchange: str = "ppermute",
+    ensemble_mesh: int = 0,
+    shards_per_device: int = 1,
+) -> Tuple[int, Parts]:
+    """Raise ValueError with the arithmetic when the run cannot fit its
+    card (``hbm_bytes``, default :func:`device_hbm_bytes`); return the
+    estimate when it fits."""
+    hbm = hbm_bytes if hbm_bytes is not None else device_hbm_bytes()
+    total, parts = estimate_run_bytes(
+        stencil, grid, mesh=mesh, fuse=fuse, ensemble=ensemble,
+        periodic=periodic, compute=compute, fuse_kind=fuse_kind,
+        overlap=overlap, pipeline=pipeline, exchange=exchange,
+        ensemble_mesh=ensemble_mesh, shards_per_device=shards_per_device)
+    if total > hbm:
+        raise ValueError(
+            f"config needs ~{total / 2**30:.2f} GiB per device but device "
+            f"memory is {hbm / 2**30:.2f} GiB; refusing before allocating. "
+            "Breakdown:\n" + format_budget(total, parts, hbm)
+            + "\nLevers: --dtype bfloat16 halves state bytes; a larger "
+            "--mesh over more cards shrinks the per-device block; --fuse "
+            f"on a {'sharded' if mesh else 'pad-free'} grid avoids pad "
+            "transients; --mem-check warn overrides this guard.")
+    return total, parts

@@ -205,15 +205,19 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
       "bfloat16"], NotImplementedError, "B2"),
     (["--grid", "16,20", "--fuse", "4", "--dtype", "bfloat16"],
      NotImplementedError, "B6"),
-    # This id keeps its name from the refusal it pinned before --fuse-kind
-    # stream ran (tests/test_torch_stream.py); it pins one beside it that
-    # still holds.
-    pytest.param(["--fuse", "4", "--fuse-kind", "stream", "--dtype",
-                  "bfloat16"], NotImplementedError, "B1/B3",
+    # These ids keep their names from the refusals they pinned before
+    # --fuse-kind stream ran and before bfloat16 ran on the stream and
+    # raw-step kernels (tests/test_torch_stream.py, test_torch_bf16.py);
+    # each pins a bfloat16 refusal beside it that still holds: the
+    # unsharded fused kernel K3 (B3) and the compute_fn kernel K4 (B2).
+    pytest.param(["--fuse", "4", "--fuse-kind", "padfree", "--dtype",
+                  "bfloat16"], NotImplementedError, "ROADMAP B3",
                  id="extra3-NotImplementedError-B5"),
-    (["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError, "B1/B3"),
-    (["--compute", "pallas", "--dtype", "bfloat16"], NotImplementedError,
-     "B1/B3"),
+    pytest.param(["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError,
+                 "ROADMAP B3", id="extra4-NotImplementedError-B1/B3"),
+    pytest.param(["--compute", "pallas", "--periodic", "--dtype",
+                  "bfloat16"], NotImplementedError, "ROADMAP B2",
+                 id="extra5-NotImplementedError-B1/B3"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "ROADMAP"),
     # This id keeps its name from the refusal it pinned before the patch
     # init ran (ROADMAP A2, tests/test_torch_reaction_advection.py); patch
@@ -318,13 +322,15 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
     # they pinned before --fuse --overlap (B4 row 7), --fuse-kind padfree
     # on a y-sharded mesh (row 9) and --fuse-kind stream (B5) ran; those
     # run in tests/test_torch_twoaxis.py and tests/test_torch_stream.py
-    # now, and these cases pin refusals beside them that still hold.
+    # now, and these cases pin refusals beside them that still hold.  Since
+    # bfloat16 runs on the stream kind, extra1 pins its overlap shells (K3,
+    # B3) and extra2 the pad-free kernel K9 (B4), each by its own item.
     pytest.param(["--mesh", "2,2", "--fuse", "4", "--overlap",
                   "--fuse-kind", "stream", "--dtype", "bfloat16"],
-                 NotImplementedError, "B1/B3",
+                 NotImplementedError, "ROADMAP B3",
                  id="extra1-NotImplementedError-B4"),
     pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
-                  "--dtype", "bfloat16"], NotImplementedError, "B1/B3",
+                  "--dtype", "bfloat16"], NotImplementedError, "ROADMAP B4",
                  id="extra2-NotImplementedError-row 9"),
     (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "tiled"], ValueError,
      "--fuse-kind"),

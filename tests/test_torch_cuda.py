@@ -13,7 +13,10 @@ for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
 ``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
 K8), the streaming kernel (K10, against its plain version), every SOR
 kind and the ring exchange (``ops/cuda/remote.py``, with its drained
-counters read after every launch) bit-equal.
+counters read after every launch) bit-equal.  The bfloat16 kinds of K1,
+K2, Gray-Scott's raw step, K10 and the ring exchange are held to their
+plain versions on bfloat16 tensors bit for bit (max |d| = 0): every op
+rounds to bfloat16 as the plain op does.
 The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
 K10, K8's sharded mode) run on meshes of virtual shards on one card.
 """
@@ -102,8 +105,9 @@ def test_fused_kernel_matches_plain(dev, name, k, shape, periodic):
 def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
     st = port.make_stencil("heat3d")
     u = torch.rand(16, 16, 64, device=dev)
+    # bfloat16 runs since the kernels gained its kind; float16 does not
     with pytest.raises(TypeError, match="float32"):
-        rawstep.raw_step_heat(u.to(torch.bfloat16), st)
+        rawstep.raw_step_heat(u.to(torch.float16), st)
     with pytest.raises(ValueError, match="contiguous"):
         rawstep.raw_step_heat(u.transpose(0, 2), st)
     with pytest.raises(ValueError, match="shape"):
@@ -314,7 +318,7 @@ def test_stream_kernel_matches_plain(dev, name, k, shape):
     assert dict(streamfused.launches) == {f"stream_step[{name}]": 1}
     _check(got, ref, st.halo, 0.0)
     with pytest.raises(TypeError, match="float32"):
-        streamfused.stream_step(tuple(f.to(torch.bfloat16) for f in fields),
+        streamfused.stream_step(tuple(f.to(torch.float16) for f in fields),
                                 st, k)
 
 
@@ -970,15 +974,17 @@ def test_ring_exchange_kernel_matches_plain(dev, mesh_shape, shape, nslots,
 
 
 def test_ring_exchange_refuses_bf16_and_unknown_rings(dev):
+    """bfloat16 slabs run since the kernel gained its 2-byte unit
+    (test_bf16_ring_exchange_matches_plain); other types and rings that
+    are not permutations are refused."""
     shape = (4, 64, 128)
-    with pytest.raises(NotImplementedError, match="B1/B3"):
-        remote.build_ring_exchange_call(shape, torch.bfloat16, device=dev)
+    remote.build_ring_exchange_call(shape, torch.bfloat16, device=dev)
     call, _ = remote.build_ring_exchange_call(shape, torch.float32,
                                               device=dev)
     slabs = [_pieces(shape, dev, i) for i in range(2)]
-    with pytest.raises(TypeError, match="B1/B3"):
-        call([s.to(torch.bfloat16) for s in slabs],
-             [s.to(torch.bfloat16) for s in slabs], [1, 0], [1, 0])
+    with pytest.raises(TypeError, match="float32"):
+        call([s.to(torch.float16) for s in slabs],
+             [s.to(torch.float16) for s in slabs], [1, 0], [1, 0])
     with pytest.raises(ValueError, match="inverse permutations"):
         call(slabs, slabs, [0, 0], [1, 0])
 
@@ -1016,3 +1022,149 @@ def test_rdma_sharded_step_matches_ppermute(dev, name, k, mesh_shape,
             assert not remote.launches
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---- bfloat16: K1, K2, Gray-Scott's raw step, K10, the ring ----------------
+
+BF16 = torch.bfloat16
+RAW_BF16 = ["heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
+            "grayscott3d"]
+
+
+def _bf16_stencil(name):
+    if name == "advect3d":  # both upwind directions
+        return port.make_stencil(name, cx=-0.3, cy=0.2, cz=-0.25,
+                                 dtype="bfloat16")
+    return port.make_stencil(name, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", RAW_BF16)
+def test_bf16_raw_step_kernel_matches_plain(dev, name, shape):
+    """The bfloat16 kinds of K1 (four tap sets), K2 and raw_step_grayscott
+    == the plain bfloat16 step, bit for bit, two steps."""
+    st = _bf16_stencil(name)
+    fields = tuple(f.to(BF16) for f in _fields(st, shape, dev, 51))
+    plain = driver.make_step(st, shape)
+    raw = rawstep.make_raw_step(st, shape, device=dev)
+    ref, got = fields, fields
+    rawstep.launches.clear()
+    for _ in range(2):
+        ref, got = plain(ref), raw(got)
+    torch.cuda.synchronize()
+    assert sum(rawstep.launches.values()) == 2
+    assert all(key.endswith(",bfloat16]") for key in rawstep.launches)
+    _check(got, ref, st.halo, 0.0)
+
+
+BF16_STREAM = [("heat3d", 4), ("heat3d27", 4), ("heat3d4th", 2),
+               ("wave3d", 1), ("wave3d", 4), ("advect3d", 4),
+               ("grayscott3d", 4), ("sor3d", 2), ("heat3d", 8)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + [(68, 76, 130)])
+@pytest.mark.parametrize("name,k", BF16_STREAM)
+def test_bf16_stream_kernel_matches_plain(dev, name, k, shape):
+    """K10's bfloat16 kind over the whole grid (row 16) == k plain
+    bfloat16 steps, bit for bit."""
+    st = _bf16_stencil(name)
+    fields = tuple(f.to(BF16) for f in _fields(st, shape, dev, 53))
+    ref = fused.plain_steps(fields, st, k)
+    streamfused.launches.clear()
+    got = streamfused.make_stream_fused_step(st, shape, k, device=dev)(fields)
+    torch.cuda.synchronize()
+    assert dict(streamfused.launches) == {f"stream_step[{name},bfloat16]": 1}
+    _check(got, ref, st.halo, 0.0)
+
+
+@pytest.mark.parametrize("local,origins", [((24, 32, 40), (0, 0)),
+                                           ((19, 21, 45), (19, 21))])
+@pytest.mark.parametrize("name,k", BF16_STREAM[:-1])
+def test_bf16_stream_slab_kernels_match_plain(dev, name, k, local, origins):
+    """K10's bfloat16 kind on a z-only shard (row 17) and a shard of a
+    mesh that shards y (row 18), on random bfloat16 pieces, bit for bit."""
+    st = _bf16_stencil(name)
+    m = k * st.halo * (2 if name == "sor3d" else 1)
+    Lz, Ly, X = local
+    gshape = (3 * Lz, 3 * Ly, X)
+    seed = iter(range(500, 600))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed)).to(BF16)
+                     for _ in range(st.num_fields))
+
+    core = per_field(local)
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    streamfused.launches.clear()
+    got = streamfused.stream_zslab(core, zlo, zhi, st, k, gshape[0],
+                                   origins[0])
+    ref = fused.plain_zslab(core, zlo, zhi, st, k, gshape[0], origins[0])
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    args = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, origins)
+    got = streamfused.stream_yzslab(*args)
+    ref = fused.plain_yzslab(*args)
+    torch.cuda.synchronize()
+    _check(got, ref, None, 0.0)
+    assert dict(streamfused.launches) == {
+        f"stream_zslab[{name},bfloat16]": 1,
+        f"stream_yzslab[{name},bfloat16]": 1}
+
+
+@pytest.mark.parametrize("mesh_shape", [(4,), (2, 2)])
+@pytest.mark.parametrize("shape", RING_SHAPES + [(4, 7, 129)])
+def test_bf16_ring_exchange_matches_plain(dev, shape, mesh_shape):
+    """The ring exchange on bfloat16 slabs (16-byte units where they align,
+    2-byte units where not: (3, 5, 130), (4, 7, 129)) == its plain version
+    and the ring shift, bit for bit, three launches, counters drained."""
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    for axis in (0, 1):
+        if mesh.counts(3)[axis] == 1:
+            continue
+        nxt, prv = _ring(mesh, axis)
+        hi = [_pieces(shape, dev, 700 + i).to(BF16) for i in range(4)]
+        lo = [_pieces(shape, dev, 750 + i).to(BF16) for i in range(4)]
+        call, meta = remote.build_ring_exchange_call(shape, BF16,
+                                                     device=dev)
+        assert (meta["chunk_axis"], meta["nchunks"]) == remote.pick_chunks(
+            shape, 2)
+        ref = remote.plain_ring_exchange(
+            [h.cpu() for h in hi], [x.cpu() for x in lo], nxt, prv, meta,
+            remote.RingState(meta, 4, "cpu", BF16))
+        for _ in range(3):
+            remote.launches.clear()
+            got = call(hi, lo, nxt, prv)
+            torch.cuda.synchronize()
+            assert dict(remote.launches) == {
+                f"ring_exchange[{'x'.join(map(str, shape))},bfloat16]": 1}
+            call.state.check_drained(meta)
+            for i in range(4):
+                assert torch.equal(got[0][i].cpu(), ref[0][i])
+                assert torch.equal(got[1][i].cpu(), ref[1][i])
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (4,)])
+@pytest.mark.parametrize("name", ["wave3d", "grayscott3d"])
+def test_bf16_rdma_sharded_step_matches_ppermute(dev, name, mesh_shape):
+    """The stream kind's sharded step on bfloat16 fields through the ring
+    kernel == the in-process exchange, bit for bit, two calls."""
+    st = _bf16_stencil(name)
+    shape = (48, 48, 40)
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(tuple(f.to(BF16) for f in
+                                _fields(st, shape, dev, 57)), mesh, 3)
+    outs = []
+    for exchange in ("ppermute", "rdma"):
+        step = make_sharded_fused_step(st, mesh, shape, 4, kind="stream",
+                                       exchange=exchange, device=dev)
+        remote.launches.clear()
+        f = fields
+        for _ in range(2):
+            f = step(f)
+        outs.append(gather_fields(f))
+        torch.cuda.synchronize()
+        assert bool(remote.launches) == (exchange == "rdma")
+    for a, b in zip(*outs):
+        assert a.dtype == BF16 and torch.equal(a, b)

@@ -66,7 +66,14 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      (68, 76, 130) and 512^3, ZSLAB on one shard of 1024^3 --mesh 4 and
      YZSLAB on one of 1024^3 --mesh 2,2, every family; the ring exchange
      at the f32 sites, config 5's (4, 4096, 4096) z-slab site and a ragged
-     one (2-byte units).  Tolerances:
+     one (2-byte units); K3 (RAW at (66, 70, 130) and 512^3; PADDED on a
+     shard's padded block), its overlap shells, K6 and K9 (a shard's
+     random core, slabs and corners of a (128, 128, 256) grid and of
+     512^3), every family at its bfloat16 k (8; heat3d4th and sor3d 4),
+     guard-frame and periodic.  K6 and K9 for advection (both Courant
+     signs) and Gray-Scott in float32: on random pieces for k = 1..4 and
+     through their sharded steps (--mesh 4, 2x2, 1x4, with and without the
+     shells), bit for bit.  Tolerances:
      raw step atol = 32 eps
      max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
@@ -126,7 +133,9 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      (K10's z-slab kind of the two families); at 16384^2, 96 iterations, advect2d
      (--param cx=-0.4) and grayscott2d with --compute jnp and --fuse 8
      (K8), and grayscott2d --mesh 4 --fuse 8 with and without --overlap,
-     each against the unsharded runs as above.  Red-black SOR: sor3d at
+     each against the unsharded runs as above; and their pad-free kinds at
+     512^3, --mesh 2,2 (K9) and --mesh 4 (K6) --fuse 4 --fuse-kind
+     padfree, each with and without --overlap.  Red-black SOR: sor3d at
      1024^3, 20 iterations, --mesh 2,2 with --compute jnp, --fuse 4 (K3
      sharded) with and without --overlap, --fuse-kind padfree (K9) and
      stream (K10), and --mesh 4 padfree (K6) and stream; sor2d at 16384^2,
@@ -134,15 +143,24 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      --overlap, each against its unsharded same-mode and plain runs;
   5b. the bfloat16 main path (``cli.run()``): every K10 family at 512^3
      for 8 iterations with --compute pallas (the raw kinds), the stream
-     kind unsharded, on --mesh 4 and on --mesh 2,2 --exchange rdma;
-     heat3d and wave3d at 1024^3 for 100 iterations with --compute pallas,
-     the stream kind and --mesh 2,2 stream with and without --exchange
-     rdma, beside their f32 twins' ms/step; every kernel run bit-equal to
-     the plain bf16 run of the same grid, its bf16 launch counters exact;
+     kind unsharded, on --mesh 4 and on --mesh 2,2 --exchange rdma, and
+     --fuse 8 (K3; heat3d4th and sor3d --fuse 4), advect3d and
+     grayscott3d also --fuse 8 --fuse-kind padfree on --mesh 2,2 (K9) and
+     --mesh 4 (K6), each with and without --overlap; heat3d and wave3d at
+     1024^3 for 100 iterations with --compute pallas, the stream kind and
+     --mesh 2,2 stream with and without --exchange rdma, and for 96
+     iterations with --fuse 8 unsharded, on --mesh 2,2 (padded, pad-free
+     and stream, each with and without --overlap) and --mesh 4 pad-free
+     (K6), beside their f32 twins' ms/step; every kernel run bit-equal to
+     the plain bf16 run of the same grid, every --overlap run to its
+     non-overlap twin, its bf16 launch counters exact;
   5c. BASELINE config 5: the rehearsal line of tests/test_cli.py:422-424
      (wave3d 192x64x128 --mesh 8,1,1 --fuse 4 --fuse-kind stream --dtype
      bfloat16 --mem-check error) on 8 virtual shards against the plain bf16
-     run at atol 1e-3; then one card's share of the full-width run, four
+     run at atol 1e-3, and with --overlap, which must log the fallback to
+     the non-split step (its K3 shells would have m = 4, off bfloat16's
+     alignment unit) and equal the line without it bit for bit; then one
+     card's share of the full-width run, four
      of its 64 (64, 4096, 4096) shards (--grid 256,4096,4096 --mesh 4,1,1,
      40 iterations, --mem-check error), with and without --exchange rdma,
      each bit-equal to the unsharded stream run, printed with its ms/step,
@@ -165,8 +183,12 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      re-pin, beside whole fused steps of each kind with and without
      --overlap.  The bfloat16 kinds at the same shapes (bytes at 2 B a cell;
      F.conv3d in bfloat16 beside K1 and K2, one copy_ per slab beside the
-     ring, at the 1024^3 2x2 sites and config 5's z-slab site), and K10's
-     advect3d and grayscott3d z-slab kind on a --mesh 4 shard of 512^3.
+     ring, at the 1024^3 2x2 sites and config 5's z-slab site), K10's
+     advect3d and grayscott3d z-slab kind on a --mesh 4 shard of 512^3;
+     K3 in bfloat16 at 512^3 for every family, its sharded mode, one hi z
+     shell and K9 on a 2x2 shard and K6 on a --mesh 4 shard of 1024^3
+     (heat3d, wave3d, k = 8), and K6 and K9 of advect3d and grayscott3d
+     on the shards of 512^3 (float32 k = 4, bfloat16 k = 8).
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -223,11 +245,14 @@ TWIN = {**OVERLAP_BASE, **RDMA_BASE}
 # main path at MAIN (--compute jnp, pallas, --fuse k, --fuse k --fuse-kind
 # stream) and (stencil, grid, iterations, fuse k, overlapped and ring
 # modes) of the sharded one (--mesh 2,2 jnp, --fuse k, the stream kind with
-# and without --exchange rdma; their pad-free kinds raise: ROADMAP B4).
+# and without --exchange rdma, the pad-free kinds on --mesh 2,2 (K9) and
+# --mesh 4 (K6), each with and without --overlap).
 NEW_MAIN_RUNS = (("advect3d", 40, 4), ("grayscott3d", 40, 4))
-NEW_MESH_RUNS = (("advect3d", MAIN, ITERS, 4, ("fuse_overlap", "rdma_yz")),
-                 ("grayscott3d", MAIN, ITERS, 4, ("fuse_overlap",
-                                                  "rdma_yz")))
+NEW_PADFREE = ("padfree_overlap", "yzslab_overlap")
+NEW_MESH_RUNS = (("advect3d", MAIN, ITERS, 4, ("fuse_overlap", "rdma_yz")
+                  + NEW_PADFREE),
+                 ("grayscott3d", MAIN, ITERS, 4, ("fuse_overlap", "rdma_yz")
+                  + NEW_PADFREE))
 NEW_FAMILIES = ("advect3d", "grayscott3d", "advect2d", "grayscott2d")
 # Red-black SOR: (stencil, iterations, fuse k) of the unsharded main path at
 # MAIN (--compute jnp, --fuse k and its stream kind: SOR has no raw-step or
@@ -261,6 +286,16 @@ BF16_FAMILIES = (("heat3d", 4), ("heat3d27", 4), ("heat3d4th", 2),
                  ("wave3d", 4), ("advect3d", 4), ("grayscott3d", 4),
                  ("sor3d", 2))
 BF16_ITERS = 8
+# The bfloat16 k of each family on K3, K6 and K9 (the window alignment, 2m
+# a multiple of 16): --fuse 8 for the halo-1 families, 4 for heat3d4th and
+# sor3d, every family at 512^3 for BF16_ITERS; heat3d and wave3d also at
+# 1024^3 for ITERS16K (a multiple of 8) unsharded, on --mesh 2,2 padded and
+# pad-free with and without --overlap, the stream kind with --overlap, and
+# --mesh 4 pad-free, beside their f32 --fuse 4 twins of phase 5;
+# advect3d and grayscott3d also pad-free on --mesh 2,2 and --mesh 4 at
+# 512^3, with and without --overlap.
+BF16_FUSE = {"heat3d": 8, "heat3d27": 8, "heat3d4th": 4, "wave3d": 8,
+             "advect3d": 8, "grayscott3d": 8, "sor3d": 4}
 # BASELINE config 5 (wave3d 4096^3 bf16 on 64 chips, z-sharded, --fuse 4
 # --fuse-kind stream): the rehearsal line of tests/test_cli.py:422-424 on 8
 # virtual shards, and one card's share of the full-width run, 4 of its 64
@@ -505,6 +540,17 @@ def main() -> int:
             cases += [("shell", label, (128, 128, 256), 4, periodic, (2, 2)),
                       ("overlap_padded", label, (128, 128, 256), 4, periodic,
                        (2, 2))]
+        # their pad-free kinds, K6 and K9 (four buffers for Gray-Scott,
+        # both fields' slabs and corners), with and without the shells
+        for periodic in (False, True):
+            for shape in ((128, 128, 256), (68, 76, 130)):
+                cases += [("zslab", label, shape, 4, periodic, (4,)),
+                          ("yzslab", label, shape, 4, periodic, (2, 2)),
+                          ("yzslab", label, shape, 4, periodic, (1, 4))]
+            cases += [("overlap_zslab", label, (128, 128, 256), 4, periodic,
+                       (4,)),
+                      ("overlap_yzslab", label, (128, 128, 256), 4, periodic,
+                       (2, 2))]
     # K10's advection and Gray-Scott kinds (every level keeps rings for u
     # and v): the whole grid, one shard's random pieces (z-only mesh of 4,
     # 2x2, 1x4) for k = 1..4 and at the main path's 512^3, bit for bit; the
@@ -709,8 +755,9 @@ def main() -> int:
                 entry = f"fused_step<{name}>"
                 atol = 1e-4
             del fields
-        if name in SOR:
-            atol = 0.0  # the SOR kinds are held bit for bit
+        if name in SOR or (name in ("advect3d", "grayscott3d") and path in (
+                "zslab", "yzslab", "overlap_zslab", "overlap_yzslab")):
+            atol = 0.0  # SOR and the new pad-free kinds: bit for bit
         torch.cuda.synchronize()
         err = compare(entry, got, ref, atol, frame, rtol)
         checked.append({"kernel": entry, "label": label,
@@ -930,6 +977,95 @@ def main() -> int:
         err = compare(entry, got, ref, 0.0, frame)
         checked.append({"kernel": entry, "label": label,
                         "shape": list(shape), "k": k, "dtype": BF16,
+                        "max_abs_err": err, "atol": 0.0})
+        del got, ref
+    # K3 (RAW; PADDED on one shard's padded block), its overlap shells, K6
+    # and K9 (one shard's random core, slabs and corners) in bfloat16,
+    # every family at its BF16_FUSE k, guard frame and periodic, at
+    # (66, 70, 130) (RAW) or a (128, 128, 256) grid's shards and at 512^3;
+    # and K6 and K9 in float32 for advection (both Courant signs) and
+    # Gray-Scott at k = 1..4: all bit for bit against the plain versions
+    fcases = []
+    for label in ("heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
+                  "advect3d-mixed", "grayscott3d", "sor3d"):
+        k = BF16_FUSE[label.partition("-")[0]]
+        for periodic in (False, True):
+            fcases.append(("fused_step", label, bf16, (66, 70, 130), k,
+                           periodic))
+            fcases += [(w, label, bf16, (128, 128, 256), k, periodic)
+                       for w in ("fused_step_padded", "fused_shell",
+                                 "fused_zslab", "fused_yzslab")]
+        fcases += [(w, label, bf16, MAIN, k, False)
+                   for w in ("fused_step", "fused_step_padded",
+                             "fused_zslab", "fused_yzslab")]
+    for label in ("advect3d", "advect3d-mixed", "grayscott3d"):
+        for shape in ((128, 128, 256), (68, 76, 130)):
+            fcases += [(w, label, torch.float32, shape, kk, periodic)
+                       for w in ("fused_zslab", "fused_yzslab")
+                       for kk in (1, 2, 3, 4) for periodic in (False, True)]
+    for wrapper, label, dt, shape, k, periodic in fcases:
+        st = case_stencil(label, BF16 if dt == bf16 else None)
+        name, nf, m = st.name, st.num_fields, k_step_margin(st, k)
+        Z, Y, X = shape
+        Lz, Ly = Z // 2, Y // 2
+
+        def pieces(s, dt=dt, nf=nf):
+            return tuple(rand(s).to(dt) for _ in range(nf))
+
+        frame = None
+        if wrapper == "fused_step":
+            fields = pieces(shape)
+            got = fused.fused_step(fields, st, k, periodic=periodic)
+            ref = fused.plain_steps(fields, st, k, periodic)
+            frame = None if periodic else frame_of(shape, st.halo)
+            del fields
+        elif wrapper == "fused_step_padded":
+            # shard (1, 0) of a 2x2 mesh: a wall on y, a neighbour on z
+            padded = pieces((Lz + 2 * m, Ly + 2 * m, X))
+            got = fused.fused_step_padded(padded, st, k, shape, (Lz, 0),
+                                          periodic)
+            ref = fused.plain_step_padded(padded, st, k, shape, (Lz, 0),
+                                          periodic)
+            del padded
+        elif wrapper == "fused_shell":
+            # the hi z and y shells of shard (1, 1) of a 2x2 mesh
+            local = (Lz, Ly, X)
+            shells = fused.build_overlap_shell_calls(
+                st, local, shape, k, (0, 1), periodic=periodic, device=dev)
+            got, ref = [], []
+            for d in (0, 1):
+                pshape = [Lz + 2 * m, Ly + 2 * m, X]
+                pshape[d] = 4 * m
+                strips = pieces(tuple(pshape))
+                org = [Lz, Ly]
+                org[d] += local[d] - 2 * m
+                got += shells[d](*strips) if periodic else \
+                    shells[d](tuple(org), *strips)
+                ref += fused.plain_step_padded(strips, st, k, shape, org,
+                                               periodic)
+            del strips
+        elif wrapper == "fused_zslab":
+            # the second shard of a z-only mesh of 4
+            core = pieces((Z // 4, Y, X))
+            lo, hi = pieces((m, Y, X)), pieces((m, Y, X))
+            args = (core, lo, hi, st, k, Z, Z // 4, periodic)
+            got, ref = fused.fused_zslab(*args), fused.plain_zslab(*args)
+            del core, lo, hi, args
+        else:
+            # shard (1, 0) of a 2x2 mesh
+            args = (pieces((Lz, Ly, X)), pieces((m, Ly, X)),
+                    pieces((m, Ly, X)), pieces((Lz, m, X)),
+                    pieces((Lz, m, X)), [pieces((m, m, X)) for _ in range(4)],
+                    st, k, shape, (Lz, 0), periodic)
+            got, ref = fused.fused_yzslab(*args), fused.plain_yzslab(*args)
+            del args
+        torch.cuda.synchronize()
+        tag = f"{name},{BF16}" if dt == bf16 else name
+        entry = f"{wrapper}<{tag}>"
+        err = compare(entry, got, ref, 0.0, frame)
+        checked.append({"kernel": entry, "label": label,
+                        "shape": list(shape), "k": k, "periodic": periodic,
+                        "dtype": str(dt).replace("torch.", ""),
                         "max_abs_err": err, "atol": 0.0})
         del got, ref
     for mshape, axis, shape in sites + [((4,), 0, (4, 4096, 4096)),
@@ -1296,10 +1432,11 @@ def main() -> int:
         modes = [md for md in modes if md[0] in overlapped or (
             md[0] not in TWIN
             and (big or new_family or md[0] not in ("padfree", "stream_z")))]
-        if new_family:  # no pad-free kind (B4)
+        if new_family:  # no compute_fn kernel, no one-step overlap
             modes = [md for md in modes
                      if md[0] in ("jnp", "fuse", "fuse_overlap", "stream_yz",
-                                  "rdma_yz", "stream_z")]
+                                  "rdma_yz", "stream_z", "padfree",
+                                  "yzslab") + NEW_PADFREE]
         if stencil in NO_COMPUTE_FN:  # no compute_fn kernel: no pallas
             modes = [md for md in modes if md[0] != "pallas"]
         kept = {}
@@ -1536,6 +1673,43 @@ def main() -> int:
                 f"ring_exchange[{Lz}x{m}x{X},{BF16}]": nf * passes,
                 f"ring_exchange[{m}x{m}x{X},{BF16}]": 2 * nf * passes}
 
+    def fuse_modes(name, kf, passes, group):
+        """The K3 / K6 / K9 modes of a bf16 run at --fuse kf: ``group``
+        "main" (unsharded K3; advect3d and grayscott3d also pad-free on
+        --mesh 2,2 and --mesh 4 with and without --overlap) or "big" (the
+        1024^3 runs: unsharded, --mesh 2,2 padded, pad-free and stream
+        with and without --overlap, --mesh 4 pad-free).  Shells: one a
+        face of each sharded axis and shard."""
+        def key(w):
+            return f"{w}[{name},{BF16}]"
+
+        fuse = ("--fuse", str(kf))
+        m22 = ("--mesh", "2,2") + fuse
+        yz22 = m22 + ("--fuse-kind", "padfree")
+        z4 = ("--mesh", "4") + fuse + ("--fuse-kind", "padfree")
+        over = ("--overlap",)
+        shell22 = {key("fused_shell"): 16 * passes}
+        modes = [("fuse", fuse, {key("fused_step"): passes})]
+        if group == "big":
+            modes += [("fuse22", m22, {key("fused_step_padded"): 4 * passes}),
+                      ("fuse22_overlap", m22 + over,
+                       {key("fused_step_padded"): 4 * passes, **shell22}),
+                      ("stream_yz", m22 + ("--fuse-kind", "stream"),
+                       {key("stream_yzslab"): 4 * passes}),
+                      ("stream_yz_overlap", m22 + ("--fuse-kind", "stream")
+                       + over, {key("stream_yzslab"): 4 * passes,
+                                **shell22})]
+        if group == "big" or name in ("advect3d", "grayscott3d"):
+            modes += [("yzslab", yz22, {key("fused_yzslab"): 4 * passes}),
+                      ("yzslab_overlap", yz22 + over,
+                       {key("fused_yzslab"): 4 * passes, **shell22}),
+                      ("padfree", z4, {key("fused_zslab"): 4 * passes})]
+        if name in ("advect3d", "grayscott3d"):
+            modes.append(("padfree_overlap", z4 + over,
+                          {key("fused_zslab"): 4 * passes,
+                           key("fused_shell"): 8 * passes}))
+        return modes
+
     def bf16_modes(name, k, grid, iters, big):
         st = make_stencil(name, dtype=BF16)
         m, nf, passes = k_step_margin(st, k), st.num_fields, iters // k
@@ -1560,15 +1734,35 @@ def main() -> int:
                       ("rdma_yz", ("--mesh", "2,2") + stream + rdma,
                        {key("stream_yzslab"): 4 * passes,
                         **ring_sites(grid, "2,2", m, nf, passes)})]
+            kf = BF16_FUSE[name]
+            modes += fuse_modes(name, kf, iters // kf, "main")
         return st, modes
 
-    for name, k, grid, iters in (
-            [(n, k, MAIN, BF16_ITERS) for n, k in BF16_FAMILIES]
-            + [("heat3d", 4, BIG, ITERS), ("wave3d", 4, BIG, ITERS)]):
+    def f32_twin(name, grid, flags):
+        """The ms/step of a run's float32 twin in phase 5: the same grid
+        and flags, at the float32 k (--fuse 4) where the bf16 run takes
+        --fuse 8."""
+        want = list(flags)
+        for i in range(len(want) - 1):
+            if want[i] == "--fuse" and want[i + 1] == "8":
+                want[i + 1] = "4"
+        twin = [t for t in mesh_results if t["stencil"] == name
+                and t["grid"] == list(grid) and t["flags"] == want]
+        return twin[0]["ms_per_step"] if twin else None
+
+    runs16 = ([(n, k, MAIN, BF16_ITERS, None) for n, k in BF16_FAMILIES]
+              + [(n, 4, BIG, ITERS, None) for n in ("heat3d", "wave3d")]
+              + [(n, 8, BIG, ITERS16K, "big") for n in ("heat3d", "wave3d")])
+    for name, k, grid, iters, group in runs16:
         big = grid == BIG
-        st, modes = bf16_modes(name, k, grid, iters, big)
+        if group:
+            st = make_stencil(name, dtype=BF16)
+            modes = fuse_modes(name, k, iters // k, group)
+        else:
+            st, modes = bf16_modes(name, k, grid, iters, big)
         ref, r = run_cli(name, grid, iters, "--compute", "jnp", *dt16)
         bf16_results.append(r)
+        kept = {}  # the non-overlap run each --overlap run must equal
         for label, flags, want in modes:
             got, r = run_cli(name, grid, iters, *flags, *dt16)
             if r["launches"] != want:
@@ -1577,15 +1771,22 @@ def main() -> int:
             err = (block_err(got, ref, st.halo, f"{name} bf16 {label}")
                    if stepper.is_sharded(got) else err_whole(got, ref))
             check(r, err, 0.0, "plain bf16 run")
-            if big:  # the f32 twin of phase 5: same grid, flags, iters
-                twin = [t for t in mesh_results if t["stencil"] == name
-                        and t["grid"] == list(grid)
-                        and t["flags"] == list(flags)]
-                r["f32_twin_ms_per_step"] = (twin[0]["ms_per_step"]
-                                             if twin else None)
+            base = label[:-len("_overlap")] if label.endswith("_overlap") \
+                else None
+            if base in kept:
+                if not all(torch.equal(x, y) for a, b in zip(got, kept[base])
+                           for x, y in zip(a, b)):
+                    fail(f"{name} bf16 {label}: differs from {base}")
+                r["bit_equal_to_non_overlap"] = True
+                del kept[base]
+            elif any(md[0] == f"{label}_overlap" for md in modes):
+                kept[label] = got
+            if big or name in ("advect3d", "grayscott3d"):
+                # the f32 twin of phase 5 (same grid and flags, f32 k)
+                r["f32_twin_ms_per_step"] = f32_twin(name, grid, flags)
             bf16_results.append(r)
             del got
-        del ref
+        del ref, kept
         torch.cuda.empty_cache()
     emit({"phase": "bf16_main_path", "ok": True, "seconds": took(),
           "note": "every kernel run bit-equal to the plain bf16 run",
@@ -1606,7 +1807,22 @@ def main() -> int:
     check(r, block_err(got, ref, 1, "config 5 rehearsal"), 1e-3,
           "plain bf16 run")
     c5["rehearsal"] = r
-    del got, ref
+    # with --overlap: the K3 shells would have m = 4, off bfloat16's
+    # alignment unit, so the run logs the fallback (as the JAX CLI does)
+    # and runs the non-split step: bit-equal to the line without it
+    lines.clear()
+    over, r = run_cli("wave3d", rgrid, 8, *flags, "--overlap", init="auto")
+    if not any("cannot host the interior/boundary split" in ln
+               for ln in lines):
+        fail("config 5 rehearsal --overlap: no fallback line logged")
+    if r["launches"] != {f"stream_zslab[wave3d,{BF16}]": 16}:
+        fail(f"config 5 rehearsal --overlap: launches {r['launches']}")
+    if not all(torch.equal(x, y) for a, b in zip(over, got)
+               for x, y in zip(a, b)):
+        fail("config 5 rehearsal --overlap differs from the line without it")
+    r.update(fallback_logged=True, bit_equal_to_non_overlap=True)
+    c5["rehearsal_overlap"] = r
+    del got, ref, over
     # one card's share of the full-width run: 4 of 64 shards, 1.07e9
     # cells each, against the unsharded stream run of the same grid
     os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
@@ -2527,6 +2743,98 @@ def main() -> int:
             nslots=meta["nslots"], blocks=call.state.blocks)
         del hi, lo, outs, call
         torch.cuda.empty_cache()
+    # K3, its shells, K6 and K9 in bfloat16 at the shapes of their main-path
+    # runs (bytes at 2 B a cell): K3 RAW at 512^3, every family at its
+    # BF16_FUSE k; K3's sharded mode, one hi z shell and K9 on a 2x2 shard
+    # and K6 on a --mesh 4 shard of 1024^3 (heat3d, wave3d, k = 8); and
+    # the pad-free kinds of advect3d and grayscott3d on the shards of
+    # 512^3, float32 k = 4 and bfloat16 k = 8
+    def micro_of(name):
+        return TPU + {"advect3d": "fused.py:184", "grayscott3d": "fused.py:203",
+                      "sor3d": "fused.py:224"}.get(name, "fused.py:280")
+
+    def time_slabs(name, st, k, grid, padded=False):
+        """K9 on one 2x2 shard and K6 on one --mesh 4 shard of ``grid``
+        (with ``padded`` also K3's sharded mode and one hi z shell of the
+        2x2 shard), each beside its plain version, recorded."""
+        isz, nf, m = st.dtype.itemsize, st.num_fields, k_step_margin(st, k)
+        dtype = BF16 if st.dtype == bf16 else None
+        tag = f"{name},{BF16}" if dtype else name
+        flops = FLOPS_PER_CELL[name] * k
+
+        def pieces(shape):
+            return tuple(rand(shape).to(st.dtype) for _ in range(nf))
+
+        Lz, Ly, X = local = (grid[0] // 2, grid[1] // 2, grid[2])
+        lcells = math.prod(local)
+        if padded:
+            pshape = (Lz + 2 * m, Ly + 2 * m, X)
+            ins = pieces(pshape)
+            ms = time_ms(lambda: fused.fused_step_padded(ins, st, k, grid,
+                                                         (0, 0)), 10)
+            plain_ms = time_ms(lambda: fused.plain_step_padded(
+                ins, st, k, grid, (0, 0)), 1)
+            record(f"fused_step_padded<{tag}>", "fused_step_padded", name,
+                   "fused.cu", micro_of(name), ms, plain_ms,
+                   isz * nf * (math.prod(pshape) + lcells), flops * lcells,
+                   None, k, local, 4.0 / k, dtype=dtype)
+            del ins
+            shells = fused.build_overlap_shell_calls(st, local, grid, k,
+                                                     (0, 1), device=dev)
+            strips = pieces((4 * m, Ly + 2 * m, X))
+            org = (Lz - 2 * m, 0)
+            ms = time_ms(lambda: shells[0](org, *strips), 20)
+            plain_ms = time_ms(lambda: fused.plain_step_padded(
+                strips, st, k, grid, org), 2)
+            scells = 2 * m * Ly * X
+            record(f"fused_shell<{tag}>", "fused_shell", name, "fused.cu",
+                   TPU + "fused.py:1284", ms, plain_ms,
+                   isz * nf * (math.prod(strips[0].shape) + scells),
+                   flops * scells, None, k, (2 * m, Ly, X), 16.0 / k,
+                   dtype=dtype)
+            del strips
+        yz_args = (pieces(local), pieces((m, Ly, X)), pieces((m, Ly, X)),
+                   pieces((Lz, m, X)), pieces((Lz, m, X)),
+                   [pieces((m, m, X)) for _ in range(4)], st, k, grid, (0, 0))
+        ms = time_ms(lambda: fused.fused_yzslab(*yz_args), 10)
+        plain_ms = time_ms(lambda: fused.plain_yzslab(*yz_args), 1)
+        record(f"fused_yzslab<{tag}>", "fused_yzslab", name, "fused.cu",
+               TPU + "fused.py:562", ms, plain_ms,
+               isz * nf * (2 * lcells + 2 * m * X * (Ly + Lz + 2 * m)),
+               flops * lcells, None, k, local, 4.0 / k, dtype=dtype)
+        del yz_args
+        zl = (grid[0] // 4, grid[1], grid[2])
+        zcells = math.prod(zl)
+        core, lo, hi = pieces(zl), pieces((m,) + zl[1:]), pieces((m,) + zl[1:])
+        ms = time_ms(lambda: fused.fused_zslab(core, lo, hi, st, k, grid[0],
+                                               0), 10)
+        plain_ms = time_ms(lambda: fused.plain_zslab(core, lo, hi, st, k,
+                                                     grid[0], 0), 1)
+        record(f"fused_zslab<{tag}>", "fused_zslab", name, "fused.cu",
+               TPU + "fused.py:432", ms, plain_ms,
+               isz * nf * (2 * zcells + 2 * m * zl[1] * zl[2]),
+               flops * zcells, None, k, zl, 4.0 / k, dtype=dtype)
+        del core, lo, hi
+        torch.cuda.empty_cache()
+
+    for name, k in BF16_FUSE.items():
+        st = main_stencil(name, BF16)
+        nf = st.num_fields
+        fields = tuple(rand16(MAIN) for _ in range(nf))
+        kern = fused.make_fused_step(st, MAIN, k, device=dev)
+        ms = time_ms(lambda: kern(fields), 10)
+        plain_ms = time_ms(lambda: fused.plain_steps(fields, st, k), 1)
+        record(f"fused_step<{name},{BF16}>", "fused_step", name, "fused.cu",
+               micro_of(name), ms, plain_ms, 2 * nf * 2 * cells,
+               FLOPS_PER_CELL[name] * k * cells, None, k, MAIN, 1.0 / k,
+               dtype=BF16)
+        del fields
+        torch.cuda.empty_cache()
+    for name in ("heat3d", "wave3d"):
+        time_slabs(name, main_stencil(name, BF16), 8, BIG, padded=True)
+    for name in ("advect3d", "grayscott3d"):
+        time_slabs(name, main_stencil(name), 4, MAIN)
+        time_slabs(name, main_stencil(name, BF16), 8, MAIN)
     # CLI ms/step of every --exchange rdma run beside its ppermute twin
     rdma_vs_ppermute = []
     for r in mesh_results:

@@ -32,17 +32,18 @@ temporal-blocking kernel (3D: K3, its sharded mode under ``--mesh``, with
 with ``--fuse-kind stream`` the streaming kernel K10, unsharded or on any
 z/y mesh, there with ``--exchange rdma`` its slab exchanges through the
 ring-exchange kernel, and with ``--overlap`` the boundary shells beside the
-exchange; the pad-free kinds of advect3d and grayscott3d raise naming
-ROADMAP B4; 2D: K8, its sharded mode under a row-split ``--mesh``);
+exchange; 2D: K8, its sharded mode under a row-split ``--mesh``);
 ``--compute auto``/``jnp`` the plain tensor path.
 Red-black SOR (sor2d, sor3d) has no raw-step or compute_fn kernel, so
 ``--compute pallas`` raises for it as in the TPU package; it runs plain or
 through every ``--fuse`` kind, and ``--tol`` stops a run once its residual
 falls below the tolerance.
 ``--dtype bfloat16`` runs on the raw-step kernels (unsharded ``--compute
-pallas``), on the streaming kernel (``--fuse-kind stream``, unsharded or
-on a z/y mesh, with ``--exchange rdma``) and on the plain path; every other
-kernel path raises naming the ROADMAP item of its missing bfloat16 kind.
+pallas``), on every 3D ``--fuse K`` kind (K3 unsharded and sharded with its
+overlap shells, K6, K9 and K10, with ``--exchange rdma``; k with ``2*k*halo``
+a multiple of 16, as in the TPU package) and on the plain path; the 2D and
+compute_fn kernel paths raise naming the ROADMAP item of their missing
+bfloat16 kind.
 ``--mem-check`` (default ``error``) prices the run's device memory before
 any field is allocated and refuses with the arithmetic when it cannot fit
 the card (``utils/budget.py``; ``warn`` logs and goes on; skipped on the
@@ -91,12 +92,13 @@ _BF16_ITEMS = {
                   "12-13)",
     "compute_fn_2d": "ROADMAP B2 (bfloat16 whole-grid 2D compute_fn "
                      "kernel, row 14)",
-    "fused": "ROADMAP B3 (bfloat16 fused kernel K3, rows 5-6)",
     "fullgrid": "ROADMAP B6 (bfloat16 2D k-step kernel, row 15)",
 }
 # The kernels that take bfloat16 refuse the other types by their own item.
 _OTHER_DTYPE_ITEMS = {
     "raw": "ROADMAP B1 (the raw-step kernels take float32 and bfloat16)",
+    "fused": "ROADMAP B3 (the fused kernels K3, K6 and K9 take float32 and "
+             "bfloat16)",
     "stream": "ROADMAP B5 (the streaming kernel takes float32 and "
               "bfloat16)",
 }
@@ -319,10 +321,10 @@ def _kernel_dtype(st) -> torch.dtype:
 
 def _dtype_refusal(cfg: RunConfig, st, use_mesh: bool):
     """None where the run's kernel path takes the stencil's dtype, else
-    what is missing: the ROADMAP item of the path's bfloat16 kind.  The
-    raw-step kernels (unsharded ``--compute pallas``) and the streaming
-    kernel (``--fuse-kind stream``, unsharded or on a z/y mesh, with the
-    ring exchange) take bfloat16; the plain path takes any dtype."""
+    what is missing: the ROADMAP item of the path's bfloat16 kind, or of
+    the kernel that takes float32 and bfloat16 only.  The raw-step kernels
+    (unsharded ``--compute pallas``) and every 3D ``--fuse`` kind take
+    bfloat16; the plain path takes any dtype."""
     if not (cfg.fuse or cfg.compute == "pallas") or \
             st.dtype == _kernel_dtype(st):
         return None
@@ -333,13 +335,10 @@ def _dtype_refusal(cfg: RunConfig, st, use_mesh: bool):
         if use_mesh or cfg.periodic:
             return _BF16_ITEMS["compute_fn"]
         return None if bf16 else _OTHER_DTYPE_ITEMS["raw"]
-    if use_mesh:  # the sharded kinds (stepper.bf16_item)
-        item = stepper_lib.bf16_item(
-            cfg.fuse_kind if cfg.fuse_kind in ("stream", "padfree")
-            else None, cfg.overlap)
-    else:
-        item = None if cfg.fuse_kind == "stream" else _BF16_ITEMS["fused"]
-    return item or (None if bf16 else _OTHER_DTYPE_ITEMS["stream"])
+    if bf16:
+        return None
+    return _OTHER_DTYPE_ITEMS["stream" if cfg.fuse_kind == "stream"
+                              else "fused"]
 
 
 def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
@@ -513,7 +512,8 @@ def build(cfg: RunConfig):
                     f"fused kernel, an unsharded lane axis"
                     + (", guard-frame BCs, rings that fit shared memory"
                        if kind == "stream" else
-                       ", 2*k*halo*phases a multiple of 8 (f32, 3D)")
+                       ", 2*k*halo*phases a multiple of the dtype's "
+                       "sublane tile (8 for f32, 16 for bf16)")
                     + ", per-shard extents dividing the grid, and blocks "
                     ">= the k-step margin")
             if cfg.exchange == "rdma":
@@ -542,9 +542,9 @@ def build(cfg: RunConfig):
         if step_fn is None:
             raise ValueError(
                 f"--fuse {cfg.fuse} unsupported for {st.name} on grid "
-                f"{cfg.grid} (need a fused kernel, 2*k*halo*phases a "
-                f"multiple of the dtype's alignment unit — 8 for f32 — and "
-                f"a window that fits shared memory)")
+                f"{cfg.grid} (need a fused kernel, 2*k*halo a multiple "
+                f"of the dtype's sublane tile — 8 for f32, 16 for bf16 — "
+                f"and a window that fits shared memory)")
     else:
         step_fn = resolve_raw_step(cfg, st)
         if step_fn is not None:

@@ -117,8 +117,9 @@ def stream_of(t) -> ctypes.c_void_p:
 
 
 # The storage types of the kernels that take bfloat16 (K1, K2,
-# raw_step_grayscott, K10, the ring exchange), and the suffix of each
-# type's C entry point: one source, an "_f32" and a "_bf16" export.
+# raw_step_grayscott, K3 with its shells, K6, K9, K10, the ring exchange),
+# and the suffix of each type's C entry point: one source, an "_f32" and a
+# "_bf16" export.
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 

@@ -9,8 +9,8 @@
 // with _assemble_yz_window and _yzslab_specs (K9), their _run_micros /
 // _window_frame, and the
 // micro-steps _micro_heat, _micro_heat3d27, _micro_heat3d4th, _micro_wave,
-// _micro_sor, _micro_advect and _micro_grayscott (the last two RAW and PADDED
-// only: the slab-operand kinds do not take them yet).  On the TPU the
+// _micro_sor, _micro_advect and _micro_grayscott, every one for every window
+// source.  On the TPU the
 // kernels differ in how a VMEM window is assembled from aligned BlockSpecs;
 // here one kernel computes its own
 // window from local coordinates, and a window-source policy (window.cuh)
@@ -61,12 +61,22 @@
 //   3. write the (TZ, TY, TX) core (the cells at least m from the window
 //      edge, all valid after k micro-steps), masked to the block.
 //
-// Shared memory is 2 buffers (Gray-Scott: 4; SOR: 1) x window x 4 B: 80 KB
-// (160 KB) for core (8, 8, 32) at m = 4 (SOR at k = 4, m = 8, one buffer of
-// its core, fused.py::core_of: at most 216 KB, one block per SM), so the
-// launch raises the kernel's
-// dynamic shared-memory limit above the 48 KB default first
-// (cudaFuncSetAttribute).
+// Storage type T: float32, or bfloat16 (the windows, the operands and the
+// outputs).  The arithmetic is stencil_taps.cuh's, rounded to bfloat16
+// after every op as the plain version rounds it, so every level of a
+// window is exact in T and is kept in T: the bfloat16 kernels stay bit-equal
+// to the plain version on bfloat16 tensors, and their windows take half the
+// shared memory.  Cells are read with plain loads (window.cuh::cell_ptr),
+// so a clamped 2-byte row needs no 4-byte alignment.
+//
+// Shared memory is 2 buffers (Gray-Scott: 4; SOR: 1) x window x sizeof(T):
+// 80 KB (160 KB) for core (8, 8, 32) at m = 4 in float32; in bfloat16 the
+// window alignment (2m a multiple of 16, fused.py::margin_of) asks for
+// m = 8, where Gray-Scott's four buffers take 221,184 B (SOR at k = 4,
+// m = 8, one buffer of its core, fused.py::core_of: at most 196 KB in
+// float32), one block per SM, so the launch raises the kernel's dynamic
+// shared-memory limit above the 48 KB default first (cudaFuncSetAttribute).
+
 
 #include "window.cuh"
 
@@ -79,11 +89,12 @@ __host__ __device__ constexpr int kind_buffers(int kind) {
   return kind == GRAYSCOTT ? 4 : (kind == SOR7 ? 1 : 2);
 }
 
-template <int KIND, int SRC>
+template <int KIND, int SRC, class T>
 __global__ void __launch_bounds__(THREADS)
-fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
+fused_step(const WindowT<T> w, int k, int periodic, Coef c, int TZ, int TY,
            int TX) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  T* smem = reinterpret_cast<T*>(smem_bytes);
   constexpr int h = kind_halo(KIND);
   constexpr bool wave = KIND == WAVE7, gs = KIND == GRAYSCOTT,
                  sor = KIND == SOR7;
@@ -95,20 +106,19 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
   const int oz = blockIdx.z * TZ - m, oy = blockIdx.y * TY - m,
             ox = blockIdx.x * TX - m;
 
-  float* cur = smem;  // heat, advection, Gray-Scott u: current level;
-                      // wave: u; SOR: the one buffer it relaxes in place
-  float* nxt = sor ? smem : smem + W;  // heat, advection, Gray-Scott u:
-                                       // next level; wave: u_prev
-  float* vcur = smem + 2 * W;  // Gray-Scott v: current level
-  float* vnxt = smem + 3 * W;  // Gray-Scott v: next level
+  T* cur = smem;  // heat, advection, Gray-Scott u: current level;
+                  // wave: u; SOR: the one buffer it relaxes in place
+  T* nxt = sor ? smem : smem + W;  // heat, advection, Gray-Scott u: next
+                                   // level; wave: u_prev
+  T* vcur = smem + 2 * W;  // Gray-Scott v: current level
+  T* vnxt = smem + 3 * W;  // Gray-Scott v: next level
 
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
     const int wx = i % WX, t = i / WX, wy = t % WY, wz = t / WY;
-    cur[i] = load<SRC>(w, 0, oz + wz, oy + wy, ox + wx, periodic);
-    if constexpr (wave) nxt[i] = load<SRC>(w, 1, oz + wz, oy + wy, ox + wx,
-                                           periodic);
-    if constexpr (gs) vcur[i] = load<SRC>(w, 1, oz + wz, oy + wy, ox + wx,
-                                          periodic);
+    const int z = oz + wz, y = oy + wy, x = ox + wx;
+    cur[i] = *cell_ptr<SRC>(w, 0, z, y, x, periodic);
+    if constexpr (wave) nxt[i] = *cell_ptr<SRC>(w, 1, z, y, x, periodic);
+    if constexpr (gs) vcur[i] = *cell_ptr<SRC>(w, 1, z, y, x, periodic);
   }
   __syncthreads();
 
@@ -126,22 +136,28 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
       bool keep = !periodic && in_frame(gz, gy, gx, w.GZ, w.GY, w.GX, h);
       if constexpr (sor) keep = keep || other_colour(gz + gy + gx, s);
       if constexpr (wave) {
-        nxt[q] = keep ? cur[q] : wave_update(cur + q, nxt[q], sy, sz, c);
+        nxt[q] = keep ? cur[q]
+                      : narrow<T>(wave_update(cur + q, widen(nxt[q]), sy, sz,
+                                              c));
       } else if constexpr (gs) {
         if (keep) {
           nxt[q] = cur[q];
           vnxt[q] = vcur[q];
         } else {
-          grayscott_update(cur + q, vcur + q, sy, sz, c, nxt[q], vnxt[q]);
+          float nu, nv;
+          grayscott_update(cur + q, vcur + q, sy, sz, c, nu, nv);
+          nxt[q] = narrow<T>(nu);
+          vnxt[q] = narrow<T>(nv);
         }
       } else if constexpr (sor) {
-        if (!keep) cur[q] = field_update<KIND>(cur + q, sy, sz, c);
+        if (!keep) cur[q] = narrow<T>(field_update<KIND>(cur + q, sy, sz, c));
       } else {
-        nxt[q] = keep ? cur[q] : field_update<KIND>(cur + q, sy, sz, c);
+        nxt[q] = keep ? cur[q]
+                      : narrow<T>(field_update<KIND>(cur + q, sy, sz, c));
       }
     }
     __syncthreads();
-    float* tmp = cur;
+    T* tmp = cur;
     cur = nxt;
     nxt = tmp;
     if constexpr (gs) {
@@ -165,27 +181,27 @@ fused_step(const Window w, int k, int periodic, Coef c, int TZ, int TY,
   }
 }
 
-template <int KIND, int SRC>
-int launch(const Window& w, int k, int periodic, const Coef& c, int tz,
+template <int KIND, int SRC, class T>
+int launch(const WindowT<T>& w, int k, int periodic, const Coef& c, int tz,
            int ty, int tx, cudaStream_t s) {
   const int m = kind_margin(KIND, k);
-  const size_t smem = kind_buffers(KIND) * sizeof(float) *
+  const size_t smem = kind_buffers(KIND) * sizeof(T) *
                       static_cast<size_t>(tz + 2 * m) * (ty + 2 * m) *
                       (tx + 2 * m);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_step<KIND, SRC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((w.X + tx - 1) / tx, (w.Y + ty - 1) / ty,
                   (w.Z + tz - 1) / tz);
-  fused_step<KIND, SRC><<<grid, THREADS, smem, s>>>(w, k, periodic, c, tz, ty,
-                                                    tx);
+  fused_step<KIND, SRC, T><<<grid, THREADS, smem, s>>>(w, k, periodic, c, tz,
+                                                       ty, tx);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SRC>
-int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
-             int tz, int ty, int tx, void* stream) {
+template <int SRC, class T>
+int dispatch(int kind, const WindowT<T>& w, int k, int periodic,
+             const Coef& c, int tz, int ty, int tx, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT7:
@@ -199,16 +215,58 @@ int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
     case SOR7:
       return launch<SOR7, SRC>(w, k, periodic, c, tz, ty, tx, s);
     case ADVECT:
-      if constexpr (SRC == RAW || SRC == PADDED)
-        return launch<ADVECT, SRC>(w, k, periodic, c, tz, ty, tx, s);
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<ADVECT, SRC>(w, k, periodic, c, tz, ty, tx, s);
     case GRAYSCOTT:
-      if constexpr (SRC == RAW || SRC == PADDED)
-        return launch<GRAYSCOTT, SRC>(w, k, periodic, c, tz, ty, tx, s);
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch<GRAYSCOTT, SRC>(w, k, periodic, c, tz, ty, tx, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The four launches below, on storage type T.
+template <class T>
+int fused_raw(int kind, const T* in0, const T* in1, T* out0, T* out1, int Z,
+              int Y, int X, int k, int periodic, const Coef& c, int tz,
+              int ty, int tx, void* stream) {
+  const WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+                     {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  return dispatch<RAW>(kind, w, k, periodic, c, tz, ty, tx, stream);
+}
+
+template <class T>
+int fused_padded(int kind, const T* in0, const T* in1, T* out0, T* out1,
+                 int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
+                 int k, int periodic, const Coef& c, int tz, int ty, int tx,
+                 void* stream) {
+  const WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+                     {out0, out1}, Z, Y, X, GZ, GY, GX, oz, oy,
+                     kind_margin(kind, k)};
+  return dispatch<PADDED>(kind, w, k, periodic, c, tz, ty, tx, stream);
+}
+
+template <class T>
+int fused_z(int kind, const T* in0, const T* in1, const T* lo0,
+            const T* lo1, const T* hi0, const T* hi1, T* out0, T* out1,
+            int Z, int Y, int X, int GZ, int oz, int k, int periodic,
+            const Coef& c, int tz, int ty, int tx, void* stream) {
+  const WindowT<T> w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1},
+                     Z, Y, X, GZ, Y, X, oz, 0, kind_margin(kind, k)};
+  return dispatch<ZSLAB>(kind, w, k, periodic, c, tz, ty, tx, stream);
+}
+
+template <class T>
+int fused_yz(int kind, const T* const* p, T* out0, T* out1, int Z, int Y,
+             int X, int GZ, int GY, int GX, int oz, int oy, int k,
+             int periodic, const Coef& c, int tz, int ty, int tx,
+             void* stream) {
+  // p: per field, (in, zlo, zhi, ylo, yhi, ll, lh, hl, hh) in field-major
+  // pairs, as the exports take them
+  const WindowT<T> w{{p[0], p[1]}, {p[2], p[3]}, {p[4], p[5]}, {out0, out1},
+                     Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
+                     {p[6], p[7]}, {p[8], p[9]},
+                     {{p[10], p[11]}, {p[12], p[13]}, {p[14], p[15]},
+                      {p[16], p[17]}}};
+  return dispatch<YZSLAB>(kind, w, k, periodic, c, tz, ty, tx, stream);
 }
 
 }  // namespace
@@ -216,15 +274,23 @@ int dispatch(int kind, const Window& w, int k, int periodic, const Coef& c,
 // One K3 launch on `stream`, one device: (out0[, out1]) = k steps of
 // (in0[, in1]) on the whole (Z, Y, X) grid.  in1/out1 are used by the
 // two-field kinds only (wave: u_prev; Gray-Scott: v).  Returns a cudaError_t
-// code.
+// code.  Each export has a _bf16 twin on bfloat16 operands.
 EXPORT int fused_step_f32(int kind, const float* in0, const float* in1,
                           float* out0, float* out1, int Z, int Y, int X, int k,
                           int periodic, float a, float c0, float c1, float c2,
                           float c3, int tz, int ty, int tx, void* stream) {
-  const Window w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
-                 {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
-  return dispatch<RAW>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz, ty,
-                       tx, stream);
+  return fused_raw(kind, in0, in1, out0, out1, Z, Y, X, k, periodic,
+                   Coef{a, c0, c1, c2, c3}, tz, ty, tx, stream);
+}
+
+EXPORT int fused_step_bf16(int kind, const __nv_bfloat16* in0,
+                           const __nv_bfloat16* in1, __nv_bfloat16* out0,
+                           __nv_bfloat16* out1, int Z, int Y, int X, int k,
+                           int periodic, float a, float c0, float c1,
+                           float c2, float c3, int tz, int ty, int tx,
+                           void* stream) {
+  return fused_raw(kind, in0, in1, out0, out1, Z, Y, X, k, periodic,
+                   Coef{a, c0, c1, c2, c3}, tz, ty, tx, stream);
 }
 
 // One K3 launch in its sharded mode: the inputs are a shard's z/y-padded
@@ -237,11 +303,19 @@ EXPORT int fused_step_padded_f32(int kind, const float* in0, const float* in1,
                                  int periodic, float a, float c0, float c1,
                                  float c2, float c3, int tz, int ty, int tx,
                                  void* stream) {
-  const Window w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
-                 {out0, out1}, Z, Y, X, GZ, GY, GX, oz, oy,
-                 kind_margin(kind, k)};
-  return dispatch<PADDED>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
-                          ty, tx, stream);
+  return fused_padded(kind, in0, in1, out0, out1, Z, Y, X, GZ, GY, GX, oz,
+                      oy, k, periodic, Coef{a, c0, c1, c2, c3}, tz, ty, tx,
+                      stream);
+}
+
+EXPORT int fused_step_padded_bf16(
+    int kind, const __nv_bfloat16* in0, const __nv_bfloat16* in1,
+    __nv_bfloat16* out0, __nv_bfloat16* out1, int Z, int Y, int X, int GZ,
+    int GY, int GX, int oz, int oy, int k, int periodic, float a, float c0,
+    float c1, float c2, float c3, int tz, int ty, int tx, void* stream) {
+  return fused_padded(kind, in0, in1, out0, out1, Z, Y, X, GZ, GY, GX, oz,
+                      oy, k, periodic, Coef{a, c0, c1, c2, c3}, tz, ty, tx,
+                      stream);
 }
 
 // One K6 launch: a z-only shard's (Z, Y, X) core plus the (m, Y, X) slabs
@@ -254,10 +328,21 @@ EXPORT int fused_zslab_f32(int kind, const float* in0, const float* in1,
                            int k, int periodic, float a, float c0, float c1,
                            float c2, float c3, int tz, int ty, int tx,
                            void* stream) {
-  const Window w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1}, Z, Y, X,
-                 GZ, Y, X, oz, 0, kind_margin(kind, k)};
-  return dispatch<ZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
-                         ty, tx, stream);
+  return fused_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X, GZ,
+                 oz, k, periodic, Coef{a, c0, c1, c2, c3}, tz, ty, tx,
+                 stream);
+}
+
+EXPORT int fused_zslab_bf16(
+    int kind, const __nv_bfloat16* in0, const __nv_bfloat16* in1,
+    const __nv_bfloat16* lo0, const __nv_bfloat16* lo1,
+    const __nv_bfloat16* hi0, const __nv_bfloat16* hi1, __nv_bfloat16* out0,
+    __nv_bfloat16* out1, int Z, int Y, int X, int GZ, int oz, int k,
+    int periodic, float a, float c0, float c1, float c2, float c3, int tz,
+    int ty, int tx, void* stream) {
+  return fused_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X, GZ,
+                 oz, k, periodic, Coef{a, c0, c1, c2, c3}, tz, ty, tx,
+                 stream);
 }
 
 // One K9 launch: a (z, y) shard's (Z, Y, X) core plus, per field, the
@@ -274,10 +359,28 @@ EXPORT int fused_yzslab_f32(
     float* out1, int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
     int k, int periodic, float a, float c0, float c1, float c2, float c3,
     int tz, int ty, int tx, void* stream) {
-  const Window w{{in0, in1}, {zlo0, zlo1}, {zhi0, zhi1}, {out0, out1},
-                 Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
-                 {ylo0, ylo1}, {yhi0, yhi1},
-                 {{cll0, cll1}, {clh0, clh1}, {chl0, chl1}, {chh0, chh1}}};
-  return dispatch<YZSLAB>(kind, w, k, periodic, Coef{a, c0, c1, c2, c3}, tz,
-                          ty, tx, stream);
+  const float* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1, ylo0, ylo1, yhi0,
+                        yhi1, cll0, cll1, clh0, clh1, chl0, chl1, chh0, chh1};
+  return fused_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
+                  periodic, Coef{a, c0, c1, c2, c3}, tz, ty, tx, stream);
+}
+
+EXPORT int fused_yzslab_bf16(
+    int kind, const __nv_bfloat16* in0, const __nv_bfloat16* in1,
+    const __nv_bfloat16* zlo0, const __nv_bfloat16* zlo1,
+    const __nv_bfloat16* zhi0, const __nv_bfloat16* zhi1,
+    const __nv_bfloat16* ylo0, const __nv_bfloat16* ylo1,
+    const __nv_bfloat16* yhi0, const __nv_bfloat16* yhi1,
+    const __nv_bfloat16* cll0, const __nv_bfloat16* cll1,
+    const __nv_bfloat16* clh0, const __nv_bfloat16* clh1,
+    const __nv_bfloat16* chl0, const __nv_bfloat16* chl1,
+    const __nv_bfloat16* chh0, const __nv_bfloat16* chh1,
+    __nv_bfloat16* out0, __nv_bfloat16* out1, int Z, int Y, int X, int GZ,
+    int GY, int GX, int oz, int oy, int k, int periodic, float a, float c0,
+    float c1, float c2, float c3, int tz, int ty, int tx, void* stream) {
+  const __nv_bfloat16* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1,
+                                ylo0, ylo1, yhi0, yhi1, cll0, cll1,
+                                clh0, clh1, chl0, chl1, chh0, chh1};
+  return fused_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
+                  periodic, Coef{a, c0, c1, c2, c3}, tz, ty, tx, stream);
 }

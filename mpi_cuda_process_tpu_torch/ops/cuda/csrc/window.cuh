@@ -25,7 +25,7 @@
 enum Source { RAW = 0, PADDED = 1, ZSLAB = 2, YZSLAB = 3 };
 
 // Where a launch's operands live and where its core block sits; T is the
-// storage type (float; the streaming kernel also takes __nv_bfloat16).
+// storage type (float or __nv_bfloat16).
 template <class T>
 struct WindowT {
   // RAW, (YZ)ZSLAB: the (Z, Y, X) core; PADDED: the padded block
@@ -43,8 +43,6 @@ struct WindowT {
   // hl, hh
   const T* corner[4][2];
 };
-
-using Window = WindowT<float>;
 
 __device__ __forceinline__ int wrap_or_clamp(int g, int n, int periodic) {
   if (periodic) return ((g % n) + n) % n;
@@ -107,9 +105,3 @@ __device__ __forceinline__ const T* cell_ptr(const WindowT<T>& w, int f,
   }
 }
 
-// Field f at local coordinate (z, y, x) of the core.
-template <int SRC, class T>
-__device__ __forceinline__ float load(const WindowT<T>& w, int f, int z,
-                                      int y, int x, int periodic) {
-  return widen(*cell_ptr<SRC>(w, f, z, y, x, periodic));
-}

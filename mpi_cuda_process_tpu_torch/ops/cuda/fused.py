@@ -13,8 +13,17 @@ exchanged z slabs as separate operands instead, so no padded block exists;
 shard of a mesh that shards y: the core, two z slabs, two y slabs and the
 four corner pieces.  ``build_overlap_shell_calls`` builds the overlapped
 step's boundary shells: K3's sharded mode over a ``2m``-deep core, counted
-apart as ``fused_shell``.  K6 and K9 do not take advect3d and grayscott3d
-yet: their builders raise naming ROADMAP B4.
+apart as ``fused_shell``.  Every wrapper takes every family.
+
+Each wrapper takes float32 or bfloat16 fields (``_build.FLOAT_DTYPES``: an
+``_f32`` and a ``_bf16`` entry point of one source) and raises for any
+other type.  A bfloat16 launch keeps its windows in bfloat16: the plain
+step rounds every level to bfloat16, so the windows hold the same values
+in half the shared memory (``smem_bytes`` and ``fits`` count the
+stencil's itemsize), and the kernel stays bit-equal to the plain version.
+The TPU package's alignment rule (``margin_of``: ``2m`` a multiple of 8
+rows in float32, 16 in bfloat16) then gives bfloat16 k = 8 for the halo-1
+families and k = 4 for heat3d4th and sor3d.
 
 Replaces the TPU package's ``ops/pallas/fused.py::build_fused_call``
 (``_fused_kernel``, ``_fused_raw_kernel`` with the ``_micro_heat``/
@@ -48,7 +57,8 @@ from .rawstep import coefficients
 
 # Launches per wrapper and stencil, keyed "fused_step[heat3d]",
 # "fused_step_padded[heat3d]", "fused_shell[heat3d]" (K3's sharded mode as
-# an overlap shell), "fused_zslab[heat3d]" or "fused_yzslab[heat3d]": one
+# an overlap shell), "fused_zslab[heat3d]" or "fused_yzslab[heat3d]"
+# (bfloat16: "fused_step[heat3d,bfloat16]", ``_build.launch_key``): one
 # added where the kernel launches, nowhere else.  ``launches.clear()``
 # resets.
 launches: Counter = Counter()
@@ -57,18 +67,15 @@ launches: Counter = Counter()
 _FUSED = {"heat3d": (0, 1), "heat3d27": (1, 1), "heat3d4th": (2, 2),
           "wave3d": (3, 1), "advect3d": (7, 1), "grayscott3d": (8, 1),
           "sor3d": (11, 1)}
-# K3 families the slab-operand kernels K6 and K9 do not take yet.
-_NOT_PADFREE = ("advect3d", "grayscott3d")
-PADFREE_ITEM = ("ROADMAP B4 (the pad-free slab-operand kernels for "
-                "advect3d and grayscott3d)")
 
 # Dynamic shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 227 * 1024
 # Core tile (TZ, TY, TX) each block writes.  32 x-cells keep a warp's loads
 # and stores on consecutive addresses.  Every (stencil, k) the alignment rule
 # accepts either fits at this core (halo-1 k <= 8, heat3d4th k <= 4: at most
-# 221 KB; Gray-Scott's four buffers k = 4 only, 160 KB) or at no core at all
-# (the margin alone overflows), so one core serves.
+# 221 KB; Gray-Scott's four buffers k = 4 only in float32, 160 KB, and k = 8
+# in bfloat16, 221,184 B) or at no core at all (the margin alone overflows),
+# so one core serves.
 CORE = (8, 8, 32)
 # sor3d relaxes in place in one buffer (csrc/fused.cu), and its margin is 2k:
 # a larger core spends fewer of the window's cells on the margin (k = 4:
@@ -98,19 +105,20 @@ def core_of(stencil: Stencil) -> Tuple[int, int, int]:
     return SOR_CORE if stencil.name == "sor3d" else CORE
 
 
-def smem_bytes(core: Tuple[int, int, int], margin: int,
-               nbuf: int = 2) -> int:
-    """``nbuf`` float32 window buffers of ``core + 2 * margin`` cells."""
+def smem_bytes(core: Tuple[int, int, int], margin: int, nbuf: int = 2,
+               itemsize: int = 4) -> int:
+    """``nbuf`` window buffers of ``core + 2 * margin`` cells of
+    ``itemsize`` bytes (4 for float32, 2 for bfloat16)."""
     tz, ty, tx = core
-    return nbuf * 4 * (tz + 2 * margin) * (ty + 2 * margin) * (
+    return nbuf * itemsize * (tz + 2 * margin) * (ty + 2 * margin) * (
         tx + 2 * margin)
 
 
 def fits(stencil: Stencil, k: int) -> bool:
     """Whether the window buffers of the stencil's core at the k-step margin
-    fit one block's shared memory."""
+    fit one block's shared memory, in the stencil's dtype."""
     return smem_bytes(core_of(stencil), k_step_margin(stencil, k),
-                      buffers(stencil)) <= SMEM_LIMIT
+                      buffers(stencil), stencil.dtype.itemsize) <= SMEM_LIMIT
 
 
 def parity_consistent(stencil: Stencil, shape: Sequence[int],
@@ -122,13 +130,6 @@ def parity_consistent(stencil: Stencil, shape: Sequence[int],
                 and any(int(s) % 2 for s in shape))
 
 
-def refuse_padfree(stencil: Stencil) -> None:
-    """Raise for the K3 families that K6 and K9 do not take yet."""
-    if stencil.name in _NOT_PADFREE:
-        raise NotImplementedError(
-            f"--fuse-kind padfree for {stencil.name}: {PADFREE_ITEM}")
-
-
 def _sublane(itemsize: int) -> int:
     """The TPU package's window alignment unit: 8 rows for float32, 16 for
     bfloat16.  Kept so both packages accept the same (stencil, k) pairs."""
@@ -138,8 +139,9 @@ def _sublane(itemsize: int) -> int:
 def margin_of(stencil: Stencil, k: int) -> Optional[int]:
     """The k-step margin ``m = k * halo * max(1, phases)``, or None for a
     (stencil, k) the kernel does not take: no fused kernel, ``2 * m`` off
-    the alignment unit (so sor3d takes k = 2 and 4, not 1), or a window too
-    large for shared memory."""
+    the alignment unit of the stencil's dtype (float32: sor3d takes k = 2
+    and 4, not 1; bfloat16: halo-1 k = 8, heat3d4th and sor3d k = 4, as the
+    TPU builders), or a window too large for shared memory."""
     if not fused_supported(stencil) or k < 1:
         return None
     m = k_step_margin(stencil, k)
@@ -153,18 +155,16 @@ def margin_of(stencil: Stencil, k: int) -> Optional[int]:
 def _lib():
     lib = _build.load("fused")
     if lib.fused_step_f32.argtypes is None:
-        lib.fused_step_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + [_c_float] * 5
-            + [_c_int] * 3 + [_c_ptr])
-        lib.fused_step_padded_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 10 + [_c_float] * 5
-            + [_c_int] * 3 + [_c_ptr])
-        lib.fused_zslab_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 8 + [_c_int] * 7 + [_c_float] * 5
-            + [_c_int] * 3 + [_c_ptr])
-        lib.fused_yzslab_f32.argtypes = (
-            [_c_int] + [_c_ptr] * 20 + [_c_int] * 10 + [_c_float] * 5
-            + [_c_int] * 3 + [_c_ptr])
+        tail = [_c_float] * 5 + [_c_int] * 3 + [_c_ptr]
+        for sfx in _build.SUFFIXES.values():
+            getattr(lib, f"fused_step_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + tail)
+            getattr(lib, f"fused_step_padded_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 10 + tail)
+            getattr(lib, f"fused_zslab_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 8 + [_c_int] * 7 + tail)
+            getattr(lib, f"fused_yzslab_{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 20 + [_c_int] * 10 + tail)
     return lib
 
 
@@ -190,17 +190,18 @@ def fused_step(fields: Fields, stencil: Stencil, k: int,
     if not fits(stencil, k):
         raise ValueError(f"fused_step: {stencil.name} k={k} window exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    _build.check_operands("fused_step", *fields, shape=tuple(fields[0].shape))
+    _build.check_operands("fused_step", *fields, shape=tuple(fields[0].shape),
+                          dtype=_build.FLOAT_DTYPES)
     outs = tuple(torch.empty_like(f) for f in fields)
     two = len(fields) == 2
     lib = _lib()
     Z, Y, X = fields[0].shape
-    rc = lib.fused_step_f32(
+    rc = _build.entry(lib, "fused_step", fields[0])(
         kind, *_pointers(fields, two), *_pointers(outs, two),
         Z, Y, X, k, int(periodic), *coefficients(stencil), *core_of(stencil),
         _build.stream_of(fields[0]))
     _build.check(lib, rc, "fused_step")
-    launches[f"fused_step[{stencil.name}]"] += 1
+    launches[_build.launch_key("fused_step", stencil.name, fields[0])] += 1
     return outs
 
 
@@ -302,18 +303,19 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
     if not fits(stencil, k) or min(Z, Y) < 1:
         raise ValueError(f"{label}: {stencil.name} k={k} on "
                          f"{(Zp, Yp, X)} not supported")
-    _build.check_operands(label, *padded, shape=(Zp, Yp, X))
+    _build.check_operands(label, *padded, shape=(Zp, Yp, X),
+                          dtype=_build.FLOAT_DTYPES)
     outs = tuple(torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
                  for p in padded)
     two = len(padded) == 2
     lib = _lib()
     GZ, GY, GX = (int(g) for g in global_shape)
-    rc = lib.fused_step_padded_f32(
+    rc = _build.entry(lib, "fused_step_padded", padded[0])(
         kind, *_pointers(padded, two), *_pointers(outs, two), Z, Y, X,
         GZ, GY, GX, oz, oy, k, int(periodic), *coefficients(stencil),
         *core_of(stencil), _build.stream_of(padded[0]))
     _build.check(lib, rc, label)
-    launches[f"{label}[{stencil.name}]"] += 1
+    launches[_build.launch_key(label, stencil.name, padded[0])] += 1
     return outs
 
 
@@ -339,7 +341,6 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     exchanged (m, Y, X) z slabs below (``zlo``) and above (``zhi``) it, per
     field; ``origin_z`` is the core's first global z plane of ``global_z``.
     Returns the (Lz, Y, X) core of every field, k steps on."""
-    refuse_padfree(stencil)
     m = k_step_margin(stencil, k)
     Lz, Y, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -349,8 +350,10 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     if not fits(stencil, k):
         raise ValueError(f"fused_zslab: {stencil.name} k={k} window exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    _build.check_operands("fused_zslab", *core, shape=(Lz, Y, X))
-    _build.check_operands("fused_zslab", core[0], *zlo, *zhi, shape=None)
+    _build.check_operands("fused_zslab", *core, shape=(Lz, Y, X),
+                          dtype=_build.FLOAT_DTYPES)
+    _build.check_operands("fused_zslab", core[0], *zlo, *zhi, shape=None,
+                          dtype=_build.FLOAT_DTYPES)
     for s in (*zlo, *zhi):
         if tuple(s.shape) != (m, Y, X):
             raise ValueError(f"fused_zslab: slabs must be {(m, Y, X)}, got "
@@ -358,13 +361,13 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
-    rc = lib.fused_zslab_f32(
+    rc = _build.entry(lib, "fused_zslab", core[0])(
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
         int(global_z), int(origin_z), k, int(periodic),
         *coefficients(stencil), *core_of(stencil), _build.stream_of(core[0]))
     _build.check(lib, rc, "fused_zslab")
-    launches[f"fused_zslab[{stencil.name}]"] += 1
+    launches[_build.launch_key("fused_zslab", stencil.name, core[0])] += 1
     return outs
 
 
@@ -399,7 +402,6 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     index of the core's first cell in a ``global_shape`` grid.  Returns
     the (Lz, Ly, X) core of every field, k steps on.
     """
-    refuse_padfree(stencil)
     m = k_step_margin(stencil, k)
     Lz, Ly, X = (int(s) for s in core[0].shape)
     if not core[0].is_cuda:
@@ -409,18 +411,21 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     if not fits(stencil, k):
         raise ValueError(f"fused_yzslab: {stencil.name} k={k} window exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    _build.check_operands("fused_yzslab", *core, shape=(Lz, Ly, X))
+    _build.check_operands("fused_yzslab", *core, shape=(Lz, Ly, X),
+                          dtype=_build.FLOAT_DTYPES)
     for pieces, shape in ((zlo, (m, Ly, X)), (zhi, (m, Ly, X)),
                           (ylo, (Lz, m, X)), (yhi, (Lz, m, X)),
                           *((c, (m, m, X)) for c in corners)):
-        _build.check_operands("fused_yzslab", *pieces, shape=shape)
-        _build.check_operands("fused_yzslab", core[0], pieces[0])
+        _build.check_operands("fused_yzslab", *pieces, shape=shape,
+                              dtype=_build.FLOAT_DTYPES)
+        _build.check_operands("fused_yzslab", core[0], pieces[0],
+                              dtype=_build.FLOAT_DTYPES)
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
     GZ, GY, GX = (int(g) for g in global_shape)
     oz, oy = (int(o) for o in origins)
-    rc = lib.fused_yzslab_f32(
+    rc = _build.entry(lib, "fused_yzslab", core[0])(
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
         *(p for c in corners for p in _pointers(c, two)),
@@ -428,7 +433,7 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         int(periodic), *coefficients(stencil), *core_of(stencil),
         _build.stream_of(core[0]))
     _build.check(lib, rc, "fused_yzslab")
-    launches[f"fused_yzslab[{stencil.name}]"] += 1
+    launches[_build.launch_key("fused_yzslab", stencil.name, core[0])] += 1
     return outs
 
 
@@ -492,10 +497,8 @@ def build_zslab_padfree_call(
     The call takes the shard's global z origin, then per field the
     (Lz, Y, X) core, the lower and the upper (m, Y, X) slab, and returns
     the core fields advanced k steps.  None as for :func:`build_fused_call`
-    (a local z extent below the margin included); advect3d and grayscott3d
-    raise naming ROADMAP B4.
+    (a local z extent below the margin included).
     """
-    refuse_padfree(stencil)
     margin = margin_of(stencil, k)
     if margin is None or not parity_consistent(stencil, global_shape,
                                                periodic):
@@ -538,9 +541,7 @@ def build_yzslab_padfree_call(
     also for a window too large for shared memory.  The TPU tiling rule
     and its 2m duplication of the y operands (sublane alignment) do not
     apply: the kernel masks ragged blocks and reads m-wide pieces.
-    advect3d and grayscott3d raise naming ROADMAP B4.
     """
-    refuse_padfree(stencil)
     margin = margin_of(stencil, k)
     if margin is None or not parity_consistent(stencil, global_shape,
                                                periodic):
@@ -623,10 +624,11 @@ def make_fused_step(
     8 for float32 (16 for bfloat16): halo-1 stencils need k in {4, 8, ...},
     heat3d4th and sor3d k in {2, 4, ...} — or its parity rule (sor3d
     periodic over an odd extent), and for windows too large for shared
-    memory (halo-1 k >= 12, heat3d4th k >= 6, grayscott3d k >= 8, sor3d
-    k >= 6).  Any other grid extent is accepted: the kernel masks the
-    ragged edge.  With a CUDA ``device`` the
-    kernels are built here, before the time loop.
+    memory (halo-1 k >= 12 in float32 and k >= 16 in bfloat16, heat3d4th
+    and sor3d k >= 6 in float32 and k >= 8 in bfloat16, grayscott3d k >= 8
+    in float32).  Any other grid extent is accepted: the kernel masks the
+    ragged edge.  With a CUDA ``device`` the kernels are built here, before
+    the time loop.
     """
     if len(global_shape) != 3 or margin_of(stencil, k) is None or \
             not parity_consistent(stencil, global_shape, periodic):

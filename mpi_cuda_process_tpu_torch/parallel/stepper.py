@@ -44,10 +44,6 @@ from .halo import (RdmaTransport, exchange_and_pad, exchange_slabs_2axis,
 from .mesh import ENSEMBLE_ITEM, Mesh
 
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
-# The sharded fused kinds whose bfloat16 kernels are not ported.
-_BF16_PADDED_ITEM = ("ROADMAP B3 (bfloat16 K3 sharded mode and its overlap "
-                     "shells)")
-_BF16_PADFREE_ITEM = "ROADMAP B4 (bfloat16 K6 and K9)"
 
 
 class ShardedField(list):
@@ -395,8 +391,8 @@ def make_sharded_fused_step(
 
     ``overlap=True`` splits every kind as the TPU package does
     (:func:`_fused_step_driver`); with a local extent below 3m on a sharded
-    axis the step is the non-split one (``step._overlap_active`` says
-    which).
+    axis, or a margin the shells' K3 instance declines, the step is the
+    non-split one (``step._overlap_active`` says which).
 
     Every field is exchanged, so Gray-Scott's two fields both reach the
     padded kind with their m-wide pads.
@@ -410,13 +406,15 @@ def make_sharded_fused_step(
     than ``"stream"`` raise with the reason.  The step carries
     ``_exchange`` and, for rdma, ``_rdma_backend`` and ``_rdma_transport``.
 
-    bfloat16 fields run on ``kind="stream"`` without ``overlap`` (K10 and
-    the ring exchange take them); the padded kind and the overlap shells
-    (K3, ROADMAP B3) and the pad-free kinds (K6/K9, B4) raise for them.
+    Every kind takes float32 and bfloat16 fields, with and without
+    ``overlap``, as every kernel it launches does.  The bfloat16 alignment
+    unit (``2 * m`` a multiple of 16) is the builders' too: where the
+    shells' K3 instance declines it (config 5's stream kind at k = 4 gives
+    m = 4), the overlapped step falls back to the non-split one, as the TPU
+    package's does.
 
-    Not ported yet, and raising by name: ``pipeline=True``, the ensemble
-    axis, and the pad-free kinds of advect3d and grayscott3d (ROADMAP B4:
-    K6 and K9 raise).
+    Not ported yet, and raising by name: ``pipeline=True`` and the ensemble
+    axis.
     """
     from ..ops.cuda import fused, streamfused
 
@@ -444,12 +442,6 @@ def make_sharded_fused_step(
     if ensemble:
         raise NotImplementedError(
             f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
-    item = bf16_item(kind, overlap)
-    if stencil.dtype == torch.bfloat16 and item:
-        raise NotImplementedError(
-            "bfloat16 on the sharded fused kind "
-            f"{kind or 'padded'}{' with overlap' if overlap else ''} is not "
-            f"ported: {item}")
     ndim = stencil.ndim
     if ndim != 3 or not fused.fused_supported(stencil):
         return None
@@ -485,15 +477,6 @@ def make_sharded_fused_step(
             *args, fused.build_zslab_padfree_call, "zslab")
     return None if step is None else _attach_exchange(step, exchange,
                                                       transport)
-
-
-def bf16_item(kind: Optional[str], overlap: bool) -> Optional[str]:
-    """The ROADMAP item of a sharded fused kind whose bfloat16 kernels are
-    not ported, or None for the one that takes bfloat16: the stream kind
-    without the overlap shells (K3)."""
-    if kind == "stream" and not overlap:
-        return None
-    return _BF16_PADFREE_ITEM if kind == "padfree" else _BF16_PADDED_ITEM
 
 
 def _attach_exchange(step, exchange: str, transport):

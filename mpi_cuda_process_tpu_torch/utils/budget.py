@@ -89,11 +89,7 @@ def _padfree_ok(stencil, local, grid, fuse, periodic, z_only) -> bool:
 
     build = (fused.build_zslab_padfree_call if z_only
              else fused.build_yzslab_padfree_call)
-    try:
-        return build(stencil, local, grid, fuse, periodic=periodic) \
-            is not None
-    except NotImplementedError:  # advect3d, grayscott3d: ROADMAP B4
-        return False
+    return build(stencil, local, grid, fuse, periodic=periodic) is not None
 
 
 def estimate_run_bytes(

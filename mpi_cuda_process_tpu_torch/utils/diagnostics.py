@@ -7,6 +7,13 @@ models the one-step Jacobi residual.  The reductions stay on the device as
 so a four-metric line pays one device-to-host round trip, not four.  A
 decomposed run's fields are reduced per block and the partial results
 combined on the first block's device before that one transfer.
+
+Every value carries the field's dtype, as the TPU package's result types
+do: a sum or mean accumulates in float32 and is rounded once to the field's
+dtype (bfloat16 lines print bfloat16 values); ``velocity_l2`` takes the
+difference and its square in the field's dtype, then the float32 sum,
+rounded, and its square root in that dtype.  Float32 fields reduce exactly
+as before.  The residual stays in float32, as in the TPU package.
 """
 
 from __future__ import annotations
@@ -36,6 +43,22 @@ def _sum_sq(a, b):
                      for x, y in zip(_blocks(a), _blocks(b))], torch.sum)
 
 
+def _result_dtype(t) -> torch.dtype:
+    """The dtype a reduction of ``t`` is rounded to: its own where it is a
+    float type, float32 for an integer one."""
+    return t.dtype if t.is_floating_point() else torch.float32
+
+
+def _velocity_l2(a, b):
+    """sqrt(sum((a - b)^2)) in the fields' dtype: the difference and the
+    square in it, the sum over every block in float32 rounded to it, then
+    the square root (JAX's ``jnp.sqrt(jnp.sum((a - b) ** 2))``)."""
+    dtype = _result_dtype(_blocks(a)[0])
+    total = _combine([torch.sum((x - y) ** 2, dtype=torch.float32)
+                      for x, y in zip(_blocks(a), _blocks(b))], torch.sum)
+    return torch.sqrt(total.to(dtype))
+
+
 def _staged_diagnostics(stencil: Stencil, fields, step_fn=None):
     """The metric set as unfetched 0-d tensors (device-side)."""
     f0 = _blocks(fields[0])
@@ -43,17 +66,18 @@ def _staged_diagnostics(stencil: Stencil, fields, step_fn=None):
     if stencil.name == "life":
         out["population"] = _combine([torch.sum(b) for b in f0], torch.sum)
     elif len(f0) == 1:
-        out["mean"] = torch.mean(f0[0].to(torch.float32))
+        out["mean"] = torch.mean(f0[0].to(torch.float32)).to(
+            _result_dtype(f0[0]))
         out["min"] = torch.min(f0[0])
         out["max"] = torch.max(f0[0])
     else:
         cells = sum(b.numel() for b in f0)
-        out["mean"] = _combine([torch.sum(b.to(torch.float32)) for b in f0],
-                               torch.sum) / cells
+        out["mean"] = (_combine([torch.sum(b.to(torch.float32)) for b in f0],
+                                torch.sum) / cells).to(_result_dtype(f0[0]))
         out["min"] = _combine([torch.min(b) for b in f0], torch.min)
         out["max"] = _combine([torch.max(b) for b in f0], torch.max)
     if stencil.num_fields > 1:
-        out["velocity_l2"] = torch.sqrt(_sum_sq(fields[0], fields[1]))
+        out["velocity_l2"] = _velocity_l2(fields[0], fields[1])
     elif step_fn is not None and f0[0].is_floating_point():
         out["residual"] = _residual_scalar(step_fn, fields)
     return out

@@ -369,6 +369,12 @@ BUDGET_CASES = _config5_cases() + [
           dropped=("fullgrid_pad", (4096 + 16) * 4096 * 4)),
     _case("grayscott3d", "float32", (512,) * 3, compute="raw",
           added=512 ** 3 * 4),  # both fields written
+    # the bfloat16 padded and pad-free kinds of K3, K6 and K9 (k = 8)
+    _case("heat3d", BF16, (1024,) * 3, (2, 2, 1), 8),
+    _case("heat3d", BF16, (1024,) * 3, (4, 1, 1), 8, "padfree"),
+    _case("wave3d", BF16, (1024,) * 3, (2, 2, 1), 8, added=512 ** 2 * 1024 * 2),
+    _case("grayscott3d", BF16, (512,) * 3, (4, 1, 1), 8, "padfree",
+          added=128 * 512 * 512 * 2),
 ]
 
 
@@ -495,23 +501,54 @@ def test_cli_mem_check_parses_is_skipped_on_cpu_and_refuses_on_a_card(
 
 # ---- the kernel paths that still refuse bfloat16, each by its own item --------
 
-@pytest.mark.parametrize("extra,match", [
-    (["--fuse", "4"], "ROADMAP B3"),
-    (["--fuse", "4", "--fuse-kind", "tiled"], "ROADMAP B3"),
-    (["--mesh", "2,2", "--fuse", "4"], "ROADMAP B3"),
-    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream", "--overlap"],
-     "ROADMAP B3"),
-    (["--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree"], "ROADMAP B4"),
-    (["--mesh", "2,2", "--compute", "pallas"], "ROADMAP B2"),
-    (["--grid", "32,32", "--compute", "pallas"], "ROADMAP B2"),
-    (["--grid", "32,32", "--fuse", "8"], "ROADMAP B6"),
+# The JAX CLI's refusal of a --fuse k off the dtype's alignment unit
+# (cli.py:964-969 there), and the port's sharded one.
+SUBLANE = "sublane tile — 8 for f32, 16 for bf16"
+SHARDED_SUBLANE = r"sublane tile \(8 for f32, 16 for bf16\)"
+
+
+@pytest.mark.parametrize("extra,exc,match", [
+    # The first five ids keep their names from the refusals they pinned
+    # before K3, its shells, K6 and K9 took bfloat16 (ROADMAP B3, B4):
+    # --fuse 4 is now off bfloat16's alignment unit (2*k*halo a multiple
+    # of 16: k = 8 runs), so the unsharded kinds meet the JAX CLI's own
+    # refusal and the sharded ones the port's; the stream kind's --overlap
+    # runs, falling back to the non-split step (its K3 shells would have
+    # m = 4), equal to the plain run bit for bit.
+    pytest.param(["--fuse", "4"], ValueError, SUBLANE,
+                 id="extra0-ROADMAP B3"),
+    pytest.param(["--fuse", "4", "--fuse-kind", "tiled"], ValueError,
+                 SUBLANE, id="extra1-ROADMAP B3"),
+    pytest.param(["--mesh", "2,2", "--fuse", "4"], ValueError,
+                 SHARDED_SUBLANE, id="extra2-ROADMAP B3"),
+    pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+                  "--overlap"], None, None, id="extra3-ROADMAP B3"),
+    pytest.param(["--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree"],
+                 ValueError, SHARDED_SUBLANE, id="extra4-ROADMAP B4"),
+    (["--mesh", "2,2", "--compute", "pallas"], NotImplementedError,
+     "ROADMAP B2"),
+    (["--grid", "32,32", "--compute", "pallas"], NotImplementedError,
+     "ROADMAP B2"),
+    (["--grid", "32,32", "--fuse", "8"], NotImplementedError, "ROADMAP B6"),
 ])
-def test_bf16_refusals_name_their_item(monkeypatch, extra, match):
+def test_bf16_refusals_name_their_item(monkeypatch, caplog, extra, exc,
+                                       match):
+    """The 2D and compute_fn kernel paths refuse bfloat16 by their items
+    (B2, B6); --fuse 4 meets the alignment rule; a run that now takes
+    bfloat16 (``exc`` None) equals the plain bfloat16 run bit for bit."""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     stencil = "heat2d" if "32,32" in extra else "heat3d"
     args = ["--stencil", stencil, "--grid", "48,32,128", "--iters", "4",
             "--dtype", "bfloat16", "--device", "cpu", *extra]
-    with pytest.raises(NotImplementedError, match=match):
+    if exc is None:
+        with caplog.at_level(logging.WARNING):
+            got, _ = tcli.run(tcli.config_from_args(args))
+        assert "cannot host the interior/boundary split" in caplog.text
+        ref, _ = tcli.run(tcli.config_from_args(args[:10]))
+        for g, r in zip(tstepper.gather_fields(got), ref):
+            assert g.dtype == torch.bfloat16 and torch.equal(g, r)
+        return
+    with pytest.raises(exc, match=match):
         tcli.main(args)
 
 
@@ -562,18 +599,36 @@ def test_donated_fields_are_freed_after_the_first_step(log_every):
 
 
 def test_stepper_refuses_bf16_off_the_stream_kind():
-    """make_sharded_fused_step: bfloat16 on the padded kind and the overlap
-    shells (B3) and on the pad-free kinds (B4) raises; the stream kind
-    builds."""
+    """make_sharded_fused_step takes bfloat16 on every kind (the name is
+    kept from when only the stream kind did): at k = 8 the padded kind,
+    the pad-free kind and the stream kind, each with and without the
+    overlap shells, equal 8 plain sharded steps bit for bit; at k = 4
+    (2m = 8, off bfloat16's alignment unit) the padded and pad-free kinds
+    give None, as the JAX builders do, and the stream kind's shells fall
+    back to the non-split step."""
     st = port.make_stencil("heat3d", dtype=BF16)
     mesh = tmesh.make_mesh((2, 2), [torch.device("cpu")] * 4)
-    grid = (48, 32, 128)
-    for kw, item in (({}, "B3"), ({"kind": "padfree"}, "B4"),
-                     ({"kind": "stream", "overlap": True}, "B3")):
-        with pytest.raises(NotImplementedError, match=item):
-            tstepper.make_sharded_fused_step(st, mesh, grid, 4, **kw)
-    assert tstepper.make_sharded_fused_step(st, mesh, grid, 4,
-                                            kind="stream") is not None
+    grid = (48, 48, 128)
+    fields = tstepper.shard_fields(_port(_seeded(1, grid, 13)), mesh, 3)
+    plain = tstepper.make_sharded_step(st, mesh, grid)
+    ref = fields
+    for _ in range(8):
+        ref = plain(ref)
+    ref = tstepper.gather_fields(ref)
+    for kind in (None, "padfree", "stream"):
+        for overlap in (False, True):
+            step = tstepper.make_sharded_fused_step(
+                st, mesh, grid, 8, kind=kind, overlap=overlap)
+            assert step._overlap_active == overlap
+            got = tstepper.gather_fields(step(fields))
+            assert got[0].dtype == torch.bfloat16
+            assert torch.equal(got[0], ref[0]), (kind, overlap)
+        assert (tstepper.make_sharded_fused_step(st, mesh, grid, 4,
+                                                 kind=kind) is None) == \
+            (kind != "stream")
+    step = tstepper.make_sharded_fused_step(st, mesh, grid, 4, kind="stream",
+                                            overlap=True)
+    assert not step._overlap_active
 
 
 def test_stream_shared_memory_counts_the_itemsize():

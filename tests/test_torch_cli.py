@@ -27,6 +27,7 @@ from mpi_cuda_process_tpu_torch.ops.cuda import fused as tfused
 from mpi_cuda_process_tpu_torch.ops.cuda import kernels as tkernels
 from mpi_cuda_process_tpu_torch.ops.cuda import rawstep as trawstep
 from mpi_cuda_process_tpu_torch.parallel import mesh as tmesh
+from mpi_cuda_process_tpu_torch.parallel import stepper as tstepper
 from mpi_cuda_process_tpu_torch.utils import checkpointing as tckpt
 
 torch.set_num_threads(1)
@@ -198,6 +199,12 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
         init_state(make_stencil("heat3d"), (8, 8, 8), device="cuda")
 
 
+# The JAX CLI's refusal of a --fuse k off the dtype's alignment unit
+# (cli.py:964-969 there).
+SUBLANE = ("2\\*k\\*halo a multiple of the dtype's sublane tile — 8 for f32, "
+           "16 for bf16")
+
+
 @pytest.mark.parametrize("extra,exc,match", [
     (["--grid", "16,20", "--compute", "pallas", "--dtype", "bfloat16"],
      NotImplementedError, "B2"),
@@ -206,15 +213,17 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
     (["--grid", "16,20", "--fuse", "4", "--dtype", "bfloat16"],
      NotImplementedError, "B6"),
     # These ids keep their names from the refusals they pinned before
-    # --fuse-kind stream ran and before bfloat16 ran on the stream and
-    # raw-step kernels (tests/test_torch_stream.py, test_torch_bf16.py);
-    # each pins a bfloat16 refusal beside it that still holds: the
-    # unsharded fused kernel K3 (B3) and the compute_fn kernel K4 (B2).
+    # --fuse-kind stream ran and before bfloat16 ran on the stream,
+    # raw-step and fused kernels (tests/test_torch_stream.py,
+    # test_torch_bf16.py, test_torch_fused_bf16.py).  bfloat16 --fuse 4
+    # now meets the JAX CLI's own refusal: 2*k*halo off bfloat16's
+    # alignment unit (k = 8 runs); the compute_fn kernel K4 still refuses
+    # bfloat16 by its item (B2).
     pytest.param(["--fuse", "4", "--fuse-kind", "padfree", "--dtype",
-                  "bfloat16"], NotImplementedError, "ROADMAP B3",
+                  "bfloat16"], ValueError, SUBLANE,
                  id="extra3-NotImplementedError-B5"),
-    pytest.param(["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError,
-                 "ROADMAP B3", id="extra4-NotImplementedError-B1/B3"),
+    pytest.param(["--fuse", "4", "--dtype", "bfloat16"], ValueError, SUBLANE,
+                 id="extra4-NotImplementedError-B1/B3"),
     pytest.param(["--compute", "pallas", "--periodic", "--dtype",
                   "bfloat16"], NotImplementedError, "ROADMAP B2",
                  id="extra5-NotImplementedError-B1/B3"),
@@ -322,15 +331,16 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
     # they pinned before --fuse --overlap (B4 row 7), --fuse-kind padfree
     # on a y-sharded mesh (row 9) and --fuse-kind stream (B5) ran; those
     # run in tests/test_torch_twoaxis.py and tests/test_torch_stream.py
-    # now, and these cases pin refusals beside them that still hold.  Since
-    # bfloat16 runs on the stream kind, extra1 pins its overlap shells (K3,
-    # B3) and extra2 the pad-free kernel K9 (B4), each by its own item.
+    # now.  Since every fused kind takes bfloat16, extra1 runs: the stream
+    # kind's K3 shells would have m = 4, off bfloat16's alignment unit, so
+    # the step falls back to the non-split one, as in the JAX package, and
+    # equals the plain run bit for bit; extra2 (K9 at k = 4) meets that
+    # alignment rule and is refused as unsupported.
     pytest.param(["--mesh", "2,2", "--fuse", "4", "--overlap",
                   "--fuse-kind", "stream", "--dtype", "bfloat16"],
-                 NotImplementedError, "ROADMAP B3",
-                 id="extra1-NotImplementedError-B4"),
+                 None, None, id="extra1-NotImplementedError-B4"),
     pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
-                  "--dtype", "bfloat16"], NotImplementedError, "ROADMAP B4",
+                  "--dtype", "bfloat16"], ValueError, "sublane tile",
                  id="extra2-NotImplementedError-row 9"),
     (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "tiled"], ValueError,
      "--fuse-kind"),
@@ -346,12 +356,25 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
     (["--grid", "16,20", "--mesh", "2,2", "--compute", "pallas", "--dtype",
       "bfloat16"], NotImplementedError, "B2"),
 ])
-def test_mesh_refusals_name_their_reason(monkeypatch, extra, exc, match):
+def test_mesh_refusals_name_their_reason(monkeypatch, caplog, extra, exc,
+                                        match):
+    """Each case raises naming its reason, or (``exc`` None) runs, logs
+    the overlap fallback and equals the plain run of its dtype bit for
+    bit."""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     args = ["--stencil", "heat3d", "--grid", "16,16,128", "--iters", "4",
             "--device", "cpu"]
     if extra[:2] == ["--grid", "16,20"]:
         args = ["--stencil", "heat2d", "--iters", "4", "--device", "cpu"]
+    if exc is None:
+        with caplog.at_level(logging.WARNING):
+            got, _ = tcli.run(tcli.config_from_args(args + extra))
+        assert "cannot host the interior/boundary split" in caplog.text
+        dtype = extra[extra.index("--dtype") + 1]
+        ref, _ = tcli.run(tcli.config_from_args(args + ["--dtype", dtype]))
+        for g, r in zip(tstepper.gather_fields(got), ref):
+            assert g.dtype == r.dtype and torch.equal(g, r)
+        return
     with pytest.raises(exc, match=match):
         tcli.main(args + extra)
 

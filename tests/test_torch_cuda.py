@@ -16,7 +16,9 @@ kind and the ring exchange (``ops/cuda/remote.py``, with its drained
 counters read after every launch) bit-equal.  The bfloat16 kinds of K1,
 K2, Gray-Scott's raw step, K10 and the ring exchange are held to their
 plain versions on bfloat16 tensors bit for bit (max |d| = 0): every op
-rounds to bfloat16 as the plain op does.
+rounds to bfloat16 as the plain op does; so are the bfloat16 kinds of K3
+(RAW and PADDED), its shells, K6 and K9, and K6 and K9's advection and
+Gray-Scott kinds in float32.
 The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
 K10, K8's sharded mode) run on meshes of virtual shards on one card.
 """
@@ -108,6 +110,15 @@ def test_wrappers_raise_on_operands_the_kernels_do_not_take(dev):
     # bfloat16 runs since the kernels gained its kind; float16 does not
     with pytest.raises(TypeError, match="float32"):
         rawstep.raw_step_heat(u.to(torch.float16), st)
+    h = u.to(torch.float16)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fused.fused_step((h,), st, 4)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fused.fused_zslab((h[:8].contiguous(),), (h[:4].contiguous(),),
+                          (h[:4].contiguous(),), st, 4, 16, 8)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fused.fused_step((u, u.to(torch.bfloat16)), port.make_stencil(
+            "wave3d"), 4)
     with pytest.raises(ValueError, match="contiguous"):
         rawstep.raw_step_heat(u.transpose(0, 2), st)
     with pytest.raises(ValueError, match="shape"):
@@ -1167,4 +1178,93 @@ def test_bf16_rdma_sharded_step_matches_ppermute(dev, name, mesh_shape):
         torch.cuda.synchronize()
         assert bool(remote.launches) == (exchange == "rdma")
     for a, b in zip(*outs):
+        assert a.dtype == BF16 and torch.equal(a, b)
+
+
+# ---- K3, its shells, K6 and K9 in bfloat16; K6/K9's new families -----------
+
+BF16_FUSED = [("heat3d", 8), ("heat3d27", 8), ("heat3d4th", 4),
+              ("wave3d", 8), ("advect3d", 8), ("grayscott3d", 8),
+              ("sor3d", 4)]
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("shape", [(32, 32, 128), (18, 22, 45)])
+@pytest.mark.parametrize("name,k", BF16_FUSED)
+def test_bf16_fused_step_matches_plain(dev, name, k, shape, periodic):
+    """K3's bfloat16 kind (row 5) == k plain bfloat16 steps, bit for bit;
+    sor3d's periodic wrap over an odd extent is refused, as in the TPU
+    package (its colours would disagree across the wrap)."""
+    st = _bf16_stencil(name)
+    if not fused.parity_consistent(st, shape, periodic):
+        assert fused.make_fused_step(st, shape, k, periodic=periodic) is None
+        return
+    fields = tuple(f.to(BF16) for f in _fields(st, shape, dev, 61))
+    ref = fused.plain_steps(fields, st, k, periodic)
+    fused.launches.clear()
+    got = fused.fused_step(fields, st, k, periodic=periodic)
+    torch.cuda.synchronize()
+    assert dict(fused.launches) == {f"fused_step[{name},bfloat16]": 1}
+    _check(got, ref, None if periodic else st.halo, 0.0)
+
+
+@pytest.mark.parametrize("dtype,name,k", [(BF16, n, k) for n, k in BF16_FUSED]
+                         + [(torch.float32, "advect3d", 4),
+                            (torch.float32, "grayscott3d", 4)])
+def test_fused_slab_kinds_match_plain(dev, dtype, name, k):
+    """K3's sharded mode and its shells (rows 5, 7), K6 and K9 (rows 8, 9)
+    on random pieces of a shard, bfloat16 for every family and float32 for
+    advect3d and grayscott3d, bit for bit against their plain versions."""
+    st = _bf16_stencil(name) if dtype == BF16 else \
+        port.make_stencil(name, **({"cx": -0.3, "cz": 0.25}
+                                   if name == "advect3d" else {}))
+    m = k * st.halo * (2 if name == "sor3d" else 1)
+    Lz, Ly, X = local = (24, 32, 40)
+    gshape = (3 * Lz, 3 * Ly, X)
+    seed = iter(range(700, 800))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed)).to(dtype)
+                     for _ in range(st.num_fields))
+
+    padded = per_field((Lz + 2 * m, Ly + 2 * m, X))
+    _check(fused.fused_step_padded(padded, st, k, gshape, (Lz, 0)),
+           fused.plain_step_padded(padded, st, k, gshape, (Lz, 0)), None, 0.0)
+    core = per_field(local)
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    _check(fused.fused_zslab(core, zlo, zhi, st, k, gshape[0], Lz),
+           fused.plain_zslab(core, zlo, zhi, st, k, gshape[0], Lz), None, 0.0)
+    args = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, (Lz, Ly))
+    _check(fused.fused_yzslab(*args), fused.plain_yzslab(*args), None, 0.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("mesh_shape,kind", [((2, 2), None),
+                                             ((2, 2), "padfree"),
+                                             ((4,), "padfree"),
+                                             ((2, 2), "stream")])
+@pytest.mark.parametrize("name", ["heat3d", "wave3d", "grayscott3d"])
+def test_bf16_sharded_fused_steps_match_plain_sharded_steps(
+        dev, name, mesh_shape, kind, overlap):
+    """The bfloat16 sharded fused steps at k = 8 (K3's sharded mode, K9,
+    K6, K10; the shells with --overlap) == 8 plain sharded bfloat16 steps,
+    bit for bit."""
+    st = _bf16_stencil(name)
+    shape = (96, 96, 40)
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    fields = shard_fields(tuple(f.to(BF16) for f in
+                                _fields(st, shape, dev, 63)), mesh, 3)
+    plain = make_sharded_step(st, mesh, shape)
+    ref = fields
+    for _ in range(8):
+        ref = plain(ref)
+    step = make_sharded_fused_step(st, mesh, shape, 8, kind=kind,
+                                   overlap=overlap, device=dev)
+    assert step._overlap_active == overlap
+    got = gather_fields(step(fields))
+    torch.cuda.synchronize()
+    for a, b in zip(got, gather_fields(ref)):
         assert a.dtype == BF16 and torch.equal(a, b)

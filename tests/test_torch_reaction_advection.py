@@ -532,23 +532,29 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, monkeypatch, name, grid,
     pytest.param(["--mesh", "4", "--fuse", "4", "--fuse-kind", "stream",
                   "--periodic"], ValueError, "unsupported",
                  id="extra2-NotImplementedError-B5"),
-    (["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree"],
-     NotImplementedError, "B4"),
-    (["--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree", "--overlap"],
-     NotImplementedError, "B4"),
+    # These two ids keep their names from the refusals they pinned before
+    # K6 and K9 took the two families (ROADMAP B4): the pad-free kinds now
+    # run (K9 on 2x2; K6 on --mesh 4, whose 8-plane shards cannot host the
+    # shells, so --overlap falls back to the non-split step).
+    pytest.param(["--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree"],
+                 None, None, id="extra3-NotImplementedError-B4"),
+    pytest.param(["--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree",
+                  "--overlap"], None, None,
+                 id="extra4-NotImplementedError-B4"),
     # This id keeps its name from the combined bfloat16 item it pinned
-    # before the raw-step and stream kernels took bfloat16; the fused
-    # kernel K3 still refuses it, by its own item.
-    pytest.param(["--fuse", "4", "--dtype", "bfloat16"], NotImplementedError,
-                 "ROADMAP B3", id="extra5-NotImplementedError-B1/B3"),
+    # before the raw-step, stream and fused kernels took bfloat16: --fuse 4
+    # in bfloat16 now meets the JAX CLI's own refusal (2*k*halo off the
+    # bfloat16 alignment unit; k = 8 runs).
+    pytest.param(["--fuse", "4", "--dtype", "bfloat16"], ValueError,
+                 "sublane tile — 8 for f32, 16 for bf16",
+                 id="extra5-NotImplementedError-B1/B3"),
 ])
 @pytest.mark.parametrize("name", ["advect3d", "grayscott3d"])
 def test_unported_kinds_raise_naming_roadmap(monkeypatch, name, extra, exc,
                                              match):
-    """The pad-free kinds of the two families raise by name (B4), as does
-    bfloat16; they never run the padded kind or another family's kernel
-    instead.  Their stream kind runs (B5) and matches the plain run at
-    atol 1e-4, frame exact."""
+    """The stream kind (B5) and the pad-free kinds (B4) of the two
+    families run and match the plain run at atol 1e-4, frame exact;
+    bfloat16 --fuse 4 raises the JAX CLI's alignment refusal."""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     tfused.launches.clear()
     args = ["--stencil", name, "--grid", "32,32,128", "--iters", "4",
@@ -599,18 +605,38 @@ def test_fuse_8_grayscott3d_exceeds_shared_memory():
 
 
 def test_slab_and_stream_builders_refuse_the_new_families():
-    """K6 and K9 still refuse the two families by name (B4); the
-    streaming kernel takes them (B5): build_stream_* build, decline
-    ``periodic`` as for every family, and its wrapper equals k plain
-    steps on the CPU."""
+    """K6 and K9 take the two families (B4; the name is kept from when they
+    refused them): their builders build, and their wrappers on a core cut
+    from a (16, 16, 128) grid with its slabs (and corners) equal k plain
+    steps of the whole grid there, bit for bit.  The streaming kernel
+    takes them too (B5): build_stream_* build, decline ``periodic`` as
+    for every family, and its wrapper equals k plain steps on the CPU."""
     gs, adv = port.make_stencil("grayscott3d"), port.make_stencil("advect3d")
+    mixed = port.make_stencil("advect3d", cx=0.3, cy=-0.2, cz=-0.25)
+    for st in (gs, adv, mixed):
+        assert tfused.build_zslab_padfree_call(
+            st, (8, 16, 128), (32, 16, 128), 4) is not None
+        assert tfused.build_yzslab_padfree_call(
+            st, (16, 16, 128), (32, 32, 128), 4) is not None
+        full = tuple(torch.rand(16, 16, 128) for _ in range(st.num_fields))
+        ref = tfused.plain_steps(full, st, 4)
+        got = tfused.fused_zslab(tuple(f[4:12] for f in full),
+                                 tuple(f[:4] for f in full),
+                                 tuple(f[12:] for f in full), st, 4, 16, 4)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b[4:12])
+        cut = ((slice(0, 4), slice(4, 12)), (slice(12, 16), slice(4, 12)),
+               (slice(4, 12), slice(0, 4)), (slice(4, 12), slice(12, 16)),
+               (slice(0, 4), slice(0, 4)), (slice(0, 4), slice(12, 16)),
+               (slice(12, 16), slice(0, 4)), (slice(12, 16), slice(12, 16)))
+        zlo, zhi, ylo, yhi, *corners = (tuple(f[z, y] for f in full)
+                                        for z, y in cut)
+        got = tfused.fused_yzslab(tuple(f[4:12, 4:12] for f in full), zlo,
+                                  zhi, ylo, yhi, corners, st, 4,
+                                  (16, 16, 128), (4, 4))
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b[4:12, 4:12])
     for st in (gs, adv):
-        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-            tfused.build_zslab_padfree_call(st, (8, 16, 128), (32, 16, 128),
-                                            4)
-        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-            tfused.build_yzslab_padfree_call(st, (16, 16, 128),
-                                             (32, 32, 128), 4)
         assert tstream.stream_supported(st) and tstream.fits(st, 4)
         assert tstream.make_stream_fused_step(st, (16, 16, 128), 4)
         assert tstream.build_stream_sharded_call(
@@ -621,8 +647,6 @@ def test_slab_and_stream_builders_refuse_the_new_families():
         for a, b in zip(tstream.stream_step(core, st, 4),
                         tfused.plain_steps(core, st, 4)):
             assert torch.equal(a, b)
-        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-            tfused.fused_zslab(core, core, core, st, 4, 32, 8)
     # Gray-Scott's rings for u and v at every level: 153,408 bytes at k = 4
     assert tstream.smem_bytes(gs, 4) == 2 * tstream.smem_bytes(adv, 4) \
         == 153408

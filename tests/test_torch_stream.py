@@ -335,10 +335,12 @@ def test_cli_stream_periodic_refused_in_both(monkeypatch, flags):
 @pytest.mark.parametrize("flags", [[], ["--mesh", "2,2"]])
 def test_cli_stream_bf16_refused_by_name(monkeypatch, flags):
     """bfloat16 on the stream kind runs (K10 takes it) and equals the
-    port's plain bfloat16 run; what still refuses it names its own item:
-    the overlap shells (K3, ROADMAP B3) under --mesh, the unsharded fused
-    kernel K3 (B3) otherwise.  (The name is kept from when the stream kind
-    itself refused bfloat16.)"""
+    port's plain bfloat16 run.  Under --mesh its --overlap runs too: the
+    K3 shells would have m = 4, off bfloat16's alignment unit, so the step
+    falls back to the non-split one, as in the JAX package, and equals the
+    run without --overlap bit for bit.  Unsharded, --fuse 4 without the
+    stream kind (K3) meets the JAX CLI's own refusal of that alignment.
+    (The name is kept from when the stream kind itself refused bfloat16.)"""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     base = ["--stencil", "heat3d", "--grid", "48,32,128", "--iters", "4",
             "--dtype", "bfloat16", "--device", "cpu", "--init", "random"]
@@ -350,10 +352,16 @@ def test_cli_stream_bf16_refused_by_name(monkeypatch, flags):
     assert got[0].dtype == torch.bfloat16
     np.testing.assert_allclose(got[0].float().numpy(),
                                ref[0].float().numpy(), rtol=0, atol=1e-3)
-    refused = (["--fuse", "4", "--fuse-kind", "stream", "--overlap"]
-               if flags else ["--fuse", "4"])
-    with pytest.raises(NotImplementedError, match="ROADMAP B3"):
-        tcli.main(base + flags + refused)
+    if flags:
+        over, _ = tcli.run(tcli.config_from_args(
+            base + ["--fuse", "4", "--fuse-kind", "stream", "--overlap",
+                    *flags]))
+        for a, b in zip(tstepper.gather_fields(over), got):
+            assert torch.equal(a, b)
+    else:
+        with pytest.raises(ValueError, match="sublane tile — 8 for f32, "
+                                             "16 for bf16"):
+            tcli.main(base + ["--fuse", "4"])
 
 
 # ---- C3: the step's carry ----------------------------------------------------

@@ -70,14 +70,21 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      shard's padded block), its overlap shells, K6 and K9 (a shard's
      random core, slabs and corners of a (128, 128, 256) grid and of
      512^3), every family at its bfloat16 k (8; heat3d4th and sor3d 4),
-     guard-frame and periodic.  K6 and K9 for advection (both Courant
-     signs) and Gray-Scott in float32: on random pieces for k = 1..4 and
-     through their sharded steps (--mesh 4, 2x2, 1x4, with and without the
-     shells), bit for bit.  Tolerances:
+     guard-frame and periodic; K4 (three tap sets) and K5 on a ragged
+     padded block and one 1024^3 2x2 shard's, K7 at (130, 258) and
+     16384^2, K8 RAW for every float 2D family at k = 3 and 16 (sor2d 8),
+     guard-frame and periodic, at (130, 258) and at 16384^2, and K8 PADDED
+     through the --mesh 4 stepper (with and without the overlap shells)
+     and on one 16384^2 shard's padded block.  K6 and K9 for advection
+     (both Courant signs) and Gray-Scott in float32: on random pieces for
+     k = 1..4 and through their sharded steps (--mesh 4, 2x2, 1x4, with
+     and without the shells), bit for bit.  Tolerances:
      raw step atol = 32 eps
      max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
-     exactly equal;
+     exactly equal; atol = 0 compares the bits, so a cell that overflows
+     alike in both (bfloat16 Gray-Scott from uniform random fields at
+     16384^2, k = 16: 85 cells of -inf) counts as equal;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
      --compute jnp, --compute pallas, --fuse K (K = 4; 2 for heat3d4th)
@@ -151,9 +158,16 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      --mesh 2,2 stream with and without --exchange rdma, and for 96
      iterations with --fuse 8 unsharded, on --mesh 2,2 (padded, pad-free
      and stream, each with and without --overlap) and --mesh 4 pad-free
-     (K6), beside their f32 twins' ms/step; every kernel run bit-equal to
-     the plain bf16 run of the same grid, every --overlap run to its
-     non-overlap twin, its bf16 launch counters exact;
+     (K6), beside their f32 twins' ms/step; BASELINE config 3's
+     decomposition, --mesh 2,2 --compute pallas (K4 / K5), for heat3d,
+     heat3d27, heat3d4th and wave3d at 512^3 and heat3d and wave3d at
+     1024^3 with and without --overlap; --periodic --compute pallas at
+     512^3 for ITERS beside its f32 run; at 16384^2 for 96 iterations
+     heat2d and mdf --compute pallas (K7), heat2d also on --mesh 4 with and
+     without --overlap, and every float 2D family at --fuse 16 (sor2d 8;
+     K8) unsharded and on --mesh 4 with and without --overlap; every kernel
+     run bit-equal to the plain bf16 run of the same grid, every --overlap
+     run to its non-overlap twin, its bf16 launch counters exact;
   5c. BASELINE config 5: the rehearsal line of tests/test_cli.py:422-424
      (wave3d 192x64x128 --mesh 8,1,1 --fuse 4 --fuse-kind stream --dtype
      bfloat16 --mem-check error) on 8 virtual shards against the plain bf16
@@ -165,7 +179,10 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      40 iterations, --mem-check error), with and without --exchange rdma,
      each bit-equal to the unsharded stream run, printed with its ms/step,
      Mcells/s, the budget's estimate and the measured peak; its float32
-     twin where the budget admits it, else the refusal;
+     twin where the budget admits it, else the refusal; and BASELINE
+     config 3's decomposition in bfloat16 (heat3d 1024^3 --mesh 2,2
+     --compute pallas, 16 iterations), whose measured peak must not exceed
+     the estimate;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -188,7 +205,10 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      K3 in bfloat16 at 512^3 for every family, its sharded mode, one hi z
      shell and K9 on a 2x2 shard and K6 on a --mesh 4 shard of 1024^3
      (heat3d, wave3d, k = 8), and K6 and K9 of advect3d and grayscott3d
-     on the shards of 512^3 (float32 k = 4, bfloat16 k = 8).
+     on the shards of 512^3 (float32 k = 4, bfloat16 k = 8); K4 / K5 in
+     bfloat16 on the 2x2 shards (F.conv3d in bfloat16 beside them), K7 at
+     16384^2 (F.conv2d in bfloat16) and K8 at 16384^2 and on a --mesh 4
+     shard, every float 2D family at k = 16 (sor2d 8).
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -296,6 +316,12 @@ BF16_ITERS = 8
 # 512^3, with and without --overlap.
 BF16_FUSE = {"heat3d": 8, "heat3d27": 8, "heat3d4th": 4, "wave3d": 8,
              "advect3d": 8, "grayscott3d": 8, "sor3d": 4}
+# The bfloat16 k of each float 2D family on K8 (JAX's bfloat16 alignment, m
+# a multiple of 16: k = 16, sor2d's margin 2k: k = 8); every family at
+# 16384^2 for ITERS16K (a multiple of 16) unsharded and on --mesh 4 with
+# and without --overlap, beside their f32 --fuse 8 twins of phase 5.
+BF16_FUSE2D = {"heat2d": 16, "wave2d": 16, "advect2d": 16,
+               "grayscott2d": 16, "sor2d": 8}
 # BASELINE config 5 (wave3d 4096^3 bf16 on 64 chips, z-sharded, --fuse 4
 # --fuse-kind stream): the rehearsal line of tests/test_cli.py:422-424 on 8
 # virtual shards, and one card's share of the full-width run, 4 of its 64
@@ -320,6 +346,13 @@ def raw_key(stencil, dtype=None):
     return {"wave3d": "raw_step_wave", "grayscott3d": "raw_step_grayscott"
             }.get(stencil, "raw_step_heat") + (
                 f"[{stencil},{dtype}]" if dtype else f"[{stencil}]")
+
+
+def zchunk_key(stencil, dtype=None):
+    """The launch counter key of a 3D stencil's compute_fn kernel (K4, K5;
+    ``dtype``: the bfloat16 kind's)."""
+    return ("zchunk_wave" if stencil == "wave3d" else "zchunk_heat") + (
+        f"[{stencil},{dtype}]" if dtype else f"[{stencil}]")
 EPS32 = 2.0 ** -23
 FLOPS_PER_CELL = {"heat3d": 10, "heat3d27": 55, "heat3d4th": 27,
                   "wave3d": 12, "heat2d": 7, "wave2d": 9,
@@ -433,16 +466,28 @@ def main() -> int:
     def frame_of(shape, halo_w):
         return driver.frame_mask(shape, shape, (0, 0, 0), halo_w, dev)
 
+    bit_views = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                 torch.int32: torch.int32}
+
     def compare(entry, got, ref, atol, frame, rtol=0.0):
         worst = 0.0
         for g, r in zip(got, ref):
+            if atol == rtol == 0.0 and g.dtype == r.dtype and \
+                    g.shape == r.shape and torch.equal(
+                        g.view(bit_views[g.dtype]), r.view(bit_views[r.dtype])):
+                continue  # bit for bit, non-finite cells included
             g, r = g.float(), r.float()  # bfloat16: the difference exact
             d = (g - r).abs()
             err = float(d.max())
             bad = float((d - atol - rtol * r.abs()).max())
             if not math.isfinite(err) or bad > 0:
+                first = torch.nonzero(~(d <= atol + rtol * r.abs()))[0]
                 fail(f"{entry}: max|d| {err:.3e} > atol {atol:.3e} "
-                     f"rtol {rtol:.1e}")
+                     f"rtol {rtol:.1e}; shape {tuple(g.shape)}, "
+                     f"non-finite: kernel {int((~torch.isfinite(g)).sum())}"
+                     f" plain {int((~torch.isfinite(r)).sum())}, first bad "
+                     f"cell {first.tolist()}: {float(g[tuple(first)])} "
+                     f"against {float(r[tuple(first)])}")
             if frame is not None and not torch.equal(g[frame], r[frame]):
                 fail(f"{entry}: frame cells differ")
             worst = max(worst, err)
@@ -1068,6 +1113,98 @@ def main() -> int:
                         "dtype": str(dt).replace("torch.", ""),
                         "max_abs_err": err, "atol": 0.0})
         del got, ref
+    # K4 (three tap sets), K5, K7 and K8 (every float 2D family) in
+    # bfloat16, bit for bit against their plain versions on bfloat16
+    # tensors: K4/K5 on a ragged padded block and on one 1024^3 2x2 shard's;
+    # K7 at a ragged shape and 16384^2; K8 RAW at k = 3 and 16 (sor2d 8),
+    # guard-frame and periodic, at (130, 258) and guard-frame at 16384^2;
+    # K8 PADDED through the --mesh 4 row-split stepper, with and without the
+    # overlap shells, at (256, 258), and on one 16384^2 --mesh 4 shard's
+    # padded block
+    ccases = []
+    for label in ("heat3d", "heat3d27", "heat3d4th", "wave3d"):
+        ccases += [("compute", label, shape, 1, False)
+                   for shape in ((66, 70, 130), (512, 512, 1024))]
+    ccases += [("whole2d", "heat2d", shape, 1, False)
+               for shape in ((130, 258), GRID2D)]
+    for label in ("heat2d", "wave2d", "advect2d-mixed", "grayscott2d",
+                  "sor2d"):
+        k2 = BF16_FUSE2D[label.partition("-")[0]]
+        ccases += [(path, label, shape, k, periodic)
+                   for path, shape in (("fullgrid_step", (130, 258)),
+                                       ("fullgrid_sharded", (256, 258)))
+                   for k in (3, k2) for periodic in (False, True)]
+        ccases += [("fullgrid_step", label, GRID2D, k2, False),
+                   ("fullgrid_padded", label, GRID2D, k2, False)]
+    for path, label, shape, k, periodic in ccases:
+        st = case_stencil(label, BF16)
+        name, nf = st.name, st.num_fields
+        frame = None
+        if path == "compute":
+            h = st.halo
+            ins = (rand16(tuple(s_ + 2 * h for s_ in shape)),) + (
+                (rand16(shape),) if nf == 2 else ())
+            got = kernels.make_pallas_compute(st, device=dev)(ins)[:1]
+            ref = st.update(ins)[:1]
+            entry = ("zchunk_wave" if name == "wave3d" else "zchunk_heat") \
+                + f"<{name},{BF16}>"
+            del ins
+        elif path == "whole2d":
+            ins = (rand16(tuple(s_ + 2 for s_ in shape)),)
+            got = kernels.make_pallas_compute(st, device=dev)(ins)
+            ref = st.update(ins)
+            entry = f"whole2d<{name},{BF16}>"
+            del ins
+        elif path == "fullgrid_step":
+            fields = tuple(rand16(shape) for _ in range(nf))
+            plain = driver.make_step(st, shape, periodic=periodic)
+            ref = fields
+            for _ in range(k):
+                ref = plain(ref)
+            got = fullgrid.make_fullgrid_step(st, shape, k, periodic=periodic,
+                                              device=dev)(fields)
+            frame = None if periodic else driver.frame_mask(
+                shape, shape, (0, 0), 1, dev)
+            entry = f"fullgrid_step<{name},{BF16}>"
+            del fields
+        elif path == "fullgrid_padded":
+            # the second shard of a --mesh 4 row split of the grid
+            m = k_step_margin(st, k)
+            Ly = shape[0] // 4
+            ins = tuple(rand16((Ly + 2 * m, shape[1])) for _ in range(nf))
+            got = fullgrid.fullgrid_padded(ins, st, k, shape[0], Ly)
+            ref = tuple(r[m:m + Ly] for r in fused._plain_window_steps(
+                ins, st, k, (Ly - m, 0), shape, False, wrap_axes=(1,)))
+            entry = f"fullgrid_padded<{name},{BF16}>"
+            del ins
+        else:
+            mesh = virtual_mesh((4,))
+            fields = stepper.shard_fields(
+                tuple(rand16(shape) for _ in range(nf)), mesh, 2)
+            plain = stepper.make_sharded_step(st, mesh, shape,
+                                              periodic=periodic)
+            ref = fields
+            for _ in range(k):
+                ref = plain(ref)
+            ref = stepper.gather_fields(ref)
+            got = []
+            for overlap in (False, True):
+                step = stepper.make_sharded_temporal_step(
+                    st, mesh, shape, k, periodic=periodic, overlap=overlap,
+                    device=dev)
+                if step._overlap_active != overlap:
+                    fail(f"fullgrid_padded {name} bf16 k={k}: overlap split "
+                         "not taken")
+                got += stepper.gather_fields(step(fields))
+            ref = ref + ref
+            entry = f"fullgrid_padded<{name},{BF16}>"
+            del fields
+        torch.cuda.synchronize()
+        err = compare(entry, got, ref, 0.0, frame)
+        checked.append({"kernel": entry, "label": label, "path": path,
+                        "shape": list(shape), "k": k, "periodic": periodic,
+                        "dtype": BF16, "max_abs_err": err, "atol": 0.0})
+        del got, ref
     for mshape, axis, shape in sites + [((4,), 0, (4, 4096, 4096)),
                                         ((4,), 0, (4, 7, 129))]:
         mesh = virtual_mesh(mshape)
@@ -1657,8 +1794,10 @@ def main() -> int:
     # kinds), the stream kind unsharded, on --mesh 4 and on --mesh 2,2
     # --exchange rdma; heat3d and wave3d at 1024^3 for ITERS with --compute
     # pallas, the stream kind and --mesh 2,2 stream with and without
-    # --exchange rdma, beside their f32 twins of phase 5.  Every kernel run
-    # is held bit for bit (max |d| = 0) to the plain bf16 run.
+    # --exchange rdma, beside their f32 twins of phase 5; the compute_fn
+    # kernels on --mesh 2,2 and --periodic, and the 2D kernels K7 and K8 at
+    # 16384^2.  Every kernel run is held bit for bit (max |d| = 0) to the
+    # plain bf16 run.
     bf16_results = []
     dt16 = ("--dtype", BF16)
 
@@ -1722,6 +1861,14 @@ def main() -> int:
         modes = [] if name == "sor3d" else [
             ("pallas", ("--compute", "pallas"), {raw_key(name, BF16): iters})]
         modes.append(("stream", stream, {key("stream_step"): passes}))
+        if name in ("heat3d", "heat3d27", "heat3d4th", "wave3d"):
+            # BASELINE config 3's decomposition: K4 / K5 on 2x2
+            p22 = ("--mesh", "2,2", "--compute", "pallas")
+            z = zchunk_key(name, BF16)
+            modes.append(("pallas22", p22, {z: 4 * iters}))
+            if big:
+                modes.append(("pallas22_overlap", p22 + ("--overlap",),
+                              {z: 20 * iters}))
         if big:
             s22 = ("--mesh", "2,2") + stream
             modes += [("stream_yz", s22, {key("stream_yzslab"): 4 * passes}),
@@ -1740,27 +1887,24 @@ def main() -> int:
 
     def f32_twin(name, grid, flags):
         """The ms/step of a run's float32 twin in phase 5: the same grid
-        and flags, at the float32 k (--fuse 4) where the bf16 run takes
-        --fuse 8."""
+        and flags, at the float32 k (3D --fuse 4 where the bf16 run takes
+        --fuse 8, 2D --fuse 8)."""
         want = list(flags)
         for i in range(len(want) - 1):
-            if want[i] == "--fuse" and want[i + 1] == "8":
-                want[i + 1] = "4"
+            if want[i] == "--fuse":
+                want[i + 1] = str(FUSE2D) if len(grid) == 2 else \
+                    {"8": "4"}.get(want[i + 1], want[i + 1])
         twin = [t for t in mesh_results if t["stencil"] == name
                 and t["grid"] == list(grid) and t["flags"] == want]
         return twin[0]["ms_per_step"] if twin else None
 
-    runs16 = ([(n, k, MAIN, BF16_ITERS, None) for n, k in BF16_FAMILIES]
-              + [(n, 4, BIG, ITERS, None) for n in ("heat3d", "wave3d")]
-              + [(n, 8, BIG, ITERS16K, "big") for n in ("heat3d", "wave3d")])
-    for name, k, grid, iters, group in runs16:
-        big = grid == BIG
-        if group:
-            st = make_stencil(name, dtype=BF16)
-            modes = fuse_modes(name, k, iters // k, group)
-        else:
-            st, modes = bf16_modes(name, k, grid, iters, big)
-        ref, r = run_cli(name, grid, iters, "--compute", "jnp", *dt16)
+    def bf16_group(name, grid, iters, st, modes, twins, ref_flags=()):
+        """The plain bf16 run of ``name`` at ``grid`` (with ``ref_flags``),
+        then each mode, held to it bit for bit and each ``*_overlap`` mode
+        to its base; with ``twins`` each run records its f32 twin's
+        ms/step."""
+        ref, r = run_cli(name, grid, iters, "--compute", "jnp", *dt16,
+                         *ref_flags)
         bf16_results.append(r)
         kept = {}  # the non-overlap run each --overlap run must equal
         for label, flags, want in modes:
@@ -1781,13 +1925,70 @@ def main() -> int:
                 del kept[base]
             elif any(md[0] == f"{label}_overlap" for md in modes):
                 kept[label] = got
-            if big or name in ("advect3d", "grayscott3d"):
+            if twins or label.startswith("pallas22"):
                 # the f32 twin of phase 5 (same grid and flags, f32 k)
                 r["f32_twin_ms_per_step"] = f32_twin(name, grid, flags)
             bf16_results.append(r)
             del got
         del ref, kept
         torch.cuda.empty_cache()
+
+    runs16 = ([(n, k, MAIN, BF16_ITERS, None) for n, k in BF16_FAMILIES]
+              + [(n, 4, BIG, ITERS, None) for n in ("heat3d", "wave3d")]
+              + [(n, 8, BIG, ITERS16K, "big") for n in ("heat3d", "wave3d")])
+    for name, k, grid, iters, group in runs16:
+        big = grid == BIG
+        if group:
+            st = make_stencil(name, dtype=BF16)
+            modes = fuse_modes(name, k, iters // k, group)
+        else:
+            st, modes = bf16_modes(name, k, grid, iters, big)
+        bf16_group(name, grid, iters, st, modes,
+                   big or name in ("advect3d", "grayscott3d"))
+    # --periodic --compute pallas (K4 / K5 on the wrap-padded grid) at
+    # 512^3 for ITERS, beside its f32 run
+    for name in ("heat3d", "wave3d"):
+        per = ("--periodic", "--compute", "pallas")
+        _, r = run_cli(name, MAIN, ITERS, *per)
+        if r["launches"] != {zchunk_key(name): ITERS}:
+            fail(f"{name} f32 periodic pallas: launches {r['launches']}")
+        mesh_results.append(r)
+        bf16_group(name, MAIN, ITERS, make_stencil(name, dtype=BF16),
+                   [("periodic_pallas", per,
+                     {zchunk_key(name, BF16): ITERS})], True,
+                   ref_flags=("--periodic",))
+    # 2D at 16384^2 for ITERS16K: K7 (heat2d and mdf --compute pallas,
+    # heat2d also on --mesh 4 with and without --overlap) and K8 (every
+    # float family at its BF16_FUSE2D k, unsharded and on --mesh 4 with and
+    # without --overlap), beside their f32 twins of phase 5 (--fuse 8)
+    for name, k in BF16_FUSE2D.items():
+        passes = ITERS16K // k
+
+        def key(w, name=name):
+            return f"{w}[{name},{BF16}]"
+
+        m4 = ("--mesh", "4", "--fuse", str(k))
+        modes = [("fuse", ("--fuse", str(k)), {key("fullgrid_step"): passes}),
+                 ("fuse4", m4, {key("fullgrid_padded"): 4 * passes}),
+                 ("fuse4_overlap", m4 + ("--overlap",),
+                  {key("fullgrid_padded"): 12 * passes})]
+        if name == "heat2d":
+            m4 = ("--mesh", "4", "--compute", "pallas")
+            modes = [("pallas", ("--compute", "pallas"),
+                      {key("whole2d"): ITERS16K}),
+                     ("pallas4", m4, {key("whole2d"): 4 * ITERS16K}),
+                     ("pallas4_overlap", m4 + ("--overlap",),
+                      {key("whole2d"): 12 * ITERS16K})] + modes
+        bf16_group(name, GRID2D, ITERS16K,
+                   make_stencil(name, dtype=BF16), modes, True)
+    # mdf: heat2d under its other registry name, the same fields bit for bit
+    ref, _ = run_cli("heat2d", GRID2D, ITERS16K, "--compute", "jnp", *dt16)
+    got, r = run_cli("mdf", GRID2D, ITERS16K, "--compute", "pallas", *dt16)
+    if r["launches"] != {f"whole2d[heat2d,{BF16}]": ITERS16K}:
+        fail(f"mdf bf16 pallas: launches {r['launches']}")
+    check(r, err_whole(got, ref), 0.0, "plain bf16 heat2d run")
+    bf16_results.append(r)
+    del ref, got
     emit({"phase": "bf16_main_path", "ok": True, "seconds": took(),
           "note": "every kernel run bit-equal to the plain bf16 run",
           "runs": bf16_results})
@@ -1893,6 +2094,27 @@ def main() -> int:
                     fail("config 5 float32: non-finite values")
         c5["float32"] = r
         del got
+    torch.cuda.empty_cache()
+    # BASELINE config 3's decomposition in bfloat16: heat3d 1024^3 --mesh
+    # 2,2 --compute pallas (K4 on four shards of the card), its measured
+    # peak beside --mem-check's estimate, which must not fall below it
+    st16 = make_stencil("heat3d", dtype=BF16)
+    flags3 = ("--mesh", "2,2", "--compute", "pallas", *dt16,
+              "--mem-check", "error")
+    lines.clear()
+    (got, r), peak = measured(lambda: run_cli("heat3d", BIG, 16, *flags3))
+    est, parts = budget.estimate_run_bytes(
+        st16, BIG, mesh=(2, 2), compute="pallas", shards_per_device=4)
+    if r["launches"] != {zchunk_key("heat3d", BF16): 64}:
+        fail(f"config 3 bf16: launches {r['launches']}")
+    if peak > est:
+        fail(f"config 3 bf16: peak {peak} B above the estimate {est} B")
+    r.update(peak_bytes=peak, estimate_bytes=est,
+             budget_log=[ln for ln in lines
+                         if ln.startswith("memory budget")][-1],
+             budget_parts=[[lb, b] for lb, b in parts])
+    c5["config3_bf16_compute_fn"] = r
+    del got
     torch.cuda.empty_cache()
     emit({"phase": "config5", "ok": True, "seconds": took(),
           "card": smi, "hbm_bytes": budget.device_hbm_bytes(dev),
@@ -2000,10 +2222,13 @@ def main() -> int:
                  f"step: max|d| {err:.3e}")
         return call
 
-    def padded_library_call(name, st, ins):
+    def padded_library_call(name, st, ins, atol=1e-4):
         """One F.conv3d with padding=0 on the padded block: the compute_fn's
-        own function (wave3d: u_prev zero-padded as a second channel)."""
+        own function (wave3d: u_prev zero-padded as a second channel), in
+        the block's dtype, checked against the plain update within
+        ``atol``."""
         w, _ = stencil_weight(name, st)
+        w = w.to(ins[0].dtype)
         p = ins[0]
         if name == "wave3d":
             x = torch.stack([p, F.pad(ins[1], (1,) * 6)])[None]
@@ -2013,8 +2238,9 @@ def main() -> int:
         def call():
             return F.conv3d(x, w, padding=0)
 
-        err = float((call()[0, 0] - st.update(ins)[0]).abs().max())
-        if not err <= 1e-4:
+        err = float((call()[0, 0].float() - st.update(ins)[0].float())
+                    .abs().max())
+        if not err <= atol:
             fail(f"padded F.conv3d yardstick for {name} disagrees with the "
                  f"plain update: max|d| {err:.3e}")
         return call
@@ -2835,6 +3061,81 @@ def main() -> int:
     for name in ("advect3d", "grayscott3d"):
         time_slabs(name, main_stencil(name), 4, MAIN)
         time_slabs(name, main_stencil(name, BF16), 8, MAIN)
+    # K4 / K5, K7 and K8 in bfloat16 at the shapes of their main-path runs
+    # (bytes at 2 B a cell): K4 / K5 on one 2x2 shard's padded block (heat3d
+    # and wave3d of 1024^3, heat3d27 and heat3d4th of 512^3) beside one
+    # F.conv3d in bfloat16; K7 at 16384^2 beside one F.conv2d in bfloat16;
+    # K8 at 16384^2 (RAW) and on one --mesh 4 shard's padded block
+    # (PADDED), every float family at its BF16_FUSE2D k
+    bf16_tol = 32 * 2.0 ** -7
+    for name, grid in (("heat3d", BIG), ("wave3d", BIG), ("heat3d27", MAIN),
+                       ("heat3d4th", MAIN)):
+        st = make_stencil(name, dtype=BF16)
+        h, nf = st.halo, st.num_fields
+        local = (grid[0] // 2, grid[1] // 2, grid[2])
+        lcells = math.prod(local)
+        padded = tuple(s_ + 2 * h for s_ in local)
+        ins = (rand16(padded),) + ((rand16(local),) if nf == 2 else ())
+        comp = kernels.make_pallas_compute(st, device=dev)
+        ms = time_ms(lambda: comp(ins), 20)
+        plain_ms = time_ms(lambda: st.update(ins), 3)
+        scale = max(float(ins[0].float().abs().max()), 1.0)
+        library_ms = time_ms(padded_library_call(
+            name, st, ins, atol=bf16_tol * scale), 10)
+        wrapper = "zchunk_wave" if name == "wave3d" else "zchunk_heat"
+        record(f"{wrapper}<{name},{BF16}>", wrapper, name, "zchunk.cu",
+               TPU + ("kernels.py:138" if name == "wave3d"
+                      else "kernels.py:133"), ms, plain_ms,
+               2 * (math.prod(padded) + lcells * nf),
+               FLOPS_PER_CELL[name] * lcells, library_ms, 1, local, 4.0,
+               dtype=BF16)
+        del ins
+        torch.cuda.empty_cache()
+    st = make_stencil("heat2d", dtype=BF16)
+    ins = (rand16((H + 2, W + 2)),)
+    comp = kernels.make_pallas_compute(st, device=dev)
+    ms = time_ms(lambda: comp(ins), 20)
+    plain_ms = time_ms(lambda: st.update(ins), 3)
+    a = st.params["alpha"]
+    w2 = torch.tensor([[0, a, 0], [a, 1 - 4 * a, a], [0, a, 0]],
+                      dtype=torch.float32, device=dev)[None, None].to(bf16)
+    x2 = ins[0][None, None]
+    err = float((F.conv2d(x2, w2, padding=0)[0, 0].float()
+                 - st.update(ins)[0].float()).abs().max())
+    if not err <= bf16_tol * max(float(ins[0].float().abs().max()), 1.0):
+        fail(f"bf16 F.conv2d yardstick for heat2d disagrees with the plain "
+             f"update: max|d| {err:.3e}")
+    library_ms = time_ms(lambda: F.conv2d(x2, w2, padding=0), 10)
+    record(f"whole2d<heat2d,{BF16}>", "whole2d", "heat2d", "whole2d.cu",
+           TPU + "kernels.py:254", ms, plain_ms,
+           2 * ((H + 2) * (W + 2) + cells2d), FLOPS_PER_CELL["heat2d"]
+           * cells2d, library_ms, 1, GRID2D, 1.0, dtype=BF16)
+    del ins, x2
+    for name, k in BF16_FUSE2D.items():
+        st = main_stencil(name, BF16)
+        nf, m = st.num_fields, k_step_margin(st, k)
+        flops = FLOPS_PER_CELL[name] * k
+        fields = tuple(rand16(GRID2D) for _ in range(nf))
+        kern = fullgrid.make_fullgrid_step(st, GRID2D, k, device=dev)
+        ms = time_ms(lambda: kern(fields), 5)
+        plain_ms = time_ms(lambda: fused.plain_steps(fields, st, k), 1)
+        record(f"fullgrid_step<{name},{BF16}>", "fullgrid_step", name,
+               "fullgrid.cu", TPU + "fullgrid.py:120", ms, plain_ms,
+               2 * nf * 2 * cells2d, flops * cells2d, None, k, GRID2D,
+               1.0 / k, dtype=BF16)
+        del fields
+        local = (H // 4, W)
+        pshape = (H // 4 + 2 * m, W)
+        ins = tuple(rand16(pshape) for _ in range(nf))
+        ms = time_ms(lambda: fullgrid.fullgrid_padded(ins, st, k, H, 0), 10)
+        plain_ms = time_ms(lambda: fused._plain_window_steps(
+            ins, st, k, (-m, 0), GRID2D, False, (1,)), 1)
+        record(f"fullgrid_padded<{name},{BF16}>", "fullgrid_padded", name,
+               "fullgrid.cu", TPU + "fullgrid.py:120", ms, plain_ms,
+               2 * nf * (math.prod(pshape) + math.prod(local)),
+               flops * math.prod(local), None, k, local, 4.0 / k, dtype=BF16)
+        del ins
+        torch.cuda.empty_cache()
     # CLI ms/step of every --exchange rdma run beside its ppermute twin
     rdma_vs_ppermute = []
     for r in mesh_results:

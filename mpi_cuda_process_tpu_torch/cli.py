@@ -38,12 +38,15 @@ Red-black SOR (sor2d, sor3d) has no raw-step or compute_fn kernel, so
 ``--compute pallas`` raises for it as in the TPU package; it runs plain or
 through every ``--fuse`` kind, and ``--tol`` stops a run once its residual
 falls below the tolerance.
-``--dtype bfloat16`` runs on the raw-step kernels (unsharded ``--compute
-pallas``), on every 3D ``--fuse K`` kind (K3 unsharded and sharded with its
-overlap shells, K6, K9 and K10, with ``--exchange rdma``; k with ``2*k*halo``
-a multiple of 16, as in the TPU package) and on the plain path; the 2D and
-compute_fn kernel paths raise naming the ROADMAP item of their missing
-bfloat16 kind.
+``--dtype bfloat16`` runs on every kernel path: the raw-step kernels
+(unsharded ``--compute pallas``), the compute_fn kernels (K4/K5 under
+``--mesh``/``--periodic``, K7 on 2D grids), every 3D ``--fuse K`` kind (K3
+unsharded and sharded with its overlap shells, K6, K9 and K10, with
+``--exchange rdma``; k with ``2*k*halo`` a multiple of 16, as in the TPU
+package), the 2D ``--fuse K`` kernel K8 (unsharded and row-split, any k)
+and the plain path.  Other float types (float16) run the plain path only,
+and Life runs its kernels in int32 only: a kernel path refuses them naming
+its ROADMAP item.
 ``--mem-check`` (default ``error``) prices the run's device memory before
 any field is allocated and refuses with the arithmetic when it cannot fit
 the card (``utils/budget.py``; ``warn`` logs and goes on; skipped on the
@@ -79,6 +82,7 @@ from .ops.cuda import fullgrid as fullgrid_lib
 from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
 from .ops.cuda import rawstep, streamfused
+from .ops.cuda._build import FLOAT_DTYPES
 from .parallel import mesh as mesh_lib
 from .parallel import stepper as stepper_lib
 from .utils import checkpointing, diagnostics, render
@@ -86,21 +90,19 @@ from .utils.init import init_state, init_state_sharded
 
 log = logging.getLogger("mpi_cuda_process_tpu_torch")
 
-# The ROADMAP item of each kernel path whose bfloat16 kind is not ported.
-_BF16_ITEMS = {
-    "compute_fn": "ROADMAP B2 (bfloat16 compute_fn kernels K4/K5, rows "
-                  "12-13)",
-    "compute_fn_2d": "ROADMAP B2 (bfloat16 whole-grid 2D compute_fn "
-                     "kernel, row 14)",
-    "fullgrid": "ROADMAP B6 (bfloat16 2D k-step kernel, row 15)",
-}
-# The kernels that take bfloat16 refuse the other types by their own item.
+# Every kernel takes float32 and bfloat16 (Life: int32); a kernel path
+# refuses any other type by its own item.
 _OTHER_DTYPE_ITEMS = {
     "raw": "ROADMAP B1 (the raw-step kernels take float32 and bfloat16)",
+    "compute_fn": "ROADMAP B2 (the compute_fn kernels K4, K5 and K7 take "
+                  "float32 and bfloat16)",
     "fused": "ROADMAP B3 (the fused kernels K3, K6 and K9 take float32 and "
              "bfloat16)",
     "stream": "ROADMAP B5 (the streaming kernel takes float32 and "
               "bfloat16)",
+    "fullgrid": "ROADMAP B6 (the 2D k-step kernel K8 takes float32 and "
+                "bfloat16)",
+    "life": "ROADMAP B10 (Life runs on K7 and K8 in int32 only)",
 }
 
 
@@ -120,7 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
                         f"{mesh_lib.VIRTUAL_DEVICES_ENV}=N for N shards on "
                         "one device")
     p.add_argument("--dtype", default=None,
-                   help="float32|bfloat16|... (default: stencil's own)")
+                   help="float32|bfloat16|float16 (default: the stencil's "
+                        "own); every kernel takes float32 and bfloat16 "
+                        "(Life: int32), the plain path any float type")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--density", type=float, default=0.15,
                    help="initial alive fraction of --init random (Life)")
@@ -313,30 +317,21 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
                                                              "auto"))
 
 
-def _kernel_dtype(st) -> torch.dtype:
-    """The field type every kernel of the stencil takes: int32 occupancy
-    for Life, float32 for the rest."""
-    return torch.int32 if st.name == "life" else torch.float32
-
-
 def _dtype_refusal(cfg: RunConfig, st, use_mesh: bool):
     """None where the run's kernel path takes the stencil's dtype, else
-    what is missing: the ROADMAP item of the path's bfloat16 kind, or of
-    the kernel that takes float32 and bfloat16 only.  The raw-step kernels
-    (unsharded ``--compute pallas``) and every 3D ``--fuse`` kind take
-    bfloat16; the plain path takes any dtype."""
-    if not (cfg.fuse or cfg.compute == "pallas") or \
-            st.dtype == _kernel_dtype(st):
+    the ROADMAP item of the path's kernel: every kernel takes float32 and
+    bfloat16 (Life: int32 only); the plain path takes any dtype."""
+    if not (cfg.fuse or cfg.compute == "pallas"):
+        return None
+    if st.name == "life":
+        return None if st.dtype == torch.int32 else _OTHER_DTYPE_ITEMS["life"]
+    if st.dtype in FLOAT_DTYPES:
         return None
     if st.ndim == 2:
-        return _BF16_ITEMS["fullgrid" if cfg.fuse else "compute_fn_2d"]
-    bf16 = st.dtype == torch.bfloat16
+        return _OTHER_DTYPE_ITEMS["fullgrid" if cfg.fuse else "compute_fn"]
     if not cfg.fuse:
-        if use_mesh or cfg.periodic:
-            return _BF16_ITEMS["compute_fn"]
-        return None if bf16 else _OTHER_DTYPE_ITEMS["raw"]
-    if bf16:
-        return None
+        return _OTHER_DTYPE_ITEMS["compute_fn" if use_mesh or cfg.periodic
+                                  else "raw"]
     return _OTHER_DTYPE_ITEMS["stream" if cfg.fuse_kind == "stream"
                               else "fused"]
 

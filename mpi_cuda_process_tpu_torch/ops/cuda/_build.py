@@ -116,10 +116,9 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-# The storage types of the kernels that take bfloat16 (K1, K2,
-# raw_step_grayscott, K3 with its shells, K6, K9, K10, the ring exchange),
-# and the suffix of each type's C entry point: one source, an "_f32" and a
-# "_bf16" export.
+# The storage types of the float kernels (every kernel but Life's kinds of
+# K7 and K8, which take int32), and the suffix of each type's C entry
+# point: one source, an "_f32" and a "_bf16" export.
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -130,11 +129,19 @@ def entry(lib: ctypes.CDLL, name: str, t):
     return getattr(lib, f"{name}_{SUFFIXES[t.dtype]}")
 
 
+def twin_entry(lib: ctypes.CDLL, name: str, t):
+    """The C entry point of a kernel whose 4-byte kinds (float32, and Life's
+    int32) share the export ``name`` and whose bfloat16 kind is its twin
+    ``name_bf16`` (K7, K8)."""
+    return getattr(lib, f"{name}_bf16" if t.dtype == torch.bfloat16
+                   else name)
+
+
 def launch_key(wrapper: str, name: str, t) -> str:
-    """A launch counter's key: ``"wrapper[name]"`` for float32 operands,
-    ``"wrapper[name,bfloat16]"`` for another type, so a run's counts say
-    which kind of the kernel ran."""
-    if t.dtype == torch.float32:
+    """A launch counter's key: ``"wrapper[name]"`` for float32 operands
+    (Life: int32, its one type), ``"wrapper[name,bfloat16]"`` for another
+    type, so a run's counts say which kind of the kernel ran."""
+    if t.dtype in (torch.float32, torch.int32):
         return f"{wrapper}[{name}]"
     return f"{wrapper}[{name},{str(t.dtype).replace('torch.', '')}]"
 

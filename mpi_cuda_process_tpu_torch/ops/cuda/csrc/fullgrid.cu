@@ -52,6 +52,14 @@
 // Exactness: the updates are stencil2d.cuh's, in the plain version's order,
 // so k micro-steps equal k plain steps bit for bit (Life exactly, being
 // integer).
+//
+// Storage type T: float32 or bfloat16 for the float kinds (the windows,
+// the operands and the outputs), int32 for Life.  The bfloat16 arithmetic
+// rounds to bfloat16 after every op as the plain version does, so every
+// level of a window is exact in T and is kept in T: the windows take half
+// the shared memory (Gray-Scott's four buffers at K_PER_LAUNCH = 16: 96 KB
+// in float32, 48 KB in bfloat16) and the kernel stays bit-equal to the
+// plain version on bfloat16 tensors.
 
 #include "stencil2d.cuh"
 
@@ -93,10 +101,9 @@ __host__ __device__ constexpr int kind_buffers2(int kind) {
   return kind == GRAYSCOTT2D ? 4 : 2;
 }
 
-template <int KIND, int SRC>
+template <int KIND, int SRC, class T>
 __global__ void __launch_bounds__(BX * BY)
 fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
-  using T = typename Elem<KIND>::T;
   constexpr bool wave = KIND == WAVE5, gs = KIND == GRAYSCOTT2D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int m = k * kind_phases2(KIND);  // every 2D family has halo 1
@@ -129,23 +136,28 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
         const int gx = ox + wx;
         const bool frame = !periodic && (frame_row || gx < 1 || gx >= g.W - 1);
         if constexpr (KIND == SOR5) {
-          nxt[q] = frame || other_colour(gy + gx, s) ? cur[q]
-                                                     : heat5(cur + q, WX, c.a);
+          nxt[q] = frame || other_colour(gy + gx, s)
+                       ? cur[q]
+                       : narrow<T>(heat5(cur + q, WX, c.a));
         } else if constexpr (KIND == WAVE5) {
-          nxt[q] = frame ? cur[q] : wave5(cur + q, nxt[q], WX, c.a);
+          nxt[q] = frame ? cur[q]
+                         : narrow<T>(wave5(cur + q, widen(nxt[q]), WX, c.a));
         } else if constexpr (KIND == LIFE) {
           nxt[q] = frame ? cur[q] : life8(cur + q, WX);
         } else if constexpr (KIND == ADVECT2D) {
-          nxt[q] = frame ? cur[q] : advect5(cur + q, WX, c.a, c.c0);
+          nxt[q] = frame ? cur[q] : narrow<T>(advect5(cur + q, WX, c.a, c.c0));
         } else if constexpr (gs) {
           if (frame) {
             nxt[q] = cur[q];
             vnxt[q] = vcur[q];
           } else {
-            grayscott5(cur + q, vcur + q, WX, c, nxt[q], vnxt[q]);
+            float nu, nv;
+            grayscott5(cur + q, vcur + q, WX, c, nu, nv);
+            nxt[q] = narrow<T>(nu);
+            vnxt[q] = narrow<T>(nv);
           }
         } else {
-          nxt[q] = frame ? cur[q] : heat5(cur + q, WX, c.a);
+          nxt[q] = frame ? cur[q] : narrow<T>(heat5(cur + q, WX, c.a));
         }
       }
     }
@@ -177,39 +189,44 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
   }
 }
 
-template <int KIND, int SRC>
+template <int KIND, int SRC, class T>
 int launch(const Grid2& g, int k, int periodic, const Coef& c, int ty, int tx,
            cudaStream_t s) {
-  using T = typename Elem<KIND>::T;
   const int m = k * kind_phases2(KIND);
   const size_t smem = kind_buffers2(KIND) * sizeof(T) *
                       static_cast<size_t>(ty + 2 * m) * (tx + 2 * m);
   cudaError_t e = cudaFuncSetAttribute(
-      fullgrid_step<KIND, SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fullgrid_step<KIND, SRC, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((g.W + tx - 1) / tx, (g.H + ty - 1) / ty, 1);
-  fullgrid_step<KIND, SRC><<<grid, dim3(BX, BY, 1), smem, s>>>(g, k, periodic,
-                                                                c, ty, tx);
+  fullgrid_step<KIND, SRC, T><<<grid, dim3(BX, BY, 1), smem, s>>>(
+      g, k, periodic, c, ty, tx);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SRC>
+// The float kinds on storage type T (float or __nv_bfloat16); Life (int32)
+// rides with the 4-byte type.
+template <int SRC, class T>
 int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
-             int ty, int tx, cudaStream_t s) {
+             int ty, int tx, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT5:
-      return launch<HEAT5, SRC>(g, k, periodic, c, ty, tx, s);
+      return launch<HEAT5, SRC, T>(g, k, periodic, c, ty, tx, s);
     case WAVE5:
-      return launch<WAVE5, SRC>(g, k, periodic, c, ty, tx, s);
-    case LIFE:
-      return launch<LIFE, SRC>(g, k, periodic, c, ty, tx, s);
+      return launch<WAVE5, SRC, T>(g, k, periodic, c, ty, tx, s);
     case ADVECT2D:
-      return launch<ADVECT2D, SRC>(g, k, periodic, c, ty, tx, s);
+      return launch<ADVECT2D, SRC, T>(g, k, periodic, c, ty, tx, s);
     case GRAYSCOTT2D:
-      return launch<GRAYSCOTT2D, SRC>(g, k, periodic, c, ty, tx, s);
+      return launch<GRAYSCOTT2D, SRC, T>(g, k, periodic, c, ty, tx, s);
     case SOR5:
-      return launch<SOR5, SRC>(g, k, periodic, c, ty, tx, s);
+      return launch<SOR5, SRC, T>(g, k, periodic, c, ty, tx, s);
+    case LIFE:
+      if constexpr (sizeof(T) == 4) {
+        return launch<LIFE, SRC, int>(g, k, periodic, c, ty, tx, s);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -222,20 +239,32 @@ int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
 // kinds only (WAVE5: u_prev; GRAYSCOTT2D: v).  (a, c0, c1, c2, c3) are the
 // kind's Coef: alpha (HEAT5), omega / 4 (SOR5), c2dt2 (WAVE5), the Courant
 // numbers (cy, cx) (ADVECT2D) or (Du, Dv, F, F + kappa) (GRAYSCOTT2D).
-// Returns a cudaError_t code.
+// Float32 operands, or int32 for LIFE; the _bf16 twin takes the float kinds
+// on bfloat16 operands.  Returns a cudaError_t code.
 EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
                         void* out0, void* out1, int H, int W, int k,
                         int periodic, float a, float c0, float c1, float c2,
                         float c3, int ty, int tx, void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, H, W, H, 0, 0};
-  return dispatch<RAW>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3}, ty, tx,
-                       static_cast<cudaStream_t>(stream));
+  return dispatch<RAW, float>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3},
+                              ty, tx, stream);
+}
+
+EXPORT int fullgrid_raw_bf16(int kind, const void* in0, const void* in1,
+                             void* out0, void* out1, int H, int W, int k,
+                             int periodic, float a, float c0, float c1,
+                             float c2, float c3, int ty, int tx,
+                             void* stream) {
+  const Grid2 g{{in0, in1}, {out0, out1}, H, W, H, 0, 0};
+  return dispatch<RAW, __nv_bfloat16>(kind, g, k, periodic,
+                                      Coef{a, c0, c1, c2, c3}, ty, tx,
+                                      stream);
 }
 
 // One K8 launch in its sharded mode: the inputs are a row shard's padded
 // (Ly+2m, W) blocks with m = k * phases (2k for SOR5, else k), the outputs
 // its (Ly, W) core k steps on; the core's first row is global row oy of a
-// GH-row grid.
+// GH-row grid.  Operand types as fullgrid_raw's; a _bf16 twin.
 EXPORT int fullgrid_padded(int kind, const void* in0, const void* in1,
                            void* out0, void* out1, int Ly, int W, int GH,
                            int oy, int k, int periodic, float a, float c0,
@@ -243,6 +272,18 @@ EXPORT int fullgrid_padded(int kind, const void* in0, const void* in1,
                            void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy,
                 k * kind_phases2(kind)};
-  return dispatch<PADDED>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3}, ty,
-                          tx, static_cast<cudaStream_t>(stream));
+  return dispatch<PADDED, float>(kind, g, k, periodic,
+                                 Coef{a, c0, c1, c2, c3}, ty, tx, stream);
+}
+
+EXPORT int fullgrid_padded_bf16(int kind, const void* in0, const void* in1,
+                                void* out0, void* out1, int Ly, int W, int GH,
+                                int oy, int k, int periodic, float a,
+                                float c0, float c1, float c2, float c3,
+                                int ty, int tx, void* stream) {
+  const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy,
+                k * kind_phases2(kind)};
+  return dispatch<PADDED, __nv_bfloat16>(kind, g, k, periodic,
+                                         Coef{a, c0, c1, c2, c3}, ty, tx,
+                                         stream);
 }

@@ -4,12 +4,19 @@
 // Every update reads the cell at `p` and its neighbours at offsets of `sy`
 // (one row) and 1 (one column) elements, so the same code serves a padded
 // block in device memory and a window in shared memory.  Float sums go
-// through __fadd_rn / __fsub_rn / __fmul_rn (stencil_taps.cuh) in the plain
+// through stencil_taps.cuh's fadd<T> / fsub<T> / fmul<T> in the plain
 // version's association order (ops/stencil.py::axis_laplacian: faces
 // y-, y+, x-, x+ left-associated, centre term last), so the kernels equal
 // ops/heat.py, ops/wave.py, ops/life.py, ops/advection.py,
 // ops/reaction.py and ops/sor.py (a half-sweep: heat5 with alpha = omega /
 // 4 on the cells of one colour) bit for bit.
+//
+// Storage types: the float updates are written once over T, float or
+// __nv_bfloat16, as stencil_taps.cuh's 3D updates are: loads widen T to
+// float, and for bfloat16 every helper rounds its result to bfloat16
+// (round to nearest even), as PyTorch's eager bfloat16 ops do.  Each
+// returns a float already representable in T (narrow<T> stores it).  Life
+// stays int.
 
 #pragma once
 
@@ -27,65 +34,62 @@ __host__ __device__ constexpr int kind_phases2(int kind) {
   return kind == SOR5 ? 2 : 1;
 }
 
-// Element type of a kind's fields: int32 occupancy for Life, float32 else.
-template <int KIND>
-struct Elem {
-  using T = float;
-};
-template <>
-struct Elem<LIFE> {
-  using T = int;
-};
-
 // 5-point Laplacian: ((((y-) + (y+)) + (x-)) + (x+)) - 4 u.
-__device__ __forceinline__ float lap5(const float* p, long sy) {
-  float acc = p[-sy];
-  acc = fadd(acc, p[sy]);
-  acc = fadd(acc, p[-1]);
-  acc = fadd(acc, p[1]);
-  return fsub(acc, fmul(4.0f, p[0]));
+template <class T>
+__device__ __forceinline__ float lap5(const T* p, long sy) {
+  float acc = widen(p[-sy]);
+  acc = fadd<T>(acc, widen(p[sy]));
+  acc = fadd<T>(acc, widen(p[-1]));
+  acc = fadd<T>(acc, widen(p[1]));
+  return fsub<T>(acc, fmul<T>(4.0f, widen(p[0])));
 }
 
 // heat2d / mdf: u + alpha * lap5(u).
-__device__ __forceinline__ float heat5(const float* p, long sy, float alpha) {
-  return fadd(p[0], fmul(alpha, lap5(p, sy)));
+template <class T>
+__device__ __forceinline__ float heat5(const T* p, long sy, float alpha) {
+  return fadd<T>(widen(p[0]), fmul<T>(alpha, lap5(p, sy)));
 }
 
 // wave2d leapfrog: (2 u - u_prev) + c2dt2 * lap5(u).
-__device__ __forceinline__ float wave5(const float* p, float uprev, long sy,
+template <class T>
+__device__ __forceinline__ float wave5(const T* p, float uprev, long sy,
                                        float c2dt2) {
-  return fadd(fsub(fmul(2.0f, p[0]), uprev), fmul(c2dt2, lap5(p, sy)));
+  return fadd<T>(fsub<T>(fmul<T>(2.0f, widen(p[0])), uprev),
+                 fmul<T>(c2dt2, lap5(p, sy)));
 }
 
 // advect2d: per axis y, x in turn, c > 0 subtracts c (u - the cell before),
 // c < 0 subtracts c (the cell after - u), c == 0 adds nothing.
-__device__ __forceinline__ float advect5(const float* p, long sy, float cy,
+template <class T>
+__device__ __forceinline__ float advect5(const T* p, long sy, float cy,
                                          float cx) {
-  const float u = p[0];
+  const float u = widen(p[0]);
   float acc = u;
   if (cy > 0.0f) {
-    acc = fsub(acc, fmul(cy, fsub(u, p[-sy])));
+    acc = fsub<T>(acc, fmul<T>(cy, fsub<T>(u, widen(p[-sy]))));
   } else if (cy < 0.0f) {
-    acc = fsub(acc, fmul(cy, fsub(p[sy], u)));
+    acc = fsub<T>(acc, fmul<T>(cy, fsub<T>(widen(p[sy]), u)));
   }
   if (cx > 0.0f) {
-    acc = fsub(acc, fmul(cx, fsub(u, p[-1])));
+    acc = fsub<T>(acc, fmul<T>(cx, fsub<T>(u, widen(p[-1]))));
   } else if (cx < 0.0f) {
-    acc = fsub(acc, fmul(cx, fsub(p[1], u)));
+    acc = fsub<T>(acc, fmul<T>(cx, fsub<T>(widen(p[1]), u)));
   }
   return acc;
 }
 
 // grayscott2d, both fields read with their neighbours; c = (Du, Dv, F,
 // F + kappa) in (a, c0, c1, c2), as stencil_taps.cuh::grayscott_update.
-__device__ __forceinline__ void grayscott5(const float* pu, const float* pv,
-                                           long sy, const Coef& c, float& nu,
+template <class T>
+__device__ __forceinline__ void grayscott5(const T* pu, const T* pv, long sy,
+                                           const Coef& c, float& nu,
                                            float& nv) {
-  const float u = pu[0], v = pv[0];
-  const float uvv = fmul(fmul(u, v), v);
-  nu = fadd(fsub(fadd(u, fmul(c.a, lap5(pu, sy))), uvv),
-            fmul(c.c1, fsub(1.0f, u)));
-  nv = fsub(fadd(fadd(v, fmul(c.c0, lap5(pv, sy))), uvv), fmul(c.c2, v));
+  const float u = widen(pu[0]), v = widen(pv[0]);
+  const float uvv = fmul<T>(fmul<T>(u, v), v);
+  nu = fadd<T>(fsub<T>(fadd<T>(u, fmul<T>(c.a, lap5(pu, sy))), uvv),
+               fmul<T>(c.c1, fsub<T>(1.0f, u)));
+  nv = fsub<T>(fadd<T>(fadd<T>(v, fmul<T>(c.c0, lap5(pv, sy))), uvv),
+               fmul<T>(c.c2, v));
 }
 
 // B3/S23: alive next when 3 neighbours are, or 2 are and the cell is (== 1).

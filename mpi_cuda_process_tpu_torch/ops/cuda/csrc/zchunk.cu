@@ -19,13 +19,19 @@
 // _slab_taps_13, which adds the three axes' taps of one offset first.  So
 // the kernels agree with the plain update bit for bit.
 //
+// Storage type T: float32 or bfloat16 (the operands and the output), with
+// stencil_taps.cuh's arithmetic: float, rounded to bfloat16 after every op
+// as the plain version rounds it, so the bfloat16 kernels are bit-equal to
+// the plain version on bfloat16 tensors too.
+//
 // Bound on an H100: device-memory bytes.  One launch must read the padded
 // block once and write the interior once (K5 also reads u_prev): about
-// 8 (K5: 12) B per cell against 10-55 flop, far below the ~20 flop/B
-// float32 ridge.  Design against that bound: a warp covers 32 consecutive
-// x cells, so loads and stores are coalesced 128-byte lines; the z and y
-// neighbours of a cell are the centre loads of the threads marching beside
-// and behind it, served from L1/L2.  No shared-memory tile yet.
+// 8 (K5: 12) B per cell in float32, half that in bfloat16, against 10-55
+// flop, below the ~20 flop/B float32 ridge.  Design against that bound: a
+// warp covers 32 consecutive x cells, so loads and stores are coalesced
+// lines; the z and y neighbours of a cell are the centre loads of the
+// threads marching beside and behind it, served from L1/L2.  No
+// shared-memory tile yet.
 
 #include "stencil_taps.cuh"
 
@@ -33,10 +39,10 @@ namespace {
 
 constexpr int BX = 32, BY = 8, ZRUN = 8;
 
-template <int KIND>
+template <int KIND, class T>
 __global__ void __launch_bounds__(BX * BY)
-zchunk_heat(const float* __restrict__ p, float* __restrict__ out, int Z,
-            int Y, int X, Coef c) {
+zchunk_heat(const T* __restrict__ p, T* __restrict__ out, int Z, int Y,
+            int X, Coef c) {
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   if (x >= X || y >= Y) return;
@@ -46,14 +52,15 @@ zchunk_heat(const float* __restrict__ p, float* __restrict__ out, int Z,
   const int z0 = blockIdx.z * ZRUN;
   const int z1 = min(z0 + ZRUN, Z);
   for (int z = z0; z < z1; ++z) {
-    const float* q = p + (z + h) * sz + (y + h) * sy + (x + h);
-    out[z * oz + y * oy + x] = heat_update<KIND>(q, sy, sz, c);
+    const T* q = p + (z + h) * sz + (y + h) * sy + (x + h);
+    out[z * oz + y * oy + x] = narrow<T>(heat_update<KIND>(q, sy, sz, c));
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(BX * BY)
-zchunk_wave(const float* __restrict__ p, const float* __restrict__ uprev,
-            float* __restrict__ out, int Z, int Y, int X, Coef c) {
+zchunk_wave(const T* __restrict__ p, const T* __restrict__ uprev,
+            T* __restrict__ out, int Z, int Y, int X, Coef c) {
   const int x = blockIdx.x * BX + threadIdx.x;
   const int y = blockIdx.y * BY + threadIdx.y;
   if (x >= X || y >= Y) return;
@@ -63,8 +70,8 @@ zchunk_wave(const float* __restrict__ p, const float* __restrict__ uprev,
   const int z1 = min(z0 + ZRUN, Z);
   for (int z = z0; z < z1; ++z) {
     const long i = z * oz + y * oy + x;
-    const float* q = p + (z + 1) * sz + (y + 1) * sy + (x + 1);
-    out[i] = wave_update(q, uprev[i], sy, sz, c);
+    const T* q = p + (z + 1) * sz + (y + 1) * sy + (x + 1);
+    out[i] = narrow<T>(wave_update(q, widen(uprev[i]), sy, sz, c));
   }
 }
 
@@ -72,14 +79,9 @@ dim3 grid_for(int Z, int Y, int X) {
   return dim3((X + BX - 1) / BX, (Y + BY - 1) / BY, (Z + ZRUN - 1) / ZRUN);
 }
 
-}  // namespace
-
-// One K4 launch on `stream`: out (Z, Y, X) = update of the padded p.
-// Returns cudaGetLastError().
-EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z, int Y,
-                           int X, float a, float c0, float c1, float c2,
-                           float c3, void* stream) {
-  const Coef c{a, c0, c1, c2, c3};
+template <class T>
+int launch_heat(int kind, const T* p, T* out, int Z, int Y, int X,
+                const Coef& c, void* stream) {
   const dim3 block(BX, BY, 1), grid = grid_for(Z, Y, X);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
@@ -98,13 +100,43 @@ EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z, int Y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One K5 launch on `stream`: out = new u from the padded u and the
-// unpadded u_prev.  Returns cudaGetLastError().
-EXPORT int zchunk_wave_f32(const float* p, const float* uprev, float* out,
-                           int Z, int Y, int X, float c2dt2, void* stream) {
+template <class T>
+int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
+                float c2dt2, void* stream) {
   const Coef c{c2dt2, 0.f, 0.f, 0.f, 0.f};
   zchunk_wave<<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
                 static_cast<cudaStream_t>(stream)>>>(p, uprev, out, Z, Y, X,
                                                      c);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// One K4 launch on `stream`: out (Z, Y, X) = update of the padded p.
+// Returns cudaGetLastError().  Each export has a _bf16 twin on bfloat16
+// operands.
+EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z, int Y,
+                           int X, float a, float c0, float c1, float c2,
+                           float c3, void* stream) {
+  return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
+}
+
+EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
+                            __nv_bfloat16* out, int Z, int Y, int X, float a,
+                            float c0, float c1, float c2, float c3,
+                            void* stream) {
+  return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
+}
+
+// One K5 launch on `stream`: out = new u from the padded u and the
+// unpadded u_prev.  Returns cudaGetLastError().
+EXPORT int zchunk_wave_f32(const float* p, const float* uprev, float* out,
+                           int Z, int Y, int X, float c2dt2, void* stream) {
+  return launch_wave(p, uprev, out, Z, Y, X, c2dt2, stream);
+}
+
+EXPORT int zchunk_wave_bf16(const __nv_bfloat16* p,
+                            const __nv_bfloat16* uprev, __nv_bfloat16* out,
+                            int Z, int Y, int X, float c2dt2, void* stream) {
+  return launch_wave(p, uprev, out, Z, Y, X, c2dt2, stream);
 }

@@ -6,7 +6,11 @@ half-sweeps) by k guard-frame (or periodic) steps on the whole grid;
 ``fullgrid_padded`` (``fullgrid_step<KIND, PADDED>``) does the same for one
 row shard from its padded block (the width-m row exchange) and the shard's
 global first row.
-Both are bit-exact with k plain steps.
+Both are bit-exact with k plain steps.  The float families take float32
+or bfloat16 (``_build.FLOAT_DTYPES``: the 4-byte export and its ``_bf16``
+twin; a bfloat16 launch is counted as ``fullgrid_step[heat2d,bfloat16]``),
+with windows in the field's type, so a bfloat16 window takes half the
+shared memory; Life takes int32.
 
 Replaces the TPU package's ``ops/pallas/fullgrid.py`` — ``_build_call`` with
 ``_micro_life`` and the ``_MICRO2D`` micro-steps of heat2d, mdf, wave2d,
@@ -45,15 +49,21 @@ from .fused import (SMEM_LIMIT, _plain_window_steps, buffers,
                     parity_consistent)
 
 # Launches per wrapper and stencil, keyed "fullgrid_step[life]" or
-# "fullgrid_padded[heat2d]": one added where a kernel launches, nowhere
-# else.  ``launches.clear()`` resets.
+# "fullgrid_padded[heat2d]" (bfloat16: "fullgrid_padded[heat2d,bfloat16]",
+# ``_build.launch_key``): one added where a kernel launches, nowhere else.
+# ``launches.clear()`` resets.
 launches: Counter = Counter()
 
-# name -> (kernel kind of csrc/stencil2d.cuh, field dtype).  mdf is heat2d
-# under another registry name (its stencil's name is "heat2d").
-_FULLGRID = {"heat2d": (4, torch.float32), "wave2d": (5, torch.float32),
-             "life": (6, torch.int32), "advect2d": (9, torch.float32),
-             "grayscott2d": (10, torch.float32), "sor2d": (12, torch.float32)}
+# name -> kernel kind of csrc/stencil2d.cuh.  mdf is heat2d under another
+# registry name (its stencil's name is "heat2d").
+_FULLGRID = {"heat2d": 4, "wave2d": 5, "life": 6, "advect2d": 9,
+             "grayscott2d": 10, "sor2d": 12}
+
+
+def _dtypes(stencil: Stencil):
+    """The field types K8 takes for ``stencil``: int32 for Life, float32
+    or bfloat16 for the rest."""
+    return (torch.int32,) if stencil.name == "life" else _build.FLOAT_DTYPES
 
 # Core tile (TY, TX) each block writes; threads stride over it as (8, 32).
 CORE = (32, 64)
@@ -81,9 +91,10 @@ def smem_bytes(m: int, itemsize: int = 4, nbuf: int = 2) -> int:
 
 def fits(stencil: Stencil, k: int) -> bool:
     """Whether one launch of k steps of ``stencil`` (margin
-    ``k_step_margin``) fits a block's shared memory."""
-    return smem_bytes(k_step_margin(stencil, k),
-                      nbuf=buffers(stencil)) <= SMEM_LIMIT
+    ``k_step_margin``) fits a block's shared memory, in the stencil's
+    dtype."""
+    return smem_bytes(k_step_margin(stencil, k), stencil.dtype.itemsize,
+                      buffers(stencil)) <= SMEM_LIMIT
 
 
 def _steps_per_launch(stencil: Stencil) -> int:
@@ -109,12 +120,13 @@ def _coefficients(stencil: Stencil):
 def _lib():
     lib = _build.load("fullgrid")
     if lib.fullgrid_raw.argtypes is None:
-        lib.fullgrid_raw.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_float] * 5
-            + [_c_int] * 2 + [_c_ptr])
-        lib.fullgrid_padded.argtypes = (
-            [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float] * 5
-            + [_c_int] * 2 + [_c_ptr])
+        for sfx in ("", "_bf16"):
+            getattr(lib, f"fullgrid_raw{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_float] * 5
+                + [_c_int] * 2 + [_c_ptr])
+            getattr(lib, f"fullgrid_padded{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float] * 5
+                + [_c_int] * 2 + [_c_ptr])
     return lib
 
 
@@ -132,21 +144,22 @@ def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
         for _ in range(k):
             fields = step(fields)
         return fields
-    kind, dtype = _FULLGRID[stencil.name]
+    kind = _FULLGRID[stencil.name]
     H, W = (int(s) for s in fields[0].shape)
     _build.check_operands("fullgrid_step", *fields, shape=(H, W),
-                          dtype=dtype, ndim=2)
+                          dtype=_dtypes(stencil), ndim=2)
     lib = _lib()
     coef = _coefficients(stencil)
+    key = _build.launch_key("fullgrid_step", stencil.name, fields[0])
     left = k
     while left > 0:
         kk = min(left, _steps_per_launch(stencil))
         outs = tuple(torch.empty_like(f) for f in fields)
-        rc = lib.fullgrid_raw(kind, *_pointers(fields), *_pointers(outs),
-                              H, W, kk, int(periodic), *coef, *CORE,
-                              _build.stream_of(fields[0]))
+        rc = _build.twin_entry(lib, "fullgrid_raw", fields[0])(
+            kind, *_pointers(fields), *_pointers(outs), H, W, kk,
+            int(periodic), *coef, *CORE, _build.stream_of(fields[0]))
         _build.check(lib, rc, "fullgrid_step")
-        launches[f"fullgrid_step[{stencil.name}]"] += 1
+        launches[key] += 1
         fields, left = outs, left - kk
     return fields
 
@@ -169,21 +182,22 @@ def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
         out = _plain_window_steps(padded, stencil, k, (origin_y - m, 0),
                                   (global_rows, W), periodic, wrap_axes=(1,))
         return tuple(f[m:m + Ly].contiguous() for f in out)
-    kind, dtype = _FULLGRID[stencil.name]
+    kind = _FULLGRID[stencil.name]
     if not fits(stencil, k) or Ly < 1:
         raise ValueError(f"fullgrid_padded: {stencil.name} k={k} on "
                          f"{(Hp, W)} not supported")
     _build.check_operands("fullgrid_padded", *padded, shape=(Hp, W),
-                          dtype=dtype, ndim=2)
+                          dtype=_dtypes(stencil), ndim=2)
     outs = tuple(torch.empty((Ly, W), dtype=p.dtype, device=p.device)
                  for p in padded)
     lib = _lib()
-    rc = lib.fullgrid_padded(kind, *_pointers(padded), *_pointers(outs), Ly,
-                             W, int(global_rows), int(origin_y), k,
-                             int(periodic), *_coefficients(stencil), *CORE,
-                             _build.stream_of(padded[0]))
+    rc = _build.twin_entry(lib, "fullgrid_padded", padded[0])(
+        kind, *_pointers(padded), *_pointers(outs), Ly, W, int(global_rows),
+        int(origin_y), k, int(periodic), *_coefficients(stencil), *CORE,
+        _build.stream_of(padded[0]))
     _build.check(lib, rc, "fullgrid_padded")
-    launches[f"fullgrid_padded[{stencil.name}]"] += 1
+    launches[_build.launch_key("fullgrid_padded", stencil.name,
+                               padded[0])] += 1
     return outs
 
 

@@ -5,8 +5,11 @@ halo-padded heat3d, heat3d27 or heat3d4th block to its updated interior;
 ``zchunk_wave`` (K5, ``csrc/zchunk.cu::zchunk_wave``) does the same for
 wave3d from the padded ``u`` and the unpadded ``u_prev``; ``whole2d`` (K7,
 ``csrc/whole2d.cu::whole2d<HEAT5|LIFE>``) for a padded 2D heat2d/mdf
-(float32) or life (int32) block.  None knows about the guard frame: the
-step that calls them re-pins it.  They are what ``--compute pallas`` plugs
+(float) or life (int32) block.  None knows about the guard frame: the
+step that calls them re-pins it.  The float kinds take float32 or bfloat16
+(``_build.FLOAT_DTYPES``: one source, a float32 and a bfloat16 entry
+point; bfloat16 launches are counted as ``zchunk_heat[heat3d,bfloat16]``)
+and stay bit-equal to the plain version in either; Life takes int32.  They are what ``--compute pallas`` plugs
 into ``driver.make_step`` (2D grids, and ``--periodic``) and
 ``parallel.stepper.make_sharded_step`` (``--mesh``).
 
@@ -33,13 +36,15 @@ from ..stencil import Fields, Stencil
 from . import _build
 from .rawstep import coefficients
 
-# Launches per wrapper and stencil, keyed "zchunk_heat[heat3d]": one added
-# where a kernel launches, nowhere else.  ``launches.clear()`` resets.
+# Launches per wrapper and stencil, keyed "zchunk_heat[heat3d]" (bfloat16:
+# "zchunk_heat[heat3d,bfloat16]", ``_build.launch_key``): one added where a
+# kernel launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
 _HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2}
-# 2D kinds of csrc/stencil2d.cuh with the field type each kernel takes.
-_WHOLE2D_KIND = {"heat2d": (4, torch.float32), "life": (6, torch.int32)}
+# 2D kinds of csrc/stencil2d.cuh with the field types each kernel takes.
+_WHOLE2D_KIND = {"heat2d": (4, _build.FLOAT_DTYPES),
+                 "life": (6, (torch.int32,))}
 # The names the TPU package has a compute_fn kernel for (kernels.py:301).
 _TPU_NAMES = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "heat2d", "life")
 
@@ -49,19 +54,21 @@ _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 def _lib():
     lib = _build.load("zchunk")
     if lib.zchunk_heat_f32.argtypes is None:
-        lib.zchunk_heat_f32.argtypes = (
-            [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
-            + [_c_ptr])
-        lib.zchunk_wave_f32.argtypes = (
-            [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
+        for sfx in _build.SUFFIXES.values():
+            getattr(lib, f"zchunk_heat_{sfx}").argtypes = (
+                [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
+                + [_c_ptr])
+            getattr(lib, f"zchunk_wave_{sfx}").argtypes = (
+                [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
     return lib
 
 
 def _lib2d():
     lib = _build.load("whole2d")
     if lib.whole2d_step.argtypes is None:
-        lib.whole2d_step.argtypes = (
-            [_c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_float, _c_ptr])
+        for fn in (lib.whole2d_step, lib.whole2d_step_bf16):
+            fn.argtypes = [_c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_float,
+                           _c_ptr]
     return lib
 
 
@@ -78,14 +85,15 @@ def zchunk_heat(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     if not p.is_cuda:
         return stencil.update((p,))[0]
     kind = _HEAT_KIND[stencil.name]
-    _build.check_operands("zchunk_heat", p)
+    _build.check_operands("zchunk_heat", p, dtype=_build.FLOAT_DTYPES)
     Z, Y, X = _interior_shape(p, stencil.halo, "zchunk_heat")
     out = torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
     lib = _lib()
-    rc = lib.zchunk_heat_f32(kind, p.data_ptr(), out.data_ptr(), Z, Y, X,
-                             *coefficients(stencil), _build.stream_of(p))
+    rc = _build.entry(lib, "zchunk_heat", p)(
+        kind, p.data_ptr(), out.data_ptr(), Z, Y, X, *coefficients(stencil),
+        _build.stream_of(p))
     _build.check(lib, rc, "zchunk_heat")
-    launches[f"zchunk_heat[{stencil.name}]"] += 1
+    launches[_build.launch_key("zchunk_heat", stencil.name, p)] += 1
     return out
 
 
@@ -95,27 +103,27 @@ def zchunk_wave(p: torch.Tensor, uprev: torch.Tensor,
     if not p.is_cuda:
         return stencil.update((p, uprev))[0]
     shape = _interior_shape(p, 1, "zchunk_wave")
-    _build.check_operands("zchunk_wave", p)
-    _build.check_operands("zchunk_wave", uprev, shape=shape)
+    _build.check_operands("zchunk_wave", p, dtype=_build.FLOAT_DTYPES)
+    _build.check_operands("zchunk_wave", uprev, shape=shape, dtype=p.dtype)
     if uprev.device != p.device:
         raise ValueError("zchunk_wave: u and u_prev on different devices")
     out = torch.empty(shape, dtype=p.dtype, device=p.device)
     lib = _lib()
-    rc = lib.zchunk_wave_f32(p.data_ptr(), uprev.data_ptr(), out.data_ptr(),
-                             *shape, coefficients(stencil)[0],
-                             _build.stream_of(p))
+    rc = _build.entry(lib, "zchunk_wave", p)(
+        p.data_ptr(), uprev.data_ptr(), out.data_ptr(), *shape,
+        coefficients(stencil)[0], _build.stream_of(p))
     _build.check(lib, rc, "zchunk_wave")
-    launches[f"zchunk_wave[{stencil.name}]"] += 1
+    launches[_build.launch_key("zchunk_wave", stencil.name, p)] += 1
     return out
 
 
 def whole2d(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     """Updated interior (H, W) of the padded 2D block ``p`` (H+2, W+2):
-    heat2d/mdf (float32) or life (int32)."""
+    heat2d/mdf (float32 or bfloat16) or life (int32)."""
     if not p.is_cuda:
         return stencil.update((p,))[0]
-    kind, dtype = _WHOLE2D_KIND[stencil.name]
-    _build.check_operands("whole2d", p, dtype=dtype, ndim=2)
+    kind, dtypes = _WHOLE2D_KIND[stencil.name]
+    _build.check_operands("whole2d", p, dtype=dtypes, ndim=2)
     H, W = (int(s) - 2 for s in p.shape)
     if min(H, W) < 1:
         raise ValueError(f"whole2d: expected a 2D block padded by 1, got "
@@ -123,10 +131,10 @@ def whole2d(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     out = torch.empty((H, W), dtype=p.dtype, device=p.device)
     alpha = float(stencil.params.get("alpha", 0.0))
     lib = _lib2d()
-    rc = lib.whole2d_step(kind, p.data_ptr(), out.data_ptr(), H, W, alpha,
-                          _build.stream_of(p))
+    rc = _build.twin_entry(lib, "whole2d_step", p)(
+        kind, p.data_ptr(), out.data_ptr(), H, W, alpha, _build.stream_of(p))
     _build.check(lib, rc, "whole2d")
-    launches[f"whole2d[{stencil.name}]"] += 1
+    launches[_build.launch_key("whole2d", stencil.name, p)] += 1
     return out
 
 

@@ -160,13 +160,26 @@ def test_life_render_matches_jax(capsys):
      ValueError, "--fuse-kind"),
     ("heat2d", ["--mesh", "1,2", "--fuse", "8"], ValueError, "unsupported"),
     ("heat2d", ["--mesh", "4", "--fuse", "16"], ValueError, "unsupported"),
-    ("life", ["--compute", "pallas", "--dtype", "float32"],
-     NotImplementedError, "B2"),
-    ("heat2d", ["--fuse", "8", "--dtype", "bfloat16"], NotImplementedError,
-     "B6"),
+    # These two ids keep their names from the refusals they pinned before
+    # K7 and K8 took bfloat16 (ROADMAP B2, B6): a float Life on K7 now
+    # raises by its own item (B10, Life runs its kernels in int32 only),
+    # and heat2d --fuse 8 in bfloat16 runs, equal to the plain bfloat16
+    # run bit for bit (``exc`` None).
+    pytest.param("life", ["--compute", "pallas", "--dtype", "float32"],
+                 NotImplementedError, "ROADMAP B10",
+                 id="life-extra5-NotImplementedError-B2"),
+    pytest.param("heat2d", ["--fuse", "8", "--dtype", "bfloat16"], None,
+                 None, id="heat2d-extra6-NotImplementedError-B6"),
 ])
 def test_2d_refusals_name_their_reason(monkeypatch, name, extra, exc, match):
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
+    args = ["--stencil", name, "--grid", GRID, "--iters", "16", "--device",
+            "cpu", *extra]
+    if exc is None:
+        got, _ = tcli.run(tcli.config_from_args(args))
+        ref, _ = tcli.run(tcli.config_from_args(
+            args[:8] + ["--dtype", "bfloat16"]))
+        assert got[0].dtype == torch.bfloat16 and torch.equal(got[0], ref[0])
+        return
     with pytest.raises(exc, match=match):
-        tcli.main(["--stencil", name, "--grid", GRID, "--iters", "16",
-                   "--device", "cpu", *extra])
+        tcli.main(args)

@@ -354,8 +354,11 @@ BUDGET_CASES = _config5_cases() + [
     _case("heat3d", BF16, (4096,) * 3, (64, 1, 1), 4, "stream"),
     _case("heat3d", "float32", (1024,) * 3, fuse=4),  # test_budget.py:86
     _case("heat3d27", "float32", (1152,) * 3, compute="raw"),  # :120
-    _case("heat3d", "float32", (1024,) * 3),
-    _case("heat3d", "float32", (512,) * 3, (2, 2, 2)),
+    # the one-step path: the port keeps the update's output beside its
+    # re-pinned copy and a bool frame mask (1 B a cell)
+    _case("heat3d", "float32", (1024,) * 3, added=1024 ** 3 * (4 + 1)),
+    _case("heat3d", "float32", (512,) * 3, (2, 2, 2),
+          added=256 ** 3 * (4 + 1)),
     _case("heat3d", "float32", (256,) * 3, (2, 2, 1), 4),
     _case("heat3d", BF16, (256, 256, 512), (), 4, "stream"),
     _case("heat3d", "float32", (64, 64, 128), (), 4, "stream",
@@ -505,6 +508,8 @@ def test_cli_mem_check_parses_is_skipped_on_cpu_and_refuses_on_a_card(
 # (cli.py:964-969 there), and the port's sharded one.
 SUBLANE = "sublane tile — 8 for f32, 16 for bf16"
 SHARDED_SUBLANE = r"sublane tile \(8 for f32, 16 for bf16\)"
+# The flags (each with its value) that pick a kernel or a mesh.
+KERNEL_FLAGS = ("--mesh", "--fuse", "--fuse-kind", "--compute")
 
 
 @pytest.mark.parametrize("extra,exc,match", [
@@ -525,17 +530,22 @@ SHARDED_SUBLANE = r"sublane tile \(8 for f32, 16 for bf16\)"
                   "--overlap"], None, None, id="extra3-ROADMAP B3"),
     pytest.param(["--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree"],
                  ValueError, SHARDED_SUBLANE, id="extra4-ROADMAP B4"),
-    (["--mesh", "2,2", "--compute", "pallas"], NotImplementedError,
-     "ROADMAP B2"),
-    (["--grid", "32,32", "--compute", "pallas"], NotImplementedError,
-     "ROADMAP B2"),
-    (["--grid", "32,32", "--fuse", "8"], NotImplementedError, "ROADMAP B6"),
+    # The last three ids keep their names from the refusals they pinned
+    # before K4, K7 and K8 took bfloat16 (ROADMAP B2, B6): each run equals
+    # the plain bfloat16 run bit for bit.
+    pytest.param(["--mesh", "2,2", "--compute", "pallas"], None, None,
+                 id="extra5-NotImplementedError-ROADMAP B2"),
+    pytest.param(["--grid", "32,32", "--compute", "pallas"], None, None,
+                 id="extra6-NotImplementedError-ROADMAP B2"),
+    pytest.param(["--grid", "32,32", "--fuse", "8", "--iters", "8"], None,
+                 None, id="extra7-NotImplementedError-ROADMAP B6"),
 ])
 def test_bf16_refusals_name_their_item(monkeypatch, caplog, extra, exc,
                                        match):
-    """The 2D and compute_fn kernel paths refuse bfloat16 by their items
-    (B2, B6); --fuse 4 meets the alignment rule; a run that now takes
-    bfloat16 (``exc`` None) equals the plain bfloat16 run bit for bit."""
+    """--fuse 4 meets the alignment rule; a run that now takes bfloat16
+    (``exc`` None: the stream kind's fallback, the compute_fn kernels K4
+    and K7, the 2D k-step kernel K8) equals the plain bfloat16 run bit for
+    bit, logging the overlap fallback where it asks for --overlap."""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     stencil = "heat2d" if "32,32" in extra else "heat3d"
     args = ["--stencil", stencil, "--grid", "48,32,128", "--iters", "4",
@@ -543,9 +553,16 @@ def test_bf16_refusals_name_their_item(monkeypatch, caplog, extra, exc,
     if exc is None:
         with caplog.at_level(logging.WARNING):
             got, _ = tcli.run(tcli.config_from_args(args))
-        assert "cannot host the interior/boundary split" in caplog.text
-        ref, _ = tcli.run(tcli.config_from_args(args[:10]))
-        for g, r in zip(tstepper.gather_fields(got), ref):
+        assert ("cannot host the interior/boundary split" in caplog.text) \
+            == ("--overlap" in extra)
+        # the plain twin: the same run without its kernel and mesh flags
+        plain = [a for prev, a in zip([""] + args, args)
+                 if a not in KERNEL_FLAGS + ("--overlap",)
+                 and prev not in KERNEL_FLAGS]
+        ref, _ = tcli.run(tcli.config_from_args(plain))
+        if tstepper.is_sharded(got):
+            got = tstepper.gather_fields(got)
+        for g, r in zip(got, ref):
             assert g.dtype == torch.bfloat16 and torch.equal(g, r)
         return
     with pytest.raises(exc, match=match):

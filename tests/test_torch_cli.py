@@ -205,27 +205,57 @@ SUBLANE = ("2\\*k\\*halo a multiple of the dtype's sublane tile — 8 for f32, "
            "16 for bf16")
 
 
+def _plain_twin(argv):
+    """``argv`` on the plain path: without its kernel and mesh flags."""
+    out, skip = [], 0
+    for a in argv:
+        if skip:
+            skip -= 1
+        elif a in ("--compute", "--fuse", "--fuse-kind", "--mesh",
+                   "--exchange"):
+            skip = 1
+        elif a != "--overlap":
+            out.append(a)
+    return out
+
+
+def _equals_plain_run(argv):
+    """The run of ``argv`` equals its plain twin's bit for bit, in the
+    twin's dtype."""
+    got, _ = tcli.run(tcli.config_from_args(argv))
+    ref, _ = tcli.run(tcli.config_from_args(_plain_twin(argv)))
+    if tstepper.is_sharded(got):
+        got = tstepper.gather_fields(got)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
 @pytest.mark.parametrize("extra,exc,match", [
-    (["--grid", "16,20", "--compute", "pallas", "--dtype", "bfloat16"],
-     NotImplementedError, "B2"),
-    (["--grid", "16,20", "--compute", "pallas", "--periodic", "--dtype",
-      "bfloat16"], NotImplementedError, "B2"),
-    (["--grid", "16,20", "--fuse", "4", "--dtype", "bfloat16"],
-     NotImplementedError, "B6"),
+    # The ids extra0-extra2 keep their names from the refusals they pinned
+    # before K7 and K8 took bfloat16 (ROADMAP B2, B6): each run now equals
+    # the plain bfloat16 run bit for bit (``exc`` None).
+    pytest.param(["--grid", "16,20", "--compute", "pallas", "--dtype",
+                  "bfloat16"], None, None,
+                 id="extra0-NotImplementedError-B2"),
+    pytest.param(["--grid", "16,20", "--compute", "pallas", "--periodic",
+                  "--dtype", "bfloat16"], None, None,
+                 id="extra1-NotImplementedError-B2"),
+    pytest.param(["--grid", "16,20", "--fuse", "4", "--dtype", "bfloat16"],
+                 None, None, id="extra2-NotImplementedError-B6"),
     # These ids keep their names from the refusals they pinned before
     # --fuse-kind stream ran and before bfloat16 ran on the stream,
     # raw-step and fused kernels (tests/test_torch_stream.py,
     # test_torch_bf16.py, test_torch_fused_bf16.py).  bfloat16 --fuse 4
     # now meets the JAX CLI's own refusal: 2*k*halo off bfloat16's
-    # alignment unit (k = 8 runs); the compute_fn kernel K4 still refuses
-    # bfloat16 by its item (B2).
+    # alignment unit (k = 8 runs); the compute_fn kernel K4 takes bfloat16
+    # too (B2), so extra5 equals the plain bfloat16 run bit for bit.
     pytest.param(["--fuse", "4", "--fuse-kind", "padfree", "--dtype",
                   "bfloat16"], ValueError, SUBLANE,
                  id="extra3-NotImplementedError-B5"),
     pytest.param(["--fuse", "4", "--dtype", "bfloat16"], ValueError, SUBLANE,
                  id="extra4-NotImplementedError-B1/B3"),
     pytest.param(["--compute", "pallas", "--periodic", "--dtype",
-                  "bfloat16"], NotImplementedError, "ROADMAP B2",
+                  "bfloat16"], None, None,
                  id="extra5-NotImplementedError-B1/B3"),
     (["--checkpoint-backend", "orbax"], NotImplementedError, "ROADMAP"),
     # This id keeps its name from the refusal it pinned before the patch
@@ -243,6 +273,9 @@ def test_unported_combinations_raise_naming_roadmap(extra, exc, match):
             "--device", "cpu"]
     if extra[:2] == ["--grid", "16,20"]:
         args = ["--stencil", "heat2d", "--iters", "4", "--device", "cpu"]
+    if exc is None:
+        _equals_plain_run(args + extra)
+        return
     with pytest.raises(exc, match=match):
         tcli.main(args + extra)
 
@@ -351,16 +384,22 @@ def test_cli_mesh_run_matches_jax_cli(tmp_path, monkeypatch, name, flags):
     (["--mesh", "1,1,2", "--fuse", "4"], ValueError, "unsupported"),
     (["--mesh", "3"], ValueError, "not divisible"),
     (["--mesh", "4,2"], ValueError, "needs 8 devices"),
-    (["--grid", "16,20", "--mesh", "2,2", "--fuse", "4", "--dtype",
-      "bfloat16"], NotImplementedError, "B6"),
-    (["--grid", "16,20", "--mesh", "2,2", "--compute", "pallas", "--dtype",
-      "bfloat16"], NotImplementedError, "B2"),
+    # The ids extra9 and extra10 keep their names from the refusals they
+    # pinned before K8 and K7 took bfloat16 (ROADMAP B6, B2): the K8 run
+    # meets the refusal its float32 twin meets (a 2D mesh that shards x,
+    # as in the JAX package), the K7 run equals the plain bfloat16 run.
+    pytest.param(["--grid", "16,20", "--mesh", "2,2", "--fuse", "4",
+                  "--dtype", "bfloat16"], ValueError, "unsupported",
+                 id="extra9-NotImplementedError-B6"),
+    pytest.param(["--grid", "16,20", "--mesh", "2,2", "--compute", "pallas",
+                  "--dtype", "bfloat16"], None, None,
+                 id="extra10-NotImplementedError-B2"),
 ])
 def test_mesh_refusals_name_their_reason(monkeypatch, caplog, extra, exc,
                                         match):
     """Each case raises naming its reason, or (``exc`` None) runs, logs
-    the overlap fallback and equals the plain run of its dtype bit for
-    bit."""
+    the overlap fallback where it asks for --overlap, and equals the plain
+    run of its dtype bit for bit."""
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     args = ["--stencil", "heat3d", "--grid", "16,16,128", "--iters", "4",
             "--device", "cpu"]
@@ -368,12 +407,9 @@ def test_mesh_refusals_name_their_reason(monkeypatch, caplog, extra, exc,
         args = ["--stencil", "heat2d", "--iters", "4", "--device", "cpu"]
     if exc is None:
         with caplog.at_level(logging.WARNING):
-            got, _ = tcli.run(tcli.config_from_args(args + extra))
-        assert "cannot host the interior/boundary split" in caplog.text
-        dtype = extra[extra.index("--dtype") + 1]
-        ref, _ = tcli.run(tcli.config_from_args(args + ["--dtype", dtype]))
-        for g, r in zip(tstepper.gather_fields(got), ref):
-            assert g.dtype == r.dtype and torch.equal(g, r)
+            _equals_plain_run(args + extra)
+        assert ("cannot host the interior/boundary split" in caplog.text) \
+            == ("--overlap" in extra)
         return
     with pytest.raises(exc, match=match):
         tcli.main(args + extra)

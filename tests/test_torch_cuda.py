@@ -17,8 +17,9 @@ counters read after every launch) bit-equal.  The bfloat16 kinds of K1,
 K2, Gray-Scott's raw step, K10 and the ring exchange are held to their
 plain versions on bfloat16 tensors bit for bit (max |d| = 0): every op
 rounds to bfloat16 as the plain op does; so are the bfloat16 kinds of K3
-(RAW and PADDED), its shells, K6 and K9, and K6 and K9's advection and
-Gray-Scott kinds in float32.
+(RAW and PADDED), its shells, K6 and K9, K6 and K9's advection and
+Gray-Scott kinds in float32, and the bfloat16 kinds of K4, K5, K7 and K8
+(RAW and PADDED, with its overlap shells).
 The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
 K10, K8's sharded mode) run on meshes of virtual shards on one card.
 """
@@ -1268,3 +1269,145 @@ def test_bf16_sharded_fused_steps_match_plain_sharded_steps(
     torch.cuda.synchronize()
     for a, b in zip(got, gather_fields(ref)):
         assert a.dtype == BF16 and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 on the compute_fn kernels K4, K5, K7 and the 2D k-step kernel K8
+# (rows 12-15)
+# ---------------------------------------------------------------------------
+
+BF16_2D = [("heat2d", {}), ("wave2d", {}), ("advect2d", {"cx": -0.4,
+                                                         "cy": 0.2}),
+           ("grayscott2d", {}), ("sor2d", {})]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", ["heat3d", "heat3d27", "heat3d4th",
+                                  "wave3d"])
+def test_bf16_compute_fn_kernel_matches_plain(dev, name, shape):
+    """K4 (three tap sets) and K5 in bfloat16 on a padded random block ==
+    the stencil's plain update on bfloat16 tensors, bit for bit; counted
+    as their bfloat16 kind."""
+    st = port.make_stencil(name, dtype="bfloat16")
+    h = st.halo
+    p = _pieces(tuple(s + 2 * h for s in shape), dev, 91).to(BF16)
+    ins = (p,) if st.num_fields == 1 else (
+        p, _pieces(shape, dev, 92).to(BF16))
+    kernels.launches.clear()
+    got = kernels.make_pallas_compute(st, device=dev)(ins)
+    torch.cuda.synchronize()
+    wrapper = "zchunk_wave" if name == "wave3d" else "zchunk_heat"
+    assert kernels.launches == {f"{wrapper}[{name},bfloat16]": 1}
+    assert got[0].dtype == BF16 and torch.equal(got[0], st.update(ins)[0])
+
+
+@pytest.mark.parametrize("shape", SHAPES_2D)
+def test_bf16_whole2d_kernel_matches_plain(dev, shape):
+    """K7 heat2d in bfloat16 == the plain update, bit for bit."""
+    st = port.make_stencil("heat2d", dtype="bfloat16")
+    p = (_pieces(tuple(s + 2 for s in shape), dev, 93).to(BF16),)
+    kernels.launches.clear()
+    got = kernels.make_pallas_compute(st, device=dev)(p)[0]
+    torch.cuda.synchronize()
+    assert kernels.launches == {"whole2d[heat2d,bfloat16]": 1}
+    assert got.dtype == BF16 and torch.equal(got, st.update(p)[0])
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 20])
+@pytest.mark.parametrize("shape", [(128, 256), (130, 258)])
+@pytest.mark.parametrize("name,kw", BF16_2D, ids=_ids(BF16_2D))
+def test_bf16_fullgrid_kernel_matches_plain(dev, name, kw, shape, k,
+                                            periodic):
+    """K8 RAW in bfloat16 == k plain bfloat16 steps, bit for bit (k past
+    K_PER_LAUNCH micro-steps takes several launches)."""
+    st = port.make_stencil(name, dtype="bfloat16", **kw)
+    fields = tuple(f.to(BF16) for f in _fields_2d(st, shape, dev, 94))
+    plain = driver.make_step(st, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    got = fullgrid.make_fullgrid_step(st, shape, k, periodic=periodic,
+                                      device=dev)(fields)
+    torch.cuda.synchronize()
+    per = fullgrid.K_PER_LAUNCH // (2 if name == "sor2d" else 1)
+    assert fullgrid.launches == {
+        f"fullgrid_step[{st.name},bfloat16]": -(-k // per)}
+    for a, b in zip(got, ref):
+        assert a.dtype == BF16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("name,kw", BF16_2D, ids=_ids(BF16_2D))
+def test_bf16_sharded_fullgrid_kernel_matches_plain_sharded_steps(
+        dev, name, kw, periodic, overlap):
+    """K8 PADDED in bfloat16 (and its overlap shells) at k = 16 (sor2d 8:
+    m = 16, JAX's bfloat16 alignment) on a 4-row-shard split == k plain
+    sharded bfloat16 steps, bit for bit."""
+    st = port.make_stencil(name, dtype="bfloat16", **kw)
+    k = 8 if name == "sor2d" else 16
+    shape = (256, 200)
+    mesh = make_mesh((4,), [dev] * 4)
+    fields = shard_fields(tuple(f.to(BF16) for f in
+                                _fields_2d(st, shape, dev, 95)), mesh, 2)
+    plain = make_sharded_step(st, mesh, shape, periodic=periodic)
+    ref = fields
+    for _ in range(k):
+        ref = plain(ref)
+    fullgrid.launches.clear()
+    step = make_sharded_temporal_step(st, mesh, shape, k, periodic=periodic,
+                                      overlap=overlap, device=dev)
+    got = step(fields)
+    torch.cuda.synchronize()
+    assert step._overlap_active == overlap
+    assert fullgrid.launches == {
+        f"fullgrid_padded[{name},bfloat16]": 4 * (3 if overlap else 1)}
+    for a, b in zip(gather_fields(got), gather_fields(ref)):
+        assert a.dtype == BF16 and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("name", ["heat3d", "wave3d", "heat3d4th"])
+def test_bf16_sharded_compute_fn_step_matches_plain_sharded_step(
+        dev, name, overlap):
+    """make_sharded_step with the bfloat16 K4/K5 compute_fn (± the overlap
+    split) on a 2x2 mesh == the plain sharded bfloat16 step, bit for bit;
+    periodic with K4 equals the plain periodic step."""
+    st = port.make_stencil(name, dtype="bfloat16")
+    shape = (48, 40, 36)
+    mesh = make_mesh((2, 2), [dev] * 4)
+    fields = shard_fields(tuple(f.to(BF16) for f in
+                                _fields(st, shape, dev, 96)), mesh, 3)
+    comp = kernels.make_pallas_compute(st, device=dev)
+    for periodic in (False, True):
+        ref = make_sharded_step(st, mesh, shape, periodic=periodic)(fields)
+        step = make_sharded_step(st, mesh, shape, periodic=periodic,
+                                 compute_fn=comp, overlap=overlap)
+        kernels.launches.clear()
+        got = step(fields)
+        torch.cuda.synchronize()
+        assert sum(kernels.launches.values()) >= 4
+        for a, b in zip(gather_fields(got), gather_fields(ref)):
+            assert a.dtype == BF16 and torch.equal(a, b)
+
+
+def test_bf16_2d_and_compute_fn_wrappers_refuse_other_types(dev):
+    """K4, K5, K7 and K8 take float32 and bfloat16 (Life int32): float16
+    raises, as does a bfloat16 Life and a type mix."""
+    h = torch.rand(10, 10, 34, device=dev).to(torch.float16)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        kernels.zchunk_heat(h, port.make_stencil("heat3d"))
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        kernels.whole2d(h[0].contiguous(), port.make_stencil("heat2d"))
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        fullgrid.fullgrid_step((h[0].contiguous(),),
+                               port.make_stencil("heat2d"), 4)
+    with pytest.raises(TypeError, match="int32"):
+        fullgrid.fullgrid_step((h[0].to(BF16).contiguous(),),
+                               port.make_stencil("life"), 4)
+    u = torch.rand(8, 8, 32, device=dev)
+    with pytest.raises(TypeError, match="operands of one type"):
+        kernels.zchunk_wave(torch.rand(10, 10, 34, device=dev), u.to(BF16),
+                            port.make_stencil("wave3d"))

@@ -59,7 +59,8 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      of z (4), y (1x4) and 2x2 meshes, at the main path's z slab, y slab
      and corner sites and small slabs cut into (0, 4) and (0, 1) chunks,
      ring depths 2, 3, 4 and a preferred chunk count 8, three launches back
-     to back with the drained counters read after each.  bfloat16 kinds,
+     to back with every chunk's ready counter read after each (drained:
+     the blocks that wrote the chunk).  bfloat16 kinds,
      each bit-equal to its plain version on bfloat16 tensors: K1's four
      tap sets (advection with both Courant signs), K2 and
      raw_step_grayscott at (66, 70, 130) and 512^3, two steps; K10 RAW at
@@ -182,7 +183,7 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      twin where the budget admits it, else the refusal; and BASELINE
      config 3's decomposition in bfloat16 (heat3d 1024^3 --mesh 2,2
      --compute pallas, 16 iterations), whose measured peak must not exceed
-     the estimate;
+     the estimate, as config 5's --exchange rdma share's must not;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -200,15 +201,20 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      re-pin, beside whole fused steps of each kind with and without
      --overlap.  The bfloat16 kinds at the same shapes (bytes at 2 B a cell;
      F.conv3d in bfloat16 beside K1 and K2, one copy_ per slab beside the
-     ring, at the 1024^3 2x2 sites and config 5's z-slab site), K10's
-     advect3d and grayscott3d z-slab kind on a --mesh 4 shard of 512^3;
-     K3 in bfloat16 at 512^3 for every family, its sharded mode, one hi z
-     shell and K9 on a 2x2 shard and K6 on a --mesh 4 shard of 1024^3
+     ring, at the 1024^3 2x2 sites and config 5's z-slab site; each ring
+     site, f32 and bf16, also by device time alone from torch.profiler,
+     beside its copy_ calls), K10's advect3d and grayscott3d z-slab kind
+     on a --mesh 4 shard of 512^3; K3 in bfloat16 at 512^3 for every
+     family, its sharded mode, one hi z shell and K9 on a 2x2 shard and K6 on a --mesh 4 shard of 1024^3
      (heat3d, wave3d, k = 8), and K6 and K9 of advect3d and grayscott3d
      on the shards of 512^3 (float32 k = 4, bfloat16 k = 8); K4 / K5 in
      bfloat16 on the 2x2 shards (F.conv3d in bfloat16 beside them), K7 at
      16384^2 (F.conv2d in bfloat16) and K8 at 16384^2 and on a --mesh 4
-     shard, every float 2D family at k = 16 (sor2d 8).
+     shard, every float 2D family at k = 16 (sor2d 8).  Then one line for
+     each timed entry of the kernels this port redesigned for Hopper (K3,
+     its shells, K6, K9: rows 5-11; the ring: row 19): this run's ms
+     beside the first design's (OLD_MS, from PERF.md), the fraction of the
+     bound and the library call's ms.
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -333,6 +339,61 @@ CONFIG5_REHEARSAL = ("--grid", "192,64,128", "--iters", "8", "--mesh",
                      "--dtype", "bfloat16", "--mem-check", "error")
 CONFIG5_GRID = (256, 4096, 4096)
 CONFIG5_ITERS = 40
+
+
+# The kernels this port redesigned for Hopper (rows 5-11: K3, its shells,
+# K6 and K9; row 19: the ring), and each timed entry's ms per launch in
+# its first design, on one NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
+# section 6, PRs 1-11), printed beside this run's.
+REDESIGNED = ("fused_step", "fused_step_padded", "fused_shell",
+              "fused_zslab", "fused_yzslab", "ring_exchange")
+OLD_MS = {
+    "fused_step<heat3d>": 8.5527, "fused_step<heat3d27>": 11.0989,
+    "fused_step<heat3d4th>": 6.3436, "fused_step<wave3d>": 9.3300,
+    "fused_step<advect3d>": 10.0955, "fused_step<grayscott3d>": 18.7024,
+    "fused_step<sor3d>": 28.8485,
+    "fused_step_padded<heat3d>": 17.6024,
+    "fused_step_padded<wave3d>": 18.4364,
+    "fused_step_padded<heat3d27>": 2.8171,
+    "fused_step_padded<heat3d4th>": 1.6156,
+    "fused_step_padded<advect3d>": 2.5295,
+    "fused_step_padded<grayscott3d>": 4.4706,
+    "fused_step_padded<sor3d>": 59.5067,
+    "fused_shell<heat3d>": 0.3079, "fused_shell<wave3d>": 0.3239,
+    "fused_shell<sor3d>": 1.9379, "fused_shell<advect3d>": 0.0846,
+    "fused_shell<grayscott3d>": 0.1357,
+    "fused_zslab<heat3d>": 19.0354, "fused_zslab<wave3d>": 24.1003,
+    "fused_zslab<sor3d>": 59.9848, "fused_zslab<advect3d>": 2.6226,
+    "fused_zslab<grayscott3d>": 6.4000,
+    "fused_yzslab<heat3d>": 20.0993, "fused_yzslab<wave3d>": 27.5781,
+    "fused_yzslab<heat3d27>": 3.1120, "fused_yzslab<heat3d4th>": 1.8779,
+    "fused_yzslab<sor3d>": 62.0180, "fused_yzslab<advect3d>": 2.8012,
+    "fused_yzslab<grayscott3d>": 6.5478,
+    "fused_step<heat3d,bfloat16>": 38.4600,
+    "fused_step<heat3d27,bfloat16>": 88.6786,
+    "fused_step<heat3d4th,bfloat16>": 28.5243,
+    "fused_step<wave3d,bfloat16>": 40.4781,
+    "fused_step<advect3d,bfloat16>": 44.5342,
+    "fused_step<grayscott3d,bfloat16>": 86.8240,
+    "fused_step<sor3d,bfloat16>": 21.3584,
+    "fused_step_padded<heat3d,bfloat16>": 78.4460,
+    "fused_step_padded<wave3d,bfloat16>": 81.5291,
+    "fused_shell<heat3d,bfloat16>": 2.5511,
+    "fused_shell<wave3d,bfloat16>": 2.6599,
+    "fused_zslab<heat3d,bfloat16>": 79.1871,
+    "fused_zslab<wave3d,bfloat16>": 96.8868,
+    "fused_zslab<advect3d,bfloat16>": 11.3552,
+    "fused_zslab<grayscott3d,bfloat16>": 25.8588,
+    "fused_yzslab<heat3d,bfloat16>": 83.4406,
+    "fused_yzslab<wave3d,bfloat16>": 100.5316,
+    "fused_yzslab<advect3d,bfloat16>": 11.9593,
+    "fused_yzslab<grayscott3d,bfloat16>": 26.5037,
+    "ring_exchange<4x512x1024>": 0.2032, "ring_exchange<512x4x1024>": 0.1870,
+    "ring_exchange<4x4x1024>": 0.1068, "ring_exchange<4x1024x1024>": 0.3695,
+    "ring_exchange<4x512x1024,bfloat16>": 0.1069,
+    "ring_exchange<512x4x1024,bfloat16>": 0.1054,
+    "ring_exchange<4x4x1024,bfloat16>": 0.1029,
+    "ring_exchange<4x4096x4096,bfloat16>": 2.7851}
 
 
 def stencil_flags(stencil):
@@ -908,11 +969,11 @@ def main() -> int:
                         "max_abs_err": err, "atol": atol, "rtol": rtol})
         del ref, got
     # the ring exchange (row 19): every ring of one mesh axis on the card in
-    # one cooperative launch, against plain_ring_exchange (the protocol
-    # walked in order on the same tensors) bit for bit, three launches back
-    # to back, every ready and credit counter read after each (drained:
-    # blocks x the uses of its slot).  Sites: the sharded main path's z
-    # slab, y slab and corner of a 2x2 shard of 1024^3 and the z slab of a
+    # one launch, each chunk landed in place, against plain_ring_exchange
+    # (the protocol walked in order on the same tensors) bit for bit, three
+    # launches back to back, every chunk's ready counter read after each
+    # (drained: the blocks that wrote the chunk).  Sites: the sharded main
+    # path's z slab, y slab and corner of a 2x2 shard of 1024^3 and the z slab of a
     # --mesh 4 shard, a 1x4 mesh's y slab, and small slabs that pick_chunks
     # cuts into (0, 4) and (0, 1) chunks, on every ring of z (4), y (1, 4)
     # and (2, 2) meshes; ring depths 2, 3, 4 and a preferred chunk count 8
@@ -935,7 +996,7 @@ def main() -> int:
                 device=dev)
             ref = remote.plain_ring_exchange(
                 hi, lo, nxt, prv, meta,
-                remote.RingState(meta, 4, dev, torch.float32))
+                remote.RingState(meta, 4, dev))
             for _ in range(3):
                 remote.launches.clear()
                 got = call(hi, lo, nxt, prv)
@@ -1216,7 +1277,7 @@ def main() -> int:
             call, meta = remote.build_ring_exchange_call(
                 shape, bf16, nslots=nslots, prefer_nc=prefer_nc, device=dev)
             ref = remote.plain_ring_exchange(
-                hi, lo, nxt, prv, meta, remote.RingState(meta, 4, dev, bf16))
+                hi, lo, nxt, prv, meta, remote.RingState(meta, 4, dev))
             for _ in range(3):
                 remote.launches.clear()
                 got = call(hi, lo, nxt, prv)
@@ -2065,6 +2126,8 @@ def main() -> int:
                 2 * passes
         if r["launches"] != want:
             fail(f"config 5 {exchange}: launches {r['launches']} != {want}")
+        if exchange == "rdma" and peak > est:
+            fail(f"config 5 rdma: peak {peak} B above the estimate {est} B")
         check(r, block_err(got, whole, 1, f"config 5 {exchange}"), 0.0,
               "unsharded stream run")
         r.update(peak_bytes=peak, estimate_bytes=est, budget_log=logged[-1],
@@ -2135,6 +2198,20 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    def device_ms(fn, reps=20):
+        """fn's device time a call: the summed device time of the kernels,
+        copies and memsets it issues, from torch.profiler (host time
+        left out; the ring's small sites are host-bound)."""
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.device_time_total for e in prof.key_averages()) \
+            / reps / 1e3
 
     def bound(n_bytes, n_flops):
         b, f = n_bytes / bw * 1e3, n_flops / flops32 * 1e3
@@ -2761,7 +2838,7 @@ def main() -> int:
                                                      device=dev)
         ms = time_ms(lambda: call(hi, lo, nxt, prv), 50)
         call.state.check_drained(meta)
-        plain_state = remote.RingState(meta, 4, dev, torch.float32)
+        plain_state = remote.RingState(meta, 4, dev)
         plain_ms = time_ms(lambda: remote.plain_ring_exchange(
             hi, lo, nxt, prv, meta, plain_state), 3)
         outs = [torch.empty_like(t) for t in hi + lo]
@@ -2781,11 +2858,13 @@ def main() -> int:
         kernels_out[-1].update(
             mesh=list(mshape), chunks=[meta["chunk_axis"], meta["nchunks"]],
             nslots=meta["nslots"], blocks=call.state.blocks,
-            launches_per_100_iterations=per100.get(key))
+            launches_per_100_iterations=per100.get(key),
+            device_ms=device_ms(lambda: call(hi, lo, nxt, prv)),
+            library_device_ms=device_ms(copies))
         if shape == (4, 512, 1024):
             # --overlap runs the ring on a side stream beside K10's interior
             # (heat3d, one 2x2 shard's operands, once per shard): does the
-            # cooperative launch run beside it, or wait for it?
+            # ring launch run beside it, or wait for it?
             st = make_stencil("heat3d")
             Lz, Ly, X = 512, 512, 1024
             core = (rand((Lz, Ly, X)),)
@@ -2948,7 +3027,7 @@ def main() -> int:
         call, meta = remote.build_ring_exchange_call(shape, bf16, device=dev)
         ms = time_ms(lambda: call(hi, lo, nxt, prv), 50)
         call.state.check_drained(meta)
-        plain_state = remote.RingState(meta, 4, dev, bf16)
+        plain_state = remote.RingState(meta, 4, dev)
         plain_ms = time_ms(lambda: remote.plain_ring_exchange(
             hi, lo, nxt, prv, meta, plain_state), 3)
         outs = [torch.empty_like(t) for t in hi + lo]
@@ -2966,7 +3045,9 @@ def main() -> int:
                None, dtype=BF16)
         kernels_out[-1].update(
             mesh=list(mshape), chunks=[meta["chunk_axis"], meta["nchunks"]],
-            nslots=meta["nslots"], blocks=call.state.blocks)
+            nslots=meta["nslots"], blocks=call.state.blocks,
+            device_ms=device_ms(lambda: call(hi, lo, nxt, prv)),
+            library_device_ms=device_ms(copies))
         del hi, lo, outs, call
         torch.cuda.empty_cache()
     # K3, its shells, K6 and K9 in bfloat16 at the shapes of their main-path
@@ -3167,6 +3248,20 @@ def main() -> int:
                 "window": f"{window}<{rest}",
                 "window_ms": by_name[f"{window}<{rest}"]["ms"],
                 "bound_ms": kk["bound_ms"], "shape": kk["shape"]})
+    # the redesigned kernels (rows 5-11 and 19), one line each: this run's
+    # ms beside the first design's (OLD_MS) and the fraction of the bound
+    for kk in kernels_out:
+        if kk["name"].partition("<")[0] not in REDESIGNED:
+            continue
+        old = OLD_MS.get(kk["name"])
+        emit({"phase": "redesign", "name": kk["name"], "old_ms": old,
+              "old_from": "PERF.md section 6" if old else None,
+              "ms": kk["ms"], "bound_ms": kk["bound_ms"],
+              "fraction_of_bound": kk["bound_ms"] / kk["ms"],
+              "library_ms": kk["library_ms"],
+              "speedup": old / kk["ms"] if old else None,
+              **{f: kk[f] for f in ("device_ms", "library_device_ms")
+                 if f in kk}})
     emit({"phase": "timing", "ok": True, "seconds": took(),
           "stream_vs_window": stream_vs_window,
           "rdma_vs_ppermute": rdma_vs_ppermute, "exchange_ab": exchange_ab,

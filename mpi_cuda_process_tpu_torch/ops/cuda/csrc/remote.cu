@@ -1,7 +1,6 @@
 // ring_exchange: both ring directions of one mesh axis for one slab pair,
-// chunk by chunk through an nslots-deep receive ring with credit flow
-// control, for every ring of shards that lives on one device, in one
-// cooperative launch.
+// every chunk landed in place in its destination's output slab, for every
+// ring of shards that lives on one device, in one ordinary launch.
 //
 // Replaces: the TPU package's ops/pallas/remote.py — build_ring_exchange_call
 // and its _ring_kernel (the in-kernel remote-DMA halo exchange), with the
@@ -10,47 +9,35 @@
 // On the TPU each chip runs the kernel for its own shard: it stages its
 // slab chunk by chunk through a VMEM send ring and pushes each chunk into
 // the ring neighbour's VMEM receive ring with a remote DMA, under send,
-// receive and credit semaphores, behind a per-call barrier.  Here the shards
-// of a mesh that share one card are the ring's members, and the protocol
-// runs between co-resident thread blocks: the grid is (G, 2, S), G blocks
-// for each (direction, shard), and the G blocks of one (direction, shard)
-// each move a fixed share of every chunk.  Direction 0 sends a shard's hi
-// slab to the next shard, where it lands as that shard's from_left;
-// direction 1 sends the lo slab to the previous shard (from_right).  Per
-// chunk c, slot q = c % nslots and use u = c / nslots:
+// receive and credit semaphores, because a chunk must sit in VMEM before
+// the neighbour's kernel can drain it into HBM.  On one card the
+// destination of every chunk is already device memory: the neighbour's
+// output slab.  So the sender writes each chunk straight to its place
+// there, and nothing is staged or read back: no receive ring, no credits,
+// and a block never waits on another.  Direction 0 sends a shard's hi slab
+// to the next shard, where it lands as that shard's from_left; direction 1
+// sends the lo slab to the previous shard (from_right).
 //
-//   1. for u > 0 the sender waits until its neighbour's credit counter of
-//      slot q reaches G * u (every share of the slot's last use drained);
-//   2. it writes its share straight into the neighbour's receive slot in
-//      device memory (no send ring: a block's stores need no staging) and
-//      signals the slot's ready counter (fence, then a release add);
-//   3. the receiver waits until its own ready counter of slot q reaches
-//      G * (u + 1) (every sender block's share landed), drains its share of
-//      the slot into the output slab and credits the slot (a release add).
-//
-// At exit every ready and credit counter equals G times the uses of its
-// slot: every signal sent was consumed.  The sender waits for its trailing
-// credits before it exits, the counterpart of the TPU kernel's epilogue, so
-// a kernel that returns has seen every credit.  That is the port's form of
-// "every semaphore is zero at exit"; the wrapper zeroes the counters before
-// each launch (one memset on the stream), the role of the TPU kernel's
-// per-call barrier, so back-to-back launches never see stale counts.
-//
-// Blocks wait on other blocks, so all of them must be resident at once: a
-// cooperative launch guarantees that or fails (the wrapper raises).  A wait
-// that spins past 2 s of %globaltimer traps, so a protocol fault fails the
-// run at the next synchronize instead of hanging it.  Thread 0 of a block
-// waits (acquire), then __syncthreads(), before the block reads a slot; the
-// slots are read and written with __ldcg/__stcg (L2, not the SM's L1).
-//
-// The kernel takes a raw pointer to every shard's slabs, receive ring and
-// counters, so a ring across cards (peer writes over NVLink, system-scope
-// flags, one launch per card) can reuse it; the wrapper refuses such a ring
-// today (ROADMAP B7).
+// The protocol that stays is the record of the landing: every block that
+// wrote a share of chunk c of (destination, direction) adds one to that
+// chunk's ready counter (fence, then a release add) after its stores.  At
+// exit every ready counter equals the blocks that wrote into its chunk
+// (remote.py::drained_counts), which the wrapper's RingState checks; the
+// launch zeroes the counters first (one memset on the stream), the role of
+// the TPU kernel's per-call barrier.  The consumer of the received slabs
+// runs after this kernel in stream order, which is the receiver's wait on
+// one card.  The ring across cards (ROADMAP B7) builds
+// on this form: the same stores into peer memory over NVLink, system-scope
+// release adds on flags in the receiver's memory, and a receiver that
+// acquires them before it reads; the kernel already takes a raw pointer to
+// every shard's slabs and counters for that.
 //
 // Bound on an H100: device-memory bytes, each slab read once and each
-// received slab written once; the ring adds one write and one read of every
-// chunk in L2 (a ring of two 2 MiB chunks per direction fits it).
+// received slab written once.  What the design does for it: an ordinary
+// launch of as many blocks as the chunks need (no residency cap), each
+// thread with ILP independent 16-byte loads in flight before its stores,
+// and a grid of (part, run, chunk x direction x shard) blocks, so a block
+// copies one contiguous span of one run and computes no index by division.
 
 #include <cuda/atomic>
 #include <cuda_runtime.h>
@@ -60,100 +47,56 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int ILP = 4;  // independent units a thread loads before it stores
+constexpr int SPAN = THREADS * ILP;  // units a block copies of one run
 constexpr int MAX_SHARDS = 32;  // shards of one launch (kernel parameters)
-constexpr unsigned long long TIMEOUT_NS = 2000000000ull;
 
 // Chunk geometry in units of 16 bytes (a float4) where every run, stride
 // and pointer aligns to them, else of one element (a float, or the 2 bytes
 // of a bfloat16, copied as an unsigned short): chunk c of a slab is `runs`
 // runs of `run_len` units, `run_stride` apart, starting at c *
-// chunk_stride; in a receive slot the chunk is packed (runs * run_len
-// units).  The kernel copies units and never reads them as numbers.
+// chunk_stride; it lands at the same offsets of the destination's output
+// slab.  The kernel copies units and never reads them as numbers.
 struct Args {
   const void* src[MAX_SHARDS][2];  // d = 0: the hi slab; d = 1: the lo slab
   void* out[MAX_SHARDS][2];        // d = 0: from_left; d = 1: from_right
-  void* recv[MAX_SHARDS];          // (2, nslots, chunk) receive rings
-  int* ready[MAX_SHARDS];          // (2, nslots) ready counters
-  int* credit[MAX_SHARDS];         // (2, nslots) credit counters
+  int* ready[MAX_SHARDS];          // (2, nc) ready counters of each shard
   int dest[MAX_SHARDS][2];         // d = 0: the next shard; 1: the previous
-  int G, nc, nslots;
-  long runs, run_len, run_stride, chunk_stride;
+  int nc;
+  long run_len, run_stride, chunk_stride;
 };
 
-__device__ __forceinline__ unsigned long long globaltimer() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// The block waits until *p >= target (thread 0 spins with acquire loads).
-__device__ __forceinline__ void wait_at_least(int* p, int target) {
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<int, cuda::thread_scope_device> r(*p);
-    if (r.load(cuda::memory_order_acquire) < target) {
-      const unsigned long long t0 = globaltimer();
-      while (r.load(cuda::memory_order_acquire) < target) {
-        if (globaltimer() - t0 > TIMEOUT_NS) __trap();
-        __nanosleep(64);
-      }
-    }
+// grid (parts of a run, runs, nc * 2 * S): block (p, r, (s * 2 + d) * nc
+// + c) copies units [p * SPAN, (p + 1) * SPAN) of run r of chunk c of
+// shard s's direction-d slab into dest[s][d]'s output slab.
+template <class T>
+__global__ void __launch_bounds__(THREADS) ring_exchange(const Args a) {
+  const int zc = blockIdx.z;
+  const int c = zc % a.nc, sd = zc / a.nc;
+  const int d = sd & 1, s = sd >> 1;
+  const int to = a.dest[s][d];
+  const long off = c * a.chunk_stride + blockIdx.y * a.run_stride;
+  const T* __restrict__ src = static_cast<const T*>(a.src[s][d]) + off;
+  T* __restrict__ out = static_cast<T*>(a.out[to][d]) + off;
+  const long e0 = static_cast<long>(blockIdx.x) * SPAN + threadIdx.x;
+  T v[ILP];
+#pragma unroll
+  for (int j = 0; j < ILP; ++j) {
+    const long e = e0 + j * THREADS;
+    if (e < a.run_len) v[j] = src[e];
   }
-  __syncthreads();
-}
-
-// Every thread of the block is done with the slot; one release add.
-__device__ __forceinline__ void signal(int* p) {
+#pragma unroll
+  for (int j = 0; j < ILP; ++j) {
+    const long e = e0 + j * THREADS;
+    if (e < a.run_len) out[e] = v[j];
+  }
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
-    cuda::atomic_ref<int, cuda::thread_scope_device> r(*p);
+    cuda::atomic_ref<int, cuda::thread_scope_device> r(
+        a.ready[to][d * a.nc + c]);
     r.fetch_add(1, cuda::memory_order_release);
   }
-}
-
-template <class T>
-__global__ void __launch_bounds__(THREADS) ring_exchange(const Args a) {
-  const int g = blockIdx.x, d = blockIdx.y, s = blockIdx.z;
-  const int to = a.dest[s][d];
-  const long n = a.runs * a.run_len;  // units of one chunk
-  const long lo = n * g / a.G, hi = n * (g + 1) / a.G;  // this block's share
-  const T* src = static_cast<const T*>(a.src[s][d]);
-  T* out = static_cast<T*>(a.out[s][d]);
-  T* send_ring = static_cast<T*>(a.recv[to]) + d * a.nslots * n;
-  const T* recv_ring = static_cast<const T*>(a.recv[s]) + d * a.nslots * n;
-  int* send_ready = a.ready[to] + d * a.nslots;
-  int* send_credit = a.credit[to] + d * a.nslots;
-  int* my_ready = a.ready[s] + d * a.nslots;
-  int* my_credit = a.credit[s] + d * a.nslots;
-  for (int c = 0; c < a.nc; ++c) {
-    const int q = c % a.nslots, u = c / a.nslots;
-    const long base = c * a.chunk_stride;
-    if (u > 0) wait_at_least(send_credit + q, a.G * u);
-    T* slot = send_ring + q * n;
-    for (long i = lo + threadIdx.x; i < hi; i += THREADS) {
-      const long r = i / a.run_len, e = i - r * a.run_len;
-      __stcg(slot + i, src[base + r * a.run_stride + e]);
-    }
-    signal(send_ready + q);
-    wait_at_least(my_ready + q, a.G * (u + 1));
-    const T* rslot = recv_ring + q * n;
-    for (long i = lo + threadIdx.x; i < hi; i += THREADS) {
-      const long r = i / a.run_len, e = i - r * a.run_len;
-      out[base + r * a.run_stride + e] = __ldcg(rslot + i);
-    }
-    signal(my_credit + q);
-  }
-  // epilogue: consume the trailing credits of every slot this block's
-  // neighbour drained
-  const int used = a.nc < a.nslots ? a.nc : a.nslots;
-  for (int q = 0; q < used; ++q)
-    wait_at_least(send_credit + q, a.G * ((a.nc - q + a.nslots - 1) / a.nslots));
-}
-
-template <class T>
-int blocks_per_sm(int* out) {
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, ring_exchange<T>, THREADS, 0));
 }
 
 // The kernel's instance for a unit of `unit` bytes (16, 4 or 2), or null.
@@ -173,73 +116,54 @@ const void* kernel_for(int unit) {
 
 }  // namespace
 
-// The largest G at which a (G, 2, S) grid is co-resident on the current
-// device, at most one block per SM (capped by the chunk's units: no block
-// idles), for units of `unit` bytes.  Returns a cudaError_t code.
-EXPORT int ring_exchange_blocks(int S, long units, int unit, int* G) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int rc = unit == 16  ? blocks_per_sm<float4>(&per_sm)
-           : unit == 4 ? blocks_per_sm<float>(&per_sm)
-           : unit == 2 ? blocks_per_sm<unsigned short>(&per_sm)
-                       : static_cast<int>(cudaErrorInvalidValue);
-  if (rc != 0) return rc;
-  const int resident = sms * (per_sm < 1 ? 1 : per_sm);
-  const int cap = sms < resident ? sms : resident;
-  long g = cap / (2 * S);
-  const long need = (units + THREADS - 1) / THREADS;
-  if (g > need) g = need;
-  *G = g < 1 ? 1 : static_cast<int>(g);
-  return 0;
+// The blocks that write into one chunk: runs times the parts of a run of
+// `run_len` units.
+EXPORT long ring_exchange_blocks(long runs, long run_len) {
+  return runs * ((run_len + SPAN - 1) / SPAN);
 }
 
-// One cooperative launch on `stream`: for each of the S shards (indices
-// 0..S-1 of this launch), hi[s] goes to next[s]'s from_left and lo[s] to
-// prev[s]'s from_right, through the receive rings recv[s] (2, nslots, chunk)
-// with the counters ready[s] and credit[s] (2, nslots each), which must be
-// zero.  The geometry is in units of `unit` bytes: 16 (every run, stride
-// and pointer 16-byte aligned), or the element's 4 (float32) or 2
-// (bfloat16).  Returns a cudaError_t code.
-EXPORT int ring_exchange_launch(int S, const void* const* hi,
-                                const void* const* lo, void* const* from_left,
-                                void* const* from_right, void* const* recv,
-                                int* const* ready, int* const* credit,
+// One launch on `stream`: for each of the S shards (indices 0..S-1 of this
+// launch), slabs[s] (its hi slab) lands in next[s]'s from_left and
+// slabs[S + s] (its lo slab) in prev[s]'s from_right, chunk by chunk.  The
+// received slabs are `out`, (2, S) slabs of `slab_bytes` each (from_left,
+// then from_right); `counters` (S, 2, nc) int32 are the ready counters,
+// zeroed here on the stream before the copy.  The geometry is in units of
+// `unit` bytes: 16 (every run, stride and pointer 16-byte aligned), or the
+// element's 4 (float32) or 2 (bfloat16).  Returns a cudaError_t code.
+EXPORT int ring_exchange_launch(int S, const void* const* slabs, void* out,
+                                long slab_bytes, int* counters,
                                 const int* next, const int* prev, int nc,
-                                int nslots, long runs, long run_len,
-                                long run_stride, long chunk_stride, int unit,
-                                int G, void* stream) {
+                                long runs, long run_len, long run_stride,
+                                long chunk_stride, int unit, void* stream) {
   const void* kernel = kernel_for(unit);
-  if (S < 1 || S > MAX_SHARDS || G < 1 || nc < 1 || nslots < 1 || !kernel)
+  const long parts = (run_len + SPAN - 1) / SPAN;
+  if (S < 1 || S > MAX_SHARDS || nc < 1 || runs < 1 || runs > 65535 ||
+      run_len < 1 || parts > 0x7fffffffL ||
+      static_cast<long>(nc) * 2 * S > 65535 || !kernel)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(
+      counters, 0, sizeof(int) * static_cast<size_t>(S) * 2 * nc, st);
+  if (e != cudaSuccess) return static_cast<int>(e);
   Args a{};
+  char* o = static_cast<char*>(out);
   for (int s = 0; s < S; ++s) {
-    // block (g, d, s) sends src[s][d] into dest[s][d]'s ring and drains
-    // ring s, which prev[s] (d = 0) or next[s] (d = 1) fills, into out[s][d]
-    a.src[s][0] = hi[s];
-    a.src[s][1] = lo[s];
-    a.out[s][0] = from_left[s];
-    a.out[s][1] = from_right[s];
-    a.recv[s] = recv[s];
-    a.ready[s] = ready[s];
-    a.credit[s] = credit[s];
+    a.src[s][0] = slabs[s];
+    a.src[s][1] = slabs[S + s];
+    a.out[s][0] = o + s * slab_bytes;
+    a.out[s][1] = o + (S + s) * slab_bytes;
+    a.ready[s] = counters + s * 2 * nc;
     a.dest[s][0] = next[s];
     a.dest[s][1] = prev[s];
   }
-  a.G = G;
   a.nc = nc;
-  a.nslots = nslots;
-  a.runs = runs;
   a.run_len = run_len;
   a.run_stride = run_stride;
   a.chunk_stride = chunk_stride;
   void* params[] = {&a};
-  const dim3 grid(G, 2, S);
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel, grid, dim3(THREADS), params, 0,
-      static_cast<cudaStream_t>(stream));
+  const dim3 grid(static_cast<unsigned>(parts), static_cast<unsigned>(runs),
+                  static_cast<unsigned>(nc * 2 * S));
+  e = cudaLaunchKernel(kernel, grid, dim3(THREADS), params, 0, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,10 @@
 //
 // Coordinates are LOCAL to the core: (0, 0, 0) is the core's first cell, and
 // a window reaches m cells past it on z and y (and wraps or clamps on x).
+//
+// cell_ptr reads any cell, wrapping or clamping each axis.  rows_direct and
+// row_ptr serve the windows that need neither: rows whose z and y lie in
+// the operands as they are, read a row at a time (fused.cu's fast path).
 
 #pragma once
 
@@ -105,3 +109,51 @@ __device__ __forceinline__ const T* cell_ptr(const WindowT<T>& w, int f,
   }
 }
 
+
+// Whether window rows z in [z0, z1), y in [y0, y1) (local) all lie in the
+// source's operands as they are, with no wrap or clamp: RAW's grid (m = 0),
+// PADDED's pad, ZSLAB's slabs on z (y whole), YZSLAB's slabs and corners.
+template <int SRC, class T>
+__device__ __forceinline__ bool rows_direct(const WindowT<T>& w, int z0,
+                                            int z1, int y0, int y1) {
+  const int my = SRC == ZSLAB ? 0 : w.m;
+  return z0 >= -w.m && z1 <= w.Z + w.m && y0 >= -my && y1 <= w.Y + my;
+}
+
+// Address of field f's row at local (z, y), x = 0, for a row that
+// rows_direct admits: cell_ptr's operand choice without its wraps and
+// clamps.
+template <int SRC, class T>
+__device__ __forceinline__ const T* row_ptr(const WindowT<T>& w, int f,
+                                            int z, int y) {
+  if constexpr (SRC == RAW) {
+    return w.in[f] + (static_cast<long>(z) * w.Y + y) * w.X;
+  } else if constexpr (SRC == PADDED) {
+    return w.in[f] +
+           (static_cast<long>(z + w.m) * (w.Y + 2 * w.m) + (y + w.m)) * w.X;
+  } else if constexpr (SRC == ZSLAB) {
+    const long plane = static_cast<long>(w.Y) * w.X;
+    const long row = static_cast<long>(y) * w.X;
+    if (z < 0) return w.lo[f] + (z + w.m) * plane + row;
+    if (z >= w.Z) return w.hi[f] + (z - w.Z) * plane + row;
+    return w.in[f] + z * plane + row;
+  } else {
+    const int rz = z < 0 ? 0 : (z < w.Z ? 1 : 2);
+    const int ry = y < 0 ? 0 : (y < w.Y ? 1 : 2);
+    if (rz != 1) z = rz == 0 ? z + w.m : z - w.Z;
+    if (ry != 1) y = ry == 0 ? y + w.m : y - w.Y;
+    const T* p;
+    if (rz == 1) {
+      p = ry == 1 ? w.in[f] : (ry == 0 ? w.ylo[f] : w.yhi[f]);
+    } else if (ry == 1) {
+      p = rz == 0 ? w.lo[f] : w.hi[f];
+    } else {
+      const int q = (rz == 2) * 2 + (ry == 2);
+      p = q == 0 ? w.corner[0][f]
+                 : (q == 1 ? w.corner[1][f]
+                           : (q == 2 ? w.corner[2][f] : w.corner[3][f]));
+    }
+    const int rows = ry == 1 ? w.Y : w.m;
+    return p + (static_cast<long>(z) * rows + y) * w.X;
+  }
+}

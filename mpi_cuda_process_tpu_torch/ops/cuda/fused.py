@@ -33,7 +33,12 @@ Replaces the TPU package's ``ops/pallas/fused.py::build_fused_call``
 ``build_yzslab_padfree_call`` (``_fused_yzslab_kernel``) and
 ``build_overlap_shell_calls``.  Bound on an
 H100: device-memory bytes, one read and one write of each field per k steps;
-the kernel source says what its design pays for that.
+in practice instructions, which the kernel's design (redesigned for Hopper:
+threads walk window columns down z with no division, 16-byte row copies
+and no frame test on the blocks that need neither; the kernel source says
+more) spends as few of as it can.  The launch tile comes from ``TILES``,
+timed per (stencil, dtype, k); ``CORE``/``SOR_CORE`` still decide which
+(stencil, k, dtype) the kernels take.
 
 Plain PyTorch versions: k applications of the port's ``driver.make_step``
 for ``fused_step``; for the sharded wrappers, k plain steps of the window
@@ -51,7 +56,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ...driver import frame_mask, make_step
-from ..stencil import Fields, Stencil, k_step_margin
+from ..stencil import Fields, Stencil, dtype_name, k_step_margin
 from . import _build
 from .rawstep import coefficients
 
@@ -81,6 +86,38 @@ CORE = (8, 8, 32)
 # a larger core spends fewer of the window's cells on the margin (k = 4:
 # 6x the core's cells against 13.5x at CORE; 192 KB).
 SOR_CORE = (16, 16, 32)
+# CORE and SOR_CORE decide which (stencil, k, dtype) the kernels take
+# (``fits``, ``margin_of``: the TPU builders' set).  A launch may use
+# another tile: TILES maps (stencil, dtype, k) to the core (TZ, TY, TX) and
+# the block's threads, the fastest of scripts/torch_fused_tiles.py's
+# candidates on an H100 at 512^3 (and, for heat3d and wave3d, on a 1024^3
+# 2x2 shard: the same winners).  A deeper tile recomputes fewer margin
+# cells (1.59 updates a useful cell-step at (16, 16, 32), k = 4, against
+# 2.21 at CORE), and 1024 threads hide the shared-memory latency of its one
+# block an SM; Gray-Scott's four buffers leave it CORE.  Pairs not listed,
+# and grids smaller than the tile (the shells), take ``core_of(stencil)``
+# with THREADS (512 beat 256 at CORE for all but two pairs).
+THREADS = 512
+_WIDE = (16, 16, 32, 1024)
+TILES = {
+    ("heat3d", "float32", 4): _WIDE, ("heat3d", "bfloat16", 8): _WIDE,
+    ("heat3d27", "float32", 4): (16, 8, 64, 1024),
+    ("heat3d27", "bfloat16", 8): _WIDE,
+    ("heat3d4th", "float32", 2): _WIDE, ("heat3d4th", "bfloat16", 4): _WIDE,
+    ("wave3d", "float32", 4): _WIDE, ("wave3d", "bfloat16", 8): _WIDE,
+    ("advect3d", "float32", 4): _WIDE, ("advect3d", "bfloat16", 8): _WIDE,
+    ("grayscott3d", "float32", 4): (8, 8, 32, 512),
+    ("grayscott3d", "bfloat16", 8): (8, 8, 32, 512),
+    ("sor3d", "float32", 4): _WIDE,
+    ("sor3d", "bfloat16", 4): (32, 16, 32, 1024),
+}
+# The kernel's fast paths (csrc/fused.cu ``paths``): 16-byte row copies,
+# where every operand's address is 16-byte aligned; no frame test where no
+# update is frame; cells read from row pointers where the rows need no
+# wrap or clamp.  PATHS is what every launch allows (0 times the per-cell
+# path alone: scripts/torch_fused_tiles.py).
+VEC_LOAD, FRAME_FREE, ROW_LOAD = 1, 2, 4
+PATHS = VEC_LOAD | FRAME_FREE | ROW_LOAD
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
@@ -103,6 +140,35 @@ def core_of(stencil: Stencil) -> Tuple[int, int, int]:
     """The core tile of ``stencil``'s blocks: ``SOR_CORE`` for sor3d,
     ``CORE`` for the rest."""
     return SOR_CORE if stencil.name == "sor3d" else CORE
+
+
+def tile_of(stencil: Stencil, k: int,
+            shape: Sequence[int]) -> Tuple[int, int, int, int]:
+    """The launch tile ``(TZ, TY, TX, threads)`` of ``stencil`` at k on a
+    grid (or shard) of ``shape``: its TILES entry where the grid holds it
+    and its window fits shared memory, else ``core_of`` with THREADS."""
+    tile = TILES.get((stencil.name, dtype_name(stencil.dtype), int(k)))
+    if tile is None or any(int(n) < t for n, t in zip(shape, tile[:3])) \
+            or smem_bytes(tile[:3], k_step_margin(stencil, k),
+                          buffers(stencil), stencil.dtype.itemsize) \
+            > SMEM_LIMIT:
+        return core_of(stencil) + (THREADS,)
+    return tuple(tile)
+
+
+def launch_paths(operands) -> int:
+    """The fast paths a launch on ``operands`` may take: PATHS, without the
+    16-byte row copies where an operand's address is off 16 bytes."""
+    if any(t.data_ptr() % 16 for t in operands):
+        return PATHS & ~VEC_LOAD
+    return PATHS
+
+
+def _tail(stencil: Stencil, k: int, shape: Sequence[int], operands):
+    """The exports' trailing arguments: coefficients, the launch tile and
+    the fast paths, then the stream."""
+    return (*coefficients(stencil), *tile_of(stencil, k, shape),
+            launch_paths(operands), _build.stream_of(operands[0]))
 
 
 def smem_bytes(core: Tuple[int, int, int], margin: int, nbuf: int = 2,
@@ -155,7 +221,7 @@ def margin_of(stencil: Stencil, k: int) -> Optional[int]:
 def _lib():
     lib = _build.load("fused")
     if lib.fused_step_f32.argtypes is None:
-        tail = [_c_float] * 5 + [_c_int] * 3 + [_c_ptr]
+        tail = [_c_float] * 5 + [_c_int] * 5 + [_c_ptr]
         for sfx in _build.SUFFIXES.values():
             getattr(lib, f"fused_step_{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + tail)
@@ -198,8 +264,7 @@ def fused_step(fields: Fields, stencil: Stencil, k: int,
     Z, Y, X = fields[0].shape
     rc = _build.entry(lib, "fused_step", fields[0])(
         kind, *_pointers(fields, two), *_pointers(outs, two),
-        Z, Y, X, k, int(periodic), *coefficients(stencil), *core_of(stencil),
-        _build.stream_of(fields[0]))
+        Z, Y, X, k, int(periodic), *_tail(stencil, k, (Z, Y, X), fields))
     _build.check(lib, rc, "fused_step")
     launches[_build.launch_key("fused_step", stencil.name, fields[0])] += 1
     return outs
@@ -312,8 +377,8 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
     GZ, GY, GX = (int(g) for g in global_shape)
     rc = _build.entry(lib, "fused_step_padded", padded[0])(
         kind, *_pointers(padded, two), *_pointers(outs, two), Z, Y, X,
-        GZ, GY, GX, oz, oy, k, int(periodic), *coefficients(stencil),
-        *core_of(stencil), _build.stream_of(padded[0]))
+        GZ, GY, GX, oz, oy, k, int(periodic),
+        *_tail(stencil, k, (Z, Y, X), padded))
     _build.check(lib, rc, label)
     launches[_build.launch_key(label, stencil.name, padded[0])] += 1
     return outs
@@ -365,7 +430,7 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
         int(global_z), int(origin_z), k, int(periodic),
-        *coefficients(stencil), *core_of(stencil), _build.stream_of(core[0]))
+        *_tail(stencil, k, (Lz, Y, X), (*core, *zlo, *zhi)))
     _build.check(lib, rc, "fused_zslab")
     launches[_build.launch_key("fused_zslab", stencil.name, core[0])] += 1
     return outs
@@ -430,8 +495,9 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
         *(p for c in corners for p in _pointers(c, two)),
         *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
-        int(periodic), *coefficients(stencil), *core_of(stencil),
-        _build.stream_of(core[0]))
+        int(periodic), *_tail(stencil, k, (Lz, Ly, X),
+                              (*core, *zlo, *zhi, *ylo, *yhi,
+                               *(f for c in corners for f in c))))
     _build.check(lib, rc, "fused_yzslab")
     launches[_build.launch_key("fused_yzslab", stencil.name, core[0])] += 1
     return outs

@@ -3,33 +3,38 @@
 ``ring_exchange`` (``csrc/remote.cu::ring_exchange``) moves both ring
 directions of one mesh axis for one slab pair — every shard's ``hi`` slab to
 the next shard (its ``from_left``), every ``lo`` slab to the previous one
-(its ``from_right``) — chunk by chunk through an ``nslots``-deep receive
-ring with ready and credit counters, for every ring of shards that lives on
-one device, in one cooperative launch.  The ring is always full, as in the
-TPU package: the wall shards send and receive too, and the caller
-(``parallel/halo.py``) overwrites the walls' received slabs with the guard
-constant.
+(its ``from_right``) — chunk by chunk, each chunk written in place into the
+destination's output slab and counted on that chunk's ready counter, for
+every ring of shards that lives on one device, in one ordinary launch.  The
+ring is always full, as in the TPU package: the wall shards send and
+receive too, and the caller (``parallel/halo.py``) overwrites the walls'
+received slabs with the guard constant.
 
 Replaces the TPU package's ``ops/pallas/remote.py``:
 ``build_ring_exchange_call`` (``_ring_kernel``), with ``_NSLOTS``,
 ``_nc_ladder``, ``pick_chunks`` and ``ring_exchange_stats`` kept under their
 names and with their results: the chunk geometry is the kernel's public
-meta.  The TPU's loopback mode has no counterpart: the ring runs for real
-between the shards that share a card.  A ring across cards (peer writes
-over NVLink) is ROADMAP B7; the transport refuses it by name.  The kernel
-copies units and never reads them as numbers: 16 bytes where every run,
-stride and pointer aligns to them, else one element (4 bytes in float32, 2
-in bfloat16).  Bound on an H100: device-memory bytes, each slab read once
-and each received slab written once.
+meta.  The TPU kernel stages chunks through VMEM send and receive rings
+under credit semaphores; on one card a chunk's destination is device memory
+already, so the port lands it there and keeps only the ready counts as the
+protocol's record (``nslots`` still sets the chunk ladder and the meta).
+The TPU's loopback mode has no counterpart: the ring runs for real between
+the shards that share a card.  A ring across cards (peer writes over
+NVLink, system-scope flags) is ROADMAP B7; the transport refuses it by
+name.  The kernel copies units and never reads them as numbers: 16 bytes
+where every run, stride and pointer aligns to them, else one element (4
+bytes in float32, 2 in bfloat16).  Bound on an H100: device-memory bytes,
+each slab read once and each received slab written once.
 
-Plain PyTorch version: :func:`plain_ring_exchange`, the same protocol (chunk
-loop, slots, counters) walked in order, its drained invariant asserted.  A
-wrapper takes it only for tensors on the CPU.
+Plain PyTorch version: :func:`plain_ring_exchange`, the same protocol
+(per chunk: land it, count it) walked in order, its drained invariant
+asserted.  A wrapper takes it only for tensors on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from collections import Counter
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -43,8 +48,8 @@ from .fused import _sublane
 # launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
-# Ring slots per direction: 2 lets chunk i+1's send overlap chunk i's drain
-# (capacity-2 credit flow control), the TPU package's default.
+# The TPU ring's slots per direction (its default, 2): the port stages
+# nothing, but the depth sets the chunk ladder (_nc_ladder) and the meta.
 _NSLOTS = 2
 # Shards one launch takes (the kernel's parameter block).
 MAX_SHARDS = 32
@@ -127,42 +132,53 @@ def _geometry(meta) -> Tuple[int, int, int, int]:
 
 
 def drained_counts(meta, blocks: int) -> List[int]:
-    """What every ready and credit counter of slot q holds after a launch
-    whose (direction, shard) pairs ran ``blocks`` blocks each: ``blocks``
-    times the uses of the slot."""
-    nc, nslots = meta["nchunks"], meta["nslots"]
-    return [blocks * ((nc - q + nslots - 1) // nslots) for q in range(nslots)]
+    """What the ready counter of every chunk of one (shard, direction)
+    holds after a launch whose blocks wrote ``blocks`` shares of each
+    chunk (1 for the plain version): one count per block that landed a
+    share."""
+    return [int(blocks)] * meta["nchunks"]
 
 
 class RingState:
-    """The receive rings and counters of one exchange site on one device:
-    ``recv`` (S, 2, nslots, chunk elements), ``counters`` (S, 2, 2, nslots)
-    int32 — shard, ready/credit, direction, slot — and ``blocks``, the
-    blocks of each (direction, shard) pair in the last launch (1 for the
-    plain version)."""
+    """The counters of one exchange site on one device: ``counters`` (S, 2,
+    nchunks) int32 — shard, direction, chunk — the ready counts of the
+    chunks that landed in each shard's received slabs, and ``blocks``, the
+    blocks that wrote each chunk in the last launch (1 for the plain
+    version).  It also keeps what every launch of the site reuses: the
+    chunk geometry and each ring order's checked C arrays."""
 
-    def __init__(self, meta, n_shards: int, device, dtype):
-        runs, run_len, _, _ = _geometry(meta)
-        self.recv = torch.empty(
-            (n_shards, 2, meta["nslots"], runs * run_len), dtype=dtype,
-            device=device)
-        self.counters = torch.zeros((n_shards, 2, 2, meta["nslots"]),
+    def __init__(self, meta, n_shards: int, device):
+        self.counters = torch.zeros((n_shards, 2, meta["nchunks"]),
                                     dtype=torch.int32, device=device)
         self.blocks = 1
-        self._grid = {}  # unit bytes -> blocks of a launch
+        self.geometry = _geometry(meta)
+        self._rings = {}  # (nxt, prv) -> their C arrays
+        self._blocks = {}  # unit bytes -> blocks a chunk
 
     def check_drained(self, meta) -> None:
-        """Raise unless every counter equals ``blocks`` times its slot's
-        uses (reads the counters: a synchronizing copy on a card)."""
+        """Raise unless every chunk's ready counter equals the blocks that
+        wrote into it (reads the counters: a synchronizing copy on a
+        card)."""
         want = drained_counts(meta, self.blocks)
-        got = self.counters.cpu().tolist()
-        for s, per in enumerate(got):
-            for which, name in ((0, "ready"), (1, "credit")):
-                for d in (0, 1):
-                    if per[which][d] != want:
-                        raise AssertionError(
-                            f"ring_exchange: shard {s} direction {d} {name} "
-                            f"counters {per[which][d]}, drained is {want}")
+        for s, per in enumerate(self.counters.cpu().tolist()):
+            for d in (0, 1):
+                if per[d] != want:
+                    raise AssertionError(
+                        f"ring_exchange: shard {s} direction {d} ready "
+                        f"counters {per[d]}, drained is {want}")
+
+    def ring(self, nxt: Sequence[int], prv: Sequence[int]):
+        """The C arrays of a ring order, checked once: ``nxt`` and ``prv``
+        must be inverse permutations of the shards."""
+        key = (tuple(nxt), tuple(prv))
+        if key not in self._rings:
+            S = len(nxt)
+            if sorted(nxt) != list(range(S)) or len(prv) != S or \
+                    any(prv[nxt[i]] != i for i in range(S)):
+                raise ValueError("ring_exchange: nxt and prv must be "
+                                 "inverse permutations of the shards")
+            self._rings[key] = ((_c_int * S)(*nxt), (_c_int * S)(*prv))
+        return self._rings[key]
 
 
 def _chunk(t: torch.Tensor, axis: int, c: int, csize: int) -> torch.Tensor:
@@ -173,37 +189,29 @@ def plain_ring_exchange(hi: Sequence[torch.Tensor],
                         lo: Sequence[torch.Tensor], nxt: Sequence[int],
                         prv: Sequence[int], meta, state: RingState):
     """The plain version of :func:`ring_exchange`: the protocol walked in
-    order, one block per (direction, shard) — per chunk every send (credit
-    check, copy into the neighbour's slot, ready signal), then every drain
-    (ready check, copy out, credit) — and the drained invariant asserted.
+    order, one writer per chunk — per chunk and (shard, direction), the
+    chunk copied into the destination's output slab at its own offset,
+    then its ready counter counted — and the drained invariant asserted.
     Returns ``(from_left, from_right)``: ``from_left[i] == hi[prv[i]]``,
     ``from_right[i] == lo[nxt[i]]``."""
     S = len(hi)
-    axis, nc, nslots = meta["chunk_axis"], meta["nchunks"], meta["nslots"]
+    axis, nc = meta["chunk_axis"], meta["nchunks"]
     csize = meta["shape"][axis] // nc
-    G = state.blocks = 1
-    # [shard][0 ready / 1 credit][direction][slot]
-    cnt = [[[[0] * nslots for _ in (0, 1)] for _ in (0, 1)]
-           for _ in range(S)]
+    state.blocks = 1
+    # [shard][direction][chunk]
+    ready = [[[0] * nc for _ in (0, 1)] for _ in range(S)]
     srcs, dests = (hi, lo), (nxt, prv)
     outs = ([torch.empty_like(h) for h in hi],
             [torch.empty_like(x) for x in lo])
     for c in range(nc):
-        q, u = c % nslots, c // nslots
         for s in range(S):
             for d in (0, 1):
                 to = dests[d][s]
-                assert cnt[to][1][d][q] >= G * u, "send before credit"
-                state.recv[to, d, q].copy_(
-                    _chunk(srcs[d][s], axis, c, csize).reshape(-1))
-                cnt[to][0][d][q] += G
-        for s in range(S):
-            for d in (0, 1):
-                assert cnt[s][0][d][q] >= G * (u + 1), "drain before ready"
-                dst = _chunk(outs[d][s], axis, c, csize)
-                dst.copy_(state.recv[s, d, q].view(dst.shape))
-                cnt[s][1][d][q] += G
-    state.counters.copy_(torch.tensor(cnt, dtype=torch.int32))
+                assert ready[to][d][c] == 0, "a chunk landed twice"
+                _chunk(outs[d][to], axis, c, csize).copy_(
+                    _chunk(srcs[d][s], axis, c, csize))
+                ready[to][d][c] += 1
+    state.counters.copy_(torch.tensor(ready, dtype=torch.int32))
     state.check_drained(meta)
     return outs
 
@@ -211,17 +219,13 @@ def plain_ring_exchange(hi: Sequence[torch.Tensor],
 def _lib():
     lib = _build.load("remote")
     if lib.ring_exchange_launch.argtypes is None:
-        pp = ctypes.POINTER(_c_ptr)
+        ip = ctypes.POINTER(_c_int)
         lib.ring_exchange_launch.argtypes = (
-            [_c_int] + [pp] * 7 + [ctypes.POINTER(_c_int)] * 2
-            + [_c_int] * 2 + [_c_long] * 4 + [_c_int] * 2 + [_c_ptr])
-        lib.ring_exchange_blocks.argtypes = [
-            _c_int, _c_long, _c_int, ctypes.POINTER(_c_int)]
+            [_c_int, ctypes.POINTER(_c_ptr), _c_ptr, _c_long, _c_ptr, ip, ip,
+             _c_int] + [_c_long] * 4 + [_c_int, _c_ptr])
+        lib.ring_exchange_blocks.argtypes = [_c_long, _c_long]
+        lib.ring_exchange_blocks.restype = _c_long
     return lib
-
-
-def _ptrs(values) -> ctypes.Array:
-    return (_c_ptr * len(values))(*values)
 
 
 def ring_exchange(hi: Sequence[torch.Tensor], lo: Sequence[torch.Tensor],
@@ -243,51 +247,36 @@ def ring_exchange(hi: Sequence[torch.Tensor], lo: Sequence[torch.Tensor],
     if not 1 <= S <= MAX_SHARDS or len(lo) != S:
         raise ValueError(f"ring_exchange: 1 to {MAX_SHARDS} shards a launch, "
                          f"got {S} hi and {len(lo)} lo slabs")
-    if sorted(nxt) != list(range(S)) or \
-            any(prv[nxt[i]] != i for i in range(S)):
-        raise ValueError("ring_exchange: nxt and prv must be inverse "
-                         "permutations of the shards")
-    out = torch.empty((2, S) + shape, dtype=hi[0].dtype, device=hi[0].device)
-    runs, run_len, run_stride, chunk_stride = _geometry(meta)
-    slabs = [t.data_ptr() for t in (*hi, *lo)] + [out.data_ptr(),
-                                                  state.recv.data_ptr()]
+    c_nxt, c_prv = state.ring(nxt, prv)
+    # one allocation for every received slab: from_left, then from_right
+    out = torch.empty((2 * S,) + shape, dtype=hi[0].dtype,
+                      device=hi[0].device)
+    ptrs = [t.data_ptr() for t in hi] + [t.data_ptr() for t in lo]
+    runs, run_len, run_stride, chunk_stride = state.geometry
     esize = out.element_size()
     # 16-byte units where every run, stride and pointer aligns to them,
     # else one element each
     per16 = 16 // esize
-    aligned = (all(v % per16 == 0 for v in (run_len, run_stride,
-                                            chunk_stride))
-               and all(p % 16 == 0 for p in slabs))
+    aligned = (run_len % per16 == 0 and run_stride % per16 == 0
+               and chunk_stride % per16 == 0 and out.data_ptr() % 16 == 0
+               and all(p % 16 == 0 for p in ptrs))
     unit_bytes = 16 if aligned else esize
     unit = unit_bytes // esize  # elements per unit
     lib = _lib()
-    if unit_bytes not in state._grid:
-        g = _c_int(0)
-        _build.check(lib, lib.ring_exchange_blocks(
-            S, runs * run_len // unit, unit_bytes, ctypes.byref(g)),
-            "ring_exchange_blocks")
-        state._grid[unit_bytes] = g.value
-    state.blocks = G = state._grid[unit_bytes]
-    ring = meta["nslots"] * runs * run_len * 2 * esize  # one shard's rings
-    slab = out[0, 0].numel() * esize
-    cbase, cstep = state.counters.data_ptr(), 4 * meta["nslots"] * 4
-    state.counters.zero_()
+    if unit_bytes not in state._blocks:
+        state._blocks[unit_bytes] = lib.ring_exchange_blocks(
+            runs, run_len // unit)
+    state.blocks = state._blocks[unit_bytes]
     rc = lib.ring_exchange_launch(
-        S, _ptrs([t.data_ptr() for t in hi]),
-        _ptrs([t.data_ptr() for t in lo]),
-        _ptrs([out.data_ptr() + i * slab for i in range(S)]),
-        _ptrs([out.data_ptr() + (S + i) * slab for i in range(S)]),
-        _ptrs([state.recv.data_ptr() + i * ring for i in range(S)]),
-        _ptrs([cbase + i * cstep for i in range(S)]),
-        _ptrs([cbase + i * cstep + 2 * meta["nslots"] * 4
-               for i in range(S)]),
-        (_c_int * S)(*nxt), (_c_int * S)(*prv), meta["nchunks"],
-        meta["nslots"], runs, run_len // unit, run_stride // unit,
-        chunk_stride // unit, unit_bytes, G, _build.stream_of(hi[0]))
+        S, (_c_ptr * (2 * S))(*ptrs), out.data_ptr(),
+        math.prod(shape) * esize, state.counters.data_ptr(), c_nxt, c_prv,
+        meta["nchunks"], runs, run_len // unit, run_stride // unit,
+        chunk_stride // unit, unit_bytes, _build.stream_of(hi[0]))
     _build.check(lib, rc, "ring_exchange")
     launches[_build.launch_key("ring_exchange", "x".join(map(str, shape)),
                                hi[0])] += 1
-    return list(out[0]), list(out[1])
+    slabs = out.unbind(0)
+    return list(slabs[:S]), list(slabs[S:])
 
 
 def build_ring_exchange_call(
@@ -303,15 +292,16 @@ def build_ring_exchange_call(
     meta)``.
 
     ``call(hi, lo, nxt, prv) -> (from_left, from_right)`` runs
-    :func:`ring_exchange` on S shards' slabs (one device), with receive
-    rings and counters kept per (device, S) and reused by every call;
+    :func:`ring_exchange` on S shards' slabs (one device), with the ready
+    counters kept per (device, S) and reused by every call;
     ``call.state`` is the last call's :class:`RingState`.  ``meta`` holds
     the TPU package's keys (shape, dtype, chunk_axis, nchunks, nslots,
     slab_bytes, chunk_bytes, remote_dma_per_call, ici_bytes_per_call).
-    ``nslots`` (ring depth, default 2) and ``prefer_nc`` (a preferred
-    chunk count, still gated by :func:`pick_chunks`) are the TPU package's
-    variant knobs; ``chunks`` forces ``(axis, nchunks)``.  With a CUDA
-    ``device`` the kernel is built here, before the time loop.
+    ``nslots`` (the TPU ring's depth, default 2: it sets the chunk ladder
+    and the meta) and ``prefer_nc`` (a preferred chunk count, still gated
+    by :func:`pick_chunks`) are the TPU package's variant knobs;
+    ``chunks`` forces ``(axis, nchunks)``.  With a CUDA ``device`` the
+    kernel is built here, before the time loop.
     """
     shape = tuple(int(s) for s in shape)
     if len(shape) != 3:
@@ -332,8 +322,7 @@ def build_ring_exchange_call(
     def call(hi, lo, nxt, prv):
         key = (hi[0].device, len(hi))
         if key not in states:
-            states[key] = RingState(meta, len(hi), hi[0].device,
-                                    hi[0].dtype)
+            states[key] = RingState(meta, len(hi), hi[0].device)
         call.state = states[key]
         return ring_exchange(hi, lo, nxt, prv, meta, call.state)
 

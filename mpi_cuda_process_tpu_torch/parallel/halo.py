@@ -120,11 +120,13 @@ class RdmaTransport:
 
     The counterpart of the TPU package's ``RdmaTransport``: every shift of
     a slab pair along a mesh axis is one ``ops/cuda/remote.py`` launch per
-    device, covering every ring of that axis on the device.  Each exchange
-    site (axis, slab shape, dtype, device, shard count) keeps its receive
-    rings and counters; ``sites`` holds the meta of every site built, in
-    build order.  ``nslots`` (ring depth) and ``prefer_nc`` (a preferred
-    chunk count) are the kernel's variant knobs; 0 takes its defaults.
+    device, covering every ring of that axis on the device: each chunk
+    lands in place in the neighbour's received slab.  Each exchange site
+    (axis, slab shape, dtype, device, shard count) keeps its ready
+    counters; ``sites`` holds the meta of every site built, in build
+    order.  ``nslots`` (the TPU ring's depth, which sets the chunk ladder)
+    and ``prefer_nc`` (a preferred chunk count) are the kernel's variant
+    knobs; 0 takes its defaults.
 
     ``backend`` says what carries the exchange: ``"cuda-ring"`` when the
     mesh lives on cards (the kernel runs), ``"plain-ring"`` on the CPU (its

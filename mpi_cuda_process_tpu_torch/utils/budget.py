@@ -18,8 +18,8 @@ the port and says so in its labels:
   the unsharded 2D k-step kernel (the port's K3 and K8 read the raw grid);
   the VMEM strip probes that label a shape ``UNBUILDABLE`` (replaced by the
   port's own gates: ``streamfused.fits``, ``fused.margin_of`` and the
-  builders' shape rules); and ``ring_vmem_bytes`` (the port's receive rings
-  live in device memory and are counted here);
+  builders' shape rules); and ``ring_vmem_bytes`` (the TPU ring's VMEM
+  staging: the port's ring lands every chunk in place and stages nothing);
 * added, port-only terms: the k-step kernels write every field anew (wave's
   new ``u_prev`` is level k-1's u; the TPU model counts one output field),
   Gray-Scott's steps write both fields, the one-step path (plain or a
@@ -29,9 +29,9 @@ the port and says so in its labels:
   padded blocks, all alive at once: heat3d 1024^3 ``--mesh 2,2 --compute
   pallas`` peaked at 9.02 GiB in bfloat16 on an H100, 6.62 GiB without
   these terms, 9.93 GiB with them), the ring exchange keeps its
-  received slabs and receive rings in device memory (the TPU kernel stages
-  them in VMEM), and several shards that share one card (virtual devices)
-  are counted together.
+  received slabs in device memory (the TPU package deletes them from its
+  model: its kernel stages chunks in VMEM), and several shards that share
+  one card (virtual devices) are counted together.
 
 Not ported: ``estimate_coupled_bytes`` and ``check_coupled_budget`` (device
 groups, ROADMAP A7); ``ensemble`` (A7) and ``pipeline`` (A5) raise by name.
@@ -122,7 +122,7 @@ def estimate_run_bytes(
     and ``fuse`` on the unsharded kernels (no pad transient), the padded,
     pad-free and streaming sharded kinds (exchange-padded blocks or slab
     operands), ``overlap`` (twice the exchanged operands), ``exchange=
-    "rdma"`` (the ring's received slabs and receive rings).  Every term is
+    "rdma"`` (the ring's received slabs, the slab term).  Every term is
     one shard's; ``shards_per_device`` shards on one card (virtual devices)
     multiply them.  A shape the run would refuse is labelled
     ``UNBUILDABLE`` at 0 bytes, as in the TPU package.
@@ -189,22 +189,6 @@ def estimate_run_bytes(
                 parts.append((f"{name}: {what}"
                               f"{', x2 overlap split' if overlap else ''})",
                               slab_b))
-                if stream and exchange == "rdma":
-                    # received slabs are the slab term above; the receive
-                    # rings: nslots chunks a direction at every site
-                    from ..ops.cuda.remote import _NSLOTS, pick_chunks
-
-                    sites = ([(m, ly, lx)] if z_only else
-                             [(m, ly, lx), (lz, m, lx), (m, m, lx),
-                              (m, m, lx)])
-                    ring_b = 0
-                    for s in sites:
-                        _, nc = pick_chunks(s, itemsize)
-                        ring_b += 2 * _NSLOTS * (math.prod(s) // nc) \
-                            * itemsize
-                    parts.append(("rdma receive rings (port: in device "
-                                  "memory, the TPU kernel's are in VMEM)",
-                                  ring_b))
         elif sharded:
             n_padded = 2 * nfields if overlap else nfields
             padded_b = (lz + 2 * m) * (ly + 2 * m) * lx * itemsize

@@ -78,7 +78,8 @@ def main() -> int:
         def launch(core):
             rc = lib.fused_step_f32(kind, u.data_ptr(), None, out.data_ptr(),
                                     None, *grid, k, 0, *coefficients(st),
-                                    *core, _build.stream_of(u))
+                                    *core, fused.THREADS, fused.PATHS,
+                                    _build.stream_of(u))
             _build.check(lib, rc, "fused_step")
 
         for core in CANDIDATES:

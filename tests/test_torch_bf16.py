@@ -365,9 +365,9 @@ BUDGET_CASES = _config5_cases() + [
           periodic=True),
     _case("heat3d", BF16, (4096,) * 3, (64, 1, 1), 4, "stream",
           exchange="rdma", dropped=("rdma_vmem", 0),
-          # the received z slabs and the rings: 2 directions x 2 slots of
-          # a quarter slab (pick_chunks: four y chunks)
-          added=2 * 4 * 4096 * 4096 * 2 + 2 * 2 * 4 * 4096 * 4096 * 2 // 4),
+          # the received z slabs (the ring lands chunks in place: no
+          # receive rings)
+          added=2 * 4 * 4096 * 4096 * 2),
     _case("heat2d", "float32", (4096, 4096), (), 8,
           dropped=("fullgrid_pad", (4096 + 16) * 4096 * 4)),
     _case("grayscott3d", "float32", (512,) * 3, compute="raw",
@@ -418,6 +418,28 @@ def test_budget_totals_match_jax(case):
     # the same verdict on what builds
     assert any("UNBUILDABLE" in lb for lb, _ in jp) == \
         any("UNBUILDABLE" in lb for lb, _ in tp)
+
+
+@pytest.mark.parametrize("dt", [BF16, "float32"])
+@pytest.mark.parametrize("grid,mesh", [((256, 4096, 4096), (4, 1, 1)),
+                                       ((1024,) * 3, (2, 2, 1))])
+def test_budget_rdma_prices_received_slabs_not_rings(dt, grid, mesh):
+    """--exchange rdma costs what ppermute costs: the received slabs (the
+    slab term, z slabs, y slabs and corners at width m) and no receive
+    ring, since the ring lands every chunk in place."""
+    st = port.make_stencil("heat3d", dtype=dt)
+    kw = dict(mesh=mesh, fuse=4, fuse_kind="stream", shards_per_device=4)
+    rt, rp = tbudget.estimate_run_bytes(st, grid, exchange="rdma", **kw)
+    pt, pp = tbudget.estimate_run_bytes(st, grid, exchange="ppermute", **kw)
+    assert rt == pt and rp == pp
+    assert not any("ring" in label for label, _ in rp)
+    local = [g // c for g, c in zip(grid, mesh)]
+    lz, ly, lx = local
+    m = 4
+    slab = 2 * m * ly * lx if mesh[1] == 1 else \
+        2 * m * ly * lx + 2 * m * lz * lx + 4 * m * m * lx
+    slab_terms = [b for label, b in rp if label.startswith("sharded stream")]
+    assert slab_terms == [slab * _item(dt)]
 
 
 def test_budget_drops_the_tpu_only_functions_and_refuses_unported():

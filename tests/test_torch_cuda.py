@@ -967,7 +967,7 @@ def test_ring_exchange_kernel_matches_plain(dev, mesh_shape, shape, nslots,
             device=dev)
         assert (meta["chunk_axis"], meta["nchunks"]) == remote.pick_chunks(
             shape, 4, nslots, prefer_nc)
-        plain_state = remote.RingState(meta, 4, "cpu", torch.float32)
+        plain_state = remote.RingState(meta, 4, "cpu")
         ref = remote.plain_ring_exchange([h.cpu() for h in hi],
                                          [x.cpu() for x in lo], nxt, prv,
                                          meta, plain_state)
@@ -1144,7 +1144,7 @@ def test_bf16_ring_exchange_matches_plain(dev, shape, mesh_shape):
             shape, 2)
         ref = remote.plain_ring_exchange(
             [h.cpu() for h in hi], [x.cpu() for x in lo], nxt, prv, meta,
-            remote.RingState(meta, 4, "cpu", BF16))
+            remote.RingState(meta, 4, "cpu"))
         for _ in range(3):
             remote.launches.clear()
             got = call(hi, lo, nxt, prv)
@@ -1411,3 +1411,151 @@ def test_bf16_2d_and_compute_fn_wrappers_refuse_other_types(dev):
     with pytest.raises(TypeError, match="operands of one type"):
         kernels.zchunk_wave(torch.rand(10, 10, 34, device=dev), u.to(BF16),
                             port.make_stencil("wave3d"))
+
+
+# ---- the redesigned ring exchange and fused_step: every site and path ------
+
+# The ring's sites on the main path: heat3d 1024^3 on 2x2 (z slab, y slab,
+# corner), on --mesh 4 (z slab), and config 5's z slab (bfloat16 only).
+RING_SITES = [((2, 2), 0, (4, 512, 1024)), ((2, 2), 1, (512, 4, 1024)),
+              ((2, 2), 1, (4, 4, 1024)), ((4,), 0, (4, 1024, 1024))]
+
+
+@pytest.mark.parametrize(
+    "mesh_shape,axis,shape,dtype",
+    [s + (dt,) for s in RING_SITES for dt in (torch.float32, BF16)]
+    + [((4,), 0, (4, 4096, 4096), BF16)])
+def test_ring_exchange_sites_match_copy_and_plain(dev, mesh_shape, axis,
+                                                  shape, dtype):
+    """The ring at the main path's sites == one copy_ per slab and its
+    plain version, bit for bit, three launches, every chunk's ready counter
+    drained (the blocks that wrote it) after each."""
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    nxt, prv = _ring(mesh, axis)
+    hi = [_pieces(shape, dev, 1300 + i).to(dtype) for i in range(4)]
+    lo = [_pieces(shape, dev, 1350 + i).to(dtype) for i in range(4)]
+    call, meta = remote.build_ring_exchange_call(shape, dtype, device=dev)
+    copies = ([torch.empty_like(h) for h in hi],
+              [torch.empty_like(x) for x in lo])
+    for i in range(4):
+        copies[0][i].copy_(hi[prv[i]])
+        copies[1][i].copy_(lo[nxt[i]])
+    plain = remote.plain_ring_exchange(hi, lo, nxt, prv, meta,
+                                       remote.RingState(meta, 4, dev))
+    for _ in range(3):
+        got = call(hi, lo, nxt, prv)
+        torch.cuda.synchronize()
+        call.state.check_drained(meta)
+        assert call.state.blocks >= 1
+        for d in (0, 1):
+            for i in range(4):
+                assert torch.equal(got[d][i], copies[d][i])
+                assert torch.equal(got[d][i], plain[d][i])
+
+
+# (name, float32 k, bfloat16 k) of every fused family
+FUSED_KS = [("heat3d", 4, 8), ("heat3d27", 4, 8), ("heat3d4th", 2, 4),
+            ("wave3d", 4, 8), ("sor3d", 2, 4), ("advect3d", 4, 8),
+            ("grayscott3d", 4, 8)]
+# (48, 48, 128): interior blocks (16-byte row copies, no frame test) beside
+# wall and x-edge ones; (46, 50, 136): ragged z, y and x extents on aligned
+# rows; (40, 36, 130): rows off the 16-byte unit (the per-cell load
+# everywhere)
+PATH_SHAPES = [(48, 48, 128), (46, 50, 136), (40, 36, 130)]
+# launch tiles beside the table's: deeper, wider (512 threads), and one
+# whose columns outnumber the threads unevenly
+ALT_TILES = [(16, 8, 32, 256), (8, 16, 32, 512), (8, 8, 64, 128)]
+
+
+def _fused_stencil(name, dtype):
+    kw = {"cx": -0.3, "cy": 0.2, "cz": 0.25} if name == "advect3d" else {}
+    return port.make_stencil(name, dtype=dtype, **kw)
+
+
+def _all_paths(fn, monkeypatch, st, k):
+    """fn() under the table's tile, every fast path off, and each of
+    ALT_TILES."""
+    outs = [fn()]
+    with monkeypatch.context() as mp:
+        mp.setattr(fused, "PATHS", 0)
+        outs.append(fn())
+    for tile in ALT_TILES:
+        with monkeypatch.context() as mp:
+            mp.setitem(fused.TILES, (st.name, str(st.dtype).replace(
+                "torch.", ""), k), tile)
+            outs.append(fn())
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+@pytest.mark.parametrize("name,k32,k16", FUSED_KS)
+def test_fused_step_block_paths_match_plain(dev, monkeypatch, name, k32,
+                                            k16, shape, periodic, dtype):
+    """K3 (RAW) == k plain steps, bit for bit, for every family in float32
+    and bfloat16: interior blocks on the fast paths, walls, periodic wraps,
+    x edges and ragged extents on the per-cell path, under the table's
+    tile, with the fast paths off and under other tiles."""
+    st = _fused_stencil(name, dtype)
+    k = k32 if dtype == torch.float32 else k16
+    if not fused.parity_consistent(st, shape, periodic):
+        assert fused.make_fused_step(st, shape, k, periodic=periodic) is None
+        return
+    fields = tuple(f.to(dtype) for f in _fields(st, shape, dev, 1401))
+    ref = fused.plain_steps(fields, st, k, periodic)
+    for got in _all_paths(
+            lambda: fused.fused_step(fields, st, k, periodic=periodic),
+            monkeypatch, st, k):
+        torch.cuda.synchronize()
+        _check(got, ref, None if periodic else st.halo, 0.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("origins", [(0, 0), (48, 48), (96, 48)])
+@pytest.mark.parametrize("name,k32,k16", FUSED_KS)
+def test_fused_sharded_block_paths_match_plain(dev, monkeypatch, name, k32,
+                                               k16, origins, periodic,
+                                               dtype):
+    """K3's sharded mode (PADDED), a shell (a 2m-deep core), K6 (ZSLAB)
+    and K9 (YZSLAB) on a (48, 48, 128) shard of a (144, 144, 128) grid at
+    a wall corner, in the middle (z and y seams on every side) and on a
+    z wall, guard-frame and periodic, == their plain versions bit for bit,
+    in float32 and bfloat16, on every path and tile."""
+    st = _fused_stencil(name, dtype)
+    k = k32 if dtype == torch.float32 else k16
+    m = fused.k_step_margin(st, k)
+    Lz, Ly, X = 48, 48, 128
+    gshape = (3 * Lz, 3 * Ly, X)
+    oz, oy = origins
+    seed = iter(range(1500, 1700))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed)).to(dtype)
+                     for _ in range(st.num_fields))
+
+    padded = per_field((Lz + 2 * m, Ly + 2 * m, X))
+    strip = per_field((4 * m, Ly + 2 * m, X))
+    core = per_field((Lz, Ly, X))
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    yz = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, origins)
+    cases = [
+        (lambda: fused.fused_step_padded(padded, st, k, gshape, origins,
+                                         periodic),
+         fused.plain_step_padded(padded, st, k, gshape, origins, periodic)),
+        (lambda: fused.fused_step_padded(strip, st, k, gshape,
+                                         (oz + Lz - 2 * m, oy), periodic),
+         fused.plain_step_padded(strip, st, k, gshape,
+                                 (oz + Lz - 2 * m, oy), periodic)),
+        (lambda: fused.fused_zslab(core, zlo, zhi, st, k, gshape[0], oz,
+                                   periodic),
+         fused.plain_zslab(core, zlo, zhi, st, k, gshape[0], oz, periodic)),
+        (lambda: fused.fused_yzslab(*yz, periodic=periodic),
+         fused.plain_yzslab(*yz, periodic=periodic))]
+    for fn, ref in cases:
+        for got in _all_paths(fn, monkeypatch, st, k):
+            torch.cuda.synchronize()
+            _check(got, ref, None, 0.0)

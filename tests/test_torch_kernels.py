@@ -153,6 +153,60 @@ def test_fused_windows_fit_shared_memory():
                                       device="cpu") is None
 
 
+@pytest.mark.parametrize("key", sorted(tfused.TILES) or [None])
+def test_fused_tiles_fit_and_stay_within_the_accepted_set(key):
+    """Every launch tile of the table is for a (stencil, dtype, k) the
+    kernels accept, fits one block's shared memory, keeps 16-byte rows
+    (TX a multiple of 16 bytes) and takes whole warps, at most 1024
+    threads; tile_of gives it on a grid that holds it."""
+    if key is None:
+        pytest.skip("the tile table is empty")
+    name, dtype, k = key
+    st = port.make_stencil(name, dtype=dtype)
+    tz, ty, tx, threads = tfused.TILES[key]
+    m = tfused.margin_of(st, k)
+    assert m is not None
+    assert tfused.smem_bytes((tz, ty, tx), m, tfused.buffers(st),
+                             st.dtype.itemsize) <= tfused.SMEM_LIMIT
+    assert (tx * st.dtype.itemsize) % 16 == 0
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert tfused.tile_of(st, k, (512, 512, 512)) == (tz, ty, tx, threads)
+
+
+@pytest.mark.parametrize("name,dtype,k", [("heat3d", "float32", 4),
+                                          ("wave3d", "bfloat16", 8),
+                                          ("sor3d", "float32", 4),
+                                          ("grayscott3d", "float32", 4)])
+def test_fused_tile_falls_back_to_the_core(monkeypatch, name, dtype, k):
+    """A grid smaller than the table's tile, a tile whose window overflows
+    shared memory and a pair the table lacks all launch at core_of with
+    THREADS."""
+    st = port.make_stencil(name, dtype=dtype)
+    default = tfused.core_of(st) + (tfused.THREADS,)
+    key = (name, dtype, k)
+    monkeypatch.setitem(tfused.TILES, key, (16, 16, 32, 512))
+    fits = tfused.smem_bytes((16, 16, 32), tfused.margin_of(st, k),
+                             tfused.buffers(st), st.dtype.itemsize) \
+        <= tfused.SMEM_LIMIT
+    assert tfused.tile_of(st, k, (512, 512, 512)) == (
+        (16, 16, 32, 512) if fits else default)
+    assert tfused.tile_of(st, k, (8, 512, 512)) == default  # a shell
+    monkeypatch.setitem(tfused.TILES, key, (64, 64, 64, 512))
+    assert tfused.tile_of(st, k, (512, 512, 512)) == default
+    monkeypatch.delitem(tfused.TILES, key)
+    assert tfused.tile_of(st, k, (512, 512, 512)) == default
+
+
+def test_fused_launch_paths_drop_16_byte_copies_off_alignment():
+    """The 16-byte row copies need every operand's address on 16 bytes:
+    a view one element in drops them and keeps the other fast paths."""
+    t = torch.zeros(64)
+    assert tfused.launch_paths((t,)) == tfused.PATHS
+    off = tfused.launch_paths((t, t[1:]))
+    assert off == tfused.PATHS & ~tfused.VEC_LOAD
+    assert off & tfused.FRAME_FREE and off & tfused.ROW_LOAD
+
+
 def test_coefficients_come_from_the_op_layer():
     from mpi_cuda_process_tpu_torch.ops import heat
 

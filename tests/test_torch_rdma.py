@@ -6,8 +6,9 @@ them (tests/test_rdma_exchange.py, tests/test_streamfused.py): with
 ``interpret=True`` (its rdma path is then the loopback ring plus an
 ``all_gather`` shift), its sharded steps on the 8 virtual CPU devices of
 tests/conftest.py.  The port's wrappers take their plain versions for CPU
-tensors: ``plain_ring_exchange`` walks the ring protocol (chunks, slots,
-ready and credit counters) and asserts its drained invariant
+tensors: ``plain_ring_exchange`` walks the ring protocol (every chunk
+landed in place in its destination's slab, then counted on its ready
+counter) and asserts its drained invariant
 (tests/test_torch_cuda.py holds the kernels to them on the card).  Inputs
 are numpy arrays from a seed, handed to both packages.  Tolerance:
 ``atol = 1e-4, rtol = 0`` against JAX, frame cells exact (the kernels
@@ -141,8 +142,9 @@ RING_MESHES = [((4,), 0), ((1, 4), 1), ((2, 2), 0), ((2, 2), 1), ((2,), 0)]
 def test_plain_ring_equals_in_process_shift(mesh_shape, axis, shape, nslots,
                                             prefer_nc):
     """plain_ring_exchange == InProcessTransport.shift_pair on the full
-    (periodic) ring, bit for bit, on z, y and (2, 2) meshes; every ready
-    and credit counter ends at the uses of its slot."""
+    (periodic) ring, bit for bit, on z, y and (2, 2) meshes, for every
+    chunk ladder the ring depth gives; every chunk's ready counter ends at
+    one landing (the plain version's one writer)."""
     mesh = _mesh(mesh_shape)
     rng = np.random.default_rng(11)
     hi = [torch.from_numpy(rng.random(shape, dtype=np.float32))
@@ -153,11 +155,11 @@ def test_plain_ring_equals_in_process_shift(mesh_shape, axis, shape, nslots,
     call, meta = tremote.build_ring_exchange_call(
         shape, torch.float32, nslots=nslots, prefer_nc=prefer_nc)
     tremote.launches.clear()
-    for _ in range(3):  # the rings and counters are reused call to call
+    for _ in range(3):  # the counters are reused call to call
         fl, fr = call(hi, lo, nxt, prv)
         want = tremote.drained_counts(meta, 1)
-        assert call.state.counters.tolist() == \
-            [[[want, want], [want, want]]] * mesh.size
+        assert want == [1] * meta["nchunks"]
+        assert call.state.counters.tolist() == [[want, want]] * mesh.size
     assert not tremote.launches  # CPU tensors never launch
     rl, rr = thalo.InProcessTransport().shift_pair(hi, lo, mesh, axis, True)
     for a, b in zip(fl + fr, rl + rr):
@@ -165,15 +167,63 @@ def test_plain_ring_equals_in_process_shift(mesh_shape, axis, shape, nslots,
 
 
 def test_drained_invariant_is_checked():
-    """A counter off its drained value fails the check by name."""
+    """A chunk counted twice, or never, fails the check by name; a launch
+    of G blocks a chunk drains at G."""
     call, meta = tremote.build_ring_exchange_call((4, 16, 32),
                                                   torch.float32)
     slabs = [torch.rand(4, 16, 32) for _ in range(2)]
     call(slabs, slabs, [1, 0], [1, 0])
     call.state.check_drained(meta)
-    call.state.counters[1, 1, 0, 0] += 1
-    with pytest.raises(AssertionError, match="credit counters"):
+    call.state.counters[1, 1, 0] += 1
+    with pytest.raises(AssertionError, match="direction 1 ready counters"):
         call.state.check_drained(meta)
+    call.state.counters[1, 1, 0] -= 2
+    with pytest.raises(AssertionError, match="ready counters"):
+        call.state.check_drained(meta)
+    call.state.counters.fill_(3)
+    call.state.blocks = 3
+    call.state.check_drained(meta)
+    assert tremote.drained_counts(meta, 3) == [3] * meta["nchunks"]
+
+
+@pytest.mark.parametrize("shape,chunks", [((4, 64, 128), (1, 4)),
+                                          ((24, 4, 128), (0, 4)),
+                                          ((3, 5, 130), (0, 1)),
+                                          ((8, 32, 64), (1, 2))])
+def test_plain_ring_lands_each_chunk_in_place(shape, chunks):
+    """Every chunk lands at its own offset of the destination's slab: with
+    the sources cut into chunks of distinct values, each received chunk
+    holds exactly its sender's chunk, and a ring of two shards (each the
+    other's next and previous) swaps the slabs whole."""
+    call, meta = tremote.build_ring_exchange_call(shape, torch.float32,
+                                                  chunks=chunks)
+    axis, nc = chunks
+    assert (meta["chunk_axis"], meta["nchunks"]) == chunks
+    n = int(np.prod(shape))
+    hi = [torch.arange(n, dtype=torch.float32).reshape(shape) + 1e6 * s
+          for s in range(2)]
+    lo = [-h for h in hi]
+    fl, fr = call(hi, lo, [1, 0], [1, 0])
+    csize = shape[axis] // nc
+    for s in range(2):
+        for c in range(nc):
+            got = fl[s].narrow(axis, c * csize, csize)
+            assert torch.equal(got, hi[1 - s].narrow(axis, c * csize, csize))
+            got = fr[s].narrow(axis, c * csize, csize)
+            assert torch.equal(got, lo[1 - s].narrow(axis, c * csize, csize))
+    assert call.state.counters.tolist() == [[[1] * nc] * 2] * 2
+
+
+def test_ring_state_has_no_receive_ring():
+    """The in-place protocol keeps no receive ring and no credits: a site's
+    state is one ready counter per (shard, direction, chunk)."""
+    call, meta = tremote.build_ring_exchange_call((4, 96, 128),
+                                                  torch.float32, nslots=3)
+    slabs = [torch.rand(4, 96, 128) for _ in range(4)]
+    call(slabs, slabs, [1, 2, 3, 0], [3, 0, 1, 2])
+    assert tuple(call.state.counters.shape) == (4, 2, meta["nchunks"])
+    assert not hasattr(call.state, "recv")
+    assert meta["nslots"] == 3 and meta["nchunks"] == 6
 
 
 @pytest.mark.parametrize("periodic", [False, True])

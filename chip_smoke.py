@@ -85,7 +85,12 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
      exactly equal; atol = 0 compares the bits, so a cell that overflows
      alike in both (bfloat16 Gray-Scott from uniform random fields at
-     16384^2, k = 16: 85 cells of -inf) counts as equal;
+     16384^2, k = 16: 85 cells of -inf) counts as equal.  K10 and K8's
+     streaming kind (csrc/ring.cuh, redesigned): every streamfused.TILES
+     and fullgrid.RING_TILES entry at its table tile with the fast paths
+     and on the per-cell path (PATHS = 0), K10 as RAW, ZSLAB and YZSLAB on
+     a (40, 112, 320) core and K8 as RAW and PADDED at (144, 1600), bit for
+     bit;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
      --compute jnp, --compute pallas, --fuse K (K = 4; 2 for heat3d4th)
@@ -168,7 +173,9 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      without --overlap, and every float 2D family at --fuse 16 (sor2d 8;
      K8) unsharded and on --mesh 4 with and without --overlap; every kernel
      run bit-equal to the plain bf16 run of the same grid, every --overlap
-     run to its non-overlap twin, its bf16 launch counters exact;
+     run to its non-overlap twin, its bf16 launch counters exact; the
+     unsharded stream kind of every family and K8 of every float 2D
+     family also on the per-cell path (PATHS = 0), bit-equal alike;
   5c. BASELINE config 5: the rehearsal line of tests/test_cli.py:422-424
      (wave3d 192x64x128 --mesh 8,1,1 --fuse 4 --fuse-kind stream --dtype
      bfloat16 --mem-check error) on 8 virtual shards against the plain bf16
@@ -212,9 +219,10 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      16384^2 (F.conv2d in bfloat16) and K8 at 16384^2 and on a --mesh 4
      shard, every float 2D family at k = 16 (sor2d 8).  Then one line for
      each timed entry of the kernels this port redesigned for Hopper (K3,
-     its shells, K6, K9: rows 5-11; the ring: row 19): this run's ms
-     beside the first design's (OLD_MS, from PERF.md), the fraction of the
-     bound and the library call's ms.
+     its shells, K6, K9: rows 5-11; the ring: row 19; K8 and K10: rows
+     15-18): this run's ms beside the first design's (OLD_MS, from
+     PERF.md), the fraction of the bound and the library call's ms (null
+     for K8 and K10: no one PyTorch call computes a k-step pass).
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -341,13 +349,70 @@ CONFIG5_GRID = (256, 4096, 4096)
 CONFIG5_ITERS = 40
 
 
+# K10 and K8's streaming kind at every table entry and on both paths
+# (phase 3): a grid with interior columns (x and y inside the grid past
+# the widest tile's margin) beside wall ones, and a 2D grid of ragged
+# strips and chunks with interior strips, rows enough for the streaming
+# kind at every k of the table (fullgrid.RING_MIN_LEADS lead-ins).
+RING3D = (40, 112, 320)
+RING2D = (144, 1600)
+
 # The kernels this port redesigned for Hopper (rows 5-11: K3, its shells,
-# K6 and K9; row 19: the ring), and each timed entry's ms per launch in
-# its first design, on one NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
-# section 6, PRs 1-11), printed beside this run's.
+# K6 and K9; row 19: the ring; rows 15-18: K8 and K10), and each timed
+# entry's ms per launch in its first design, on one NVIDIA H100 80GB HBM3
+# at 700.00 W (PERF.md section 6, PRs 4-12), printed beside this run's.
 REDESIGNED = ("fused_step", "fused_step_padded", "fused_shell",
-              "fused_zslab", "fused_yzslab", "ring_exchange")
+              "fused_zslab", "fused_yzslab", "ring_exchange", "stream_step",
+              "stream_zslab", "stream_yzslab", "fullgrid_step",
+              "fullgrid_padded")
 OLD_MS = {
+    "stream_step<heat3d>": 4.2067, "stream_step<heat3d27>": 7.7793,
+    "stream_step<heat3d4th>": 2.6682, "stream_step<wave3d>": 5.1798,
+    "stream_step<sor3d>": 18.6173, "stream_step<advect3d>": 5.8207,
+    "stream_step<grayscott3d>": 8.9425,
+    "stream_step<heat3d,bfloat16>": 6.6669,
+    "stream_step<heat3d27,bfloat16>": 17.6041,
+    "stream_step<heat3d4th,bfloat16>": 5.5888,
+    "stream_step<wave3d,bfloat16>": 7.7743,
+    "stream_step<advect3d,bfloat16>": 8.7849,
+    "stream_step<grayscott3d,bfloat16>": 11.2296,
+    "stream_step<sor3d,bfloat16>": 7.1360,
+    "stream_zslab<heat3d>": 7.4326, "stream_zslab<wave3d>": 11.0882,
+    "stream_zslab<sor3d>": 38.2713, "stream_zslab<advect3d>": 1.5468,
+    "stream_zslab<grayscott3d>": 2.5161,
+    "stream_zslab<heat3d,bfloat16>": 10.1293,
+    "stream_zslab<heat3d27,bfloat16>": 30.0020,
+    "stream_zslab<heat3d4th,bfloat16>": 7.8493,
+    "stream_zslab<wave3d,bfloat16>": 12.2814,
+    "stream_zslab<advect3d,bfloat16>": 11.3682,
+    "stream_zslab<grayscott3d,bfloat16>": 20.1967,
+    "stream_zslab<sor3d,bfloat16>": 10.4559,
+    "stream_yzslab<heat3d>": 8.6316, "stream_yzslab<wave3d>": 11.7004,
+    "stream_yzslab<heat3d27>": 3.2603, "stream_yzslab<heat3d4th>": 1.2060,
+    "stream_yzslab<sor3d>": 38.0607, "stream_yzslab<advect3d>": 2.7216,
+    "stream_yzslab<grayscott3d>": 2.5692,
+    "stream_yzslab<heat3d,bfloat16>": 10.2568,
+    "stream_yzslab<heat3d27,bfloat16>": 32.6063,
+    "stream_yzslab<heat3d4th,bfloat16>": 8.5628,
+    "stream_yzslab<wave3d,bfloat16>": 12.6302,
+    "stream_yzslab<advect3d,bfloat16>": 12.0209,
+    "stream_yzslab<grayscott3d,bfloat16>": 21.9197,
+    "stream_yzslab<sor3d,bfloat16>": 10.7745,
+    "fullgrid_step<life>": 6.0504, "fullgrid_step<heat2d>": 5.3629,
+    "fullgrid_step<wave2d>": 5.6534, "fullgrid_step<advect2d>": 6.4016,
+    "fullgrid_step<grayscott2d>": 11.1175, "fullgrid_step<sor2d>": 14.3324,
+    "fullgrid_padded<life>": 1.4886, "fullgrid_padded<heat2d>": 1.3211,
+    "fullgrid_padded<grayscott2d>": 2.7151, "fullgrid_padded<sor2d>": 3.5648,
+    "fullgrid_step<heat2d,bfloat16>": 19.9003,
+    "fullgrid_step<wave2d,bfloat16>": 23.6713,
+    "fullgrid_step<advect2d,bfloat16>": 20.1362,
+    "fullgrid_step<grayscott2d,bfloat16>": 56.1746,
+    "fullgrid_step<sor2d,bfloat16>": 20.5328,
+    "fullgrid_padded<heat2d,bfloat16>": 4.9023,
+    "fullgrid_padded<wave2d,bfloat16>": 5.9148,
+    "fullgrid_padded<advect2d,bfloat16>": 5.0463,
+    "fullgrid_padded<grayscott2d,bfloat16>": 14.0877,
+    "fullgrid_padded<sor2d,bfloat16>": 5.1492,
     "fused_step<heat3d>": 8.5527, "fused_step<heat3d27>": 11.0989,
     "fused_step<heat3d4th>": 6.3436, "fused_step<wave3d>": 9.3300,
     "fused_step<advect3d>": 10.0955, "fused_step<grayscott3d>": 18.7024,
@@ -1296,6 +1361,90 @@ def main() -> int:
                             "atol": 0.0})
             del ref, got, call
         del hi, lo
+    # K10 and K8's streaming kind, redesigned (csrc/ring.cuh): every
+    # streamfused.TILES and fullgrid.RING_TILES entry at its table tile with
+    # the fast paths and on the per-cell path (PATHS = 0, the switch the
+    # tests use), K10 as RAW, ZSLAB and YZSLAB and K8 as RAW and PADDED,
+    # bit for bit
+    def both_paths(module, fn):
+        saved = module.PATHS
+        outs = [fn()]
+        module.PATHS = 0
+        try:
+            outs.append(fn())
+        finally:
+            module.PATHS = saved
+        return outs
+
+    Z3, Y3, X3 = RING3D
+    for (name, dname, k), tile in sorted(streamfused.TILES.items()):
+        label = "advect3d-mixed" if name == "advect3d" else name
+        st = case_stencil(label, getattr(torch, dname))
+        nf, m = st.num_fields, k_step_margin(st, k)
+
+        def pieces(shape):
+            return tuple(rand(shape).to(st.dtype) for _ in range(nf))
+
+        core = pieces(RING3D)
+        zlo, zhi = pieces((m, Y3, X3)), pieces((m, Y3, X3))
+        ylo, yhi = pieces((Z3, m, X3)), pieces((Z3, m, X3))
+        corners = [pieces((m, m, X3)) for _ in range(4)]
+        gshape = (3 * Z3, 3 * Y3, X3)
+        zs = (core, zlo, zhi, st, k, 3 * Z3, Z3)
+        yz = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, (Z3, Y3))
+        for wrapper, fn, ref, frame in (
+                ("stream_step", lambda: streamfused.stream_step(core, st, k),
+                 fused.plain_steps(core, st, k), frame_of(RING3D, st.halo)),
+                ("stream_zslab", lambda: streamfused.stream_zslab(*zs),
+                 fused.plain_zslab(*zs), None),
+                ("stream_yzslab", lambda: streamfused.stream_yzslab(*yz),
+                 fused.plain_yzslab(*yz), None)):
+            for path, got in zip(("fast", "per-cell"),
+                                 both_paths(streamfused, fn)):
+                torch.cuda.synchronize()
+                entry = f"{wrapper}<{name},{dname},k={k},{path}>"
+                err = compare(entry, got, ref, 0.0, frame)
+                checked.append({"kernel": entry, "shape": list(RING3D),
+                                "tile": list(tile), "max_abs_err": err,
+                                "atol": 0.0})
+            del ref
+        del core, zlo, zhi, ylo, yhi, corners, zs, yz
+    H2, W2 = RING2D
+    for (name, dname, k), tile in sorted(fullgrid.RING_TILES.items()):
+        label = "advect2d-mixed" if name == "advect2d" else name
+        st = case_stencil(label, getattr(torch, dname))
+        m = k_step_margin(st, k)
+        for mode, rows in (("raw", H2), ("padded", H2 + 2 * m)):
+            if name == "life":
+                fields = ((rand((rows, W2)) < 0.35).to(torch.int32),)
+            else:
+                fields = tuple(rand((rows, W2)).to(st.dtype)
+                               for _ in range(st.num_fields))
+            if mode == "raw":
+                ref = fused.plain_steps(fields, st, k)
+                def fn():
+                    return fullgrid.fullgrid_step(fields, st, k)
+                frame = frame_of(RING2D, st.halo)
+            else:
+                out = fused._plain_window_steps(
+                    fields, st, k, (H2 - m, 0), (3 * H2, W2), False,
+                    wrap_axes=(1,))
+                ref = tuple(f[m:m + H2] for f in out)
+                def fn():
+                    return fullgrid.fullgrid_padded(fields, st, k, 3 * H2,
+                                                    H2)
+                frame = None
+            wrapper = "fullgrid_step" if mode == "raw" else \
+                "fullgrid_padded"
+            for path, got in zip(("fast", "per-cell"),
+                                 both_paths(fullgrid, fn)):
+                torch.cuda.synchronize()
+                entry = f"{wrapper}<{name},{dname},k={k},{path}>"
+                err = compare(entry, got, ref, 0.0, frame)
+                checked.append({"kernel": entry, "shape": [H2, W2],
+                                "tile": list(tile), "max_abs_err": err,
+                                "atol": 0.0})
+            del fields, ref
     for c in counters:
         c.clear()
     emit({"phase": "kernels", "ok": True, "seconds": took(),
@@ -1922,6 +2071,8 @@ def main() -> int:
         modes = [] if name == "sor3d" else [
             ("pallas", ("--compute", "pallas"), {raw_key(name, BF16): iters})]
         modes.append(("stream", stream, {key("stream_step"): passes}))
+        # the same run on K10's per-cell path (every fast path off)
+        modes.append(("stream_percell", stream, {key("stream_step"): passes}))
         if name in ("heat3d", "heat3d27", "heat3d4th", "wave3d"):
             # BASELINE config 3's decomposition: K4 / K5 on 2x2
             p22 = ("--mesh", "2,2", "--compute", "pallas")
@@ -1969,7 +2120,16 @@ def main() -> int:
         bf16_results.append(r)
         kept = {}  # the non-overlap run each --overlap run must equal
         for label, flags, want in modes:
-            got, r = run_cli(name, grid, iters, *flags, *dt16)
+            # a *_percell mode runs K10 and K8 with every fast path off
+            percell = label.endswith("_percell")
+            saved = streamfused.PATHS, fullgrid.PATHS
+            if percell:
+                streamfused.PATHS = fullgrid.PATHS = 0
+            try:
+                got, r = run_cli(name, grid, iters, *flags, *dt16)
+            finally:
+                streamfused.PATHS, fullgrid.PATHS = saved
+            r["per_cell_path"] = percell
             if r["launches"] != want:
                 fail(f"{name} bf16 {label}: launches {r['launches']} != "
                      f"{want}")
@@ -2030,6 +2190,8 @@ def main() -> int:
 
         m4 = ("--mesh", "4", "--fuse", str(k))
         modes = [("fuse", ("--fuse", str(k)), {key("fullgrid_step"): passes}),
+                 ("fuse_percell", ("--fuse", str(k)),
+                  {key("fullgrid_step"): passes}),
                  ("fuse4", m4, {key("fullgrid_padded"): 4 * passes}),
                  ("fuse4_overlap", m4 + ("--overlap",),
                   {key("fullgrid_padded"): 12 * passes})]
@@ -3248,7 +3410,7 @@ def main() -> int:
                 "window": f"{window}<{rest}",
                 "window_ms": by_name[f"{window}<{rest}"]["ms"],
                 "bound_ms": kk["bound_ms"], "shape": kk["shape"]})
-    # the redesigned kernels (rows 5-11 and 19), one line each: this run's
+    # the redesigned kernels (rows 5-11, 15-19), one line each: this run's
     # ms beside the first design's (OLD_MS) and the fraction of the bound
     for kk in kernels_out:
         if kk["name"].partition("<")[0] not in REDESIGNED:

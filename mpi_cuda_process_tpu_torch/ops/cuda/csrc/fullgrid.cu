@@ -1,6 +1,25 @@
-// K8 fullgrid_step<KIND, SRC>: k 2D steps (heat2d / mdf, wave2d, life,
-// advect2d, grayscott2d, sor2d) per device-memory pass, by overlapped tiling
-// in shared memory.
+// K8: k 2D steps (heat2d / mdf, wave2d, life, advect2d, grayscott2d,
+// sor2d) per device-memory pass.  Two kinds:
+//
+//   * guard-frame launches (every launch of the main path) run ring.cuh's
+//     streaming kernel with the 2D kinds: a block owns a TX-wide strip of
+//     a chunk of CZ rows and marches it down the rows as a wavefront of k
+//     levels (2k half-sweeps for SOR), one ring of rows a level, so no y
+//     margin is recomputed (the chunk's 2m lead-in rows aside) and the x
+//     margin is 2 e_s of TX + 2 e_s cells; a thread keeps its cells'
+//     column values (the rows above and below) in registers and reads the
+//     newest row and its x neighbours from shared memory, 3 reads an update
+//     where the tiled kind reads 5 (Life: 7, not 9); interior strips copy
+//     rows in 16-byte cp.async units, two rows in flight, and skip the x
+//     frame test.  Its chunks give the card >= 2 waves of blocks at 16384^2.
+//     Below: the exports fullgrid_ring_raw / fullgrid_ring_padded (a row
+//     shard's padded block is ZSLAB's layout with Y = 1: the core rows
+//     between their two m-row slabs, one operand);
+//   * periodic launches, and a k whose levels outnumber a block's warps,
+//     run the tiled kernel below, fullgrid_step<KIND, SRC>: overlapped
+//     tiling in shared memory.
+//
+// The tiled kernel, fullgrid_step<KIND, SRC>:
 //
 // Replaces: the TPU package's ops/pallas/fullgrid.py — _build_call's
 // kernel with the _micro_life micro-step and the _MICRO2D entries for
@@ -61,13 +80,11 @@
 // in float32, 48 KB in bfloat16) and the kernel stays bit-equal to the
 // plain version on bfloat16 tensors.
 
-#include "stencil2d.cuh"
+#include "ring.cuh"
 
 namespace {
 
 constexpr int BX = 32, BY = 8;
-
-enum Source { RAW = 0, PADDED = 1 };
 
 // Where a launch's operands live and where its core block sits.
 struct Grid2 {
@@ -286,4 +303,123 @@ EXPORT int fullgrid_padded_bf16(int kind, const void* in0, const void* in1,
   return dispatch<PADDED, __nv_bfloat16>(kind, g, k, periodic,
                                          Coef{a, c0, c1, c2, c3}, ty, tx,
                                          stream);
+}
+
+// The streaming kind (ring.cuh) of the guard-frame launches: the same
+// operands as fullgrid_raw / fullgrid_padded, then the launch's tile: the
+// strip width tx, the rows of a chunk cz, the block's threads and blocks
+// an SM (1 or 2: ring.cuh's builds), the ring slots (s0: level 0, s1:
+// levels 1..K-1; streamfused.py::ring_slots) and `paths` (bit 0: 16-byte
+// row copies, set only where every operand's address is 16-byte aligned;
+// bit 1: no x frame test where no updated cell is frame).  Float32
+// operands, or int32 for LIFE; the _bf16 twins take the float kinds on
+// bfloat16 operands.  Returns a cudaError_t code.
+namespace {
+
+template <int SRC, class T>
+int ring_dispatch(int kind, const WindowT<T>& w, int k, const Coef& c,
+                  int tx, int cz, int threads, int blocks, int s0, int s1,
+                  int paths, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RING2_LAUNCH(K, U)                                                   \
+  ring::launch<K, SRC, U>(reinterpret_cast<const WindowT<U>&>(w), k, c, 1, \
+                          tx, cz, threads, blocks, s0, s1, paths, s)
+  switch (kind) {
+    case HEAT5:
+      return RING2_LAUNCH(HEAT5, T);
+    case WAVE5:
+      return RING2_LAUNCH(WAVE5, T);
+    case ADVECT2D:
+      return RING2_LAUNCH(ADVECT2D, T);
+    case GRAYSCOTT2D:
+      return RING2_LAUNCH(GRAYSCOTT2D, T);
+    case SOR5:
+      return RING2_LAUNCH(SOR5, T);
+    case LIFE:
+      if constexpr (sizeof(T) == 4) return RING2_LAUNCH(LIFE, int);
+      return static_cast<int>(cudaErrorInvalidValue);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RING2_LAUNCH
+}
+
+// The whole (H, W) grid: RAW with one y row.
+template <class T>
+int ring_raw(int kind, const void* in0, const void* in1, void* out0,
+             void* out1, int H, int W, int k, const Coef& c, int tx, int cz,
+             int threads, int blocks, int s0, int s1, int paths,
+             void* stream) {
+  const WindowT<T> w{{static_cast<const T*>(in0), static_cast<const T*>(in1)},
+                     {nullptr, nullptr}, {nullptr, nullptr},
+                     {static_cast<T*>(out0), static_cast<T*>(out1)},
+                     H, 1, W, H, 1, W, 0, 0, 0};
+  return ring_dispatch<RAW>(kind, w, k, c, tx, cz, threads, blocks, s0, s1,
+                            paths, stream);
+}
+
+// A row shard's padded (Ly + 2m, W) block: ZSLAB with one y row, the m
+// rows above and below the core as its two slabs.
+template <class T>
+int ring_padded(int kind, const void* in0, const void* in1, void* out0,
+                void* out1, int Ly, int W, int GH, int oy, int k,
+                const Coef& c, int tx, int cz, int threads, int blocks,
+                int s0, int s1, int paths, void* stream) {
+  const int m = k * kind_phases2(kind);
+  const T* p0 = static_cast<const T*>(in0);
+  const T* p1 = static_cast<const T*>(in1);
+  const long rows = static_cast<long>(m) * W, core = static_cast<long>(Ly) * W;
+  const WindowT<T> w{{p0 + rows, p1 ? p1 + rows : nullptr},
+                     {p0, p1},
+                     {p0 + rows + core, p1 ? p1 + rows + core : nullptr},
+                     {static_cast<T*>(out0), static_cast<T*>(out1)},
+                     Ly, 1, W, GH, 1, W, oy, 0, m};
+  return ring_dispatch<ZSLAB>(kind, w, k, c, tx, cz, threads, blocks, s0, s1,
+                              paths, stream);
+}
+
+}  // namespace
+
+EXPORT int fullgrid_ring_raw(int kind, const void* in0, const void* in1,
+                             void* out0, void* out1, int H, int W, int k,
+                             float a, float c0, float c1, float c2, float c3,
+                             int tx, int cz, int threads, int blocks, int s0,
+                             int s1, int paths, void* stream) {
+  return ring_raw<float>(kind, in0, in1, out0, out1, H, W, k,
+                         Coef{a, c0, c1, c2, c3}, tx, cz, threads, blocks,
+                         s0, s1, paths, stream);
+}
+
+EXPORT int fullgrid_ring_raw_bf16(int kind, const void* in0, const void* in1,
+                                  void* out0, void* out1, int H, int W, int k,
+                                  float a, float c0, float c1, float c2,
+                                  float c3, int tx, int cz, int threads,
+                                  int blocks, int s0, int s1, int paths,
+                                  void* stream) {
+  return ring_raw<__nv_bfloat16>(kind, in0, in1, out0, out1, H, W, k,
+                                 Coef{a, c0, c1, c2, c3}, tx, cz, threads,
+                                 blocks, s0, s1, paths, stream);
+}
+
+EXPORT int fullgrid_ring_padded(int kind, const void* in0, const void* in1,
+                                void* out0, void* out1, int Ly, int W, int GH,
+                                int oy, int k, float a, float c0, float c1,
+                                float c2, float c3, int tx, int cz,
+                                int threads, int blocks, int s0, int s1,
+                                int paths, void* stream) {
+  return ring_padded<float>(kind, in0, in1, out0, out1, Ly, W, GH, oy, k,
+                            Coef{a, c0, c1, c2, c3}, tx, cz, threads, blocks,
+                            s0, s1, paths, stream);
+}
+
+EXPORT int fullgrid_ring_padded_bf16(int kind, const void* in0,
+                                     const void* in1, void* out0, void* out1,
+                                     int Ly, int W, int GH, int oy, int k,
+                                     float a, float c0, float c1, float c2,
+                                     float c3, int tx, int cz, int threads,
+                                     int blocks, int s0, int s1, int paths,
+                                     void* stream) {
+  return ring_padded<__nv_bfloat16>(kind, in0, in1, out0, out1, Ly, W, GH,
+                                    oy, k, Coef{a, c0, c1, c2, c3}, tx, cz,
+                                    threads, blocks, s0, s1, paths, stream);
 }

@@ -1,11 +1,18 @@
 """2D temporal blocking, k steps per device-memory pass: K8.
 
-``fullgrid_step`` (``csrc/fullgrid.cu::fullgrid_step<KIND, RAW>``) advances
-heat2d / mdf, wave2d, life, advect2d, grayscott2d or sor2d (2k one-colour
-half-sweeps) by k guard-frame (or periodic) steps on the whole grid;
-``fullgrid_padded`` (``fullgrid_step<KIND, PADDED>``) does the same for one
-row shard from its padded block (the width-m row exchange) and the shard's
-global first row.
+``fullgrid_step`` (``csrc/fullgrid.cu``) advances heat2d / mdf, wave2d,
+life, advect2d, grayscott2d or sor2d (2k one-colour half-sweeps) by k
+guard-frame (or periodic) steps on the whole grid; ``fullgrid_padded`` does
+the same for one row shard from its padded block (the width-m row
+exchange) and the shard's global first row.  A guard-frame launch runs the
+streaming kind (``csrc/ring.cuh``, K10's kernel with the 2D kinds: a
+TX-wide strip of a chunk of rows marched down the rows as a wavefront of
+k levels, one barrier a row, no y margin recomputed; ``RING_TILES`` picks
+the strip, the chunk and the threads, ``PATHS`` the block-uniform fast
+paths, ``streamfused.ring_slots`` the rings); a periodic launch, one
+over fewer rows than ``RING_MIN_LEADS`` lead-ins (an overlap shell), or
+one whose levels outnumber a block's warps, the tiled kind
+(``fullgrid_step<KIND, RAW|PADDED>``: overlapped windows of ``CORE``).
 Both are bit-exact with k plain steps.  The float families take float32
 or bfloat16 (``_build.FLOAT_DTYPES``: the 4-byte export and its ``_bf16``
 twin; a bfloat16 launch is counted as ``fullgrid_step[heat2d,bfloat16]``),
@@ -43,10 +50,13 @@ import torch
 
 from ...driver import make_step
 from .. import reaction, sor
-from ..stencil import Fields, Stencil, k_step_margin
+from ..stencil import Fields, Stencil, dtype_name, k_step_margin
 from . import _build
 from .fused import (SMEM_LIMIT, _plain_window_steps, buffers,
                     parity_consistent)
+from .streamfused import (FRAME_FREE, VEC_LOAD, _fit, level_warps_fit,
+                          levels, ring_slots)
+from .streamfused import smem_bytes as ring_smem_bytes
 
 # Launches per wrapper and stencil, keyed "fullgrid_step[life]" or
 # "fullgrid_padded[heat2d]" (bfloat16: "fullgrid_padded[heat2d,bfloat16]",
@@ -71,6 +81,32 @@ CORE = (32, 64)
 # half-sweeps): a larger k runs as several launches (the window margin, and
 # so the redundant work, grows with the micro-steps of one launch).
 K_PER_LAUNCH = 16
+# The streaming kind's launch tile per (stencil, dtype, k): the strip width
+# TX, the rows of a chunk CZ, the block's threads and the blocks an SM its
+# build is for (csrc/ring.cuh), the fastest of
+# scripts/torch_fullgrid_tiles.py's candidates at 16384^2 on an H100 (a
+# strip whose level rows fit one strip of registers per thread).  A pair
+# not listed, or a tile whose rings overflow shared memory or whose levels
+# outnumber its warps, takes RING_FIT (with a warp a level).
+RING_FIT = (256, 512)
+_R, _R352 = (480, 512, 512, 2), (352, 1024, 512, 2)
+RING_TILES = {
+    ("heat2d", "float32", 8): _R, ("heat2d", "bfloat16", 16): _R,
+    ("life", "int32", 8): _R, ("wave2d", "float32", 8): (224, 1024, 512, 2),
+    ("wave2d", "bfloat16", 16): _R,
+    ("advect2d", "float32", 8): _R, ("advect2d", "bfloat16", 16): _R,
+    ("grayscott2d", "float32", 8): _R352,
+    ("grayscott2d", "bfloat16", 16): _R352,
+    ("sor2d", "float32", 8): _R352, ("sor2d", "bfloat16", 8): _R,
+}
+# The fewest lead-ins of core rows a launch needs to take the streaming
+# kind (``ring_ok``): below it, the lead-in outweighs the rows.
+RING_MIN_LEADS = 2
+# The streaming kind's fast paths (csrc/ring.cuh ``paths``): 16-byte row
+# copies where every operand's address is 16-byte aligned, no x frame test
+# where no updated cell is frame.  0 runs its per-cell path alone (the
+# CUDA tests, scripts/torch_fullgrid_tiles.py).
+PATHS = VEC_LOAD | FRAME_FREE
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
@@ -95,6 +131,73 @@ def fits(stencil: Stencil, k: int) -> bool:
     dtype."""
     return smem_bytes(k_step_margin(stencil, k), stencil.dtype.itemsize,
                       buffers(stencil)) <= SMEM_LIMIT
+
+
+def ring_tile(stencil: Stencil, k: int) -> Tuple[int, int, int, int]:
+    """The streaming kind's launch tile ``(TX, CZ, threads, blocks)`` for k
+    steps:
+    the RING_TILES entry where its rings fit and it has a warp a level,
+    else RING_FIT."""
+    tile = RING_TILES.get((stencil.name, dtype_name(stencil.dtype), int(k)))
+    return _fit(stencil, k, tile, RING_FIT)
+
+
+def _lead(stencil: Stencil, k: int) -> int:
+    """Rows a chunk of the streaming kind spends before its first output
+    row: its 2m lead-in rows and a wavefront filled over K (h + 1)."""
+    return 2 * k_step_margin(stencil, k) + levels(stencil, k) * (
+        stencil.halo + 1)
+
+
+def ring_ok(stencil: Stencil, k: int, periodic: bool, rows: int) -> bool:
+    """Whether a launch of k steps over ``rows`` core rows runs the
+    streaming kind: guard-frame, at least RING_MIN_LEADS lead-ins of rows
+    (an overlap shell's 2m rows cost the streaming kind more in lead-in
+    than they compute: the tiled kind takes them), a warp a level, and its
+    rings fit at RING_FIT."""
+    return (not periodic and rows >= RING_MIN_LEADS * _lead(stencil, k)
+            and level_warps_fit(levels(stencil, k), 1024)
+            and ring_smem_bytes(stencil, k, RING_FIT) <= SMEM_LIMIT)
+
+
+_SMS: dict = {}  # device index -> streaming multiprocessors
+
+
+def chunk_rows(stencil: Stencil, k: int, rows: int, width: int,
+               tile: Sequence[int], slots: int) -> int:
+    """The rows of a block's chunk: the tile's CZ, or fewer where more
+    chunks fill the card's last wave of blocks (``slots``: the blocks the
+    card holds at once) for less than they add in lead-in rows (each chunk
+    re-reads 2m rows and fills its wavefront over K (h + 1) more).
+    Minimises waves x (rows a chunk + lead-in)."""
+    tx, cz = int(tile[0]), int(tile[1])
+    strips = -(-width // tx)
+    lead = _lead(stencil, k)
+    first = -(-rows // cz)
+    best = None
+    for chunks in range(first, 4 * first + 1):
+        czc = -(-rows // chunks)
+        cost = -(-strips * chunks // slots) * (czc + lead)
+        if best is None or cost < best[0]:
+            best = (cost, czc)
+    return best[1]
+
+
+def _ring_tail(stencil: Stencil, k: int, rows: int, operands):
+    """The streaming exports' trailing arguments: coefficients, the tile
+    (its chunk fitted to the card: ``chunk_rows``), the ring slots and the
+    fast paths, then the stream."""
+    paths = PATHS & ~VEC_LOAD if any(t.data_ptr() % 16 for t in operands) \
+        else PATHS
+    dev = operands[0].device
+    if dev.index not in _SMS:
+        _SMS[dev.index] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    tx, cz, threads, blocks = ring_tile(stencil, k)
+    cz = chunk_rows(stencil, k, rows, int(operands[0].shape[1]),
+                    (tx, cz), _SMS[dev.index] * blocks)
+    return (*_coefficients(stencil), tx, cz, threads, blocks,
+            *ring_slots(stencil, k), paths, _build.stream_of(operands[0]))
 
 
 def _steps_per_launch(stencil: Stencil) -> int:
@@ -127,6 +230,12 @@ def _lib():
             getattr(lib, f"fullgrid_padded{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float] * 5
                 + [_c_int] * 2 + [_c_ptr])
+            getattr(lib, f"fullgrid_ring_raw{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 5
+                + [_c_int] * 7 + [_c_ptr])
+            getattr(lib, f"fullgrid_ring_padded{sfx}").argtypes = (
+                [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + [_c_float] * 5
+                + [_c_int] * 7 + [_c_ptr])
     return lib
 
 
@@ -155,9 +264,14 @@ def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
     while left > 0:
         kk = min(left, _steps_per_launch(stencil))
         outs = tuple(torch.empty_like(f) for f in fields)
-        rc = _build.twin_entry(lib, "fullgrid_raw", fields[0])(
-            kind, *_pointers(fields), *_pointers(outs), H, W, kk,
-            int(periodic), *coef, *CORE, _build.stream_of(fields[0]))
+        if ring_ok(stencil, kk, periodic, H):
+            rc = _build.twin_entry(lib, "fullgrid_ring_raw", fields[0])(
+                kind, *_pointers(fields), *_pointers(outs), H, W, kk,
+                *_ring_tail(stencil, kk, H, (*fields, *outs)))
+        else:
+            rc = _build.twin_entry(lib, "fullgrid_raw", fields[0])(
+                kind, *_pointers(fields), *_pointers(outs), H, W, kk,
+                int(periodic), *coef, *CORE, _build.stream_of(fields[0]))
         _build.check(lib, rc, "fullgrid_step")
         launches[key] += 1
         fields, left = outs, left - kk
@@ -191,10 +305,16 @@ def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
     outs = tuple(torch.empty((Ly, W), dtype=p.dtype, device=p.device)
                  for p in padded)
     lib = _lib()
-    rc = _build.twin_entry(lib, "fullgrid_padded", padded[0])(
-        kind, *_pointers(padded), *_pointers(outs), Ly, W, int(global_rows),
-        int(origin_y), k, int(periodic), *_coefficients(stencil), *CORE,
-        _build.stream_of(padded[0]))
+    if ring_ok(stencil, k, periodic, Ly):
+        rc = _build.twin_entry(lib, "fullgrid_ring_padded", padded[0])(
+            kind, *_pointers(padded), *_pointers(outs), Ly, W,
+            int(global_rows), int(origin_y), k,
+            *_ring_tail(stencil, k, Ly, (*padded, *outs)))
+    else:
+        rc = _build.twin_entry(lib, "fullgrid_padded", padded[0])(
+            kind, *_pointers(padded), *_pointers(outs), Ly, W,
+            int(global_rows), int(origin_y), k, int(periodic),
+            *_coefficients(stencil), *CORE, _build.stream_of(padded[0]))
     _build.check(lib, rc, "fullgrid_padded")
     launches[_build.launch_key("fullgrid_padded", stencil.name,
                                padded[0])] += 1

@@ -1,16 +1,25 @@
 """The streaming k-step kernel, K10 (TPU table rows 16-18).
 
-``stream_step`` (``csrc/streamfused.cu::stream_step<KIND, RAW>``) advances
-heat3d, heat3d27, heat3d4th, wave3d, advect3d, grayscott3d (a ring for
-each field at every level) or sor3d (2k one-colour half-sweeps) by k
-guard-frame steps in one launch over the whole grid: every K3 family.  Each
-block marches a (TY, TX) column of the grid down z as a wavefront in time,
-so every plane of its window is read from device memory once per pass (K3
-re-reads the z margin of every window).  ``stream_zslab``
-(``<KIND, ZSLAB>``) does the same for a z-only shard from its core and its
-two exchanged z slabs; ``stream_yzslab`` (``<KIND, YZSLAB>``) for a shard
-of a mesh that shards y, from the core, the z and y slabs and the four
-corner pieces of ``halo.exchange_slabs_2axis`` at their natural widths.
+``stream_step`` (``csrc/streamfused.cu``, the kernel in ``csrc/ring.cuh``,
+``SRC = RAW``) advances heat3d, heat3d27, heat3d4th, wave3d, advect3d,
+grayscott3d (a ring for each field at every level) or sor3d (2k
+one-colour half-sweeps) by k guard-frame steps in one launch over the
+whole grid: every K3 family.  Each block marches a (TY, TX) column of the
+grid down z as a wavefront in time, so every plane of its window is read
+from device memory once per pass (K3 re-reads the z margin of every
+window).  ``stream_zslab`` (``ZSLAB``) does the same for a z-only shard
+from its core and its two exchanged z slabs; ``stream_yzslab``
+(``YZSLAB``) for a shard of a mesh that shards y, from the core, the z and
+y slabs and the four corner pieces of ``halo.exchange_slabs_2axis`` at
+their natural widths.
+
+The wavefront is skewed (level s computes plane p + 1 - s(h + 1) in
+iteration p), so all its levels update between one barrier and the next;
+``ring_slots`` gives the planes each level's ring must hold for that, and
+every launch passes them to the kernel, so the CPU test of the schedule
+(``tests/test_torch_stream.py``) holds the counts the card runs.
+``TILES`` picks the column and threads per (stencil, dtype, k); ``PATHS``
+the block-uniform fast paths (16-byte row copies, no y/x frame test).
 
 Replaces the TPU package's ``ops/pallas/streamfused.py``:
 ``make_stream_fused_step`` (``_stream_kernel``),
@@ -47,7 +56,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from ..stencil import Fields, Stencil, k_step_margin
+from ..stencil import Fields, Stencil, dtype_name, k_step_margin
 from . import _build
 from .fused import (_FUSED, SMEM_LIMIT, _pointers, plain_steps, plain_yzslab,
                     plain_zslab)
@@ -59,10 +68,55 @@ from .rawstep import coefficients
 # the kernel launches, nowhere else.  ``launches.clear()`` resets.
 launches: Counter = Counter()
 
-# The (TY, TX) core column of one block.  64 x-cells are two warps' rows of
-# consecutive addresses; at k * halo = 4 the column re-reads
-# (1 + 8/16)(1 + 8/64) = 1.69x its cells and two blocks share an SM.
-TILE = (16, 64)
+# Level-0 planes a launch keeps in flight (csrc/ring.cuh IN_FLIGHT): the
+# ring of loaded planes holds them beside the 2h + 1 that level 1 reads.
+IN_FLIGHT = 2
+# Level 0's x margin is rounded up to this many cells (csrc/ring.cuh
+# X_ALIGN: 16 bytes of either type), so its rows copy in 16-byte units.
+X_ALIGN = 8
+# The column every (stencil, k) is admitted at (``fits``): the smallest
+# (TY, TX) the launches take, so a deep k still fits; and the threads of a
+# launch that has no TILES entry.
+FIT_TILE = (8, 32)
+THREADS = 512
+# The launch tile per (stencil, dtype, k): the core column (TY, TX), the
+# block's threads and the blocks an SM its build is for (1 or 2: a block of
+# 512 threads at 128 registers a thread, or two at 64; csrc/ring.cuh), the
+# fastest of scripts/torch_stream_tiles.py's candidates on an H100 at 512^3
+# (for heat3d and wave3d also weighed on a 1024^3 2x2 shard and a --mesh 4
+# shard).  A pair not listed, or a tile whose rings overflow shared memory
+# or whose levels outnumber its warps, takes FIT_TILE with THREADS (or one
+# warp a level).
+_T512, _T1024 = (32, 64, 512, 1), (32, 64, 1024, 1)
+_T2 = (32, 32, 512, 2)
+TILES = {
+    ("heat3d", "float32", 4): _T512, ("heat3d", "bfloat16", 4): _T2,
+    ("heat3d", "bfloat16", 8): _T1024,
+    ("heat3d27", "float32", 4): _T512, ("heat3d27", "bfloat16", 4): _T1024,
+    ("heat3d4th", "float32", 2): _T512,
+    ("heat3d4th", "bfloat16", 2): _T1024,
+    ("heat3d4th", "bfloat16", 4): _T1024,
+    ("wave3d", "float32", 4): (32, 32, 512, 1), ("wave3d", "bfloat16", 4): _T2,
+    ("wave3d", "bfloat16", 8): (32, 32, 1024, 1),
+    ("advect3d", "float32", 4): _T512, ("advect3d", "bfloat16", 4): _T1024,
+    ("grayscott3d", "float32", 4): (16, 64, 512, 1),
+    ("grayscott3d", "bfloat16", 4): _T1024,
+    ("sor3d", "float32", 4): (32, 32, 512, 1),
+    ("sor3d", "bfloat16", 2): _T1024, ("sor3d", "bfloat16", 4): _T1024,
+}
+# The kernel's fast paths (csrc/ring.cuh ``paths``): 16-byte row copies,
+# where every operand's address is 16-byte aligned; no y/x frame test
+# where no updated cell is frame.  PATHS is what every launch allows (0
+# runs the per-cell path alone: the CUDA tests, scripts/torch_stream_tiles).
+VEC_LOAD, FRAME_FREE = 1, 2
+PATHS = VEC_LOAD | FRAME_FREE
+
+
+def level_warps_fit(levels: int, threads: int) -> bool:
+    """Whether a block of ``threads`` has a warp for each of ``levels``
+    levels."""
+    return levels <= threads // 32
+
 
 # The K3 families the streaming kernel has a kind for: all of them.
 _STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
@@ -80,37 +134,113 @@ def stream_supported(stencil: Stencil) -> bool:
     return stencil.name in _STREAM and stencil.ndim == 3
 
 
-def smem_bytes(stencil: Stencil, k: int) -> int:
-    """Shared memory of one block at column ``TILE`` (``Layout`` in
-    csrc/streamfused.cu): per level s = 0..K-1 a ring of its
-    (TY + 2(K-s)h, TX + 2(K-s)h) region, 2h + 1 planes (2h + 2 at level 0),
-    with K = k levels (2k for sor3d, one per half-sweep), once per field
-    whose neighbours the update reads (Gray-Scott: u and v); wave adds a
-    level-0 ring of u_prev, read at its own cell only.  Cells of the
-    stencil's dtype: 4 bytes, 2 in bfloat16."""
-    ty, tx = TILE
-    h = _FUSED[stencil.name][1]
-    levels = k_step_margin(stencil, k) // h
-    planes = [(ty + 2 * (levels - s) * h) * (tx + 2 * (levels - s) * h)
-              for s in range(levels)]
-    floats = sum((2 * h + 2 if s == 0 else 2 * h + 1) * n
-                 for s, n in enumerate(planes))
-    floats *= sum(1 for fh in stencil.field_halos if fh)
-    if 0 in stencil.field_halos:
-        floats += (2 * h + 2) * planes[0]
-    return stencil.dtype.itemsize * floats
+def levels(stencil: Stencil, k: int) -> int:
+    """The wavefront's levels: one per step, one per half-sweep for SOR
+    (``k_step_margin // halo``)."""
+    return k_step_margin(stencil, k) // stencil.halo
+
+
+def ring_slots(stencil: Stencil, k: int) -> Tuple[int, int]:
+    """``(S0, S1)``: the planes of level 0's rings and of each ring of
+    levels 1..K-1 under the skewed schedule of csrc/ring.cuh, where level s
+    computes plane ``p + 1 - s(h + 1)`` in iteration p.  Level s+1 reads
+    planes z - 2h - 1 .. z - 1 of level s while level s writes z: 2h + 2.
+    Level 1 reads loaded planes p - 2h .. p while IN_FLIGHT more are in
+    flight: 2h + 1 + IN_FLIGHT.  Wave's level s reads level s-2's u at its
+    own plane as u_prev, one plane further back: one more slot for levels
+    that have such a reader (level 0 once K >= 2, levels >= 1 once K >= 3).
+    Every launch passes these counts to the kernel, and the CPU tests of the
+    schedule (tests/test_torch_stream.py, tests/test_torch_2d.py: K8's
+    streaming kind, whose planes are rows) run on exactly them."""
+    h = stencil.halo
+    K = levels(stencil, k)
+    wave = stencil.name in ("wave3d", "wave2d")
+    return (2 * h + 1 + IN_FLIGHT + (wave and K >= 2),
+            2 * h + 2 + (wave and K >= 3))
+
+
+def ring_cells(stencil: Stencil, k: int, tile: Sequence[int]) -> int:
+    """Cells of the block's rings at column ``tile``, as csrc/ring.cuh's
+    ``Geom`` lays them out.  3D: ``tile`` = (TY, TX, ...), level s's region
+    (TY + 2(K-s)h, TX + 2(K-s)h); 2D (K8's streaming kind): ``tile`` =
+    (TX, ...), one row of TX + 2(K-s)h.  Level 0's ring of loaded planes
+    spans TY + 2m rows (2D: one) and TX + 2mu columns, mu = m rounded up
+    to X_ALIGN (wave's u_prev and Gray-Scott's v have a second), then each
+    level s = 1..K-1's ring (Gray-Scott: one for u, one for v)."""
+    if stencil.ndim == 2:
+        ty, tx, rows = 1, int(tile[0]), 0
+    else:
+        ty, tx, rows = int(tile[0]), int(tile[1]), 1
+    h = stencil.halo
+    K = levels(stencil, k)
+    m = K * h
+    mu = -(-m // X_ALIGN) * X_ALIGN
+    s0, s1 = ring_slots(stencil, k)
+    mid = sum(s1 * (ty + 2 * rows * (K - s) * h) * (tx + 2 * (K - s) * h)
+              for s in range(1, K))
+    nf = stencil.num_fields
+    gs = nf == 2 and all(stencil.field_halos)
+    return (nf * s0 * (ty + 2 * rows * m) * (tx + 2 * mu)
+            + (2 if gs else 1) * mid)
+
+
+def smem_bytes(stencil: Stencil, k: int, tile=FIT_TILE) -> int:
+    """Shared memory of one block's rings at column ``tile``, in the
+    stencil's dtype (4 bytes a cell, 2 in bfloat16)."""
+    return stencil.dtype.itemsize * ring_cells(stencil, k, tile)
 
 
 def fits(stencil: Stencil, k: int) -> bool:
-    """Whether (stencil, k) has a kernel whose rings fit one block."""
+    """Whether (stencil, k) has a kernel: its rings fit one block at
+    FIT_TILE and a block of 1024 threads has a warp a level."""
     return (stream_supported(stencil) and k >= 1
+            and level_warps_fit(levels(stencil, k), 1024)
             and smem_bytes(stencil, k) <= SMEM_LIMIT)
+
+
+def tile_of(stencil: Stencil, k: int) -> Tuple[int, int, int, int]:
+    """The launch tile ``(TY, TX, threads, blocks)``: the TILES entry where its
+    rings fit and it has a warp for every level, else FIT_TILE."""
+    tile = TILES.get((stencil.name, dtype_name(stencil.dtype), int(k)))
+    return _fit(stencil, k, tile, FIT_TILE)
+
+
+def _fit(stencil: Stencil, k: int, tile,
+         fallback) -> Tuple[int, int, int, int]:
+    """``tile`` where its rings fit and it has a warp a level, else
+    ``fallback`` (its column) with THREADS or the fewest warps that give
+    every level one, two blocks an SM where a block holds 512 threads or
+    fewer."""
+    K = levels(stencil, k)
+    if tile is None or not level_warps_fit(K, tile[2]) \
+            or smem_bytes(stencil, k, tile) > SMEM_LIMIT:
+        threads = THREADS
+        while not level_warps_fit(K, threads):
+            threads += 32
+        return tuple(fallback[:2]) + (threads, 2 if threads <= 512 else 1)
+    return tuple(tile)
+
+
+def launch_paths(operands) -> int:
+    """The fast paths a launch on ``operands`` may take: PATHS, without the
+    16-byte row copies where an operand's address is off 16 bytes."""
+    if any(t.data_ptr() % 16 for t in operands):
+        return PATHS & ~VEC_LOAD
+    return PATHS
+
+
+def _tail(stencil: Stencil, k: int, operands):
+    """The exports' trailing arguments: coefficients, the tile, the ring
+    slots and the fast paths, then the stream."""
+    return (*coefficients(stencil), *tile_of(stencil, k),
+            *ring_slots(stencil, k), launch_paths(operands),
+            _build.stream_of(operands[0]))
 
 
 def _lib():
     lib = _build.load("streamfused")
     if lib.stream_step_f32.argtypes is None:
-        tail = [_c_float] * 5 + [_c_int] * 2 + [_c_ptr]
+        tail = [_c_float] * 5 + [_c_int] * 7 + [_c_ptr]
         for sfx in _build.SUFFIXES.values():
             getattr(lib, f"stream_step_{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + tail)
@@ -144,7 +274,7 @@ def stream_step(fields: Fields, stencil: Stencil, k: int) -> Fields:
     Z, Y, X = fields[0].shape
     rc = _build.entry(lib, "stream_step", fields[0])(
         kind, *_pointers(fields, two), *_pointers(outs, two), Z, Y, X, k,
-        *coefficients(stencil), *TILE, _build.stream_of(fields[0]))
+        *_tail(stencil, k, fields))
     _build.check(lib, rc, "stream_step")
     launches[_build.launch_key("stream_step", stencil.name, fields[0])] += 1
     return outs
@@ -173,8 +303,8 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     rc = _build.entry(lib, "stream_zslab", core[0])(
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
-        int(global_z), int(origin_z), k, *coefficients(stencil), *TILE,
-        _build.stream_of(core[0]))
+        int(global_z), int(origin_z), k,
+        *_tail(stencil, k, (*core, *zlo, *zhi)))
     _build.check(lib, rc, "stream_zslab")
     launches[_build.launch_key("stream_zslab", stencil.name, core[0])] += 1
     return outs
@@ -213,7 +343,8 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         *_pointers(zhi, two), *_pointers(ylo, two), *_pointers(yhi, two),
         *(p for c in corners for p in _pointers(c, two)),
         *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
-        *coefficients(stencil), *TILE, _build.stream_of(core[0]))
+        *_tail(stencil, k, (*core, *zlo, *zhi, *ylo, *yhi,
+                            *(p for c in corners for p in c))))
     _build.check(lib, rc, "stream_yzslab")
     launches[_build.launch_key("stream_yzslab", stencil.name, core[0])] += 1
     return outs
@@ -248,11 +379,11 @@ def make_stream_fused_step(
 ) -> Optional[Callable[[Fields], Fields]]:
     """``fields -> fields`` advancing ``k`` guard-frame steps in one
     streaming pass (row 16), or None: not a 3D fused family, or rings too
-    large for shared memory (at the (16, 64) column in float32: heat3d,
-    heat3d27 and advect3d k >= 10, wave3d k >= 9, heat3d4th and
-    grayscott3d k >= 6, sor3d k >= 5; in bfloat16 heat3d, heat3d27 and
-    advect3d k >= 15, wave3d k >= 14, grayscott3d k >= 10, heat3d4th and
-    sor3d k >= 8).  Semantically
+    large for shared memory (at FIT_TILE, in float32: heat3d, heat3d27 and
+    advect3d k >= 13, wave3d k >= 11, grayscott3d k >= 9, heat3d4th
+    k >= 8, sor3d k >= 7; in bfloat16 heat3d, heat3d27 and advect3d
+    k >= 19, wave3d k >= 16, grayscott3d k >= 13, heat3d4th k >= 11,
+    sor3d k >= 10).  Semantically
     ``k`` applications of ``driver.make_step``; any k >= 1 and any grid
     extent."""
     _refuse_policy(tiles, margin, order, batch)

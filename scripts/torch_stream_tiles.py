@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Column shapes of the streaming kernel (K10), on one NVIDIA card.
+"""Launch tiles and fast paths of the streaming kernel (K10:
+``csrc/ring.cuh`` through ``streamfused.stream_step``), on one NVIDIA card.
 
-    python3 scripts/torch_stream_tiles.py [--grid 512] [--reps 10]
+    python3 scripts/torch_stream_tiles.py [--reps 10] [--grid 512]
 
-For each candidate (TY, TX) column of ``streamfused.TILE`` that fits shared
-memory (one built library serves every column), runs ``stream_step`` for
-heat3d, wave3d, heat3d27 (k = 4) and heat3d4th (k = 2) on a ``--grid``^3
-float32 grid of random values, holds the result against k
-plain steps (max |d| printed; the kernel is meant to be bit-equal), and
-times it by CUDA events over ``--reps`` launches after one warm-up, beside
-the overlapped-window kernel K3 (``fused_step``) on the same input, timed
-before and after the candidates.  Then the default column at k = 1, 2, 3,
-4, 6 and 8 (heat3d; ms per pass and per step, beside the one-step kernel
-K1), and ``stream_yzslab`` on one shard of a 2x2 mesh of a 2*grid cube
-(heat3d).  Prints one JSON line per measurement, then the card's name and
-power limit; the byte bound is one read and one write of every field at
-the data sheet's 3.35 TB/s.
+For every K10 family at its main-path k in float32 (4; heat3d4th 2) and
+bfloat16 (4; heat3d and wave3d also 8), times ``stream_step`` on a
+``--grid``^3 grid of random values under each candidate tile (TY, TX,
+threads, blocks an SM) whose rings fit one block and which has a warp
+for every level
+(``streamfused.TILES`` is set for the run; one build serves all), each
+result held to k plain steps (max |d| printed: the kernel is bit-equal);
+heat3d and wave3d also as ``stream_yzslab`` on one (512, 512, 1024) shard
+of 1024^3 on 2x2 and as ``stream_zslab`` on one (256, 1024, 1024) shard
+of ``--mesh 4``, the shapes of their targets, with the pad-free K9 / K6
+beside them.  At each family's best tile it then times the fast paths
+apart (``streamfused.PATHS``: none, 16-byte copies alone, no frame test
+alone, both): what the per-cell path costs.  K3 (``fused_step``) on the
+same input is timed before and after the candidates.  Prints one JSON
+line per measurement, writes them all to chiprun_out/stream_tiles.json,
+prints the fastest tile of each (family, dtype, k), then the card's name
+and power limit.  The byte bound is one read and one write of each field
+at the data sheet's 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -26,10 +32,35 @@ import os
 import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-CANDIDATES = ((16, 64), (16, 56), (24, 56), (8, 120), (16, 120), (32, 56),
-              (8, 128))
+# (family, float32 k, bfloat16 ks)
+FAMILIES = (("heat3d", 4, (4, 8)), ("heat3d27", 4, (4,)),
+            ("heat3d4th", 2, (4,)), ("wave3d", 4, (4, 8)),
+            ("advect3d", 4, (4,)), ("grayscott3d", 4, (4,)),
+            ("sor3d", 4, (4,)))
+# (TY, TX, threads, blocks an SM); those whose rings exceed shared memory,
+# or whose levels outnumber their warps, are skipped
+CANDIDATES = ((16, 32, 512, 2), (16, 64, 512, 2), (8, 64, 512, 2),
+              (16, 64, 1024, 1), (32, 64, 1024, 1), (32, 32, 1024, 1),
+              (32, 64, 512, 1), (32, 32, 512, 1), (16, 64, 512, 1),
+              (16, 128, 512, 1), (24, 64, 512, 1), (32, 32, 512, 2))
+PARAMS = {"advect3d": {"cz": -0.25}}
+SHARDS = {"yzslab": (512, 512, 1024), "zslab": (256, 1024, 1024)}
+
+
+def time_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -42,113 +73,134 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     from mpi_cuda_process_tpu_torch import make_stencil
-    from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fused, rawstep,
-                                                     streamfused)
+    from mpi_cuda_process_tpu_torch.ops.cuda import _build, fused, streamfused
+    from mpi_cuda_process_tpu_torch.ops.stencil import k_step_margin
 
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     _build.build_all()
-    print(json.dumps({"ptxas": [ln.strip() for ln in _build.build_log.get(
-        "streamfused", "").splitlines() if "Used" in ln or "spill" in ln]}),
-        flush=True)
+    lines = []
+
+    def emit(obj):
+        lines.append(obj)
+        print(json.dumps(obj), flush=True)
+
+    emit({"ptxas": [ln.strip() for ln in _build.build_log.get(
+        "streamfused", "").splitlines() if "Used" in ln or "spill" in ln]})
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-
-    def time_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(a.reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / a.reps
-
     grid = (a.grid,) * 3
-    default = streamfused.TILE
-    for name, k in (("heat3d", 4), ("wave3d", 4), ("heat3d27", 4),
-                    ("heat3d4th", 2)):
-        st = make_stencil(name)
-        fields = tuple(torch.rand(grid, generator=gen, device=dev)
-                       for _ in range(st.num_fields))
-        ref = fused.plain_steps(fields, st, k)
-        bound = 2 * st.num_fields * 4 * a.grid ** 3 / 3.35e12 * 1e3
-        k3 = [time_ms(lambda: fused.fused_step(fields, st, k))]
+    best = {}
+
+    def sweep(st, k, run, ref, what, shape, extra=None):
+        """Every candidate tile of (st, k) on `run`; returns the best."""
+        key = (st.name, str(st.dtype).replace("torch.", ""), k)
+        saved = streamfused.TILES.get(key)
         rows = []
         for tile in CANDIDATES:
-            streamfused.TILE = tile
-            if not streamfused.fits(st, k):
+            if not streamfused.level_warps_fit(
+                    streamfused.levels(st, k), tile[2]) or \
+                    streamfused.smem_bytes(st, k, tile) > fused.SMEM_LIMIT:
                 continue
-            got = streamfused.stream_step(fields, st, k)
+            streamfused.TILES[key] = tile
+            got = run()
             torch.cuda.synchronize()
-            err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            err = max(float((g.float() - r.float()).abs().max())
+                      for g, r in zip(got, ref))
             del got
-            rows.append({"stencil": name, "k": k, "grid": list(grid),
-                         "tile": list(tile),
-                         "smem": streamfused.smem_bytes(st, k),
-                         "max_abs_err": err,
-                         "ms": time_ms(lambda: streamfused.stream_step(
-                             fields, st, k))})
-        streamfused.TILE = default
-        k3.append(time_ms(lambda: fused.fused_step(fields, st, k)))
-        for r in rows:
-            r.update(k3_ms=k3, bound_ms=bound)
-            print(json.dumps(r), flush=True)
-        del fields, ref
-        torch.cuda.empty_cache()
+            row = {"what": what, "stencil": st.name, "dtype": key[1],
+                   "k": k, "shape": list(shape), "tile": list(tile),
+                   "smem": streamfused.smem_bytes(st, k, tile),
+                   "max_abs_err": err, "ms": time_ms(torch, run, a.reps),
+                   "bound_ms": 2 * st.num_fields * st.dtype.itemsize
+                   * shape[0] * shape[1] * shape[2] / 3.35e12 * 1e3}
+            row.update(extra or {})
+            rows.append(row)
+            emit(row)
+        win = min(rows, key=lambda r: r["ms"])
+        streamfused.TILES[key] = tuple(win["tile"])
+        for paths in (0, streamfused.VEC_LOAD, streamfused.FRAME_FREE,
+                      streamfused.PATHS):
+            streamfused.PATHS = paths
+            emit({"what": what + " paths", "stencil": st.name,
+                  "dtype": key[1], "k": k, "tile": win["tile"],
+                  "paths": paths, "ms": time_ms(torch, run, a.reps)})
+        streamfused.PATHS = streamfused.VEC_LOAD | streamfused.FRAME_FREE
+        if saved is None:
+            del streamfused.TILES[key]
+        else:
+            streamfused.TILES[key] = saved
+        return win
 
-    # levels: the default column at k = 1..8, heat3d (ms per pass and per
-    # step, beside K1's one-step kernel on the same grid)
-    st = make_stencil("heat3d")
-    fields = (torch.rand(grid, generator=gen, device=dev),)
-    raw = rawstep.make_raw_step(st, grid, device=dev)
-    k1 = time_ms(lambda: raw(fields))
-    for k in (1, 2, 3, 4, 6, 8):
-        got = streamfused.stream_step(fields, st, k)
-        ref = fused.plain_steps(fields, st, k)
-        err = float((got[0] - ref[0]).abs().max())
-        ms = time_ms(lambda: streamfused.stream_step(fields, st, k))
-        print(json.dumps({"stencil": "heat3d", "k": k, "grid": list(grid),
-                          "tile": list(default), "max_abs_err": err,
-                          "ms": ms, "ms_per_step": ms / k,
-                          "k1_ms_per_step": k1}), flush=True)
-        del got, ref
-    del fields
+    for name, k32, k16s in FAMILIES:
+        for dtype, ks in ((torch.float32, (k32,)), (torch.bfloat16, k16s)):
+            for k in ks:
+                st = make_stencil(name, dtype=dtype, **PARAMS.get(name, {}))
+                fields = tuple(torch.rand(grid, generator=gen, device=dev)
+                               .to(dtype) for _ in range(st.num_fields))
+                ref = fused.plain_steps(fields, st, k)
+                k3 = None
+                if fused.margin_of(st, k) is not None:
+                    k3 = [time_ms(torch, lambda: fused.fused_step(
+                        fields, st, k), a.reps)]
+                win = sweep(st, k, lambda: streamfused.stream_step(
+                    fields, st, k), ref, "stream_step", grid)
+                if k3 is not None:
+                    k3.append(time_ms(torch, lambda: fused.fused_step(
+                        fields, st, k), a.reps))
+                best[f"{name},{win['dtype']},{k}"] = {
+                    "tile": win["tile"], "ms": win["ms"], "k3_ms": k3}
+                del fields, ref
+                torch.cuda.empty_cache()
 
-    # one (z, y) shard of a 2x2 mesh: the core, slabs and corners
-    st = make_stencil("heat3d")
-    k, m = 4, 4
-    gshape = (2 * a.grid,) * 3
-    Lz, Ly, X = a.grid, a.grid, 2 * a.grid
+    # the shards of the targets: heat3d and wave3d, k = 4, float32 and
+    # bfloat16, beside the pad-free K9 / K6
+    for name in ("heat3d", "wave3d"):
+        for dtype in (torch.float32, torch.bfloat16):
+            st = make_stencil(name, dtype=dtype)
+            k = 4
+            m = k_step_margin(st, k)
 
-    def piece(shape):
-        return (torch.rand(shape, generator=gen, device=dev),)
+            def piece(shape):
+                return tuple(torch.rand(shape, generator=gen, device=dev)
+                             .to(dtype) for _ in range(st.num_fields))
 
-    args = (piece((Lz, Ly, X)), piece((m, Ly, X)), piece((m, Ly, X)),
-            piece((Lz, m, X)), piece((Lz, m, X)),
-            [piece((m, m, X)) for _ in range(4)], st, k, gshape, (0, 0))
-    ref = fused.plain_yzslab(*args)
-    k9 = [time_ms(lambda: fused.fused_yzslab(*args))]
-    rows = []
-    for tile in CANDIDATES:
-        streamfused.TILE = tile
-        if not streamfused.fits(st, k):
-            continue
-        got = streamfused.stream_yzslab(*args)
-        torch.cuda.synchronize()
-        err = float((got[0] - ref[0]).abs().max())
-        rows.append({"stencil": "heat3d", "k": k, "shard": [Lz, Ly, X],
-                     "tile": list(tile), "max_abs_err": err,
-                     "ms": time_ms(lambda: streamfused.stream_yzslab(*args))})
-    streamfused.TILE = default
-    k9.append(time_ms(lambda: fused.fused_yzslab(*args)))
-    for r in rows:
-        r.update(k9_ms=k9, bound_ms=2 * 4 * Lz * Ly * X / 3.35e12 * 1e3)
-        print(json.dumps(r), flush=True)
+            Lz, Ly, X = SHARDS["yzslab"]
+            gshape = (2 * Lz, 2 * Ly, X)
+            yz = (piece((Lz, Ly, X)), piece((m, Ly, X)), piece((m, Ly, X)),
+                  piece((Lz, m, X)), piece((Lz, m, X)),
+                  [piece((m, m, X)) for _ in range(4)], st, k, gshape,
+                  (0, Ly))
+            ref = fused.plain_yzslab(*yz)
+            k9 = None
+            if fused.margin_of(st, k) is not None:
+                k9 = time_ms(torch, lambda: fused.fused_yzslab(*yz), a.reps)
+            win = sweep(st, k, lambda: streamfused.stream_yzslab(*yz), ref,
+                        "stream_yzslab", (Lz, Ly, X), {"k9_ms": k9})
+            best[f"yzslab:{name},{win['dtype']},{k}"] = {
+                "tile": win["tile"], "ms": win["ms"], "k9_ms": k9}
+            del yz, ref
+            Lz, Y, X = SHARDS["zslab"]
+            zs = (piece((Lz, Y, X)), piece((m, Y, X)), piece((m, Y, X)), st,
+                  k, 4 * Lz, Lz)
+            ref = fused.plain_zslab(*zs)
+            k6 = None
+            if fused.margin_of(st, k) is not None:
+                k6 = time_ms(torch, lambda: fused.fused_zslab(*zs), a.reps)
+            win = sweep(st, k, lambda: streamfused.stream_zslab(*zs), ref,
+                        "stream_zslab", (Lz, Y, X), {"k6_ms": k6})
+            best[f"zslab:{name},{win['dtype']},{k}"] = {
+                "tile": win["tile"], "ms": win["ms"], "k6_ms": k6}
+            del zs, ref
+            torch.cuda.empty_cache()
+
+    emit({"best": best})
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "stream_tiles.json"),
+              "w") as f:
+        json.dump({"card": smi, "lines": lines}, f)
     print(smi, flush=True)
     return 0
 

@@ -337,3 +337,108 @@ def test_auto_full_k_table_starts_empty_and_upgrades_when_filled(
     assert tcli.maybe_auto_fuse(cfg).fuse == 8
     odd = dataclasses.replace(cfg, iters=12)
     assert tcli.maybe_auto_fuse(odd) is odd  # cadence not a multiple of k
+
+
+# ---- K8's streaming kind: the kernel's row schedule (csrc/ring.cuh) ----------
+
+from mpi_cuda_process_tpu_torch.ops.cuda import streamfused as tstream  # noqa
+from mpi_cuda_process_tpu_torch.ops.stencil import k_step_margin  # noqa
+
+import ring_schedule  # noqa: E402
+
+# every 2D family of K8 and the kwargs of its stencil
+SCHEDULE_2D = [("heat2d", {}), ("wave2d", {}), ("life", {}),
+               ("advect2d", {"cx": -0.4, "cy": 0.3}), ("grayscott2d", {}),
+               ("sor2d", {})]
+SCHED2D_CASES = [(name, kw, k, dtype) for name, kw in SCHEDULE_2D
+                 for k in (1, 2, 3, 4)
+                 for dtype in ((torch.int32,) if name == "life"
+                               else (torch.float32, torch.bfloat16))]
+SCHED2D_TX, SCHED2D_CZ = 8, 5  # ragged strips and chunks of (14, 21)
+
+
+def _sched2d(st, k, mode, dtype, slots, seed):
+    """K8's streaming schedule on a (14, 21) grid (raw) or a (14, 21) row
+    shard's padded block at global rows 14..27 of 42 (padded), beside the
+    wrapper's plain version (CPU tensors)."""
+    m = k_step_margin(st, k)
+    Ly, W = 14, 21
+    rows = Ly if mode == "raw" else Ly + 2 * m
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        ins = tuple(torch.from_numpy((rng.random((rows, W)) < 0.4)
+                                     .astype(np.int32))
+                    for _ in range(st.num_fields))
+    else:
+        ins = tuple(torch.from_numpy(rng.random((rows, W), dtype=np.float32))
+                    .to(dtype) for _ in range(st.num_fields))
+    if mode == "raw":
+        window = ring_schedule.window_raw(ins, m)
+        origin, gshape = (0, 0), (Ly, W)
+        ref = tfullgrid.fullgrid_step(ins, st, k)
+    else:
+        window = ring_schedule.window_rows(ins, m)
+        origin, gshape = (Ly, 0), (3 * Ly, W)
+        ref = tfullgrid.fullgrid_padded(ins, st, k, 3 * Ly, Ly)
+    got = ring_schedule.run(st, k, window, (Ly, W), origin, gshape,
+                            (SCHED2D_TX,), slots, tstream.IN_FLIGHT,
+                            chunk=SCHED2D_CZ)
+    return got, ref
+
+
+@pytest.mark.parametrize("mode", ["raw", "padded"])
+@pytest.mark.parametrize("name,kw,k,dtype", SCHED2D_CASES)
+def test_k8_stream_schedule_on_its_ring_slots_is_k_plain_steps(
+        name, kw, k, dtype, mode):
+    """K8's streaming kind (csrc/ring.cuh with the 2D kinds: strips
+    marched down chunks of rows, one ring of rows a level, each chunk led
+    in by its 2m rows) on rings of exactly ``streamfused.ring_slots``
+    rows, the counts every launch passes, reads only rows its rings hold
+    and equals k plain steps (the whole grid, a row shard's padded block)
+    bit for bit: every family, float32 and bfloat16, Life in int32."""
+    st = port.make_stencil(name, dtype=dtype, **kw)
+    got, ref = _sched2d(st, k, mode, dtype, tstream.ring_slots(st, k), 3 + k)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype == dtype
+        assert torch.equal(g, r), (name, k, mode)
+
+
+@pytest.mark.parametrize("name,kw", SCHEDULE_2D)
+def test_k8_stream_schedule_races_on_a_ring_one_slot_short(name, kw):
+    """A level-0 ring or a level ring one row shorter than ``ring_slots``
+    gives (k = 3) makes some level read a row its ring no longer, or not
+    yet, holds."""
+    st = port.make_stencil(name, **kw)
+    s0, s1 = tstream.ring_slots(st, 3)
+    for slots in ((s0 - 1, s1), (s0, s1 - 1)):
+        with pytest.raises(ring_schedule.Race):
+            _sched2d(st, 3, "padded", st.dtype, slots, 5)
+
+
+def test_k8_stream_kind_takes_every_guard_frame_launch():
+    """Every guard-frame launch of the main path (k = 8; bfloat16 k = 16,
+    sor2d 8; a 16384^2 grid or a 4096-row shard) runs the streaming kind
+    at its RING_TILES tile, whose rings fit; periodic launches, an overlap
+    shell's few rows and levels beyond a block's warps keep the tiled kind;
+    K8's admission (``fits``) is unchanged."""
+    for name, kw in SCHEDULE_2D:
+        for dtype in ((torch.int32,) if name == "life"
+                      else (torch.float32, torch.bfloat16)):
+            st = port.make_stencil(name, dtype=dtype, **kw)
+            k = tfullgrid._steps_per_launch(st)
+            for kk in (1, 8, k):
+                assert tfullgrid.ring_ok(st, kk, False, 4096)
+                assert not tfullgrid.ring_ok(st, kk, True, 4096)
+                m = tfullgrid.k_step_margin(st, kk)
+                assert not tfullgrid.ring_ok(st, kk, False, 2 * m)
+                tile = tfullgrid.ring_tile(st, kk)
+                assert tstream.smem_bytes(st, kk, tile) <= \
+                    tfullgrid.SMEM_LIMIT
+                assert tstream.level_warps_fit(tstream.levels(st, kk),
+                                               tile[2])
+                assert tile[2] <= 1024 and tile[3] in (1, 2)
+            kmain = 16 if dtype == torch.bfloat16 and name != "sor2d" else 8
+            assert (name, str(dtype)[6:], kmain) in tfullgrid.RING_TILES
+    st = port.make_stencil("heat2d")
+    assert not tfullgrid.ring_ok(st, 33, False, 16384)  # 33 levels > 32
+    assert tfullgrid.fits(st, 33)  # the tiled kind takes it

@@ -1559,3 +1559,163 @@ def test_fused_sharded_block_paths_match_plain(dev, monkeypatch, name, k32,
         for got in _all_paths(fn, monkeypatch, st, k):
             torch.cuda.synchronize()
             _check(got, ref, None, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# K10 and K8's streaming kind (csrc/ring.cuh): every family on the fast
+# paths (16-byte row copies, no y/x frame test), on the per-cell path
+# (PATHS = 0) and under two other tiles, bit-equal to the plain version
+
+# (name, float32 k, bfloat16 k) of every K10 family: the keys of
+# streamfused.TILES
+STREAM_KS = [("heat3d", 4, 4), ("heat3d27", 4, 4), ("heat3d4th", 2, 4),
+             ("wave3d", 4, 4), ("sor3d", 2, 4), ("advect3d", 4, 4),
+             ("grayscott3d", 4, 4)]
+# (40, 56, 256): interior columns (x inside the grid past the widened
+# margin) beside wall ones; (38, 50, 264): ragged extents on aligned rows;
+# (40, 36, 258): rows off the 16-byte unit (the per-cell load everywhere)
+STREAM_SHAPES = [(40, 56, 256), (38, 50, 264), (40, 36, 258)]
+# columns beside the table's: narrower (more interior blocks; two blocks
+# an SM), and one whose levels get few warps each
+STREAM_ALT_TILES = [(8, 32, 512, 2), (16, 32, 384, 1)]
+
+
+def _stream_paths(fn, monkeypatch, st, k):
+    """fn() under the table's tile, every fast path off, and each of
+    STREAM_ALT_TILES."""
+    outs = [fn()]
+    with monkeypatch.context() as mp:
+        mp.setattr(streamfused, "PATHS", 0)
+        outs.append(fn())
+    key = (st.name, str(st.dtype).replace("torch.", ""), k)
+    for tile in STREAM_ALT_TILES:
+        with monkeypatch.context() as mp:
+            mp.setitem(streamfused.TILES, key, tile)
+            assert streamfused.tile_of(st, k) == tile
+            outs.append(fn())
+    return outs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("shape", STREAM_SHAPES)
+@pytest.mark.parametrize("name,k32,k16", STREAM_KS)
+def test_stream_step_block_paths_match_plain(dev, monkeypatch, name, k32,
+                                             k16, shape, dtype):
+    """K10 (RAW) == k plain steps, bit for bit, for every family in float32
+    and bfloat16: interior columns on the fast paths, walls, x edges and
+    ragged extents on the per-cell path, under the table's tile, with the
+    fast paths off and under other tiles."""
+    st = _fused_stencil(name, dtype)
+    k = k32 if dtype == torch.float32 else k16
+    fields = tuple(f.to(dtype) for f in _fields(st, shape, dev, 1411))
+    ref = fused.plain_steps(fields, st, k)
+    streamfused.launches.clear()
+    for got in _stream_paths(lambda: streamfused.stream_step(fields, st, k),
+                             monkeypatch, st, k):
+        torch.cuda.synchronize()
+        _check(got, ref, st.halo, 0.0)
+    assert sum(streamfused.launches.values()) == 2 + len(STREAM_ALT_TILES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("origins", [(0, 0), (48, 48), (96, 48)])
+@pytest.mark.parametrize("name,k32,k16", STREAM_KS)
+def test_stream_sharded_block_paths_match_plain(dev, monkeypatch, name, k32,
+                                                k16, origins, dtype):
+    """K10's ZSLAB and YZSLAB kinds on a (48, 48, 256) shard of a
+    (144, 144, 256) grid at a wall corner, in the middle and on a z wall
+    == their plain versions bit for bit, in float32 and bfloat16, on
+    every path and tile."""
+    st = _fused_stencil(name, dtype)
+    k = k32 if dtype == torch.float32 else k16
+    m = fused.k_step_margin(st, k)
+    Lz, Ly, X = 48, 48, 256
+    gshape = (3 * Lz, 3 * Ly, X)
+    seed = iter(range(1700, 1900))
+
+    def per_field(shape):
+        return tuple(_pieces(shape, dev, next(seed)).to(dtype)
+                     for _ in range(st.num_fields))
+
+    core = per_field((Lz, Ly, X))
+    zlo, zhi = per_field((m, Ly, X)), per_field((m, Ly, X))
+    ylo, yhi = per_field((Lz, m, X)), per_field((Lz, m, X))
+    corners = [per_field((m, m, X)) for _ in range(4)]
+    yz = (core, zlo, zhi, ylo, yhi, corners, st, k, gshape, origins)
+    zs = (core, zlo, zhi, st, k, gshape[0], origins[0])
+    cases = [(lambda: streamfused.stream_zslab(*zs), fused.plain_zslab(*zs)),
+             (lambda: streamfused.stream_yzslab(*yz),
+              fused.plain_yzslab(*yz))]
+    for fn, ref in cases:
+        for got in _stream_paths(fn, monkeypatch, st, k):
+            torch.cuda.synchronize()
+            _check(got, ref, None, 0.0)
+
+
+# (name, stencil kwargs, float32/int32 k, bfloat16 k or None) of every K8
+# family at the main path's k (sor2d's margin is 2k)
+FULLGRID_KS = [("heat2d", {}, 8, 16), ("life", {}, 8, None),
+               ("wave2d", {}, 8, 16), ("advect2d", {"cx": -0.4, "cy": 0.3},
+                                       8, 16),
+               ("grayscott2d", {}, 8, 16), ("sor2d", {}, 8, 8)]
+# (100, 1600): interior strips beside wall ones; (77, 1544): ragged rows
+# and strips; (60, 1030): rows off the 16-byte unit
+RING_SHAPES_2D = [(100, 1600), (77, 1544), (60, 1030)]
+# strips beside the table's: narrow with short chunks (many chunk
+# lead-ins), and a wide one with a ragged chunk
+RING_ALT_TILES = [(128, 24, 768, 1), (512, 70, 512, 2)]
+
+
+def _ring_paths(fn, monkeypatch, st, k):
+    """fn() under the table's tile, every fast path off, and each of
+    RING_ALT_TILES."""
+    outs = [fn()]
+    with monkeypatch.context() as mp:
+        mp.setattr(fullgrid, "PATHS", 0)
+        outs.append(fn())
+    key = (st.name, str(st.dtype).replace("torch.", ""), k)
+    for tile in RING_ALT_TILES:
+        with monkeypatch.context() as mp:
+            mp.setitem(fullgrid.RING_TILES, key, tile)
+            assert fullgrid.ring_tile(st, k) == tile
+            outs.append(fn())
+    return outs
+
+
+@pytest.mark.parametrize("mode", ["raw", "padded"])
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("shape", RING_SHAPES_2D)
+@pytest.mark.parametrize("name,kw,k32,k16", FULLGRID_KS)
+def test_fullgrid_stream_kind_block_paths_match_plain(
+        dev, monkeypatch, name, kw, k32, k16, shape, dtype, mode):
+    """K8's streaming kind == k plain steps bit for bit, on the whole grid
+    (RAW) and on a row shard's padded block at global rows shape[0]..
+    of 3 shape[0] (PADDED), for every family in float32 (Life int32) and
+    bfloat16, on the fast paths, the per-cell path and other tiles."""
+    if name == "life":  # int32, its one type
+        dtype = torch.int32
+    st = port.make_stencil(name, dtype=dtype, **kw)
+    k = k16 if dtype == BF16 else k32
+    H, W = shape
+    m = fused.k_step_margin(st, k)
+    rows = H if mode == "raw" else H + 2 * m
+    fields = tuple(f.to(dtype) for f in _fields_2d(st, (rows, W), dev, 1901))
+    monkeypatch.setattr(fullgrid, "RING_MIN_LEADS", 0)  # short grids stream
+    assert fullgrid.ring_ok(st, k, False, H)
+    fullgrid.launches.clear()
+    if mode == "raw":
+        ref = fields
+        plain = driver.make_step(st, shape)
+        for _ in range(k):
+            ref = plain(ref)
+        fn = lambda: fullgrid.fullgrid_step(fields, st, k)  # noqa: E731
+    else:
+        out = fused._plain_window_steps(fields, st, k, (H - m, 0),
+                                        (3 * H, W), False, wrap_axes=(1,))
+        ref = tuple(f[m:m + H] for f in out)
+        fn = lambda: fullgrid.fullgrid_padded(  # noqa: E731
+            fields, st, k, 3 * H, H)
+    for got in _ring_paths(fn, monkeypatch, st, k):
+        torch.cuda.synchronize()
+        _check(got, ref, st.halo if mode == "raw" else None, 0.0)
+    assert sum(fullgrid.launches.values()) == 2 + len(RING_ALT_TILES)

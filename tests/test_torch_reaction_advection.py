@@ -647,9 +647,10 @@ def test_slab_and_stream_builders_refuse_the_new_families():
         for a, b in zip(tstream.stream_step(core, st, 4),
                         tfused.plain_steps(core, st, 4)):
             assert torch.equal(a, b)
-    # Gray-Scott's rings for u and v at every level: 153,408 bytes at k = 4
+    # Gray-Scott's rings for u and v at every level: 72,448 bytes at k = 4
+    # at the column every k is admitted at
     assert tstream.smem_bytes(gs, 4) == 2 * tstream.smem_bytes(adv, 4) \
-        == 153408
+        == 72448
     # the families the streaming kernel has stay admitted; 2D are not 3D
     assert tstream.stream_supported(port.make_stencil("wave3d"))
     assert not tstream.stream_supported(port.make_stencil("heat2d"))

@@ -284,8 +284,8 @@ def test_k_step_margin_is_two_per_step():
     """m = k * halo * phases: sor3d takes k = 2 and 4 and declines k = 1
     (2m off the alignment unit) and k = 8 (shared memory), as the JAX
     alignment rule and the port's fit rule say; K3 relaxes it in place in
-    one buffer of its own core; the stream kernel's eight level rings of
-    k = 4 fit, k = 5's do not."""
+    one buffer of its own core; the stream kernel's level rings fit up to
+    k = 6 (twelve half-sweeps), not at k = 7."""
     st, jst = port.make_stencil("sor3d"), jmake_stencil("sor3d")
     assert [tfused.margin_of(st, k) for k in (1, 2, 3, 4, 8)] == \
         [None, 4, None, 8, None]
@@ -297,8 +297,8 @@ def test_k_step_margin_is_two_per_step():
     assert tfused.buffers(st) == 1 and tfused.core_of(st) == tfused.SOR_CORE
     assert tfused.smem_bytes(tfused.SOR_CORE, 8, 1) == 196608 <= \
         tfused.SMEM_LIMIT
-    assert tstream.smem_bytes(st, 4) == 187456 and tstream.fits(st, 4)
-    assert not tstream.fits(st, 5)
+    assert tstream.smem_bytes(st, 4) == 96512 and tstream.fits(st, 6)
+    assert not tstream.fits(st, 7)
     s2 = port.make_stencil("sor2d")
     assert tstencil.k_step_margin(s2, 8) == 16
     assert tfullgrid._steps_per_launch(s2) == 8

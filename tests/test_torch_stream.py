@@ -115,7 +115,7 @@ def test_stream_builders_gate_like_jax_and_drop_tpu_rules():
     assert tstream.build_stream_2axis_call(st, (8, 3, 128), (16, 6, 128),
                                            4) is None
     assert tstream.make_stream_fused_step(st, (16, 16), 4) is None
-    assert tstream.make_stream_fused_step(st, GRID, 10) is None  # smem
+    assert tstream.make_stream_fused_step(st, GRID, 13) is None  # smem
     # fewer than 3 z chunks, or no y strip that divides Y = 20: JAX
     # declines, the port runs
     jst = jmake_stencil("heat3d")
@@ -452,3 +452,121 @@ def test_port_resumes_a_jax_bf16_checkpoint(tmp_path, monkeypatch, mesh):
     r = fields_from_numpy(jref, device=CPU, dtype="bfloat16")[0].float()
     tol = 32 * 2.0 ** -7 * max(float(r.abs().max()), 1.0)
     assert float((g - r).abs().max()) <= tol
+
+
+# ---- the kernel's skewed schedule and its ring slots (csrc/ring.cuh) ---------
+
+from mpi_cuda_process_tpu_torch.ops.cuda import fused as tfused  # noqa: E402
+
+import ring_schedule  # noqa: E402
+
+# every family, k = 1..4 (heat3d4th 1..2), and the kwargs of its stencil
+SCHEDULE_FAMILIES = [("heat3d", {}), ("heat3d27", {}), ("heat3d4th", {}),
+                     ("wave3d", {}), ("sor3d", {}),
+                     ("advect3d", {"cx": -0.3, "cy": 0.2, "cz": 0.25}),
+                     ("grayscott3d", {})]
+SCHEDULE_CASES = [(name, kw, k) for name, kw in SCHEDULE_FAMILIES
+                  for k in ((1, 2) if name == "heat3d4th" else (1, 2, 3, 4))]
+SCHED_CORE = (9, 10, 12)  # ragged against the emulated (6, 8) column
+SCHED_TILE = (6, 8)
+
+
+def _sched_operands(st, k, dtype, seed):
+    """A random core and every slab and corner of a (9, 10, 12) shard."""
+    m = tfused.k_step_margin(st, k)
+    Z, Y, X = SCHED_CORE
+    rng = np.random.default_rng(seed)
+
+    def per_field(shape):
+        return tuple(torch.from_numpy(rng.random(shape, dtype=np.float32))
+                     .to(dtype) for _ in range(st.num_fields))
+
+    return (per_field((Z, Y, X)), per_field((m, Y, X)), per_field((m, Y, X)),
+            per_field((Z, m, X)), per_field((Z, m, X)),
+            [per_field((m, m, X)) for _ in range(4)])
+
+
+def _schedule(st, k, mode, ops, slots):
+    """Run the kernel's schedule in source mode ``mode`` on ``ops`` with
+    ring slots ``slots``; return it beside the wrapper's plain version."""
+    m = tfused.k_step_margin(st, k)
+    core, zlo, zhi, ylo, yhi, corners = ops
+    Z, Y, X = SCHED_CORE
+    if mode == "raw":
+        window = ring_schedule.window_raw(core, m)
+        origin, gshape = (0, 0, 0), SCHED_CORE
+        ref = tfused.plain_steps(core, st, k)
+    elif mode == "zslab":
+        window = ring_schedule.window_zslab(core, zlo, zhi, m)
+        origin, gshape = (Z, 0, 0), (3 * Z, Y, X)
+        ref = tfused.plain_zslab(core, zlo, zhi, st, k, 3 * Z, Z)
+    else:
+        window = ring_schedule.window_yzslab(core, zlo, zhi, ylo, yhi,
+                                             corners, m)
+        origin, gshape = (Z, Y, 0), (3 * Z, 3 * Y, X)
+        ref = tfused.plain_yzslab(core, zlo, zhi, ylo, yhi, corners, st, k,
+                                  gshape, (Z, Y))
+    got = ring_schedule.run(st, k, window, SCHED_CORE, origin, gshape,
+                            SCHED_TILE, slots, tstream.IN_FLIGHT)
+    return got, ref
+
+
+@pytest.mark.parametrize("mode", ["raw", "zslab", "yzslab"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,kw,k", SCHEDULE_CASES)
+def test_stream_schedule_on_its_ring_slots_is_k_plain_steps(name, kw, k,
+                                                            dtype, mode):
+    """The skewed wavefront of csrc/ring.cuh (all levels between one
+    barrier and the next, IN_FLIGHT loads outstanding), run with rings of
+    exactly ``streamfused.ring_slots`` planes — the counts every launch
+    passes to the kernel — reads only planes its rings still hold (an
+    in-flight, evicted or being-written slot raises) and equals
+    plain_steps / plain_zslab / plain_yzslab bit for bit, for every family,
+    source mode and dtype, on a shard ragged against its column."""
+    st = port.make_stencil(name, dtype=dtype, **kw)
+    ops = _sched_operands(st, k, dtype, 1401 + k)
+    got, ref = _schedule(st, k, mode, ops, tstream.ring_slots(st, k))
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype == dtype
+        assert torch.equal(g, r), (name, k, mode)
+
+
+@pytest.mark.parametrize("name,kw", SCHEDULE_FAMILIES)
+def test_stream_schedule_races_on_a_ring_one_slot_short(name, kw):
+    """The schedule test bites: a level-0 ring or a level ring one slot
+    shorter than ``ring_slots`` gives (k = 3; heat3d4th 2) makes some level
+    read a slot that no longer, or not yet, holds its plane."""
+    st = port.make_stencil(name, **kw)
+    k = 2 if name == "heat3d4th" else 3
+    ops = _sched_operands(st, k, torch.float32, 7)
+    s0, s1 = tstream.ring_slots(st, k)
+    for slots in ((s0 - 1, s1), (s0, s1 - 1)):
+        with pytest.raises(ring_schedule.Race):
+            _schedule(st, k, "yzslab", ops, slots)
+
+
+def test_stream_ring_slots_and_layout():
+    """The counts the schedule needs (csrc/ring.cuh): 2h + 2 a level,
+    2h + 1 + IN_FLIGHT at level 0, one more for wave's u_prev reader; the
+    launch tile's rings fit, and every (family, k) admitted before the
+    redesign still fits."""
+    assert tstream.IN_FLIGHT == 2
+    st = port.make_stencil("heat3d")
+    assert tstream.ring_slots(st, 4) == (5, 4)
+    assert tstream.ring_slots(port.make_stencil("heat3d4th"), 2) == (7, 6)
+    wave = port.make_stencil("wave3d")
+    assert [tstream.ring_slots(wave, k) for k in (1, 2, 3)] == \
+        [(5, 4), (6, 4), (6, 5)]
+    assert tstream.ring_slots(port.make_stencil("sor3d"), 2) == (5, 4)
+    # the earlier design's limits (k of the last fitting kernel)
+    before = {"heat3d": (9, 14), "heat3d27": (9, 14), "advect3d": (9, 14),
+              "wave3d": (8, 13), "heat3d4th": (5, 7),
+              "grayscott3d": (5, 9), "sor3d": (4, 7)}
+    for name, (k32, k16) in before.items():
+        for dtype, k in ((torch.float32, k32), (torch.bfloat16, k16)):
+            s = port.make_stencil(name, dtype=dtype)
+            assert all(tstream.fits(s, j) for j in range(1, k + 1)), name
+            tile = tstream.tile_of(s, k)
+            assert tstream.smem_bytes(s, k, tile) <= tfused.SMEM_LIMIT
+            assert tstream.level_warps_fit(tstream.levels(s, k), tile[2])
+            assert tile[2] <= 1024

@@ -90,7 +90,13 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      and fullgrid.RING_TILES entry at its table tile with the fast paths
      and on the per-cell path (PATHS = 0), K10 as RAW, ZSLAB and YZSLAB on
      a (40, 112, 320) core and K8 as RAW and PADDED at (144, 1600), bit for
-     bit;
+     bit.  K4 and K7, redesigned (csrc/march.cuh): held bit for bit at every
+     shape above (zchunk_heat and whole2d at atol 0), and every
+     kernels.TILES kind at its table tile and on the other bfloat16 path on
+     blocks whose x extent falls in each residue mod 8, one plane, one row,
+     one cell, narrow ones, a run that does not divide the march extent
+     and, in bfloat16, inputs with subnormals, signed zeros and sums on
+     bfloat16 ties;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
      --compute jnp, --compute pallas, --fuse K (K = 4; 2 for heat3d4th)
@@ -220,9 +226,14 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      shard, every float 2D family at k = 16 (sor2d 8).  Then one line for
      each timed entry of the kernels this port redesigned for Hopper (K3,
      its shells, K6, K9: rows 5-11; the ring: row 19; K8 and K10: rows
-     15-18): this run's ms beside the first design's (OLD_MS, from
-     PERF.md), the fraction of the bound and the library call's ms (null
-     for K8 and K10: no one PyTorch call computes a k-step pass).
+     15-18; K4 and K7: rows 12 and 14): this run's ms beside the first
+     design's
+     (OLD_MS, from PERF.md), the fraction of the bound and the library
+     call's ms (null for K8 and K10: no one PyTorch call computes a k-step
+     pass); K5, not redesigned, printed the same way ("reread").  The
+     split of one step into pad (exchange/pad), kernel and re-pin also
+     for bfloat16 heat3d at 1024^3 on 2x2 and for heat2d --compute pallas
+     at 16384^2 in float32 and bfloat16.
 
 Every launch counter is set to 0 just before each main-path run and read
 just after.  The line before the last lists the kernels as JSON; the last
@@ -364,8 +375,19 @@ RING2D = (144, 1600)
 REDESIGNED = ("fused_step", "fused_step_padded", "fused_shell",
               "fused_zslab", "fused_yzslab", "ring_exchange", "stream_step",
               "stream_zslab", "stream_yzslab", "fullgrid_step",
-              "fullgrid_padded")
+              "fullgrid_padded", "zchunk_heat", "whole2d")
+# K5 (zchunk_wave) was not redesigned; its time is printed beside row 13's
+# the same way, to show it moved by no more than noise.
+REREAD = ("zchunk_wave",)
 OLD_MS = {
+    "zchunk_heat<heat3d>": 0.8784, "zchunk_heat<heat3d27>": 0.2119,
+    "zchunk_heat<heat3d4th>": 0.1642,
+    "zchunk_heat<heat3d,bfloat16>": 0.7687,
+    "zchunk_heat<heat3d27,bfloat16>": 0.4940,
+    "zchunk_heat<heat3d4th,bfloat16>": 0.2704,
+    "whole2d<heat2d>": 1.1859, "whole2d<life>": 1.2768,
+    "whole2d<heat2d,bfloat16>": 1.1916,
+    "zchunk_wave": 1.1981, "zchunk_wave<wave3d,bfloat16>": 0.9518,
     "stream_step<heat3d>": 4.2067, "stream_step<heat3d27>": 7.7793,
     "stream_step<heat3d4th>": 2.6682, "stream_step<wave3d>": 5.1798,
     "stream_step<sor3d>": 18.6173, "stream_step<advect3d>": 5.8207,
@@ -797,7 +819,8 @@ def main() -> int:
             got = kernels.make_pallas_compute(st, device=dev)(ins)[:1]
             entry = ("zchunk_wave" if name == "wave3d"
                      else f"zchunk_heat<{name}>")
-            atol = rtol = 1e-6
+            # K4 (redesigned) bit for bit; K5 within its tolerance
+            atol = rtol = 1e-6 if name == "wave3d" else 0.0
             frame = None
             if name == "wave3d" and kernels.make_pallas_compute(st)(
                     ins)[1] is not ins[1]:
@@ -991,7 +1014,7 @@ def main() -> int:
             ins = rand2d(name, tuple(s + 2 for s in shape))
             ref = st.update(ins)
             got = kernels.make_pallas_compute(st, device=dev)(ins)
-            atol = rtol = 0.0 if exact else 1e-6
+            atol = rtol = 0.0  # K7 (redesigned): bit for bit
             frame = None
         elif path == "fullgrid_step":
             fields = rand2d(name, shape)
@@ -1445,6 +1468,45 @@ def main() -> int:
                                 "tile": list(tile), "max_abs_err": err,
                                 "atol": 0.0})
             del fields, ref
+    # K4 and K7, redesigned (csrc/march.cuh): every kernels.TILES kind at
+    # its table tile (bfloat16: cells in pairs), bit for bit against the
+    # plain update, on blocks whose x extent falls in each residue mod 8,
+    # one plane, one row, one cell, narrow ones, a run that does not
+    # divide the march extent and, in bfloat16, inputs with subnormals,
+    # signed zeros and sums on bfloat16 ties
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from compute_schedule import special_bf16
+
+    for (name, dname), tile in sorted(kernels.TILES.items(),
+                                      key=lambda kv: kv[0]):
+        st = case_stencil(name, None if name == "life"
+                          else getattr(torch, dname))
+        run = tile.zrun
+        if st.ndim == 3:
+            shapes = [(5, 6, 64 + r) for r in range(8)] + [
+                (1, 9, 37), (7, 1, 130), (9, 5, 1), (3, 2, 7),
+                (run + 3, 3, 33), (2, 40, 300)]
+        else:
+            shapes = [(7, 512 + r) for r in range(8)] + [
+                (1, 1000), (600, 1), (5, 3), (run + 3, 129), (2, 9000)]
+        wrapper = "whole2d" if st.ndim == 2 else "zchunk_heat"
+        for shape in shapes:
+            padded = tuple(s_ + 2 * st.halo for s_ in shape)
+            for special in ((False, True) if dname == BF16 else (False,)):
+                if name == "life":
+                    p = (rand(padded) < 0.35).to(torch.int32)
+                elif special:
+                    p = special_bf16(padded, gen, dev)
+                else:
+                    p = rand(padded).to(st.dtype)
+                got = kernels.make_pallas_compute(st, device=dev)((p,))
+                ref = st.update((p,))
+                torch.cuda.synchronize()
+                entry = f"{wrapper}<{name},{dname}>"
+                err = compare(entry, got, ref, 0.0, None)
+                checked.append({"kernel": entry, "shape": list(shape),
+                                "tile": list(tile), "special": special,
+                                "max_abs_err": err, "atol": 0.0})
     for c in counters:
         c.clear()
     emit({"phase": "kernels", "ok": True, "seconds": took(),
@@ -2524,6 +2586,25 @@ def main() -> int:
             "steps_per_launch": k, "shape": list(shape),
             "launches_per_step": per_step})
 
+    def split2d(st, ins_shape, make):
+        """One --compute pallas step of ``st`` at 16384^2 split by CUDA
+        events into pad, K7 and re-pin (driver.make_step's pieces)."""
+        f = make(GRID2D)
+        bc = st.bc_value[0]
+        comp = kernels.make_pallas_compute(st, device=dev)
+        padded = driver.pad(f, 1, False, bc)
+        new = comp((padded,))[0]
+        mask = driver.frame_mask(GRID2D, GRID2D, (0, 0), 1, dev)
+        step = driver.make_step(st, GRID2D, compute_fn=comp)
+        row = {"stencil": st.name, "grid": list(GRID2D),
+               "dtype": str(st.dtype).replace("torch.", ""),
+               "pad_ms": time_ms(lambda: driver.pad(f, 1, False, bc), 10),
+               "kernel_ms": time_ms(lambda: comp((padded,)), 10),
+               "repin_ms": time_ms(lambda: torch.where(mask, f, new), 10),
+               "step_ms": time_ms(lambda: step((f,)), 10)}
+        del f, padded, new, mask
+        return row
+
     cells = math.prod(MAIN)
     nbytes = 4 * cells
     for entry, wrapper, name, k, replaces in (
@@ -2849,6 +2930,8 @@ def main() -> int:
                ms, plain_ms, 4 * ((H + 2) * (W + 2) + cells2d),
                FLOPS_PER_CELL[name] * cells2d, library_ms, 1, GRID2D, 1.0)
         del ins
+        if name == "heat2d":
+            split.append(split2d(st, GRID2D, lambda s_: rand(s_)))
     k = FUSE2D
     for name in ("life", "heat2d", "wave2d", "advect2d", "grayscott2d",
                  "sor2d"):
@@ -3332,6 +3415,30 @@ def main() -> int:
                2 * (math.prod(padded) + lcells * nf),
                FLOPS_PER_CELL[name] * lcells, library_ms, 1, local, 4.0,
                dtype=BF16)
+        if name == "heat3d":
+            # one bf16 sharded step on 2x2 at 1024^3, split as the f32 one
+            del ins
+            mesh = virtual_mesh((2, 2))
+            fields = stepper.shard_fields((rand16(grid),), mesh, 3)
+            step = stepper.make_sharded_step(st, mesh, grid, compute_fn=comp)
+            ex = lambda: [halo.exchange_and_pad(fields[0], mesh, h,
+                                                st.bc_value[0])]
+            pads = ex()
+            new = [comp((pads[0][i],)) for i in range(4)]
+            masks = [driver.frame_mask(
+                local, grid, stepper.shard_offsets(c, local), h, dev)
+                for c in mesh.coords()]
+            split.append({
+                "stencil": name, "grid": list(grid), "mesh": [2, 2],
+                "dtype": BF16, "exchange_pad_ms": time_ms(ex, 5),
+                "kernel_ms": time_ms(lambda: [comp((pads[0][i],))
+                                              for i in range(4)], 5),
+                "repin_ms": time_ms(
+                    lambda: [torch.where(masks[i], fields[0][i],
+                                         new[i][0]) for i in range(4)], 5),
+                "step_ms": time_ms(lambda: step(fields), 5)})
+            del fields, pads, new, masks
+            ins = ()
         del ins
         torch.cuda.empty_cache()
     st = make_stencil("heat2d", dtype=BF16)
@@ -3354,6 +3461,7 @@ def main() -> int:
            2 * ((H + 2) * (W + 2) + cells2d), FLOPS_PER_CELL["heat2d"]
            * cells2d, library_ms, 1, GRID2D, 1.0, dtype=BF16)
     del ins, x2
+    split.append(split2d(st, GRID2D, rand16))
     for name, k in BF16_FUSE2D.items():
         st = main_stencil(name, BF16)
         nf, m = st.num_fields, k_step_margin(st, k)
@@ -3413,10 +3521,12 @@ def main() -> int:
     # the redesigned kernels (rows 5-11, 15-19), one line each: this run's
     # ms beside the first design's (OLD_MS) and the fraction of the bound
     for kk in kernels_out:
-        if kk["name"].partition("<")[0] not in REDESIGNED:
+        wrapper = kk["name"].partition("<")[0]
+        if wrapper not in REDESIGNED + REREAD:
             continue
         old = OLD_MS.get(kk["name"])
-        emit({"phase": "redesign", "name": kk["name"], "old_ms": old,
+        emit({"phase": "redesign" if wrapper in REDESIGNED else "reread",
+              "name": kk["name"], "old_ms": old,
               "old_from": "PERF.md section 6" if old else None,
               "ms": kk["ms"], "bound_ms": kk["bound_ms"],
               "fraction_of_bound": kk["bound_ms"] / kk["ms"],

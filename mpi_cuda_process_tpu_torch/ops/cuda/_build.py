@@ -116,6 +116,42 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+# Shared memory on Hopper: the dynamic shared memory one block may use
+# (232,448 bytes), and what one SM holds for all its blocks (233,472).
+SMEM_LIMIT = 227 * 1024
+SMEM_PER_SM = 228 * 1024
+
+_SMS: Dict[int, int] = {}  # device index -> streaming multiprocessors
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of CUDA ``device``, read once."""
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device.index]
+
+
+def fit_runs(extent: int, run: int, tiles: int, lead: int, slots: int,
+             waves: int = 0) -> int:
+    """The planes (rows) of one run of a persistent launch that marches
+    ``extent`` planes in runs of at most ``run``, ``tiles`` tiles side by
+    side: ``run``, or fewer where more runs fill the card's last wave of
+    blocks (``slots``: the blocks it holds at once) for less than they add
+    in lead-in (``lead`` planes a run reads before its first output).
+    Tries up to 4 times the runs of ``run``, or enough runs for ``waves``
+    waves if that is more, and minimises waves x (planes a run + lead)."""
+    first = -(-extent // run)
+    most = min(extent, max(4 * first, -(-waves * slots // tiles)))
+    best = None
+    for runs in range(first, most + 1):
+        planes = -(-extent // runs)
+        cost = -(-tiles * runs // slots) * (planes + lead)
+        if best is None or cost < best[0]:
+            best = (cost, planes)
+    return best[1]
+
+
 # The storage types of the float kernels (every kernel but Life's kinds of
 # K7 and K8, which take int32), and the suffix of each type's C entry
 # point: one source, an "_f32" and a "_bf16" export.

@@ -56,9 +56,9 @@ struct Strided2 {
 
 // 5-point Laplacian: ((((y-) + (y+)) + (x-)) + (x+)) - 4 u.
 template <class A>
-__device__ __forceinline__ float lap5(const A& a) {
+__device__ __forceinline__ auto lap5(const A& a) {
   using T = typename A::value_type;
-  float acc = a(-1, 0);
+  auto acc = a(-1, 0);
   acc = fadd<T>(acc, a(1, 0));
   acc = fadd<T>(acc, a(0, -1));
   acc = fadd<T>(acc, a(0, 1));
@@ -67,7 +67,7 @@ __device__ __forceinline__ float lap5(const A& a) {
 
 // heat2d / mdf: u + alpha * lap5(u).
 template <class A>
-__device__ __forceinline__ float heat5(const A& a, float alpha) {
+__device__ __forceinline__ auto heat5(const A& a, float alpha) {
   using T = typename A::value_type;
   return fadd<T>(a(0, 0), fmul<T>(alpha, lap5(a)));
 }

@@ -111,6 +111,46 @@ __device__ __forceinline__ float fmul(float x, float y) {
   return round_to<T>(__fmul_rn(x, y));
 }
 
+// Two bfloat16 values in one 32-bit word (the lower address in the low
+// half): the packed operand of the compute_fn kernels' paired cells
+// (march.cuh).  An op on two bfloat16 operands rounds its exact result to
+// bfloat16 once (add.rn / sub.rn / mul.rn .bf16x2); the float helpers above
+// round it to float first and then to bfloat16, which gives the same value
+// because float's 24 bits are at least 2 * 8 + 2 (double rounding is then
+// innocuous for +, - and *).  A float coefficient enters a packed product
+// only where it is a bfloat16 value itself; any other is multiplied in
+// float on each half and rounded, as fmul<__nv_bfloat16> does.
+struct bf2 {
+  unsigned v;
+};
+
+template <class T>
+__device__ __forceinline__ bf2 fadd(bf2 x, bf2 y) {
+  bf2 d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(x.v), "r"(y.v));
+  return d;
+}
+template <class T>
+__device__ __forceinline__ bf2 fsub(bf2 x, bf2 y) {
+  bf2 d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(x.v), "r"(y.v));
+  return d;
+}
+template <class T>
+__device__ __forceinline__ bf2 fmul(float c, bf2 y) {
+  const unsigned cb = __float_as_uint(c);
+  bf2 d;
+  if ((cb & 0xffffu) == 0u) {  // c is a bfloat16 value: one packed product
+    const unsigned cc = (cb >> 16) | cb;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(cc), "r"(y.v));
+  } else {
+    const float lo = __fmul_rn(c, __uint_as_float(y.v << 16));
+    const float hi = __fmul_rn(c, __uint_as_float(y.v & 0xffff0000u));
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d.v) : "f"(hi), "f"(lo));
+  }
+  return d;
+}
+
 // Neighbour access for the updates: a(dz, dy, dx) is the value dz planes,
 // dy rows and dx cells away from the updated cell.  Strided reads a block
 // laid out in memory (a global grid, a shared-memory window); the streaming
@@ -130,9 +170,9 @@ struct Strided {
 // 7-point Laplacian: faces summed z-, z+, y-, y+, x-, x+ (left-associated),
 // then minus 6 u — ops/stencil.py::axis_laplacian.
 template <class A>
-__device__ __forceinline__ float lap7(const A& a) {
+__device__ __forceinline__ auto lap7(const A& a) {
   using T = typename A::value_type;
-  float acc = a(-1, 0, 0);
+  auto acc = a(-1, 0, 0);
   acc = fadd<T>(acc, a(1, 0, 0));
   acc = fadd<T>(acc, a(0, -1, 0));
   acc = fadd<T>(acc, a(0, 1, 0));
@@ -143,21 +183,21 @@ __device__ __forceinline__ float lap7(const A& a) {
 
 // The neighbour s cells away along axis d (0 = z, 1 = y, 2 = x).
 template <class A>
-__device__ __forceinline__ float along(const A& a, int d, int s) {
+__device__ __forceinline__ auto along(const A& a, int d, int s) {
   return d == 0 ? a(s, 0, 0) : (d == 1 ? a(0, s, 0) : a(0, 0, s));
 }
 
 // New value of a single-field heat cell (not frame-pinned).
 template <int KIND, class A>
-__device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
+__device__ __forceinline__ auto heat_update(const A& a, const Coef& c) {
   using T = typename A::value_type;
-  const float u = a(0, 0, 0);
+  const auto u = a(0, 0, 0);
   if (KIND == HEAT7) {
     return fadd<T>(u, fmul<T>(c.a, lap7(a)));
   } else if (KIND == HEAT27) {
     // centre first, then the 26 offsets in (dz, dy, dx) lexicographic
     // order — itertools.product((-1, 0, 1), repeat=3) in ops/heat.py.
-    float acc = fmul<T>(c.c0, u);
+    auto acc = fmul<T>(c.c0, u);
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
 #pragma unroll
@@ -173,7 +213,7 @@ __device__ __forceinline__ float heat_update(const A& a, const Coef& c) {
     }
     return fadd<T>(u, fmul<T>(c.a, acc));
   } else {  // HEAT13: axes z, y, x; distances 1, 2; sign -, +.
-    float acc = fmul<T>(c.c0, u);
+    auto acc = fmul<T>(c.c0, u);
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
 #pragma unroll

@@ -16,79 +16,68 @@
 //
 // Bound on an H100: device-memory bytes.  One launch must read the padded
 // block once and write the interior once, 8 B per cell (bfloat16: 4),
-// against 6 flop (heat) or 8 integer adds (life).  Design against that
-// bound: each block stages a (TY+2, BX+2) tile in shared memory with
-// coalesced row loads and writes its (TY, BX) core with coalesced row
-// stores, so every input cell is read from device memory about
-// (TY+2)(BX+2)/(TY BX) = 1.13 times.
+// against 7 flop (heat) or 8 integer adds (life).  K7 is march.cuh's
+// kernel with a row for a plane: a block of TX columns marches down a run
+// of ZR rows, each padded row segment landing in a ring of rows in shared
+// memory by 16-byte cp.async of the aligned words that cover it (the row
+// pitch W + 2 is rarely 16-byte aligned), a few rows ahead, and the
+// block's threads update the row whose neighbours are in, reading the taps
+// from shared memory (bfloat16: pairs of cells with the bf16x2 ops).
 
-#include "stencil2d.cuh"
+#include "march.cuh"
 
+// One K7 launch on `stream`: out (H, W) = update of the padded p
+// (H+2, W+2); `a` is alpha (HEAT5) and unused by LIFE.  The tile names its
+// build (kernels.BUILDS), its columns TX and rows a run ZR; the row buffer
+// bytes and ring slots come from kernels.march_geometry and are checked
+// here.  HEAT5 on float32 and LIFE on int32 here, HEAT5 on bfloat16 (its
+// cells in pairs) in the _bf16 twin.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a geometry the kernel
+// does not take.
 namespace {
 
-constexpr int BX = 32, BY = 8, TY = 32;
-
-// T: float or __nv_bfloat16 for HEAT5, int for LIFE.
-template <int KIND, class T>
-__global__ void __launch_bounds__(BX * BY)
-whole2d(const T* __restrict__ p, T* __restrict__ out, int H, int W,
-        float a) {
-  // raw storage: a __shared__ array may not hold a type with a constructor
-  __shared__ __align__(16) unsigned char raw[sizeof(T) * (TY + 2) * (BX + 2)];
-  auto tile = reinterpret_cast<T(*)[BX + 2]>(raw);
-  const int x0 = blockIdx.x * BX, y0 = blockIdx.y * TY;
-  const long sp = static_cast<long>(W) + 2;
-  for (int ty = threadIdx.y; ty < TY + 2; ty += BY) {
-    for (int tx = threadIdx.x; tx < BX + 2; tx += BX) {
-      // past the ragged edge: any padded cell (those outputs are masked)
-      const int py = min(y0 + ty, H + 1), px = min(x0 + tx, W + 1);
-      tile[ty][tx] = p[py * sp + px];
-    }
-  }
-  __syncthreads();
-  const int x = x0 + threadIdx.x;
-  if (x >= W) return;
-  for (int ty = threadIdx.y; ty < TY && y0 + ty < H; ty += BY) {
-    const T* c = &tile[ty + 1][threadIdx.x + 1];
-    T v;
-    if constexpr (KIND == LIFE) {
-      v = life8(c, BX + 2);
-    } else {
-      v = narrow<T>(heat5(c, BX + 2, a));
-    }
-    out[static_cast<long>(y0 + ty) * W + x] = v;
-  }
-}
-
-template <int KIND, class T>
-int launch(const void* p, void* out, int H, int W, float a, void* stream) {
-  const dim3 block(BX, BY, 1);
-  const dim3 grid((W + BX - 1) / BX, (H + TY - 1) / TY, 1);
-  whole2d<KIND><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(p), static_cast<T*>(out), H, W, a);
-  return static_cast<int>(cudaGetLastError());
+march::Geom geom2d(int H, int W, int tx, int zr, int rwb, int slots) {
+  march::Geom g{H, 1, W, 1, W + 2, tx, 1, zr, 1, rwb, slots, 0, 1, 0};
+  g.tiles_x = tx > 0 ? (W + tx - 1) / tx : 0;
+  g.runs = zr > 0 ? (H + zr - 1) / zr : 0;
+  return g;
 }
 
 }  // namespace
 
-// One K7 launch on `stream`: out (H, W) = update of the padded p
-// (H+2, W+2); `a` is alpha (HEAT5, float32) and unused by LIFE (int32).
-// Returns cudaGetLastError().
 EXPORT int whole2d_step(int kind, const void* p, void* out, int H, int W,
-                        float a, void* stream) {
+                        float a, int build, int tx, int zr, int rwb,
+                        int slots, void* stream) {
+  const march::Geom g = geom2d(H, W, tx, zr, rwb, slots);
+  const Coef c{a, 0.f, 0.f, 0.f, 0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (g.tiles_x < 1 || g.runs < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (kind) {
     case HEAT5:
-      return launch<HEAT5, float>(p, out, H, W, a, stream);
+      return march::launch_build<HEAT5, float>(
+          build, false, static_cast<const float*>(p),
+          static_cast<float*>(out), g, c, s);
     case LIFE:
-      return launch<LIFE, int>(p, out, H, W, a, stream);
+      return march::launch_build<LIFE, int>(
+          build, false, static_cast<const int*>(p), static_cast<int*>(out),
+          g, c, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// Its twin on bfloat16 operands (HEAT5 only: Life is int32).
-EXPORT int whole2d_step_bf16(int kind, const void* p, void* out, int H, int W,
-                             float a, void* stream) {
-  if (kind != HEAT5) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<HEAT5, __nv_bfloat16>(p, out, H, W, a, stream);
+EXPORT int whole2d_step_bf16(int kind, const void* p, void* out, int H,
+                             int W, float a, int build, int tx, int zr,
+                             int rwb, int slots, void* stream) {
+  const march::Geom g = geom2d(H, W, tx, zr, rwb, slots);
+  const Coef c{a, 0.f, 0.f, 0.f, 0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind != HEAT5 || g.tiles_x < 1 || g.runs < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return march::launch_build<HEAT5, __nv_bfloat16>(
+      build, false, static_cast<const __nv_bfloat16*>(p),
+      static_cast<__nv_bfloat16*>(out), g, c, s);
 }

@@ -5,9 +5,7 @@
 // _zchunk_kernel with the _slab_taps_7 / _slab_taps_27 / _slab_taps_13 tap
 // sets (K4) and _wave3d_compute's _zchunk_wave_kernel (K5).  There each
 // program holds a z-chunk of bz padded planes plus a 2*halo tail in VMEM;
-// bz must divide Z (a VMEM sizing rule).  Here any extent is accepted: every
-// thread owns one (y, x) column of the output and marches over a run of
-// ZRUN planes, reading its taps straight from device memory.
+// bz must divide Z (a VMEM sizing rule).  Here any extent is accepted.
 //
 // Input: the padded block (Z+2h, Y+2h, X+2h) — from the halo exchange under
 // --mesh, from the wrap pad under --periodic.  Output: the (Z, Y, X)
@@ -21,41 +19,31 @@
 //
 // Storage type T: float32 or bfloat16 (the operands and the output), with
 // stencil_taps.cuh's arithmetic: float, rounded to bfloat16 after every op
-// as the plain version rounds it, so the bfloat16 kernels are bit-equal to
-// the plain version on bfloat16 tensors too.
+// as the plain version rounds it, or (K4, on pairs of cells) the bf16x2
+// ops, which round each op's exact result once to the same value; so the
+// bfloat16 kernels are bit-equal to the plain version on bfloat16 tensors
+// too.
 //
 // Bound on an H100: device-memory bytes.  One launch must read the padded
 // block once and write the interior once (K5 also reads u_prev): about
 // 8 (K5: 12) B per cell in float32, half that in bfloat16, against 10-55
-// flop, below the ~20 flop/B float32 ridge.  Design against that bound: a
-// warp covers 32 consecutive x cells, so loads and stores are coalesced
-// lines; the z and y neighbours of a cell are the centre loads of the
-// threads marching beside and behind it, served from L1/L2.  No
-// shared-memory tile yet.
+// flop, below the ~20 flop/B float32 ridge.
+//
+// K4 is march.cuh's 2.5D kernel: a block owns a (TY, TX) tile of the
+// planes and marches down z through a ring of padded planes in shared
+// memory, filled by 16-byte cp.async of the aligned words that cover each
+// row, so every cell is read from device memory about once and the taps
+// come from shared memory (and, for heat3d and heat3d4th, the z taps from
+// a register queue).  K5 has no shared-memory tile: a thread owns one
+// (y, x) column over a run of ZRUN planes and reads every tap from device
+// memory through L1; on an H100 it reaches 82 % of its byte bound in
+// float32.
 
-#include "stencil_taps.cuh"
+#include "march.cuh"
 
 namespace {
 
 constexpr int BX = 32, BY = 8, ZRUN = 8;
-
-template <int KIND, class T>
-__global__ void __launch_bounds__(BX * BY)
-zchunk_heat(const T* __restrict__ p, T* __restrict__ out, int Z, int Y,
-            int X, Coef c) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= X || y >= Y) return;
-  constexpr int h = kind_halo(KIND);
-  const long sy = X + 2 * h, sz = sy * (Y + 2 * h);
-  const long oy = X, oz = static_cast<long>(X) * Y;
-  const int z0 = blockIdx.z * ZRUN;
-  const int z1 = min(z0 + ZRUN, Z);
-  for (int z = z0; z < z1; ++z) {
-    const T* q = p + (z + h) * sz + (y + h) * sy + (x + h);
-    out[z * oz + y * oy + x] = narrow<T>(heat_update<KIND>(q, sy, sz, c));
-  }
-}
 
 template <class T>
 __global__ void __launch_bounds__(BX * BY)
@@ -80,27 +68,6 @@ dim3 grid_for(int Z, int Y, int X) {
 }
 
 template <class T>
-int launch_heat(int kind, const T* p, T* out, int Z, int Y, int X,
-                const Coef& c, void* stream) {
-  const dim3 block(BX, BY, 1), grid = grid_for(Z, Y, X);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case HEAT7:
-      zchunk_heat<HEAT7><<<grid, block, 0, s>>>(p, out, Z, Y, X, c);
-      break;
-    case HEAT27:
-      zchunk_heat<HEAT27><<<grid, block, 0, s>>>(p, out, Z, Y, X, c);
-      break;
-    case HEAT13:
-      zchunk_heat<HEAT13><<<grid, block, 0, s>>>(p, out, Z, Y, X, c);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class T>
 int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
                 float c2dt2, void* stream) {
   const Coef c{c2dt2, 0.f, 0.f, 0.f, 0.f};
@@ -111,22 +78,6 @@ int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
 }
 
 }  // namespace
-
-// One K4 launch on `stream`: out (Z, Y, X) = update of the padded p.
-// Returns cudaGetLastError().  Each export has a _bf16 twin on bfloat16
-// operands.
-EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z, int Y,
-                           int X, float a, float c0, float c1, float c2,
-                           float c3, void* stream) {
-  return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
-}
-
-EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
-                            __nv_bfloat16* out, int Z, int Y, int X, float a,
-                            float c0, float c1, float c2, float c3,
-                            void* stream) {
-  return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
-}
 
 // One K5 launch on `stream`: out = new u from the padded u and the
 // unpadded u_prev.  Returns cudaGetLastError().
@@ -139,4 +90,59 @@ EXPORT int zchunk_wave_bf16(const __nv_bfloat16* p,
                             const __nv_bfloat16* uprev, __nv_bfloat16* out,
                             int Z, int Y, int X, float c2dt2, void* stream) {
   return launch_wave(p, uprev, out, Z, Y, X, c2dt2, stream);
+}
+
+// One K4 launch on `stream` (march.cuh): out (Z, Y, X) = update of the
+// padded p.  The tile names its build (kernels.BUILDS), whether the z taps
+// come from a register queue (zq), its cells TX, rows TY and run of ZR
+// planes; the row buffer bytes and ring slots come from
+// kernels.march_geometry and are checked here.  Returns cudaGetLastError()
+// or cudaErrorInvalidValue for a geometry the kernel does not take.  Each
+// export has a _bf16 twin on bfloat16 operands (their cells in pairs).
+namespace {
+
+template <class T>
+int launch_tiled(int kind, const T* p, T* out, int Z, int Y, int X,
+                 const Coef& c, int build, bool zq, int tx, int ty, int zr,
+                 int rwb, int slots, void* stream) {
+  const int h = kind_halo(kind);
+  march::Geom g{Z, Y, X, Y + 2 * h, X + 2 * h, tx, ty, zr, ty + 2 * h, rwb,
+                slots, 0, 0, 0};
+  if (tx < 1 || ty < 1 || zr < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  g.tiles_x = (X + tx - 1) / tx;
+  g.tiles_y = (Y + ty - 1) / ty;
+  g.runs = (Z + zr - 1) / zr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case HEAT7:
+      return march::launch_build<HEAT7, T>(build, zq, p, out, g, c, s);
+    case HEAT27:
+      return march::launch_build<HEAT27, T>(build, zq, p, out, g, c, s);
+    case HEAT13:
+      return march::launch_build<HEAT13, T>(build, zq, p, out, g, c, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z,
+                           int Y, int X, float a, float c0, float c1,
+                           float c2, float c3, int build, int zq, int tx,
+                           int ty, int zr, int rwb, int slots,
+                           void* stream) {
+  return launch_tiled(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
+                      zq != 0, tx, ty, zr, rwb, slots, stream);
+}
+
+EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
+                            __nv_bfloat16* out, int Z, int Y, int X, float a,
+                            float c0, float c1, float c2, float c3,
+                            int build, int zq, int tx, int ty, int zr,
+                            int rwb, int slots, void* stream) {
+  return launch_tiled(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
+                      zq != 0, tx, ty, zr, rwb, slots, stream);
 }

@@ -160,27 +160,17 @@ def ring_ok(stencil: Stencil, k: int, periodic: bool, rows: int) -> bool:
             and ring_smem_bytes(stencil, k, RING_FIT) <= SMEM_LIMIT)
 
 
-_SMS: dict = {}  # device index -> streaming multiprocessors
-
-
 def chunk_rows(stencil: Stencil, k: int, rows: int, width: int,
                tile: Sequence[int], slots: int) -> int:
     """The rows of a block's chunk: the tile's CZ, or fewer where more
     chunks fill the card's last wave of blocks (``slots``: the blocks the
     card holds at once) for less than they add in lead-in rows (each chunk
     re-reads 2m rows and fills its wavefront over K (h + 1) more).
-    Minimises waves x (rows a chunk + lead-in)."""
+    Minimises waves x (rows a chunk + lead-in) over up to 4 times the
+    tile's chunks (``_build.fit_runs``)."""
     tx, cz = int(tile[0]), int(tile[1])
-    strips = -(-width // tx)
-    lead = _lead(stencil, k)
-    first = -(-rows // cz)
-    best = None
-    for chunks in range(first, 4 * first + 1):
-        czc = -(-rows // chunks)
-        cost = -(-strips * chunks // slots) * (czc + lead)
-        if best is None or cost < best[0]:
-            best = (cost, czc)
-    return best[1]
+    return _build.fit_runs(rows, cz, -(-width // tx), _lead(stencil, k),
+                           slots)
 
 
 def _ring_tail(stencil: Stencil, k: int, rows: int, operands):
@@ -189,13 +179,9 @@ def _ring_tail(stencil: Stencil, k: int, rows: int, operands):
     fast paths, then the stream."""
     paths = PATHS & ~VEC_LOAD if any(t.data_ptr() % 16 for t in operands) \
         else PATHS
-    dev = operands[0].device
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
     tx, cz, threads, blocks = ring_tile(stencil, k)
     cz = chunk_rows(stencil, k, rows, int(operands[0].shape[1]),
-                    (tx, cz), _SMS[dev.index] * blocks)
+                    (tx, cz), _build.sm_count(operands[0].device) * blocks)
     return (*_coefficients(stencil), tx, cz, threads, blocks,
             *ring_slots(stencil, k), paths, _build.stream_of(operands[0]))
 

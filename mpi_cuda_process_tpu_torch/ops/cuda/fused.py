@@ -73,8 +73,8 @@ _FUSED = {"heat3d": (0, 1), "heat3d27": (1, 1), "heat3d4th": (2, 2),
           "wave3d": (3, 1), "advect3d": (7, 1), "grayscott3d": (8, 1),
           "sor3d": (11, 1)}
 
-# Dynamic shared memory one block may use on Hopper (232,448 bytes).
-SMEM_LIMIT = 227 * 1024
+# Dynamic shared memory one block may use on Hopper.
+SMEM_LIMIT = _build.SMEM_LIMIT
 # Core tile (TZ, TY, TX) each block writes.  32 x-cells keep a warp's loads
 # and stores on consecutive addresses.  Every (stencil, k) the alignment rule
 # accepts either fits at this core (halo-1 k <= 8, heat3d4th k <= 4: at most

@@ -1,0 +1,369 @@
+"""The tiled compute_fn kernels K4 / K7 (csrc/march.cuh) on the CPU.
+
+No card here: these hold what the kernel's launches are made of — the tile
+table, the ring geometry, the aligned-word copy of each row segment
+(``kernels.row_copy_plan``) and the ring's schedule (replayed by
+``tests/compute_schedule.py`` with the plain update) — and the claim the
+packed bfloat16 path rests on: one rounding of an op's exact result to
+bfloat16 gives what the plain version's float-then-bfloat16 gives.  The
+kernels themselves are held to their plain versions bit for bit on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from mpi_cuda_process_tpu_torch import make_stencil
+from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels
+
+import compute_schedule  # noqa: E402  (tests/, on pytest's path)
+
+KINDS = [("heat3d", torch.float32), ("heat3d", torch.bfloat16),
+         ("heat3d27", torch.float32), ("heat3d27", torch.bfloat16),
+         ("heat3d4th", torch.float32), ("heat3d4th", torch.bfloat16),
+         ("heat2d", torch.float32), ("heat2d", torch.bfloat16),
+         ("life", torch.int32)]
+
+
+def _stencil(name, dtype):
+    return make_stencil(name) if dtype == torch.int32 else \
+        make_stencil(name, dtype=dtype)
+
+
+def _ids(cases):
+    return [f"{n}-{str(d).replace('torch.', '')}" for n, d in cases]
+
+
+@pytest.mark.parametrize("name,dtype", KINDS, ids=_ids(KINDS))
+def test_every_table_tile_fits_and_was_a_timed_candidate(name, dtype):
+    st = _stencil(name, dtype)
+    key = (name, str(dtype).replace("torch.", ""))
+    assert key in kernels.TILES
+    tile = kernels.TILES[key]
+    assert kernels.tile_fits(st, tile)
+    assert tile in kernels.candidates(st)
+    geo = kernels.march_geometry(st, tile)
+    assert geo.smem <= _build.SMEM_LIMIT
+    assert tile.blocks * geo.smem <= _build.SMEM_PER_SM
+    assert kernels.tile_of(st) == tile
+
+
+def test_tiles_the_kernel_does_not_take_are_refused():
+    f32 = make_stencil("heat3d")
+    bf = make_stencil("heat3d", dtype=torch.bfloat16)
+    assert kernels.tile_fits(f32, kernels.Tile(256, 2, 128, 16, 64))
+    # bfloat16 takes its cells in pairs: a tile row of single cells is
+    # not one of its unrolls
+    assert not kernels.tile_fits(bf, kernels.Tile(256, 2, 128, 16, 64))
+    assert kernels.tile_fits(bf, kernels.Tile(256, 2, 256, 16, 64))
+    assert not kernels.tile_fits(f32, kernels.Tile(128, 8, 128, 16, 64))
+    assert not kernels.tile_fits(f32, kernels.Tile(256, 2, 48, 16, 64))
+    assert not kernels.tile_fits(bf, kernels.Tile(256, 2, 32, 8, 64))
+    assert not kernels.tile_fits(f32, kernels.Tile(256, 2, 128, 256, 64))
+    assert not kernels.tile_fits(make_stencil("heat2d"),
+                                 kernels.Tile(256, 2, 1024, 2, 64))
+    # the z queue: heat3d and heat3d4th only, a tile of one row a group
+    assert kernels.tile_fits(f32, kernels.Tile(256, 2, 128, 8, 64, 1, True))
+    assert not kernels.tile_fits(f32, kernels.Tile(256, 2, 128, 16, 64, 1,
+                                                   True))
+    assert not kernels.tile_fits(make_stencil("heat3d27"), kernels.Tile(
+        256, 2, 128, 8, 64, 1, True))
+    saved = dict(kernels.TILES)
+    try:
+        kernels.TILES[("heat3d", "float32")] = kernels.Tile(256, 2, 48, 16,
+                                                            64)
+        with pytest.raises(ValueError, match="does not fit"):
+            kernels.tile_of(f32)
+    finally:
+        kernels.TILES.clear()
+        kernels.TILES.update(saved)
+
+
+@pytest.mark.parametrize("halo", [1, 2])
+def test_ring_slots_and_geometry(halo):
+    assert kernels.ring_slots(halo) == kernels.IN_FLIGHT + 2 * halo + 1
+    st = make_stencil("heat3d" if halo == 1 else "heat3d4th")
+    tile = kernels.Tile(256, 2, 128, 16, 64)
+    geo = kernels.march_geometry(st, tile)
+    assert geo.rows == 16 + 2 * halo
+    assert geo.slots == kernels.ring_slots(halo)
+    words = -(-((128 + 2 * halo) * 4 + 15) // 16)
+    assert geo.row_bytes == 2 * kernels.ROW_PAD + 16 * words
+    assert geo.smem == geo.slots * geo.rows * (geo.row_bytes + 4)
+    assert kernels.march_geometry(make_stencil("heat2d"),
+                                  kernels.Tile(256, 2, 1024, 1, 64)).rows == 1
+
+
+@pytest.mark.parametrize("extent,tiles,halo", [
+    (512, 128, 1), (256, 32, 1), (256, 64, 2), (1, 7, 1), (16384, 4, 1),
+    (16384, 16, 1), (37, 3, 2)])
+def test_fitted_run_fills_the_card_within_the_tile_run(extent, tiles, halo):
+    """The run a launch marches: at most the tile's, at least one plane,
+    and no costlier (waves x planes with lead-in) than the tile's own run;
+    a grid with few tiles takes shorter runs so its items fill the card."""
+    tile = kernels.Tile(256, 2, 256, 16, 256)
+    slots = 264
+
+    def cost(zr):
+        runs = -(-extent // zr)
+        return -(-tiles * runs // slots) * (zr + 2 * halo)
+
+    zr = _build.fit_runs(extent, tile.zrun, tiles, 2 * halo, slots,
+                         kernels.FILL_WAVES)
+    assert 1 <= zr <= min(tile.zrun, extent)
+    assert cost(zr) <= cost(min(tile.zrun, extent))
+    if 2 * tiles * -(-extent // tile.zrun) <= slots and extent >= 64:
+        assert tiles * -(-extent // zr) > tiles * -(-extent // tile.zrun)
+
+
+
+@pytest.mark.parametrize("rows,width", [(16384, 16384), (4096, 16384),
+                                        (1024, 512), (144, 1600)])
+def test_k8_chunks_stay_within_four_times_the_tile_chunks(rows, width):
+    """K8's chunk (``fullgrid.chunk_rows``) fits through the same
+    ``_build.fit_runs`` with no waves to fill: the least cost over the
+    tile's chunk count up to 4 times it, as K8 was tuned."""
+    from mpi_cuda_process_tpu_torch.ops.cuda import fullgrid
+    st = make_stencil("heat2d")
+    tx, cz, _, blocks = fullgrid.ring_tile(st, 8)
+    slots = 132 * blocks
+    strips, lead = -(-width // tx), fullgrid._lead(st, 8)
+    first = -(-rows // cz)
+    costs = {-(-rows // n): -(-strips * n // slots) * (-(-rows // n) + lead)
+             for n in range(first, 4 * first + 1)}
+    got = fullgrid.chunk_rows(st, 8, rows, width, (tx, cz), slots)
+    assert got in costs and costs[got] == min(costs.values())
+    assert got == _build.fit_runs(rows, cz, strips, lead, slots, 0)
+
+
+# --- the aligned-word copy plan ------------------------------------------
+
+def _check_plan(mem, lo, addr, ncells, es, row_bytes):
+    """Copy one segment by its plan into a row buffer and check it: every
+    16-byte copy inside the tensor, cell copies the segment's own, every
+    cell of the segment at ``shift + i`` in the buffer, the words within
+    the buffer."""
+    hi = lo + len(mem)
+    shift, words = kernels.row_copy_plan(addr, ncells, es, lo, hi)
+    assert 0 <= shift < 16 // es
+    cap = row_bytes - 2 * kernels.ROW_PAD
+    assert 16 * len(words) <= cap
+    buf = bytearray(cap)
+    for k, (wa, cells) in enumerate(words):
+        assert wa % 16 == 0 and wa == (addr & ~15) + 16 * k
+        if cells is None:
+            assert lo <= wa and wa + 16 <= hi
+            buf[16 * k:16 * k + 16] = mem[wa - lo:wa - lo + 16]
+        else:
+            assert not (lo <= wa and wa + 16 <= hi)
+            for c in cells:
+                assert addr <= c < addr + ncells * es and lo <= c < hi
+                off = c - wa
+                buf[16 * k + off:16 * k + off + es] = mem[c - lo:c - lo + es]
+    for i in range(ncells):
+        got = buf[(shift + i) * es:(shift + i + 1) * es]
+        want = mem[addr - lo + i * es:addr - lo + (i + 1) * es]
+        assert got == want, f"cell {i} of the segment at {addr:#x}"
+
+
+def _segments(shape_padded, h, es, tile, d2):
+    """Every (byte offset, cells) row segment a launch copies."""
+    PZ, PY, PX = shape_padded
+    M, Y, X = PZ - 2 * h, (1 if d2 else PY - 2 * h), PX - 2 * h
+    TY = 1 if d2 else tile.ty
+    PR = 1 if d2 else TY + 2 * h
+    for z0 in range(0, M, tile.zrun):
+        nin = min(tile.zrun, M - z0) + 2 * h
+        for y0 in range(0, Y, TY):
+            for x0 in range(0, X, tile.tx):
+                n = min(tile.tx + 2 * h, PX - x0)
+                for q in range(nin):
+                    for r in range(PR):
+                        py = 0 if d2 else y0 + r
+                        if py >= PY:
+                            continue
+                        yield ((((z0 + q) * PY + py) * PX + x0) * es, n)
+
+
+PLAN_CASES = [(name, dt, res) for name, dt in (
+    ("heat3d", torch.float32), ("heat3d", torch.bfloat16),
+    ("heat3d4th", torch.float32), ("heat3d4th", torch.bfloat16),
+    ("heat2d", torch.float32), ("heat2d", torch.bfloat16),
+    ("life", torch.int32)) for res in range(8)]
+
+
+@pytest.mark.parametrize("name,dtype,res", PLAN_CASES,
+                         ids=[f"{n}-{str(d)[6:]}-w{r}" for n, d, r in
+                              PLAN_CASES])
+def test_row_copy_plan_covers_every_cell_and_reads_only_the_tensor(
+        name, dtype, res):
+    """Widths in each residue mod 8 (1-cell and ragged tiles among them),
+    an aligned base and bases off 16 bytes (a view into a larger
+    allocation), one run that divides the march extent and one that does
+    not."""
+    st = _stencil(name, dtype)
+    h, es = st.halo, st.dtype.itemsize
+    d2 = name in ("heat2d", "life")
+    rng = np.random.default_rng(res)
+    paired = dtype == torch.bfloat16
+    for X in (res or 8, 8 + res, 40 + res):
+        for tx, ty, zrun in ((32, 2, 2), (64, 3, 5)):
+            tile = kernels.Tile(256, 2, tx * (2 if paired else 1),
+                                1 if d2 else ty, zrun)
+            row_bytes = kernels.march_geometry(st, tile).row_bytes
+            shape = (3 + 2 * h, 1, X + 2 * h) if d2 else \
+                (3 + 2 * h, 2 + 2 * h, X + 2 * h)
+            nbytes = int(np.prod(shape)) * es
+            mem = rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+            for lo in (1 << 20, (1 << 20) + es, (1 << 20) + 8):
+                for off, n in _segments(shape, h, es, tile, d2):
+                    _check_plan(mem, lo, lo + off, n, es, row_bytes)
+
+
+def test_row_copy_plan_of_a_one_cell_tensor():
+    for es in (2, 4):
+        for lo in (4096, 4096 + es, 4096 + 14 // es * es):
+            shift, words = kernels.row_copy_plan(lo, 1, es, lo, lo + es)
+            assert words == [(lo & ~15, (lo,))]
+            assert shift == (lo - (lo & ~15)) // es
+
+
+# --- the ring's schedule ---------------------------------------------------
+
+SCHEDULE = [("heat3d", (7, 9, 37), (32, 4, 3)),
+            ("heat3d", (6, 4, 64), (32, 2, 6)),      # runs divide Z
+            ("heat3d27", (5, 7, 33), (32, 3, 3)),
+            ("heat3d4th", (7, 6, 35), (32, 4, 3)),
+            ("heat3d4th", (1, 1, 1), (32, 8, 4)),    # one plane, row, cell
+            ("heat2d", (13, 70), (32, 1, 4)),
+            ("heat2d", (1, 1), (64, 1, 3)),
+            ("life", (12, 45), (16, 1, 3))]           # runs divide H
+
+
+def _block(st, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    padded = tuple(s + 2 * st.halo for s in shape)
+    if st.name == "life":
+        return (torch.rand(padded, generator=g) < 0.4).to(torch.int32)
+    return torch.rand(padded, generator=g).to(st.dtype)
+
+
+SCHEDULE_TYPES = [case + (dt,) for case in SCHEDULE
+                  for dt in ((torch.int32,) if case[0] == "life"
+                             else (torch.float32, torch.bfloat16))]
+
+
+@pytest.mark.parametrize("name,shape,tile,dtype", SCHEDULE_TYPES,
+                         ids=[f"{n}-{'x'.join(map(str, s))}-{str(d)[6:]}"
+                              for n, s, _, d in SCHEDULE_TYPES])
+def test_ring_schedule_on_its_slots_is_the_plain_update(name, shape, tile,
+                                                        dtype):
+    st = _stencil(name, dtype)
+    p = _block(st, shape, 7)
+    tile = kernels.Tile(256, 2, *tile)
+    got = compute_schedule.run(st, p, tile, kernels.ring_slots(st.halo))
+    ref = st.update((p,))[0]
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+# a ring one slot short races once a run issues a plane into a slot whose
+# plane is still read: runs of more output planes than planes in flight
+SHORT = [c for c in SCHEDULE if min(c[1][0], c[2][2]) > kernels.IN_FLIGHT]
+
+
+@pytest.mark.parametrize("name,shape,tile", SHORT,
+                         ids=[f"{n}-{'x'.join(map(str, s))}"
+                              for n, s, _ in SHORT])
+def test_ring_schedule_races_on_a_ring_one_slot_short(name, shape, tile):
+    st = _stencil(name, torch.int32 if name == "life" else torch.float32)
+    p = _block(st, shape, 8)
+    with pytest.raises(compute_schedule.Race):
+        compute_schedule.run(st, p, kernels.Tile(256, 2, *tile),
+                             kernels.ring_slots(st.halo) - 1)
+
+
+# --- packed bfloat16: one rounding against two ----------------------------
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    """Exact float64 values rounded once to bfloat16 (nearest, ties to
+    even), subnormals included (quantum 2^-133 below 2^-126)."""
+    m, e = np.frexp(x)
+    q = np.ldexp(1.0, np.maximum(e, -125) - 8)
+    return np.rint(x / q) * q
+
+
+def _special_bf16(n, seed):
+    """bfloat16 operands with subnormals, both zeros, and pairs whose sums
+    fall on bfloat16 ties."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(0, 1 << 16, n, dtype=np.uint32)
+    bits = bits[((bits >> 7) & 0xFF) != 0xFF]  # finite
+    sub = rng.integers(1, 128, 64, dtype=np.uint32) | \
+        (rng.integers(0, 2, 64, dtype=np.uint32) << 15)
+    ones = np.array([0x3F80, 0x3F81, 0x3F83, 0xBF81, 0x0000, 0x8000,
+                     0x3B80, 0x3B00, 0x0080, 0x8080, 0x0001, 0x8001],
+                    dtype=np.uint32)
+    bits = np.concatenate([bits, sub, ones])
+    return (bits << 16).view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul6", "mul4"])
+def test_packed_bf16_ops_round_like_float_then_bfloat16(op):
+    """``add.rn`` / ``sub.rn`` / ``mul.rn .bf16x2`` round the exact result
+    of two bfloat16 values once; the plain version rounds it to float and
+    then to bfloat16 (stencil_taps.cuh fadd<bf16>).  Float's 24 bits are at
+    least 2 * 8 + 2, so the two agree: checked on random finite operands,
+    subnormals, signed zeros and sums that fall on bfloat16 ties (the
+    products by 6 and 4 are the ones the packed path takes: exact
+    bfloat16 coefficients)."""
+    a = _special_bf16(4000, 1)
+    b = np.random.default_rng(2).permutation(_special_bf16(4000, 3))[:len(a)]
+    a = a[:len(b)]
+    # ties: b = a * 2^-8 (half an ulp of a's binade, an exact tie)
+    a = np.concatenate([a, np.array([1.0, 1.0 + 2 ** -7, -3.0, 2 ** -120])])
+    b = np.concatenate([b, np.array([2 ** -8, 2 ** -8, -(2 ** -7) * 1.5,
+                                     2 ** -128])])
+    exact = {"add": a + b, "sub": a - b, "mul6": 6.0 * b,
+             "mul4": 4.0 * b}[op]  # exact in float64 at these ranges
+    ok = np.abs(exact) < 3.0e38
+    one = _bf16_round(exact[ok])
+    ta = torch.from_numpy(a[ok].astype(np.float32))
+    tb = torch.from_numpy(b[ok].astype(np.float32))
+    two = {"add": ta + tb, "sub": ta - tb, "mul6": 6.0 * tb,
+           "mul4": 4.0 * tb}[op].to(torch.bfloat16).float().double().numpy()
+    same = (one == two) & (np.signbit(one) == np.signbit(two))
+    assert same.all(), (a[ok][~same][:4], b[ok][~same][:4])
+
+
+def test_packed_product_takes_only_bfloat16_coefficients():
+    """stencil_taps.cuh's packed fmul multiplies in bf16x2 only where the
+    coefficient is a bfloat16 value (its float's low 16 bits are zero)."""
+    for c in (6.0, 4.0, 0.25, 2.0, -1.0, 1.0 / 6.0, 0.1, 0.15, 14 / 30,
+              -1 / 12, 16 / 12):
+        f = np.float32(c)
+        low_zero = (f.view(np.uint32) & 0xFFFF) == 0
+        exact = float(torch.tensor(c, dtype=torch.float32)
+                      .to(torch.bfloat16)) == float(f)
+        assert low_zero == exact
+
+
+def test_special_bf16_blocks_hold_every_band():
+    """The bfloat16 blocks of the card's bit-equality checks hold
+    subnormals of both signs, +0 and -0, ones, 2^-8 (sums on ties) and
+    ordinary values in [0, 1), the same for the same seed."""
+    g = torch.Generator().manual_seed(5)
+    x = compute_schedule.special_bf16((64, 65), g, "cpu")
+    assert x.dtype == torch.bfloat16 and x.shape == (64, 65)
+    f = x.float()
+    tiny = torch.finfo(torch.bfloat16).tiny
+    assert ((f > 0) & (f < tiny)).any() and ((f < 0) & (f > -tiny)).any()
+    assert ((f == 0) & ~torch.signbit(f)).any()
+    assert ((f == 0) & torch.signbit(f)).any()
+    assert (f == 1.0).any() and (f == 2.0 ** -8).any()
+    assert ((f > tiny) & (f < 1.0) & (f != 2.0 ** -8)).any()
+    again = compute_schedule.special_bf16(
+        (64, 65), torch.Generator().manual_seed(5), "cpu")
+    assert torch.equal(x.view(torch.int16), again.view(torch.int16))

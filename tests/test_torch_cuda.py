@@ -38,6 +38,8 @@ from mpi_cuda_process_tpu_torch.parallel import (gather_fields, make_mesh,
                                                  make_sharded_temporal_step,
                                                  shard_fields)
 
+import compute_schedule  # noqa: E402  (tests/, on pytest's path)
+
 pytestmark = pytest.mark.cuda
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -1719,3 +1721,86 @@ def test_fullgrid_stream_kind_block_paths_match_plain(
         torch.cuda.synchronize()
         _check(got, ref, st.halo if mode == "raw" else None, 0.0)
     assert sum(fullgrid.launches.values()) == 2 + len(RING_ALT_TILES)
+
+
+# ---- K4 and K7, redesigned (csrc/march.cuh) ----------------------------------
+
+TILED_KINDS = [("heat3d", "float32"), ("heat3d", "bfloat16"),
+               ("heat3d27", "float32"), ("heat3d27", "bfloat16"),
+               ("heat3d4th", "float32"), ("heat3d4th", "bfloat16"),
+               ("heat2d", "float32"), ("heat2d", "bfloat16"),
+               ("life", "int32")]
+# x extents in each residue mod 8; one plane, one row, one cell; a run that
+# does not divide the march extent
+TILED_SHAPES_3D = [(5, 6, 64 + r) for r in range(8)] + [
+    (1, 9, 37), (7, 1, 130), (9, 5, 1), (3, 2, 7), (67, 3, 33)]
+TILED_SHAPES_2D = [(7, 512 + r) for r in range(8)] + [
+    (1, 1000), (600, 1), (5, 3), (515, 129)]
+
+
+@pytest.mark.parametrize("name,dtype", TILED_KINDS,
+                         ids=[f"{n}-{d}" for n, d in TILED_KINDS])
+def test_tiled_compute_kernels_match_plain_at_every_residue(dev, name,
+                                                            dtype):
+    """K4 and K7 at their table tile (bfloat16: cells in pairs) == the
+    plain update, bit for bit, at every x residue mod 8, on one-plane,
+    one-row and one-cell blocks and with a run that does not divide the
+    march extent; in bfloat16 also on subnormals, signed zeros and ties.
+    One launch counted a call, under the kind's usual key."""
+    st = port.make_stencil(name) if dtype == "int32" else \
+        port.make_stencil(name, dtype=dtype)
+    wrapper = "whole2d" if st.ndim == 2 else "zchunk_heat"
+    count = f"{wrapper}[{name}]" if dtype in ("float32", "int32") else \
+        f"{wrapper}[{name},{dtype}]"
+    shapes = TILED_SHAPES_2D if st.ndim == 2 else TILED_SHAPES_3D
+    kernels.launches.clear()
+    calls = 0
+    for i, shape in enumerate(shapes):
+        padded = tuple(s + 2 * st.halo for s in shape)
+        blocks = [_fields_2d(st, padded, dev, 1500 + i)[0].to(st.dtype)]
+        if dtype == "bfloat16":
+            g = torch.Generator(device=dev)
+            g.manual_seed(1600 + i)
+            blocks.append(compute_schedule.special_bf16(padded, g, dev))
+        for p in blocks:
+            got = kernels.make_pallas_compute(st, device=dev)((p,))[0]
+            torch.cuda.synchronize()
+            calls += 1
+            ref = st.update((p,))[0]
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            view = torch.int16 if dtype == "bfloat16" else torch.int32
+            assert torch.equal(got.view(view), ref.view(view)), shape
+    assert kernels.launches == {count: calls}
+
+
+@pytest.mark.parametrize("name,dtype", TILED_KINDS,
+                         ids=[f"{n}-{d}" for n, d in TILED_KINDS])
+def test_tiled_compute_kernels_refuse_a_short_ring(dev, name, dtype):
+    """A launch whose ring is one slot short, or whose row buffer is too
+    small for its segment, is refused by the kernel (no fallback)."""
+    st = port.make_stencil(name) if dtype == "int32" else \
+        port.make_stencil(name, dtype=dtype)
+    tile = kernels.TILES[(name, dtype)]
+    geo = kernels.march_geometry(st, tile)
+    p = _fields_2d(st, tuple(8 + 2 * st.halo for _ in range(st.ndim)), dev,
+                   1700)[0].to(st.dtype)
+    shape = tuple(int(s) - 2 * st.halo for s in p.shape)
+    out = torch.empty(shape, dtype=p.dtype, device=dev)
+    args = list(kernels._tile_args(st, tile, shape, dev))
+    for i, short in ((-1, geo.slots - 1), (-2, geo.row_bytes - 16)):
+        bad = list(args)
+        bad[i] = short
+        if st.ndim == 2:
+            lib = kernels._lib2d()
+            fn = kernels._build.twin_entry(lib, "whole2d_step", p)
+            rc = fn(kernels._WHOLE2D_KIND[name][0], p.data_ptr(),
+                    out.data_ptr(), *shape,
+                    float(st.params.get("alpha", 0.0)), *bad,
+                    kernels._build.stream_of(p))
+        else:
+            lib = kernels._lib()
+            fn = kernels._build.entry(lib, "zchunk_heat", p)
+            rc = fn(kernels._HEAT_KIND[name], p.data_ptr(), out.data_ptr(),
+                    *shape, *kernels.coefficients(st), *bad,
+                    kernels._build.stream_of(p))
+        assert rc != 0

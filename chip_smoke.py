@@ -90,13 +90,15 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      and fullgrid.RING_TILES entry at its table tile with the fast paths
      and on the per-cell path (PATHS = 0), K10 as RAW, ZSLAB and YZSLAB on
      a (40, 112, 320) core and K8 as RAW and PADDED at (144, 1600), bit for
-     bit.  K4 and K7, redesigned (csrc/march.cuh): held bit for bit at every
-     shape above (zchunk_heat and whole2d at atol 0), and every
-     kernels.TILES kind at its table tile and on the other bfloat16 path on
-     blocks whose x extent falls in each residue mod 8, one plane, one row,
-     one cell, narrow ones, a run that does not divide the march extent
-     and, in bfloat16, inputs with subnormals, signed zeros and sums on
-     bfloat16 ties;
+     bit.  K1, K4, K5 and K7, redesigned (csrc/march.cuh): held bit for
+     bit at every shape above (raw_step_heat, zchunk_heat, zchunk_wave and
+     whole2d at atol 0, frame cells equal), and every kernels.TILES and
+     rawstep.TILES kind at its table tile on blocks whose x extent falls
+     in each residue mod 8, one plane, one row, one cell (K1: the smallest
+     grid it takes), narrow ones, a run that does not divide the march
+     extent, K1 grids whose every tile touches a wall beside grids with
+     interior tiles and, in bfloat16, inputs with subnormals, signed zeros
+     and sums on bfloat16 ties;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
      --compute jnp, --compute pallas, --fuse K (K = 4; 2 for heat3d4th)
@@ -226,11 +228,11 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      shard, every float 2D family at k = 16 (sor2d 8).  Then one line for
      each timed entry of the kernels this port redesigned for Hopper (K3,
      its shells, K6, K9: rows 5-11; the ring: row 19; K8 and K10: rows
-     15-18; K4 and K7: rows 12 and 14): this run's ms beside the first
-     design's
-     (OLD_MS, from PERF.md), the fraction of the bound and the library
-     call's ms (null for K8 and K10: no one PyTorch call computes a k-step
-     pass); K5, not redesigned, printed the same way ("reread").  The
+     15-18; K4, K5 and K7: rows 12-14; K1: rows 1 and 3): this run's ms
+     beside the first design's (OLD_MS, from PERF.md), the fraction of
+     the bound and the library call's ms (null for K8 and K10: no one
+     PyTorch call computes a k-step pass); K2 and raw_step_grayscott, not
+     redesigned, printed the same way ("reread").  The
      split of one step into pad (exchange/pad), kernel and re-pin also
      for bfloat16 heat3d at 1024^3 on 2x2 and for heat2d --compute pallas
      at 16384^2 in float32 and bfloat16.
@@ -369,17 +371,29 @@ RING3D = (40, 112, 320)
 RING2D = (144, 1600)
 
 # The kernels this port redesigned for Hopper (rows 5-11: K3, its shells,
-# K6 and K9; row 19: the ring; rows 15-18: K8 and K10), and each timed
-# entry's ms per launch in its first design, on one NVIDIA H100 80GB HBM3
-# at 700.00 W (PERF.md section 6, PRs 4-12), printed beside this run's.
+# K6 and K9; row 19: the ring; rows 15-18: K8 and K10; rows 12-14: K4, K5
+# and K7; rows 1 and 3: K1), and each timed entry's ms per launch in its
+# first design, on one NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section
+# 6), printed beside this run's.
 REDESIGNED = ("fused_step", "fused_step_padded", "fused_shell",
               "fused_zslab", "fused_yzslab", "ring_exchange", "stream_step",
               "stream_zslab", "stream_yzslab", "fullgrid_step",
-              "fullgrid_padded", "zchunk_heat", "whole2d")
-# K5 (zchunk_wave) was not redesigned; its time is printed beside row 13's
-# the same way, to show it moved by no more than noise.
-REREAD = ("zchunk_wave",)
+              "fullgrid_padded", "zchunk_heat", "whole2d", "zchunk_wave",
+              "raw_step_heat")
+# K2 (raw_step_wave) and raw_step_grayscott were not redesigned; their
+# times are printed beside rows 2 and 4 the same way, to show they moved
+# by no more than noise.
+REREAD = ("raw_step_wave", "raw_step_grayscott")
 OLD_MS = {
+    "raw_step_heat<heat3d>": 0.4506, "raw_step_heat<heat3d27>": 0.6988,
+    "raw_step_heat<heat3d4th>": 0.5503, "raw_step_heat<advect3d>": 0.5453,
+    "raw_step_heat<heat3d,bfloat16>": 0.4210,
+    "raw_step_heat<heat3d27,bfloat16>": 1.8874,
+    "raw_step_heat<heat3d4th,bfloat16>": 0.9674,
+    "raw_step_heat<advect3d,bfloat16>": 0.5560,
+    "raw_step_wave": 0.5830, "raw_step_wave<wave3d,bfloat16>": 0.5119,
+    "raw_step_grayscott": 0.8494,
+    "raw_step_grayscott<grayscott3d,bfloat16>": 1.0003,
     "zchunk_heat<heat3d>": 0.8784, "zchunk_heat<heat3d27>": 0.2119,
     "zchunk_heat<heat3d4th>": 0.1642,
     "zchunk_heat<heat3d,bfloat16>": 0.7687,
@@ -819,8 +833,8 @@ def main() -> int:
             got = kernels.make_pallas_compute(st, device=dev)(ins)[:1]
             entry = ("zchunk_wave" if name == "wave3d"
                      else f"zchunk_heat<{name}>")
-            # K4 (redesigned) bit for bit; K5 within its tolerance
-            atol = rtol = 1e-6 if name == "wave3d" else 0.0
+            # K4 and K5 (march.cuh) bit for bit
+            atol = 0.0
             frame = None
             if name == "wave3d" and kernels.make_pallas_compute(st)(
                     ins)[1] is not ins[1]:
@@ -935,8 +949,10 @@ def main() -> int:
                 entry = {"wave3d": "raw_step_wave",
                          "grayscott3d": "raw_step_grayscott"}.get(
                              name, f"raw_step_heat<{name}>")
+                # K1 (march.cuh) bit for bit; K2 within the raw step's
+                # tolerance
                 scale = max(float(ref[0].abs().max()), 1.0)
-                atol = 32 * EPS32 * scale
+                atol = 32 * EPS32 * scale if name == "wave3d" else 0.0
                 if name == "wave3d" and got[1] is not fields[0]:
                     fail("raw_step_wave: the new u_prev is not the old u")
             elif path == "stream":
@@ -1468,42 +1484,63 @@ def main() -> int:
                                 "tile": list(tile), "max_abs_err": err,
                                 "atol": 0.0})
             del fields, ref
-    # K4 and K7, redesigned (csrc/march.cuh): every kernels.TILES kind at
-    # its table tile (bfloat16: cells in pairs), bit for bit against the
-    # plain update, on blocks whose x extent falls in each residue mod 8,
-    # one plane, one row, one cell, narrow ones, a run that does not
-    # divide the march extent and, in bfloat16, inputs with subnormals,
-    # signed zeros and sums on bfloat16 ties
+    # K1, K4, K5 and K7, redesigned (csrc/march.cuh): every kernels.TILES
+    # and rawstep.TILES kind at its table tile (bfloat16: cells in pairs),
+    # bit for bit against the plain update (K1: the plain step, frame
+    # cells equal), on blocks whose x extent falls in each residue mod 8,
+    # one plane, one row, one cell (K1: the smallest grid it takes, and
+    # grids whose every tile touches a wall beside ones with interior
+    # tiles), narrow ones, a run that does not divide the march extent
+    # and, in bfloat16, inputs with subnormals, signed zeros and sums on
+    # bfloat16 ties
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from compute_schedule import special_bf16
 
-    for (name, dname), tile in sorted(kernels.TILES.items(),
-                                      key=lambda kv: kv[0]):
-        st = case_stencil(name, None if name == "life"
-                          else getattr(torch, dname))
-        run = tile.zrun
-        if st.ndim == 3:
+    march_kinds = [("compute", kv) for kv in sorted(kernels.TILES.items())]
+    march_kinds += [("raw", kv) for kv in sorted(rawstep.TILES.items())]
+    for path, ((name, dname), tile) in march_kinds:
+        st = case_stencil("advect3d-mixed" if name == "advect3d" else name,
+                          None if name == "life" else getattr(torch, dname))
+        run, h = tile.zrun, st.halo
+        if path == "raw":
+            m = 2 * h + 1
+            shapes = [(m + 4, m + 5, 64 + r) for r in range(8)] + [
+                (m, m, m), (m, 9, 37), (9, m, 130), (run + 3, m + 2, 33),
+                (m + 2, 40, 300), (40, 40, 600), (70, 37, 1100)]
+        elif st.ndim == 3:
             shapes = [(5, 6, 64 + r) for r in range(8)] + [
                 (1, 9, 37), (7, 1, 130), (9, 5, 1), (3, 2, 7),
                 (run + 3, 3, 33), (2, 40, 300)]
         else:
             shapes = [(7, 512 + r) for r in range(8)] + [
                 (1, 1000), (600, 1), (5, 3), (run + 3, 129), (2, 9000)]
-        wrapper = "whole2d" if st.ndim == 2 else "zchunk_heat"
+        wrapper = "raw_step_heat" if path == "raw" else \
+            "whole2d" if st.ndim == 2 else \
+            "zchunk_wave" if name == "wave3d" else "zchunk_heat"
         for shape in shapes:
-            padded = tuple(s_ + 2 * st.halo for s_ in shape)
+            first = shape if path == "raw" else \
+                tuple(s_ + 2 * h for s_ in shape)
+            shapes_in = (first,) + (shape,) * (st.num_fields - 1)
             for special in ((False, True) if dname == BF16 else (False,)):
                 if name == "life":
-                    p = (rand(padded) < 0.35).to(torch.int32)
+                    ins = ((rand(first) < 0.35).to(torch.int32),)
                 elif special:
-                    p = special_bf16(padded, gen, dev)
+                    ins = tuple(special_bf16(s_, gen, dev)
+                                for s_ in shapes_in)
                 else:
-                    p = rand(padded).to(st.dtype)
-                got = kernels.make_pallas_compute(st, device=dev)((p,))
-                ref = st.update((p,))
+                    ins = tuple(rand(s_).to(st.dtype) for s_ in shapes_in)
+                if path == "raw":
+                    got = rawstep.make_raw_step(st, shape, device=dev)(ins)
+                    ref = driver.make_step(st, shape)(ins)
+                    frame = frame_of(shape, h)
+                else:
+                    got = kernels.make_pallas_compute(st, device=dev)(
+                        ins)[:1]
+                    ref = st.update(ins)[:1]
+                    frame = None
                 torch.cuda.synchronize()
                 entry = f"{wrapper}<{name},{dname}>"
-                err = compare(entry, got, ref, 0.0, None)
+                err = compare(entry, got, ref, 0.0, frame)
                 checked.append({"kernel": entry, "shape": list(shape),
                                 "tile": list(tile), "special": special,
                                 "max_abs_err": err, "atol": 0.0})

@@ -171,8 +171,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "fused kernel; under --mesh: auto = the padded "
                         "kind, padfree = the slab-operand kernels (z slabs "
                         "on a z-only mesh; z and y slabs and corners on a "
-                        "mesh that shards y; not advect3d or grayscott3d "
-                        "yet); stream = the streaming kernel (each plane "
+                        "mesh that shards y; every 3D fused family); "
+                        "stream = the streaming kernel (each plane "
                         "read once per pass; guard-frame only; every 3D "
                         "fused family), unsharded or with the padfree "
                         "operands under --mesh")
@@ -182,9 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "ppermute = slab copies between the shards' "
                         "blocks (the default every other mode uses); "
                         "rdma = the ring-exchange kernel: each slab goes "
-                        "chunk by chunk into its neighbour's receive ring "
-                        "with ready and credit counters, one launch per "
-                        "exchange site for every ring on a card.  Needs "
+                        "chunk by chunk straight into its place in the "
+                        "neighbour's received slab, each chunk counted on "
+                        "its ready counter (no receive ring, no credits), "
+                        "one launch per exchange site for every ring on a "
+                        "card.  Needs "
                         "--fuse, --mesh and --fuse-kind stream, "
                         "guard-frame only; composes with --overlap; the "
                         "same values as ppermute")

@@ -9,50 +9,40 @@
 // _grayscott_kernel (raw_step_grayscott: two fields in, both read with
 // their neighbours, two out, both frame-pinned).  There the grid is cut
 // into z-chunks held in VMEM with halo planes fetched by clamped BlockSpecs
-// and y/x taps done as rolls; here every thread owns one (y, x) column and
-// marches over a run of ZRUN z planes, reading its neighbours straight from
-// device memory.
+// and y/x taps done as rolls.
 //
 // Bound on an H100: device-memory bytes.  The step must read the grid once
 // and write it once (K2 also reads u_prev, Gray-Scott reads and writes two
 // fields): 2 (K2: 3, Gray-Scott: 4) x 4 B per cell (2 B in bfloat16)
 // against ~0.2 (7-point) to ~0.7 (27-point) flop/B — far below the card's
 // ~20 flop/B float32 ridge; bfloat16 halves the bytes and doubles the
-// flop/B, still far below it.  Design against that bound: a warp covers 32
-// consecutive x cells, so every load and store is a coalesced 128-byte
-// line; the z/y neighbours of a cell are the centre loads of the threads
-// marching beside and behind it, so they are served from L1/L2 and device
-// memory sees each input cell about once.  No shared-memory tiling or
-// register queue yet (a later tuning step).
+// flop/B, still far below it.
+//
+// K1 is march.cuh's tiled kernel on the raw grid (FRAME): a block owns a
+// (TY, TX) tile of the planes and marches down z through a ring of the
+// grid's own planes in shared memory (16-byte cp.async of the aligned
+// words that cover each row, nothing outside the grid copied), the taps
+// from shared memory (heat3d and heat3d4th: the z taps from a register
+// queue), bfloat16 cells in pairs through the bf16x2 ops; frame cells keep
+// their value, tested only on tiles and runs that touch a wall, all in one
+// launch.  rawstep.TILES names each kind's tile.
+//
+// K2 and Gray-Scott keep the first form: every thread owns one (y, x)
+// column and marches over a run of ZRUN z planes, reading its neighbours
+// straight from device memory; a warp covers 32 consecutive x cells, so
+// every load and store is a coalesced 128-byte line, and the z/y
+// neighbours of a cell are the centre loads of the threads beside and
+// behind it, served from L1/L2.
 //
 // Frame cells (global coordinate within `halo` of a wall) copy the old
 // value exactly; interior cells compute the update of stencil_taps.cuh and
 // only ever read in-domain cells.
 
-#include "stencil_taps.cuh"
+#include "march.cuh"
 
 namespace {
 
 constexpr int BX = 32, BY = 8, ZRUN = 8;
-
-template <int KIND, class T>
-__global__ void __launch_bounds__(BX * BY)
-raw_step_heat(const T* __restrict__ u, T* __restrict__ out, int Z, int Y,
-              int X, Coef c) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= X || y >= Y) return;
-  constexpr int h = kind_halo(KIND);
-  const long sy = X, sz = static_cast<long>(X) * Y;
-  const int z0 = blockIdx.z * ZRUN;
-  const int z1 = min(z0 + ZRUN, Z);
-  for (int z = z0; z < z1; ++z) {
-    const long i = z * sz + y * sy + x;
-    out[i] = in_frame(z, y, x, Z, Y, X, h)
-                 ? u[i]
-                 : narrow<T>(field_update<KIND>(u + i, sy, sz, c));
-  }
-}
 
 template <class T>
 __global__ void __launch_bounds__(BX * BY)
@@ -104,26 +94,27 @@ dim3 grid_for(int Z, int Y, int X) {
 
 template <class T>
 int heat_launch(int kind, const T* u, T* out, int Z, int Y, int X,
-                const Coef& c, void* stream) {
-  const dim3 block(BX, BY, 1), grid = grid_for(Z, Y, X);
+                const Coef& c, int build, bool zq, int tx, int ty, int zr,
+                int rwb, int slots, void* stream) {
+  const march::Geom g = march::make_geom(Z, Y, X, kind_halo(kind), true,
+                                         false, tx, ty, zr, rwb, slots);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT7:
-      raw_step_heat<HEAT7, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
-      break;
+      return march::launch_build<HEAT7, T, true>(build, zq, u, nullptr, out,
+                                                 g, c, s);
     case HEAT27:
-      raw_step_heat<HEAT27, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
-      break;
+      return march::launch_build<HEAT27, T, true>(build, zq, u, nullptr,
+                                                  out, g, c, s);
     case HEAT13:
-      raw_step_heat<HEAT13, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
-      break;
+      return march::launch_build<HEAT13, T, true>(build, zq, u, nullptr,
+                                                  out, g, c, s);
     case ADVECT:
-      raw_step_heat<ADVECT, T><<<grid, block, 0, s>>>(u, out, Z, Y, X, c);
-      break;
+      return march::launch_build<ADVECT, T, true>(build, zq, u, nullptr,
+                                                  out, g, c, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
@@ -147,19 +138,26 @@ int grayscott_launch(const T* u, const T* v, T* ou, T* ov, int Z, int Y,
 
 }  // namespace
 
-// One K1 launch on `stream`: out = step(u).  Returns cudaGetLastError().
-// The _bf16 twin takes bfloat16 grids.
+// One K1 launch on `stream` (march.cuh on the raw grid): out = step(u).
+// The tile arguments are K4's (rawstep.TILES, march.march_geometry).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
+// kernel does not take.  The _bf16 twin takes bfloat16 grids.
 EXPORT int raw_step_heat_f32(int kind, const float* u, float* out, int Z,
                              int Y, int X, float a, float c0, float c1,
-                             float c2, float c3, void* stream) {
-  return heat_launch(kind, u, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
+                             float c2, float c3, int build, int zq, int tx,
+                             int ty, int zr, int rwb, int slots,
+                             void* stream) {
+  return heat_launch(kind, u, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
+                     zq != 0, tx, ty, zr, rwb, slots, stream);
 }
 
 EXPORT int raw_step_heat_bf16(int kind, const __nv_bfloat16* u,
                               __nv_bfloat16* out, int Z, int Y, int X,
                               float a, float c0, float c1, float c2,
-                              float c3, void* stream) {
-  return heat_launch(kind, u, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, stream);
+                              float c3, int build, int zq, int tx, int ty,
+                              int zr, int rwb, int slots, void* stream) {
+  return heat_launch(kind, u, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
+                     zq != 0, tx, ty, zr, rwb, slots, stream);
 }
 
 // One K2 launch on `stream`: out = new u.  Returns cudaGetLastError().

@@ -230,12 +230,14 @@ __device__ __forceinline__ auto heat_update(const A& a, const Coef& c) {
 // First-order upwind advection: per axis z, y, x in turn, c > 0 subtracts
 // c (u - the cell before), c < 0 subtracts c (the cell after - u), and a
 // zero Courant number adds nothing (the plain version skips its term).
+// Over floats or bf16x2 pairs (a Courant number that is a bfloat16 value
+// multiplies a pair in one packed product, any other each half in float).
 template <class A>
-__device__ __forceinline__ float advect_update(const A& a, const Coef& c) {
+__device__ __forceinline__ auto advect_update(const A& a, const Coef& c) {
   using T = typename A::value_type;
-  const float u = a(0, 0, 0);
+  const auto u = a(0, 0, 0);
   const float cs[3] = {c.a, c.c0, c.c1};
-  float acc = u;
+  auto acc = u;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
     if (cs[d] > 0.0f) {
@@ -277,10 +279,12 @@ __device__ __forceinline__ void grayscott_update(const A& au, const A& av,
                fmul<T>(c.c2, v));
 }
 
-// Leapfrog wave update: (2 u - u_prev) + c2dt2 * lap7(u).
-template <class A>
-__device__ __forceinline__ float wave_update(const A& a, float uprev,
-                                             const Coef& c) {
+// Leapfrog wave update: (2 u - u_prev) + c2dt2 * lap7(u), over floats or
+// bf16x2 pairs (`uprev` of the accessor's value type; 2 is a bfloat16
+// value, so 2 u is one packed product).
+template <class A, class V>
+__device__ __forceinline__ auto wave_update(const A& a, V uprev,
+                                            const Coef& c) {
   using T = typename A::value_type;
   return fadd<T>(fsub<T>(fmul<T>(2.0f, a(0, 0, 0)), uprev),
                  fmul<T>(c.a, lap7(a)));

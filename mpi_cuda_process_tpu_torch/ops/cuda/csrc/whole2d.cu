@@ -28,8 +28,8 @@
 
 // One K7 launch on `stream`: out (H, W) = update of the padded p
 // (H+2, W+2); `a` is alpha (HEAT5) and unused by LIFE.  The tile names its
-// build (kernels.BUILDS), its columns TX and rows a run ZR; the row buffer
-// bytes and ring slots come from kernels.march_geometry and are checked
+// build (march.BUILDS), its columns TX and rows a run ZR; the row buffer
+// bytes and ring slots come from march.march_geometry and are checked
 // here.  HEAT5 on float32 and LIFE on int32 here, HEAT5 on bfloat16 (its
 // cells in pairs) in the _bf16 twin.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a geometry the kernel
@@ -37,10 +37,7 @@
 namespace {
 
 march::Geom geom2d(int H, int W, int tx, int zr, int rwb, int slots) {
-  march::Geom g{H, 1, W, 1, W + 2, tx, 1, zr, 1, rwb, slots, 0, 1, 0};
-  g.tiles_x = tx > 0 ? (W + tx - 1) / tx : 0;
-  g.runs = zr > 0 ? (H + zr - 1) / zr : 0;
-  return g;
+  return march::make_geom(H, 1, W, 1, false, true, tx, 1, zr, rwb, slots);
 }
 
 }  // namespace
@@ -51,18 +48,15 @@ EXPORT int whole2d_step(int kind, const void* p, void* out, int H, int W,
   const march::Geom g = geom2d(H, W, tx, zr, rwb, slots);
   const Coef c{a, 0.f, 0.f, 0.f, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g.tiles_x < 1 || g.runs < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   switch (kind) {
     case HEAT5:
       return march::launch_build<HEAT5, float>(
-          build, false, static_cast<const float*>(p),
+          build, false, static_cast<const float*>(p), nullptr,
           static_cast<float*>(out), g, c, s);
     case LIFE:
       return march::launch_build<LIFE, int>(
-          build, false, static_cast<const int*>(p), static_cast<int*>(out),
-          g, c, s);
+          build, false, static_cast<const int*>(p), nullptr,
+          static_cast<int*>(out), g, c, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -74,10 +68,10 @@ EXPORT int whole2d_step_bf16(int kind, const void* p, void* out, int H,
   const march::Geom g = geom2d(H, W, tx, zr, rwb, slots);
   const Coef c{a, 0.f, 0.f, 0.f, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind != HEAT5 || g.tiles_x < 1 || g.runs < 1) {
+  if (kind != HEAT5) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return march::launch_build<HEAT5, __nv_bfloat16>(
-      build, false, static_cast<const __nv_bfloat16*>(p),
+      build, false, static_cast<const __nv_bfloat16*>(p), nullptr,
       static_cast<__nv_bfloat16*>(out), g, c, s);
 }

@@ -18,113 +18,66 @@
 // the kernels agree with the plain update bit for bit.
 //
 // Storage type T: float32 or bfloat16 (the operands and the output), with
-// stencil_taps.cuh's arithmetic: float, rounded to bfloat16 after every op
-// as the plain version rounds it, or (K4, on pairs of cells) the bf16x2
-// ops, which round each op's exact result once to the same value; so the
-// bfloat16 kernels are bit-equal to the plain version on bfloat16 tensors
-// too.
+// stencil_taps.cuh's arithmetic: float32 ops, or on pairs of bfloat16
+// cells the bf16x2 ops, which round each op's exact result once to the
+// value the plain version's float-then-bfloat16 gives; so the kernels are
+// bit-equal to the plain version on float32 and bfloat16 tensors.
 //
 // Bound on an H100: device-memory bytes.  One launch must read the padded
 // block once and write the interior once (K5 also reads u_prev): about
 // 8 (K5: 12) B per cell in float32, half that in bfloat16, against 10-55
 // flop, below the ~20 flop/B float32 ridge.
 //
-// K4 is march.cuh's 2.5D kernel: a block owns a (TY, TX) tile of the
+// Both are march.cuh's 2.5D kernel: a block owns a (TY, TX) tile of the
 // planes and marches down z through a ring of padded planes in shared
 // memory, filled by 16-byte cp.async of the aligned words that cover each
 // row, so every cell is read from device memory about once and the taps
-// come from shared memory (and, for heat3d and heat3d4th, the z taps from
-// a register queue).  K5 has no shared-memory tile: a thread owns one
-// (y, x) column over a run of ZRUN planes and reads every tap from device
-// memory through L1; on an H100 it reaches 82 % of its byte bound in
-// float32.
+// come from shared memory (and, for heat3d, heat3d4th and wave3d, the z
+// taps from a register queue).  K5's u_prev goes straight into registers
+// of the thread that updates the cell; kernels.TILES names the tile.
 
 #include "march.cuh"
 
-namespace {
-
-constexpr int BX = 32, BY = 8, ZRUN = 8;
-
-template <class T>
-__global__ void __launch_bounds__(BX * BY)
-zchunk_wave(const T* __restrict__ p, const T* __restrict__ uprev,
-            T* __restrict__ out, int Z, int Y, int X, Coef c) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= X || y >= Y) return;
-  const long sy = X + 2, sz = sy * (Y + 2);
-  const long oy = X, oz = static_cast<long>(X) * Y;
-  const int z0 = blockIdx.z * ZRUN;
-  const int z1 = min(z0 + ZRUN, Z);
-  for (int z = z0; z < z1; ++z) {
-    const long i = z * oz + y * oy + x;
-    const T* q = p + (z + 1) * sz + (y + 1) * sy + (x + 1);
-    out[i] = narrow<T>(wave_update(q, widen(uprev[i]), sy, sz, c));
-  }
-}
-
-dim3 grid_for(int Z, int Y, int X) {
-  return dim3((X + BX - 1) / BX, (Y + BY - 1) / BY, (Z + ZRUN - 1) / ZRUN);
-}
-
-template <class T>
-int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
-                float c2dt2, void* stream) {
-  const Coef c{c2dt2, 0.f, 0.f, 0.f, 0.f};
-  zchunk_wave<<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
-                static_cast<cudaStream_t>(stream)>>>(p, uprev, out, Z, Y, X,
-                                                     c);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// One K5 launch on `stream`: out = new u from the padded u and the
-// unpadded u_prev.  Returns cudaGetLastError().
-EXPORT int zchunk_wave_f32(const float* p, const float* uprev, float* out,
-                           int Z, int Y, int X, float c2dt2, void* stream) {
-  return launch_wave(p, uprev, out, Z, Y, X, c2dt2, stream);
-}
-
-EXPORT int zchunk_wave_bf16(const __nv_bfloat16* p,
-                            const __nv_bfloat16* uprev, __nv_bfloat16* out,
-                            int Z, int Y, int X, float c2dt2, void* stream) {
-  return launch_wave(p, uprev, out, Z, Y, X, c2dt2, stream);
-}
-
 // One K4 launch on `stream` (march.cuh): out (Z, Y, X) = update of the
-// padded p.  The tile names its build (kernels.BUILDS), whether the z taps
+// padded p.  The tile names its build (march.BUILDS), whether the z taps
 // come from a register queue (zq), its cells TX, rows TY and run of ZR
 // planes; the row buffer bytes and ring slots come from
-// kernels.march_geometry and are checked here.  Returns cudaGetLastError()
+// march.march_geometry and are checked here.  Returns cudaGetLastError()
 // or cudaErrorInvalidValue for a geometry the kernel does not take.  Each
 // export has a _bf16 twin on bfloat16 operands (their cells in pairs).
 namespace {
 
 template <class T>
-int launch_tiled(int kind, const T* p, T* out, int Z, int Y, int X,
-                 const Coef& c, int build, bool zq, int tx, int ty, int zr,
-                 int rwb, int slots, void* stream) {
-  const int h = kind_halo(kind);
-  march::Geom g{Z, Y, X, Y + 2 * h, X + 2 * h, tx, ty, zr, ty + 2 * h, rwb,
-                slots, 0, 0, 0};
-  if (tx < 1 || ty < 1 || zr < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  g.tiles_x = (X + tx - 1) / tx;
-  g.tiles_y = (Y + ty - 1) / ty;
-  g.runs = (Z + zr - 1) / zr;
+int launch_heat(int kind, const T* p, T* out, int Z, int Y, int X,
+                const Coef& c, int build, bool zq, int tx, int ty, int zr,
+                int rwb, int slots, void* stream) {
+  const march::Geom g = march::make_geom(Z, Y, X, kind_halo(kind), false,
+                                         false, tx, ty, zr, rwb, slots);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT7:
-      return march::launch_build<HEAT7, T>(build, zq, p, out, g, c, s);
+      return march::launch_build<HEAT7, T>(build, zq, p, nullptr, out, g, c,
+                                           s);
     case HEAT27:
-      return march::launch_build<HEAT27, T>(build, zq, p, out, g, c, s);
+      return march::launch_build<HEAT27, T>(build, zq, p, nullptr, out, g,
+                                            c, s);
     case HEAT13:
-      return march::launch_build<HEAT13, T>(build, zq, p, out, g, c, s);
+      return march::launch_build<HEAT13, T>(build, zq, p, nullptr, out, g,
+                                            c, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <class T>
+int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
+                float c2dt2, int build, bool zq, int tx, int ty, int zr,
+                int rwb, int slots, void* stream) {
+  const march::Geom g = march::make_geom(Z, Y, X, 1, false, false, tx, ty,
+                                         zr, rwb, slots);
+  return march::launch_build<WAVE7, T>(build, zq, p, uprev, out, g,
+                                       Coef{c2dt2, 0.f, 0.f, 0.f, 0.f},
+                                       static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -134,8 +87,8 @@ EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z,
                            float c2, float c3, int build, int zq, int tx,
                            int ty, int zr, int rwb, int slots,
                            void* stream) {
-  return launch_tiled(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
-                      zq != 0, tx, ty, zr, rwb, slots, stream);
+  return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
+                     zq != 0, tx, ty, zr, rwb, slots, stream);
 }
 
 EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
@@ -143,6 +96,25 @@ EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
                             float c0, float c1, float c2, float c3,
                             int build, int zq, int tx, int ty, int zr,
                             int rwb, int slots, void* stream) {
-  return launch_tiled(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
-                      zq != 0, tx, ty, zr, rwb, slots, stream);
+  return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
+                     zq != 0, tx, ty, zr, rwb, slots, stream);
+}
+
+// One K5 launch on `stream`: out = new u from the padded u and the
+// unpadded u_prev, with K4's tile arguments (a z-queue tile).
+EXPORT int zchunk_wave_f32(const float* p, const float* uprev, float* out,
+                           int Z, int Y, int X, float c2dt2, int build,
+                           int zq, int tx, int ty, int zr, int rwb,
+                           int slots, void* stream) {
+  return launch_wave(p, uprev, out, Z, Y, X, c2dt2, build, zq != 0, tx, ty,
+                     zr, rwb, slots, stream);
+}
+
+EXPORT int zchunk_wave_bf16(const __nv_bfloat16* p,
+                            const __nv_bfloat16* uprev, __nv_bfloat16* out,
+                            int Z, int Y, int X, float c2dt2, int build,
+                            int zq, int tx, int ty, int zr, int rwb,
+                            int slots, void* stream) {
+  return launch_wave(p, uprev, out, Z, Y, X, c2dt2, build, zq != 0, tx, ty,
+                     zr, rwb, slots, stream);
 }

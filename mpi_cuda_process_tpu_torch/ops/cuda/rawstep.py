@@ -14,7 +14,11 @@ Replaces the TPU package's ``ops/pallas/rawstep.py::make_raw_step``
 (``_heat_kernel`` with ``_taps7``/``_taps27``/``_taps13``/``_taps_advect``,
 ``_wave_kernel`` and ``_grayscott_kernel``).  Bound on an H100:
 device-memory bytes (one read of each input field and one write per step);
-the kernel source says what its design does about that.
+the kernel source says what its design does about that.  K1 is
+``csrc/march.cuh``'s tiled kernel on the raw grid (``march.py``, which
+the compute_fn kernels share), its frame pinned in the kernel; ``TILES``
+names each kind's launch tile, the fastest of ``march.candidates`` on an
+H100 (``scripts/torch_compute_tiles.py``).
 
 Beside each kernel sits its plain PyTorch version, the port's
 ``driver.make_step``; a wrapper takes it only for a tensor on the CPU.  On a
@@ -34,6 +38,7 @@ from .. import reaction, sor
 from ..heat import W27_CENTER, W27_CORNER, W27_EDGE, W27_FACE, W4TH, w4th_center
 from ..stencil import Fields, Stencil
 from . import _build
+from .march import Tile, table_tile, tile_args
 
 # Launches per wrapper and stencil, keyed "raw_step_heat[heat3d]" (bfloat16:
 # "raw_step_heat[heat3d,bfloat16]", ``_build.launch_key``): one added where
@@ -44,6 +49,22 @@ launches: Counter = Counter()
 _HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2, "advect3d": 7}
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+
+# K1's launch tile of each kind, (stencil, dtype) -> Tile (march.py): the
+# fastest of ``march.candidates`` by scripts/torch_compute_tiles.py on an
+# NVIDIA H100 80GB HBM3 at 700 W, on the unsharded main path's 512^3 grid
+# (heat3d: the fastest over 512^3 and 1024^3 together).  Every kind the
+# wrapper takes is listed.
+TILES = {
+    ("heat3d", "float32"): Tile(256, 2, 256, 8, 256, 1, True),
+    ("heat3d", "bfloat16"): Tile(256, 2, 512, 16, 256),
+    ("heat3d27", "float32"): Tile(256, 2, 512, 8, 128, 2),
+    ("heat3d27", "bfloat16"): Tile(512, 2, 512, 16, 64),
+    ("heat3d4th", "float32"): Tile(256, 2, 256, 8, 256, 1, True),
+    ("heat3d4th", "bfloat16"): Tile(256, 2, 512, 8, 256, 1, True),
+    ("advect3d", "float32"): Tile(256, 2, 512, 8, 256, 2),
+    ("advect3d", "bfloat16"): Tile(512, 2, 512, 16, 64),
+}
 
 
 def coefficients(stencil: Stencil):
@@ -75,7 +96,7 @@ def _lib():
         for sfx in _build.SUFFIXES.values():
             getattr(lib, f"raw_step_heat_{sfx}").argtypes = (
                 [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
-                + [_c_ptr])
+                + [_c_int] * 7 + [_c_ptr])
             getattr(lib, f"raw_step_wave_{sfx}").argtypes = (
                 [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
             getattr(lib, f"raw_step_grayscott_{sfx}").argtypes = (
@@ -95,10 +116,17 @@ def raw_step_heat(u: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     Z, Y, X = u.shape
     rc = _build.entry(lib, "raw_step_heat", u)(
         kind, u.data_ptr(), out.data_ptr(), Z, Y, X, *coefficients(stencil),
+        *tile_args(stencil, tile_of(stencil), (Z, Y, X), u.device),
         _build.stream_of(u))
     _build.check(lib, rc, "raw_step_heat")
     launches[_build.launch_key("raw_step_heat", stencil.name, u)] += 1
     return out
+
+
+def tile_of(stencil: Stencil) -> Tile:
+    """K1's launch tile of ``stencil`` in its dtype, its TILES entry.
+    Raises on a tile the kernel does not take (no fallback)."""
+    return table_tile(TILES, stencil, "rawstep.TILES")
 
 
 def raw_step_wave(u: torch.Tensor, uprev: torch.Tensor,

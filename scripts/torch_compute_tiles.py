@@ -1,35 +1,40 @@
 #!/usr/bin/env python3
-"""Launch tiles of the tiled compute_fn kernels K4 and K7
-(``csrc/march.cuh``: ``zchunk_heat``, ``whole2d_step``), on one NVIDIA
-card.
+"""Launch tiles of the tiled one-step kernels (``csrc/march.cuh``): K4,
+K5 and K7 (``zchunk_heat``, ``zchunk_wave``, ``whole2d_step``) and K1
+(``raw_step_heat``), on one NVIDIA card.
 
     python3 scripts/torch_compute_tiles.py [--reps 10] [--quick] [--parent DIR]
-                                           [--cli]
+                                           [--cli] [--only K1,K5]
 
-Builds only ``csrc/zchunk.cu`` and ``csrc/whole2d.cu`` (about a minute).
-Then, for every kind of ``kernels.TILES`` — K4 heat3d on one 2x2 shard of
-1024^3, heat3d27 and heat3d4th on one 2x2 shard of 512^3, K7 heat2d and
-Life at 16384^2; float32, bfloat16 (cells in pairs) and Life's int32 —
-times by CUDA events every candidate tile (``kernels.candidates``;
-``--quick``: the table's tile), each result held to the plain update (the
-stencil's own, on the card) bit for bit.  Each line names the tile's build
-(threads, blocks an SM, register cap), its cells, rows, run and strip, its
-shared memory and the bound (one read of the padded block and one write of
-the interior at the data sheet's 3.35 TB/s).  Before timing it checks the
-table's tile on small blocks: widths in each residue mod 8, one plane, one
-row, one cell, runs that do not divide the extent, and bfloat16 inputs
+Builds only ``csrc/zchunk.cu``, ``csrc/whole2d.cu`` and ``csrc/rawstep.cu``
+(a few minutes).  Then, for every kind of ``kernels.TILES`` — K4 heat3d
+and K5 wave3d on one 2x2 shard of 1024^3, heat3d27 and heat3d4th on one
+2x2 shard of 512^3, K7 heat2d and Life at 16384^2 — and of
+``rawstep.TILES`` — K1 heat3d, heat3d27, heat3d4th and advect3d (cz =
+-0.25) on the unsharded 512^3 grid, heat3d also at 1024^3 — in float32,
+bfloat16 (cells in pairs) and Life's int32, times by CUDA events every
+candidate tile (``march.candidates``; ``--quick``: the table's tile),
+each result held to the plain version (the stencil's own update, K1:
+``driver.make_step``, on the card) bit for bit.  Each line names the
+tile's build (threads, blocks an SM, register cap), its cells, rows, run
+and strip, its shared memory and the bound (one read of each input and
+one write of the output at the data sheet's 3.35 TB/s).  Before timing it checks the table's tile on small blocks: widths
+in each residue mod 8, one plane, one row, one cell (K1: the smallest
+grid it takes), runs that do not divide the extent, K1 grids whose every
+tile touches a wall beside grids with interior tiles, and bfloat16 inputs
 with subnormals, signed zeros and sums on ties
-(``tests/compute_schedule.py::special_bf16``).  With ``--parent DIR`` (an unpacked earlier tree of
-this repository: the kernels' first form) the earlier tree's K4 / K7
-launch of every kind and K5
-(``zchunk_wave``, float32 and bfloat16, one 2x2 shard of 1024^3) are
-timed in a subprocess before and after this tree's, and this tree's K5
-beside them, on the same card; with ``--cli`` also the CLI ms/step of the
-``--compute pallas`` runs in ``CLI_RUNS`` in both trees, in the order
-parent, this, this, parent (the CLI's own clock, kernels built before it
-starts).  Prints one JSON line per measurement, the
-fastest tile per kind, writes them all to chiprun_out/compute_tiles.json,
-then prints the card's name and power limit.
+(``tests/compute_schedule.py::special_bf16``).  ``--only`` keeps the
+named kernels (K1, K4, K5, K7).  With ``--parent DIR`` (an unpacked
+earlier tree of this repository) the earlier tree's launch of every kind
+above, and of K2 (``raw_step_wave``) and ``raw_step_grayscott`` at 512^3,
+is timed in a subprocess before and after this tree's, and this tree's
+beside them, on the same card (parent, this, this, parent); with
+``--cli`` also the CLI ms/step of the ``--compute pallas`` runs in
+``CLI_RUNS`` in both trees, in the same order (the CLI's own clock,
+kernels built before it starts).  Prints one JSON line per measurement,
+the fastest tile per kind, writes them all to
+chiprun_out/compute_tiles.json, then prints the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -45,26 +50,55 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-# (stencil, dtypes, the main path's interior shape)
-KINDS = (("heat3d", ("float32", "bfloat16"), (512, 512, 1024)),
-         ("heat3d27", ("float32", "bfloat16"), (256, 256, 512)),
-         ("heat3d4th", ("float32", "bfloat16"), (256, 256, 512)),
-         ("heat2d", ("float32", "bfloat16"), (16384, 16384)),
-         ("life", ("int32",), (16384, 16384)))
-# the small blocks of the correctness sweep (interior shapes)
+SOURCES = ("zchunk", "whole2d", "rawstep")
+# (kernel, stencil, dtypes, the main path's output shape): the compute_fn
+# kernels on their padded blocks, K1 on the raw grid
+KINDS = (("K4", "heat3d", ("float32", "bfloat16"), (512, 512, 1024)),
+         ("K4", "heat3d27", ("float32", "bfloat16"), (256, 256, 512)),
+         ("K4", "heat3d4th", ("float32", "bfloat16"), (256, 256, 512)),
+         ("K5", "wave3d", ("float32", "bfloat16"), (512, 512, 1024)),
+         ("K7", "heat2d", ("float32", "bfloat16"), (16384, 16384)),
+         ("K7", "life", ("int32",), (16384, 16384)),
+         ("K1", "heat3d", ("float32", "bfloat16"), (512, 512, 512)),
+         ("K1", "heat3d27", ("float32", "bfloat16"), (512, 512, 512)),
+         ("K1", "heat3d4th", ("float32", "bfloat16"), (512, 512, 512)),
+         ("K1", "advect3d", ("float32", "bfloat16"), (512, 512, 512)))
+# K1 heat3d's unsharded CLI size, timed at the table's tile and its
+# candidates beside the 512^3 ones
+K1_BIG = (1024, 1024, 1024)
+# parameters of the kinds (advection with a negative Courant number on
+# one axis, as on the main path)
+PARAMS = {"advect3d": {"cz": -0.25}}
+# the kinds timed beside the parent's that this PR leaves in their first
+# form: K2 and Gray-Scott's raw step at 512^3
+REREAD = (("K2", "wave3d", ("float32", "bfloat16"), (512, 512, 512)),
+          ("GS", "grayscott3d", ("float32", "bfloat16"), (512, 512, 512)))
+# the small blocks of the correctness sweep (output shapes)
 SMALL3D = [(5, 7, 8 * 4 + r) for r in range(8)] + [
     (1, 1, 1), (1, 9, 33), (9, 1, 130), (67, 3, 5), (3, 18, 131)]
 SMALL2D = [(9, 8 * 8 + r) for r in range(8)] + [
     (1, 1), (1, 1000), (1000, 1), (517, 7), (3, 4099)]
 
 
+def small_raw(h):
+    """K1's sweep: x in each residue mod 8, the smallest grid the step
+    takes, every tile at a wall, grids with interior tiles and runs."""
+    m = 2 * h + 1
+    return [(m + 4, m + 5, 8 * 4 + r) for r in range(8)] + [
+        (m, m, m), (m, 9, 33), (9, m, 130), (67, m + 2, m + 4),
+        (m + 2, 18, 131), (40, 40, 600), (70, 37, 1100)]
+
+
 # --cli: (stencil, grid, iterations, flags) of the --compute pallas runs
-# timed in both trees; --mesh shards run on one card
-CLI_RUNS = (("heat2d", "16384,16384", 300, ()),
-            ("heat2d", "16384,16384", 300, ("--dtype", "bfloat16")),
-            ("heat2d", "16384,16384", 200, ("--mesh", "4", "--overlap")),
-            ("heat3d", "1024,1024,1024", 50, ("--mesh", "2,2")),
-            ("heat3d", "1024,1024,1024", 50, ("--mesh", "2,2", "--dtype",
+# timed in both trees: K1 unsharded, K5 on --mesh 2,2 (shards on one card)
+CLI_RUNS = (("heat3d", "512,512,512", 100, ()),
+            ("heat3d", "512,512,512", 100, ("--dtype", "bfloat16")),
+            ("heat3d", "1024,1024,1024", 50, ()),
+            ("heat3d", "1024,1024,1024", 50, ("--dtype", "bfloat16")),
+            ("heat3d27", "512,512,512", 100, ()),
+            ("advect3d", "512,512,512", 100, ("--param", "cz=-0.25")),
+            ("wave3d", "1024,1024,1024", 50, ("--mesh", "2,2")),
+            ("wave3d", "1024,1024,1024", 50, ("--mesh", "2,2", "--dtype",
                                               "bfloat16")))
 
 
@@ -115,53 +149,55 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-# times the K4 / K7 kinds at their main-path shapes and K5 on one 2x2
-# shard of 1024^3, in whichever tree ROOT names (this one, or --parent)
+# times every kind at its main-path shape through the wrappers a run
+# calls, in whichever tree ROOT names (this one, or --parent)
 TREE_TIMES = """
 import json, sys, torch
 sys.path.insert(0, ROOT)
 from mpi_cuda_process_tpu_torch import make_stencil
-from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels
-_build.SOURCES = ("zchunk", "whole2d")
+from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels, rawstep
+_build.SOURCES = SOURCES
 dev = torch.device("cuda", torch.cuda.current_device())
 gen = torch.Generator(device=dev)
 gen.manual_seed(16)
 out = {}
-for name, dts, shape in KINDS + (("wave3d", ("float32", "bfloat16"),
-                                  (512, 512, 1024)),):
+for kern, name, dts, shape in KINDS:
     for dt in dts:
-        st = make_stencil(name) if dt == "int32" else make_stencil(
-            name, dtype=dt)
-        padded = tuple(s + 2 * st.halo for s in shape)
-        ins = (torch.rand(padded, generator=gen, device=dev).to(st.dtype),)
-        if name == "wave3d":
-            ins += (torch.rand(shape, generator=gen, device=dev).to(
-                st.dtype),)
-        comp = kernels.make_pallas_compute(st, device=dev)
-        comp(ins)
+        kw = PARAMS.get(name, {})
+        st = make_stencil(name, **kw) if dt == "int32" else make_stencil(
+            name, dtype=dt, **kw)
+        raw = kern in ("K1", "K2", "GS")
+        first = shape if raw else tuple(s + 2 * st.halo for s in shape)
+        ins = (torch.rand(first, generator=gen, device=dev).to(st.dtype),)
+        ins += tuple(torch.rand(shape, generator=gen, device=dev).to(
+            st.dtype) for _ in range(st.num_fields - 1))
+        fn = rawstep.make_raw_step(st, shape, device=dev) if raw else \\
+            kernels.make_pallas_compute(st, device=dev)
+        fn(ins)
         torch.cuda.synchronize()
         s, e = (torch.cuda.Event(enable_timing=True),
                 torch.cuda.Event(enable_timing=True))
         s.record()
         for _ in range(REPS):
-            comp(ins)
+            fn(ins)
         e.record()
         torch.cuda.synchronize()
-        out[name + "," + dt] = s.elapsed_time(e) / REPS
+        out[kern + " " + name + "," + dt] = s.elapsed_time(e) / REPS
         del ins
         torch.cuda.empty_cache()
 print("TIMES " + json.dumps(out))
 """
 
 
-def tree_times(root: str, reps: int) -> dict:
-    """Each kind's ms (K4 / K7 at its TILES entry, K5) in the tree at
-    ``root``, timed in a subprocess that imports that tree's package."""
-    import subprocess as sp
-    code = (f"ROOT = {root!r}\nREPS = {reps}\nKINDS = {KINDS!r}\n"
-            + TREE_TIMES)
-    r = sp.run([sys.executable, "-c", code], capture_output=True, text=True,
-               cwd=root, check=True)
+def tree_times(root: str, reps: int, kinds) -> dict:
+    """Each kind's ms (at its table entry) in the tree at ``root``, timed
+    in a subprocess that imports that tree's package."""
+    code = (f"ROOT = {root!r}\nREPS = {reps}\nKINDS = {kinds!r}\n"
+            f"PARAMS = {PARAMS!r}\nSOURCES = {SOURCES!r}\n" + TREE_TIMES)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=root)
+    if r.returncode:
+        raise SystemExit(f"tree_times({root}) failed:\n{r.stderr[-4000:]}")
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("TIMES ")]
     return json.loads(line[-1][len("TIMES "):])
 
@@ -172,20 +208,24 @@ def main() -> int:
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--cli", action="store_true")
+    ap.add_argument("--only", default="K1,K4,K5,K7")
     a = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    from mpi_cuda_process_tpu_torch import make_stencil
-    from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels
+    from mpi_cuda_process_tpu_torch import driver, make_stencil
+    from mpi_cuda_process_tpu_torch.ops.cuda import (_build, kernels, march,
+                                                     rawstep)
     from compute_schedule import special_bf16
 
+    only = set(a.only.split(","))
+    kinds = tuple(k for k in KINDS if k[0] in only)
     dev = torch.device("cuda", torch.cuda.current_device())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    _build.SOURCES = ("zchunk", "whole2d")  # the two this script times
+    _build.SOURCES = SOURCES  # the three this script times
     _build.build_all()
     rows = []
 
@@ -194,38 +234,51 @@ def main() -> int:
         print(json.dumps(row), flush=True)
 
     if a.parent:
-        emit({"parent_ms_before": tree_times(a.parent, 20)})
-        emit({"this_tree_ms": tree_times(ROOT, 20)})
+        emit({"parent_ms_before": tree_times(a.parent, 20, kinds + REREAD)})
+        emit({"this_tree_ms": tree_times(ROOT, 20, kinds + REREAD)})
     emit({"build": {n: [ln.strip() for ln in log.splitlines()
                         if "march_step" in ln or "Used" in ln
-                        or "spill" in ln or "stack" in ln][:400]
+                        or "spill" in ln or "stack" in ln][:600]
                     for n, log in _build.build_log.items()},
           "nvcc_seconds": _build.build_seconds})
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
 
     def stencil(name, dt):
-        return make_stencil(name) if dt == "int32" else \
-            make_stencil(name, dtype=dt)
+        kw = PARAMS.get(name, {})
+        return make_stencil(name, **kw) if dt == "int32" else \
+            make_stencil(name, dtype=dt, **kw)
 
-    def block(st, shape, special=False):
-        padded = tuple(s + 2 * st.halo for s in shape)
+    def block(st, shape, raw, special=False):
+        """The kind's inputs: the padded block (K1: the raw grid), and
+        K5's u_prev."""
+        first = shape if raw else tuple(s + 2 * st.halo for s in shape)
         if st.name == "life":
-            return (torch.rand(padded, generator=gen, device=dev)
-                    < 0.35).to(torch.int32)
+            return ((torch.rand(first, generator=gen, device=dev)
+                     < 0.35).to(torch.int32),)
+        shapes = (first,) + (shape,) * (st.num_fields - 1)
         if special:
-            return special_bf16(padded, gen, dev)
-        return torch.rand(padded, generator=gen, device=dev).to(st.dtype)
+            return tuple(special_bf16(s, gen, dev) for s in shapes)
+        return tuple(torch.rand(s, generator=gen, device=dev).to(st.dtype)
+                     for s in shapes)
 
-    def run(st, p):
-        return kernels.make_pallas_compute(st, device=dev)((p,))[0]
+    def run(kern, st, ins):
+        if kern == "K1":
+            return rawstep.make_raw_step(st, ins[0].shape, device=dev)(
+                ins)[0]
+        return kernels.make_pallas_compute(st, device=dev)(ins)[0]
+
+    def plain(kern, st, ins):
+        if kern == "K1":
+            return driver.make_step(st, ins[0].shape)(ins)[0]
+        return st.update(ins)[0]
 
     def bits(t):
         return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
             t.view(torch.int32)
 
     def describe(st, tile):
-        geo = kernels.march_geometry(st, tile)
+        geo = march.march_geometry(st, tile)
         group = 32 * tile.rowwarps if st.ndim == 3 else tile.threads
         return {"threads": tile.threads,
                 "blocks_per_sm": tile.blocks, "registers": tile.registers,
@@ -234,67 +287,79 @@ def main() -> int:
                 "strip": tile.tx // group,
                 "smem_bytes": geo.smem, "ring_slots": geo.slots}
 
+    def table(kern):
+        return rawstep.TILES if kern == "K1" else kernels.TILES
+
     failures = []
     # correctness sweep: every kind's table tile on small blocks
-    for name, dts, _shape in KINDS:
+    for kern, name, dts, _shape in kinds:
         for dt in dts:
             st = stencil(name, dt)
-            tile = kernels.TILES[(name, dt)]
+            tile = table(kern)[(name, dt)]
+            shapes = small_raw(st.halo) if kern == "K1" else \
+                SMALL2D if st.ndim == 2 else SMALL3D
             checked = 0
-            for shape in (SMALL2D if st.ndim == 2 else SMALL3D):
+            for shape in shapes:
                 for special in ((False, True) if dt == "bfloat16"
                                 else (False,)):
-                    p = block(st, shape, special)
-                    got, ref = run(st, p), st.update((p,))[0]
+                    ins = block(st, shape, kern == "K1", special)
+                    got, ref = run(kern, st, ins), plain(kern, st, ins)
                     torch.cuda.synchronize()
                     if got.shape != ref.shape or not torch.equal(
                             bits(got), bits(ref)):
                         bad = (bits(got) != bits(ref)).nonzero()[:3]
                         failures.append({
-                            "kernel": name, "dtype": dt, "tile": list(tile),
-                            "shape": list(shape), "special": special,
-                            "first_bad": bad.tolist()})
+                            "kernel": kern, "stencil": name, "dtype": dt,
+                            "tile": list(tile), "shape": list(shape),
+                            "special": special, "first_bad": bad.tolist()})
                     checked += 1
-            emit({"check": name, "dtype": dt, **describe(st, tile),
-                  "blocks_checked": checked})
+            emit({"check": kern, "stencil": name, "dtype": dt,
+                  **describe(st, tile), "blocks_checked": checked})
     if failures:
         emit({"failures": failures})
     # timing at the main path's shapes
     best = {}
-    for name, dts, shape in KINDS:
+    timed = [k for k in kinds]
+    if "K1" in only:
+        timed.append(("K1", "heat3d", ("float32", "bfloat16"), K1_BIG))
+    for kern, name, dts, shape in timed:
         for dt in dts:
             st = stencil(name, dt)
             key = (name, dt)
-            saved = kernels.TILES[key]
-            p = block(st, shape)
-            ref = st.update((p,))[0]
-            cells = ref.numel()
-            bound = (p.numel() + cells) * p.element_size() / 3.35e12 * 1e3
-            for tile in ([saved] if a.quick else kernels.candidates(st)):
-                kernels.TILES[key] = tile
-                got = run(st, p)
+            tab = table(kern)
+            saved = tab[key]
+            ins = block(st, shape, kern == "K1")
+            ref = plain(kern, st, ins)
+            nbytes = sum(t.numel() for t in ins) + ref.numel()
+            bound = nbytes * ref.element_size() / 3.35e12 * 1e3
+            for tile in ([saved] if a.quick else march.candidates(st)):
+                tab[key] = tile
+                got = run(kern, st, ins)
                 same = bool(torch.equal(bits(got), bits(ref)))
-                ms = time_ms(torch, lambda: run(st, p), a.reps)
-                emit({"kernel": name, "dtype": dt, "shape": list(shape),
-                      **describe(st, tile), "ms": ms, "bound_ms": bound,
-                      "fraction_of_bound": bound / ms,
+                ms = time_ms(torch, lambda: run(kern, st, ins), a.reps)
+                emit({"kernel": kern, "stencil": name, "dtype": dt,
+                      "shape": list(shape), **describe(st, tile), "ms": ms,
+                      "bound_ms": bound, "fraction_of_bound": bound / ms,
                       "bit_equal_to_plain": same})
                 if not same:
-                    failures.append({"kernel": name, "dtype": dt,
+                    failures.append({"kernel": kern, "stencil": name,
+                                     "dtype": dt,
                                      "tile": describe(st, tile),
                                      "shape": list(shape)})
-                elif key not in best or ms < best[key][1]:
-                    best[key] = (tile, ms)
+                elif (kern, name, dt, shape) not in best or \
+                        ms < best[(kern, name, dt, shape)][1]:
+                    best[(kern, name, dt, shape)] = (tile, ms)
                 del got
-            kernels.TILES[key] = saved
-            del p, ref
+            tab[key] = saved
+            del ins, ref
             torch.cuda.empty_cache()
-    for (name, dt), (tile, ms) in best.items():
-        emit({"best": name, "dtype": dt, "tile": list(tile), "ms": ms,
-              "table": list(kernels.TILES[(name, dt)])})
+    for (kern, name, dt, shape), (tile, ms) in best.items():
+        emit({"best": kern, "stencil": name, "dtype": dt,
+              "shape": list(shape), "tile": list(tile), "ms": ms,
+              "table": list(table(kern)[(name, dt)])})
     if a.parent:
-        emit({"this_tree_ms_after": tree_times(ROOT, 20)})
-        emit({"parent_ms_after": tree_times(a.parent, 20)})
+        emit({"this_tree_ms_after": tree_times(ROOT, 20, kinds + REREAD)})
+        emit({"parent_ms_after": tree_times(a.parent, 20, kinds + REREAD)})
         if a.cli:
             emit({"cli_ms_per_step": cli_times(a.parent)})
     emit({"card": smi, "failures": len(failures)})

@@ -1,13 +1,16 @@
-"""The tiled compute_fn kernels K4 / K7 (csrc/march.cuh) on the CPU.
+"""The tiled one-step kernels K1, K4, K5 and K7 (csrc/march.cuh) on the CPU.
 
 No card here: these hold what the kernel's launches are made of — the tile
-table, the ring geometry, the aligned-word copy of each row segment
-(``kernels.row_copy_plan``) and the ring's schedule (replayed by
-``tests/compute_schedule.py`` with the plain update) — and the claim the
-packed bfloat16 path rests on: one rounding of an op's exact result to
-bfloat16 gives what the plain version's float-then-bfloat16 gives.  The
-kernels themselves are held to their plain versions bit for bit on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+tables (``kernels.TILES``, ``rawstep.TILES``), the ring geometry, the
+aligned-word copy of each row segment (``march.row_copy_plan``, on padded
+blocks and the raw grid's pitch) and the ring's schedule (replayed by
+``tests/compute_schedule.py`` with the plain update: K4/K7, K5 with its
+u_prev, K1 on the raw grid with its frame and clipped runs; each held to
+the JAX package's own function too) — and the
+claim the packed bfloat16 path rests on: one rounding of an op's exact
+result to bfloat16 gives what the plain version's float-then-bfloat16
+gives.  The kernels themselves are held to their plain versions bit for
+bit on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
 
 from __future__ import annotations
@@ -16,16 +19,31 @@ import numpy as np
 import pytest
 import torch
 
-from mpi_cuda_process_tpu_torch import make_stencil
-from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels
+import jax.numpy as jnp
+from jax.experimental import pallas as jpl
+
+from mpi_cuda_process_tpu.ops import make_stencil as jmake_stencil
+from mpi_cuda_process_tpu.ops.pallas import kernels as jkernels
+from mpi_cuda_process_tpu.ops.pallas import rawstep as jrawstep
+
+from mpi_cuda_process_tpu_torch import driver, make_stencil
+from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels, rawstep
 
 import compute_schedule  # noqa: E402  (tests/, on pytest's path)
+
+_JAX_TYPES = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 KINDS = [("heat3d", torch.float32), ("heat3d", torch.bfloat16),
          ("heat3d27", torch.float32), ("heat3d27", torch.bfloat16),
          ("heat3d4th", torch.float32), ("heat3d4th", torch.bfloat16),
          ("heat2d", torch.float32), ("heat2d", torch.bfloat16),
          ("life", torch.int32)]
+# every table of the tiled kernel: K4/K5/K7's and K1's
+TABLES = [("kernels", n, d) for n, d in KINDS + [
+    ("wave3d", torch.float32), ("wave3d", torch.bfloat16)]] + [
+    ("rawstep", n, d) for n in ("heat3d", "heat3d27", "heat3d4th",
+                                "advect3d")
+    for d in (torch.float32, torch.bfloat16)]
 
 
 def _stencil(name, dtype):
@@ -37,18 +55,35 @@ def _ids(cases):
     return [f"{n}-{str(d).replace('torch.', '')}" for n, d in cases]
 
 
-@pytest.mark.parametrize("name,dtype", KINDS, ids=_ids(KINDS))
-def test_every_table_tile_fits_and_was_a_timed_candidate(name, dtype):
+@pytest.mark.parametrize(
+    "table,name,dtype", TABLES,
+    ids=[f"{n}-{str(d)[6:]}" if t == "kernels" else f"{t}-{n}-{str(d)[6:]}"
+         for t, n, d in TABLES])
+def test_every_table_tile_fits_and_was_a_timed_candidate(table, name,
+                                                         dtype):
     st = _stencil(name, dtype)
+    mod = {"kernels": kernels, "rawstep": rawstep}[table]
     key = (name, str(dtype).replace("torch.", ""))
-    assert key in kernels.TILES
-    tile = kernels.TILES[key]
+    assert key in mod.TILES
+    tile = mod.TILES[key]
     assert kernels.tile_fits(st, tile)
     assert tile in kernels.candidates(st)
     geo = kernels.march_geometry(st, tile)
     assert geo.smem <= _build.SMEM_LIMIT
     assert tile.blocks * geo.smem <= _build.SMEM_PER_SM
-    assert kernels.tile_of(st) == tile
+    assert mod.tile_of(st) == tile
+
+
+def test_every_kernel_kind_has_a_table_entry():
+    """Each kind a tiled wrapper takes has its tile: K4/K5/K7's every
+    compute_fn name in each of its types, K1's every one-field raw kind."""
+    for name in ("heat3d", "heat3d27", "heat3d4th", "wave3d", "heat2d"):
+        for dt in ("float32", "bfloat16"):
+            assert (name, dt) in kernels.TILES
+    for name in rawstep._HEAT_KIND:
+        for dt in ("float32", "bfloat16"):
+            assert (name, dt) in rawstep.TILES
+    assert len(rawstep.TILES) == 2 * len(rawstep._HEAT_KIND)
 
 
 def test_tiles_the_kernel_does_not_take_are_refused():
@@ -169,23 +204,28 @@ def _check_plan(mem, lo, addr, ncells, es, row_bytes):
         assert got == want, f"cell {i} of the segment at {addr:#x}"
 
 
-def _segments(shape_padded, h, es, tile, d2):
-    """Every (byte offset, cells) row segment a launch copies."""
-    PZ, PY, PX = shape_padded
-    M, Y, X = PZ - 2 * h, (1 if d2 else PY - 2 * h), PX - 2 * h
+def _segments(shape_in, h, es, tile, d2, raw=False):
+    """Every (byte offset, cells) row segment a launch copies from its
+    input of ``shape_in``: a padded block, or with ``raw`` the raw grid
+    (rows and cells clipped to it, a run from plane max(z0 - h, 0))."""
+    PZ, PY, PX = shape_in
+    pad, co = (0, 0) if raw else (2 * h, h)
+    M, Y, X = PZ - pad, (1 if d2 else PY - pad), PX - pad
     TY = 1 if d2 else tile.ty
     PR = 1 if d2 else TY + 2 * h
     for z0 in range(0, M, tile.zrun):
-        nin = min(tile.zrun, M - z0) + 2 * h
+        nz = min(tile.zrun, M - z0)
+        plo = max(z0 + co - h, 0)
         for y0 in range(0, Y, TY):
             for x0 in range(0, X, tile.tx):
-                n = min(tile.tx + 2 * h, PX - x0)
-                for q in range(nin):
+                # the tile's cells widened by h, clipped to the row
+                first = max(x0 + co - h, 0)
+                n = min(x0 + co + tile.tx + h, PX) - first
+                for pz in range(plo, min(z0 + nz + co + h, PZ)):
                     for r in range(PR):
-                        py = 0 if d2 else y0 + r
-                        if py >= PY:
-                            continue
-                        yield ((((z0 + q) * PY + py) * PX + x0) * es, n)
+                        py = 0 if d2 else y0 + co - h + r
+                        if 0 <= py < PY:
+                            yield (((pz * PY + py) * PX + first) * es, n)
 
 
 PLAN_CASES = [(name, dt, res) for name, dt in (
@@ -220,6 +260,35 @@ def test_row_copy_plan_covers_every_cell_and_reads_only_the_tensor(
             mem = rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
             for lo in (1 << 20, (1 << 20) + es, (1 << 20) + 8):
                 for off, n in _segments(shape, h, es, tile, d2):
+                    _check_plan(mem, lo, lo + off, n, es, row_bytes)
+
+
+RAW_PLAN_CASES = [(name, dt, res) for name in ("heat3d", "heat3d4th")
+                  for dt in (torch.float32, torch.bfloat16)
+                  for res in range(8)]
+
+
+@pytest.mark.parametrize("name,dtype,res", RAW_PLAN_CASES,
+                         ids=[f"raw-{n}-{str(d)[6:]}-w{r}"
+                              for n, d, r in RAW_PLAN_CASES])
+def test_row_copy_plan_on_the_raw_pitch(name, dtype, res):
+    """The copy plan on the raw grid's pitch X (K1: segments clipped at the
+    walls, the grid's own first and last words): widths in each residue
+    mod 8, bases on and off 16 bytes, every cell copied and nothing
+    outside the tensor read."""
+    st = _stencil(name, dtype)
+    h, es = st.halo, st.dtype.itemsize
+    rng = np.random.default_rng(100 + res)
+    unit = 2 if dtype == torch.bfloat16 else 1
+    for X in (res or 8, 8 + res, 40 + res, 2 * h + 1 + res):
+        for tx, ty, zrun in ((32, 2, 2), (64, 3, 5)):
+            tile = kernels.Tile(256, 2, tx * unit, ty, zrun)
+            row_bytes = kernels.march_geometry(st, tile).row_bytes
+            shape = (2 * h + 3, 2 * h + 2, X)
+            nbytes = int(np.prod(shape)) * es
+            mem = rng.integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+            for lo in (1 << 20, (1 << 20) + es, (1 << 20) + 8):
+                for off, n in _segments(shape, h, es, tile, False, raw=True):
                     _check_plan(mem, lo, lo + off, n, es, row_bytes)
 
 
@@ -367,3 +436,180 @@ def test_special_bf16_blocks_hold_every_band():
     again = compute_schedule.special_bf16(
         (64, 65), torch.Generator().manual_seed(5), "cpu")
     assert torch.equal(x.view(torch.int16), again.view(torch.int16))
+
+
+# --- K5 and K1 on march.cuh: u_prev and the raw grid ----------------------
+
+WAVE_SCHEDULE = [((5, 4, 32 + r), (32, 3, 2)) for r in range(8)] + [
+    ((6, 9, 37), (32, 4, 3)),     # runs that do not divide Z
+    ((1, 1, 1), (32, 8, 4)),      # one plane, one row, one cell
+    ((1, 9, 70), (64, 4, 3)),     # one plane
+    ((7, 1, 33), (32, 4, 3)),     # one row
+    ((8, 6, 64), (32, 2, 4))]     # runs that divide Z
+WAVE_TYPES = [c + (dt,) for c in WAVE_SCHEDULE
+              for dt in (torch.float32, torch.bfloat16)]
+
+
+def _wave_block(st, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    padded = tuple(s + 2 for s in shape)
+    return (torch.rand(padded, generator=g).to(st.dtype),
+            torch.rand(shape, generator=g).to(st.dtype))
+
+
+@pytest.mark.parametrize("shape,tile,dtype", WAVE_TYPES,
+                         ids=[f"{'x'.join(map(str, s))}-{str(d)[6:]}"
+                              for s, _, d in WAVE_TYPES])
+def test_k5_schedule_with_uprev_is_the_plain_update(shape, tile, dtype):
+    """K5's ring of padded planes on the committed slot count, with u_prev
+    read by each cell's thread, == the plain wave update bit for bit, at
+    every x residue mod 8, one plane, row and cell, and runs that do or do
+    not divide Z."""
+    st = make_stencil("wave3d", dtype=dtype)
+    p, up = _wave_block(st, shape, 9)
+    got = compute_schedule.run(st, p, kernels.Tile(256, 2, *tile),
+                               kernels.ring_slots(1), up)
+    ref = st.update((p, up))[0]
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+def test_k5_schedule_races_on_a_ring_one_slot_short():
+    st = make_stencil("wave3d")
+    p, up = _wave_block(st, (7, 5, 37), 10)
+    with pytest.raises(compute_schedule.Race):
+        compute_schedule.run(st, p, kernels.Tile(256, 2, 32, 4, 3),
+                             kernels.ring_slots(1) - 1, up)
+
+
+def test_k5_tiles_take_the_z_queue():
+    """Every K5 tile is a z-queue tile (one row a group: the thread that
+    updates a cell loads its u_prev into registers) with K4's ring and no
+    more shared memory."""
+    wave = make_stencil("wave3d")
+    heat = make_stencil("heat3d")
+    tile = kernels.Tile(256, 2, 256, 8, 64, 1, True)
+    assert kernels.tile_fits(wave, tile)
+    assert kernels.march_geometry(wave, tile) == \
+        kernels.march_geometry(heat, tile)
+    assert not kernels.tile_fits(wave, kernels.Tile(256, 2, 256, 8, 64))
+    assert kernels.tile_fits(heat, kernels.Tile(256, 2, 256, 8, 64))
+    cands = kernels.candidates(wave)
+    assert cands and all(t.zqueue for t in cands)
+
+
+# K1: the raw grid, its frame pinned in the kernel.  Grids whose every
+# tile touches a wall beside grids with interior tiles, every x residue
+# mod 8, the smallest grid the step takes (one interior plane, row and
+# cell) and runs that do or do not divide Z.
+RAW_KINDS = [("heat3d", {}), ("heat3d27", {}), ("heat3d4th", {}),
+             ("advect3d", {"cx": -0.3, "cy": 0.2, "cz": -0.25})]
+
+
+def _raw_shapes(h):
+    small = 2 * h + 1
+    return [((2 * h + 3, 2 * h + 4, 24 + r), (16, 4, 3)) for r in range(8)] \
+        + [((small, small, small), (32, 4, 2)),
+           ((17, 13, 70), (16, 3, 5)),       # interior tiles and runs
+           ((12, 11, 40), (32, 8, 4))]       # runs that divide Z
+
+
+RAW_SCHEDULE = [(n, kw, shape, tile, dt) for n, kw in RAW_KINDS
+                for shape, tile in _raw_shapes(2 if n == "heat3d4th" else 1)
+                for dt in (torch.float32, torch.bfloat16)]
+
+
+def _raw_grid(st, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand(shape, generator=g).to(st.dtype)
+
+
+@pytest.mark.parametrize("name,kw,shape,tile,dtype", RAW_SCHEDULE,
+                         ids=[f"{n}-{'x'.join(map(str, s))}-{str(d)[6:]}"
+                              for n, _, s, _, d in RAW_SCHEDULE])
+def test_k1_raw_schedule_is_the_plain_step(name, kw, shape, tile, dtype):
+    """K1 on the raw grid (clipped runs at z = 0 and z = Z, rows and cells
+    clipped at the walls, frame cells keeping their value) on the
+    committed slot count == the port's plain guard-frame step bit for
+    bit."""
+    st = make_stencil(name, dtype=dtype, **kw)
+    u = _raw_grid(st, shape, 11)
+    got = compute_schedule.run(st, u, kernels.Tile(256, 2, *tile),
+                               kernels.ring_slots(st.halo), raw=True)
+    ref = driver.make_step(st, shape)((u,))[0]
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("name,kw", RAW_KINDS, ids=[n for n, _ in RAW_KINDS])
+def test_k1_raw_schedule_races_on_a_ring_one_slot_short(name, kw):
+    st = make_stencil(name, **kw)
+    h = st.halo
+    u = _raw_grid(st, (4 * h + 9, 9, 37), 12)
+    with pytest.raises(compute_schedule.Race):
+        compute_schedule.run(st, u, kernels.Tile(256, 2, 32, 4, 6),
+                             kernels.ring_slots(h) - 1, raw=True)
+
+
+def _tol(ref, dtype):
+    eps = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    return 32 * eps * max(float(np.abs(ref).max()), 1.0)
+
+
+RAW_JAX = [(n, kw, dt) for n, kw in RAW_KINDS
+           for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("name,kw,dtype", RAW_JAX,
+                         ids=[f"{n}-{str(d)[6:]}" for n, _, d in RAW_JAX])
+def test_k1_raw_schedule_matches_jax_make_raw_step(name, kw, dtype):
+    """The replayed K1 step == the JAX package's make_raw_step (interpret)
+    on the same seeded numpy grid, within the raw step's 32 eps max(|ref|,
+    1), frame cells equal; a grid with interior tiles and ragged x."""
+    shape = (16, 13, 45)
+    jst = jmake_stencil(name, dtype=_JAX_TYPES[dtype], **kw)
+    st = make_stencil(name, dtype=dtype, **kw)
+    jstep = jrawstep.make_raw_step(jst, shape, interpret=True)
+    assert jstep is not None
+    a = np.random.default_rng(13).random(shape, dtype=np.float32)
+    ref = np.asarray(jstep((jnp.asarray(a, _JAX_TYPES[dtype]),))[0],
+                     dtype=np.float32)
+    got = compute_schedule.run(st, torch.from_numpy(a).to(dtype),
+                               kernels.Tile(256, 2, 16, 4, 5),
+                               kernels.ring_slots(st.halo),
+                               raw=True).float().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(ref, dtype))
+    frame = driver.frame_mask(shape, shape, (0, 0, 0), st.halo,
+                              device="cpu").numpy()
+    np.testing.assert_array_equal(got[frame], ref[frame])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_k5_schedule_matches_jax_wave3d_compute(monkeypatch, dtype):
+    """The replayed K5 update == the JAX package's
+    _wave3d_compute (interpret: one pallas_call built, no plain fallback)
+    on the same seeded numpy block, within the compute_fn tolerance
+    (float32 1e-6; bfloat16 32 eps max(|ref|, 1))."""
+    built = []
+    real = jpl.pallas_call
+
+    def counting(*a, **kw):
+        built.append(kw.get("interpret"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(jpl, "pallas_call", counting)
+    shape = (8, 11, 37)
+    jst = jmake_stencil("wave3d", dtype=_JAX_TYPES[dtype])
+    st = make_stencil("wave3d", dtype=dtype)
+    rng = np.random.default_rng(14)
+    p = rng.random(tuple(s + 2 for s in shape), dtype=np.float32)
+    up = rng.random(shape, dtype=np.float32)
+    jt = _JAX_TYPES[dtype]
+    ref = np.asarray(jkernels._wave3d_compute(jst, True)(
+        (jnp.asarray(p, jt), jnp.asarray(up, jt)))[0], dtype=np.float32)
+    assert built == [True]
+    got = compute_schedule.run(
+        st, torch.from_numpy(p).to(dtype), kernels.Tile(256, 2, 32, 4, 3),
+        kernels.ring_slots(1), torch.from_numpy(up).to(dtype)
+    ).float().numpy()
+    atol = 1e-6 if dtype == torch.float32 else _tol(ref, dtype)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=atol)

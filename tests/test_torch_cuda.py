@@ -1804,3 +1804,103 @@ def test_tiled_compute_kernels_refuse_a_short_ring(dev, name, dtype):
                     *shape, *kernels.coefficients(st), *bad,
                     kernels._build.stream_of(p))
         assert rc != 0
+
+
+# ---- K5 and K1, redesigned (csrc/march.cuh) ----------------------------------
+
+MARCH_NEW = [("K5", "wave3d", {}), ("K1", "heat3d", {}),
+             ("K1", "heat3d27", {}), ("K1", "heat3d4th", {}),
+             ("K1", "advect3d", {"cx": -0.3, "cy": 0.2, "cz": -0.25})]
+MARCH_NEW_CASES = [(k, n, kw, d) for k, n, kw in MARCH_NEW
+                   for d in ("float32", "bfloat16")]
+
+
+def _march_new_shapes(kern, h):
+    """K5: TILED_SHAPES_3D; K1: x in each residue mod 8, the smallest grid
+    it takes, every tile at a wall, grids with interior tiles."""
+    if kern == "K5":
+        return TILED_SHAPES_3D
+    m = 2 * h + 1
+    return [(m + 4, m + 5, 64 + r) for r in range(8)] + [
+        (m, m, m), (m, 9, 37), (9, m, 130), (67, m + 2, 33),
+        (40, 40, 600), (70, 37, 1100)]
+
+
+@pytest.mark.parametrize("kern,name,kw,dtype", MARCH_NEW_CASES,
+                         ids=[f"{k}-{n}-{d}" for k, n, _, d in
+                              MARCH_NEW_CASES])
+def test_tiled_k5_and_k1_match_plain_at_every_residue(dev, kern, name, kw,
+                                                      dtype):
+    """K5 (u_prev as a second operand) and K1 (the raw grid, its frame
+    pinned in the kernel) at their table tile == the plain update / step,
+    bit for bit, frame cells included, on the shapes above; in bfloat16
+    also on subnormals, signed zeros and ties.  One launch a call."""
+    st = port.make_stencil(name, dtype=dtype, **kw)
+    h = st.halo
+    mod = kernels if kern == "K5" else rawstep
+    wrapper = "zchunk_wave" if kern == "K5" else "raw_step_heat"
+    count = f"{wrapper}[{name}]" if dtype == "float32" else \
+        f"{wrapper}[{name},{dtype}]"
+    mod.launches.clear()
+    calls = 0
+    for i, shape in enumerate(_march_new_shapes(kern, h)):
+        first = shape if kern == "K1" else tuple(s + 2 * h for s in shape)
+        shapes = (first,) + (shape,) * (st.num_fields - 1)
+        g = torch.Generator(device=dev)
+        g.manual_seed(1800 + i)
+        blocks = [tuple(torch.rand(s, generator=g, device=dev).to(st.dtype)
+                        for s in shapes)]
+        if dtype == "bfloat16":
+            blocks.append(tuple(compute_schedule.special_bf16(s, g, dev)
+                                for s in shapes))
+        for ins in blocks:
+            if kern == "K1":
+                got = rawstep.make_raw_step(st, shape, device=dev)(ins)
+                ref = driver.make_step(st, shape)(ins)
+            else:
+                got = kernels.make_pallas_compute(st, device=dev)(ins)[:1]
+                ref = st.update(ins)[:1]
+            torch.cuda.synchronize()
+            calls += 1
+            view = torch.int16 if dtype == "bfloat16" else torch.int32
+            assert got[0].dtype == ref[0].dtype
+            assert torch.equal(got[0].view(view), ref[0].view(view)), shape
+    assert mod.launches == {count: calls}
+
+
+@pytest.mark.parametrize("kern,name,kw,dtype", MARCH_NEW_CASES,
+                         ids=[f"{k}-{n}-{d}" for k, n, _, d in
+                              MARCH_NEW_CASES])
+def test_tiled_k5_and_k1_refuse_a_short_ring(dev, kern, name, kw, dtype):
+    """A K5 or K1 launch whose ring is one slot short, or whose row buffer
+    is too small, is refused (no fallback); so is K5 on a tile of more
+    than one row a group."""
+    st = port.make_stencil(name, dtype=dtype, **kw)
+    h = st.halo
+    shape = (9, 9, 40)
+    first = shape if kern == "K1" else tuple(s + 2 * h for s in shape)
+    p = torch.rand(first, device=dev).to(st.dtype)
+    out = torch.empty(shape, dtype=st.dtype, device=dev)
+    tile = (kernels.TILES if kern == "K5" else rawstep.TILES)[(name, dtype)]
+    geo = kernels.march_geometry(st, tile)
+    args = list(kernels._tile_args(st, tile, shape, dev))
+    shorts = [(len(args) - 1, geo.slots - 1),
+              (len(args) - 2, geo.row_bytes - 16)]
+    if kern == "K5":
+        up = torch.rand(shape, device=dev).to(st.dtype)
+        lib = kernels._lib()
+        fn = kernels._build.entry(lib, "zchunk_wave", p)
+        head = (p.data_ptr(), up.data_ptr(), out.data_ptr(), *shape,
+                kernels.coefficients(st)[0])
+    else:
+        lib = rawstep._lib()
+        fn = kernels._build.entry(lib, "raw_step_heat", p)
+        head = (rawstep._HEAT_KIND[name], p.data_ptr(), out.data_ptr(),
+                *shape, *rawstep.coefficients(st))
+    assert fn(*head, *args, kernels._build.stream_of(p)) == 0
+    if kern == "K5":  # not a z-queue tile
+        shorts.append((1, 0))
+    for i, short in shorts:
+        bad = list(args)
+        bad[i] = short
+        assert fn(*head, *bad, kernels._build.stream_of(p)) != 0

@@ -80,8 +80,8 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      (both Courant signs) and Gray-Scott in float32: on random pieces for
      k = 1..4 and through their sharded steps (--mesh 4, 2x2, 1x4, with
      and without the shells), bit for bit.  Tolerances:
-     raw step atol = 32 eps
-     max(|ref|, 1); compute_fn kernels rtol = atol = 1e-6; fused k-step
+     raw steps (K1, K2, Gray-Scott) atol = 0; compute_fn kernels rtol =
+     atol = 1e-6; fused k-step
      atol = 1e-4, rtol = 0; Life (int32) exactly equal; guard-frame cells
      exactly equal; atol = 0 compares the bits, so a cell that overflows
      alike in both (bfloat16 Gray-Scott from uniform random fields at
@@ -90,15 +90,17 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      and fullgrid.RING_TILES entry at its table tile with the fast paths
      and on the per-cell path (PATHS = 0), K10 as RAW, ZSLAB and YZSLAB on
      a (40, 112, 320) core and K8 as RAW and PADDED at (144, 1600), bit for
-     bit.  K1, K4, K5 and K7, redesigned (csrc/march.cuh): held bit for
-     bit at every shape above (raw_step_heat, zchunk_heat, zchunk_wave and
-     whole2d at atol 0, frame cells equal), and every kernels.TILES and
-     rawstep.TILES kind at its table tile on blocks whose x extent falls
-     in each residue mod 8, one plane, one row, one cell (K1: the smallest
-     grid it takes), narrow ones, a run that does not divide the march
-     extent, K1 grids whose every tile touches a wall beside grids with
-     interior tiles and, in bfloat16, inputs with subnormals, signed zeros
-     and sums on bfloat16 ties;
+     bit.  K1, K2, Gray-Scott's raw step, K4, K5 and K7, redesigned
+     (csrc/march.cuh): held bit for bit at every shape above
+     (raw_step_heat, raw_step_wave, raw_step_grayscott, zchunk_heat,
+     zchunk_wave and whole2d at atol 0, frame cells equal), and every
+     kernels.TILES and rawstep.TILES kind at its table tile on blocks
+     whose x extent falls in each residue mod 8, one plane, one row, one
+     cell (the raw kinds: the smallest grid they take, two steps, every
+     field), narrow ones, a run that does not divide the march extent,
+     raw grids whose every tile touches a wall beside grids with interior
+     tiles and, in bfloat16, inputs with subnormals, signed zeros and sums
+     on bfloat16 ties;
   4. main path, unsharded: ``cli.main()`` at 512^3 float32 — heat3d and
      wave3d for 100 iterations, heat3d27 and heat3d4th for 40, each with
      --compute jnp, --compute pallas, --fuse K (K = 4; 2 for heat3d4th)
@@ -228,11 +230,11 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      shard, every float 2D family at k = 16 (sor2d 8).  Then one line for
      each timed entry of the kernels this port redesigned for Hopper (K3,
      its shells, K6, K9: rows 5-11; the ring: row 19; K8 and K10: rows
-     15-18; K4, K5 and K7: rows 12-14; K1: rows 1 and 3): this run's ms
-     beside the first design's (OLD_MS, from PERF.md), the fraction of
-     the bound and the library call's ms (null for K8 and K10: no one
-     PyTorch call computes a k-step pass); K2 and raw_step_grayscott, not
-     redesigned, printed the same way ("reread").  The
+     15-18; K4, K5 and K7: rows 12-14; K1: rows 1 and 3; K2 and
+     raw_step_grayscott: rows 2 and 4): this run's ms beside the first
+     design's (OLD_MS, from PERF.md), the fraction of the bound and the
+     library call's ms (null for K8, K10 and Gray-Scott: no one PyTorch
+     call computes a k-step pass or a reaction step).  The
      split of one step into pad (exchange/pad), kernel and re-pin also
      for bfloat16 heat3d at 1024^3 on 2x2 and for heat2d --compute pallas
      at 16384^2 in float32 and bfloat16.
@@ -372,18 +374,14 @@ RING2D = (144, 1600)
 
 # The kernels this port redesigned for Hopper (rows 5-11: K3, its shells,
 # K6 and K9; row 19: the ring; rows 15-18: K8 and K10; rows 12-14: K4, K5
-# and K7; rows 1 and 3: K1), and each timed entry's ms per launch in its
-# first design, on one NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section
-# 6), printed beside this run's.
+# and K7; rows 1 and 3: K1; rows 2 and 4: K2 and raw_step_grayscott), and
+# each timed entry's ms per launch in its first design, on one NVIDIA H100
+# 80GB HBM3 at 700.00 W (PERF.md section 6), printed beside this run's.
 REDESIGNED = ("fused_step", "fused_step_padded", "fused_shell",
               "fused_zslab", "fused_yzslab", "ring_exchange", "stream_step",
               "stream_zslab", "stream_yzslab", "fullgrid_step",
               "fullgrid_padded", "zchunk_heat", "whole2d", "zchunk_wave",
-              "raw_step_heat")
-# K2 (raw_step_wave) and raw_step_grayscott were not redesigned; their
-# times are printed beside rows 2 and 4 the same way, to show they moved
-# by no more than noise.
-REREAD = ("raw_step_wave", "raw_step_grayscott")
+              "raw_step_heat", "raw_step_wave", "raw_step_grayscott")
 OLD_MS = {
     "raw_step_heat<heat3d>": 0.4506, "raw_step_heat<heat3d27>": 0.6988,
     "raw_step_heat<heat3d4th>": 0.5503, "raw_step_heat<advect3d>": 0.5453,
@@ -949,10 +947,7 @@ def main() -> int:
                 entry = {"wave3d": "raw_step_wave",
                          "grayscott3d": "raw_step_grayscott"}.get(
                              name, f"raw_step_heat<{name}>")
-                # K1 (march.cuh) bit for bit; K2 within the raw step's
-                # tolerance
-                scale = max(float(ref[0].abs().max()), 1.0)
-                atol = 32 * EPS32 * scale if name == "wave3d" else 0.0
+                atol = 0.0  # K1, K2, Gray-Scott (march.cuh): bit for bit
                 if name == "wave3d" and got[1] is not fields[0]:
                     fail("raw_step_wave: the new u_prev is not the old u")
             elif path == "stream":
@@ -1484,15 +1479,16 @@ def main() -> int:
                                 "tile": list(tile), "max_abs_err": err,
                                 "atol": 0.0})
             del fields, ref
-    # K1, K4, K5 and K7, redesigned (csrc/march.cuh): every kernels.TILES
-    # and rawstep.TILES kind at its table tile (bfloat16: cells in pairs),
-    # bit for bit against the plain update (K1: the plain step, frame
-    # cells equal), on blocks whose x extent falls in each residue mod 8,
-    # one plane, one row, one cell (K1: the smallest grid it takes, and
-    # grids whose every tile touches a wall beside ones with interior
-    # tiles), narrow ones, a run that does not divide the march extent
-    # and, in bfloat16, inputs with subnormals, signed zeros and sums on
-    # bfloat16 ties
+    # K1, K2, Gray-Scott's raw step, K4, K5 and K7, redesigned
+    # (csrc/march.cuh): every kernels.TILES and rawstep.TILES kind at its
+    # table tile (bfloat16: cells in pairs), bit for bit against the plain
+    # update (the raw kinds: two plain steps, every field, frame cells
+    # equal), on blocks whose x extent falls in each residue mod 8, one
+    # plane, one row, one cell (the raw kinds: the smallest grid they
+    # take, and grids whose every tile touches a wall beside ones with
+    # interior tiles), narrow ones, a run that does not divide the march
+    # extent and, in bfloat16, inputs with subnormals, signed zeros and
+    # sums on bfloat16 ties
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from compute_schedule import special_bf16
 
@@ -1514,7 +1510,7 @@ def main() -> int:
         else:
             shapes = [(7, 512 + r) for r in range(8)] + [
                 (1, 1000), (600, 1), (5, 3), (run + 3, 129), (2, 9000)]
-        wrapper = "raw_step_heat" if path == "raw" else \
+        wrapper = raw_key(name).partition("[")[0] if path == "raw" else \
             "whole2d" if st.ndim == 2 else \
             "zchunk_wave" if name == "wave3d" else "zchunk_heat"
         for shape in shapes:
@@ -1529,9 +1525,11 @@ def main() -> int:
                                 for s_ in shapes_in)
                 else:
                     ins = tuple(rand(s_).to(st.dtype) for s_ in shapes_in)
-                if path == "raw":
-                    got = rawstep.make_raw_step(st, shape, device=dev)(ins)
-                    ref = driver.make_step(st, shape)(ins)
+                if path == "raw":  # two steps: K2's second reads the
+                    # first's u as its u_prev
+                    step = rawstep.make_raw_step(st, shape, device=dev)
+                    plain = driver.make_step(st, shape)
+                    got, ref = step(step(ins)), plain(plain(ins))
                     frame = frame_of(shape, h)
                 else:
                     got = kernels.make_pallas_compute(st, device=dev)(
@@ -3559,10 +3557,10 @@ def main() -> int:
     # ms beside the first design's (OLD_MS) and the fraction of the bound
     for kk in kernels_out:
         wrapper = kk["name"].partition("<")[0]
-        if wrapper not in REDESIGNED + REREAD:
+        if wrapper not in REDESIGNED:
             continue
         old = OLD_MS.get(kk["name"])
-        emit({"phase": "redesign" if wrapper in REDESIGNED else "reread",
+        emit({"phase": "redesign",
               "name": kk["name"], "old_ms": old,
               "old_from": "PERF.md section 6" if old else None,
               "ms": kk["ms"], "bound_ms": kk["bound_ms"],

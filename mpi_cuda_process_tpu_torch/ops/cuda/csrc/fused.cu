@@ -141,8 +141,8 @@ struct Geo {
 
 // Neighbour access for a cell of a column: the column's own cells (dy = dx
 // = 0) from the registers r[H + dz], the others from the window in shared
-// memory.  The update reads the same values in the same order as through
-// Strided, so the result is the same.
+// memory.  The update reads the same values in the same order as from the
+// window alone, so the result is the same.
 template <class T, int H>
 struct ColumnAcc {
   using value_type = T;

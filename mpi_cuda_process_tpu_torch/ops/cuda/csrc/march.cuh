@@ -1,8 +1,9 @@
 // The tiled one-step kernels: the compute_fn kernels K4 zchunk_heat, K5
 // zchunk_wave and K7 whole2d (one update of a halo-padded block) and the
-// raw-step kernel K1 raw_step_heat (one guard-frame step of the raw grid,
-// the frame pinned here), marched down their first axis through a ring of
-// planes in shared memory.
+// raw-step kernels K1 raw_step_heat, K2 raw_step_wave and
+// raw_step_grayscott (one guard-frame step of the raw grid, the frame
+// pinned here), marched down their first axis through a ring of planes in
+// shared memory.
 //
 // A block takes work items in turn (a persistent grid, sized to the card's
 // waves by the host): an item is a tile of TY rows by TX cells of the
@@ -21,30 +22,42 @@
 // Input and output.  The output is (M, Y, X), row pitch X.  The input is
 // (PM, PY, PX), and output index i on each axis is input index i + CO: a
 // padded block (K4, K5, K7: PM = M + 2h, CO = h) or, with FRAME, the raw
-// grid itself (K1: PM = M, CO = 0); CO is a compile-time constant, so the
-// padded kernels carry none of the raw grid's clipping.  A tile's input rows and cells are those of its
-// output cells widened by h on each side, clipped to the input: on the raw
-// grid nothing outside it is copied, a row buffer's table entry points h
-// cells before its first copied cell where the tile starts at the wall,
-// and a run that starts at z = 0 iterates from plane 0 (its first h output
-// planes are frame).  Input planes past the grid's end are not issued.
+// grid itself (K1, K2, Gray-Scott: PM = M, CO = 0); CO is a compile-time
+// constant, so the padded kernels carry none of the raw grid's clipping.  A
+// tile's input rows and cells are those of its output cells widened by h on
+// each side, clipped to the input: on the raw grid nothing outside it is
+// copied, a row buffer's table entry points h cells before its first copied
+// cell where the tile starts at the wall, and a run that starts at z = 0
+// iterates from plane 0 (its first h output planes are frame).  Input planes
+// past the grid's end are not issued.
 //
-// The frame (K1, FR = h).  A cell whose coordinate lies within h of a wall
-// keeps its old value, read from the ring's centre plane: bit for bit the
-// plain step's re-pin.  A frame plane or row takes no taps; only a tile
-// that touches an x wall selects cell by cell, and an item whose tile and
-// run touch no wall carries no test at all (each test is block- or
-// group-uniform).  One launch writes every cell.
+// The frame (FRAME, FR = h).  A cell whose coordinate lies within h of a
+// wall keeps its old value, read from the ring's centre plane (Gray-Scott:
+// each field's own): bit for bit the plain step's re-pin.  A frame plane or
+// row takes no taps; only a tile that touches an x wall selects cell by
+// cell, and an item whose tile and run touch no wall carries no test at all
+// (each test is block- or group-uniform).  One launch writes every cell.
 //
-// u_prev (K5, the wave kind).  The dense (M, Y, X) operand read once per
-// output cell, by the thread that updates the cell: every wave tile is a
-// z-queue tile (one row a group), and each thread loads its units' u_prev
-// of output plane z into registers with coalesced loads before the
-// barrier of the iteration that computes z.  Timed on an H100 beside two
-// other forms (PERF.md section 6): a ring of u_prev rows in shared
-// memory, filled by cp.async in the commit group of the plane that
-// completes z, was 7-10 % slower; loads one plane ahead (a second set of
-// registers) were 15 % slower in float32 and no faster in bfloat16.
+// u_prev (K5 and K2, the wave kind).  The dense (M, Y, X) operand read once
+// per output cell, by the thread that updates the cell: every wave tile is a
+// z-queue tile (one row a group), and each thread loads its units' u_prev of
+// output plane z into registers with coalesced loads before the barrier of
+// the iteration that computes z (on the raw grid u_prev is indexed as the
+// output, so K2 loads it as K5 does).  Timed on an H100 beside two other
+// forms (PERF.md section 6): a ring of u_prev rows in shared memory, filled
+// by cp.async in the commit group of the plane that completes z, was 7-10 %
+// slower; loads one plane ahead (a second set of registers) were 15 % slower
+// in float32 and no faster in bfloat16.
+//
+// Two fields (Gray-Scott, NF = fields_of<KIND>() = 2).  Each field has its
+// own ring of S slots and its own row table, laid out after the first's
+// (field f's slot s is the ring's slot f S + s), with the same geometry;
+// the v plane tile of plane q is issued beside the u plane tile, in the
+// same commit group, so one wait lands both.  The update reads both
+// fields' taps from shared memory (no z queue: timed on an H100, the
+// queues' registers made it no faster, PERF.md section 6) and writes both
+// outputs, and frame cells keep both centres.  NF is a compile-time
+// constant: a one-field kind carries none of the second field's code.
 //
 // Alignment.  A row pitch is rarely a multiple of 16 bytes, and the
 // interior starts h cells into a row, so a row's cells are not 16-byte
@@ -72,7 +85,7 @@
 // in-plane taps come from shared memory.
 //
 // Bound on an H100: device-memory bytes (one read of each input, one write
-// of the output).  Each cell is read from device memory about once (the
+// of each output).  Each cell is read from device memory about once (the
 // tile's halo rows and columns again, from L2), every load is a 16-byte
 // copy that lands in shared memory without passing registers, and
 // IN_FLIGHT planes of every resident block are in flight at once.
@@ -127,6 +140,13 @@ __host__ __device__ constexpr bool is_2d() {
 template <int KIND>
 __host__ __device__ constexpr int halo_of() {
   return is_2d<KIND>() ? 1 : kind_halo(KIND);
+}
+// Fields a kind marches: Gray-Scott's u and v, each read with its
+// neighbours; one for every other kind (wave3d's u_prev is read at the
+// cell only and takes no ring).
+template <int KIND>
+__host__ __device__ constexpr int fields_of() {
+  return KIND == GRAYSCOTT ? 2 : 1;
 }
 // bfloat16 cells go in pairs (a unit of two cells, the bf16x2 ops);
 // float32 and int32 cells one by one
@@ -368,14 +388,16 @@ __device__ __forceinline__ void issue_plane(
 }
 
 // The NU units of one row of a thread (3D): `row` its taps' rows, `op`
-// its first unit's output cell, units at off < xlim inside the grid.
-// WHOLE: every unit (a pair's both cells) is inside, so the units run as
-// straight-line code the compiler can interleave; else each is guarded.
+// its first unit's output cell, units at off < xlim inside the grid (two
+// fields: `row2` and `op2` the second's).  WHOLE: every unit (a pair's
+// both cells) is inside, so the units run as straight-line code the
+// compiler can interleave; else each is guarded.
 template <int KIND, class T, int NT, int NU, int RW, bool ZQ, bool FRAME,
           bool WHOLE>
 __device__ __forceinline__ void update_row(
-    T* __restrict__ op, const T* s,
+    T* __restrict__ op, T* __restrict__ op2, const T* s,
     const Row<T> (&row)[2 * halo_of<KIND>() + 1][2 * halo_of<KIND>() + 1],
+    const Row<T> (&row2)[2 * halo_of<KIND>() + 1][2 * halo_of<KIND>() + 1],
     const Geom& g, const Coef& c, int xlim, int x0, bool xwall,
     const ZQueue<T, halo_of<KIND>(), NU>& zq, const UpRegs<T, NU>& ur) {
   constexpr int H = halo_of<KIND>();
@@ -386,7 +408,20 @@ __device__ __forceinline__ void update_row(
 #pragma unroll
   for (int u = 0; u < NU; ++u) {
     const int off = u * GROUP * UW;
-    if (WHOLE || off < xlim) {
+    if constexpr (fields_of<KIND>() == 2) {
+      if (WHOLE || off < xlim) {
+        Val<T> nu, nv;
+        grayscott_update(Ring3<T, H>{s, row, off}, Ring3<T, H>{s, row2, off},
+                         c, nu, nv);
+        if (FRAME && xwall &&
+            (x0 + off < FR || x0 + off + GROUP * UW > g.X - FR)) {
+          nu = pin_x(nu, row[H][H].read(s, off, 0), x + off, FR, g.X);
+          nv = pin_x(nv, row2[H][H].read(s, off, 0), x + off, FR, g.X);
+        }
+        store_unit(op + off, nu, WHOLE || off + 1 < xlim);
+        store_unit(op2 + off, nv, WHOLE || off + 1 < xlim);
+      }
+    } else if (WHOLE || off < xlim) {
       Val<T> upv{};
       if constexpr (KIND == WAVE7) upv = ur.v[u];
       auto v = [&] {
@@ -420,17 +455,21 @@ __device__ __forceinline__ void update_row(
 // group of RW warps a row; 2D: the block on the row); with ZQ, the group's
 // one row and its z taps from the queue.  Frame cells (FRAME, an item
 // whose tile or run touches a wall: `wall`) keep the centre; u_prev
-// (wave) comes from the registers `ur`.
+// (wave) comes from the registers `ur`.  Two fields: the second's rows sit
+// S PR rows further in the table, its output is `out2`.
 template <int KIND, class T, int NT, int NU, int RW, bool ZQ, bool FRAME>
 __device__ __forceinline__ void compute_plane(
-    T* __restrict__ out, const unsigned char* smem, const int* rs,
-    const Geom& g, const Coef& c, int z, int sq, int x0, int y0, bool wall,
-    const ZQueue<T, halo_of<KIND>(), NU>& zq, const UpRegs<T, NU>& ur) {
+    T* __restrict__ out, T* __restrict__ out2, const unsigned char* smem,
+    const int* rs, const Geom& g, const Coef& c, int z, int sq, int x0,
+    int y0, bool wall, const ZQueue<T, halo_of<KIND>(), NU>& zq,
+    const UpRegs<T, NU>& ur) {
   constexpr int H = halo_of<KIND>();
   constexpr bool D2 = is_2d<KIND>();
+  constexpr int NF = fields_of<KIND>();
   constexpr int UW = paired<T>() ? 2 : 1;
   constexpr int GROUP = D2 ? NT : 32 * RW;
   const int grp = threadIdx.x / GROUP, pos = threadIdx.x % GROUP;
+  const int fo = g.S * g.PR;  // the second field's rows in the table
   const T* s = reinterpret_cast<const T*>(smem);
   const int first = H + pos * UW;    // the first unit's cell in a row
   const int xlim = g.X - x0 - pos * UW;  // units at off < xlim are in
@@ -450,7 +489,8 @@ __device__ __forceinline__ void compute_plane(
   for (int r = grp; r < rows; r += NT / GROUP) {
     const int y = D2 ? 0 : y0 + r;
     if (y >= g.Y) break;
-    T* op = out + (static_cast<long>(z) * g.Y + y) * g.X + x0 + pos * UW;
+    const long at = (static_cast<long>(z) * g.Y + y) * g.X + x0 + pos * UW;
+    T* op = out + at;
     if constexpr (D2) {
       Row<T> row[3];
 #pragma unroll
@@ -476,31 +516,41 @@ __device__ __forceinline__ void compute_plane(
       }
     } else {
       if (FRAME && wall && (zframe || y < FR || y >= g.Y - FR)) {
-        Row<T> centre;  // a frame row: every cell keeps its value
-        centre.init(rs[sl[H] + r + H] + first);
+        // a frame row: every cell of each field keeps its value
 #pragma unroll
-        for (int u = 0; u < NU; ++u) {
-          const int off = u * GROUP * UW;
-          if (off < xlim) {
-            store_unit(op + off, centre.read(s, off, 0), off + 1 < xlim);
+        for (int f = 0; f < NF; ++f) {
+          Row<T> centre;
+          centre.init(rs[f * fo + sl[H] + r + H] + first);
+          T* fp = (f == 0 ? out : out2) + at;
+#pragma unroll
+          for (int u = 0; u < NU; ++u) {
+            const int off = u * GROUP * UW;
+            if (off < xlim) {
+              store_unit(fp + off, centre.read(s, off, 0), off + 1 < xlim);
+            }
           }
         }
         continue;
       }
-      Row<T> row[2 * H + 1][2 * H + 1];
+      Row<T> row[2 * H + 1][2 * H + 1], row2[2 * H + 1][2 * H + 1];
 #pragma unroll
       for (int dz = -H; dz <= H; ++dz) {
 #pragma unroll
         for (int dy = -H; dy <= H; ++dy) {
           row[dz + H][dy + H].init(rs[sl[dz + H] + r + H + dy] + first);
+          if constexpr (NF == 2) {
+            row2[dz + H][dy + H].init(rs[fo + sl[dz + H] + r + H + dy] +
+                                      first);
+          }
         }
       }
+      T* op2 = NF == 2 ? out2 + at : nullptr;
       if (whole) {
         update_row<KIND, T, NT, NU, RW, ZQ, FRAME, true>(
-            op, s, row, g, c, xlim, x0, xwall, zq, ur);
+            op, op2, s, row, row2, g, c, xlim, x0, xwall, zq, ur);
       } else {
         update_row<KIND, T, NT, NU, RW, ZQ, FRAME, false>(
-            op, s, row, g, c, xlim, x0, xwall, zq, ur);
+            op, op2, s, row, row2, g, c, xlim, x0, xwall, zq, ur);
       }
     }
   }
@@ -550,25 +600,41 @@ __device__ __forceinline__ void load_uprev(UpRegs<T, NU>& ur,
 
 // NT threads, MINB blocks an SM (the register cap: 65536 / (NT MINB)), NU
 // units a thread in each of its rows, RW warps a row (3D); ZQ: the z queue
-// (a tile of one row a group); FRAME: the raw grid's frame pinned (K1);
-// the wave kind loads u_prev into registers.
+// (a tile of one row a group); FRAME: the raw grid's frame pinned (K1, K2,
+// Gray-Scott).  `q`: the wave kind's u_prev, loaded into registers, or
+// Gray-Scott's v, marched through its own ring beside u; `out2`:
+// Gray-Scott's new v.
 template <int KIND, class T, int NT, int MINB, int NU, int RW, bool ZQ,
           bool FRAME>
 __global__ void __launch_bounds__(NT, MINB)
-march_step(const T* __restrict__ p, const T* __restrict__ up,
-           T* __restrict__ out, Geom g, Coef c) {
+march_step(const T* __restrict__ p, const T* __restrict__ q,
+           T* __restrict__ out, T* __restrict__ out2, Geom g, Coef c) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int H = halo_of<KIND>();
-  int* rs = reinterpret_cast<int*>(smem + static_cast<long>(g.S) * g.PR *
-                                              g.RWB);
+  constexpr int NF = fields_of<KIND>();
+  int* rs = reinterpret_cast<int*>(smem + static_cast<long>(NF) * g.S *
+                                              g.PR * g.RWB);
+  const uintptr_t span = static_cast<uintptr_t>(g.PM) * g.PY * g.PX *
+                         sizeof(T);
   const uintptr_t lo = reinterpret_cast<uintptr_t>(p);
-  const uintptr_t hi = lo + static_cast<uintptr_t>(g.PM) * g.PY * g.PX *
-                                sizeof(T);
+  const uintptr_t hi = lo + span;
+  const uintptr_t lo2 = reinterpret_cast<uintptr_t>(q);
+  const uintptr_t hi2 = lo2 + span;
   const int items = g.tiles_x * g.tiles_y * g.runs;
   ZQueue<T, H, NU> zq;
   UpRegs<T, NU> ur;
   constexpr int CO = FRAME ? 0 : H;  // input index of output index 0
   constexpr int FR = FRAME ? H : 0;
+  // plane pz's tiles into slot `slot` (the second field's: slot S + slot),
+  // every field's in one commit group
+  const auto issue = [&](int pz, int slot, int x0, int y0) {
+    issue_plane<KIND, T, NT, RW, FRAME>(p, smem, rs, g, pz, slot, x0, y0,
+                                        lo, hi);
+    if constexpr (NF == 2) {
+      issue_plane<KIND, T, NT, RW, FRAME>(q, smem, rs, g, pz, g.S + slot,
+                                          x0, y0, lo2, hi2);
+    }
+  };
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int x0 = (item % g.tiles_x) * g.TX;
     const int rest = item / g.tiles_x;
@@ -579,31 +645,27 @@ march_step(const T* __restrict__ p, const T* __restrict__ up,
                                 y0 < FR || y0 + g.TY > g.Y - FR ||
                                 z0 < FR || z0 + nz > g.M - FR);
     // the run's input planes plo .. plo + nin - 1 (on the raw grid those
-    // past PM are not issued); iteration q computes output plane
-    // plo + q - CO - h once it is one of the run's
+    // past PM are not issued); iteration i computes output plane
+    // plo + i - CO - h once it is one of the run's
     const int plo = FRAME ? max(z0 - H, 0) : z0;
     const int nin = z0 + nz + CO + H - plo;
 #pragma unroll
-    for (int q = 0; q < IN_FLIGHT; ++q) {
-      if (q < nin && (!FRAME || plo + q < g.PM)) {
-        issue_plane<KIND, T, NT, RW, FRAME>(p, smem, rs, g, plo + q, q, x0,
-                                            y0, lo, hi);
-      }
+    for (int i = 0; i < IN_FLIGHT; ++i) {
+      if (i < nin && (!FRAME || plo + i < g.PM)) issue(plo + i, i, x0, y0);
       cp_async_commit();
     }
-    // slots of plane q and of plane q + IN_FLIGHT (S > IN_FLIGHT), kept
+    // slots of plane i and of plane i + IN_FLIGHT (S > IN_FLIGHT), kept
     // by counting, not by division
     int sq = 0, si = IN_FLIGHT;
-    for (int q = 0; q < nin; ++q) {
-      const int pz = plo + q, z = pz - CO - H;
+    for (int i = 0; i < nin; ++i) {
+      const int pz = plo + i, z = pz - CO - H;
       if constexpr (KIND == WAVE7) {
-        if (z >= z0) load_uprev<T, NT, NU, RW>(ur, up, g, z, x0, y0);
+        if (z >= z0) load_uprev<T, NT, NU, RW>(ur, q, g, z, x0, y0);
       }
-      cp_async_wait_landed();  // plane q (this thread's copies)
-      __syncthreads();         // everyone's; and iteration q - 1 is done
-      if (q + IN_FLIGHT < nin && (!FRAME || pz + IN_FLIGHT < g.PM)) {
-        issue_plane<KIND, T, NT, RW, FRAME>(p, smem, rs, g, pz + IN_FLIGHT,
-                                            si, x0, y0, lo, hi);
+      cp_async_wait_landed();  // plane i (this thread's copies)
+      __syncthreads();         // everyone's; and iteration i - 1 is done
+      if (i + IN_FLIGHT < nin && (!FRAME || pz + IN_FLIGHT < g.PM)) {
+        issue(pz + IN_FLIGHT, si, x0, y0);
       }
       cp_async_commit();
       if constexpr (ZQ) {
@@ -613,7 +675,7 @@ march_step(const T* __restrict__ p, const T* __restrict__ up,
       }
       if (z >= z0) {
         compute_plane<KIND, T, NT, NU, RW, ZQ, FRAME>(
-            out, smem, rs, g, c, z, sq, x0, y0, wall, zq, ur);
+            out, out2, smem, rs, g, c, z, sq, x0, y0, wall, zq, ur);
       }
       sq = sq + 1 == g.S ? 0 : sq + 1;
       si = si + 1 == g.S ? 0 : si + 1;
@@ -623,8 +685,8 @@ march_step(const T* __restrict__ p, const T* __restrict__ up,
 }
 
 // The geometry of a launch on output (M, Y, X): a padded input (K4, K5,
-// K7) or the raw grid (K1, `raw`: its frame pinned), a tile, and the row
-// buffers and ring march.py::march_geometry sized.
+// K7) or the raw grid (K1, K2, Gray-Scott, `raw`: its frame pinned), a
+// tile, and the row buffers and ring march.py::march_geometry sized.
 inline Geom make_geom(int M, int Y, int X, int h, bool raw, bool d2, int tx,
                       int ty, int zr, int rwb, int slots) {
   Geom g{};
@@ -649,14 +711,23 @@ inline Geom make_geom(int M, int Y, int X, int h, bool raw, bool d2, int tx,
   return g;
 }
 
+// Shared memory of a launch: each of `fields` rings of S slots of PR row
+// buffers, and each row's 4-byte table entry (march.py::march_geometry).
+inline size_t ring_bytes(const Geom& g, int fields) {
+  return static_cast<size_t>(fields) * g.S * g.PR * (g.RWB + 4);
+}
+
 // Host side: refuse a geometry the kernel cannot run (a ring one slot
 // short, a row buffer too small for a segment, a tile row that is not NU
 // units of each thread of its group, a frame on a grid with no interior,
-// u_prev in registers on a tile of more than one row a group),
-// then launch a grid of the blocks the card holds at once (no more than
-// the items).
+// u_prev in registers on a tile of more than one row a group, rings that
+// together exceed one block's shared memory), then launch a grid of the
+// blocks the card holds at once (no more than the items).
+constexpr size_t SMEM_LIMIT = 227 * 1024;  // march.py's _build.SMEM_LIMIT
+
 inline bool geometry_ok(const Geom& g, int h, int es, bool d2, int tx,
-                        int groups, bool zq, bool frame, bool uprev) {
+                        int groups, bool zq, bool frame, bool uprev,
+                        int fields) {
   if (g.tiles_x < 1 || g.tiles_y < 1 || g.runs < 1) return false;
   if (zq && g.TY != groups) return false;
   const int seg = (g.TX + 2 * h) * es;
@@ -667,22 +738,27 @@ inline bool geometry_ok(const Geom& g, int h, int es, bool d2, int tx,
   if (!d2 && g.PR != g.TY + 2 * h) return false;
   if (frame && g.M <= 2 * h) return false;
   if (uprev && !zq) return false;
+  if (ring_bytes(g, fields) > SMEM_LIMIT) return false;
   return true;
 }
 
 template <int KIND, class T, int NT, int MINB, int NU, int RW, bool ZQ,
           bool FRAME>
-int launch(const T* p, const T* up, T* out, const Geom& g, const Coef& c,
-           cudaStream_t stream) {
+int launch(const T* p, const T* q, T* out, T* out2, const Geom& g,
+           const Coef& c, cudaStream_t stream) {
   constexpr int H = halo_of<KIND>();
   constexpr int UNIT = (paired<T>() ? 2 : 1) * (is_2d<KIND>() ? NT : 32 * RW);
   constexpr int TX = NU * UNIT;
-  if (!geometry_ok(g, H, sizeof(T), is_2d<KIND>(), TX, NT / (32 * RW), ZQ,
-                   FRAME, KIND == WAVE7)) {
+  // u_prev (wave) and the second field's input and output (Gray-Scott)
+  const bool operands = (KIND != WAVE7 && fields_of<KIND>() == 1) ||
+                        (q != nullptr && (fields_of<KIND>() == 1 || out2));
+  if (!operands ||
+      !geometry_ok(g, H, sizeof(T), is_2d<KIND>(), TX, NT / (32 * RW), ZQ,
+                   FRAME, KIND == WAVE7, fields_of<KIND>())) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kern = march_step<KIND, T, NT, MINB, NU, RW, ZQ, FRAME>;
-  const size_t smem = static_cast<size_t>(g.S) * g.PR * (g.RWB + 4);
+  const size_t smem = ring_bytes(g, fields_of<KIND>());
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -695,7 +771,7 @@ int launch(const T* p, const T* up, T* out, const Geom& g, const Coef& c,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long items = static_cast<long>(g.tiles_x) * g.tiles_y * g.runs;
   const int grid = static_cast<int>(std::min<long>(items, per_sm * sms));
-  kern<<<grid, NT, smem, stream>>>(p, up, out, g, c);
+  kern<<<grid, NT, smem, stream>>>(p, q, out, out2, g, c);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -713,23 +789,27 @@ __host__ __device__ constexpr bool queues() {
 }
 
 template <int KIND, class T, int NT, int MINB, int RW, bool ZQ, bool FRAME>
-int launch_unroll(const T* p, const T* up, T* out, const Geom& g,
+int launch_unroll(const T* p, const T* q, T* out, T* out2, const Geom& g,
                   const Coef& c, cudaStream_t s) {
   constexpr int UNIT = (paired<T>() ? 2 : 1) * (is_2d<KIND>() ? NT : 32 * RW);
   if (g.TX == 4 * UNIT) {
-    return launch<KIND, T, NT, MINB, 4, RW, ZQ, FRAME>(p, up, out, g, c, s);
+    return launch<KIND, T, NT, MINB, 4, RW, ZQ, FRAME>(p, q, out, out2, g, c,
+                                                       s);
   }
   if (g.TX == 8 * UNIT) {
-    return launch<KIND, T, NT, MINB, 8, RW, ZQ, FRAME>(p, up, out, g, c, s);
+    return launch<KIND, T, NT, MINB, 8, RW, ZQ, FRAME>(p, q, out, out2, g, c,
+                                                       s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One launch of build `build` (zq: the z queue; every wave tile takes
-// it).  FRAME: the raw grid (K1).
+// it).  FRAME: the raw grid (K1, K2, Gray-Scott).  `q`: u_prev (wave) or
+// v (Gray-Scott, whose new v goes to `out2`).
 template <int KIND, class T, bool FRAME = false>
-int launch_build(int build, bool zq, const T* p, const T* up, T* out,
-                 const Geom& g, const Coef& c, cudaStream_t s) {
+int launch_build(int build, bool zq, const T* p, const T* q, T* out,
+                 const Geom& g, const Coef& c, cudaStream_t s,
+                 T* out2 = nullptr) {
   switch (build) {
 #define MARCH_CASE(ID, NT, MINB, RW)                                       \
   case ID: {                                                               \
@@ -738,18 +818,18 @@ int launch_build(int build, bool zq, const T* p, const T* up, T* out,
     } else if constexpr (queues<KIND>()) {                                 \
       if (zq) {                                                            \
         return launch_unroll<KIND, T, NT, MINB, RW, true, FRAME>(          \
-            p, up, out, g, c, s);                                          \
+            p, q, out, out2, g, c, s);                                     \
       }                                                                    \
       if constexpr (KIND == WAVE7) {                                       \
         return static_cast<int>(cudaErrorInvalidValue);                    \
       } else {                                                             \
         return launch_unroll<KIND, T, NT, MINB, RW, false, FRAME>(         \
-            p, up, out, g, c, s);                                          \
+            p, q, out, out2, g, c, s);                                     \
       }                                                                    \
     } else {                                                               \
       if (zq) return static_cast<int>(cudaErrorInvalidValue);              \
       return launch_unroll<KIND, T, NT, MINB, RW, false, FRAME>(           \
-          p, up, out, g, c, s);                                            \
+          p, q, out, out2, g, c, s);                                       \
     }                                                                      \
   }
     MARCH_BUILDS(MARCH_CASE)

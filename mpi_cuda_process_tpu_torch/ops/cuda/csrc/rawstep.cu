@@ -14,83 +14,25 @@
 // Bound on an H100: device-memory bytes.  The step must read the grid once
 // and write it once (K2 also reads u_prev, Gray-Scott reads and writes two
 // fields): 2 (K2: 3, Gray-Scott: 4) x 4 B per cell (2 B in bfloat16)
-// against ~0.2 (7-point) to ~0.7 (27-point) flop/B — far below the card's
+// against ~0.2 (7-point) to ~0.7 (27-point) flop/B, far below the card's
 // ~20 flop/B float32 ridge; bfloat16 halves the bytes and doubles the
 // flop/B, still far below it.
 //
-// K1 is march.cuh's tiled kernel on the raw grid (FRAME): a block owns a
-// (TY, TX) tile of the planes and marches down z through a ring of the
-// grid's own planes in shared memory (16-byte cp.async of the aligned
+// All three are march.cuh's tiled kernel on the raw grid (FRAME): a block
+// owns a (TY, TX) tile of the planes and marches down z through a ring of
+// the grid's own planes in shared memory (16-byte cp.async of the aligned
 // words that cover each row, nothing outside the grid copied), the taps
-// from shared memory (heat3d and heat3d4th: the z taps from a register
-// queue), bfloat16 cells in pairs through the bf16x2 ops; frame cells keep
-// their value, tested only on tiles and runs that touch a wall, all in one
+// from shared memory (heat3d, heat3d4th and wave3d may take the z taps
+// from a register queue; wave3d always does, its u_prev loaded into the
+// registers of each cell's thread), bfloat16 cells in pairs
+// through the bf16x2 ops; Gray-Scott marches v through a second ring beside
+// u and writes both.  Frame cells keep their value (Gray-Scott: both
+// fields'), tested only on tiles and runs that touch a wall, all in one
 // launch.  rawstep.TILES names each kind's tile.
-//
-// K2 and Gray-Scott keep the first form: every thread owns one (y, x)
-// column and marches over a run of ZRUN z planes, reading its neighbours
-// straight from device memory; a warp covers 32 consecutive x cells, so
-// every load and store is a coalesced 128-byte line, and the z/y
-// neighbours of a cell are the centre loads of the threads beside and
-// behind it, served from L1/L2.
-//
-// Frame cells (global coordinate within `halo` of a wall) copy the old
-// value exactly; interior cells compute the update of stencil_taps.cuh and
-// only ever read in-domain cells.
 
 #include "march.cuh"
 
 namespace {
-
-constexpr int BX = 32, BY = 8, ZRUN = 8;
-
-template <class T>
-__global__ void __launch_bounds__(BX * BY)
-raw_step_wave(const T* __restrict__ u, const T* __restrict__ uprev,
-              T* __restrict__ out, int Z, int Y, int X, Coef c) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= X || y >= Y) return;
-  const long sy = X, sz = static_cast<long>(X) * Y;
-  const int z0 = blockIdx.z * ZRUN;
-  const int z1 = min(z0 + ZRUN, Z);
-  for (int z = z0; z < z1; ++z) {
-    const long i = z * sz + y * sy + x;
-    // frame keeps the old u: by induction it still holds the wall value
-    out[i] = in_frame(z, y, x, Z, Y, X, 1)
-                 ? u[i]
-                 : narrow<T>(wave_update(u + i, widen(uprev[i]), sy, sz, c));
-  }
-}
-
-template <class T>
-__global__ void __launch_bounds__(BX * BY)
-raw_step_grayscott(const T* __restrict__ u, const T* __restrict__ v,
-                   T* __restrict__ ou, T* __restrict__ ov, int Z, int Y,
-                   int X, Coef c) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= X || y >= Y) return;
-  const long sy = X, sz = static_cast<long>(X) * Y;
-  const int z0 = blockIdx.z * ZRUN;
-  const int z1 = min(z0 + ZRUN, Z);
-  for (int z = z0; z < z1; ++z) {
-    const long i = z * sz + y * sy + x;
-    if (in_frame(z, y, x, Z, Y, X, 1)) {
-      ou[i] = u[i];
-      ov[i] = v[i];
-    } else {
-      float nu, nv;
-      grayscott_update(u + i, v + i, sy, sz, c, nu, nv);
-      ou[i] = narrow<T>(nu);
-      ov[i] = narrow<T>(nv);
-    }
-  }
-}
-
-dim3 grid_for(int Z, int Y, int X) {
-  return dim3((X + BX - 1) / BX, (Y + BY - 1) / BY, (Z + ZRUN - 1) / ZRUN);
-}
 
 template <class T>
 int heat_launch(int kind, const T* u, T* out, int Z, int Y, int X,
@@ -119,29 +61,32 @@ int heat_launch(int kind, const T* u, T* out, int Z, int Y, int X,
 
 template <class T>
 int wave_launch(const T* u, const T* uprev, T* out, int Z, int Y, int X,
-                float c2dt2, void* stream) {
-  const Coef c{c2dt2, 0.f, 0.f, 0.f, 0.f};
-  raw_step_wave<T><<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
-                     static_cast<cudaStream_t>(stream)>>>(u, uprev, out, Z, Y,
-                                                          X, c);
-  return static_cast<int>(cudaGetLastError());
+                float c2dt2, int build, bool zq, int tx, int ty, int zr,
+                int rwb, int slots, void* stream) {
+  const march::Geom g = march::make_geom(Z, Y, X, 1, true, false, tx, ty, zr,
+                                         rwb, slots);
+  return march::launch_build<WAVE7, T, true>(
+      build, zq, u, uprev, out, g, Coef{c2dt2, 0.f, 0.f, 0.f, 0.f},
+      static_cast<cudaStream_t>(stream));
 }
 
 template <class T>
 int grayscott_launch(const T* u, const T* v, T* ou, T* ov, int Z, int Y,
-                     int X, const Coef& c, void* stream) {
-  raw_step_grayscott<T><<<grid_for(Z, Y, X), dim3(BX, BY, 1), 0,
-                          static_cast<cudaStream_t>(stream)>>>(u, v, ou, ov,
-                                                               Z, Y, X, c);
-  return static_cast<int>(cudaGetLastError());
+                     int X, const Coef& c, int build, bool zq, int tx,
+                     int ty, int zr, int rwb, int slots, void* stream) {
+  const march::Geom g = march::make_geom(Z, Y, X, 1, true, false, tx, ty, zr,
+                                         rwb, slots);
+  return march::launch_build<GRAYSCOTT, T, true>(
+      build, zq, u, v, ou, g, c, static_cast<cudaStream_t>(stream), ov);
 }
 
 }  // namespace
 
 // One K1 launch on `stream` (march.cuh on the raw grid): out = step(u).
-// The tile arguments are K4's (rawstep.TILES, march.march_geometry).
-// Returns cudaGetLastError(), or cudaErrorInvalidValue for a geometry the
-// kernel does not take.  The _bf16 twin takes bfloat16 grids.
+// The tile arguments are K4's (rawstep.TILES, march.march_geometry); K2
+// and Gray-Scott take the same.  Each returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a geometry the kernel does not take.  The
+// _bf16 twins take bfloat16 grids.
 EXPORT int raw_step_heat_f32(int kind, const float* u, float* out, int Z,
                              int Y, int X, float a, float c0, float c1,
                              float c2, float c3, int build, int zq, int tx,
@@ -160,33 +105,42 @@ EXPORT int raw_step_heat_bf16(int kind, const __nv_bfloat16* u,
                      zq != 0, tx, ty, zr, rwb, slots, stream);
 }
 
-// One K2 launch on `stream`: out = new u.  Returns cudaGetLastError().
+// One K2 launch on `stream`: out = new u (a z-queue tile).
 EXPORT int raw_step_wave_f32(const float* u, const float* uprev, float* out,
-                             int Z, int Y, int X, float c2dt2, void* stream) {
-  return wave_launch(u, uprev, out, Z, Y, X, c2dt2, stream);
+                             int Z, int Y, int X, float c2dt2, int build,
+                             int zq, int tx, int ty, int zr, int rwb,
+                             int slots, void* stream) {
+  return wave_launch(u, uprev, out, Z, Y, X, c2dt2, build, zq != 0, tx, ty,
+                     zr, rwb, slots, stream);
 }
 
 EXPORT int raw_step_wave_bf16(const __nv_bfloat16* u,
                               const __nv_bfloat16* uprev, __nv_bfloat16* out,
-                              int Z, int Y, int X, float c2dt2,
-                              void* stream) {
-  return wave_launch(u, uprev, out, Z, Y, X, c2dt2, stream);
+                              int Z, int Y, int X, float c2dt2, int build,
+                              int zq, int tx, int ty, int zr, int rwb,
+                              int slots, void* stream) {
+  return wave_launch(u, uprev, out, Z, Y, X, c2dt2, build, zq != 0, tx, ty,
+                     zr, rwb, slots, stream);
 }
 
 // One Gray-Scott launch on `stream`: (ou, ov) = step(u, v); (du, dv, f, fk)
-// are (Du, Dv, F, F + kappa).  Returns cudaGetLastError().
+// are (Du, Dv, F, F + kappa).
 EXPORT int raw_step_grayscott_f32(const float* u, const float* v, float* ou,
                                   float* ov, int Z, int Y, int X, float du,
-                                  float dv, float f, float fk, void* stream) {
+                                  float dv, float f, float fk, int build,
+                                  int zq, int tx, int ty, int zr, int rwb,
+                                  int slots, void* stream) {
   return grayscott_launch(u, v, ou, ov, Z, Y, X, Coef{du, dv, f, fk, 0.f},
-                          stream);
+                          build, zq != 0, tx, ty, zr, rwb, slots, stream);
 }
 
 EXPORT int raw_step_grayscott_bf16(const __nv_bfloat16* u,
                                    const __nv_bfloat16* v,
                                    __nv_bfloat16* ou, __nv_bfloat16* ov,
                                    int Z, int Y, int X, float du, float dv,
-                                   float f, float fk, void* stream) {
+                                   float f, float fk, int build, int zq,
+                                   int tx, int ty, int zr, int rwb,
+                                   int slots, void* stream) {
   return grayscott_launch(u, v, ou, ov, Z, Y, X, Coef{du, dv, f, fk, 0.f},
-                          stream);
+                          build, zq != 0, tx, ty, zr, rwb, slots, stream);
 }

@@ -1,9 +1,10 @@
-// Per-cell stencil updates shared by the raw-step (rawstep.cu), compute_fn
-// (zchunk.cu) and temporal-blocking (fused.cu, streamfused.cu) kernels.
+// Per-cell stencil updates shared by the tiled one-step kernels (march.cuh:
+// rawstep.cu, zchunk.cu) and the temporal-blocking ones (fused.cu,
+// streamfused.cu).
 //
 // Every update reads the cell and its neighbours through an accessor, so the
-// same code serves a global memory grid (sy = X, sz = X*Y), a shared-memory
-// window (sy = WX, sz = WX*WY) and the streaming kernel's ring of planes.
+// same code serves a shared-memory window, a ring of planes and a register
+// queue.
 //
 // Rounding: all arithmetic goes through __fadd_rn / __fsub_rn / __fmul_rn.
 // nvcc never contracts these intrinsics into fused multiply-adds, so each
@@ -151,21 +152,36 @@ __device__ __forceinline__ bf2 fmul(float c, bf2 y) {
   return d;
 }
 
-// Neighbour access for the updates: a(dz, dy, dx) is the value dz planes,
-// dy rows and dx cells away from the updated cell.  Strided reads a block
-// laid out in memory (a global grid, a shared-memory window); the streaming
-// kernel (streamfused.cu) reads planes that sit in a ring.  The sums below
-// are written once over an accessor, so every kernel adds the same taps in
-// the same order.
+// The product of two pairs: one packed product (the exact product of two
+// bfloat16 values fits a float, so one rounding is float-then-bfloat16's).
 template <class T>
-struct Strided {
-  using value_type = T;
-  const T* p;
-  long sy, sz;
-  __device__ __forceinline__ float operator()(int dz, int dy, int dx) const {
-    return widen(p[dz * sz + dy * sy + dx]);
+__device__ __forceinline__ bf2 fmul(bf2 x, bf2 y) {
+  bf2 d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(x.v), "r"(y.v));
+  return d;
+}
+// A float constant minus a pair: one packed difference where the constant
+// is a bfloat16 value (1 - u), else each half in float and rounded.
+template <class T>
+__device__ __forceinline__ bf2 fsub(float c, bf2 y) {
+  const unsigned cb = __float_as_uint(c);
+  bf2 d;
+  if ((cb & 0xffffu) == 0u) {
+    const unsigned cc = (cb >> 16) | cb;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d.v) : "r"(cc), "r"(y.v));
+  } else {
+    const float lo = __fsub_rn(c, __uint_as_float(y.v << 16));
+    const float hi = __fsub_rn(c, __uint_as_float(y.v & 0xffff0000u));
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d.v) : "f"(hi), "f"(lo));
   }
-};
+  return d;
+}
+
+// Neighbour access for the updates: a(dz, dy, dx) is the value dz planes,
+// dy rows and dx cells away from the updated cell, read by the kernel's
+// accessor (a shared-memory window, a ring of planes, a register queue).
+// The sums below are written once over an accessor, so every kernel adds
+// the same taps in the same order.
 
 // 7-point Laplacian: faces summed z-, z+, y-, y+, x-, x+ (left-associated),
 // then minus 6 u — ops/stencil.py::axis_laplacian.
@@ -266,13 +282,18 @@ __device__ __forceinline__ float field_update(const A& a, const Coef& c) {
 // Gray-Scott, both fields read with their neighbours:
 //   u' = ((u + Du lap7(u)) - (u v) v) + F (1 - u)
 //   v' = ((v + Dv lap7(v)) + (u v) v) - (F + kappa) v
-template <class A>
+// over floats or bf16x2 pairs (`nu`, `nv` of the accessor's value type:
+// u v and (u v) v are packed products, 1 - u a packed difference; Du, Dv,
+// F and F + kappa are no bfloat16 values, so each half multiplies in
+// float).
+template <class A, class V>
 __device__ __forceinline__ void grayscott_update(const A& au, const A& av,
-                                                 const Coef& c, float& nu,
-                                                 float& nv) {
+                                                 const Coef& c, V& nu,
+                                                 V& nv) {
   using T = typename A::value_type;
-  const float u = au(0, 0, 0), v = av(0, 0, 0);
-  const float uvv = fmul<T>(fmul<T>(u, v), v);
+  const auto u = au(0, 0, 0);
+  const auto v = av(0, 0, 0);
+  const auto uvv = fmul<T>(fmul<T>(u, v), v);
   nu = fadd<T>(fsub<T>(fadd<T>(u, fmul<T>(c.a, lap7(au))), uvv),
                fmul<T>(c.c1, fsub<T>(1.0f, u)));
   nv = fsub<T>(fadd<T>(fadd<T>(v, fmul<T>(c.c0, lap7(av))), uvv),
@@ -288,42 +309,6 @@ __device__ __forceinline__ auto wave_update(const A& a, V uprev,
   using T = typename A::value_type;
   return fadd<T>(fsub<T>(fmul<T>(2.0f, a(0, 0, 0)), uprev),
                  fmul<T>(c.a, lap7(a)));
-}
-
-// The same updates on a block in memory: the cell at `p`, rows `sy` and
-// planes `sz` elements apart.
-template <int KIND, class T>
-__device__ __forceinline__ float heat_update(const T* p, long sy, long sz,
-                                             const Coef& c) {
-  return heat_update<KIND>(Strided<T>{p, sy, sz}, c);
-}
-
-template <class T>
-__device__ __forceinline__ float wave_update(const T* p, float uprev,
-                                             long sy, long sz, const Coef& c) {
-  return wave_update(Strided<T>{p, sy, sz}, uprev, c);
-}
-
-template <int KIND, class T>
-__device__ __forceinline__ float field_update(const T* p, long sy,
-                                              long sz, const Coef& c) {
-  return field_update<KIND>(Strided<T>{p, sy, sz}, c);
-}
-
-template <class T>
-__device__ __forceinline__ void grayscott_update(const T* pu, const T* pv,
-                                                 long sy, long sz,
-                                                 const Coef& c, float& nu,
-                                                 float& nv) {
-  grayscott_update(Strided<T>{pu, sy, sz}, Strided<T>{pv, sy, sz}, c, nu,
-                   nv);
-}
-
-// Guard-frame predicate on GLOBAL coordinates (out-of-domain ghost
-// coordinates count as frame, so they are pinned too).
-__device__ __forceinline__ bool in_frame(int z, int y, int x, int Z, int Y,
-                                         int X, int h) {
-  return z < h || z >= Z - h || y < h || y >= Y - h || x < h || x >= X - h;
 }
 
 EXPORT const char* kernels_error_string(int code) {

@@ -1,12 +1,14 @@
 """The launch geometry of ``csrc/march.cuh``, the tiled one-step kernel.
 
-Four kernels run it: K4 ``zchunk_heat``, K5 ``zchunk_wave`` and K7
+Six kernels run it: K4 ``zchunk_heat``, K5 ``zchunk_wave`` and K7
 ``whole2d`` (``kernels.py``: one update of a halo-padded block) and K1
-``raw_step_heat`` (``rawstep.py``: one guard-frame step of the raw grid,
-its frame pinned in the kernel).  A block marches a tile of the output
-planes down the first axis through a ring of input planes in shared
-memory, filled with 16-byte copies of the aligned words that cover each
-row; bfloat16 cells go in pairs through the bf16x2 ops.  Each kernel's
+``raw_step_heat``, K2 ``raw_step_wave`` and ``raw_step_grayscott``
+(``rawstep.py``: one guard-frame step of the raw grid, its frame pinned in
+the kernel).  A block marches a tile of the output planes down the first
+axis through a ring of input planes in shared memory (Gray-Scott: a ring
+for each of its two fields, :func:`fields`), filled with 16-byte copies of
+the aligned words that cover each row; bfloat16 cells go in pairs through
+the bf16x2 ops.  Each kernel's
 table (``kernels.TILES``, ``rawstep.TILES``) names a :class:`Tile` per
 (stencil, dtype), the fastest of :func:`candidates` on an H100
 (``scripts/torch_compute_tiles.py``).  :func:`march_geometry`,
@@ -74,8 +76,15 @@ FILL_WAVES = 2
 
 
 def has_uprev(stencil: Stencil) -> bool:
-    """Whether the kernel reads a dense u_prev operand (K5, wave3d)."""
+    """Whether the kernel reads a dense u_prev operand (K5, K2: wave3d)."""
     return stencil.name == "wave3d"
+
+
+def fields(stencil: Stencil) -> int:
+    """The fields the kernel marches through rings of their own (march.cuh
+    ``fields_of``): 2 for grayscott3d, whose u and v are both read with
+    their neighbours; 1 for every other kind."""
+    return 2 if stencil.name == "grayscott3d" else 1
 
 
 def candidates(stencil: Stencil) -> List[Tile]:
@@ -116,7 +125,7 @@ def _unit(stencil: Stencil, threads: int, rowwarps: int) -> int:
 class Geometry(NamedTuple):
     """A launch's ring: ``slots`` planes of ``rows`` row buffers of
     ``row_bytes`` bytes, and a table of each row's first cell (4 bytes a
-    row); ``smem`` bytes in all."""
+    row), for each of the kind's :func:`fields`; ``smem`` bytes in all."""
     halo: int
     rows: int
     row_bytes: int
@@ -141,22 +150,23 @@ def _row_bytes(cells: int, itemsize: int) -> int:
 
 
 def march_geometry(stencil: Stencil, tile: Tile) -> Geometry:
-    """The ring of ``tile`` for ``stencil`` in its dtype, as march.cuh lays
-    it out: a row buffer holds a segment of tx + 2h cells; a plane tile has
-    ty + 2h rows (2D: one)."""
+    """The rings of ``tile`` for ``stencil`` in its dtype, as march.cuh
+    lays them out: a row buffer holds a segment of tx + 2h cells; a plane
+    tile has ty + 2h rows (2D: one); one ring and table for each field."""
     h = stencil.halo
     row_bytes = _row_bytes(tile.tx + 2 * h, stencil.dtype.itemsize)
     rows = 1 if stencil.ndim == 2 else tile.ty + 2 * h
     slots = ring_slots(h)
-    return Geometry(h, rows, row_bytes, slots, slots * rows * (row_bytes + 4))
+    return Geometry(h, rows, row_bytes, slots,
+                    fields(stencil) * slots * rows * (row_bytes + 4))
 
 
 def tile_fits(stencil: Stencil, tile: Tile) -> bool:
     """Whether the kernel takes ``tile`` for ``stencil``: a build it has,
-    a tile row of one of its unrolls, rings that fit one block's shared
-    memory, blocks an SM whose rings fit the SM together (1 KB each kept
-    by the card), a 2D tile of one row, the z queue on a queued kind (on
-    every wave3d tile)."""
+    a tile row of one of its unrolls, rings (every field's) that fit one
+    block's shared memory, blocks an SM whose rings fit the SM together
+    (1 KB each kept by the card), a 2D tile of one row, the z queue on a
+    queued kind (on every wave3d tile)."""
     if (tile.threads, tile.blocks, tile.rowwarps) not in BUILDS:
         return False
     if stencil.ndim == 2 and tile.rowwarps != 1:

@@ -1,10 +1,10 @@
 """Whole-step kernels on the raw (unpadded) 3D grid: K1, K2 and Gray-Scott's.
 
-``raw_step_heat`` (K1, ``csrc/rawstep.cu::raw_step_heat<KIND>``) advances
+``raw_step_heat`` (K1, ``csrc/rawstep.cu::raw_step_heat_*``) advances
 heat3d, heat3d27, heat3d4th or advect3d one guard-frame step;
-``raw_step_wave`` (K2, ``csrc/rawstep.cu::raw_step_wave``) advances wave3d;
-``raw_step_grayscott`` (``csrc/rawstep.cu::raw_step_grayscott``) advances
-grayscott3d, both of its fields.  The state is its own halo: frame cells are
+``raw_step_wave`` (K2, ``csrc/rawstep.cu::raw_step_wave_*``) advances
+wave3d; ``raw_step_grayscott`` (``csrc/rawstep.cu::raw_step_grayscott_*``)
+advances grayscott3d, both of its fields.  The state is its own halo: frame cells are
 the guard cells, so no padded copy is ever made.  Each takes float32 or
 bfloat16 grids (``_build.FLOAT_DTYPES``: an ``_f32`` and a ``_bf16``
 entry point of one source); in bfloat16 every op rounds as the plain
@@ -13,12 +13,14 @@ version's does, so the kernels stay bit-equal to it.
 Replaces the TPU package's ``ops/pallas/rawstep.py::make_raw_step``
 (``_heat_kernel`` with ``_taps7``/``_taps27``/``_taps13``/``_taps_advect``,
 ``_wave_kernel`` and ``_grayscott_kernel``).  Bound on an H100:
-device-memory bytes (one read of each input field and one write per step);
-the kernel source says what its design does about that.  K1 is
-``csrc/march.cuh``'s tiled kernel on the raw grid (``march.py``, which
-the compute_fn kernels share), its frame pinned in the kernel; ``TILES``
-names each kind's launch tile, the fastest of ``march.candidates`` on an
-H100 (``scripts/torch_compute_tiles.py``).
+device-memory bytes (one read of each input field and one write of each
+output per step); the kernel source says what its design does about
+that.  All three are ``csrc/march.cuh``'s tiled kernel on the raw grid
+(``march.py``, which the compute_fn kernels share), the frame pinned in
+the kernel: K2 loads u_prev into the registers of each cell's thread,
+Gray-Scott marches v through a second ring beside u.  ``TILES`` names
+each kind's launch tile, the fastest of ``march.candidates`` on an H100
+(``scripts/torch_compute_tiles.py``).
 
 Beside each kernel sits its plain PyTorch version, the port's
 ``driver.make_step``; a wrapper takes it only for a tensor on the CPU.  On a
@@ -50,11 +52,11 @@ _HEAT_KIND = {"heat3d": 0, "heat3d27": 1, "heat3d4th": 2, "advect3d": 7}
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
-# K1's launch tile of each kind, (stencil, dtype) -> Tile (march.py): the
-# fastest of ``march.candidates`` by scripts/torch_compute_tiles.py on an
-# NVIDIA H100 80GB HBM3 at 700 W, on the unsharded main path's 512^3 grid
-# (heat3d: the fastest over 512^3 and 1024^3 together).  Every kind the
-# wrapper takes is listed.
+# The launch tile of each raw kind (K1, K2, Gray-Scott), (stencil, dtype)
+# -> Tile (march.py): the fastest of ``march.candidates`` by
+# scripts/torch_compute_tiles.py on an NVIDIA H100 80GB HBM3 at 700 W, on
+# the unsharded main path's 512^3 grid (heat3d and wave3d: the fastest over
+# 512^3 and 1024^3 together).  Every kind the wrappers take is listed.
 TILES = {
     ("heat3d", "float32"): Tile(256, 2, 256, 8, 256, 1, True),
     ("heat3d", "bfloat16"): Tile(256, 2, 512, 16, 256),
@@ -64,6 +66,10 @@ TILES = {
     ("heat3d4th", "bfloat16"): Tile(256, 2, 512, 8, 256, 1, True),
     ("advect3d", "float32"): Tile(256, 2, 512, 8, 256, 2),
     ("advect3d", "bfloat16"): Tile(512, 2, 512, 16, 64),
+    ("wave3d", "float32"): Tile(256, 2, 256, 8, 64, 1, True),
+    ("wave3d", "bfloat16"): Tile(256, 2, 512, 8, 256, 1, True),
+    ("grayscott3d", "float32"): Tile(256, 2, 256, 4, 32),
+    ("grayscott3d", "bfloat16"): Tile(256, 2, 512, 8, 256),
 }
 
 
@@ -98,9 +104,11 @@ def _lib():
                 [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
                 + [_c_int] * 7 + [_c_ptr])
             getattr(lib, f"raw_step_wave_{sfx}").argtypes = (
-                [_c_ptr] * 3 + [_c_int] * 3 + [_c_float, _c_ptr])
+                [_c_ptr] * 3 + [_c_int] * 3 + [_c_float] + [_c_int] * 7
+                + [_c_ptr])
             getattr(lib, f"raw_step_grayscott_{sfx}").argtypes = (
-                [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 4 + [_c_ptr])
+                [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 4 + [_c_int] * 7
+                + [_c_ptr])
     return lib
 
 
@@ -124,8 +132,8 @@ def raw_step_heat(u: torch.Tensor, stencil: Stencil) -> torch.Tensor:
 
 
 def tile_of(stencil: Stencil) -> Tile:
-    """K1's launch tile of ``stencil`` in its dtype, its TILES entry.
-    Raises on a tile the kernel does not take (no fallback)."""
+    """The launch tile of raw kind ``stencil`` in its dtype, its TILES
+    entry.  Raises on a tile the kernel does not take (no fallback)."""
     return table_tile(TILES, stencil, "rawstep.TILES")
 
 
@@ -142,7 +150,9 @@ def raw_step_wave(u: torch.Tensor, uprev: torch.Tensor,
     Z, Y, X = u.shape
     rc = _build.entry(lib, "raw_step_wave", u)(
         u.data_ptr(), uprev.data_ptr(), out.data_ptr(), Z, Y, X,
-        coefficients(stencil)[0], _build.stream_of(u))
+        coefficients(stencil)[0],
+        *tile_args(stencil, tile_of(stencil), (Z, Y, X), u.device),
+        _build.stream_of(u))
     _build.check(lib, rc, "raw_step_wave")
     launches[_build.launch_key("raw_step_wave", stencil.name, u)] += 1
     return out
@@ -160,7 +170,9 @@ def raw_step_grayscott(u: torch.Tensor, v: torch.Tensor,
     Z, Y, X = u.shape
     rc = _build.entry(lib, "raw_step_grayscott", u)(
         u.data_ptr(), v.data_ptr(), ou.data_ptr(), ov.data_ptr(), Z, Y, X,
-        *coefficients(stencil)[:4], _build.stream_of(u))
+        *coefficients(stencil)[:4],
+        *tile_args(stencil, tile_of(stencil), (Z, Y, X), u.device),
+        _build.stream_of(u))
     _build.check(lib, rc, "raw_step_grayscott")
     launches[_build.launch_key("raw_step_grayscott", stencil.name,
                                 u)] += 1

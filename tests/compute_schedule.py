@@ -6,12 +6,14 @@ For each it issues IN_FLIGHT input planes into a ring of S slots; then
 iteration q waits for the run's input plane q, passes a barrier, issues
 plane ``q + IN_FLIGHT`` into slot ``(q + IN_FLIGHT) % S`` and updates the
 output plane whose planes are all in (z - h .. z + h).  The input is a
-padded block (K4, K5, K7) or, with ``raw``, the raw grid itself (K1): a
-run then starts at plane max(z0 - h, 0), planes past the grid are not
-issued, rows and cells outside the grid are not copied (poison here), and
-frame cells keep their value (a frame plane reads only its own plane).
-Wave3d's u_prev (K5) is read from device memory into registers by the
-thread that updates the cell, with no ring.  :func:`run` replays that order with the stencil's plain update (so the
+padded block (K4, K5, K7) or, with ``raw``, the raw grid itself (K1, K2,
+Gray-Scott): a run then starts at plane max(z0 - h, 0), planes past the
+grid are not issued, rows and cells outside the grid are not copied
+(poison here), and frame cells keep their value (a frame plane reads only
+its own plane).  Wave3d's u_prev (K5, K2) is read from device memory into
+registers by the thread that updates the cell, with no ring.  Gray-Scott's
+v marches through a ring of its own beside u's, its plane tiles issued and
+landed with u's, and its frame cells keep v's value.  :func:`run` replays that order with the stencil's plain update (so the
 rounding is the plain one) on rings of exactly the given slots, and makes
 every race the card could see visible: a slot whose copy is in flight
 holds NaN (Life: -1) from the iteration that issues it to the wait that
@@ -56,15 +58,20 @@ class Race(AssertionError):
     """An update read a ring slot that did not hold the plane it needed."""
 
 
-def run(stencil, block, tile, slots, uprev=None, raw=False):
+def run(stencil, block, tile, slots, uprev=None, raw=False, second=None):
     """The tiled kernel's output for ``block`` under ``tile``
     (``march.Tile``), on a ring of ``slots`` slots: a padded block (3D:
     (Z+2h, Y+2h, X+2h); 2D: (H+2, W+2)) and, for wave3d, the unpadded
-    ``uprev``; or with ``raw`` the raw (Z, Y, X) grid, its frame kept."""
+    ``uprev``; or with ``raw`` the raw (Z, Y, X) grid, its frame kept.
+    ``second``: Gray-Scott's v, shaped as ``block``, on a ring of its own
+    of ``slots`` slots; then the result is the pair (u', v')."""
     in_flight = IN_FLIGHT
     h = stencil.halo
     d2 = block.dim() == 2
-    p3 = block[:, None, :] if d2 else block
+    ins = [block] if second is None else [block, second]
+    nf = len(ins)
+    ps = [b[:, None, :] if d2 else b for b in ins]
+    p3 = ps[0]
     pad, co = (0, 0) if raw else (2 * h, h)
     PM, PY, PX = p3.shape
     M = PM - pad
@@ -72,7 +79,7 @@ def run(stencil, block, tile, slots, uprev=None, raw=False):
     TX, ZR = tile.tx, tile.zrun
     TY = 1 if d2 else tile.ty
     PR = 1 if d2 else TY + 2 * h
-    out = torch.empty((M, Y, X), dtype=block.dtype)
+    outs = [torch.empty((M, Y, X), dtype=block.dtype) for _ in range(nf)]
     poison = float("nan") if block.is_floating_point() else -1
     items = [(z0, y0, x0) for z0 in range(0, M, ZR)
              for y0 in range(0, Y, TY) for x0 in range(0, X, TX)]
@@ -87,30 +94,38 @@ def run(stencil, block, tile, slots, uprev=None, raw=False):
         c0 = x0 + co - h
         ra, rb = max(r0, 0), min(r0 + PR, PY)
         ca, cb = max(c0, 0), min(c0 + TX + 2 * h, PX)
-        ring, held = [None] * slots, [None] * slots
+        # a ring of slots for each field, each slot's (item, plane)
+        ring = [[None] * slots for _ in range(nf)]
+        held = [[None] * slots for _ in range(nf)]
         flying = {}
 
-        def issue(q):
+        def issue(q):  # every field's plane tile, in one commit group
             pz = plo + q
             if pz < PM:
                 s = q % slots
-                data = torch.full((PR, TX + 2 * h), poison,
-                                  dtype=block.dtype)
-                data[ra - r0:rb - r0, ca - c0:cb - c0] = p3[pz, ra:rb, ca:cb]
-                ring[s], held[s] = torch.full_like(data, poison), None
-                flying[q] = (s, data)
+                group = []
+                for f, pf in enumerate(ps):
+                    data = torch.full((PR, TX + 2 * h), poison,
+                                      dtype=block.dtype)
+                    data[ra - r0:rb - r0, ca - c0:cb - c0] = \
+                        pf[pz, ra:rb, ca:cb]
+                    ring[f][s] = torch.full_like(data, poison)
+                    held[f][s] = None
+                    group.append(data)
+                flying[q] = (s, group)
 
         def land(q):
             if q in flying:
-                s, data = flying.pop(q)
-                ring[s], held[s] = data, (item, q)
+                s, group = flying.pop(q)
+                for f, data in enumerate(group):
+                    ring[f][s], held[f][s] = data, (item, q)
 
-        def read(q):
+        def read(q, f=0):
             s = q % slots
-            if held[s] != (item, q):
-                raise Race(f"item {item}: plane {q} read from slot {s}, "
-                           f"which holds {held[s]}")
-            return ring[s]
+            if held[f][s] != (item, q):
+                raise Race(f"item {item}: plane {q} of field {f} read from "
+                           f"slot {s}, which holds {held[f][s]}")
+            return ring[f][s]
 
         def uread(z):  # the cells' u_prev, into registers
             data = torch.full((1, TY, TX), poison, dtype=block.dtype)
@@ -128,24 +143,29 @@ def run(stencil, block, tile, slots, uprev=None, raw=False):
             if z < z0:
                 continue
             if raw and (z < h or z >= M - h):  # a frame plane
-                new = read(q - h)[h:h + TY, h:h + TX]
+                new = [read(q - h, f)[h:h + TY, h:h + TX]
+                       for f in range(nf)]
             else:
-                window = torch.stack([read(q - 2 * h + j)
-                                      for j in range(2 * h + 1)])
+                windows = [torch.stack([read(q - 2 * h + j, f)
+                                        for j in range(2 * h + 1)])
+                           for f in range(nf)]
                 if d2:
-                    new = stencil.update((window[:, 0],))[0]
+                    new = [stencil.update((windows[0][:, 0],))[0]]
                 elif uprev is not None:
-                    new = stencil.update((window, uread(z)))[0][0]
+                    new = [stencil.update((windows[0], uread(z)))[0][0]]
                 else:
-                    new = stencil.update((window,))[0][0]
-                if raw:  # frame rows and cells keep the centre
+                    new = [n[0] for n in
+                           stencil.update(tuple(windows))[:nf]]
+                if raw:  # frame rows and cells keep each field's centre
                     ys = torch.arange(y0, y0 + TY)[:, None]
                     xs = torch.arange(x0, x0 + TX)[None, :]
                     frame = (ys < h) | (ys >= Y - h) | (xs < h) | \
                         (xs >= X - h)
-                    new = torch.where(frame, window[h, h:h + TY, h:h + TX],
-                                      new)
-            out[z, y0:y0 + ny, x0:x0 + nx] = new[:ny, :nx]
+                    new = [torch.where(frame, w[h, h:h + TY, h:h + TX], n)
+                           for w, n in zip(windows, new)]
+            for o, n in zip(outs, new):
+                o[z, y0:y0 + ny, x0:x0 + nx] = n[:ny, :nx]
         if flying:
             raise Race(f"item {item}: planes {sorted(flying)} never landed")
-    return out[:, 0] if d2 else out
+    outs = [o[:, 0] if d2 else o for o in outs]
+    return outs[0] if second is None else tuple(outs)

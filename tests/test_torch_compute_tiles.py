@@ -1,12 +1,14 @@
-"""The tiled one-step kernels K1, K4, K5 and K7 (csrc/march.cuh) on the CPU.
+"""The tiled one-step kernels K1, K2, Gray-Scott's raw step, K4, K5 and K7
+(csrc/march.cuh) on the CPU.
 
 No card here: these hold what the kernel's launches are made of — the tile
 tables (``kernels.TILES``, ``rawstep.TILES``), the ring geometry, the
 aligned-word copy of each row segment (``march.row_copy_plan``, on padded
 blocks and the raw grid's pitch) and the ring's schedule (replayed by
 ``tests/compute_schedule.py`` with the plain update: K4/K7, K5 with its
-u_prev, K1 on the raw grid with its frame and clipped runs; each held to
-the JAX package's own function too) — and the
+u_prev, K1, K2 and Gray-Scott (two rings) on the raw grid with its frame
+and clipped runs; each held to the JAX package's own function too) — and
+the
 claim the packed bfloat16 path rests on: one rounding of an op's exact
 result to bfloat16 gives what the plain version's float-then-bfloat16
 gives.  The kernels themselves are held to their plain versions bit for
@@ -27,7 +29,8 @@ from mpi_cuda_process_tpu.ops.pallas import kernels as jkernels
 from mpi_cuda_process_tpu.ops.pallas import rawstep as jrawstep
 
 from mpi_cuda_process_tpu_torch import driver, make_stencil
-from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels, rawstep
+from mpi_cuda_process_tpu_torch.ops import available_stencils
+from mpi_cuda_process_tpu_torch.ops.cuda import _build, kernels, march, rawstep
 
 import compute_schedule  # noqa: E402  (tests/, on pytest's path)
 
@@ -38,11 +41,11 @@ KINDS = [("heat3d", torch.float32), ("heat3d", torch.bfloat16),
          ("heat3d4th", torch.float32), ("heat3d4th", torch.bfloat16),
          ("heat2d", torch.float32), ("heat2d", torch.bfloat16),
          ("life", torch.int32)]
-# every table of the tiled kernel: K4/K5/K7's and K1's
+# every table of the tiled kernel: K4/K5/K7's and K1/K2/Gray-Scott's
 TABLES = [("kernels", n, d) for n, d in KINDS + [
     ("wave3d", torch.float32), ("wave3d", torch.bfloat16)]] + [
     ("rawstep", n, d) for n in ("heat3d", "heat3d27", "heat3d4th",
-                                "advect3d")
+                                "advect3d", "wave3d", "grayscott3d")
     for d in (torch.float32, torch.bfloat16)]
 
 
@@ -76,14 +79,18 @@ def test_every_table_tile_fits_and_was_a_timed_candidate(table, name,
 
 def test_every_kernel_kind_has_a_table_entry():
     """Each kind a tiled wrapper takes has its tile: K4/K5/K7's every
-    compute_fn name in each of its types, K1's every one-field raw kind."""
+    compute_fn name in each of its types, and every raw kind (K1's
+    one-field kinds, K2's wave3d, Gray-Scott's grayscott3d) in each."""
     for name in ("heat3d", "heat3d27", "heat3d4th", "wave3d", "heat2d"):
         for dt in ("float32", "bfloat16"):
             assert (name, dt) in kernels.TILES
-    for name in rawstep._HEAT_KIND:
+    raw = [n for n in available_stencils()
+           if rawstep.raw_step_supported(make_stencil(n))]
+    assert set(raw) == set(rawstep._HEAT_KIND) | {"wave3d", "grayscott3d"}
+    for name in raw:
         for dt in ("float32", "bfloat16"):
             assert (name, dt) in rawstep.TILES
-    assert len(rawstep.TILES) == 2 * len(rawstep._HEAT_KIND)
+    assert len(rawstep.TILES) == 2 * len(raw)
 
 
 def test_tiles_the_kernel_does_not_take_are_refused():
@@ -379,7 +386,8 @@ def _special_bf16(n, seed):
     return (bits << 16).view(np.float32).astype(np.float64)
 
 
-@pytest.mark.parametrize("op", ["add", "sub", "mul6", "mul4"])
+@pytest.mark.parametrize("op", ["add", "sub", "mul6", "mul4", "mulpair",
+                                "rsub1"])
 def test_packed_bf16_ops_round_like_float_then_bfloat16(op):
     """``add.rn`` / ``sub.rn`` / ``mul.rn .bf16x2`` round the exact result
     of two bfloat16 values once; the plain version rounds it to float and
@@ -387,7 +395,8 @@ def test_packed_bf16_ops_round_like_float_then_bfloat16(op):
     least 2 * 8 + 2, so the two agree: checked on random finite operands,
     subnormals, signed zeros and sums that fall on bfloat16 ties (the
     products by 6 and 4 are the ones the packed path takes: exact
-    bfloat16 coefficients)."""
+    bfloat16 coefficients; Gray-Scott's u v and (u v) v are products of
+    two pairs, its 1 - u a difference from a splatted 1)."""
     a = _special_bf16(4000, 1)
     b = np.random.default_rng(2).permutation(_special_bf16(4000, 3))[:len(a)]
     a = a[:len(b)]
@@ -395,14 +404,17 @@ def test_packed_bf16_ops_round_like_float_then_bfloat16(op):
     a = np.concatenate([a, np.array([1.0, 1.0 + 2 ** -7, -3.0, 2 ** -120])])
     b = np.concatenate([b, np.array([2 ** -8, 2 ** -8, -(2 ** -7) * 1.5,
                                      2 ** -128])])
+    # exact in float64 at these ranges (1 - b: rounded to float64's 53
+    # bits first, which is again at least 2 * 8 + 2)
     exact = {"add": a + b, "sub": a - b, "mul6": 6.0 * b,
-             "mul4": 4.0 * b}[op]  # exact in float64 at these ranges
+             "mul4": 4.0 * b, "mulpair": a * b, "rsub1": 1.0 - b}[op]
     ok = np.abs(exact) < 3.0e38
     one = _bf16_round(exact[ok])
     ta = torch.from_numpy(a[ok].astype(np.float32))
     tb = torch.from_numpy(b[ok].astype(np.float32))
     two = {"add": ta + tb, "sub": ta - tb, "mul6": 6.0 * tb,
-           "mul4": 4.0 * tb}[op].to(torch.bfloat16).float().double().numpy()
+           "mul4": 4.0 * tb, "mulpair": ta * tb, "rsub1": 1.0 - tb}[op].to(
+        torch.bfloat16).float().double().numpy()
     same = (one == two) & (np.signbit(one) == np.signbit(two))
     assert same.all(), (a[ok][~same][:4], b[ok][~same][:4])
 
@@ -613,3 +625,114 @@ def test_k5_schedule_matches_jax_wave3d_compute(monkeypatch, dtype):
     ).float().numpy()
     atol = 1e-6 if dtype == torch.float32 else _tol(ref, dtype)
     np.testing.assert_allclose(got, ref, rtol=0, atol=atol)
+
+
+# --- K2 and Gray-Scott on march.cuh: u_prev and two rings on the raw grid --
+
+RAW_TWO = [(n, shape, tile, dt) for n in ("wave3d", "grayscott3d")
+           for shape, tile in _raw_shapes(1)
+           for dt in (torch.float32, torch.bfloat16)]
+
+
+def _raw_fields(st, shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.rand(shape, generator=g).to(st.dtype)
+                 for _ in range(st.num_fields))
+
+
+def _replay_raw(st, fields, tile, slots):
+    """The replayed K2 step (u_prev into registers; the new u_prev is the
+    old u, kept by the caller) or Gray-Scott step (v on its own ring)."""
+    if st.name == "wave3d":
+        u, up = fields
+        return (compute_schedule.run(st, u, tile, slots, up, raw=True), u)
+    u, v = fields
+    return compute_schedule.run(st, u, tile, slots, raw=True, second=v)
+
+
+@pytest.mark.parametrize("name,shape,tile,dtype", RAW_TWO,
+                         ids=[f"{n}-{'x'.join(map(str, s))}-{str(d)[6:]}"
+                              for n, s, _, d in RAW_TWO])
+def test_k2_and_grayscott_raw_schedules_are_the_plain_step(name, shape, tile,
+                                                           dtype):
+    """K2 (u_prev in registers) and Gray-Scott (a second ring for v, both
+    fields' frame cells kept) on the raw grid, on the committed slot
+    count == the port's plain guard-frame step bit for bit, both fields,
+    at every x residue mod 8, the smallest grid and interior tiles."""
+    st = make_stencil(name, dtype=dtype)
+    fields = _raw_fields(st, shape, 21)
+    got = _replay_raw(st, fields, kernels.Tile(256, 2, *tile),
+                      kernels.ring_slots(1))
+    ref = driver.make_step(st, shape)(fields)
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("name", ["wave3d", "grayscott3d"])
+def test_k2_and_grayscott_raw_schedules_race_on_a_ring_one_slot_short(name):
+    st = make_stencil(name)
+    fields = _raw_fields(st, (13, 9, 37), 22)
+    with pytest.raises(compute_schedule.Race):
+        _replay_raw(st, fields, kernels.Tile(256, 2, 32, 4, 6),
+                    kernels.ring_slots(1) - 1)
+
+
+RAW_TWO_JAX = [(n, dt) for n in ("wave3d", "grayscott3d")
+               for dt in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("name,dtype", RAW_TWO_JAX,
+                         ids=[f"{n}-{str(d)[6:]}" for n, d in RAW_TWO_JAX])
+def test_k2_and_grayscott_raw_schedules_match_jax_make_raw_step(name,
+                                                                dtype):
+    """The replayed K2 and Gray-Scott steps == the JAX package's
+    make_raw_step (interpret) on the same seeded numpy fields, within the
+    raw step's 32 eps max(|ref|, 1), frame cells equal, both fields; a
+    grid with interior tiles and ragged x."""
+    shape = (16, 13, 45)
+    jt = _JAX_TYPES[dtype]
+    jst = jmake_stencil(name, dtype=jt)
+    st = make_stencil(name, dtype=dtype)
+    jstep = jrawstep.make_raw_step(jst, shape, interpret=True)
+    assert jstep is not None
+    rng = np.random.default_rng(24)
+    arrays = [rng.random(shape, dtype=np.float32) for _ in range(2)]
+    refs = [np.asarray(r, dtype=np.float32)
+            for r in jstep(tuple(jnp.asarray(a, jt) for a in arrays))]
+    gots = [g.float().numpy() for g in _replay_raw(
+        st, tuple(torch.from_numpy(a).to(dtype) for a in arrays),
+        kernels.Tile(256, 2, 16, 4, 5), kernels.ring_slots(1))]
+    frame = driver.frame_mask(shape, shape, (0, 0, 0), 1,
+                              device="cpu").numpy()
+    for got, ref in zip(gots, refs):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=_tol(ref, dtype))
+        np.testing.assert_array_equal(got[frame], ref[frame])
+
+
+def test_grayscott_tiles_size_both_rings():
+    """Gray-Scott's rings take twice a one-field kind's shared memory (a
+    ring and a row table for each field), and a tile whose two rings
+    exceed one block's shared memory, or two blocks' share of an SM, is
+    refused where the one-field kind's one ring fits."""
+    gs = make_stencil("grayscott3d")
+    heat = make_stencil("heat3d")
+    assert march.fields(gs) == 2 and march.fields(heat) == 1
+    assert march.fields(make_stencil("wave3d")) == 1
+    fits = kernels.Tile(256, 2, 256, 16, 64)
+    assert kernels.march_geometry(gs, fits).smem == \
+        2 * kernels.march_geometry(heat, fits).smem
+    assert kernels.tile_fits(heat, fits)
+    assert kernels.march_geometry(gs, fits).smem <= _build.SMEM_LIMIT
+    assert not kernels.tile_fits(gs, fits)      # two blocks an SM do not
+    big = kernels.Tile(256, 2, 512, 16, 64)
+    assert kernels.march_geometry(heat, big).smem <= _build.SMEM_LIMIT < \
+        kernels.march_geometry(gs, big).smem
+    assert not kernels.tile_fits(gs, big)       # one block does not
+    # both fields' taps come from shared memory: no z queue
+    assert not kernels.tile_fits(gs, kernels.Tile(256, 2, 256, 8, 64, 1,
+                                                  True))
+    cands = kernels.candidates(gs)
+    assert cands and not any(t.zqueue for t in cands)
+    assert all(kernels.march_geometry(gs, t).smem <= _build.SMEM_LIMIT
+               for t in cands)

@@ -82,8 +82,7 @@ def test_raw_step_kernel_matches_plain(dev, name, shape):
     torch.cuda.synchronize()
     wrapper = "raw_step_wave" if name == "wave3d" else "raw_step_heat"
     assert rawstep.launches[f"{wrapper}[{name}]"] == 1
-    scale = max(float(ref[0].abs().max()), 1.0)
-    _check(got, ref, st.halo, 32 * EPS32 * scale)
+    _check(got, ref, st.halo, 0.0)  # bit for bit (march.cuh, K1 and K2)
     if name == "wave3d":
         assert got[1] is fields[0]
 
@@ -522,7 +521,7 @@ def _ids(cases):
 @pytest.mark.parametrize("name,kw", NEW_3D, ids=_ids(NEW_3D))
 def test_new_raw_step_kernels_match_plain(dev, name, kw, shape):
     """K1's advection kind and the Gray-Scott raw step == one plain step,
-    frame cells exact."""
+    bit for bit, both fields, frame cells exact."""
     st = port.make_stencil(name, **kw)
     fields = _fields(st, shape, dev, 11)
     ref = driver.make_step(st, shape)(fields)
@@ -533,8 +532,7 @@ def test_new_raw_step_kernels_match_plain(dev, name, kw, shape):
         else "raw_step_heat"
     assert dict(rawstep.launches) == {f"{wrapper}[{name}]": 1}
     assert len(got) == st.num_fields
-    scale = max(float(ref[0].abs().max()), 1.0)
-    _check(got, ref, st.halo, 32 * EPS32 * scale)
+    _check(got, ref, st.halo, 0.0)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
@@ -1806,18 +1804,23 @@ def test_tiled_compute_kernels_refuse_a_short_ring(dev, name, dtype):
         assert rc != 0
 
 
-# ---- K5 and K1, redesigned (csrc/march.cuh) ----------------------------------
+# ---- K5, K1, K2 and Gray-Scott, redesigned (csrc/march.cuh) ------------------
 
 MARCH_NEW = [("K5", "wave3d", {}), ("K1", "heat3d", {}),
              ("K1", "heat3d27", {}), ("K1", "heat3d4th", {}),
-             ("K1", "advect3d", {"cx": -0.3, "cy": 0.2, "cz": -0.25})]
+             ("K1", "advect3d", {"cx": -0.3, "cy": 0.2, "cz": -0.25}),
+             ("K2", "wave3d", {}), ("GS", "grayscott3d", {})]
+# the raw kinds and their wrappers
+RAW_WRAPPER = {"K1": "raw_step_heat", "K2": "raw_step_wave",
+               "GS": "raw_step_grayscott"}
 MARCH_NEW_CASES = [(k, n, kw, d) for k, n, kw in MARCH_NEW
                    for d in ("float32", "bfloat16")]
 
 
 def _march_new_shapes(kern, h):
-    """K5: TILED_SHAPES_3D; K1: x in each residue mod 8, the smallest grid
-    it takes, every tile at a wall, grids with interior tiles."""
+    """K5: TILED_SHAPES_3D; the raw kinds: x in each residue mod 8, the
+    smallest grid they take, every tile at a wall, grids with interior
+    tiles."""
     if kern == "K5":
         return TILED_SHAPES_3D
     m = 2 * h + 1
@@ -1831,20 +1834,23 @@ def _march_new_shapes(kern, h):
                               MARCH_NEW_CASES])
 def test_tiled_k5_and_k1_match_plain_at_every_residue(dev, kern, name, kw,
                                                       dtype):
-    """K5 (u_prev as a second operand) and K1 (the raw grid, its frame
-    pinned in the kernel) at their table tile == the plain update / step,
-    bit for bit, frame cells included, on the shapes above; in bfloat16
-    also on subnormals, signed zeros and ties.  One launch a call."""
+    """K5 (u_prev as a second operand) and the raw kinds K1, K2 and
+    Gray-Scott (the raw grid, its frame pinned in the kernel; K2's u_prev
+    in registers, Gray-Scott's v on a second ring) at their table tile ==
+    the plain update / step, bit for bit, every field, frame cells
+    included, on the shapes above; in bfloat16 also on subnormals, signed
+    zeros and ties.  One launch a call."""
     st = port.make_stencil(name, dtype=dtype, **kw)
     h = st.halo
-    mod = kernels if kern == "K5" else rawstep
-    wrapper = "zchunk_wave" if kern == "K5" else "raw_step_heat"
+    raw = kern != "K5"
+    mod = rawstep if raw else kernels
+    wrapper = RAW_WRAPPER[kern] if raw else "zchunk_wave"
     count = f"{wrapper}[{name}]" if dtype == "float32" else \
         f"{wrapper}[{name},{dtype}]"
     mod.launches.clear()
     calls = 0
     for i, shape in enumerate(_march_new_shapes(kern, h)):
-        first = shape if kern == "K1" else tuple(s + 2 * h for s in shape)
+        first = shape if raw else tuple(s + 2 * h for s in shape)
         shapes = (first,) + (shape,) * (st.num_fields - 1)
         g = torch.Generator(device=dev)
         g.manual_seed(1800 + i)
@@ -1854,7 +1860,7 @@ def test_tiled_k5_and_k1_match_plain_at_every_residue(dev, kern, name, kw,
             blocks.append(tuple(compute_schedule.special_bf16(s, g, dev)
                                 for s in shapes))
         for ins in blocks:
-            if kern == "K1":
+            if raw:
                 got = rawstep.make_raw_step(st, shape, device=dev)(ins)
                 ref = driver.make_step(st, shape)(ins)
             else:
@@ -1863,8 +1869,10 @@ def test_tiled_k5_and_k1_match_plain_at_every_residue(dev, kern, name, kw,
             torch.cuda.synchronize()
             calls += 1
             view = torch.int16 if dtype == "bfloat16" else torch.int32
-            assert got[0].dtype == ref[0].dtype
-            assert torch.equal(got[0].view(view), ref[0].view(view)), shape
+            assert len(got) == len(ref)
+            for gf, rf in zip(got, ref):
+                assert gf.dtype == rf.dtype
+                assert torch.equal(gf.view(view), rf.view(view)), shape
     assert mod.launches == {count: calls}
 
 
@@ -1872,13 +1880,14 @@ def test_tiled_k5_and_k1_match_plain_at_every_residue(dev, kern, name, kw,
                          ids=[f"{k}-{n}-{d}" for k, n, _, d in
                               MARCH_NEW_CASES])
 def test_tiled_k5_and_k1_refuse_a_short_ring(dev, kern, name, kw, dtype):
-    """A K5 or K1 launch whose ring is one slot short, or whose row buffer
-    is too small, is refused (no fallback); so is K5 on a tile of more
-    than one row a group."""
+    """A K5 or raw-kind launch whose ring is one slot short, or whose row
+    buffer is too small, is refused (no fallback); so is K5 or K2 on a
+    tile of more than one row a group, and Gray-Scott on rings that
+    together exceed one block's shared memory."""
     st = port.make_stencil(name, dtype=dtype, **kw)
     h = st.halo
     shape = (9, 9, 40)
-    first = shape if kern == "K1" else tuple(s + 2 * h for s in shape)
+    first = shape if kern != "K5" else tuple(s + 2 * h for s in shape)
     p = torch.rand(first, device=dev).to(st.dtype)
     out = torch.empty(shape, dtype=st.dtype, device=dev)
     tile = (kernels.TILES if kern == "K5" else rawstep.TILES)[(name, dtype)]
@@ -1886,20 +1895,31 @@ def test_tiled_k5_and_k1_refuse_a_short_ring(dev, kern, name, kw, dtype):
     args = list(kernels._tile_args(st, tile, shape, dev))
     shorts = [(len(args) - 1, geo.slots - 1),
               (len(args) - 2, geo.row_bytes - 16)]
+    up = torch.rand(shape, device=dev).to(st.dtype)
     if kern == "K5":
-        up = torch.rand(shape, device=dev).to(st.dtype)
         lib = kernels._lib()
         fn = kernels._build.entry(lib, "zchunk_wave", p)
         head = (p.data_ptr(), up.data_ptr(), out.data_ptr(), *shape,
                 kernels.coefficients(st)[0])
     else:
         lib = rawstep._lib()
-        fn = kernels._build.entry(lib, "raw_step_heat", p)
-        head = (rawstep._HEAT_KIND[name], p.data_ptr(), out.data_ptr(),
-                *shape, *rawstep.coefficients(st))
+        fn = kernels._build.entry(lib, RAW_WRAPPER[kern], p)
+        if kern == "K1":
+            head = (rawstep._HEAT_KIND[name], p.data_ptr(), out.data_ptr(),
+                    *shape, *rawstep.coefficients(st))
+        elif kern == "K2":
+            head = (p.data_ptr(), up.data_ptr(), out.data_ptr(), *shape,
+                    rawstep.coefficients(st)[0])
+        else:
+            ov = torch.empty_like(out)
+            head = (p.data_ptr(), up.data_ptr(), out.data_ptr(),
+                    ov.data_ptr(), *shape, *rawstep.coefficients(st)[:4])
     assert fn(*head, *args, kernels._build.stream_of(p)) == 0
-    if kern == "K5":  # not a z-queue tile
+    if kern in ("K5", "K2"):  # not a z-queue tile
         shorts.append((1, 0))
+    if kern == "GS":  # two rings past one block's shared memory
+        per_row = kernels._build.SMEM_LIMIT // (2 * geo.slots * geo.rows)
+        shorts.append((len(args) - 2, per_row // 16 * 16 + 16))
     for i, short in shorts:
         bad = list(args)
         bad[i] = short

@@ -201,6 +201,25 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      config 3's decomposition in bfloat16 (heat3d 1024^3 --mesh 2,2
      --compute pallas, 16 iterations), whose measured peak must not exceed
      the estimate, as config 5's --exchange rdma share's must not;
+  5d. decomposition across processes: BASELINE config 3 as users run it,
+     heat3d 1024^3 --mesh 2,2 as 4 processes on the card for 20
+     iterations, with --compute pallas (K4), --fuse 4 --fuse-kind padfree
+     (K9), --fuse 4 --fuse-kind stream (K10) and --fuse 4 --overlap (K3
+     sharded and its shells), and --compute pallas in bfloat16; wave3d
+     1024^3 --mesh 4 as 4 processes, --compute pallas (K5) and --fuse 4
+     --fuse-kind padfree (K6); Life 16384^2 --mesh 2 as 2 processes, 24
+     iterations, --compute pallas (K7) and --fuse 8 (K8 sharded).  Each
+     process is this script again (--mp-worker), started with the
+     launcher's variables; the processes share the card, so their slabs
+     cross through gloo and pinned host buffers.  Each process
+     fingerprints its final blocks on the card (int sums of the raw bits,
+     plain and weighted by position) and every block must equal the same
+     --mesh run's in one process, its --log-every lines must equal that
+     run's and the launches of all processes must add up to its; each
+     run's ms/step is printed beside the one-process run's, with the
+     backend and the exchange's host time per step call.  With two cards
+     or more the NCCL leg (a card per process) runs heat3d's K4 and K9
+     runs too; with one card it prints that it did not run, and why;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -534,6 +553,39 @@ ITERS16K = 96  # the multiple of FUSE2D nearest 100
 FUSE2D = 8
 LIFE_CKPT_GRID = (4096, 4096)  # the 2D sharded checkpoint round trip
 TPU = "mpi_cuda_process_tpu/ops/pallas/"
+# Decomposition across processes (phase 5d): (label, processes, stencil,
+# grid, iterations, --log-every, flags), each run as that many processes on
+# the card (gloo through pinned host buffers: the processes share it) and
+# held bit for bit, with its --log-every lines, to the same --mesh run in
+# one process.  BASELINE config 3 as users run it (4 processes of heat3d
+# 1024^3 on 2x2) on the compute_fn kernel K4, the pad-free kind K9, the
+# streaming kind K10 and the padded kind K3 with its overlap shells, and in
+# bfloat16; wave3d on --mesh 4 (K5, K6); Life on the reference's 2-rank
+# row split (K7, K8).
+MP_ITERS = 20
+MP_RUNS = (
+    ("heat3d_pallas", 4, "heat3d", BIG, MP_ITERS, 4,
+     ("--mesh", "2,2", "--compute", "pallas")),
+    ("heat3d_padfree", 4, "heat3d", BIG, MP_ITERS, 4,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree")),
+    ("heat3d_stream", 4, "heat3d", BIG, MP_ITERS, 4,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream")),
+    ("heat3d_fuse_overlap", 4, "heat3d", BIG, MP_ITERS, 4,
+     ("--mesh", "2,2", "--fuse", "4", "--overlap")),
+    ("heat3d_pallas_bf16", 4, "heat3d", BIG, MP_ITERS, 4,
+     ("--mesh", "2,2", "--compute", "pallas", "--dtype", "bfloat16")),
+    ("wave3d_pallas", 4, "wave3d", BIG, MP_ITERS, 4,
+     ("--mesh", "4", "--compute", "pallas")),
+    ("wave3d_padfree", 4, "wave3d", BIG, MP_ITERS, 4,
+     ("--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree")),
+    ("life_pallas", 2, "life", (16384, 16384), 24, 8,
+     ("--mesh", "2", "--compute", "pallas")),
+    ("life_fuse", 2, "life", (16384, 16384), 24, 8,
+     ("--mesh", "2", "--fuse", "8")),
+)
+# the runs of the NCCL leg (a card per process; 2 or 4 of them)
+MP_NCCL = ("heat3d_pallas", "heat3d_padfree")
+MP_TIMEOUT = 420  # seconds, each launch of processes
 
 
 def emit(obj) -> None:
@@ -550,6 +602,273 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def fingerprint(block):
+    """An exact fingerprint of a tensor's bits, computed on its device: the
+    sum of its raw bit patterns as integers, and the same sum weighted by
+    each cell's position along every axis (so moved cells change it too),
+    reduced a chunk of the first axis at a time in int64 and added up in
+    Python integers, which never overflow."""
+    import torch
+
+    itype = {4: torch.int32, 2: torch.int16}[block.element_size()]
+    plane = max(1, block[0].numel())
+    step = max(1, (1 << 24) // plane)
+    plain, weighted = 0, 0
+    col = [0] * block.shape[-1]
+    row = [0] * (block.shape[1] if block.dim() == 3 else 0)
+    for z0 in range(0, block.shape[0], step):
+        b = block[z0:z0 + step].contiguous().view(itype).to(torch.int64)
+        per_z = b.reshape(b.shape[0], -1).sum(1).tolist()
+        plain += sum(per_z)
+        weighted += sum((z0 + i + 1) * v for i, v in enumerate(per_z))
+        for i, v in enumerate(b.reshape(-1, b.shape[-1]).sum(0).tolist()):
+            col[i] += v
+        if row:
+            for i, v in enumerate(b.sum((0, 2)).tolist()):
+                row[i] += v
+    weighted += sum((i + 1) * v for i, v in enumerate(col))
+    weighted += sum((i + 1) * v for i, v in enumerate(row))
+    return [plain, weighted]
+
+
+def mp_argv(stencil, grid, iters, log_every, flags):
+    """The CLI arguments of a phase-5d run (Life from its random universe,
+    the rest from the pulse)."""
+    return ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+            "--iters", str(iters), "--init",
+            "random" if stencil == "life" else "pulse",
+            *stencil_flags(stencil), *flags, "--log-every", str(log_every)]
+
+
+def mp_worker(spec_path: str) -> int:
+    """One process of a phase-5d launch: runs every case of the spec
+    through ``cli.run()`` with the launcher's variables set, and writes
+    per case its blocks' fingerprints, its log lines, its launches, its
+    ms/step and its transport's figures."""
+    sys.path.insert(0, HERE)
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli
+    from mpi_cuda_process_tpu_torch.ops.cuda import (fullgrid, fused,
+                                                     kernels, rawstep,
+                                                     remote, streamfused)
+    from mpi_cuda_process_tpu_torch.parallel import halo
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    rank = int(os.environ["RANK"])
+    lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger(PKG)
+    log.setLevel(logging.INFO)
+    log.addHandler(Grab())
+    counters = (rawstep.launches, fused.launches, kernels.launches,
+                fullgrid.launches, streamfused.launches, remote.launches)
+    out = []
+    for case in spec["cases"]:
+        lines.clear()
+        for c in counters:
+            c.clear()
+        for t in halo._DISTRIBUTED.values():
+            t.reset_stats()
+        fields, mcells = cli.run(cli.config_from_args(case["argv"]))
+        launches = {}
+        for c in counters:
+            launches.update(c)
+        mesh = fields[0].mesh
+        transport = halo.default_transport(mesh)
+        fps = {f"{j}:{','.join(map(str, c))}": fingerprint(b)
+               for j, f in enumerate(fields)
+               for c, b in zip(mesh.local_coords(), f)}
+        cells = math.prod(case["grid"])
+        out.append({"label": case["label"], "fingerprints": fps,
+                    "lines": list(lines), "launches": launches,
+                    "ms_per_step": 1e3 * cells / (mcells * 1e6),
+                    "backend": transport.backend,
+                    "transport": dict(transport.stats),
+                    "blocks": len(fields[0]), "device": str(mesh.devices[0])})
+        del fields
+        torch.cuda.empty_cache()
+    with open(f"{spec['out']}_r{rank}.json", "w") as fh:
+        json.dump(out, fh)
+    mesh_lib.shutdown_distributed()
+    return 0
+
+
+def multiprocess_phase(counted, lines, main_launches, scratch):
+    """Phase 5d: every MP_RUNS run in one process (virtual devices), then
+    as its processes on the card, held bit for bit (block fingerprints,
+    --log-every lines, launches) to the one-process run; with two cards or
+    more, the NCCL leg.  Returns (one line of figures per run, what the
+    NCCL leg did)."""
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    saved_virtual = os.environ.get(mesh_lib.VIRTUAL_DEVICES_ENV)
+    mp = {}
+    mp_dir = os.path.join(scratch, "multiprocess")
+    os.makedirs(mp_dir, exist_ok=True)
+
+    def step_lines(got):
+        return [ln for ln in got if ln.startswith("step ")]
+
+    def step_calls(iters, log_every, flags):
+        """Calls of the step function in a run: one a pass, and for a
+        one-step run also the residual step of each --log-every line."""
+        if "--fuse" in flags:
+            return iters // int(flags[flags.index("--fuse") + 1])
+        return iters + iters // log_every
+
+    # the same runs in one process, on virtual devices, first
+    for label, procs, stencil, grid, iters, le, flags in MP_RUNS:
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(
+            math.prod(int(v) for v in flags[1].split(",")))
+        argv = mp_argv(stencil, grid, iters, le, flags)
+        lines.clear()
+        (fields, mcells), got = counted(
+            lambda: cli.run(cli.config_from_args(argv)))
+        mesh = fields[0].mesh
+        mp[label] = {
+            "argv": argv, "grid": list(grid), "processes": procs,
+            "one_process_ms_per_step": 1e3 * math.prod(grid)
+            / (mcells * 1e6),
+            "one_process_launches": got, "lines": step_lines(lines),
+            "fingerprints": {f"{j}:{','.join(map(str, c))}": fingerprint(b)
+                             for j, f in enumerate(fields)
+                             for c, b in zip(mesh.local_coords(), f)},
+            "calls": step_calls(iters, le, flags)}
+        if not mp[label]["lines"]:
+            fail(f"multiprocess {label}: no --log-every line logged")
+        del fields, mesh
+        torch.cuda.empty_cache()
+    os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+
+    def launch(world, labels, tag):
+        """Run ``labels`` as ``world`` processes of this script (the
+        launcher's variables, a free port); returns each process's results
+        per label."""
+        import socket
+
+        spec = os.path.join(mp_dir, f"{tag}.json")
+        with open(spec, "w") as fh:
+            json.dump({"out": os.path.join(mp_dir, tag), "cases": [
+                {"label": lb, "argv": mp[lb]["argv"], "grid": mp[lb]["grid"]}
+                for lb in labels]}, fh)
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+        env.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+        torch.cuda.empty_cache()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker", spec],
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=MP_TIMEOUT)
+                errs.append(err)
+                if p.returncode != 0:
+                    fail(f"multiprocess {tag}: a process exited "
+                         f"{p.returncode}:\n{err[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        res = []
+        for r in range(world):
+            with open(os.path.join(mp_dir, f"{tag}_r{r}.json")) as fh:
+                res.append({c["label"]: c for c in json.load(fh)})
+        return res
+
+    def held(label, per_rank, want_backend):
+        """Check one label's processes against its one-process run;
+        returns its line of figures."""
+        ref = mp[label]
+        fps, launches = {}, {}
+        for got in per_rank:
+            c = got[label]
+            if c["backend"] != want_backend:
+                fail(f"multiprocess {label}: backend {c['backend']} != "
+                     f"{want_backend}")
+            if not any(f"transport {want_backend}" in ln
+                       for ln in c["lines"]):
+                fail(f"multiprocess {label}: the mesh line names no "
+                     f"{want_backend} transport")
+            if step_lines(c["lines"]) != ref["lines"]:
+                fail(f"multiprocess {label}: --log-every lines differ from "
+                     f"one process's: {step_lines(c['lines'])} against "
+                     f"{ref['lines']}")
+            if c["blocks"] * len(per_rank) != len(ref["fingerprints"]) // \
+                    len(set(k.split(":")[0] for k in ref["fingerprints"])):
+                fail(f"multiprocess {label}: {c['blocks']} blocks a process")
+            fps.update(c["fingerprints"])
+            for k, n in c["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+                main_launches[k] = main_launches.get(k, 0) + n
+        if fps != ref["fingerprints"]:
+            bad = sorted(k for k in ref["fingerprints"]
+                         if fps.get(k) != ref["fingerprints"][k])
+            fail(f"multiprocess {label}: blocks differ from one process's "
+                 f"run: {bad}")
+        if launches != ref["one_process_launches"]:
+            fail(f"multiprocess {label}: launches {launches} != the one-"
+                 f"process run's {ref['one_process_launches']}")
+        stats = [got[label]["transport"] for got in per_rank]
+        calls = ref["calls"]
+        return {"label": label, "processes": len(per_rank),
+                "argv": " ".join(ref["argv"]), "backend": want_backend,
+                "ms_per_step": per_rank[0][label]["ms_per_step"],
+                "one_process_ms_per_step": ref["one_process_ms_per_step"],
+                "exchange_ms_per_step_call": max(
+                    1e3 * s["seconds"] / calls for s in stats),
+                "exchange_bytes_sent_per_step_call": max(
+                    s["bytes"] / calls for s in stats),
+                "shifts_per_step_call": stats[0]["shifts"] / calls,
+                "step_calls": calls, "launches": launches,
+                "bit_equal_to_one_process": True,
+                "log_lines_equal": len(ref["lines"])}
+
+    mp_out = []
+    for world in (4, 2):
+        labels = [r[0] for r in MP_RUNS if r[1] == world]
+        per_rank = launch(world, labels, f"gloo_host_{world}")
+        for label in labels:
+            row = held(label, per_rank, "gloo-host")
+            mp_out.append(row)
+            emit({"phase": "multiprocess_run", **row})
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        world = 4 if cards >= 4 else 2
+        per_rank = launch(world, list(MP_NCCL), f"nccl_{world}")
+        nccl = [held(lb, per_rank, "nccl") for lb in MP_NCCL]
+        for row in nccl:
+            emit({"phase": "multiprocess_run", **row})
+        nccl_note = {"ran": True, "processes": world, "runs": len(nccl)}
+    else:
+        nccl_note = {"ran": False, "reason": (
+            f"{cards} card: the nccl leg needs a card for each process, "
+            "so it was not run (and is not reported as passed)")}
+    print("multiprocess nccl leg: " + (
+        "ran" if nccl_note["ran"] else "NOT RUN: " + nccl_note["reason"]),
+          flush=True)
+    shutil.rmtree(mp_dir, ignore_errors=True)
+    if saved_virtual is not None:
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = saved_virtual
+    return mp_out, nccl_note
 
 
 def card_rates(name: str):
@@ -2445,6 +2764,18 @@ def main() -> int:
                   "of the run above what was held before it",
           **c5})
 
+    # ---- 5d. decomposition across processes -------------------------------
+    mp_out, nccl_note = multiprocess_phase(counted, lines, main_launches,
+                                           scratch)
+    emit({"phase": "multiprocess", "ok": True, "seconds": took(),
+          "card": smi, "runs": len(mp_out), "nccl": nccl_note,
+          "note": "processes that share one card through gloo and pinned "
+                  "host buffers: the cost of the process boundary on one "
+                  "card, not scaling; exchange_ms_per_step_call: host "
+                  "seconds inside the transport (staging copies, posting, "
+                  "waiting; not the wait for earlier device work) over the "
+                  "step function's calls, the slowest process"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -3587,4 +3918,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mp-worker":
+        sys.exit(mp_worker(sys.argv[2]))
     sys.exit(main())

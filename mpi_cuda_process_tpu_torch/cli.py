@@ -52,7 +52,15 @@ any field is allocated and refuses with the arithmetic when it cannot fit
 the card (``utils/budget.py``; ``warn`` logs and goes on; skipped on the
 CPU).
 ``--mesh`` decomposes the grid over the visible devices
-(``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N shards on one card).
+(``MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES=N`` puts N shards on one card),
+or, launched by ``torchrun`` (``MASTER_ADDR``, ``RANK``, ``WORLD_SIZE``...),
+over the processes: each holds its own shards, the slabs that cross a
+process boundary go through ``torch.distributed`` (``nccl`` when each
+process has a card, ``gloo`` on the CPU, ``gloo`` staged through pinned
+host buffers when processes share a card), and the fields equal the same
+``--mesh`` run in one process bit for bit.  A multi-process run refuses
+checkpoints (ROADMAP A2), ``--render`` (no process holds the global grid)
+and ``--exchange rdma`` (ROADMAP B7) before any field is built.
 ``--device`` (default ``cuda``) picks where the state lives; asking for
 ``cuda`` without a card raises, it never carries on on the CPU.  Only the
 flags the port runs are registered; a combination that needs a kernel or
@@ -65,6 +73,7 @@ import argparse
 import dataclasses
 import logging
 import math
+import os
 import sys
 import time
 from typing import Tuple
@@ -83,8 +92,10 @@ from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
 from .ops.cuda import rawstep, streamfused
 from .ops.cuda._build import FLOAT_DTYPES
+from .parallel import halo
 from .parallel import mesh as mesh_lib
 from .parallel import stepper as stepper_lib
+from .parallel.stepper import GLOBAL_GRID_REASON
 from .utils import checkpointing, diagnostics, render
 from .utils.init import init_state, init_state_sharded
 
@@ -120,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-grid-axis shard counts, e.g. 2,2 (default: "
                         "unsharded); needs that many devices, or "
                         f"{mesh_lib.VIRTUAL_DEVICES_ENV}=N for N shards on "
-                        "one device")
+                        "one device; under torchrun the shards are spread "
+                        "over the processes, each holding its own")
     p.add_argument("--dtype", default=None,
                    help="float32|bfloat16|float16 (default: the stencil's "
                         "own); every kernel takes float32 and bfloat16 "
@@ -351,10 +363,7 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
     if not cfg.fuse and _raw_eligible(cfg, st.name) and \
             rawstep.make_raw_step(st, cfg.grid) is not None:
         compute = "raw"
-    shards = 1
-    if mesh is not None:
-        shards = max(sum(1 for d in mesh.devices if d == u)
-                     for u in mesh.unique_devices())
+    shards = budget.shards_on_card(mesh)
     try:
         total, _ = budget.check_budget(
             st, cfg.grid, mesh=cfg.mesh, fuse=cfg.fuse,
@@ -426,12 +435,37 @@ def _resume(cfg: RunConfig, st, device, mesh=None):
 
 
 def _make_run_mesh(cfg: RunConfig, device):
-    """The run's mesh over the visible devices of ``--device``."""
-    mesh_lib.bootstrap_distributed()
+    """The run's mesh over the visible devices of ``--device``, or, once
+    a launcher's cluster is bootstrapped, over every process."""
+    mesh_lib.bootstrap_distributed(device=device.type)
     m = mesh_lib.make_mesh(cfg.mesh, mesh_lib.local_devices(device.type))
-    log.info("mesh %s: %d shards on %d device(s)",
-             "x".join(map(str, cfg.mesh)), m.size, len(m.unique_devices()))
+    if m.multiprocess:
+        log.info("mesh %s: %d shards over %d processes, %d here on %s; "
+                 "transport %s", "x".join(map(str, cfg.mesh)), m.size,
+                 m.processes, m.per_process, m.devices[0], m.backend)
+        _refuse_multiprocess(cfg)
+    else:
+        log.info("mesh %s: %d shards on %d device(s)",
+                 "x".join(map(str, cfg.mesh)), m.size,
+                 len(m.unique_devices()))
     return m
+
+
+def _refuse_multiprocess(cfg: RunConfig) -> None:
+    """What a multi-process run cannot do yet, refused by its item before
+    any field is built."""
+    if cfg.checkpoint_dir or cfg.checkpoint_every or cfg.resume:
+        raise NotImplementedError(
+            "checkpoints of a multi-process run (--checkpoint-every, "
+            "--checkpoint-dir, --resume): every process holds only its own "
+            f"shards: {checkpointing.SHARDED_ITEM}")
+    if cfg.render:
+        raise ValueError(
+            f"--render draws the global grid, and {GLOBAL_GRID_REASON}")
+    if cfg.exchange == "rdma":
+        raise NotImplementedError(
+            "--exchange rdma on a multi-process mesh: the ring kernel "
+            f"writes into a neighbour's slab on its card: {halo.RDMA_ITEM}")
 
 
 def build(cfg: RunConfig):
@@ -649,7 +683,8 @@ def run(cfg: RunConfig) -> Tuple:
         log_every=interval, callback=callback,
         start_step=start_step // step_unit)
     driver.synchronize(fields)
-    dt = time.perf_counter() - t0
+    # the global cells over the slowest process's time
+    dt = _slowest(fields, time.perf_counter() - t0)
     mcells = cells * remaining / dt / 1e6
     log.info("%d steps on %s grid in %.3fs  (%.1f Mcells/s)",
              remaining, "x".join(map(str, cfg.grid)), dt, mcells)
@@ -688,7 +723,7 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
         check_every=cfg.tol_check_every // unit if unit > 1
         else cfg.tol_check_every)
     driver.synchronize(fields)
-    dt = time.perf_counter() - t0
+    dt = _slowest(fields, time.perf_counter() - t0)
     n_done = n_calls * unit
     mcells = cells * n_done / dt / 1e6 if n_done else 0.0
     log.info(
@@ -699,11 +734,31 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
     return fields, mcells
 
 
+def _slowest(fields, dt: float) -> float:
+    """``dt`` of this process, or the largest of every process's on a
+    mesh that spans processes."""
+    mesh = getattr(fields[0], "mesh", None)
+    return dt if mesh is None else mesh.max_all(dt)
+
+
+def _rank_tag() -> str:
+    """`` [rank r/n]`` under a launcher's multi-process run, else empty:
+    each process's log lines say whose they are."""
+    world = os.environ.get("WORLD_SIZE", "1")
+    if os.environ.get("MASTER_ADDR") and world.isdigit() and int(world) > 1:
+        return f" [rank {os.environ.get('RANK', '?')}/{world}]"
+    return ""
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    run(config_from_args(argv))
+        format=f"%(asctime)s %(levelname)s %(name)s{_rank_tag()}: "
+               "%(message)s")
+    try:
+        run(config_from_args(argv))
+    finally:
+        mesh_lib.shutdown_distributed()
     return 0
 
 

@@ -164,9 +164,17 @@ def make_runner(step_fn, n_steps: int):
     return run
 
 
+def _multiprocess_mesh(fields: Fields):
+    """The mesh of sharded fields that span processes, else None."""
+    mesh = getattr(fields[0], "mesh", None) if fields else None
+    return mesh if mesh is not None and mesh.multiprocess else None
+
+
 def synchronize(fields: Fields) -> Fields:
     """Wait for the device work producing ``fields`` (no-op on the CPU);
-    for sharded fields, on every device that holds a block."""
+    for sharded fields, on every device that holds a block, and on a mesh
+    that spans processes for every process too (a barrier), so a clock
+    started or stopped here starts or stops together on every process."""
     devices = []
     for f in fields:
         for t in (f if isinstance(f, list) else (f,)):
@@ -174,6 +182,9 @@ def synchronize(fields: Fields) -> Fields:
                 devices.append(t.device)
     for d in devices:
         torch.cuda.synchronize(d)
+    mesh = _multiprocess_mesh(fields)
+    if mesh is not None:
+        mesh.barrier()
     return fields
 
 
@@ -187,9 +198,12 @@ def run_until(
     """Run until the residual drops below ``tol`` (or ``max_steps``).
 
     The residual is ``max_f max|f_new - f_old|`` measured across a
-    ``check_every``-step chunk, over every block of a sharded field; the
-    last chunk is clamped so ``max_steps`` is a hard cap.  Returns
-    ``(fields, steps_done, residual)``.
+    ``check_every``-step chunk, over every block of a sharded field (on a
+    mesh that spans processes, over every process's blocks, so every
+    process stops at the same step: one that stopped alone would leave its
+    neighbours waiting for its slabs); the last chunk is clamped so
+    ``max_steps`` is a hard cap.  Returns ``(fields, steps_done,
+    residual)``.
     """
     if check_every < 1:
         raise ValueError("check_every must be >= 1")
@@ -204,14 +218,16 @@ def run_until(
 
 def _residual(new: Fields, old: Fields) -> float:
     """``max_f max|new_f - old_f|`` in float32; a sharded field (a list of
-    blocks) block by block."""
+    blocks) block by block, and across the processes of its mesh."""
     worst = []
     for a, b in zip(new, old):
         pairs = zip(a, b) if isinstance(a, list) else ((a, b),)
         for x, y in pairs:
             worst.append(torch.max(torch.abs(
                 x.to(torch.float32) - y.to(torch.float32))))
-    return max(float(w) for w in worst)
+    res = max(float(w) for w in worst)
+    mesh = _multiprocess_mesh(new)
+    return res if mesh is None else mesh.max_all(res)
 
 
 def run_simulation(

@@ -10,7 +10,10 @@ checkpoints hold) where that package is installed.
 A decomposed run's fields (``parallel.stepper.ShardedField``) cross as
 their gathered global arrays: :func:`gather_to_numpy` assembles them on the
 host block by block (no device holds the global grid), and
-:func:`shard_from_numpy` cuts global arrays into a mesh's blocks.
+:func:`shard_from_numpy` cuts global arrays into the blocks of the shards
+this process holds.  Under a multi-process run no process holds the global
+grid, so :func:`gather_to_numpy` (and :func:`fields_to_numpy` of sharded
+fields) raises there.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 from .ops.stencil import Fields, as_torch_dtype
-from .parallel.stepper import ShardedField, block_slices
+from .parallel.stepper import GLOBAL_GRID_REASON, ShardedField, block_slices
 
 
 def _ml_bfloat16():
@@ -81,9 +84,11 @@ def fields_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
 
 def gather_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
     """Sharded fields -> their global numpy arrays, assembled on the host
-    one block at a time."""
+    one block at a time (one process only)."""
     out = []
     for f in fields:
+        if f.mesh.multiprocess:
+            raise ValueError(f"gather_to_numpy: {GLOBAL_GRID_REASON}")
         local = tuple(f[0].shape)
         g = None
         for c, b in zip(f.mesh.coords(), f):
@@ -96,9 +101,9 @@ def gather_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
 
 
 def shard_from_numpy(fields: Sequence, mesh, dtype=None) -> Fields:
-    """Global numpy arrays -> sharded fields over ``mesh``: each block cut
-    on the host and copied to its device (``dtype`` as for
-    :func:`fields_from_numpy`)."""
+    """Global numpy arrays -> sharded fields over ``mesh``: the blocks of
+    this process's shards cut on the host and copied to their devices
+    (``dtype`` as for :func:`fields_from_numpy`)."""
     out = []
     for a in fields:
         a = np.asarray(a)
@@ -108,6 +113,6 @@ def shard_from_numpy(fields: Sequence, mesh, dtype=None) -> Fields:
                              f"{mesh.shape}")
         local = tuple(g // c for g, c in zip(a.shape, counts))
         blocks = [_to_tensor(a[block_slices(c, local)], mesh.device(c), dtype)
-                  for c in mesh.coords()]
+                  for c in mesh.local_coords()]
         out.append(ShardedField(blocks, mesh, a.shape))
     return tuple(out)

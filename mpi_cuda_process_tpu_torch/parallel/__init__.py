@@ -1,6 +1,7 @@
 """Domain decomposition: mesh, halo exchange, sharded steppers."""
 
-from .halo import (InProcessTransport, exchange_and_pad, exchange_slabs_2axis,
+from .halo import (DistributedTransport, InProcessTransport, default_transport,
+                   exchange_and_pad, exchange_slabs_2axis,
                    exchange_slabs_axis)
 from .mesh import (Mesh, bootstrap_distributed, factor_mesh, local_devices,
                    make_mesh)
@@ -9,10 +10,12 @@ from .stepper import (ShardedField, gather_fields, make_sharded_fullgrid_step,
                       make_sharded_temporal_step, shard_fields)
 
 __all__ = [
+    "DistributedTransport",
     "InProcessTransport",
     "Mesh",
     "ShardedField",
     "bootstrap_distributed",
+    "default_transport",
     "exchange_and_pad",
     "exchange_slabs_2axis",
     "exchange_slabs_axis",

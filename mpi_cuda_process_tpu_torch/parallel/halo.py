@@ -30,21 +30,38 @@ packed (contiguous) buffers, as the kernels take them.
 ``pad_from_slabs`` rebuilds any band of the padded block from a slab set,
 which is how the overlapped steps make their boundary-shell strips.
 
-The slab exchanges take a ``transport``: the in-process one by default, or
+Every exchange runs over the shards this process holds
+(``Mesh.local_coords``) through the mesh's own transport
+(:func:`default_transport`): :class:`InProcessTransport` for a mesh of one
+process, :class:`DistributedTransport` for a mesh that spans processes, in
+which a neighbour in this process is handed over as in process and one in
+another process goes through ``torch.distributed`` point to point, one
+``batch_isend_irecv`` per shift.  The slab exchanges also take
 :class:`RdmaTransport`, the ring-exchange kernel (``ops/cuda/remote.py``,
 the counterpart of the TPU package's in-kernel remote DMA) for every ring
 of shards that shares a device.  An axis of one shard keeps its local fill
 or wrap and runs no ring; the wall shards' received slabs are overwritten
-with the guard constant after a full-ring shift, so both transports give
-the same slabs bit for bit; corners keep the two-pass composition.
+with the guard constant after a full-ring shift, so every transport gives
+the same slabs bit for bit; corners keep the two-pass composition, across
+processes too (the second pass reads the first pass's received slabs).
+
+A shift is posted, then awaited (``post(...).wait()``), and an exchange is
+its rounds of shifts: :func:`post_and_pad`, :func:`post_slabs_axis` and
+:func:`post_slabs_2axis` post the first round and return an
+:class:`Exchange` whose ``wait()`` runs the rest.  The overlapped steps
+launch their interior between the two, so a process that waits for its
+peers in a blocking receive does so while the card computes the interior
+— the reference's pattern (kernel.cu: the middle kernel launched, then
+``MPI_Send``/``MPI_Recv``, then the boundary).
 
 Not ported yet: the ``*_from_borders`` variants of the pipelined stepper
-(A5), and a ring across cards (peer writes, B7).
+(A5), and a ring across cards or processes (peer writes, B7).
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -72,38 +89,57 @@ def _at(c: Tuple[int, ...], axis: int) -> int:
     return c[axis] if axis < len(c) else 0
 
 
+class _Done:
+    """A shift whose slabs are in hand at once (an in-process one)."""
+
+    def __init__(self, pair):
+        self._pair = pair
+
+    def wait(self):
+        return self._pair
+
+
 class InProcessTransport:
     """Ring shifts between blocks that one process holds.
 
     The stand-in for ``lax.ppermute`` when every shard's block lives in this
-    process (one card or several cards of one node).  A multi-process
-    transport over NCCL is ROADMAP A4.
+    process (one card or several cards of one node).
     """
+
+    backend = "in-process"
+
+    def post(self, hi_slabs: Sequence[torch.Tensor],
+             lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
+             periodic: bool):
+        return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
+                                     periodic))
 
     def shift_pair(self, hi_slabs: Sequence[torch.Tensor],
                    lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
                    periodic: bool):
         """Ring shift of a slab pair along grid ``axis``.
 
-        Returns ``(from_left, from_right)``: for each shard, the previous
-        shard's ``hi`` slab and the next shard's ``lo`` slab, on this
-        shard's device.  With ``periodic`` False the ring is cut at the
-        walls and the wall shards get None (the caller substitutes the
-        guard-cell constant).
+        ``hi_slabs``/``lo_slabs`` hold one slab per local shard, in
+        ``mesh.local_coords()`` order, and every neighbour is local (one
+        process, or an axis of one shard).  Returns ``(from_left,
+        from_right)``: for each shard, the previous shard's ``hi`` slab
+        and the next shard's ``lo`` slab, on this shard's device.  With
+        ``periodic`` False the ring is cut at the walls and the wall shards
+        get None (the caller substitutes the guard-cell constant).
         """
         n = _axis_count(mesh, axis)
         from_left: List[Optional[torch.Tensor]] = []
         from_right: List[Optional[torch.Tensor]] = []
-        for c in mesh.coords():
+        for c in mesh.local_coords():
             dev = mesh.device(c)
             i = _at(c, axis)
             if periodic or i > 0:
-                src = hi_slabs[mesh.index(_shifted(c, axis, -1, n))]
+                src = hi_slabs[mesh.local_index(_shifted(c, axis, -1, n))]
                 from_left.append(src.to(dev, non_blocking=True))
             else:
                 from_left.append(None)
             if periodic or i < n - 1:
-                src = lo_slabs[mesh.index(_shifted(c, axis, 1, n))]
+                src = lo_slabs[mesh.local_index(_shifted(c, axis, 1, n))]
                 from_right.append(src.to(dev, non_blocking=True))
             else:
                 from_right.append(None)
@@ -112,8 +148,151 @@ class InProcessTransport:
 
 _TRANSPORT = InProcessTransport()
 
-RDMA_ITEM = "ROADMAP B7 (peer writes across cards)"
 
+class DistributedTransport:
+    """Ring shifts over a mesh that spans processes (``torch.distributed``
+    point to point), the multi-process counterpart of ``lax.ppermute``.
+
+    A shift's transfers are listed in one global order, the same in every
+    process (global row-major shards; for each, its ``hi`` slab to the
+    next shard, then its ``lo`` slab to the previous one).  A transfer
+    between two shards of this process is handed over as in process; the
+    others are posted in that order as one ``dist.batch_isend_irecv``, each
+    tagged with its place (NCCL matches by order, gloo by tag: the order
+    makes both agree, also where both neighbours are one peer, as on a
+    periodic axis of two processes).  ``backend`` (``Mesh.backend``):
+
+    * ``nccl``: device tensors sent and received as they are;
+    * ``gloo``: CPU tensors;
+    * ``gloo-host``: processes that share a card; the slabs go through
+      pinned host buffers — copied off the card and waited for before the
+      sends are posted, copied back onto the card (on the current stream,
+      so the kernel that reads a slab follows the copy) once the receives
+      complete.
+
+    :meth:`post` returns a pending shift whose ``wait()`` gives ``(from_left,
+    from_right)`` as :meth:`InProcessTransport.shift_pair` does.  ``stats``
+    counts posted shifts, the bytes sent and the host seconds spent moving
+    them (for ``gloo``/``gloo-host``: posting, waiting and the staging
+    copies, not the wait for earlier device work; for ``nccl`` the host
+    time of posting only, the transfer runs on the card).
+    """
+
+    def __init__(self, backend: str):
+        self.backend = backend
+        self._posts = 0
+        self.stats = {"shifts": 0, "bytes": 0, "seconds": 0.0}
+
+    def reset_stats(self) -> None:
+        self.stats = {"shifts": 0, "bytes": 0, "seconds": 0.0}
+
+    def post(self, hi_slabs: Sequence[torch.Tensor],
+             lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
+             periodic: bool):
+        """Post the shift: local hand-overs done, remote sends and
+        receives in flight."""
+        import torch.distributed as dist
+
+        n = _axis_count(mesh, axis)
+        local = mesh.local_coords()
+        from_left: List[Optional[torch.Tensor]] = [None] * len(local)
+        from_right: List[Optional[torch.Tensor]] = [None] * len(local)
+        sends, recvs = [], []  # (tag, peer, slab) / (tag, peer, shard, side)
+        # tags of successive shifts differ, so two shifts in flight at
+        # once (the first round of a 2-axis exchange) never cross
+        base = (self._posts % 4096) << 12
+        self._posts += 1
+        tag = base
+        for c in mesh.coords():
+            i = _at(c, axis)
+            for slabs, shift, exists in ((hi_slabs, 1, periodic or i < n - 1),
+                                         (lo_slabs, -1, periodic or i > 0)):
+                if exists:
+                    dst = _shifted(c, axis, shift, n)
+                    side = from_left if shift == 1 else from_right
+                    if mesh.is_local(c) and mesh.is_local(dst):
+                        j = mesh.local_index(dst)
+                        side[j] = slabs[mesh.local_index(c)].to(
+                            mesh.device(dst), non_blocking=True)
+                    elif mesh.is_local(c):
+                        sends.append((tag, mesh.rank_of(dst),
+                                      slabs[mesh.local_index(c)]))
+                    elif mesh.is_local(dst):
+                        recvs.append((tag, mesh.rank_of(c),
+                                      mesh.local_index(dst), side))
+                tag += 1
+        if not sends and not recvs:
+            return _Done((from_left, from_right))
+        like = hi_slabs[0]
+        dev = mesh.devices[0]
+        host = self.backend == "gloo-host"
+        if host:
+            # the slabs' producers finish first, outside the clock
+            torch.cuda.current_stream(dev).synchronize()
+        t0 = time.perf_counter()
+        if host:
+            out = [torch.empty(s.shape, dtype=s.dtype, pin_memory=True)
+                   .copy_(s, non_blocking=True) for _, _, s in sends]
+            torch.cuda.current_stream(dev).synchronize()
+        else:
+            out = [s.contiguous() for _, _, s in sends]
+        bufs = [torch.empty(like.shape, dtype=like.dtype,
+                            device="cpu" if host else like.device,
+                            pin_memory=host)
+                for _ in recvs]
+        ops = [dist.P2POp(dist.isend, t, peer, tag=tg)
+               for (tg, peer, _), t in zip(sends, out)]
+        ops += [dist.P2POp(dist.irecv, b, peer, tag=tg)
+                for (tg, peer, _, _), b in zip(recvs, bufs)]
+        works = dist.batch_isend_irecv(ops)
+        self.stats["shifts"] += 1
+        self.stats["bytes"] += sum(t.numel() * t.element_size() for t in out)
+        self.stats["seconds"] += time.perf_counter() - t0
+        return _Posted(self, works, out, bufs, recvs, from_left, from_right,
+                       mesh)
+
+
+class _Posted:
+    """A shift in flight over :class:`DistributedTransport`."""
+
+    def __init__(self, transport, works, out, bufs, recvs, from_left,
+                 from_right, mesh):
+        # ``out``: the sent tensors, held until the sends complete
+        self._t, self._works, self._out = transport, works, out
+        self._bufs, self._recvs = bufs, recvs
+        self._pair, self._mesh = (from_left, from_right), mesh
+
+    def wait(self):
+        t0 = time.perf_counter()
+        for w in self._works:
+            w.wait()
+        host = self._t.backend == "gloo-host"
+        for buf, (_, _, j, side) in zip(self._bufs, self._recvs):
+            dev = self._mesh.devices[j]
+            side[j] = buf.to(dev, non_blocking=True) if host else buf
+        if host:
+            # the pinned buffers are the caching host allocator's: the
+            # copies complete before the shift counts as done
+            torch.cuda.current_stream(self._mesh.devices[0]).synchronize()
+        self._t.stats["seconds"] += time.perf_counter() - t0
+        self._works = self._out = self._bufs = ()
+        return self._pair
+
+
+def default_transport(mesh: Mesh):
+    """The transport of ``mesh``'s shifts: in process for one process,
+    else the process's :class:`DistributedTransport` of the mesh's
+    backend (one per backend, so its ``stats`` cover every exchange)."""
+    if not mesh.multiprocess:
+        return _TRANSPORT
+    if mesh.backend not in _DISTRIBUTED:
+        _DISTRIBUTED[mesh.backend] = DistributedTransport(mesh.backend)
+    return _DISTRIBUTED[mesh.backend]
+
+
+_DISTRIBUTED: Dict[str, DistributedTransport] = {}
+
+RDMA_ITEM = "ROADMAP B7 (peer writes across cards)"
 
 class RdmaTransport:
     """Ring shifts through the ring-exchange kernel (``exchange="rdma"``).
@@ -131,10 +310,15 @@ class RdmaTransport:
     ``backend`` says what carries the exchange: ``"cuda-ring"`` when the
     mesh lives on cards (the kernel runs), ``"plain-ring"`` on the CPU (its
     plain version): a CPU run never reads as a measured ring.  A ring whose
-    shards span several devices raises (peer writes, ROADMAP B7).
+    shards span several devices or processes raises (peer writes, ROADMAP B7).
     """
 
     def __init__(self, mesh: Mesh, nslots: int = 0, prefer_nc: int = 0):
+        if mesh.multiprocess:
+            raise NotImplementedError(
+                "exchange='rdma': the ring kernel writes into the "
+                "neighbour's slab on its card, and this mesh spans "
+                f"{mesh.processes} processes: {RDMA_ITEM}")
         cuda = all(d.type == "cuda" for d in mesh.devices)
         self.backend = "cuda-ring" if cuda else "plain-ring"
         self.nslots = int(nslots)
@@ -154,6 +338,11 @@ class RdmaTransport:
                                    device=str(slab.device)))
             self._calls[key] = call
         return self._calls[key]
+
+    def post(self, hi_slabs, lo_slabs, mesh: Mesh, axis: int,
+             periodic: bool):
+        return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
+                                     periodic))
 
     def shift_pair(self, hi_slabs: Sequence[torch.Tensor],
                    lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
@@ -193,45 +382,57 @@ class RdmaTransport:
         return from_left, from_right
 
 
-def exchange_slabs_axis(
-    blocks: Sequence[torch.Tensor],
-    mesh: Mesh,
-    axis: int,
-    halo: int,
-    bc_value,
-    periodic: bool = False,
-    transport=None,
-):
-    """The two halo slabs of every shard along ``axis``, unconcatenated:
-    ``(lefts, rights)``, one entry per shard in row-major order.
+class Exchange:
+    """A halo exchange in flight: its first round of shifts is posted when
+    the exchange is made; :meth:`wait` runs the remaining rounds (each
+    shift of a round posted before the round is awaited) and returns what
+    the blocking form of the exchange returns."""
 
-    ``lefts[i]`` belongs just before shard i's rows (the lower neighbour's
-    last ``halo`` rows), ``rights[i]`` just after.  Interior faces receive
-    the neighbour's border slab; global walls receive ``bc_value`` (or the
-    wrap when ``periodic``).  The pad-free sharded kernel takes these slabs
-    as operands, so no padded copy of the block is ever made.
+    def __init__(self, rounds):
+        self._rounds = rounds
+        self._done = False
+        self._value = None
+        self._advance()
 
-    ``transport`` carries the ring shift (default: in process); an
-    :class:`RdmaTransport` runs the full ring, and the wall shards'
-    received slabs are then replaced by the guard constant, as the
-    in-process shift gives them.  An axis of one shard runs no ring.
-    """
+    def _advance(self) -> None:
+        try:
+            next(self._rounds)
+        except StopIteration as stop:
+            self._done, self._value = True, stop.value
+
+    def wait(self):
+        while not self._done:
+            self._advance()
+        return self._value
+
+
+def _pick(mesh: Mesh, axis: int, transport):
+    """The transport of one axis's shift: an axis of one shard is a local
+    fill or wrap (in process), else ``transport`` or the mesh's own."""
+    if _axis_count(mesh, axis) == 1:
+        return _TRANSPORT
+    return default_transport(mesh) if transport is None else transport
+
+
+def _slabs_axis_rounds(blocks, mesh, axis, halo, bc_value, periodic,
+                       transport):
     L = blocks[0].shape[axis]
     # packed: a slab across axis 0 is a view already, one across axis 1 is
     # copied out of its strided rows
     hi = [_take(x, axis, L - halo, halo).contiguous() for x in blocks]
     lo = [_take(x, axis, 0, halo).contiguous() for x in blocks]
     n = _axis_count(mesh, axis)
-    if transport is None or n == 1:
-        lefts, rights = _TRANSPORT.shift_pair(hi, lo, mesh, axis, periodic)
-    else:
-        lefts, rights = transport.shift_pair(hi, lo, mesh, axis, periodic)
-        if not periodic:
-            for i, c in enumerate(mesh.coords()):
-                if c[axis] == 0:
-                    lefts[i] = None
-                if c[axis] == n - 1:
-                    rights[i] = None
+    pending = _pick(mesh, axis, transport).post(hi, lo, mesh, axis,
+                                                periodic)
+    yield
+    lefts, rights = pending.wait()
+    if transport is not None and n > 1 and not periodic:
+        # a full-ring transport wraps at the walls: cut the ring there
+        for i, c in enumerate(mesh.local_coords()):
+            if c[axis] == 0:
+                lefts[i] = None
+            if c[axis] == n - 1:
+                rights[i] = None
     for i, x in enumerate(blocks):
         if lefts[i] is None or rights[i] is None:
             shape = list(x.shape)
@@ -242,6 +443,80 @@ def exchange_slabs_axis(
     return lefts, rights
 
 
+def post_slabs_axis(
+    blocks: Sequence[torch.Tensor],
+    mesh: Mesh,
+    axis: int,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    transport=None,
+) -> Exchange:
+    """:func:`exchange_slabs_axis` posted: its ``wait()`` gives the
+    slabs."""
+    return Exchange(_slabs_axis_rounds(blocks, mesh, axis, halo, bc_value,
+                                       periodic, transport))
+
+
+def exchange_slabs_axis(
+    blocks: Sequence[torch.Tensor],
+    mesh: Mesh,
+    axis: int,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    transport=None,
+):
+    """The two halo slabs of every local shard along ``axis``,
+    unconcatenated: ``(lefts, rights)``, one entry per shard of
+    ``mesh.local_coords()``.
+
+    ``lefts[i]`` belongs just before shard i's rows (the lower neighbour's
+    last ``halo`` rows), ``rights[i]`` just after.  Interior faces receive
+    the neighbour's border slab; global walls receive ``bc_value`` (or the
+    wrap when ``periodic``).  The pad-free sharded kernel takes these slabs
+    as operands, so no padded copy of the block is ever made.
+
+    ``transport`` carries the ring shift (default: the mesh's own,
+    :func:`default_transport`); an :class:`RdmaTransport` runs the full
+    ring, and the wall shards' received slabs are then replaced by the
+    guard constant, as the in-process shift gives them.  An axis of one
+    shard runs no ring.
+    """
+    return post_slabs_axis(blocks, mesh, axis, halo, bc_value, periodic,
+                           transport).wait()
+
+
+def _slabs_2axis_rounds(blocks, mesh, halo, bc_value, periodic, transport):
+    def post(pieces, axis):
+        return post_slabs_axis(pieces, mesh, axis, halo, bc_value, periodic,
+                               transport)
+
+    z, y = post(blocks, 0), post(blocks, 1)
+    yield
+    (zlo, zhi), (ylo, yhi) = z.wait(), y.wait()
+    # second pass: the y shift of the received z slabs carries the corners
+    cl, ch = post(zlo, 1), post(zhi, 1)
+    (c_ll, c_lh), (c_hl, c_hh) = cl.wait(), ch.wait()
+    return [((zlo[i], zhi[i]), (ylo[i], yhi[i]),
+             (c_ll[i], c_lh[i], c_hl[i], c_hh[i]))
+            for i in range(len(blocks))]
+
+
+def post_slabs_2axis(
+    blocks: Sequence[torch.Tensor],
+    mesh: Mesh,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    transport=None,
+) -> Exchange:
+    """:func:`exchange_slabs_2axis` posted: the z and y shifts are in
+    flight; ``wait()`` runs the corners' shifts and gives the slab sets."""
+    return Exchange(_slabs_2axis_rounds(blocks, mesh, halo, bc_value,
+                                        periodic, transport))
+
+
 def exchange_slabs_2axis(
     blocks: Sequence[torch.Tensor],
     mesh: Mesh,
@@ -250,7 +525,7 @@ def exchange_slabs_2axis(
     periodic: bool = False,
     transport=None,
 ):
-    """The slab set of every shard of a 3D field for both wall axes:
+    """The slab set of every local shard of a 3D field for both wall axes:
     per shard ``((zlo, zhi), (ylo, yhi), (c_ll, c_lh, c_hl, c_hh))``.
 
     ``zlo``/``zhi`` are the (halo, Ly, X) z slabs, ``ylo``/``yhi`` the
@@ -263,17 +538,8 @@ def exchange_slabs_2axis(
     z-only meshes.  Every piece is a packed buffer.  ``transport`` carries
     every ring shift (:func:`exchange_slabs_axis`).
     """
-    def shift(pieces, axis):
-        return exchange_slabs_axis(pieces, mesh, axis, halo, bc_value,
-                                   periodic, transport)
-
-    zlo, zhi = shift(blocks, 0)
-    ylo, yhi = shift(blocks, 1)
-    c_ll, c_lh = shift(zlo, 1)
-    c_hl, c_hh = shift(zhi, 1)
-    return [((zlo[i], zhi[i]), (ylo[i], yhi[i]),
-             (c_ll[i], c_lh[i], c_hl[i], c_hh[i]))
-            for i in range(len(blocks))]
+    return post_slabs_2axis(blocks, mesh, halo, bc_value, periodic,
+                            transport).wait()
 
 
 def local_mesh(block: torch.Tensor) -> Mesh:
@@ -317,24 +583,7 @@ def pad_from_slabs(core: torch.Tensor, slabs, halo: int, axis: int = 0,
     return out
 
 
-def exchange_and_pad(
-    blocks: Sequence[torch.Tensor],
-    mesh: Mesh,
-    halo: int,
-    bc_value,
-    periodic: bool = False,
-    axes: Optional[Sequence[int]] = None,
-) -> List[torch.Tensor]:
-    """Halo-pad every block along ``axes`` (default: all), two-pass.
-
-    Each padded block is one allocation: the core is copied in, then for
-    each axis in order the two halo slabs, read from the neighbours' padded
-    blocks over the extent already padded along earlier axes (so corners
-    arrive by face exchanges alone).  A mesh axis of one shard degrades to
-    a local wrap (periodic) or guard-cell fill.  ``halo == 0`` (a field
-    whose neighbours are never read, wave's ``u_prev``) returns the blocks
-    unchanged.
-    """
+def _pad_rounds(blocks, mesh, halo, bc_value, periodic, axes):
     if halo == 0:
         return list(blocks)
     ndim = blocks[0].dim()
@@ -355,7 +604,9 @@ def exchange_and_pad(
         views = [p[tuple(idx)] for p in padded]
         hi = [_take(v, d, L[d] - halo, halo) for v in views]
         lo = [_take(v, d, 0, halo) for v in views]
-        lefts, rights = _TRANSPORT.shift_pair(hi, lo, mesh, d, periodic)
+        pending = _pick(mesh, d, None).post(hi, lo, mesh, d, periodic)
+        yield
+        lefts, rights = pending.wait()
         for p, left, right in zip(padded, lefts, rights):
             for src, sl in ((left, slice(0, halo)),
                             (right, slice(halo + L[d], None))):
@@ -366,6 +617,42 @@ def exchange_and_pad(
                 else:
                     dst.copy_(src)
     return padded
+
+
+def post_and_pad(
+    blocks: Sequence[torch.Tensor],
+    mesh: Mesh,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    axes: Optional[Sequence[int]] = None,
+) -> Exchange:
+    """:func:`exchange_and_pad` posted: the first axis's shift is in
+    flight; ``wait()`` runs the rest and gives the padded blocks."""
+    return Exchange(_pad_rounds(blocks, mesh, halo, bc_value, periodic,
+                                axes))
+
+
+def exchange_and_pad(
+    blocks: Sequence[torch.Tensor],
+    mesh: Mesh,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    axes: Optional[Sequence[int]] = None,
+) -> List[torch.Tensor]:
+    """Halo-pad every local block along ``axes`` (default: all), two-pass.
+
+    Each padded block is one allocation: the core is copied in, then for
+    each axis in order the two halo slabs, read from the neighbours' padded
+    blocks over the extent already padded along earlier axes (so corners
+    arrive by face exchanges alone; across processes too, since an axis is
+    shifted only once the earlier axes' slabs have arrived).  A mesh axis
+    of one shard degrades to a local wrap (periodic) or guard-cell fill.
+    ``halo == 0`` (a field whose neighbours are never read, wave's
+    ``u_prev``) returns the blocks unchanged and exchanges nothing.
+    """
+    return post_and_pad(blocks, mesh, halo, bc_value, periodic, axes).wait()
 
 
 def pad_local(block: torch.Tensor, halo: int, bc_value,

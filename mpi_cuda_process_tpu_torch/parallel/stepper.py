@@ -1,20 +1,25 @@
 """Sharded time step: domain decomposition over a mesh + halo exchange.
 
 The counterpart of the TPU package's ``parallel/stepper.py``.  A decomposed
-field is a :class:`ShardedField`: the list of its local blocks in mesh
-row-major order, each on its mesh device, with the mesh and the global shape
-attached.  One process drives every shard (the in-process transport of
-``halo.py``): a step is the halo exchange, a collective over the block
-lists, then the same per-shard code for every shard, written once for "the
-shard at mesh coordinate ``c``" (``c`` takes the place of
-``lax.axis_index``).
+field is a :class:`ShardedField`: the list of the blocks this process holds
+(``Mesh.local_coords``, every shard for one process) in mesh row-major
+order, each on its mesh device, with the mesh and the global shape
+attached.  A step is the halo exchange, a collective over the block lists
+(``halo.py``: in process, or across processes through the mesh's
+transport), then the same per-shard code for every local shard, written
+once for "the shard at mesh coordinate ``c``" (``c`` takes the place of
+``lax.axis_index``).  No step has per-process code: every process runs the
+same step over the shards it holds, as every shard of the TPU package's
+runs the same program.
 
 ``make_sharded_step`` is one step: two-pass halo exchange, local update
 (``stencil.update`` or a ``compute_fn`` kernel, K4/K5), re-pin of the global
 guard frame from each shard's global offset.  ``overlap=True`` splits the
 update into a bulk part from locally padded blocks and the width-halo rings
 at each sharded face from the exchanged blocks; on CUDA the exchange copies
-run on a side stream while the bulk update runs on the current one.
+run on a side stream while the bulk update runs on the current one, and
+the shifts that cross processes are posted before the bulk update is
+launched and awaited after it.
 
 ``make_sharded_fused_step`` is k steps per exchange with the temporal-
 blocking kernels: the padded kind (width-m exchange on z and y, then K3 in
@@ -38,17 +43,19 @@ import torch
 
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil, k_step_margin
-from .halo import (RdmaTransport, exchange_and_pad, exchange_slabs_2axis,
-                   exchange_slabs_axis, local_mesh, pad_from_slabs,
-                   pad_local)
+from .halo import (RdmaTransport, default_transport, exchange_and_pad,
+                   exchange_slabs_2axis, exchange_slabs_axis, local_mesh,
+                   pad_from_slabs, pad_local, post_and_pad, post_slabs_2axis,
+                   post_slabs_axis)
 from .mesh import ENSEMBLE_ITEM, Mesh
 
 _PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
 
 
 class ShardedField(list):
-    """One field decomposed over ``mesh``: its local blocks in mesh
-    row-major order, each on its mesh device, with the global shape."""
+    """One field decomposed over ``mesh``: the blocks of the shards this
+    process holds, in ``mesh.local_coords()`` order, each on its mesh
+    device, with the global shape."""
 
     def __init__(self, blocks, mesh: Mesh, global_shape: Sequence[int]):
         super().__init__(blocks)
@@ -93,7 +100,8 @@ def shard_offsets(c, local_shape) -> Tuple[int, ...]:
 
 
 def shard_fields(fields: Fields, mesh: Mesh, ndim: int) -> Fields:
-    """Cut each global field into its blocks, each copied to its device."""
+    """Cut each global field into the blocks this process holds, each
+    copied to its device."""
     out = []
     for f in fields:
         counts = mesh.counts(ndim)
@@ -103,7 +111,7 @@ def shard_fields(fields: Fields, mesh: Mesh, ndim: int) -> Fields:
                                  f"divisible by mesh axis ({c})")
         local = _local_shape(f.shape, counts)
         blocks = []
-        for c in mesh.coords():
+        for c in mesh.local_coords():
             b = torch.empty(local, dtype=f.dtype, device=mesh.device(c))
             b.copy_(f[block_slices(c, local)])
             blocks.append(b)
@@ -111,11 +119,19 @@ def shard_fields(fields: Fields, mesh: Mesh, ndim: int) -> Fields:
     return tuple(out)
 
 
+GLOBAL_GRID_REASON = (
+    "no process of a multi-process run holds the global grid: each holds "
+    "only its own shards' blocks")
+
+
 def gather_fields(fields: Fields, device=None) -> Fields:
     """Sharded fields back to whole tensors (on the first block's device
-    unless ``device`` is given)."""
+    unless ``device`` is given); one process only (a multi-process mesh
+    raises, :data:`GLOBAL_GRID_REASON`)."""
     out = []
     for f in fields:
+        if f.mesh.multiprocess:
+            raise ValueError(f"gather_fields: {GLOBAL_GRID_REASON}")
         dev = f[0].device if device is None else torch.device(device)
         g = torch.empty(f.global_shape, dtype=f.dtype, device=dev)
         local = tuple(f[0].shape)
@@ -166,6 +182,15 @@ class _SideStreams:
             stack.enter_context(torch.cuda.stream(s))
         return stack
 
+    def resume(self) -> contextlib.ExitStack:
+        """Make the side streams current again, with no new wait: the
+        rest of an exchange :meth:`begin` posted runs there, still ordered
+        only after the work that came before :meth:`begin`."""
+        stack = contextlib.ExitStack()
+        for d in self.devices:
+            stack.enter_context(torch.cuda.stream(self.streams[d]))
+        return stack
+
     def record(self) -> None:
         for d in self.devices:
             self.events[d] = self.streams[d].record_event()
@@ -207,7 +232,13 @@ def make_sharded_step(
     On CUDA the exchange copies run on a side stream while the bulk update
     runs on the current stream; an event orders the ring updates after the
     copies (``_SideStreams`` says why no ``record_stream`` is needed).  The
-    values equal ``overlap=False`` bit for bit.
+    values equal ``overlap=False`` bit for bit.  Across processes the
+    first axis's shifts are posted before the bulk update is launched and
+    the rest of the exchange runs after it (``halo.post_and_pad``), so a
+    blocking receive waits while the card computes the bulk.
+
+    The step is tagged ``_transport_backend``: ``in-process`` or the
+    multi-process mesh's backend (``nccl``, ``gloo``, ``gloo-host``).
     """
     ndim = stencil.ndim
     halo = stencil.halo
@@ -248,12 +279,17 @@ def make_sharded_step(
                 f"inconsistent")
     update_fns = stencil.phases or (compute_fn or stencil.update,)
     sharded_axes = [d for d, c in enumerate(counts) if c > 1]
-    coords = list(mesh.coords())
-    masks: Dict[int, torch.Tensor] = {}  # shard index -> frame mask
+    coords = mesh.local_coords()
+    masks: Dict[int, torch.Tensor] = {}  # local shard index -> frame mask
     side = _SideStreams(mesh)
 
     def exchange(fields: Fields) -> List[List[torch.Tensor]]:
         return [exchange_and_pad(f, mesh, fh, bc, periodic)
+                for f, bc, fh in zip(fields, stencil.bc_value,
+                                     stencil.field_halos)]
+
+    def post(fields: Fields):
+        return [post_and_pad(f, mesh, fh, bc, periodic)
                 for f, bc, fh in zip(fields, stencil.bc_value,
                                      stencil.field_halos)]
 
@@ -294,8 +330,7 @@ def make_sharded_step(
         shards = [tuple(f[i] for f in fields) for i in range(len(coords))]
         if overlap and sharded_axes:
             with side.begin():
-                padded = exchange(fields)
-                side.record()
+                posted = post(fields)
             new = []
             for i, c in enumerate(coords):
                 with _on_device(mesh.device(c)):
@@ -304,6 +339,9 @@ def make_sharded_step(
                         for b, bc, fh in zip(shards[i], stencil.bc_value,
                                              stencil.field_halos))
                     new.append(list(update(local)))
+            with side.resume():
+                padded = [p.wait() for p in posted]
+                side.record()
             side.join()
             for i, c in enumerate(coords):
                 padded_c = tuple(pf[i] for pf in padded)
@@ -338,6 +376,14 @@ def make_sharded_step(
             fields = one_pass(fields, upd)
         return fields
 
+    return _tag_transport(step, mesh)
+
+
+def _tag_transport(step, mesh: Mesh):
+    """Tag a sharded step with the transport of its exchanges:
+    ``_transport_backend`` is ``in-process`` for one process, else the
+    multi-process mesh's backend (``nccl``, ``gloo``, ``gloo-host``)."""
+    step._transport_backend = default_transport(mesh).backend
     return step
 
 
@@ -610,12 +656,14 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     ``:853-1040``, ``:1141-1340``), the temporal-blocked form of the
     reference's two-stream pattern:
 
-    1. the 2-axis slab set (``exchange_slabs_2axis``) is exchanged first,
-       on a side CUDA stream (``_SideStreams``);
+    1. the 2-axis slab set's exchange is posted first
+       (``halo.post_slabs_2axis``: the z and y shifts), on a side CUDA
+       stream (``_SideStreams``);
     2. meanwhile the interior runs: the same kernel on each shard's own
        operands (a local pad or local bc-fill/wrap slabs, no exchanged
        data), valid at least m from every sharded face;
-    3. the current stream joins the side one;
+    3. the exchange is awaited (the corners' shifts run then) and the
+       current stream joins the side one;
     4. the boundary shells run: per sharded axis, a lo and a hi instance
        of K3's sharded mode over a 2m-deep core, fed by a strip rebuilt
        from the slab set (the exchanged slab plus a 3m-deep local strip,
@@ -629,7 +677,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     """
     from ..ops.cuda.fused import build_overlap_shell_calls
 
-    coords = list(mesh.coords())
+    coords = mesh.local_coords()
     origins = [shard_offsets(c, local_shape)[:2] for c in coords]
     sharded_axes = [d for d in (0, 1) if counts[d] > 1]
     bcs = stencil.bc_value
@@ -654,17 +702,15 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
             periodic=periodic, device=device)
     if shells is None:
         step._overlap_active = False
-        return step
+        return _tag_transport(step, mesh)
 
     w = 2 * m
     side = _SideStreams(mesh)
 
     def step_overlap(fields: Fields) -> Fields:
         with side.begin():
-            slabs = [exchange_slabs_2axis(f, mesh, m, bc, periodic,
-                                          transport)
-                     for f, bc in zip(fields, bcs)]
-            side.record()
+            posted = [post_slabs_2axis(f, mesh, m, bc, periodic, transport)
+                      for f, bc in zip(fields, bcs)]
         new = []
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
@@ -673,6 +719,9 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
                 own = exchange([[f[i]] for f in fields],
                                local_mesh(fields[0][i]))
                 new.append(run(fields, i, [o[0] for o in own]))
+        with side.resume():
+            slabs = [p.wait() for p in posted]
+            side.record()
         side.join()
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
@@ -695,7 +744,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
         return tuple(f.with_blocks(o) for f, o in zip(fields, out))
 
     step_overlap._overlap_active = True
-    return step_overlap
+    return _tag_transport(step_overlap, mesh)
 
 
 def make_sharded_fullgrid_step(
@@ -723,8 +772,9 @@ def make_sharded_fullgrid_step(
     multiple of the sublane, the live-copy budget) do not apply.
 
     ``overlap=True`` (with more than one row shard and local rows >= 3m):
-    the width-m slabs are exchanged on a side CUDA stream while the
-    interior instance of K8 runs on a locally padded block; then two
+    the width-m slabs are exchanged on a side CUDA stream (posted before,
+    awaited after the interior's launch) while the interior instance of K8
+    runs on a locally padded block; then two
     width-2m shell instances, fed by the exchanged slabs, overwrite the
     first and last 2m rows.  Bit-equal to ``overlap=False``.  With fewer
     local rows the step is the plain exchange-then-compute one, as in the
@@ -764,7 +814,7 @@ def make_sharded_fullgrid_step(
             global_shape=global_shape, device=device)
         if shell_built is not None:
             shell = shell_built[0]
-    coords = list(mesh.coords())
+    coords = mesh.local_coords()
     row0 = [shard_offsets(c, local_shape)[0] for c in coords]
     bcs = stencil.bc_value
 
@@ -784,16 +834,15 @@ def make_sharded_fullgrid_step(
 
     if shell is None:
         step._overlap_active = False
-        return step
+        return _tag_transport(step, mesh)
 
     w = 2 * m
     side = _SideStreams(mesh)
 
     def step_overlap(fields: Fields) -> Fields:
         with side.begin():
-            slabs = [exchange_slabs_axis(f, mesh, 0, m, bc, periodic)
-                     for f, bc in zip(fields, bcs)]
-            side.record()
+            posted = [post_slabs_axis(f, mesh, 0, m, bc, periodic)
+                      for f, bc in zip(fields, bcs)]
         new = []
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
@@ -801,6 +850,9 @@ def make_sharded_fullgrid_step(
                 local = tuple(pad_local(f[i], m, bc, periodic, axes=(0,))
                               for f, bc in zip(fields, bcs))
                 new.append(run(call, local, row0[i]))
+        with side.resume():
+            slabs = [p.wait() for p in posted]
+            side.record()
         side.join()
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
@@ -818,7 +870,7 @@ def make_sharded_fullgrid_step(
         return tuple(f.with_blocks(o) for f, o in zip(fields, out))
 
     step_overlap._overlap_active = True
-    return step_overlap
+    return _tag_transport(step_overlap, mesh)
 
 
 def make_sharded_temporal_step(

@@ -31,7 +31,8 @@ the port and says so in its labels:
   these terms, 9.93 GiB with them), the ring exchange keeps its
   received slabs in device memory (the TPU package deletes them from its
   model: its kernel stages chunks in VMEM), and several shards that share
-  one card (virtual devices) are counted together.
+  one card are counted together (:func:`shards_on_card`: virtual devices,
+  and the processes of a multi-process run whose card is this process's).
 
 Not ported: ``estimate_coupled_bytes`` and ``check_coupled_budget`` (device
 groups, ROADMAP A7); ``ensemble`` (A7) and ``pipeline`` (A5) raise by name.
@@ -62,6 +63,20 @@ def device_hbm_bytes(device=None) -> int:
     dev = torch.device("cuda", torch.cuda.current_device()) \
         if device is None else torch.device(device)
     return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def shards_on_card(mesh) -> int:
+    """The shards whose blocks share this process's card: the most any of
+    its devices holds, times the processes of a multi-process run that
+    share its card (``LOCAL_RANK % device_count`` alike), each with as
+    many shards as this one."""
+    from ..parallel.mesh import ranks_on_device
+
+    if mesh is None:
+        return 1
+    mine = max(sum(1 for d in mesh.devices if d == u)
+               for u in mesh.unique_devices())
+    return mine * (ranks_on_device() if mesh.multiprocess else 1)
 
 
 def _local_shape(grid: Sequence[int], mesh: Sequence[int]) -> Tuple[int, ...]:

@@ -5,7 +5,9 @@ One ``field_{i}.npy`` per field plus a ``meta.json`` (``step``,
 directory + atomic rename so a failure mid-write can never leave a
 truncated checkpoint behind; the previous good checkpoint is moved aside,
 not deleted, until the new one is in place.  A checkpoint written by either
-package resumes in the other.  The sharded ``orbax`` backend is not ported.
+package resumes in the other.  The sharded ``orbax`` backend is not ported,
+so a multi-process run, whose processes each hold only their own shards,
+saves none (:data:`SHARDED_ITEM`).
 """
 
 from __future__ import annotations
@@ -22,10 +24,17 @@ from ..interop import fields_to_numpy
 
 _META = "meta.json"
 ORBAX_ITEM = "ROADMAP A2 (sharded orbax checkpoint backend)"
+SHARDED_ITEM = ("ROADMAP A2 (the sharded checkpoint backend: a multi-process "
+                "run's shards)")
 
 
 def save_checkpoint(path: str, fields, step: int,
                     config: Optional[Dict] = None) -> None:
+    mesh = getattr(fields[0], "mesh", None) if fields else None
+    if mesh is not None and mesh.multiprocess:
+        raise NotImplementedError(
+            "a multi-process run's checkpoint needs every process to write "
+            f"its own shards: {SHARDED_ITEM}")
     arrays = fields_to_numpy(fields)
     parent = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(parent, exist_ok=True)

@@ -240,7 +240,9 @@ def init_state_sharded(
     periodic: bool = False,
 ) -> Fields:
     """The initial fields decomposed over ``mesh`` (``ShardedField`` s):
-    each block computed on its own device from global coordinates."""
+    only the blocks of the shards this process holds, each computed on its
+    own device from global coordinates, so a block is the same whichever
+    process builds it and no process holds the global grid."""
     from ..parallel.stepper import ShardedField, shard_offsets
 
     grid_shape = tuple(int(g) for g in grid_shape)
@@ -250,7 +252,7 @@ def init_state_sharded(
                          f"{mesh.shape}")
     local = tuple(g // c for g, c in zip(grid_shape, counts))
     per_field = [[] for _ in range(stencil.num_fields)]
-    for c in mesh.coords():
+    for c in mesh.local_coords():
         block = _init_block(stencil, grid_shape, kind, periodic,
                             mesh.device(c), shard_offsets(c, local), local,
                             seed, density)

@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
+phase 5d, repeated.
+
+    python3 scripts/torch_multiprocess.py [--repeat N]
+
+Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
+(default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
+config 3 as 4 processes, wave3d ``--mesh 4`` as 4, Life ``--mesh 2`` as 2)
+once in one process and once as its processes sharing the card (gloo
+through pinned host buffers), each held bit for bit, with its
+``--log-every`` lines and launches, to the one-process run.  Prints each
+run's JSON line as the smoke does (ms/step beside the one-process ms/step,
+the exchange's host time per step call), so two repeats in one call show
+the spread of these short runs; then the card's name and power limit.
+Exits 1 if any run differs from its one-process run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--repeat", type=int, default=2)
+    args = p.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_multiprocess: no CUDA card")
+    import chip_smoke as cs
+    from mpi_cuda_process_tpu_torch.ops.cuda import (_build, fullgrid, fused,
+                                                     kernels, rawstep,
+                                                     remote, streamfused)
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    cs.emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    lines = []
+
+    class Capture(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    log = logging.getLogger(cs.PKG)
+    log.setLevel(logging.INFO)
+    log.addHandler(Capture())
+    counters = (rawstep.launches, fused.launches, kernels.launches,
+                fullgrid.launches, streamfused.launches, remote.launches)
+
+    def counted(fn):
+        for c in counters:
+            c.clear()
+        out = fn()
+        got = {}
+        for c in counters:
+            got.update(c)
+        return out, got
+
+    scratch = os.path.join(HERE, "build", "torch_multiprocess")
+    os.makedirs(scratch, exist_ok=True)
+    for rep in range(args.repeat):
+        t0 = time.perf_counter()
+        rows, nccl = cs.multiprocess_phase(counted, lines, {}, scratch)
+        cs.emit({"phase": "multiprocess", "repeat": rep, "runs": len(rows),
+                 "nccl": nccl, "seconds": time.perf_counter() - t0})
+    print(cs.nvidia_smi(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -333,8 +333,13 @@ def test_mesh_needs_enough_devices_and_refuses_unported_modes(monkeypatch):
     assert tmesh.bootstrap_distributed() is False
     monkeypatch.setenv("MASTER_ADDR", "localhost")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A4"):
-        tmesh.bootstrap_distributed()
+    monkeypatch.delenv("MASTER_PORT", raising=False)
+    # a configured cluster is bootstrapped since A4 (tests/
+    # test_torch_multiprocess.py); one without its port fails fast, naming
+    # it, before any process group is opened
+    with pytest.raises(ValueError, match="MASTER_PORT"):
+        tmesh.bootstrap_distributed(device="cpu")
+    assert tmesh.process_count() == 1
     monkeypatch.setenv(tmesh.VIRTUAL_DEVICES_ENV, "4")
     assert tmesh.local_devices("cpu") == (CPU,) * 4
 

@@ -220,6 +220,26 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      backend and the exchange's host time per step call.  With two cards
      or more the NCCL leg (a card per process) runs heat3d's K4 and K9
      runs too; with one card it prints that it did not run, and why;
+  5e. the pipelined slab-carry exchange and the sharded checkpoint: heat3d
+     1024^3 --mesh 2,2 --fuse 4 with --fuse-kind padfree (K9), padfree
+     --overlap (K9 and the K3 shells), stream and stream --exchange rdma
+     (K10 and the ring), and wave3d bfloat16 --mesh 4 --fuse 8 --fuse-kind
+     padfree (K6), each in one process (virtual devices) without, with,
+     with and without --pipeline, in turns: block fingerprints bit-equal,
+     launches equal, every ms/step printed; heat3d 1024^3 --mesh 2,2
+     --fuse 4 --fuse-kind padfree --overlap without, with, with and
+     without --pipeline as 4 processes (gloo through pinned host buffers,
+     as in 5d), each bit-equal to its one-process run and the one-process
+     runs to each other, with ms/step and the exchange's host time a
+     pass; then the sharded
+     checkpoint (--checkpoint-backend orbax: torch.distributed.checkpoint,
+     each process its own blocks) of heat3d 512^3 on --mesh 2,2 as 4
+     processes, --checkpoint-every 8 to 24 iterations, killed by
+     FAULT_INJECT=exchange:step=16:sigkill on every rank (each must die
+     by SIGKILL, leaving step 8 the newest), resumed as 2 processes on
+     --mesh 4 and as one unsharded process, each bit-equal to the
+     uninterrupted run; every process's write and read seconds and bytes
+     from its log lines;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -586,6 +606,43 @@ MP_RUNS = (
 # the runs of the NCCL leg (a card per process; 2 or 4 of them)
 MP_NCCL = ("heat3d_pallas", "heat3d_padfree")
 MP_TIMEOUT = 420  # seconds, each launch of processes
+# The pipelined slab-carry exchange (phase 5e): (label, stencil, grid,
+# iterations, flags), each run in one process (virtual devices) without,
+# with, with and without --pipeline (in turns, so that neither pays the
+# first run's set-up alone), bit-equal, the same launches.
+PIPE_RUNS = (
+    ("heat3d_padfree", "heat3d", BIG, 20,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree")),
+    ("heat3d_padfree_overlap", "heat3d", BIG, 20,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
+      "--overlap")),
+    ("heat3d_stream", "heat3d", BIG, 20,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream")),
+    ("heat3d_stream_rdma", "heat3d", BIG, 20,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+      "--exchange", "rdma")),
+    ("wave3d_bf16_padfree", "wave3d", BIG, 24,
+     ("--mesh", "4", "--fuse", "8", "--fuse-kind", "padfree", "--dtype",
+      "bfloat16")),
+)
+# ... and across processes: 4 processes of the overlapped pad-free kind
+# without, with, with and without --pipeline (in turns, in each process),
+# as phase 5d runs them, but logging only at the end: the run is one
+# chunk, so the carry spans all its passes (a chunk reseeds it).
+_PIPE_MP = ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
+            "--overlap")
+PIPE_MP_RUNS = tuple(
+    (label, 4, "heat3d", BIG, MP_ITERS, MP_ITERS, flags)
+    for label, flags in (
+        ("heat3d_padfree_overlap", _PIPE_MP),
+        ("heat3d_padfree_overlap_pipeline", _PIPE_MP + ("--pipeline",)),
+        ("heat3d_padfree_overlap_pipeline_again",
+         _PIPE_MP + ("--pipeline",)),
+        ("heat3d_padfree_overlap_again", _PIPE_MP)))
+# The sharded checkpoint across processes (phase 5e): heat3d at MAIN on the
+# plain path, checkpointed every CK_EVERY steps for CK_ITERS, the 4-process
+# run killed at the CK_KILL boundary on every rank.
+CK_ITERS, CK_EVERY, CK_KILL = 24, 8, 16
 
 
 def emit(obj) -> None:
@@ -702,12 +759,14 @@ def mp_worker(spec_path: str) -> int:
     return 0
 
 
-def multiprocess_phase(counted, lines, main_launches, scratch):
-    """Phase 5d: every MP_RUNS run in one process (virtual devices), then
-    as its processes on the card, held bit for bit (block fingerprints,
-    --log-every lines, launches) to the one-process run; with two cards or
-    more, the NCCL leg.  Returns (one line of figures per run, what the
-    NCCL leg did)."""
+def multiprocess_phase(counted, lines, main_launches, scratch, runs=MP_RUNS,
+                       nccl_runs=MP_NCCL, tag="multiprocess"):
+    """Phase 5d (and 5e's runs across processes): every run of ``runs`` in
+    one process (virtual devices), then as its processes on the card, held
+    bit for bit (block fingerprints, --log-every lines, launches) to the
+    one-process run; with two cards or more, the NCCL leg of
+    ``nccl_runs``.  Returns (one line of figures per run, what the NCCL
+    leg did, each run's one-process figures)."""
     import torch
 
     from mpi_cuda_process_tpu_torch import cli
@@ -715,7 +774,7 @@ def multiprocess_phase(counted, lines, main_launches, scratch):
 
     saved_virtual = os.environ.get(mesh_lib.VIRTUAL_DEVICES_ENV)
     mp = {}
-    mp_dir = os.path.join(scratch, "multiprocess")
+    mp_dir = os.path.join(scratch, tag)
     os.makedirs(mp_dir, exist_ok=True)
 
     def step_lines(got):
@@ -729,7 +788,7 @@ def multiprocess_phase(counted, lines, main_launches, scratch):
         return iters + iters // log_every
 
     # the same runs in one process, on virtual devices, first
-    for label, procs, stencil, grid, iters, le, flags in MP_RUNS:
+    for label, procs, stencil, grid, iters, le, flags in runs:
         os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(
             math.prod(int(v) for v in flags[1].split(",")))
         argv = mp_argv(stencil, grid, iters, le, flags)
@@ -747,7 +806,7 @@ def multiprocess_phase(counted, lines, main_launches, scratch):
                              for c, b in zip(mesh.local_coords(), f)},
             "calls": step_calls(iters, le, flags)}
         if not mp[label]["lines"]:
-            fail(f"multiprocess {label}: no --log-every line logged")
+            fail(f"{tag} {label}: no --log-every line logged")
         del fields, mesh
         torch.cuda.empty_cache()
     os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
@@ -844,17 +903,21 @@ def multiprocess_phase(counted, lines, main_launches, scratch):
 
     mp_out = []
     for world in (4, 2):
-        labels = [r[0] for r in MP_RUNS if r[1] == world]
+        labels = [r[0] for r in runs if r[1] == world]
+        if not labels:
+            continue
         per_rank = launch(world, labels, f"gloo_host_{world}")
         for label in labels:
             row = held(label, per_rank, "gloo-host")
             mp_out.append(row)
             emit({"phase": "multiprocess_run", **row})
     cards = torch.cuda.device_count()
-    if cards >= 2:
+    if not nccl_runs:
+        nccl_note = {"ran": False, "reason": "no NCCL leg in this phase"}
+    elif cards >= 2:
         world = 4 if cards >= 4 else 2
-        per_rank = launch(world, list(MP_NCCL), f"nccl_{world}")
-        nccl = [held(lb, per_rank, "nccl") for lb in MP_NCCL]
+        per_rank = launch(world, list(nccl_runs), f"nccl_{world}")
+        nccl = [held(lb, per_rank, "nccl") for lb in nccl_runs]
         for row in nccl:
             emit({"phase": "multiprocess_run", **row})
         nccl_note = {"ran": True, "processes": world, "runs": len(nccl)}
@@ -862,13 +925,211 @@ def multiprocess_phase(counted, lines, main_launches, scratch):
         nccl_note = {"ran": False, "reason": (
             f"{cards} card: the nccl leg needs a card for each process, "
             "so it was not run (and is not reported as passed)")}
-    print("multiprocess nccl leg: " + (
-        "ran" if nccl_note["ran"] else "NOT RUN: " + nccl_note["reason"]),
-          flush=True)
+    if nccl_runs:
+        print("multiprocess nccl leg: " + (
+            "ran" if nccl_note["ran"] else "NOT RUN: " + nccl_note["reason"]),
+              flush=True)
     shutil.rmtree(mp_dir, ignore_errors=True)
     if saved_virtual is not None:
         os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = saved_virtual
-    return mp_out, nccl_note
+    return mp_out, nccl_note, mp
+
+
+def _cli_processes(world, argv, env_extra=None):
+    """``world`` processes of the port's CLI on the card (the launcher's
+    variables and a free port when more than one); returns (return codes,
+    stderr texts), each process bounded by MP_TIMEOUT."""
+    import socket
+
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+    env.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+    if world > 1:
+        with socket.socket() as sk:
+            sk.bind(("localhost", 0))
+            port = sk.getsockname()[1]
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", PKG, *argv],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)) if world > 1 else env,
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(world)]
+    rcs, errs = [], []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=MP_TIMEOUT)
+            rcs.append(p.returncode)
+            errs.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return rcs, errs
+
+
+def _io_figures(text):
+    """The sharded checkpoint's log lines of one process: [(step or
+    'read', bytes, seconds)]."""
+    out = []
+    for m in re.finditer(r"checkpoint step (\d+): (\d+) bytes of this "
+                         r"process's blocks written in ([0-9.]+)s", text):
+        out.append((int(m.group(1)), int(m.group(2)), float(m.group(3))))
+    for m in re.finditer(r"checkpoint read: (\d+) bytes of this process's "
+                         r"blocks in ([0-9.]+)s", text):
+        out.append(("read", int(m.group(1)), float(m.group(2))))
+    return out
+
+
+def pipeline_checkpoint_phase(counted, lines, main_launches, scratch):
+    """Phase 5e: the pipelined slab-carry exchange in one process (every
+    PIPE_RUNS run with and without --pipeline, bit-equal, the same
+    launches) and across processes (PIPE_MP_RUNS through phase 5d's
+    machinery, each bit-equal to its one-process run, the two one-process
+    runs bit-equal to each other), then the sharded checkpoint across
+    processes: 4 processes of heat3d at MAIN on --mesh 2,2 killed by
+    FAULT_INJECT=exchange:step=CK_KILL:sigkill on every rank, resumed as 2
+    processes on --mesh 4 and as one unsharded process, both bit-equal to
+    the uninterrupted run.  Returns the phase's figures."""
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.utils import checkpointing
+
+    saved_virtual = os.environ.get(mesh_lib.VIRTUAL_DEVICES_ENV)
+    out = {"pipeline": [], "pipeline_multiprocess": [], "checkpoint": {}}
+    for label, stencil, grid, iters, flags in PIPE_RUNS:
+        shards = math.prod(int(v) for v in flags[1].split(","))
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(shards)
+        twin = {False: [], True: []}
+        for pipe in (False, True, True, False):
+            argv = ["--stencil", stencil, "--grid",
+                    ",".join(map(str, grid)), "--iters", str(iters),
+                    "--init", "pulse", *stencil_flags(stencil), *flags,
+                    *(("--pipeline",) if pipe else ())]
+            lines.clear()
+            (fields, mcells), got = counted(
+                lambda: cli.run(cli.config_from_args(argv)))
+            if pipe and not any(ln.startswith("exchange: pipelined slab "
+                                              "carry") for ln in lines):
+                fail(f"pipeline {label}: the run logged no pipelined "
+                     "exchange")
+            mesh = fields[0].mesh
+            twin[pipe].append({
+                "fingerprints": {
+                    f"{j}:{','.join(map(str, c))}": fingerprint(b)
+                    for j, f in enumerate(fields)
+                    for c, b in zip(mesh.local_coords(), f)},
+                "launches": got,
+                "ms_per_step": 1e3 * math.prod(grid) / (mcells * 1e6)})
+            del fields, mesh
+            torch.cuda.empty_cache()
+        first = twin[False][0]
+        for r in twin[True] + twin[False]:
+            if r["fingerprints"] != first["fingerprints"]:
+                fail(f"pipeline {label}: --pipeline changed the fields")
+            if r["launches"] != first["launches"]:
+                fail(f"pipeline {label}: launches {r['launches']} != "
+                     f"{first['launches']}")
+        row = {"label": label, "argv": " ".join(flags), "iters": iters,
+               "ms_per_step": [r["ms_per_step"] for r in twin[True]],
+               "ms_per_step_without": [r["ms_per_step"]
+                                       for r in twin[False]],
+               "order": "without, with, with, without",
+               "launches": first["launches"], "bit_equal": True}
+        out["pipeline"].append(row)
+        emit({"phase": "pipeline_run", **row})
+    if saved_virtual is not None:
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = saved_virtual
+
+    rows, _, mp = multiprocess_phase(counted, lines, main_launches, scratch,
+                                     runs=PIPE_MP_RUNS, nccl_runs=(),
+                                     tag="pipeline_multiprocess")
+    prints = [mp[r[0]]["fingerprints"] for r in PIPE_MP_RUNS]
+    if any(p != prints[0] for p in prints):
+        fail("pipeline across processes: the one-process runs with and "
+             "without --pipeline differ")
+    for row in rows:
+        out["pipeline_multiprocess"].append(row)
+        emit({"phase": "pipeline_multiprocess_run", **row})
+
+    # the sharded checkpoint: kill, resume on 2 processes and on 1
+    grid = ",".join(map(str, MAIN))
+    base = ["--stencil", "heat3d", "--grid", grid, "--init", "pulse",
+            "--iters", str(CK_ITERS), "--checkpoint-every", str(CK_EVERY),
+            "--checkpoint-backend", "orbax"]
+    ck = os.path.join(scratch, "ckpt_sharded")
+    ck1 = os.path.join(scratch, "ckpt_sharded_unsharded")
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(ck1, ignore_errors=True)
+    os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+    lines.clear()
+    (ref, _), _ = counted(lambda: cli.run(cli.config_from_args(
+        ["--stencil", "heat3d", "--grid", grid, "--init", "pulse",
+         "--iters", str(CK_ITERS)])))
+    want = fingerprint(ref[0])
+    del ref
+    torch.cuda.empty_cache()
+    fault = f"exchange:step={CK_KILL}:sigkill"
+    rcs, errs = _cli_processes(4, base + ["--mesh", "2,2",
+                                          "--checkpoint-dir", ck],
+                               {"FAULT_INJECT": fault})
+    if rcs != [-9] * 4 or not all(f"firing '{fault}'" in e for e in errs):
+        fail(f"checkpoint: the 4 processes did not all die at the fault: "
+             f"{rcs}\n{errs[0][-2000:]}")
+    if checkpointing.latest_step(ck) != CK_EVERY or \
+            checkpointing.checkpoint_format(ck) != "dcp":
+        fail(f"checkpoint: after the kill the newest is step "
+             f"{checkpointing.latest_step(ck)}, not {CK_EVERY}")
+    written = [_io_figures(e) for e in errs]
+    shutil.copytree(ck, ck1)
+    rcs2, errs2 = _cli_processes(2, base + ["--mesh", "4", "--resume",
+                                            "--checkpoint-dir", ck])
+    if rcs2 != [0, 0]:
+        fail(f"checkpoint: the 2-process resume exited {rcs2}:\n"
+             f"{errs2[0][-3000:]}")
+    resumed2 = [_io_figures(e) for e in errs2]
+    lines.clear()
+    (fields, _), _ = counted(lambda: cli.run(cli.config_from_args(
+        base + ["--resume", "--checkpoint-dir", ck1])))
+    if fingerprint(fields[0]) != want:
+        fail("checkpoint: the unsharded resume differs from the "
+             "uninterrupted run")
+    read1 = _io_figures("\n".join(lines))
+    del fields
+    torch.cuda.empty_cache()
+    loaded, step, _ = checkpointing.load_any(
+        ck, target_fields=(torch.empty(MAIN, device="cuda"),))
+    if step != CK_ITERS or fingerprint(loaded[0]) != want:
+        fail(f"checkpoint: the 2-process resume's step-{step} checkpoint "
+             "differs from the uninterrupted run")
+    del loaded
+    torch.cuda.empty_cache()
+
+    def rate(figs, which):
+        rows = [f for f in figs if (f[0] == "read") == (which == "read")]
+        return [{"step": f[0], "bytes": f[1], "seconds": f[2],
+                 "GB_per_s": f[1] / f[2] / 1e9 if f[2] else None}
+                for f in rows]
+
+    out["checkpoint"] = {
+        "grid": grid, "kill": fault, "every": CK_EVERY,
+        "iters": CK_ITERS, "bit_equal_2_processes_mesh_4": True,
+        "bit_equal_unsharded": True,
+        "write_4_processes": [rate(w, "write") for w in written],
+        "read_2_processes": [rate(r, "read") for r in resumed2],
+        "write_2_processes": [rate(r, "write") for r in resumed2],
+        "read_unsharded": rate(read1, "read"),
+        "write_unsharded": rate(read1, "write")}
+    emit({"phase": "sharded_checkpoint", **out["checkpoint"]})
+    shutil.rmtree(ck, ignore_errors=True)
+    shutil.rmtree(ck1, ignore_errors=True)
+    if saved_virtual is not None:
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = saved_virtual
+    return out
 
 
 def card_rates(name: str):
@@ -2765,8 +3026,8 @@ def main() -> int:
           **c5})
 
     # ---- 5d. decomposition across processes -------------------------------
-    mp_out, nccl_note = multiprocess_phase(counted, lines, main_launches,
-                                           scratch)
+    mp_out, nccl_note, _ = multiprocess_phase(counted, lines, main_launches,
+                                              scratch)
     emit({"phase": "multiprocess", "ok": True, "seconds": took(),
           "card": smi, "runs": len(mp_out), "nccl": nccl_note,
           "note": "processes that share one card through gloo and pinned "
@@ -2775,6 +3036,16 @@ def main() -> int:
                   "seconds inside the transport (staging copies, posting, "
                   "waiting; not the wait for earlier device work) over the "
                   "step function's calls, the slowest process"})
+
+    # ---- 5e. the pipelined exchange, the sharded checkpoint ----------------
+    p5e = pipeline_checkpoint_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "pipeline_checkpoint", "ok": True, "seconds": took(),
+          "card": smi, "pipeline_runs": len(p5e["pipeline"]),
+          "pipeline_multiprocess_runs": len(p5e["pipeline_multiprocess"]),
+          "note": "one process: 4 shards on one card (virtual devices); "
+                  "across processes: 4 processes sharing the card through "
+                  "gloo and pinned host buffers; checkpoint seconds and "
+                  "bytes: each process's own blocks, from its log lines"})
 
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):

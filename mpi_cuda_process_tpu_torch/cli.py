@@ -59,8 +59,19 @@ process boundary go through ``torch.distributed`` (``nccl`` when each
 process has a card, ``gloo`` on the CPU, ``gloo`` staged through pinned
 host buffers when processes share a card), and the fields equal the same
 ``--mesh`` run in one process bit for bit.  A multi-process run refuses
-checkpoints (ROADMAP A2), ``--render`` (no process holds the global grid)
-and ``--exchange rdma`` (ROADMAP B7) before any field is built.
+an ``npy`` checkpoint save (it would need the global grid: the sharded
+backend, ``--checkpoint-backend orbax``, has each process write its own
+shards), ``--render`` (no process holds the global grid) and ``--exchange
+rdma`` (ROADMAP B7) before any field is built.
+``--checkpoint-backend orbax`` writes ``torch.distributed.checkpoint``'s
+format, each process its own blocks, and ``--resume`` loads any format
+onto this run's mesh, process count or unsharded grid.
+``--pipeline`` (with ``--fuse K``, ``--mesh`` and ``--fuse-kind padfree``
+or ``stream``) posts each pass's halo exchange one pass ahead of its
+consumer (the slab-carry exchange; the same values).
+``FAULT_INJECT`` fires the ``exchange`` fault at the chunk boundaries, the
+``checkpoint`` fault in both checkpoint writers and the ``compile`` fault
+where a runner is built (``resilience/faults.py``).
 ``--device`` (default ``cuda``) picks where the state lives; asking for
 ``cuda`` without a card raises, it never carries on on the CPU.  Only the
 flags the port runs are registered; a combination that needs a kernel or
@@ -83,7 +94,6 @@ import torch
 
 from . import driver
 from .config import RunConfig, parse_int_tuple, parse_params
-from .interop import fields_from_numpy, shard_from_numpy
 from .ops import stencil as stencil_lib
 # populate the registry
 from .ops import advection, heat, life, reaction, sor, wave  # noqa: F401
@@ -96,6 +106,7 @@ from .parallel import halo
 from .parallel import mesh as mesh_lib
 from .parallel import stepper as stepper_lib
 from .parallel.stepper import GLOBAL_GRID_REASON
+from .resilience import faults
 from .utils import checkpointing, diagnostics, render
 from .utils.init import init_state, init_state_sharded
 
@@ -151,7 +162,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-backend", default="npy",
                    choices=["npy", "orbax"],
-                   help="npy: .npy files + meta.json (orbax is not ported)")
+                   help="npy: .npy files + meta.json of the global grid "
+                        "(one process); orbax: the sharded backend — the "
+                        "port writes torch.distributed.checkpoint's format, "
+                        "each process its own blocks, and a resume reads "
+                        "them onto any mesh or process count")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--render", action="store_true",
                    help="ASCII-render the final grid")
@@ -167,6 +182,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "the halo exchange runs (side CUDA stream), then "
                         "the boundary rings (with --fuse K: the 2*K*halo "
                         "deep boundary shells); same values")
+    p.add_argument("--pipeline", action="store_true",
+                   help="with --fuse K --mesh and a slab-operand "
+                        "--fuse-kind (padfree, stream): post each pass's "
+                        "halo exchange from the previous pass's border rows "
+                        "(with --overlap its boundary shells), one pass "
+                        "ahead of its consumer; same values (for parity "
+                        "with the JAX package: no gain measured on one "
+                        "card)")
     p.add_argument("--tol", type=float, default=0.0,
                    help="stop when the residual max|u - u_prev_check| over a "
                         "--tol-check-every-step interval drops below TOL "
@@ -223,7 +246,8 @@ def config_from_args(argv=None) -> RunConfig:
         log_every=a.log_every, checkpoint_every=a.checkpoint_every,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
-        render=a.render, compute=a.compute, overlap=a.overlap, fuse=a.fuse,
+        render=a.render, compute=a.compute, overlap=a.overlap,
+        pipeline=a.pipeline, fuse=a.fuse,
         tol=a.tol, tol_check_every=a.tol_check_every,
         fuse_kind=a.fuse_kind, exchange=a.exchange, mem_check=a.mem_check,
         device=a.device,
@@ -245,7 +269,6 @@ _AUTO_FULL_K: dict = {}  # 2D: stencil -> k of the whole-grid kernel
 _UNPORTED = (
     ("groups", "--groups", "A7 (device groups)"),
     ("group_transport", "--group-transport", "A7 (device groups)"),
-    ("pipeline", "--pipeline", "A5 (pipelined halo exchange)"),
     ("ensemble", "--ensemble", "A7 (ensembles)"),
     ("ensemble_mesh", "--ensemble-mesh", "A7 (ensembles)"),
     ("ensemble_perturb", "--ensemble-perturb", "A7 (ensembles)"),
@@ -276,10 +299,13 @@ def _refuse_unported(cfg: RunConfig) -> None:
         if getattr(cfg, field) != getattr(defaults, field):
             raise NotImplementedError(
                 f"the port does not run {flag} yet: ROADMAP {item}")
-    if cfg.checkpoint_backend != "npy":
+    spec = faults.numerics_requested()
+    if spec is not None:
+        # a requested fault is never ignored: its poison needs obs.health
         raise NotImplementedError(
-            f"--checkpoint-backend {cfg.checkpoint_backend} is not ported: "
-            f"{checkpointing.ORBAX_ITEM}")
+            f"FAULT_INJECT {spec.raw!r}: the numerics fault poisons the "
+            "state through the observability layer's health sentinel, "
+            "which the port does not have yet: ROADMAP A8 (observability)")
 
 
 def _device(cfg: RunConfig) -> torch.device:
@@ -369,7 +395,8 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
             st, cfg.grid, mesh=cfg.mesh, fuse=cfg.fuse,
             periodic=cfg.periodic, compute=compute,
             fuse_kind=cfg.fuse_kind, overlap=cfg.overlap,
-            exchange=cfg.exchange, shards_per_device=shards)
+            pipeline=cfg.pipeline, exchange=cfg.exchange,
+            shards_per_device=shards)
     except ValueError:
         if cfg.mem_check == "error":
             raise
@@ -379,6 +406,10 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
     else:
         log.info("memory budget: ~%.2f GiB per device estimated",
                  total / 2**30)
+    if cfg.checkpoint_backend == "orbax" and cfg.checkpoint_dir:
+        log.info("checkpoint staging: ~%.2f GiB of host memory a process "
+                 "(one block at a time)",
+                 budget.checkpoint_host_bytes(st, cfg.grid, cfg.mesh) / 2**30)
 
 
 def _uses_mesh(cfg: RunConfig) -> bool:
@@ -418,20 +449,34 @@ def resolve_compute_fn(cfg: RunConfig, st):
 
 
 def _resume(cfg: RunConfig, st, device, mesh=None):
-    """Load the checkpoint; scatter it onto ``mesh`` when the run is
-    sharded (an ``npy`` checkpoint holds the global fields either way)."""
-    loaded, start_step, saved = checkpointing.load_any(cfg.checkpoint_dir)
-    for a in loaded:
-        if tuple(a.shape) != tuple(cfg.grid):
-            raise ValueError(f"checkpoint in {cfg.checkpoint_dir} holds a "
-                             f"{tuple(a.shape)} grid, not {tuple(cfg.grid)}")
-    log.info("resumed from %s at step %d", cfg.checkpoint_dir, start_step)
-    # the dtype the writer ran with: np.load gives a bfloat16 field back as
-    # raw 2-byte records, and only meta.json says what they hold
-    dtype = saved.get("dtype") or saved.get("params", {}).get("dtype")
+    """Load the checkpoint (any format) into this run's blocks: the
+    blocks of ``mesh`` this process holds, each on its device, or the
+    whole fields when unsharded.  Every block reads its own part of the
+    checkpoint (``checkpointing.load_any``); no process gathers."""
+    grid = tuple(cfg.grid)
     if mesh is not None:
-        return shard_from_numpy(loaded, mesh, dtype=dtype), start_step
-    return fields_from_numpy(loaded, device=device, dtype=dtype), start_step
+        local = tuple(g // c for g, c in zip(grid, mesh.counts(len(grid))))
+        targets = tuple(
+            stepper_lib.ShardedField(
+                [torch.empty(local, dtype=st.dtype, device=mesh.device(c))
+                 for c in mesh.local_coords()], mesh, grid)
+            for _ in range(st.num_fields))
+    else:
+        targets = tuple(torch.empty(grid, dtype=st.dtype, device=device)
+                        for _ in range(st.num_fields))
+    sharded = checkpointing.checkpoint_format(cfg.checkpoint_dir) == "dcp"
+    if sharded:
+        # its first import takes seconds, which are not the read's
+        import torch.distributed.checkpoint as dcp  # noqa: F401
+    t0 = time.perf_counter()
+    fields, start_step, _ = checkpointing.load_any(cfg.checkpoint_dir,
+                                                   target_fields=targets)
+    seconds = time.perf_counter() - t0
+    log.info("resumed from %s at step %d", cfg.checkpoint_dir, start_step)
+    if sharded:
+        log.info("checkpoint read: %d bytes of this process's blocks in "
+                 "%.3fs", checkpointing.local_nbytes(fields), seconds)
+    return fields, start_step
 
 
 def _make_run_mesh(cfg: RunConfig, device):
@@ -451,14 +496,20 @@ def _make_run_mesh(cfg: RunConfig, device):
     return m
 
 
+def _saves_checkpoints(cfg: RunConfig) -> bool:
+    """Whether the run writes a checkpoint: every --checkpoint-every
+    boundary and the last step, or a --tol run's final state."""
+    return bool(cfg.checkpoint_dir) and bool(cfg.checkpoint_every
+                                             or cfg.tol > 0)
+
+
 def _refuse_multiprocess(cfg: RunConfig) -> None:
     """What a multi-process run cannot do yet, refused by its item before
     any field is built."""
-    if cfg.checkpoint_dir or cfg.checkpoint_every or cfg.resume:
-        raise NotImplementedError(
-            "checkpoints of a multi-process run (--checkpoint-every, "
-            "--checkpoint-dir, --resume): every process holds only its own "
-            f"shards: {checkpointing.SHARDED_ITEM}")
+    if cfg.checkpoint_backend == "npy" and _saves_checkpoints(cfg):
+        raise ValueError(
+            "--checkpoint-dir on a multi-process run: "
+            f"{checkpointing.NPY_ACROSS_PROCESSES}")
     if cfg.render:
         raise ValueError(
             f"--render draws the global grid, and {GLOBAL_GRID_REASON}")
@@ -500,6 +551,17 @@ def build(cfg: RunConfig):
             "--overlap needs --mesh: the split overlaps the halo exchange "
             "with the interior update, and an unsharded run has no "
             "exchange to overlap")
+    if cfg.pipeline and not cfg.fuse:
+        # a requested pipeline is never ignored: without temporal blocking
+        # there are no fused passes for the slab carry to span
+        raise ValueError("--pipeline requires an explicit --fuse K "
+                         "(the slab-carry scan pipelines the exchange "
+                         "across fused passes)")
+    if cfg.pipeline and not use_mesh:
+        raise ValueError(
+            "--pipeline needs --mesh: the slab-carry scan pipelines the "
+            "width-m halo exchange across fused passes, and an unsharded "
+            "run has no exchange to pipeline")
     m = _make_run_mesh(cfg, device) if use_mesh else None
     item = _dtype_refusal(cfg, st, use_mesh)
     if item:
@@ -526,18 +588,22 @@ def build(cfg: RunConfig):
                                                       "padfree") else None
             step_fn = stepper_lib.make_sharded_temporal_step(
                 st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,
-                overlap=cfg.overlap, exchange=cfg.exchange, device=device)
+                overlap=cfg.overlap, pipeline=cfg.pipeline,
+                exchange=cfg.exchange, device=device)
             if cfg.overlap and step_fn is not None and \
                     not getattr(step_fn, "_overlap_active", False):
                 log.warning(
                     "--overlap: block geometry cannot host the interior/"
                     "boundary split (local extent < 3*k*halo*phases on a "
                     "sharded axis); running the plain exchange-then-"
-                    "compute fused step")
+                    "compute fused step"
+                    + (" (the slab-carry pipeline stays active on the "
+                       "non-split body)" if cfg.pipeline else ""))
             if step_fn is None:
                 raise ValueError(
                     f"--fuse {cfg.fuse} + --mesh {cfg.mesh}"
                     + (f" --fuse-kind {kind}" if kind else "")
+                    + (" --pipeline" if cfg.pipeline else "")
                     + (" --exchange rdma" if cfg.exchange == "rdma" else "")
                     + f" unsupported for {st.name} on {cfg.grid}: needs a "
                     f"fused kernel, an unsharded lane axis"
@@ -547,6 +613,10 @@ def build(cfg: RunConfig):
                        "sublane tile (8 for f32, 16 for bf16)")
                     + ", per-shard extents dividing the grid, and blocks "
                     ">= the k-step margin")
+            if cfg.pipeline:
+                log.info("exchange: pipelined slab carry (%s kind, "
+                         "overlap %s)", step_fn._padfree_kind,
+                         "on" if step_fn._overlap_active else "off")
             if cfg.exchange == "rdma":
                 # which path carries the ring: the kernel on cards, its
                 # plain version on the CPU (never read as a measured ring)
@@ -607,8 +677,18 @@ def build(cfg: RunConfig):
 
 
 def _save_ckpt(cfg: RunConfig, fields, step: int):
-    checkpointing.save_checkpoint(
-        cfg.checkpoint_dir, fields, step, dataclasses.asdict(cfg))
+    if cfg.checkpoint_backend == "orbax":
+        # its first import takes seconds, which are not the write's
+        import torch.distributed.checkpoint as dcp  # noqa: F401
+        t0 = time.perf_counter()
+        checkpointing.orbax_save_checkpoint(
+            cfg.checkpoint_dir, fields, step, dataclasses.asdict(cfg))
+        log.info("checkpoint step %d: %d bytes of this process's blocks "
+                 "written in %.3fs", step, checkpointing.local_nbytes(fields),
+                 time.perf_counter() - t0)
+    else:
+        checkpointing.save_checkpoint(
+            cfg.checkpoint_dir, fields, step, dataclasses.asdict(cfg))
 
 
 def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool):
@@ -640,6 +720,9 @@ def run(cfg: RunConfig) -> Tuple:
 
     def callback(done_in_run, fs):
         step = start_step + done_in_run * step_unit
+        # the fault point of the chunk boundary, before its checkpoint: a
+        # kill here leaves the previous boundary's checkpoint the newest
+        faults.maybe_fire("exchange", step=step)
         if cfg.log_every and step % cfg.log_every == 0:
             # the Jacobi residual needs a one-step step_fn (not a fused one)
             d = diagnostics.field_diagnostics(
@@ -721,7 +804,9 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
     fields, n_calls, res = driver.run_until(
         step_fn, fields, cfg.tol, remaining // unit,
         check_every=cfg.tol_check_every // unit if unit > 1
-        else cfg.tol_check_every)
+        else cfg.tol_check_every,
+        boundary=lambda n: faults.maybe_fire(
+            "exchange", step=start_step + n * unit))
     driver.synchronize(fields)
     dt = _slowest(fields, time.perf_counter() - t0)
     n_done = n_calls * unit

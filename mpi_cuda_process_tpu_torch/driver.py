@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops.stencil import Fields, Stencil
+from .resilience import faults
 
 
 def frame_mask(
@@ -140,25 +141,80 @@ def _carry(fields: Fields):
             for f in fields]
 
 
+def pipeline_hooks(step_fn):
+    """``(seed, advance, drop)`` of a step, normalizing the slab-carry
+    pipelined steppers (``stepper.make_sharded_fused_step(pipeline=
+    True)``), as the TPU package's ``pipeline_hooks`` does.
+
+    A pipelined step exposes ``_pipeline_prologue(fields) -> carry`` and
+    ``_pipeline_body(fields, carry, post_next) -> (fields, carry)``: the
+    exchanged slabs ride the loop so each pass's exchange is posted one
+    pass ahead of its consumer.  ``advance(fields, extra, last)`` runs one
+    pass; a loop that knows its last pass says so, and that pass posts no
+    exchange.  ``drop(carry)`` awaits a posted exchange that no pass will
+    consume and discards it, on every process (a transfer left posted
+    would leave a peer blocked at its next collective).  For a plain step
+    the carry is an empty tuple, so every loop below threads the same
+    ``(fields, extra)`` pair whatever the step."""
+    if getattr(step_fn, "_pipeline_active", False):
+        body = step_fn._pipeline_body
+
+        def advance(fields, carry, last=False):
+            return body(fields, carry, post_next=not last)
+
+        def drop(carry):
+            if carry is not None:
+                carry.wait()
+
+        return step_fn._pipeline_prologue, advance, drop
+
+    def seed(fields):
+        return ()
+
+    def advance(fields, extra, last=False):
+        return step_fn(fields), ()
+
+    def drop(extra):
+        return None
+
+    return seed, advance, drop
+
+
+def _check_carry(old: Fields, new: Fields) -> None:
+    if _carry(new) != _carry(old):
+        raise TypeError(
+            "step function carry input and carry output must have "
+            f"equal types: the step took {_carry(old)} and "
+            f"returned {_carry(new)}")
+
+
 def make_runner(step_fn, n_steps: int):
     """``fields -> fields`` after ``n_steps`` applications of ``step_fn``.
 
     A step whose output fields differ from its input in number, dtype or
     shape raises, as ``lax.scan`` refuses such a body in the TPU package (a
     heat step promotes int32 fields to float32); the first step of each run
-    is checked.  Given :class:`Donated` fields, the runner takes them."""
+    is checked.  Given :class:`Donated` fields, the runner takes them.
+
+    A slab-carry pipelined step (:func:`pipeline_hooks`) is seeded once a
+    call (one prologue exchange) and threaded through the loop; its last
+    pass posts no exchange, so n passes exchange n times.  Building a runner is the ``compile``
+    fault site (``resilience/faults.py``)."""
+    faults.maybe_fire("compile")
+    seed, advance, drop = pipeline_hooks(step_fn)
 
     def run(fields: Fields) -> Fields:
         if isinstance(fields, Donated):
             fields = fields.take()
+        if n_steps <= 0:
+            return fields
+        extra = seed(fields)
         for i in range(n_steps):
-            new = step_fn(fields)
-            if i == 0 and _carry(new) != _carry(fields):
-                raise TypeError(
-                    "step function carry input and carry output must have "
-                    f"equal types: the step took {_carry(fields)} and "
-                    f"returned {_carry(new)}")
+            new, extra = advance(fields, extra, i == n_steps - 1)
+            if i == 0:
+                _check_carry(fields, new)
             fields = new
+        drop(extra)
         return fields
 
     return run
@@ -194,6 +250,7 @@ def run_until(
     tol: float,
     max_steps: int,
     check_every: int = 1,
+    boundary=None,
 ):
     """Run until the residual drops below ``tol`` (or ``max_steps``).
 
@@ -202,17 +259,31 @@ def run_until(
     mesh that spans processes, over every process's blocks, so every
     process stops at the same step: one that stopped alone would leave its
     neighbours waiting for its slabs); the last chunk is clamped so
-    ``max_steps`` is a hard cap.  Returns ``(fields, steps_done,
-    residual)``.
+    ``max_steps`` is a hard cap.  A slab-carry pipelined step is seeded
+    once a run and its carry threaded through every chunk, as in the TPU
+    package (one prologue exchange a run, not a chunk; the exchange the
+    last pass posted is awaited and dropped).  ``boundary(n)``,
+    if given, is called after each chunk with the steps done so far.
+    Returns ``(fields, steps_done, residual)``.
     """
     if check_every < 1:
         raise ValueError("check_every must be >= 1")
+    seed, advance, drop = pipeline_hooks(step_fn)
     n = 0
     res = float("inf")
+    extra = seed(fields) if max_steps > 0 else ()
     while res > tol and n < max_steps:
         chunk = min(check_every, max_steps - n)
-        new = make_runner(step_fn, chunk)(fields)
+        new = fields
+        for i in range(chunk):
+            stepped, extra = advance(new, extra)
+            if n == 0 and i == 0:
+                _check_carry(new, stepped)
+            new = stepped
         fields, n, res = new, n + chunk, _residual(new, fields)
+        if boundary is not None:
+            boundary(n)
+    drop(extra)
     return fields, n, res
 
 

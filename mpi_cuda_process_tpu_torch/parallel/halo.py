@@ -54,8 +54,12 @@ peers in a blocking receive does so while the card computes the interior
 — the reference's pattern (kernel.cu: the middle kernel launched, then
 ``MPI_Send``/``MPI_Recv``, then the boundary).
 
-Not ported yet: the ``*_from_borders`` variants of the pipelined stepper
-(A5), and a ring across cards or processes (peer writes, B7).
+The pipelined stepper posts each exchange from border rows it already
+holds (:func:`post_slabs_from_borders`,
+:func:`post_slabs_2axis_from_borders`): the same shifts, the sender's
+rows given directly.
+
+Not ported yet: a ring across cards or processes (peer writes, B7).
 """
 
 from __future__ import annotations
@@ -417,11 +421,20 @@ def _pick(mesh: Mesh, axis: int, transport):
 def _slabs_axis_rounds(blocks, mesh, axis, halo, bc_value, periodic,
                        transport):
     L = blocks[0].shape[axis]
-    # packed: a slab across axis 0 is a view already, one across axis 1 is
-    # copied out of its strided rows
-    hi = [_take(x, axis, L - halo, halo).contiguous() for x in blocks]
-    lo = [_take(x, axis, 0, halo).contiguous() for x in blocks]
+    lo = [_take(x, axis, 0, halo) for x in blocks]
+    hi = [_take(x, axis, L - halo, halo) for x in blocks]
+    return (yield from _border_rounds(lo, hi, mesh, axis, bc_value, periodic,
+                                      transport))
+
+
+def _border_rounds(lo, hi, mesh, axis, bc_value, periodic, transport):
     n = _axis_count(mesh, axis)
+    if n > 1 or periodic:
+        # packed: a slab across axis 0 is a view already, one across axis 1
+        # is copied out of its strided rows (an axis of one shard at a wall
+        # reads no row: both its slabs are the guard constant)
+        lo = [x.contiguous() for x in lo]
+        hi = [x.contiguous() for x in hi]
     pending = _pick(mesh, axis, transport).post(hi, lo, mesh, axis,
                                                 periodic)
     yield
@@ -433,11 +446,10 @@ def _slabs_axis_rounds(blocks, mesh, axis, halo, bc_value, periodic,
                 lefts[i] = None
             if c[axis] == n - 1:
                 rights[i] = None
-    for i, x in enumerate(blocks):
+    for i, x in enumerate(lo):
         if lefts[i] is None or rights[i] is None:
-            shape = list(x.shape)
-            shape[axis] = halo
-            wall = torch.full(shape, bc_value, dtype=x.dtype, device=x.device)
+            wall = torch.full(x.shape, bc_value, dtype=x.dtype,
+                              device=x.device)
             lefts[i] = wall if lefts[i] is None else lefts[i]
             rights[i] = wall if rights[i] is None else rights[i]
     return lefts, rights
@@ -487,20 +499,54 @@ def exchange_slabs_axis(
                            transport).wait()
 
 
-def _slabs_2axis_rounds(blocks, mesh, halo, bc_value, periodic, transport):
-    def post(pieces, axis):
-        return post_slabs_axis(pieces, mesh, axis, halo, bc_value, periodic,
-                               transport)
+def post_slabs_from_borders(
+    lo_rows: Sequence[torch.Tensor],
+    hi_rows: Sequence[torch.Tensor],
+    mesh: Mesh,
+    axis: int,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    transport=None,
+) -> Exchange:
+    """:func:`post_slabs_axis` with the sender-side border slabs given
+    directly instead of sliced from the blocks.
 
-    z, y = post(blocks, 0), post(blocks, 1)
+    ``lo_rows[i]`` / ``hi_rows[i]`` are local shard i's first / last
+    ``halo`` rows along ``axis`` (any views: they are packed before they
+    are sent).  The pipelined stepper posts pass i+1's exchange from pass
+    i's boundary-shell outputs, which no interior launch writes, so the
+    transfer feeding the next pass waits on no interior work.  ``wait()``
+    gives what :func:`exchange_slabs_axis` returns: ``(lefts, rights)``,
+    the guard constant at non-periodic walls; an axis of one shard reads
+    no row of a non-periodic field (both slabs are the guard constant).
+    """
+    for x in (*lo_rows, *hi_rows):
+        if x.shape[axis] != halo:
+            raise ValueError(f"border rows {tuple(x.shape)} are not {halo} "
+                             f"deep along axis {axis}")
+    return Exchange(_border_rounds(lo_rows, hi_rows, mesh, axis, bc_value,
+                                   periodic, transport))
+
+
+def _slabs_2axis_rounds(blocks, mesh, halo, bc_value, periodic, transport):
+    z = post_slabs_axis(blocks, mesh, 0, halo, bc_value, periodic, transport)
+    y = post_slabs_axis(blocks, mesh, 1, halo, bc_value, periodic, transport)
+    return (yield from _corner_rounds(z, y, mesh, halo, bc_value, periodic,
+                                      transport))
+
+
+def _corner_rounds(z, y, mesh, halo, bc_value, periodic, transport):
+    """The rest of a 2-axis exchange once its z and y shifts are posted."""
     yield
     (zlo, zhi), (ylo, yhi) = z.wait(), y.wait()
     # second pass: the y shift of the received z slabs carries the corners
-    cl, ch = post(zlo, 1), post(zhi, 1)
+    cl = post_slabs_axis(zlo, mesh, 1, halo, bc_value, periodic, transport)
+    ch = post_slabs_axis(zhi, mesh, 1, halo, bc_value, periodic, transport)
     (c_ll, c_lh), (c_hl, c_hh) = cl.wait(), ch.wait()
     return [((zlo[i], zhi[i]), (ylo[i], yhi[i]),
              (c_ll[i], c_lh[i], c_hl[i], c_hh[i]))
-            for i in range(len(blocks))]
+            for i in range(len(zlo))]
 
 
 def post_slabs_2axis(
@@ -540,6 +586,34 @@ def exchange_slabs_2axis(
     """
     return post_slabs_2axis(blocks, mesh, halo, bc_value, periodic,
                             transport).wait()
+
+
+def post_slabs_2axis_from_borders(
+    z_lo: Sequence[torch.Tensor],
+    z_hi: Sequence[torch.Tensor],
+    y_lo: Sequence[torch.Tensor],
+    y_hi: Sequence[torch.Tensor],
+    mesh: Mesh,
+    halo: int,
+    bc_value,
+    periodic: bool = False,
+    transport=None,
+) -> Exchange:
+    """:func:`post_slabs_2axis` from border rows given per local shard:
+    ``z_lo``/``z_hi`` its first/last ``halo`` rows along z (the whole y
+    extent), ``y_lo``/``y_hi`` along y (the whole z extent).  In the
+    pipelined stepper they come from the boundary-shell outputs (z shells
+    span y, y shells span z), never from the interior.  The z and y shifts
+    are posted; ``wait()`` runs the corners' shifts, which keep the
+    two-pass composition (the y shift of the received z slabs, whose own y
+    borders are the corner blocks a diagonal hop would send), and gives
+    what :func:`exchange_slabs_2axis` returns."""
+    z = post_slabs_from_borders(z_lo, z_hi, mesh, 0, halo, bc_value,
+                                periodic, transport)
+    y = post_slabs_from_borders(y_lo, y_hi, mesh, 1, halo, bc_value,
+                                periodic, transport)
+    return Exchange(_corner_rounds(z, y, mesh, halo, bc_value, periodic,
+                                   transport))
 
 
 def local_mesh(block: torch.Tensor) -> Mesh:

@@ -44,12 +44,10 @@ import torch
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil, k_step_margin
 from .halo import (RdmaTransport, default_transport, exchange_and_pad,
-                   exchange_slabs_2axis, exchange_slabs_axis, local_mesh,
-                   pad_from_slabs, pad_local, post_and_pad, post_slabs_2axis,
+                   local_mesh, pad_from_slabs, pad_local, post_and_pad,
+                   post_slabs_2axis, post_slabs_2axis_from_borders,
                    post_slabs_axis)
 from .mesh import ENSEMBLE_ITEM, Mesh
-
-_PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
 
 
 class ShardedField(list):
@@ -199,6 +197,51 @@ class _SideStreams:
         """The current streams wait for the side copies."""
         for d in self.devices:
             torch.cuda.current_stream(d).wait_event(self.events[d])
+
+
+class SlabCarry:
+    """What a pipelined pass hands to the next: one posted exchange per
+    field (its ``wait()`` gives the next pass's slab operands per shard),
+    and the tensors the side streams may still be reading, held until the
+    next pass has joined them.
+
+    :meth:`wait` awaits every field's exchange in field order (on the side
+    streams of an overlapped step, then joined), as every process does at
+    the same point of the same pass; a carry no pass consumes is awaited
+    all the same (``driver.pipeline_hooks``), since a transfer left posted
+    would leave a peer blocked at its next collective."""
+
+    def __init__(self, pending, side: Optional[_SideStreams] = None,
+                 keep=()):
+        self.pending = list(pending)
+        self.side = side
+        self.keep = keep
+
+    def wait(self) -> list:
+        if self.side is None:
+            out = [p.wait() for p in self.pending]
+        else:
+            with self.side.resume():
+                out = [p.wait() for p in self.pending]
+                self.side.record()
+            self.side.join()
+        self.keep = ()
+        return out
+
+
+class _Mapped:
+    """A posted exchange whose value is ``fn`` of the exchange's."""
+
+    def __init__(self, pending, fn):
+        self._pending, self._fn = pending, fn
+
+    def wait(self):
+        return self._fn(self._pending.wait())
+
+
+def _per_shard(pair):
+    """``(lefts, rights)`` -> one ``(lo, hi)`` pair per shard."""
+    return list(zip(*pair))
 
 
 def _axis_slice(x, d, sl):
@@ -459,8 +502,24 @@ def make_sharded_fused_step(
     m = 4), the overlapped step falls back to the non-split one, as the TPU
     package's does.
 
-    Not ported yet, and raising by name: ``pipeline=True`` and the ensemble
-    axis.
+    ``pipeline=True`` is the cross-pass slab-carry exchange (the TPU
+    package's ``stepper.py:483-505``): each pass's exchange is posted from
+    the previous pass's output border rows, one pass ahead of its
+    consumer, and the carried slabs (:class:`SlabCarry`) hold exactly the
+    bytes the per-pass exchange would fetch, so the values equal
+    ``pipeline=False`` bit for bit.  With ``overlap`` the next exchange is
+    posted from the boundary-shell outputs, which no interior launch
+    writes, so the transfer feeding pass i+1 runs on the side streams
+    under pass i's splice and pass i+1's interior.  Only the slab-operand
+    kinds host it: ``kind=None`` (the padded kind) and ``periodic`` raise
+    with the TPU package's reasons, a shape no slab-operand kernel tiles
+    gives None, and an overlap the geometry declines keeps the pipeline on
+    the non-split body.  The step carries ``_pipeline_active``,
+    ``_pipeline_prologue`` and ``_pipeline_body`` (``driver.
+    pipeline_hooks``); called plainly it runs the prologue and one body
+    pass, which posts no further exchange.
+
+    Not ported yet, and raising by name: the ensemble axis.
     """
     from ..ops.cuda import fused, streamfused
 
@@ -483,8 +542,16 @@ def make_sharded_fused_step(
                 "(the ring-buffer kernels the ring exchange feeds): force "
                 "--fuse-kind stream, or use --exchange ppermute for "
                 f"kind={kind!r}")
-    if pipeline:
-        raise NotImplementedError(f"pipeline=True: {_PIPELINE_ITEM}")
+    if pipeline and periodic:
+        # a requested pipeline never falls back: under periodic wrap the
+        # slabs of an unsharded wall axis are border rows of the spliced
+        # output, an interior dependency
+        raise ValueError(
+            "pipeline=True is guard-frame only: under periodic wrap the "
+            "unsharded-axis slabs derive from the spliced step output "
+            "(an interior dependency), which breaks the one-pass-ahead "
+            "exchange the slab-carry scan promises — drop --pipeline "
+            "for periodic meshes")
     if ensemble:
         raise NotImplementedError(
             f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
@@ -501,6 +568,13 @@ def make_sharded_fused_step(
     if not _parity_consistent(stencil, global_shape, local_shape, counts,
                               periodic):
         return None
+    if pipeline and kind is None:
+        raise ValueError(
+            "pipeline=True rides the slab-operand kinds: the exchanged "
+            "slabs must be separate kernel operands to travel the scan "
+            "carry, and the exchange-padded kernel has none — force "
+            "--fuse-kind padfree or stream (or use a pad-free-eligible "
+            "local block)")
     transport = RdmaTransport(mesh) if exchange == "rdma" else None
     args = (stencil, mesh, global_shape, local_shape, counts, k, periodic,
             overlap, device)
@@ -510,17 +584,18 @@ def make_sharded_fused_step(
         if counts[1] > 1:
             step = _make_yzslab_padfree_step(
                 *args, streamfused.build_stream_2axis_call, "stream_yz",
-                transport)
+                transport, pipeline)
         else:
             step = _make_zslab_padfree_step(
                 *args, streamfused.build_stream_sharded_call, "stream_z",
-                transport)
+                transport, pipeline)
     elif counts[1] > 1:
         step = _make_yzslab_padfree_step(
-            *args, fused.build_yzslab_padfree_call, "yzslab")
+            *args, fused.build_yzslab_padfree_call, "yzslab", None,
+            pipeline)
     else:
         step = _make_zslab_padfree_step(
-            *args, fused.build_zslab_padfree_call, "zslab")
+            *args, fused.build_zslab_padfree_call, "zslab", None, pipeline)
     return None if step is None else _attach_exchange(step, exchange,
                                                       transport)
 
@@ -563,8 +638,8 @@ def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
         return None
     call, m, _ = built
 
-    def exchange(fields, on):
-        return [exchange_and_pad(f, on, m, bc, periodic, axes=(0, 1))
+    def post(fields, on):
+        return [post_and_pad(f, on, m, bc, periodic, axes=(0, 1))
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -572,12 +647,12 @@ def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
 
     return _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              exchange, launch)
+                              post, launch)
 
 
 def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
                              counts, k, periodic, overlap, device, build,
-                             kind_name, transport=None):
+                             kind_name, transport=None, pipeline=False):
     """The z-slab kinds (z-only meshes): core and z slabs into the kernel
     that ``build`` makes (K6 or K10), labelled ``kind_name``; ``transport``
     carries the slab exchanges (``halo.exchange_slabs_axis``)."""
@@ -587,9 +662,9 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
         return None
     call, m, _ = built
 
-    def exchange(fields, on):
-        return [list(zip(*exchange_slabs_axis(f, on, 0, m, bc, periodic,
-                                              transport)))
+    def post(fields, on):
+        return [_Mapped(post_slabs_axis(f, on, 0, m, bc, periodic,
+                                        transport), _per_shard)
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -600,14 +675,14 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
 
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              exchange, launch, transport)
+                              post, launch, transport, pipeline)
     step._padfree_kind = kind_name
     return step
 
 
 def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
                               counts, k, periodic, overlap, device, build,
-                              kind_name, transport=None):
+                              kind_name, transport=None, pipeline=False):
     """The 2-axis slab-operand kinds (meshes that shard y): the core, z and
     y slabs and the four two-pass corner pieces into the kernel that
     ``build`` makes (K9 or K10), labelled ``kind_name``, so no padded copy
@@ -622,8 +697,8 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
         return None
     call, m, _ = built
 
-    def exchange(fields, on):
-        return [exchange_slabs_2axis(f, on, m, bc, periodic, transport)
+    def post(fields, on):
+        return [post_slabs_2axis(f, on, m, bc, periodic, transport)
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -634,22 +709,23 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
 
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              exchange, launch, transport)
+                              post, launch, transport, pipeline)
     step._padfree_kind = kind_name
     return step
 
 
 def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
-                       m, periodic, overlap, device, exchange, launch,
-                       transport=None):
+                       m, periodic, overlap, device, post, launch,
+                       transport=None, pipeline=False):
     """The sharded fused step around one kind's kernel.
 
-    ``exchange(fields, on)`` gives, per field and per shard of mesh ``on``,
-    the kind's operand (a padded block, a z-slab pair or a 2-axis slab
-    set); ``launch(origins, blocks, ops)`` runs the kind's kernel on one
-    shard's core blocks and operands, given the shard's global (z, y)
-    origin.  ``transport`` (None: in process) carries the overlapped
-    step's slab exchange too.
+    ``post(fields, on)`` posts the kind's exchange over mesh ``on``, one
+    pending exchange per field, whose ``wait()`` gives per shard the
+    kind's operand (a padded block, a z-slab pair or a 2-axis slab set);
+    ``launch(origins, blocks, ops)`` runs the kind's kernel on one shard's
+    core blocks and operands, given the shard's global (z, y) origin.
+    ``transport`` (None: in process) carries the overlapped step's slab
+    exchange too.
 
     ``overlap=True``, on a mesh that shards z or y with every sharded local
     extent at least 3m, is the TPU package's split (``stepper.py:681-782``,
@@ -674,6 +750,21 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     The values equal the non-split step's bit for bit (every cell is the
     same arithmetic on the same inputs).  On one card nothing is hidden:
     the split costs the shells' extra cells and the strip copies.
+
+    Every step, split or not, is one prologue (post the exchange) and one
+    pass body (:func:`_pipelined`); ``pipeline=True`` (the slab kinds)
+    only exposes them, so a loop moves step 1 of pass i+1 into pass i (the
+    TPU package's ``stepper.py:899-990``, ``:1234-1320``): without the
+    split, a pass runs the kernel on the carried slabs and posts the next
+    exchange from its output's border rows (``post``); with it, the
+    carried 2-axis set feeds the shells and the next set is posted from
+    the shells' outputs (``halo.post_slabs_2axis_from_borders``) before
+    the splice, on the side streams, so it runs under the splice and the
+    next interior.  Such a pass holds every shard's shell outputs until
+    the post, and the carry keeps them until the next pass joins the side
+    streams (a freed block reused by the current stream before the side
+    stream's read would be overwritten); a pass that posts nothing splices
+    each shell as soon as it is computed.
     """
     from ..ops.cuda.fused import build_overlap_shell_calls
 
@@ -685,15 +776,10 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     def run(fields, i, ops_i):
         return launch(origins[i], [f[i] for f in fields], ops_i)
 
-    def step(fields: Fields) -> Fields:
-        ops = exchange(fields, mesh)
-        out = [[] for _ in fields]
-        for i, c in enumerate(coords):
-            with _on_device(mesh.device(c)):
-                res = run(fields, i, [o[i] for o in ops])
-            for j, b in enumerate(res):
-                out[j].append(b)
-        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+    def assemble(fields, new):
+        """Per-shard output blocks ``new[i][j]`` -> the step's fields."""
+        return tuple(f.with_blocks([b[j] for b in new])
+                     for j, f in enumerate(fields))
 
     shells = None
     if overlap and sharded_axes:
@@ -701,29 +787,50 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
             stencil, local_shape, global_shape, k, sharded_axes,
             periodic=periodic, device=device)
     if shells is None:
+        def prologue(fields):
+            return SlabCarry(post(fields, mesh))
+
+        def body(fields, carry, post_next=True):
+            ops = carry.wait()
+            new = []
+            for i, c in enumerate(coords):
+                with _on_device(mesh.device(c)):
+                    new.append(run(fields, i, [o[i] for o in ops]))
+            out = assemble(fields, new)
+            return out, SlabCarry(post(out, mesh)) if post_next else None
+
+        step = _pipelined(prologue, body, pipeline)
         step._overlap_active = False
         return _tag_transport(step, mesh)
 
     w = 2 * m
     side = _SideStreams(mesh)
 
-    def step_overlap(fields: Fields) -> Fields:
+    def prologue(fields):
         with side.begin():
-            posted = [post_slabs_2axis(f, mesh, m, bc, periodic, transport)
-                      for f, bc in zip(fields, bcs)]
+            return SlabCarry([post_slabs_2axis(f, mesh, m, bc, periodic,
+                                               transport)
+                              for f, bc in zip(fields, bcs)], side)
+
+    def interior(fields):
         new = []
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
                 # the shard's own operands only: nothing here waits for the
                 # exchange
-                own = exchange([[f[i]] for f in fields],
-                               local_mesh(fields[0][i]))
+                own = [p.wait() for p in post([[f[i]] for f in fields],
+                                              local_mesh(fields[0][i]))]
                 new.append(run(fields, i, [o[0] for o in own]))
-        with side.resume():
-            slabs = [p.wait() for p in posted]
-            side.record()
-        side.join()
-        out = [[] for _ in fields]
+        return new
+
+    def splice(new, i, d, o, res):
+        for nb, rb in zip(new[i], res):
+            _axis_slice(nb, d, slice(o, o + w)).copy_(rb)
+
+    def boundary(fields, slabs, new, held=None):
+        """Run every shard's shells and splice each over ``new`` as soon
+        as it is computed; given a dict ``held``, keep them there instead,
+        keyed ``(i, d, o)``, unspliced (the caller posts from them)."""
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
                 for d in sharded_axes:
@@ -737,14 +844,67 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
                         org[d] += o
                         res = (shells[d](*strips) if periodic
                                else shells[d](tuple(org), *strips))
-                        for nb, rb in zip(new[i], res):
-                            _axis_slice(nb, d, slice(o, o + w)).copy_(rb)
-                for j, nb in enumerate(new[i]):
-                    out[j].append(nb)
-        return tuple(f.with_blocks(o) for f, o in zip(fields, out))
+                        if held is None:
+                            splice(new, i, d, o, res)
+                        else:
+                            held[(i, d, o)] = res
 
-    step_overlap._overlap_active = True
-    return _tag_transport(step_overlap, mesh)
+    def borders(fields, held, j, d):
+        """Field j's first and last m output rows along axis d of every
+        shard, read from the shell outputs; an unsharded axis reads no
+        row (its slabs are the guard constant), so any m rows do."""
+        if d not in sharded_axes:
+            rows = [f.narrow(d, 0, m) for f in fields[j]]
+            return rows, rows
+        hi = local_shape[d] - w
+        return ([held[(i, d, 0)][j].narrow(d, 0, m)
+                 for i in range(len(coords))],
+                [held[(i, d, hi)][j].narrow(d, w - m, m)
+                 for i in range(len(coords))])
+
+    def body(fields, carry, post_next=True):
+        new = interior(fields)
+        slabs = carry.wait()
+        if not post_next:
+            boundary(fields, slabs, new)
+            return assemble(fields, new), None
+        held = {}
+        boundary(fields, slabs, new, held)
+        with side.begin():
+            pending = [post_slabs_2axis_from_borders(
+                *borders(fields, held, j, 0), *borders(fields, held, j, 1),
+                mesh, m, bc, periodic, transport)
+                for j, bc in enumerate(bcs)]
+        for (i, d, o), res in held.items():
+            with _on_device(mesh.device(coords[i])):
+                splice(new, i, d, o, res)
+        return assemble(fields, new), SlabCarry(pending, side, keep=held)
+
+    step = _pipelined(prologue, body, pipeline)
+    step._overlap_active = True
+    return _tag_transport(step, mesh)
+
+
+def _pipelined(prologue, body, expose: bool):
+    """The step ``body(fields, prologue(fields), post_next=False)[0]``:
+    ``prologue(fields) -> carry`` posts a pass's exchange and
+    ``body(fields, carry, post_next) -> (fields, carry)`` is one pass that
+    consumes it and, unless ``post_next`` is False (a loop's last pass,
+    or a plain call), posts the next pass's exchange from its output (a
+    :class:`SlabCarry`; None otherwise), so a loop of n passes exchanges
+    n times (the TPU package's scan drops one exchange more).  With
+    ``expose`` (``pipeline=True``) the step is marked as the TPU package
+    marks a slab-carry pipelined one, ``_pipeline_active``,
+    ``_pipeline_prologue`` and ``_pipeline_body``, and
+    ``driver.pipeline_hooks`` threads the carry."""
+    def step(fields: Fields) -> Fields:
+        return body(fields, prologue(fields), post_next=False)[0]
+
+    if expose:
+        step._pipeline_active = True
+        step._pipeline_prologue = prologue
+        step._pipeline_body = body
+    return step
 
 
 def make_sharded_fullgrid_step(

@@ -34,8 +34,21 @@ the port and says so in its labels:
   one card are counted together (:func:`shards_on_card`: virtual devices,
   and the processes of a multi-process run whose card is this process's).
 
+``pipeline=True`` adds the carried slab set (the TPU package's
+``budget.py:145-155``): while a pass runs, its own slabs and the next
+pass's, in flight, are alive together.  The TPU package deletes the term
+under rdma (its carry feeds VMEM rings); the port keeps it, since its ring
+lands the slabs in device buffers that the carry holds.  With ``overlap``
+the carry is the 2-axis slab set the shells read (z and y slabs and
+corners, a local fill on an unsharded axis) plus the shell outputs it
+holds until the next pass joins the side streams.
+
+A sharded checkpoint (``--checkpoint-backend orbax``) costs no device
+memory: its writer copies one block at a time to the host
+(:func:`checkpoint_host_bytes`).
+
 Not ported: ``estimate_coupled_bytes`` and ``check_coupled_budget`` (device
-groups, ROADMAP A7); ``ensemble`` (A7) and ``pipeline`` (A5) raise by name.
+groups, ROADMAP A7); ``ensemble`` (A7) raises by name.
 """
 
 from __future__ import annotations
@@ -52,7 +65,6 @@ from ..ops.stencil import Stencil, k_step_margin
 _OVERHEAD_FRAC = 0.10
 
 _ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
-_PIPELINE_ITEM = "ROADMAP A5 (the pipelined slab-carry exchange)"
 
 Parts = List[Tuple[str, int]]
 
@@ -145,8 +157,6 @@ def estimate_run_bytes(
     if ensemble or ensemble_mesh:
         raise NotImplementedError(
             f"an ensemble budget is not ported: {_ENSEMBLE_ITEM}")
-    if pipeline:
-        raise NotImplementedError(f"pipeline=True: {_PIPELINE_ITEM}")
     itemsize = stencil.dtype.itemsize
     nfields = stencil.num_fields
     local = _local_shape(grid, mesh)
@@ -204,6 +214,10 @@ def estimate_run_bytes(
                 parts.append((f"{name}: {what}"
                               f"{', x2 overlap split' if overlap else ''})",
                               slab_b))
+                if pipeline:
+                    parts.append(_pipeline_part(
+                        stencil, local, m, mesh3, overlap, base_b,
+                        exchange == "rdma"))
         elif sharded:
             n_padded = 2 * nfields if overlap else nfields
             padded_b = (lz + 2 * m) * (ly + 2 * m) * lx * itemsize
@@ -258,6 +272,34 @@ def estimate_run_bytes(
     parts.append((f"workspace overhead ({int(_OVERHEAD_FRAC * 100)}%)",
                   overhead))
     return subtotal + overhead, parts
+
+
+def _pipeline_part(stencil, local, m, mesh3, overlap, base_b, rdma):
+    """(label, bytes) of the slab-carry pipeline's carried set."""
+    itemsize = stencil.dtype.itemsize
+    nfields = stencil.num_fields
+    lz, ly, lx = local
+    label = ("pipelined carried slabs (the next pass's exchange lives "
+             "beside this pass's operands"
+             + ("; kept under rdma: the ring's received slabs are device "
+                "buffers here" if rdma else ""))
+    if not overlap:
+        return label + ")", base_b
+    two_axis = 2 * m * ly * lx + 2 * m * lz * lx + 4 * m * m * lx
+    shells = sum(2 * 2 * m * (lx * (ly if d == 0 else lz))
+                 for d in (0, 1) if int(mesh3[d]) > 1)
+    return (label + "; overlap: the 2-axis set and the shell outputs held "
+            "to the next join)", (two_axis + shells) * itemsize * nfields)
+
+
+def checkpoint_host_bytes(stencil: Stencil, grid: Sequence[int],
+                          mesh: Sequence[int] = ()) -> int:
+    """Host memory a process stages a sharded checkpoint through: one
+    block of one field at a time (the writer's copy-ahead is bounded by a
+    few MB), on save and on load (a load reads a saved block whole, then
+    copies its overlap; its blocks are this run's size when the mesh is
+    the writer's)."""
+    return math.prod(_local_shape(grid, mesh)) * stencil.dtype.itemsize
 
 
 def format_budget(total: int, parts: Parts, hbm: int) -> str:

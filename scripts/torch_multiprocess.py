@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d, repeated.
+phase 5d (or 5e), repeated.
 
-    python3 scripts/torch_multiprocess.py [--repeat N]
+    python3 scripts/torch_multiprocess.py [--repeat N] [--phase 5d|5e]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -13,7 +13,11 @@ through pinned host buffers), each held bit for bit, with its
 run's JSON line as the smoke does (ms/step beside the one-process ms/step,
 the exchange's host time per step call), so two repeats in one call show
 the spread of these short runs; then the card's name and power limit.
-Exits 1 if any run differs from its one-process run.
+Exits 1 if any run differs from its one-process run.  ``--phase 5e`` runs
+``chip_smoke.pipeline_checkpoint_phase`` instead: every ``PIPE_RUNS`` run
+with and without ``--pipeline`` in one process, ``PIPE_MP_RUNS`` as 4
+processes, and the sharded checkpoint killed on 4 processes and resumed
+on 2 and on 1 (its write and read seconds and bytes).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
+    p.add_argument("--phase", choices=["5d", "5e"], default="5d")
     args = p.parse_args()
     import torch
 
@@ -69,7 +74,13 @@ def main() -> int:
     os.makedirs(scratch, exist_ok=True)
     for rep in range(args.repeat):
         t0 = time.perf_counter()
-        rows, nccl = cs.multiprocess_phase(counted, lines, {}, scratch)
+        if args.phase == "5e":
+            out = cs.pipeline_checkpoint_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "pipeline_checkpoint", "repeat": rep,
+                     "runs": len(out["pipeline"]),
+                     "seconds": time.perf_counter() - t0})
+            continue
+        rows, nccl, _ = cs.multiprocess_phase(counted, lines, {}, scratch)
         cs.emit({"phase": "multiprocess", "repeat": rep, "runs": len(rows),
                  "nccl": nccl, "seconds": time.perf_counter() - t0})
     print(cs.nvidia_smi(), flush=True)

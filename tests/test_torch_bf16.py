@@ -444,7 +444,8 @@ def test_budget_rdma_prices_received_slabs_not_rings(dt, grid, mesh):
 
 def test_budget_drops_the_tpu_only_functions_and_refuses_unported():
     """ring_vmem_bytes (VMEM) and the coupled-run budget (device groups,
-    A7) are not in the port; ensemble (A7) and pipeline (A5) raise."""
+    A7) are not in the port; ensemble (A7) raises; pipeline adds the
+    carried slab set (the JAX package's term: one slab set)."""
     for fn in ("ring_vmem_bytes", "estimate_coupled_bytes",
                "check_coupled_budget"):
         assert hasattr(jbudget, fn) and not hasattr(tbudget, fn)
@@ -452,8 +453,18 @@ def test_budget_drops_the_tpu_only_functions_and_refuses_unported():
     st = port.make_stencil("heat3d")
     with pytest.raises(NotImplementedError, match="A7"):
         tbudget.estimate_run_bytes(st, (64,) * 3, ensemble=2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        tbudget.estimate_run_bytes(st, (64,) * 3, pipeline=True)
+    # a z-only mesh: the z slabs are the same set in both packages (the
+    # 2-axis set differs by the TPU-only y duplication, dropped above)
+    kw = dict(mesh=(4,), fuse=4, fuse_kind="padfree")
+    grid = (64, 64, 128)
+    plain, _ = tbudget.estimate_run_bytes(st, grid, **kw)
+    piped, parts = tbudget.estimate_run_bytes(st, grid, pipeline=True, **kw)
+    _, jparts = jbudget.estimate_run_bytes(jmake_stencil("heat3d"), grid,
+                                           pipeline=True, **kw)
+    carry = [b for label, b in parts if label.startswith("pipelined")]
+    jcarry = [b for label, b in jparts if label.startswith("pipelined")]
+    assert carry == jcarry and len(carry) == 1 and carry[0] > 0
+    assert piped == plain + carry[0] + int(carry[0] * tbudget._OVERHEAD_FRAC)
 
 
 def test_budget_counts_every_shard_on_the_card():

@@ -257,7 +257,11 @@ def _equals_plain_run(argv):
     pytest.param(["--compute", "pallas", "--periodic", "--dtype",
                   "bfloat16"], None, None,
                  id="extra5-NotImplementedError-B1/B3"),
-    (["--checkpoint-backend", "orbax"], NotImplementedError, "ROADMAP"),
+    # This id keeps its name from the refusal it pinned before the sharded
+    # checkpoint backend ran (ROADMAP A2, tests/test_torch_checkpoint.py):
+    # the run now equals the plain run bit for bit.
+    pytest.param(["--checkpoint-backend", "orbax"], None, None,
+                 id="extra6-NotImplementedError-ROADMAP"),
     # This id keeps its name from the refusal it pinned before the patch
     # init ran (ROADMAP A2, tests/test_torch_reaction_advection.py); patch
     # on the one-field heat3d now raises the JAX package's own ValueError.

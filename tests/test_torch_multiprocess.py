@@ -20,16 +20,24 @@ field, and the ``--log-every`` lines digit for digit), and against the JAX
 package's single-process plain step run from the same initial fields, op by
 op: Life exactly, float32 at ``atol = 1e-4, rtol = 0``
 (tests/test_fused.py:70), bfloat16 at ``32 eps max(|ref|, 1)``
-(tests/test_torch_bf16.py:13-18).  Plus one CLI run under ``torchrun
---nproc-per-node 2``, the refusals of a multi-process run (checkpoint,
-``--render``, ``--exchange rdma``, a mesh the processes do not divide) and
-the bootstrap without a cluster.  Every subprocess has its own timeout and
-is killed on expiry.
+(tests/test_torch_bf16.py:13-18); the ``--pipeline`` cases (the slab-carry
+exchange, with and without ``--overlap``) too.  Plus one CLI run under
+``torchrun --nproc-per-node 2``, the refusals of a multi-process run (an
+``npy`` checkpoint save, ``--render``, ``--exchange rdma``, a mesh the
+processes do not divide), the bootstrap without a cluster, and the sharded
+checkpoint across processes: 4 processes on ``--mesh 2,2`` killed by
+``FAULT_INJECT=exchange:step=4:sigkill`` on every rank, resumed as 2
+processes on ``--mesh 4`` and then as one unsharded process, an ``npy``
+checkpoint resumed by 2 processes, and a kill inside a sharded write, each
+bit-equal to the uninterrupted run.  Every subprocess has its own timeout
+and is killed on expiry.
 """
 
 import json
 import os
 import re
+import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -45,6 +53,7 @@ from mpi_cuda_process_tpu.ops import make_stencil as jmake_stencil
 
 from mpi_cuda_process_tpu_torch import cli as tcli
 from mpi_cuda_process_tpu_torch.parallel import mesh as tmesh
+from mpi_cuda_process_tpu_torch.utils import checkpointing as tckpt
 from mpi_cuda_process_tpu_torch.utils.init import init_state as tinit_state
 
 torch.set_num_threads(1)
@@ -141,18 +150,53 @@ CASES = [
     ("wave3d_m4_padfree", 4, "wave3d", (32, 8, 32), 8,
      ("--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree", *_PULSE,
       "--log-every", "4")),
+    # the pipelined slab-carry exchange: each pass's exchange posted from
+    # the previous pass's borders (with --overlap its shells)
+    ("heat3d_m2_padfree_pipeline", 2, "heat3d", (32, 16, 32), 8,
+     ("--mesh", "2", "--fuse", "4", "--fuse-kind", "padfree", "--pipeline",
+      *_PULSE, "--log-every", "4")),
+    ("heat3d_m2_padfree_overlap_pipeline", 2, "heat3d", (32, 16, 32), 8,
+     ("--mesh", "2", "--fuse", "4", "--fuse-kind", "padfree", "--overlap",
+      "--pipeline", *_PULSE, "--log-every", "4")),
+    ("heat3d_m2_stream_overlap_pipeline", 2, "heat3d", (32, 16, 32), 8,
+     ("--mesh", "2", "--fuse", "4", "--fuse-kind", "stream", "--overlap",
+      "--pipeline", *_PULSE, "--log-every", "4")),
+    ("heat3d_22_on_2_padfree_overlap_pipeline", 2, "heat3d", (32, 32, 32),
+     8, ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
+         "--overlap", "--pipeline", *_PULSE, "--log-every", "4")),
+    ("heat3d_22_padfree_pipeline", 4, "heat3d", (32, 32, 32), 8,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree",
+      "--pipeline", *_PULSE, "--log-every", "4")),
+    ("heat3d_22_padfree_overlap_pipeline", 4, "heat3d", (32, 32, 32), 12,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "padfree", "--overlap",
+      "--pipeline", *_PULSE, "--log-every", "4")),
+    ("heat3d_22_stream_overlap_pipeline", 4, "heat3d", (32, 32, 32), 8,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream", "--overlap",
+      "--pipeline", *_PULSE, "--log-every", "8")),
+    ("wave3d_m4_padfree_pipeline", 4, "wave3d", (32, 8, 32), 8,
+     ("--mesh", "4", "--fuse", "4", "--fuse-kind", "padfree", "--pipeline",
+      *_PULSE, "--log-every", "4")),
+    # --tol: the carry threads through every residual check, whose
+    # all-reduce runs while the last pass's exchange is in flight
+    ("sor3d_m2_padfree_pipeline_tol", 2, "sor3d", (32, 16, 32), 64,
+     ("--mesh", "2", "--fuse", "2", "--fuse-kind", "padfree", "--pipeline",
+      "--tol", "2", "--tol-check-every", "8")),
 ]
 IDS = [c[0] for c in CASES]
 
 # What a 2-process run refuses before any field is built, and the words
-# its message must hold: (id, stencil, grid, flags, exception, words).
+# its message must hold: (id, stencil, grid, flags, exception, words).  The
+# two checkpoint ids keep their names from the refusals they pinned before
+# the sharded backend ran: an npy save still needs the global grid, and a
+# resume with no checkpoint written yet runs from the initial state
+# ("none": no exception; the checkpoint flows are the tests below).
 REFUSALS = [
     ("checkpoint", "heat3d", (16, 8, 32),
      ("--mesh", "2", "--checkpoint-every", "2", "--checkpoint-dir", "{ck}"),
-     "NotImplementedError", "ROADMAP A2"),
+     "ValueError", "--checkpoint-backend orbax"),
     ("resume", "heat3d", (16, 8, 32),
      ("--mesh", "2", "--resume", "--checkpoint-dir", "{ck}"),
-     "NotImplementedError", "ROADMAP A2"),
+     "none", ""),
     ("render", "life", (16, 16), ("--mesh", "2", "--render"),
      "ValueError", "global grid"),
     ("rdma", "heat3d", (32, 16, 32),
@@ -161,11 +205,13 @@ REFUSALS = [
     ("mesh_not_divided", "heat3d", (18, 8, 32), ("--mesh", "3"),
      "ValueError", "do not divide over 2 processes"),
 ]
-# The same process's entry points that would need the global grid or the
-# sharded checkpoint backend, called on a finished run's fields.
+# The same process's entry points that would need the global grid, called
+# on a finished run's fields (the npy writer among them: it points to the
+# sharded backend).
 CALL_REFUSALS = [("gather_fields", "ValueError", "global grid"),
                  ("gather_to_numpy", "ValueError", "global grid"),
-                 ("save_checkpoint", "NotImplementedError", "ROADMAP A2")]
+                 ("save_checkpoint", "ValueError",
+                  "--checkpoint-backend orbax")]
 
 _WORKER = r"""
 import json, logging, os, sys, traceback
@@ -474,10 +520,12 @@ def test_matches_jax_single_process(runs, name):
                          ids=[r[0] for r in REFUSALS]
                          + [r[0] for r in CALL_REFUSALS])
 def test_multiprocess_refusals(runs, name, exc, words):
-    """A multi-process run refuses checkpoints (ROADMAP A2), --render and
-    the global grid's entry points (no process holds it), --exchange rdma
-    (ROADMAP B7) and a mesh the processes do not divide, on every process,
-    before any field is built: no checkpoint directory appears."""
+    """A multi-process run refuses an npy checkpoint save (it would need
+    the global grid: the sharded backend writes each process's shards),
+    --render and the global grid's entry points (no process holds it),
+    --exchange rdma (ROADMAP B7) and a mesh the processes do not divide,
+    on every process, before any field is built: no checkpoint directory
+    appears (a --resume with none written runs from the initial state)."""
     for r in range(2):
         with open(runs["dir"] / f"refusals_r{r}.json") as fh:
             got = json.load(fh)
@@ -574,3 +622,157 @@ def test_mesh_ownership_over_processes():
     one = tmesh.make_mesh((2, 2), [cpu] * 4)
     assert not one.multiprocess and one.local_coords() == list(one.coords())
     assert one.gather([torch.tensor(1.0)] * 4)[3] == torch.tensor(1.0)
+
+
+# ---- the sharded checkpoint across processes --------------------------------
+
+_CK = ("--stencil", "heat3d", "--grid", "16,16,32", "--init", "pulse",
+       "--checkpoint-every", "2", "--device", "cpu")
+
+
+def _cli_procs(world, argv, fault=None):
+    """``world`` processes of the CLI (one without the launcher's
+    variables), each with the fault spec ``fault``."""
+    extra = {"FAULT_INJECT": fault} if fault else {}
+    cmd = [sys.executable, "-m", "mpi_cuda_process_tpu_torch", *argv]
+    if world == 1:
+        return [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 env=_env(PYTHONPATH=_REPO, **extra),
+                                 cwd=_REPO)]
+    port = _free_port()
+    return [subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env(PYTHONPATH=_REPO, MASTER_ADDR="localhost", MASTER_PORT=port,
+                 RANK=r, WORLD_SIZE=world, LOCAL_RANK=r,
+                 LOCAL_WORLD_SIZE=world, **extra), cwd=_REPO)
+        for r in range(world)]
+
+
+def _ended(groups):
+    """Wait for every process of every group (its own timeout each);
+    returns each group's (return codes, stderr texts)."""
+    out = []
+    try:
+        for procs in groups:
+            rcs, errs = [], []
+            for p in procs:
+                _, err = p.communicate(timeout=TIMEOUT)
+                rcs.append(p.returncode)
+                errs.append(err)
+            out.append((rcs, errs))
+    finally:
+        for procs in groups:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    return out
+
+
+@pytest.fixture(scope="module")
+def ckpt_runs(tmp_path_factory):
+    """The checkpoint flows, phase by phase (each phase's launches at
+    once): (1) 4 processes on --mesh 2,2, killed at the step-4 boundary,
+    a 1-process npy run to step 4, and 2 processes killed inside their
+    step-4 sharded write; (2) the killed run resumed as 2 processes on
+    --mesh 4 to step 6, and the npy checkpoint resumed by 2 processes on
+    --mesh 2,2 to step 8; (3) the step-6 checkpoint resumed unsharded to
+    step 8."""
+    out = tmp_path_factory.mktemp("mp_ckpt")
+    ck, npy, atomic = (str(out / n) for n in ("ck", "npy", "atomic"))
+    orbax = ("--checkpoint-backend", "orbax")
+    phase1 = _ended([
+        _cli_procs(4, [*_CK, *orbax, "--iters", "8", "--mesh", "2,2",
+                       "--checkpoint-dir", ck],
+                   fault="exchange:step=4:sigkill"),
+        _cli_procs(1, [*_CK, "--iters", "4", "--checkpoint-dir", npy]),
+        _cli_procs(2, [*_CK, *orbax, "--iters", "8", "--mesh", "2",
+                       "--checkpoint-dir", atomic],
+                   fault="checkpoint:during_write:step=4:sigkill")])
+    files = sorted(os.listdir(os.path.join(ck, "step_000000000002")))
+    phase2 = _ended([
+        _cli_procs(2, [*_CK, *orbax, "--iters", "6", "--mesh", "4",
+                       "--resume", "--checkpoint-dir", ck]),
+        _cli_procs(2, [*_CK, *orbax, "--iters", "8", "--mesh", "2,2",
+                       "--resume", "--checkpoint-dir", npy])])
+    at6 = tmp_path_factory.mktemp("at6") / "ck"
+    shutil.copytree(ck, at6)
+    phase3 = _ended([_cli_procs(1, [*_CK, *orbax, "--iters", "8",
+                                    "--resume", "--checkpoint-dir", ck])])
+    return {"ck": ck, "npy": npy, "atomic": atomic, "at6": str(at6),
+            "files_at_2": files, "killed": phase1[0], "npy_run": phase1[1],
+            "atomic_run": phase1[2], "mesh4": phase2[0],
+            "npy_resume": phase2[1], "unsharded": phase3[0]}
+
+
+def _ref(iters):
+    """The uninterrupted unsharded run of ``iters`` steps."""
+    fields, _ = tcli.run(tcli.config_from_args(
+        ["--stencil", "heat3d", "--grid", "16,16,32", "--init", "pulse",
+         "--iters", str(iters), "--device", "cpu"]))
+    return fields
+
+
+def _held(path, iters):
+    got, step, _ = tckpt.load_any(path)
+    assert step == iters
+    for a, b in zip(got, _ref(iters)):
+        assert torch.equal(a, b)
+
+
+def test_multiprocess_fault_kill_leaves_the_previous_checkpoint(ckpt_runs):
+    """Every rank dies by SIGKILL at the step-4 boundary, before its save:
+    the step-2 sharded checkpoint is the newest, written by every process
+    (one file of blocks each), and equals the uninterrupted run's step 2."""
+    rcs, errs = ckpt_runs["killed"]
+    assert rcs == [-signal.SIGKILL] * 4, errs
+    assert all("firing 'exchange:step=4:sigkill'" in e for e in errs)
+    assert ckpt_runs["files_at_2"] == [
+        ".metadata", "__0_0.distcp", "__1_0.distcp", "__2_0.distcp",
+        "__3_0.distcp", "meta.json"]
+    assert tckpt.latest_step(ckpt_runs["ck"]) == 8  # resumed since
+
+
+def _npy_twin_ran(ckpt_runs):
+    rcs, errs = ckpt_runs["npy_run"]
+    assert rcs == [0], errs
+
+
+def test_multiprocess_resume_on_another_mesh_and_process_count(ckpt_runs):
+    """The 4-process --mesh 2,2 checkpoint resumed as 2 processes on
+    --mesh 4: its step-6 checkpoint equals the uninterrupted run's."""
+    rcs, errs = ckpt_runs["mesh4"]
+    assert rcs == [0, 0], errs
+    assert all("resumed from" in e and "at step 2" in e for e in errs)
+    assert all("transport gloo" in e for e in errs)
+    _held(ckpt_runs["at6"], 6)
+
+
+def test_multiprocess_checkpoint_resumes_unsharded_bit_equal(ckpt_runs):
+    """The 2-process step-6 checkpoint resumed in one unsharded process to
+    step 8: bit-equal to the uninterrupted run."""
+    rcs, errs = ckpt_runs["unsharded"]
+    assert rcs == [0], errs
+    _held(ckpt_runs["ck"], 8)
+
+
+def test_multiprocess_resume_from_npy(ckpt_runs):
+    """An npy checkpoint (one process) resumed by 2 processes on --mesh
+    2,2, each reading its own slices, saving through the sharded backend:
+    bit-equal to the uninterrupted run."""
+    _npy_twin_ran(ckpt_runs)
+    rcs, errs = ckpt_runs["npy_resume"]
+    assert rcs == [0, 0], errs
+    assert all("at step 4" in e for e in errs)
+    _held(ckpt_runs["npy"], 8)
+
+
+def test_multiprocess_kill_inside_a_sharded_write(ckpt_runs):
+    """Both ranks die between their step-4 payload and the rename: the
+    step-2 checkpoint stays the newest loadable state."""
+    rcs, errs = ckpt_runs["atomic_run"]
+    assert rcs == [-signal.SIGKILL] * 2, errs
+    assert ".tmp_step_000000000004" in os.listdir(ckpt_runs["atomic"])
+    assert tckpt.latest_step(ckpt_runs["atomic"]) == 2
+    _held(ckpt_runs["atomic"], 2)

@@ -324,7 +324,7 @@ def test_rdma_step_matches_jax_and_ppermute(name, mesh_shape):
 def test_rdma_refusals_match_jax():
     """tests/test_rdma_exchange.py:271-316 through both packages: a kind
     other than stream, no kind, periodic, an unknown mode; 2D grids; the
-    pipelined exchange stays A5 in the port."""
+    pipelined exchange composes with rdma in both."""
     st, jst = port.make_stencil("heat3d"), jmake_stencil("heat3d")
     mesh, jm = _mesh((2,)), jmesh.make_mesh((2, 1, 1))
     for kw, exc, match in (
@@ -348,9 +348,15 @@ def test_rdma_refusals_match_jax():
         tstepper.make_sharded_temporal_step(
             port.make_stencil("heat2d"), _mesh((2,)), (64, 128), 8,
             exchange="rdma")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tstepper.make_sharded_fused_step(st, mesh, GRID, 4, kind="stream",
-                                         exchange="rdma", pipeline=True)
+    # rdma composes with the pipeline, as in the TPU package
+    # (tests/test_torch_pipeline.py holds the values)
+    step = tstepper.make_sharded_fused_step(st, mesh, GRID, 4, kind="stream",
+                                            exchange="rdma", pipeline=True)
+    jstep = jstepper.make_sharded_fused_step(jst, jm, GRID, 4,
+                                             interpret=True, kind="stream",
+                                             exchange="rdma", pipeline=True)
+    assert step._pipeline_active and jstep._pipeline_active
+    assert step._exchange == jstep._exchange == "rdma"
 
 
 def test_cli_rdma_validation_matches_jax():

@@ -271,21 +271,28 @@ def test_sharded_fused_unsupported_configs():
         st, _mesh((3,)), (16, 16, 128), 4) is None  # not divisible
     # --overlap, the 2-axis padfree kind, the stream kind and its rdma
     # exchange run now (tests/test_torch_twoaxis.py, test_torch_stream.py,
-    # test_torch_rdma.py); beside them the unported modes still raise by
+    # test_torch_rdma.py), and so does pipeline=True on the slab kinds
+    # (tests/test_torch_pipeline.py; with overlap on this 8-deep block the
+    # pipeline stays on the non-split body); the padded kind refuses the
+    # pipeline with the TPU package's reason, the ensemble axis raises by
     # name, and rdma off the stream kind raises the TPU package's error
-    for kw, item in (({"kind": "stream", "pipeline": True}, "A5"),
-                     ({"kind": "stream", "overlap": True,
-                       "pipeline": True}, "A5"),
-                     ({"pipeline": True}, "A5"), ({"ensemble": 2}, "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
-                                             (16, 16, 128), 4, **kw)
+    for kw in ({"kind": "stream", "pipeline": True},
+               {"kind": "stream", "overlap": True, "pipeline": True}):
+        step = tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
+                                                (16, 16, 128), 4, **kw)
+        assert step._pipeline_active and not step._overlap_active
+    with pytest.raises(ValueError, match="rides the slab-operand kinds"):
+        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
+                                         4, pipeline=True)
+    with pytest.raises(NotImplementedError, match="A7"):
+        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
+                                         4, ensemble=2)
     with pytest.raises(ValueError, match="streaming kernel family"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128), 4,
                                          exchange="rdma")
-    with pytest.raises(NotImplementedError, match="A5"):
-        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
-                                         4, kind="padfree", pipeline=True)
+    step = tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
+                                            4, kind="padfree", pipeline=True)
+    assert step._pipeline_active and step._padfree_kind == "yzslab"
     # 2D grids go to the row-split whole-block stepper (K8), where the
     # 3D-only options raise by name, as in the TPU package
     for kw, what in (({"pipeline": True}, "pipeline=True is 3D-only"),

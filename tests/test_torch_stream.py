@@ -249,8 +249,9 @@ def test_sharded_stream_step_matches_jax_and_unsharded(name, k, mesh_shape):
 
 
 def test_sharded_stream_refusals():
-    """Guard-frame only (None for periodic, as in JAX); pipeline still
-    raises by name beside stream; the rdma exchange rides the stream kind
+    """Guard-frame only (None for periodic, as in JAX); the pipeline runs
+    beside stream (tests/test_torch_pipeline.py) and refuses periodic with
+    the TPU package's reason; the rdma exchange rides the stream kind
     (tests/test_torch_rdma.py) and raises the TPU package's error off it."""
     st = port.make_stencil("heat3d")
     for shape in ((2,), (2, 2)):
@@ -261,9 +262,13 @@ def test_sharded_stream_refusals():
         assert jstepper.make_sharded_fused_step(
             jmake_stencil("heat3d"), jm, MESH_GRID, 4, interpret=True,
             kind="stream", periodic=True) is None
-    with pytest.raises(NotImplementedError, match="A5"):
+    step = tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
+                                            kind="stream", pipeline=True)
+    assert step._pipeline_active and step._padfree_kind == "stream_yz"
+    with pytest.raises(ValueError, match="guard-frame only"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
-                                         kind="stream", pipeline=True)
+                                         kind="stream", pipeline=True,
+                                         periodic=True)
     step = tstepper.make_sharded_fused_step(st, _mesh((2, 2)), MESH_GRID, 4,
                                             kind="stream", exchange="rdma")
     assert step._exchange == "rdma" and step._rdma_backend == "plain-ring"

@@ -240,6 +240,29 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      --mesh 4 and as one unsharded process, each bit-equal to the
      uninterrupted run; every process's write and read seconds and bytes
      from its log lines;
+  5f. the ring across processes (ROADMAP B7): --exchange rdma on the
+     stream kind as processes that share the card, the slabs carried by
+     ring_send / ring_drain (stores into the peers' CUDA IPC-mapped
+     receive slots under ready flags and credits): heat3d 1024^3 --mesh
+     2,2 --fuse 4 --fuse-kind stream as 4 processes, with --overlap and in
+     bfloat16, as 2 processes of 2 shards, and config 5's share (wave3d
+     256x4096x4096 bf16 --mesh 4,1,1, 8 iterations) as 4 processes, each
+     beside its gloo-host twin in the same launch: every run bit-equal to
+     its one-process run (and the one-process rdma runs to their stream
+     twins), one ring_send and one ring_drain a process for every
+     ring_exchange launch of the one-process run, every site's flags and
+     credits drained, ms/step beside the twin's and the one-process run's
+     with each transport's host time a step call, and the processes'
+     summed peaks (plus the ring's regions), over the set-up and over the
+     time loop, each at or under --mem-check's estimate;
+     each launch opens with a short warm-up run of the ring; with two
+     cards or more the NCCL leg (a card a process, the
+     peer writes over NVLink), else NOT RUN and why.  Phase 3 holds
+     ring_send / ring_drain to the plain peer ring (the same protocol
+     walked by the host over a region tensor) and to the shift itself, bit
+     for bit, at these sites (four shards a launch and one), over five
+     epochs on two slots, and a drain past a 0.25 s deadline records its
+     place and raises; phase 6 times both at the 4-process launch shape;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -643,6 +666,43 @@ PIPE_MP_RUNS = tuple(
 # plain path, checkpointed every CK_EVERY steps for CK_ITERS, the 4-process
 # run killed at the CK_KILL boundary on every rank.
 CK_ITERS, CK_EVERY, CK_KILL = 24, 8, 16
+# The ring across processes (phase 5f, ROADMAP B7): --exchange rdma on the
+# stream kind as processes that share the card, each beside its gloo-host
+# twin in the same launch (the run without the flag) and held to its run
+# in one process: BASELINE config 3 (heat3d 1024^3 2x2) as 4 processes,
+# with --overlap and in bfloat16, as 2 processes of 2 shards, and config
+# 5's share (wave3d 256x4096x4096 bf16 on --mesh 4,1,1) as 4 processes at
+# a reduced iteration count.  (label, processes, stencil, grid,
+# iterations, --log-every, flags)
+_STREAM22 = ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream")
+_RDMA = ("--exchange", "rdma")
+_C5 = ("--mesh", "4,1,1", "--fuse", "4", "--fuse-kind", "stream",
+       "--dtype", "bfloat16")
+# Each launch opens with a short warm-up run of the ring (held like the
+# rest), so no timed run pays the processes' first-run set-up, and the
+# pairs alternate which of the two goes first.
+PEER_ITERS, PEER_C5_ITERS = 40, 8
+PEER_RUNS = (
+    ("warmup", 4, "heat3d", (128, 128, 256), 8, 4, _STREAM22 + _RDMA),
+    ("heat3d_stream", 4, "heat3d", BIG, PEER_ITERS, 8, _STREAM22),
+    ("heat3d_rdma", 4, "heat3d", BIG, PEER_ITERS, 8, _STREAM22 + _RDMA),
+    ("heat3d_rdma_overlap", 4, "heat3d", BIG, PEER_ITERS, 8,
+     _STREAM22 + _RDMA + ("--overlap",)),
+    ("heat3d_stream_overlap", 4, "heat3d", BIG, PEER_ITERS, 8,
+     _STREAM22 + ("--overlap",)),
+    ("heat3d_stream_bf16", 4, "heat3d", BIG, PEER_ITERS, 8,
+     _STREAM22 + ("--dtype", "bfloat16")),
+    ("heat3d_rdma_bf16", 4, "heat3d", BIG, PEER_ITERS, 8,
+     _STREAM22 + _RDMA + ("--dtype", "bfloat16")),
+    ("wave3d_c5_rdma", 4, "wave3d", CONFIG5_GRID, PEER_C5_ITERS, 4,
+     _C5 + _RDMA),
+    ("wave3d_c5_stream", 4, "wave3d", CONFIG5_GRID, PEER_C5_ITERS, 4, _C5),
+    ("warmup_on_2", 2, "heat3d", (128, 128, 256), 8, 4, _STREAM22 + _RDMA),
+    ("heat3d_stream_on_2", 2, "heat3d", BIG, PEER_ITERS, 8, _STREAM22),
+    ("heat3d_rdma_on_2", 2, "heat3d", BIG, PEER_ITERS, 8,
+     _STREAM22 + _RDMA))
+# the NCCL leg (a card per process, the peer writes over NVLink)
+PEER_NCCL = ("heat3d_stream", "heat3d_rdma")
 
 
 def emit(obj) -> None:
@@ -707,12 +767,25 @@ def mp_worker(spec_path: str) -> int:
     sys.path.insert(0, HERE)
     import torch
 
-    from mpi_cuda_process_tpu_torch import cli
+    from mpi_cuda_process_tpu_torch import cli, driver
     from mpi_cuda_process_tpu_torch.ops.cuda import (fullgrid, fused,
                                                      kernels, rawstep,
                                                      remote, streamfused)
     from mpi_cuda_process_tpu_torch.parallel import halo
     from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    # the time loop's peak apart from the set-up's (the initial fields):
+    # the peak is read and reset as the loop starts
+    set_up_peak = [None]
+    run_simulation = driver.run_simulation
+
+    def timed_loop(*args, **kwargs):
+        torch.cuda.synchronize()
+        set_up_peak[0] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return run_simulation(*args, **kwargs)
+
+    driver.run_simulation = timed_loop
 
     with open(spec_path) as fh:
         spec = json.load(fh)
@@ -735,12 +808,28 @@ def mp_worker(spec_path: str) -> int:
             c.clear()
         for t in halo._DISTRIBUTED.values():
             t.reset_stats()
+        halo._PEER_TRANSPORTS.clear()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        set_up_peak[0] = None
         fields, mcells = cli.run(cli.config_from_args(case["argv"]))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - held
+        set_up = peak if set_up_peak[0] is None else set_up_peak[0] - held
         launches = {}
         for c in counters:
             launches.update(c)
         mesh = fields[0].mesh
         transport = halo.default_transport(mesh)
+        peer = None
+        if halo._PEER_TRANSPORTS:
+            ring = halo._PEER_TRANSPORTS[-1]
+            sites = ring.peer_sites()
+            peer = {"backend": ring.backend, "stats": dict(ring.stats),
+                    "sites": [[s_.name, s_.sent, s_.drained, s_.region_bytes,
+                               s_.unit, s_.blocks] for s_ in sites],
+                    "region_bytes": sum(s_.region_bytes for s_ in sites)}
         fps = {f"{j}:{','.join(map(str, c))}": fingerprint(b)
                for j, f in enumerate(fields)
                for c, b in zip(mesh.local_coords(), f)}
@@ -750,7 +839,9 @@ def mp_worker(spec_path: str) -> int:
                     "ms_per_step": 1e3 * cells / (mcells * 1e6),
                     "backend": transport.backend,
                     "transport": dict(transport.stats),
-                    "blocks": len(fields[0]), "device": str(mesh.devices[0])})
+                    "blocks": len(fields[0]), "device": str(mesh.devices[0]),
+                    "peak_bytes": peak, "set_up_peak_bytes": set_up,
+                    "peer": peer})
         del fields
         torch.cuda.empty_cache()
     with open(f"{spec['out']}_r{rank}.json", "w") as fh:
@@ -883,12 +974,53 @@ def multiprocess_phase(counted, lines, main_launches, scratch, runs=MP_RUNS,
                          if fps.get(k) != ref["fingerprints"][k])
             fail(f"multiprocess {label}: blocks differ from one process's "
                  f"run: {bad}")
-        if launches != ref["one_process_launches"]:
-            fail(f"multiprocess {label}: launches {launches} != the one-"
-                 f"process run's {ref['one_process_launches']}")
+        peers = [got[label]["peer"] for got in per_rank]
+        want = dict(ref["one_process_launches"])
+        if any(peers):
+            # the peer ring: each process sends and drains once for each
+            # ring_exchange launch of the one-process run, on every site
+            if not all(p and p["backend"] == "cuda-peer-ring"
+                       for p in peers):
+                fail(f"multiprocess {label}: the peer ring did not carry "
+                     f"every process's exchange: {peers}")
+            for c in per_rank:
+                if "exchange: mode=rdma backend=cuda-peer-ring" not in \
+                        c[label]["lines"] or not any(
+                            ln.startswith("exchange: peer ring drained")
+                            for ln in c[label]["lines"]):
+                    fail(f"multiprocess {label}: no peer-ring backend or "
+                         "drained line logged")
+            for p in peers:
+                for name, sent, drained, *_ in p["sites"]:
+                    if sent != drained or sent < 1:
+                        fail(f"multiprocess {label}: site {name} sent "
+                             f"{sent}, drained {drained}")
+            for key in [k for k in want if k.startswith("ring_exchange[")]:
+                n = want.pop(key)
+                for wrapper in ("ring_send", "ring_drain"):
+                    want[wrapper + key[len("ring_exchange"):]] = \
+                        n * len(per_rank)
+        if launches != want:
+            fail(f"multiprocess {label}: launches {launches} != the "
+                 f"expected {want} (the one-process run's: "
+                 f"{ref['one_process_launches']})")
         stats = [got[label]["transport"] for got in per_rank]
         calls = ref["calls"]
-        return {"label": label, "processes": len(per_rank),
+        extra = {}
+        if any(peers):
+            extra = {
+                "peer_ring_host_ms_per_step_call": max(
+                    1e3 * p["stats"]["seconds"] / calls for p in peers),
+                "peer_ring_bytes_sent_per_step_call": max(
+                    p["stats"]["bytes"] / calls for p in peers),
+                "peer_ring_sites": peers[0]["sites"],
+                "peer_ring_region_bytes": sum(p["region_bytes"]
+                                              for p in peers)}
+        return {**extra, "label": label, "processes": len(per_rank),
+                "peak_bytes_all_processes": sum(
+                    got[label]["peak_bytes"] for got in per_rank),
+                "set_up_peak_bytes_all_processes": sum(
+                    got[label]["set_up_peak_bytes"] for got in per_rank),
                 "argv": " ".join(ref["argv"]), "backend": want_backend,
                 "ms_per_step": per_rank[0][label]["ms_per_step"],
                 "one_process_ms_per_step": ref["one_process_ms_per_step"],
@@ -926,7 +1058,7 @@ def multiprocess_phase(counted, lines, main_launches, scratch, runs=MP_RUNS,
             f"{cards} card: the nccl leg needs a card for each process, "
             "so it was not run (and is not reported as passed)")}
     if nccl_runs:
-        print("multiprocess nccl leg: " + (
+        print(f"{tag} nccl leg: " + (
             "ran" if nccl_note["ran"] else "NOT RUN: " + nccl_note["reason"]),
               flush=True)
     shutil.rmtree(mp_dir, ignore_errors=True)
@@ -981,6 +1113,278 @@ def _io_figures(text):
                          r"blocks in ([0-9.]+)s", text):
         out.append(("read", int(m.group(1)), float(m.group(2))))
     return out
+
+
+def peer_ring_checks(dev, rand, compare, checked, virtual_mesh, ring_of):
+    """Phase 3's checks of ring_send and ring_drain (the ring across
+    processes, row 19's peer form) in one process: a site whose every
+    neighbour is local (a world of one: the kernels store into this
+    process's own receive slots and flags), on every ring of a 2x2 or
+    --mesh 4 mesh (4 shards a launch) and on a one-shard ring (one shard
+    a launch, the 4-process main path's), at the main path's z slab, y
+    slab, corner and config 5's z site and a ragged slab (2- and 4-byte
+    units), five epochs a site on two slots (each slot reused): every
+    drain bit-equal to the plain version (the same protocol walked by
+    the host over a region tensor on the card) and to the shift itself
+    (plain_peer_shift); then every flag and credit at the last epoch on
+    both.  And the deadline: a drain of an epoch never sent, with a
+    0.25 s bound, returns, records its place and raises at the next
+    check; the record is cleared and the site runs on."""
+    import torch
+
+    from mpi_cuda_process_tpu_torch.ops.cuda import _build, remote
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    peer_sites = [((2, 2), 0, (4, 512, 1024), torch.float32),
+                  ((2, 2), 1, (512, 4, 1024), torch.float32),
+                  ((2, 2), 1, (4, 4, 1024), torch.float32),
+                  ((4,), 0, (4, 4096, 4096), torch.bfloat16),
+                  ((2, 2), 1, (4, 512, 1024), torch.bfloat16),
+                  ((4,), 0, (3, 5, 130), torch.float32),
+                  ((4,), 0, (3, 5, 130), torch.bfloat16)]
+    peer_sites += [(None, 0, shape, dtype)
+                   for _, _, shape, dtype in peer_sites[:4]]
+    for mshape, axis, shape, dtype in peer_sites:
+        name = "x".join(map(str, shape)) + (
+            f",{BF16}" if dtype == torch.bfloat16 else "")
+        _, meta = remote.build_ring_exchange_call(shape, dtype, device=dev)
+        if mshape is None:  # one shard, its own next and previous
+            group = mesh_lib.make_mesh((1,), [dev])
+            to = frm = [((0, 0), (0, 0))]
+        else:
+            group = virtual_mesh(mshape)
+            nxt, prv = ring_of(group, axis)
+            to = [((0, nxt[i]), (0, prv[i])) for i in range(4)]
+            frm = [((0, prv[i]), (0, nxt[i])) for i in range(4)]
+        site = remote.PeerSite(meta, group, to, frm, dev)
+        plain = remote.PeerSite(
+            meta, group, to, frm, dev, regions=[torch.zeros(
+                remote.peer_layout(meta, len(to), 1)["bytes"],
+                dtype=torch.uint8, device=dev)])
+        for epoch in range(1, 6):
+            hi = [rand(shape).to(dtype) for _ in to]
+            lo = [rand(shape).to(dtype) for _ in to]
+            remote.launches.clear()
+            got = site.drain(site.post(hi, lo))
+            torch.cuda.synchronize()
+            if dict(remote.launches) != {
+                    _build.launch_key(w, "x".join(map(str, shape)), hi[0]): 1
+                    for w in ("ring_send", "ring_drain")}:
+                fail(f"peer ring {name}: launches {dict(remote.launches)}")
+            ref = plain.drain(plain.post(hi, lo))
+            err = compare(f"ring_send<{name}>", got[0] + got[1],
+                          ref[0] + ref[1], 0.0, None)
+            compare(f"ring_drain<{name}>", got[0] + got[1],
+                    ref[0] + ref[1], 0.0, None)
+            direct = remote.plain_peer_shift(hi, lo, frm)
+            compare(f"ring_drain<{name}>", got[0] + got[1],
+                    direct[0] + direct[1], 0.0, None)
+        site.check_drained()
+        plain.check_drained()
+        checked.append({"kernel": f"ring_send+ring_drain<{name}>",
+                        "shape": list(shape), "mesh": mshape, "axis": axis,
+                        "shards_a_launch": len(to), "epochs": 5,
+                        "nslots": site.nslots, "unit_bytes": site.unit,
+                        "blocks_a_chunk": site.blocks,
+                        "chunks": [meta["chunk_axis"], meta["nchunks"]],
+                        "drained": True, "max_abs_err": err, "atol": 0.0})
+        del hi, lo, got, ref, direct
+    remote.launches.clear()
+    _, meta = remote.build_ring_exchange_call((4, 64, 128), torch.float32,
+                                              device=dev)
+    site = remote.PeerSite(meta, mesh_lib.make_mesh((1,), [dev]),
+                           [((0, 0), (0, 0))], [((0, 0), (0, 0))], dev,
+                           timeout_s=0.25)
+    held_out = torch.empty((1, 2, 4, 64, 128), device=dev)
+    t0 = time.perf_counter()
+    site._launch(1, 1, None, held_out)  # epoch 1 was never sent
+    torch.cuda.synchronize()
+    waited = time.perf_counter() - t0
+    try:
+        site.check()
+        fail("peer ring: a drain past its deadline recorded nothing")
+    except remote.PeerTimeout as e:
+        timeout_msg = str(e)
+    if not 0.25 <= waited < 5 or "epoch 1" not in timeout_msg:
+        fail(f"peer ring deadline: {waited:.3f} s, {timeout_msg}")
+    remote.reset_peer_record(dev)
+    hi = [rand((4, 64, 128))]
+    got = site.drain(site.post(hi, hi))
+    torch.cuda.synchronize()
+    if not torch.equal(got[0][0], hi[0]):
+        fail("peer ring: the site after a cleared timeout")
+    checked.append({"kernel": "ring_drain deadline", "bound_s": 0.25,
+                    "waited_s": waited, "record": timeout_msg})
+    remote.free_peer_regions()
+    remote.launches.clear()
+    del held_out, hi, got
+
+
+def peer_ring_timing(dev, rand, time_ms, record, kernels_out, p5f):
+    """Phase 6's times of ring_send and ring_drain (row 19's peer form)
+    at the 4-process main path's launch (one shard a process, both
+    directions) for heat3d 1024^3 2x2's z slab, y slab and corner sites
+    and config 5's z site, on a one-shard ring in this process, each
+    launch of 50 sends and drains in turn timed by its own pair of CUDA
+    events.  Plain: the plain peer ring's post or drain (the host walks
+    the protocol over a region tensor on the card, polling flags).
+    Library: one copy_ per slab.  Bound: each slab read once and
+    written once (into its slot, or out of it).  Launches: phase 5f's
+    processes (``p5f``), per process and step."""
+    import torch
+
+    from mpi_cuda_process_tpu_torch.ops.cuda import _build, remote
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    per_step_peer = {}
+    for line in p5f["runs"]:
+        if line["label"] in ("heat3d_rdma", "wave3d_c5_rdma") and \
+                line["processes"] == 4 and line["backend"] == "gloo-host":
+            iters = PEER_C5_ITERS if "c5" in line["label"] else PEER_ITERS
+            for key, n in line["ring_launches"].items():
+                per_step_peer[key] = n / 4 / iters
+    one = mesh_lib.make_mesh((1,), [dev])
+    for shape, dtype in (((4, 512, 1024), torch.float32),
+                         ((512, 4, 1024), torch.float32),
+                         ((4, 4, 1024), torch.float32),
+                         ((4, 4096, 4096), torch.bfloat16)):
+        sname = "x".join(map(str, shape))
+        b16 = dtype == torch.bfloat16
+        _, meta = remote.build_ring_exchange_call(shape, dtype, device=dev)
+        site = remote.PeerSite(meta, one, [((0, 0), (0, 0))],
+                               [((0, 0), (0, 0))], dev)
+        plain = remote.PeerSite(
+            meta, one, [((0, 0), (0, 0))], [((0, 0), (0, 0))], dev,
+            regions=[torch.zeros(remote.peer_layout(meta, 1, 1)["bytes"],
+                                 dtype=torch.uint8, device=dev)])
+        hi, lo = [rand(shape).to(dtype)], [rand(shape).to(dtype)]
+        for _ in range(3):
+            site.drain(site.post(hi, lo))
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        send_ms = drain_ms = 0.0
+        for _ in range(50):
+            ev[0].record()
+            epoch = site.post(hi, lo)
+            ev[1].record()
+            site.drain(epoch)
+            ev[2].record()
+            torch.cuda.synchronize()
+            send_ms += ev[0].elapsed_time(ev[1]) / 50
+            drain_ms += ev[1].elapsed_time(ev[2]) / 50
+        site.check_drained()
+        plain_send = plain_drain = 0.0
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            epoch = plain.post(hi, lo)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plain.drain(epoch)
+            torch.cuda.synchronize()
+            plain_send += 1e3 * (t1 - t0) / 3
+            plain_drain += 1e3 * (time.perf_counter() - t1) / 3
+        outs = [torch.empty_like(hi[0]) for _ in range(2)]
+
+        def copies(hi=hi, lo=lo, outs=outs):
+            outs[0].copy_(hi[0])
+            outs[1].copy_(lo[0])
+
+        library_ms = time_ms(copies, 50)
+        for wrapper, ms, pms in (("ring_send", send_ms, plain_send),
+                                 ("ring_drain", drain_ms, plain_drain)):
+            key = _build.launch_key(wrapper, sname, hi[0])
+            record(f"{wrapper}<{sname}{',' + BF16 if b16 else ''}>", wrapper,
+                   sname, "remote.cu", TPU + "remote.py:136", ms, pms,
+                   4 * meta["slab_bytes"], 0, library_ms, 4, shape,
+                   per_step_peer.get(key, 0.0), dtype=BF16 if b16 else None)
+            kernels_out[-1].update(
+                shards_a_launch=1, unit_bytes=site.unit,
+                blocks_a_chunk=site.blocks, nslots=site.nslots,
+                region_bytes=site.region_bytes,
+                timed_as="one shard's both directions, the 4-process "
+                         "main path's launch")
+        del hi, lo, outs
+    remote.free_peer_regions()
+
+
+def peer_ring_phase(counted, lines, main_launches, scratch):
+    """Phase 5f: the ring across processes (ROADMAP B7).  Every PEER_RUNS
+    run in one process (virtual devices: the in-card ring_exchange for the
+    rdma runs), then as its processes on the card through phase 5d's
+    machinery: each bit-equal to its one-process run (blocks, --log-every
+    lines), the rdma runs carried by ring_send / ring_drain with one of each
+    a process for every ring_exchange launch of the one-process run, every
+    site drained; each one-process rdma run bit-equal to its stream twin;
+    each rdma run's ms/step printed beside its gloo-host twin's (the same
+    processes, the same launch) and the one-process run's, with both
+    transports' host time a step call, and the processes' summed peaks
+    (PyTorch's allocations plus the peer ring's regions), over the set-up
+    (the initial fields) and over the time loop, each held at or under
+    --mem-check's estimate.  With two cards or more the NCCL leg runs
+    heat3d 2x2 with and without the ring, a card a process (the peer
+    writes over NVLink); else it prints NOT RUN and why.  Returns the
+    phase's lines of figures."""
+    from mpi_cuda_process_tpu_torch import make_stencil
+    from mpi_cuda_process_tpu_torch.utils import budget
+
+    rows, nccl_note, mp = multiprocess_phase(
+        counted, lines, main_launches, scratch, runs=PEER_RUNS,
+        nccl_runs=PEER_NCCL, tag="peer_ring")
+    for label in mp:
+        if label.endswith("_rdma") or "_rdma_" in label:
+            twin = label.replace("_rdma", "_stream")
+            if mp[label]["fingerprints"] != mp[twin]["fingerprints"]:
+                fail(f"peer_ring {label}: the one-process rdma run differs "
+                     f"from its stream twin {twin}")
+    spec = {r[0]: r for r in PEER_RUNS}
+    by = {(r["label"], r["processes"], r["backend"]): r for r in rows}
+    out = []
+    for (label, procs, backend), row in by.items():
+        if not (label.endswith("_rdma") or "_rdma_" in label):
+            continue  # a gloo-host twin, or a launch's warm-up
+        twin = by[(label.replace("_rdma", "_stream"), procs, backend)]
+        _, _, stencil, grid, _, _, flags = spec[label]
+        dtype = flags[flags.index("--dtype") + 1] if "--dtype" in flags \
+            else None
+        st = make_stencil(stencil, **({"dtype": dtype} if dtype else {}))
+        mesh = tuple(int(v) for v in flags[1].split(","))
+        est, parts = budget.estimate_run_bytes(
+            st, grid, mesh=mesh, fuse=4, fuse_kind="stream",
+            overlap="--overlap" in flags, exchange="rdma",
+            shards_per_device=math.prod(mesh), processes=procs)
+        regions = row["peer_ring_region_bytes"]
+        peak = row["peak_bytes_all_processes"] + regions
+        set_up = row["set_up_peak_bytes_all_processes"] + regions
+        if max(peak, set_up) > est:
+            fail(f"peer_ring {label} ({procs} processes): peak {peak} B "
+                 f"over the time loop, {set_up} B over the set-up, above "
+                 f"the estimate {est} B")
+        line = {"label": label, "processes": procs, "backend": backend,
+                "argv": row["argv"],
+                "ms_per_step": row["ms_per_step"],
+                "gloo_twin_ms_per_step": twin["ms_per_step"],
+                "one_process_ms_per_step": row["one_process_ms_per_step"],
+                "peer_ring_host_ms_per_step_call":
+                    row["peer_ring_host_ms_per_step_call"],
+                "gloo_twin_exchange_ms_per_step_call":
+                    twin["exchange_ms_per_step_call"],
+                "peer_ring_bytes_sent_per_step_call":
+                    row["peer_ring_bytes_sent_per_step_call"],
+                "ring_launches": {k: v for k, v in row["launches"].items()
+                                  if k.startswith("ring_")},
+                "sites": row["peer_ring_sites"],
+                "peak_bytes_all_processes": peak,
+                "set_up_peak_bytes_all_processes": set_up,
+                "peer_ring_region_bytes": regions,
+                "estimate_bytes": est,
+                "peer_slot_term": [b for lb, b in parts
+                                   if lb.startswith("peer ring")],
+                "bit_equal_to_one_process": True,
+                "bit_equal_to_gloo_twin": True, "drained": True}
+        out.append(line)
+        emit({"phase": "peer_ring_run", **line})
+    return {"runs": out, "nccl": nccl_note}
 
 
 def pipeline_checkpoint_phase(counted, lines, main_launches, scratch):
@@ -1694,6 +2098,7 @@ def main() -> int:
                             "atol": 0.0})
             del ref, got, call
         del hi, lo
+    peer_ring_checks(dev, rand, compare, checked, virtual_mesh, ring_of)
     # bfloat16 kinds, bit for bit against their plain versions on bfloat16
     # tensors: K1 (four tap sets, advection with both Courant signs), K2 and
     # raw_step_grayscott at a ragged shape and 512^3 (two steps); K10 RAW at
@@ -3047,6 +3452,16 @@ def main() -> int:
                   "gloo and pinned host buffers; checkpoint seconds and "
                   "bytes: each process's own blocks, from its log lines"})
 
+    # ---- 5f. the ring across processes ------------------------------------
+    p5f = peer_ring_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "peer_ring", "ok": True, "seconds": took(),
+          "card": smi, "runs": len(p5f["runs"]), "nccl": p5f["nccl"],
+          "note": "processes that share one card: the peer ring's slabs "
+                  "never leave it (ring_send stores into the peers' "
+                  "CUDA IPC-mapped receive slots); the gloo-host twin "
+                  "stages them through pinned host buffers; peak: the "
+                  "processes' PyTorch peaks plus their ring regions"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -3195,7 +3610,8 @@ def main() -> int:
             "stream_step": ("K10", 16), "stream_zslab": ("K10", 17),
             "stream_yzslab": ("K10", 18),
             "raw_step_grayscott": ("raw_step_grayscott", 4),
-            "ring_exchange": ("ring_exchange", 19)}
+            "ring_exchange": ("ring_exchange", 19),
+            "ring_send": ("ring_send", 19), "ring_drain": ("ring_drain", 19)}
     # the table row of a (wrapper, stencil) whose TPU body is its own row:
     # advection's raw-step taps (row 3) and the three families' micro-steps
     # (row 6: _micro_advect, _micro_grayscott, _micro_sor)
@@ -3817,6 +4233,7 @@ def main() -> int:
                 "turns": [[ex, v] for ex, v in turns]})
         del fields, steps
         torch.cuda.empty_cache()
+    peer_ring_timing(dev, rand, time_ms, record, kernels_out, p5f)
     # bfloat16 kinds at their f32 twins' shapes: K1's four tap sets, K2
     # and raw_step_grayscott at 512^3 (one F.conv3d in bfloat16 beside K1
     # and K2, checked against the plain step at the bf16 tolerance); K10

@@ -61,8 +61,12 @@ host buffers when processes share a card), and the fields equal the same
 ``--mesh`` run in one process bit for bit.  A multi-process run refuses
 an ``npy`` checkpoint save (it would need the global grid: the sharded
 backend, ``--checkpoint-backend orbax``, has each process write its own
-shards), ``--render`` (no process holds the global grid) and ``--exchange
-rdma`` (ROADMAP B7) before any field is built.
+shards) and ``--render`` (no process holds the global grid) before any
+field is built; there ``--exchange rdma`` runs the ring's peer form
+(``ring_send`` / ``ring_drain`` into receive slots the peers map through
+CUDA IPC, or shared memory on the CPU), on one node only: across nodes,
+or across cards that cannot reach each other's memory, it is refused by
+name (ROADMAP B7).
 ``--checkpoint-backend orbax`` writes ``torch.distributed.checkpoint``'s
 format, each process its own blocks, and ``--resume`` loads any format
 onto this run's mesh, process count or unsharded grid.
@@ -221,7 +225,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "neighbour's received slab, each chunk counted on "
                         "its ready counter (no receive ring, no credits), "
                         "one launch per exchange site for every ring on a "
-                        "card.  Needs "
+                        "card; across processes (one node) a send into "
+                        "the peers' receive slots and a drain, under "
+                        "ready flags and credits.  Needs "
                         "--fuse, --mesh and --fuse-kind stream, "
                         "guard-frame only; composes with --overlap; the "
                         "same values as ppermute")
@@ -396,7 +402,8 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
             periodic=cfg.periodic, compute=compute,
             fuse_kind=cfg.fuse_kind, overlap=cfg.overlap,
             pipeline=cfg.pipeline, exchange=cfg.exchange,
-            shards_per_device=shards)
+            shards_per_device=shards,
+            processes=mesh.processes if mesh is not None else 1)
     except ValueError:
         if cfg.mem_check == "error":
             raise
@@ -488,7 +495,7 @@ def _make_run_mesh(cfg: RunConfig, device):
         log.info("mesh %s: %d shards over %d processes, %d here on %s; "
                  "transport %s", "x".join(map(str, cfg.mesh)), m.size,
                  m.processes, m.per_process, m.devices[0], m.backend)
-        _refuse_multiprocess(cfg)
+        _refuse_multiprocess(cfg, m)
     else:
         log.info("mesh %s: %d shards on %d device(s)",
                  "x".join(map(str, cfg.mesh)), m.size,
@@ -503,7 +510,7 @@ def _saves_checkpoints(cfg: RunConfig) -> bool:
                                              or cfg.tol > 0)
 
 
-def _refuse_multiprocess(cfg: RunConfig) -> None:
+def _refuse_multiprocess(cfg: RunConfig, m) -> None:
     """What a multi-process run cannot do yet, refused by its item before
     any field is built."""
     if cfg.checkpoint_backend == "npy" and _saves_checkpoints(cfg):
@@ -514,9 +521,34 @@ def _refuse_multiprocess(cfg: RunConfig) -> None:
         raise ValueError(
             f"--render draws the global grid, and {GLOBAL_GRID_REASON}")
     if cfg.exchange == "rdma":
+        _refuse_peer_ring(m)
+
+
+def _refuse_peer_ring(m) -> None:
+    """The peer ring maps every peer's device memory (CUDA IPC) or its
+    shared-memory file: every process must be on this node, and with a
+    card a process, every pair of cards must reach each other's memory
+    (``cudaDeviceCanAccessPeer``).  Refused by name; never carried by
+    gloo instead."""
+    if not mesh_lib.same_node():
         raise NotImplementedError(
-            "--exchange rdma on a multi-process mesh: the ring kernel "
-            f"writes into a neighbour's slab on its card: {halo.RDMA_ITEM}")
+            "--exchange rdma across nodes: the peer ring maps its peers' "
+            "memory through CUDA IPC or shared memory, which reach one node "
+            f"only (LOCAL_WORLD_SIZE={os.environ.get('LOCAL_WORLD_SIZE')} "
+            f"of WORLD_SIZE={m.processes}): {halo.RDMA_NODES_ITEM}")
+    if m.devices[0].type != "cuda":
+        return
+    n = torch.cuda.device_count()
+    cards = sorted({r % n for r in range(int(os.environ.get(
+        "LOCAL_WORLD_SIZE", m.processes)))})
+    for a in cards:
+        for b in cards:
+            if a != b and not torch.cuda.can_device_access_peer(a, b):
+                raise NotImplementedError(
+                    f"--exchange rdma: cuda:{a} cannot access cuda:{b}'s "
+                    "memory (cudaDeviceCanAccessPeer is false), so the peer "
+                    "ring cannot write into its receive slots: "
+                    f"{halo.RDMA_ITEM}")
 
 
 def build(cfg: RunConfig):
@@ -618,8 +650,9 @@ def build(cfg: RunConfig):
                          "overlap %s)", step_fn._padfree_kind,
                          "on" if step_fn._overlap_active else "off")
             if cfg.exchange == "rdma":
-                # which path carries the ring: the kernel on cards, its
-                # plain version on the CPU (never read as a measured ring)
+                # which path carries the ring: the kernels on cards, their
+                # plain versions on the CPU (never read as a measured
+                # ring); across processes the peer ring
                 log.info("exchange: mode=rdma backend=%s",
                          getattr(step_fn, "_rdma_backend", "unknown"))
         elif st.ndim == 2:
@@ -768,6 +801,7 @@ def run(cfg: RunConfig) -> Tuple:
     driver.synchronize(fields)
     # the global cells over the slowest process's time
     dt = _slowest(fields, time.perf_counter() - t0)
+    _check_peer_ring(step_fn)
     mcells = cells * remaining / dt / 1e6
     log.info("%d steps on %s grid in %.3fs  (%.1f Mcells/s)",
              remaining, "x".join(map(str, cfg.grid)), dt, mcells)
@@ -809,6 +843,7 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
             "exchange", step=start_step + n * unit))
     driver.synchronize(fields)
     dt = _slowest(fields, time.perf_counter() - t0)
+    _check_peer_ring(step_fn)
     n_done = n_calls * unit
     mcells = cells * n_done / dt / 1e6 if n_done else 0.0
     log.info(
@@ -817,6 +852,21 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
         res <= cfg.tol, n_done, res, cfg.tol, dt, mcells)
     _epilogue(cfg, fields, start_step + n_done, save_ckpt=True)
     return fields, mcells
+
+
+def _check_peer_ring(step_fn) -> None:
+    """After the loop, on a peer ring (``--exchange rdma`` across
+    processes): raise a wait that timed out, and hold every site's flags
+    and credits at its last epoch (collective: every process drained
+    every epoch)."""
+    transport = getattr(step_fn, "_rdma_transport", None)
+    if transport is None or not transport.multiprocess:
+        return
+    transport.check()
+    transport.check_drained()
+    log.info("exchange: peer ring drained: %d site(s), %d shift(s) "
+             "posted here", len(transport.peer_sites()),
+             transport.stats["shifts"])
 
 
 def _slowest(fields, dt: float) -> float:

@@ -37,13 +37,15 @@ process, :class:`DistributedTransport` for a mesh that spans processes, in
 which a neighbour in this process is handed over as in process and one in
 another process goes through ``torch.distributed`` point to point, one
 ``batch_isend_irecv`` per shift.  The slab exchanges also take
-:class:`RdmaTransport`, the ring-exchange kernel (``ops/cuda/remote.py``,
-the counterpart of the TPU package's in-kernel remote DMA) for every ring
-of shards that shares a device.  An axis of one shard keeps its local fill
-or wrap and runs no ring; the wall shards' received slabs are overwritten
-with the guard constant after a full-ring shift, so every transport gives
-the same slabs bit for bit; corners keep the two-pass composition, across
-processes too (the second pass reads the first pass's received slabs).
+:class:`RdmaTransport`, the ring-exchange kernels (``ops/cuda/remote.py``,
+the counterpart of the TPU package's in-kernel remote DMA): one launch for
+every ring of shards that shares a device, or across processes a send and
+a drain through receive slots the peers map.  An axis of one shard keeps
+its local fill or wrap and runs no ring; the wall shards' received slabs
+are overwritten with the guard constant after a full-ring shift, so every
+transport gives the same slabs bit for bit; corners keep the two-pass
+composition, across processes too (the second pass reads the first pass's
+received slabs).
 
 A shift is posted, then awaited (``post(...).wait()``), and an exchange is
 its rounds of shifts: :func:`post_and_pad`, :func:`post_slabs_axis` and
@@ -59,7 +61,10 @@ holds (:func:`post_slabs_from_borders`,
 :func:`post_slabs_2axis_from_borders`): the same shifts, the sender's
 rows given directly.
 
-Not ported yet: a ring across cards or processes (peer writes, B7).
+Across processes :class:`RdmaTransport` runs the ring's peer form
+(``ring_send`` / ``ring_drain`` into CUDA IPC-mapped receive slots) on one
+node; a ring between nodes, or across the cards of one process, is not
+ported (B7).
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from .mesh import Mesh
+from .mesh import Mesh, dist_timeout_s
 
 
 def _take(x: torch.Tensor, axis: int, start: int, size: int) -> torch.Tensor:
@@ -297,38 +302,59 @@ def default_transport(mesh: Mesh):
 _DISTRIBUTED: Dict[str, DistributedTransport] = {}
 
 RDMA_ITEM = "ROADMAP B7 (peer writes across cards)"
+# What B7 still leaves out: CUDA IPC and shared memory are per node.
+RDMA_NODES_ITEM = "ROADMAP B7's inter-node part (a ring between nodes)"
+
 
 class RdmaTransport:
-    """Ring shifts through the ring-exchange kernel (``exchange="rdma"``).
+    """Ring shifts through the ring-exchange kernels (``exchange="rdma"``).
 
-    The counterpart of the TPU package's ``RdmaTransport``: every shift of
-    a slab pair along a mesh axis is one ``ops/cuda/remote.py`` launch per
-    device, covering every ring of that axis on the device: each chunk
-    lands in place in the neighbour's received slab.  Each exchange site
-    (axis, slab shape, dtype, device, shard count) keeps its ready
-    counters; ``sites`` holds the meta of every site built, in build
-    order.  ``nslots`` (the TPU ring's depth, which sets the chunk ladder)
-    and ``prefer_nc`` (a preferred chunk count) are the kernel's variant
-    knobs; 0 takes its defaults.
+    The counterpart of the TPU package's ``RdmaTransport``.  On a mesh of
+    one process every shift of a slab pair along a mesh axis is one
+    ``ops/cuda/remote.py`` ``ring_exchange`` launch per device, covering
+    every ring of that axis on the device: each chunk lands in place in
+    the neighbour's received slab.  Each exchange site (axis, slab shape,
+    dtype, device, shard count) keeps its ready counters.
 
-    ``backend`` says what carries the exchange: ``"cuda-ring"`` when the
-    mesh lives on cards (the kernel runs), ``"plain-ring"`` on the CPU (its
-    plain version): a CPU run never reads as a measured ring.  A ring whose
-    shards span several devices or processes raises (peer writes, ROADMAP B7).
+    On a mesh that spans processes (one node) every shift is a
+    :class:`~..ops.cuda.remote.PeerSite`'s post and drain: :meth:`post`
+    launches ``ring_send`` (one launch for the process's shards, whichever
+    of their neighbours live here or in a peer), the pending shift's
+    ``wait()`` launches ``ring_drain`` on the then-current stream, so an
+    overlapped step's interior runs between the two.  Sites are built
+    collectively (:meth:`prepare`, at the step's construction, in the
+    same order in every process; a site first met in a post is built
+    there, by every process alike).  ``stats`` counts posted shifts, the
+    bytes sent to other processes and the host seconds inside the
+    transport, as :class:`DistributedTransport`'s do; :meth:`check`
+    raises a recorded timeout and :meth:`check_drained` (collective) holds
+    every site's flags at its last epoch.
+
+    ``sites`` holds the meta of every site built, in build order.
+    ``nslots`` (the TPU ring's depth: the chunk ladder, and across
+    processes the receive slots) and ``prefer_nc`` (a preferred chunk
+    count) are the kernels' variant knobs; 0 takes their defaults.
+
+    ``backend`` says what carries the exchange: ``"cuda-ring"`` /
+    ``"cuda-peer-ring"`` when the mesh lives on cards (the kernels run),
+    ``"plain-ring"`` / ``"plain-peer-ring"`` on the CPU (their plain
+    versions): a CPU run never reads as a measured ring.  A ring whose
+    shards span several devices of one process raises (ROADMAP B7).
     """
 
     def __init__(self, mesh: Mesh, nslots: int = 0, prefer_nc: int = 0):
-        if mesh.multiprocess:
-            raise NotImplementedError(
-                "exchange='rdma': the ring kernel writes into the "
-                "neighbour's slab on its card, and this mesh spans "
-                f"{mesh.processes} processes: {RDMA_ITEM}")
         cuda = all(d.type == "cuda" for d in mesh.devices)
-        self.backend = "cuda-ring" if cuda else "plain-ring"
+        self.multiprocess = mesh.multiprocess
+        kind = "peer-ring" if mesh.multiprocess else "ring"
+        self.backend = ("cuda-" if cuda else "plain-") + kind
         self.nslots = int(nslots)
         self.prefer_nc = int(prefer_nc)
         self.sites: List[dict] = []
         self._calls: Dict[tuple, object] = {}
+        self._peers: Dict[tuple, object] = {}
+        self.stats = {"shifts": 0, "bytes": 0, "seconds": 0.0}
+        if mesh.multiprocess:
+            _PEER_TRANSPORTS.append(self)
 
     def _call(self, axis: int, slab: torch.Tensor, n_shards: int):
         from ..ops.cuda.remote import build_ring_exchange_call
@@ -343,19 +369,83 @@ class RdmaTransport:
             self._calls[key] = call
         return self._calls[key]
 
+    def prepare(self, mesh: Mesh, sites, dtype) -> None:
+        """Build the peer sites ``sites`` (``(axis, slab shape)`` pairs)
+        for ``dtype`` slabs now, collectively, before the time loop (a
+        mesh of one process builds nothing here)."""
+        if mesh.multiprocess:
+            for axis, shape in sites:
+                self._peer(mesh, axis, tuple(shape), dtype)
+
+    def _peer(self, mesh: Mesh, axis: int, shape, dtype):
+        from ..ops.cuda.remote import PeerSite, build_ring_exchange_call
+
+        key = (axis, tuple(shape), dtype)
+        if key not in self._peers:
+            n = _axis_count(mesh, axis)
+            per = mesh.per_process
+
+            def where(c):
+                g = mesh.index(c)
+                return g // per, g % per
+
+            coords = mesh.local_coords()
+            to = [(where(_shifted(c, axis, 1, n)),
+                   where(_shifted(c, axis, -1, n))) for c in coords]
+            frm = [(where(_shifted(c, axis, -1, n)),
+                    where(_shifted(c, axis, 1, n))) for c in coords]
+            dev = mesh.devices[0]
+            _, meta = build_ring_exchange_call(
+                shape, dtype, nslots=self.nslots, prefer_nc=self.prefer_nc,
+                device=dev)
+            site = PeerSite(meta, mesh, to, frm, dev,
+                            name=f"axis {axis} slab "
+                                 + "x".join(map(str, shape)),
+                            timeout_s=dist_timeout_s())
+            self._peers[key] = site
+            self.sites.append(dict(meta, axis=axis, shards=len(coords),
+                                   device=str(dev),
+                                   processes=mesh.processes,
+                                   region_bytes=site.region_bytes))
+        return self._peers[key]
+
     def post(self, hi_slabs, lo_slabs, mesh: Mesh, axis: int,
              periodic: bool):
-        return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
-                                     periodic))
+        if not mesh.multiprocess:
+            return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
+                                         periodic))
+        site = self._peer(mesh, axis, hi_slabs[0].shape, hi_slabs[0].dtype)
+        t0 = time.perf_counter()
+        epoch = site.post(hi_slabs, lo_slabs)
+        self.stats["shifts"] += 1
+        self.stats["bytes"] += site.meta["slab_bytes"] * sum(
+            1 for pair in site.to for r, _ in pair if r != site.rank)
+        self.stats["seconds"] += time.perf_counter() - t0
+        return _PeerPosted(self, site, epoch)
+
+    def peer_sites(self) -> list:
+        return list(self._peers.values())
+
+    def check(self) -> None:
+        """Raise a timed-out wait any peer-ring kernel of this process
+        recorded (no synchronization: call it after one)."""
+        for site in self._peers.values():
+            site.check()
+
+    def check_drained(self) -> None:
+        """Collective: every peer site's flags and credits at its last
+        epoch, in build order on every process."""
+        for site in self._peers.values():
+            site.check_drained()
 
     def shift_pair(self, hi_slabs: Sequence[torch.Tensor],
                    lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
                    periodic: bool):
-        """Full-ring shift of a slab pair along grid ``axis``: ``(from_left,
-        from_right)``, the previous shard's ``hi`` and the next shard's
-        ``lo`` slab for each shard, wrapping at the ring's ends whatever
-        ``periodic`` says (the caller substitutes the guard constant at
-        non-periodic walls)."""
+        """Full-ring shift of a slab pair along grid ``axis`` on a mesh of
+        one process: ``(from_left, from_right)``, the previous shard's
+        ``hi`` and the next shard's ``lo`` slab for each shard, wrapping at
+        the ring's ends whatever ``periodic`` says (the caller substitutes
+        the guard constant at non-periodic walls)."""
         n = _axis_count(mesh, axis)
         coords = list(mesh.coords())
         nxt = [mesh.index(_shifted(c, axis, 1, n)) for c in coords]
@@ -384,6 +474,25 @@ class RdmaTransport:
             for j, i in enumerate(idx):
                 from_left[i], from_right[i] = fl[j], fr[j]
         return from_left, from_right
+
+
+
+class _PeerPosted:
+    """A shift posted on a peer site: ``wait()`` drains it."""
+
+    def __init__(self, transport: RdmaTransport, site, epoch: int):
+        self._t, self._site, self._epoch = transport, site, epoch
+
+    def wait(self):
+        t0 = time.perf_counter()
+        pair = self._site.drain(self._epoch)
+        self._t.stats["seconds"] += time.perf_counter() - t0
+        return pair
+
+
+# Every RdmaTransport of a mesh that spans processes, in build order (a
+# harness reads their stats).
+_PEER_TRANSPORTS: List[RdmaTransport] = []
 
 
 class Exchange:

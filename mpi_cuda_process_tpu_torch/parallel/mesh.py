@@ -183,12 +183,19 @@ class Mesh:
     def barrier(self) -> None:
         """Every process reaches this point before any goes on."""
         if self.multiprocess:
-            import torch.distributed as dist
+            _barrier()
 
-            if self.backend == "nccl":
-                dist.barrier(device_ids=[self.devices[0].index])
-            else:
-                dist.barrier()
+    def all_gather_object(self, obj) -> list:
+        """Every process's ``obj`` (picklable) in rank order: ``[obj]`` for
+        one process.  The peer ring exchanges its regions' handles or
+        file names this way, in one global order."""
+        if not self.multiprocess:
+            return [obj]
+        import torch.distributed as dist
+
+        out = [None] * self.processes
+        dist.all_gather_object(out, obj)
+        return out
 
 
 def _indexed(d: torch.device) -> torch.device:
@@ -197,6 +204,30 @@ def _indexed(d: torch.device) -> torch.device:
     if d.type == "cuda" and d.index is None:
         return torch.device("cuda", torch.cuda.current_device())
     return d
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def dist_timeout_s() -> float:
+    """Seconds any wait for a peer may last
+    (``MPI_CUDA_PROCESS_TORCH_DIST_TIMEOUT``, default 300)."""
+    return float(os.environ.get(DIST_TIMEOUT_ENV, DEFAULT_DIST_TIMEOUT_S))
+
+
+def same_node() -> bool:
+    """Whether every process of the run is on this node: the launcher's
+    ``LOCAL_WORLD_SIZE`` equals ``WORLD_SIZE`` (true for one process and
+    when the launcher sets neither)."""
+    world = process_count()
+    return world == 1 or int(os.environ.get("LOCAL_WORLD_SIZE",
+                                            world)) == world
 
 
 def process_count() -> int:
@@ -402,8 +433,7 @@ def bootstrap_distributed(coordinator_address: Optional[str] = None,
     rank = _env_int("RANK")
     if world < 1 or not 0 <= rank < world:
         raise ValueError(f"RANK={rank} is not a rank of WORLD_SIZE={world}")
-    timeout_s = float(os.environ.get(DIST_TIMEOUT_ENV,
-                                     DEFAULT_DIST_TIMEOUT_S))
+    timeout_s = dist_timeout_s()
     kind = torch.device(device).type
     backend = choose_backend(
         kind, _env_int("LOCAL_WORLD_SIZE", world),
@@ -424,12 +454,17 @@ def bootstrap_distributed(coordinator_address: Optional[str] = None,
 def shutdown_distributed() -> None:
     """Close the process group, once every process is done with it (a
     barrier first): a process that left with the group open could tear
-    down connections its peers still use."""
+    down connections its peers still use.  The peer ring's regions come
+    down first, in two halves: every process unmaps its peers' regions, a
+    barrier, then each frees its own (an owner must not free a region a
+    peer still maps)."""
     import torch.distributed as dist
 
+    from ..ops.cuda import remote
+
     if dist.is_available() and dist.is_initialized():
-        if dist.get_backend() == "nccl":
-            dist.barrier(device_ids=[torch.cuda.current_device()])
-        else:
-            dist.barrier()
+        remote.close_peer_regions()
+        _barrier()
+        remote.free_peer_regions()
+        _barrier()
         dist.destroy_process_group()

@@ -490,7 +490,9 @@ def make_sharded_fused_step(
     through the ring-exchange kernel (``halo.RdmaTransport``, one launch
     per exchange site and device) in place of the in-process copies, on
     z-only and (z, y) meshes, composed with ``overlap``; the values equal
-    ``exchange="ppermute"`` bit for bit.  As in the TPU package a forced
+    ``exchange="ppermute"`` bit for bit.  On a mesh that spans processes
+    the transport's peer sites (``ring_send`` / ``ring_drain``) are built
+    here, collectively, before the time loop.  As in the TPU package a forced
     mode never falls back: an unknown mode, ``periodic`` and a kind other
     than ``"stream"`` raise with the reason.  The step carries
     ``_exchange`` and, for rdma, ``_rdma_backend`` and ``_rdma_transport``.
@@ -603,7 +605,9 @@ def make_sharded_fused_step(
 def _attach_exchange(step, exchange: str, transport):
     """Tag a sharded fused step with its transport, as the TPU package
     does: ``_exchange`` ('ppermute' or 'rdma') and, for rdma,
-    ``_rdma_backend`` ('cuda-ring' or 'plain-ring') and ``_rdma_transport``
+    ``_rdma_backend`` ('cuda-ring' or 'plain-ring'; 'cuda-peer-ring' or
+    'plain-peer-ring' on a mesh that spans processes) and
+    ``_rdma_transport``
     (its ``sites`` hold the chunk geometry of every exchange site)."""
     step._exchange = exchange
     if transport is not None:
@@ -661,6 +665,9 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
     if built is None:
         return None
     call, m, _ = built
+    if transport is not None and counts[0] > 1:
+        transport.prepare(mesh, [(0, (m,) + tuple(local_shape[1:]))],
+                          stencil.dtype)
 
     def post(fields, on):
         return [_Mapped(post_slabs_axis(f, on, 0, m, bc, periodic,
@@ -696,6 +703,13 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
     if built is None:
         return None
     call, m, _ = built
+    if transport is not None:
+        # the z slabs' site (a sharded z), the y slabs' and the corners'
+        # (the y shift of the z slabs), in the order the steps post them
+        lz, ly, lx = local_shape
+        transport.prepare(
+            mesh, ([(0, (m, ly, lx))] if counts[0] > 1 else [])
+            + [(1, (lz, m, lx)), (1, (m, m, lx))], stencil.dtype)
 
     def post(fields, on):
         return [post_slabs_2axis(f, on, m, bc, periodic, transport)

@@ -19,7 +19,9 @@ the port and says so in its labels:
   the VMEM strip probes that label a shape ``UNBUILDABLE`` (replaced by the
   port's own gates: ``streamfused.fits``, ``fused.margin_of`` and the
   builders' shape rules); and ``ring_vmem_bytes`` (the TPU ring's VMEM
-  staging: the port's ring lands every chunk in place and stages nothing);
+  staging: within one process the port's ring lands every chunk in place
+  and stages nothing; across processes its receive slots are priced
+  below);
 * added, port-only terms: the k-step kernels write every field anew (wave's
   new ``u_prev`` is level k-1's u; the TPU model counts one output field),
   Gray-Scott's steps write both fields, the one-step path (plain or a
@@ -30,7 +32,11 @@ the port and says so in its labels:
   pallas`` peaked at 9.02 GiB in bfloat16 on an H100, 6.62 GiB without
   these terms, 9.93 GiB with them), the ring exchange keeps its
   received slabs in device memory (the TPU package deletes them from its
-  model: its kernel stages chunks in VMEM), and several shards that share
+  model: its kernel stages chunks in VMEM), across processes the peer
+  ring's receive slots (``nslots`` x 2 directions x the slab a site, the z,
+  y and corner sites of the stream kind, plus a ready flag and a credit a
+  block of every chunk: ``remote.peer_site_bytes``, a region of its own
+  outside PyTorch's allocator), and several shards that share
   one card are counted together (:func:`shards_on_card`: virtual devices,
   and the processes of a multi-process run whose card is this process's).
 
@@ -139,6 +145,7 @@ def estimate_run_bytes(
     exchange: str = "ppermute",
     ensemble_mesh: int = 0,
     shards_per_device: int = 1,
+    processes: int = 1,
 ) -> Tuple[int, Parts]:
     """Peak live device bytes of one card for a run, with a labelled
     breakdown: ``(total, [(label, bytes), ...])``.
@@ -149,10 +156,11 @@ def estimate_run_bytes(
     and ``fuse`` on the unsharded kernels (no pad transient), the padded,
     pad-free and streaming sharded kinds (exchange-padded blocks or slab
     operands), ``overlap`` (twice the exchanged operands), ``exchange=
-    "rdma"`` (the ring's received slabs, the slab term).  Every term is
-    one shard's; ``shards_per_device`` shards on one card (virtual devices)
-    multiply them.  A shape the run would refuse is labelled
-    ``UNBUILDABLE`` at 0 bytes, as in the TPU package.
+    "rdma"`` (the ring's received slabs, the slab term; on a mesh over
+    ``processes`` > 1 also the peer ring's receive slots).  Every term is
+    one shard's; ``shards_per_device`` shards on one card (virtual devices,
+    or the processes that share it) multiply them.  A shape the run would
+    refuse is labelled ``UNBUILDABLE`` at 0 bytes, as in the TPU package.
     """
     if ensemble or ensemble_mesh:
         raise NotImplementedError(
@@ -218,6 +226,8 @@ def estimate_run_bytes(
                     parts.append(_pipeline_part(
                         stencil, local, m, mesh3, overlap, base_b,
                         exchange == "rdma"))
+                if exchange == "rdma" and stream and processes > 1:
+                    parts.append(_peer_slots_part(stencil, local, m, mesh3))
         elif sharded:
             n_padded = 2 * nfields if overlap else nfields
             padded_b = (lz + 2 * m) * (ly + 2 * m) * lx * itemsize
@@ -262,16 +272,58 @@ def estimate_run_bytes(
             parts.append(("frame mask, 1 B a cell (port: a bool tensor a "
                           "block, kept for the run)", math.prod(local)))
 
+    per_shard = sum(b for _, b in parts)
     if shards_per_device > 1:
-        per_shard = sum(b for _, b in parts)
         parts.append((f"{shards_per_device - 1} more shard(s) on this "
                       "device (virtual devices)",
                       (shards_per_device - 1) * per_shard))
+    if processes > 1:
+        parts += _log_line_part(stencil, local, mesh, processes,
+                                shards_per_device,
+                                per_shard - parts[0][1])
     subtotal = sum(b for _, b in parts)
     overhead = int(subtotal * _OVERHEAD_FRAC)
     parts.append((f"workspace overhead ({int(_OVERHEAD_FRAC * 100)}%)",
                   overhead))
     return subtotal + overhead, parts
+
+
+def _log_line_part(stencil, local, mesh, processes, shards_per_device,
+                   transients) -> Parts:
+    """[(label, bytes)] of what a multi-process run's log lines hold beside
+    the state, beyond the step's own transients (``transients`` a shard,
+    all but the state), for every process on the card: the processes log
+    at the same step, each its own block's temporaries (the mean's float32
+    copy of a bfloat16 block; the velocity's difference and square of two
+    fields), where one process alone holds them one shard at a time."""
+    cells = math.prod(local)
+    itemsize = stencil.dtype.itemsize
+    mean_copy = 0 if stencil.dtype == torch.float32 else 4 * cells
+    velocity = 2 * itemsize * cells if stencil.num_fields > 1 else 0
+    local_shards = max(1, math.prod(mesh) // processes)
+    extra = max(mean_copy, velocity) - local_shards * transients
+    if extra <= 0:
+        return []
+    on_card = max(1, shards_per_device // local_shards)
+    return [(f"log-line temporaries beyond the step's, x {on_card} "
+             "process(es) on the card (each at the same step)",
+             on_card * extra)]
+
+
+def _peer_slots_part(stencil, local, m, mesh3):
+    """(label, bytes) of one shard's share of the peer ring's regions: the
+    receive slots, ready flags and credits of every site the stream kind
+    posts (a sharded z: the z slabs; a sharded y: the y slabs and the
+    corners)."""
+    from ..ops.cuda.remote import _NSLOTS, peer_site_bytes
+
+    lz, ly, lx = local
+    shapes = ([(m, ly, lx)] if int(mesh3[0]) > 1 else []) + (
+        [(lz, m, lx), (m, m, lx)] if int(mesh3[1]) > 1 else [])
+    total = sum(peer_site_bytes(sh, stencil.dtype) for sh in shapes)
+    return (f"peer ring receive slots ({_NSLOTS} slots x 2 directions x "
+            f"{len(shapes)} site(s), flags and credits; across processes)",
+            total)
 
 
 def _pipeline_part(stencil, local, m, mesh3, overlap, base_b, rdma):
@@ -324,6 +376,7 @@ def check_budget(
     exchange: str = "ppermute",
     ensemble_mesh: int = 0,
     shards_per_device: int = 1,
+    processes: int = 1,
 ) -> Tuple[int, Parts]:
     """Raise ValueError with the arithmetic when the run cannot fit its
     card (``hbm_bytes``, default :func:`device_hbm_bytes`); return the
@@ -333,7 +386,8 @@ def check_budget(
         stencil, grid, mesh=mesh, fuse=fuse, ensemble=ensemble,
         periodic=periodic, compute=compute, fuse_kind=fuse_kind,
         overlap=overlap, pipeline=pipeline, exchange=exchange,
-        ensemble_mesh=ensemble_mesh, shards_per_device=shards_per_device)
+        ensemble_mesh=ensemble_mesh, shards_per_device=shards_per_device,
+        processes=processes)
     if total > hbm:
         raise ValueError(
             f"config needs ~{total / 2**30:.2f} GiB per device but device "

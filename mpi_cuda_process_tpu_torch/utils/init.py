@@ -121,27 +121,38 @@ def _patch_block(grid_shape, seed: int, offsets, local_shape,
 
 
 def _gaussian_bump(grid_shape, sigma: float = 0.05, device="cpu",
-                   offsets=None, local_shape=None):
+                   offsets=None, local_shape=None, dtype=torch.float32):
     """Centred Gaussian bump in [0, 1], normalized coordinates per axis —
-    or the block of it at ``offsets`` of extent ``local_shape``."""
+    or the block of it at ``offsets`` of extent ``local_shape`` — computed
+    in float32 and stored as ``dtype``.  Computed in runs of axis-0 rows,
+    each cell by the same operations as the whole block at once, so its
+    float32 temporaries stay a run's, not the block's (several processes
+    that share a card build their blocks at once)."""
     offsets = offsets or (0,) * len(grid_shape)
-    local_shape = local_shape or grid_shape
-    r2 = 0.0
+    local_shape = tuple(int(s) for s in (local_shape or grid_shape))
+    coords = []
     for d, (n, o, ls) in enumerate(zip(grid_shape, offsets, local_shape)):
         c = (torch.arange(o, o + ls, dtype=torch.float32, device=device)
              - (n - 1) / 2.0) / max(n, 2)
         shape = [1] * len(grid_shape)
         shape[d] = ls
-        r2 = r2 + c.reshape(shape) ** 2
-    return torch.exp(-r2 / (2 * sigma**2))
+        coords.append(c.reshape(shape))
+    out = torch.empty(local_shape, dtype=dtype, device=device)
+    rows = max(1, _RANDOM_CHUNK // max(1, math.prod(local_shape[1:])))
+    for r0 in range(0, local_shape[0], rows):
+        r2 = 0.0
+        for d, c in enumerate(coords):
+            r2 = r2 + (c[r0:r0 + rows] if d == 0 else c) ** 2
+        out[r0:r0 + rows] = torch.exp(-r2 / (2 * sigma**2))
+    return out
 
 
 def _pin_frame(x: torch.Tensor, value, width: int, global_shape=None,
                offsets=None) -> torch.Tensor:
+    """``x`` with its guard-frame cells set to ``value``, in place."""
     mask = frame_mask(x.shape, global_shape or x.shape,
                       offsets or (0,) * x.ndim, width, x.device)
-    return torch.where(mask, torch.full((), value, dtype=x.dtype,
-                                        device=x.device), x)
+    return x.masked_fill_(mask, value)
 
 
 def resolve_kind(stencil: Stencil, kind: str) -> str:
@@ -215,7 +226,7 @@ def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
             for _ in range(stencil.num_fields - 2))
     elif kind == "pulse":
         u = _gaussian_bump(grid_shape, device=device, offsets=offsets,
-                           local_shape=local_shape).to(dtype)
+                           local_shape=local_shape, dtype=dtype)
         # zero initial velocity: u_prev = u
         fields = (u,) + tuple(u for _ in range(stencil.num_fields - 1))
     else:
@@ -224,10 +235,14 @@ def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
     if periodic:
         # No guard frame exists in periodic mode — every cell is ordinary.
         return fields
-    return tuple(
-        _pin_frame(f, v, stencil.halo, grid_shape, offsets)
-        for f, v in zip(fields, stencil.bc_value)
-    )
+    # pinned in place; a field that shares its tensor with an earlier one
+    # (the pulse's u_prev = u) gets its own copy first
+    pinned = []
+    for f, v in zip(fields, stencil.bc_value):
+        if any(f is p for p in pinned):
+            f = f.clone()
+        pinned.append(_pin_frame(f, v, stencil.halo, grid_shape, offsets))
+    return tuple(pinned)
 
 
 def init_state_sharded(

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e), repeated.
+phase 5d (or 5e, or 5f), repeated.
 
-    python3 scripts/torch_multiprocess.py [--repeat N] [--phase 5d|5e]
+    python3 scripts/torch_multiprocess.py [--repeat N] [--phase 5d|5e|5f]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -17,7 +17,11 @@ Exits 1 if any run differs from its one-process run.  ``--phase 5e`` runs
 ``chip_smoke.pipeline_checkpoint_phase`` instead: every ``PIPE_RUNS`` run
 with and without ``--pipeline`` in one process, ``PIPE_MP_RUNS`` as 4
 processes, and the sharded checkpoint killed on 4 processes and resumed
-on 2 and on 1 (its write and read seconds and bytes).
+on 2 and on 1 (its write and read seconds and bytes).  ``--phase 5f``
+runs ``chip_smoke.peer_ring_phase``: every ``PEER_RUNS`` run (the peer ring,
+``--exchange rdma`` across processes, beside its gloo-host twin) in one
+process and as its processes, with its ms/step, both transports' host time
+and its peak beside ``--mem-check``'s estimate.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
-    p.add_argument("--phase", choices=["5d", "5e"], default="5d")
+    p.add_argument("--phase", choices=["5d", "5e", "5f"], default="5d")
     args = p.parse_args()
     import torch
 
@@ -74,6 +78,12 @@ def main() -> int:
     os.makedirs(scratch, exist_ok=True)
     for rep in range(args.repeat):
         t0 = time.perf_counter()
+        if args.phase == "5f":
+            out = cs.peer_ring_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "peer_ring", "repeat": rep,
+                     "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
         if args.phase == "5e":
             out = cs.pipeline_checkpoint_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "pipeline_checkpoint", "repeat": rep,

@@ -13,7 +13,8 @@ for one raw step, ``rtol = atol = 1e-6`` for the compute_fn kernels,
 ``atol = 1e-4`` for k fused steps; frame cells exact; Life (int32, K7 and
 K8), the streaming kernel (K10, against its plain version), every SOR
 kind and the ring exchange (``ops/cuda/remote.py``, with its drained
-counters read after every launch) bit-equal.  The bfloat16 kinds of K1,
+counters read after every launch; and its cross-process form, ring_send
+and ring_drain, on sites whose neighbours share this process) bit-equal.  The bfloat16 kinds of K1,
 K2, Gray-Scott's raw step, K10 and the ring exchange are held to their
 plain versions on bfloat16 tensors bit for bit (max |d| = 0): every op
 rounds to bfloat16 as the plain op does; so are the bfloat16 kinds of K3
@@ -983,6 +984,72 @@ def test_ring_exchange_kernel_matches_plain(dev, mesh_shape, shape, nslots,
                 assert torch.equal(got[1][i].cpu(), ref[1][i])
                 assert torch.equal(got[0][i], hi[prv[i]])
                 assert torch.equal(got[1][i], lo[nxt[i]])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", RING_SHAPES)
+@pytest.mark.parametrize("mesh_shape", [(4,), (1, 4), (2, 2)])
+def test_peer_ring_kernels_match_plain(dev, mesh_shape, shape, dtype):
+    """ring_send and ring_drain (the ring across processes) on a site
+    whose neighbours all live in this process: five epochs on two slots,
+    each drain == the plain peer ring (the host walking the same protocol
+    over a region tensor) == the ring shift, bit for bit, one launch of
+    each a shift; every flag and credit at the last epoch."""
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+    for axis in (0, 1):
+        if mesh.counts(3)[axis] == 1:
+            continue
+        nxt, prv = _ring(mesh, axis)
+        to = [((0, nxt[i]), (0, prv[i])) for i in range(4)]
+        frm = [((0, prv[i]), (0, nxt[i])) for i in range(4)]
+        _, meta = remote.build_ring_exchange_call(shape, dtype, device=dev)
+        site = remote.PeerSite(meta, mesh, to, frm, dev)
+        plain = remote.PeerSite(meta, mesh, to, frm, dev, regions=[
+            torch.zeros(remote.peer_layout(meta, 4, 1)["bytes"],
+                        dtype=torch.uint8, device=dev)])
+        name = "x".join(map(str, shape))
+        for e in range(1, 6):
+            hi = [_pieces(shape, dev, 10 * e + i).to(dtype)
+                  for i in range(4)]
+            lo = [_pieces(shape, dev, 50 * e + i).to(dtype)
+                  for i in range(4)]
+            remote.launches.clear()
+            got = site.drain(site.post(hi, lo))
+            torch.cuda.synchronize()
+            assert sorted(remote.launches.values()) == [1, 1]
+            assert set(remote.launches) == {
+                remote._build.launch_key(w, name, hi[0])
+                for w in ("ring_send", "ring_drain")}
+            ref = plain.drain(plain.post(hi, lo))
+            for i in range(4):
+                assert torch.equal(got[0][i], ref[0][i])
+                assert torch.equal(got[1][i], ref[1][i])
+                assert torch.equal(got[0][i], hi[prv[i]])
+                assert torch.equal(got[1][i], lo[nxt[i]])
+        site.check_drained()
+        plain.check_drained()
+    remote.free_peer_regions()
+
+
+def test_peer_ring_drain_past_its_deadline_raises(dev):
+    """A drain of an epoch nobody sent returns at its deadline, records
+    the site, epoch, chunk and peer, and the next check raises; cleared,
+    the site runs on."""
+    shape = (4, 64, 128)
+    _, meta = remote.build_ring_exchange_call(shape, torch.float32,
+                                              device=dev)
+    one = make_mesh((1,), [dev])
+    site = remote.PeerSite(meta, one, [((0, 0), (0, 0))],
+                           [((0, 0), (0, 0))], dev, timeout_s=0.2)
+    site._launch(1, 1, None, torch.empty((1, 2) + shape, device=dev))
+    torch.cuda.synchronize()
+    with pytest.raises(remote.PeerTimeout, match="epoch 1.*process 0"):
+        site.check()
+    remote.reset_peer_record(dev)
+    hi = [_pieces(shape, dev, 3)]
+    got = site.drain(site.post(hi, hi))
+    assert torch.equal(got[0][0], hi[0]) and torch.equal(got[1][0], hi[0])
+    remote.free_peer_regions()
 
 
 def test_ring_exchange_refuses_bf16_and_unknown_rings(dev):

@@ -21,10 +21,15 @@ package's single-process plain step run from the same initial fields, op by
 op: Life exactly, float32 at ``atol = 1e-4, rtol = 0``
 (tests/test_fused.py:70), bfloat16 at ``32 eps max(|ref|, 1)``
 (tests/test_torch_bf16.py:13-18); the ``--pipeline`` cases (the slab-carry
-exchange, with and without ``--overlap``) too.  Plus one CLI run under
-``torchrun --nproc-per-node 2``, the refusals of a multi-process run (an
-``npy`` checkpoint save, ``--render``, ``--exchange rdma``, a mesh the
-processes do not divide), the bootstrap without a cluster, and the sharded
+exchange, with and without ``--overlap``) too, and the ``--exchange rdma``
+cases (the ring's peer form, ``remote.PeerSite``, in its plain version:
+receive slots, flags and credits in shared files; heat3d ``--mesh 2`` on 2
+processes and ``--mesh 2,2`` on 2 and 4, ± ``--overlap``, one with
+``--pipeline``, one in bfloat16), each also bit-equal to its gloo twin.
+Plus one CLI run under ``torchrun --nproc-per-node 2``, the refusals of a
+multi-process run (an ``npy`` checkpoint save, ``--render``, ``--exchange
+rdma`` between nodes, a mesh the processes do not divide), the bootstrap
+without a cluster, and the sharded
 checkpoint across processes: 4 processes on ``--mesh 2,2`` killed by
 ``FAULT_INJECT=exchange:step=4:sigkill`` on every rank, resumed as 2
 processes on ``--mesh 4`` and then as one unsharded process, an ``npy``
@@ -181,29 +186,75 @@ CASES = [
     ("sor3d_m2_padfree_pipeline_tol", 2, "sor3d", (32, 16, 32), 64,
      ("--mesh", "2", "--fuse", "2", "--fuse-kind", "padfree", "--pipeline",
       "--tol", "2", "--tol-check-every", "8")),
+    # the gloo twins of the peer-ring cases below that have none above
+    ("heat3d_22_on_2_stream", 2, "heat3d", (32, 32, 32), 8,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream", *_PULSE,
+      "--log-every", "4")),
+    ("heat3d_22_on_2_stream_overlap", 2, "heat3d", (32, 32, 32), 8,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream", "--overlap",
+      *_PULSE, "--log-every", "4")),
+    ("heat3d_m2_stream_bf16", 2, "heat3d", (32, 16, 32), 8,
+     ("--mesh", "2", "--fuse", "4", "--fuse-kind", "stream", "--dtype",
+      "bfloat16", *_PULSE, "--log-every", "4")),
+    # --exchange rdma: the ring's peer form (ring_send / ring_drain; here
+    # its plain version through shared files), each case the same run as
+    # its gloo twin (the same id without "_rdma") plus the flag
+    *[(name + "_rdma", world, stencil, grid, iters, flags
+       + ("--exchange", "rdma"))
+      for name, world, stencil, grid, iters, flags in (
+          ("heat3d_m2_stream", 2, "heat3d", (32, 16, 32), 8,
+           ("--mesh", "2", "--fuse", "4", "--fuse-kind", "stream", *_PULSE,
+            "--log-every", "4")),
+          ("heat3d_m2_stream_overlap", 2, "heat3d", (32, 16, 32), 8,
+           ("--mesh", "2", "--fuse", "4", "--fuse-kind", "stream",
+            "--overlap", *_PULSE, "--log-every", "4")),
+          ("heat3d_22_on_2_stream", 2, "heat3d", (32, 32, 32), 8,
+           ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+            *_PULSE, "--log-every", "4")),
+          ("heat3d_22_on_2_stream_overlap", 2, "heat3d", (32, 32, 32), 8,
+           ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+            "--overlap", *_PULSE, "--log-every", "4")),
+          ("heat3d_22_stream", 4, "heat3d", (32, 32, 32), 8,
+           ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+            *_PULSE, "--log-every", "4")),
+          ("heat3d_22_stream_overlap", 4, "heat3d", (32, 32, 32), 8,
+           ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+            "--overlap", *_PULSE, "--log-every", "4")),
+          ("heat3d_22_stream_overlap_pipeline", 4, "heat3d", (32, 32, 32),
+           8, ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+               "--overlap", "--pipeline", *_PULSE, "--log-every", "8")),
+          ("heat3d_m2_stream_bf16", 2, "heat3d", (32, 16, 32), 8,
+           ("--mesh", "2", "--fuse", "4", "--fuse-kind", "stream",
+            "--dtype", "bfloat16", *_PULSE, "--log-every", "4")))],
 ]
 IDS = [c[0] for c in CASES]
+RDMA_IDS = [c[0] for c in CASES if "rdma" in c[5]]
 
 # What a 2-process run refuses before any field is built, and the words
-# its message must hold: (id, stencil, grid, flags, exception, words).  The
-# two checkpoint ids keep their names from the refusals they pinned before
-# the sharded backend ran: an npy save still needs the global grid, and a
-# resume with no checkpoint written yet runs from the initial state
-# ("none": no exception; the checkpoint flows are the tests below).
+# its message must hold: (id, stencil, grid, flags, exception, words,
+# environment for the run).  The two checkpoint ids keep their names from
+# the refusals they pinned before the sharded backend ran: an npy save
+# still needs the global grid, and a resume with no checkpoint written yet
+# runs from the initial state ("none": no exception; the checkpoint flows
+# are the tests below).  The rdma id pinned the refusal of every
+# multi-process --exchange rdma run before the peer ring; it now pins the
+# refusal of a ring between nodes (the launcher's LOCAL_WORLD_SIZE 1 of
+# WORLD_SIZE 2: one process a node).
 REFUSALS = [
     ("checkpoint", "heat3d", (16, 8, 32),
      ("--mesh", "2", "--checkpoint-every", "2", "--checkpoint-dir", "{ck}"),
-     "ValueError", "--checkpoint-backend orbax"),
+     "ValueError", "--checkpoint-backend orbax", {}),
     ("resume", "heat3d", (16, 8, 32),
      ("--mesh", "2", "--resume", "--checkpoint-dir", "{ck}"),
-     "none", ""),
+     "none", "", {}),
     ("render", "life", (16, 16), ("--mesh", "2", "--render"),
-     "ValueError", "global grid"),
+     "ValueError", "global grid", {}),
     ("rdma", "heat3d", (32, 16, 32),
      ("--mesh", "2", "--fuse", "4", "--fuse-kind", "stream", "--exchange",
-      "rdma"), "NotImplementedError", "ROADMAP B7"),
+      "rdma"), "NotImplementedError",
+     "ROADMAP B7's inter-node part", {"LOCAL_WORLD_SIZE": "1"}),
     ("mesh_not_divided", "heat3d", (18, 8, 32), ("--mesh", "3"),
-     "ValueError", "do not divide over 2 processes"),
+     "ValueError", "do not divide over 2 processes", {}),
 ]
 # The same process's entry points that would need the global grid, called
 # on a finished run's fields (the npy writer among them: it points to the
@@ -274,13 +325,21 @@ for name, size, stencil, grid, iters, flags in cases:
         json.dump(res, fh)
 
 refused = {{}}
-for name, stencil, grid, flags in refusals:
+for name, stencil, grid, flags, env in refusals:
     lines.clear()
+    saved = {{k: os.environ.get(k) for k in env}}
+    os.environ.update(env)
     try:
         cli.run(cli.config_from_args(argv_of(stencil, grid, 4, flags)))
         refused[name] = ["none", ""]
     except Exception as e:
         refused[name] = [type(e).__name__, str(e)]
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 if refusals:
     calls = {{
         "gather_fields": lambda: stepper.gather_fields(fields),
@@ -360,8 +419,8 @@ def runs(tmp_path_factory):
                          .split(",")])), s, g, i, f]
         for n, _, s, g, i, f in CASES])
 
-    refusals = json.dumps([[n, s, g, [x.format(ck=ck) for x in f]]
-                           for n, s, g, f, _, _ in REFUSALS])
+    refusals = json.dumps([[n, s, g, [x.format(ck=ck) for x in f], env]
+                           for n, s, g, f, _, _, env in REFUSALS])
     procs = [subprocess.Popen(
         [sys.executable, "-c", worker, str(out), single_spec, "[]", "ref"],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -523,9 +582,11 @@ def test_multiprocess_refusals(runs, name, exc, words):
     """A multi-process run refuses an npy checkpoint save (it would need
     the global grid: the sharded backend writes each process's shards),
     --render and the global grid's entry points (no process holds it),
-    --exchange rdma (ROADMAP B7) and a mesh the processes do not divide,
-    on every process, before any field is built: no checkpoint directory
-    appears (a --resume with none written runs from the initial state)."""
+    --exchange rdma between nodes (the peer ring maps its peers' memory,
+    which reaches one node: ROADMAP B7's inter-node part) and a mesh the
+    processes do not divide, on every process, before any field is built:
+    no checkpoint directory appears (a --resume with none written runs
+    from the initial state)."""
     for r in range(2):
         with open(runs["dir"] / f"refusals_r{r}.json") as fh:
             got = json.load(fh)
@@ -533,6 +594,31 @@ def test_multiprocess_refusals(runs, name, exc, words):
         assert words in got[name][1], got[name]
         assert got["bootstrap_again"][0] == "True"
     assert not os.path.exists(runs["ck"])
+
+
+@pytest.mark.parametrize("name", RDMA_IDS)
+def test_rdma_bit_equal_to_gloo_twin(runs, name):
+    """Every --exchange rdma case across processes runs the peer ring (its
+    plain version: the backend line names plain-peer-ring, and every site
+    is drained at the end on every process) and equals its gloo twin (the
+    same run without the flag) block for block and log line for log line,
+    bit for bit: the ring only copies bits."""
+    _, world, stencil, grid, iters, flags = _case(name)
+    twin = name[:-len("_rdma")]
+    assert _case(twin)[1:] == (world, stencil, grid, iters,
+                               flags[:-2]), twin
+    for r in range(world):
+        res, arrays = _load(runs, name, r)
+        tres, tarrays = _load(runs, twin, r)
+        assert "exchange: mode=rdma backend=plain-peer-ring" in res["lines"]
+        assert any(ln.startswith("exchange: peer ring drained: ")
+                   for ln in res["lines"])
+        assert sorted(arrays) == sorted(tarrays)
+        for key, a in arrays.items():
+            np.testing.assert_array_equal(a, tarrays[key], err_msg=key)
+        assert [ln for ln in res["lines"] if ln.startswith("step ")] == \
+            [ln for ln in tres["lines"] if ln.startswith("step ")]
+        assert res["diag"] == tres["diag"]
 
 
 def _step_lines(text, rank=None):

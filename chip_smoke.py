@@ -263,6 +263,21 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      for bit, at these sites (four shards a launch and one), over five
      epochs on two slots, and a drain past a 0.25 s deadline records its
      place and raises; phase 6 times both at the 4-process launch shape;
+  5g. the default --compute auto (the dispatch tables, filled from
+     scripts/torch_dispatch_times.py's H100 timings): BASELINE config 1
+     (heat2d 512^2, 1000 iterations), config 2 (heat3d 256^3) and config
+     3 (heat3d 1024^3 --mesh 2,2), and one 512^3 run per 3D family, each
+     with no --compute flag: its launch counters must name the kernel the
+     tables promise (K8, K1, K4, K2, Gray-Scott's raw step, K3) and equal
+     the explicit-flag run's, its fields equal that run's bit for bit, and
+     its ms/step is printed beside the explicit and the plain run's (a
+     second auto run, warm, is the one timed); then --debug-checks and
+     --check-finite on a heat2d 512^2 blow-up (alpha 1e9) must raise
+     naming the step the plain step, driven by hand, first makes
+     non-finite, and config 2's auto run with --dump-every 25 must write
+     the state at each dump step through the native writer (whose g++
+     build must succeed).  Earlier phases that mean the plain path pass
+     --compute jnp;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -703,6 +718,25 @@ PEER_RUNS = (
      _STREAM22 + _RDMA))
 # the NCCL leg (a card per process, the peer writes over NVLink)
 PEER_NCCL = ("heat3d_stream", "heat3d_rdma")
+# The default --compute auto (phase 5g): BASELINE config 1 (heat2d 512^2,
+# 1000 iterations), config 2 (heat3d 256^3) and config 3 (heat3d 1024^3 on
+# --mesh 2,2), and one 512^3 run per 3D family, each as users run it (no
+# --compute flag) beside the explicit-flag run of the path the dispatch
+# tables promise and the plain run.  (label, stencil, grid, iterations,
+# flags)
+AUTO_RUNS = (
+    ("config1", "heat2d", BASE2D, ITERS2D, ()),
+    ("config2", "heat3d", (256, 256, 256), ITERS, ()),
+    ("config3", "heat3d", BIG, 20, ("--mesh", "2,2")),
+) + tuple((f"{name}_512", name, MAIN, 40, ()) for name in (
+    "heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d", "grayscott3d",
+    "sor3d"))
+# the sanitizers on the card: heat2d at 512^2 with an unstable alpha (the
+# hot walls' neighbours grow ~4e9-fold a step until float32 overflows),
+# --check-finite every SAN_EVERY steps; the dumps of config 2's auto run
+# every DUMP_EVERY steps
+SAN_ALPHA, SAN_ITERS, SAN_EVERY = 1e9, 12, 3
+DUMP_EVERY = 25
 
 
 def emit(obj) -> None:
@@ -1464,7 +1498,7 @@ def pipeline_checkpoint_phase(counted, lines, main_launches, scratch):
     grid = ",".join(map(str, MAIN))
     base = ["--stencil", "heat3d", "--grid", grid, "--init", "pulse",
             "--iters", str(CK_ITERS), "--checkpoint-every", str(CK_EVERY),
-            "--checkpoint-backend", "orbax"]
+            "--checkpoint-backend", "orbax", "--compute", "jnp"]
     ck = os.path.join(scratch, "ckpt_sharded")
     ck1 = os.path.join(scratch, "ckpt_sharded_unsharded")
     shutil.rmtree(ck, ignore_errors=True)
@@ -1473,7 +1507,7 @@ def pipeline_checkpoint_phase(counted, lines, main_launches, scratch):
     lines.clear()
     (ref, _), _ = counted(lambda: cli.run(cli.config_from_args(
         ["--stencil", "heat3d", "--grid", grid, "--init", "pulse",
-         "--iters", str(CK_ITERS)])))
+         "--iters", str(CK_ITERS), "--compute", "jnp"])))
     want = fingerprint(ref[0])
     del ref
     torch.cuda.empty_cache()
@@ -1534,6 +1568,195 @@ def pipeline_checkpoint_phase(counted, lines, main_launches, scratch):
     if saved_virtual is not None:
         os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = saved_virtual
     return out
+
+
+def auto_dispatch_phase(counted, lines, main_launches, scratch):
+    """Phase 5g: the default ``--compute auto`` on the card.
+
+    Each ``AUTO_RUNS`` run goes through ``cli.run`` as users run it
+    (auto), with the explicit flags of the path the dispatch tables
+    promise, on the plain path, and as users run it again (the first run
+    pays the set-up; the second is the one timed).  The auto runs' launch
+    counters must name the promised kernel and equal the explicit run's,
+    the first auto run's fields must equal the explicit run's bit for bit,
+    and the ms/step of each run is printed.  Then ``--debug-checks`` and
+    ``--check-finite`` on a blow-up must raise naming the step that the
+    plain step, driven by hand, first makes non-finite, and config 2's auto run with ``--dump-every``
+    must write the state at each dump step (the native writer must build:
+    ``native.available()``).  Returns the phase's rows."""
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.utils import native
+    from mpi_cuda_process_tpu_torch.utils.init import init_state
+
+    if not native.available():
+        fail("native.available() is false: g++ could not build "
+             "native/stencilhost.cpp")
+    rows = []
+
+    def argv(stencil, grid, iters, flags):
+        return ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+                "--iters", str(iters), *flags]
+
+    def promise(stencil, grid, iters, flags):
+        """(explicit flags, launch-counter wrapper) of the path the tables
+        promise an auto run, read from the tables themselves."""
+        cfg = cli.config_from_args(argv(stencil, grid, iters, flags))
+        st = cli._make_cfg_stencil(cfg)
+        wins = cli._COMPUTE_FN_WINS.get(st.name, ())
+        if cfg.mesh:
+            if "mesh" in wins:
+                return ("--compute", "pallas"), (
+                    "whole2d" if st.ndim == 2 else
+                    "zchunk_wave" if st.name == "wave3d" else "zchunk_heat")
+            return ("--compute", "jnp"), None
+        if st.ndim == 2:
+            k = cli._AUTO_FULL_K.get(st.name)
+            if k and iters % k == 0:
+                return ("--fuse", str(k)), "fullgrid_step"
+            if "single" in wins:
+                return ("--compute", "pallas"), "whole2d"
+            return ("--compute", "jnp"), None
+        k = {torch.float32: cli._AUTO_FUSE_K,
+             torch.bfloat16: cli._AUTO_FUSE_K_BF16}[st.dtype].get(st.name)
+        if k and iters % k == 0:
+            if cli._AUTO_FUSE_KIND.get(st.name) == "stream":
+                return ("--fuse", str(k), "--fuse-kind", "stream"), \
+                    "stream_step"
+            return ("--fuse", str(k)), "fused_step"
+        if st.name in cli._RAW_WINS:
+            return ("--compute", "pallas"), {
+                "wave3d": "raw_step_wave",
+                "grayscott3d": "raw_step_grayscott"}.get(st.name,
+                                                          "raw_step_heat")
+        return ("--compute", "jnp"), None
+
+    def blocks(fields):
+        return [b for f in fields for b in (f if isinstance(f, list)
+                                            else (f,))]
+
+    for label, stencil, grid, iters, flags in AUTO_RUNS:
+        if "--mesh" in flags:
+            os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(math.prod(
+                int(v) for v in flags[flags.index("--mesh") + 1]
+                .split(",")))
+        explicit, wrapper = promise(stencil, grid, iters, flags)
+        out = {}
+        # the first auto run pays the run's set-up; the second is timed
+        for mode, extra in (("auto_first", ()), ("explicit", explicit),
+                            ("plain", ("--compute", "jnp")), ("auto", ())):
+            lines.clear()
+            (fields, mcells), got = counted(lambda: cli.run(
+                cli.config_from_args(argv(stencil, grid, iters,
+                                          flags + extra))))
+            driver.synchronize(fields)
+            out[mode] = {"launches": got, "mcells_per_s": mcells,
+                         "ms_per_step": 1e3 * math.prod(grid)
+                         / (mcells * 1e6)}
+            if mode == "auto_first":
+                auto_blocks = blocks(fields)
+                out[mode]["log"] = [ln for ln in lines
+                                    if ln.startswith(("auto:", "compute:"))]
+            elif mode == "explicit":
+                if not all(torch.equal(a, b) for a, b in
+                           zip(auto_blocks, blocks(fields))):
+                    fail(f"auto {label}: fields differ from the explicit "
+                         f"run {' '.join(explicit)}")
+                del auto_blocks
+            del fields
+            torch.cuda.empty_cache()
+        a, e = out["auto"]["launches"], out["explicit"]["launches"]
+        if a != e or out["auto_first"]["launches"] != e:
+            fail(f"auto {label}: launches {a} != the explicit run's {e}")
+        if wrapper is None and a:
+            fail(f"auto {label}: the plain path was promised, launches {a}")
+        if wrapper is not None and (not a or any(
+                not k.startswith(wrapper + "[") for k in a)):
+            fail(f"auto {label}: launches {a}, promised {wrapper}")
+        row = {"label": label, "stencil": stencil, "grid": list(grid),
+               "iters": iters, "flags": list(flags),
+               "promised": list(explicit), "wrapper": wrapper,
+               "bit_equal_to_explicit": True, **{
+                   f"{m}_{f}": out[m][f] for m in out
+                   for f in ("ms_per_step", "launches")},
+               "auto_log": out["auto_first"]["log"]}
+        rows.append(row)
+        emit({"phase": "auto_dispatch_run", **row})
+        os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+
+    # the sanitizers: the step the plain step first makes non-finite
+    san = ["--stencil", "heat2d", "--grid", ",".join(map(str, BASE2D)),
+           "--iters", str(SAN_ITERS), "--param", f"alpha={SAN_ALPHA}"]
+    cfg = cli.config_from_args(san)
+    st = cli._make_cfg_stencil(cfg)
+    step = driver.make_step(st, cfg.grid)
+    fields = init_state(st, cfg.grid, cfg.seed, cfg.density, device="cuda")
+    bad = None
+    for i in range(SAN_ITERS):
+        fields = step(fields)
+        if not bool(torch.isfinite(fields[0]).all()):
+            bad = i
+            break
+    del fields
+    if bad is None:
+        fail(f"sanitizers: alpha={SAN_ALPHA} did not blow up in "
+             f"{SAN_ITERS} steps")
+    done = -(-(bad + 1) // SAN_EVERY) * SAN_EVERY
+    want = {
+        "debug_checks": f"field 0 non-finite after step {bad} (NaN/Inf "
+                        "blow-up — check stability parameters)",
+        "check_finite": f"field 0 became non-finite between steps "
+                        f"{done - SAN_EVERY} and {done} (NaN/Inf blow-up "
+                        "— check stability parameters)"}
+    sanitizers = {"first_bad_step": bad}
+    for name, extra in (("debug_checks", ("--debug-checks",
+                                          "--log-every", "5")),
+                        ("check_finite", ("--check-finite",
+                                          str(SAN_EVERY)))):
+        lines.clear()
+        try:
+            counted(lambda: cli.run(cli.config_from_args(san + list(extra))))
+        except RuntimeError as e:
+            if str(e) != want[name]:
+                fail(f"sanitizers {name}: raised {e!r}, not {want[name]!r}")
+            sanitizers[name] = str(e)
+        else:
+            fail(f"sanitizers {name}: the blow-up raised nothing")
+        torch.cuda.empty_cache()
+    emit({"phase": "auto_sanitizers", **sanitizers})
+
+    # the dumps of config 2's auto run: the state at each dump step
+    _, stencil, grid, iters, flags = AUTO_RUNS[1]
+    ddir = os.path.join(scratch, "dumps")
+    shutil.rmtree(ddir, ignore_errors=True)
+    base = argv(stencil, grid, iters, flags)
+    counted(lambda: cli.run(cli.config_from_args(
+        base + ["--dump-every", str(DUMP_EVERY), "--dump-dir", ddir])))
+    cfg = cli.maybe_auto_fuse(cli.config_from_args(base))
+    st, step_fn, fields, _ = cli.build(cfg)
+    unit = max(1, cfg.fuse)
+    checked = []
+    for n in range(iters // unit):
+        fields = step_fn(fields)
+        at = (n + 1) * unit
+        if at % DUMP_EVERY:
+            continue
+        with open(os.path.join(ddir, f"step_{at:08d}.npy"), "rb") as fh:
+            data = fh.read()
+        arr, descr = native.host_array(fields[0])
+        if not data.endswith(arr.tobytes()) or \
+                f"'descr': '{descr}'" not in data[:128].decode("latin-1"):
+            fail(f"dump at step {at} differs from the state at that step")
+        checked.append(at)
+    del fields
+    shutil.rmtree(ddir, ignore_errors=True)
+    if checked != list(range(DUMP_EVERY, iters + 1, DUMP_EVERY)):
+        fail(f"dumps: checked steps {checked}")
+    emit({"phase": "auto_dumps", "steps": checked, "fuse": cfg.fuse,
+          "fuse_kind": cfg.fuse_kind, "native": True})
+    return {"runs": rows, "sanitizers": sanitizers, "dumps": checked}
 
 
 def card_rates(name: str):
@@ -3309,7 +3532,8 @@ def main() -> int:
     got, r = run_cli("wave3d", rgrid, 8, *flags, init="auto")
     if r["launches"] != {f"stream_zslab[wave3d,{BF16}]": 16}:
         fail(f"config 5 rehearsal: launches {r['launches']}")
-    ref, _ = run_cli("wave3d", rgrid, 8, *dt16, init="auto")
+    ref, _ = run_cli("wave3d", rgrid, 8, "--compute", "jnp", *dt16,
+                     init="auto")
     check(r, block_err(got, ref, 1, "config 5 rehearsal"), 1e-3,
           "plain bf16 run")
     c5["rehearsal"] = r
@@ -3461,6 +3685,15 @@ def main() -> int:
                   "CUDA IPC-mapped receive slots); the gloo-host twin "
                   "stages them through pinned host buffers; peak: the "
                   "processes' PyTorch peaks plus their ring regions"})
+
+    # ---- 5g. the default --compute auto ------------------------------------
+    p5g = auto_dispatch_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "auto_dispatch", "ok": True, "seconds": took(),
+          "card": smi, "runs": len(p5g["runs"]),
+          "note": "each BASELINE command and one 512^3 run per 3D family "
+                  "under the default --compute auto, on the path the "
+                  "dispatch tables promise (launch counters), bit-equal to "
+                  "its explicit-flag run; ms/step beside the plain run"})
 
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):

@@ -33,7 +33,16 @@ with ``--fuse-kind stream`` the streaming kernel K10, unsharded or on any
 z/y mesh, there with ``--exchange rdma`` its slab exchanges through the
 ring-exchange kernel, and with ``--overlap`` the boundary shells beside the
 exchange; 2D: K8, its sharded mode under a row-split ``--mesh``);
-``--compute auto``/``jnp`` the plain tensor path.
+``--compute jnp`` the plain tensor path; ``--compute auto`` (the default)
+the path its dispatch tables measured fastest on an H100 (``_RAW_WINS``,
+``_AUTO_FUSE_K``/``_AUTO_FUSE_K_BF16`` with ``_AUTO_FUSE_KIND``,
+``_AUTO_FULL_K``, ``_COMPUTE_FN_WINS``), or the plain path where no entry
+applies or a kernel refuses the run's dtype, cadences or shape.
+``--check-finite N`` checks every field at each N-step boundary,
+``--debug-checks`` after every step (``driver.make_checked_runner``), and
+both raise naming the step; ``--dump-every N --dump-dir D`` writes field 0
+as ``step_{N:08d}.npy`` through the native writer pool
+(``utils/native.py``).
 Red-black SOR (sor2d, sor3d) has no raw-step or compute_fn kernel, so
 ``--compute pallas`` raises for it as in the TPU package; it runs plain or
 through every ``--fuse`` kind, and ``--tol`` stops a run once its residual
@@ -111,7 +120,7 @@ from .parallel import mesh as mesh_lib
 from .parallel import stepper as stepper_lib
 from .parallel.stepper import GLOBAL_GRID_REASON
 from .resilience import faults
-from .utils import checkpointing, diagnostics, render
+from .utils import checkpointing, diagnostics, native, render
 from .utils.init import init_state, init_state_sharded
 
 log = logging.getLogger("mpi_cuda_process_tpu_torch")
@@ -162,6 +171,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--param", action="append", default=[],
                    help="stencil parameter override, key=value (repeatable)")
     p.add_argument("--log-every", type=int, default=0)
+    p.add_argument("--check-finite", type=int, default=0,
+                   help="every N steps, verify all fields are finite and "
+                        "abort with the failing step range if not (debug "
+                        "sanitizer for blow-ups: NaN/Inf from unstable "
+                        "parameters)")
+    p.add_argument("--debug-checks", action="store_true",
+                   help="debug mode: every step asserts all fields finite "
+                        "(the error names the exact failing step); slower "
+                        "— complements --check-finite's polling")
+    p.add_argument("--dump-every", type=int, default=0,
+                   help="async-dump field0 snapshots every N steps (.npy, "
+                        "non-blocking via the native writer pool)")
+    p.add_argument("--dump-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-backend", default="npy",
@@ -176,11 +198,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ASCII-render the final grid")
     p.add_argument("--compute", default="auto",
                    choices=["auto", "jnp", "pallas"],
-                   help="auto/jnp: the plain tensor path (the dispatch "
-                        "tables are empty until H100 measurements fill "
-                        "them); pallas: the hand-written CUDA raw-step "
-                        "kernel, or the compute_fn kernel under --mesh or "
-                        "--periodic and on 2D grids")
+                   help="auto: the path the dispatch tables measured "
+                        "fastest on an H100 for the stencil, dtype and "
+                        "cadences (a --fuse k kernel, the raw-step kernel, "
+                        "the compute_fn kernel, or the plain path); jnp: "
+                        "the plain tensor path; pallas: the hand-written "
+                        "CUDA raw-step kernel, or the compute_fn kernel "
+                        "under --mesh or --periodic and on 2D grids")
     p.add_argument("--overlap", action="store_true",
                    help="under --mesh: compute the bulk of each block while "
                         "the halo exchange runs (side CUDA stream), then "
@@ -250,6 +274,8 @@ def config_from_args(argv=None) -> RunConfig:
         mesh=a.mesh, seed=a.seed, density=a.density, init=a.init,
         periodic=a.periodic,
         log_every=a.log_every, checkpoint_every=a.checkpoint_every,
+        check_finite=a.check_finite, debug_checks=a.debug_checks,
+        dump_every=a.dump_every, dump_dir=a.dump_dir,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, compute=a.compute, overlap=a.overlap,
@@ -261,14 +287,55 @@ def config_from_args(argv=None) -> RunConfig:
     )
 
 
-# Dispatch tables, the counterparts of the TPU package's measured v5e
-# tables.  Empty: each entry is filled only from H100 measurements, so
-# ``--compute auto`` runs the plain tensor path and only ``--compute
-# pallas`` / ``--fuse K`` select a kernel.
-_RAW_WINS: frozenset = frozenset()
-_AUTO_FUSE_K: dict = {}
+# Dispatch tables of ``--compute auto``, keyed by the stencil's name (mdf
+# runs heat2d's), the counterparts of the TPU package's v5e tables.  Every
+# entry is read from one NVIDIA H100 80GB HBM3 at 700 W:
+# ``scripts/torch_dispatch_times.py``, PERF.md section 5 ("Dispatch"),
+# ms/step of every candidate path at 256^3, 512^3 and 1024^3 (2D: 512^2
+# for 1000 steps and 16384^2), float32 and bfloat16.  As in the TPU
+# package, a family is entered only where its path won at every measured
+# size; a run whose dtype, cadences or shape the kernel refuses stays on
+# the plain path (auto never raises for a kernel).
+#
+# The whole-step raw kernels (K1, K2, Gray-Scott's) beat the plain step
+# 7-45x at every size in both dtypes (heat3d 0.058 / 0.406 / 3.60 ms
+# against 0.788 / 5.96 / 47.4 in float32; heat3d27 0.107 / 0.635 / 5.00
+# against 3.69 / 28.0 / 223).  The streaming kernel beats them only at
+# 1024^3 (heat3d, wave3d) or from 512^3 (grayscott3d float32) and loses
+# 2-4x at 256^3, so no 3D raw family takes temporal blocking.  The plain
+# step lost at 256^3, the smallest size timed, so unlike the TPU package
+# (_RAW_ABOVE_CLIFF) no family keeps the plain step below a size.
+_RAW_WINS: frozenset = frozenset({
+    "heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d", "grayscott3d"})
+# Temporal blocking k (3D, unsharded), by dtype.  sor3d has no raw kernel:
+# float32 K3 k = 2 is the fastest path at every size (0.135 / 0.893 / 6.56
+# ms against plain 1.77 / 13.4 / 107); bfloat16 K3 k = 4 beats plain 4x at
+# every size (0.289 / 2.14 / 16.6 against 1.23 / 9.02 / 71.4) and K10 k = 4
+# only from 512^3 (1.70 / 12.3), losing 3x at 256^3 (0.870).
+_AUTO_FUSE_K: dict = {"sor3d": 2}
+_AUTO_FUSE_K_BF16: dict = {"sor3d": 4}
+# The kind ("stream": K10) where the streaming kernel won at every size:
+# none.
 _AUTO_FUSE_KIND: dict = {}
-_AUTO_FULL_K: dict = {}  # 2D: stencil -> k of the whole-grid kernel
+# 2D: the whole-grid kernel K8 at k = 8 beats plain and K7 at 512^2 (1000
+# steps, BASELINE config 1) and 16384^2 in both dtypes for every family
+# (heat2d 0.029 / 0.574 ms against plain 0.196 / 9.43 and K7 0.257 / 3.13);
+# k = 4 is faster at 512^2 in float32 (0.025) and 1.65x slower at 16384^2,
+# and k = 16 does not divide config 1's 1000 steps.
+_AUTO_FULL_K: dict = {name: 8 for name in (
+    "heat2d", "life", "wave2d", "advect2d", "grayscott2d", "sor2d")}
+# The compute_fn kernels (K4, K5; 2D: K7) against the plain step where they
+# plug in, by placement: "mesh" (1024^3 on --mesh 2,2, 16384^2 on --mesh
+# 4; heat3d 11.7 ms against 46.3, heat2d 2.90 against 9.25) and "single"
+# (unsharded: 3D --periodic at every 3D size, heat3d 0.302 / 2.26 / 19.0
+# against 0.870 / 6.62 / 53.4; 2D at 512^2 and 16384^2).  heat2d's K7
+# loses unsharded at 512^2 (0.257 against 0.196), Life's wins (0.197
+# against 0.281).
+_COMPUTE_FN_WINS: dict = {
+    **{name: frozenset({"mesh", "single"}) for name in (
+        "heat3d", "heat3d27", "heat3d4th", "wave3d", "life")},
+    "heat2d": frozenset({"mesh"}),
+}
 
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
@@ -278,9 +345,6 @@ _UNPORTED = (
     ("ensemble", "--ensemble", "A7 (ensembles)"),
     ("ensemble_mesh", "--ensemble-mesh", "A7 (ensembles)"),
     ("ensemble_perturb", "--ensemble-perturb", "A7 (ensembles)"),
-    ("check_finite", "--check-finite", "A3 (debug sanitizers)"),
-    ("debug_checks", "--debug-checks", "A3 (debug sanitizers)"),
-    ("dump_every", "--dump-every", "A9 (async dumps, native writer)"),
     ("profile", "--profile", "A8 (observability)"),
     ("profile_dir", "--profile-dir", "A8 (observability)"),
     ("telemetry", "--telemetry", "A8 (observability)"),
@@ -333,34 +397,60 @@ def _make_cfg_stencil(cfg: RunConfig):
 def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
     """Upgrade an eligible ``--compute auto`` run to ``--fuse k``.
 
-    Applies to the measured fused-kernel winners in ``_AUTO_FUSE_K`` (3D)
-    and ``_AUTO_FULL_K`` (2D), both empty until H100 measurements fill
-    them, only when every cadence is a multiple of k and the kernel accepts
-    the run's stencil, dtype and grid.
+    Applies to the measured fused-kernel winners (``_AUTO_FUSE_K`` and
+    ``_AUTO_FUSE_K_BF16`` in 3D, by dtype; ``_AUTO_FULL_K`` in 2D), on a
+    card, unsharded, only when every cadence (iters, log, checkpoint,
+    check-finite and dump intervals) is a multiple of k, nothing observes
+    single steps (``--debug-checks``, ``--tol``) and the kernel accepts the
+    run's stencil, dtype and grid: each probe is the function ``build()``
+    will call for the chosen kind.  A ``"stream"`` kind that does not fit
+    falls through to the window kernel's probe; a run no probe accepts
+    stays as it is.
     """
-    if cfg.compute != "auto" or cfg.fuse or cfg.fuse_kind != "auto" \
-            or _uses_mesh(cfg):
+    if cfg.compute != "auto" or cfg.fuse or cfg.fuse_kind != "auto":
+        # a forced kind without --fuse must reach build()'s guard
         return cfg
     if torch.device(cfg.device).type != "cuda":
         return cfg
-    table = {2: _AUTO_FULL_K, 3: _AUTO_FUSE_K}.get(len(cfg.grid), {})
-    k = table.get(cfg.stencil)
-    if k is None or cfg.periodic or cfg.resume or cfg.tol > 0:
+    st = _make_cfg_stencil(cfg)
+    if len(cfg.grid) == 2:
+        k = _AUTO_FULL_K.get(st.name)
+    else:
+        k = {torch.float32: _AUTO_FUSE_K,
+             torch.bfloat16: _AUTO_FUSE_K_BF16}.get(st.dtype, {}).get(
+                 st.name)
+    if k is None:
         return cfg
-    cadences = [cfg.iters, cfg.log_every, cfg.checkpoint_every]
+    if (cfg.periodic or cfg.tol > 0 or cfg.debug_checks or cfg.overlap
+            or cfg.pipeline or cfg.resume or cfg.exchange != "ppermute"
+            or cfg.mesh):
+        return cfg
+    cadences = [cfg.iters, cfg.log_every, cfg.checkpoint_every,
+                cfg.check_finite, cfg.dump_every]
     if any(v % k for v in cadences if v):
         return cfg
-    st = _make_cfg_stencil(cfg)
-    if _dtype_refusal(dataclasses.replace(cfg, fuse=k), st, False):
-        return cfg
-    make = (fullgrid_lib.make_fullgrid_step if st.ndim == 2
-            else fused_lib.make_fused_step)
-    if make(st, cfg.grid, k) is None:
+    if st.ndim == 2:
+        up = dataclasses.replace(cfg, fuse=k)
+        if _dtype_refusal(up, st, False) or \
+                fullgrid_lib.make_fullgrid_step(st, cfg.grid, k) is None:
+            return cfg
+        log.info("auto: temporal blocking k=%d (whole-grid CUDA kernel)", k)
+        return up
+    if _AUTO_FUSE_KIND.get(st.name) == "stream":
+        up = dataclasses.replace(cfg, fuse=k, fuse_kind="stream")
+        if not _dtype_refusal(up, st, False) and \
+                streamfused.make_stream_fused_step(st, cfg.grid, k) \
+                is not None:
+            log.info("auto: temporal blocking k=%d (streaming CUDA "
+                     "kernel)", k)
+            return up
+        # the streaming rings do not fit: try the window kernel
+    up = dataclasses.replace(cfg, fuse=k)
+    if _dtype_refusal(up, st, False) or \
+            fused_lib.make_fused_step(st, cfg.grid, k) is None:
         return cfg
     log.info("auto: temporal blocking k=%d (fused CUDA kernel)", k)
-    return dataclasses.replace(cfg, fuse=k,
-                               fuse_kind=_AUTO_FUSE_KIND.get(cfg.stencil,
-                                                             "auto"))
+    return up
 
 
 def _dtype_refusal(cfg: RunConfig, st, use_mesh: bool):
@@ -392,7 +482,7 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
     from .utils import budget
 
     compute = cfg.compute
-    if not cfg.fuse and _raw_eligible(cfg, st.name) and \
+    if not cfg.fuse and _raw_eligible(cfg, st) and \
             rawstep.make_raw_step(st, cfg.grid) is not None:
         compute = "raw"
     shards = budget.shards_on_card(mesh)
@@ -424,33 +514,58 @@ def _uses_mesh(cfg: RunConfig) -> bool:
     return bool(cfg.mesh) and math.prod(cfg.mesh) > 1
 
 
-def _raw_eligible(cfg: RunConfig, name: str) -> bool:
-    """Structural eligibility of the whole-step raw kernel."""
+def _raw_eligible(cfg: RunConfig, st) -> bool:
+    """Structural eligibility of the whole-step raw kernel: always under
+    ``--compute pallas`` (a refused dtype raises there by its item), under
+    ``auto`` on a card for the measured winners in a dtype the kernels
+    take."""
     if cfg.periodic or cfg.fuse or cfg.compute == "jnp" or _uses_mesh(cfg):
         return False
     if cfg.compute == "pallas":
         return True
-    if torch.device(cfg.device).type != "cuda":
+    if torch.device(cfg.device).type != "cuda" or \
+            st.dtype not in FLOAT_DTYPES:
         return False
-    return name in _RAW_WINS
+    return st.name in _RAW_WINS
 
 
 def resolve_raw_step(cfg: RunConfig, st):
     """Whole-step raw kernel (K1/K2, Gray-Scott's) for eligible runs, or
     None."""
-    if not _raw_eligible(cfg, st.name) or not rawstep.raw_step_supported(st):
+    if not _raw_eligible(cfg, st) or not rawstep.raw_step_supported(st):
         return None
     return rawstep.make_raw_step(st, cfg.grid, device=cfg.device)
 
 
-def resolve_compute_fn(cfg: RunConfig, st):
-    """The ``compute_fn`` kernel (K4/K5, 2D: K7) that ``--compute pallas``
-    plugs into the step when the raw kernel does not apply (``--mesh``,
-    ``--periodic``, 2D grids); None otherwise."""
-    if cfg.compute != "pallas":
-        return None
+def _compute_fn_auto(cfg: RunConfig, st) -> bool:
+    """Whether ``--compute auto`` takes the compute_fn kernel: on a card,
+    where the kernel plugs into the step (``--mesh``, ``--periodic``, 2D
+    grids) and won in that placement (``_COMPUTE_FN_WINS``), in a dtype it
+    takes."""
+    if cfg.compute != "auto" or torch.device(cfg.device).type != "cuda":
+        return False
     if not kernels_lib.has_pallas_kernel(st.name):
-        raise ValueError(f"no pallas kernel for {st.name!r}")
+        return False
+    if not (_uses_mesh(cfg) or cfg.periodic or st.ndim == 2):
+        return False
+    place = "mesh" if _uses_mesh(cfg) else "single"
+    if place not in _COMPUTE_FN_WINS.get(st.name, ()):
+        return False
+    pallas = dataclasses.replace(cfg, compute="pallas")
+    return _dtype_refusal(pallas, st, _uses_mesh(cfg)) is None
+
+
+def resolve_compute_fn(cfg: RunConfig, st):
+    """The ``compute_fn`` kernel (K4/K5, 2D: K7) that plugs into the step
+    when the raw kernel does not apply (``--mesh``, ``--periodic``, 2D
+    grids): always under ``--compute pallas``, under ``auto`` where it was
+    measured faster than the plain update (``_COMPUTE_FN_WINS``); None
+    otherwise."""
+    if cfg.compute == "pallas":
+        if not kernels_lib.has_pallas_kernel(st.name):
+            raise ValueError(f"no pallas kernel for {st.name!r}")
+    elif not _compute_fn_auto(cfg, st):
+        return None
     log.info("compute: compute_fn CUDA kernel (%s)", st.name)
     return kernels_lib.make_pallas_compute(st, device=cfg.device)
 
@@ -520,8 +635,17 @@ def _refuse_multiprocess(cfg: RunConfig, m) -> None:
     if cfg.render:
         raise ValueError(
             f"--render draws the global grid, and {GLOBAL_GRID_REASON}")
+    if _dumps(cfg):
+        raise ValueError(
+            f"--dump-every writes field 0 of the global grid, and "
+            f"{GLOBAL_GRID_REASON}")
     if cfg.exchange == "rdma":
         _refuse_peer_ring(m)
+
+
+def _dumps(cfg: RunConfig) -> bool:
+    """Whether the run writes ``--dump-every`` snapshots."""
+    return bool(cfg.dump_every and cfg.dump_dir)
 
 
 def _refuse_peer_ring(m) -> None:
@@ -740,6 +864,9 @@ def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool):
 def run(cfg: RunConfig) -> Tuple:
     """Execute a configured run; returns (final_fields, mcells_per_s)."""
     cfg = maybe_auto_fuse(cfg)
+    if cfg.debug_checks and cfg.fuse:
+        raise ValueError("--debug-checks excludes --fuse (the fused "
+                         "kernel replaces the step being instrumented)")
     st, step_fn, fields, start_step = build(cfg)
     remaining = cfg.iters - start_step
     if remaining <= 0:
@@ -751,11 +878,25 @@ def run(cfg: RunConfig) -> Tuple:
         return _run_until_converged(cfg, st, step_fn, fields, start_step,
                                     remaining, cells)
 
+    if _dumps(cfg):
+        os.makedirs(cfg.dump_dir, exist_ok=True)
+    last_ok = [start_step]
+
     def callback(done_in_run, fs):
         step = start_step + done_in_run * step_unit
         # the fault point of the chunk boundary, before its checkpoint: a
         # kill here leaves the previous boundary's checkpoint the newest
         faults.maybe_fire("exchange", step=step)
+        if cfg.check_finite and step % cfg.check_finite == 0:
+            for i, f in enumerate(fs):
+                if not f.dtype.is_floating_point:
+                    continue  # int grids cannot hold NaN/Inf
+                if not driver.all_finite(f):
+                    raise RuntimeError(
+                        f"field {i} became non-finite between steps "
+                        f"{last_ok[0]} and {step} (NaN/Inf blow-up — "
+                        f"check stability parameters)")
+            last_ok[0] = step
         if cfg.log_every and step % cfg.log_every == 0:
             # the Jacobi residual needs a one-step step_fn (not a fused one)
             d = diagnostics.field_diagnostics(
@@ -765,9 +906,17 @@ def run(cfg: RunConfig) -> Tuple:
         if cfg.checkpoint_every and cfg.checkpoint_dir and \
                 step % cfg.checkpoint_every == 0 and step != cfg.iters:
             _save_ckpt(cfg, fs, step)
+        if _dumps(cfg) and step % cfg.dump_every == 0:
+            f = fs[0]
+            if stepper_lib.is_sharded(fs):
+                f = stepper_lib.gather_fields((f,), device="cpu")[0]
+            native.async_write_npy(
+                os.path.join(cfg.dump_dir, f"step_{step:08d}.npy"), f)
         return None
 
-    intervals = [v for v in (cfg.log_every, cfg.checkpoint_every) if v]
+    intervals = [v for v in (cfg.log_every, cfg.checkpoint_every,
+                             cfg.check_finite,
+                             cfg.dump_every if cfg.dump_dir else 0) if v]
     interval = math.gcd(*intervals) if intervals else 0
     # With temporal blocking the step_fn advances cfg.fuse steps per call:
     # loop over remaining/K calls, and run the callback cadence in K-units.
@@ -778,7 +927,7 @@ def run(cfg: RunConfig) -> Tuple:
                 f"--fuse {step_unit}")
         if interval % step_unit:
             raise ValueError(
-                f"log/checkpoint intervals must be multiples of "
+                f"log/checkpoint/dump intervals must be multiples of "
                 f"--fuse {step_unit}")
         if start_step % step_unit:
             raise ValueError(
@@ -797,11 +946,15 @@ def run(cfg: RunConfig) -> Tuple:
     fields = driver.run_simulation(
         st, donated, remaining // step_unit, step_fn=step_fn,
         log_every=interval, callback=callback,
-        start_step=start_step // step_unit)
+        start_step=start_step // step_unit,
+        runner_factory=driver.make_checked_runner if cfg.debug_checks
+        else None)
     driver.synchronize(fields)
     # the global cells over the slowest process's time
     dt = _slowest(fields, time.perf_counter() - t0)
     _check_peer_ring(step_fn)
+    if _dumps(cfg):
+        native.wait_all()  # drain the async dump queue; raises IO errors
     mcells = cells * remaining / dt / 1e6
     log.info("%d steps on %s grid in %.3fs  (%.1f Mcells/s)",
              remaining, "x".join(map(str, cfg.grid)), dt, mcells)
@@ -815,7 +968,8 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
     rules (``cli.py:1775-1822`` there): no log or checkpoint cadence, with
     ``--fuse k`` the remaining iterations and ``--tol-check-every`` in
     multiples of k; the final state is checkpointed."""
-    if cfg.log_every or cfg.checkpoint_every:
+    if cfg.log_every or cfg.checkpoint_every or cfg.dump_every or \
+            cfg.check_finite or cfg.debug_checks:
         raise ValueError(
             "--tol runs inside one while_loop; it excludes "
             "--debug-checks and periodic log/checkpoint/dump/"

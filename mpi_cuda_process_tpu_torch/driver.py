@@ -220,6 +220,97 @@ def make_runner(step_fn, n_steps: int):
     return run
 
 
+def _blocks(f):
+    """The tensors of a field: its blocks when sharded, else itself."""
+    return f if isinstance(f, list) else (f,)
+
+
+def make_checked_runner(step_fn, n_steps: int, start_step: int = 0):
+    """Debug-mode runner (``--debug-checks``): every step checked.
+
+    ``--check-finite`` polls the state at chunk boundaries; this runner
+    checks every inexact field after every step and reports the exact step
+    where the state first went non-finite, as the TPU package's
+    ``make_checked_runner`` (its carry form): the first failing ``(step,
+    field)`` is kept in two device scalars updated through ``torch.where``,
+    so no step waits for the host, and the runner reads them once a call.
+    A sharded field is checked block by block; on a mesh that spans
+    processes the first failing step is the minimum over the processes
+    (through the run's transport), so every process raises the same
+    message.
+
+    Call the runner as ``runner(fields, abs_start_step)``; the step index
+    in the message is absolute (``abs_start_step`` + the step's index in
+    the call), so it names the true step across chunks and resumes.  Raises
+    ``RuntimeError("field i non-finite after step s (NaN/Inf blow-up —
+    check stability parameters)")``, else returns the final fields.
+    :class:`Donated` fields are taken, as :func:`make_runner` takes them;
+    fields the caller still holds stay alive through the caller's
+    reference.  A slab-carry pipelined step goes through
+    :func:`pipeline_hooks`."""
+    seed, advance, drop = pipeline_hooks(step_fn)
+
+    def runner(fields: Fields, start=None) -> Fields:
+        if start is None:
+            start = start_step
+        if isinstance(fields, Donated):
+            fields = fields.take()
+        if n_steps <= 0:
+            return fields
+        dev = _blocks(fields[0])[0].device
+        bad_step = torch.full((), -1, dtype=torch.int64, device=dev)
+        bad_field = torch.full((), -1, dtype=torch.int64, device=dev)
+        extra = seed(fields)
+        for i in range(n_steps):
+            new, extra = advance(fields, extra, i == n_steps - 1)
+            if i == 0:
+                _check_carry(fields, new)
+            for j, f in enumerate(new):
+                if not f.dtype.is_floating_point:
+                    continue  # int grids cannot hold NaN/Inf
+                ok = None
+                for b in _blocks(f):
+                    fin = torch.isfinite(b).all().to(dev)
+                    ok = fin if ok is None else ok & fin
+                newly = (bad_step < 0) & ~ok
+                bad_field = torch.where(newly, j, bad_field)
+                bad_step = torch.where(newly, start + i, bad_step)
+            fields = new
+        drop(extra)
+        step, field = _first_failure(int(bad_step), int(bad_field), fields)
+        if step >= 0:
+            raise RuntimeError(
+                f"field {field} non-finite after step {step} (NaN/Inf "
+                "blow-up — check stability parameters)")
+        return fields
+
+    return runner
+
+
+def _first_failure(step: int, field: int, fields: Fields):
+    """``(step, field)`` of the first failure over every process of a mesh
+    that spans processes (the earliest step, then the lowest field), or
+    ``(-1, -1)``; this process's own for one process."""
+    mesh = _multiprocess_mesh(fields)
+    if mesh is None:
+        return step, field
+    n = len(fields)
+    key = step * n + field if step >= 0 else float("inf")
+    worst = -mesh.max_all(-key)
+    if worst == float("inf"):
+        return -1, -1
+    return divmod(int(worst), n)
+
+
+def all_finite(f) -> bool:
+    """Whether every cell of a field is finite: every block of a sharded
+    one, and on a mesh that spans processes every process's blocks (so
+    every process gets the same answer)."""
+    ok = all(bool(torch.isfinite(b).all()) for b in _blocks(f))
+    mesh = _multiprocess_mesh((f,))
+    return ok if mesh is None else mesh.max_all(0.0 if ok else 1.0) == 0.0
+
+
 def _multiprocess_mesh(fields: Fields):
     """The mesh of sharded fields that span processes, else None."""
     mesh = getattr(fields[0], "mesh", None) if fields else None
@@ -233,7 +324,7 @@ def synchronize(fields: Fields) -> Fields:
     started or stopped here starts or stops together on every process."""
     devices = []
     for f in fields:
-        for t in (f if isinstance(f, list) else (f,)):
+        for t in _blocks(f):
             if t.is_cuda and t.device not in devices:
                 devices.append(t.device)
     for d in devices:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, or 5f), repeated.
+phase 5d (or 5e, 5f, 5g), repeated.
 
-    python3 scripts/torch_multiprocess.py [--repeat N] [--phase 5d|5e|5f]
+    python3 scripts/torch_multiprocess.py [--repeat N] [--phase 5d|5e|5f|5g]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -21,7 +21,11 @@ on 2 and on 1 (its write and read seconds and bytes).  ``--phase 5f``
 runs ``chip_smoke.peer_ring_phase``: every ``PEER_RUNS`` run (the peer ring,
 ``--exchange rdma`` across processes, beside its gloo-host twin) in one
 process and as its processes, with its ms/step, both transports' host time
-and its peak beside ``--mem-check``'s estimate.
+and its peak beside ``--mem-check``'s estimate.  ``--phase 5g`` runs
+``chip_smoke.auto_dispatch_phase``: every ``AUTO_RUNS`` run under the
+default ``--compute auto`` beside the explicit run of the path the
+dispatch tables promise (launches, bit-equal fields) and the plain run,
+then the sanitizers' blow-ups and the dumps on the card.
 """
 
 from __future__ import annotations
@@ -39,7 +43,8 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
-    p.add_argument("--phase", choices=["5d", "5e", "5f"], default="5d")
+    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g"],
+                   default="5d")
     args = p.parse_args()
     import torch
 
@@ -82,6 +87,12 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5g":
+            out = cs.auto_dispatch_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "auto_dispatch", "repeat": rep,
+                     "runs": len(out["runs"]),
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5e":

@@ -328,15 +328,20 @@ def test_interop_carries_int32_fields_unchanged():
 
 def test_auto_full_k_table_starts_empty_and_upgrades_when_filled(
         monkeypatch):
-    """No H100 number has filled ``_AUTO_FULL_K``; an entry would turn an
-    eligible 2D ``--compute auto`` run into ``--fuse k``."""
-    assert tcli._AUTO_FULL_K == {}
+    """The H100 timings filled ``_AUTO_FULL_K`` (k = 8 for every 2D family,
+    PERF.md section 5): an eligible 2D ``--compute auto`` run on a card
+    becomes ``--fuse 8``; one whose cadence k does not divide, or one on
+    the CPU, stays as it is; a family the table lacks is not upgraded."""
+    assert tcli._AUTO_FULL_K == {name: 8 for name in (
+        "heat2d", "life", "wave2d", "advect2d", "grayscott2d", "sor2d")}
     cfg = RunConfig(stencil="life", grid=(64, 128), iters=16, device="cuda")
-    assert tcli.maybe_auto_fuse(cfg) is cfg
-    monkeypatch.setattr(tcli, "_AUTO_FULL_K", {"life": 8})
     assert tcli.maybe_auto_fuse(cfg).fuse == 8
     odd = dataclasses.replace(cfg, iters=12)
     assert tcli.maybe_auto_fuse(odd) is odd  # cadence not a multiple of k
+    cpu = dataclasses.replace(cfg, device="cpu")
+    assert tcli.maybe_auto_fuse(cpu) is cpu
+    monkeypatch.setattr(tcli, "_AUTO_FULL_K", {})
+    assert tcli.maybe_auto_fuse(cfg) is cfg
 
 
 # ---- K8's streaming kind: the kernel's row schedule (csrc/ring.cuh) ----------

@@ -288,7 +288,7 @@ def test_unported_flags_are_not_registered_and_config_fields_refused():
     with pytest.raises(SystemExit):
         tcli.config_from_args(["--ensemble", "2"])
     for field, value in (("groups", "heat3d@0-1"), ("ensemble", 2),
-                         ("check_finite", 10), ("supervise", True)):
+                         ("profile", "trace"), ("supervise", True)):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -296,14 +296,24 @@ def test_unported_flags_are_not_registered_and_config_fields_refused():
 
 
 def test_dispatch_tables_start_empty():
-    """``--compute auto`` runs the plain tensor path: no H100 measurement
-    has filled the tables yet."""
-    assert not tcli._RAW_WINS
-    assert not tcli._AUTO_FUSE_K and not tcli._AUTO_FUSE_KIND
+    """The tables began empty and hold only what the H100 timings entered
+    (PERF.md section 5, "Dispatch"): the six raw families, sor3d's k, no
+    stream kind.  ``--compute auto`` on the CPU still runs the
+    plain path; on a card it takes the raw kernel, and ``--compute
+    pallas`` takes it everywhere."""
+    assert tcli._RAW_WINS == {"heat3d", "heat3d27", "heat3d4th", "wave3d",
+                              "advect3d", "grayscott3d"}
+    assert not tcli._AUTO_FUSE_KIND
+    assert tcli._AUTO_FUSE_K == {"sor3d": 2}
+    assert tcli._AUTO_FUSE_K_BF16 == {"sor3d": 4}
     cfg = RunConfig(stencil="heat3d", grid=(16, 16, 128), iters=8,
                     device="cpu")
     assert tcli.maybe_auto_fuse(cfg) is cfg
     assert tcli.resolve_raw_step(cfg, tcli._make_cfg_stencil(cfg)) is None
+    card = RunConfig(stencil="heat3d", grid=(16, 16, 128), iters=8,
+                     device="cuda")
+    assert tcli.maybe_auto_fuse(card) is card
+    assert tcli._raw_eligible(card, tcli._make_cfg_stencil(card))
     pallas = RunConfig(stencil="heat3d", grid=(16, 16, 128), iters=8,
                        device="cpu", compute="pallas")
     assert tcli.resolve_raw_step(pallas,

@@ -738,6 +738,40 @@ AUTO_RUNS = (
 SAN_ALPHA, SAN_ITERS, SAN_EVERY = 1e9, 12, 3
 DUMP_EVERY = 25
 
+# The ensemble axis (phase 5h, ROADMAP A7): each batched kernel held to its
+# plain version and to its unbatched launches on ENS_CHECK_N members (3, so
+# a member stride that is off shows), then the CLI runs users would make
+# with --ensemble: README's Life 128^2 x 64 and heat3d 256^3 on an
+# ensemble mesh, BASELINE config 1's heat2d 512^2 x 64 on K8, config 2's
+# heat3d 256^3 x 8 on K3 and K10, heat3d 512^3 x 2 on a 2x2 mesh of the
+# stream kind with the ring, wave3d 256^3 x 4 on K5.  (label, stencil,
+# grid, iterations, members, flags, virtual devices, the batched kernels
+# its run launches).  Each run's batch and its member N-1 are then timed
+# apart by CUDA events: ENS_TIMED chunks of the run's iterations after a
+# warm-up chunk, the median.
+ENS_CHECK_N = 3
+ENS_TIMED = 3
+ENS_RUNS = (
+    ("life_128_x64", "life", (128, 128), 100, 64, (), 0,
+     ("whole2d[life,ensemble]",)),
+    ("heat2d_512_x64_fuse8", "heat2d", BASE2D, 200, 64, ("--fuse", "8"), 0,
+     ("fullgrid_step[heat2d,ensemble]",)),
+    ("heat3d_256_x8_fuse4", "heat3d", (256, 256, 256), 40, 8,
+     ("--fuse", "4"), 0, ("fused_step[heat3d,ensemble]",)),
+    ("heat3d_256_x8_stream", "heat3d", (256, 256, 256), 40, 8,
+     ("--fuse", "4", "--fuse-kind", "stream"), 0,
+     ("stream_step[heat3d,ensemble]",)),
+    ("heat3d_256_x8_emesh2_221", "heat3d", (256, 256, 256), 100, 8,
+     ("--ensemble-mesh", "2", "--mesh", "2,2,1", "--ensemble-perturb",
+      "0.01"), 8, ("zchunk_heat[heat3d,ensemble]",)),
+    ("heat3d_512_x2_22_stream_rdma", "heat3d", MAIN, 20, 2,
+     ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream",
+      "--exchange", "rdma"), 4, ("stream_yzslab[heat3d,ensemble]",)),
+    ("wave3d_256_x4_22_pallas", "wave3d", (256, 256, 256), 20, 4,
+     ("--mesh", "2,2", "--compute", "pallas"), 4,
+     ("zchunk_wave[wave3d,ensemble]",)),
+)
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -1757,6 +1791,343 @@ def auto_dispatch_phase(counted, lines, main_launches, scratch):
     emit({"phase": "auto_dumps", "steps": checked, "fuse": cfg.fuse,
           "fuse_kind": cfg.fuse_kind, "native": True})
     return {"runs": rows, "sanitizers": sanitizers, "dumps": checked}
+
+
+def ensemble_phase(counted, lines, main_launches, scratch):
+    """Phase 5h: the ensemble axis on the card (ROADMAP A7).
+
+    First each batched kernel on ENS_CHECK_N members: K4, K5 and K7 at
+    every table kind, K8's streaming and tiled kinds (whole grid and a row
+    shard), K10's three modes and K3 (whole grid and sharded mode), K6 and
+    K9.  Each call must count one launch under its ",ensemble" key, equal
+    the unbatched launches of its members bit for bit, and equal its plain
+    version on the batch (bit for bit; K3/K6/K9's float32 heat and wave
+    kinds within 1e-4: they reassociate taps).  Then each ENS_RUNS run
+    through ``cli.run`` as users run it, with the device-memory peak held
+    to ``--mem-check``'s estimate, and its members 0 and N-1 held bit for
+    bit to the unbatched step run from the same member's init (seed + i,
+    perturbed by ``init.perturb_member`` where the run perturbs), whose
+    launches a step, times the ensemble groups, must equal the batch's
+    (one launch a kernel and shard for all of a block's members).  Then
+    the batch and its member N-1, each built again by ``cli.build``, timed
+    by CUDA events after a warm-up chunk (``event_ms``): ms/step of the
+    batch beside N times a member's.  Returns
+    ``{"errs": {entry: max |d|}, "checked": [...], "runs": [...]}``."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver, make_stencil
+    from mpi_cuda_process_tpu_torch.ops.cuda import (fullgrid, fused,
+                                                     kernels, streamfused)
+    from mpi_cuda_process_tpu_torch.ops.stencil import k_step_margin
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.parallel import stepper
+    from mpi_cuda_process_tpu_torch.utils import budget
+    from mpi_cuda_process_tpu_torch.utils import init as init_lib
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261022)
+    n = ENS_CHECK_N
+    views = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+             torch.int32: torch.int32}
+    errs, checked = {}, []
+
+    def members(st, shape):
+        x = [torch.rand((n,) + tuple(shape), generator=gen, device=dev)
+             for _ in range(st.num_fields)]
+        if st.dtype == torch.int32:
+            return tuple((t < 0.3).to(torch.int32) for t in x)
+        return tuple(t.to(st.dtype) for t in x)
+
+    def pick(x, i):
+        if isinstance(x, torch.Tensor):
+            return x[i].contiguous()
+        return type(x)(pick(y, i) for y in x)
+
+    def same(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.view(views[a.dtype]), b.view(views[b.dtype]))
+
+    def first(x):
+        return x if isinstance(x, torch.Tensor) else first(x[0])
+
+    def hold(entry, counter, key, fn, plain, args, atol=0.0, calls=1):
+        """``fn(*args)`` on the batch (each operand a tuple of batched
+        fields, or a list of such tuples): ``calls`` launches under
+        ``key``, member by member its own launches bit for bit, and within
+        ``atol`` of ``plain(*args)`` (bit for bit at 0)."""
+        counter.clear()
+        got = fn(*args)
+        torch.cuda.synchronize()
+        if dict(counter) != {key: calls}:
+            fail(f"{entry}: launches {dict(counter)}, expected {key}: "
+                 f"{calls}")
+        solo = [fn(*(pick(a, i) for a in args)) for i in range(n)]
+        torch.cuda.synchronize()
+        for i in range(n):
+            if not all(same(g[i], s) for g, s in zip(got, solo[i])):
+                fail(f"{entry}: member {i} differs from its own launch")
+        ref = plain(*args)
+        err = 0.0
+        for g, r in zip(got, ref):
+            if atol == 0.0 and not same(g, r):
+                fail(f"{entry}: differs from the plain version")
+            err = max(err, float((g.float() - r.float()).abs().max()))
+        if err > atol:
+            fail(f"{entry}: max|d| {err:.3e} > atol {atol:.1e}")
+        errs[entry] = max(errs.get(entry, 0.0), err)
+        checked.append({"kernel": entry, "members": n,
+                        "shape": list(first(args).shape[1:]),
+                        "max_abs_err": err, "atol": atol})
+
+    def tag(st):
+        return "" if st.dtype in (torch.float32, torch.int32) else \
+            "," + str(st.dtype).replace("torch.", "")
+
+    def check(wrapper, st, counter, fn, plain, args, atol=0.0, calls=1):
+        name = f"{st.name}{tag(st)},ensemble"
+        hold(f"{wrapper}<{name}>", counter, f"{wrapper}[{name}]", fn,
+             plain, args, atol, calls)
+
+    # K4, K5, K7: every table kind
+    for name, dt in kernels.TILES:
+        st = make_stencil(name, dtype=dt)
+        h = st.halo
+        shape = (300, 258) if st.ndim == 2 else (33, 35, 130)
+        ins = members(st, tuple(s + 2 * h for s in shape))
+        if name == "wave3d":
+            ins = (ins[0], members(st, shape)[0])
+        comp = kernels.make_pallas_compute(st, device=dev)
+        wrapper = "whole2d" if st.ndim == 2 else (
+            "zchunk_wave" if name == "wave3d" else "zchunk_heat")
+        check(wrapper, st, kernels.launches,
+              lambda f, comp=comp: comp(f)[:1],
+              lambda f, st=st: st.update(f)[:1], (ins,))
+    # K8: the streaming kind (guard frame) and the tiled kind (periodic),
+    # the whole grid and one row shard's padded block
+    for name, dt, k in (("heat2d", "float32", 8), ("heat2d", "bfloat16", 16),
+                        ("life", "int32", 8), ("wave2d", "float32", 8),
+                        ("grayscott2d", "float32", 8),
+                        ("sor2d", "float32", 8)):
+        st = make_stencil(name, dtype=dt)
+        m = k_step_margin(st, k)
+        shape = (200, 130)
+        calls = -(-k // fullgrid._steps_per_launch(st))
+        for periodic in (False, True) if name != "sor2d" else (False,):
+
+            def plain(f, st=st, k=k, periodic=periodic):
+                step = driver.make_step(st, shape, periodic=periodic)
+                for _ in range(k):
+                    f = step(f)
+                return f
+
+            def plain_pad(p, st=st, k=k, m=m, periodic=periodic):
+                out = fused._plain_window_steps(
+                    p, st, k, (64 - m, 0), (256, 130), periodic,
+                    wrap_axes=(1,))
+                return tuple(f[:, m:m + 64].contiguous() for f in out)
+
+            check("fullgrid_step", st, fullgrid.launches,
+                  lambda f, st=st, k=k, periodic=periodic:
+                  fullgrid.fullgrid_step(f, st, k, periodic),
+                  plain, (members(st, shape),), calls=calls)
+            check("fullgrid_padded", st, fullgrid.launches,
+                  lambda p, st=st, k=k, periodic=periodic:
+                  fullgrid.fullgrid_padded(p, st, k, 256, 64, periodic),
+                  plain_pad, (members(st, (64 + 2 * m, 130)),))
+    # K10's three modes; K3 (whole grid, sharded mode), K6 and K9
+    for name, dt, k in (("heat3d", "float32", 4), ("wave3d", "float32", 4),
+                        ("grayscott3d", "float32", 4),
+                        ("sor3d", "float32", 4), ("heat3d4th", "float32", 2),
+                        ("advect3d", "float32", 4),
+                        ("heat3d", "bfloat16", 8),
+                        ("wave3d", "bfloat16", 8)):
+        st = make_stencil(name, dtype=dt, **STENCIL_PARAMS.get(name, {}))
+        m = k_step_margin(st, k)
+        Lz, Ly, X = shape = (40, 36, 70)
+        gshape, org = (3 * Lz, 2 * Ly, X), (Lz, Ly)
+        core = members(st, shape)
+        lo, hi = members(st, (m, Ly, X)), members(st, (m, Ly, X))
+        ylo, yhi = members(st, (Lz, m, X)), members(st, (Lz, m, X))
+        corners = [members(st, (m, m, X)) for _ in range(4)]
+        zs, yz = (core, lo, hi), (core, lo, hi, ylo, yhi, corners)
+        check("stream_step", st, streamfused.launches,
+              lambda f, st=st, k=k: streamfused.stream_step(f, st, k),
+              lambda f, st=st, k=k: fused.plain_steps(f, st, k), (core,))
+        check("stream_zslab", st, streamfused.launches,
+              lambda *a, st=st, k=k: streamfused.stream_zslab(
+                  *a, st, k, gshape[0], Lz),
+              lambda *a, st=st, k=k: fused.plain_zslab(
+                  *a, st, k, gshape[0], Lz), zs)
+        check("stream_yzslab", st, streamfused.launches,
+              lambda *a, st=st, k=k: streamfused.stream_yzslab(
+                  *a, st, k, gshape, org),
+              lambda *a, st=st, k=k: fused.plain_yzslab(
+                  *a, st, k, gshape, org), yz)
+        if fused.margin_of(st, k) is not None:
+            atol = 1e-4 if dt == "float32" and name in (
+                "heat3d", "heat3d27", "heat3d4th", "wave3d") else 0.0
+            padded = members(st, (Lz + 2 * m, Ly + 2 * m, X))
+            check("fused_step", st, fused.launches,
+                  lambda f, st=st, k=k: fused.fused_step(f, st, k),
+                  lambda f, st=st, k=k: fused.plain_steps(f, st, k),
+                  (core,), atol)
+            check("fused_step_padded", st, fused.launches,
+                  lambda p, st=st, k=k: fused.fused_step_padded(
+                      p, st, k, gshape, org),
+                  lambda p, st=st, k=k: fused.plain_step_padded(
+                      p, st, k, gshape, org), (padded,), atol)
+            check("fused_zslab", st, fused.launches,
+                  lambda *a, st=st, k=k: fused.fused_zslab(
+                      *a, st, k, gshape[0], Lz),
+                  lambda *a, st=st, k=k: fused.plain_zslab(
+                      *a, st, k, gshape[0], Lz), zs, atol)
+            check("fused_yzslab", st, fused.launches,
+                  lambda *a, st=st, k=k: fused.fused_yzslab(
+                      *a, st, k, gshape, org),
+                  lambda *a, st=st, k=k: fused.plain_yzslab(
+                      *a, st, k, gshape, org), yz, atol)
+            del padded
+        del core, lo, hi, ylo, yhi, corners, zs, yz
+        torch.cuda.empty_cache()
+    emit({"phase": "ensemble_kernels", "checked": len(checked),
+          "max_abs_err": errs})
+
+    # the CLI runs
+    rows = []
+    strip = ",ensemble]"
+
+    def per_step(launches, calls):
+        """launches a call, the ring's counted by call (its keys name the
+        slab shape, which a batch flattens)."""
+        out = {}
+        for key, v in launches.items():
+            key = "ring_exchange" if key.startswith("ring_") else \
+                key.replace(strip, "]")
+            out[key] = out.get(key, 0) + v / calls
+        return out
+
+    def event_ms(run_cfg):
+        """ms/step of ``run_cfg``'s step by CUDA events: each of
+        ENS_TIMED chunks of its iterations, after a warm-up chunk, from
+        the fields of ``cli.build``'s init; (median, chunks)."""
+        _, step_fn, fields, _ = cli.build(run_cfg)
+        runner = driver.make_runner(step_fn,
+                                    run_cfg.iters // max(1, run_cfg.fuse))
+        fields = runner(fields)  # warm-up chunk, outside the clock
+        torch.cuda.synchronize()
+        chunks = []
+        for _ in range(ENS_TIMED):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fields = runner(fields)
+            e1.record()
+            torch.cuda.synchronize()
+            chunks.append(e0.elapsed_time(e1) / run_cfg.iters)
+        del fields, runner, step_fn
+        torch.cuda.empty_cache()
+        return statistics.median(chunks), chunks
+
+    for (label, stencil, grid, iters, nm, flags, vdev,
+         expect) in ENS_RUNS:
+        if vdev:
+            os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(vdev)
+        else:
+            os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+        argv = ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+                "--iters", str(iters), "--ensemble", str(nm), *flags]
+        cfg = cli.config_from_args(argv)
+        estimate = []
+        check_budget = budget.check_budget
+
+        def spy(*a, **kw):
+            out = check_budget(*a, **kw)
+            estimate.append(out[0])
+            return out
+
+        budget.check_budget = spy
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            (fields, mcells), got = counted(lambda: cli.run(cfg))
+            driver.synchronize(fields)
+        finally:
+            budget.check_budget = check_budget
+        peak = torch.cuda.max_memory_allocated() - held
+        if not estimate:
+            fail(f"ensemble {label}: --mem-check priced nothing")
+        if peak > estimate[-1]:
+            fail(f"ensemble {label}: peak {peak} B above the estimate "
+                 f"{estimate[-1]} B")
+        for key in expect:
+            if not got.get(key):
+                fail(f"ensemble {label}: {key} launched no time "
+                     f"({got})")
+        cells = math.prod(grid)
+        unit = max(1, cfg.fuse)
+        cli_ms = 1e3 * nm * cells / (mcells * 1e6)
+        out = stepper.gather_fields(fields) if stepper.is_sharded(fields) \
+            else fields
+        del fields
+        single = dataclasses.replace(cfg, ensemble=0, ensemble_mesh=0,
+                                     ensemble_perturb=0.0)
+        for i in (0, nm - 1):
+            st, step_fn, init, _ = cli.build(dataclasses.replace(
+                single, seed=cfg.seed + i))
+            if cfg.ensemble_perturb:
+                whole = init_lib.perturb_member(
+                    init_lib.init_state(st, cfg.grid, cfg.seed + i,
+                                        cfg.density, kind=cfg.init,
+                                        periodic=cfg.periodic, device=dev),
+                    st, i, cfg.seed, cfg.ensemble_perturb, cfg.periodic)
+                init = stepper.shard_fields(whole, init[0].mesh, st.ndim) \
+                    if stepper.is_sharded(init) else whole
+                del whole
+            member, solo = counted(lambda: driver.run_simulation(
+                st, driver.Donated(init), iters // unit, step_fn=step_fn))
+            driver.synchronize(member)
+            del init
+            if stepper.is_sharded(member):
+                member = stepper.gather_fields(member)
+            if not all(same(o[i], f) for o, f in zip(out, member)):
+                fail(f"ensemble {label}: member {i} differs from the "
+                     "unbatched run of its init")
+            # one launch a kernel and shard for all of its members: the
+            # batch's launches are one member's times the ensemble groups
+            groups = max(1, cfg.ensemble_mesh)
+            if per_step(got, iters) != {
+                    key: groups * v
+                    for key, v in per_step(solo, iters).items()}:
+                fail(f"ensemble {label}: launches a step {got} against "
+                     f"{groups} x one member's {solo}")
+            del member
+        del out, step_fn
+        torch.cuda.empty_cache()
+        batch_ms, batch_chunks = event_ms(cfg)
+        solo_ms, solo_chunks = event_ms(dataclasses.replace(
+            single, seed=cfg.seed + nm - 1))
+        row = {"label": label, "stencil": stencil, "grid": list(grid),
+               "iters": iters, "members": nm, "flags": list(flags),
+               "cli_ms_per_step": cli_ms, "mcells_per_s": mcells,
+               "ms_per_step": batch_ms, "ms_per_step_chunks": batch_chunks,
+               "member_ms_per_step": solo_ms,
+               "member_ms_per_step_chunks": solo_chunks,
+               "n_times_member_ms": nm * solo_ms,
+               "batch_over_n_members": batch_ms / (nm * solo_ms),
+               "launches": got,
+               "launches_per_step": per_step(got, iters),
+               "peak_bytes": peak, "estimate_bytes": estimate[-1],
+               "members_checked": [0, nm - 1], "bit_equal": True}
+        rows.append(row)
+        emit({"phase": "ensemble_run", **row})
+    os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+    return {"errs": errs, "checked": checked, "runs": rows}
 
 
 def card_rates(name: str):
@@ -3695,6 +4066,22 @@ def main() -> int:
                   "dispatch tables promise (launch counters), bit-equal to "
                   "its explicit-flag run; ms/step beside the plain run"})
 
+    # ---- 5h. the ensemble axis ---------------------------------------------
+    p5h = ensemble_phase(counted, lines, main_launches, scratch)
+    errs.update(p5h["errs"])
+    emit({"phase": "ensemble", "ok": True, "seconds": took(),
+          "card": smi, "kernels_checked": len(p5h["checked"]),
+          "runs": len(p5h["runs"]),
+          "note": "each batched kernel (one launch for a block's members) "
+                  "bit-equal to its members' own launches and to its plain "
+                  "version; each run's members 0 and N-1 bit-equal to the "
+                  "unbatched run of their init; ms_per_step of the batch "
+                  "beside N times a member's (n_times_member_ms), each the "
+                  "median of CUDA-event chunks after a warm-up chunk "
+                  "(cli_ms_per_step: the CLI run's own host clock); "
+                  "peak_bytes: torch.cuda.max_memory_allocated above what "
+                  "was held, beside --mem-check's estimate"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -4821,6 +5208,128 @@ def main() -> int:
               "speedup": old / kk["ms"] if old else None,
               **{f: kk[f] for f in ("device_ms", "library_device_ms")
                  if f in kk}})
+    # the batched kernels of phase 5h's runs, at their shapes there (a
+    # block's members in one launch), each held to its plain version on the
+    # same batch (bit for bit; K3's float32 heat kind within 1e-4: it
+    # reassociates taps) and timed beside it; launches: the 5h runs'
+    # (",ensemble" keys)
+    def ens_record(entry, wrapper, name, src, replaces, fn, plain, reps,
+                   plain_reps, atol, moved, flops, library_ms, k, shape,
+                   per_step, members, dtype="float32"):
+        errs.pop(entry, None)  # the line's error: this shape's, not N = 3's
+        got, ref = fn(), plain()
+        torch.cuda.synchronize()
+        compare(entry, got, ref, atol, None)
+        del got, ref
+        record(entry, wrapper, name, src, TPU + replaces, time_ms(fn, reps),
+               time_ms(plain, plain_reps), moved, flops, library_ms, k,
+               shape, per_step)
+        kernels_out[-1].update(
+            dtype=dtype, members=members, atol=atol,
+            launches=main_launches.get(f"{wrapper}[{name},ensemble]", 0))
+
+    st = make_stencil("life")
+    ins = ((rand((64, 130, 130)) < 0.35).to(torch.int32),)
+    comp = kernels.make_pallas_compute(st, device=dev)
+    ens_record("whole2d<life,ensemble>", "whole2d", "life", "whole2d.cu",
+               "kernels.py:260", lambda: comp(ins), lambda: st.update(ins),
+               20, 3, 0.0, 4 * 64 * (130 * 130 + 128 * 128),
+               FLOPS_PER_CELL["life"] * 64 * 128 * 128, None, 1,
+               (64, 128, 128), 1.0, 64, "int32")
+    st = make_stencil("heat2d")
+    fields = (rand((64,) + BASE2D),)
+    plain = driver.make_step(st, BASE2D)
+
+    def run_plain8(fields=fields, plain=plain):
+        for _ in range(8):
+            fields = plain(fields)
+        return fields
+
+    cells = 64 * math.prod(BASE2D)
+    ens_record("fullgrid_step<heat2d,ensemble>", "fullgrid_step", "heat2d",
+               "fullgrid.cu", "fullgrid.py:120",
+               lambda: fullgrid.fullgrid_step(fields, st, 8), run_plain8,
+               20, 3, 0.0, 2 * 4 * cells,
+               FLOPS_PER_CELL["heat2d"] * 8 * cells, None, 8,
+               (64,) + BASE2D, 1.0 / 8, 64)
+    del fields
+    st = make_stencil("heat3d")
+    g256 = (256, 256, 256)
+    fields = (rand((8,) + g256),)
+    plain = driver.make_step(st, g256)
+
+    def run_plain4(fields=fields, plain=plain):
+        for _ in range(4):
+            fields = plain(fields)
+        return fields
+
+    cells = 8 * math.prod(g256)
+    for wrapper, src, replaces, fn, atol in (
+            ("fused_step", "fused.cu", "fused.py:280",
+             lambda: fused.fused_step(fields, st, 4), 1e-4),
+            ("stream_step", "streamfused.cu", "streamfused.py:377",
+             lambda: streamfused.stream_step(fields, st, 4), 0.0)):
+        ens_record(f"{wrapper}<heat3d,ensemble>", wrapper, "heat3d", src,
+                   replaces, fn, run_plain4, 10, 3, atol, 2 * 4 * cells,
+                   FLOPS_PER_CELL["heat3d"] * 4 * cells, None, 4,
+                   (8,) + g256, 1.0 / 4, 8)
+    del fields
+    # one shard of the ensemble mesh run (4 members of a (128, 128, 256)
+    # block) and of the wave3d --mesh 2,2 run (4 members)
+    local = (128, 128, 256)
+    pshape = (4,) + tuple(x + 2 for x in local)
+    cells = 4 * math.prod(local)
+    p = rand(pshape)
+    comp = kernels.make_pallas_compute(st, device=dev)
+    w, _ = stencil_weight("heat3d", st)
+
+    def conv(p=p, w=w):
+        return F.conv3d(p[:, None], w, padding=0)
+
+    err = float((conv()[:, 0] - st.update((p,))[0]).abs().max())
+    if not err <= 1e-4:
+        fail(f"F.conv3d yardstick for the batched heat3d update "
+             f"disagrees with the plain update: max|d| {err:.3e}")
+    ens_record("zchunk_heat<heat3d,ensemble>", "zchunk_heat", "heat3d",
+               "zchunk.cu", "kernels.py:133", lambda: comp((p,)),
+               lambda: st.update((p,)), 20, 3, 0.0,
+               4 * (math.prod(pshape) + cells),
+               FLOPS_PER_CELL["heat3d"] * cells, time_ms(conv, 20), 1,
+               (4,) + local, 1.0, 4)
+    stw = make_stencil("wave3d")
+    up = rand((4,) + local)
+    compw = kernels.make_pallas_compute(stw, device=dev)
+    # the new u only: slot 1 is dead (carry_map=(None, 0)), the kernel's
+    # compute_fn hands u_prev through and the plain update the old u
+    ens_record("zchunk_wave<wave3d,ensemble>", "zchunk_wave", "wave3d",
+               "zchunk.cu", "kernels.py:138", lambda: compw((p, up))[:1],
+               lambda: stw.update((p, up))[:1], 20, 3, 0.0,
+               4 * (math.prod(pshape) + 2 * cells),
+               FLOPS_PER_CELL["wave3d"] * cells, None, 1, (4,) + local, 1.0,
+               4)
+    del p, up
+    # one shard of heat3d 512^3 x 2 on --mesh 2,2 --fuse-kind stream: the
+    # core, its z and y slabs and its corners, 2 members
+    Lz, Ly, X = local = (256, 256, 512)
+    m = k_step_margin(st, 4)
+
+    def two(shape):
+        return (rand((2,) + shape),)
+
+    yz_args = (two(local), two((m, Ly, X)), two((m, Ly, X)),
+               two((Lz, m, X)), two((Lz, m, X)),
+               [two((m, m, X)) for _ in range(4)], st, 4, MAIN, (0, 0))
+    cells = 2 * math.prod(local)
+    ens_record("stream_yzslab<heat3d,ensemble>", "stream_yzslab", "heat3d",
+               "streamfused.cu", "streamfused.py:399",
+               lambda: streamfused.stream_yzslab(*yz_args),
+               lambda: fused.plain_yzslab(*yz_args), 10, 2, 0.0,
+               4 * 2 * (2 * math.prod(local)
+                        + 2 * m * X * (Ly + Lz + 2 * m)),
+               FLOPS_PER_CELL["heat3d"] * 4 * cells, None, 4, (2,) + local,
+               4.0 / 4, 2)
+    del yz_args
+    torch.cuda.empty_cache()
     emit({"phase": "timing", "ok": True, "seconds": took(),
           "stream_vs_window": stream_vs_window,
           "rdma_vs_ppermute": rdma_vs_ppermute, "exchange_ab": exchange_ab,

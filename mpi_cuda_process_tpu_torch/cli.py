@@ -85,6 +85,14 @@ consumer (the slab-carry exchange; the same values).
 ``FAULT_INJECT`` fires the ``exchange`` fault at the chunk boundaries, the
 ``checkpoint`` fault in both checkpoint writers and the ``compile`` fault
 where a runner is built (``resilience/faults.py``).
+``--ensemble N`` runs N independent universes (member i from seed + i) in
+one batched step: a leading member axis from the init through every
+kernel (each launch takes all the members a block holds, the member in its
+launch grid), the exchange (one shift a site for all of them), the
+checkpoint and the log line; ``--ensemble-mesh M`` shards the members over
+M device groups (a mesh axis in front of ``--mesh``'s, every group an
+independent spatial mesh), and ``--ensemble-perturb EPS`` scales member
+i's fields by ``1 + EPS u_i``.
 ``--device`` (default ``cuda``) picks where the state lives; asking for
 ``cuda`` without a card raises, it never carries on on the CPU.  Only the
 flags the port runs are registered; a combination that needs a kernel or
@@ -184,6 +192,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="async-dump field0 snapshots every N steps (.npy, "
                         "non-blocking via the native writer pool)")
     p.add_argument("--dump-dir", default=None)
+    p.add_argument("--ensemble", type=int, default=0,
+                   help="run N independent universes batched through ONE "
+                        "compiled step (seeds seed..seed+N-1; a leading "
+                        "member axis rides init -> stepper -> "
+                        "diagnostics).  Composes with --mesh: the "
+                        "batched sharded steppers vmap the local update "
+                        "per member, so the halo exchange stays ONE "
+                        "round per site regardless of N and every Pallas "
+                        "kernel gains one batch grid dimension — the "
+                        "per-step fixed costs (exchange rounds, kernel "
+                        "launches, compile, telemetry cadence) are paid "
+                        "once per BATCH.  Composes with --fuse (every "
+                        "kind incl. stream), --overlap, --pipeline, and "
+                        "--exchange rdma")
+    p.add_argument("--ensemble-mesh", type=int, default=0, metavar="M",
+                   help="shard the member axis over M device groups — "
+                        "the ensemble becomes a THIRD mesh axis "
+                        "(ensemble x y x z, e.g. a v5e-64 as 8x8 "
+                        "spatial x M-way ensemble; each group is an "
+                        "independent spatial mesh, so halo ppermutes "
+                        "never cross members).  Needs --ensemble N with "
+                        "N %% M == 0 and M x prod(--mesh) devices; "
+                        "0/1 = every device holds all N members")
+    p.add_argument("--ensemble-perturb", type=float, default=0.0,
+                   metavar="EPS",
+                   help="per-member init perturbation: member i's "
+                        "inexact fields scaled by 1 + EPS * u_i with "
+                        "u_i ~ U(-1,1) drawn from (seed, i) — "
+                        "deterministic parameter diversity for ensemble "
+                        "studies beyond the per-member seeds (guard "
+                        "frames re-pinned; integer fields untouched)")
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-backend", default="npy",
@@ -279,7 +318,8 @@ def config_from_args(argv=None) -> RunConfig:
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, compute=a.compute, overlap=a.overlap,
-        pipeline=a.pipeline, fuse=a.fuse,
+        pipeline=a.pipeline, fuse=a.fuse, ensemble=a.ensemble,
+        ensemble_mesh=a.ensemble_mesh, ensemble_perturb=a.ensemble_perturb,
         tol=a.tol, tol_check_every=a.tol_check_every,
         fuse_kind=a.fuse_kind, exchange=a.exchange, mem_check=a.mem_check,
         device=a.device,
@@ -342,9 +382,6 @@ _COMPUTE_FN_WINS: dict = {
 _UNPORTED = (
     ("groups", "--groups", "A7 (device groups)"),
     ("group_transport", "--group-transport", "A7 (device groups)"),
-    ("ensemble", "--ensemble", "A7 (ensembles)"),
-    ("ensemble_mesh", "--ensemble-mesh", "A7 (ensembles)"),
-    ("ensemble_perturb", "--ensemble-perturb", "A7 (ensembles)"),
     ("profile", "--profile", "A8 (observability)"),
     ("profile_dir", "--profile-dir", "A8 (observability)"),
     ("telemetry", "--telemetry", "A8 (observability)"),
@@ -421,9 +458,9 @@ def maybe_auto_fuse(cfg: RunConfig) -> RunConfig:
                  st.name)
     if k is None:
         return cfg
-    if (cfg.periodic or cfg.tol > 0 or cfg.debug_checks or cfg.overlap
-            or cfg.pipeline or cfg.resume or cfg.exchange != "ppermute"
-            or cfg.mesh):
+    if (cfg.periodic or cfg.tol > 0 or cfg.debug_checks or cfg.ensemble
+            or cfg.overlap or cfg.pipeline or cfg.resume
+            or cfg.exchange != "ppermute" or cfg.mesh):
         return cfg
     cadences = [cfg.iters, cfg.log_every, cfg.checkpoint_every,
                 cfg.check_finite, cfg.dump_every]
@@ -489,10 +526,10 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
     try:
         total, _ = budget.check_budget(
             st, cfg.grid, mesh=cfg.mesh, fuse=cfg.fuse,
-            periodic=cfg.periodic, compute=compute,
+            ensemble=cfg.ensemble, periodic=cfg.periodic, compute=compute,
             fuse_kind=cfg.fuse_kind, overlap=cfg.overlap,
             pipeline=cfg.pipeline, exchange=cfg.exchange,
-            shards_per_device=shards,
+            ensemble_mesh=cfg.ensemble_mesh, shards_per_device=shards,
             processes=mesh.processes if mesh is not None else 1)
     except ValueError:
         if cfg.mem_check == "error":
@@ -510,8 +547,12 @@ def _check_mem_budget(cfg: RunConfig, st, mesh) -> None:
 
 
 def _uses_mesh(cfg: RunConfig) -> bool:
-    """Whether this run decomposes over a device mesh (sharded step_fn)."""
-    return bool(cfg.mesh) and math.prod(cfg.mesh) > 1
+    """Whether this run decomposes over a device mesh (sharded step_fn):
+    a spatial decomposition (``--mesh``), or a pure data-parallel ensemble
+    (``--ensemble-mesh`` with no spatial axes); ``--ensemble`` alone stays
+    on the single-device batched path, as in the TPU package."""
+    return (bool(cfg.mesh) and math.prod(cfg.mesh) > 1) \
+        or cfg.ensemble_mesh > 1
 
 
 def _raw_eligible(cfg: RunConfig, st) -> bool:
@@ -519,7 +560,8 @@ def _raw_eligible(cfg: RunConfig, st) -> bool:
     ``--compute pallas`` (a refused dtype raises there by its item), under
     ``auto`` on a card for the measured winners in a dtype the kernels
     take."""
-    if cfg.periodic or cfg.fuse or cfg.compute == "jnp" or _uses_mesh(cfg):
+    if cfg.periodic or cfg.ensemble or cfg.fuse or cfg.compute == "jnp" \
+            or _uses_mesh(cfg):
         return False
     if cfg.compute == "pallas":
         return True
@@ -573,18 +615,25 @@ def resolve_compute_fn(cfg: RunConfig, st):
 def _resume(cfg: RunConfig, st, device, mesh=None):
     """Load the checkpoint (any format) into this run's blocks: the
     blocks of ``mesh`` this process holds, each on its device, or the
-    whole fields when unsharded.  Every block reads its own part of the
-    checkpoint (``checkpointing.load_any``); no process gathers."""
+    whole fields when unsharded (with ``--ensemble`` N, the batched
+    ``(N, *grid)`` fields, cut over the ensemble groups).  Every block
+    reads its own part of the checkpoint (``checkpointing.load_any``); no
+    process gathers."""
     grid = tuple(cfg.grid)
+    members = (cfg.ensemble,) if cfg.ensemble else ()
     if mesh is not None:
-        local = tuple(g // c for g, c in zip(grid, mesh.counts(len(grid))))
+        n_local = stepper_lib.ensemble_members_local(mesh, cfg.ensemble)
+        local = (n_local,) * bool(n_local) + tuple(
+            g // c for g, c in zip(grid, mesh.counts(len(grid))))
         targets = tuple(
             stepper_lib.ShardedField(
                 [torch.empty(local, dtype=st.dtype, device=mesh.device(c))
-                 for c in mesh.local_coords()], mesh, grid)
+                 for c in mesh.local_coords()], mesh, members + grid,
+                lead=len(members))
             for _ in range(st.num_fields))
     else:
-        targets = tuple(torch.empty(grid, dtype=st.dtype, device=device)
+        targets = tuple(torch.empty(members + grid, dtype=st.dtype,
+                                    device=device)
                         for _ in range(st.num_fields))
     sharded = checkpointing.checkpoint_format(cfg.checkpoint_dir) == "dcp"
     if sharded:
@@ -605,15 +654,19 @@ def _make_run_mesh(cfg: RunConfig, device):
     """The run's mesh over the visible devices of ``--device``, or, once
     a launcher's cluster is bootstrapped, over every process."""
     mesh_lib.bootstrap_distributed(device=device.type)
-    m = mesh_lib.make_mesh(cfg.mesh, mesh_lib.local_devices(device.type))
+    m = mesh_lib.make_mesh(cfg.mesh, mesh_lib.local_devices(device.type),
+                           ensemble=cfg.ensemble_mesh or 1)
+    name = "x".join(map(str, m.full_shape)) or "1"
+    if m.ensemble > 1:
+        name += f" (ensemble {m.ensemble} x spatial " + (
+            "x".join(map(str, cfg.mesh)) or "1") + ")"
     if m.multiprocess:
         log.info("mesh %s: %d shards over %d processes, %d here on %s; "
-                 "transport %s", "x".join(map(str, cfg.mesh)), m.size,
+                 "transport %s", name, m.size,
                  m.processes, m.per_process, m.devices[0], m.backend)
         _refuse_multiprocess(cfg, m)
     else:
-        log.info("mesh %s: %d shards on %d device(s)",
-                 "x".join(map(str, cfg.mesh)), m.size,
+        log.info("mesh %s: %d shards on %d device(s)", name, m.size,
                  len(m.unique_devices()))
     return m
 
@@ -675,11 +728,36 @@ def _refuse_peer_ring(m) -> None:
                     f"{halo.RDMA_ITEM}")
 
 
+def _validate_ensemble(cfg: RunConfig) -> None:
+    """Fail-fast checks for the batched-run flags (before any build), the
+    TPU package's checks and messages."""
+    if cfg.ensemble_mesh > 1:
+        if not cfg.ensemble:
+            raise ValueError(
+                "--ensemble-mesh shards the member axis of a batched "
+                "run; it needs --ensemble N")
+        if cfg.ensemble % cfg.ensemble_mesh:
+            raise ValueError(
+                f"--ensemble {cfg.ensemble} not divisible by "
+                f"--ensemble-mesh {cfg.ensemble_mesh}")
+    if cfg.ensemble_perturb and not cfg.ensemble:
+        raise ValueError(
+            "--ensemble-perturb perturbs ensemble members; it needs "
+            "--ensemble N")
+
+
 def build(cfg: RunConfig):
-    """Materialize (stencil, step_fn, fields, start_step) from a config."""
+    """Materialize (stencil, step_fn, fields, start_step) from a config.
+
+    ``--ensemble N`` builds the batched step: unsharded, the plain step or
+    the ``--fuse`` kernel step (K3, K8, K10 with ``batch=N``) over the
+    member axis (``driver.make_ensemble_step``); under ``--mesh`` or
+    ``--ensemble-mesh`` the sharded steppers with ``ensemble=N``; and the
+    batched fields (``init_state(..., ensemble=N, perturb=EPS)``)."""
     _refuse_unported(cfg)
     device = _device(cfg)
     st = _make_cfg_stencil(cfg)
+    _validate_ensemble(cfg)
     if cfg.fuse_kind != "auto" and not cfg.fuse:
         raise ValueError("--fuse-kind requires an explicit --fuse K")
     use_mesh = _uses_mesh(cfg)
@@ -745,7 +823,7 @@ def build(cfg: RunConfig):
             step_fn = stepper_lib.make_sharded_temporal_step(
                 st, m, cfg.grid, cfg.fuse, periodic=cfg.periodic, kind=kind,
                 overlap=cfg.overlap, pipeline=cfg.pipeline,
-                exchange=cfg.exchange, device=device)
+                exchange=cfg.exchange, ensemble=cfg.ensemble, device=device)
             if cfg.overlap and step_fn is not None and \
                     not getattr(step_fn, "_overlap_active", False):
                 log.warning(
@@ -787,8 +865,10 @@ def build(cfg: RunConfig):
                 raise ValueError(
                     "--fuse-kind stream is guard-frame only (the streaming "
                     "kernel has no periodic wrap path)")
+            # --ensemble N: the batched streaming step (the member in the
+            # launch grid), already tagged, so no wrap below
             step_fn = streamfused.make_stream_fused_step(
-                st, cfg.grid, cfg.fuse, device=device)
+                st, cfg.grid, cfg.fuse, batch=cfg.ensemble, device=device)
             if step_fn is None:
                 raise ValueError(
                     f"--fuse {cfg.fuse} --fuse-kind stream unsupported for "
@@ -803,6 +883,11 @@ def build(cfg: RunConfig):
                 f"{cfg.grid} (need a fused kernel, 2*k*halo a multiple "
                 f"of the dtype's sublane tile — 8 for f32, 16 for bf16 — "
                 f"and a window that fits shared memory)")
+        if cfg.ensemble:
+            # the unsharded K3 / K8 steps take the member axis as they are
+            # (one launch for every member); the sharded and streaming
+            # builders return steps already batched
+            step_fn = driver.make_ensemble_step(step_fn)
     else:
         step_fn = resolve_raw_step(cfg, st)
         if step_fn is not None:
@@ -810,24 +895,31 @@ def build(cfg: RunConfig):
         elif use_mesh:
             step_fn = stepper_lib.make_sharded_step(
                 st, m, cfg.grid, periodic=cfg.periodic,
-                compute_fn=resolve_compute_fn(cfg, st), overlap=cfg.overlap)
+                compute_fn=resolve_compute_fn(cfg, st), overlap=cfg.overlap,
+                ensemble=cfg.ensemble)
         else:
             step_fn = driver.make_step(
                 st, cfg.grid, periodic=cfg.periodic,
                 compute_fn=resolve_compute_fn(cfg, st))
+            if cfg.ensemble:
+                step_fn = driver.make_ensemble_step(step_fn)
     resuming = (cfg.resume and cfg.checkpoint_dir
                 and checkpointing.checkpoint_format(cfg.checkpoint_dir))
     if resuming:
         fields, start_step = _resume(cfg, st, device, m)
     elif m is not None:
         # each block computed on its own device; no device holds the grid
+        # (with --ensemble, only the members of the block's group)
         fields = init_state_sharded(st, cfg.grid, m, cfg.seed, cfg.density,
-                                    kind=cfg.init, periodic=cfg.periodic)
+                                    kind=cfg.init, periodic=cfg.periodic,
+                                    ensemble=cfg.ensemble,
+                                    perturb=cfg.ensemble_perturb)
         start_step = 0
     else:
         fields = init_state(st, cfg.grid, cfg.seed, cfg.density,
                             kind=cfg.init, periodic=cfg.periodic,
-                            device=device)
+                            device=device, ensemble=cfg.ensemble,
+                            perturb=cfg.ensemble_perturb)
         start_step = 0
     # a fused step_fn advances cfg.fuse steps per call; run() accounts.
     return st, step_fn, fields, start_step
@@ -872,7 +964,8 @@ def run(cfg: RunConfig) -> Tuple:
     if remaining <= 0:
         log.info("checkpoint already at step %d >= iters", start_step)
         return fields, 0.0
-    cells = math.prod(cfg.grid)
+    # every member's cells: an ensemble advances N grids a step
+    cells = math.prod(cfg.grid) * max(1, cfg.ensemble)
     step_unit = max(1, cfg.fuse)
     if cfg.tol > 0:
         return _run_until_converged(cfg, st, step_fn, fields, start_step,

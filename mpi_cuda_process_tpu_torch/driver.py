@@ -32,7 +32,9 @@ def frame_mask(
 
     ``offsets[d]`` is the global index of the block's first cell along
     axis d (0 when unsharded).  A cell is frame iff its global coordinate
-    is within ``width`` of either wall on any axis.
+    is within ``width`` of either wall on any axis.  The mask has the
+    block's spatial shape; ``torch.where`` broadcasts it over the members
+    of a batched block.
     """
     ndim = len(local_shape)
     mask = None
@@ -47,11 +49,15 @@ def frame_mask(
     return mask.expand(tuple(int(s) for s in local_shape)).contiguous()
 
 
-def pad(f: torch.Tensor, width: int, periodic: bool, value=0.0):
-    """Pad every axis by ``width``: wrap (periodic) or a constant."""
+def pad(f: torch.Tensor, width: int, periodic: bool, value=0.0,
+        ndim=None):
+    """Pad the trailing ``ndim`` axes (default: every axis) by ``width``:
+    wrap (periodic) or a constant.  A batched field's member axis is not
+    a grid axis and is never padded."""
+    ndim = f.ndim if ndim is None else ndim
     if not periodic:
-        return F.pad(f, (width, width) * f.ndim, value=value)
-    for d in range(f.ndim):
+        return F.pad(f, (width, width) * ndim, value=value)
+    for d in range(f.ndim - ndim, f.ndim):
         n = f.shape[d]
         f = torch.cat([f.narrow(d, n - width, width), f,
                        f.narrow(d, 0, width)], dim=d)
@@ -73,6 +79,11 @@ def make_step(
 
     ``compute_fn`` overrides the local update (padded fields -> interior
     fields) — the hook through which a kernel replaces the tensor ops.
+
+    The step takes whole fields or batched ones (a leading member axis of
+    N independent universes, an ensemble run): the pad, the update, the
+    compute_fn kernels and the re-pin all work on the trailing ``ndim``
+    axes, so one call advances every member.
     """
     ndim = stencil.ndim
     zeros = (0,) * ndim
@@ -90,7 +101,7 @@ def make_step(
     def one_pass(fields: Fields, update) -> Fields:
         padded = []
         for f, v, fh in zip(fields, stencil.bc_value, stencil.field_halos):
-            padded.append(f if fh == 0 else pad(f, fh, periodic, v))
+            padded.append(f if fh == 0 else pad(f, fh, periodic, v, ndim))
         new = update(tuple(padded))
         out = []
         for i, nf in enumerate(new):
@@ -103,8 +114,8 @@ def make_step(
                 dev = fields[0].device
                 if dev not in masks:
                     masks[dev] = frame_mask(
-                        fields[0].shape, global_shape, zeros, stencil.halo,
-                        device=dev)
+                        fields[0].shape[-ndim:], global_shape, zeros,
+                        stencil.halo, device=dev)
                 out.append(torch.where(masks[dev], fields[i], nf))
         return tuple(out)
 
@@ -114,6 +125,18 @@ def make_step(
         return fields
 
     return step
+
+
+def make_ensemble_step(step_fn):
+    """The step over a leading member axis of independent universes, the
+    TPU package's ``make_ensemble_step`` (a ``vmap`` there).
+
+    The identity: the port batches explicitly.  The plain step
+    (:func:`make_step`) and every kernel step take the member axis
+    natively, each kernel in one launch for all members, and the sharded
+    and streaming builders build their batched steps with ``ensemble=`` /
+    ``batch=``."""
+    return step_fn
 
 
 class Donated:

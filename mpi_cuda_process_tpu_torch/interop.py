@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from .ops.stencil import Fields, as_torch_dtype
-from .parallel.stepper import GLOBAL_GRID_REASON, ShardedField, block_slices
+from .parallel.stepper import (GLOBAL_GRID_REASON, ShardedField,
+                               ensemble_members_local)
 
 
 def _ml_bfloat16():
@@ -89,30 +90,39 @@ def gather_to_numpy(fields: Fields) -> Tuple[np.ndarray, ...]:
     for f in fields:
         if f.mesh.multiprocess:
             raise ValueError(f"gather_to_numpy: {GLOBAL_GRID_REASON}")
-        local = tuple(f[0].shape)
         g = None
         for c, b in zip(f.mesh.coords(), f):
             a = _to_numpy(b)
             if g is None:
                 g = np.empty(f.global_shape, dtype=a.dtype)
-            g[block_slices(c, local)] = a
+            g[tuple(slice(o, o + n) for o, n in zip(f.offsets(c),
+                                                    b.shape))] = a
         out.append(g)
     return tuple(out)
 
 
-def shard_from_numpy(fields: Sequence, mesh, dtype=None) -> Fields:
+def shard_from_numpy(fields: Sequence, mesh, dtype=None,
+                     ensemble: bool = False) -> Fields:
     """Global numpy arrays -> sharded fields over ``mesh``: the blocks of
     this process's shards cut on the host and copied to their devices
-    (``dtype`` as for :func:`fields_from_numpy`)."""
+    (``dtype`` as for :func:`fields_from_numpy`).  ``ensemble=True``:
+    batched arrays, the leading member axis cut over the mesh's ensemble
+    groups."""
+    lead = int(bool(ensemble))
     out = []
     for a in fields:
         a = np.asarray(a)
-        counts = mesh.counts(a.ndim)
-        if any(g % c for g, c in zip(a.shape, counts)):
+        counts = mesh.counts(a.ndim - lead)
+        if any(g % c for g, c in zip(a.shape[lead:], counts)):
             raise ValueError(f"grid {a.shape} not divisible by mesh "
                              f"{mesh.shape}")
-        local = tuple(g // c for g, c in zip(a.shape, counts))
-        blocks = [_to_tensor(a[block_slices(c, local)], mesh.device(c), dtype)
-                  for c in mesh.local_coords()]
-        out.append(ShardedField(blocks, mesh, a.shape))
+        members = (ensemble_members_local(mesh, a.shape[0]),) * lead
+        local = members + tuple(g // c for g, c in zip(a.shape[lead:],
+                                                       counts))
+        f = ShardedField([], mesh, a.shape, lead)
+        for c in mesh.local_coords():
+            sl = tuple(slice(o, o + n)
+                       for o, n in zip(f.offsets(c, local), local))
+            f.append(_to_tensor(a[sl], mesh.device(c), dtype))
+        out.append(f)
     return tuple(out)

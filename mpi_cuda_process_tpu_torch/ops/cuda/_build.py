@@ -173,21 +173,40 @@ def twin_entry(lib: ctypes.CDLL, name: str, t):
                    else name)
 
 
-def launch_key(wrapper: str, name: str, t) -> str:
+def launch_key(wrapper: str, name: str, t, members: int = 0) -> str:
     """A launch counter's key: ``"wrapper[name]"`` for float32 operands
     (Life: int32, its one type), ``"wrapper[name,bfloat16]"`` for another
-    type, so a run's counts say which kind of the kernel ran."""
-    if t.dtype in (torch.float32, torch.int32):
-        return f"{wrapper}[{name}]"
-    return f"{wrapper}[{name},{str(t.dtype).replace('torch.', '')}]"
+    type, so a run's counts say which kind of the kernel ran; a batched
+    launch (``members`` > 0, an ensemble's) ends in ``",ensemble"``:
+    ``"wrapper[name,ensemble]"``, ``"wrapper[name,bfloat16,ensemble]"``."""
+    tags = [name]
+    if t.dtype not in (torch.float32, torch.int32):
+        tags.append(str(t.dtype).replace("torch.", ""))
+    if members:
+        tags.append("ensemble")
+    return f"{wrapper}[{','.join(tags)}]"
+
+
+def batch_of(t, ndim: int = 3):
+    """``(members, shape)`` of a kernel operand: 0 and its shape for an
+    ``ndim``-dimensional tensor, N and the rest for a batched ``(N,
+    ...)`` one (an ensemble run's member axis)."""
+    if t.dim() == ndim + 1:
+        return int(t.shape[0]), tuple(int(s) for s in t.shape[1:])
+    return 0, tuple(int(s) for s in t.shape)
 
 
 def check_operands(what: str, *tensors, shape=None, dtype=None,
-                   ndim: int = 3) -> None:
+                   ndim: int = 3, members: int = 0) -> None:
     """Device, dtype, shape and contiguity gate for the kernels: ``dtype``
     is the type every operand must have, or a tuple of the types a kernel
     takes (all operands of one type); float32 when None.  ``ndim``-
-    dimensional operands."""
+    dimensional operands, or with ``members`` N > 0 batched ``(N,
+    *shape)`` ones."""
+    if members:
+        ndim += 1
+        if shape is not None:
+            shape = (members,) + tuple(shape)
     allowed = (torch.float32,) if dtype is None else \
         tuple(dtype) if isinstance(dtype, tuple) else (dtype,)
     dev = tensors[0].device

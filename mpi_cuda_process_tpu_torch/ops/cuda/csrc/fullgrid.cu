@@ -94,6 +94,9 @@ struct Grid2 {
   int GH;             // global row count: the frame
   int oy;             // global row of the core's first row
   int m;              // PADDED: pad rows on each side
+  // a batched launch's member strides in cells (the launch grid's z is
+  // the member), 0 for one member
+  long s_in, s_out;
 };
 
 // Field f at local core coordinate (y, x), which may lie outside the core
@@ -102,7 +105,7 @@ struct Grid2 {
 template <int SRC, typename T>
 __device__ __forceinline__ T load(const Grid2& g, int f, int y, int x,
                                   int periodic) {
-  const T* in = static_cast<const T*>(g.in[f]);
+  const T* in = static_cast<const T*>(g.in[f]) + blockIdx.z * g.s_in;
   x = wrap_or_clamp2(x, g.W, periodic);
   if constexpr (SRC == RAW) {
     y = wrap_or_clamp2(y, g.H, periodic);
@@ -118,6 +121,7 @@ __host__ __device__ constexpr int kind_buffers2(int kind) {
   return kind == GRAYSCOTT2D ? 4 : 2;
 }
 
+// One block: one (TY, TX) core tile of member blockIdx.z (1 unbatched).
 template <int KIND, int SRC, class T>
 __global__ void __launch_bounds__(BX * BY)
 fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
@@ -189,8 +193,8 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
     }
   }
 
-  T* out0 = static_cast<T*>(g.out[0]);
-  T* out1 = static_cast<T*>(g.out[1]);
+  T* out0 = static_cast<T*>(g.out[0]) + blockIdx.z * g.s_out;
+  T* out1 = static_cast<T*>(g.out[1]) + blockIdx.z * g.s_out;
   for (int cy = threadIdx.y; cy < TY; cy += BY) {
     const int y = oy + m + cy;
     if (y >= g.H) break;
@@ -208,7 +212,7 @@ fullgrid_step(const Grid2 g, int k, int periodic, Coef c, int TY, int TX) {
 
 template <int KIND, int SRC, class T>
 int launch(const Grid2& g, int k, int periodic, const Coef& c, int ty, int tx,
-           cudaStream_t s) {
+           int members, cudaStream_t s) {
   const int m = k * kind_phases2(KIND);
   const size_t smem = kind_buffers2(KIND) * sizeof(T) *
                       static_cast<size_t>(ty + 2 * m) * (tx + 2 * m);
@@ -216,7 +220,9 @@ int launch(const Grid2& g, int k, int periodic, const Coef& c, int ty, int tx,
       fullgrid_step<KIND, SRC, T>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((g.W + tx - 1) / tx, (g.H + ty - 1) / ty, 1);
+  if (members < 1 || members > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((g.W + tx - 1) / tx, (g.H + ty - 1) / ty, members);
   fullgrid_step<KIND, SRC, T><<<grid, dim3(BX, BY, 1), smem, s>>>(
       g, k, periodic, c, ty, tx);
   return static_cast<int>(cudaGetLastError());
@@ -225,23 +231,27 @@ int launch(const Grid2& g, int k, int periodic, const Coef& c, int ty, int tx,
 // The float kinds on storage type T (float or __nv_bfloat16); Life (int32)
 // rides with the 4-byte type.
 template <int SRC, class T>
-int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
-             int ty, int tx, void* stream) {
+int dispatch(int kind, Grid2 g, int k, int periodic, const Coef& c, int ty,
+             int tx, int members, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (members > 1) {
+    g.s_in = static_cast<long>(g.H + 2 * g.m) * g.W;
+    g.s_out = static_cast<long>(g.H) * g.W;
+  }
   switch (kind) {
     case HEAT5:
-      return launch<HEAT5, SRC, T>(g, k, periodic, c, ty, tx, s);
+      return launch<HEAT5, SRC, T>(g, k, periodic, c, ty, tx, members, s);
     case WAVE5:
-      return launch<WAVE5, SRC, T>(g, k, periodic, c, ty, tx, s);
+      return launch<WAVE5, SRC, T>(g, k, periodic, c, ty, tx, members, s);
     case ADVECT2D:
-      return launch<ADVECT2D, SRC, T>(g, k, periodic, c, ty, tx, s);
+      return launch<ADVECT2D, SRC, T>(g, k, periodic, c, ty, tx, members, s);
     case GRAYSCOTT2D:
-      return launch<GRAYSCOTT2D, SRC, T>(g, k, periodic, c, ty, tx, s);
+      return launch<GRAYSCOTT2D, SRC, T>(g, k, periodic, c, ty, tx, members, s);
     case SOR5:
-      return launch<SOR5, SRC, T>(g, k, periodic, c, ty, tx, s);
+      return launch<SOR5, SRC, T>(g, k, periodic, c, ty, tx, members, s);
     case LIFE:
       if constexpr (sizeof(T) == 4) {
-        return launch<LIFE, SRC, int>(g, k, periodic, c, ty, tx, s);
+        return launch<LIFE, SRC, int>(g, k, periodic, c, ty, tx, members, s);
       }
       return static_cast<int>(cudaErrorInvalidValue);
     default:
@@ -261,21 +271,22 @@ int dispatch(int kind, const Grid2& g, int k, int periodic, const Coef& c,
 EXPORT int fullgrid_raw(int kind, const void* in0, const void* in1,
                         void* out0, void* out1, int H, int W, int k,
                         int periodic, float a, float c0, float c1, float c2,
-                        float c3, int ty, int tx, void* stream) {
+                        float c3, int ty, int tx, int members,
+                        void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, H, W, H, 0, 0};
   return dispatch<RAW, float>(kind, g, k, periodic, Coef{a, c0, c1, c2, c3},
-                              ty, tx, stream);
+                              ty, tx, members, stream);
 }
 
 EXPORT int fullgrid_raw_bf16(int kind, const void* in0, const void* in1,
                              void* out0, void* out1, int H, int W, int k,
                              int periodic, float a, float c0, float c1,
-                             float c2, float c3, int ty, int tx,
+                             float c2, float c3, int ty, int tx, int members,
                              void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, H, W, H, 0, 0};
   return dispatch<RAW, __nv_bfloat16>(kind, g, k, periodic,
                                       Coef{a, c0, c1, c2, c3}, ty, tx,
-                                      stream);
+                                      members, stream);
 }
 
 // One K8 launch in its sharded mode: the inputs are a row shard's padded
@@ -286,23 +297,24 @@ EXPORT int fullgrid_padded(int kind, const void* in0, const void* in1,
                            void* out0, void* out1, int Ly, int W, int GH,
                            int oy, int k, int periodic, float a, float c0,
                            float c1, float c2, float c3, int ty, int tx,
-                           void* stream) {
+                           int members, void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy,
                 k * kind_phases2(kind)};
   return dispatch<PADDED, float>(kind, g, k, periodic,
-                                 Coef{a, c0, c1, c2, c3}, ty, tx, stream);
+                                 Coef{a, c0, c1, c2, c3}, ty, tx, members,
+                                 stream);
 }
 
 EXPORT int fullgrid_padded_bf16(int kind, const void* in0, const void* in1,
                                 void* out0, void* out1, int Ly, int W, int GH,
                                 int oy, int k, int periodic, float a,
                                 float c0, float c1, float c2, float c3,
-                                int ty, int tx, void* stream) {
+                                int ty, int tx, int members, void* stream) {
   const Grid2 g{{in0, in1}, {out0, out1}, Ly, W, GH, oy,
                 k * kind_phases2(kind)};
   return dispatch<PADDED, __nv_bfloat16>(kind, g, k, periodic,
                                          Coef{a, c0, c1, c2, c3}, ty, tx,
-                                         stream);
+                                         members, stream);
 }
 
 // The streaming kind (ring.cuh) of the guard-frame launches: the same
@@ -319,11 +331,12 @@ namespace {
 template <int SRC, class T>
 int ring_dispatch(int kind, const WindowT<T>& w, int k, const Coef& c,
                   int tx, int cz, int threads, int blocks, int s0, int s1,
-                  int paths, void* stream) {
+                  int paths, int members, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RING2_LAUNCH(K, U)                                                   \
   ring::launch<K, SRC, U>(reinterpret_cast<const WindowT<U>&>(w), k, c, 1, \
-                          tx, cz, threads, blocks, s0, s1, paths, s)
+                          tx, cz, threads, blocks, s0, s1, paths, s,        \
+                          members)
   switch (kind) {
     case HEAT5:
       return RING2_LAUNCH(HEAT5, T);
@@ -348,14 +361,15 @@ int ring_dispatch(int kind, const WindowT<T>& w, int k, const Coef& c,
 template <class T>
 int ring_raw(int kind, const void* in0, const void* in1, void* out0,
              void* out1, int H, int W, int k, const Coef& c, int tx, int cz,
-             int threads, int blocks, int s0, int s1, int paths,
+             int threads, int blocks, int s0, int s1, int paths, int members,
              void* stream) {
-  const WindowT<T> w{{static_cast<const T*>(in0), static_cast<const T*>(in1)},
-                     {nullptr, nullptr}, {nullptr, nullptr},
-                     {static_cast<T*>(out0), static_cast<T*>(out1)},
-                     H, 1, W, H, 1, W, 0, 0, 0};
+  WindowT<T> w{{static_cast<const T*>(in0), static_cast<const T*>(in1)},
+               {nullptr, nullptr}, {nullptr, nullptr},
+               {static_cast<T*>(out0), static_cast<T*>(out1)},
+               H, 1, W, H, 1, W, 0, 0, 0};
+  set_member_strides<RAW>(w, members);
   return ring_dispatch<RAW>(kind, w, k, c, tx, cz, threads, blocks, s0, s1,
-                            paths, stream);
+                            paths, members, stream);
 }
 
 // A row shard's padded (Ly + 2m, W) block: ZSLAB with one y row, the m
@@ -364,18 +378,23 @@ template <class T>
 int ring_padded(int kind, const void* in0, const void* in1, void* out0,
                 void* out1, int Ly, int W, int GH, int oy, int k,
                 const Coef& c, int tx, int cz, int threads, int blocks,
-                int s0, int s1, int paths, void* stream) {
+                int s0, int s1, int paths, int members, void* stream) {
   const int m = k * kind_phases2(kind);
   const T* p0 = static_cast<const T*>(in0);
   const T* p1 = static_cast<const T*>(in1);
   const long rows = static_cast<long>(m) * W, core = static_cast<long>(Ly) * W;
-  const WindowT<T> w{{p0 + rows, p1 ? p1 + rows : nullptr},
-                     {p0, p1},
-                     {p0 + rows + core, p1 ? p1 + rows + core : nullptr},
-                     {static_cast<T*>(out0), static_cast<T*>(out1)},
-                     Ly, 1, W, GH, 1, W, oy, 0, m};
+  WindowT<T> w{{p0 + rows, p1 ? p1 + rows : nullptr},
+               {p0, p1},
+               {p0 + rows + core, p1 ? p1 + rows + core : nullptr},
+               {static_cast<T*>(out0), static_cast<T*>(out1)},
+               Ly, 1, W, GH, 1, W, oy, 0, m};
+  if (members > 1) {
+    // the core and both slabs are rows of one padded block a member
+    w.s_in = w.s_zs = core + 2 * rows;
+    w.s_out = core;
+  }
   return ring_dispatch<ZSLAB>(kind, w, k, c, tx, cz, threads, blocks, s0, s1,
-                              paths, stream);
+                              paths, members, stream);
 }
 
 }  // namespace
@@ -384,10 +403,10 @@ EXPORT int fullgrid_ring_raw(int kind, const void* in0, const void* in1,
                              void* out0, void* out1, int H, int W, int k,
                              float a, float c0, float c1, float c2, float c3,
                              int tx, int cz, int threads, int blocks, int s0,
-                             int s1, int paths, void* stream) {
+                             int s1, int paths, int members, void* stream) {
   return ring_raw<float>(kind, in0, in1, out0, out1, H, W, k,
                          Coef{a, c0, c1, c2, c3}, tx, cz, threads, blocks,
-                         s0, s1, paths, stream);
+                         s0, s1, paths, members, stream);
 }
 
 EXPORT int fullgrid_ring_raw_bf16(int kind, const void* in0, const void* in1,
@@ -395,10 +414,10 @@ EXPORT int fullgrid_ring_raw_bf16(int kind, const void* in0, const void* in1,
                                   float a, float c0, float c1, float c2,
                                   float c3, int tx, int cz, int threads,
                                   int blocks, int s0, int s1, int paths,
-                                  void* stream) {
+                                  int members, void* stream) {
   return ring_raw<__nv_bfloat16>(kind, in0, in1, out0, out1, H, W, k,
                                  Coef{a, c0, c1, c2, c3}, tx, cz, threads,
-                                 blocks, s0, s1, paths, stream);
+                                 blocks, s0, s1, paths, members, stream);
 }
 
 EXPORT int fullgrid_ring_padded(int kind, const void* in0, const void* in1,
@@ -406,10 +425,10 @@ EXPORT int fullgrid_ring_padded(int kind, const void* in0, const void* in1,
                                 int oy, int k, float a, float c0, float c1,
                                 float c2, float c3, int tx, int cz,
                                 int threads, int blocks, int s0, int s1,
-                                int paths, void* stream) {
+                                int paths, int members, void* stream) {
   return ring_padded<float>(kind, in0, in1, out0, out1, Ly, W, GH, oy, k,
                             Coef{a, c0, c1, c2, c3}, tx, cz, threads, blocks,
-                            s0, s1, paths, stream);
+                            s0, s1, paths, members, stream);
 }
 
 EXPORT int fullgrid_ring_padded_bf16(int kind, const void* in0,
@@ -418,8 +437,9 @@ EXPORT int fullgrid_ring_padded_bf16(int kind, const void* in0,
                                      float a, float c0, float c1, float c2,
                                      float c3, int tx, int cz, int threads,
                                      int blocks, int s0, int s1, int paths,
-                                     void* stream) {
+                                     int members, void* stream) {
   return ring_padded<__nv_bfloat16>(kind, in0, in1, out0, out1, Ly, W, GH,
                                     oy, k, Coef{a, c0, c1, c2, c3}, tx, cz,
-                                    threads, blocks, s0, s1, paths, stream);
+                                    threads, blocks, s0, s1, paths, members,
+                                    stream);
 }

@@ -188,7 +188,8 @@ enum LoadPath { LOAD_VEC, LOAD_ROWS, LOAD_CELLS };
 template <int SRC, int NF, class T>
 __device__ __forceinline__ void load_window(const WindowT<T>& w, T* buf0,
                                             T* buf1, const Geo& g,
-                                            LoadPath path, int periodic) {
+                                            LoadPath path, int periodic,
+                                            int b) {
   if (path == LOAD_VEC) {
     constexpr int PER = 16 / sizeof(T);
     const int U = g.WX / PER, n = g.WZ * g.WY * U;
@@ -197,9 +198,11 @@ __device__ __forceinline__ void load_window(const WindowT<T>& w, T* buf0,
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
       const int so = (wz * g.WY + wy) * g.WX + t.col * PER;
       const int x = g.ox + t.col * PER;
-      cp_async16(buf0 + so, row_ptr<SRC>(w, 0, g.oz + wz, g.oy + wy) + x);
+      cp_async16(buf0 + so,
+                 row_ptr<SRC>(w, 0, g.oz + wz, g.oy + wy, b) + x);
       if constexpr (NF == 2)
-        cp_async16(buf1 + so, row_ptr<SRC>(w, 1, g.oz + wz, g.oy + wy) + x);
+        cp_async16(buf1 + so,
+                   row_ptr<SRC>(w, 1, g.oz + wz, g.oy + wy, b) + x);
       const int before = t.row;
       t.next();
       wy += t.row - before;
@@ -218,11 +221,12 @@ __device__ __forceinline__ void load_window(const WindowT<T>& w, T* buf0,
     const int z = g.oz + wz, y = g.oy + wy, x = g.ox + t.col;
     if (path == LOAD_ROWS) {
       const int xs = x < 0 || x >= w.X ? wrap_or_clamp(x, w.X, periodic) : x;
-      buf0[i] = row_ptr<SRC>(w, 0, z, y)[xs];
-      if constexpr (NF == 2) buf1[i] = row_ptr<SRC>(w, 1, z, y)[xs];
+      buf0[i] = row_ptr<SRC>(w, 0, z, y, b)[xs];
+      if constexpr (NF == 2) buf1[i] = row_ptr<SRC>(w, 1, z, y, b)[xs];
     } else {
-      buf0[i] = *cell_ptr<SRC>(w, 0, z, y, x, periodic);
-      if constexpr (NF == 2) buf1[i] = *cell_ptr<SRC>(w, 1, z, y, x, periodic);
+      buf0[i] = *cell_ptr<SRC>(w, 0, z, y, x, periodic, b);
+      if constexpr (NF == 2)
+        buf1[i] = *cell_ptr<SRC>(w, 1, z, y, x, periodic, b);
     }
     const int before = t.row;
     t.next();
@@ -410,6 +414,9 @@ __device__ __forceinline__ void micro_steps(T*& cur, T*& nxt, T*& vcur,
   }
 }
 
+// One block: one (TZ, TY, TX) core tile of one member (a batched launch
+// folds its members into the grid's z, the member's operands a member
+// stride apart: window.cuh's s_in .. s_out).
 template <int KIND, int SRC, class T>
 __global__ void __launch_bounds__(MAX_THREADS)
 fused_step(const WindowT<T> w, int k, int periodic, int paths, Coef c,
@@ -426,8 +433,12 @@ fused_step(const WindowT<T> w, int k, int periodic, int paths, Coef c,
   g.sy = g.WX;
   g.sz = g.WX * g.WY;
   const int W = g.sz * g.WZ;
-  // local coordinate of window cell (0, 0, 0)
-  g.oz = blockIdx.z * TZ - g.m;
+  // the member b (a batched launch folds the members into z: member b's
+  // z tiles are tiles_z b .. tiles_z (b + 1) - 1) and the local coordinate
+  // of window cell (0, 0, 0)
+  const int tiles_z = (w.Z + TZ - 1) / TZ;
+  const int b = blockIdx.z / tiles_z;
+  g.oz = (blockIdx.z - b * tiles_z) * TZ - g.m;
   g.oy = blockIdx.y * TY - g.m;
   g.ox = blockIdx.x * TX - g.m;
 
@@ -447,7 +458,7 @@ fused_step(const WindowT<T> w, int k, int periodic, int paths, Coef c,
                         : rows && (paths & ROW_LOAD)     ? LOAD_ROWS
                                                          : LOAD_CELLS;
   load_window<SRC, (wave || gs) ? 2 : 1>(w, cur, wave ? nxt : vcur, g, path,
-                                         periodic);
+                                         periodic, b);
   __syncthreads();
 
   // block-uniform: no cell a micro-step updates is frame (each lies at
@@ -465,6 +476,8 @@ fused_step(const WindowT<T> w, int k, int periodic, int paths, Coef c,
   // the core, a thread per (y, x) column walking z, masked to the grid
   const long gsz = static_cast<long>(w.X) * w.Y;
   const int z0 = g.oz + g.m, nz = min(TZ, w.Z - z0);
+  T* const out0 = out_ptr(w, 0, b);
+  T* const out1 = wave || gs ? out_ptr(w, 1, b) : nullptr;
   Walk2 t(TX);
   for (int i = threadIdx.x; i < TY * TX; i += blockDim.x, t.next()) {
     const int gy = g.oy + g.m + t.row, gx = g.ox + g.m + t.col;
@@ -472,16 +485,16 @@ fused_step(const WindowT<T> w, int k, int periodic, int paths, Coef c,
     long o = (static_cast<long>(z0) * w.Y + gy) * w.X + gx;
     int q = g.m * g.sz + (t.row + g.m) * g.sy + (t.col + g.m);
     for (int cz = 0; cz < nz; ++cz, o += gsz, q += g.sz) {
-      w.out[0][o] = cur[q];
-      if constexpr (wave) w.out[1][o] = nxt[q];  // the new u_prev: old u
-      if constexpr (gs) w.out[1][o] = vcur[q];
+      out0[o] = cur[q];
+      if constexpr (wave) out1[o] = nxt[q];  // the new u_prev: old u
+      if constexpr (gs) out1[o] = vcur[q];
     }
   }
 }
 
 template <int KIND, int SRC, class T>
 int launch(const WindowT<T>& w, int k, int periodic, int allowed,
-           const Coef& c, int tz, int ty, int tx, int threads,
+           const Coef& c, int tz, int ty, int tx, int threads, int members,
            cudaStream_t s) {
   const int m = kind_margin(KIND, k);
   if (threads < 32 || threads > MAX_THREADS || threads % 32)
@@ -500,8 +513,12 @@ int launch(const WindowT<T>& w, int k, int periodic, int allowed,
   const bool rows16 = (static_cast<long>(w.X) * sizeof(T)) % 16 == 0 &&
                       (tx * sizeof(T)) % 16 == 0 && (m * sizeof(T)) % 16 == 0;
   const int paths = rows16 ? allowed : (allowed & ~VEC_LOAD);
+  // z: every member's z tiles, member after member
+  const long gz = static_cast<long>((w.Z + tz - 1) / tz) * members;
+  if (members < 1 || gz > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((w.X + tx - 1) / tx, (w.Y + ty - 1) / ty,
-                  (w.Z + tz - 1) / tz);
+                  static_cast<unsigned>(gz));
   fused_step<KIND, SRC, T><<<grid, threads, smem, s>>>(w, k, periodic, paths,
                                                        c, tz, ty, tx);
   return static_cast<int>(cudaGetLastError());
@@ -510,9 +527,10 @@ int launch(const WindowT<T>& w, int k, int periodic, int allowed,
 // The tile and the launch's options, as the exports take them: the core
 // (tz, ty, tx), the block's threads and the fast paths allowed (bit 0:
 // 16-byte row copies, where the operands' addresses align; bit 1: no frame
-// test where no update is frame; bit 2: cells from row pointers).
+// test where no update is frame; bit 2: cells from row pointers), and the
+// members of a batched launch (1: unbatched).
 struct Tile {
-  int tz, ty, tx, threads, paths;
+  int tz, ty, tx, threads, paths, members;
 };
 
 template <int SRC, class T>
@@ -521,7 +539,7 @@ int dispatch(int kind, const WindowT<T>& w, int k, int periodic,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FUSED_LAUNCH(K)                                                    \
   launch<K, SRC>(w, k, periodic, t.paths, c, t.tz, t.ty, t.tx, t.threads, \
-                 s)
+                 t.members, s)
   switch (kind) {
     case HEAT7:
       return FUSED_LAUNCH(HEAT7);
@@ -548,8 +566,9 @@ template <class T>
 int fused_raw(int kind, const T* in0, const T* in1, T* out0, T* out1, int Z,
               int Y, int X, int k, int periodic, const Coef& c, const Tile& t,
               void* stream) {
-  const WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
-                     {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+               {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  set_member_strides<RAW>(w, t.members);
   return dispatch<RAW>(kind, w, k, periodic, c, t, stream);
 }
 
@@ -558,9 +577,10 @@ int fused_padded(int kind, const T* in0, const T* in1, T* out0, T* out1,
                  int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
                  int k, int periodic, const Coef& c, const Tile& t,
                  void* stream) {
-  const WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
-                     {out0, out1}, Z, Y, X, GZ, GY, GX, oz, oy,
-                     kind_margin(kind, k)};
+  WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+               {out0, out1}, Z, Y, X, GZ, GY, GX, oz, oy,
+               kind_margin(kind, k)};
+  set_member_strides<PADDED>(w, t.members);
   return dispatch<PADDED>(kind, w, k, periodic, c, t, stream);
 }
 
@@ -569,8 +589,9 @@ int fused_z(int kind, const T* in0, const T* in1, const T* lo0,
             const T* lo1, const T* hi0, const T* hi1, T* out0, T* out1,
             int Z, int Y, int X, int GZ, int oz, int k, int periodic,
             const Coef& c, const Tile& t, void* stream) {
-  const WindowT<T> w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1},
-                     Z, Y, X, GZ, Y, X, oz, 0, kind_margin(kind, k)};
+  WindowT<T> w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1},
+               Z, Y, X, GZ, Y, X, oz, 0, kind_margin(kind, k)};
+  set_member_strides<ZSLAB>(w, t.members);
   return dispatch<ZSLAB>(kind, w, k, periodic, c, t, stream);
 }
 
@@ -580,11 +601,12 @@ int fused_yz(int kind, const T* const* p, T* out0, T* out1, int Z, int Y,
              int periodic, const Coef& c, const Tile& t, void* stream) {
   // p: per field, (in, zlo, zhi, ylo, yhi, ll, lh, hl, hh) in field-major
   // pairs, as the exports take them
-  const WindowT<T> w{{p[0], p[1]}, {p[2], p[3]}, {p[4], p[5]}, {out0, out1},
-                     Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
-                     {p[6], p[7]}, {p[8], p[9]},
-                     {{p[10], p[11]}, {p[12], p[13]}, {p[14], p[15]},
-                      {p[16], p[17]}}};
+  WindowT<T> w{{p[0], p[1]}, {p[2], p[3]}, {p[4], p[5]}, {out0, out1},
+               Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
+               {p[6], p[7]}, {p[8], p[9]},
+               {{p[10], p[11]}, {p[12], p[13]}, {p[14], p[15]},
+                {p[16], p[17]}}};
+  set_member_strides<YZSLAB>(w, t.members);
   return dispatch<YZSLAB>(kind, w, k, periodic, c, t, stream);
 }
 
@@ -603,10 +625,12 @@ EXPORT int fused_step_f32(int kind, const float* in0, const float* in1,
                           float* out0, float* out1, int Z, int Y, int X, int k,
                           int periodic, float a, float c0, float c1, float c2,
                           float c3, int tz, int ty, int tx,
-                          int threads, int paths, void* stream) {
+                          int threads, int paths, int members,
+                          void* stream) {
   return fused_raw(kind, in0, in1, out0, out1, Z, Y, X, k, periodic,
                    Coef{a, c0, c1, c2, c3},
-                   Tile{tz, ty, tx, threads, paths}, stream);
+                   Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 EXPORT int fused_step_bf16(int kind, const __nv_bfloat16* in0,
@@ -614,10 +638,12 @@ EXPORT int fused_step_bf16(int kind, const __nv_bfloat16* in0,
                            __nv_bfloat16* out1, int Z, int Y, int X, int k,
                            int periodic, float a, float c0, float c1,
                            float c2, float c3, int tz, int ty, int tx,
-                           int threads, int paths, void* stream) {
+                           int threads, int paths, int members,
+                          void* stream) {
   return fused_raw(kind, in0, in1, out0, out1, Z, Y, X, k, periodic,
                    Coef{a, c0, c1, c2, c3},
-                   Tile{tz, ty, tx, threads, paths}, stream);
+                   Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 // One K3 launch in its sharded mode: the inputs are a shard's z/y-padded
@@ -629,10 +655,12 @@ EXPORT int fused_step_padded_f32(int kind, const float* in0, const float* in1,
                                  int GZ, int GY, int GX, int oz, int oy, int k,
                                  int periodic, float a, float c0, float c1,
                                  float c2, float c3, int tz, int ty, int tx,
-                                 int threads, int paths, void* stream) {
+                                 int threads, int paths, int members,
+                          void* stream) {
   return fused_padded(kind, in0, in1, out0, out1, Z, Y, X, GZ, GY, GX, oz,
                       oy, k, periodic, Coef{a, c0, c1, c2, c3},
-                      Tile{tz, ty, tx, threads, paths}, stream);
+                      Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 EXPORT int fused_step_padded_bf16(
@@ -640,10 +668,11 @@ EXPORT int fused_step_padded_bf16(
     __nv_bfloat16* out0, __nv_bfloat16* out1, int Z, int Y, int X, int GZ,
     int GY, int GX, int oz, int oy, int k, int periodic, float a, float c0,
     float c1, float c2, float c3, int tz, int ty, int tx,
-    int threads, int paths, void* stream) {
+    int threads, int paths, int members, void* stream) {
   return fused_padded(kind, in0, in1, out0, out1, Z, Y, X, GZ, GY, GX, oz,
                       oy, k, periodic, Coef{a, c0, c1, c2, c3},
-                      Tile{tz, ty, tx, threads, paths}, stream);
+                      Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 // One K6 launch: a z-only shard's (Z, Y, X) core plus the (m, Y, X) slabs
@@ -655,10 +684,12 @@ EXPORT int fused_zslab_f32(int kind, const float* in0, const float* in1,
                            float* out1, int Z, int Y, int X, int GZ, int oz,
                            int k, int periodic, float a, float c0, float c1,
                            float c2, float c3, int tz, int ty, int tx,
-                           int threads, int paths, void* stream) {
+                           int threads, int paths, int members,
+                          void* stream) {
   return fused_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X, GZ,
                  oz, k, periodic, Coef{a, c0, c1, c2, c3},
-                 Tile{tz, ty, tx, threads, paths}, stream);
+                 Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 EXPORT int fused_zslab_bf16(
@@ -667,10 +698,11 @@ EXPORT int fused_zslab_bf16(
     const __nv_bfloat16* hi0, const __nv_bfloat16* hi1, __nv_bfloat16* out0,
     __nv_bfloat16* out1, int Z, int Y, int X, int GZ, int oz, int k,
     int periodic, float a, float c0, float c1, float c2, float c3, int tz,
-    int ty, int tx, int threads, int paths, void* stream) {
+    int ty, int tx, int threads, int paths, int members, void* stream) {
   return fused_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X, GZ,
                  oz, k, periodic, Coef{a, c0, c1, c2, c3},
-                 Tile{tz, ty, tx, threads, paths}, stream);
+                 Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 // One K9 launch: a (z, y) shard's (Z, Y, X) core plus, per field, the
@@ -686,12 +718,14 @@ EXPORT int fused_yzslab_f32(
     const float* chl1, const float* chh0, const float* chh1, float* out0,
     float* out1, int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
     int k, int periodic, float a, float c0, float c1, float c2, float c3,
-    int tz, int ty, int tx, int threads, int paths, void* stream) {
+    int tz, int ty, int tx, int threads, int paths, int members,
+    void* stream) {
   const float* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1, ylo0, ylo1, yhi0,
                         yhi1, cll0, cll1, clh0, clh1, chl0, chl1, chh0, chh1};
   return fused_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
                   periodic, Coef{a, c0, c1, c2, c3},
-                  Tile{tz, ty, tx, threads, paths}, stream);
+                  Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }
 
 EXPORT int fused_yzslab_bf16(
@@ -707,11 +741,12 @@ EXPORT int fused_yzslab_bf16(
     __nv_bfloat16* out0, __nv_bfloat16* out1, int Z, int Y, int X, int GZ,
     int GY, int GX, int oz, int oy, int k, int periodic, float a, float c0,
     float c1, float c2, float c3, int tz, int ty, int tx,
-    int threads, int paths, void* stream) {
+    int threads, int paths, int members, void* stream) {
   const __nv_bfloat16* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1,
                                 ylo0, ylo1, yhi0, yhi1, cll0, cll1,
                                 clh0, clh1, chl0, chl1, chh0, chh1};
   return fused_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
                   periodic, Coef{a, c0, c1, c2, c3},
-                  Tile{tz, ty, tx, threads, paths}, stream);
+                  Tile{tz, ty, tx, threads, paths, members},
+                  stream);
 }

@@ -8,7 +8,10 @@
 // A block takes work items in turn (a persistent grid, sized to the card's
 // waves by the host): an item is a tile of TY rows by TX cells of the
 // output planes and a run of ZR planes along the march axis (3D: z; 2D: y,
-// where a "plane" is one row of TX + 2 cells).  It copies the input planes
+// where a "plane" is one row of TX + 2 cells).  A batched launch (the N
+// members of an ensemble, Geom::N; the padded kinds only) has N times the
+// items, member after member, each member's input and output one block
+// (in_stride, out_stride cells) after the previous one's.  It copies the input planes
 // of the run into a ring of S slots, IN_FLIGHT planes ahead of the one it
 // waits for, and updates output plane z once input planes z - h .. z + h
 // are in: iteration q waits for the run's input plane q, passes one
@@ -118,6 +121,11 @@ struct Geom {
   int RWB;          // bytes of a row buffer
   int S;            // ring slots
   int tiles_x, tiles_y, runs;
+  // members of a batched launch (an ensemble: N blocks of the input and of
+  // the output back to back, the padded kinds only) and their strides in
+  // cells; 1 and one block's cells otherwise
+  int N;
+  long in_stride, out_stride;
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -614,13 +622,22 @@ march_step(const T* __restrict__ p, const T* __restrict__ q,
   constexpr int NF = fields_of<KIND>();
   int* rs = reinterpret_cast<int*>(smem + static_cast<long>(NF) * g.S *
                                               g.PR * g.RWB);
+  // the whole batch's bytes: a word of a row at a member's edge may read
+  // the neighbouring member's cells (never used), none outside the tensor
   const uintptr_t span = static_cast<uintptr_t>(g.PM) * g.PY * g.PX *
-                         sizeof(T);
+                         sizeof(T) * g.N;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(p);
   const uintptr_t hi = lo + span;
   const uintptr_t lo2 = reinterpret_cast<uintptr_t>(q);
   const uintptr_t hi2 = lo2 + span;
-  const int items = g.tiles_x * g.tiles_y * g.runs;
+  // a member's items, then the next member's: the item's member b reads
+  // and writes its own blocks (u_prev is output-shaped, Gray-Scott's v
+  // input-shaped)
+  const int per_member = g.tiles_x * g.tiles_y * g.runs;
+  const int items = per_member * g.N;
+  const long q_stride = KIND == WAVE7 ? g.out_stride : g.in_stride;
+  const T* pb = p;
+  const T* qb = q;
   ZQueue<T, H, NU> zq;
   UpRegs<T, NU> ur;
   constexpr int CO = FRAME ? 0 : H;  // input index of output index 0
@@ -628,14 +645,20 @@ march_step(const T* __restrict__ p, const T* __restrict__ q,
   // plane pz's tiles into slot `slot` (the second field's: slot S + slot),
   // every field's in one commit group
   const auto issue = [&](int pz, int slot, int x0, int y0) {
-    issue_plane<KIND, T, NT, RW, FRAME>(p, smem, rs, g, pz, slot, x0, y0,
+    issue_plane<KIND, T, NT, RW, FRAME>(pb, smem, rs, g, pz, slot, x0, y0,
                                         lo, hi);
     if constexpr (NF == 2) {
-      issue_plane<KIND, T, NT, RW, FRAME>(q, smem, rs, g, pz, g.S + slot,
+      issue_plane<KIND, T, NT, RW, FRAME>(qb, smem, rs, g, pz, g.S + slot,
                                           x0, y0, lo2, hi2);
     }
   };
-  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+  for (int bitem = blockIdx.x; bitem < items; bitem += gridDim.x) {
+    const int b = bitem / per_member;
+    const int item = bitem - b * per_member;
+    pb = p + b * g.in_stride;
+    qb = q == nullptr ? q : q + b * q_stride;
+    T* const ob = out + b * g.out_stride;
+    T* const ob2 = out2 == nullptr ? out2 : out2 + b * g.out_stride;
     const int x0 = (item % g.tiles_x) * g.TX;
     const int rest = item / g.tiles_x;
     const int y0 = (rest % g.tiles_y) * g.TY;
@@ -660,7 +683,7 @@ march_step(const T* __restrict__ p, const T* __restrict__ q,
     for (int i = 0; i < nin; ++i) {
       const int pz = plo + i, z = pz - CO - H;
       if constexpr (KIND == WAVE7) {
-        if (z >= z0) load_uprev<T, NT, NU, RW>(ur, q, g, z, x0, y0);
+        if (z >= z0) load_uprev<T, NT, NU, RW>(ur, qb, g, z, x0, y0);
       }
       cp_async_wait_landed();  // plane i (this thread's copies)
       __syncthreads();         // everyone's; and iteration i - 1 is done
@@ -675,7 +698,7 @@ march_step(const T* __restrict__ p, const T* __restrict__ q,
       }
       if (z >= z0) {
         compute_plane<KIND, T, NT, NU, RW, ZQ, FRAME>(
-            out, out2, smem, rs, g, c, z, sq, x0, y0, wall, zq, ur);
+            ob, ob2, smem, rs, g, c, z, sq, x0, y0, wall, zq, ur);
       }
       sq = sq + 1 == g.S ? 0 : sq + 1;
       si = si + 1 == g.S ? 0 : si + 1;
@@ -708,6 +731,9 @@ inline Geom make_geom(int M, int Y, int X, int h, bool raw, bool d2, int tx,
     g.tiles_y = (Y + ty - 1) / ty;
     g.runs = (M + zr - 1) / zr;
   }
+  g.N = 1;
+  g.in_stride = static_cast<long>(g.PM) * g.PY * g.PX;
+  g.out_stride = static_cast<long>(M) * Y * X;
   return g;
 }
 
@@ -728,7 +754,10 @@ constexpr size_t SMEM_LIMIT = 227 * 1024;  // march.py's _build.SMEM_LIMIT
 inline bool geometry_ok(const Geom& g, int h, int es, bool d2, int tx,
                         int groups, bool zq, bool frame, bool uprev,
                         int fields) {
-  if (g.tiles_x < 1 || g.tiles_y < 1 || g.runs < 1) return false;
+  if (g.tiles_x < 1 || g.tiles_y < 1 || g.runs < 1 || g.N < 1) return false;
+  if (frame && g.N != 1) return false;  // the raw kinds are unbatched
+  if (static_cast<long>(g.tiles_x) * g.tiles_y * g.runs * g.N >= (1L << 31))
+    return false;
   if (zq && g.TY != groups) return false;
   const int seg = (g.TX + 2 * h) * es;
   const int need = 2 * ROW_PAD + ((seg + 15 + 15) / 16) * 16;
@@ -769,7 +798,8 @@ int launch(const T* p, const T* q, T* out, T* out2, const Geom& g,
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long items = static_cast<long>(g.tiles_x) * g.tiles_y * g.runs;
+  const long items =
+      static_cast<long>(g.tiles_x) * g.tiles_y * g.runs * g.N;
   const int grid = static_cast<int>(std::min<long>(items, per_sm * sms));
   kern<<<grid, NT, smem, stream>>>(p, q, out, out2, g, c);
   return static_cast<int>(cudaGetLastError());

@@ -305,7 +305,12 @@ __device__ __forceinline__ void run(const WindowT<T>& w, const Plan& a,
   const Geom g{a.K, h, a.m, a.mu, a.TY, a.TX, a.S0, a.S1, D2, WV || GS, GS};
   const int K = a.K, m = a.m, mu = a.mu;
   const int x0 = blockIdx.x * a.TX, y0 = D2 ? 0 : blockIdx.y * a.TY;
-  const int zc0 = blockIdx.z * a.CZ, zc1 = min(zc0 + a.CZ, w.Z);
+  // a batched launch folds the members into z: member b's chunks are
+  // chunks b .. chunks (b + 1) - 1, and each primes its own rings
+  const int chunks = (w.Z + a.CZ - 1) / a.CZ;
+  const int b = blockIdx.z / chunks;
+  const int zc0 = (blockIdx.z - b * chunks) * a.CZ,
+            zc1 = min(zc0 + a.CZ, w.Z);
   const int zb = zc0 - m;  // the first loaded plane; slot(z) = (z - zb) % S
 
   // ---- this thread's level (0: none) and its units of work: 3D, strips
@@ -344,14 +349,14 @@ __device__ __forceinline__ void run(const WindowT<T>& w, const Plan& a,
         const int y = D2 ? 0 : y0 - m + row;
         if (vec) {
           const int x = x0 - mu + col * U, o = row * RX0 + col * U;
-          cp_async16(d0 + o, row_ptr<SRC>(w, 0, zq, y) + x);
+          cp_async16(d0 + o, row_ptr<SRC>(w, 0, zq, y, b) + x);
           if constexpr (WV || GS)
-            cp_async16(d1 + o, row_ptr<SRC>(w, 1, zq, y) + x);
+            cp_async16(d1 + o, row_ptr<SRC>(w, 1, zq, y, b) + x);
         } else {
           const int x = x0 - m + col, o = row * RX0 + col + (mu - m);
-          copy_cell(d0 + o, cell_ptr<SRC>(w, 0, q, y, x, 0));
+          copy_cell(d0 + o, cell_ptr<SRC>(w, 0, q, y, x, 0, b));
           if constexpr (WV || GS)
-            copy_cell(d1 + o, cell_ptr<SRC>(w, 1, q, y, x, 0));
+            copy_cell(d1 + o, cell_ptr<SRC>(w, 1, q, y, x, 0, b));
         }
         col += dcol;
         row += drow;
@@ -446,10 +451,10 @@ __device__ __forceinline__ void run(const WindowT<T>& w, const Plan& a,
           const int y = y0 + iy, x = x0 + ix;
           if (y < w.Y && x < w.X) {
             const long go = z * gsz + static_cast<long>(y) * w.X + x;
-            store(w.out[0] + go, v0);
+            store(out_ptr(w, 0, b) + go, v0);
             // wave's new u_prev: level K-1's u; Gray-Scott's new v
-            if constexpr (WV) store(w.out[1] + go, u);
-            if constexpr (GS) store(w.out[1] + go, v1);
+            if constexpr (WV) store(out_ptr(w, 1, b) + go, u);
+            if constexpr (GS) store(out_ptr(w, 1, b) + go, v1);
           }
         }
       };
@@ -573,11 +578,13 @@ ring_step(const WindowT<T> w, const Plan a, const Coef c) {
 // Host: the launch of ring_step<KIND, SRC, T> with tile (ty, tx, cz),
 // `threads` and the build for `blocks` blocks an SM (1 or 2; a block of
 // more than 512 threads takes 1), ring slots (s0, s1) and the fast paths
-// `paths` allowed.  Returns a cudaError_t code.
+// `paths` allowed, over `members` members (an ensemble's: the grid's z
+// holds every member's chunks, member after member, at most 65535).
+// Returns a cudaError_t code.
 template <int KIND, int SRC, class T>
 int launch(const WindowT<T>& w, int k, const Coef& c, int ty, int tx, int cz,
            int threads, int blocks, int s0, int s1, int paths,
-           cudaStream_t st) {
+           cudaStream_t st, int members = 1) {
   constexpr int h = kind_halo(KIND);
   constexpr bool D2 = is2d(KIND);
   Plan a{};
@@ -628,8 +635,12 @@ int launch(const WindowT<T>& w, int k, const Coef& c, int ty, int tx, int cz,
     a.paths = paths;
   const size_t smem = sizeof(T) * static_cast<size_t>(g.cells());
   if (smem >= (1u << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  // z: every member's chunks, member after member
+  const long gz = static_cast<long>((w.Z + cz - 1) / cz) * members;
+  if (members < 1 || gz > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((w.X + a.TX - 1) / a.TX, D2 ? 1 : (w.Y + a.TY - 1) / a.TY,
-                  (w.Z + cz - 1) / cz);
+                  static_cast<unsigned>(gz));
   auto go = [&](auto kernel) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

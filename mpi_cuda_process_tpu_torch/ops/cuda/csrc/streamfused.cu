@@ -39,9 +39,11 @@
 namespace {
 
 // The launch's tile and ring: core column (ty, tx), the block's threads
-// and blocks an SM, the ring slots (s0, s1) and the fast paths allowed.
+// and blocks an SM, the ring slots (s0, s1), the fast paths allowed and
+// the members of a batched launch (1: unbatched; the launch grid's z takes
+// one column's march per member, each priming its own rings).
 struct Tile {
-  int ty, tx, threads, blocks, s0, s1, paths;
+  int ty, tx, threads, blocks, s0, s1, paths, members;
 };
 
 template <int SRC, class T>
@@ -50,7 +52,7 @@ int dispatch(int kind, const WindowT<T>& w, int k, const Coef& c,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define STREAM_LAUNCH(K)                                                   \
   ring::launch<K, SRC, T>(w, k, c, t.ty, t.tx, w.Z, t.threads, t.blocks, \
-                          t.s0, t.s1, t.paths, s)
+                          t.s0, t.s1, t.paths, s, t.members)
   switch (kind) {
     case HEAT7:
       return STREAM_LAUNCH(HEAT7);
@@ -76,8 +78,9 @@ template <class T>
 int stream_raw(int kind, const T* in0, const T* in1, T* out0, T* out1, int Z,
                int Y, int X, int k, const Coef& c, const Tile& t,
                void* stream) {
-  const WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
-                     {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  WindowT<T> w{{in0, in1}, {nullptr, nullptr}, {nullptr, nullptr},
+               {out0, out1}, Z, Y, X, Z, Y, X, 0, 0, 0};
+  set_member_strides<RAW>(w, t.members);
   return dispatch<RAW>(kind, w, k, c, t, stream);
 }
 
@@ -86,8 +89,9 @@ int stream_z(int kind, const T* in0, const T* in1, const T* lo0,
              const T* lo1, const T* hi0, const T* hi1, T* out0, T* out1,
              int Z, int Y, int X, int GZ, int oz, int k, const Coef& c,
              const Tile& t, void* stream) {
-  const WindowT<T> w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1},
-                     Z, Y, X, GZ, Y, X, oz, 0, kind_margin(kind, k)};
+  WindowT<T> w{{in0, in1}, {lo0, lo1}, {hi0, hi1}, {out0, out1},
+               Z, Y, X, GZ, Y, X, oz, 0, kind_margin(kind, k)};
+  set_member_strides<ZSLAB>(w, t.members);
   return dispatch<ZSLAB>(kind, w, k, c, t, stream);
 }
 
@@ -97,11 +101,12 @@ int stream_yz(int kind, const T* const* p, T* out0, T* out1, int Z, int Y,
               const Coef& c, const Tile& t, void* stream) {
   // p: per field, (in, zlo, zhi, ylo, yhi, ll, lh, hl, hh) in field-major
   // pairs, as the exports take them
-  const WindowT<T> w{{p[0], p[1]}, {p[2], p[3]}, {p[4], p[5]}, {out0, out1},
-                     Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
-                     {p[6], p[7]}, {p[8], p[9]},
-                     {{p[10], p[11]}, {p[12], p[13]}, {p[14], p[15]},
-                      {p[16], p[17]}}};
+  WindowT<T> w{{p[0], p[1]}, {p[2], p[3]}, {p[4], p[5]}, {out0, out1},
+               Z, Y, X, GZ, GY, GX, oz, oy, kind_margin(kind, k),
+               {p[6], p[7]}, {p[8], p[9]},
+               {{p[10], p[11]}, {p[12], p[13]}, {p[14], p[15]},
+                {p[16], p[17]}}};
+  set_member_strides<YZSLAB>(w, t.members);
   return dispatch<YZSLAB>(kind, w, k, c, t, stream);
 }
 
@@ -116,15 +121,19 @@ int stream_yz(int kind, const T* const* p, T* out0, T* out1, int Z, int Y,
 // slots (s0: level 0, s1: levels 1..K-1;
 // streamfused.py::ring_slots) and `paths`, the fast paths it may take (bit
 // 0: 16-byte row copies, set only where every operand's address is 16-byte
-// aligned; bit 1: no y/x frame test where no updated cell is frame).
+// aligned; bit 1: no y/x frame test where no updated cell is frame), then
+// `members`: N > 1 runs N members in one launch, every operand holding N
+// blocks of its shape back to back.
 EXPORT int stream_step_f32(int kind, const float* in0, const float* in1,
                            float* out0, float* out1, int Z, int Y, int X,
                            int k, float a, float c0, float c1, float c2,
                            float c3, int ty, int tx, int threads, int blocks,
-                           int s0, int s1, int paths, void* stream) {
+                           int s0, int s1, int paths, int members,
+                           void* stream) {
   return stream_raw(kind, in0, in1, out0, out1, Z, Y, X, k,
                     Coef{a, c0, c1, c2, c3},
-                    Tile{ty, tx, threads, blocks, s0, s1, paths}, stream);
+                    Tile{ty, tx, threads, blocks, s0, s1, paths, members},
+                    stream);
 }
 
 EXPORT int stream_step_bf16(int kind, const __nv_bfloat16* in0,
@@ -132,10 +141,11 @@ EXPORT int stream_step_bf16(int kind, const __nv_bfloat16* in0,
                             __nv_bfloat16* out1, int Z, int Y, int X, int k,
                             float a, float c0, float c1, float c2, float c3,
                             int ty, int tx, int threads, int blocks, int s0,
-                            int s1, int paths, void* stream) {
+                            int s1, int paths, int members, void* stream) {
   return stream_raw(kind, in0, in1, out0, out1, Z, Y, X, k,
                     Coef{a, c0, c1, c2, c3},
-                    Tile{ty, tx, threads, blocks, s0, s1, paths}, stream);
+                    Tile{ty, tx, threads, blocks, s0, s1, paths, members},
+                    stream);
 }
 
 // One launch over a z-only shard: its (Z, Y, X) core plus the (m, Y, X)
@@ -147,10 +157,12 @@ EXPORT int stream_zslab_f32(int kind, const float* in0, const float* in1,
                             float* out1, int Z, int Y, int X, int GZ, int oz,
                             int k, float a, float c0, float c1, float c2,
                             float c3, int ty, int tx, int threads, int blocks,
-                            int s0, int s1, int paths, void* stream) {
+                            int s0, int s1, int paths, int members,
+                           void* stream) {
   return stream_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X,
                   GZ, oz, k, Coef{a, c0, c1, c2, c3},
-                  Tile{ty, tx, threads, blocks, s0, s1, paths}, stream);
+                  Tile{ty, tx, threads, blocks, s0, s1, paths, members},
+                    stream);
 }
 
 EXPORT int stream_zslab_bf16(
@@ -159,10 +171,12 @@ EXPORT int stream_zslab_bf16(
     const __nv_bfloat16* hi0, const __nv_bfloat16* hi1, __nv_bfloat16* out0,
     __nv_bfloat16* out1, int Z, int Y, int X, int GZ, int oz, int k, float a,
     float c0, float c1, float c2, float c3, int ty, int tx, int threads,
-    int blocks, int s0, int s1, int paths, void* stream) {
+    int blocks, int s0, int s1, int paths, int members,
+    void* stream) {
   return stream_z(kind, in0, in1, lo0, lo1, hi0, hi1, out0, out1, Z, Y, X,
                   GZ, oz, k, Coef{a, c0, c1, c2, c3},
-                  Tile{ty, tx, threads, blocks, s0, s1, paths}, stream);
+                  Tile{ty, tx, threads, blocks, s0, s1, paths, members},
+                    stream);
 }
 
 // One launch over a shard of a mesh that shards y: its (Z, Y, X) core plus,
@@ -178,12 +192,14 @@ EXPORT int stream_yzslab_f32(
     const float* chl1, const float* chh0, const float* chh1, float* out0,
     float* out1, int Z, int Y, int X, int GZ, int GY, int GX, int oz, int oy,
     int k, float a, float c0, float c1, float c2, float c3, int ty, int tx,
-    int threads, int blocks, int s0, int s1, int paths, void* stream) {
+    int threads, int blocks, int s0, int s1, int paths, int members,
+    void* stream) {
   const float* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1, ylo0, ylo1, yhi0,
                         yhi1, cll0, cll1, clh0, clh1, chl0, chl1, chh0, chh1};
   return stream_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
                    Coef{a, c0, c1, c2, c3},
-                   Tile{ty, tx, threads, blocks, s0, s1, paths}, stream);
+                   Tile{ty, tx, threads, blocks, s0, s1, paths, members},
+                    stream);
 }
 
 EXPORT int stream_yzslab_bf16(
@@ -199,11 +215,12 @@ EXPORT int stream_yzslab_bf16(
     __nv_bfloat16* out0, __nv_bfloat16* out1, int Z, int Y, int X, int GZ,
     int GY, int GX, int oz, int oy, int k, float a, float c0, float c1,
     float c2, float c3, int ty, int tx, int threads, int blocks, int s0,
-    int s1, int paths, void* stream) {
+    int s1, int paths, int members, void* stream) {
   const __nv_bfloat16* p[18] = {in0,  in1,  zlo0, zlo1, zhi0, zhi1,
                                 ylo0, ylo1, yhi0, yhi1, cll0, cll1,
                                 clh0, clh1, chl0, chl1, chh0, chh1};
   return stream_yz(kind, p, out0, out1, Z, Y, X, GZ, GY, GX, oz, oy, k,
                    Coef{a, c0, c1, c2, c3},
-                   Tile{ty, tx, threads, blocks, s0, s1, paths}, stream);
+                   Tile{ty, tx, threads, blocks, s0, s1, paths, members},
+                    stream);
 }

@@ -36,16 +36,20 @@
 // does not take.
 namespace {
 
-march::Geom geom2d(int H, int W, int tx, int zr, int rwb, int slots) {
-  return march::make_geom(H, 1, W, 1, false, true, tx, 1, zr, rwb, slots);
+march::Geom geom2d(int H, int W, int tx, int zr, int rwb, int slots,
+                   int members) {
+  march::Geom g =
+      march::make_geom(H, 1, W, 1, false, true, tx, 1, zr, rwb, slots);
+  g.N = members;
+  return g;
 }
 
 }  // namespace
 
 EXPORT int whole2d_step(int kind, const void* p, void* out, int H, int W,
                         float a, int build, int tx, int zr, int rwb,
-                        int slots, void* stream) {
-  const march::Geom g = geom2d(H, W, tx, zr, rwb, slots);
+                        int slots, int members, void* stream) {
+  const march::Geom g = geom2d(H, W, tx, zr, rwb, slots, members);
   const Coef c{a, 0.f, 0.f, 0.f, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
@@ -64,8 +68,9 @@ EXPORT int whole2d_step(int kind, const void* p, void* out, int H, int W,
 
 EXPORT int whole2d_step_bf16(int kind, const void* p, void* out, int H,
                              int W, float a, int build, int tx, int zr,
-                             int rwb, int slots, void* stream) {
-  const march::Geom g = geom2d(H, W, tx, zr, rwb, slots);
+                             int rwb, int slots, int members,
+                             void* stream) {
+  const march::Geom g = geom2d(H, W, tx, zr, rwb, slots, members);
   const Coef c{a, 0.f, 0.f, 0.f, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kind != HEAT5) {

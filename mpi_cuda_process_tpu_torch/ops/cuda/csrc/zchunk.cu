@@ -50,9 +50,10 @@ namespace {
 template <class T>
 int launch_heat(int kind, const T* p, T* out, int Z, int Y, int X,
                 const Coef& c, int build, bool zq, int tx, int ty, int zr,
-                int rwb, int slots, void* stream) {
-  const march::Geom g = march::make_geom(Z, Y, X, kind_halo(kind), false,
-                                         false, tx, ty, zr, rwb, slots);
+                int rwb, int slots, int members, void* stream) {
+  march::Geom g = march::make_geom(Z, Y, X, kind_halo(kind), false, false,
+                                   tx, ty, zr, rwb, slots);
+  g.N = members;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case HEAT7:
@@ -72,9 +73,10 @@ int launch_heat(int kind, const T* p, T* out, int Z, int Y, int X,
 template <class T>
 int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
                 float c2dt2, int build, bool zq, int tx, int ty, int zr,
-                int rwb, int slots, void* stream) {
-  const march::Geom g = march::make_geom(Z, Y, X, 1, false, false, tx, ty,
-                                         zr, rwb, slots);
+                int rwb, int slots, int members, void* stream) {
+  march::Geom g = march::make_geom(Z, Y, X, 1, false, false, tx, ty, zr,
+                                   rwb, slots);
+  g.N = members;
   return march::launch_build<WAVE7, T>(build, zq, p, uprev, out, g,
                                        Coef{c2dt2, 0.f, 0.f, 0.f, 0.f},
                                        static_cast<cudaStream_t>(stream));
@@ -85,19 +87,19 @@ int launch_wave(const T* p, const T* uprev, T* out, int Z, int Y, int X,
 EXPORT int zchunk_heat_f32(int kind, const float* p, float* out, int Z,
                            int Y, int X, float a, float c0, float c1,
                            float c2, float c3, int build, int zq, int tx,
-                           int ty, int zr, int rwb, int slots,
+                           int ty, int zr, int rwb, int slots, int members,
                            void* stream) {
   return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
-                     zq != 0, tx, ty, zr, rwb, slots, stream);
+                     zq != 0, tx, ty, zr, rwb, slots, members, stream);
 }
 
 EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
                             __nv_bfloat16* out, int Z, int Y, int X, float a,
                             float c0, float c1, float c2, float c3,
                             int build, int zq, int tx, int ty, int zr,
-                            int rwb, int slots, void* stream) {
+                            int rwb, int slots, int members, void* stream) {
   return launch_heat(kind, p, out, Z, Y, X, Coef{a, c0, c1, c2, c3}, build,
-                     zq != 0, tx, ty, zr, rwb, slots, stream);
+                     zq != 0, tx, ty, zr, rwb, slots, members, stream);
 }
 
 // One K5 launch on `stream`: out = new u from the padded u and the
@@ -105,16 +107,16 @@ EXPORT int zchunk_heat_bf16(int kind, const __nv_bfloat16* p,
 EXPORT int zchunk_wave_f32(const float* p, const float* uprev, float* out,
                            int Z, int Y, int X, float c2dt2, int build,
                            int zq, int tx, int ty, int zr, int rwb,
-                           int slots, void* stream) {
+                           int slots, int members, void* stream) {
   return launch_wave(p, uprev, out, Z, Y, X, c2dt2, build, zq != 0, tx, ty,
-                     zr, rwb, slots, stream);
+                     zr, rwb, slots, members, stream);
 }
 
 EXPORT int zchunk_wave_bf16(const __nv_bfloat16* p,
                             const __nv_bfloat16* uprev, __nv_bfloat16* out,
                             int Z, int Y, int X, float c2dt2, int build,
                             int zq, int tx, int ty, int zr, int rwb,
-                            int slots, void* stream) {
+                            int slots, int members, void* stream) {
   return launch_wave(p, uprev, out, Z, Y, X, c2dt2, build, zq != 0, tx, ty,
-                     zr, rwb, slots, stream);
+                     zr, rwb, slots, members, stream);
 }

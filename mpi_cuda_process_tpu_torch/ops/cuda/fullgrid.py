@@ -38,6 +38,13 @@ whole grid; for a shard, k plain steps of its padded block
 (``fused._plain_window_steps``), which equal k plain sharded steps on the
 shard's rows.  A wrapper takes its plain version only for tensors on the
 CPU.
+
+Both wrappers take batched fields (an ensemble run's leading member axis,
+``(N, H, W)``) and advance every member in one launch a ``K_PER_LAUNCH``
+micro-steps: the tiled kind's launch grid has the member in z, the
+streaming kind folds the members into its z of row chunks (chunks x N at
+most 65535), and ``chunk_rows`` fits the chunks to the card for all N
+members' columns.
 """
 
 from __future__ import annotations
@@ -161,29 +168,37 @@ def ring_ok(stencil: Stencil, k: int, periodic: bool, rows: int) -> bool:
 
 
 def chunk_rows(stencil: Stencil, k: int, rows: int, width: int,
-               tile: Sequence[int], slots: int) -> int:
+               tile: Sequence[int], slots: int, members: int = 1) -> int:
     """The rows of a block's chunk: the tile's CZ, or fewer where more
     chunks fill the card's last wave of blocks (``slots``: the blocks the
     card holds at once) for less than they add in lead-in rows (each chunk
     re-reads 2m rows and fills its wavefront over K (h + 1) more).
     Minimises waves x (rows a chunk + lead-in) over up to 4 times the
-    tile's chunks (``_build.fit_runs``)."""
+    tile's chunks (``_build.fit_runs``), with the strips of all
+    ``members`` of a batched launch side by side; never so few rows that
+    the chunks of all members outgrow the launch grid's z (65535)."""
     tx, cz = int(tile[0]), int(tile[1])
-    return _build.fit_runs(rows, cz, -(-width // tx), _lead(stencil, k),
-                           slots)
+    members = max(1, int(members))
+    fit = _build.fit_runs(rows, cz, -(-width // tx) * members,
+                          _lead(stencil, k), slots)
+    return max(fit, -(-rows // max(1, 65535 // members)))
 
 
-def _ring_tail(stencil: Stencil, k: int, rows: int, operands):
+def _ring_tail(stencil: Stencil, k: int, rows: int, operands,
+               members: int = 0):
     """The streaming exports' trailing arguments: coefficients, the tile
-    (its chunk fitted to the card: ``chunk_rows``), the ring slots and the
-    fast paths, then the stream."""
+    (its chunk fitted to the card for every member: ``chunk_rows``), the
+    ring slots and the fast paths, the members (1 unbatched), then the
+    stream."""
     paths = PATHS & ~VEC_LOAD if any(t.data_ptr() % 16 for t in operands) \
         else PATHS
     tx, cz, threads, blocks = ring_tile(stencil, k)
-    cz = chunk_rows(stencil, k, rows, int(operands[0].shape[1]),
-                    (tx, cz), _build.sm_count(operands[0].device) * blocks)
+    cz = chunk_rows(stencil, k, rows, int(operands[0].shape[-1]),
+                    (tx, cz), _build.sm_count(operands[0].device) * blocks,
+                    members)
     return (*_coefficients(stencil), tx, cz, threads, blocks,
-            *ring_slots(stencil, k), paths, _build.stream_of(operands[0]))
+            *ring_slots(stencil, k), paths, max(1, members),
+            _build.stream_of(operands[0]))
 
 
 def _steps_per_launch(stencil: Stencil) -> int:
@@ -212,16 +227,16 @@ def _lib():
         for sfx in ("", "_bf16"):
             getattr(lib, f"fullgrid_raw{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_float] * 5
-                + [_c_int] * 2 + [_c_ptr])
+                + [_c_int] * 3 + [_c_ptr])
             getattr(lib, f"fullgrid_padded{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 6 + [_c_float] * 5
-                + [_c_int] * 2 + [_c_ptr])
+                + [_c_int] * 3 + [_c_ptr])
             getattr(lib, f"fullgrid_ring_raw{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 3 + [_c_float] * 5
-                + [_c_int] * 7 + [_c_ptr])
+                + [_c_int] * 8 + [_c_ptr])
             getattr(lib, f"fullgrid_ring_padded{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + [_c_float] * 5
-                + [_c_int] * 7 + [_c_ptr])
+                + [_c_int] * 8 + [_c_ptr])
     return lib
 
 
@@ -233,19 +248,20 @@ def _pointers(tensors):
 def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
                   periodic: bool = False) -> Fields:
     """``k`` steps of ``stencil`` on the whole 2D grid: one launch per
-    ``K_PER_LAUNCH`` micro-steps (sor2d: half of them)."""
+    ``K_PER_LAUNCH`` micro-steps (sor2d: half of them), every member of
+    batched ``(N, H, W)`` fields in it."""
     if not fields[0].is_cuda:
-        step = make_step(stencil, fields[0].shape, periodic=periodic)
+        step = make_step(stencil, fields[0].shape[-2:], periodic=periodic)
         for _ in range(k):
             fields = step(fields)
         return fields
     kind = _FULLGRID[stencil.name]
-    H, W = (int(s) for s in fields[0].shape)
+    n, (H, W) = _build.batch_of(fields[0], 2)
     _build.check_operands("fullgrid_step", *fields, shape=(H, W),
-                          dtype=_dtypes(stencil), ndim=2)
+                          dtype=_dtypes(stencil), ndim=2, members=n)
     lib = _lib()
     coef = _coefficients(stencil)
-    key = _build.launch_key("fullgrid_step", stencil.name, fields[0])
+    key = _build.launch_key("fullgrid_step", stencil.name, fields[0], n)
     left = k
     while left > 0:
         kk = min(left, _steps_per_launch(stencil))
@@ -253,11 +269,12 @@ def fullgrid_step(fields: Fields, stencil: Stencil, k: int,
         if ring_ok(stencil, kk, periodic, H):
             rc = _build.twin_entry(lib, "fullgrid_ring_raw", fields[0])(
                 kind, *_pointers(fields), *_pointers(outs), H, W, kk,
-                *_ring_tail(stencil, kk, H, (*fields, *outs)))
+                *_ring_tail(stencil, kk, H, (*fields, *outs), n))
         else:
             rc = _build.twin_entry(lib, "fullgrid_raw", fields[0])(
                 kind, *_pointers(fields), *_pointers(outs), H, W, kk,
-                int(periodic), *coef, *CORE, _build.stream_of(fields[0]))
+                int(periodic), *coef, *CORE, max(1, n),
+                _build.stream_of(fields[0]))
         _build.check(lib, rc, "fullgrid_step")
         launches[key] += 1
         fields, left = outs, left - kk
@@ -273,37 +290,40 @@ def fullgrid_padded(padded: Fields, stencil: Stencil, k: int,
     2k for sor2d) from the row exchange on each side, ``(Ly + 2m, W)``;
     ``origin_y`` is the global row of the shard's first core row in a
     ``global_rows``-row grid.  Returns
-    the ``(Ly, W)`` core of every field, k steps on.
+    the ``(Ly, W)`` core of every field, k steps on; batched ``(N, Ly +
+    2m, W)`` blocks give every member's core from one launch.
     """
     m = k_step_margin(stencil, k)
-    Hp, W = (int(s) for s in padded[0].shape)
+    n, (Hp, W) = _build.batch_of(padded[0], 2)
     Ly = Hp - 2 * m
     if not padded[0].is_cuda:
         out = _plain_window_steps(padded, stencil, k, (origin_y - m, 0),
                                   (global_rows, W), periodic, wrap_axes=(1,))
-        return tuple(f[m:m + Ly].contiguous() for f in out)
+        return tuple(f[..., m:m + Ly, :].contiguous() for f in out)
     kind = _FULLGRID[stencil.name]
     if not fits(stencil, k) or Ly < 1:
         raise ValueError(f"fullgrid_padded: {stencil.name} k={k} on "
                          f"{(Hp, W)} not supported")
     _build.check_operands("fullgrid_padded", *padded, shape=(Hp, W),
-                          dtype=_dtypes(stencil), ndim=2)
-    outs = tuple(torch.empty((Ly, W), dtype=p.dtype, device=p.device)
+                          dtype=_dtypes(stencil), ndim=2, members=n)
+    outs = tuple(torch.empty((n,) * bool(n) + (Ly, W), dtype=p.dtype,
+                             device=p.device)
                  for p in padded)
     lib = _lib()
     if ring_ok(stencil, k, periodic, Ly):
         rc = _build.twin_entry(lib, "fullgrid_ring_padded", padded[0])(
             kind, *_pointers(padded), *_pointers(outs), Ly, W,
             int(global_rows), int(origin_y), k,
-            *_ring_tail(stencil, k, Ly, (*padded, *outs)))
+            *_ring_tail(stencil, k, Ly, (*padded, *outs), n))
     else:
         rc = _build.twin_entry(lib, "fullgrid_padded", padded[0])(
             kind, *_pointers(padded), *_pointers(outs), Ly, W,
             int(global_rows), int(origin_y), k, int(periodic),
-            *_coefficients(stencil), *CORE, _build.stream_of(padded[0]))
+            *_coefficients(stencil), *CORE, max(1, n),
+            _build.stream_of(padded[0]))
     _build.check(lib, rc, "fullgrid_padded")
     launches[_build.launch_key("fullgrid_padded", stencil.name,
-                               padded[0])] += 1
+                               padded[0], n)] += 1
     return outs
 
 

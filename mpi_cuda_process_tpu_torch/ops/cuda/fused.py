@@ -164,11 +164,14 @@ def launch_paths(operands) -> int:
     return PATHS
 
 
-def _tail(stencil: Stencil, k: int, shape: Sequence[int], operands):
+def _tail(stencil: Stencil, k: int, shape: Sequence[int], operands,
+          members: int = 0):
     """The exports' trailing arguments: coefficients, the launch tile and
-    the fast paths, then the stream."""
+    the fast paths, the members of a batched launch (1 unbatched), then
+    the stream."""
     return (*coefficients(stencil), *tile_of(stencil, k, shape),
-            launch_paths(operands), _build.stream_of(operands[0]))
+            launch_paths(operands), max(1, members),
+            _build.stream_of(operands[0]))
 
 
 def smem_bytes(core: Tuple[int, int, int], margin: int, nbuf: int = 2,
@@ -221,7 +224,7 @@ def margin_of(stencil: Stencil, k: int) -> Optional[int]:
 def _lib():
     lib = _build.load("fused")
     if lib.fused_step_f32.argtypes is None:
-        tail = [_c_float] * 5 + [_c_int] * 5 + [_c_ptr]
+        tail = [_c_float] * 5 + [_c_int] * 6 + [_c_ptr]
         for sfx in _build.SUFFIXES.values():
             getattr(lib, f"fused_step_{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 5 + tail)
@@ -231,6 +234,7 @@ def _lib():
                 [_c_int] + [_c_ptr] * 8 + [_c_int] * 7 + tail)
             getattr(lib, f"fused_yzslab_{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 20 + [_c_int] * 10 + tail)
+            # tail: coefficients, tile, threads, paths, members, stream
     return lib
 
 
@@ -240,8 +244,10 @@ def _pointers(tensors, two):
 
 def plain_steps(fields: Fields, stencil: Stencil, k: int,
                 periodic: bool = False) -> Fields:
-    """The plain version of K3: k applications of ``driver.make_step``."""
-    step = make_step(stencil, fields[0].shape, periodic=periodic)
+    """The plain version of K3: k applications of ``driver.make_step``
+    (on batched fields, every member's)."""
+    step = make_step(stencil, fields[0].shape[-stencil.ndim:],
+                     periodic=periodic)
     for _ in range(k):
         fields = step(fields)
     return fields
@@ -249,24 +255,26 @@ def plain_steps(fields: Fields, stencil: Stencil, k: int,
 
 def fused_step(fields: Fields, stencil: Stencil, k: int,
                periodic: bool = False) -> Fields:
-    """``k`` steps of ``stencil`` on ``fields`` in one launch."""
+    """``k`` steps of ``stencil`` on ``fields`` in one launch (every member
+    of batched ``(N, Z, Y, X)`` fields in the same launch)."""
     if not fields[0].is_cuda:
         return plain_steps(fields, stencil, k, periodic)
     kind, _halo = _FUSED[stencil.name]
     if not fits(stencil, k):
         raise ValueError(f"fused_step: {stencil.name} k={k} window exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
-    _build.check_operands("fused_step", *fields, shape=tuple(fields[0].shape),
-                          dtype=_build.FLOAT_DTYPES)
+    n, (Z, Y, X) = _build.batch_of(fields[0])
+    _build.check_operands("fused_step", *fields, shape=(Z, Y, X),
+                          dtype=_build.FLOAT_DTYPES, members=n)
     outs = tuple(torch.empty_like(f) for f in fields)
     two = len(fields) == 2
     lib = _lib()
-    Z, Y, X = fields[0].shape
     rc = _build.entry(lib, "fused_step", fields[0])(
         kind, *_pointers(fields, two), *_pointers(outs, two),
-        Z, Y, X, k, int(periodic), *_tail(stencil, k, (Z, Y, X), fields))
+        Z, Y, X, k, int(periodic), *_tail(stencil, k, (Z, Y, X), fields, n))
     _build.check(lib, rc, "fused_step")
-    launches[_build.launch_key("fused_step", stencil.name, fields[0])] += 1
+    launches[_build.launch_key("fused_step", stencil.name, fields[0],
+                               n)] += 1
     return outs
 
 
@@ -301,9 +309,11 @@ def _plain_window_steps(window: Fields, stencil: Stencil, k: int,
     order, which relaxes the global red cells first, as the kernels do.
     """
     h = stencil.halo
+    ndim = stencil.ndim
+    lead = window[0].dim() - ndim  # a batched window's member axis
     mask = None
     if not periodic:
-        mask = frame_mask(window[0].shape, global_shape, origin, h,
+        mask = frame_mask(window[0].shape[lead:], global_shape, origin, h,
                           device=window[0].device)
     updates = stencil.phases or (stencil.update,)
     if stencil.parity_sensitive and sum(int(o) for o in origin) % 2:
@@ -313,9 +323,9 @@ def _plain_window_steps(window: Fields, stencil: Stencil, k: int,
         for update in updates:
             padded = []
             for f, fh in zip(fields, stencil.field_halos):
-                for d in range(f.dim()):
+                for d in range(ndim):
                     if fh:
-                        f = _pad_window_axis(f, d, fh,
+                        f = _pad_window_axis(f, d + lead, fh,
                                              periodic and d in wrap_axes)
                 padded.append(f)
             new = update(tuple(padded))
@@ -338,11 +348,11 @@ def plain_step_padded(padded: Fields, stencil: Stencil, k: int,
     """The plain version of K3's sharded mode: k plain steps of the padded
     window, cropped to its core (arguments as :func:`fused_step_padded`)."""
     m = k_step_margin(stencil, k)
-    Zp, Yp, _ = (int(s) for s in padded[0].shape)
+    Zp, Yp, _ = (int(s) for s in padded[0].shape[-3:])
     oz, oy = (int(o) for o in origins)
     out = _plain_window_steps(padded, stencil, k, (oz - m, oy - m, 0),
                               global_shape, periodic, wrap_axes=(2,))
-    return tuple(f[m:Zp - m, m:Yp - m].contiguous() for f in out)
+    return tuple(f[..., m:Zp - m, m:Yp - m, :].contiguous() for f in out)
 
 
 def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
@@ -355,10 +365,11 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
     z and y (the width-m halo exchange); ``origins`` the global (z, y) index
     of the shard's first core cell in a ``global_shape`` grid.  Returns the
     (Z, Y, X) core of every field, k steps on.  ``label`` names the launch
-    counter (``fused_shell`` for the overlap shells).
+    counter (``fused_shell`` for the overlap shells).  Batched ``(N, Zp,
+    Yp, X)`` blocks give ``(N, Z, Y, X)`` cores, in one launch.
     """
     m = k_step_margin(stencil, k)
-    Zp, Yp, X = (int(s) for s in padded[0].shape)
+    n, (Zp, Yp, X) = _build.batch_of(padded[0])
     Z, Y = Zp - 2 * m, Yp - 2 * m
     oz, oy = (int(o) for o in origins)
     if not padded[0].is_cuda:
@@ -369,8 +380,9 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
         raise ValueError(f"{label}: {stencil.name} k={k} on "
                          f"{(Zp, Yp, X)} not supported")
     _build.check_operands(label, *padded, shape=(Zp, Yp, X),
-                          dtype=_build.FLOAT_DTYPES)
-    outs = tuple(torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
+                          dtype=_build.FLOAT_DTYPES, members=n)
+    outs = tuple(torch.empty((n,) * bool(n) + (Z, Y, X), dtype=p.dtype,
+                             device=p.device)
                  for p in padded)
     two = len(padded) == 2
     lib = _lib()
@@ -378,9 +390,9 @@ def fused_step_padded(padded: Fields, stencil: Stencil, k: int,
     rc = _build.entry(lib, "fused_step_padded", padded[0])(
         kind, *_pointers(padded, two), *_pointers(outs, two), Z, Y, X,
         GZ, GY, GX, oz, oy, k, int(periodic),
-        *_tail(stencil, k, (Z, Y, X), padded))
+        *_tail(stencil, k, (Z, Y, X), padded, n))
     _build.check(lib, rc, label)
-    launches[_build.launch_key(label, stencil.name, padded[0])] += 1
+    launches[_build.launch_key(label, stencil.name, padded[0], n)] += 1
     return outs
 
 
@@ -391,12 +403,12 @@ def plain_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     window, the core between its two slabs, cropped to the core
     (arguments as :func:`fused_zslab`)."""
     m = k_step_margin(stencil, k)
-    Lz, Y, X = (int(s) for s in core[0].shape)
-    window = tuple(torch.cat([lo, c, hi], dim=0)
+    Lz, Y, X = (int(s) for s in core[0].shape[-3:])
+    window = tuple(torch.cat([lo, c, hi], dim=-3)
                    for c, lo, hi in zip(core, zlo, zhi))
     out = _plain_window_steps(window, stencil, k, (origin_z - m, 0, 0),
                               (global_z, Y, X), periodic, wrap_axes=(1, 2))
-    return tuple(f[m:m + Lz].contiguous() for f in out)
+    return tuple(f[..., m:m + Lz, :, :].contiguous() for f in out)
 
 
 def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
@@ -405,9 +417,10 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     """K6: ``k`` steps of one z-only shard from its (Lz, Y, X) core and the
     exchanged (m, Y, X) z slabs below (``zlo``) and above (``zhi``) it, per
     field; ``origin_z`` is the core's first global z plane of ``global_z``.
-    Returns the (Lz, Y, X) core of every field, k steps on."""
+    Returns the (Lz, Y, X) core of every field, k steps on; batched
+    ``(N, ...)`` operands, every member's in one launch."""
     m = k_step_margin(stencil, k)
-    Lz, Y, X = (int(s) for s in core[0].shape)
+    n, (Lz, Y, X) = _build.batch_of(core[0])
     if not core[0].is_cuda:
         return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z,
                            periodic)
@@ -416,11 +429,11 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
         raise ValueError(f"fused_zslab: {stencil.name} k={k} window exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
     _build.check_operands("fused_zslab", *core, shape=(Lz, Y, X),
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     _build.check_operands("fused_zslab", core[0], *zlo, *zhi, shape=None,
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     for s in (*zlo, *zhi):
-        if tuple(s.shape) != (m, Y, X):
+        if tuple(s.shape) != (n,) * bool(n) + (m, Y, X):
             raise ValueError(f"fused_zslab: slabs must be {(m, Y, X)}, got "
                              f"{tuple(s.shape)}")
     outs = tuple(torch.empty_like(c) for c in core)
@@ -430,9 +443,10 @@ def fused_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
         int(global_z), int(origin_z), k, int(periodic),
-        *_tail(stencil, k, (Lz, Y, X), (*core, *zlo, *zhi)))
+        *_tail(stencil, k, (Lz, Y, X), (*core, *zlo, *zhi), n))
     _build.check(lib, rc, "fused_zslab")
-    launches[_build.launch_key("fused_zslab", stencil.name, core[0])] += 1
+    launches[_build.launch_key("fused_zslab", stencil.name, core[0],
+                               n)] += 1
     return outs
 
 
@@ -446,9 +460,10 @@ def plain_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     window = []
     for j, (c, zl, zh, yl, yh) in enumerate(zip(core, zlo, zhi, ylo, yhi)):
         c_ll, c_lh, c_hl, c_hh = (cs[j] for cs in corners)
-        window.append(torch.cat([torch.cat([c_ll, zl, c_lh], dim=1),
-                                 torch.cat([yl, c, yh], dim=1),
-                                 torch.cat([c_hl, zh, c_hh], dim=1)], dim=0))
+        window.append(torch.cat([torch.cat([c_ll, zl, c_lh], dim=-2),
+                                 torch.cat([yl, c, yh], dim=-2),
+                                 torch.cat([c_hl, zh, c_hh], dim=-2)],
+                                dim=-3))
     return plain_step_padded(tuple(window), stencil, k, global_shape,
                              origins, periodic)
 
@@ -465,10 +480,11 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     (m, m, X) pieces in (z side, y side) order ll, lh, hl, hh
     (``halo.exchange_slabs_2axis``).  ``origins`` is the global (z, y)
     index of the core's first cell in a ``global_shape`` grid.  Returns
-    the (Lz, Ly, X) core of every field, k steps on.
+    the (Lz, Ly, X) core of every field, k steps on; batched ``(N, ...)``
+    operands, every member's in one launch.
     """
     m = k_step_margin(stencil, k)
-    Lz, Ly, X = (int(s) for s in core[0].shape)
+    n, (Lz, Ly, X) = _build.batch_of(core[0])
     if not core[0].is_cuda:
         return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
                             global_shape, origins, periodic)
@@ -477,14 +493,14 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         raise ValueError(f"fused_yzslab: {stencil.name} k={k} window exceeds "
                          f"{SMEM_LIMIT} bytes of shared memory")
     _build.check_operands("fused_yzslab", *core, shape=(Lz, Ly, X),
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     for pieces, shape in ((zlo, (m, Ly, X)), (zhi, (m, Ly, X)),
                           (ylo, (Lz, m, X)), (yhi, (Lz, m, X)),
                           *((c, (m, m, X)) for c in corners)):
         _build.check_operands("fused_yzslab", *pieces, shape=shape,
-                              dtype=_build.FLOAT_DTYPES)
+                              dtype=_build.FLOAT_DTYPES, members=n)
         _build.check_operands("fused_yzslab", core[0], pieces[0],
-                              dtype=_build.FLOAT_DTYPES)
+                              dtype=_build.FLOAT_DTYPES, members=n)
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
@@ -497,9 +513,10 @@ def fused_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
         int(periodic), *_tail(stencil, k, (Lz, Ly, X),
                               (*core, *zlo, *zhi, *ylo, *yhi,
-                               *(f for c in corners for f in c))))
+                               *(f for c in corners for f in c)), n))
     _build.check(lib, rc, "fused_yzslab")
-    launches[_build.launch_key("fused_yzslab", stencil.name, core[0])] += 1
+    launches[_build.launch_key("fused_yzslab", stencil.name, core[0],
+                               n)] += 1
     return outs
 
 

@@ -31,6 +31,13 @@ rows, run and, for K5, how u_prev arrives), the fastest of
 
 Beside each kernel sits its plain PyTorch version, the stencil's own
 ``update``; a wrapper takes it only for a tensor on the CPU.
+
+Each wrapper also takes a batched block ``(N, *padded)`` (an ensemble
+run's member axis, ``u_prev`` ``(N, Z, Y, X)``) and updates every member in
+one launch: the members are items of the kernel's persistent grid beside
+the tiles (``csrc/march.cuh``, a member stride for the input and the
+output), so a batched step launches as often as an unbatched one.  The
+plain version takes the member axis as it is.
 """
 
 from __future__ import annotations
@@ -100,9 +107,9 @@ def _lib():
         for sfx in _build.SUFFIXES.values():
             getattr(lib, f"zchunk_heat_{sfx}").argtypes = (
                 [_c_int, _c_ptr, _c_ptr] + [_c_int] * 3 + [_c_float] * 5
-                + [_c_int] * 7 + [_c_ptr])
+                + [_c_int] * 8 + [_c_ptr])
             getattr(lib, f"zchunk_wave_{sfx}").argtypes = (
-                [_c_ptr] * 3 + [_c_int] * 3 + [_c_float] + [_c_int] * 7
+                [_c_ptr] * 3 + [_c_int] * 3 + [_c_float] + [_c_int] * 8
                 + [_c_ptr])
     return lib
 
@@ -112,78 +119,91 @@ def _lib2d():
     if lib.whole2d_step.argtypes is None:
         for fn in (lib.whole2d_step, lib.whole2d_step_bf16):
             fn.argtypes = ([_c_int, _c_ptr, _c_ptr, _c_int, _c_int, _c_float]
-                           + [_c_int] * 5 + [_c_ptr])
+                           + [_c_int] * 6 + [_c_ptr])
     return lib
 
 
-def _interior_shape(p: torch.Tensor, halo: int, what: str):
-    shape = tuple(int(s) - 2 * halo for s in p.shape)
-    if len(shape) != 3 or min(shape) < 1:
-        raise ValueError(f"{what}: expected a 3D block padded by {halo}, "
-                         f"got {tuple(p.shape)}")
-    return shape
+def _interior_shape(p: torch.Tensor, halo: int, what: str, ndim: int = 3):
+    """``(members, interior)`` of a padded block, or of a batched one
+    ``(N, *padded)`` (members 0 when unbatched)."""
+    n, padded = _build.batch_of(p, ndim)
+    shape = tuple(s - 2 * halo for s in padded)
+    if p.dim() not in (ndim, ndim + 1) or min(shape) < 1 or \
+            (p.dim() == ndim + 1 and n < 1):
+        raise ValueError(f"{what}: expected a {ndim}D block padded by "
+                         f"{halo} (or a batch of them), got "
+                         f"{tuple(p.shape)}")
+    return n, shape
 
 
 def zchunk_heat(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
-    """Updated interior (Z, Y, X) of the padded heat block ``p``."""
+    """Updated interior (Z, Y, X) of the padded heat block ``p`` (of
+    every member of a batched ``(N, Z+2h, Y+2h, X+2h)`` one, in one
+    launch)."""
     if not p.is_cuda:
         return stencil.update((p,))[0]
     kind = _HEAT_KIND[stencil.name]
-    _build.check_operands("zchunk_heat", p, dtype=_build.FLOAT_DTYPES)
-    Z, Y, X = _interior_shape(p, stencil.halo, "zchunk_heat")
-    out = torch.empty((Z, Y, X), dtype=p.dtype, device=p.device)
+    n, (Z, Y, X) = _interior_shape(p, stencil.halo, "zchunk_heat")
+    _build.check_operands("zchunk_heat", p, dtype=_build.FLOAT_DTYPES,
+                          members=n)
+    out = torch.empty((n,) * bool(n) + (Z, Y, X), dtype=p.dtype,
+                      device=p.device)
     lib = _lib()
     rc = _build.entry(lib, "zchunk_heat", p)(
         kind, p.data_ptr(), out.data_ptr(), Z, Y, X, *coefficients(stencil),
-        *_tile_args(stencil, tile_of(stencil), (Z, Y, X), p.device),
-        _build.stream_of(p))
+        *_tile_args(stencil, tile_of(stencil), (Z, Y, X), p.device,
+                    max(1, n)),
+        max(1, n), _build.stream_of(p))
     _build.check(lib, rc, "zchunk_heat")
-    launches[_build.launch_key("zchunk_heat", stencil.name, p)] += 1
+    launches[_build.launch_key("zchunk_heat", stencil.name, p, n)] += 1
     return out
 
 
 def zchunk_wave(p: torch.Tensor, uprev: torch.Tensor,
                 stencil: Stencil) -> torch.Tensor:
-    """New ``u`` (Z, Y, X) from the padded ``u`` and unpadded ``u_prev``."""
+    """New ``u`` (Z, Y, X) from the padded ``u`` and unpadded ``u_prev``
+    (of every member of batched ones, in one launch)."""
     if not p.is_cuda:
         return stencil.update((p, uprev))[0]
-    shape = _interior_shape(p, 1, "zchunk_wave")
-    _build.check_operands("zchunk_wave", p, dtype=_build.FLOAT_DTYPES)
-    _build.check_operands("zchunk_wave", uprev, shape=shape, dtype=p.dtype)
+    n, shape = _interior_shape(p, 1, "zchunk_wave")
+    _build.check_operands("zchunk_wave", p, dtype=_build.FLOAT_DTYPES,
+                          members=n)
+    _build.check_operands("zchunk_wave", uprev, shape=shape, dtype=p.dtype,
+                          members=n)
     if uprev.device != p.device:
         raise ValueError("zchunk_wave: u and u_prev on different devices")
-    out = torch.empty(shape, dtype=p.dtype, device=p.device)
+    out = torch.empty((n,) * bool(n) + shape, dtype=p.dtype,
+                      device=p.device)
     lib = _lib()
     rc = _build.entry(lib, "zchunk_wave", p)(
         p.data_ptr(), uprev.data_ptr(), out.data_ptr(), *shape,
         coefficients(stencil)[0],
-        *_tile_args(stencil, tile_of(stencil), shape, p.device),
-        _build.stream_of(p))
+        *_tile_args(stencil, tile_of(stencil), shape, p.device, max(1, n)),
+        max(1, n), _build.stream_of(p))
     _build.check(lib, rc, "zchunk_wave")
-    launches[_build.launch_key("zchunk_wave", stencil.name, p)] += 1
+    launches[_build.launch_key("zchunk_wave", stencil.name, p, n)] += 1
     return out
 
 
 def whole2d(p: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     """Updated interior (H, W) of the padded 2D block ``p`` (H+2, W+2):
-    heat2d/mdf (float32 or bfloat16) or life (int32)."""
+    heat2d/mdf (float32 or bfloat16) or life (int32); of every member of
+    a batched ``(N, H+2, W+2)`` block in one launch."""
     if not p.is_cuda:
         return stencil.update((p,))[0]
     kind, dtypes = _WHOLE2D_KIND[stencil.name]
-    _build.check_operands("whole2d", p, dtype=dtypes, ndim=2)
-    H, W = (int(s) - 2 for s in p.shape)
-    if min(H, W) < 1:
-        raise ValueError(f"whole2d: expected a 2D block padded by 1, got "
-                         f"{tuple(p.shape)}")
-    out = torch.empty((H, W), dtype=p.dtype, device=p.device)
+    n, (H, W) = _interior_shape(p, 1, "whole2d", ndim=2)
+    _build.check_operands("whole2d", p, dtype=dtypes, ndim=2, members=n)
+    out = torch.empty((n,) * bool(n) + (H, W), dtype=p.dtype,
+                      device=p.device)
     alpha = float(stencil.params.get("alpha", 0.0))
     lib = _lib2d()
     rc = _build.twin_entry(lib, "whole2d_step", p)(
         kind, p.data_ptr(), out.data_ptr(), H, W, alpha,
-        *_tile_args(stencil, tile_of(stencil), (H, W), p.device),
-        _build.stream_of(p))
+        *_tile_args(stencil, tile_of(stencil), (H, W), p.device, max(1, n)),
+        max(1, n), _build.stream_of(p))
     _build.check(lib, rc, "whole2d")
-    launches[_build.launch_key("whole2d", stencil.name, p)] += 1
+    launches[_build.launch_key("whole2d", stencil.name, p, n)] += 1
     return out
 
 

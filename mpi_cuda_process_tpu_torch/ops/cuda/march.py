@@ -222,16 +222,18 @@ def row_copy_plan(addr: int, ncells: int, itemsize: int, lo: int,
     return (addr - w0) // itemsize, words
 
 
-def tile_args(stencil: Stencil, tile: Tile, shape, device):
+def tile_args(stencil: Stencil, tile: Tile, shape, device, members=1):
     """The tiled exports' tile arguments for an output of ``shape``:
     build, (3D: z queue,) cells (, rows), run (fitted to the card: each
-    run re-reads 2h planes), row bytes and ring slots."""
+    run re-reads 2h planes; a batched launch's ``members`` put that many
+    times the tiles side by side), row bytes and ring slots."""
     geo = march_geometry(stencil, tile)
     if stencil.ndim == 2:
         head, rows, tiles = (), (), -(-shape[1] // tile.tx)
     else:
         head, rows = (int(tile.zqueue),), (tile.ty,)
         tiles = -(-shape[2] // tile.tx) * -(-shape[1] // tile.ty)
+    tiles *= max(1, int(members))
     run = _build.fit_runs(shape[0], tile.zrun, tiles, 2 * stencil.halo,
                           tile.blocks * _build.sm_count(device), FILL_WAVES)
     return (BUILDS.index((tile.threads, tile.blocks, tile.rowwarps)),

@@ -33,8 +33,14 @@ TPU's strip rules are dropped: the sublane-rounded margin ``wm_a`` and the
 y-operand padding (``_align``), ``_pick_strip``, ``_BZ_LADDER``,
 ``_XSHELL``, ``_strip_live_bytes`` and ``Lz // bz >= 3``; the kernel masks
 ragged columns and runs any k whose rings fit shared memory.  The policy
-knobs ``tiles``, ``margin`` and ``order`` raise (ROADMAP A8), as does
-``batch`` (A7).  Bound on an H100: device-memory bytes, as for K3.
+knobs ``tiles``, ``margin`` and ``order`` raise (ROADMAP A8).  Bound on an
+H100: device-memory bytes, as for K3.
+
+Every wrapper takes batched operands (an ensemble run's leading member
+axis, ``make_stream_fused_step(batch=N)`` and the sharded steppers'
+``ensemble=N``): the launch grid's z takes one column march per member
+(the TPU kernel's leading batch grid dimension), each priming its own
+rings as a new chunk does, so N members run in one launch.
 
 Each wrapper takes float32 or bfloat16 fields (``_build.FLOAT_DTYPES``:
 an ``_f32`` and a ``_bf16`` entry point of one source).  A bfloat16 launch
@@ -123,7 +129,6 @@ _STREAM = ("heat3d", "heat3d27", "heat3d4th", "wave3d", "advect3d",
            "grayscott3d", "sor3d")
 
 _POLICY_ITEM = "ROADMAP A8 (policy)"
-_ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
 
 _c_float, _c_int, _c_ptr = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
 
@@ -229,18 +234,19 @@ def launch_paths(operands) -> int:
     return PATHS
 
 
-def _tail(stencil: Stencil, k: int, operands):
+def _tail(stencil: Stencil, k: int, operands, members: int = 0):
     """The exports' trailing arguments: coefficients, the tile, the ring
-    slots and the fast paths, then the stream."""
+    slots and the fast paths, the members of a batched launch (1
+    unbatched), then the stream."""
     return (*coefficients(stencil), *tile_of(stencil, k),
             *ring_slots(stencil, k), launch_paths(operands),
-            _build.stream_of(operands[0]))
+            max(1, members), _build.stream_of(operands[0]))
 
 
 def _lib():
     lib = _build.load("streamfused")
     if lib.stream_step_f32.argtypes is None:
-        tail = [_c_float] * 5 + [_c_int] * 7 + [_c_ptr]
+        tail = [_c_float] * 5 + [_c_int] * 8 + [_c_ptr]
         for sfx in _build.SUFFIXES.values():
             getattr(lib, f"stream_step_{sfx}").argtypes = (
                 [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + tail)
@@ -261,22 +267,22 @@ def _gate(what: str, stencil: Stencil, k: int) -> int:
 
 def stream_step(fields: Fields, stencil: Stencil, k: int) -> Fields:
     """``k`` guard-frame steps of ``stencil`` on the whole grid in one
-    launch."""
+    launch (every member of batched ``(N, Z, Y, X)`` fields in it)."""
     if not fields[0].is_cuda:
         return plain_steps(fields, stencil, k)
     kind = _gate("stream_step", stencil, k)
-    _build.check_operands("stream_step", *fields,
-                          shape=tuple(fields[0].shape),
-                          dtype=_build.FLOAT_DTYPES)
+    n, (Z, Y, X) = _build.batch_of(fields[0])
+    _build.check_operands("stream_step", *fields, shape=(Z, Y, X),
+                          dtype=_build.FLOAT_DTYPES, members=n)
     outs = tuple(torch.empty_like(f) for f in fields)
     two = len(fields) == 2
     lib = _lib()
-    Z, Y, X = fields[0].shape
     rc = _build.entry(lib, "stream_step", fields[0])(
         kind, *_pointers(fields, two), *_pointers(outs, two), Z, Y, X, k,
-        *_tail(stencil, k, fields))
+        *_tail(stencil, k, fields, n))
     _build.check(lib, rc, "stream_step")
-    launches[_build.launch_key("stream_step", stencil.name, fields[0])] += 1
+    launches[_build.launch_key("stream_step", stencil.name, fields[0],
+                               n)] += 1
     return outs
 
 
@@ -285,18 +291,19 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
     """``k`` guard-frame steps of one z-only shard from its (Lz, Y, X)
     core and the exchanged (m, Y, X) z slabs below (``zlo``) and above
     (``zhi``) it, per field; ``origin_z`` is the core's first global z
-    plane of ``global_z``.  Returns the core fields, k steps on."""
+    plane of ``global_z``.  Returns the core fields, k steps on (batched
+    ``(N, ...)`` operands: every member's, in one launch)."""
     m = k_step_margin(stencil, k)
-    Lz, Y, X = (int(s) for s in core[0].shape)
+    n, (Lz, Y, X) = _build.batch_of(core[0])
     if not core[0].is_cuda:
         return plain_zslab(core, zlo, zhi, stencil, k, global_z, origin_z)
     kind = _gate("stream_zslab", stencil, k)
     _build.check_operands("stream_zslab", *core, shape=(Lz, Y, X),
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     _build.check_operands("stream_zslab", core[0], *zlo, *zhi,
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     _build.check_operands("stream_zslab", *zlo, *zhi, shape=(m, Y, X),
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
@@ -304,9 +311,10 @@ def stream_zslab(core: Fields, zlo: Fields, zhi: Fields, stencil: Stencil,
         kind, *_pointers(core, two), *_pointers(zlo, two),
         *_pointers(zhi, two), *_pointers(outs, two), Lz, Y, X,
         int(global_z), int(origin_z), k,
-        *_tail(stencil, k, (*core, *zlo, *zhi)))
+        *_tail(stencil, k, (*core, *zlo, *zhi), n))
     _build.check(lib, rc, "stream_zslab")
-    launches[_build.launch_key("stream_zslab", stencil.name, core[0])] += 1
+    launches[_build.launch_key("stream_zslab", stencil.name, core[0],
+                               n)] += 1
     return outs
 
 
@@ -317,22 +325,23 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
     """``k`` guard-frame steps of one shard of a mesh that shards y, from
     the operands of ``fused.fused_yzslab`` (the core, two z slabs, two y
     slabs and the corners ll, lh, hl, hh, per field).  Returns the
-    (Lz, Ly, X) core of every field, k steps on."""
+    (Lz, Ly, X) core of every field, k steps on (batched ``(N, ...)``
+    operands: every member's, in one launch)."""
     m = k_step_margin(stencil, k)
-    Lz, Ly, X = (int(s) for s in core[0].shape)
+    n, (Lz, Ly, X) = _build.batch_of(core[0])
     if not core[0].is_cuda:
         return plain_yzslab(core, zlo, zhi, ylo, yhi, corners, stencil, k,
                             global_shape, origins)
     kind = _gate("stream_yzslab", stencil, k)
     _build.check_operands("stream_yzslab", *core, shape=(Lz, Ly, X),
-                          dtype=_build.FLOAT_DTYPES)
+                          dtype=_build.FLOAT_DTYPES, members=n)
     for pieces, shape in ((zlo, (m, Ly, X)), (zhi, (m, Ly, X)),
                           (ylo, (Lz, m, X)), (yhi, (Lz, m, X)),
                           *((c, (m, m, X)) for c in corners)):
         _build.check_operands("stream_yzslab", core[0], *pieces, shape=None,
-                              dtype=_build.FLOAT_DTYPES)
+                              dtype=_build.FLOAT_DTYPES, members=n)
         _build.check_operands("stream_yzslab", *pieces, shape=shape,
-                              dtype=_build.FLOAT_DTYPES)
+                              dtype=_build.FLOAT_DTYPES, members=n)
     outs = tuple(torch.empty_like(c) for c in core)
     two = len(core) == 2
     lib = _lib()
@@ -344,21 +353,18 @@ def stream_yzslab(core: Fields, zlo: Fields, zhi: Fields, ylo: Fields,
         *(p for c in corners for p in _pointers(c, two)),
         *_pointers(outs, two), Lz, Ly, X, GZ, GY, GX, oz, oy, k,
         *_tail(stencil, k, (*core, *zlo, *zhi, *ylo, *yhi,
-                            *(p for c in corners for p in c))))
+                            *(p for c in corners for p in c)), n))
     _build.check(lib, rc, "stream_yzslab")
-    launches[_build.launch_key("stream_yzslab", stencil.name, core[0])] += 1
+    launches[_build.launch_key("stream_yzslab", stencil.name, core[0],
+                               n)] += 1
     return outs
 
 
-def _refuse_policy(tiles, margin, order, batch=0) -> None:
+def _refuse_policy(tiles, margin, order) -> None:
     if tiles is not None or margin or order:
         raise NotImplementedError(
             "streaming-kernel tiles/margin/order are not ported: "
             f"{_POLICY_ITEM}")
-    if batch:
-        raise NotImplementedError(
-            f"a batched (ensemble) streaming step is not ported: "
-            f"{_ENSEMBLE_ITEM}")
 
 
 def _prepare(device) -> None:
@@ -385,16 +391,32 @@ def make_stream_fused_step(
     k >= 19, wave3d k >= 16, grayscott3d k >= 13, heat3d4th k >= 11,
     sor3d k >= 10).  Semantically
     ``k`` applications of ``driver.make_step``; any k >= 1 and any grid
-    extent."""
-    _refuse_policy(tiles, margin, order, batch)
+    extent.
+
+    ``batch=N`` (an ensemble run): the step takes and returns fields with
+    a leading member axis of N, all advanced in one launch (a column
+    march a member in the launch grid, its rings primed again at each
+    member); other shapes raise with the TPU package's message."""
+    _refuse_policy(tiles, margin, order)
     if len(global_shape) != 3 or not fits(stencil, k):
         return None
     _prepare(device)
+    Z, Y, X = (int(s) for s in global_shape)
 
     def step_k(fields: Fields) -> Fields:
         return stream_step(fields, stencil, k)
 
-    return step_k
+    if not batch:
+        return step_k
+
+    def step_k_batched(fields: Fields) -> Fields:
+        if tuple(fields[0].shape) != (batch, Z, Y, X):
+            raise ValueError(
+                f"batched streaming step wants fields "
+                f"({batch}, {Z}, {Y}, {X}), got {tuple(fields[0].shape)}")
+        return stream_step(fields, stencil, k)
+
+    return step_k_batched
 
 
 def build_stream_sharded_call(

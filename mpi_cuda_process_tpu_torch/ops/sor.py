@@ -50,9 +50,11 @@ def _make_half_sweep(ndim, omega, color):
         u, lap = axis_laplacian(p, ndim)
         # (1-w)u + w/(2n) * sum(neighbors)  ==  u + w/(2n) * lap
         relaxed = u + alpha * lap
-        key = (tuple(u.shape), u.device)
+        # the colour of the spatial coordinates (the trailing ndim axes;
+        # a batched block's members share it)
+        key = (tuple(u.shape[-ndim:]), u.device)
         if key not in masks:
-            masks[key] = _parity_mask(u.shape, u.device) == bool(color)
+            masks[key] = _parity_mask(key[0], u.device) == bool(color)
         return (torch.where(masks[key], relaxed, u),)
 
     return update

@@ -180,14 +180,16 @@ def shifted(padded: torch.Tensor, offsets: Tuple[int, ...],
     """Interior-shaped view of ``padded`` shifted by ``offsets``.
 
     ``offsets[d]`` in ``[-halo, halo]``; static slices that cannot go out
-    of bounds.
+    of bounds.  The slices take the trailing ``len(offsets)`` axes, so a
+    batched block (a leading member axis, an ensemble run) is shifted
+    member by member in one view.
     """
     idx = []
     for o in offsets:
         start = halo + o
         stop = o - halo
         idx.append(slice(start, stop if stop != 0 else None))
-    return padded[tuple(idx)]
+    return padded[(Ellipsis, *idx)]
 
 
 def interior(padded: torch.Tensor, halo: int, ndim: int) -> torch.Tensor:

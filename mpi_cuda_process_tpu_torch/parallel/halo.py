@@ -86,16 +86,25 @@ def _axis_count(mesh: Mesh, axis: int) -> int:
     return mesh.shape[axis] if axis < len(mesh.shape) else 1
 
 
-def _shifted(c: Tuple[int, ...], axis: int, shift: int, n: int):
-    if axis >= len(c):
-        return c
+def _shifted(mesh: Mesh, c: Tuple[int, ...], axis: int, shift: int):
+    """Shard ``c``'s neighbour ``shift`` along grid ``axis``, in its own
+    ensemble group (the group's coordinate leads, ``Mesh.group_axes``)."""
+    if axis >= len(mesh.shape):
+        return tuple(c)
+    a = axis + mesh.group_axes
     c = list(c)
-    c[axis] = (c[axis] + shift) % n
+    c[a] = (c[a] + shift) % mesh.shape[axis]
     return tuple(c)
 
 
-def _at(c: Tuple[int, ...], axis: int) -> int:
-    return c[axis] if axis < len(c) else 0
+def _at(mesh: Mesh, c: Tuple[int, ...], axis: int) -> int:
+    return c[axis + mesh.group_axes] if axis < len(mesh.shape) else 0
+
+
+def _flat3(t: torch.Tensor) -> torch.Tensor:
+    """A batched slab ``(N, h, Y, X)`` as the 3D ``(N h, Y, X)`` view the
+    ring kernel takes (a 3D slab unchanged)."""
+    return t if t.dim() <= 3 else t.reshape(-1, *t.shape[-2:])
 
 
 class _Done:
@@ -117,9 +126,15 @@ class InProcessTransport:
 
     backend = "in-process"
 
+    def __init__(self):
+        # posted shifts (one per axis and exchange round, whatever the
+        # slabs' member count)
+        self.stats = {"shifts": 0}
+
     def post(self, hi_slabs: Sequence[torch.Tensor],
              lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
              periodic: bool):
+        self.stats["shifts"] += 1
         return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
                                      periodic))
 
@@ -141,14 +156,14 @@ class InProcessTransport:
         from_right: List[Optional[torch.Tensor]] = []
         for c in mesh.local_coords():
             dev = mesh.device(c)
-            i = _at(c, axis)
+            i = _at(mesh, c, axis)
             if periodic or i > 0:
-                src = hi_slabs[mesh.local_index(_shifted(c, axis, -1, n))]
+                src = hi_slabs[mesh.local_index(_shifted(mesh, c, axis, -1))]
                 from_left.append(src.to(dev, non_blocking=True))
             else:
                 from_left.append(None)
             if periodic or i < n - 1:
-                src = lo_slabs[mesh.local_index(_shifted(c, axis, 1, n))]
+                src = lo_slabs[mesh.local_index(_shifted(mesh, c, axis, 1))]
                 from_right.append(src.to(dev, non_blocking=True))
             else:
                 from_right.append(None)
@@ -213,11 +228,11 @@ class DistributedTransport:
         self._posts += 1
         tag = base
         for c in mesh.coords():
-            i = _at(c, axis)
+            i = _at(mesh, c, axis)
             for slabs, shift, exists in ((hi_slabs, 1, periodic or i < n - 1),
                                          (lo_slabs, -1, periodic or i > 0)):
                 if exists:
-                    dst = _shifted(c, axis, shift, n)
+                    dst = _shifted(mesh, c, axis, shift)
                     side = from_left if shift == 1 else from_right
                     if mesh.is_local(c) and mesh.is_local(dst):
                         j = mesh.local_index(dst)
@@ -382,7 +397,6 @@ class RdmaTransport:
 
         key = (axis, tuple(shape), dtype)
         if key not in self._peers:
-            n = _axis_count(mesh, axis)
             per = mesh.per_process
 
             def where(c):
@@ -390,10 +404,10 @@ class RdmaTransport:
                 return g // per, g % per
 
             coords = mesh.local_coords()
-            to = [(where(_shifted(c, axis, 1, n)),
-                   where(_shifted(c, axis, -1, n))) for c in coords]
-            frm = [(where(_shifted(c, axis, -1, n)),
-                    where(_shifted(c, axis, 1, n))) for c in coords]
+            to = [(where(_shifted(mesh, c, axis, 1)),
+                   where(_shifted(mesh, c, axis, -1))) for c in coords]
+            frm = [(where(_shifted(mesh, c, axis, -1)),
+                    where(_shifted(mesh, c, axis, 1))) for c in coords]
             dev = mesh.devices[0]
             _, meta = build_ring_exchange_call(
                 shape, dtype, nslots=self.nslots, prefer_nc=self.prefer_nc,
@@ -411,9 +425,16 @@ class RdmaTransport:
 
     def post(self, hi_slabs, lo_slabs, mesh: Mesh, axis: int,
              periodic: bool):
+        """Post one shift; a batched slab ``(N, h, Y, X)`` travels as its
+        contiguous ``(N h, Y, X)`` view (one site, one launch, whatever
+        N) and comes back in its own shape."""
         if not mesh.multiprocess:
+            self.stats["shifts"] += 1
             return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
                                          periodic))
+        shape = tuple(hi_slabs[0].shape)
+        hi_slabs = [_flat3(t) for t in hi_slabs]
+        lo_slabs = [_flat3(t) for t in lo_slabs]
         site = self._peer(mesh, axis, hi_slabs[0].shape, hi_slabs[0].dtype)
         t0 = time.perf_counter()
         epoch = site.post(hi_slabs, lo_slabs)
@@ -421,7 +442,7 @@ class RdmaTransport:
         self.stats["bytes"] += site.meta["slab_bytes"] * sum(
             1 for pair in site.to for r, _ in pair if r != site.rank)
         self.stats["seconds"] += time.perf_counter() - t0
-        return _PeerPosted(self, site, epoch)
+        return _PeerPosted(self, site, epoch, shape)
 
     def peer_sites(self) -> list:
         return list(self._peers.values())
@@ -446,10 +467,12 @@ class RdmaTransport:
         ``hi`` and the next shard's ``lo`` slab for each shard, wrapping at
         the ring's ends whatever ``periodic`` says (the caller substitutes
         the guard constant at non-periodic walls)."""
-        n = _axis_count(mesh, axis)
         coords = list(mesh.coords())
-        nxt = [mesh.index(_shifted(c, axis, 1, n)) for c in coords]
-        prv = [mesh.index(_shifted(c, axis, -1, n)) for c in coords]
+        nxt = [mesh.index(_shifted(mesh, c, axis, 1)) for c in coords]
+        prv = [mesh.index(_shifted(mesh, c, axis, -1)) for c in coords]
+        shape = tuple(hi_slabs[0].shape)
+        hi_slabs = [_flat3(t) for t in hi_slabs]
+        lo_slabs = [_flat3(t) for t in lo_slabs]
         groups: Dict[torch.device, List[int]] = {}
         for i, c in enumerate(coords):
             groups.setdefault(mesh.device(c), []).append(i)
@@ -472,7 +495,8 @@ class RdmaTransport:
                               [pos[nxt[i]] for i in idx],
                               [pos[prv[i]] for i in idx])
             for j, i in enumerate(idx):
-                from_left[i], from_right[i] = fl[j], fr[j]
+                from_left[i] = fl[j].reshape(shape)
+                from_right[i] = fr[j].reshape(shape)
         return from_left, from_right
 
 
@@ -480,14 +504,18 @@ class RdmaTransport:
 class _PeerPosted:
     """A shift posted on a peer site: ``wait()`` drains it."""
 
-    def __init__(self, transport: RdmaTransport, site, epoch: int):
+    def __init__(self, transport: RdmaTransport, site, epoch: int, shape):
         self._t, self._site, self._epoch = transport, site, epoch
+        self._shape = shape
 
     def wait(self):
         t0 = time.perf_counter()
-        pair = self._site.drain(self._epoch)
+        lefts, rights = self._site.drain(self._epoch)
         self._t.stats["seconds"] += time.perf_counter() - t0
-        return pair
+        return ([None if t is None else t.reshape(self._shape)
+                 for t in lefts],
+                [None if t is None else t.reshape(self._shape)
+                 for t in rights])
 
 
 # Every RdmaTransport of a mesh that spans processes, in build order (a
@@ -528,10 +556,11 @@ def _pick(mesh: Mesh, axis: int, transport):
 
 
 def _slabs_axis_rounds(blocks, mesh, axis, halo, bc_value, periodic,
-                       transport):
-    L = blocks[0].shape[axis]
-    lo = [_take(x, axis, 0, halo) for x in blocks]
-    hi = [_take(x, axis, L - halo, halo) for x in blocks]
+                       transport, lead=0):
+    t = axis + lead
+    L = blocks[0].shape[t]
+    lo = [_take(x, t, 0, halo) for x in blocks]
+    hi = [_take(x, t, L - halo, halo) for x in blocks]
     return (yield from _border_rounds(lo, hi, mesh, axis, bc_value, periodic,
                                       transport))
 
@@ -540,8 +569,9 @@ def _border_rounds(lo, hi, mesh, axis, bc_value, periodic, transport):
     n = _axis_count(mesh, axis)
     if n > 1 or periodic:
         # packed: a slab across axis 0 is a view already, one across axis 1
-        # is copied out of its strided rows (an axis of one shard at a wall
-        # reads no row: both its slabs are the guard constant)
+        # (or any slab of a batched block) is copied out of its strided
+        # rows (an axis of one shard at a wall reads no row: both its
+        # slabs are the guard constant)
         lo = [x.contiguous() for x in lo]
         hi = [x.contiguous() for x in hi]
     pending = _pick(mesh, axis, transport).post(hi, lo, mesh, axis,
@@ -551,9 +581,9 @@ def _border_rounds(lo, hi, mesh, axis, bc_value, periodic, transport):
     if transport is not None and n > 1 and not periodic:
         # a full-ring transport wraps at the walls: cut the ring there
         for i, c in enumerate(mesh.local_coords()):
-            if c[axis] == 0:
+            if _at(mesh, c, axis) == 0:
                 lefts[i] = None
-            if c[axis] == n - 1:
+            if _at(mesh, c, axis) == n - 1:
                 rights[i] = None
     for i, x in enumerate(lo):
         if lefts[i] is None or rights[i] is None:
@@ -572,11 +602,12 @@ def post_slabs_axis(
     bc_value,
     periodic: bool = False,
     transport=None,
+    lead: int = 0,
 ) -> Exchange:
     """:func:`exchange_slabs_axis` posted: its ``wait()`` gives the
     slabs."""
     return Exchange(_slabs_axis_rounds(blocks, mesh, axis, halo, bc_value,
-                                       periodic, transport))
+                                       periodic, transport, lead))
 
 
 def exchange_slabs_axis(
@@ -587,6 +618,7 @@ def exchange_slabs_axis(
     bc_value,
     periodic: bool = False,
     transport=None,
+    lead: int = 0,
 ):
     """The two halo slabs of every local shard along ``axis``,
     unconcatenated: ``(lefts, rights)``, one entry per shard of
@@ -603,9 +635,14 @@ def exchange_slabs_axis(
     ring, and the wall shards' received slabs are then replaced by the
     guard constant, as the in-process shift gives them.  An axis of one
     shard runs no ring.
+
+    ``lead`` is the number of tensor axes before the grid's (1 for the
+    member axis of a batched run, whose ``(N, ...)`` blocks give ``(N,
+    halo, ...)`` slabs: every member's in one shift).  Every exchange
+    function here takes it.
     """
     return post_slabs_axis(blocks, mesh, axis, halo, bc_value, periodic,
-                           transport).wait()
+                           transport, lead).wait()
 
 
 def post_slabs_from_borders(
@@ -617,6 +654,7 @@ def post_slabs_from_borders(
     bc_value,
     periodic: bool = False,
     transport=None,
+    lead: int = 0,
 ) -> Exchange:
     """:func:`post_slabs_axis` with the sender-side border slabs given
     directly instead of sliced from the blocks.
@@ -631,27 +669,33 @@ def post_slabs_from_borders(
     no row of a non-periodic field (both slabs are the guard constant).
     """
     for x in (*lo_rows, *hi_rows):
-        if x.shape[axis] != halo:
+        if x.shape[axis + lead] != halo:
             raise ValueError(f"border rows {tuple(x.shape)} are not {halo} "
                              f"deep along axis {axis}")
     return Exchange(_border_rounds(lo_rows, hi_rows, mesh, axis, bc_value,
                                    periodic, transport))
 
 
-def _slabs_2axis_rounds(blocks, mesh, halo, bc_value, periodic, transport):
-    z = post_slabs_axis(blocks, mesh, 0, halo, bc_value, periodic, transport)
-    y = post_slabs_axis(blocks, mesh, 1, halo, bc_value, periodic, transport)
+def _slabs_2axis_rounds(blocks, mesh, halo, bc_value, periodic, transport,
+                        lead=0):
+    z = post_slabs_axis(blocks, mesh, 0, halo, bc_value, periodic, transport,
+                        lead)
+    y = post_slabs_axis(blocks, mesh, 1, halo, bc_value, periodic, transport,
+                        lead)
     return (yield from _corner_rounds(z, y, mesh, halo, bc_value, periodic,
-                                      transport))
+                                      transport, lead))
 
 
-def _corner_rounds(z, y, mesh, halo, bc_value, periodic, transport):
+def _corner_rounds(z, y, mesh, halo, bc_value, periodic, transport,
+                   lead=0):
     """The rest of a 2-axis exchange once its z and y shifts are posted."""
     yield
     (zlo, zhi), (ylo, yhi) = z.wait(), y.wait()
     # second pass: the y shift of the received z slabs carries the corners
-    cl = post_slabs_axis(zlo, mesh, 1, halo, bc_value, periodic, transport)
-    ch = post_slabs_axis(zhi, mesh, 1, halo, bc_value, periodic, transport)
+    cl = post_slabs_axis(zlo, mesh, 1, halo, bc_value, periodic, transport,
+                         lead)
+    ch = post_slabs_axis(zhi, mesh, 1, halo, bc_value, periodic, transport,
+                         lead)
     (c_ll, c_lh), (c_hl, c_hh) = cl.wait(), ch.wait()
     return [((zlo[i], zhi[i]), (ylo[i], yhi[i]),
              (c_ll[i], c_lh[i], c_hl[i], c_hh[i]))
@@ -665,11 +709,12 @@ def post_slabs_2axis(
     bc_value,
     periodic: bool = False,
     transport=None,
+    lead: int = 0,
 ) -> Exchange:
     """:func:`exchange_slabs_2axis` posted: the z and y shifts are in
     flight; ``wait()`` runs the corners' shifts and gives the slab sets."""
     return Exchange(_slabs_2axis_rounds(blocks, mesh, halo, bc_value,
-                                        periodic, transport))
+                                        periodic, transport, lead))
 
 
 def exchange_slabs_2axis(
@@ -679,6 +724,7 @@ def exchange_slabs_2axis(
     bc_value,
     periodic: bool = False,
     transport=None,
+    lead: int = 0,
 ):
     """The slab set of every local shard of a 3D field for both wall axes:
     per shard ``((zlo, zhi), (ylo, yhi), (c_ll, c_lh, c_hl, c_hh))``.
@@ -694,7 +740,7 @@ def exchange_slabs_2axis(
     every ring shift (:func:`exchange_slabs_axis`).
     """
     return post_slabs_2axis(blocks, mesh, halo, bc_value, periodic,
-                            transport).wait()
+                            transport, lead).wait()
 
 
 def post_slabs_2axis_from_borders(
@@ -707,6 +753,7 @@ def post_slabs_2axis_from_borders(
     bc_value,
     periodic: bool = False,
     transport=None,
+    lead: int = 0,
 ) -> Exchange:
     """:func:`post_slabs_2axis` from border rows given per local shard:
     ``z_lo``/``z_hi`` its first/last ``halo`` rows along z (the whole y
@@ -718,11 +765,11 @@ def post_slabs_2axis_from_borders(
     borders are the corner blocks a diagonal hop would send), and gives
     what :func:`exchange_slabs_2axis` returns."""
     z = post_slabs_from_borders(z_lo, z_hi, mesh, 0, halo, bc_value,
-                                periodic, transport)
+                                periodic, transport, lead)
     y = post_slabs_from_borders(y_lo, y_hi, mesh, 1, halo, bc_value,
-                                periodic, transport)
+                                periodic, transport, lead)
     return Exchange(_corner_rounds(z, y, mesh, halo, bc_value, periodic,
-                                   transport))
+                                   transport, lead))
 
 
 def local_mesh(block: torch.Tensor) -> Mesh:
@@ -732,8 +779,8 @@ def local_mesh(block: torch.Tensor) -> Mesh:
 
 
 def pad_from_slabs(core: torch.Tensor, slabs, halo: int, axis: int = 0,
-                   start: int = 0, stop: Optional[int] = None
-                   ) -> torch.Tensor:
+                   start: int = 0, stop: Optional[int] = None,
+                   lead: int = 0) -> torch.Tensor:
     """Cells ``[start, stop)`` along ``axis`` (0 or 1) of ``core``'s z/y
     padded block — what ``exchange_and_pad(..., axes=(0, 1))`` gives —
     rebuilt from the core and its slab set from
@@ -746,13 +793,14 @@ def pad_from_slabs(core: torch.Tensor, slabs, halo: int, axis: int = 0,
     """
     (zlo, zhi), (ylo, yhi), (c_ll, c_lh, c_hl, c_hh) = slabs
     pieces = ((c_ll, zlo, c_lh), (ylo, core, yhi), (c_hl, zhi, c_hh))
-    Lz, Ly, X = core.shape
+    Lz, Ly, X = core.shape[lead:]
     edges = ((0, halo, halo + Lz, Lz + 2 * halo),
              (0, halo, halo + Ly, Ly + 2 * halo))
     stop = edges[axis][3] if stop is None else stop
     shape = [Lz + 2 * halo, Ly + 2 * halo, X]
     shape[axis] = stop - start
-    out = torch.empty(shape, dtype=core.dtype, device=core.device)
+    out = torch.empty(tuple(core.shape[:lead]) + tuple(shape),
+                      dtype=core.dtype, device=core.device)
     for a in range(3):
         for b in range(3):
             lo = [edges[0][a], edges[1][b]]
@@ -760,17 +808,20 @@ def pad_from_slabs(core: torch.Tensor, slabs, halo: int, axis: int = 0,
             s, e = max(lo[axis], start), min(hi[axis], stop)
             if s >= e:
                 continue
-            src = pieces[a][b].narrow(axis, s - lo[axis], e - s)
+            src = pieces[a][b].narrow(axis + lead, s - lo[axis], e - s)
             lo[axis], hi[axis] = s - start, e - start
-            out[lo[0]:hi[0], lo[1]:hi[1]].copy_(src)
+            out[(slice(None),) * lead + (slice(lo[0], hi[0]),
+                                         slice(lo[1], hi[1]))].copy_(src)
     return out
 
 
-def _pad_rounds(blocks, mesh, halo, bc_value, periodic, axes):
+def _pad_rounds(blocks, mesh, halo, bc_value, periodic, axes, lead=0):
     if halo == 0:
         return list(blocks)
     ndim = blocks[0].dim()
-    axes = tuple(range(ndim)) if axes is None else tuple(sorted(axes))
+    # tensor axes: the grid's, after ``lead`` member axes (never padded)
+    axes = tuple(range(lead, ndim)) if axes is None else \
+        tuple(sorted(a + lead for a in axes))
     L = tuple(blocks[0].shape)
     core = tuple(slice(halo, halo + L[e]) if e in axes else slice(None)
                  for e in range(ndim))
@@ -787,7 +838,8 @@ def _pad_rounds(blocks, mesh, halo, bc_value, periodic, axes):
         views = [p[tuple(idx)] for p in padded]
         hi = [_take(v, d, L[d] - halo, halo) for v in views]
         lo = [_take(v, d, 0, halo) for v in views]
-        pending = _pick(mesh, d, None).post(hi, lo, mesh, d, periodic)
+        pending = _pick(mesh, d - lead, None).post(hi, lo, mesh, d - lead,
+                                                   periodic)
         yield
         lefts, rights = pending.wait()
         for p, left, right in zip(padded, lefts, rights):
@@ -809,11 +861,12 @@ def post_and_pad(
     bc_value,
     periodic: bool = False,
     axes: Optional[Sequence[int]] = None,
+    lead: int = 0,
 ) -> Exchange:
     """:func:`exchange_and_pad` posted: the first axis's shift is in
     flight; ``wait()`` runs the rest and gives the padded blocks."""
     return Exchange(_pad_rounds(blocks, mesh, halo, bc_value, periodic,
-                                axes))
+                                axes, lead))
 
 
 def exchange_and_pad(
@@ -823,8 +876,10 @@ def exchange_and_pad(
     bc_value,
     periodic: bool = False,
     axes: Optional[Sequence[int]] = None,
+    lead: int = 0,
 ) -> List[torch.Tensor]:
-    """Halo-pad every local block along ``axes`` (default: all), two-pass.
+    """Halo-pad every local block along grid ``axes`` (default: all; the
+    ``lead`` member axes before them never), two-pass.
 
     Each padded block is one allocation: the core is copied in, then for
     each axis in order the two halo slabs, read from the neighbours' padded
@@ -835,14 +890,16 @@ def exchange_and_pad(
     ``halo == 0`` (a field whose neighbours are never read, wave's
     ``u_prev``) returns the blocks unchanged and exchanges nothing.
     """
-    return post_and_pad(blocks, mesh, halo, bc_value, periodic, axes).wait()
+    return post_and_pad(blocks, mesh, halo, bc_value, periodic, axes,
+                        lead).wait()
 
 
 def pad_local(block: torch.Tensor, halo: int, bc_value,
               periodic: bool = False,
-              axes: Optional[Sequence[int]] = None) -> torch.Tensor:
+              axes: Optional[Sequence[int]] = None,
+              lead: int = 0) -> torch.Tensor:
     """One block padded along ``axes`` (default: all) as if it were the
     whole grid (local wrap or guard-cell fill, no exchange): what a
     one-shard mesh would give."""
     return exchange_and_pad([block], local_mesh(block), halo, bc_value,
-                            periodic, axes=axes)[0]
+                            periodic, axes=axes, lead=lead)[0]

@@ -40,14 +40,15 @@ import torch
 
 # Spatial mesh axis names, aligned with grid axes 0..ndim-1.
 SPATIAL_AXES: Tuple[str, ...] = ("sx", "sy", "sz")
+# The member axis of an ensemble mesh (``--ensemble-mesh M``): a leading
+# mesh axis of M groups, each an independent spatial mesh.
+ENSEMBLE_AXIS = "ens"
 
 VIRTUAL_DEVICES_ENV = "MPI_CUDA_PROCESS_TORCH_VIRTUAL_DEVICES"
 # seconds a process waits for its peers (start-up, every receive) before
 # it raises instead of hanging
 DIST_TIMEOUT_ENV = "MPI_CUDA_PROCESS_TORCH_DIST_TIMEOUT"
 DEFAULT_DIST_TIMEOUT_S = 300.0
-
-ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
 
 # The transports of a multi-process mesh, chosen once at bootstrap:
 # "nccl" (each process has its own card: device tensors, no host copy),
@@ -71,13 +72,23 @@ class Mesh:
     ``process`` of ``processes`` holds the shards of :meth:`local_coords`,
     on ``devices`` (one per local shard, in that order); ``backend`` names
     the transport between processes (None for one process).
+
+    ``ensemble`` M > 1 puts an :data:`ENSEMBLE_AXIS` of M groups in front
+    of the spatial axes: a shard's coordinate is then ``(e, *spatial)``
+    (:meth:`group`, :meth:`spatial`), group e holds the e-th slice of the
+    members, and every neighbour of a shard lies in its own group, so no
+    exchange crosses groups.  ``shape`` stays the spatial shape.
     """
 
     def __init__(self, shape: Sequence[int], devices: Sequence[torch.device],
                  process: int = 0, processes: int = 1,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, ensemble: int = 1):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = spatial_axis_names(len(self.shape))
+        self.ensemble = max(1, int(ensemble))
+        # mesh coordinates before the spatial ones: the group's
+        self.group_axes = 1 if self.ensemble > 1 else 0
+        self.full_shape = (self.ensemble,) * self.group_axes + self.shape
         self.process, self.processes = int(process), int(processes)
         if self.size % self.processes:
             raise ValueError(
@@ -99,7 +110,16 @@ class Mesh:
 
     @property
     def size(self) -> int:
-        return int(np.prod(self.shape, dtype=np.int64))
+        return int(np.prod(self.full_shape, dtype=np.int64))
+
+    def group(self, c: Sequence[int]) -> int:
+        """The ensemble group of shard ``c`` (0 without an ensemble axis)."""
+        return int(c[0]) if self.group_axes else 0
+
+    def spatial(self, c: Sequence[int]) -> Tuple[int, ...]:
+        """Shard ``c``'s spatial coordinate (its block's place in the
+        grid)."""
+        return tuple(c[self.group_axes:])
 
     @property
     def multiprocess(self) -> bool:
@@ -114,7 +134,7 @@ class Mesh:
 
     def coords(self) -> Iterator[Tuple[int, ...]]:
         """Every shard's mesh coordinate, in row-major order."""
-        return itertools.product(*(range(s) for s in self.shape))
+        return itertools.product(*(range(s) for s in self.full_shape))
 
     def local_coords(self) -> List[Tuple[int, ...]]:
         """The coordinates of the shards this process holds, in row-major
@@ -124,9 +144,9 @@ class Mesh:
 
     def index(self, c: Sequence[int]) -> int:
         """Position of shard ``c`` in the global row-major order."""
-        if not self.shape:
+        if not self.full_shape:
             return 0
-        return int(np.ravel_multi_index(tuple(c), self.shape))
+        return int(np.ravel_multi_index(tuple(c), self.full_shape))
 
     def rank_of(self, c: Sequence[int]) -> int:
         """The process that holds shard ``c``."""
@@ -301,30 +321,37 @@ def make_mesh(
     process: this process's shards all live on ``devices[0]`` (default: its
     own device), and a shard count the processes do not divide raises
     before anything is allocated.
+
+    ``ensemble`` M > 1 adds the leading :data:`ENSEMBLE_AXIS` of M member
+    groups, as the TPU package's ``make_mesh(..., ensemble=M)``: the mesh
+    needs ``M * prod(mesh_shape)`` shards, which divide over the processes
+    as the spatial ones do (``--ensemble-mesh 2`` with no ``--mesh`` is a
+    pure data-parallel run: two groups of one shard, no exchange).
     """
     mesh_shape = tuple(int(s) for s in mesh_shape)
-    if int(ensemble) > 1:
-        raise NotImplementedError(
-            f"an ensemble mesh axis is not ported: {ENSEMBLE_ITEM}")
-    n = int(np.prod(mesh_shape, dtype=np.int64))
+    ens = max(1, int(ensemble))
+    n = ens * int(np.prod(mesh_shape, dtype=np.int64))
+    what = f"mesh {mesh_shape}" + (f" x ensemble {ens}" if ens > 1 else "")
     procs = process_count()
     if procs > 1:
         if n % procs:
             raise ValueError(
-                f"mesh {mesh_shape} has {n} shards, which do not divide "
+                f"{what} has {n} shards, which do not divide "
                 f"over {procs} processes: give every process the same "
                 "number of shards")
         dev = _indexed(torch.device(devices[0] if devices
                                     else process_device("cuda")))
         return Mesh(mesh_shape, [dev] * (n // procs), process_index(),
-                    procs, backend_of(dev))
+                    procs, backend_of(dev), ensemble=ens)
     if devices is None:
         devices = local_devices("cuda")
     devices = list(devices)
     if n > len(devices):
         raise ValueError(
-            f"mesh {mesh_shape} needs {n} devices, have {len(devices)}")
-    return Mesh(mesh_shape, devices[:n])
+            f"{what} needs {n} devices, have {len(devices)}"
+            + (" (the ensemble axis multiplies the spatial shards)"
+               if ens > 1 else ""))
+    return Mesh(mesh_shape, devices[:n], ensemble=ens)
 
 
 def factor_mesh(n_devices: int, ndim: int) -> Tuple[int, ...]:

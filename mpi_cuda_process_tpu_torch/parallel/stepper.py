@@ -47,25 +47,41 @@ from .halo import (RdmaTransport, default_transport, exchange_and_pad,
                    local_mesh, pad_from_slabs, pad_local, post_and_pad,
                    post_slabs_2axis, post_slabs_2axis_from_borders,
                    post_slabs_axis)
-from .mesh import ENSEMBLE_ITEM, Mesh
+from .mesh import Mesh
 
 
 class ShardedField(list):
     """One field decomposed over ``mesh``: the blocks of the shards this
     process holds, in ``mesh.local_coords()`` order, each on its mesh
-    device, with the global shape."""
+    device, with the global shape.
 
-    def __init__(self, blocks, mesh: Mesh, global_shape: Sequence[int]):
+    A batched field (``lead`` = 1, an ensemble run) has a leading member
+    axis in its global shape ``(N, *grid)`` and in every block ``(N_local,
+    *local)``: the members of the shard's ensemble group (all N without an
+    ensemble mesh axis)."""
+
+    def __init__(self, blocks, mesh: Mesh, global_shape: Sequence[int],
+                 lead: int = 0):
         super().__init__(blocks)
         self.mesh = mesh
         self.global_shape = tuple(int(g) for g in global_shape)
+        self.lead = int(lead)
 
     @property
     def dtype(self) -> torch.dtype:
         return self[0].dtype
 
     def with_blocks(self, blocks) -> "ShardedField":
-        return ShardedField(blocks, self.mesh, self.global_shape)
+        return ShardedField(blocks, self.mesh, self.global_shape, self.lead)
+
+    def offsets(self, c, local=None) -> Tuple[int, ...]:
+        """Global index of shard ``c``'s block's first cell along every
+        axis of the field (the member axis first when batched), for blocks
+        of shape ``local`` (default: this field's)."""
+        local = tuple(self[0].shape if local is None else local)
+        members = (self.mesh.group(c) * int(local[0]),) if self.lead else ()
+        return members + shard_offsets(self.mesh.spatial(c),
+                                       local[self.lead:])
 
 
 def is_sharded(fields) -> bool:
@@ -97,24 +113,53 @@ def shard_offsets(c, local_shape) -> Tuple[int, ...]:
     return tuple(ci * ls for ci, ls in zip(c, local_shape))
 
 
-def shard_fields(fields: Fields, mesh: Mesh, ndim: int) -> Fields:
+def ensemble_members_local(mesh: Mesh, ensemble: int) -> int:
+    """Members each shard holds: ``ensemble`` over the ensemble mesh
+    axis's groups (the TPU package's check and messages): the member count
+    must divide over the groups, and an ensemble mesh axis needs a batched
+    run.  0 for an unbatched run."""
+    groups = mesh.ensemble
+    if not ensemble:
+        if groups > 1:
+            raise ValueError(
+                f"mesh carries a {groups}-way ensemble axis but the "
+                "run is unbatched (ensemble=0) — drop the axis or pass "
+                "ensemble=N")
+        return 0
+    if int(ensemble) % groups:
+        raise ValueError(
+            f"ensemble={ensemble} not divisible by the ensemble mesh "
+            f"axis ({groups} shards)")
+    return int(ensemble) // groups
+
+
+def shard_fields(fields: Fields, mesh: Mesh, ndim: int,
+                 ensemble: bool = False) -> Fields:
     """Cut each global field into the blocks this process holds, each
-    copied to its device."""
+    copied to its device.  ``ensemble=True``: the fields carry a leading
+    member axis, cut over the mesh's ensemble groups
+    (:func:`ensemble_members_local`)."""
+    lead = 1 if ensemble else 0
     out = []
     for f in fields:
         counts = mesh.counts(ndim)
         for d, c in enumerate(counts):
-            if f.shape[d] % c:
-                raise ValueError(f"grid axis {d} ({f.shape[d]}) not "
+            if f.shape[d + lead] % c:
+                raise ValueError(f"grid axis {d} ({f.shape[d + lead]}) not "
                                  f"divisible by mesh axis ({c})")
-        local = _local_shape(f.shape, counts)
-        blocks = []
+        n_local = ensemble_members_local(mesh, f.shape[0] if lead else 0)
+        local = (n_local,) * lead + _local_shape(f.shape[lead:], counts)
+        field = ShardedField([], mesh, f.shape, lead)
         for c in mesh.local_coords():
             b = torch.empty(local, dtype=f.dtype, device=mesh.device(c))
-            b.copy_(f[block_slices(c, local)])
-            blocks.append(b)
-        out.append(ShardedField(blocks, mesh, f.shape))
+            b.copy_(f[_slices(field.offsets(c, local), local)])
+            field.append(b)
+        out.append(field)
     return tuple(out)
+
+
+def _slices(offsets, shape):
+    return tuple(slice(o, o + n) for o, n in zip(offsets, shape))
 
 
 GLOBAL_GRID_REASON = (
@@ -132,9 +177,8 @@ def gather_fields(fields: Fields, device=None) -> Fields:
             raise ValueError(f"gather_fields: {GLOBAL_GRID_REASON}")
         dev = f[0].device if device is None else torch.device(device)
         g = torch.empty(f.global_shape, dtype=f.dtype, device=dev)
-        local = tuple(f[0].shape)
         for c, b in zip(f.mesh.coords(), f):
-            g[block_slices(c, local)].copy_(b)
+            g[_slices(f.offsets(c), b.shape)].copy_(b)
         out.append(g)
     return tuple(out)
 
@@ -282,12 +326,18 @@ def make_sharded_step(
 
     The step is tagged ``_transport_backend``: ``in-process`` or the
     multi-process mesh's backend (``nccl``, ``gloo``, ``gloo-host``).
+
+    ``ensemble=N``: the step takes and returns batched fields (a leading
+    member axis, ``shard_fields(..., ensemble=True)``), cut over the
+    mesh's ensemble groups when it has them; every exchange carries all
+    the shard's members in one shift (``(N_local, halo, ...)`` slabs) and
+    every update (the plain one or the compute_fn kernel) takes the member
+    axis in one call.
     """
     ndim = stencil.ndim
     halo = stencil.halo
-    if ensemble:
-        raise NotImplementedError(
-            f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    ensemble_members_local(mesh, ensemble)
+    lead = 1 if ensemble else 0
     axis_names, counts = _resolve_mesh_axes(ndim, mesh)
     global_shape = tuple(int(g) for g in global_shape)
     for d, c in enumerate(counts):
@@ -327,28 +377,29 @@ def make_sharded_step(
     side = _SideStreams(mesh)
 
     def exchange(fields: Fields) -> List[List[torch.Tensor]]:
-        return [exchange_and_pad(f, mesh, fh, bc, periodic)
+        return [exchange_and_pad(f, mesh, fh, bc, periodic, lead=lead)
                 for f, bc, fh in zip(fields, stencil.bc_value,
                                      stencil.field_halos)]
 
     def post(fields: Fields):
-        return [post_and_pad(f, mesh, fh, bc, periodic)
+        return [post_and_pad(f, mesh, fh, bc, periodic, lead=lead)
                 for f, bc, fh in zip(fields, stencil.bc_value,
                                      stencil.field_halos)]
 
     def ring_update(update, padded_c, fields_c, d, lo):
         """Update of the width-halo boundary ring at face (d, lo/hi) of
         one shard, from its exchanged padded blocks."""
+        t = d + lead
         slabs = []
         for pf, f, fh in zip(padded_c, fields_c, stencil.field_halos):
             if fh == 0:
-                n = f.shape[d]
+                n = f.shape[t]
                 sl = slice(0, halo) if lo else slice(n - halo, None)
-                slabs.append(_axis_slice(f, d, sl).contiguous())
+                slabs.append(_axis_slice(f, t, sl).contiguous())
             else:
-                n = pf.shape[d]
+                n = pf.shape[t]
                 sl = slice(0, 3 * fh) if lo else slice(n - 3 * fh, None)
-                slabs.append(_axis_slice(pf, d, sl).contiguous())
+                slabs.append(_axis_slice(pf, t, sl).contiguous())
         return update(tuple(slabs))
 
     def repin(i: int, c, new_c, fields_c):
@@ -362,9 +413,10 @@ def make_sharded_step(
                 out.append(nf)
             else:
                 if i not in masks:
+                    # one mask a shard, broadcast over its members
                     masks[i] = frame_mask(
                         local_shape, global_shape,
-                        shard_offsets(c, local_shape), halo,
+                        shard_offsets(mesh.spatial(c), local_shape), halo,
                         device=fields_c[0].device)
                 out.append(torch.where(masks[i], fields_c[j], nf))
         return out
@@ -378,7 +430,8 @@ def make_sharded_step(
             for i, c in enumerate(coords):
                 with _on_device(mesh.device(c)):
                     local = tuple(
-                        pad_local(b, fh, bc, periodic) if fh else b
+                        pad_local(b, fh, bc, periodic, lead=lead) if fh
+                        else b
                         for b, bc, fh in zip(shards[i], stencil.bc_value,
                                              stencil.field_halos))
                     new.append(list(update(local)))
@@ -396,10 +449,10 @@ def make_sharded_step(
                             for j, nb in enumerate(new[i]):
                                 if stencil.carry_map[j] is not None:
                                     continue
-                                n = nb.shape[d]
+                                n = nb.shape[d + lead]
                                 sl = slice(0, halo) if lo else \
                                     slice(n - halo, None)
-                                _axis_slice(nb, d, sl).copy_(ring[j])
+                                _axis_slice(nb, d + lead, sl).copy_(ring[j])
         else:
             padded = exchange(fields)
             new = []
@@ -521,7 +574,10 @@ def make_sharded_fused_step(
     pipeline_hooks``); called plainly it runs the prologue and one body
     pass, which posts no further exchange.
 
-    Not ported yet, and raising by name: the ensemble axis.
+    ``ensemble=N``: batched fields (a leading member axis, cut over the
+    mesh's ensemble groups), every kind's exchange one shift a site for
+    all the shard's members and every kernel one launch a shard over
+    them (the member in its launch grid).
     """
     from ..ops.cuda import fused, streamfused
 
@@ -554,9 +610,7 @@ def make_sharded_fused_step(
             "(an interior dependency), which breaks the one-pass-ahead "
             "exchange the slab-carry scan promises — drop --pipeline "
             "for periodic meshes")
-    if ensemble:
-        raise NotImplementedError(
-            f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    n_local = ensemble_members_local(mesh, ensemble)
     ndim = stencil.ndim
     if ndim != 3 or not fused.fused_supported(stencil):
         return None
@@ -579,7 +633,7 @@ def make_sharded_fused_step(
             "local block)")
     transport = RdmaTransport(mesh) if exchange == "rdma" else None
     args = (stencil, mesh, global_shape, local_shape, counts, k, periodic,
-            overlap, device)
+            overlap, device, n_local)
     if kind is None:
         step = _make_padded_step(*args)
     elif kind == "stream":
@@ -598,8 +652,9 @@ def make_sharded_fused_step(
     else:
         step = _make_zslab_padfree_step(
             *args, fused.build_zslab_padfree_call, "zslab", None, pipeline)
-    return None if step is None else _attach_exchange(step, exchange,
-                                                      transport)
+    if step is None:
+        return None
+    return _attach_exchange(step, exchange, transport)
 
 
 def _attach_exchange(step, exchange: str, transport):
@@ -630,7 +685,7 @@ def _parity_consistent(stencil, global_shape, local_shape, counts,
 
 
 def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
-                      periodic, overlap, device):
+                      periodic, overlap, device, n_local=0):
     """The padded kind: exchange-padded blocks into K3's sharded mode."""
     from ..ops.cuda.fused import build_fused_call
 
@@ -641,9 +696,10 @@ def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
     if built is None:
         return None
     call, m, _ = built
+    lead = 1 if n_local else 0
 
     def post(fields, on):
-        return [post_and_pad(f, on, m, bc, periodic, axes=(0, 1))
+        return [post_and_pad(f, on, m, bc, periodic, axes=(0, 1), lead=lead)
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -651,12 +707,13 @@ def _make_padded_step(stencil, mesh, global_shape, local_shape, counts, k,
 
     return _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              post, launch)
+                              post, launch, lead=lead)
 
 
 def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
-                             counts, k, periodic, overlap, device, build,
-                             kind_name, transport=None, pipeline=False):
+                             counts, k, periodic, overlap, device, n_local,
+                             build, kind_name, transport=None,
+                             pipeline=False):
     """The z-slab kinds (z-only meshes): core and z slabs into the kernel
     that ``build`` makes (K6 or K10), labelled ``kind_name``; ``transport``
     carries the slab exchanges (``halo.exchange_slabs_axis``)."""
@@ -665,13 +722,16 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
     if built is None:
         return None
     call, m, _ = built
+    lead = 1 if n_local else 0
     if transport is not None and counts[0] > 1:
-        transport.prepare(mesh, [(0, (m,) + tuple(local_shape[1:]))],
-                          stencil.dtype)
+        # a batched slab travels as its (N_local m, Y, X) view
+        transport.prepare(
+            mesh, [(0, (max(1, n_local) * m,) + tuple(local_shape[1:]))],
+            stencil.dtype)
 
     def post(fields, on):
         return [_Mapped(post_slabs_axis(f, on, 0, m, bc, periodic,
-                                        transport), _per_shard)
+                                        transport, lead), _per_shard)
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -682,14 +742,15 @@ def _make_zslab_padfree_step(stencil, mesh, global_shape, local_shape,
 
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              post, launch, transport, pipeline)
+                              post, launch, transport, pipeline, lead)
     step._padfree_kind = kind_name
     return step
 
 
 def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
-                              counts, k, periodic, overlap, device, build,
-                              kind_name, transport=None, pipeline=False):
+                              counts, k, periodic, overlap, device, n_local,
+                              build, kind_name, transport=None,
+                              pipeline=False):
     """The 2-axis slab-operand kinds (meshes that shard y): the core, z and
     y slabs and the four two-pass corner pieces into the kernel that
     ``build`` makes (K9 or K10), labelled ``kind_name``, so no padded copy
@@ -703,16 +764,19 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
     if built is None:
         return None
     call, m, _ = built
+    lead = 1 if n_local else 0
     if transport is not None:
         # the z slabs' site (a sharded z), the y slabs' and the corners'
-        # (the y shift of the z slabs), in the order the steps post them
+        # (the y shift of the z slabs), in the order the steps post them;
+        # a batched slab travels as its (N_local * rows, ...) view
         lz, ly, lx = local_shape
+        nb = max(1, n_local)
         transport.prepare(
-            mesh, ([(0, (m, ly, lx))] if counts[0] > 1 else [])
-            + [(1, (lz, m, lx)), (1, (m, m, lx))], stencil.dtype)
+            mesh, ([(0, (nb * m, ly, lx))] if counts[0] > 1 else [])
+            + [(1, (nb * lz, m, lx)), (1, (nb * m, m, lx))], stencil.dtype)
 
     def post(fields, on):
-        return [post_slabs_2axis(f, on, m, bc, periodic, transport)
+        return [post_slabs_2axis(f, on, m, bc, periodic, transport, lead)
                 for f, bc in zip(fields, stencil.bc_value)]
 
     def launch(origins, blocks, ops):
@@ -723,14 +787,14 @@ def _make_yzslab_padfree_step(stencil, mesh, global_shape, local_shape,
 
     step = _fused_step_driver(stencil, mesh, global_shape, local_shape,
                               counts, k, m, periodic, overlap, device,
-                              post, launch, transport, pipeline)
+                              post, launch, transport, pipeline, lead)
     step._padfree_kind = kind_name
     return step
 
 
 def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
                        m, periodic, overlap, device, post, launch,
-                       transport=None, pipeline=False):
+                       transport=None, pipeline=False, lead=0):
     """The sharded fused step around one kind's kernel.
 
     ``post(fields, on)`` posts the kind's exchange over mesh ``on``, one
@@ -779,11 +843,15 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     streams (a freed block reused by the current stream before the side
     stream's read would be overwritten); a pass that posts nothing splices
     each shell as soon as it is computed.
+
+    ``lead`` = 1: batched blocks, a member axis before the grid's; every
+    slab, strip and shell carries it.
     """
     from ..ops.cuda.fused import build_overlap_shell_calls
 
     coords = mesh.local_coords()
-    origins = [shard_offsets(c, local_shape)[:2] for c in coords]
+    origins = [shard_offsets(mesh.spatial(c), local_shape)[:2]
+               for c in coords]
     sharded_axes = [d for d in (0, 1) if counts[d] > 1]
     bcs = stencil.bc_value
 
@@ -823,7 +891,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     def prologue(fields):
         with side.begin():
             return SlabCarry([post_slabs_2axis(f, mesh, m, bc, periodic,
-                                               transport)
+                                               transport, lead)
                               for f, bc in zip(fields, bcs)], side)
 
     def interior(fields):
@@ -839,7 +907,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
 
     def splice(new, i, d, o, res):
         for nb, rb in zip(new[i], res):
-            _axis_slice(nb, d, slice(o, o + w)).copy_(rb)
+            _axis_slice(nb, d + lead, slice(o, o + w)).copy_(rb)
 
     def boundary(fields, slabs, new, held=None):
         """Run every shard's shells and splice each over ``new`` as soon
@@ -852,7 +920,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
                         # padded rows [o, o + 4m) = global rows from m
                         # before the shell core to 3m after its start
                         strips = [pad_from_slabs(f[i], s[i], m, d, o,
-                                                 o + 2 * w)
+                                                 o + 2 * w, lead)
                                   for f, s in zip(fields, slabs)]
                         org = list(origins[i])
                         org[d] += o
@@ -867,13 +935,14 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
         """Field j's first and last m output rows along axis d of every
         shard, read from the shell outputs; an unsharded axis reads no
         row (its slabs are the guard constant), so any m rows do."""
+        t = d + lead
         if d not in sharded_axes:
-            rows = [f.narrow(d, 0, m) for f in fields[j]]
+            rows = [f.narrow(t, 0, m) for f in fields[j]]
             return rows, rows
         hi = local_shape[d] - w
-        return ([held[(i, d, 0)][j].narrow(d, 0, m)
+        return ([held[(i, d, 0)][j].narrow(t, 0, m)
                  for i in range(len(coords))],
-                [held[(i, d, hi)][j].narrow(d, w - m, m)
+                [held[(i, d, hi)][j].narrow(t, w - m, m)
                  for i in range(len(coords))])
 
     def body(fields, carry, post_next=True):
@@ -887,7 +956,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
         with side.begin():
             pending = [post_slabs_2axis_from_borders(
                 *borders(fields, held, j, 0), *borders(fields, held, j, 1),
-                mesh, m, bc, periodic, transport)
+                mesh, m, bc, periodic, transport, lead)
                 for j, bc in enumerate(bcs)]
         for (i, d, o), res in held.items():
             with _on_device(mesh.device(coords[i])):
@@ -953,14 +1022,15 @@ def make_sharded_fullgrid_step(
     first and last 2m rows.  Bit-equal to ``overlap=False``.  With fewer
     local rows the step is the plain exchange-then-compute one, as in the
     TPU package (``step._overlap_active`` says which).
+
+    ``ensemble=N``: batched fields, as :func:`make_sharded_step`; one
+    exchange a shift and one K8 launch a shard for all its members.
     """
     from ..ops.cuda.fullgrid import build_fullgrid_masked_call
 
     if stencil.ndim != 2:
         return None
-    if ensemble:
-        raise NotImplementedError(
-            f"an ensemble batch axis is not ported: {ENSEMBLE_ITEM}")
+    lead = 1 if ensemble_members_local(mesh, ensemble) else 0
     _, counts = _resolve_mesh_axes(2, mesh)
     if counts[1] > 1:
         return None  # x stays whole: the kernel wraps or clamps it
@@ -989,14 +1059,15 @@ def make_sharded_fullgrid_step(
         if shell_built is not None:
             shell = shell_built[0]
     coords = mesh.local_coords()
-    row0 = [shard_offsets(c, local_shape)[0] for c in coords]
+    row0 = [shard_offsets(mesh.spatial(c), local_shape)[0] for c in coords]
     bcs = stencil.bc_value
 
     def run(fn, padded_c, y0):
         return fn(*padded_c) if periodic else fn(y0, *padded_c)
 
     def step(fields: Fields) -> Fields:
-        padded = [exchange_and_pad(f, mesh, m, bc, periodic, axes=(0,))
+        padded = [exchange_and_pad(f, mesh, m, bc, periodic, axes=(0,),
+                                   lead=lead)
                   for f, bc in zip(fields, bcs)]
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
@@ -1012,16 +1083,19 @@ def make_sharded_fullgrid_step(
 
     w = 2 * m
     side = _SideStreams(mesh)
+    rows = (slice(None),) * lead  # the member axis, whole
 
     def step_overlap(fields: Fields) -> Fields:
         with side.begin():
-            posted = [post_slabs_axis(f, mesh, 0, m, bc, periodic)
+            posted = [post_slabs_axis(f, mesh, 0, m, bc, periodic,
+                                      lead=lead)
                       for f, bc in zip(fields, bcs)]
         new = []
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
                 # local pad only: nothing here waits for the exchange
-                local = tuple(pad_local(f[i], m, bc, periodic, axes=(0,))
+                local = tuple(pad_local(f[i], m, bc, periodic, axes=(0,),
+                                        lead=lead)
                               for f, bc in zip(fields, bcs))
                 new.append(run(call, local, row0[i]))
         with side.resume():
@@ -1031,15 +1105,18 @@ def make_sharded_fullgrid_step(
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
-                lo_in = tuple(torch.cat([lo[i], f[i][:3 * m]])
+                lo_in = tuple(torch.cat([lo[i], f[i][rows + (
+                    slice(None, 3 * m),)]], dim=lead)
                               for f, (lo, _) in zip(fields, slabs))
-                hi_in = tuple(torch.cat([f[i][Ly - 3 * m:], hi[i]])
+                hi_in = tuple(torch.cat([f[i][rows + (
+                    slice(Ly - 3 * m, None),)], hi[i]], dim=lead)
                               for f, (_, hi) in zip(fields, slabs))
                 lo_out = run(shell, lo_in, row0[i])
                 hi_out = run(shell, hi_in, row0[i] + Ly - w)
                 for j in range(nf):
-                    new[i][j][:w].copy_(lo_out[j])
-                    new[i][j][Ly - w:].copy_(hi_out[j])
+                    new[i][j][rows + (slice(None, w),)].copy_(lo_out[j])
+                    new[i][j][rows + (slice(Ly - w, None),)].copy_(
+                        hi_out[j])
                     out[j].append(new[i][j])
         return tuple(f.with_blocks(o) for f, o in zip(fields, out))
 

@@ -70,8 +70,6 @@ from ..ops.stencil import Stencil, k_step_margin
 # temporaries and kernel scratch.
 _OVERHEAD_FRAC = 0.10
 
-_ENSEMBLE_ITEM = "ROADMAP A7 (ensembles)"
-
 Parts = List[Tuple[str, int]]
 
 
@@ -161,10 +159,20 @@ def estimate_run_bytes(
     one shard's; ``shards_per_device`` shards on one card (virtual devices,
     or the processes that share it) multiply them.  A shape the run would
     refuse is labelled ``UNBUILDABLE`` at 0 bytes, as in the TPU package.
+
+    ``ensemble=N`` prices the batched run, as the TPU package does: every
+    kind that builds unbatched builds batched, so each per-shard term
+    scales by the members a shard holds, N over ``ensemble_mesh`` M groups
+    (the frame mask, one per block and shared by its members, excepted);
+    ``shards_per_device`` then counts the ensemble groups' shards too.
     """
-    if ensemble or ensemble_mesh:
-        raise NotImplementedError(
-            f"an ensemble budget is not ported: {_ENSEMBLE_ITEM}")
+    groups = max(1, int(ensemble_mesh))
+    if ensemble and int(ensemble) % groups:
+        raise ValueError(
+            f"ensemble={ensemble} not divisible by "
+            f"ensemble_mesh={ensemble_mesh} (the run refuses before "
+            "allocating)")
+    batch = int(ensemble) // groups if ensemble else 1
     itemsize = stencil.dtype.itemsize
     nfields = stencil.num_fields
     local = _local_shape(grid, mesh)
@@ -272,6 +280,12 @@ def estimate_run_bytes(
             parts.append(("frame mask, 1 B a cell (port: a bool tensor a "
                           "block, kept for the run)", math.prod(local)))
 
+    if batch > 1:
+        parts = [(label, b if label.startswith("frame mask") else b * batch)
+                 for label, b in parts]
+        parts.append((f"{batch} members batched a shard ({ensemble} over "
+                      f"{groups} ensemble group(s)): the terms above scaled "
+                      "by them, the frame mask shared", 0))
     per_shard = sum(b for _, b in parts)
     if shards_per_device > 1:
         parts.append((f"{shards_per_device - 1} more shard(s) on this "
@@ -280,7 +294,7 @@ def estimate_run_bytes(
     if processes > 1:
         parts += _log_line_part(stencil, local, mesh, processes,
                                 shards_per_device,
-                                per_shard - parts[0][1])
+                                per_shard - parts[0][1], batch, groups)
     subtotal = sum(b for _, b in parts)
     overhead = int(subtotal * _OVERHEAD_FRAC)
     parts.append((f"workspace overhead ({int(_OVERHEAD_FRAC * 100)}%)",
@@ -289,18 +303,18 @@ def estimate_run_bytes(
 
 
 def _log_line_part(stencil, local, mesh, processes, shards_per_device,
-                   transients) -> Parts:
+                   transients, batch=1, groups=1) -> Parts:
     """[(label, bytes)] of what a multi-process run's log lines hold beside
     the state, beyond the step's own transients (``transients`` a shard,
     all but the state), for every process on the card: the processes log
     at the same step, each its own block's temporaries (the mean's float32
     copy of a bfloat16 block; the velocity's difference and square of two
     fields), where one process alone holds them one shard at a time."""
-    cells = math.prod(local)
+    cells = math.prod(local) * batch
     itemsize = stencil.dtype.itemsize
     mean_copy = 0 if stencil.dtype == torch.float32 else 4 * cells
     velocity = 2 * itemsize * cells if stencil.num_fields > 1 else 0
-    local_shards = max(1, math.prod(mesh) // processes)
+    local_shards = max(1, math.prod(mesh) * groups // processes)
     extra = max(mean_copy, velocity) - local_shards * transients
     if extra <= 0:
         return []

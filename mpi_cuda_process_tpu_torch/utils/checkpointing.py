@@ -52,7 +52,7 @@ import numpy as np
 import torch
 
 from ..interop import _is_bfloat16, fields_to_numpy
-from ..parallel.stepper import ShardedField, shard_offsets
+from ..parallel.stepper import ShardedField
 from ..resilience import faults
 
 _META = "meta.json"
@@ -256,8 +256,7 @@ def _blocks(field) -> List[Tuple[Tuple[int, ...], torch.Tensor]]:
     """(global offsets, block) of every block of ``field`` this process
     holds: a sharded field's local shards, or a whole tensor at 0."""
     if isinstance(field, ShardedField):
-        local = tuple(field[0].shape)
-        return [(shard_offsets(c, local), b)
+        return [(field.offsets(c), b)
                 for c, b in zip(field.mesh.local_coords(), field)]
     return [((0,) * field.dim(), field)]
 

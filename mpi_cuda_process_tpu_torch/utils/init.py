@@ -20,6 +20,11 @@ each product and sum once, as the TPU package's eager ``init_state`` does.
 own device from global coordinates (the random kind from global flat
 indices), so no device ever holds the global grid; gathered, its blocks
 equal :func:`init_state` bit for bit.
+
+An ensemble (``ensemble=N``) stacks N independent universes on a leading
+member axis, member i initialized from seed + i, and with ``perturb`` eps
+scaled by ``1 + eps u_i`` (:func:`perturb_member`: u_i the TPU package's
+``uniform(fold_in(PRNGKey(seed), i), (), float32, -1, 1)``, the same bits).
 """
 
 from __future__ import annotations
@@ -59,6 +64,55 @@ def _prng_key(seed: int):
     if not -2**31 <= seed < 2**31:
         raise ValueError(f"seed {seed} is outside the 32-bit range")
     return 0, seed & _M32
+
+
+def _hash_pair(k1: int, k2: int, x1: int, x2: int):
+    """threefry2x32 of one counter pair, as two Python ints."""
+    t = torch.tensor
+    y1, y2 = threefry2x32(k1, k2, t([x1], dtype=torch.int64),
+                          t([x2], dtype=torch.int64))
+    return int(y1[0]), int(y2[0])
+
+
+def member_uniform(seed: int, member: int) -> torch.Tensor:
+    """u_i of :func:`perturb_member`: the TPU package's
+    ``uniform(fold_in(PRNGKey(seed), member), (), float32, -1, 1)``, bit
+    for bit, as a 0-d float32 tensor.  ``fold_in`` hashes the pair (0,
+    member) under the key into the member's key; the draw hashes counter
+    (0, 0) under it, xors the two words and keeps 23 bits as a float in
+    [0, 1), then ``f * 2 - 1``, at least -1."""
+    k = _hash_pair(*_prng_key(seed), 0, int(member) & _M32)
+    b1, b2 = _hash_pair(*k, 0, 0)
+    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    f = torch.tensor([bits], dtype=torch.int32).view(torch.float32) - 1.0
+    two = torch.tensor(2.0, dtype=torch.float32)
+    one = torch.tensor(1.0, dtype=torch.float32)
+    return torch.maximum(-one, f[0] * two - one)
+
+
+def perturb_member(fields: Fields, stencil: Stencil, member: int,
+                   seed: int, perturb: float, periodic: bool = False,
+                   global_shape=None, offsets=None) -> Fields:
+    """Member ``member``'s init scaled for ensemble diversity, the TPU
+    package's ``perturb_member``: each floating field times ``1 + perturb
+    * u_i`` (:func:`member_uniform`, float32 arithmetic rounded once to
+    the field's dtype), the guard frame pinned again (on the global
+    coordinates of a block at ``offsets`` of ``global_shape``), integer
+    fields (Life) untouched; ``perturb == 0`` is the identity."""
+    if not perturb:
+        return fields
+    u = member_uniform(seed, member)
+    scale = (1.0 + torch.tensor(float(perturb), dtype=torch.float32) * u)
+    out = []
+    for f, bc in zip(fields, stencil.bc_value):
+        if not f.dtype.is_floating_point:
+            out.append(f)
+            continue
+        g = (f.to(torch.float32) * scale.to(f.device)).to(f.dtype)
+        if not periodic:
+            g = _pin_frame(g, bc, stencil.halo, global_shape, offsets)
+        out.append(g)
+    return tuple(out)
 
 
 def _uniform_chunks(grid_shape, seed: int, offsets, local_shape, device):
@@ -176,6 +230,8 @@ def init_state(
     kind: str = "auto",
     periodic: bool = False,
     device="cuda",
+    ensemble: int = 0,
+    perturb: float = 0.0,
 ) -> Fields:
     """Build the initial fields for ``stencil`` on ``grid_shape``.
 
@@ -187,10 +243,39 @@ def init_state(
       - ``"patch"``: Gray-Scott's seed, the TPU package's bits.
 
     ``seed`` feeds the random and patch kinds, ``density`` the random one.
+    ``ensemble`` N > 0 stacks N members on a leading axis, member i from
+    seed + i, each scaled by :func:`perturb_member` with ``perturb``.
     """
     grid_shape = tuple(int(g) for g in grid_shape)
-    return _init_block(stencil, grid_shape, kind, periodic, device,
-                       (0,) * len(grid_shape), grid_shape, seed, density)
+    zeros = (0,) * len(grid_shape)
+    if ensemble:
+        return _members_block(stencil, grid_shape, kind, periodic, device,
+                              zeros, grid_shape, seed, density,
+                              range(int(ensemble)), perturb)
+    return _init_block(stencil, grid_shape, kind, periodic, device, zeros,
+                       grid_shape, seed, density)
+
+
+def _members_block(stencil, grid_shape, kind, periodic, device, offsets,
+                   local_shape, seed, density, members, perturb) -> Fields:
+    """The block at ``offsets`` of every member in ``members``, stacked on
+    a leading axis: member i's block from seed + i, perturbed."""
+    if len(grid_shape) != stencil.ndim:
+        raise ValueError(
+            f"{stencil.name} is {stencil.ndim}D, got grid {grid_shape}")
+    out = None
+    for j, i in enumerate(members):
+        block = perturb_member(
+            _init_block(stencil, grid_shape, kind, periodic, device, offsets,
+                        local_shape, seed + i, density),
+            stencil, i, seed, perturb, periodic, grid_shape, offsets)
+        if out is None:
+            out = tuple(torch.empty((len(members),) + tuple(b.shape),
+                                    dtype=b.dtype, device=b.device)
+                        for b in block)
+        for o, b in zip(out, block):
+            o[j].copy_(b)
+    return out
 
 
 def _init_block(stencil, grid_shape, kind, periodic, device, offsets,
@@ -253,24 +338,42 @@ def init_state_sharded(
     density: float = 0.15,
     kind: str = "auto",
     periodic: bool = False,
+    ensemble: int = 0,
+    perturb: float = 0.0,
 ) -> Fields:
     """The initial fields decomposed over ``mesh`` (``ShardedField`` s):
     only the blocks of the shards this process holds, each computed on its
     own device from global coordinates, so a block is the same whichever
-    process builds it and no process holds the global grid."""
-    from ..parallel.stepper import ShardedField, shard_offsets
+    process builds it and no process holds the global grid.
+
+    ``ensemble`` N > 0: batched fields, each block ``(N_local, *local)``
+    holding its ensemble group's members (all N without an ensemble mesh
+    axis), each member's block from seed + i and perturbed as in
+    :func:`init_state`."""
+    from ..parallel.stepper import (ShardedField, ensemble_members_local,
+                                    shard_offsets)
 
     grid_shape = tuple(int(g) for g in grid_shape)
     counts = mesh.counts(len(grid_shape))
     if any(g % c for g, c in zip(grid_shape, counts)):
         raise ValueError(f"grid {grid_shape} not divisible by mesh "
                          f"{mesh.shape}")
+    n_local = ensemble_members_local(mesh, ensemble)
     local = tuple(g // c for g, c in zip(grid_shape, counts))
     per_field = [[] for _ in range(stencil.num_fields)]
     for c in mesh.local_coords():
-        block = _init_block(stencil, grid_shape, kind, periodic,
-                            mesh.device(c), shard_offsets(c, local), local,
-                            seed, density)
+        offsets = shard_offsets(mesh.spatial(c), local)
+        if n_local:
+            first = mesh.group(c) * n_local
+            block = _members_block(
+                stencil, grid_shape, kind, periodic, mesh.device(c), offsets,
+                local, seed, density, range(first, first + n_local), perturb)
+        else:
+            block = _init_block(stencil, grid_shape, kind, periodic,
+                                mesh.device(c), offsets, local, seed,
+                                density)
         for f, b in zip(per_field, block):
             f.append(b)
-    return tuple(ShardedField(b, mesh, grid_shape) for b in per_field)
+    shape = (int(ensemble),) * bool(n_local) + grid_shape
+    return tuple(ShardedField(b, mesh, shape, lead=int(bool(n_local)))
+                 for b in per_field)

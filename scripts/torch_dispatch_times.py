@@ -7,8 +7,18 @@ where a raw kernel beat the plain step (a size-dependent entry, as the
 TPU package's ``_RAW_ABOVE_CLIFF``, would need a loss below a size).
 
     python3 scripts/torch_dispatch_times.py [--only heat3d,life]
-        [--out build/dispatch_times.json]
+        [--sizes 512,16384] [--tree DIR] [--out build/dispatch_times.json]
+    python3 scripts/torch_dispatch_times.py --resources [--tree DIR]
     python3 scripts/torch_dispatch_times.py --rehearse   # CPU, tiny, no times
+
+``--tree DIR`` times the port of another unpacked tree of this repository
+(``git archive`` of an earlier commit under a git-ignored directory, its
+kernels built under ``DIR/build``) with this script, so two trees compare
+in one call on one card (run them parent, this, this, parent).
+``--resources`` builds the kernels and prints, instead of timing, each
+kernel's registers, stack and local bytes a thread (``cuobjdump
+-res-usage``), then the kernels whose stack or local memory is not 0
+(register spills).
 
 Every candidate runs through ``cli.build`` with its explicit flags, as a
 user's command line would, and its step through ``driver.make_runner``:
@@ -45,6 +55,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -216,6 +227,41 @@ class Timer:
             os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
 
 
+def resources(libs):
+    """One line a kernel of the built libraries (``{name: path}``): its
+    registers, stack and local bytes a thread from ``cuobjdump
+    -res-usage``, the name demangled by ``cu++filt``; then one line naming
+    the kernels whose stack or local bytes are not 0."""
+    cuda_bin = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin")
+    rows = []
+    for lib, path in sorted(libs.items()):
+        text = subprocess.run(
+            [os.path.join(cuda_bin, "cuobjdump"), "-res-usage", str(path)],
+            capture_output=True, text=True, check=True).stdout
+        fn = None
+        for line in text.splitlines():
+            m = re.match(r"\s*Function (\S+):", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "REG:" in line:
+                vals = dict(re.findall(r"(\w+):(\d+)", line))
+                rows.append({"library": lib, "kernel": fn,
+                             **{k: int(vals.get(k, -1))
+                                for k in ("REG", "STACK", "LOCAL")}})
+                fn = None
+    names = subprocess.run(
+        [os.path.join(cuda_bin, "cu++filt")],
+        input="\n".join(r["kernel"] for r in rows), capture_output=True,
+        text=True, check=True).stdout.splitlines()
+    for r, name in zip(rows, names):
+        r["kernel"] = name
+    spills = [f"{r['library']} {r['kernel']}: STACK {r['STACK']}, LOCAL "
+              f"{r['LOCAL']}, REG {r['REG']}" for r in rows
+              if r["STACK"] > 0 or r["LOCAL"] > 0]
+    return rows + [{"kernels": len(rows), "with_stack_or_local": spills}]
+
+
 def dtypes_of(name):
     return (None,) if name == "life" else DTYPES
 
@@ -306,11 +352,26 @@ def main() -> int:
                    help="comma-separated families (default: all)")
     p.add_argument("--out", default=os.path.join("build",
                                                  "dispatch_times.json"))
+    p.add_argument("--sizes", default="",
+                   help="comma-separated first grid extents to time "
+                        "(default: all)")
+    p.add_argument("--tree", default="",
+                   help="time the port of this unpacked tree instead")
+    p.add_argument("--resources", action="store_true",
+                   help="print the built kernels' registers, stack and "
+                        "local bytes instead of timing")
     p.add_argument("--rehearse", action="store_true",
                    help="run every candidate on the CPU at tiny sizes "
                         "(plain versions of the kernels; no time kept)")
     args = p.parse_args()
+    if args.rehearse and args.resources:
+        raise SystemExit("torch_dispatch_times: --resources needs the "
+                         "CUDA toolkit")
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
     import torch
+
+    import mpi_cuda_process_tpu_torch as port
 
     if not args.rehearse and not torch.cuda.is_available():
         raise SystemExit("torch_dispatch_times: needs a CUDA card")
@@ -326,7 +387,14 @@ def main() -> int:
             _build.build_all()
             t.emit({"build_seconds": round(time.perf_counter() - t0, 1),
                     "card": smi, "torch": torch.__version__,
-                    "cuda": torch.version.cuda})
+                    "cuda": torch.version.cuda,
+                    "package": os.path.dirname(port.__file__)})
+        if args.resources:
+            for line in resources(_build.build_all()):
+                t.emit(line)
+            print(smi, flush=True)
+            return 0
+        sizes = set(filter(None, args.sizes.split(",")))
         sizes3 = REHEARSAL_3D if args.rehearse else SIZES_3D
         sizes2 = REHEARSAL_2D if args.rehearse else SIZES_2D
         groups = []
@@ -353,7 +421,8 @@ def main() -> int:
             groups += [(fam, grid, d, steps, mesh) for fam in fams
                        for d in dtypes_of(fam)]
         for fam, grid, d, steps, mesh in groups:
-            if not only or fam in only:
+            if (not only or fam in only) and (
+                    not sizes or str(grid[0]) in sizes):
                 t.group(fam, grid, d, steps, mesh)
         first = next((r for r in t.rows if "error" not in r), None)
         if first is not None:

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, 5f, 5g), repeated.
+phase 5d (or 5e, 5f, 5g, 5h), repeated.
 
-    python3 scripts/torch_multiprocess.py [--repeat N] [--phase 5d|5e|5f|5g]
+    python3 scripts/torch_multiprocess.py [--repeat N]
+        [--phase 5d|5e|5f|5g|5h]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -25,7 +26,10 @@ and its peak beside ``--mem-check``'s estimate.  ``--phase 5g`` runs
 ``chip_smoke.auto_dispatch_phase``: every ``AUTO_RUNS`` run under the
 default ``--compute auto`` beside the explicit run of the path the
 dispatch tables promise (launches, bit-equal fields) and the plain run,
-then the sanitizers' blow-ups and the dumps on the card.
+then the sanitizers' blow-ups and the dumps on the card.  ``--phase 5h``
+runs ``chip_smoke.ensemble_phase``: every batched kernel against its plain
+version and its members' own launches, then every ``ENS_RUNS`` run
+(``--ensemble``) beside the unbatched runs of its first and last members.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
-    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g"],
+    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h"],
                    default="5d")
     args = p.parse_args()
     import torch
@@ -87,6 +91,13 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5h":
+            out = cs.ensemble_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "ensemble", "repeat": rep,
+                     "runs": len(out["runs"]),
+                     "kernels_checked": len(out["checked"]),
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5g":

@@ -286,8 +286,10 @@ def test_unported_combinations_raise_naming_roadmap(extra, exc, match):
 
 def test_unported_flags_are_not_registered_and_config_fields_refused():
     with pytest.raises(SystemExit):
-        tcli.config_from_args(["--ensemble", "2"])
-    for field, value in (("groups", "heat3d@0-1"), ("ensemble", 2),
+        tcli.config_from_args(["--groups", "heat3d@0-1"])
+    assert tcli.config_from_args(["--ensemble", "2"]).ensemble == 2
+    for field, value in (("groups", "heat3d@0-1"),
+                         ("group_transport", "collective"),
                          ("profile", "trace"), ("supervise", True)):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})

@@ -22,7 +22,10 @@ rounds to bfloat16 as the plain op does; so are the bfloat16 kinds of K3
 Gray-Scott kinds in float32, and the bfloat16 kinds of K4, K5, K7 and K8
 (RAW and PADDED, with its overlap shells).
 The sharded kernels (K3's sharded mode and its overlap shells, K6, K9,
-K10, K8's sharded mode) run on meshes of virtual shards on one card.
+K10, K8's sharded mode) run on meshes of virtual shards on one card.  Each
+kernel's batched launch (an ensemble's members in one launch) is held to
+its members' own launches and to its plain version at N = 3 (``-k
+ensemble``).
 """
 
 import numpy as np
@@ -1860,13 +1863,13 @@ def test_tiled_compute_kernels_refuse_a_short_ring(dev, name, dtype):
             fn = kernels._build.twin_entry(lib, "whole2d_step", p)
             rc = fn(kernels._WHOLE2D_KIND[name][0], p.data_ptr(),
                     out.data_ptr(), *shape,
-                    float(st.params.get("alpha", 0.0)), *bad,
+                    float(st.params.get("alpha", 0.0)), *bad, 1,
                     kernels._build.stream_of(p))
         else:
             lib = kernels._lib()
             fn = kernels._build.entry(lib, "zchunk_heat", p)
             rc = fn(kernels._HEAT_KIND[name], p.data_ptr(), out.data_ptr(),
-                    *shape, *kernels.coefficients(st), *bad,
+                    *shape, *kernels.coefficients(st), *bad, 1,
                     kernels._build.stream_of(p))
         assert rc != 0
 
@@ -1963,7 +1966,9 @@ def test_tiled_k5_and_k1_refuse_a_short_ring(dev, kern, name, kw, dtype):
     shorts = [(len(args) - 1, geo.slots - 1),
               (len(args) - 2, geo.row_bytes - 16)]
     up = torch.rand(shape, device=dev).to(st.dtype)
+    members = ()  # K5's export takes the member count (one) last
     if kern == "K5":
+        members = (1,)
         lib = kernels._lib()
         fn = kernels._build.entry(lib, "zchunk_wave", p)
         head = (p.data_ptr(), up.data_ptr(), out.data_ptr(), *shape,
@@ -1981,7 +1986,7 @@ def test_tiled_k5_and_k1_refuse_a_short_ring(dev, kern, name, kw, dtype):
             ov = torch.empty_like(out)
             head = (p.data_ptr(), up.data_ptr(), out.data_ptr(),
                     ov.data_ptr(), *shape, *rawstep.coefficients(st)[:4])
-    assert fn(*head, *args, kernels._build.stream_of(p)) == 0
+    assert fn(*head, *args, *members, kernels._build.stream_of(p)) == 0
     if kern in ("K5", "K2"):  # not a z-queue tile
         shorts.append((1, 0))
     if kern == "GS":  # two rings past one block's shared memory
@@ -1990,4 +1995,311 @@ def test_tiled_k5_and_k1_refuse_a_short_ring(dev, kern, name, kw, dtype):
     for i, short in shorts:
         bad = list(args)
         bad[i] = short
-        assert fn(*head, *bad, kernels._build.stream_of(p)) != 0
+        assert fn(*head, *bad, *members, kernels._build.stream_of(p)) != 0
+
+
+# ---- the member axis: N members of an ensemble in one launch ----------------
+#
+# Every kernel of the ensemble path takes a batched block (a leading member
+# axis): K4, K5 and K7 put the members among the items of their persistent
+# grid, K8's tiled kind in its launch grid's z, K8's streaming kind, K10 and
+# K3/K6/K9 fold them into z.  Each batched launch is held bit for bit to
+# the unbatched launches of its members (the same arithmetic a member) and
+# to the plain version on the batch (K3/K6/K9 float32 within their atol:
+# they reassociate taps), and counts one launch under its ",ensemble" key.
+# N = 3, so a member stride that is off shows.
+
+ENS_N = 3
+_BITS = {torch.bfloat16: torch.int16, torch.float32: torch.int32,
+         torch.int32: torch.int32}
+
+
+def _members(st, shape, dev, seed, n=ENS_N):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if st.dtype == torch.int32:
+        return tuple((torch.rand((n,) + tuple(shape), generator=g,
+                                 device=dev) < 0.3).to(torch.int32)
+                     for _ in range(st.num_fields))
+    return tuple(torch.rand((n,) + tuple(shape), generator=g,
+                            device=dev).to(st.dtype)
+                 for _ in range(st.num_fields))
+
+
+def _same_bits(got, ref):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape, (g.shape, r.shape)
+        assert torch.equal(g.view(_BITS[g.dtype]), r.view(_BITS[r.dtype]))
+
+
+def _close(got, ref, atol):
+    if atol == 0.0:
+        _same_bits(got, ref)
+        return
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert float((g.float() - r.float()).abs().max()) <= atol
+
+
+def _per_member(fn, *batched):
+    """``fn`` on each member's operands (tuples of batched tensors, or
+    lists of such tuples), stacked back on the member axis."""
+    def pick(x, i):
+        if isinstance(x, torch.Tensor):
+            return x[i].contiguous()
+        return type(x)(pick(y, i) for y in x)
+
+    outs = [fn(*(pick(b, i) for b in batched)) for i in range(ENS_N)]
+    return tuple(torch.stack([o[j] for o in outs])
+                 for j in range(len(outs[0])))
+
+
+def _one_launch(counter, key):
+    assert dict(counter) == {key: 1}, dict(counter)
+
+
+def _ens_key(wrapper, st):
+    dt = "" if st.dtype in (torch.float32, torch.int32) else \
+        "," + str(st.dtype).replace("torch.", "")
+    return f"{wrapper}[{st.name}{dt},ensemble]"
+
+
+ENS_COMPUTE = [(n, d) for n, d in kernels.TILES]
+
+
+@pytest.mark.parametrize("name,dtype", ENS_COMPUTE,
+                         ids=[f"{n}-{d}" for n, d in ENS_COMPUTE])
+def test_ensemble_compute_fn_kernels_one_launch(dev, name, dtype):
+    """K4, K5 and K7 on a batch of three padded blocks: one launch, each
+    member bit-equal to its own launch and to the plain update."""
+    st = port.make_stencil(name, dtype=dtype)
+    h = st.halo
+    shape = (37, 300) if st.ndim == 2 else (17, 19, 45)
+    padded = tuple(s + 2 * h for s in shape)
+    ins = _members(st, padded, dev, 2200)
+    if name == "wave3d":
+        ins = (ins[0], _members(st, shape, dev, 2201)[0])
+    comp = kernels.make_pallas_compute(st, device=dev)
+    kernels.launches.clear()
+    got = comp(ins)[:1]
+    torch.cuda.synchronize()
+    wrapper = {2: "whole2d", 3: "zchunk_wave" if name == "wave3d"
+               else "zchunk_heat"}[st.ndim]
+    _one_launch(kernels.launches, _ens_key(wrapper, st))
+    _same_bits(got, st.update(ins)[:1])
+    _same_bits(got, _per_member(lambda *f: comp(f)[:1], *ins))
+
+
+ENS_K8 = [("heat2d", "float32", 8, False), ("heat2d", "float32", 4, True),
+          ("heat2d", "bfloat16", 16, False), ("life", "int32", 8, False),
+          ("life", "int32", 8, True), ("wave2d", "float32", 8, False),
+          ("grayscott2d", "float32", 8, False), ("sor2d", "float32", 8, False),
+          ("advect2d", "float32", 4, True)]
+
+
+@pytest.mark.parametrize("name,dtype,k,periodic", ENS_K8,
+                         ids=[f"{n}-{d}-k{k}-{'p' if p else 'g'}"
+                              for n, d, k, p in ENS_K8])
+def test_ensemble_fullgrid_both_kinds_one_launch(dev, name, dtype, k,
+                                                 periodic):
+    """K8 on three members: the streaming kind (guard frame) and the tiled
+    kind (periodic), whole grid and one row shard's padded block."""
+    st = port.make_stencil(name, dtype=dtype)
+    shape = (200, 130)
+    fields = _members(st, shape, dev, 2300)
+    fullgrid.launches.clear()
+    got = fullgrid.fullgrid_step(fields, st, k, periodic)
+    torch.cuda.synchronize()
+    launches = -(-k // fullgrid._steps_per_launch(st))
+    assert dict(fullgrid.launches) == {
+        _ens_key("fullgrid_step", st): launches}
+    cpu = tuple(f.cpu() for f in fields)
+    _same_bits(tuple(g.cpu() for g in got),
+               fullgrid.fullgrid_step(cpu, st, k, periodic))
+    _same_bits(got, _per_member(
+        lambda *f: fullgrid.fullgrid_step(f, st, k, periodic), *fields))
+    m = fused.k_step_margin(st, k)
+    padded = _members(st, (64 + 2 * m, 130), dev, 2301)
+    fullgrid.launches.clear()
+    got = fullgrid.fullgrid_padded(padded, st, k, 256, 64, periodic)
+    torch.cuda.synchronize()
+    _one_launch(fullgrid.launches, _ens_key("fullgrid_padded", st))
+    _same_bits(tuple(g.cpu() for g in got), fullgrid.fullgrid_padded(
+        tuple(p.cpu() for p in padded), st, k, 256, 64, periodic))
+    _same_bits(got, _per_member(
+        lambda *p: fullgrid.fullgrid_padded(p, st, k, 256, 64, periodic),
+        *padded))
+
+
+ENS_3D = [("heat3d", "float32", 4), ("wave3d", "float32", 4),
+          ("grayscott3d", "float32", 4), ("sor3d", "float32", 4),
+          ("heat3d4th", "float32", 2), ("heat3d", "bfloat16", 8)]
+
+
+def _window_atol(st):
+    """K3/K6/K9's tolerance against the plain version: float32 heat and
+    wave kinds reassociate taps; bfloat16, SOR, advection and
+    Gray-Scott's kinds are bit-equal."""
+    return 1e-4 if st.dtype == torch.float32 and st.name in (
+        "heat3d", "heat3d27", "heat3d4th", "wave3d") else 0.0
+
+
+@pytest.mark.parametrize("name,dtype,k", ENS_3D,
+                         ids=[f"{n}-{d}-k{k}" for n, d, k in ENS_3D])
+def test_ensemble_stream_kernel_three_modes_one_launch(dev, name, dtype, k):
+    """K10 on three members: the whole grid, a z-only shard's slabs and a
+    (z, y) shard's slab set, each in one launch."""
+    st = port.make_stencil(name, dtype=dtype)
+    m = fused.k_step_margin(st, k)
+    shape = (40, 36, 70)
+    fields = _members(st, shape, dev, 2400)
+    streamfused.launches.clear()
+    got = streamfused.stream_step(fields, st, k)
+    torch.cuda.synchronize()
+    _one_launch(streamfused.launches, _ens_key("stream_step", st))
+    _same_bits(got, fused.plain_steps(fields, st, k))
+    _same_bits(got, _per_member(
+        lambda *f: streamfused.stream_step(f, st, k), *fields))
+    core, lo, hi = (_members(st, s, dev, 2401 + i) for i, s in
+                    enumerate((shape, (m,) + shape[1:], (m,) + shape[1:])))
+    streamfused.launches.clear()
+    got = streamfused.stream_zslab(core, lo, hi, st, k, 120, 40)
+    torch.cuda.synchronize()
+    _one_launch(streamfused.launches, _ens_key("stream_zslab", st))
+    _same_bits(got, fused.plain_zslab(core, lo, hi, st, k, 120, 40))
+    _same_bits(got, _per_member(
+        lambda c, a, b: streamfused.stream_zslab(c, a, b, st, k, 120, 40),
+        core, lo, hi))
+    Lz, Ly, X = shape
+    pieces = [_members(st, s, dev, 2410 + i) for i, s in enumerate(
+        ((m, Ly, X), (m, Ly, X), (Lz, m, X), (Lz, m, X))
+        + ((m, m, X),) * 4)]
+    args = (core, *pieces[:4], pieces[4:])
+    gshape, org = (3 * Lz, 2 * Ly, X), (Lz, Ly)
+    streamfused.launches.clear()
+    got = streamfused.stream_yzslab(*args, st, k, gshape, org)
+    torch.cuda.synchronize()
+    _one_launch(streamfused.launches, _ens_key("stream_yzslab", st))
+    _same_bits(got, fused.plain_yzslab(*args, st, k, gshape, org))
+    _same_bits(got, _per_member(
+        lambda c, zl, zh, yl, yh, cs: streamfused.stream_yzslab(
+            c, zl, zh, yl, yh, cs, st, k, gshape, org), *args))
+
+
+@pytest.mark.parametrize("name,dtype,k", ENS_3D,
+                         ids=[f"{n}-{d}-k{k}" for n, d, k in ENS_3D])
+def test_ensemble_window_kernels_one_launch(dev, name, dtype, k):
+    """K3 (whole grid, guard frame and periodic; its sharded mode), K6 and
+    K9 on three members, each in one launch."""
+    st = port.make_stencil(name, dtype=dtype)
+    if fused.margin_of(st, k) is None:
+        pytest.skip(f"{name} {dtype} takes no k = {k} on K3")
+    m = fused.k_step_margin(st, k)
+    atol = _window_atol(st)
+    shape = (40, 36, 70)
+    fields = _members(st, shape, dev, 2500)
+    for periodic in (False, True) if name != "sor3d" else (False,):
+        fused.launches.clear()
+        got = fused.fused_step(fields, st, k, periodic)
+        torch.cuda.synchronize()
+        _one_launch(fused.launches, _ens_key("fused_step", st))
+        _close(got, fused.plain_steps(fields, st, k, periodic), atol)
+        _same_bits(got, _per_member(
+            lambda *f: fused.fused_step(f, st, k, periodic), *fields))
+    padded = _members(st, (40 + 2 * m, 36 + 2 * m, 70), dev, 2501)
+    gshape, org = (120, 72, 70), (40, 36)
+    fused.launches.clear()
+    got = fused.fused_step_padded(padded, st, k, gshape, org)
+    torch.cuda.synchronize()
+    _one_launch(fused.launches, _ens_key("fused_step_padded", st))
+    _close(got, fused.plain_step_padded(padded, st, k, gshape, org), atol)
+    _same_bits(got, _per_member(
+        lambda *p: fused.fused_step_padded(p, st, k, gshape, org), *padded))
+    core, lo, hi = (_members(st, s, dev, 2502 + i) for i, s in
+                    enumerate((shape, (m,) + shape[1:], (m,) + shape[1:])))
+    fused.launches.clear()
+    got = fused.fused_zslab(core, lo, hi, st, k, 120, 40)
+    torch.cuda.synchronize()
+    _one_launch(fused.launches, _ens_key("fused_zslab", st))
+    _close(got, fused.plain_zslab(core, lo, hi, st, k, 120, 40), atol)
+    _same_bits(got, _per_member(
+        lambda c, a, b: fused.fused_zslab(c, a, b, st, k, 120, 40),
+        core, lo, hi))
+    Lz, Ly, X = shape
+    pieces = [_members(st, s, dev, 2510 + i) for i, s in enumerate(
+        ((m, Ly, X), (m, Ly, X), (Lz, m, X), (Lz, m, X))
+        + ((m, m, X),) * 4)]
+    args = (core, *pieces[:4], pieces[4:])
+    fused.launches.clear()
+    got = fused.fused_yzslab(*args, st, k, gshape, org)
+    torch.cuda.synchronize()
+    _one_launch(fused.launches, _ens_key("fused_yzslab", st))
+    _close(got, fused.plain_yzslab(*args, st, k, gshape, org), atol)
+    _same_bits(got, _per_member(
+        lambda c, zl, zh, yl, yh, cs: fused.fused_yzslab(
+            c, zl, zh, yl, yh, cs, st, k, gshape, org), *args))
+
+
+ENS_STEPPERS = [("plain", None, (2, 2), False), ("pallas", None, (2, 2), True),
+                ("fuse", None, (2, 2), False), ("fuse", None, (2, 2), True),
+                ("fuse", "padfree", (4,), False),
+                ("fuse", "padfree", (2, 2), True),
+                ("fuse", "stream", (4,), False),
+                ("fuse", "stream", (2, 2), True),
+                ("rdma", "stream", (2, 2), False),
+                ("rdma", "stream", (4,), True)]
+
+
+@pytest.mark.parametrize("mode,kind,mesh_shape,overlap", ENS_STEPPERS,
+                         ids=[f"{m}-{k}-{'x'.join(map(str, s))}"
+                              f"{'-overlap' if o else ''}"
+                              for m, k, s, o in ENS_STEPPERS])
+def test_ensemble_sharded_steps_match_members_and_launch_as_one(
+        dev, mode, kind, mesh_shape, overlap):
+    """The batched sharded steps on virtual shards of one card: each member
+    bit-equal to the unbatched step's run of it, and the launches a step
+    those of one member's step (the ",ensemble" keys)."""
+    st = port.make_stencil("heat3d")
+    shape, k = (96, 64, 128), 4
+    mesh = make_mesh(mesh_shape, [dev] * 4)
+
+    def build(ens):
+        if mode in ("plain", "pallas"):
+            return make_sharded_step(
+                st, mesh, shape, overlap=overlap, ensemble=ens,
+                compute_fn=kernels.make_pallas_compute(st, device=dev)
+                if mode == "pallas" else None)
+        return make_sharded_fused_step(
+            st, mesh, shape, k, kind=kind, overlap=overlap, ensemble=ens,
+            exchange="rdma" if mode == "rdma" else None, device=dev)
+
+    batched, single = build(ENS_N), build(0)
+    whole = _members(st, shape, dev, 2600)
+    counters = (kernels.launches, fused.launches, streamfused.launches,
+                remote.launches)
+    for c in counters:
+        c.clear()
+    out = gather_fields(batched(batched(shard_fields(whole, mesh, 3,
+                                                     ensemble=True))))
+    torch.cuda.synchronize()
+    def tally():
+        # the ring's keys name its slab shape, which a batch flattens
+        out = {key: n for c in counters for key, n in c.items()
+               if not key.startswith("ring_")}
+        out["ring_exchange"] = sum(n for key, n in remote.launches.items()
+                                   if key.startswith("ring_"))
+        return out
+
+    got_n = {key.replace(",ensemble", ""): n for key, n in tally().items()}
+    for i in range(ENS_N):
+        for c in counters:
+            c.clear()
+        ref = gather_fields(single(single(shard_fields(
+            tuple(f[i].contiguous() for f in whole), mesh, 3))))
+        torch.cuda.synchronize()
+        _same_bits(tuple(o[i] for o in out), ref)
+    got_1 = tally()
+    assert got_n == got_1
+    assert (got_1["ring_exchange"] > 0) == (mode == "rdma")
+    assert (len(got_1) > 1) == (mode != "plain")

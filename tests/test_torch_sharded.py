@@ -58,6 +58,22 @@ def _seeded(st, grid, seed):
                  for _ in range(st.num_fields))
 
 
+def _assert_batched_steps_members(batched, single, mesh, st, grid, seed):
+    """``batched`` on two stacked members equals ``single`` on each member,
+    bit for bit."""
+    members = [tuple(torch.from_numpy(a) for a in _seeded(st, grid, seed + i))
+               for i in range(2)]
+    whole = tuple(torch.stack(f) for f in zip(*members))
+    got = tstepper.gather_fields(batched(tstepper.shard_fields(
+        whole, mesh, len(grid), ensemble=True)))
+    assert tuple(got[0].shape) == (2,) + tuple(grid)
+    for i, member in enumerate(members):
+        ref = tstepper.gather_fields(single(tstepper.shard_fields(
+            member, mesh, len(grid))))
+        for g, r in zip(got, ref):
+            assert torch.equal(g[i], r)
+
+
 def _jax_steps(name, grid, arrays, n, periodic=False):
     step = jax.jit(jdriver.make_step(jmake_stencil(name), grid,
                                      periodic=periodic))
@@ -274,8 +290,9 @@ def test_sharded_fused_unsupported_configs():
     # test_torch_rdma.py), and so does pipeline=True on the slab kinds
     # (tests/test_torch_pipeline.py; with overlap on this 8-deep block the
     # pipeline stays on the non-split body); the padded kind refuses the
-    # pipeline with the TPU package's reason, the ensemble axis raises by
-    # name, and rdma off the stream kind raises the TPU package's error
+    # pipeline with the TPU package's reason, the ensemble axis runs (a
+    # batched step, each member its unbatched step's), and rdma off the
+    # stream kind raises the TPU package's error
     for kw in ({"kind": "stream", "pipeline": True},
                {"kind": "stream", "overlap": True, "pipeline": True}):
         step = tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
@@ -284,9 +301,12 @@ def test_sharded_fused_unsupported_configs():
     with pytest.raises(ValueError, match="rides the slab-operand kinds"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
                                          4, pipeline=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128),
-                                         4, ensemble=2)
+    batched = tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
+                                               (16, 16, 128), 4, ensemble=2)
+    _assert_batched_steps_members(
+        batched, tstepper.make_sharded_fused_step(st, _mesh((2, 2)),
+                                                  (16, 16, 128), 4),
+        _mesh((2, 2)), st, (16, 16, 128), 31)
     with pytest.raises(ValueError, match="streaming kernel family"):
         tstepper.make_sharded_fused_step(st, _mesh((2, 2)), (16, 16, 128), 4,
                                          exchange="rdma")
@@ -329,11 +349,16 @@ def test_init_state_sharded_gathers_to_init_state(name, kind, periodic,
 def test_mesh_needs_enough_devices_and_refuses_unported_modes(monkeypatch):
     with pytest.raises(ValueError, match=r"needs 4 devices, have 2"):
         tmesh.make_mesh((2, 2), [CPU] * 2)
-    with pytest.raises(NotImplementedError, match="A7"):
+    # the ensemble axis (ROADMAP A7) runs: a mesh axis of member groups
+    # needs its shards too, and the sharded step takes the member axis
+    with pytest.raises(ValueError, match=r"needs 4 devices, have 2"):
         tmesh.make_mesh((2,), [CPU] * 2, ensemble=2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        tstepper.make_sharded_step(port.make_stencil("heat3d"), _mesh((2,)),
-                                   (8, 8, 8), ensemble=2)
+    assert tmesh.make_mesh((2,), [CPU] * 4, ensemble=2).size == 4
+    st = port.make_stencil("heat3d")
+    _assert_batched_steps_members(
+        tstepper.make_sharded_step(st, _mesh((2,)), (8, 8, 8), ensemble=2),
+        tstepper.make_sharded_step(st, _mesh((2,)), (8, 8, 8)), _mesh((2,)),
+        st, (8, 8, 8), 41)
     assert tmesh.factor_mesh(8, 3) == jmesh.factor_mesh(8, 3) == (2, 2, 2)
     assert tmesh.factor_mesh(6, 2) == jmesh.factor_mesh(6, 2)
     monkeypatch.delenv("MASTER_ADDR", raising=False)

@@ -130,9 +130,17 @@ def test_stream_builders_gate_like_jax_and_drop_tpu_rules():
             ref = step(ref)
         _close(_numpy(got), _numpy(ref), st.halo)
     for kw, item in (({"tiles": (8, 16)}, "A8"), ({"margin": 8}, "A8"),
-                     ({"order": "rev"}, "A8"), ({"batch": 2}, "A7")):
+                     ({"order": "rev"}, "A8")):
         with pytest.raises(NotImplementedError, match=item):
             tstream.make_stream_fused_step(st, GRID, 4, **kw)
+    # batch (an ensemble, ROADMAP A7) runs: the step takes N members, each
+    # advanced as the unbatched step advances it
+    batch = _port(_seeded(1, (2,) + GRID, 5))
+    got = tstream.make_stream_fused_step(st, GRID, 4, batch=2)(batch)
+    single = tstream.make_stream_fused_step(st, GRID, 4)
+    assert tuple(got[0].shape) == (2,) + GRID
+    for i in range(2):
+        assert torch.equal(got[0][i], single((batch[0][i],))[0])
 
 
 # ---- rows 17 and 18: the sharded calls ---------------------------------------

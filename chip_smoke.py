@@ -278,6 +278,20 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      the state at each dump step through the native writer (whose g++
      build must succeed).  Earlier phases that mean the plain path pass
      --compute jnp;
+  5h. the ensemble axis: every batched kernel against its plain version
+     and its members' own launches, then --ensemble runs beside the
+     unbatched runs of their first and last members;
+  5i. device groups (--groups, --group-transport): BASELINE config 3
+     split into two coupled 1x2 groups of the stream kind (K10 YZSLAB) on
+     4 virtual devices, in float32 and with bf16 clauses, each bit-equal
+     to the monolithic --mesh 2,2 --fuse 4 --fuse-kind stream run, and
+     README's heterogeneous demo at base 512^3 (K3's padded kind in both
+     groups) on 8, held to the same runner through the plain versions of
+     its kernels within 1e-4; each under both transports (bit-equal to
+     each other), its peak at or under the coupled --mem-check estimate,
+     then ms a coupled round, the exchange's share, launches a round and
+     the monolithic twin's ms for the same steps, by CUDA events.  The
+     kernels line gives each kernel's groups_launches;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -770,6 +784,40 @@ ENS_RUNS = (
     ("wave3d_256_x4_22_pallas", "wave3d", (256, 256, 256), 20, 4,
      ("--mesh", "2,2", "--compute", "pallas"), 4,
      ("zchunk_wave[wave3d,ensemble]",)),
+)
+
+# Device groups (phase 5i, ROADMAP A7): --groups through cli.run as users
+# run it.  BASELINE config 3 (heat3d 1024^3, 2x2) split into two coupled
+# 1x2 groups of the stream kind (K10 YZSLAB) on 4 virtual devices; the
+# split leaves the middle 4 rows off centre (z127/256: group grids of 512
+# and 520 rows; the even split's 516 rows are refused by every fused
+# builder of the JAX package), held bit for bit to the monolithic --mesh
+# 2,2 --fuse 4 --fuse-kind stream run, in float32 and with bf16 clauses;
+# README's heterogeneous demo at base 512^3 (a 2x-refined wave3d hot
+# region inside a heat3d far field, K3's padded kind in both groups) on 8,
+# held to the same runner through the plain versions of its kernels.
+# Each under both transports, bit-equal to each other; GROUP_ROUNDS rounds
+# a held run, then ms a round by CUDA events (a warm-up chunk of
+# GROUP_CHUNK rounds, then GROUP_TIMED chunks), the exchange alone, the
+# launches a round and the monolithic twin's ms for the same steps.
+# (label, stencil, base grid, --groups, virtual devices, the monolithic
+# twin's flags or None, the kernels each round launches)
+GROUP_ROUNDS = 5
+GROUP_CHUNK = 5
+GROUP_TIMED = 3
+GROUP_SPLIT = ("heat3d@0-1:z127/256:fuse4+stream:mesh1x2,"
+               "heat3d@2-3:fuse4+stream:mesh1x2")
+GROUP_TWIN = ("--mesh", "2,2", "--fuse", "4", "--fuse-kind", "stream")
+GROUP_RUNS = (
+    ("config3_split_stream", "heat3d", BIG, GROUP_SPLIT, 4, GROUP_TWIN,
+     ("stream_yzslab[heat3d]",)),
+    ("config3_split_stream_bf16", "heat3d", BIG,
+     GROUP_SPLIT.replace("heat3d@", "heat3d:bf16@"), 4,
+     GROUP_TWIN + ("--dtype", "bfloat16"),
+     ("stream_yzslab[heat3d,bfloat16]",)),
+    ("readme_hetero_512", "wave3d", MAIN,
+     "wave3d:fine@0-3:z1/4:mesh1x4:fuse4,heat3d:coarse@4-7:mesh1x4:fuse4",
+     8, None, ("fused_step_padded[wave3d]", "fused_step_padded[heat3d]")),
 )
 
 
@@ -2128,6 +2176,215 @@ def ensemble_phase(counted, lines, main_launches, scratch):
         emit({"phase": "ensemble_run", **row})
     os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
     return {"errs": errs, "checked": checked, "runs": rows}
+
+
+def groups_phase(counted, lines, main_launches, scratch):
+    """Phase 5i: device groups on the card (ROADMAP A7).
+
+    Each ``GROUP_RUNS`` run through ``cli.run`` under both transports:
+    the launches must name the kernels the groups' modes route to, the
+    device-memory peak must stay at or under ``--mem-check``'s coupled
+    estimate (the groups on the card summed), and the two transports'
+    assembled fields must be equal bit for bit.  A same-physics split must
+    equal its monolithic twin's fields bit for bit (the twin run for the
+    same number of steps: a round is k of them); the heterogeneous demo
+    must equal the same runner whose groups step through the plain
+    versions of their kernels (k plain sharded steps a round), within
+    1e-4 (K3's float32 heat and wave kinds reassociate taps).  Then each
+    run's runner, built again by ``cli.build_coupled``, is timed by CUDA
+    events (``GROUP_TIMED`` chunks of ``GROUP_CHUNK`` rounds after a
+    warm-up chunk), with the exchange alone, and the twin's step the same
+    way.  Returns ``{"runs": [...], "launches": {key: n}}``: the launches
+    of every groups run of the phase."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.parallel import stepper
+    from mpi_cuda_process_tpu_torch.utils import budget
+
+    smi = nvidia_smi()
+    views = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    glaunch, rows = {}, []
+
+    def same(a, b):
+        return all(x.dtype == y.dtype and x.shape == y.shape
+                   and torch.equal(x.view(views[x.dtype]),
+                                   y.view(views[y.dtype]))
+                   for x, y in zip(a, b))
+
+    def gathered(fields):
+        return tuple(stepper.gather_fields((f,), device="cpu")[0]
+                     for f in fields)
+
+    def chunks_ms(fn, n):
+        """(median, chunks) ms of one call of ``fn`` by CUDA events:
+        ``n`` calls a chunk after a warm-up chunk."""
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(GROUP_TIMED):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(n):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            out.append(e0.elapsed_time(e1) / n)
+        return statistics.median(out), out
+
+    for label, stencil, grid, spec, vdev, twin, expect in GROUP_RUNS:
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(vdev)
+        base = ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+                "--iters", str(GROUP_ROUNDS), "--groups", spec]
+        held, runs = {}, {}
+        for transport in ("device_put", "collective"):
+            cfg = cli.config_from_args(base + ["--group-transport",
+                                               transport])
+            estimate = []
+            check = budget.check_coupled_budget
+
+            def spy(*a, **kw):
+                out = check(*a, **kw)
+                estimate.append(out[0])
+                return out
+
+            budget.check_coupled_budget = spy
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                (fields, mcells), got = counted(lambda: cli.run(cfg))
+            finally:
+                budget.check_coupled_budget = check
+            peak = torch.cuda.max_memory_allocated() - before
+            if not estimate:
+                fail(f"groups {label}: --mem-check priced nothing")
+            if peak > estimate[-1]:
+                fail(f"groups {label} ({transport}): peak {peak} B above "
+                     f"the coupled estimate {estimate[-1]} B")
+            for key in expect:
+                if not got.get(key):
+                    fail(f"groups {label}: {key} launched no time ({got})")
+            for key, n in got.items():
+                glaunch[key] = glaunch.get(key, 0) + n
+            held[transport] = fields
+            runs[transport] = {"mcells_per_s": mcells, "peak_bytes": peak,
+                               "estimate_bytes": estimate[-1],
+                               "launches": got}
+        if not same(held["device_put"], held["collective"]):
+            fail(f"groups {label}: the collective transport differs from "
+                 "device_put")
+        cfg = cli.config_from_args(base)
+        plans, runner, _ = cli.build_coupled(cfg)
+        k = plans[0].spec.fuse_k
+        row = {"label": label, "groups": spec, "base_grid": list(grid),
+               "rounds": GROUP_ROUNDS, "steps_per_round": k,
+               "group_grids": [list(p.grid) for p in plans],
+               "kinds": runner.step_kinds(),
+               "cell_updates_per_round": runner.cell_updates_per_round(),
+               "refined_everywhere_over_coupled": (
+                   max(p.spec.ratio for p in plans) ** len(grid)
+                   * math.prod(grid) / runner.cell_updates_per_round()),
+               "transports": runs, "transports_bit_equal": True,
+               "card": smi}
+        if twin is not None:
+            tcfg = cli.config_from_args(
+                ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+                 "--iters", str(GROUP_ROUNDS * k), *twin])
+            os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
+            (tfields, _), _ = counted(lambda: cli.run(tcfg))
+            tfields = gathered(tfields)
+            if not same(held["device_put"], tfields):
+                fail(f"groups {label}: the split differs from its "
+                     "monolithic twin")
+            row["monolithic_bit_equal"] = True
+            del tfields
+            os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(vdev)
+        else:
+            # the same runner through the plain versions of its kernels:
+            # k plain sharded steps a round
+            _, plain, _ = cli.build_coupled(cfg)
+
+            def plain_round(fs, p, msh, k=k):
+                step = stepper.make_sharded_step(p.stencil, msh, p.grid)
+                for _ in range(k):
+                    fs = step(fs)
+                return fs
+
+            plain._runners = [
+                (lambda fs, p=p, msh=msh: plain_round(fs, p, msh))
+                for p, msh in zip(plans, plain.meshes)]
+            _, none = counted(lambda: plain.run(GROUP_ROUNDS))
+            if none:
+                fail(f"groups {label}: the plain run launched {none}")
+            runner.run(GROUP_ROUNDS)
+            if not same(runner.assemble(), held["device_put"]):
+                fail(f"groups {label}: build_coupled's runner differs from "
+                     "cli.run's")
+            err = 0.0
+            for g, (a, b) in enumerate(zip(runner.fields, plain.fields)):
+                for x, y in zip(gathered(a), gathered(b)):
+                    err = max(err, float((x.float() - y.float()).abs()
+                                         .max()))
+            if not err <= 1e-4:
+                fail(f"groups {label}: max|d| {err:.3e} against the plain "
+                     "versions > 1e-4")
+            row["plain_max_abs_err"] = err
+            del plain
+            runner = cli.build_coupled(cfg)[1]
+        del held
+        torch.cuda.empty_cache()
+        # timing: each transport's round, the exchange alone, launches a
+        # round; then the monolithic twin's k steps
+        for transport in ("device_put", "collective"):
+            if transport == "collective":
+                del runner
+                torch.cuda.empty_cache()
+                runner = cli.build_coupled(dataclasses.replace(
+                    cfg, group_transport=transport))[1]
+            ms, ms_chunks = chunks_ms(runner.step_round, GROUP_CHUNK)
+            ex_ms, ex_chunks = chunks_ms(runner.exchange, GROUP_CHUNK)
+            _, got = counted(lambda: runner.run(GROUP_CHUNK))
+            runs[transport].update(
+                ms_per_round=ms, ms_per_round_chunks=ms_chunks,
+                exchange_ms=ex_ms, exchange_ms_chunks=ex_chunks,
+                exchange_share=ex_ms / ms,
+                launches_per_round={key: n / GROUP_CHUNK
+                                    for key, n in got.items()})
+        del runner
+        torch.cuda.empty_cache()
+        if twin is not None:
+            os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
+            tcfg = cli.config_from_args(
+                ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+                 "--iters", str(k), *twin])
+            _, step_fn, fields, _ = cli.build(tcfg)
+            box = [fields]
+
+            def twin_round():
+                box[0] = step_fn(box[0])
+
+            row["monolithic_ms_per_round"], row["monolithic_chunks"] = \
+                chunks_ms(twin_round, GROUP_CHUNK)
+            row["round_over_monolithic"] = (
+                runs["device_put"]["ms_per_round"]
+                / row["monolithic_ms_per_round"])
+            del box, fields, step_fn
+            torch.cuda.empty_cache()
+        row["collective_over_device_put"] = (
+            runs["collective"]["ms_per_round"]
+            / runs["device_put"]["ms_per_round"])
+        rows.append(row)
+        emit({"phase": "groups_run", **row})
+    os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+    return {"runs": rows, "launches": glaunch}
 
 
 def card_rates(name: str):
@@ -4082,6 +4339,18 @@ def main() -> int:
                   "peak_bytes: torch.cuda.max_memory_allocated above what "
                   "was held, beside --mem-check's estimate"})
 
+    # ---- 5i. device groups ---------------------------------------------------
+    p5i = groups_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "groups", "ok": True, "seconds": took(),
+          "card": smi, "runs": len(p5i["runs"]),
+          "launches": p5i["launches"],
+          "note": "groups on one card run in turn (virtual devices): "
+                  "decomposition overhead, not scaling; ms_per_round and "
+                  "exchange_ms: medians of CUDA-event chunks after a "
+                  "warm-up chunk; peak_bytes: torch.cuda."
+                  "max_memory_allocated above what was held, beside the "
+                  "coupled --mem-check estimate (the groups summed)"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -4254,6 +4523,7 @@ def main() -> int:
             "route": "cuda", "dtype": dtype or "float32",
             "source": f"{PKG}/ops/cuda/csrc/{src}", "replaces": replaces,
             "launches": main_launches.get(key, 0),
+            "groups_launches": p5i["launches"].get(key, 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "steps_per_launch": k, "shape": list(shape),
@@ -5224,9 +5494,11 @@ def main() -> int:
         record(entry, wrapper, name, src, TPU + replaces, time_ms(fn, reps),
                time_ms(plain, plain_reps), moved, flops, library_ms, k,
                shape, per_step)
+        key = f"{wrapper}[{name},ensemble]"
         kernels_out[-1].update(
             dtype=dtype, members=members, atol=atol,
-            launches=main_launches.get(f"{wrapper}[{name},ensemble]", 0))
+            launches=main_launches.get(key, 0),
+            groups_launches=p5i["launches"].get(key, 0))
 
     st = make_stencil("life")
     ins = ((rand((64, 130, 130)) < 0.35).to(torch.int32),)

@@ -93,6 +93,12 @@ checkpoint and the log line; ``--ensemble-mesh M`` shards the members over
 M device groups (a mesh axis in front of ``--mesh``'s, every group an
 independent spatial mesh), and ``--ensemble-perturb EPS`` scales member
 i's fields by ``1 + EPS u_i``.
+``--groups SPEC`` partitions the devices into contiguous groups along grid
+axis 0, each with its own op, refinement ratio, dtype, mesh and mode tokens
+(``parallel/groups.py``), coupled only at interface bands refreshed once a
+round by ``--group-transport`` (``device_put`` or ``collective``, the same
+bits); it runs in one process, over the visible cards or over virtual
+devices on one card, and is refused under a multi-process launcher.
 ``--device`` (default ``cuda``) picks where the state lives; asking for
 ``cuda`` without a card raises, it never carries on on the CPU.  Only the
 flags the port runs are registered; a combination that needs a kernel or
@@ -123,6 +129,7 @@ from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
 from .ops.cuda import rawstep, streamfused
 from .ops.cuda._build import FLOAT_DTYPES
+from .parallel import groups as groups_lib
 from .parallel import halo
 from .parallel import mesh as mesh_lib
 from .parallel import stepper as stepper_lib
@@ -165,6 +172,47 @@ def build_parser() -> argparse.ArgumentParser:
                         f"{mesh_lib.VIRTUAL_DEVICES_ENV}=N for N shards on "
                         "one device; under torchrun the shards are spread "
                         "over the processes, each holding its own")
+    p.add_argument("--groups", default="",
+                   help="MPMD device groups (parallel/groups.py): "
+                        "partition the slice into contiguous sub-meshes "
+                        "along grid axis 0, each running its OWN op / "
+                        "refinement ratio / dtype / mesh, coupled only "
+                        "at interface faces — e.g. "
+                        "\"wave3d:fine@0-3:z1/4,heat3d:coarse@4-7\" runs "
+                        "a 2x-refined wave3d hot region over the first "
+                        "quarter of z on devices 0-3 inside a coarse "
+                        "heat3d far-field on devices 4-7.  Clause "
+                        "grammar: <op>[:fine[R]|:coarse][:<dtype>]@"
+                        "<d0>-<d1>[:z<num>/<den>][:mesh<m0>x<m1>...]"
+                        "[:<mode>+<mode>...].  Each group's interior "
+                        "step runs on its own sub-mesh; a trailing "
+                        "'+'-joined mode token (fuse<K>/stream/padfree/"
+                        "overlap/pipeline/plain, e.g. "
+                        ":fuse2+stream+overlap) routes it through the "
+                        "matching fused/overlapped stepper UNMODIFIED "
+                        "(fuse<K> must agree across groups; 'plain' "
+                        "locks the default; no token = unset, "
+                        "--auto-policy may resolve it per group).  The "
+                        "ghost-band interface refresh is the only "
+                        "cross-group traffic (jaxprcheck."
+                        "assert_coupled_structure pins it).  A 2-group "
+                        "same-physics split is bit-exact vs the "
+                        "monolithic run under every legal mode combo.  "
+                        "Excludes the monolithic mode flags (--mesh/"
+                        "--fuse/--ensemble/--overlap/--pipeline/...): "
+                        "per-group behavior lives in the clauses")
+    p.add_argument("--group-transport", default="device_put",
+                   choices=["device_put", "collective"],
+                   help="interface transport for --groups: device_put "
+                        "(host-ordered buffer moves between the group "
+                        "meshes — correct on any backend) | collective "
+                        "(one union-mesh shard_map whose per-interface "
+                        "ppermutes move the raw edge rows chip to chip; "
+                        "resample/cast shard-local on the receiver — "
+                        "bit-identical to device_put, zero host hops, "
+                        "jaxprcheck.assert_group_transport_structure "
+                        "pins exactly 2 ppermutes per interface and "
+                        "zero device_put)")
     p.add_argument("--dtype", default=None,
                    help="float32|bfloat16|float16 (default: the stencil's "
                         "own); every kernel takes float32 and bfloat16 "
@@ -310,7 +358,8 @@ def config_from_args(argv=None) -> RunConfig:
     a = build_parser().parse_args(argv)
     return RunConfig(
         stencil=a.stencil, grid=a.grid, iters=a.iters, dtype=a.dtype,
-        mesh=a.mesh, seed=a.seed, density=a.density, init=a.init,
+        mesh=a.mesh, groups=a.groups, group_transport=a.group_transport,
+        seed=a.seed, density=a.density, init=a.init,
         periodic=a.periodic,
         log_every=a.log_every, checkpoint_every=a.checkpoint_every,
         check_finite=a.check_finite, debug_checks=a.debug_checks,
@@ -380,8 +429,6 @@ _COMPUTE_FN_WINS: dict = {
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
 _UNPORTED = (
-    ("groups", "--groups", "A7 (device groups)"),
-    ("group_transport", "--group-transport", "A7 (device groups)"),
     ("profile", "--profile", "A8 (observability)"),
     ("profile_dir", "--profile-dir", "A8 (observability)"),
     ("telemetry", "--telemetry", "A8 (observability)"),
@@ -755,6 +802,14 @@ def build(cfg: RunConfig):
     ``--ensemble-mesh`` the sharded steppers with ``ensemble=N``; and the
     batched fields (``init_state(..., ensemble=N, perturb=EPS)``)."""
     _refuse_unported(cfg)
+    if cfg.groups:
+        raise ValueError("build() makes one monolithic run; a --groups "
+                         "config is built by build_coupled()")
+    if cfg.group_transport not in ("", "device_put"):
+        raise ValueError(
+            "--group-transport selects the --groups interface "
+            "transport; a monolithic run has no interfaces to move — "
+            "drop the flag or pass --groups")
     device = _device(cfg)
     st = _make_cfg_stencil(cfg)
     _validate_ensemble(cfg)
@@ -955,6 +1010,8 @@ def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool):
 
 def run(cfg: RunConfig) -> Tuple:
     """Execute a configured run; returns (final_fields, mcells_per_s)."""
+    if cfg.groups:
+        return _run_coupled(cfg)
     cfg = maybe_auto_fuse(cfg)
     if cfg.debug_checks and cfg.fuse:
         raise ValueError("--debug-checks excludes --fuse (the fused "
@@ -1098,6 +1155,170 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
         "  (%.1f Mcells/s)",
         res <= cfg.tol, n_done, res, cfg.tol, dt, mcells)
     _epilogue(cfg, fields, start_step + n_done, save_ckpt=True)
+    return fields, mcells
+
+
+# Monolithic mode flags that do not compose with --groups (the TPU
+# package's list and messages): each group's clause is its own config, so
+# a slice-wide mode flag has no single run to configure.
+_GROUP_CONFLICTS = (
+    ("--mesh", lambda c: bool(c.mesh)),
+    ("--ensemble/--ensemble-mesh/--ensemble-perturb",
+     lambda c: bool(c.ensemble or c.ensemble_mesh or c.ensemble_perturb)),
+    ("--fuse", lambda c: bool(c.fuse)),
+    ("--fuse-kind", lambda c: c.fuse_kind != "auto"),
+    ("--overlap", lambda c: c.overlap),
+    ("--pipeline", lambda c: c.pipeline),
+    ("--exchange rdma", lambda c: c.exchange == "rdma"),
+    ("--periodic", lambda c: c.periodic),
+    ("--tol", lambda c: c.tol > 0),
+    ("--profile/--profile-dir",
+     lambda c: bool(c.profile or c.profile_dir)),
+    ("--halo-audit", lambda c: bool(c.halo_audit)),
+    ("--debug-checks", lambda c: c.debug_checks),
+    ("--policy-recheck", lambda c: bool(c.policy_recheck)),
+    ("--compute pallas", lambda c: c.compute == "pallas"),
+    ("--kernel-variant", lambda c: bool(c.kernel_variant)),
+    ("--dump-every", lambda c: bool(c.dump_every)),
+)
+
+
+def _launched_multiprocess() -> bool:
+    """Whether this process is one of a multi-process launch (an open
+    process group, or a launcher's ``MASTER_ADDR`` and ``WORLD_SIZE`` >
+    1)."""
+    world = os.environ.get("WORLD_SIZE", "1")
+    return mesh_lib.process_count() > 1 or bool(
+        os.environ.get("MASTER_ADDR") and world.isdigit() and int(world) > 1)
+
+
+def _check_coupled_mem_budget(cfg: RunConfig, plans, device) -> None:
+    """The device-memory guard of a coupled run, on a card only, before
+    any field is allocated: the groups that share a card summed."""
+    if cfg.mem_check == "off" or device.type != "cuda":
+        return
+    from .utils import budget
+
+    try:
+        worst, _ = budget.check_coupled_budget(
+            plans, transport=cfg.group_transport,
+            devices=[p.devices(device.type) for p in plans])
+    except ValueError:
+        if cfg.mem_check == "error":
+            raise
+        log.warning("device memory budget exceeded (--mem-check warn): "
+                    "proceeding anyway; expect an out-of-memory error",
+                    exc_info=True)
+    else:
+        log.info("memory budget (coupled): ~%.2f GiB on the fullest card "
+                 "estimated", worst / 2**30)
+
+
+def build_coupled(cfg: RunConfig):
+    """Materialize (plans, runner, start_round) of a ``--groups`` config:
+    the conflicts and the memory guard before any field is built, then the
+    ``parallel.groups.CoupledRunner`` (each group's fields from the init,
+    or from a coupled checkpoint under ``--resume``)."""
+    _refuse_unported(cfg)
+    for flag, fired in _GROUP_CONFLICTS:
+        if fired(cfg):
+            raise ValueError(
+                f"--groups partitions the slice into per-group sub-"
+                f"meshes with their own per-group configs; {flag} "
+                "configures the monolithic run and does not compose "
+                "with --groups (put per-group behavior in the group "
+                "clauses: <op>[:fine[R]|:coarse][:<dtype>]@<d0>-<d1>"
+                "[:z<num>/<den>][:mesh<m0>x<m1>...])")
+    if _launched_multiprocess():
+        # never a silently narrowed device set: each process would see
+        # only its own card
+        raise NotImplementedError(
+            "--groups across processes is not ported (a --groups run is "
+            "one process over the visible cards, or over virtual devices "
+            f"on one card): {groups_lib.PROCESSES_ITEM}")
+    device = _device(cfg)
+    plans = groups_lib.plans_from_config(
+        cfg.groups, cfg.grid, default_dtype=cfg.dtype or None,
+        n_devices=len(mesh_lib.local_devices(device.type)))
+    _check_coupled_mem_budget(cfg, plans, device)
+    runner = groups_lib.CoupledRunner(
+        plans, seed=cfg.seed, density=cfg.density, init_kind=cfg.init,
+        transport=cfg.group_transport, device=device)
+    for p, kind in zip(plans, runner.step_kinds()):
+        log.info("group %s: grid %s on mesh %s (devices %d-%d), %s, %s "
+                 "step", p.name, "x".join(map(str, p.grid)),
+                 "x".join(map(str, p.mesh_shape)), p.spec.dev_lo,
+                 p.spec.dev_hi, stencil_lib.dtype_name(p.stencil.dtype),
+                 kind)
+    log.info("groups: %d interface(s), transport %s", len(plans) - 1,
+             cfg.group_transport)
+    start_round = 0
+    if cfg.resume and cfg.checkpoint_dir and os.path.isdir(
+            os.path.join(cfg.checkpoint_dir, "group0")):
+        start_round = runner.load_checkpoint(cfg.checkpoint_dir)
+        log.info("resumed coupled run from %s at round %d",
+                 cfg.checkpoint_dir, start_round)
+    return plans, runner, start_round
+
+
+def _run_coupled(cfg: RunConfig) -> Tuple:
+    """The ``--groups`` run loop (the TPU package's ``_run_coupled``): a
+    chunked round loop with ``--log-every`` (Mcells/s a group),
+    ``--check-finite`` (naming the group), coupled checkpoints (a
+    directory a group, one agreed round) and the ``exchange`` fault site
+    at each chunk boundary.  Returns (the assembled base-resolution fields
+    on the host, Mcells/s from ``cell_updates_per_round``)."""
+    plans, runner, start_round = build_coupled(cfg)
+    remaining = cfg.iters - start_round
+    if remaining <= 0:
+        log.info("coupled checkpoint already at round %d >= iters",
+                 start_round)
+        return runner.assemble(), 0.0
+    intervals = [v for v in (cfg.log_every, cfg.checkpoint_every,
+                             cfg.check_finite) if v]
+    interval = math.gcd(*intervals) if intervals else 0
+    cells_round = runner.cell_updates_per_round()
+    done = 0
+    runner.block_until_ready()
+    t0 = time.perf_counter()
+    while done < remaining:
+        n = min(interval or remaining, remaining - done)
+        tc = time.perf_counter()
+        runner.run(n)
+        runner.block_until_ready()
+        dtc = time.perf_counter() - tc
+        done += n
+        step = start_round + done
+        faults.maybe_fire("exchange", step=step)
+        if cfg.check_finite and step % cfg.check_finite == 0:
+            for p, fs in zip(plans, runner.fields):
+                for i, f in enumerate(fs):
+                    if not f.dtype.is_floating_point:
+                        continue
+                    if not driver.all_finite(f):
+                        raise RuntimeError(
+                            f"group {p.name} field {i} became non-"
+                            f"finite by step {step} (NaN/Inf blow-up "
+                            "— check stability parameters)")
+        if cfg.log_every and step % cfg.log_every == 0:
+            log.info("round %d  %s", step, "  ".join(
+                f"{p.name}:{p.cells * n / dtc / 1e6:.1f}Mc/s"
+                for p in plans))
+        if cfg.checkpoint_every and cfg.checkpoint_dir and \
+                step % cfg.checkpoint_every == 0:
+            runner.save_checkpoint(cfg.checkpoint_dir)
+    dt = time.perf_counter() - t0
+    mcells = cells_round * remaining / dt / 1e6
+    log.info("%d coupled rounds x %d groups (%d cell-updates/round) in "
+             "%.3fs  (%.1f Mcells/s)", remaining, len(plans),
+             cells_round, dt, mcells)
+    if cfg.checkpoint_dir and (cfg.checkpoint_every or cfg.resume):
+        runner.save_checkpoint(cfg.checkpoint_dir)
+    fields = runner.assemble()
+    if cfg.render:
+        f = fields[0]
+        print(render.ascii_render(
+            np.asarray(f.float() if f.is_floating_point() else f)))
     return fields, mcells
 
 

@@ -87,6 +87,17 @@ class RunConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+def groups_signature(groups: str) -> str:
+    """Short stable signature of a ``--groups`` string (the TPU package's):
+    whitespace-normalized, so cosmetically different spellings of the same
+    split share a signature."""
+    import hashlib
+
+    canon = ",".join(p.strip() for p in (groups or "").split(",")
+                     if p.strip())
+    return hashlib.sha1(canon.encode()).hexdigest()[:10]
+
+
 def parse_int_tuple(s: str) -> Tuple[int, ...]:
     s = s.strip()
     if not s:

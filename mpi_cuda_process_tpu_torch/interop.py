@@ -14,6 +14,11 @@ host block by block (no device holds the global grid), and
 this process holds.  Under a multi-process run no process holds the global
 grid, so :func:`gather_to_numpy` (and :func:`fields_to_numpy` of sharded
 fields) raises there.
+
+A coupled ``--groups`` run's state is one field tuple a group:
+:func:`coupled_from_numpy` carries the TPU package's ``CoupledRunner``
+fields (per group, as numpy) into the port's runner, so both packages
+step from the same state.
 """
 
 from __future__ import annotations
@@ -126,3 +131,23 @@ def shard_from_numpy(fields: Sequence, mesh, dtype=None,
             f.append(_to_tensor(a[sl], mesh.device(c), dtype))
         out.append(f)
     return tuple(out)
+
+
+def coupled_from_numpy(runner, per_group_fields: Sequence[Sequence]) -> None:
+    """Load every group's fields (numpy arrays of the group's grid, e.g.
+    the TPU package's ``CoupledRunner.fields`` copied to the host) into the
+    port's ``parallel.groups.CoupledRunner``: each cut into the blocks of
+    the group's mesh, in the group's dtype."""
+    if len(per_group_fields) != runner.n_groups:
+        raise ValueError(f"{len(per_group_fields)} field tuples for "
+                         f"{runner.n_groups} groups")
+    for g, (p, arrays) in enumerate(zip(runner.plans, per_group_fields)):
+        if len(arrays) != p.stencil.num_fields:
+            raise ValueError(f"group {p.name} has {p.stencil.num_fields} "
+                             f"field(s), got {len(arrays)}")
+        for a in arrays:
+            if tuple(np.shape(a)) != tuple(p.grid):
+                raise ValueError(f"group {p.name}: a {np.shape(a)} field "
+                                 f"for its {p.grid} grid")
+        runner.fields[g] = shard_from_numpy(arrays, runner.meshes[g],
+                                            dtype=p.stencil.dtype)

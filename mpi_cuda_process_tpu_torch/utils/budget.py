@@ -53,12 +53,17 @@ A sharded checkpoint (``--checkpoint-backend orbax``) costs no device
 memory: its writer copies one block at a time to the host
 (:func:`checkpoint_host_bytes`).
 
-Not ported: ``estimate_coupled_bytes`` and ``check_coupled_budget`` (device
-groups, ROADMAP A7); ``ensemble`` (A7) raises by name.
+A coupled ``--groups`` run (:func:`estimate_coupled_bytes`) prices each
+group as its own run plus the interface transients of its transport, the
+TPU package's arithmetic; where groups share a card (virtual devices) the
+card holds all of them at once, so the guard sums every group with shards
+on the card, each priced for the shards it has there, as
+:func:`shards_on_card` does for one mesh.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import List, Optional, Sequence, Tuple
 
@@ -366,6 +371,102 @@ def checkpoint_host_bytes(stencil: Stencil, grid: Sequence[int],
     copies its overlap; its blocks are this run's size when the mesh is
     the writer's)."""
     return math.prod(_local_shape(grid, mesh)) * stencil.dtype.itemsize
+
+
+def _coupled_group_bytes(p, traffic, g: int, collective: bool,
+                         shards: int) -> Tuple[int, Parts]:
+    """One group of a coupled run on one card: its own run's estimate for
+    ``shards`` of its shards there, plus the interface transients the
+    coupling adds on its devices (the TPU package's terms, charged
+    unsharded: an upper bound)."""
+    s = p.spec
+    total, parts = estimate_run_bytes(
+        p.stencil, p.grid, mesh=p.mesh_shape,
+        fuse=s.fuse_k if s.fuse_k > 1 else 0,
+        fuse_kind=s.kind or "auto",
+        overlap=bool(s.overlap_mode), pipeline=bool(s.pipeline_mode),
+        shards_per_device=shards)
+    extra: Parts = []
+
+    def iface(t, send_dir, recv_dir):
+        send_b = t[send_dir]["send_bytes"]
+        recv_b = t[recv_dir]["recv_bytes"]
+        if collective:
+            extra.append((f"interface {t['interface']}: raw staged "
+                          f"rows ({send_dir})", send_b))
+            extra.append((f"interface {t['interface']}: collective "
+                          f"wire chunk ({send_dir})", send_b))
+            extra.append((f"interface {t['interface']}: band recv "
+                          f"({recv_dir})", recv_b))
+        else:
+            extra.append((f"interface {t['interface']}: staged send "
+                          f"({send_dir})", send_b))
+            extra.append((f"interface {t['interface']}: band recv "
+                          f"({recv_dir})", recv_b))
+
+    if g < len(traffic):  # this group is the low side of interface g
+        iface(traffic[g], "up", "down")
+    if g > 0:  # ... and the high side of interface g-1
+        iface(traffic[g - 1], "down", "up")
+    return total + sum(b for _, b in extra), list(parts) + extra
+
+
+def estimate_coupled_bytes(plans, transport: str = "",
+                           devices=None) -> Tuple[int, list]:
+    """Peak device bytes of a coupled ``--groups`` run: ``(worst,
+    [(group name, total, parts), ...])``.
+
+    Each group is priced as its own run (:func:`estimate_run_bytes` of its
+    stencil, grid, mesh and clause modes) plus its interface transients:
+    ``device_put`` a staged send and a band receive a direction,
+    ``collective`` the raw staged rows, the wire chunk and the band
+    receive (the TPU package's terms).  ``devices`` (one device list a
+    group, ``GroupPlan.devices``) says which groups share a card: each
+    group is priced for the most shards it has on one card, and ``worst``
+    is the largest card's sum over the groups it holds, each for its
+    shards there.  Without ``devices`` every group has cards of its own
+    (one shard a card) and ``worst`` is the worst group's, as in the TPU
+    package."""
+    from ..parallel import groups as groups_lib
+
+    transport = transport or groups_lib.TRANSPORT_BACKEND
+    collective = transport == "collective"
+    traffic = groups_lib.interface_traffic(plans)
+    details = []
+    on_card: dict = {}
+    for g, p in enumerate(plans):
+        devs = list(devices[g]) if devices is not None else \
+            [(g, j) for j in range(p.spec.n_devices)]
+        counts = collections.Counter(devs)
+        priced = {n: _coupled_group_bytes(p, traffic, g, collective, n)
+                  for n in set(counts.values())}
+        details.append((p.name, *priced[max(counts.values())]))
+        for d, n in counts.items():
+            on_card[d] = on_card.get(d, 0) + priced[n][0]
+    return max(on_card.values()), details
+
+
+def check_coupled_budget(plans, hbm_bytes: Optional[int] = None,
+                         transport: str = "",
+                         devices=None) -> Tuple[int, list]:
+    """The ``check_budget`` of a coupled run: raise ValueError with the
+    arithmetic when a card cannot hold its groups."""
+    hbm = hbm_bytes if hbm_bytes is not None else device_hbm_bytes()
+    worst, details = estimate_coupled_bytes(plans, transport=transport,
+                                            devices=devices)
+    if worst > hbm:
+        body = "\n".join(
+            f"  group {name}:\n" + format_budget(total, parts, hbm)
+            for name, total, parts in details)
+        raise ValueError(
+            f"--groups: the groups on one card need ~{worst / 2**30:.2f} "
+            f"GiB but device memory is {hbm / 2**30:.2f} GiB; refusing "
+            "before allocating. Breakdown:\n" + body
+            + "\nLevers: a bf16 group dtype halves its state bytes; "
+            "spreading the groups over more cards shrinks each card's "
+            "share; a smaller :z fraction shrinks the hot region; "
+            "--mem-check warn overrides this guard.")
+    return worst, details
 
 
 def format_budget(total: int, parts: Parts, hbm: int) -> str:

@@ -340,6 +340,7 @@ def init_state_sharded(
     periodic: bool = False,
     ensemble: int = 0,
     perturb: float = 0.0,
+    window=None,
 ) -> Fields:
     """The initial fields decomposed over ``mesh`` (``ShardedField`` s):
     only the blocks of the shards this process holds, each computed on its
@@ -349,20 +350,33 @@ def init_state_sharded(
     ``ensemble`` N > 0: batched fields, each block ``(N_local, *local)``
     holding its ensemble group's members (all N without an ensemble mesh
     axis), each member's block from seed + i and perturbed as in
-    :func:`init_state`."""
+    :func:`init_state`.
+
+    ``window=(origin, shape)``: the fields of the sub-grid ``shape`` whose
+    first cell sits at ``origin`` of ``grid_shape`` (a device group's rows,
+    ``parallel/groups.py``), decomposed over ``mesh``: each block is the
+    init of ``grid_shape`` at its global offsets, frame included, so the
+    sub-grid equals the slice of the whole grid's init without any device
+    holding the whole grid."""
     from ..parallel.stepper import (ShardedField, ensemble_members_local,
                                     shard_offsets)
 
     grid_shape = tuple(int(g) for g in grid_shape)
-    counts = mesh.counts(len(grid_shape))
-    if any(g % c for g, c in zip(grid_shape, counts)):
-        raise ValueError(f"grid {grid_shape} not divisible by mesh "
+    origin, shape = window or ((0,) * len(grid_shape), grid_shape)
+    shape = tuple(int(g) for g in shape)
+    if any(o < 0 or o + n > g for o, n, g in zip(origin, shape, grid_shape)):
+        raise ValueError(f"window {shape} at {tuple(origin)} leaves the "
+                         f"grid {grid_shape}")
+    counts = mesh.counts(len(shape))
+    if any(g % c for g, c in zip(shape, counts)):
+        raise ValueError(f"grid {shape} not divisible by mesh "
                          f"{mesh.shape}")
     n_local = ensemble_members_local(mesh, ensemble)
-    local = tuple(g // c for g, c in zip(grid_shape, counts))
+    local = tuple(g // c for g, c in zip(shape, counts))
     per_field = [[] for _ in range(stencil.num_fields)]
     for c in mesh.local_coords():
-        offsets = shard_offsets(mesh.spatial(c), local)
+        offsets = tuple(o + s for o, s in zip(
+            origin, shard_offsets(mesh.spatial(c), local)))
         if n_local:
             first = mesh.group(c) * n_local
             block = _members_block(
@@ -374,6 +388,6 @@ def init_state_sharded(
                                 density)
         for f, b in zip(per_field, block):
             f.append(b)
-    shape = (int(ensemble),) * bool(n_local) + grid_shape
+    shape = (int(ensemble),) * bool(n_local) + shape
     return tuple(ShardedField(b, mesh, shape, lead=int(bool(n_local)))
                  for b in per_field)

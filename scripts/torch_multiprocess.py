@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, 5f, 5g, 5h), repeated.
+phase 5d (or 5e, 5f, 5g, 5h, 5i), repeated.
 
     python3 scripts/torch_multiprocess.py [--repeat N]
-        [--phase 5d|5e|5f|5g|5h]
+        [--phase 5d|5e|5f|5g|5h|5i]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -30,6 +30,11 @@ then the sanitizers' blow-ups and the dumps on the card.  ``--phase 5h``
 runs ``chip_smoke.ensemble_phase``: every batched kernel against its plain
 version and its members' own launches, then every ``ENS_RUNS`` run
 (``--ensemble``) beside the unbatched runs of its first and last members.
+``--phase 5i`` runs ``chip_smoke.groups_phase``: every ``GROUP_RUNS``
+``--groups`` run under both transports (bit-equal to each other and to
+its monolithic twin or the plain versions of its kernels; peak beside the
+coupled estimate), then ms a round, the exchange's share and launches a
+round by CUDA events beside the twin's.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
-    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h"],
+    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i"],
                    default="5d")
     args = p.parse_args()
     import torch
@@ -91,6 +96,12 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5i":
+            out = cs.groups_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "groups", "repeat": rep,
+                     "runs": len(out["runs"]), "launches": out["launches"],
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5h":

@@ -443,13 +443,14 @@ def test_budget_rdma_prices_received_slabs_not_rings(dt, grid, mesh):
 
 
 def test_budget_drops_the_tpu_only_functions_and_refuses_unported():
-    """ring_vmem_bytes (VMEM) and the coupled-run budget (device groups,
-    A7) are not in the port; ensemble (A7) is priced by the members a
-    shard holds; pipeline adds the carried slab set (the JAX package's
-    term: one slab set)."""
-    for fn in ("ring_vmem_bytes", "estimate_coupled_bytes",
-               "check_coupled_budget"):
-        assert hasattr(jbudget, fn) and not hasattr(tbudget, fn)
+    """ring_vmem_bytes (VMEM) is not in the port; the coupled-run budget
+    (device groups, A7) is (tests/test_torch_groups.py); ensemble (A7) is
+    priced by the members a shard holds; pipeline adds the carried slab
+    set (the JAX package's term: one slab set)."""
+    assert hasattr(jbudget, "ring_vmem_bytes")
+    assert not hasattr(tbudget, "ring_vmem_bytes")
+    for fn in ("estimate_coupled_bytes", "check_coupled_budget"):
+        assert hasattr(jbudget, fn) and hasattr(tbudget, fn)
     assert tbudget._OVERHEAD_FRAC == jbudget._OVERHEAD_FRAC == 0.10
     st = port.make_stencil("heat3d")
     one, _ = tbudget.estimate_run_bytes(st, (64,) * 3)

@@ -292,6 +292,23 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      then ms a coupled round, the exchange's share, launches a round and
      the monolithic twin's ms for the same steps, by CUDA events.  The
      kernels line gives each kernel's groups_launches;
+  5j. the observability layer (--telemetry, --health, --halo-audit,
+     --anomaly, --profile): BASELINE config 3 (heat3d 1024^3 --mesh 2,2,
+     4 virtual devices) with --fuse 4 --fuse-kind stream (K10) beside
+     its obs-off twin: fields bit-equal, the step's launch counters
+     equal, the log valid, every health record HEALTHY, every audit
+     clean, no anomaly, the recorder's peak at or under --mem-check's
+     estimate; the same with --exchange rdma --halo-audit 1 (the
+     audit's ring_exchange launches under their own keys); a child with
+     FAULT_INJECT=numerics:step=20:nan that must exit DIVERGED at step
+     20 with no checkpoint past 16 and a valid flight-recorder bundle;
+     --profile on K9 --overlap (the attribution available: device-busy,
+     interior and exchange time, overlap efficiency, idle share); 4
+     processes (gloo-host) whose health records equal the one-process
+     run's; phase 5i's config 3 split with per-group records; the
+     heartbeat's probe and its CUDA context's bytes; ms/step with obs
+     on and off, ms a health check and an audit pass, by CUDA events.
+     The kernels line gives each kernel's obs_launches;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -1185,14 +1202,16 @@ def multiprocess_phase(counted, lines, main_launches, scratch, runs=MP_RUNS,
 
 def _cli_processes(world, argv, env_extra=None):
     """``world`` processes of the port's CLI on the card (the launcher's
-    variables and a free port when more than one); returns (return codes,
-    stderr texts), each process bounded by MP_TIMEOUT."""
+    variables and a free port when more than one; no virtual devices
+    unless ``env_extra`` sets them); returns (return codes, stderr
+    texts), each process bounded by MP_TIMEOUT."""
     import socket
 
     from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
 
-    env = dict(os.environ, PYTHONPATH=HERE, **(env_extra or {}))
+    env = dict(os.environ, PYTHONPATH=HERE)
     env.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+    env.update(env_extra or {})
     if world > 1:
         with socket.socket() as sk:
             sk.bind(("localhost", 0))
@@ -2385,6 +2404,353 @@ def groups_phase(counted, lines, main_launches, scratch):
         emit({"phase": "groups_run", **row})
     os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
     return {"runs": rows, "launches": glaunch}
+
+
+# The observability layer (phase 5j, ROADMAP A8's first part): config 3
+# (heat3d 1024^3 --mesh 2,2 on 4 virtual devices) with every obs flag,
+# each run beside its obs-off twin.
+OBS_BASE = ("--stencil", "heat3d", "--grid", "1024,1024,1024", "--iters",
+            "40", "--init", "pulse", "--mesh", "2,2", "--fuse", "4")
+OBS_STREAM = OBS_BASE + ("--fuse-kind", "stream")
+OBS_PROFILED = OBS_BASE + ("--fuse-kind", "padfree", "--overlap")
+OBS_MP_ITERS = "16"
+OBS_ALTERNATIONS = 3
+OBS_CALLS = 10  # step calls a timed chunk (40 steps)
+
+
+def obs_phase(counted, lines, main_launches, scratch):
+    """Phase 5j: the observability layer on the card (ROADMAP A8).
+
+    (a) config 3 ``--fuse 4 --fuse-kind stream`` (K10 YZSLAB), 40
+    iterations, with ``--telemetry --health --halo-audit 2 --anomaly``
+    beside its obs-off twin: final fields bit-equal, the same launch
+    counters, the log valid event by event, every health record HEALTHY,
+    every audit clean, no anomaly, the peak (the recorder's, boundaries
+    included) at or under ``--mem-check``'s estimate; then by CUDA events
+    in alternation ms/step with obs off and on (the step and the
+    recorder's synchronize and record a call, as the CLI's loop with an
+    observer runs it), ms a health check and ms an audit pass.
+    (b) (a) with ``--exchange rdma --halo-audit 1``: the audit's
+    re-exchange launches ``ring_exchange`` under its own 1-row-slab keys,
+    the step's keys equal the twin's, every pass clean (backend
+    ``cuda-ring``), fields bit-equal; ms an audit pass.  (c) (a) as a
+    child process with ``FAULT_INJECT=numerics:step=20:nan`` and
+    ``--log-every 4 --checkpoint-every 16``: it exits nonzero with
+    SimulationDiverged at step 20, the DIVERGED record names field 0 and
+    one non-finite cell, the newest checkpoint is step 16's, and the
+    flight-recorder bundle is valid.  (d) ``--profile`` on the K9
+    ``--overlap`` kind: the attribution is available, with device-busy,
+    interior and exchange ms, the overlap efficiency and the idle share.
+    (e) config 3 as 4 processes (gloo-host) with ``--telemetry
+    --health``: a log a process (process_index 0-3), the health records
+    identical across processes and to the one-process run's.  (f) phase
+    5i's config 3 split with ``--telemetry --health``: ``group_chunk``
+    events and HEALTHY records for every group.  Also the heartbeat
+    probe's verdict and its second context's bytes on the card.  Returns
+    ``{"runs": {...}, "launches": {key: n}}``."""
+    import statistics
+
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver
+    from mpi_cuda_process_tpu_torch.obs import flightrec, heartbeat
+    from mpi_cuda_process_tpu_torch.obs import health as health_lib
+    from mpi_cuda_process_tpu_torch.obs import runtime as runtime_lib
+    from mpi_cuda_process_tpu_torch.obs import trace as trace_lib
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.utils import budget
+
+    smi = nvidia_smi()
+    out, olaunch = {"card": smi}, {}
+    d = os.path.join(scratch, "obs")
+    os.makedirs(d, exist_ok=True)
+    os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
+
+    def add(got):
+        for key, n in got.items():
+            olaunch[key] = olaunch.get(key, 0) + n
+
+    def records(path):
+        manifest, events = trace_lib.validate_log(path)
+        if manifest["provenance"].get("nvidia_smi") != smi:
+            fail(f"obs: manifest names {manifest['provenance']} not {smi}")
+        return events
+
+    def same(a, b):
+        views = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+        return all(len(x) == len(y) and all(
+            torch.equal(p.view(views[p.dtype]), q.view(views[q.dtype]))
+            for p, q in zip(x, y)) for x, y in zip(a, b))
+
+    def run(argv, label):
+        """(fields, launches, allocated at the start, estimate, the
+        allocator's peak above the start) of one cli.run of ``argv`` on
+        the card."""
+        estimate = []
+        check = budget.check_budget
+
+        def spy(*a, **kw):
+            res = check(*a, **kw)
+            estimate.append(res[0])
+            return res
+
+        budget.check_budget = spy
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            (fields, _), got = counted(
+                lambda: cli.run(cli.config_from_args(list(argv))))
+        finally:
+            budget.check_budget = check
+        torch.cuda.synchronize()
+        if not estimate:
+            fail(f"obs {label}: --mem-check priced nothing")
+        add(got)
+        return (fields, got, before, estimate[-1],
+                torch.cuda.max_memory_allocated() - before)
+
+    def checked_log(path, label, audits_backend=None):
+        events = records(path)
+        health = [e for e in events if e["kind"] == "health"]
+        audits = [e for e in events if e["kind"] == "halo_audit"]
+        if not health or any(e["verdict"] != "HEALTHY" for e in health):
+            fail(f"obs {label}: health records {health[-1:]}")
+        if audits_backend is not None and (not audits or any(
+                not a["ok"] or a["backend"] != audits_backend
+                for a in audits)):
+            fail(f"obs {label}: audit records {audits[-1:]}")
+        found = [e for e in events if e["kind"] == "anomaly"]
+        if found:
+            fail(f"obs {label}: anomaly findings {found}")
+        summary = [e for e in events if e["kind"] == "summary"]
+        if not summary:
+            fail(f"obs {label}: no summary event")
+        return events, health, audits, summary[-1]
+
+    # ---- (a) and (b): the full run and the ring under the auditor --------
+    for label, argv, audit_k, backend in (
+            ("stream", OBS_STREAM, "2", "ppermute"),
+            ("stream_rdma", OBS_STREAM + ("--exchange", "rdma"), "1",
+             "cuda-ring")):
+        log = os.path.join(d, f"{label}.jsonl")
+        twin, tgot, _, _, twin_peak = run(argv, label + "_twin")
+        obs_argv = argv + ("--telemetry", log, "--health", "--halo-audit",
+                           audit_k, "--anomaly")
+        fields, got, before, estimate, _ = run(obs_argv, label)
+        if not same(twin, fields):
+            fail(f"obs {label}: fields differ from the obs-off twin")
+        del twin, fields
+        extra = {k: n for k, n in got.items() if k not in tgot}
+        step_keys = {k: n for k, n in got.items() if k in tgot}
+        if step_keys != tgot:
+            fail(f"obs {label}: the step's launches {step_keys} differ "
+                 f"from the twin's {tgot}")
+        if label == "stream" and extra:
+            fail(f"obs {label}: launches beyond the twin's: {extra}")
+        # the audit's slabs are one row deep on their axis
+        if label == "stream_rdma" and (not extra or any(
+                not k.startswith("ring_exchange[")
+                or "1" not in k[len("ring_exchange["):-1].split("x")
+                for k in extra)):
+            fail(f"obs {label}: the audit's ring launches {extra}")
+        events, health, audits, summary = checked_log(log, label, backend)
+        peak = summary["runtime"]["memory_peak_bytes"] - before
+        if peak > estimate:
+            fail(f"obs {label}: peak {peak} B above the estimate "
+                 f"{estimate} B")
+        out[label] = {"health_records": len(health),
+                      "audits": len(audits), "launches": got,
+                      "audit_launches": extra, "peak_bytes": peak,
+                      "twin_peak_bytes": twin_peak,
+                      "estimate_bytes": estimate,
+                      "log_events": len(events)}
+
+    # timing by CUDA events: the step alone (obs off) and the step with
+    # the recorder's synchronize and record a call (obs on), alternated;
+    # then a health check and an audit pass, each on its own
+    for label, argv in (("stream", OBS_STREAM),
+                        ("stream_rdma", OBS_STREAM + ("--exchange",
+                                                      "rdma"))):
+        cfg = cli.config_from_args(list(argv))
+        st, step_fn, fields, _ = cli.build(cfg)
+        box = [fields]
+        rec = runtime_lib.RuntimeRecorder(step_unit=4, cuda=True)
+        mon = health_lib.HealthMonitor(st)
+        aud = health_lib.HaloAuditor(st, fields[0].mesh, cfg.grid,
+                                     exchange=cfg.exchange)
+
+        def call_off():
+            box[0] = step_fn(box[0])
+
+        def call_on():
+            rec.begin_chunk()
+            t0 = time.perf_counter()
+            box[0] = driver.synchronize(step_fn(box[0]))
+            rec.record_chunk(1, time.perf_counter() - t0)
+
+        def timed(fn, n):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            for _ in range(n):
+                fn()
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1) / n
+
+        timed(call_off, 2)
+        timed(lambda: mon.check(0, box[0]), 1)
+        timed(lambda: aud.audit(box[0], 0), 1)
+        offs, ons, checks, passes = [], [], [], []
+        for _ in range(OBS_ALTERNATIONS):
+            offs.append(timed(call_off, OBS_CALLS) / 4)
+            ons.append(timed(call_on, OBS_CALLS) / 4)
+            checks.append(timed(lambda: mon.check(0, box[0]), 3))
+            passes.append(timed(lambda: aud.audit(box[0], 0), 3))
+        if not aud.audit(box[0], 0)["ok"]:
+            fail(f"obs {label}: the timed audit found a mismatch")
+        if label == "stream":
+            # where a check's time goes: one block's slab-wise
+            # reduction, and each of its reductions over the whole block
+            b = box[0][0][0]
+            out[label]["health_split_ms"] = {
+                name: timed(fn, 3) for name, fn in (
+                    ("block_slabwise", lambda: health_lib._block_stats(
+                        b, 0, True)),
+                    ("amin", lambda: torch.amin(b)),
+                    ("amax", lambda: torch.amax(b)),
+                    ("sum_float64", lambda: torch.sum(
+                        b, dtype=torch.float64)),
+                    ("sum_float32", lambda: torch.sum(b)),
+                    ("isfinite_count", lambda: torch.isfinite(b).sum()))}
+            out[label]["health_split_block"] = list(b.shape)
+            del b
+        chunk_ms = 4 * statistics.median(offs)
+        out[label].update(
+            ms_per_step_off=offs, ms_per_step_on=ons,
+            on_over_off=statistics.median(ons) / statistics.median(offs),
+            health_ms=checks, audit_ms=passes,
+            health_share_of_4step_chunk=statistics.median(checks)
+            / chunk_ms)
+        del box, fields, step_fn, mon, aud
+        torch.cuda.empty_cache()
+
+    # ---- (c) an injected numerics fault, in a child ----------------------
+    ck = os.path.join(d, "fault_ck")
+    log = os.path.join(d, "fault.jsonl")
+    argv = OBS_STREAM + ("--telemetry", log, "--health", "--halo-audit",
+                         "2", "--anomaly", "--log-every", "4",
+                         "--checkpoint-every", "16", "--checkpoint-dir", ck)
+    rcs, errs = _cli_processes(1, list(argv), {
+        mesh_lib.VIRTUAL_DEVICES_ENV: "4",
+        "FAULT_INJECT": "numerics:step=20:nan"})
+    if rcs[0] == 0 or "SimulationDiverged" not in errs[0] or \
+            "DIVERGED at step 20" not in errs[0]:
+        fail(f"obs fault: rc {rcs[0]}, stderr {errs[0][-1500:]}")
+    _, events = trace_lib.validate_log(log)
+    bad = [e for e in events if e["kind"] == "health"][-1]
+    if bad["verdict"] != "DIVERGED" or bad["step"] != 20 or \
+            bad["fields"][0]["nonfinite"] != 1 or \
+            "field 0" not in (bad["reason"] or ""):
+        fail(f"obs fault: the DIVERGED record {bad}")
+    with open(os.path.join(ck, "meta.json")) as fh:
+        newest = json.load(fh)["step"]
+    if newest != 16:
+        fail(f"obs fault: the newest checkpoint is step {newest}")
+    bundle = flightrec.read_bundle(os.path.join(d, "fault.bundle.json"))
+    if bundle["verdict"] != "DIVERGED":
+        fail(f"obs fault: bundle verdict {bundle['verdict']}")
+    out["fault"] = {"rc": rcs[0], "diverged_step": bad["step"],
+                    "newest_checkpoint": newest,
+                    "bundle_events": len(bundle["events"])}
+    shutil.rmtree(ck, ignore_errors=True)
+
+    # ---- (d) the profiler on K9 --overlap --------------------------------
+    pdir = os.path.join(d, "profile")
+    log = os.path.join(d, "profile.jsonl")
+    run(OBS_PROFILED + ("--profile", pdir, "--telemetry", log), "profile")
+    att = [e for e in records(log) if e["kind"] == "profile"]
+    if not att or att[0]["attribution"] != "ok":
+        fail(f"obs profile: {att}")
+    att = att[0]
+    # K9 --overlap exchanges every step: a classifier that counted its
+    # halo copies as interior work would read comm 0 and still say "ok"
+    if not (att["comm_us"] > 0 and att["overlap_efficiency"] is not None
+            and att["compute_us"] < att["device_busy_us"]
+            and sum(att["comm_events"].values()) > 0
+            and 0.0 <= (att.get("idle_share") or -1.0) <= 1.0):
+        fail(f"obs profile: no exchange attributed on K9 --overlap: {att}")
+    out["profile"] = {k: att.get(k) for k in (
+        "profiled_chunk", "n_device_events", "device_busy_us",
+        "compute_us", "comm_us", "comm_events", "exposed_comm_us",
+        "overlap_efficiency", "idle_share", "chunk_wall_us",
+        "device_span_us")}
+    shutil.rmtree(pdir, ignore_errors=True)
+
+    # ---- (e) 4 processes over gloo-host ----------------------------------
+    mp = list(OBS_STREAM)
+    mp[mp.index("--iters") + 1] = OBS_MP_ITERS
+    log = os.path.join(d, "mp.jsonl")
+    rcs, errs = _cli_processes(4, mp + ["--telemetry", log, "--health"])
+    if any(rcs):
+        fail(f"obs 4 processes: rcs {rcs}, {errs[rcs.index(max(rcs))][-1500:]}")
+    one = os.path.join(d, "one.jsonl")
+    run(mp + ["--telemetry", one, "--health"], "one_process")
+
+    def health_of(path):
+        return [{k: v for k, v in e.items() if k != "t"}
+                for e in records(path) if e["kind"] == "health"]
+
+    want = health_of(one)
+    stem, ext = os.path.splitext(log)
+    for r in range(4):
+        path = log if r == 0 else f"{stem}.p{r}{ext}"
+        manifest, _ = trace_lib.validate_log(path)
+        if manifest["provenance"]["process_index"] != r or \
+                manifest["provenance"]["process_count"] != 4:
+            fail(f"obs 4 processes: manifest of {path}: "
+                 f"{manifest['provenance']}")
+        if health_of(path) != want:
+            fail(f"obs 4 processes: process {r}'s health records differ "
+                 "from the one-process run's")
+    out["multiprocess"] = {"processes": 4, "health_records": len(want)}
+
+    # ---- (f) groups -------------------------------------------------------
+    label, stencil, grid, spec, vdev, _, expect = GROUP_RUNS[0]
+    os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = str(vdev)
+    log = os.path.join(d, "groups.jsonl")
+    gargv = ["--stencil", stencil, "--grid", ",".join(map(str, grid)),
+             "--iters", str(GROUP_ROUNDS), "--groups", spec, "--telemetry",
+             log, "--health"]
+    _, got = counted(lambda: cli.run(cli.config_from_args(gargv)))
+    add(got)
+    events = records(log)
+    names = sorted({e["group"] for e in events
+                    if e["kind"] == "group_chunk"})
+    health = [e for e in events if e["kind"] == "health"]
+    if len(names) != 2 or sorted({e["group"] for e in health}) != names \
+            or any(e["verdict"] != "HEALTHY" for e in health):
+        fail(f"obs groups: groups {names}, health {health[-2:]}")
+    out["groups"] = {"label": label, "groups": names,
+                     "group_chunks": sum(e["kind"] == "group_chunk"
+                                         for e in events),
+                     "health_records": len(health)}
+
+    # ---- the heartbeat probe on the card ---------------------------------
+    v = heartbeat.probe_verdict(timeout_s=60.0)
+    if v["verdict"] != "CARD_HEALTHY":
+        fail(f"obs heartbeat probe: {v}")
+    out["heartbeat_probe"] = {"verdict": v["verdict"],
+                              "context_bytes": v.get("context_bytes"),
+                              "wall_s": [p.get("wall_s")
+                                         for p in v["probes"]]}
+    os.environ.pop(mesh_lib.VIRTUAL_DEVICES_ENV, None)
+    shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "obs_run", **out})
+    return {"runs": out, "launches": olaunch}
 
 
 def card_rates(name: str):
@@ -4351,6 +4717,18 @@ def main() -> int:
                   "max_memory_allocated above what was held, beside the "
                   "coupled --mem-check estimate (the groups summed)"})
 
+    # ---- 5j. the observability layer ----------------------------------------
+    p5j = obs_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "obs", "ok": True, "seconds": took(), "card": smi,
+          "runs": sorted(p5j["runs"]), "launches": p5j["launches"],
+          "note": "config 3 on 4 virtual devices (one card: not scaling); "
+                  "ms_per_step_off / _on: the step alone and with the "
+                  "recorder's synchronize and record a call, CUDA events "
+                  "over 10 calls, alternated; health_ms / audit_ms: one "
+                  "check / pass by CUDA events; peak_bytes: the "
+                  "recorder's run peak (boundaries included) above what "
+                  "was held, beside --mem-check's estimate"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -4524,6 +4902,7 @@ def main() -> int:
             "source": f"{PKG}/ops/cuda/csrc/{src}", "replaces": replaces,
             "launches": main_launches.get(key, 0),
             "groups_launches": p5i["launches"].get(key, 0),
+            "obs_launches": p5j["launches"].get(key, 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "steps_per_launch": k, "shape": list(shape),
@@ -5498,7 +5877,8 @@ def main() -> int:
         kernels_out[-1].update(
             dtype=dtype, members=members, atol=atol,
             launches=main_launches.get(key, 0),
-            groups_launches=p5i["launches"].get(key, 0))
+            groups_launches=p5i["launches"].get(key, 0),
+            obs_launches=p5j["launches"].get(key, 0))
 
     st = make_stencil("life")
     ins = ((rand((64, 130, 130)) < 0.35).to(torch.int32),)

@@ -99,6 +99,21 @@ axis 0, each with its own op, refinement ratio, dtype, mesh and mode tokens
 round by ``--group-transport`` (``device_put`` or ``collective``, the same
 bits); it runs in one process, over the visible cards or over virtual
 devices on one card, and is refused under a multi-process launcher.
+The observability layer (``obs/``): ``--telemetry PATH`` writes the JSONL
+event log (a provenance-stamped manifest, a record a chunk, heartbeat
+verdicts, the summary; under a multi-process launch process r > 0 writes
+``PATH`` with ``.p<r>`` before its extension), ``--health`` checks every
+field at each chunk boundary (min/max/mean, NaN/Inf counts, the op's
+invariant; DIVERGED aborts before that boundary's checkpoint),
+``--halo-audit K`` re-exchanges and compares the ghost slabs bit for bit
+every K chunks, ``--anomaly`` flags performance anomalies (a run that
+ends with findings leaves a flight-recorder bundle), ``--profile DIR``
+scopes a ``torch.profiler`` session to one steady-state chunk and
+attributes the card's time to the interior and the exchange, and
+``--profile-dir DIR`` traces the whole time loop; none of them changes
+the step's ops or launches.  ``FAULT_INJECT``'s ``numerics`` site poisons
+one cell at a chunk boundary and its ``heartbeat`` site wedges the
+heartbeat's probe.
 ``--device`` (default ``cuda``) picks where the state lives; asking for
 ``cuda`` without a card raises, it never carries on on the CPU.  Only the
 flags the port runs are registered; a combination that needs a kernel or
@@ -108,6 +123,7 @@ module not ported yet raises, naming its ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import math
@@ -236,6 +252,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="debug mode: every step asserts all fields finite "
                         "(the error names the exact failing step); slower "
                         "— complements --check-finite's polling")
+    p.add_argument("--health", action="store_true",
+                   help="numerics sentinel (obs/health.py): at every "
+                        "chunk boundary a health reduction outside the "
+                        "step computes per-field global min/max/mean and "
+                        "NaN/Inf counts plus the op's registered "
+                        "invariant (heat: total heat; wave: the leapfrog "
+                        "discrete energy; sor: the residual norm), block "
+                        "by block on the device and combined across "
+                        "processes, never gathering field state; a "
+                        "DIVERGED verdict aborts the run before that "
+                        "boundary's checkpoint.  With no logging cadence "
+                        "a ~8-chunk boundary cadence is synthesized")
+    p.add_argument("--anomaly", action="store_true",
+                   help="run doctor (obs/anomaly.py): performance-anomaly "
+                        "detection at chunk boundaries from the chunk "
+                        "records (throughput collapse against the run's "
+                        "own baseline, kernel library loads after chunk "
+                        "0, device-memory creep, growing chunk-time "
+                        "variance, boundary stalls, straggler groups); "
+                        "findings are 'anomaly' events and a DEGRADED "
+                        "verdict, and a run that ends with findings "
+                        "leaves a flight-recorder bundle beside its "
+                        "telemetry log")
+    p.add_argument("--halo-audit", type=int, default=0, metavar="K",
+                   help="exchange audit (obs/health.py), every K chunks: "
+                        "re-exchange the ghost slabs through the run's "
+                        "transport (--exchange ppermute or rdma) and "
+                        "compare every received slab bit for bit with "
+                        "the neighbour's border rows read straight from "
+                        "its block (an all_gather across processes); a "
+                        "mismatch aborts naming the (field, axis, "
+                        "direction, ring-shard) site.  Needs a sharded "
+                        "--mesh")
     p.add_argument("--dump-every", type=int, default=0,
                    help="async-dump field0 snapshots every N steps (.npy, "
                         "non-blocking via the native writer pool)")
@@ -283,6 +332,33 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--render", action="store_true",
                    help="ASCII-render the final grid")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the WHOLE "
+                        "time loop (raw trace only; for chunk-scoped "
+                        "attribution use --profile)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="device-trace attribution (obs/profile.py): scope "
+                        "a torch.profiler session to ONE steady-state "
+                        "chunk (the first after the kernel build and "
+                        "warm-up; started and stopped at chunk "
+                        "boundaries, the step untouched), then bucket "
+                        "the card's time into interior compute and the "
+                        "exchange (NCCL and ring kernels, peer copies, "
+                        "halo.py's pad and slab copies) with a measured "
+                        "overlap efficiency and the chunk's idle share, "
+                        "logged and, with --telemetry, recorded as a "
+                        "'profile' event.  On the CPU (no device lanes) "
+                        "the record says 'attribution: unavailable'")
+    p.add_argument("--telemetry", default=None, metavar="PATH",
+                   help="write a JSONL telemetry event log: a "
+                        "provenance-stamped run manifest (config, mesh, "
+                        "git sha, PyTorch and CUDA versions, the card's "
+                        "name and power limit), per-chunk runtime stats "
+                        "(first chunk vs steady state, kernel library "
+                        "loads mid-run, device-memory peaks), heartbeat "
+                        "verdicts and a summary; under a multi-process "
+                        "launch process r > 0 writes PATH with .p<r> "
+                        "before its extension")
     p.add_argument("--compute", default="auto",
                    choices=["auto", "jnp", "pallas"],
                    help="auto: the path the dispatch tables measured "
@@ -366,7 +442,9 @@ def config_from_args(argv=None) -> RunConfig:
         dump_every=a.dump_every, dump_dir=a.dump_dir,
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
-        render=a.render, compute=a.compute, overlap=a.overlap,
+        render=a.render, profile_dir=a.profile_dir, profile=a.profile,
+        telemetry=a.telemetry, health=a.health, anomaly=a.anomaly,
+        halo_audit=a.halo_audit, compute=a.compute, overlap=a.overlap,
         pipeline=a.pipeline, fuse=a.fuse, ensemble=a.ensemble,
         ensemble_mesh=a.ensemble_mesh, ensemble_perturb=a.ensemble_perturb,
         tol=a.tol, tol_check_every=a.tol_check_every,
@@ -429,12 +507,6 @@ _COMPUTE_FN_WINS: dict = {
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
 _UNPORTED = (
-    ("profile", "--profile", "A8 (observability)"),
-    ("profile_dir", "--profile-dir", "A8 (observability)"),
-    ("telemetry", "--telemetry", "A8 (observability)"),
-    ("health", "--health", "A8 (observability)"),
-    ("halo_audit", "--halo-audit", "A8 (observability)"),
-    ("anomaly", "--anomaly", "A8 (observability)"),
     ("supervise", "--supervise", "A8 (resilience)"),
     ("serve_port", "--serve", "A8 (observability)"),
     ("serve_engine", "--serve-engine", "A8 (serving)"),
@@ -453,13 +525,6 @@ def _refuse_unported(cfg: RunConfig) -> None:
         if getattr(cfg, field) != getattr(defaults, field):
             raise NotImplementedError(
                 f"the port does not run {flag} yet: ROADMAP {item}")
-    spec = faults.numerics_requested()
-    if spec is not None:
-        # a requested fault is never ignored: its poison needs obs.health
-        raise NotImplementedError(
-            f"FAULT_INJECT {spec.raw!r}: the numerics fault poisons the "
-            "state through the observability layer's health sentinel, "
-            "which the port does not have yet: ROADMAP A8 (observability)")
 
 
 def _device(cfg: RunConfig) -> torch.device:
@@ -995,10 +1060,22 @@ def _save_ckpt(cfg: RunConfig, fields, step: int):
             cfg.checkpoint_dir, fields, step, dataclasses.asdict(cfg))
 
 
-def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool):
+def _session_span(session, name: str, **attrs):
+    """A span on the session's emitter, or a null context without one
+    (spans are never load-bearing: obs/spans.py)."""
+    from .obs import spans as spans_lib
+
+    return spans_lib.maybe_span(
+        getattr(session, "spans", None), name, **attrs)
+
+
+def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool,
+              session=None):
     """Shared run tail: final checkpoint + optional ASCII render."""
     if save_ckpt and cfg.checkpoint_dir:
-        _save_ckpt(cfg, fields, final_step)
+        with _session_span(session, "checkpoint", step=final_step,
+                           final=True):
+            _save_ckpt(cfg, fields, final_step)
     if cfg.render:
         f = fields[0]
         if stepper_lib.is_sharded(fields):
@@ -1010,33 +1087,231 @@ def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool):
 
 def run(cfg: RunConfig) -> Tuple:
     """Execute a configured run; returns (final_fields, mcells_per_s)."""
+    if not cfg.groups:
+        cfg = maybe_auto_fuse(cfg)
+    return _run_once(cfg)
+
+
+def _process_tag() -> str:
+    """``".p<r>"`` for process r > 0 of a multi-process launch, else
+    empty: the suffix of each process's own trace files."""
+    from .obs import trace as trace_lib
+
+    rank, world = trace_lib.process_identity()
+    return f".p{rank}" if world > 1 and rank else ""
+
+
+def _open_telemetry(cfg: RunConfig):
+    """Telemetry session for ``--telemetry PATH`` (obs/): the manifest is
+    written up front (a run that dies in set-up still leaves its
+    provenance), the heartbeat starts at once, and the recorder becomes
+    ``run_simulation``'s chunk-boundary observer.  Process r > 0 of a
+    multi-process launch writes its own log (``trace.process_log_path``)."""
+    from . import obs
+    from .obs import trace as trace_lib
+
+    extra = {}
     if cfg.groups:
-        return _run_coupled(cfg)
-    cfg = maybe_auto_fuse(cfg)
+        # the manifest's `groups` block: one resolved entry per group
+        # (best-effort: a malformed spec raises in _run_coupled with the
+        # session open to record the error)
+        try:
+            extra["groups"] = [
+                dict(p.describe(), transport=cfg.group_transport)
+                for p in groups_lib.plans_from_config(
+                    cfg.groups, cfg.grid, default_dtype=cfg.dtype or None)]
+        except Exception:  # noqa: BLE001 — see above
+            pass
+    return obs.open_session(
+        trace_lib.process_log_path(cfg.telemetry), tool="cli",
+        run=dataclasses.asdict(cfg), step_unit=max(1, cfg.fuse),
+        ensemble=cfg.ensemble, **extra)
+
+
+def _attach_anomaly(cfg: RunConfig, session, cells: int) -> None:
+    """Hang the run doctor (obs/anomaly.py) off the session recorder for
+    ``--anomaly``.  The port keeps no campaign ledger yet (ROADMAP A8),
+    so the monitor has no ``best_known`` band: own-baseline detection
+    only, as the TPU package's without a ledger row.  Never load-bearing:
+    a construction failure leaves the run undoctored, not dead."""
+    if not cfg.anomaly or session is None:
+        return
+    try:
+        import socket
+
+        from .obs import anomaly as anomaly_lib
+        from .obs import trace as trace_lib
+
+        try:
+            ident = (f"{socket.gethostname()}|"
+                     f"p{trace_lib.process_identity()[0]}")
+        except Exception:  # noqa: BLE001
+            ident = "?|p?"
+        session.recorder.anomaly = anomaly_lib.AnomalyMonitor(
+            trace=session.trace, spans=session.spans, ident=ident,
+            cells=cells, best_known=None)
+    except Exception:  # noqa: BLE001
+        log.debug("--anomaly monitor construction failed; run proceeds "
+                  "undoctored", exc_info=True)
+
+
+def _maybe_bundle(session, reason: str, verdict=None) -> None:
+    """Terminal-verdict flight-recorder bundle (obs/flightrec.py), on an
+    error or DIVERGED abort or a clean exit with anomaly findings;
+    ``bundle_from_session`` swallows every failure."""
+    from .obs import flightrec as flightrec_lib
+
+    path = flightrec_lib.bundle_from_session(session, reason,
+                                             verdict=verdict)
+    if path:
+        log.info("flight-recorder bundle: %s", path)
+
+
+def _run_once(cfg: RunConfig) -> Tuple:
+    """One run, inside its telemetry session when ``--telemetry`` asks
+    for one: the error event and the bundle on a failed run, the bundle
+    of a run that finished DEGRADED."""
+    if not cfg.telemetry:
+        return _run_measured(cfg, None)
+    session = _open_telemetry(cfg)
+    try:
+        result = _run_measured(cfg, session)
+        mon = getattr(session.recorder, "anomaly", None)
+        if mon is not None and mon.count:
+            _maybe_bundle(session, "degraded", verdict="DEGRADED")
+        return result
+    except BaseException as e:
+        session.error(e)
+        from .obs import health as health_lib
+
+        verdict = "DIVERGED" if isinstance(
+            e, health_lib.SimulationDiverged) else None
+        _maybe_bundle(session, f"error:{type(e).__name__}",
+                      verdict=verdict)
+        raise
+    finally:
+        session.close()
+
+
+@contextlib.contextmanager
+def _profiled(cfg: RunConfig):
+    """A ``torch.profiler`` session over the time loop for
+    ``--profile-dir`` (its Chrome trace written there as
+    ``run[.p<r>].trace.json``); a null context otherwise."""
+    if not cfg.profile_dir:
+        yield
+        return
+    from .obs import profile as profile_lib
+
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    prof = profile_lib._start_torch_profiler(cfg.profile_dir)
+    try:
+        yield
+    finally:
+        profile_lib.ChunkProfiler._stop_torch(prof, os.path.join(
+            cfg.profile_dir, f"run{_process_tag()}.trace.json"))
+
+
+def _check_obs_flags(cfg: RunConfig) -> None:
+    """The observability flags' refusals (the TPU package's checks and
+    messages), before any build."""
+    if cfg.profile and cfg.profile_dir:
+        raise ValueError("--profile and --profile-dir both open a "
+                         "profiler session and profilers do not nest; "
+                         "pick the chunk-scoped (--profile) or "
+                         "whole-run (--profile-dir) trace")
+    if cfg.profile and cfg.tol > 0:
+        raise ValueError("--profile scopes one steady-state chunk; "
+                         "--tol runs inside a single while_loop with no "
+                         "chunk boundary to scope")
+    if cfg.halo_audit < 0:
+        raise ValueError("--halo-audit takes a positive chunk cadence K")
+    if cfg.halo_audit and not (cfg.mesh and any(c > 1 for c in cfg.mesh)):
+        raise ValueError(
+            "--halo-audit re-exchanges ghost slabs across a device "
+            "mesh; it needs a spatially sharded --mesh (an unsharded "
+            "run has no exchange to audit)")
+    if cfg.halo_audit and cfg.tol > 0:
+        raise ValueError(
+            "--halo-audit runs at chunk boundaries; --tol runs inside "
+            "one while_loop with no boundary to audit at")
+
+
+def _run_measured(cfg: RunConfig, session) -> Tuple:
+    if cfg.groups:
+        return _run_coupled(cfg, session)
     if cfg.debug_checks and cfg.fuse:
         raise ValueError("--debug-checks excludes --fuse (the fused "
                          "kernel replaces the step being instrumented)")
+    _check_obs_flags(cfg)
+    build_t0, build_m0 = time.time(), time.perf_counter()
     st, step_fn, fields, start_step = build(cfg)
+    build_s = time.perf_counter() - build_m0
+    if session is not None:
+        if start_step:
+            session.event("resume", resumed_from_step=start_step)
+            if session.spans is not None:
+                session.spans.emit("resume", start=build_t0,
+                                   dur_s=build_s,
+                                   resumed_from_step=start_step)
+        if cfg.exchange == "rdma":
+            # which path carries the ring: the kernels on cards, their
+            # plain versions on the CPU (never read as a measured ring)
+            session.event(
+                "exchange", mode="rdma",
+                backend=getattr(step_fn, "_rdma_backend", "unknown"))
     remaining = cfg.iters - start_step
     if remaining <= 0:
         log.info("checkpoint already at step %d >= iters", start_step)
+        if session is not None:
+            session.finish(steps=0, mcells_per_s=0.0,
+                           note="checkpoint already at/past iters")
         return fields, 0.0
     # every member's cells: an ensemble advances N grids a step
     cells = math.prod(cfg.grid) * max(1, cfg.ensemble)
     step_unit = max(1, cfg.fuse)
+
+    # the numerics sentinel and the exchange audit: chunk-boundary
+    # observers outside the step (obs/health.py)
+    monitor = auditor = None
+    if cfg.health:
+        from .obs import health as health_lib
+
+        monitor = health_lib.HealthMonitor(
+            st, trace=session.trace if session is not None else None,
+            ensemble=cfg.ensemble,
+            spans=session.spans if session is not None else None)
+    if cfg.halo_audit:
+        from .obs import health as health_lib
+
+        auditor = health_lib.HaloAuditor(
+            st, fields[0].mesh, cfg.grid, exchange=cfg.exchange,
+            periodic=cfg.periodic,
+            trace=session.trace if session is not None else None)
+    _attach_anomaly(cfg, session, cells)
+
     if cfg.tol > 0:
         return _run_until_converged(cfg, st, step_fn, fields, start_step,
-                                    remaining, cells)
+                                    remaining, cells, session, monitor)
 
     if _dumps(cfg):
         os.makedirs(cfg.dump_dir, exist_ok=True)
     last_ok = [start_step]
+    chunk_count = [0]
+    audits_run = [0]
 
     def callback(done_in_run, fs):
         step = start_step + done_in_run * step_unit
         # the fault point of the chunk boundary, before its checkpoint: a
         # kill here leaves the previous boundary's checkpoint the newest
         faults.maybe_fire("exchange", step=step)
+        replaced = None
+        if faults.injected_numeric_poison(step) is not None:
+            # the numerics fault site: one NaN cell in the state that
+            # continues (the driver adopts the returned fields)
+            from .obs import health as health_lib
+
+            fs = replaced = health_lib.apply_nan_poison(fs)
         if cfg.check_finite and step % cfg.check_finite == 0:
             for i, f in enumerate(fs):
                 if not f.dtype.is_floating_point:
@@ -1052,22 +1327,38 @@ def run(cfg: RunConfig) -> Tuple:
             d = diagnostics.field_diagnostics(
                 st, fs, step_fn=None if cfg.fuse else step_fn)
             log.info("step %d  %s", step, diagnostics.format_diagnostics(d))
+        # the sentinel and the audit run BEFORE this boundary's
+        # checkpoint, so a diverged (or poisoned) state is never saved
+        chunk = chunk_count[0]
+        chunk_count[0] += 1
+        if monitor is not None:
+            monitor.check_or_raise(step, fs, chunk=chunk)
+        if auditor is not None and (chunk + 1) % cfg.halo_audit == 0:
+            audits_run[0] += 1
+            auditor.audit_or_raise(fs, step, chunk=chunk)
         # the last step's checkpoint is the epilogue's, outside the timing
         if cfg.checkpoint_every and cfg.checkpoint_dir and \
                 step % cfg.checkpoint_every == 0 and step != cfg.iters:
-            _save_ckpt(cfg, fs, step)
+            with _session_span(session, "checkpoint", step=step):
+                _save_ckpt(cfg, fs, step)
         if _dumps(cfg) and step % cfg.dump_every == 0:
             f = fs[0]
             if stepper_lib.is_sharded(fs):
                 f = stepper_lib.gather_fields((f,), device="cpu")[0]
             native.async_write_npy(
                 os.path.join(cfg.dump_dir, f"step_{step:08d}.npy"), f)
-        return None
+        return replaced
 
     intervals = [v for v in (cfg.log_every, cfg.checkpoint_every,
                              cfg.check_finite,
                              cfg.dump_every if cfg.dump_dir else 0) if v]
     interval = math.gcd(*intervals) if intervals else 0
+    if (cfg.health or cfg.halo_audit or cfg.anomaly) and not interval:
+        # no logging cadence: synthesize ~8 chunk boundaries for the
+        # sentinel, the audit and the doctor, in multiples of the step
+        # unit
+        if remaining >= 2 * step_unit:
+            interval = max(1, (remaining // step_unit) // 8) * step_unit
     # With temporal blocking the step_fn advances cfg.fuse steps per call:
     # loop over remaining/K calls, and run the callback cadence in K-units.
     if step_unit > 1:
@@ -1085,6 +1376,26 @@ def run(cfg: RunConfig) -> Tuple:
                 f"--fuse {step_unit}")
         interval //= step_unit
 
+    observer = session.recorder if session is not None else None
+    prof = None
+    if cfg.profile:
+        from .obs import profile as profile_lib
+        from .obs import runtime as runtime_lib
+
+        calls = remaining // step_unit
+        if interval == 0 and calls >= 2:
+            # no logging cadence: one boundary, so a steady-state chunk
+            # (after the build and warm-up) exists to scope
+            interval = (calls + 1) // 2
+        n_chunks = -(-calls // interval) if interval else 1
+        prof = profile_lib.ChunkProfiler(
+            cfg.profile, target_chunk=1 if n_chunks >= 2 else 0,
+            tag=_process_tag())
+        if observer is None:
+            observer = runtime_lib.RuntimeRecorder(
+                step_unit=step_unit, cuda=_on_cuda(fields))
+        observer.profiler = prof
+
     # the clock times the steps: the init's (or the resume's) device work
     # is set-up and must not run on inside the timed loop
     driver.synchronize(fields)
@@ -1093,31 +1404,65 @@ def run(cfg: RunConfig) -> Tuple:
     # first step instead of living through the run beside input and output
     donated = driver.Donated(fields)
     del fields
-    fields = driver.run_simulation(
-        st, donated, remaining // step_unit, step_fn=step_fn,
-        log_every=interval, callback=callback,
-        start_step=start_step // step_unit,
-        runner_factory=driver.make_checked_runner if cfg.debug_checks
-        else None)
-    driver.synchronize(fields)
+    try:
+        with _profiled(cfg):
+            fields = driver.run_simulation(
+                st, donated, remaining // step_unit, step_fn=step_fn,
+                log_every=interval, callback=callback,
+                start_step=start_step // step_unit,
+                runner_factory=driver.make_checked_runner
+                if cfg.debug_checks else None,
+                observer=observer)
+            driver.synchronize(fields)
+    finally:
+        if prof is not None:
+            prof.close()  # never leave a profiler session open
     # the global cells over the slowest process's time
     dt = _slowest(fields, time.perf_counter() - t0)
     _check_peer_ring(step_fn)
+
+    # a run with no boundary still has its final state judged once
+    if monitor is not None and monitor.checks == 0:
+        monitor.check_or_raise(cfg.iters, fields)
+    if auditor is not None and audits_run[0] == 0:
+        auditor.audit_or_raise(fields, cfg.iters)
+    if prof is not None:
+        from .obs import profile as profile_lib
+
+        att = profile_lib.attribution_record(
+            cfg.profile, profiled_chunk=prof.profiled_chunk,
+            error=prof.error, wall_s=prof.wall_s, path=prof.path)
+        log.info("profile: %s", profile_lib.format_attribution(att))
+        if session is not None:
+            session.event("profile", **att)
     if _dumps(cfg):
         native.wait_all()  # drain the async dump queue; raises IO errors
     mcells = cells * remaining / dt / 1e6
     log.info("%d steps on %s grid in %.3fs  (%.1f Mcells/s)",
              remaining, "x".join(map(str, cfg.grid)), dt, mcells)
-    _epilogue(cfg, fields, cfg.iters, save_ckpt=bool(cfg.checkpoint_every))
+    if session is not None:
+        session.finish(steps=remaining, wall_s=round(dt, 4),
+                       mcells_per_s=round(mcells, 3))
+    _epilogue(cfg, fields, cfg.iters, save_ckpt=bool(cfg.checkpoint_every),
+              session=session)
     return fields, mcells
 
 
+def _on_cuda(fields) -> bool:
+    """Whether a run's state lives on a card."""
+    f = fields[0]
+    f = f[0] if isinstance(f, list) else f
+    return f.is_cuda
+
+
 def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
-                         start_step: int, remaining: int, cells: int):
+                         start_step: int, remaining: int, cells: int,
+                         session=None, monitor=None):
     """The ``--tol`` run: ``driver.run_until`` with the TPU package's
-    rules (``cli.py:1775-1822`` there): no log or checkpoint cadence, with
-    ``--fuse k`` the remaining iterations and ``--tol-check-every`` in
-    multiples of k; the final state is checkpointed."""
+    rules (no log or checkpoint cadence, with ``--fuse k`` the remaining
+    iterations and ``--tol-check-every`` in multiples of k); one loop is
+    one chunk for the telemetry and the sentinel, and the final state is
+    checkpointed."""
     if cfg.log_every or cfg.checkpoint_every or cfg.dump_every or \
             cfg.check_finite or cfg.debug_checks:
         raise ValueError(
@@ -1139,22 +1484,35 @@ def _run_until_converged(cfg: RunConfig, st, step_fn, fields,
             f"({cfg.tol_check_every}) to be a multiple of {unit}")
     driver.synchronize(fields)
     t0 = time.perf_counter()
-    fields, n_calls, res = driver.run_until(
-        step_fn, fields, cfg.tol, remaining // unit,
-        check_every=cfg.tol_check_every // unit if unit > 1
-        else cfg.tol_check_every,
-        boundary=lambda n: faults.maybe_fire(
-            "exchange", step=start_step + n * unit))
-    driver.synchronize(fields)
+    with _profiled(cfg):
+        fields, n_calls, res = driver.run_until(
+            step_fn, fields, cfg.tol, remaining // unit,
+            check_every=cfg.tol_check_every // unit if unit > 1
+            else cfg.tol_check_every,
+            boundary=lambda n: faults.maybe_fire(
+                "exchange", step=start_step + n * unit))
+        driver.synchronize(fields)
     dt = _slowest(fields, time.perf_counter() - t0)
     _check_peer_ring(step_fn)
     n_done = n_calls * unit
+    if monitor is not None:
+        # one loop = one chunk: the sentinel judges the final state (a
+        # non-finite state never converges)
+        monitor.check_or_raise(start_step + n_done, fields, chunk=0)
     mcells = cells * n_done / dt / 1e6 if n_done else 0.0
     log.info(
         "converged=%s after %d steps (residual %.3e, tol %.1e) in %.3fs"
         "  (%.1f Mcells/s)",
         res <= cfg.tol, n_done, res, cfg.tol, dt, mcells)
-    _epilogue(cfg, fields, start_step + n_done, save_ckpt=True)
+    if session is not None:
+        # one loop = one chunk (build, warm-up and run together)
+        session.recorder.record_chunk(n_calls, dt)
+        session.finish(phase="tol_loop", steps=n_done, wall_s=dt,
+                       mcells_per_s=round(mcells, 3),
+                       converged=bool(res <= cfg.tol),
+                       residual=float(res))
+    _epilogue(cfg, fields, start_step + n_done, save_ckpt=True,
+              session=session)
     return fields, mcells
 
 
@@ -1261,35 +1619,87 @@ def build_coupled(cfg: RunConfig):
     return plans, runner, start_round
 
 
-def _run_coupled(cfg: RunConfig) -> Tuple:
+def _run_coupled(cfg: RunConfig, session=None) -> Tuple:
     """The ``--groups`` run loop (the TPU package's ``_run_coupled``): a
     chunked round loop with ``--log-every`` (Mcells/s a group),
     ``--check-finite`` (naming the group), coupled checkpoints (a
-    directory a group, one agreed round) and the ``exchange`` fault site
-    at each chunk boundary.  Returns (the assembled base-resolution fields
-    on the host, Mcells/s from ``cell_updates_per_round``)."""
+    directory a group, one agreed round), the ``exchange`` fault site at
+    each chunk boundary and the ``numerics`` site's poison of group 0;
+    with a telemetry session, a ``group_chunk`` event a group a chunk
+    (its ready horizon: the groups synchronized in turn) and the run
+    doctor's per-group straggler view; with ``--health`` a sentinel a
+    group (``open_system``: a group trades its invariant through the
+    interface bands), whose records name their group.  Returns (the
+    assembled base-resolution fields on the host, Mcells/s from
+    ``cell_updates_per_round``)."""
     plans, runner, start_round = build_coupled(cfg)
+    if session is not None and start_round:
+        session.event("resume", resumed_from_step=start_round)
     remaining = cfg.iters - start_round
     if remaining <= 0:
         log.info("coupled checkpoint already at round %d >= iters",
                  start_round)
+        if session is not None:
+            session.finish(steps=0, mcells_per_s=0.0,
+                           note="checkpoint already at/past iters")
         return runner.assemble(), 0.0
+    monitors = None
+    if cfg.health:
+        from .obs import health as health_lib
+
+        # trace=None: the loop writes the "health" events itself, each
+        # naming its group
+        monitors = [health_lib.HealthMonitor(p.stencil, open_system=True)
+                    for p in plans]
     intervals = [v for v in (cfg.log_every, cfg.checkpoint_every,
                              cfg.check_finite) if v]
     interval = math.gcd(*intervals) if intervals else 0
+    if (cfg.health or cfg.anomaly) and not interval and remaining >= 2:
+        interval = max(1, remaining // 8)
     cells_round = runner.cell_updates_per_round()
+    _attach_anomaly(cfg, session, cells_round)
     done = 0
+    chunk = 0
     runner.block_until_ready()
     t0 = time.perf_counter()
     while done < remaining:
         n = min(interval or remaining, remaining - done)
         tc = time.perf_counter()
         runner.run(n)
-        runner.block_until_ready()
+        # synchronize the groups in order and stamp each ready horizon
+        group_ready_ms = []
+        for fs in runner.fields:
+            driver.synchronize(fs)
+            group_ready_ms.append(
+                round((time.perf_counter() - tc) * 1e3 / n, 6))
         dtc = time.perf_counter() - tc
         done += n
         step = start_round + done
         faults.maybe_fire("exchange", step=step)
+        if session is not None:
+            session.recorder.record_chunk(n, dtc)
+            for p, ready_ms in zip(plans, group_ready_ms):
+                session.event(
+                    "group_chunk", step=step, group=p.name, op=p.spec.op,
+                    ratio=p.ratio,
+                    dtype=stencil_lib.dtype_name(p.stencil.dtype),
+                    steps=n, wall_s=round(dtc, 4),
+                    ready_ms_per_step=ready_ms,
+                    mcells_per_s=round(p.cells * n / dtc / 1e6, 3))
+            mon = getattr(session.recorder, "anomaly", None)
+            if mon is not None:
+                try:
+                    mon.observe_members(step, [
+                        {"name": p.name, "ms_per_step": ready_ms}
+                        for p, ready_ms in zip(plans, group_ready_ms)],
+                        kind="group")
+                except Exception:  # noqa: BLE001 — never load-bearing
+                    pass
+        if faults.injected_numeric_poison(step) is not None:
+            from .obs import health as health_lib
+
+            runner.fields[0] = health_lib.apply_nan_poison(
+                runner.fields[0])
         if cfg.check_finite and step % cfg.check_finite == 0:
             for p, fs in zip(plans, runner.fields):
                 for i, f in enumerate(fs):
@@ -1300,26 +1710,57 @@ def _run_coupled(cfg: RunConfig) -> Tuple:
                             f"group {p.name} field {i} became non-"
                             f"finite by step {step} (NaN/Inf blow-up "
                             "— check stability parameters)")
+        if monitors is not None:
+            _check_groups(plans, monitors, runner.fields, step, session,
+                          chunk=chunk)
         if cfg.log_every and step % cfg.log_every == 0:
             log.info("round %d  %s", step, "  ".join(
                 f"{p.name}:{p.cells * n / dtc / 1e6:.1f}Mc/s"
                 for p in plans))
         if cfg.checkpoint_every and cfg.checkpoint_dir and \
                 step % cfg.checkpoint_every == 0:
-            runner.save_checkpoint(cfg.checkpoint_dir)
+            with _session_span(session, "checkpoint", step=step):
+                runner.save_checkpoint(cfg.checkpoint_dir)
+        chunk += 1
     dt = time.perf_counter() - t0
+    if monitors is not None and monitors[0].checks == 0:
+        _check_groups(plans, monitors, runner.fields, cfg.iters, session)
     mcells = cells_round * remaining / dt / 1e6
     log.info("%d coupled rounds x %d groups (%d cell-updates/round) in "
              "%.3fs  (%.1f Mcells/s)", remaining, len(plans),
              cells_round, dt, mcells)
+    if session is not None:
+        session.finish(steps=remaining, wall_s=round(dt, 4),
+                       mcells_per_s=round(mcells, 3), coupled=True,
+                       n_groups=len(plans),
+                       cell_updates_per_round=cells_round)
     if cfg.checkpoint_dir and (cfg.checkpoint_every or cfg.resume):
-        runner.save_checkpoint(cfg.checkpoint_dir)
+        with _session_span(session, "checkpoint", step=cfg.iters,
+                           final=True):
+            runner.save_checkpoint(cfg.checkpoint_dir)
     fields = runner.assemble()
     if cfg.render:
         f = fields[0]
         print(render.ascii_render(
             np.asarray(f.float() if f.is_floating_point() else f)))
     return fields, mcells
+
+
+def _check_groups(plans, monitors, group_fields, step: int, session,
+                  chunk=None) -> None:
+    """Each group's sentinel at one boundary: a ``health`` record naming
+    the group, and a DIVERGED verdict raised naming it first."""
+    from .obs import health as health_lib
+
+    for p, mon, fs in zip(plans, monitors, group_fields):
+        rec = mon.check(step, fs, chunk=chunk)
+        rec["group"] = p.name
+        if session is not None:
+            session.event("health", **rec)
+        if rec["verdict"] == health_lib.VERDICT_DIVERGED:
+            raise health_lib.SimulationDiverged(
+                f"group {p.name} DIVERGED at step {step}: "
+                f"{rec['reason']}", record=rec)
 
 
 def _check_peer_ring(step_fn) -> None:

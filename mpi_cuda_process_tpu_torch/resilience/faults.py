@@ -31,12 +31,18 @@ The sites the port calls :func:`maybe_fire` from:
   protects).  ``step=N`` gates on the step being saved.
 * ``compile``    — in ``driver.make_runner`` as a runner is built: the
   stand-in for "the build hung".
+* ``heartbeat``  — the heartbeat's stall probe (``obs/heartbeat.py``):
+  action ``wedge`` replaces the subprocess probe with a deterministic
+  WEDGED verdict (:func:`injected_heartbeat_verdict`).
+* ``numerics``   — deterministic state corruption: action ``nan`` puts one
+  NaN in the centre cell of the first float field at the first chunk
+  boundary at/past ``step=N`` (``FAULT_INJECT=numerics:step=40:nan``);
+  the CLI consults :func:`injected_numeric_poison` there and applies
+  ``obs.health.apply_nan_poison``, so ``--health`` reports DIVERGED at
+  that boundary, before its checkpoint.
 
-The TPU package's ``label`` (measurement campaigns), ``heartbeat`` and
-``numerics`` sites live in modules the port does not have yet (ROADMAP
-A8, A9); their specs parse here as there, and the port's CLI raises on an
-active ``numerics`` spec (its poison needs ``obs.health``) rather than
-ignore it.
+The TPU package's ``label`` site (measurement campaigns) lives in a module
+the port does not have yet (ROADMAP A9); its specs parse here as there.
 
 Qualifiers: ``step=N``, ``name=STR``, ``before_write``/``during_write``,
 ``attempt=N``, ``always``.  A spec is active only on the restart attempt
@@ -246,9 +252,7 @@ def injected_numeric_poison(step: Optional[int] = None) -> Optional[FaultSpec]:
 
     Returns the first matching active spec (marking it fired — the
     poison lands ONCE, like a real bit flip) or None.  The caller owns
-    the actual corruption (the TPU package's ``obs.health
-    .apply_nan_poison``, not ported: ROADMAP A8; the port's CLI refuses
-    an active ``numerics`` spec by :func:`numerics_requested`).
+    the actual corruption (``obs.health.apply_nan_poison``).
     """
     for spec in active_specs():
         if spec.site == "numerics" and spec.action == "nan" and \
@@ -261,21 +265,11 @@ def injected_numeric_poison(step: Optional[int] = None) -> Optional[FaultSpec]:
     return None
 
 
-def numerics_requested() -> Optional[FaultSpec]:
-    """The first ``numerics`` spec active on this attempt, not consumed:
-    what a run that cannot poison its state must refuse up front."""
-    for spec in active_specs():
-        if spec.site == "numerics" and \
-                (spec.always or spec.attempt == current_attempt()):
-            return spec
-    return None
-
-
 def injected_heartbeat_verdict() -> Optional[Dict[str, str]]:
     """The ``heartbeat:wedge`` site: a deterministic WEDGED probe verdict.
 
-    Consulted by the TPU package's heartbeat before running its real
-    probe (not ported: ROADMAP A8); returns None when no wedge fault is
+    Consulted by ``obs.heartbeat.Heartbeat`` before running its real
+    probe; returns None when no wedge fault is
     active for this attempt.  Not consumed — the injected backend
     stays wedged for every stall episode of the process, like a real
     wedge would.

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, 5f, 5g, 5h, 5i), repeated.
+phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j), repeated.
 
     python3 scripts/torch_multiprocess.py [--repeat N]
-        [--phase 5d|5e|5f|5g|5h|5i]
+        [--phase 5d|5e|5f|5g|5h|5i|5j]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -34,7 +34,14 @@ version and its members' own launches, then every ``ENS_RUNS`` run
 ``--groups`` run under both transports (bit-equal to each other and to
 its monolithic twin or the plain versions of its kernels; peak beside the
 coupled estimate), then ms a round, the exchange's share and launches a
-round by CUDA events beside the twin's.
+round by CUDA events beside the twin's.  ``--phase 5j`` runs
+``chip_smoke.obs_phase``: config 3 with every observability flag beside
+its obs-off twin (bit-equal, the same step launches, a valid log, clean
+health and audit records, the peak beside the estimate), the ring under
+the auditor, an injected numerics fault in a child, the profiler's
+attribution on K9 ``--overlap``, 4 processes' health records against one
+process's, the groups' records, the heartbeat probe; ms/step with obs on
+and off, ms a health check and an audit pass, by CUDA events.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
-    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i"],
+    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i", "5j"],
                    default="5d")
     args = p.parse_args()
     import torch
@@ -96,6 +103,12 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5j":
+            out = cs.obs_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "obs", "repeat": rep,
+                     "launches": out["launches"],
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5i":

@@ -442,12 +442,19 @@ def test_compile_fault_fires_where_a_runner_is_built(monkeypatch):
 
 
 def test_numerics_fault_refused_naming_a8(monkeypatch):
-    """The numerics fault poisons the state through the health sentinel
-    (ROADMAP A8): the port refuses it rather than run without it."""
+    """The numerics fault poisons the state through the health sentinel,
+    which the port now has (ROADMAP A8's observability part): the spec
+    is no longer refused; it poisons one cell at the first boundary at
+    or past its step, and ``--health`` stops the run there naming it."""
+    from mpi_cuda_process_tpu_torch.obs import health as thealth
+
     monkeypatch.setenv("FAULT_INJECT", "numerics:step=4:nan")
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    tfaults.reset()
+    with pytest.raises(thealth.SimulationDiverged, match="at step 4"):
         tcli.main(["--stencil", "heat3d", "--grid", "16,16,32", "--iters",
-                   "8", "--device", "cpu"])
+                   "8", "--log-every", "2", "--health", "--device",
+                   "cpu"])
+    tfaults.reset()
 
 
 # ---- the fault grammar is the JAX package's --------------------------------

@@ -286,15 +286,15 @@ def test_unported_combinations_raise_naming_roadmap(extra, exc, match):
 
 def test_unported_flags_are_not_registered_and_config_fields_refused():
     with pytest.raises(SystemExit):
-        tcli.config_from_args(["--profile", "trace"])
+        tcli.config_from_args(["--supervise"])
     assert tcli.config_from_args(["--ensemble", "2"]).ensemble == 2
     # --groups runs (ROADMAP A7, tests/test_torch_groups_cli.py)
     assert tcli.config_from_args(
         ["--groups", "heat3d@0-1", "--group-transport", "collective"]
     ).group_transport == "collective"
-    for field, value in (("telemetry", "t.jsonl"),
+    for field, value in (("serve_port", 8080),
                          ("auto_policy", True),
-                         ("profile", "trace"), ("supervise", True)):
+                         ("compile_cache", "cache"), ("supervise", True)):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):

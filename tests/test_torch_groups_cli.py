@@ -2,10 +2,13 @@
 package's, on 8 virtual CPU devices.
 
 * the conflicts: every ``_GROUP_CONFLICTS`` flag the port runs raises the
-  JAX CLI's message; the flags of A8 (``--profile``, ``--halo-audit``,
-  ``--policy-recheck``, ``--kernel-variant`` and the rest of
-  ``cli._UNPORTED``) stay refused by name whether or not ``--groups`` is
-  given; ``--group-transport collective`` without ``--groups`` raises the
+  JAX CLI's message (the observability flags ``--profile``,
+  ``--profile-dir`` and ``--halo-audit`` among them); the A8 flags still
+  in ``cli._UNPORTED`` (``--policy-recheck``, ``--kernel-variant``,
+  ``--auto-policy``) stay refused by name whether or not ``--groups`` is
+  given, and ``--telemetry`` / ``--health`` run on the groups (a
+  ``group_chunk`` event and a HEALTHY record a group a chunk);
+  ``--group-transport collective`` without ``--groups`` raises the
   JAX message; under a multi-process launcher ``--groups`` is refused by
   name (ROADMAP A7, groups across processes);
 * the run loop: the heterogeneous demo end to end (the assembled base grid,
@@ -89,10 +92,34 @@ def test_group_conflicts_raise_the_jax_message(kw):
     {"policy_recheck": 2}, {"kernel_variant": "v1"},
     {"telemetry": "t.jsonl"}, {"health": True}, {"auto_policy": True},
 ], ids=lambda kw: next(iter(kw)))
-def test_a8_flags_stay_refused_with_groups(kw):
-    for cfg in (_port(**kw), _port(groups="", **kw)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            tcli.run(cfg)
+def test_a8_flags_stay_refused_with_groups(kw, tmp_path):
+    field = next(iter(kw))
+    if field in ("policy_recheck", "kernel_variant", "auto_policy"):
+        for cfg in (_port(**kw), _port(groups="", **kw)):
+            with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+                tcli.run(cfg)
+        return
+    if field in ("profile", "profile_dir", "halo_audit"):
+        # chunk-scoped observers of one monolithic run: the JAX message
+        with pytest.raises(ValueError) as je:
+            jcli.run(_jax(**kw))
+        with pytest.raises(ValueError) as te:
+            tcli.run(_port(**kw))
+        assert str(te.value) == str(je.value)
+        return
+    log = str(tmp_path / "g.jsonl")
+    tcli.run(_port(**dict(kw, telemetry=log)))
+    from mpi_cuda_process_tpu_torch.obs import trace as ttrace
+
+    _, events = ttrace.validate_log(log)
+    names = {p.name for p in tgroups.plans_from_config(
+        SPLIT["groups"], SPLIT["grid"], n_devices=8)}
+    assert {e["group"] for e in events if e["kind"] == "group_chunk"} \
+        == names
+    health = [e for e in events if e["kind"] == "health"]
+    if field == "health":
+        assert {e["group"] for e in health} == names
+        assert all(e["verdict"] == "HEALTHY" for e in health)
 
 
 def test_group_transport_without_groups_and_across_processes(monkeypatch):

@@ -309,6 +309,23 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      heartbeat's probe and its CUDA context's bytes; ms/step with obs
      on and off, ms a health check and an audit pass, by CUDA events.
      The kernels line gives each kernel's obs_launches;
+  5k. the live console and the campaign ledger (--serve, obs/ledger.py):
+     config 3 (K10 on 4 virtual devices, 400 iterations) with --serve 0
+     beside its telemetry-only twin: fields bit-equal, the step's launch
+     counters equal, one serve event, scrapes from a thread while it runs
+     with the step and obs_events_total rising, no obs-serve thread left,
+     and the same with --exchange rdma (the ring); ms/step
+     telemetry-only and served (the console polling the live log,
+     a scraper every 0.25 s) by CUDA events in 3 alternations, and each
+     /metrics scrape's time; its log ingested by `python -m
+     mpi_cuda_process_tpu_torch.obs.ledger ingest` (one ok row, backend
+     cuda, the card and its power limit in its provenance; `best` prints
+     it), a served --anomaly rerun seeded from that row (no roofline_gap;
+     the console serves obs_ledger_best_known{...,backend="cuda"}), the
+     flight recorder's best_known the same row; 4 processes (gloo-host) at
+     512^3 with --serve 0: process 0's /status.json with 4 hosts rows, the
+     others binding nothing.  The kernels line gives each kernel's
+     serve_launches;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -2753,6 +2770,391 @@ def obs_phase(counted, lines, main_launches, scratch):
     return {"runs": out, "launches": olaunch}
 
 
+# The live console and the campaign ledger (phase 5k, ROADMAP A8's second
+# part): config 3 (heat3d 1024^3 --mesh 2,2 --fuse 4 --fuse-kind stream on 4
+# virtual devices, K10 YZSLAB) served (--serve 0) beside its telemetry-only
+# twin, long enough (SERVE_ITERS, a chunk every SERVE_LOG_EVERY steps) for
+# the console to poll it mid-run; 4 processes at 512^3 with --serve 0.
+SERVE_ITERS = "400"
+SERVE_LOG_EVERY = "40"
+SERVE_ARGV = ("--stencil", "heat3d", "--grid", "1024,1024,1024", "--iters",
+              SERVE_ITERS, "--init", "pulse", "--mesh", "2,2", "--fuse",
+              "4", "--fuse-kind", "stream", "--log-every", SERVE_LOG_EVERY)
+SERVE_MP_ARGV = ("--stencil", "heat3d", "--grid", "512,512,512", "--iters",
+                 "32", "--init", "pulse", "--mesh", "2,2", "--fuse", "4",
+                 "--fuse-kind", "stream", "--log-every", "8", "--serve",
+                 "0")
+SERVE_CALLS = 50  # step calls a timed chunk (200 steps, about 1 s)
+SERVE_SCRAPE_S = 0.25  # the timed scraper's period (the poller's too)
+
+
+class Scraper:
+    """A thread that scrapes a live console until it goes away: it finds
+    the URL in the ``serve`` event of ``log`` (or takes ``url``), then
+    reads ``/metrics`` and ``/status.json`` every ``period`` seconds,
+    keeping each scrape's events total, step total, hosts rows and
+    ``/metrics`` seconds, and the newest ``/metrics`` text."""
+
+    def __init__(self, log=None, url=None, period=0.05, timeout=600.0):
+        import threading
+
+        self.log, self.url, self.period = log, url, period
+        self.timeout = timeout
+        self.scrapes, self.text, self.status = [], "", {}
+        self.error = None
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop,
+                                        name="smoke-scraper", daemon=True)
+        self._thread.start()
+
+    def _find_url(self):
+        try:
+            with open(self.log) as fh:
+                for line in fh:
+                    rec = json.loads(line)
+                    if rec.get("kind") == "serve":
+                        return rec["url"]
+        except (OSError, ValueError):
+            pass
+        return None
+
+    def _loop(self):
+        import urllib.request
+
+        deadline = time.monotonic() + self.timeout
+        try:
+            while self.url is None and not self._stop.is_set():
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"no serve event in {self.log}")
+                self.url = self._find_url()
+                time.sleep(0.02)
+            while not self._stop.is_set():
+                try:
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(self.url + "/metrics",
+                                                timeout=10) as r:
+                        text = r.read().decode()
+                    secs = time.perf_counter() - t0
+                    with urllib.request.urlopen(self.url + "/status.json",
+                                                timeout=10) as r:
+                        status = json.loads(r.read())
+                except OSError:
+                    return  # the run ended and closed its console
+                self.text, self.status = text, status
+
+                def metric(name):
+                    for ln in text.splitlines():
+                        if ln.startswith(name + " "):
+                            return float(ln.split()[-1])
+                    return 0.0
+
+                self.scrapes.append({
+                    "events": metric("obs_events_total"),
+                    "steps": metric("obs_steps_total"),
+                    "hosts": len(status.get("hosts") or ()),
+                    "done": status.get("summary") is not None,
+                    "metrics_s": secs})
+                self._stop.wait(self.period)
+        except Exception as e:  # noqa: BLE001 — read by the phase
+            self.error = e
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(30.0)
+        if self.error is not None:
+            fail(f"serve: the scraper failed: {self.error!r}")
+        return self.scrapes
+
+
+def serve_phase(counted, lines, main_launches, scratch):
+    """Phase 5k: the live console and the campaign ledger on the card
+    (ROADMAP A8's second part).
+
+    (a) config 3 K10 (``SERVE_ARGV``) through ``cli.run`` with ``--serve
+    0 --telemetry`` beside its telemetry-only twin: final fields
+    bit-equal, the step's launch counters equal, exactly one ``serve``
+    event, at least two scrapes from a thread while the run goes with the
+    step and ``obs_events_total`` rising, no ``obs-serve*`` thread left;
+    then ms/step by CUDA events, telemetry-only and served (the console
+    polling the growing log, a scraper every 0.25 s), in 3 alternations,
+    and each ``/metrics`` scrape's seconds; the same served/twin pair
+    with ``--exchange rdma`` (``ring_exchange`` launched).  (b) (a)'s log ingested by
+    ``python -m mpi_cuda_process_tpu_torch.obs.ledger ingest`` into a
+    ledger under build/chip_smoke/: one ``ok`` row, backend ``cuda``,
+    its provenance naming the card and its power limit; ``best`` prints
+    it; a served ``--anomaly`` rerun is seeded from it (the monitor's
+    ``best_source`` is the row's ``source``), finds no ``roofline_gap``
+    and serves ``obs_ledger_best_known{...,backend="cuda"}``;
+    ``flightrec._best_known_for`` returns the row.  (c) 4 processes
+    (gloo-host) at 512^3 with ``--serve 0``: process 0's ``/status.json``
+    has 4 ``hosts`` rows and the other processes bind nothing.  Returns
+    ``{"runs": {...}, "launches": {key: n}}`` (the served runs')."""
+    import dataclasses
+    import statistics
+    import threading
+
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver, obs
+    from mpi_cuda_process_tpu_torch.obs import anomaly as anomaly_lib
+    from mpi_cuda_process_tpu_torch.obs import flightrec
+    from mpi_cuda_process_tpu_torch.obs import ledger as ledger_lib
+    from mpi_cuda_process_tpu_torch.obs import serve as serve_lib
+    from mpi_cuda_process_tpu_torch.obs import trace as trace_lib
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+
+    smi = nvidia_smi()
+    out, slaunch = {"card": smi}, {}
+    d = os.path.join(scratch, "serve")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    ledger = os.path.join(d, "ledger.jsonl")
+    saved_env = {k: os.environ.get(k) for k in (
+        "OBS_LEDGER_PATH", "OBS_TELEMETRY_DIR", mesh_lib.VIRTUAL_DEVICES_ENV)}
+    os.environ.update({"OBS_LEDGER_PATH": ledger, "OBS_TELEMETRY_DIR": d,
+                       mesh_lib.VIRTUAL_DEVICES_ENV: "4"})
+
+    def add(got):
+        for key, n in got.items():
+            slaunch[key] = slaunch.get(key, 0) + n
+
+    def same(a, b):
+        return all(len(x) == len(y) and all(
+            torch.equal(p.view(torch.int32), q.view(torch.int32))
+            for p, q in zip(x, y)) for x, y in zip(a, b))
+
+    def alive():
+        return [t.name for t in threading.enumerate()
+                if t.name.startswith("obs-serve") and t.is_alive()]
+
+    def rising(scrapes, label):
+        mid = [s for s in scrapes if not s["done"]]
+        if len(mid) < 2 or mid[-1]["events"] <= mid[0]["events"] or \
+                mid[-1]["steps"] <= mid[0]["steps"]:
+            fail(f"serve {label}: no rise over the mid-run scrapes {mid}")
+        return mid
+
+    try:
+        # ---- (a) the served run beside its telemetry-only twin -----------
+        for label, argv in (("run", SERVE_ARGV),
+                            ("run_rdma", SERVE_ARGV + ("--exchange",
+                                                       "rdma"))):
+            twin_log = os.path.join(d, f"{label}_twin.jsonl")
+            (twin, _), tgot = counted(lambda: cli.run(cli.config_from_args(
+                list(argv) + ["--telemetry", twin_log])))
+            log = os.path.join(d, f"{label}.jsonl")
+            scraper = Scraper(log)
+            try:
+                (fields, _), got = counted(lambda: cli.run(
+                    cli.config_from_args(list(argv) + [
+                        "--telemetry", log, "--serve", "0"])))
+            finally:
+                scrapes = scraper.stop()
+            add(got)
+            if not same(twin, fields):
+                fail(f"serve {label}: fields differ from the "
+                     "telemetry-only twin")
+            del twin, fields
+            if got != tgot:
+                fail(f"serve {label}: the served run's launches {got} "
+                     f"differ from the twin's {tgot}")
+            if alive():
+                fail(f"serve {label}: threads left after the run: "
+                     f"{alive()}")
+            _, events = trace_lib.validate_log(log)
+            serves = [e for e in events if e["kind"] == "serve"]
+            if len(serves) != 1:
+                fail(f"serve {label}: {len(serves)} serve events")
+            mid = rising(scrapes, label)
+            out[label] = {
+                "launches": got, "scrapes": len(scrapes),
+                "mid_run": len(mid),
+                "events_seen": [mid[0]["events"], mid[-1]["events"]],
+                "steps_seen": [mid[0]["steps"], mid[-1]["steps"]],
+                # each scrape's [steps the console had seen, /metrics ms]
+                "metrics_ms_at_step": [[s["steps"], 1e3 * s["metrics_s"]]
+                                       for s in scrapes],
+                "summary_mcells_per_s": [e["mcells_per_s"] for e in events
+                                         if e["kind"] == "summary"][0]}
+        if not any(k.startswith("ring_exchange[")
+                   for k in out["run_rdma"]["launches"]):
+            fail(f"serve run_rdma: no ring_exchange launch in "
+                 f"{out['run_rdma']['launches']}")
+        log = os.path.join(d, "run.jsonl")
+        tgot = out["run"]["launches"]
+
+        # ms/step by CUDA events: the step with the recorder's record a
+        # call into a live log (the CLI's loop with an observer), alone
+        # and with the console polling that log and a scraper reading it
+        cfg = cli.config_from_args(list(SERVE_ARGV))
+        st, step_fn, fs, _ = cli.build(cfg)
+        box = [fs]
+        del fs
+        tlog = os.path.join(d, "timed.jsonl")
+        session = obs.open_session(tlog, tool="cli",
+                                   run=dataclasses.asdict(cfg),
+                                   step_unit=4, with_heartbeat=False)
+        rec = session.recorder
+
+        def call():
+            rec.begin_chunk()
+            t0 = time.perf_counter()
+            box[0] = driver.synchronize(step_fn(box[0]))
+            rec.record_chunk(1, time.perf_counter() - t0)
+
+        def timed(n):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+            for _ in range(n):
+                call()
+            e1.record()
+            torch.cuda.synchronize()
+            return e0.elapsed_time(e1) / n / 4
+
+        timed(2)
+        offs, ons, scrape_ms = [], [], []
+        try:
+            for _ in range(OBS_ALTERNATIONS):
+                offs.append(timed(SERVE_CALLS))
+                server = serve_lib.serve_run(tlog, poll_s=SERVE_SCRAPE_S)
+                sc = Scraper(url=server.url, period=SERVE_SCRAPE_S)
+                try:
+                    ons.append(timed(SERVE_CALLS))
+                finally:
+                    scrape_ms += [1e3 * s["metrics_s"] for s in sc.stop()]
+                    server.close()
+        finally:
+            session.finish()
+            session.close()
+        if alive():
+            fail(f"serve timing: threads left: {alive()}")
+        out["timing"] = {
+            "ms_per_step_telemetry": offs, "ms_per_step_served": ons,
+            "served_over_telemetry": statistics.median(ons)
+            / statistics.median(offs),
+            "metrics_ms": sorted(scrape_ms), "calls": SERVE_CALLS}
+        del box, step_fn
+        torch.cuda.empty_cache()
+
+        # ---- (b) the ledger ------------------------------------------------
+        env = dict(os.environ, PYTHONPATH=HERE)
+        mod = [sys.executable, "-m", f"{PKG}.obs.ledger", "--ledger",
+               ledger]
+        res = subprocess.run(mod + ["ingest", log], capture_output=True,
+                             text=True, cwd=HERE, env=env, timeout=120)
+        if res.returncode != 0 or "1 rows appended" not in res.stdout:
+            fail(f"serve ledger ingest: {res.stdout} {res.stderr[-1500:]}")
+        rows = ledger_lib.read_rows(ledger)
+        if len(rows) != 1 or rows[0]["status"] != "ok":
+            fail(f"serve ledger: rows {rows}")
+        row = rows[0]
+        prov = row["provenance"]
+        if row["key"]["backend"] != "cuda" or prov["nvidia_smi"] != smi \
+                or prov["device_kind"] != torch.cuda.get_device_name(0):
+            fail(f"serve ledger: the row's key {row['key']} and "
+                 f"provenance {prov}")
+        bk = ledger_lib.baseline_key(row)
+        res = subprocess.run(mod + ["best"], capture_output=True,
+                             text=True, cwd=HERE, env=env, timeout=120)
+        best_lines = [ln for ln in res.stdout.splitlines()
+                      if ln.startswith(bk + " ")]
+        if res.returncode != 0 or len(best_lines) != 1 or \
+                row["source"] not in best_lines[0]:
+            fail(f"serve ledger best: {res.stdout} {res.stderr[-1500:]}")
+        monitors = []
+        monitor_cls = anomaly_lib.AnomalyMonitor
+
+        class Kept(monitor_cls):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                monitors.append(self)
+
+        alog = os.path.join(d, "anomaly.jsonl")
+        anomaly_lib.AnomalyMonitor = Kept
+        scraper = Scraper(alog)
+        try:
+            (_, _), got = counted(lambda: cli.run(cli.config_from_args(
+                list(SERVE_ARGV) + ["--telemetry", alog, "--serve", "0",
+                                    "--anomaly"])))
+        finally:
+            anomaly_lib.AnomalyMonitor = monitor_cls
+            scraper.stop()
+        add(got)
+        if got != tgot:
+            fail(f"serve anomaly: launches {got} differ from {tgot}")
+        if len(monitors) != 1 or monitors[0].best_source != row["source"] \
+                or monitors[0].best_value != row["value"]:
+            fail(f"serve anomaly: seeded from "
+                 f"{[(m.best_source, m.best_value) for m in monitors]}, "
+                 f"not {row['source']}")
+        _, events = trace_lib.validate_log(alog)
+        gaps = [e for e in events if e["kind"] == "anomaly"
+                and e.get("anomaly") == "roofline_gap"]
+        if gaps:
+            fail(f"serve anomaly: roofline_gap findings {gaps}")
+        want = (f'obs_ledger_best_known{{backend="cuda",'
+                f'label="{row["label"]}",unit="Mcells/s"}}')
+        served = [ln for ln in scraper.text.splitlines()
+                  if ln.startswith(want + " ")]
+        if len(served) != 1 or float(served[0].split()[-1]) != row["value"]:
+            fail(f"serve anomaly: the console served no {want} line")
+        manifest, _ = trace_lib.read_log(log)
+        got_row = flightrec._best_known_for(manifest)
+        if got_row is None or got_row["key_id"] != row["key_id"] or \
+                got_row["source"] != row["source"]:
+            fail(f"serve flightrec: best_known {got_row}")
+        out["ledger"] = {
+            "baseline_key": bk, "value": row["value"], "unit": row["unit"],
+            "provenance": prov,
+            "anomaly_best_source_matches": True,
+            "anomaly_findings": sum(e["kind"] == "anomaly"
+                                    for e in events),
+            "served_line": served[0]}
+
+        # ---- (c) 4 processes, process 0 serving ---------------------------
+        mlog = os.path.join(d, "mp.jsonl")
+        scraper = Scraper(mlog, period=0.05)
+        try:
+            rcs, errs = _cli_processes(4, list(SERVE_MP_ARGV) + [
+                "--telemetry", mlog], {
+                "OBS_LEDGER_PATH": ledger, "OBS_TELEMETRY_DIR": d,
+                "FAULT_INJECT": "exchange:step=16:sleep:1000"})
+        finally:
+            scrapes = scraper.stop()
+        if any(rcs):
+            fail(f"serve 4 processes: rcs {rcs}, "
+                 f"{errs[rcs.index(max(rcs))][-1500:]}")
+        hosts = max((s["hosts"] for s in scrapes), default=0)
+        rows4 = (scraper.status or {}).get("hosts") or []
+        if hosts != 4 or sorted(r["process_index"] for r in rows4) != \
+                [0, 1, 2, 3]:
+            fail(f"serve 4 processes: hosts rows {hosts}, "
+                 f"{[r.get('key') for r in rows4]}")
+        if "serving at" not in errs[0] or any(
+                "serving at" in e for e in errs[1:]):
+            fail("serve 4 processes: a process other than 0 served")
+        stem, ext = os.path.splitext(mlog)
+        for r in range(1, 4):
+            _, ev = trace_lib.validate_log(f"{stem}.p{r}{ext}")
+            if any(e["kind"] == "serve" for e in ev):
+                fail(f"serve 4 processes: process {r} wrote a serve event")
+        out["multiprocess"] = {
+            "processes": 4, "hosts_rows": hosts,
+            "aggregate": (scraper.status or {}).get("aggregate"),
+            "scrapes": len(scrapes)}
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(d, ignore_errors=True)
+    emit({"phase": "serve_run", **out})
+    return {"runs": out, "launches": slaunch}
+
+
 def card_rates(name: str):
     """(bytes/s, float32 flop/s) peaks of the card (data sheets)."""
     if "H200" in name:
@@ -4729,6 +5131,18 @@ def main() -> int:
                   "recorder's run peak (boundaries included) above what "
                   "was held, beside --mem-check's estimate"})
 
+    # ---- 5k. the live console and the campaign ledger ------------------------
+    p5k = serve_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "serve", "ok": True, "seconds": took(), "card": smi,
+          "runs": sorted(p5k["runs"]), "launches": p5k["launches"],
+          "note": "config 3 on 4 virtual devices (one card: not scaling); "
+                  "ms_per_step_telemetry / _served: the step with the "
+                  "recorder's synchronize and record a call into a live "
+                  "log, alone and with the console polling it and a "
+                  "scraper every 0.25 s, CUDA events over 50 calls, "
+                  "alternated; metrics_ms: each /metrics scrape's "
+                  "seconds on the host clock"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -4903,6 +5317,7 @@ def main() -> int:
             "launches": main_launches.get(key, 0),
             "groups_launches": p5i["launches"].get(key, 0),
             "obs_launches": p5j["launches"].get(key, 0),
+            "serve_launches": p5k["launches"].get(key, 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "steps_per_launch": k, "shape": list(shape),
@@ -5878,7 +6293,8 @@ def main() -> int:
             dtype=dtype, members=members, atol=atol,
             launches=main_launches.get(key, 0),
             groups_launches=p5i["launches"].get(key, 0),
-            obs_launches=p5j["launches"].get(key, 0))
+            obs_launches=p5j["launches"].get(key, 0),
+            serve_launches=p5k["launches"].get(key, 0))
 
     st = make_stencil("life")
     ins = ((rand((64, 130, 130)) < 0.35).to(torch.int32),)

@@ -359,6 +359,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "verdicts and a summary; under a multi-process "
                         "launch process r > 0 writes PATH with .p<r> "
                         "before its extension")
+    p.add_argument("--serve", type=int, default=None, metavar="PORT",
+                   dest="serve_port",
+                   help="live run console (obs/serve.py): an HTTP service "
+                        "over this run's telemetry log exposing /metrics "
+                        "(Prometheus text: steps/s, Gcells/s, compile vs "
+                        "steady split, recompiles, memory peak, heartbeat "
+                        "and health verdicts, the ledger's best-known "
+                        "values), /status.json (manifest provenance + "
+                        "latest chunk + verdicts; under a multi-process "
+                        "launch one 'hosts' row a process, served by "
+                        "process 0 alone) and /events?after=SEQ "
+                        "(incremental NDJSON tail, bounded long-poll).  "
+                        "PORT 0 binds an ephemeral port; the bound "
+                        "address is logged and written into the log as a "
+                        "'serve' event.  Implies --telemetry (a default "
+                        "path is derived when unset).  The server only "
+                        "tails the log the run writes anyway: no op and "
+                        "no launch in the step.  Shuts down with the run")
     p.add_argument("--compute", default="auto",
                    choices=["auto", "jnp", "pallas"],
                    help="auto: the path the dispatch tables measured "
@@ -443,7 +461,8 @@ def config_from_args(argv=None) -> RunConfig:
         checkpoint_dir=a.checkpoint_dir,
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, profile_dir=a.profile_dir, profile=a.profile,
-        telemetry=a.telemetry, health=a.health, anomaly=a.anomaly,
+        telemetry=a.telemetry, serve_port=a.serve_port, health=a.health,
+        anomaly=a.anomaly,
         halo_audit=a.halo_audit, compute=a.compute, overlap=a.overlap,
         pipeline=a.pipeline, fuse=a.fuse, ensemble=a.ensemble,
         ensemble_mesh=a.ensemble_mesh, ensemble_perturb=a.ensemble_perturb,
@@ -508,7 +527,6 @@ _COMPUTE_FN_WINS: dict = {
 # A config that sets one raises from build() by flag name.
 _UNPORTED = (
     ("supervise", "--supervise", "A8 (resilience)"),
-    ("serve_port", "--serve", "A8 (observability)"),
     ("serve_engine", "--serve-engine", "A8 (serving)"),
     ("serve_router", "--serve-router", "A8 (serving)"),
     ("auto_policy", "--auto-policy", "A8 (policy)"),
@@ -1087,9 +1105,28 @@ def _epilogue(cfg: RunConfig, fields, final_step: int, save_ckpt: bool,
 
 def run(cfg: RunConfig) -> Tuple:
     """Execute a configured run; returns (final_fields, mcells_per_s)."""
+    if cfg.serve_port is not None and not cfg.telemetry:
+        # --serve tails the telemetry log; without one there is nothing
+        # to serve, so derive a default path
+        cfg = dataclasses.replace(cfg, telemetry=_serve_log_path())
     if not cfg.groups:
         cfg = maybe_auto_fuse(cfg)
     return _run_once(cfg)
+
+
+def _serve_log_path() -> str:
+    """The log ``--serve`` derives without ``--telemetry``, under
+    ``trace.default_telemetry_dir()``.  Every process of a multi-process
+    launch derives the same path (the launch's rendezvous port and the
+    launcher's pid), so process 0's console finds every process's log."""
+    from .obs import trace as trace_lib
+
+    if trace_lib.process_identity()[1] > 1:
+        name = (f"serve-{os.environ.get('MASTER_PORT', '0')}-"
+                f"{os.getppid()}.jsonl")
+    else:
+        name = f"serve-{os.getpid()}-{int(time.time())}.jsonl"
+    return os.path.join(trace_lib.default_telemetry_dir(), name)
 
 
 def _process_tag() -> str:
@@ -1128,20 +1165,66 @@ def _open_telemetry(cfg: RunConfig):
         ensemble=cfg.ensemble, **extra)
 
 
+def _open_serve(cfg: RunConfig, session):
+    """Live console for ``--serve PORT`` (obs/serve.py), or None.
+
+    The server tails the session's log — the run loop never sees it.
+    The bound address is logged AND recorded as a ``serve`` event, so a
+    remote monitor can discover the URL from the log alone.  Under a
+    multi-process launch process 0 serves every process's log
+    (``serve_aggregate``: one ``hosts`` row a process) and the others
+    bind nothing, so no two processes race for one port.  Never
+    load-bearing: a bind failure logs and the run proceeds unserved.
+    """
+    if cfg.serve_port is None or session is None:
+        return None
+    from .obs import trace as trace_lib
+
+    rank, world = trace_lib.process_identity()
+    if rank:
+        return None
+    try:
+        from .obs import serve as serve_lib
+
+        if world > 1:
+            server = serve_lib.serve_aggregate(
+                trace_lib.launch_log_paths(cfg.telemetry),
+                port=cfg.serve_port)
+        else:
+            server = serve_lib.serve_run(session.path, port=cfg.serve_port)
+        log.info("obs live console serving at %s "
+                 "(/metrics /status.json /events)", server.url)
+        session.event("serve", url=server.url, port=server.port,
+                      endpoints=["/metrics", "/status.json", "/events"])
+        return server
+    except Exception as e:  # noqa: BLE001 — telemetry never load-bearing
+        log.warning("--serve disabled (%s: %s)", type(e).__name__, e)
+        return None
+
+
 def _attach_anomaly(cfg: RunConfig, session, cells: int) -> None:
     """Hang the run doctor (obs/anomaly.py) off the session recorder for
-    ``--anomaly``.  The port keeps no campaign ledger yet (ROADMAP A8),
-    so the monitor has no ``best_known`` band: own-baseline detection
-    only, as the TPU package's without a ledger row.  Never load-bearing:
-    a construction failure leaves the run undoctored, not dead."""
+    ``--anomaly``, seeded with the campaign ledger's ``best_known`` row
+    for this label on this run's device type (obs/ledger.py) so the
+    roofline-gap band has a reference.  The ledger lookup is best-effort
+    (no ledger, no matching baseline key: own-baseline detection only),
+    and so is the monitor: a construction failure leaves the run
+    undoctored, not dead."""
     if not cfg.anomaly or session is None:
         return
     try:
         import socket
 
         from .obs import anomaly as anomaly_lib
+        from .obs import ledger as ledger_lib
         from .obs import trace as trace_lib
 
+        try:
+            best = ledger_lib.lookup_best(
+                dataclasses.asdict(cfg), torch.device(cfg.device).type,
+                source="anomaly-probe")
+        except Exception:  # noqa: BLE001 — the band is optional evidence
+            best = None
         try:
             ident = (f"{socket.gethostname()}|"
                      f"p{trace_lib.process_identity()[0]}")
@@ -1149,7 +1232,7 @@ def _attach_anomaly(cfg: RunConfig, session, cells: int) -> None:
             ident = "?|p?"
         session.recorder.anomaly = anomaly_lib.AnomalyMonitor(
             trace=session.trace, spans=session.spans, ident=ident,
-            cells=cells, best_known=None)
+            cells=cells, best_known=best)
     except Exception:  # noqa: BLE001
         log.debug("--anomaly monitor construction failed; run proceeds "
                   "undoctored", exc_info=True)
@@ -1174,7 +1257,9 @@ def _run_once(cfg: RunConfig) -> Tuple:
     if not cfg.telemetry:
         return _run_measured(cfg, None)
     session = _open_telemetry(cfg)
+    server = None
     try:
+        server = _open_serve(cfg, session)
         result = _run_measured(cfg, session)
         mon = getattr(session.recorder, "anomaly", None)
         if mon is not None and mon.count:
@@ -1191,6 +1276,10 @@ def _run_once(cfg: RunConfig) -> Tuple:
         raise
     finally:
         session.close()
+        if server is not None:
+            # after session.close() so the summary is on disk for the
+            # server's last drain; then the console goes with the run
+            server.close()
 
 
 @contextlib.contextmanager

@@ -59,9 +59,9 @@ default and never kills anything (``--degraded-action``): a slow run
 is not a dead run.
 
 Pure host-side stdlib + the trace writer: the port's copy of the TPU
-package's module.  The port keeps no campaign ledger yet (ROADMAP A8), so
-``best_known`` is None there and ``roofline_gap`` stays silent, as the
-reference's does without a ledger row.
+package's module.  The CLI seeds ``best_known`` from the port's campaign
+ledger (``obs/ledger.py``, ``cli._attach_anomaly``); without a ledger
+row ``roofline_gap`` stays silent, as the reference's does.
 """
 
 from __future__ import annotations

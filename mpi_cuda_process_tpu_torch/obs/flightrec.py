@@ -12,8 +12,8 @@ log:
 * the last-N events verbatim + how many the ring dropped
 * open spans at bundle time (root + the emitting thread's stack)
 * anomaly findings (obs/anomaly.py) and the final verdict
-* ``best_known``: the campaign ledger's row for this label — recorded as
-  null, since the port has no ledger yet (ROADMAP A8: ``obs/ledger.py``)
+* ``best_known``: the campaign ledger's row for this label x backend
+  (``obs/ledger.py``), or null where there is none
 * ``tunnel``: the card probe verdict, recorded as NOT_RUN: the probe
   (``heartbeat.probe_verdict``) joins the bundle with the supervisor
   (ROADMAP A8), so a failing run's teardown stays bounded
@@ -111,9 +111,18 @@ _TUNNEL_NOT_RUN = {"verdict": "NOT_RUN",
 
 
 def _best_known_for(manifest: Optional[Dict[str, Any]]) -> Optional[Dict]:
-    """The ledger's best_known row for this run's label: None, since the
-    port keeps no campaign ledger yet (ROADMAP A8)."""
-    return None
+    """The ledger's best_known row for this run's label, best-effort."""
+    try:
+        from . import ledger as ledger_lib
+
+        if not manifest or manifest.get("tool") != "cli":
+            return None
+        prov = manifest.get("provenance") or {}
+        return ledger_lib.lookup_best(manifest.get("run") or {},
+                                      prov.get("backend", "cpu"),
+                                      source="flightrec-probe")
+    except Exception:  # noqa: BLE001 — the ledger may not exist yet
+        return None
 
 
 # -------------------------------------------------------------- bundle

@@ -69,6 +69,16 @@ _PROVENANCE_V2_TYPES = {
 }
 
 
+def default_telemetry_dir() -> str:
+    """Where tools drop event logs when no path is given.
+
+    ``OBS_TELEMETRY_DIR`` overrides (tests point it at a tmpdir); the
+    default is ``<repo>/.telemetry``, which git ignores.
+    """
+    return os.environ.get("OBS_TELEMETRY_DIR") or \
+        os.path.join(_REPO, ".telemetry")
+
+
 def _git_sha() -> str:
     try:
         out = subprocess.run(
@@ -117,15 +127,25 @@ def process_identity() -> Tuple[int, int]:
     return 0, 1
 
 
+def _rank_log_path(path: str, rank: int) -> str:
+    if rank == 0:
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}.p{rank}{ext}"
+
+
 def process_log_path(path: str) -> str:
     """This process's log path: ``path`` itself for process 0 (or one
     process), ``<stem>.p<r><ext>`` for process r > 0 of a multi-process
     run, so the processes never write one file."""
     rank, world = process_identity()
-    if world <= 1 or rank == 0:
-        return path
-    stem, ext = os.path.splitext(path)
-    return f"{stem}.p{rank}{ext}"
+    return path if world <= 1 else _rank_log_path(path, rank)
+
+
+def launch_log_paths(path: str) -> List[str]:
+    """Every process's log path of this launch, in process order (the
+    logs a console of the whole launch watches)."""
+    return [_rank_log_path(path, r) for r in range(process_identity()[1])]
 
 
 def provenance(device: Optional[str] = None) -> Dict[str, Any]:
@@ -365,3 +385,66 @@ def validate_log(path: str) -> Tuple[Dict[str, Any], List[Dict[str, Any]]]:
         except ValueError as err:
             raise ValueError(f"{path}: event {i}: {err}") from None
     return manifest, events
+
+
+class LogTail:
+    """Incremental JSONL reader: ``poll()`` returns newly appended records.
+
+    The live console's view of a run: it tails the telemetry log between
+    polls, consuming only COMPLETE lines (a process killed mid-write
+    leaves a partial last line, which stays unconsumed until — if ever —
+    its terminator lands, never parsed as garbage).  Reads in binary and
+    tracks a byte offset so a decode boundary can't desync the position.
+    A missing file (the run not yet started, or dead before its first
+    record) yields no records rather than raising; malformed complete
+    lines are counted (``malformed``) and skipped — the watcher must
+    survive anything a dying process leaves behind.
+
+    Truncation is detected by size: a file now SHORTER than the consumed
+    offset was rewritten from the top (``TraceWriter`` opens ``"w"``), so
+    the tail restarts at byte 0 (``truncations`` counts the resets).  A
+    rewrite that has already grown past the old offset reads as an
+    append: every writer here starts a fresh file empty, so the shrink
+    shows at the next poll.
+    """
+
+    def __init__(self, path: str):
+        self.path = path
+        self.malformed = 0
+        self.truncations = 0
+        self._pos = 0
+
+    def poll(self) -> List[Dict[str, Any]]:
+        try:
+            fh = open(self.path, "rb")
+        except OSError:
+            return []
+        with fh:
+            try:
+                size = os.fstat(fh.fileno()).st_size
+            except OSError:
+                size = None
+            if size is not None and size < self._pos:
+                self._pos = 0
+                self.truncations += 1
+            fh.seek(self._pos)
+            buf = fh.read()
+        end = buf.rfind(b"\n")
+        if end < 0:
+            return []
+        self._pos += end + 1
+        out: List[Dict[str, Any]] = []
+        for line in buf[:end + 1].splitlines():
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line.decode("utf-8", errors="replace"))
+            except ValueError:
+                self.malformed += 1
+                continue
+            if isinstance(rec, dict):
+                out.append(rec)
+            else:
+                self.malformed += 1
+        return out

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j), repeated.
+phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j, 5k), repeated.
 
     python3 scripts/torch_multiprocess.py [--repeat N]
-        [--phase 5d|5e|5f|5g|5h|5i|5j]
+        [--phase 5d|5e|5f|5g|5h|5i|5j|5k]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -41,7 +41,12 @@ health and audit records, the peak beside the estimate), the ring under
 the auditor, an injected numerics fault in a child, the profiler's
 attribution on K9 ``--overlap``, 4 processes' health records against one
 process's, the groups' records, the heartbeat probe; ms/step with obs on
-and off, ms a health check and an audit pass, by CUDA events.
+and off, ms a health check and an audit pass, by CUDA events.  ``--phase
+5k`` runs ``chip_smoke.serve_phase``: config 3 with ``--serve 0`` beside
+its telemetry-only twin (bit-equal, the same launches, scrapes rising
+mid-run), ms/step served and telemetry-only by CUDA events, the ledger's
+ingest / best / ``--anomaly`` seeding / flight-recorder lookup, and 4
+processes whose process 0 serves 4 ``hosts`` rows.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ sys.path.insert(0, HERE)
 def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
-    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i", "5j"],
+    p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i", "5j",
+                                        "5k"],
                    default="5d")
     args = p.parse_args()
     import torch
@@ -103,6 +109,12 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5k":
+            out = cs.serve_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "serve", "repeat": rep,
+                     "launches": out["launches"],
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5j":

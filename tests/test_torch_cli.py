@@ -292,7 +292,9 @@ def test_unported_flags_are_not_registered_and_config_fields_refused():
     assert tcli.config_from_args(
         ["--groups", "heat3d@0-1", "--group-transport", "collective"]
     ).group_transport == "collective"
-    for field, value in (("serve_port", 8080),
+    # --serve runs (ROADMAP A8, tests/test_torch_serve.py)
+    assert tcli.config_from_args(["--serve", "0"]).serve_port == 0
+    for field, value in (("serve_engine", 8080),
                          ("auto_policy", True),
                          ("compile_cache", "cache"), ("supervise", True)):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,

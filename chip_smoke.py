@@ -326,6 +326,28 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      512^3 with --serve 0: process 0's /status.json with 4 hosts rows, the
      others binding nothing.  The kernels line gives each kernel's
      serve_launches;
+  5l. the cost model, the launch checks and --supervise (obs/costmodel.py,
+     utils/launchcheck.py, resilience/supervisor.py): config 3 as K10, K9
+     --overlap and K10 --exchange rdma, config 2 (heat3d 256^3) and
+     config 1 (heat2d 512^2) under --compute auto, each through cli.run
+     with --telemetry: one costmodel event whose counts equal the run's
+     own (the in-process transport's bytes a pass and shard, the
+     ring_exchange launches a pass) and one recorded pass of the built
+     step (shifts, bytes, ring launches), the rdma cross-check matching,
+     the console's roofline gap ratio at least 1 wherever the fields pass
+     the 50 MB L2 (printed for all, with the predicted and measured
+     ms/step); the launch checks on recorded passes of K9 --overlap and
+     K10 --overlap --pipeline (the interior on the main stream between the
+     side stream's post and its wait), K10 --exchange rdma, an --ensemble
+     4 step and a --groups round under --group-transport collective;
+     --supervise on config 3's K10 command at 512^3 with a checkpoint
+     every 8 steps, three supervised runs at once: a hang at step 24
+     killed on its STALLED verdict and a SIGKILL at step 24 seen dead,
+     each resumed from step 16 with its final fields equal to an
+     unsupervised twin (each attempt's seconds, resume step and kill to
+     resume printed), and a permanent hang giving up with --max-restarts
+     1, exit 1, its bundle's tunnel field the card probe's OK.  The
+     kernels line gives each kernel's costmodel_launches;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -3155,13 +3177,364 @@ def serve_phase(counted, lines, main_launches, scratch):
     return {"runs": out, "launches": slaunch}
 
 
-def card_rates(name: str):
-    """(bytes/s, float32 flop/s) peaks of the card (data sheets)."""
-    if "H200" in name:
-        return 4.8e12, 67e12
-    if "PCIe" in name:
-        return 2.0e12, 51e12
-    return 3.35e12, 67e12  # H100 SXM
+# The cost model, the launch checks and --supervise (phase 5l, ROADMAP A6
+# and A8's third part).  (a) CM_RUNS through cli.run with --telemetry:
+# config 3 (heat3d 1024^3 --mesh 2,2 --fuse 4 on 4 virtual devices) as K10,
+# K9 --overlap and K10 --exchange rdma, config 2 (heat3d 256^3) and config
+# 1 (heat2d 512^2) under the default --compute auto; (c) --supervise on
+# SUP_ARGV (config 3's K10 command at 512^3: a child's start on the card
+# takes seconds, and the phase keeps to 90 s).
+CM_ITERS = "64"
+CM_LOG_EVERY = "16"
+CM_CONFIG3 = ("--stencil", "heat3d", "--grid", "1024,1024,1024", "--init",
+              "pulse", "--mesh", "2,2", "--fuse", "4")
+CM_RUNS = (
+    ("config3_stream", CM_CONFIG3 + ("--fuse-kind", "stream")),
+    ("config3_padfree_overlap", CM_CONFIG3 + ("--fuse-kind", "padfree",
+                                              "--overlap")),
+    ("config3_rdma", CM_CONFIG3 + ("--fuse-kind", "stream", "--exchange",
+                                   "rdma")),
+    ("config2", ("--stencil", "heat3d", "--grid", "256,256,256", "--init",
+                 "pulse")),
+    ("config1", ("--stencil", "heat2d", "--grid", "512,512")),
+)
+L2_BYTES = 50e6  # the H100's L2: a field past it is priced by HBM alone
+CM_ENSEMBLE_GRID = (256, 256, 256)  # (b)'s --ensemble 4 step
+CM_GROUPS_GRID = (254, 128, 128)  # (b)'s --groups round: 2 x (127 + 1)
+SUP_ARGV = ("--stencil", "heat3d", "--grid", "512,512,512", "--init",
+            "pulse", "--mesh", "2,2", "--fuse", "4", "--fuse-kind",
+            "stream", "--iters", "40", "--log-every", "4",
+            "--checkpoint-every", "8")
+# the child heartbeat's STALLED threshold: above a child's longest silent
+# phase (its first chunk: K10's first launches, about 10 s on the card)
+SUP_STALL_AFTER_S = "15"
+# where phase 5l runs: the card (a rehearsal on the CPU sets "cpu" and
+# shrinks the grids)
+CM_DEVICE = "cuda"
+
+
+def costmodel_phase(counted, lines, main_launches, scratch, p5k=None):
+    """Phase 5l: the cost model, the launch checks and --supervise on the
+    card (ROADMAP A6 and A8's third part).
+
+    (a) each CM_RUNS case through ``cli.run`` with ``--telemetry``: one
+    ``costmodel`` event whose counts equal the run's own exchange (the
+    in-process transport's bytes a pass and shard, the ``ring_exchange``
+    launches a pass) and one pass of the built step recorded
+    (``utils/launchcheck.py``: shifts x 2 = ppermute rounds, bytes, ring
+    launches); an rdma run's ``rdma_crosscheck`` matching; the console's
+    ``obs_roofline_gap_ratio`` (steady p50 ms/step over the overlapped
+    prediction) at least 1 for every case whose fields pass the 50 MB L2,
+    printed for the others.  (b) the launch checks on recorded passes:
+    K9 ``--overlap`` and K10 ``--overlap --pipeline`` (the interior on the
+    main stream between the side stream's post and its wait, the
+    pipelined body's rounds), K10 ``--exchange rdma``, an ``--ensemble 4``
+    step, a ``--groups`` round under ``--group-transport collective``.
+    (c) ``--supervise`` on SUP_ARGV, three supervised runs at once (two as
+    ``python -m`` processes, one in this process): an injected hang at
+    step 24 killed on its STALLED verdict, a SIGKILL at step 24 seen dead,
+    each resumed from step 16 and finished bit-equal to an unsupervised
+    twin; a permanent hang giving up with ``--max-restarts 1``, exit 1,
+    the bundle's ``tunnel`` the card probe's OK.  Returns ``{"runs", "checks",
+    "supervise", "launches"}``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver
+    from mpi_cuda_process_tpu_torch.obs import metrics as metrics_lib
+    from mpi_cuda_process_tpu_torch.obs import trace as trace_lib
+    from mpi_cuda_process_tpu_torch.parallel import halo
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.parallel import stepper
+    from mpi_cuda_process_tpu_torch.resilience import supervisor as sup
+    from mpi_cuda_process_tpu_torch.utils import checkpointing
+    from mpi_cuda_process_tpu_torch.utils import launchcheck as lc
+
+    smi = nvidia_smi()
+    dev = torch.device(CM_DEVICE)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    on = ["--device", CM_DEVICE]
+    out = {"card": smi, "runs": {}, "checks": {}, "supervise": {}}
+    claunch = {}
+    d = os.path.join(scratch, "costmodel")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    saved_env = {k: os.environ.get(k) for k in (
+        "OBS_LEDGER_PATH", "OBS_TELEMETRY_DIR", mesh_lib.VIRTUAL_DEVICES_ENV,
+        "OBS_STALL_AFTER_S", "FAULT_INJECT", "FAULT_HANG_S")}
+    os.environ.update({"OBS_LEDGER_PATH": os.path.join(d, "ledger.jsonl"),
+                       "OBS_TELEMETRY_DIR": d,
+                       mesh_lib.VIRTUAL_DEVICES_ENV: "4"})
+    transport = halo.default_transport(mesh_lib.make_mesh((1,), [dev]))
+
+    def add(got):
+        for key, n in got.items():
+            claunch[key] = claunch.get(key, 0) + n
+
+    def gauge(text, name):
+        for ln in text.splitlines():
+            if ln.startswith(name + " "):
+                return float(ln.split()[-1])
+        fail(f"costmodel: no {name} gauge")
+
+    def record_pass(step_fn, fs):
+        with lc.record() as rec:
+            driver.synchronize(step_fn(fs))
+        return rec.records
+
+    try:
+        # ---- (a) the costmodel event against the run ----------------------
+        for label, argv in CM_RUNS:
+            t0 = time.perf_counter()
+            log = os.path.join(d, f"{label}.jsonl")
+            cfg = cli.config_from_args(list(argv) + on + [
+                "--iters", CM_ITERS, "--log-every", CM_LOG_EVERY,
+                "--telemetry", log])
+            before = transport.stats["bytes"]
+            (fields, _), got = counted(lambda: cli.run(cfg))
+            moved = transport.stats["bytes"] - before
+            del fields
+            add(got)
+            manifest, events = trace_lib.validate_log(log)
+            costs = [e for e in events if e["kind"] == "costmodel"]
+            if len(costs) != 1:
+                fail(f"costmodel {label}: {len(costs)} costmodel events")
+            cost = costs[0]
+            rm = metrics_lib.RunMetrics()
+            for r in [manifest] + events:
+                rm.ingest(r)
+            text = rm.registry.to_prometheus()
+            pred = gauge(text, "obs_predicted_ms_per_step_overlapped")
+            gap = gauge(text, "obs_roofline_gap_ratio")
+            p50 = rm.status()["throughput"]["steady_ms_per_step_p50"]
+            roof = cost["roofline"]
+            st = cli._make_cfg_stencil(cfg)
+            field_bytes = math.prod(cfg.grid) * st.dtype.itemsize \
+                * st.num_fields
+            gated = field_bytes > L2_BYTES
+            if gated and gap < 1.0:
+                fail(f"costmodel {label}: measured {p50} ms/step under the "
+                     f"roofline's {pred} (gap {gap})")
+            if roof["basis"]["card"] not in ("H100 SXM", "H100 PCIe",
+                                             "H100 NVL", "H200 SXM"):
+                fail(f"costmodel {label}: priced for {roof['basis']}")
+            # the recorded pass of the same step (built anew)
+            bcfg = cli.maybe_auto_fuse(dataclasses.replace(cfg,
+                                                           telemetry=None))
+            passes = int(CM_ITERS) // max(1, bcfg.fuse)
+            _, step_fn, fs, _ = cli.build(bcfg)
+            recs = record_pass(step_fn, fs)
+            rec = lc.exchange_counts(recs)
+            comm = cost["comm"]
+            rings = sum(n for k, n in got.items()
+                        if k.startswith("ring_exchange["))
+            row = {"predicted_ms_per_step_overlapped": pred,
+                   "predicted_ms_per_step_serial": gauge(
+                       text, "obs_predicted_ms_per_step_serial"),
+                   "measured_ms_per_step_p50": p50, "gap": gap,
+                   "fields_bytes": field_bytes, "gated": gated,
+                   "shards_per_card": roof["basis"]["shards_per_card"],
+                   "link": roof["basis"]["link"], "recorded": rec,
+                   "transport_bytes": moved, "ring_launches": rings,
+                   "fuse": bcfg.fuse}
+            if comm is None:
+                if rec["posts"] or rings or moved:
+                    fail(f"costmodel {label}: an unsharded run exchanged "
+                         f"({rec}, {rings} rings, {moved} bytes)")
+            else:
+                shards = roof["basis"]["shards_per_card"]
+                calls = comm.get("rdma_exchange_calls_per_pass", 0)
+                want = {"ppermute_rounds": comm["ppermute_rounds_per_pass"],
+                        "ici_bytes": comm["ici_bytes_per_pass"],
+                        "ring_calls": calls}
+                if {k: rec[k] for k in want} != want:
+                    fail(f"costmodel {label}: recorded {rec}, the event "
+                         f"prices {want}")
+                ring_mode = comm["exchange"] == "rdma"
+                if moved != (0 if ring_mode else passes * shards
+                             * comm["ici_bytes_per_pass"]):
+                    fail(f"costmodel {label}: the transport moved {moved} "
+                         f"bytes in {passes} passes of {shards} shards")
+                # the launch counters count on the card (the CPU runs the
+                # plain versions; a rehearsal there skips them)
+                card = dev.type == "cuda"
+                if card and rings != passes * calls:
+                    fail(f"costmodel {label}: {rings} ring launches for "
+                         f"{passes} passes of {calls}")
+                if ring_mode:
+                    cc = cost.get("rdma_crosscheck") or {}
+                    if card and cc.get("match") is not True:
+                        fail(f"costmodel {label}: rdma_crosscheck {cc}")
+                    row["rdma_crosscheck"] = cc
+                    # (b) the rdma launch check on the same pass
+                    out["checks"]["k10_rdma"] = lc.assert_rdma_step_structure(
+                        recs, calls)
+                if "overlap" in label:
+                    # (b) K9 --overlap: the interior between the side
+                    # stream's post and its wait, on another CUDA stream
+                    out["checks"]["k9_overlap"] = \
+                        lc.assert_interior_overlaps_exchange(recs)
+            del step_fn, fs, recs
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            row["seconds"] = round(time.perf_counter() - t0, 3)
+            out["runs"][label] = row
+            emit({"phase": "costmodel_run", "label": label, "card": smi,
+                  **row})
+        k10 = out["runs"]["config3_stream"]["measured_ms_per_step_p50"]
+        out["config3_k10_ms_per_step"] = {
+            "phase_5l_chunk_p50": k10,
+            "phase_5k_ms_per_step_telemetry":
+                (p5k or {}).get("timing", {}).get("ms_per_step_telemetry")}
+
+        # ---- (b) the launch checks on the card ------------------------------
+        t0 = time.perf_counter()
+        pcfg = cli.config_from_args(list(CM_CONFIG3) + on + [
+            "--fuse-kind", "stream", "--overlap", "--pipeline", "--iters",
+            "4"])
+        st, pipelined, fs, _ = cli.build(pcfg)
+        plain = stepper.make_sharded_temporal_step(
+            st, fs[0].mesh, pcfg.grid, 4, kind="stream", overlap=True,
+            device=dev)
+        rep = lc.assert_pipeline_body_structure(pipelined, plain, fs, True)
+        rep["plain"] = lc.assert_interior_overlaps_exchange(
+            record_pass(plain, fs))
+        out["checks"]["k10_overlap_pipeline"] = rep
+        del pipelined, plain, fs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["checks"]["ensemble4"] = lc.check_ensemble_structure(
+            "heat3d", CM_ENSEMBLE_GRID, (2, 2, 1), 4, 4, "stream",
+            device=dev)
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "8"
+        out["checks"]["groups_collective"] = \
+            lc.check_group_transport_structure(
+                "heat3d@0-3,heat3d@4-7", CM_GROUPS_GRID, device=dev,
+                n_devices=8)
+        os.environ[mesh_lib.VIRTUAL_DEVICES_ENV] = "4"
+        out["checks"]["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "launch_checks", "card": smi, **out["checks"]})
+
+        # ---- (c) --supervise ------------------------------------------------
+        t0 = time.perf_counter()
+        (twin, _), got = counted(lambda: cli.run(cli.config_from_args(
+            list(SUP_ARGV) + on)))
+        add(got)
+        twin = stepper.gather_fields(twin, device="cpu")
+        os.environ.update({"OBS_STALL_AFTER_S": SUP_STALL_AFTER_S,
+                           "FAULT_HANG_S": "90"})
+
+        def sup_argv(tag, max_restarts):
+            tel = os.path.join(d, f"{tag}.jsonl")
+            return tel, list(SUP_ARGV) + on + [
+                "--checkpoint-dir", os.path.join(d, f"ck_{tag}"),
+                "--telemetry", tel, "--supervise", "--max-restarts",
+                str(max_restarts), "--restart-backoff", "0.2",
+                "--supervise-stall-s", "60"]
+
+        def trail(tel):
+            """Each attempt's seconds and resume step, the restart reasons,
+            and the seconds from each kill (its restart event) to the
+            relaunched child's resume event."""
+            _, sevents = trace_lib.validate_log(
+                sup.sibling_path(tel, "supervisor"))
+            attempts = sorted(
+                ({"attempt": e["attrs"]["attempt"],
+                  "seconds": round(e["dur_s"], 3),
+                  "resumed_from_step": e["attrs"].get("resumed_from_step")}
+                 for e in sevents if e["kind"] == "span"
+                 and e["name"] == "attempt"), key=lambda a: a["attempt"])
+            restarts = [e for e in sevents if e["kind"] == "restart"]
+            for i, e in enumerate(restarts):
+                _, cev = trace_lib.read_log(
+                    sup.sibling_path(tel, f"attempt{i + 1}"))
+                resumed = [c["t"] for c in cev if c["kind"] == "resume"]
+                attempts[i + 1]["kill_to_resume_s"] = (
+                    round(resumed[0] - e["t"], 3) if resumed else None)
+            return attempts, [e["reason"] for e in restarts]
+
+        def kinds(tel, n):
+            """The attempts' event kinds, for a failure's message."""
+            return [[e["kind"] for e in trace_lib.read_log(
+                sup.sibling_path(tel, f"attempt{i}"))[1]][-12:]
+                for i in range(n)]
+
+        # a hang and a SIGKILL at step 24, each a supervised CLI process of
+        # its own (its own FAULT_INJECT), beside the permanent hang
+        # supervised in this process (the longest of the three)
+        procs = {}
+        for tag, spec in (("wedge", "exchange:step=24:hang"),
+                          ("sigkill", "exchange:step=24:sigkill")):
+            tel, argv = sup_argv(tag, 2)
+            with open(os.path.join(d, f"{tag}.out"), "w") as fh:
+                procs[tag] = (tel, subprocess.Popen(
+                    [sys.executable, "-m", PKG, *argv],
+                    env=dict(os.environ, PYTHONPATH=HERE,
+                             FAULT_INJECT=spec),
+                    cwd=HERE, stdout=fh, stderr=subprocess.STDOUT))
+        rcs = {}
+        try:
+            os.environ["FAULT_INJECT"] = "exchange:step=8:always:hang"
+            gtel, argv = sup_argv("give_up", 1)
+            rcs["give_up"] = sup.run_supervised(cli.config_from_args(argv))
+            os.environ.pop("FAULT_INJECT")
+            for tag, (_, proc) in procs.items():
+                rcs[tag] = proc.wait(timeout=300)
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for tag, reason in (("wedge", "heartbeat verdict"),
+                            ("sigkill", "child exited")):
+            tel = procs[tag][0]
+            attempts, restarts = trail(tel)
+            if rcs[tag] != 0 or [a["resumed_from_step"]
+                                 for a in attempts] != [None, 16] or \
+                    not restarts[0].startswith(reason):
+                fail(f"supervise {tag}: rc {rcs[tag]}, attempts "
+                     f"{attempts}, restarts {restarts}, events "
+                     f"{kinds(tel, len(attempts))}")
+            fields, step, _ = checkpointing.load_any(
+                os.path.join(d, f"ck_{tag}"))
+            if step != 40 or not all(
+                    np.array_equal(np.asarray(a), b.numpy())
+                    for a, b in zip(fields, twin)):
+                fail(f"supervise {tag}: the resumed run's final fields "
+                     "differ from the unsupervised twin's")
+            out["supervise"][tag] = {
+                "attempts": attempts, "restarts": restarts,
+                "fingerprint": fingerprint(torch.from_numpy(
+                    np.asarray(fields[0]))),
+                "twin_fingerprint": fingerprint(twin[0])}
+            del fields
+        del twin
+        from mpi_cuda_process_tpu_torch.obs import flightrec
+
+        bundle = flightrec.read_bundle(
+            os.path.join(d, "give_up.supervisor.bundle.json"))
+        attempts, restarts = trail(gtel)
+        if rcs["give_up"] == 0 or len(attempts) != 2 or \
+                bundle["tunnel"]["verdict"] != "OK":
+            fail(f"supervise give-up: rc {rcs['give_up']}, attempts "
+                 f"{attempts}, tunnel {bundle['tunnel']}")
+        out["supervise"]["give_up"] = {
+            "rc": rcs["give_up"], "attempts": attempts,
+            "restarts": restarts, "tunnel": bundle["tunnel"]}
+        out["supervise"]["seconds"] = round(time.perf_counter() - t0, 3)
+        emit({"phase": "supervise_run", "card": smi, **out["supervise"]})
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(d, ignore_errors=True)
+    out["launches"] = claunch
+    return out
 
 
 def main() -> int:
@@ -3200,7 +3573,12 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     card_kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    bw, flops32 = card_rates(smi)
+    # the card's peaks from the cost model's table (obs/costmodel.py), the
+    # one source of the kernel table's bound_ms and the costmodel event
+    from mpi_cuda_process_tpu_torch.obs import costmodel as costmodel_lib
+
+    rates = costmodel_lib.card_rates(smi)
+    bw, flops32 = rates["hbm"], rates["f32"]
     emit({"phase": "device", "ok": True, "kind": card_kind,
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -5143,6 +5521,20 @@ def main() -> int:
                   "alternated; metrics_ms: each /metrics scrape's "
                   "seconds on the host clock"})
 
+    # ---- 5l. the cost model, the launch checks, --supervise -----------------
+    p5l = costmodel_phase(counted, lines, main_launches, scratch, p5k["runs"])
+    emit({"phase": "costmodel", "ok": True, "seconds": took(), "card": smi,
+          "runs": sorted(p5l["runs"]), "checks": sorted(p5l["checks"]),
+          "launches": p5l["launches"],
+          "config3_k10_ms_per_step": p5l["config3_k10_ms_per_step"],
+          "note": "config 3 on 4 virtual devices (one card: not scaling); "
+                  "gap: the console's obs_roofline_gap_ratio, steady p50 "
+                  "ms/step (host clock a 16-step chunk, its synchronize "
+                  "included) over the roofline's overlapped ms/step; "
+                  "config3_k10_ms_per_step beside phase 5k's CUDA-event "
+                  "ms/step of the same command; --supervise on config 3's "
+                  "K10 command at 512^3"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -5318,6 +5710,7 @@ def main() -> int:
             "groups_launches": p5i["launches"].get(key, 0),
             "obs_launches": p5j["launches"].get(key, 0),
             "serve_launches": p5k["launches"].get(key, 0),
+            "costmodel_launches": p5l["launches"].get(key, 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "steps_per_launch": k, "shape": list(shape),
@@ -6294,7 +6687,8 @@ def main() -> int:
             launches=main_launches.get(key, 0),
             groups_launches=p5i["launches"].get(key, 0),
             obs_launches=p5j["launches"].get(key, 0),
-            serve_launches=p5k["launches"].get(key, 0))
+            serve_launches=p5k["launches"].get(key, 0),
+            costmodel_launches=p5l["launches"].get(key, 0))
 
     st = make_stencil("life")
     ins = ((rand((64, 130, 130)) < 0.35).to(torch.int32),)

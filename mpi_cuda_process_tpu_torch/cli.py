@@ -123,6 +123,7 @@ module not ported yet raises, naming its ROADMAP item.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import logging
@@ -130,7 +131,7 @@ import math
 import os
 import sys
 import time
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -359,6 +360,38 @@ def build_parser() -> argparse.ArgumentParser:
                         "verdicts and a summary; under a multi-process "
                         "launch process r > 0 writes PATH with .p<r> "
                         "before its extension")
+    p.add_argument("--supervise", action="store_true",
+                   help="fault-tolerant run supervisor "
+                        "(resilience/supervisor.py): the run goes in a "
+                        "child process (python -m "
+                        "mpi_cuda_process_tpu_torch, with --checkpoint-every"
+                        " and --telemetry forced on), its telemetry "
+                        "watched; on a WEDGED/STALLED verdict, the child's "
+                        "death or a wall-clock stall with no events the "
+                        "child is killed and, after an exponential backoff,"
+                        " relaunched with --resume from the latest "
+                        "checkpoint (bit-equal to an uninterrupted run); "
+                        "the trail lands in PATH.supervisor.jsonl.  Gives "
+                        "up (exit 1) after --max-restarts.  One process "
+                        "only (refused under torchrun)")
+    p.add_argument("--max-restarts", type=int, default=2,
+                   help="supervised relaunches before giving up "
+                        "(default 2)")
+    p.add_argument("--restart-backoff", type=float, default=5.0,
+                   help="supervised restart backoff base seconds "
+                        "(doubles per restart, bounded; default 5)")
+    p.add_argument("--supervise-stall-s", type=float, default=600.0,
+                   help="supervisor wall-clock kill threshold: seconds "
+                        "with no child telemetry event (default 600; set "
+                        "it above the child's longest silent phase, the "
+                        "first kernel build with nvcc included)")
+    p.add_argument("--degraded-action", default="warn",
+                   choices=["warn", "restart", "abort"],
+                   help="what --supervise does about a DEGRADED child "
+                        "(anomaly events in its telemetry): warn = keep "
+                        "watching (default), restart = kill and resume "
+                        "from the latest checkpoint, abort = give up with "
+                        "the flight-recorder bundle")
     p.add_argument("--serve", type=int, default=None, metavar="PORT",
                    dest="serve_port",
                    help="live run console (obs/serve.py): an HTTP service "
@@ -462,7 +495,10 @@ def config_from_args(argv=None) -> RunConfig:
         checkpoint_backend=a.checkpoint_backend, resume=a.resume,
         render=a.render, profile_dir=a.profile_dir, profile=a.profile,
         telemetry=a.telemetry, serve_port=a.serve_port, health=a.health,
-        anomaly=a.anomaly,
+        anomaly=a.anomaly, degraded_action=a.degraded_action,
+        supervise=a.supervise, max_restarts=a.max_restarts,
+        restart_backoff=a.restart_backoff,
+        supervise_stall_s=a.supervise_stall_s,
         halo_audit=a.halo_audit, compute=a.compute, overlap=a.overlap,
         pipeline=a.pipeline, fuse=a.fuse, ensemble=a.ensemble,
         ensemble_mesh=a.ensemble_mesh, ensemble_perturb=a.ensemble_perturb,
@@ -526,7 +562,6 @@ _COMPUTE_FN_WINS: dict = {
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
 _UNPORTED = (
-    ("supervise", "--supervise", "A8 (resilience)"),
     ("serve_engine", "--serve-engine", "A8 (serving)"),
     ("serve_router", "--serve-router", "A8 (serving)"),
     ("auto_policy", "--auto-policy", "A8 (policy)"),
@@ -1159,10 +1194,18 @@ def _open_telemetry(cfg: RunConfig):
                     cfg.groups, cfg.grid, default_dtype=cfg.dtype or None)]
         except Exception:  # noqa: BLE001 — see above
             pass
+    try:
+        # the heartbeat's stall threshold (the TPU package's
+        # OBS_STALL_AFTER_S): a supervisor or a test makes the in-process
+        # verdict land before its own wall-clock kill; default 600 s
+        stall_after_s = float(os.environ.get("OBS_STALL_AFTER_S", "600")
+                              or 600)
+    except ValueError:
+        stall_after_s = 600.0
     return obs.open_session(
         trace_lib.process_log_path(cfg.telemetry), tool="cli",
         run=dataclasses.asdict(cfg), step_unit=max(1, cfg.fuse),
-        ensemble=cfg.ensemble, **extra)
+        stall_after_s=stall_after_s, ensemble=cfg.ensemble, **extra)
 
 
 def _open_serve(cfg: RunConfig, session):
@@ -1236,6 +1279,51 @@ def _attach_anomaly(cfg: RunConfig, session, cells: int) -> None:
     except Exception:  # noqa: BLE001
         log.debug("--anomaly monitor construction failed; run proceeds "
                   "undoctored", exc_info=True)
+
+
+def _card_layout(cfg: RunConfig, fields) -> Tuple[Optional[str], int, str]:
+    """(card name or None on the CPU, shards on the fullest card, exchange
+    link) of a run's state: the device map of its mesh, the processes
+    that share this process's card, and the transport's link
+    (``costmodel.link_of``)."""
+    from .obs import costmodel
+
+    f = fields[0]
+    block = f[0] if isinstance(f, list) else f
+    card = (torch.cuda.get_device_name(block.device)
+            if block.is_cuda else None)
+    mesh = getattr(f, "mesh", None)
+    if mesh is None:
+        return card, 1, "hbm"
+    per_device = collections.Counter(mesh.devices)
+    shards = max(per_device.values())
+    sharing = mesh_lib.ranks_on_device() if mesh.multiprocess else 1
+    shards *= sharing
+    cards = len(per_device)
+    if cfg.exchange == "rdma" and mesh.multiprocess:
+        # the peer ring: CUDA IPC copies, within one card or over NVLink
+        return card, shards, "hbm" if sharing > 1 else "nvlink"
+    return card, shards, costmodel.link_of(mesh.backend, cards)
+
+
+def _emit_static_cost(cfg: RunConfig, st, session, fields) -> None:
+    """The ``costmodel`` event (obs/costmodel.py): the static counters
+    and the roofline priced for this run's card, its shards per card and
+    its exchange link.  Best-effort: it never blocks the run and changes
+    no field."""
+    try:
+        from .obs import costmodel
+
+        card, shards, link = _card_layout(cfg, fields)
+        session.event("costmodel", **costmodel.static_cost(
+            st, cfg.grid, mesh=cfg.mesh, fuse=cfg.fuse,
+            fuse_kind=cfg.fuse_kind, periodic=cfg.periodic,
+            ensemble=cfg.ensemble, exchange=cfg.exchange,
+            ensemble_mesh=cfg.ensemble_mesh, card=card,
+            shards_per_card=shards, link=link))
+    except Exception:  # noqa: BLE001 — telemetry is never load-bearing
+        log.debug("static cost model failed; trace goes without it",
+                  exc_info=True)
 
 
 def _maybe_bundle(session, reason: str, verdict=None) -> None:
@@ -1337,6 +1425,7 @@ def _run_measured(cfg: RunConfig, session) -> Tuple:
     st, step_fn, fields, start_step = build(cfg)
     build_s = time.perf_counter() - build_m0
     if session is not None:
+        _emit_static_cost(cfg, st, session, fields)
         if start_step:
             session.event("resume", resumed_from_step=start_step)
             if session.spans is not None:
@@ -1722,6 +1811,18 @@ def _run_coupled(cfg: RunConfig, session=None) -> Tuple:
     assembled base-resolution fields on the host, Mcells/s from
     ``cell_updates_per_round``)."""
     plans, runner, start_round = build_coupled(cfg)
+    if session is not None:
+        try:
+            from .obs import costmodel
+
+            dev = runner.fields[0][0][0].device
+            session.event("costmodel", **costmodel.coupled_cost(
+                plans, card=(torch.cuda.get_device_name(dev)
+                             if dev.type == "cuda" else None),
+                transport=cfg.group_transport))
+        except Exception:  # noqa: BLE001 — telemetry never load-bearing
+            log.debug("coupled cost model failed; trace goes without it",
+                      exc_info=True)
     if session is not None and start_round:
         session.event("resume", resumed_from_step=start_round)
     remaining = cfg.iters - start_round
@@ -1883,13 +1984,28 @@ def _rank_tag() -> str:
     return ""
 
 
+SUPERVISE_PROCESSES_ITEM = ("ROADMAP A8 (resilience): --supervise under "
+                            "a multi-process launch")
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
         format=f"%(asctime)s %(levelname)s %(name)s{_rank_tag()}: "
                "%(message)s")
+    cfg = config_from_args(argv)
+    if cfg.supervise:
+        if _launched_multiprocess():
+            # the supervisor watches one child process, as the TPU
+            # package's does
+            raise NotImplementedError(
+                "--supervise watches one process; under a multi-process "
+                f"launch it is not ported: {SUPERVISE_PROCESSES_ITEM}")
+        from .resilience import supervisor as supervisor_lib
+
+        return supervisor_lib.run_supervised(cfg)
     try:
-        run(config_from_args(argv))
+        run(cfg)
     finally:
         mesh_lib.shutdown_distributed()
     return 0

@@ -87,6 +87,84 @@ class RunConfig:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+# Launcher-only fields (the TPU package's set): the supervisor consumes
+# them in the parent and never hands them to the child, so a child runs the
+# one ordinary CLI path (a child that re-supervised would fork a
+# supervision tree; one that re-served would race the parent for the
+# port).
+_ARGV_SKIP = frozenset({"supervise", "max_restarts", "restart_backoff",
+                        "supervise_stall_s", "serve_port", "serve_engine",
+                        "serve_router", "router_replicas", "shrink_after",
+                        "degraded_action"})
+
+
+# Simulation state against request lifecycle, the TPU package's split.
+# SIMULATION fields decide what is computed: two configs equal on them give
+# bit-identical trajectories.  LIFECYCLE fields decide how a run is watched,
+# persisted, instrumented and served, and change no computed value.  The two
+# sets partition RunConfig; the port's own ``device`` is a simulation field
+# (it picks the kernels that run).
+LIFECYCLE_FIELDS = frozenset({
+    "log_every", "checkpoint_every", "checkpoint_dir",
+    "checkpoint_backend", "resume", "render", "profile_dir", "profile",
+    "check_finite", "debug_checks", "health", "halo_audit",
+    "anomaly", "degraded_action",
+    "dump_every", "dump_dir",
+    "telemetry", "mem_check", "supervise", "max_restarts",
+    "restart_backoff", "supervise_stall_s", "serve_port",
+    "compile_cache", "serve_engine", "serve_router", "router_replicas",
+    "shrink_after", "policy_recheck",
+})
+
+SIM_FIELDS = frozenset(
+    f.name for f in dataclasses.fields(RunConfig)
+) - LIFECYCLE_FIELDS
+
+
+def sim_config_dict(cfg: RunConfig) -> Dict[str, Any]:
+    """The simulation-state fields of ``cfg`` alone, as a plain dict."""
+    return {k: v for k, v in dataclasses.asdict(cfg).items()
+            if k in SIM_FIELDS}
+
+
+def sim_signature(cfg: RunConfig) -> str:
+    """Canonical JSON of the simulation state: two configs with equal
+    signatures compute the same trajectory."""
+    return json.dumps(sim_config_dict(cfg), sort_keys=True)
+
+
+def to_argv(cfg: RunConfig) -> list:
+    """The CLI argv that reproduces ``cfg``, launcher-only fields left out:
+    the supervisor's child launch.
+
+    The TPU package's rule: every field that differs from its default
+    becomes its ``--flag`` (underscores map to dashes; ``params`` to
+    repeated ``--param k=v``).  The port's own fields ride the same rule,
+    so a ``--device cpu`` parent starts a ``--device cpu`` child.  Known
+    lossiness, inherited from the CLI: a string param value that parses as
+    a number comes back numeric (``parse_params``).
+    """
+    out: list = []
+    defaults = RunConfig()
+    for f in dataclasses.fields(RunConfig):
+        if f.name in _ARGV_SKIP:
+            continue
+        v = getattr(cfg, f.name)
+        if v == getattr(defaults, f.name):
+            continue
+        flag = "--" + f.name.replace("_", "-")
+        if f.name == "params":
+            for k, pv in v.items():
+                out += ["--param", f"{k}={pv}"]
+        elif isinstance(v, bool):
+            out.append(flag)
+        elif isinstance(v, tuple):
+            out += [flag, ",".join(map(str, v))]
+        else:
+            out += [flag, str(v)]
+    return out
+
+
 def groups_signature(groups: str) -> str:
     """Short stable signature of a ``--groups`` string (the TPU package's):
     whitespace-normalized, so cosmetically different spellings of the same

@@ -26,14 +26,17 @@ packages' logs:
 * ``group_chunk``— one device group's share of a coupled chunk
   (``--groups``)
 * ``anomaly``    — one run-doctor finding (``anomaly.py``)
+* ``costmodel``  — the static counters and the roofline priced for the
+  card (``costmodel.py``; one a run, after the build)
+* ``launch`` / ``restart`` / ``give_up`` / ``bundle`` — the supervisor's
+  trail (``resilience/supervisor.py``, tool ``supervisor``)
 * ``exchange`` / ``resume`` / ``error`` / ``summary`` — the run's path
   and how it ended
 
 ``metrics.py`` folds the event stream into the run's verdict;
 ``flightrec.py`` keeps the post-mortem ring and writes the
-bundle.  The reference's ``costmodel``, ``policy``, ``migrate``,
-``scheduler`` and ``router`` records come with their modules (ROADMAP A6,
-A8).
+bundle.  The reference's ``policy``, ``migrate``, ``scheduler`` and
+``router`` records come with their modules (ROADMAP A8).
 
 :func:`open_session` is the one-call wiring: trace writer + manifest +
 runtime recorder + heartbeat, bundled in a :class:`Session`.  Telemetry

@@ -14,9 +14,12 @@ log:
 * anomaly findings (obs/anomaly.py) and the final verdict
 * ``best_known``: the campaign ledger's row for this label x backend
   (``obs/ledger.py``), or null where there is none
-* ``tunnel``: the card probe verdict, recorded as NOT_RUN: the probe
-  (``heartbeat.probe_verdict``) joins the bundle with the supervisor
-  (ROADMAP A8), so a failing run's teardown stays bounded
+* ``tunnel``: the card probe's verdict (:func:`card_verdict`, the
+  counterpart of the TPU package's ``tunnel_verdict``): opt-in, run by the
+  supervisor's give-up bundle; a run's own bundle records NOT_RUN, so a
+  failing run's teardown stays bounded
+* ``sibling_events``: the tails of other logs (the supervisor's give-up
+  bundle carries the final attempt's child log), when given
 * a whitelisted env snapshot (fault injection, obs, device selection)
 
 A bundle is readable with the original telemetry dir deleted.  Bundle
@@ -29,6 +32,8 @@ from __future__ import annotations
 import collections
 import json
 import os
+import subprocess
+import sys
 import time
 from typing import Any, Dict, List, Optional
 
@@ -105,9 +110,49 @@ def env_snapshot() -> Dict[str, str]:
             if k.startswith(_ENV_WHITELIST_PREFIXES)}
 
 
-# the bundle's card-probe field: the probe joins it with the supervisor
-_TUNNEL_NOT_RUN = {"verdict": "NOT_RUN",
-                   "detail": "no card probe in a run's own bundle"}
+# the card probe: the card's name and power limit, then one one-element
+# CUDA op, in a subprocess with a timeout (a wedged card hangs the probe,
+# never the caller)
+_PROBE_SMI = ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]
+_PROBE_OP = ("import torch; x = torch.ones(1, device='cuda') + 1; "
+             "torch.cuda.synchronize(); print(torch.cuda.get_device_name(0),"
+             " float(x.item()))")
+
+
+def card_verdict(run: bool = False,
+                 timeout_s: float = 60.0) -> Dict[str, Any]:
+    """The card probe's verdict for a bundle's ``tunnel`` field:
+    NOT_RUN unless ``run``.  Run, it reads ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` and launches one one-element CUDA op in a
+    fresh interpreter, each a subprocess under ``timeout_s``: ``OK`` when
+    both answer (the op's result 2.0), else ``FAIL`` with what went wrong.
+    Never raises."""
+    if not run:
+        return {"verdict": "NOT_RUN",
+                "detail": "no card probe in a run's own bundle"}
+    out: Dict[str, Any] = {}
+    try:
+        smi = subprocess.run(_PROBE_SMI, capture_output=True, text=True,
+                             timeout=timeout_s)
+        out["nvidia_smi"] = (smi.stdout.strip() if smi.returncode == 0
+                             else f"rc={smi.returncode}: "
+                                  f"{smi.stderr.strip()[:200]}")
+        op = subprocess.run([sys.executable, "-c", _PROBE_OP],
+                            capture_output=True, text=True,
+                            timeout=timeout_s)
+        line = op.stdout.strip().splitlines()[-1:] or [""]
+        ok = (smi.returncode == 0 and op.returncode == 0
+              and line[0].endswith(" 2.0"))
+        out["cuda_op"] = (line[0] if op.returncode == 0
+                          else f"rc={op.returncode}: "
+                               f"{op.stderr.strip()[-300:]}")
+        return {"verdict": "OK" if ok else "FAIL",
+                "detail": "card answered" if ok else "probe failed",
+                **out}
+    except Exception as e:  # noqa: BLE001 — never block the bundle
+        return {"verdict": "FAIL", "detail": f"{type(e).__name__}: {e}"[:300],
+                **out}
 
 
 def _best_known_for(manifest: Optional[Dict[str, Any]]) -> Optional[Dict]:
@@ -133,9 +178,13 @@ def build_bundle(manifest: Optional[Dict[str, Any]],
                  verdict: Optional[str] = None,
                  events_seen: Optional[int] = None,
                  open_span_list: Optional[List[Dict[str, Any]]] = None,
+                 extra_events: Optional[Dict[str, List[Dict]]] = None,
+                 run_probe: bool = False,
                  last_n: int = DEFAULT_LAST_N) -> Dict[str, Any]:
     """Assemble a self-contained post-mortem; validates before returning.
 
+    ``extra_events`` attaches sibling tails under their own keys;
+    ``run_probe`` runs the card probe (:func:`card_verdict`).
     ``verdict=None`` is replayed from the events through
     :class:`~.metrics.RunMetrics` — one verdict definition, not two.
     """
@@ -167,9 +216,13 @@ def build_bundle(manifest: Optional[Dict[str, Any]],
         "open_spans": open_span_list or [],
         "anomalies": anomalies,
         "best_known": _best_known_for(manifest),
-        "tunnel": dict(_TUNNEL_NOT_RUN),
+        "tunnel": card_verdict(run=run_probe),
         "env": env_snapshot(),
     }
+    if extra_events:
+        bundle["sibling_events"] = {
+            k: [e for e in v if isinstance(e, dict)][-last_n:]
+            for k, v in extra_events.items()}
     validate_bundle(bundle)
     return bundle
 
@@ -258,7 +311,10 @@ def is_bundle_file(path: str) -> bool:
 
 
 def bundle_from_session(session, reason: str,
-                        verdict: Optional[str] = None) -> Optional[str]:
+                        verdict: Optional[str] = None,
+                        run_probe: bool = False,
+                        extra_events: Optional[Dict[str, List[Dict]]] = None,
+                        ) -> Optional[str]:
     """Emit a bundle from a live session's ring; returns the path or None.
 
     Best-effort by contract: every failure is swallowed — this runs in
@@ -271,7 +327,8 @@ def bundle_from_session(session, reason: str,
         bundle = build_bundle(
             flight.manifest, flight.events(), reason, verdict=verdict,
             events_seen=flight.events_seen,
-            open_span_list=open_spans(session))
+            open_span_list=open_spans(session),
+            extra_events=extra_events, run_probe=run_probe)
         return write_bundle(bundle, default_bundle_path(session.path))
     except Exception:  # noqa: BLE001 — never fail the failing run harder
         return None

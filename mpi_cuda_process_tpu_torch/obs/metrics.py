@@ -25,10 +25,11 @@ Two layers:
   compile vs steady split, recompiles, device-memory peak, exchange mode,
   heartbeat and health verdicts) and the structured :meth:`status`
   payload that ``obs/serve.py`` exposes as ``/status.json``; the flight
-  recorder replays a log through it for its verdict.  The reference's
-  handlers for records only unported modules write come with those
-  modules: ``costmodel`` (the roofline gauges; ROADMAP A6), ``launch`` /
-  ``restart`` / ``give_up`` (the supervisor), ``policy`` / ``migrate``,
+  recorder replays a log through it for its verdict.  ``costmodel``
+  (``obs/costmodel.py``) sets the roofline gauges and the supervisor's
+  ``launch`` / ``restart`` / ``give_up`` (``resilience/supervisor.py``)
+  its restart trail.  The reference's handlers for records only unported
+  modules write come with those modules: ``policy`` / ``migrate``,
   ``scheduler`` / ``router`` / ``cancelled`` (serving) and ``label`` (the
   measurement harness, A9).
 
@@ -362,6 +363,12 @@ class RunMetrics:
         self.anomaly_kinds: Dict[str, int] = {}
         self.summary: Optional[Dict[str, Any]] = None
         self.resumed_from_step: Optional[int] = None
+        # the static cost block (obs/costmodel.py) and the supervisor's
+        # restart trail (resilience/supervisor.py)
+        self.costmodel: Optional[Dict[str, Any]] = None
+        self.launches: List[Dict[str, Any]] = []
+        self.restarts: List[Dict[str, Any]] = []
+        self.give_up: Optional[Dict[str, Any]] = None
         # coupled-run group table (parallel/groups.py): one row per
         # device group, seeded from the manifest's ``groups`` block and
         # refreshed by group_chunk / per-group health events
@@ -518,6 +525,7 @@ class RunMetrics:
             self.registry.gauge(
                 "obs_device_memory_peak_bytes",
                 "max device memory peak over all chunks").set_max(peak)
+        self._update_roofline_gap()
 
     def _on_group_chunk(self, rec: Dict[str, Any]) -> None:
         """Fold one per-group chunk of a coupled run (cli._run_coupled):
@@ -543,6 +551,42 @@ class RunMetrics:
                 "latest per-group throughput of the coupled run, "
                 "Mcells/s").set(mc, group=name,
                                 op=str(rec.get("op") or ""))
+
+    def _on_costmodel(self, rec: Dict[str, Any]) -> None:
+        self.costmodel = rec
+        roof = rec.get("roofline") or {}
+        t_hbm = roof.get("predicted_ms_per_step_hbm")
+        t_ici = roof.get("predicted_ms_per_step_exchange") or 0.0
+        if t_hbm is not None:
+            self.registry.gauge(
+                "obs_predicted_ms_per_step_overlapped",
+                "roofline ms/step, exchange fully hidden").set(
+                max(t_hbm, t_ici))
+            self.registry.gauge(
+                "obs_predicted_ms_per_step_serial",
+                "roofline ms/step, exchange on the critical path").set(
+                t_hbm + t_ici)
+        self._update_roofline_gap()
+
+    def _update_roofline_gap(self) -> None:
+        """measured p50 / predicted-overlapped: the attribution gap."""
+        roof = (self.costmodel or {}).get("roofline") or {}
+        t_hbm = roof.get("predicted_ms_per_step_hbm")
+        if t_hbm is None:
+            return
+        t_ici = roof.get("predicted_ms_per_step_exchange") or 0.0
+        pred = max(t_hbm, t_ici)
+        steady = sorted(c["ms_per_step"] for c in self.chunks_recent
+                        if c.get("chunk") != 0
+                        and not c.get("recompiled")
+                        and c.get("ms_per_step") is not None)
+        if not steady or pred <= 0:
+            return
+        self.registry.gauge(
+            "obs_roofline_gap_ratio",
+            "measured steady p50 ms/step over the overlapped roofline "
+            "prediction (1.0 = at the roofline)").set(
+            quantile(steady, 0.5) / pred)
 
     def _on_heartbeat(self, rec: Dict[str, Any]) -> None:
         self.heartbeat = rec
@@ -646,6 +690,30 @@ class RunMetrics:
             "1 while the latest halo audit bit-matched everywhere").set(
             1.0 if rec.get("ok") else 0.0)
 
+    def _on_launch(self, rec: Dict[str, Any]) -> None:
+        self.launches.append(rec)
+        self.registry.gauge("obs_supervisor_attempts",
+                            "supervised launches so far").set(
+            len(self.launches))
+        step = rec.get("resumed_from_step")
+        if step is not None:
+            self.resumed_from_step = int(step)
+            self.registry.gauge(
+                "obs_resumed_from_step",
+                "checkpoint step the latest attempt resumed from").set(step)
+
+    def _on_restart(self, rec: Dict[str, Any]) -> None:
+        self.restarts.append(rec)
+        self.registry.counter(
+            "obs_supervisor_restarts_total",
+            "supervisor kill+relaunch decisions").inc()
+
+    def _on_give_up(self, rec: Dict[str, Any]) -> None:
+        self.give_up = rec
+        self.registry.gauge(
+            "obs_supervisor_gave_up",
+            "1 once the supervisor stopped restarting").set(1.0)
+
     def _on_resume(self, rec: Dict[str, Any]) -> None:
         step = rec.get("resumed_from_step")
         if step is not None:
@@ -721,10 +789,10 @@ class RunMetrics:
 
         Everything a remote "is it wedged?" needs without reading any
         log file: provenance, the latest chunk, throughput, the heartbeat
-        and health verdicts, the resume point and the errors.  The
-        reference's supervisor trail (``launches``, ``restarts``,
-        ``give_up``) and its serving, policy, roofline and campaign panels
-        come with their modules.
+        and health verdicts, the supervisor's restart trail (launches carry
+        ``resumed_from_step``), the resume point, the roofline prediction
+        and the errors.  The reference's serving, policy and campaign
+        panels come with their modules.
         """
         with self.registry.lock:
             hb = self.heartbeat
@@ -754,6 +822,9 @@ class RunMetrics:
                 "heartbeat": hb,
                 # always present (None before any check)
                 "health": self.health,
+                "launches": list(self.launches),
+                "restarts": list(self.restarts),
+                "give_up": self.give_up,
                 "resumed_from_step": self.resumed_from_step,
                 "exchange": self.exchange,
                 "summary": self.summary,
@@ -786,4 +857,7 @@ class RunMetrics:
                 out["time_to_first_chunk_s"] = self.time_to_first_chunk_s
             if self.spans_seen:
                 out["spans_seen"] = self.spans_seen
+            roof = (self.costmodel or {}).get("roofline")
+            if roof:
+                out["roofline"] = roof
             return out

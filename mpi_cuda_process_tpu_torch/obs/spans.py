@@ -23,12 +23,17 @@ name           emitted by
 ``checkpoint`` the CLI around every checkpoint save
 ``resume``     the CLI around a resuming build (attrs carry
                ``resumed_from_step``)
+``attempt``    the supervisor (``resilience/supervisor.py``): one per
+               launched child; the child's whole tree hangs under it
+``kill`` /     the supervisor: killing a lost child, then the restart
+``restart`` /  decision and its backoff wait, between two attempts
+``backoff``
 =============  =====================================================
 
-The reference's supervisor and engine spans (``attempt``, ``kill``,
-``restart``, ``backoff``, ``request``), with the launcher's
-``env_extra`` and the engine's in-thread context, come with those
-modules (ROADMAP A8).
+A launcher passes :func:`env_extra` into a child's environment from inside
+the span that brackets the child (the supervisor's ``attempt``), so the
+child's session joins that trace under it.  The reference's engine spans
+(``request``) and its in-thread context come with the engine (ROADMAP A8).
 
 Design constraints, inherited from the obs layer:
 
@@ -87,6 +92,17 @@ def from_env() -> Optional[SpanContext]:
     """The context a parent process exported, or None."""
     raw = os.environ.get(ENV_VAR)
     return SpanContext.decode(raw) if raw else None
+
+
+def env_extra(session: Any) -> Dict[str, str]:
+    """The env block a launcher passes to a child so the child's spans
+    join this session's trace under the current span (call it inside the
+    span that brackets the child's life: the supervisor's ``attempt``).
+    Empty when the session has no span emitter."""
+    emitter = getattr(session, "spans", None)
+    if emitter is None or emitter.trace is None:
+        return {}
+    return {ENV_VAR: emitter.current().encode()}
 
 
 # ------------------------------------------------------------ records

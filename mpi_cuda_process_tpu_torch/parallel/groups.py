@@ -60,6 +60,7 @@ import torch
 from ..config import groups_signature
 from ..driver import make_runner, synchronize
 from ..ops.stencil import Fields, Stencil, dtype_name, make_stencil
+from ..utils import launchcheck
 from ..utils.init import init_state_sharded
 from . import halo as halo_lib
 from . import mesh as mesh_lib
@@ -926,6 +927,8 @@ class CoupledRunner:
                                      col.device) for i in idx]
                         for col in cols]
                 self._puts += len(cols)
+                launchcheck.note("put", reads=self.fields[send_g],
+                                 writes=srcs)
             bands = [[_resample(x, rs, rr, m, up, col.crop, dtype)
                       for x in src] for col, src in zip(cols, srcs)]
             staged.append((recv_g, idx, cols, bands))
@@ -934,13 +937,16 @@ class CoupledRunner:
             for col, band in zip(cols, bands):
                 for i, b in zip(idx, band):
                     _write_band(fs[i], col.writes, b)
+            launchcheck.note("band", reads=bands, writes=fs)
 
     def step_round(self) -> None:
         """One coupled round: exchange, then every group steps once (in
         turn; the launches are asynchronous)."""
-        self.exchange()
+        with launchcheck.tag(phase="interface"):
+            self.exchange()
         for g, runner in enumerate(self._runners):
-            self.fields[g] = runner(self.fields[g])
+            with launchcheck.tag(group=g):
+                self.fields[g] = runner(self.fields[g])
         self.round += 1
 
     def run(self, rounds: int, on_round=None) -> None:

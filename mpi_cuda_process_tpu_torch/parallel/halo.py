@@ -75,6 +75,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..utils import launchcheck
 from .mesh import Mesh, dist_timeout_s
 
 
@@ -107,13 +108,23 @@ def _flat3(t: torch.Tensor) -> torch.Tensor:
     return t if t.dim() <= 3 else t.reshape(-1, *t.shape[-2:])
 
 
-class _Done:
-    """A shift whose slabs are in hand at once (an in-process one)."""
+def _slab_bytes(*slab_lists) -> int:
+    return sum(t.numel() * t.element_size() for slabs in slab_lists
+               for t in slabs)
 
-    def __init__(self, pair):
+
+class _Done:
+    """A shift whose slabs are in hand at once (an in-process one).
+    ``posted`` is its post's launch record (``utils/launchcheck.py``), or
+    None outside a recording."""
+
+    def __init__(self, pair, posted=None):
         self._pair = pair
+        self._posted = posted
 
     def wait(self):
+        if self._posted is not None:
+            launchcheck.note_wait(self._posted, self._pair)
         return self._pair
 
 
@@ -128,15 +139,23 @@ class InProcessTransport:
 
     def __init__(self):
         # posted shifts (one per axis and exchange round, whatever the
-        # slabs' member count)
-        self.stats = {"shifts": 0}
+        # slabs' member count) and the slab bytes they hand between shards:
+        # every local shard's hi and lo slab (a ppermute pair's operands,
+        # walls included) along an axis of more than one shard; an axis of
+        # one shard is a local fill or wrap and hands over none
+        self.stats = {"shifts": 0, "bytes": 0}
 
     def post(self, hi_slabs: Sequence[torch.Tensor],
              lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
              periodic: bool):
+        n = _axis_count(mesh, axis)
         self.stats["shifts"] += 1
+        if n > 1:
+            self.stats["bytes"] += _slab_bytes(hi_slabs, lo_slabs)
+        posted = launchcheck.note_post("in-process", hi_slabs, lo_slabs,
+                                       mesh, axis, n)
         return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
-                                     periodic))
+                                     periodic), posted)
 
     def shift_pair(self, hi_slabs: Sequence[torch.Tensor],
                    lo_slabs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
@@ -218,6 +237,8 @@ class DistributedTransport:
         import torch.distributed as dist
 
         n = _axis_count(mesh, axis)
+        posted = launchcheck.note_post("distributed", hi_slabs, lo_slabs,
+                                       mesh, axis, n)
         local = mesh.local_coords()
         from_left: List[Optional[torch.Tensor]] = [None] * len(local)
         from_right: List[Optional[torch.Tensor]] = [None] * len(local)
@@ -246,7 +267,7 @@ class DistributedTransport:
                                       mesh.local_index(dst), side))
                 tag += 1
         if not sends and not recvs:
-            return _Done((from_left, from_right))
+            return _Done((from_left, from_right), posted)
         like = hi_slabs[0]
         dev = mesh.devices[0]
         host = self.backend == "gloo-host"
@@ -273,18 +294,19 @@ class DistributedTransport:
         self.stats["bytes"] += sum(t.numel() * t.element_size() for t in out)
         self.stats["seconds"] += time.perf_counter() - t0
         return _Posted(self, works, out, bufs, recvs, from_left, from_right,
-                       mesh)
+                       mesh, posted)
 
 
 class _Posted:
     """A shift in flight over :class:`DistributedTransport`."""
 
     def __init__(self, transport, works, out, bufs, recvs, from_left,
-                 from_right, mesh):
+                 from_right, mesh, posted=None):
         # ``out``: the sent tensors, held until the sends complete
         self._t, self._works, self._out = transport, works, out
         self._bufs, self._recvs = bufs, recvs
         self._pair, self._mesh = (from_left, from_right), mesh
+        self._posted = posted
 
     def wait(self):
         t0 = time.perf_counter()
@@ -300,6 +322,8 @@ class _Posted:
             torch.cuda.current_stream(self._mesh.devices[0]).synchronize()
         self._t.stats["seconds"] += time.perf_counter() - t0
         self._works = self._out = self._bufs = ()
+        if self._posted is not None:
+            launchcheck.note_wait(self._posted, self._pair)
         return self._pair
 
 
@@ -428,21 +452,26 @@ class RdmaTransport:
         """Post one shift; a batched slab ``(N, h, Y, X)`` travels as its
         contiguous ``(N h, Y, X)`` view (one site, one launch, whatever
         N) and comes back in its own shape."""
+        posted = launchcheck.note_post("rdma", hi_slabs, lo_slabs, mesh,
+                                       axis, _axis_count(mesh, axis))
         if not mesh.multiprocess:
             self.stats["shifts"] += 1
             return _Done(self.shift_pair(hi_slabs, lo_slabs, mesh, axis,
-                                         periodic))
+                                         periodic), posted)
         shape = tuple(hi_slabs[0].shape)
         hi_slabs = [_flat3(t) for t in hi_slabs]
         lo_slabs = [_flat3(t) for t in lo_slabs]
         site = self._peer(mesh, axis, hi_slabs[0].shape, hi_slabs[0].dtype)
         t0 = time.perf_counter()
         epoch = site.post(hi_slabs, lo_slabs)
+        launchcheck.note("ring", reads=(hi_slabs, lo_slabs), axis=axis,
+                         mesh=id(mesh), mesh_shape=tuple(mesh.shape),
+                         shards=_axis_count(mesh, axis), transport="rdma")
         self.stats["shifts"] += 1
         self.stats["bytes"] += site.meta["slab_bytes"] * sum(
             1 for pair in site.to for r, _ in pair if r != site.rank)
         self.stats["seconds"] += time.perf_counter() - t0
-        return _PeerPosted(self, site, epoch, shape)
+        return _PeerPosted(self, site, epoch, shape, posted)
 
     def peer_sites(self) -> list:
         return list(self._peers.values())
@@ -494,6 +523,11 @@ class RdmaTransport:
                               [lo_slabs[i] for i in idx],
                               [pos[nxt[i]] for i in idx],
                               [pos[prv[i]] for i in idx])
+            launchcheck.note("ring", reads=(hi_slabs, lo_slabs),
+                             writes=(fl, fr), axis=axis, mesh=id(mesh),
+                             mesh_shape=tuple(mesh.shape),
+                             shards=_axis_count(mesh, axis),
+                             transport="rdma")
             for j, i in enumerate(idx):
                 from_left[i] = fl[j].reshape(shape)
                 from_right[i] = fr[j].reshape(shape)
@@ -504,18 +538,23 @@ class RdmaTransport:
 class _PeerPosted:
     """A shift posted on a peer site: ``wait()`` drains it."""
 
-    def __init__(self, transport: RdmaTransport, site, epoch: int, shape):
+    def __init__(self, transport: RdmaTransport, site, epoch: int, shape,
+                 posted=None):
         self._t, self._site, self._epoch = transport, site, epoch
         self._shape = shape
+        self._posted = posted
 
     def wait(self):
         t0 = time.perf_counter()
         lefts, rights = self._site.drain(self._epoch)
         self._t.stats["seconds"] += time.perf_counter() - t0
-        return ([None if t is None else t.reshape(self._shape)
+        pair = ([None if t is None else t.reshape(self._shape)
                  for t in lefts],
                 [None if t is None else t.reshape(self._shape)
                  for t in rights])
+        if self._posted is not None:
+            launchcheck.note_wait(self._posted, pair)
+        return pair
 
 
 # Every RdmaTransport of a mesh that spans processes, in build order (a

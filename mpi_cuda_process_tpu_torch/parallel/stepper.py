@@ -43,6 +43,7 @@ import torch
 
 from ..driver import frame_mask
 from ..ops.stencil import Fields, Stencil, k_step_margin
+from ..utils import launchcheck
 from .halo import (RdmaTransport, default_transport, exchange_and_pad,
                    local_mesh, pad_from_slabs, pad_local, post_and_pad,
                    post_slabs_2axis, post_slabs_2axis_from_borders,
@@ -216,6 +217,7 @@ class _SideStreams:
         """Order the side streams after the current ones and make them
         current: the copies issued inside run there."""
         stack = contextlib.ExitStack()
+        stack.enter_context(launchcheck.side_scope())
         for d in self.devices:
             if d not in self.streams:
                 self.streams[d] = torch.cuda.Stream(device=d)
@@ -229,6 +231,7 @@ class _SideStreams:
         rest of an exchange :meth:`begin` posted runs there, still ordered
         only after the work that came before :meth:`begin`."""
         stack = contextlib.ExitStack()
+        stack.enter_context(launchcheck.side_scope())
         for d in self.devices:
             stack.enter_context(torch.cuda.stream(self.streams[d]))
         return stack
@@ -435,6 +438,8 @@ def make_sharded_step(
                         for b, bc, fh in zip(shards[i], stencil.bc_value,
                                              stencil.field_halos))
                     new.append(list(update(local)))
+                launchcheck.note("interior", reads=(shards[i], local),
+                                 writes=new[i])
             with side.resume():
                 padded = [p.wait() for p in posted]
                 side.record()
@@ -446,6 +451,8 @@ def make_sharded_step(
                         for lo in (True, False):
                             ring = ring_update(update, padded_c, shards[i],
                                                d, lo)
+                            launchcheck.note("shell", reads=padded_c,
+                                             writes=ring)
                             for j, nb in enumerate(new[i]):
                                 if stencil.carry_map[j] is not None:
                                     continue
@@ -453,12 +460,16 @@ def make_sharded_step(
                                 sl = slice(0, halo) if lo else \
                                     slice(n - halo, None)
                                 _axis_slice(nb, d + lead, sl).copy_(ring[j])
+                            launchcheck.note("splice", reads=ring,
+                                             writes=new[i])
         else:
             padded = exchange(fields)
             new = []
             for i, c in enumerate(coords):
                 with _on_device(mesh.device(c)):
-                    new.append(update(tuple(pf[i] for pf in padded)))
+                    ins = tuple(pf[i] for pf in padded)
+                    new.append(update(ins))
+                launchcheck.note("kernel", reads=ins, writes=new[i])
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
@@ -855,8 +866,11 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
     sharded_axes = [d for d in (0, 1) if counts[d] > 1]
     bcs = stencil.bc_value
 
-    def run(fields, i, ops_i):
-        return launch(origins[i], [f[i] for f in fields], ops_i)
+    def run(fields, i, ops_i, op="kernel"):
+        out = launch(origins[i], [f[i] for f in fields], ops_i)
+        launchcheck.note(op, reads=([f[i] for f in fields], ops_i),
+                         writes=out)
+        return out
 
     def assemble(fields, new):
         """Per-shard output blocks ``new[i][j]`` -> the step's fields."""
@@ -902,12 +916,13 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
                 # exchange
                 own = [p.wait() for p in post([[f[i]] for f in fields],
                                               local_mesh(fields[0][i]))]
-                new.append(run(fields, i, [o[0] for o in own]))
+                new.append(run(fields, i, [o[0] for o in own], "interior"))
         return new
 
     def splice(new, i, d, o, res):
         for nb, rb in zip(new[i], res):
             _axis_slice(nb, d + lead, slice(o, o + w)).copy_(rb)
+        launchcheck.note("splice", reads=res, writes=new[i])
 
     def boundary(fields, slabs, new, held=None):
         """Run every shard's shells and splice each over ``new`` as soon
@@ -926,6 +941,7 @@ def _fused_step_driver(stencil, mesh, global_shape, local_shape, counts, k,
                         org[d] += o
                         res = (shells[d](*strips) if periodic
                                else shells[d](tuple(org), *strips))
+                        launchcheck.note("shell", reads=strips, writes=res)
                         if held is None:
                             splice(new, i, d, o, res)
                         else:
@@ -1072,7 +1088,9 @@ def make_sharded_fullgrid_step(
         out = [[] for _ in fields]
         for i, c in enumerate(coords):
             with _on_device(mesh.device(c)):
-                res = run(call, tuple(p[i] for p in padded), row0[i])
+                ins = tuple(p[i] for p in padded)
+                res = run(call, ins, row0[i])
+            launchcheck.note("kernel", reads=ins, writes=res)
             for j, b in enumerate(res):
                 out[j].append(b)
         return tuple(f.with_blocks(o) for f, o in zip(fields, out))
@@ -1098,6 +1116,8 @@ def make_sharded_fullgrid_step(
                                         lead=lead)
                               for f, bc in zip(fields, bcs))
                 new.append(run(call, local, row0[i]))
+            launchcheck.note("interior", reads=([f[i] for f in fields],
+                                                local), writes=new[i])
         with side.resume():
             slabs = [p.wait() for p in posted]
             side.record()
@@ -1113,11 +1133,15 @@ def make_sharded_fullgrid_step(
                               for f, (_, hi) in zip(fields, slabs))
                 lo_out = run(shell, lo_in, row0[i])
                 hi_out = run(shell, hi_in, row0[i] + Ly - w)
+                launchcheck.note("shell", reads=lo_in, writes=lo_out)
+                launchcheck.note("shell", reads=hi_in, writes=hi_out)
                 for j in range(nf):
                     new[i][j][rows + (slice(None, w),)].copy_(lo_out[j])
                     new[i][j][rows + (slice(Ly - w, None),)].copy_(
                         hi_out[j])
                     out[j].append(new[i][j])
+                launchcheck.note("splice", reads=(lo_out, hi_out),
+                                 writes=new[i])
         return tuple(f.with_blocks(o) for f, o in zip(fields, out))
 
     step_overlap._overlap_active = True

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j, 5k), repeated.
+phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l), repeated.
 
     python3 scripts/torch_multiprocess.py [--repeat N]
-        [--phase 5d|5e|5f|5g|5h|5i|5j|5k]
+        [--phase 5d|5e|5f|5g|5h|5i|5j|5k|5l]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -46,7 +46,12 @@ and off, ms a health check and an audit pass, by CUDA events.  ``--phase
 its telemetry-only twin (bit-equal, the same launches, scrapes rising
 mid-run), ms/step served and telemetry-only by CUDA events, the ledger's
 ingest / best / ``--anomaly`` seeding / flight-recorder lookup, and 4
-processes whose process 0 serves 4 ``hosts`` rows.
+processes whose process 0 serves 4 ``hosts`` rows.  ``--phase 5l`` runs
+``chip_smoke.costmodel_phase``: the ``costmodel`` event of config 3, 2 and
+1 runs against each run's own exchange and a recorded pass, the roofline
+gap, the launch checks on recorded passes, and ``--supervise`` (a hang and
+a SIGKILL, each resumed bit-equal to the twin, and a permanent hang giving
+up with the card probe's verdict, all three at once).
 """
 
 from __future__ import annotations
@@ -65,7 +70,7 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
     p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i", "5j",
-                                        "5k"],
+                                        "5k", "5l"],
                    default="5d")
     args = p.parse_args()
     import torch
@@ -109,6 +114,12 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5l":
+            out = cs.costmodel_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "costmodel", "repeat": rep,
+                     "launches": out["launches"],
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5k":

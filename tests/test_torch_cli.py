@@ -286,7 +286,9 @@ def test_unported_combinations_raise_naming_roadmap(extra, exc, match):
 
 def test_unported_flags_are_not_registered_and_config_fields_refused():
     with pytest.raises(SystemExit):
-        tcli.config_from_args(["--supervise"])
+        tcli.config_from_args(["--autotune"])
+    # --supervise runs (ROADMAP A8, tests/test_torch_supervisor.py)
+    assert tcli.config_from_args(["--supervise"]).supervise
     assert tcli.config_from_args(["--ensemble", "2"]).ensemble == 2
     # --groups runs (ROADMAP A7, tests/test_torch_groups_cli.py)
     assert tcli.config_from_args(
@@ -296,7 +298,7 @@ def test_unported_flags_are_not_registered_and_config_fields_refused():
     assert tcli.config_from_args(["--serve", "0"]).serve_port == 0
     for field, value in (("serve_engine", 8080),
                          ("auto_policy", True),
-                         ("compile_cache", "cache"), ("supervise", True)):
+                         ("compile_cache", "cache")):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -9,9 +9,7 @@ package's.
   halo audits and anomaly doctor; an ensemble; device groups; a resumed
   run; a DIVERGED run), fed to both ``RunMetrics``, gives equal
   Prometheus text and equal ``status()`` — apart from ``generated_at``
-  (the wall clock) and the reference's supervisor trail (``launches``,
-  ``restarts``, ``give_up``: empty there, not kept in the port until the
-  supervisor is ported);
+  (the wall clock);
 * ``LogTail`` consumes the same records as the reference's through
   partial lines, malformed lines and a truncation.
 """
@@ -31,10 +29,6 @@ from mpi_cuda_process_tpu_torch.obs import metrics as tmetrics
 from mpi_cuda_process_tpu_torch.obs import trace as ttrace
 from mpi_cuda_process_tpu_torch.parallel import mesh as tmesh
 from mpi_cuda_process_tpu_torch.resilience import faults as tfaults
-
-# status() keys only the reference keeps: the supervisor's trail
-_SUPERVISOR_KEYS = ("launches", "restarts", "give_up")
-
 
 @pytest.fixture(autouse=True)
 def _own_dirs(tmp_path, monkeypatch):
@@ -135,8 +129,6 @@ def _held(path):
     j, t = out
     assert t.registry.to_prometheus() == j.registry.to_prometheus()
     js, ts = j.status(), t.status()
-    for key in _SUPERVISOR_KEYS:
-        assert not js.pop(key)
     js.pop("generated_at"), ts.pop("generated_at")
     assert json.dumps(ts, sort_keys=True, default=str) == \
         json.dumps(js, sort_keys=True, default=str)

@@ -202,7 +202,9 @@ def test_serve_without_telemetry_derives_a_log(tmp_path):
 def test_serve_is_no_longer_refused_and_the_rest_still_are():
     assert tcli.config_from_args(["--serve", "0"]).serve_port == 0
     assert "serve_port" not in {f for f, _, _ in tcli._UNPORTED}
-    assert len(tcli._UNPORTED) == 8
+    # --supervise runs too (tests/test_torch_supervisor.py)
+    assert "supervise" not in {f for f, _, _ in tcli._UNPORTED}
+    assert len(tcli._UNPORTED) == 7
     for field, _, _ in tcli._UNPORTED:
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: 1})

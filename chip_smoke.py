@@ -348,6 +348,27 @@ Run from the root of a checkout.  Phases, each printed as one JSON line:
      resume printed), and a permanent hang giving up with --max-restarts
      1, exit 1, its bundle's tunnel field the card probe's OK.  The
      kernels line gives each kernel's costmodel_launches;
+  5m. continuous-batching serving (engine.py, serving/, the member repack
+     of parallel/reshard.py): --compile-cache's directory read by a
+     second process that runs no nvcc; one ServingEngine (ladder
+     1/2/4/8, cadence 32, --shrink-after 2) refusing an over-budget class
+     (heat3d 4096x2048x2048) with the card's peak unmoved, then serving
+     config 2 (heat3d 256^3 --fuse 4 --fuse-kind stream: K10 batched) as
+     nine jobs in stages (grow 1 -> 2 -> 4 -> 8; slot 0 poisoned by the
+     numerics fault and evicted DIVERGED beside its neighbour; a queued
+     and a running job cancelled; a priority-5 arrival preempting the
+     priority-0 runner through an npy checkpoint, which resumes; shrink
+     back down), config 1 (heat2d 512^2 --fuse 8: K8 batched) beside it
+     (the warm class's later jobs build nothing) and config 3's layout
+     (1024^3 --mesh 2,2 on 4 virtual devices: K10 YZSLAB batched; a grow
+     and a shrink on sharded blocks), then a 2-replica ServingRouter with
+     a replica killed mid-job (zero lost); every finished job bit-equal
+     to its solo cli.run, every recorded repack held to
+     launchcheck.assert_member_repack_structure, the ,ensemble counters
+     of rows 15, 16 and 18 launched; served ms/step at capacity 8 (CUDA
+     events) beside the --ensemble 8 twin, ttfc cold and warm, each
+     repack's ms and the aggregate Gcells/s.  The kernels line gives each
+     kernel's serving_launches;
   6. timing: each kernel, its plain version and, where one PyTorch call
      computes the same function, that call (F.conv3d / F.conv2d with TF32
      off; advection's upwind weights as one F.conv3d), by CUDA events at
@@ -3537,6 +3558,450 @@ def costmodel_phase(counted, lines, main_launches, scratch, p5k=None):
     return out
 
 
+# The served path (phase 5m, ROADMAP A8's fourth part): one ServingEngine
+# (ladder 1/2/4/8, cadence 32, --shrink-after SRV_SHRINK_AFTER) with three
+# size classes at BASELINE sizes, each naming its kernel flags (an
+# unsharded 3D ensemble under --compute auto stays plain, as in the TPU
+# package): class A, config 2 (heat3d 256^3 --fuse 4 --fuse-kind stream:
+# K10 batched, row 16); class B, config 1 (heat2d 512^2 --fuse 8: K8's
+# streaming kind batched, row 15); class C, config 3's layout (heat3d 1024^3
+# --mesh 2,2 --fuse 4 --fuse-kind stream on 4 virtual shards: K10 YZSLAB
+# batched, row 18); an over-budget class; then a 2-replica ServingRouter.
+SRV_DEVICE = "cuda"  # a rehearsal on the CPU sets "cpu" and shrinks grids
+SRV_A = dict(stencil="heat3d", grid=(256, 256, 256), fuse=4,
+             fuse_kind="stream", init="random")
+SRV_B = dict(stencil="heat2d", grid=(512, 512), fuse=8, init="random")
+SRV_C = dict(stencil="heat3d", grid=(1024, 1024, 1024), mesh=(2, 2), fuse=4,
+             fuse_kind="stream", init="random")
+SRV_OVER = dict(stencil="heat3d", grid=(4096, 2048, 2048), fuse=4,
+                fuse_kind="stream")
+SRV_LADDER = (1, 2, 4, 8)
+SRV_CADENCE = 32
+SRV_SHRINK_AFTER = 2
+# class A's jobs: (iters, priority), submitted in stages of 1, 1, 2, 5 so
+# the ladder grows 1 -> 2 -> 4 -> 8: the first is poisoned beside the
+# second, the seventh cancelled while it runs, the last (priority 0)
+# preempted by SRV_HIGH; each later stage outlives the events after it
+SRV_A_JOBS = ((256, 1), (256, 1), (192, 1), (256, 1), (192, 1), (128, 1),
+              (256, 1), (192, 1), (128, 0))
+SRV_QUEUED = 64     # a priority-0 job cancelled while it waits
+SRV_HIGH = 64       # the priority-5 job that preempts
+SRV_B_ITERS = 256
+SRV_C_ITERS = (160, 32)
+SRV_ROUTER_ITERS = 128
+SRV_POISON = "numerics:step=1:nan"  # the next boundary of class A
+SRV_WAIT_S = 60.0
+
+
+def serving_phase(counted, lines, main_launches, scratch):
+    """Phase 5m: continuous-batching serving on the card (ROADMAP A8's
+    fourth part): ``serving.ServingEngine`` and ``ServingRouter`` through
+    their entry points, every finished job bit-equal (max |d| 0) to its
+    solo ``cli.run`` on the card.
+
+    (a) the over-budget class (SRV_OVER) is refused at admission with its
+    arithmetic and the card's peak memory does not move.  (b) class A:
+    nine jobs with distinct seeds (64 to 256 steps) in stages of 1, 1, 2
+    and 5, so the ladder grows 1 -> 2 -> 4 -> 8 (each repack recorded);
+    after the second stage slot 0 (the first job) is poisoned through
+    ``FAULT_INJECT=numerics`` and evicted DIVERGED beside its neighbour;
+    on the full class a priority-0 job waits and is cancelled
+    (``cancelled`` at step 0, never ``error``) and a priority-5 job
+    preempts the priority-0 runner through its ``npy`` checkpoint (the
+    victim resumes); a running job is cancelled; the rest retire and the
+    ladder shrinks (``--shrink-after`` 2).  (c) class
+    B beside A: its first job builds the class (cold ttfc), the next two
+    join it warm and add no step build, no runner and no nvcc run.  (d)
+    class C: two jobs, one grow and one shrink on sharded blocks.  (e) a
+    ServingRouter of 2 replicas: class A jobs, one replica killed while
+    they run, zero lost.  Every recorded repack passes
+    ``launchcheck.assert_member_repack_structure``; rows 15, 16 and 18
+    launch in the served runs (``,ensemble`` counters).  Prints served
+    ms/step of class A at capacity 8 (CUDA events a chunk) beside an
+    ``--ensemble 8`` CLI twin, ttfc cold and warm, each repack's ms and
+    the aggregate Gcells/s.  Returns ``{"runs", "checks", "launches",
+    ...}``."""
+    import dataclasses
+    import statistics
+
+    import torch
+
+    from mpi_cuda_process_tpu_torch import cli, driver, serving
+    from mpi_cuda_process_tpu_torch.config import RunConfig
+    from mpi_cuda_process_tpu_torch.obs import runtime as runtime_lib
+    from mpi_cuda_process_tpu_torch.parallel import mesh as mesh_lib
+    from mpi_cuda_process_tpu_torch.parallel import stepper
+    from mpi_cuda_process_tpu_torch.utils import launchcheck as lc
+
+    t_phase = time.perf_counter()
+    cuda = SRV_DEVICE == "cuda"
+    smi = nvidia_smi() if cuda else "cpu"
+    out = {"card": smi, "runs": {}, "checks": {}, "repacks": []}
+    d = os.path.join(scratch, "serving")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    saved_env = {k: os.environ.get(k) for k in (
+        "OBS_LEDGER_PATH", "OBS_TELEMETRY_DIR", mesh_lib.VIRTUAL_DEVICES_ENV,
+        "FAULT_INJECT")}
+    os.environ.update({"OBS_LEDGER_PATH": os.path.join(d, "ledger.jsonl"),
+                       "OBS_TELEMETRY_DIR": d,
+                       mesh_lib.VIRTUAL_DEVICES_ENV: "4"})
+    os.environ.pop("FAULT_INJECT", None)
+    seeds = iter(range(2700, 2800))
+
+    def job(kw, iters, **extra):
+        return RunConfig(iters=iters, seed=next(seeds), device=SRV_DEVICE,
+                         **kw, **extra)
+
+    def kinds(h):
+        with open(h.telemetry_path) as fh:
+            return [json.loads(ln).get("kind") for ln in fh if ln.strip()]
+
+    finished = []   # (label, handle or its fields, config)
+    try:
+        eng = serving.ServingEngine(
+            telemetry_dir=d, ladder=SRV_LADDER, cadence=SRV_CADENCE,
+            starvation_rounds=10**6, shrink_after_rounds=SRV_SHRINK_AFTER)
+
+        def serve_all():
+            # ---- (a) the over-budget class ------------------------------
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated() if cuda else 0
+            try:
+                eng.submit(job(SRV_OVER, 64), tenant="greedy")
+                fail("serving: the over-budget class was admitted")
+            except serving.AdmissionError as e:
+                if e.reason != "over_budget" or "GiB" not in str(e):
+                    fail(f"serving: over-budget refusal {e.reason}: {e}")
+                over = {"priced_bytes": e.detail["total_bytes"],
+                        "hbm_bytes": e.detail["hbm_bytes"],
+                        "message": str(e)}
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            if peak != held:
+                fail(f"serving: the refused class moved the peak: {held} "
+                     f"-> {peak}")
+            over["peak_unmoved"] = True
+            out["checks"]["over_budget"] = over
+
+            # ---- (b) class A in stages: grow 1 -> 2 -> 4 -> 8 -----------
+            # In lock step: the engine's condition lock held between
+            # boundaries (a class thread takes it at every boundary, and
+            # notifies after each), so each step below advances the class
+            # by the boundaries it names, however fast the card runs them.
+            cv = eng._cv
+            a_jobs = []
+
+            def until(pred, what):
+                if not cv.wait_for(pred, timeout=SRV_WAIT_S):
+                    fail(f"serving: timed out waiting for {what}")
+
+            def started(hs):
+                return lambda: all(
+                    h.timings.get("time_to_first_chunk_s") is not None
+                    for h in hs)
+
+            def stage(n):
+                new = [eng.submit(job(SRV_A, it), tenant=f"a{len(a_jobs) + i}",
+                                  priority=pri)
+                       for i, (it, pri) in enumerate(
+                           SRV_A_JOBS[len(a_jobs):len(a_jobs) + n])]
+                until(started(new), f"stage of {n}'s first chunk")
+                a_jobs.extend(new)
+
+            with cv:
+                stage(1)    # the cold class: capacity 1
+                stage(1)    # grow 1 -> 2
+                [rc_a] = eng.classes()
+                # the numerics fault poisons slot 0 at class A's next
+                # boundary, beside the second job
+                victim = rc_a.slots[0]
+                if victim is not a_jobs[0]:
+                    fail("serving: the first job is not in slot 0")
+                os.environ["FAULT_INJECT"] = SRV_POISON
+                until(victim.done, "the eviction")
+                os.environ.pop("FAULT_INJECT", None)
+                stage(2)    # one into the freed slot, grow 2 -> 4
+                stage(5)    # one into the free slot, grow 4 -> 8
+                if rc_a.capacity != 8 or len(rc_a._occupied_locked()) != 8:
+                    fail(f"serving: class A at capacity {rc_a.capacity} "
+                         f"with {len(rc_a._occupied_locked())} jobs, not "
+                         "8 of 8")
+                low = a_jobs[-1]
+                # on the full class: a priority-0 job (no stronger claim
+                # than the priority-0 runner) waits and is cancelled while
+                # it waits; a priority-5 arrival preempts the priority-0
+                # runner, both at the next boundary
+                queued = eng.submit(job(SRV_A, SRV_QUEUED), tenant="queued",
+                                    priority=0)
+                if queued.phase_live != "queued" or not queued.cancel():
+                    fail("serving: the queued job did not wait")
+                high = eng.submit(job(SRV_A, SRV_HIGH), tenant="high",
+                                  priority=5)
+                until(lambda: queued.done() and started([high])(),
+                      "the queued cancel and the preemption")
+                if low.preempt_count < 1:
+                    fail("serving: the priority-0 runner was not preempted")
+                cancelled = a_jobs[6]
+                cancelled.cancel()
+                until(cancelled.done, "the running cancel")
+
+            # ---- (c) class B beside A: cold, then warm ------------------
+            b1 = eng.submit(job(SRV_B, SRV_B_ITERS), tenant="b0")
+            b1.result(SRV_WAIT_S)
+            rc_b = next(c for c in eng.classes() if c is not rc_a)
+
+            def b_counts():
+                # class A keeps shrinking beside B (a runner a new chunk
+                # length at a lower rung): B's own builds and runners,
+                # and the process's nvcc runs
+                return {"builds": rc_b.builds, "runners": rc_b.compiles,
+                        "nvcc": runtime_lib.compiles_seen()["nvcc"]}
+
+            warm_before = b_counts()
+            b_rest = []
+            for i in (1, 2):    # one at a time: each joins the free slot
+                b_rest.append(eng.submit(job(SRV_B, SRV_B_ITERS),
+                                         tenant=f"b{i}"))
+                b_rest[-1].result(SRV_WAIT_S)
+            if b_counts() != warm_before:
+                fail(f"serving: warm class B built {warm_before} -> "
+                     f"{b_counts()}")
+            for h in a_jobs + [high]:
+                h.wait(SRV_WAIT_S)
+
+            # ---- (d) class C: grow and shrink on sharded blocks ---------
+            with cv:
+                c1 = eng.submit(job(SRV_C, SRV_C_ITERS[0]), tenant="c0")
+                until(started([c1]), "class C's first chunk")
+                c2 = eng.submit(job(SRV_C, SRV_C_ITERS[1]), tenant="c1")
+            for h in (c1, c2):
+                h.wait(SRV_WAIT_S * 2)
+            stats = eng.close()
+            return (a_jobs, low, queued, high, cancelled, victim, b1, b_rest,
+                    c1, c2, warm_before, stats)
+
+        if cuda:
+            # --compile-cache DIR: the libraries built here copied into
+            # DIR, and a second process pointed there runs no nvcc
+            from mpi_cuda_process_tpu_torch.ops.cuda import _build
+
+            cache = os.path.join(d, "kernels")
+            before = _build.BUILD_DIR
+            cli.enable_compile_cache(cache)
+            names = sorted(_build._lib_path(n).name for n in _build.SOURCES)
+            _build.set_build_dir(before)
+            missing = [n for n in names
+                       if not os.path.exists(os.path.join(cache, n))]
+            if missing:
+                fail(f"serving: --compile-cache left {missing} out of DIR")
+            # the second process starts from an empty default cache, so
+            # nothing can be copied into DIR: it finds there what the
+            # first process put there, or it runs nvcc
+            empty = os.path.join(d, "empty_default_cache")
+            try:
+                got = subprocess.run(
+                    [sys.executable, "-c",
+                     "import sys; from pathlib import Path; "
+                     "sys.path.insert(0, sys.argv[1]); "
+                     "from mpi_cuda_process_tpu_torch import cli; "
+                     "from mpi_cuda_process_tpu_torch.ops.cuda import "
+                     "_build; _build.BUILD_DIR = Path(sys.argv[3]); "
+                     "cli.enable_compile_cache(sys.argv[2]); "
+                     "assert not list(Path(sys.argv[3]).glob('*')); "
+                     "_build.build_all(); print(_build.compiles['nvcc'])",
+                     HERE, cache, empty],
+                    capture_output=True, text=True, timeout=60)
+            except subprocess.TimeoutExpired:
+                fail("serving: --compile-cache's second process ran past "
+                     "60 s (an nvcc build)")
+            if got.returncode or got.stdout.split()[-1:] != ["0"]:
+                fail(f"serving: --compile-cache's second process: rc "
+                     f"{got.returncode}, {got.stdout!r} {got.stderr[-500:]}")
+            out["checks"]["compile_cache_second_process_nvcc"] = 0
+        t0 = time.perf_counter()
+        (a_jobs, low, queued, high, cancelled, victim, b1, b_rest, c1, c2,
+         warm, stats), launched = counted(serve_all)
+        engine_s = time.perf_counter() - t0
+
+        # ---- (e) the router: a replica killed mid-job ----------------------
+        def route():
+            router = serving.ServingRouter(
+                replicas=2, ladder=SRV_LADDER, cadence=SRV_CADENCE,
+                restart_backoff=0.05, telemetry_dir=d)
+            try:
+                hs = [router.submit(job(SRV_A, SRV_ROUTER_ITERS),
+                                    tenant=f"r{i}") for i in range(3)]
+                killed = hs[0].replica
+                rcv = router._replicas[killed].engine._cv
+                with rcv:   # the replica stops at its next boundary
+                    if not rcv.wait_for(lambda: hs[0]._inner.steps_done > 0,
+                                        timeout=SRV_WAIT_S):
+                        fail("serving: timed out waiting for the routed "
+                             "first chunk")
+                    if hs[0].done() or not router.kill_replica(killed):
+                        fail("serving: the routed job ended before the kill")
+                for h in hs:
+                    h.result(SRV_WAIT_S * 2)
+                engines = list(router._all_engines)
+            finally:
+                rstats = router.close()
+            return hs, killed, engines, rstats
+
+        t0 = time.perf_counter()
+        (routed, killed, r_engines, rstats), r_launched = counted(route)
+        router_s = time.perf_counter() - t0
+        for key, n in r_launched.items():
+            launched[key] = launched.get(key, 0) + n
+        os.environ.pop("FAULT_INJECT", None)
+
+        # ---- the outcomes -----------------------------------------------------
+        from mpi_cuda_process_tpu_torch.obs.health import SimulationDiverged
+
+        for h, want in ((queued, "cancelled"), (cancelled, "cancelled"),
+                        (victim, "evicted")):
+            if h._phase() != want:
+                fail(f"serving: {h.id} ended {h._phase()}, not {want}")
+        if queued._error.step != 0 or cancelled._error.step <= 0:
+            fail("serving: cancel steps "
+                 f"{queued._error.step}, {cancelled._error.step}")
+        for h in (queued, cancelled):
+            ks = kinds(h)
+            if "cancelled" not in ks or "error" in ks:
+                fail(f"serving: {h.id}'s log has {sorted(set(ks))}")
+        if not isinstance(victim._error, SimulationDiverged) or \
+                victim.health_verdict() != "DIVERGED":
+            fail(f"serving: the poisoned job ended {victim._error!r}")
+        done = [h for h in a_jobs + [high, b1] + b_rest + [c1, c2]
+                if h not in (queued, cancelled, victim)]
+        for h in done:
+            if h._phase() != "done":
+                fail(f"serving: {h.id} ended {h._phase()}: {h._error!r}")
+        if stats["jobs_done"] != len(done) or stats["jobs_evicted"] != 1 \
+                or stats["jobs_cancelled"] != 2 or stats["rejects"] != 1:
+            fail(f"serving: engine stats {stats}")
+        if stats["grows"] < 4 or stats["shrinks"] < 2 or \
+                stats["preemptions"] < 1:
+            fail(f"serving: ladder {stats['grows']} grows, "
+                 f"{stats['shrinks']} shrinks, {stats['preemptions']} "
+                 "preemptions")
+        if rstats["lost_jobs"] or rstats["jobs_done"] != 3 or \
+                rstats["rebalanced"] < 1:
+            fail(f"serving: router stats {rstats}")
+        for h in routed:
+            if h.replica == killed and h.resubmits:
+                fail(f"serving: {h.id} was rerun on the killed replica")
+
+        # every recorded repack, engine and router
+        classes = [c for e in [eng] + r_engines for c in e.classes()]
+        for c in classes:
+            for r in c.repacks:
+                info = lc.assert_member_repack_structure(
+                    r["records"], r["plan"], r["n_fields"], r["grid"])
+                out["repacks"].append({
+                    "size_class": c.label, "op": r["op"], "from": r["from"],
+                    "to": r["to"], "occupied": r["occupied"],
+                    "ms": r["ms"], "sharded": r["plan"].mesh is not None,
+                    **info})
+        sharded = {r["op"] for r in out["repacks"] if r["sharded"]}
+        if not {"grow", "shrink"} <= sharded:
+            fail(f"serving: sharded repacks {sharded}")
+        out["checks"]["repack_structure"] = len(out["repacks"])
+        want = ("stream_step[heat3d,ensemble]",
+                "fullgrid_step[heat2d,ensemble]",
+                "stream_yzslab[heat3d,ensemble]")
+        if cuda and not all(launched.get(k, 0) > 0 for k in want):
+            fail(f"serving: launches {launched}")
+        out["checks"]["rows_launched"] = {k: launched.get(k, 0)
+                                          for k in want}
+
+        # ---- bit-equal to the solo runs ---------------------------------------
+        def equal(a, b):
+            if stepper.is_sharded(a):
+                return all(torch.equal(x, y) for fa, fb in zip(a, b)
+                           for x, y in zip(fa, fb))
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
+        t0 = time.perf_counter()
+        solo = {}
+        for h in done + list(routed):
+            got, _ = h.result(0)
+            cfg = dataclasses.replace(h.config)
+            key = json.dumps(dataclasses.asdict(cfg), sort_keys=True,
+                             default=str)
+            if key not in solo:
+                solo[key], _ = cli.run(cfg)
+            if not equal(got, solo[key]):
+                fail(f"serving: {h.id} differs from its solo run")
+            if h in (c1, c2):
+                solo.pop(key)   # 4 GiB a field: keep the card free
+        del solo
+        out["checks"]["bit_equal_jobs"] = len(done) + len(routed)
+        out["checks"]["resumed_after_preempt"] = low.preempt_count
+        solo_s = time.perf_counter() - t0
+
+        # ---- times -------------------------------------------------------------
+        rc_a = next(c for c in eng.classes()
+                    if tuple(c.template.grid) == SRV_A["grid"])
+        cap8 = [c["device_ms"] / c["steps"] for c in rc_a.chunk_log
+                if c["capacity"] == 8 and c["warm"]
+                and c["device_ms"] is not None]
+        twin = None
+        if cuda:
+            cfg8 = RunConfig(iters=SRV_CADENCE, ensemble=8, device="cuda",
+                             **SRV_A)
+            st, step_fn, fields, _ = cli.build(cfg8)
+            runner = driver.make_runner(step_fn, SRV_CADENCE // SRV_A["fuse"])
+            fields = runner(fields)
+            per = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fields = runner(fields)
+                e1.record()
+                torch.cuda.synchronize()
+                per.append(e0.elapsed_time(e1) / SRV_CADENCE)
+            twin = statistics.median(per)
+            del fields
+        out["runs"] = {
+            "class_a_capacity8_ms_per_step": statistics.median(cap8)
+            if cap8 else None,
+            "class_a_capacity8_chunks": len(cap8),
+            "ensemble8_twin_ms_per_step": twin,
+            "ttfc_cold_s": b1.timings["time_to_first_chunk_s"],
+            "ttfc_warm_s": [h.timings["time_to_first_chunk_s"]
+                            for h in b_rest],
+            "ttfc_cold_class_a_s": a_jobs[0].timings[
+                "time_to_first_chunk_s"],
+            "aggregate_gcells_per_s": stats["aggregate_gcells_per_s"],
+            "router_aggregate_gcells_per_s":
+                rstats["aggregate_gcells_per_s"],
+            "repack_ms": [(r["size_class"], r["op"], r["from"], r["to"],
+                           r["ms"]) for r in out["repacks"]],
+            "engine_s": round(engine_s, 3), "router_s": round(router_s, 3),
+            "solo_s": round(solo_s, 3),
+            "class_table": stats["class_table"],
+            "warm_class_b": warm}
+        torch.cuda.empty_cache() if cuda else None
+    finally:
+        os.environ.pop("FAULT_INJECT", None)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    shutil.rmtree(d, ignore_errors=True)
+    out["launches"] = launched
+    out["seconds"] = round(time.perf_counter() - t_phase, 3)
+    emit({"phase": "serving_run", "card": smi, **out["runs"],
+          "checks": out["checks"]})
+    return out
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, PKG, "ops", "cuda", "csrc")):
         fail(f"run from a checkout: {PKG}/ops/cuda/csrc is not beside "
@@ -5535,6 +6000,21 @@ def main() -> int:
                   "ms/step of the same command; --supervise on config 3's "
                   "K10 command at 512^3"})
 
+    # ---- 5m. continuous-batching serving --------------------------------------
+    p5m = serving_phase(counted, lines, main_launches, scratch)
+    emit({"phase": "serving", "ok": True, "seconds": took(), "card": smi,
+          "checks": p5m["checks"], "launches": p5m["launches"],
+          "note": "one ServingEngine (ladder 1/2/4/8, cadence 32) over "
+                  "config 2 (K10), config 1 (K8) and config 3's layout "
+                  "(K10 YZSLAB, 4 virtual shards) classes, then a "
+                  "2-replica ServingRouter, all on one card; every "
+                  "finished job bit-equal to its solo cli.run; "
+                  "class_a_capacity8_ms_per_step: CUDA events around "
+                  "each warm chunk at capacity 8 over its steps, beside "
+                  "the --ensemble 8 twin's (CUDA events, 5 chunks); "
+                  "ttfc: submit to the first finished chunk (host clock); "
+                  "repack ms: host clock between two synchronizes"})
+
     # ---- 6. timing at the main path's shapes --------------------------------
     def time_ms(fn, reps):
         fn()
@@ -5711,6 +6191,7 @@ def main() -> int:
             "obs_launches": p5j["launches"].get(key, 0),
             "serve_launches": p5k["launches"].get(key, 0),
             "costmodel_launches": p5l["launches"].get(key, 0),
+            "serving_launches": p5m["launches"].get(key, 0),
             "max_abs_err": errs[entry], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
             "steps_per_launch": k, "shape": list(shape),
@@ -6688,7 +7169,8 @@ def main() -> int:
             groups_launches=p5i["launches"].get(key, 0),
             obs_launches=p5j["launches"].get(key, 0),
             serve_launches=p5k["launches"].get(key, 0),
-            costmodel_launches=p5l["launches"].get(key, 0))
+            costmodel_launches=p5l["launches"].get(key, 0),
+            serving_launches=p5m["launches"].get(key, 0))
 
     st = make_stencil("life")
     ins = ((rand((64, 130, 130)) < 0.35).to(torch.int32),)

@@ -114,6 +114,15 @@ attributes the card's time to the interior and the exchange, and
 the step's ops or launches.  ``FAULT_INJECT``'s ``numerics`` site poisons
 one cell at a chunk boundary and its ``heartbeat`` site wedges the
 heartbeat's probe.
+The request layer: ``engine.SimulationEngine`` runs ``cli.run`` for a
+submitted config on a thread (a handle to watch, cancel at the next chunk
+boundary through ``cancellation.py``, or wait on); ``--serve-engine PORT``
+runs the command as a job of a continuous-batching ``serving.ServingEngine``
+(size classes whose batched step stays resident, jobs joining member slots
+at chunk boundaries) and ``--serve-router PORT`` on a ``ServingRouter`` of
+``--router-replicas`` engines, each with its console on PORT
+(``--shrink-after`` sets the ladder's shrink policy); ``--compile-cache DIR``
+keeps the kernels' libraries under DIR, so a later process runs no nvcc.
 ``--device`` (default ``cuda``) picks where the state lives; asking for
 ``cuda`` without a card raises, it never carries on on the CPU.  Only the
 flags the port runs are registered; a combination that needs a kernel or
@@ -136,7 +145,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import driver
+from . import cancellation, driver
 from .config import RunConfig, parse_int_tuple, parse_params
 from .ops import stencil as stencil_lib
 # populate the registry
@@ -144,7 +153,7 @@ from .ops import advection, heat, life, reaction, sor, wave  # noqa: F401
 from .ops.cuda import fullgrid as fullgrid_lib
 from .ops.cuda import fused as fused_lib
 from .ops.cuda import kernels as kernels_lib
-from .ops.cuda import rawstep, streamfused
+from .ops.cuda import _build, rawstep, streamfused
 from .ops.cuda._build import FLOAT_DTYPES
 from .parallel import groups as groups_lib
 from .parallel import halo
@@ -410,6 +419,64 @@ def build_parser() -> argparse.ArgumentParser:
                         "path is derived when unset).  The server only "
                         "tails the log the run writes anyway: no op and "
                         "no launch in the step.  Shuts down with the run")
+    p.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="where the hand-written CUDA kernels' libraries "
+                        "are built and looked up (named by a hash of "
+                        "their sources and nvcc flags) in place of "
+                        "build/torch_kernels/: a later process with the "
+                        "same DIR finds them built and runs no nvcc.  "
+                        "Kernels this process already loaded from another "
+                        "directory stay loaded (a loaded library cannot be "
+                        "swapped); the libraries built there are copied "
+                        "into DIR.  The "
+                        "serving engine points every size-class build "
+                        "here.  Lifecycle-only: it changes when a run "
+                        "compiles, never what it computes")
+    p.add_argument("--serve-engine", type=int, default=None,
+                   metavar="PORT",
+                   help="resident serving engine (serving/): run this "
+                        "config as a job on a continuous-batching "
+                        "ServingEngine — size-classed resident batched "
+                        "steps, budget-priced admission, weighted-FIFO "
+                        "fairness — with the scheduler console "
+                        "(/metrics /status.json /events: queue depth, "
+                        "slot occupancy, admission/evict/preempt "
+                        "counters) on PORT (0 = ephemeral).  One config "
+                        "is a degenerate workload; the flag is the "
+                        "quickstart face of the scheduler — multi-tenant "
+                        "traffic submits through serving.ServingEngine "
+                        "in-process.  One process only (refused under "
+                        "torchrun)")
+    p.add_argument("--serve-router", type=int, default=None,
+                   metavar="PORT",
+                   help="fleet front door (serving/router.py): run this "
+                        "config as a job on a ServingRouter of "
+                        "--router-replicas supervised ServingEngine "
+                        "replicas in this process, on its card — "
+                        "admission by AGGREGATE budget, size-class "
+                        "affinity routing (a class's later jobs hit its "
+                        "warm replica: no build), zero-lost-jobs "
+                        "rebalance + supervised restart on replica "
+                        "death — with the aggregate fleet console "
+                        "(/status.json hosts table: one row per replica) "
+                        "on PORT (0 = ephemeral).  One process only "
+                        "(refused under torchrun)")
+    p.add_argument("--router-replicas", type=int, default=3,
+                   metavar="N",
+                   help="engine replica count behind --serve-router "
+                        "(each a full scheduler with its own telemetry "
+                        "log and an equal slice of the card's memory "
+                        "budget: N slices add up to the card)")
+    p.add_argument("--shrink-after", type=int, default=64,
+                   metavar="K",
+                   help="serving ladder shrink policy: a resident size "
+                        "class that spends K consecutive scheduler "
+                        "rounds at occupancy <= the previous ladder "
+                        "rung with nobody waiting live-repacks its "
+                        "members down that rung (bit-exact, no "
+                        "checkpoint round-trip, never a host gather) "
+                        "and admission re-prices the freed budget; "
+                        "0 disables shrinking")
     p.add_argument("--compute", default="auto",
                    choices=["auto", "jnp", "pallas"],
                    help="auto: the path the dispatch tables measured "
@@ -499,7 +566,10 @@ def config_from_args(argv=None) -> RunConfig:
         supervise=a.supervise, max_restarts=a.max_restarts,
         restart_backoff=a.restart_backoff,
         supervise_stall_s=a.supervise_stall_s,
-        halo_audit=a.halo_audit, compute=a.compute, overlap=a.overlap,
+        halo_audit=a.halo_audit, compile_cache=a.compile_cache,
+        serve_engine=a.serve_engine, serve_router=a.serve_router,
+        router_replicas=a.router_replicas, shrink_after=a.shrink_after,
+        compute=a.compute, overlap=a.overlap,
         pipeline=a.pipeline, fuse=a.fuse, ensemble=a.ensemble,
         ensemble_mesh=a.ensemble_mesh, ensemble_perturb=a.ensemble_perturb,
         tol=a.tol, tol_check_every=a.tol_check_every,
@@ -562,13 +632,10 @@ _COMPUTE_FN_WINS: dict = {
 # RunConfig fields the port does not run yet: (field, flag, ROADMAP item).
 # A config that sets one raises from build() by flag name.
 _UNPORTED = (
-    ("serve_engine", "--serve-engine", "A8 (serving)"),
-    ("serve_router", "--serve-router", "A8 (serving)"),
     ("auto_policy", "--auto-policy", "A8 (policy)"),
     ("policy_recheck", "--policy-recheck", "A8 (policy)"),
     ("kernel_variant", "--kernel-variant", "A8 (policy)"),
     ("autotune", "--autotune", "A8 (policy)"),
-    ("compile_cache", "--compile-cache", "A8 (serving)"),
 )
 
 
@@ -578,6 +645,18 @@ def _refuse_unported(cfg: RunConfig) -> None:
         if getattr(cfg, field) != getattr(defaults, field):
             raise NotImplementedError(
                 f"the port does not run {flag} yet: ROADMAP {item}")
+
+
+def enable_compile_cache(directory) -> bool:
+    """Point the kernels' library cache at ``directory``
+    (``--compile-cache``; ``ops/cuda/_build.set_build_dir``): the
+    counterpart of the TPU package's persistent compilation cache.  No-op
+    (False) without a directory."""
+    if not directory:
+        return False
+    path = _build.set_build_dir(directory)
+    log.info("compile cache: kernel libraries under %s", path)
+    return True
 
 
 def _device(cfg: RunConfig) -> torch.device:
@@ -912,14 +991,45 @@ def _validate_ensemble(cfg: RunConfig) -> None:
 
 
 def build(cfg: RunConfig):
-    """Materialize (stencil, step_fn, fields, start_step) from a config.
+    """Materialize (stencil, step_fn, fields, start_step) from a config:
+    :func:`build_step`, then the fields (the resumed checkpoint, or the
+    init).
 
     ``--ensemble N`` builds the batched step: unsharded, the plain step or
     the ``--fuse`` kernel step (K3, K8, K10 with ``batch=N``) over the
     member axis (``driver.make_ensemble_step``); under ``--mesh`` or
     ``--ensemble-mesh`` the sharded steppers with ``ensemble=N``; and the
     batched fields (``init_state(..., ensemble=N, perturb=EPS)``)."""
+    st, step_fn, m, device = build_step(cfg)
+    resuming = (cfg.resume and cfg.checkpoint_dir
+                and checkpointing.checkpoint_format(cfg.checkpoint_dir))
+    if resuming:
+        fields, start_step = _resume(cfg, st, device, m)
+    elif m is not None:
+        # each block computed on its own device; no device holds the grid
+        # (with --ensemble, only the members of the block's group)
+        fields = init_state_sharded(st, cfg.grid, m, cfg.seed, cfg.density,
+                                    kind=cfg.init, periodic=cfg.periodic,
+                                    ensemble=cfg.ensemble,
+                                    perturb=cfg.ensemble_perturb)
+        start_step = 0
+    else:
+        fields = init_state(st, cfg.grid, cfg.seed, cfg.density,
+                            kind=cfg.init, periodic=cfg.periodic,
+                            device=device, ensemble=cfg.ensemble,
+                            perturb=cfg.ensemble_perturb)
+        start_step = 0
+    # a fused step_fn advances cfg.fuse steps per call; run() accounts.
+    return st, step_fn, fields, start_step
+
+
+def build_step(cfg: RunConfig):
+    """(stencil, step_fn, mesh or None, device) of a config: every check
+    and the memory guard before any field exists, then the step (a
+    ``build`` compile, ``_build.compiles``).  The serving layer builds a
+    size class's batched step here and fills the member slots itself."""
     _refuse_unported(cfg)
+    enable_compile_cache(cfg.compile_cache)
     if cfg.groups:
         raise ValueError("build() makes one monolithic run; a --groups "
                          "config is built by build_coupled()")
@@ -1076,26 +1186,8 @@ def build(cfg: RunConfig):
                 compute_fn=resolve_compute_fn(cfg, st))
             if cfg.ensemble:
                 step_fn = driver.make_ensemble_step(step_fn)
-    resuming = (cfg.resume and cfg.checkpoint_dir
-                and checkpointing.checkpoint_format(cfg.checkpoint_dir))
-    if resuming:
-        fields, start_step = _resume(cfg, st, device, m)
-    elif m is not None:
-        # each block computed on its own device; no device holds the grid
-        # (with --ensemble, only the members of the block's group)
-        fields = init_state_sharded(st, cfg.grid, m, cfg.seed, cfg.density,
-                                    kind=cfg.init, periodic=cfg.periodic,
-                                    ensemble=cfg.ensemble,
-                                    perturb=cfg.ensemble_perturb)
-        start_step = 0
-    else:
-        fields = init_state(st, cfg.grid, cfg.seed, cfg.density,
-                            kind=cfg.init, periodic=cfg.periodic,
-                            device=device, ensemble=cfg.ensemble,
-                            perturb=cfg.ensemble_perturb)
-        start_step = 0
-    # a fused step_fn advances cfg.fuse steps per call; run() accounts.
-    return st, step_fn, fields, start_step
+    _build.note_compile("build")
+    return st, step_fn, m, device
 
 
 def _save_ckpt(cfg: RunConfig, fields, step: int):
@@ -1340,8 +1432,9 @@ def _maybe_bundle(session, reason: str, verdict=None) -> None:
 
 def _run_once(cfg: RunConfig) -> Tuple:
     """One run, inside its telemetry session when ``--telemetry`` asks
-    for one: the error event and the bundle on a failed run, the bundle
-    of a run that finished DEGRADED."""
+    for one: the error event and the bundle on a failed run, a
+    ``cancelled`` event on a cancelled one, the bundle of a run that
+    finished DEGRADED."""
     if not cfg.telemetry:
         return _run_measured(cfg, None)
     session = _open_telemetry(cfg)
@@ -1353,6 +1446,12 @@ def _run_once(cfg: RunConfig) -> Tuple:
         if mon is not None and mon.count:
             _maybe_bundle(session, "degraded", verdict="DEGRADED")
         return result
+    except cancellation.RunCancelled as e:
+        # a cancel is a third terminal outcome, not an error: the log
+        # records a 'cancelled' event (the ledger quarantines it with
+        # reason 'cancelled'; the supervisor reads it as fatal-no-restart)
+        session.event("cancelled", step=e.step)
+        raise
     except BaseException as e:
         session.error(e)
         from .obs import health as health_lib
@@ -1480,6 +1579,10 @@ def _run_measured(cfg: RunConfig, session) -> Tuple:
 
     def callback(done_in_run, fs):
         step = start_step + done_in_run * step_unit
+        # the cancellation point (cancellation.py): the boundary's state is
+        # complete, so a cancel lands here, before this boundary's
+        # checkpoint and diagnostics, as cleanly as reaching --iters
+        cancellation.check(step)
         # the fault point of the chunk boundary, before its checkpoint: a
         # kill here leaves the previous boundary's checkpoint the newest
         faults.maybe_fire("exchange", step=step)
@@ -1788,6 +1891,7 @@ def build_coupled(cfg: RunConfig):
                  kind)
     log.info("groups: %d interface(s), transport %s", len(plans) - 1,
              cfg.group_transport)
+    enable_compile_cache(cfg.compile_cache)
     start_round = 0
     if cfg.resume and cfg.checkpoint_dir and os.path.isdir(
             os.path.join(cfg.checkpoint_dir, "group0")):
@@ -1865,6 +1969,7 @@ def _run_coupled(cfg: RunConfig, session=None) -> Tuple:
         dtc = time.perf_counter() - tc
         done += n
         step = start_round + done
+        cancellation.check(step)
         faults.maybe_fire("exchange", step=step)
         if session is not None:
             session.recorder.record_chunk(n, dtc)
@@ -1986,6 +2091,8 @@ def _rank_tag() -> str:
 
 SUPERVISE_PROCESSES_ITEM = ("ROADMAP A8 (resilience): --supervise under "
                             "a multi-process launch")
+SERVE_PROCESSES_ITEM = ("ROADMAP A8 (serving): --serve-engine / "
+                        "--serve-router under a multi-process launch")
 
 
 def main(argv=None) -> int:
@@ -2004,6 +2111,19 @@ def main(argv=None) -> int:
         from .resilience import supervisor as supervisor_lib
 
         return supervisor_lib.run_supervised(cfg)
+    if cfg.serve_router is not None or cfg.serve_engine is not None:
+        if _launched_multiprocess():
+            # the engine and its replicas are threads of one process over
+            # its card, as the TPU package's are over its devices
+            raise NotImplementedError(
+                "--serve-engine / --serve-router run the serving layer in "
+                "one process; under a multi-process launch they are not "
+                f"ported: {SERVE_PROCESSES_ITEM}")
+        from . import serving
+
+        if cfg.serve_router is not None:
+            return serving.serve_router_main(cfg)
+        return serving.serve_engine_main(cfg)
     try:
         run(cfg)
     finally:

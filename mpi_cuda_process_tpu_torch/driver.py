@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from .ops.cuda import _build
 from .ops.stencil import Fields, Stencil
 from .resilience import faults
 
@@ -222,8 +223,10 @@ def make_runner(step_fn, n_steps: int):
     A slab-carry pipelined step (:func:`pipeline_hooks`) is seeded once a
     call (one prologue exchange) and threaded through the loop; its last
     pass posts no exchange, so n passes exchange n times.  Building a runner is the ``compile``
-    fault site (``resilience/faults.py``)."""
+    fault site (``resilience/faults.py``) and counts as a compile
+    (``_build.compiles["runner"]``)."""
     faults.maybe_fire("compile")
+    _build.note_compile("runner")
     seed, advance, drop = pipeline_hooks(step_fn)
 
     def run(fields: Fields) -> Fields:

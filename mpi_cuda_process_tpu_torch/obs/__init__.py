@@ -35,8 +35,10 @@ packages' logs:
 
 ``metrics.py`` folds the event stream into the run's verdict;
 ``flightrec.py`` keeps the post-mortem ring and writes the
-bundle.  The reference's ``policy``, ``migrate``, ``scheduler`` and
-``router`` records come with their modules (ROADMAP A8).
+bundle.  ``cancelled`` ends a cancelled run (``cancellation.py``), and the
+serving layer writes ``scheduler`` and ``router`` records
+(``serving/scheduler.py``, ``serving/router.py``).  The reference's
+``policy`` and ``migrate`` records come with their modules (ROADMAP A8).
 
 :func:`open_session` is the one-call wiring: trace writer + manifest +
 runtime recorder + heartbeat, bundled in a :class:`Session`.  Telemetry
@@ -140,7 +142,8 @@ def open_session(
 ) -> Session:
     """Open a trace at ``path``, write the manifest, start the heartbeat.
 
-    The session's span emitter adopts an inherited ``OBS_TRACE_CONTEXT``;
+    The session's span emitter adopts an inherited context (this
+    thread's pending one, else ``OBS_TRACE_CONTEXT``);
     the manifest carries the ``trace`` identity block either way.
     ``run["device"]`` (``"cuda"`` or
     ``"cpu"``) says whether the recorder reads the card's memory.
@@ -148,7 +151,7 @@ def open_session(
     trace = trace_lib.TraceWriter(path)
     flight = flightrec_lib.FlightRecorder()
     trace.mirrors.append(flight.note)
-    spans = spans_lib.SpanEmitter(trace, context=spans_lib.from_env(),
+    spans = spans_lib.SpanEmitter(trace, context=spans_lib.resolve_context(),
                                   root_name=tool)
     manifest_extra.setdefault("trace", spans.manifest_block())
     trace.write_manifest(trace_lib.build_manifest(

@@ -7,8 +7,10 @@ schema-2 manifest stamps ``process_index`` / ``process_count`` /
 arrived in.  A :class:`HostAggregator` routes each record to a
 per-(hostname, process_index) :class:`~.metrics.RunMetrics` and
 summarizes them into a **per-process table** (``hosts``: one row a
-process, keyed ``host|p<index>``) plus launch-level aggregates (summed
-throughput, the worst verdict, distinct trace ids, the straggler).
+process, keyed ``host|p<index>``; a serving router's in-process replicas,
+tagged ``replica`` in their manifests, one row each, ``host|p<index>|r<i>``)
+plus launch-level aggregates (summed throughput, the worst verdict,
+distinct trace ids, the straggler).
 
 :func:`make_console` builds the live face: a :class:`~.serve.RunConsole`
 whose per-path ingest hook feeds the aggregator too, so ``/status.json``
@@ -77,7 +79,15 @@ class HostAggregator:
         host = prov.get("hostname") or "?"
         pidx = prov.get("process_index")
         pidx = pidx if isinstance(pidx, int) else "?"
-        return f"{host}|p{pidx}"
+        key = f"{host}|p{pidx}"
+        # N in-process engine replicas behind one router share a
+        # host|process slot; the manifest's top-level ``replica`` tag
+        # (serving/router.py) splits them into distinct fleet rows — a
+        # restarted replica generation re-binds to the SAME row
+        replica = manifest.get("replica")
+        if isinstance(replica, str) and replica:
+            key += f"|{replica}"
+        return key
 
     def _group(self, key: str,
                manifest: Optional[Dict[str, Any]] = None) \
@@ -94,6 +104,8 @@ class HostAggregator:
                     "process_count": prov.get("process_count"),
                     "backend": prov.get("backend"),
                     "device_count": prov.get("device_count"),
+                    "replica": manifest.get("replica")
+                    if isinstance(manifest.get("replica"), str) else None,
                 }
             return rm
 
@@ -146,6 +158,13 @@ class HostAggregator:
         for opt in ("trace_id", "time_to_first_chunk_s", "anomalies"):
             if st.get(opt) is not None:
                 row[opt] = st[opt]
+        if meta.get("replica"):
+            row["replica"] = meta["replica"]
+        # the per-replica serving view: occupancy gauges + the folded
+        # size-class table, and the router's block on its own row
+        for block in ("scheduler", "router"):
+            if st.get(block) is not None:
+                row[block] = st[block]
         return row
 
     def status(self) -> Dict[str, Any]:

@@ -478,6 +478,13 @@ def rows_from_log(log_path: str) -> List[Dict[str, Any]]:
                 e.get("resumed_from_step") is not None:
             resumed_from = e["resumed_from_step"]
     summaries = [e for e in events if e.get("kind") == "summary"]
+    # cooperative cancel (cancellation.py): the run wrote a 'cancelled'
+    # event instead of an error — its row quarantines with reason
+    # 'cancelled', never 'errored: ...'
+    cancelled_ev = None
+    for e in events:
+        if e.get("kind") == "cancelled":
+            cancelled_ev = e
     # run-doctor findings (obs/anomaly.py, --anomaly): a DEGRADED run's
     # value is honest — the steps ran, the number is real — so the row is
     # NOT quarantined, just flagged; clean runs add no detail key
@@ -501,6 +508,21 @@ def rows_from_log(log_path: str) -> List[Dict[str, Any]]:
             kind=run.get("fuse_kind"), dtype=run.get("dtype"),
             flags=_flags(run), builder_rev=prov.get("builder_rev"),
             detail=detail or None))
+    if cancelled_ev is not None and not summaries:
+        # a cancelled run ends before its summary — the row still lands
+        # (value-less, quarantined 'cancelled') so the ledger records a
+        # deliberate stop, distinct from a crash
+        rows.append(make_row(
+            _cli_label(run), None, source=source,
+            measured_at=cancelled_ev.get("t"),
+            heartbeat=hb, health=health, cancelled=True,
+            expected_backend=prov.get("backend"),
+            provenance=_prov_subset(prov),
+            grid=run.get("grid"), mesh=run.get("mesh"),
+            kind=run.get("fuse_kind"), dtype=run.get("dtype"),
+            flags=_flags(run), builder_rev=prov.get("builder_rev"),
+            detail={"cancelled_at_step": cancelled_ev.get("step")}
+            if cancelled_ev.get("step") is not None else None))
     if health == "DIVERGED" and not summaries:
         # a diverged run aborts before its summary — the row still lands
         # (value-less, quarantined 'diverged') so the ledger records that

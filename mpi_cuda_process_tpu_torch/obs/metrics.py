@@ -28,10 +28,13 @@ Two layers:
   recorder replays a log through it for its verdict.  ``costmodel``
   (``obs/costmodel.py``) sets the roofline gauges and the supervisor's
   ``launch`` / ``restart`` / ``give_up`` (``resilience/supervisor.py``)
-  its restart trail.  The reference's handlers for records only unported
-  modules write come with those modules: ``policy`` / ``migrate``,
-  ``scheduler`` / ``router`` / ``cancelled`` (serving) and ``label`` (the
-  measurement harness, A9).
+  its restart trail; ``cancelled`` (a cooperative cancel,
+  ``cancellation.py``) the CANCELLED verdict, and the serving layer's
+  ``scheduler`` and ``router`` records (``serving/``) the scheduler and
+  fleet blocks of ``/status.json``.  The reference's handlers for records
+  only unported modules write come with those modules: ``policy`` /
+  ``migrate`` (the policy layer) and ``label`` (the measurement harness,
+  A9).
 
 Pure stdlib: importable from anywhere (a parent process watching a
 wedged child) without initialising CUDA.
@@ -382,6 +385,16 @@ class RunMetrics:
         self.trace_id: Optional[str] = None
         self.spans_seen = 0
         self.time_to_first_chunk_s: Optional[float] = None
+        # cooperative cancel (cancellation.py): a third terminal state,
+        # neither DONE nor an error
+        self.cancelled: Optional[Dict[str, Any]] = None
+        # serving-scheduler aggregate (serving/scheduler.py events):
+        # queue depth, slot occupancy, per-op and per-tenant counters —
+        # rendered under status()["scheduler"]
+        self.scheduler: Optional[Dict[str, Any]] = None
+        # fleet-router aggregate (serving/router.py events): replica
+        # liveness, routing/rebalance counters — status()["router"]
+        self.router: Optional[Dict[str, Any]] = None
 
     # -- ingestion ------------------------------------------------------
 
@@ -758,6 +771,110 @@ class RunMetrics:
             self.registry.gauge("obs_summary_mcells_per_s",
                                 "run-level throughput at exit").set(mc)
 
+    def _on_cancelled(self, rec: Dict[str, Any]) -> None:
+        self.cancelled = rec
+        self.registry.counter("obs_run_cancelled_total",
+                              "cooperative run cancellations").inc()
+        self.registry.gauge(
+            "obs_run_cancelled",
+            "1 once the run was cancelled (not errored)").set(1.0)
+
+    # gauges a scheduler event may carry; each becomes an obs_sched_*
+    # gauge and a key of status()["scheduler"]
+    _SCHED_GAUGES = (
+        ("queue_depth", "jobs waiting for a member slot"),
+        ("slots_total", "member slots across resident size classes"),
+        ("slots_busy", "member slots currently running a job"),
+        ("classes", "resident size classes (batched steps kept built)"),
+    )
+
+    def _on_scheduler(self, rec: Dict[str, Any]) -> None:
+        """Fold one serving-scheduler event (serving/scheduler.py).
+
+        Every event carries an ``op`` (submit/reject/join/retire/evict/
+        preempt/cancel/class_build/grow/shrink/fail) plus the
+        scheduler's current occupancy gauges; per-tenant ops are counted
+        under the tenant's name so starvation is visible from
+        ``/status.json`` alone.
+        """
+        op = str(rec.get("op") or "event")
+        sched = self.scheduler
+        if sched is None:
+            sched = self.scheduler = {"counts": {}, "tenants": {}}
+        sched["counts"][op] = sched["counts"].get(op, 0) + 1
+        self.registry.counter(
+            f"obs_sched_{_prom_name(op)}_total",
+            f"scheduler '{op}' decisions").inc()
+        for g, help_text in self._SCHED_GAUGES:
+            v = rec.get(g)
+            if isinstance(v, (int, float)):
+                sched[g] = v
+                self.registry.gauge(f"obs_sched_{g}", help_text).set(v)
+        tenant = rec.get("tenant")
+        if isinstance(tenant, str) and tenant:
+            t = sched["tenants"].setdefault(tenant, {})
+            t[op] = t.get(op, 0) + 1
+            self.registry.gauge_family(
+                "obs_sched_tenant_ops",
+                "per-tenant scheduler decision counts").set(
+                t[op], tenant=tenant, op=op)
+        sc = rec.get("size_class")
+        if isinstance(sc, str) and sc:
+            # the per-class table: op counts plus the last-known
+            # capacity/occupancy carried by class_build/grow/shrink events
+            entry = sched.setdefault("size_classes", {}).setdefault(
+                sc, {"ops": {}})
+            entry["ops"][op] = entry["ops"].get(op, 0) + 1
+            for k in ("capacity", "occupied"):
+                v = rec.get(k)
+                if isinstance(v, int):
+                    entry[k] = v
+        if op == "reject":
+            # structured admission refusal: the reason is the payload
+            sched["last_reject"] = {
+                "tenant": tenant, "reason": rec.get("reason"),
+                "size_class": rec.get("size_class"), "t": rec.get("t")}
+        sched["last_event"] = {
+            "op": op, "tenant": tenant, "job": rec.get("job"),
+            "size_class": rec.get("size_class"), "t": rec.get("t")}
+
+    # gauges a router event may carry; each becomes an obs_router_*
+    # gauge and a key of status()["router"]
+    _ROUTER_GAUGES = (
+        ("replicas_alive", "engine replicas currently routable"),
+        ("replicas_total", "engine replicas configured"),
+        ("jobs_inflight", "router jobs not yet resolved"),
+    )
+
+    def _on_router(self, rec: Dict[str, Any]) -> None:
+        """Fold one fleet-router event (serving/router.py).
+
+        Every event carries an ``op`` (route/reject/rebalance/
+        replica_up/replica_dead/give_up/drain) plus the router's liveness
+        gauges; the last event and last death are kept whole so the
+        fleet panel can say WHICH replica died without reading logs.
+        """
+        op = str(rec.get("op") or "event")
+        rt = self.router
+        if rt is None:
+            rt = self.router = {"counts": {}}
+        rt["counts"][op] = rt["counts"].get(op, 0) + 1
+        self.registry.counter(
+            f"obs_router_{_prom_name(op)}_total",
+            f"router '{op}' decisions").inc()
+        for g, help_text in self._ROUTER_GAUGES:
+            v = rec.get(g)
+            if isinstance(v, (int, float)):
+                rt[g] = v
+                self.registry.gauge(f"obs_router_{g}", help_text).set(v)
+        if op == "replica_dead":
+            rt["last_death"] = {
+                "replica": rec.get("replica"), "t": rec.get("t"),
+                "orphans": rec.get("orphans")}
+        rt["last_event"] = {
+            "op": op, "replica": rec.get("replica"),
+            "job": rec.get("job"), "t": rec.get("t")}
+
     # -- status ---------------------------------------------------------
 
     def _throughput(self) -> Dict[str, Any]:
@@ -791,12 +908,17 @@ class RunMetrics:
         log file: provenance, the latest chunk, throughput, the heartbeat
         and health verdicts, the supervisor's restart trail (launches carry
         ``resumed_from_step``), the resume point, the roofline prediction
-        and the errors.  The reference's serving, policy and campaign
-        panels come with their modules.
+        and the errors; a cancelled run's ``cancelled`` record, and the
+        serving layer's ``scheduler`` and ``router`` blocks.  The
+        reference's policy and campaign panels come with their modules.
         """
         with self.registry.lock:
             hb = self.heartbeat
             verdict = hb.get("verdict") if hb else None
+            if self.cancelled is not None and verdict is None:
+                # a deliberate stop, distinct from DONE and from any
+                # failure verdict (which all dominate it below)
+                verdict = "CANCELLED"
             if (self.health or {}).get("verdict") == "DIVERGED" or any(
                     g.get("verdict") == "DIVERGED"
                     for g in self.groups.values()):
@@ -860,4 +982,10 @@ class RunMetrics:
             roof = (self.costmodel or {}).get("roofline")
             if roof:
                 out["roofline"] = roof
+            if self.cancelled is not None:
+                out["cancelled"] = self.cancelled
+            if self.scheduler is not None:
+                out["scheduler"] = self.scheduler
+            if self.router is not None:
+                out["router"] = self.router
             return out

@@ -46,6 +46,17 @@ def compile_events_seen() -> int:
     return len(_build._libs)
 
 
+def compiles_seen() -> Dict[str, int]:
+    """The port's compiles in this process, by kind: ``nvcc`` (a kernel
+    source compiled), ``build`` (a step built, ``cli.build_step``: a CLI
+    run's or a serving class's) and ``runner`` (a chunk runner,
+    ``driver.make_runner``).  A warm serving class adds none."""
+    from ..ops.cuda import _build
+
+    return {k: int(_build.compiles.get(k, 0))
+            for k in ("nvcc", "build", "runner")}
+
+
 def device_memory_stats() -> Dict[str, int]:
     """``bytes_in_use`` / ``peak_bytes_in_use`` / ``bytes_limit`` of the
     current card, or {} on the CPU or when CUDA is not initialised."""

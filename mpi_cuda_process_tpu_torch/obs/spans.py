@@ -23,6 +23,9 @@ name           emitted by
 ``checkpoint`` the CLI around every checkpoint save
 ``resume``     the CLI around a resuming build (attrs carry
                ``resumed_from_step``)
+``request`` /  the engine (``engine.py``): one per submitted request,
+``queue_wait``  appended to its closed log after the run, the run's own
+/ ``result``   session parented under ``request`` (the in-thread context)
 ``attempt``    the supervisor (``resilience/supervisor.py``): one per
                launched child; the child's whole tree hangs under it
 ``kill`` /     the supervisor: killing a lost child, then the restart
@@ -32,8 +35,10 @@ name           emitted by
 
 A launcher passes :func:`env_extra` into a child's environment from inside
 the span that brackets the child (the supervisor's ``attempt``), so the
-child's session joins that trace under it.  The reference's engine spans
-(``request``) and its in-thread context come with the engine (ROADMAP A8).
+child's session joins that trace under it; in one process the engine
+pushes the request's context on the run's thread
+(:func:`push_thread_context`), and a session opened there parents under
+it (:func:`resolve_context`).
 
 Design constraints, inherited from the obs layer:
 
@@ -49,6 +54,7 @@ Design constraints, inherited from the obs layer:
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import threading
 import time
@@ -88,10 +94,42 @@ class SpanContext:
 
 # ------------------------------------------------------- propagation
 
+_tls = threading.local()
+
+
 def from_env() -> Optional[SpanContext]:
     """The context a parent process exported, or None."""
     raw = os.environ.get(ENV_VAR)
     return SpanContext.decode(raw) if raw else None
+
+
+def push_thread_context(ctx: SpanContext) -> None:
+    """Set THIS thread's pending context (the in-process analogue of the
+    env var — the engine sets it on a handle's thread before the run
+    opens its session, so the session parents under the request span
+    without any environment mutation)."""
+    stack = getattr(_tls, "pending", None)
+    if stack is None:
+        stack = _tls.pending = []
+    stack.append(ctx)
+
+
+def pop_thread_context() -> None:
+    stack = getattr(_tls, "pending", None)
+    if stack:
+        stack.pop()
+
+
+def thread_context() -> Optional[SpanContext]:
+    stack = getattr(_tls, "pending", None)
+    return stack[-1] if stack else None
+
+
+def resolve_context() -> Optional[SpanContext]:
+    """The inherited context for a new session: this thread's pending
+    context first (in-process parent, e.g. the engine), then the
+    environment (cross-process parent, e.g. the supervisor)."""
+    return thread_context() or from_env()
 
 
 def env_extra(session: Any) -> Dict[str, str]:
@@ -128,6 +166,19 @@ def make_span_record(name: str, trace_id: str, span_id: str,
     if attrs:
         rec["attrs"] = dict(attrs)
     return rec
+
+
+def append_span_records(path: str, records: List[Dict[str, Any]]) -> int:
+    """Append finished span records to an existing (closed) telemetry
+    log — the engine's post-run request accounting.  Never raises; the
+    return value is the number of lines written."""
+    try:
+        with open(path, "a") as fh:
+            for rec in records:
+                fh.write(json.dumps(rec, default=str) + "\n")
+        return len(records)
+    except OSError:
+        return 0
 
 
 # ------------------------------------------------------------ emitter

@@ -10,6 +10,13 @@ and an unchanged one is reused.
 
 Nothing here runs at import: the CPU tests import every module and never
 build.  A failed or impossible build raises; there is no fallback.
+
+``--compile-cache DIR`` points the library cache at DIR
+(:func:`set_build_dir`): a later process with the same DIR finds every
+library built and runs no ``nvcc``.  :data:`compiles` counts this
+process's compiles by kind (an nvcc run a source, a step built by
+``cli.build_step``, a runner by ``driver.make_runner``): the serving
+layer's "a warm class compiles nothing" reads it.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict
 
@@ -35,6 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# compiles of this process by kind: "nvcc", "build", "runner"
+compiles: Counter = Counter()
+_count_lock = threading.Lock()
 # name -> nvcc's output (per-kernel registers, shared memory, spills)
 build_log: Dict[str, str] = {}
 build_seconds: float = 0.0
@@ -50,6 +61,38 @@ def nvcc() -> str:
     raise RuntimeError(
         "nvcc not found: the CUDA kernels are built at first use and need "
         "the CUDA toolkit (nvcc on PATH or under /usr/local/cuda)")
+
+
+def note_compile(kind: str, n: int = 1) -> None:
+    """Count ``n`` compiles of ``kind`` (a read-modify-write under a lock:
+    the serving engine's class threads build concurrently)."""
+    with _count_lock:
+        compiles[kind] += n
+
+
+def set_build_dir(path) -> Path:
+    """Point the library cache at ``path`` (``--compile-cache``) for every
+    kernel this process loads from now on.  Libraries already loaded stay
+    loaded (a loaded library cannot be swapped safely).  The libraries of
+    these sources built in the previous directory are copied into
+    ``path`` (the names carry the source hash, so they are the same
+    libraries), so a later process with ``path`` runs no nvcc for them.
+    Returns the resolved directory."""
+    global BUILD_DIR
+    new = Path(path).resolve()
+    with _lock:
+        if new == BUILD_DIR:
+            return new
+        new.mkdir(parents=True, exist_ok=True)
+        for n in SOURCES:
+            old = _lib_path(n)
+            target = new / old.name
+            if old.exists() and not target.exists():
+                tmp = target.with_suffix(f".tmp{os.getpid()}")
+                shutil.copy2(old, tmp)
+                os.replace(tmp, target)
+        BUILD_DIR = new
+    return new
 
 
 def _lib_path(name: str) -> Path:
@@ -69,6 +112,7 @@ def build_all() -> Dict[str, Path]:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     exe = nvcc()
+    note_compile("nvcc", len(todo))
     t0 = time.perf_counter()
     procs = {}
     for n in todo:

@@ -188,6 +188,36 @@ class InProcessTransport:
                 from_right.append(None)
         return from_left, from_right
 
+    def permute_groups(self, slabs: Sequence[torch.Tensor], mesh: Mesh,
+                       perm: Sequence[Tuple[int, int]], attrs=None):
+        """One move between the ensemble groups of ``mesh`` (the member
+        repack's round, ``parallel/reshard.py``): for each pair ``(i, j)``
+        of ``perm``, the slab of every shard of group i goes to the shard
+        of group j at the same spatial coordinate, on that shard's device.
+        ``slabs`` holds one slab per local shard in ``mesh.local_coords()``
+        order; returns the received slab of each (None where no group
+        sends to it).  Every shard's block is held in this process."""
+        src_of = {j: i for i, j in perm}
+        coords = mesh.local_coords()
+        got: List[Optional[torch.Tensor]] = []
+        for c in coords:
+            i = src_of.get(mesh.group(c))
+            if i is None:
+                got.append(None)
+                continue
+            src = slabs[mesh.local_index((i,) + mesh.spatial(c))]
+            got.append(src.to(mesh.device(c), non_blocking=True))
+        self.stats["shifts"] += 1
+        self.stats["bytes"] += sum(
+            s.numel() * s.element_size() for c, s in zip(coords, slabs)
+            if mesh.group(c) in {i for i, j in perm if i != j})
+        launchcheck.note("member_post", reads=list(slabs),
+                         writes=[g for g in got if g is not None],
+                         shards=mesh.ensemble, transport=self.backend,
+                         mesh=id(mesh), mesh_shape=tuple(mesh.full_shape),
+                         attrs=dict(attrs or {}))
+        return got
+
 
 _TRANSPORT = InProcessTransport()
 

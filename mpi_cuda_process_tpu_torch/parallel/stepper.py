@@ -180,6 +180,7 @@ def gather_fields(fields: Fields, device=None) -> Fields:
         g = torch.empty(f.global_shape, dtype=f.dtype, device=dev)
         for c, b in zip(f.mesh.coords(), f):
             g[_slices(f.offsets(c), b.shape)].copy_(b)
+        launchcheck.note("gather", reads=list(f), writes=g)
         out.append(g)
     return tuple(out)
 

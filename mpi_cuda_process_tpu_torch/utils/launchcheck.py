@@ -12,13 +12,15 @@ traced program, so it checks the same promises on a **recorded sequence**:
 inside :func:`record`, the transports' ``post`` and ``wait``
 (``parallel/halo.py``), the ring-exchange launches, and the steppers' calls
 to a kernel, an interior, a boundary shell or a splice
-(``parallel/stepper.py``, ``parallel/groups.py``) each append a
-:class:`Record`: the op, the axis and the mesh it names, the stream it was
-issued on, and the tensors it reads and writes.  The hooks sit at the
-dispatch boundary, not in the kernels' ctypes wrappers, so the CPU (where
-the plain versions run) records the same sequence as the card.  Outside
-:func:`record` every hook is one global check: no launch, no synchronize,
-nothing else added to a step.
+(``parallel/stepper.py``, ``parallel/groups.py``) and the member repack's
+moves (``parallel/reshard.py``) each append a :class:`Record`: the op, the
+axis and the mesh it names, the stream it was issued on, and the tensors it
+reads and writes.  The hooks sit at the dispatch boundary, not in the
+kernels' ctypes wrappers, so the CPU (where the plain versions run) records
+the same sequence as the card.  A recorder takes the ops of the thread that
+opened it, so a serving engine's class threads (``serving/scheduler.py``)
+each record their own.  Outside :func:`record` every hook is one global
+check: no launch, no synchronize, nothing else added to a step.
 
 An exchange is a ``post`` / ``wait`` along an axis of more than one shard;
 a shift along an axis of one shard (a local fill or wrap, and the
@@ -34,21 +36,24 @@ The checks keep the TPU package's names where the promise is the same:
 :func:`check_ensemble_structure`, :func:`assert_coupled_structure` /
 :func:`check_coupled_structure`, :func:`assert_group_transport_structure` /
 :func:`check_group_transport_structure` and
-:func:`check_pipeline_structure`.  ``assert_reshard_structure`` and
-``assert_member_repack_structure`` come with ``parallel/reshard.py``
-(ROADMAP A8, policy).
+:func:`check_pipeline_structure`, and
+:func:`assert_member_repack_structure` (the serving ladder's member
+repack, ``parallel/reshard.py``).  ``assert_reshard_structure`` comes with
+the rest of ``parallel/reshard.py`` (ROADMAP A8, policy).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
-# the recorder in effect, or None: every hook's one global check
-_ACTIVE: Optional["Recorder"] = None
+# thread id -> the recorder that thread opened; empty when none records:
+# every hook's one global check
+_ACTIVE: Dict[int, "Recorder"] = {}
 
 
 @dataclasses.dataclass
@@ -57,7 +62,8 @@ class Record:
     the mesh a ``post``/``wait``/``ring`` names (> 1: an exchange);
     ``bytes`` a post's payload for one shard (its hi and lo slab);
     ``reads``/``writes`` the ids of the tensors, ``read_storage`` /
-    ``write_storage`` the data pointers of their storages."""
+    ``write_storage`` the data pointers of their storages, ``max_elems``
+    the elements of the largest of them."""
 
     index: int
     op: str
@@ -74,6 +80,7 @@ class Record:
     read_storage: frozenset = frozenset()
     write_storage: frozenset = frozenset()
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    max_elems: int = 0
 
 
 class Recorder:
@@ -102,7 +109,9 @@ class Recorder:
                      writes=tuple(id(t) for t in wt),
                      read_storage=frozenset(_storage(t) for t in rt),
                      write_storage=frozenset(_storage(t) for t in wt),
-                     attrs=attrs, **kw)
+                     attrs=attrs,
+                     max_elems=max((t.numel() for t in rt + wt), default=0),
+                     **kw)
         self.records.append(rec)
         return rec
 
@@ -128,51 +137,59 @@ def _storage(t: torch.Tensor) -> int:
 
 @contextlib.contextmanager
 def record() -> Iterator[Recorder]:
-    """Record every hooked op issued inside the block (one recorder at a
-    time: a nested block raises)."""
-    global _ACTIVE
-    if _ACTIVE is not None:
+    """Record every hooked op this thread issues inside the block (one
+    recorder a thread at a time: a nested block raises)."""
+    me = threading.get_ident()
+    if me in _ACTIVE:
         raise RuntimeError("launchcheck.record() does not nest")
     rec = Recorder()
-    _ACTIVE = rec
+    _ACTIVE[me] = rec
     try:
         yield rec
     finally:
-        _ACTIVE = None
+        del _ACTIVE[me]
+
+
+def _current() -> Optional[Recorder]:
+    """This thread's recorder, or None."""
+    return _ACTIVE.get(threading.get_ident()) if _ACTIVE else None
 
 
 def active() -> bool:
-    return _ACTIVE is not None
+    return _current() is not None
 
 
 def note(op: str, reads=(), writes=(), **kw) -> None:
     """Append one op (a stepper's kernel, interior, shell, splice, band or
-    put) when recording; nothing else otherwise."""
-    if _ACTIVE is None:
-        return
-    _ACTIVE.add(op, reads, writes, **kw)
+    put; a member repack's move) when recording; nothing else
+    otherwise."""
+    rec = _current()
+    if rec is not None:
+        rec.add(op, reads, writes, **kw)
 
 
 def note_post(transport: str, hi, lo, mesh, axis: int,
               shards: int) -> Optional[Record]:
     """A transport's ``post``: the record its pending shift's ``wait``
     refers back to (None when not recording)."""
-    if _ACTIVE is None:
+    rec = _current()
+    if rec is None:
         return None
     payload = 0
     if hi and lo:
         payload = hi[0].numel() * hi[0].element_size() \
             + lo[0].numel() * lo[0].element_size()
-    return _ACTIVE.add("post", reads=(hi, lo), axis=axis, mesh=id(mesh),
+    return rec.add("post", reads=(hi, lo), axis=axis, mesh=id(mesh),
                        mesh_shape=tuple(mesh.shape), shards=int(shards),
                        transport=transport, bytes=payload)
 
 
 def note_wait(posted: Optional[Record], pair) -> None:
     """A pending shift's ``wait``: its received slabs are what it writes."""
-    if _ACTIVE is None or posted is None:
+    rec = _current()
+    if rec is None or posted is None:
         return
-    _ACTIVE.add("wait", writes=pair, axis=posted.axis, mesh=posted.mesh,
+    rec.add("wait", writes=pair, axis=posted.axis, mesh=posted.mesh,
                 mesh_shape=posted.mesh_shape, shards=posted.shards,
                 transport=posted.transport,
                 attrs={"post": posted.index})
@@ -181,17 +198,19 @@ def note_wait(posted: Optional[Record], pair) -> None:
 def side_scope():
     """Mark the ops issued inside as the side stream's (the overlapped
     steps' exchange copies); a null context when not recording."""
-    if _ACTIVE is None:
+    rec = _current()
+    if rec is None:
         return contextlib.nullcontext()
-    return _scoped(_ACTIVE._stream, "side")
+    return _scoped(rec._stream, "side")
 
 
 def tag(**attrs):
     """Attach ``attrs`` (a coupled run's ``group`` or ``phase``) to every
     record made inside; a null context when not recording."""
-    if _ACTIVE is None:
+    rec = _current()
+    if rec is None:
         return contextlib.nullcontext()
-    return _scoped(_ACTIVE._tags, attrs)
+    return _scoped(rec._tags, attrs)
 
 
 @contextlib.contextmanager
@@ -626,3 +645,68 @@ def check_group_transport_structure(
     """:func:`check_coupled_structure` under the collective transport."""
     return check_coupled_structure(groups, grid, "collective", device,
                                    n_devices)
+
+
+# the ops of a member repack (``parallel/reshard.py``): the local form's
+# gather of the surviving slots into the zeroed destination block, and the
+# collective form's rounds, each a transport move between member-shard
+# blocks or, for an identity round, a copy inside each block
+REPACK_OPS = ("repack_move", "member_post", "repack_stay")
+# ops that hold a whole field on one device: a host gather of a sharded
+# field (``stepper.gather_fields``) or an all-gather
+GATHER_OPS = ("gather", "all_gather")
+
+
+def assert_member_repack_structure(records: Sequence[Record], plan,
+                                   n_fields: int,
+                                   grid_shape: Tuple[int, ...] = ()
+                                   ) -> Dict[str, int]:
+    """The serving defrag gate, the counterpart of the TPU package's
+    ``jaxprcheck.assert_member_repack_structure``: re-packing occupied
+    member slots (``parallel/reshard.repack_members``) moves state device
+    to device only.
+
+    1. **No gather** — the recorded sequence holds no ``gather`` /
+       ``all_gather``: defrag never collects the member axis (or the grid)
+       in one place.
+    2. **Exact round count**: ``plan.n_comm_rounds`` transport rounds
+       (``member_post``) a field.  A plan whose member axis is not split
+       over member shards schedules none: the local form is pinned too.
+    3. **No full-member-axis block**: when the plan runs on a mesh of
+       more than one shard, every tensor a record touches holds fewer
+       elements than the larger of the two global fields (members x
+       grid).
+
+    The sequence must hold the repack's moves (one record at least a
+    field when the plan moves a slot)."""
+    gathers = [r for r in records if r.op in GATHER_OPS]
+    assert not gathers, (
+        f"member-repack sequence holds {len(gathers)} gather op(s) "
+        f"({gathers[0].op!r} at record {gathers[0].index}) — defrag must "
+        "never collect state in one place")
+    n_rounds = sum(1 for r in records if r.op == "member_post")
+    expected = plan.n_comm_rounds * n_fields
+    assert n_rounds == expected, (
+        f"member-repack sequence holds {n_rounds} transport round(s), the "
+        f"plan schedules {expected} ({plan.n_comm_rounds} non-identity "
+        f"round(s) x {n_fields} field(s))")
+    moves = [r for r in records if r.op in REPACK_OPS]
+    if plan.slot_map:
+        fields = {r.attrs.get("field") for r in moves}
+        assert len(fields) >= n_fields, (
+            f"member-repack sequence moves {len(fields)} field(s), not "
+            f"{n_fields}: the repack was not recorded")
+    cells = 1
+    for s in grid_shape:
+        cells *= int(s)
+    max_global = max(plan.n_src, plan.n_dst) * cells
+    max_local = 0
+    if plan.mesh is not None and plan.mesh.size > 1:
+        for r in records:
+            max_local = max(max_local, r.max_elems)
+            assert r.max_elems < max_global, (
+                f"member-repack record {r.index} ({r.op!r}) touches a "
+                f"tensor of {r.max_elems} elements >= the global field "
+                f"({max_global}): a device held the whole member axis")
+    return {"n_rounds": n_rounds, "n_gathers": len(gathers),
+            "max_local_elems": max_local, "global_size": max_global}

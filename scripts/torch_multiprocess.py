@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Decomposition across processes on one NVIDIA card, alone: chip_smoke.py's
-phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l), repeated.
+phase 5d (or 5e, 5f, 5g, 5h, 5i, 5j, 5k, 5l, 5m), repeated.
 
     python3 scripts/torch_multiprocess.py [--repeat N]
-        [--phase 5d|5e|5f|5g|5h|5i|5j|5k|5l]
+        [--phase 5d|5e|5f|5g|5h|5i|5j|5k|5l|5m]
 
 Builds the kernels, then runs ``chip_smoke.multiprocess_phase`` N times
 (default 2) in one process: every ``chip_smoke.MP_RUNS`` run (BASELINE
@@ -51,7 +51,13 @@ processes whose process 0 serves 4 ``hosts`` rows.  ``--phase 5l`` runs
 1 runs against each run's own exchange and a recorded pass, the roofline
 gap, the launch checks on recorded passes, and ``--supervise`` (a hang and
 a SIGKILL, each resumed bit-equal to the twin, and a permanent hang giving
-up with the card probe's verdict, all three at once).
+up with the card probe's verdict, all three at once).  ``--phase 5m`` runs
+``chip_smoke.serving_phase``: one ``ServingEngine`` over config 2, config
+1 and config 3's layout as size classes (grow, shrink, preemption,
+cancels, an eviction, a warm class that builds nothing, an over-budget
+class refused) and a 2-replica ``ServingRouter`` with a replica killed,
+every finished job bit-equal to its solo run, with served ms/step beside
+the ``--ensemble 8`` twin, ttfc cold and warm and each repack's ms.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--repeat", type=int, default=2)
     p.add_argument("--phase", choices=["5d", "5e", "5f", "5g", "5h", "5i", "5j",
-                                        "5k", "5l"],
+                                        "5k", "5l", "5m"],
                    default="5d")
     args = p.parse_args()
     import torch
@@ -114,6 +120,12 @@ def main() -> int:
             out = cs.peer_ring_phase(counted, lines, {}, scratch)
             cs.emit({"phase": "peer_ring", "repeat": rep,
                      "runs": len(out["runs"]), "nccl": out["nccl"],
+                     "seconds": time.perf_counter() - t0})
+            continue
+        if args.phase == "5m":
+            out = cs.serving_phase(counted, lines, {}, scratch)
+            cs.emit({"phase": "serving", "repeat": rep,
+                     "launches": out["launches"],
                      "seconds": time.perf_counter() - t0})
             continue
         if args.phase == "5l":

@@ -23,6 +23,7 @@ from mpi_cuda_process_tpu.utils import checkpointing as jckpt
 
 from mpi_cuda_process_tpu_torch import cli as tcli
 from mpi_cuda_process_tpu_torch.config import RunConfig
+from mpi_cuda_process_tpu_torch.ops.cuda import _build
 from mpi_cuda_process_tpu_torch.ops.cuda import fused as tfused
 from mpi_cuda_process_tpu_torch.ops.cuda import kernels as tkernels
 from mpi_cuda_process_tpu_torch.ops.cuda import rawstep as trawstep
@@ -284,7 +285,8 @@ def test_unported_combinations_raise_naming_roadmap(extra, exc, match):
         tcli.main(args + extra)
 
 
-def test_unported_flags_are_not_registered_and_config_fields_refused():
+def test_unported_flags_are_not_registered_and_config_fields_refused(
+        tmp_path, monkeypatch):
     with pytest.raises(SystemExit):
         tcli.config_from_args(["--autotune"])
     # --supervise runs (ROADMAP A8, tests/test_torch_supervisor.py)
@@ -296,13 +298,19 @@ def test_unported_flags_are_not_registered_and_config_fields_refused():
     ).group_transport == "collective"
     # --serve runs (ROADMAP A8, tests/test_torch_serve.py)
     assert tcli.config_from_args(["--serve", "0"]).serve_port == 0
+    cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
+                    device="cpu", auto_policy=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcli.build(cfg)
+    # the serving flags and --compile-cache run (tests/test_torch_serving.py)
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     for field, value in (("serve_engine", 8080),
-                         ("auto_policy", True),
-                         ("compile_cache", "cache")):
+                         ("compile_cache", str(tmp_path / "cache"))):
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcli.build(cfg)
+        _, _, fields, _ = tcli.build(cfg)
+        assert tuple(fields[0].shape) == (8, 8, 8)
+    assert _build.BUILD_DIR == (tmp_path / "cache").resolve()
 
 
 def test_dispatch_tables_start_empty():

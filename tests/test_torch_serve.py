@@ -204,7 +204,7 @@ def test_serve_is_no_longer_refused_and_the_rest_still_are():
     assert "serve_port" not in {f for f, _, _ in tcli._UNPORTED}
     # --supervise runs too (tests/test_torch_supervisor.py)
     assert "supervise" not in {f for f, _, _ in tcli._UNPORTED}
-    assert len(tcli._UNPORTED) == 7
+    assert len(tcli._UNPORTED) == 4
     for field, _, _ in tcli._UNPORTED:
         cfg = RunConfig(stencil="heat3d", grid=(8, 8, 8), iters=2,
                         device="cpu", **{field: 1})
